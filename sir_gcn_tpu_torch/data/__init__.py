@@ -1,0 +1,5 @@
+from .loaders import (
+    NodeClassificationData,
+    load_node_classification,
+    synthetic_node_classification,
+)

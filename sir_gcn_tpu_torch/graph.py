@@ -1,0 +1,172 @@
+"""Static-shape graph containers (PyTorch port of ``sir_gcn_tpu/graph.py``).
+
+A :class:`GraphBatch` holds a graph's structure as tensors on one device,
+plus NumPy mirrors of the same arrays (``host``) so that the host-side ELL
+planner (``ops/ell.py``) reads the structure without a device-to-host copy.
+
+Layout (identical to the JAX package, so the two can be compared array for
+array):
+  * edges in COO (``src``, ``dst``) sorted by dst, stable in input order,
+    with a CSR ``row_ptr`` over dst;
+  * padding nodes and edges appended at the end and tracked by masks;
+    padding edges point at the last padded node so dst stays sorted.
+
+Graph transforms (reverse / bidirect / self-loops) are host-side NumPy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphBatch:
+    """A (possibly batched) graph with static padded shapes.
+
+    src, dst : int32 [E_pad], sorted by dst; messages flow src -> dst.
+    edge_perm : int32 [E_pad], sorted-edge position -> original edge id.
+    row_ptr : int32 [N_pad + 1], CSR pointers over dst.
+    node_mask, edge_mask, graph_mask : bool validity masks.
+    node2graph : int32 [N_pad], graph id per node.
+    num_nodes, num_edges, num_graphs : int, the true (unpadded) counts.
+    in_deg, out_deg : float32 [N_pad], true degrees (0 on padding).
+    host : NumPy copies of the array fields, keyed by field name.
+    """
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    edge_perm: torch.Tensor
+    row_ptr: torch.Tensor
+    node_mask: torch.Tensor
+    edge_mask: torch.Tensor
+    graph_mask: torch.Tensor
+    node2graph: torch.Tensor
+    num_nodes: int
+    num_edges: int
+    num_graphs: int
+    in_deg: torch.Tensor
+    out_deg: torch.Tensor
+    host: dict = dataclasses.field(repr=False, compare=False)
+
+    @property
+    def n_pad(self) -> int:
+        return self.node_mask.shape[0]
+
+    @property
+    def e_pad(self) -> int:
+        return self.edge_mask.shape[0]
+
+    @property
+    def g_pad(self) -> int:
+        return self.graph_mask.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.src.device
+
+
+def build_graph(
+    src: np.ndarray,
+    dst: np.ndarray,
+    num_nodes: int,
+    *,
+    n_pad: Optional[int] = None,
+    e_pad: Optional[int] = None,
+    node2graph: Optional[np.ndarray] = None,
+    num_graphs: int = 1,
+    g_pad: Optional[int] = None,
+    pad_multiple: int = 8,
+    device: torch.device | str = "cpu",
+) -> GraphBatch:
+    """Build a :class:`GraphBatch` from a COO edge list on the host and
+    place its tensors on ``device``."""
+    src = np.asarray(src, dtype=np.int32)
+    dst = np.asarray(dst, dtype=np.int32)
+    num_edges = int(src.shape[0])
+    if n_pad is None:
+        n_pad = max(_round_up(max(num_nodes, 1), pad_multiple), pad_multiple)
+    if e_pad is None:
+        e_pad = max(_round_up(max(num_edges, 1), pad_multiple), pad_multiple)
+    if g_pad is None:
+        g_pad = num_graphs
+    if not (n_pad >= num_nodes and e_pad >= num_edges
+            and g_pad >= num_graphs):
+        raise ValueError(
+            f"padding ({n_pad}, {e_pad}, {g_pad}) below the true counts "
+            f"({num_nodes}, {num_edges}, {num_graphs})")
+
+    order = np.argsort(dst, kind="stable").astype(np.int32)
+    s_src = src[order]
+    s_dst = dst[order]
+
+    pad_e = e_pad - num_edges
+    pad_node = n_pad - 1
+    p_src = np.concatenate([s_src, np.full(pad_e, pad_node, np.int32)])
+    p_dst = np.concatenate([s_dst, np.full(pad_e, pad_node, np.int32)])
+    p_perm = np.concatenate([order, np.zeros(pad_e, np.int32)])
+
+    counts = np.bincount(p_dst, minlength=n_pad)
+    row_ptr = np.zeros(n_pad + 1, np.int32)
+    np.cumsum(counts, out=row_ptr[1:])
+
+    node_mask = np.arange(n_pad) < num_nodes
+    edge_mask = np.arange(e_pad) < num_edges
+    graph_mask = np.arange(g_pad) < num_graphs
+
+    if node2graph is None:
+        n2g = np.zeros(n_pad, np.int32)
+        n2g[~node_mask] = g_pad - 1
+    else:
+        n2g = np.full(n_pad, g_pad - 1, np.int32)
+        n2g[:num_nodes] = np.asarray(node2graph, dtype=np.int32)[:num_nodes]
+
+    in_deg = np.bincount(s_dst, minlength=n_pad).astype(np.float32)
+    out_deg = np.bincount(s_src, minlength=n_pad).astype(np.float32)
+    in_deg[~node_mask] = 0.0
+    out_deg[~node_mask] = 0.0
+
+    host = dict(src=p_src, dst=p_dst, edge_perm=p_perm, row_ptr=row_ptr,
+                node_mask=node_mask, edge_mask=edge_mask,
+                graph_mask=graph_mask, node2graph=n2g, in_deg=in_deg,
+                out_deg=out_deg)
+    dev = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    return GraphBatch(num_nodes=int(num_nodes), num_edges=num_edges,
+                      num_graphs=int(num_graphs), host=host, **dev)
+
+
+# ----------------------------------------------------------------------
+# Host-side graph transforms (reference: dgl.reverse / to_bidirected /
+# add_self_loop / remove_self_loop)
+# ----------------------------------------------------------------------
+
+def reverse_edges(src: np.ndarray, dst: np.ndarray):
+    return np.asarray(dst), np.asarray(src)
+
+
+def to_bidirected(src: np.ndarray, dst: np.ndarray):
+    """Union of edges and reversed edges, deduplicated, in first-seen
+    order (dgl.to_bidirected)."""
+    s = np.concatenate([src, dst]).astype(np.int64)
+    d = np.concatenate([dst, src]).astype(np.int64)
+    key = s * (max(int(s.max(initial=0)), int(d.max(initial=0))) + 1) + d
+    _, idx = np.unique(key, return_index=True)
+    idx.sort()
+    return s[idx], d[idx]
+
+
+def remove_self_loops(src: np.ndarray, dst: np.ndarray):
+    keep = src != dst
+    return src[keep], dst[keep]
+
+
+def add_self_loops(src: np.ndarray, dst: np.ndarray, num_nodes: int):
+    loop = np.arange(num_nodes, dtype=src.dtype if src.size else np.int64)
+    return np.concatenate([src, loop]), np.concatenate([dst, loop])
