@@ -3,7 +3,10 @@
   * ``linear_key`` has no bias; ``linear_query``'s bias is ``inner_bias``,
     ``linear_relation``'s is ``outer_bias`` (reference conv.py:36-38).
   * Dropout is applied to eq and ek before message formation.
-  * W_R is applied per node after the linear aggregation (conv.py:63-65).
+  * W_R is applied per node after the linear aggregation (conv.py:63-65),
+    and per edge before the reduce for max (conv.py:47), where it is the
+    explicit ``relation_kernel`` [H, O] and ``relation_bias`` [O] of the
+    JAX package's ``_relation_params``.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 from torch import nn
 
 from ..ops import message_passing as mp
-from .layers import Linear
+from .layers import Linear, uniform_parameter
 from .layers import dropout as apply_dropout
 
 
@@ -30,16 +33,15 @@ def expand_as_pair(feat):
 
 class SIRConv(nn.Module):
     r"""h*_u = agg_{v in N(u)} W_R sigma(W_Q h_u + W_K h_v)
-    (reference ``models/conv.py:7-67``), for agg_type sum, mean or sym."""
+    (reference ``models/conv.py:7-67``), for agg_type sum, mean, sym or
+    max."""
 
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
                  activation, dropout: float = 0.0, inner_bias: bool = True,
                  outer_bias: bool = True, agg_type: str = "sum",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if agg_type == "max":
-            raise NotImplementedError("max aggregation is not yet ported")
-        if agg_type not in ("sum", "mean", "sym"):
+        if agg_type not in ("sum", "mean", "sym", "max"):
             raise NotImplementedError(f"agg_type = {agg_type} not implemented")
         self.activation = activation
         self.dropout = dropout
@@ -48,8 +50,17 @@ class SIRConv(nn.Module):
                                    generator=generator)
         self.linear_key = Linear(input_dim, hidden_dim, bias=False,
                                  generator=generator)
-        self.linear_relation = Linear(hidden_dim, output_dim,
-                                      bias=outer_bias, generator=generator)
+        if agg_type == "max":
+            # W_R [H, O] in the JAX layout, for the kernels' per-edge product
+            self.relation_kernel = uniform_parameter(
+                (hidden_dim, output_dim), hidden_dim, generator)
+            self.relation_bias = (uniform_parameter(
+                (output_dim,), hidden_dim, generator) if outer_bias
+                else None)
+        else:
+            self.linear_relation = Linear(hidden_dim, output_dim,
+                                          bias=outer_bias,
+                                          generator=generator)
 
     def forward(self, graph, feat, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -58,5 +69,9 @@ class SIRConv(nn.Module):
                            self.training, generator)
         ek = apply_dropout(self.linear_key(feat_src), self.dropout,
                            self.training, generator)
+        if self.agg_type == "max":
+            return mp.sir_aggregate(graph, eq, ek, self.activation, "max",
+                                    w_relation=self.relation_kernel,
+                                    b_relation=self.relation_bias)
         agg = mp.sir_aggregate(graph, eq, ek, self.activation, self.agg_type)
         return self.linear_relation(agg)

@@ -14,6 +14,16 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def uniform_parameter(shape, fan_in: int,
+                      generator: Optional[torch.Generator] = None
+                      ) -> nn.Parameter:
+    """A parameter of ``shape`` drawn U(+-1/sqrt(fan_in)) from
+    ``generator``: PyTorch's default for Linear weights and biases, and
+    flax's ``torch_kernel_init``."""
+    u = torch.rand(*shape, generator=generator)
+    return nn.Parameter((2.0 * u - 1.0) * (1.0 / math.sqrt(fan_in)))
+
+
 class Linear(nn.Module):
     """``nn.Linear`` with weight [out, in] and bias [out], both drawn
     U(+-1/sqrt(in_features)) from ``generator``."""
@@ -22,14 +32,10 @@ class Linear(nn.Module):
                  bias: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        bound = 1.0 / math.sqrt(in_features)
-
-        def uniform(*shape):
-            u = torch.rand(*shape, generator=generator)
-            return nn.Parameter((2.0 * u - 1.0) * bound)
-
-        self.weight = uniform(out_features, in_features)
-        self.bias = uniform(out_features) if bias else None
+        self.weight = uniform_parameter((out_features, in_features),
+                                        in_features, generator)
+        self.bias = (uniform_parameter((out_features,), in_features,
+                                       generator) if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)

@@ -7,6 +7,14 @@ from .kernels import (
     ell_act_reduce,
     ell_act_reduce2,
     ell_act_reduce_plain,
+    ell_max_bwd,
+    ell_max_bwd_plain,
+    ell_max_fwd,
+    ell_max_fwd_plain,
+    ell_max_wincount,
+    ell_max_wincount_plain,
+    ell_scaled_reduce,
+    ell_scaled_reduce_plain,
     ell_src_bwd,
     ell_src_bwd_plain,
     on_cuda,

@@ -17,10 +17,16 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
-SOURCES = {"ell_kernels": _PKG / "csrc" / "ell_kernels.cu"}
+SOURCES = {"ell_kernels": _PKG / "csrc" / "ell_kernels.cu",
+           "ell_max_kernels": _PKG / "csrc" / "ell_max_kernels.cu"}
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# Flags of one source on top of NVCC_FLAGS. The max kernels test products
+# for equality across kernels, so nvcc may fuse no multiply-add of its own
+# there: each fused one is written out (__fmaf_rn).
+EXTRA_FLAGS = {"ell_max_kernels": ["--fmad=false"]}
 
 _LIBS: dict = {}
 _LOGS: dict = {}
@@ -37,9 +43,13 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 
@@ -53,7 +63,8 @@ def build_all() -> dict:
         if not lib.exists():
             lib.parent.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+            cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
+                   str(SOURCES[name])]
             pending[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, lib)

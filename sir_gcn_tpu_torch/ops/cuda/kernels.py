@@ -1,5 +1,6 @@
-"""Wrappers of the ELL CUDA kernels (``csrc/ell_kernels.cu``) and their
-plain PyTorch versions (port of ``sir_gcn_tpu/ops/pallas/kernels.py``).
+"""Wrappers of the ELL CUDA kernels (``csrc/ell_kernels.cu`` for the
+linear aggregations, ``csrc/ell_max_kernels.cu`` for max) and their plain
+PyTorch versions (port of ``sir_gcn_tpu/ops/pallas/kernels.py``).
 
 A wrapper takes the node tables and one plan's slot arrays, checks them,
 and on CUDA tensors launches its kernel on the current stream; on CPU
@@ -26,7 +27,9 @@ import ctypes
 import numpy as np
 import torch
 
-LAUNCHES = {"ell_act_reduce": 0, "ell_act_reduce2": 0, "ell_src_bwd": 0}
+LAUNCHES = {"ell_act_reduce": 0, "ell_act_reduce2": 0, "ell_src_bwd": 0,
+            "ell_max_fwd": 0, "ell_max_wincount": 0, "ell_max_bwd": 0,
+            "ell_scaled_reduce": 0}
 
 
 def reset_launch_counts() -> None:
@@ -35,43 +38,66 @@ def reset_launch_counts() -> None:
 
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# library -> entry -> argument types (the stream last)
 _ARGTYPES = {
-    "ell_act_reduce": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP,
-                       _VP],
-    "ell_act_reduce2": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _F,
-                        _VP, _VP, _VP],
-    "ell_src_bwd": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F,
-                    _VP, _VP],
+    "ell_kernels": {
+        "ell_act_reduce": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _F,
+                           _VP, _VP],
+        "ell_act_reduce2": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _F,
+                            _VP, _VP, _VP],
+        "ell_src_bwd": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F,
+                        _VP, _VP],
+    },
+    "ell_max_kernels": {
+        "ell_max_fwd": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                        _F, _VP, _VP],
+        "ell_max_wincount": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I,
+                             _I, _I, _I, _F, _VP, _VP],
+        "ell_max_bwd": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
+                        _I, _I, _I, _F, _I, _VP, _VP, _VP, _VP, _VP],
+        "ell_scaled_reduce": [_VP, _I, _VP, _VP, _VP, _I, _I, _VP, _VP],
+    },
 }
+# entries that launch nothing and return an int
+_QUERIES = {"ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 5}}
+_ERROR_STRING = {"ell_kernels": "ell_error_string",
+                 "ell_max_kernels": "ell_max_error_string"}
+_LIBRARY_OF = {entry: lib for lib, entries in _ARGTYPES.items()
+               for entry in entries}
+
+_LIBS: dict = {}
+# ell_max_bwd's grid size per (device, R, H, O, act, bf16): fixed for a
+# model and its plan, so the occupancy query runs once
+_BWD_BLOCKS: dict = {}
 
 
-_LIB = None
-
-
-def _library() -> ctypes.CDLL:
-    """The kernel library with typed entries, built at first use."""
-    global _LIB
-    if _LIB is None:
+def _library(name: str) -> ctypes.CDLL:
+    """The kernel library ``name`` with typed entries, built at first
+    use."""
+    if name not in _LIBS:
         from .build import load
 
-        lib = load("ell_kernels")
-        for name, argtypes in _ARGTYPES.items():
-            fn = getattr(lib, name)
+        lib = load(name)
+        entries = {**_ARGTYPES[name], **_QUERIES.get(name, {})}
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.ell_error_string.argtypes = [ctypes.c_int]
-        lib.ell_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        err = getattr(lib, _ERROR_STRING[name])
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return _LIBS[name]
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    lib = _library()
+    lib_name = _LIBRARY_OF[name]
+    lib = _library(lib_name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = getattr(lib, name)(*args, stream)
     if code != 0:
-        msg = lib.ell_error_string(code).decode()
+        msg = getattr(lib, _ERROR_STRING[lib_name])(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
     LAUNCHES[name] += 1
 
@@ -267,4 +293,219 @@ def ell_src_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr, act):
             int(eq.dtype == torch.bfloat16), _ptr(ek), _ptr(slot_dst),
             _ptr(scale), _ptr(row_key), _ptr(row_ptr), r, h, act.kernel_id,
             float(act.param), _ptr(out))
+    return out
+
+
+# ----------------------------------------------------------------------
+# #9-#12: max aggregation (W_R per slot before the reduce)
+# ----------------------------------------------------------------------
+#
+# The max wrappers take the dst plan's slot arrays as the linear ones do,
+# plus W [H, O] f32 and, for the backward, node-level tables: key_max
+# [N, O] (the key-level max, pre-bias) and gsc [N, O] (the cotangent split
+# over tied winners). The kernels read a row's key_max and gsc rows through
+# row_key, where the Pallas kernels take them pre-gathered per row.
+
+NEG = torch.finfo(torch.float32).min
+
+
+def slot_products(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [n, H] @ w [H, O] in f32, summed over h in increasing order with
+    one rounded multiply and one rounded add per term. Each output row
+    then depends on its own values only: a library GEMM may round equal
+    rows differently in products of other shapes (one per bucket), which
+    would split the exact ties that duplicated edges make."""
+    m = a[:, :1] * w[0]
+    for h in range(1, a.shape[1]):
+        m = m + a[:, h:h + 1] * w[h]
+    return m
+
+
+def bucket_products(eq, ek, slot_src, scale, row_key, w, act, buckets):
+    """Per bucket: (rows nr, row offset, z [nr, b, H], a = act(z),
+    m = a @ w [nr, b, O], slot validity [nr, b, 1]), as the Pallas max
+    kernels compute them, with ``slot_products`` for m."""
+    h, o = w.shape
+    ekg = ek.index_select(0, slot_src)
+    eq_rows = eq.index_select(0, row_key)
+    for b, nr, so, ro in bucket_offsets(buckets):
+        z = (ekg[so:so + b * nr].float().reshape(nr, b, h)
+             + eq_rows[ro:ro + nr, None, :])
+        a = act(z)
+        m = slot_products(a.reshape(nr * b, h), w).reshape(nr, b, o)
+        valid = scale[so:so + b * nr].reshape(nr, b, 1) > 0
+        yield nr, ro, z, a, m, valid
+
+
+def ell_max_fwd_plain(eq, ek, slot_src, scale, row_key, row_ptr, w, act,
+                      buckets=None):
+    """Plain version of ``ell_max_fwd``, bucket by bucket."""
+    buckets = _buckets(row_ptr) if buckets is None else buckets
+    return torch.cat([
+        torch.where(valid, m, NEG).amax(1) for _, _, _, _, m, valid in
+        bucket_products(eq, ek, slot_src, scale, row_key, w, act, buckets)])
+
+
+def ell_max_wincount_plain(eq, ek, slot_src, scale, row_key, row_ptr, w,
+                           key_max, act, buckets=None):
+    """Plain version of ``ell_max_wincount``, bucket by bucket."""
+    buckets = _buckets(row_ptr) if buckets is None else buckets
+    ref = key_max.index_select(0, row_key)
+    return torch.cat([
+        ((m == ref[ro:ro + nr, None, :]) & valid).float().sum(1)
+        for nr, ro, _, _, m, valid in
+        bucket_products(eq, ek, slot_src, scale, row_key, w, act, buckets)])
+
+
+def ell_max_bwd_plain(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max,
+                      gsc, act, buckets=None):
+    """Plain version of ``ell_max_bwd``, bucket by bucket."""
+    buckets = _buckets(row_ptr) if buckets is None else buckets
+    h, o = w.shape
+    ref = key_max.index_select(0, row_key)
+    gsc_rows = gsc.index_select(0, row_key)
+    geq, gz = [], []
+    gw = torch.zeros_like(w)
+    for nr, ro, z, a, m, valid in bucket_products(
+            eq, ek, slot_src, scale, row_key, w, act, buckets):
+        win = ((m == ref[ro:ro + nr, None, :]) & valid).float()
+        g_m = (win * gsc_rows[ro:ro + nr, None, :]).reshape(-1, o)
+        gw += a.reshape(-1, h).T @ g_m
+        g_z = act.grad(z) * (g_m @ w.T).reshape(z.shape)
+        geq.append(g_z.sum(1))
+        gz.append(g_z.reshape(-1, h).to(ek.dtype))
+    return torch.cat(geq), torch.cat(gz), gw
+
+
+def _check_max(eq, ek, slot_src, scale, row_key, row_ptr, w, node_tables):
+    device = eq.device
+    _check("eq", eq, _F32, 2, device)
+    _check("ek", ek, _EDGE, 2, device)
+    _check("w", w, _F32, 2, device)
+    if ek.shape[1] != eq.shape[1] or w.shape[0] != eq.shape[1]:
+        raise ValueError(f"eq {tuple(eq.shape)}, ek {tuple(ek.shape)} and w "
+                         f"{tuple(w.shape)} do not match")
+    for name, t in node_tables.items():
+        _check(name, t, _F32, 2, device)
+        if t.shape != (eq.shape[0], w.shape[1]):
+            raise ValueError(f"{name} {tuple(t.shape)} is not [N, O] = "
+                             f"{(eq.shape[0], w.shape[1])}")
+    _check_plan(slot_src, scale, row_key, row_ptr, device)
+    return device, row_key.shape[0], eq.shape[1], w.shape[1]
+
+
+def ell_max_fwd(eq, ek, slot_src, scale, row_key, row_ptr, w, act):
+    """rows[r, o] = max over the valid slots s of row r (scale > 0) of
+    (act(eq[row_key[r]] + ek[slot_src[s]]) @ w)[o], f32; the f32 min where
+    row r has no valid slot. eq [N, H] f32, ek [N, H] f32 or bf16, w [H, O]
+    f32; no bias.
+
+    Replaces ``bucket_max_gemm_fwd`` (sir_gcn_tpu/ops/pallas/kernels.py),
+    one launch for all buckets. Bound: operations, 2 H O flops per slot."""
+    device, r, h, o = _check_max(eq, ek, slot_src, scale, row_key, row_ptr,
+                                 w, {})
+    if not on_cuda(device):
+        return ell_max_fwd_plain(eq, ek, slot_src, scale, row_key, row_ptr,
+                                 w, act)
+    out = torch.empty((r, o), dtype=torch.float32, device=device)
+    _launch("ell_max_fwd", device, _ptr(eq), _ptr(ek),
+            int(ek.dtype == torch.bfloat16), _ptr(slot_src), _ptr(scale),
+            _ptr(row_key), _ptr(row_ptr), _ptr(w), r, h, o, act.kernel_id,
+            float(act.param), _ptr(out))
+    return out
+
+
+def ell_max_wincount(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max,
+                     act):
+    """counts[r, o] = the number of valid slots of row r whose product m
+    equals key_max[row_key[r], o] exactly: the tie count of the backward.
+    key_max [N, O] f32 must come from the same computation of m (its own
+    ``ell_max_fwd`` and max finalize).
+
+    Replaces ``bucket_max_wincount``. Bound: operations, as the forward."""
+    device, r, h, o = _check_max(eq, ek, slot_src, scale, row_key, row_ptr,
+                                 w, {"key_max": key_max})
+    if not on_cuda(device):
+        return ell_max_wincount_plain(eq, ek, slot_src, scale, row_key,
+                                      row_ptr, w, key_max, act)
+    out = torch.empty((r, o), dtype=torch.float32, device=device)
+    _launch("ell_max_wincount", device, _ptr(eq), _ptr(ek),
+            int(ek.dtype == torch.bfloat16), _ptr(slot_src), _ptr(scale),
+            _ptr(row_key), _ptr(row_ptr), _ptr(w), _ptr(key_max), r, h, o,
+            act.kernel_id, float(act.param), _ptr(out))
+    return out
+
+
+def ell_max_bwd(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max, gsc,
+                act):
+    """The max backward: with g_m[s, o] = gsc[key, o] where slot s is valid
+    and m[s, o] == key_max[key, o] (else 0), returns
+
+        geq_rows [R, H] f32   sum over row r's slots of g_z
+        g_z      [S, H]       act'(z) * (g_m @ w.T), in ek's dtype
+        g_w      [H, O] f32   sum over all slots of a^T g_m
+
+    Replaces ``bucket_max_gemm_bwd``. Bound: operations, 6 H O flops per
+    slot. g_w is summed per block and then over blocks in a fixed order,
+    so it is the same from run to run."""
+    device, r, h, o = _check_max(eq, ek, slot_src, scale, row_key, row_ptr,
+                                 w, {"key_max": key_max, "gsc": gsc})
+    if not on_cuda(device):
+        return ell_max_bwd_plain(eq, ek, slot_src, scale, row_key, row_ptr,
+                                 w, key_max, gsc, act)
+    bf16 = int(ek.dtype == torch.bfloat16)
+    key = (device.index, r, h, o, act.kernel_id, bf16)
+    if key not in _BWD_BLOCKS:
+        with torch.cuda.device(device):
+            _BWD_BLOCKS[key] = _library("ell_max_kernels").ell_max_bwd_blocks(
+                r, h, o, act.kernel_id, bf16)
+    blocks = _BWD_BLOCKS[key]
+    if blocks <= 0:
+        raise ValueError(f"ell_max_bwd cannot take H = {h}, O = {o}")
+    geq = torch.empty((r, h), dtype=torch.float32, device=device)
+    gz = torch.empty((slot_src.shape[0], h), dtype=ek.dtype, device=device)
+    part = torch.empty((blocks, h * o), dtype=torch.float32, device=device)
+    gw = torch.empty((h, o), dtype=torch.float32, device=device)
+    _launch("ell_max_bwd", device, _ptr(eq), _ptr(ek), bf16, _ptr(slot_src),
+            _ptr(scale), _ptr(row_key), _ptr(row_ptr), _ptr(w),
+            _ptr(key_max), _ptr(gsc), r, h, o, act.kernel_id,
+            float(act.param), blocks, _ptr(geq), _ptr(gz), _ptr(part),
+            _ptr(gw))
+    return geq, gz, gw
+
+
+def ell_scaled_reduce_plain(values, slot_idx, scale, row_ptr, buckets=None):
+    """Plain version of ``ell_scaled_reduce``, bucket by bucket; slots with
+    scale 0 contribute 0 whatever they read."""
+    buckets = _buckets(row_ptr) if buckets is None else buckets
+    h = values.shape[1]
+    v = values.index_select(0, slot_idx).float() * scale[:, None]
+    v = torch.where(scale[:, None] != 0, v, 0.0)
+    return torch.cat([v[so:so + b * nr].reshape(nr, b, h).sum(1)
+                      for b, nr, so, _ in bucket_offsets(buckets)])
+
+
+def ell_scaled_reduce(values, slot_idx, scale, row_ptr):
+    """out[r] = sum over the slots s of row r of scale[s] *
+    values[slot_idx[s]], f32. values [*, H] f32 or bf16 (the dst-slot g_z
+    of ``ell_max_bwd``), slot_idx [S] int32 (``src_slot_from_dst_slot``),
+    scale [S] f32 (the src plan's slot validity).
+
+    Replaces ``bucket_scaled_reduce`` and the ``jnp.take`` that permuted
+    g_z into src-slot order before it. Bound: bytes."""
+    device = values.device
+    _check("values", values, _EDGE, 2, device)
+    _check("slot_idx", slot_idx, _I32, 1, device)
+    _check("scale", scale, _F32, 1, device)
+    _check("row_ptr", row_ptr, _I32, 1, device)
+    if scale.shape != slot_idx.shape:
+        raise ValueError(f"scale {tuple(scale.shape)} and slot_idx "
+                         f"{tuple(slot_idx.shape)} differ")
+    if not on_cuda(device):
+        return ell_scaled_reduce_plain(values, slot_idx, scale, row_ptr)
+    r, h = row_ptr.shape[0] - 1, values.shape[1]
+    out = torch.empty((r, h), dtype=torch.float32, device=device)
+    _launch("ell_scaled_reduce", device, _ptr(values),
+            int(values.dtype == torch.bfloat16), _ptr(slot_idx), _ptr(scale),
+            _ptr(row_ptr), r, h, _ptr(out))
     return out

@@ -14,10 +14,17 @@ On top of the plans, :func:`ell_sir_aggregate` computes
 with the three CUDA kernels of ``ops/cuda``: ``ell_act_reduce2`` for the
 forward when a gradient is taken (it also returns the derivative mass
 ``sbar``), ``ell_src_bwd`` for the key-side gradient, and
-``ell_act_reduce`` for the forward without a gradient. Each kernel walks all
-buckets of a plan in one launch through the plan's per-row slot pointer
-``row_ptr``. sigma must be in the activation registry below, whose entries
-carry a written derivative.
+``ell_act_reduce`` for the forward without a gradient.
+:func:`ell_sir_aggregate_max` computes the max aggregation
+
+    out[u] = max_{e in in(u)} sigma(eq[u] + ek[src_e]) @ W_R + b
+
+(0 for a node with no incoming edge) with four more: ``ell_max_fwd``,
+then in the backward ``ell_max_wincount``, ``ell_max_bwd`` and
+``ell_scaled_reduce``. Each kernel walks all buckets of a plan in one
+launch through the plan's per-row slot pointer ``row_ptr``. sigma must be
+in the activation registry below, whose entries carry a written
+derivative.
 """
 
 from __future__ import annotations
@@ -30,7 +37,16 @@ import torch
 import torch.nn.functional as F
 
 from ..graph import GraphBatch
-from .cuda import ell_act_reduce, ell_act_reduce2, ell_src_bwd
+from .cuda import (
+    ell_act_reduce,
+    ell_act_reduce2,
+    ell_max_bwd,
+    ell_max_fwd,
+    ell_max_wincount,
+    ell_scaled_reduce,
+    ell_src_bwd,
+)
+from .cuda.kernels import NEG
 from .cuda.kernels import bucket_offsets as _bucket_offsets
 
 MAX_BUDGET = 256
@@ -89,6 +105,24 @@ class ReducePlan:
         else:
             rows = rows1
         rows = torch.cat([rows, rows.new_zeros((1, rows.shape[-1]))])
+        return rows.index_select(0, self.key2row)
+
+    def finalize_rows_max(self, rows1: torch.Tensor) -> torch.Tensor:
+        """Stage-1 row maxes [R1, O] f32 -> [num_keys, O]: the hub second
+        stage takes the max over a key's chunk rows (invalid stage-2
+        entries read the f32 min), and empty keys read an appended row of
+        the f32 min (``ReducePlan._finalize(rows, "max", NEG)``)."""
+        neg = torch.finfo(rows1.dtype).min
+        if self.s2_gather is not None:
+            vals = torch.where(self.s2_valid[:, None] > 0,
+                               rows1.index_select(0, self.s2_gather),
+                               torch.full_like(rows1[:1], neg))
+            outs = [vals[so:so + b * nr].reshape(nr, b, -1).amax(1)
+                    for b, nr, so, _ in _bucket_offsets(self.buckets2)]
+            rows = outs[0] if len(outs) == 1 else torch.cat(outs)
+        else:
+            rows = rows1
+        rows = torch.cat([rows, torch.full_like(rows[:1], neg)])
         return rows.index_select(0, self.key2row)
 
     def spread(self, node_values: torch.Tensor) -> torch.Tensor:
@@ -252,7 +286,9 @@ class FastGraph:
     ``dst_plan`` reduces messages to dst nodes (forward), ``src_plan``
     reduces cotangents to src nodes (backward of the ek gather).
     ``dst_slot_srcnode`` [S_dst] is the src node of each dst slot and
-    ``src_slot_dstnode`` [S_src] the dst node of each src slot. The static
+    ``src_slot_dstnode`` [S_src] the dst node of each src slot;
+    ``src_slot_from_dst_slot`` [S_src] is the dst slot holding each src
+    slot's edge (0 on padding slots). The static
     per-slot scales (agg_type "sum"/"mean"/"sym" -> [S] f32, slot validity
     folded in) are precomputed on the host."""
 
@@ -261,6 +297,7 @@ class FastGraph:
     src_plan: ReducePlan
     dst_slot_srcnode: torch.Tensor
     src_slot_dstnode: torch.Tensor
+    src_slot_from_dst_slot: torch.Tensor
     dst_slot_scales: dict
     src_slot_scales: dict
 
@@ -316,8 +353,11 @@ def build_fast_graph(graph: GraphBatch,
     src_slot_edge = src_plan.host["slot_edge"]
     dvalid = dst_plan.host["slot_valid"] > 0
     svalid = src_plan.host["slot_valid"] > 0
-    host = dict(dst_slot_srcnode=src[dst_slot_edge].astype(np.int32),
-                src_slot_dstnode=dst[src_slot_edge].astype(np.int32))
+    edge2dst_slot = np.zeros(graph.e_pad, np.int64)
+    edge2dst_slot[dst_slot_edge[dvalid]] = np.nonzero(dvalid)[0]
+    host = dict(dst_slot_srcnode=src[dst_slot_edge],
+                src_slot_dstnode=dst[src_slot_edge],
+                src_slot_from_dst_slot=edge2dst_slot[src_slot_edge])
 
     dst_scales, src_scales = {}, {}
     for agg in ("sum", "mean", "sym"):
@@ -331,7 +371,8 @@ def build_fast_graph(graph: GraphBatch,
     return FastGraph(
         graph=graph, dst_plan=dst_plan, src_plan=src_plan,
         dst_slot_scales=dst_scales, src_slot_scales=src_scales,
-        **{k: torch.from_numpy(v).to(device) for k, v in host.items()})
+        **{k: torch.from_numpy(v.astype(np.int32)).to(device)
+           for k, v in host.items()})
 
 
 # ======================================================================
@@ -469,3 +510,74 @@ def ell_sir_aggregate(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
                           fg.dst_slot_srcnode, fg.dst_slot_scales[agg_type],
                           plan.row_key, plan.row_ptr, act)
     return plan.finalize_rows_sum(rows)
+
+
+# ======================================================================
+# The max aggregation: W_R per slot inside the kernels, ties split
+# ======================================================================
+
+class _EllSirAggregateMax(torch.autograd.Function):
+    """Forward: ``ell_max_fwd`` and the max finalize give the key-level max
+    ``out1`` (the f32 min for a node with no valid slot); ``out =
+    where(out1 > NEG/2, out1 + b, 0)``. Backward: ``ell_max_wincount``
+    counts tied winners, ``ell_max_bwd`` routes ``gsc = g / count`` to them
+    (g_eq, per-slot g_z, g_W), ``ell_scaled_reduce`` sums g_z in src order
+    for g_ek. Only node-sized tensors and W are saved."""
+
+    @staticmethod
+    def forward(ctx, eq, ek, w, b, fg: FastGraph, act: Activation,
+                edge_dtype):
+        out1 = _max_rows(fg, eq, ek, w, act, edge_dtype)
+        ctx.save_for_backward(eq, ek, w, out1)
+        ctx.fg, ctx.act, ctx.edge_dtype = fg, act, edge_dtype
+        return torch.where(out1 > NEG / 2, out1 + b, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        eq, ek, w, out1 = ctx.saved_tensors
+        fg, act = ctx.fg, ctx.act
+        plan, splan = fg.dst_plan, fg.src_plan
+        args = (eq.contiguous(), _cast(ek, ctx.edge_dtype),
+                fg.dst_slot_srcnode, fg.dst_slot_scales["sum"], plan.row_key,
+                plan.row_ptr, w.contiguous())
+        counts = plan.finalize_rows_sum(ell_max_wincount(*args, out1, act))
+        g_act = torch.where(out1 > NEG / 2, g, 0.0)
+        gsc = (g_act / counts.clamp_min(1.0)).contiguous()
+        geq_rows, g_z, g_w = ell_max_bwd(*args, out1, gsc, act)
+        g_eq = plan.finalize_rows_sum(geq_rows)
+        g_ek = splan.finalize_rows_sum(ell_scaled_reduce(
+            g_z, fg.src_slot_from_dst_slot, splan.slot_valid, splan.row_ptr))
+        return g_eq, g_ek, g_w, g_act.sum(0), None, None, None
+
+
+def _max_rows(fg: FastGraph, eq, ek, w, act, edge_dtype) -> torch.Tensor:
+    """[N, O] key-level max before the bias (the f32 min for empty keys)."""
+    plan = fg.dst_plan
+    rows = ell_max_fwd(eq.contiguous(), _cast(ek, edge_dtype),
+                       fg.dst_slot_srcnode, fg.dst_slot_scales["sum"],
+                       plan.row_key, plan.row_ptr, w.contiguous(), act)
+    return plan.finalize_rows_max(rows)
+
+
+def ell_sir_aggregate_max(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
+                          w: torch.Tensor, b: Optional[torch.Tensor],
+                          activation, *,
+                          edge_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """out[u] = max_e sigma(eq[u] + ek[src_e]) @ w + b over u's valid
+    incoming edges, and 0 for a node with none (DGL's zero fill). eq, ek
+    [N, H] f32, w [H, O] f32 (the JAX layout), b [O] or None; returns
+    [N, O] f32. A cotangent is split equally among tied winners.
+
+    ``edge_dtype`` (None or torch.bfloat16) is the type ek is gathered in
+    and the per-slot g_z stored in; m, the max and all sums are f32.
+    Without a gradient the forward runs ``ell_max_fwd`` alone. The port of
+    ``make_ell_sir_aggregate_max_pallas`` without edge features."""
+    act = resolve_activation(activation)
+    if b is None:
+        b = w.new_zeros(w.shape[1])
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (eq, ek, w, b)):
+        return _EllSirAggregateMax.apply(eq, ek, w, b, fg, act, edge_dtype)
+    out1 = _max_rows(fg, eq, ek, w, act, edge_dtype)
+    return torch.where(out1 > NEG / 2, out1 + b, 0.0)

@@ -5,11 +5,15 @@ Math contract (reference ``models/conv.py``):
 
   sum/mean/sym:  h*_u = reduce_{(v,u) in E} s_vu * sigma(eq_u + ek_v)
                  followed by W_R applied per node in the caller
+  max:           h*_u = max_{(v,u) in E} sigma(eq_u + ek_v) @ W_R + b_R,
+                 W_R per edge before the reduce; 0 for a node with no
+                 incoming edge
   sym scale:     s_vu = out_deg(v)^-1/2 * in_deg(u)^-1/2, degrees clamped
                  >= 1; mean folds 1/clamp(in_deg(u), 1) into s_vu.
 
-This slice ports the FastGraph static-scale branch, the one the ogbn-arxiv
-training step takes. The other branches raise.
+This port has the FastGraph branches: static scales for sum/mean/sym and
+the max kernels, for a sigma in the activation registry. The other
+branches raise.
 """
 
 from __future__ import annotations
@@ -18,7 +22,11 @@ from typing import Optional
 
 import torch
 
-from .ell import FastGraph, ell_sir_aggregate
+from .ell import (
+    FastGraph,
+    ell_sir_aggregate,
+    ell_sir_aggregate_max,
+)
 
 _EDGE_DTYPE: Optional[torch.dtype] = None  # None (f32) | torch.bfloat16
 
@@ -38,15 +46,20 @@ def get_edge_dtype() -> Optional[torch.dtype]:
 
 
 def sir_aggregate(graph, eq: torch.Tensor, ek: torch.Tensor, activation,
-                  agg_type: str = "sum", *, e=None, edge_mask=None
-                  ) -> torch.Tensor:
+                  agg_type: str = "sum", *, e=None,
+                  w_relation: Optional[torch.Tensor] = None,
+                  b_relation: Optional[torch.Tensor] = None,
+                  edge_mask=None) -> torch.Tensor:
     """Fused SIR edge aggregation: [N_pad, H] query and key projections
-    -> [N_pad, H]. ``graph`` must be a FastGraph; edge features and
-    DropEdge masks (dynamic scales) are not yet ported."""
+    -> [N_pad, H] for sum/mean/sym, [N_pad, O] for max. ``graph`` must be a
+    FastGraph. max needs ``w_relation`` [H, O] (and takes ``b_relation``
+    [O]), the W_R applied per edge before the reduce, and takes the max
+    kernels for a sigma in the activation registry (the route of the JAX
+    package's ``_max_pallas_route``); the linear aggregations ignore both
+    (the caller applies W_R per node). Any other sigma raises. Edge
+    features and DropEdge masks (dynamic scales) are not yet ported."""
     if agg_type not in ("sum", "mean", "max", "sym"):
         raise NotImplementedError(f"agg_type = {agg_type} not implemented")
-    if agg_type == "max":
-        raise NotImplementedError("max aggregation is not yet ported")
     if e is not None:
         raise NotImplementedError("edge features are not yet ported")
     if edge_mask is not None:
@@ -55,5 +68,12 @@ def sir_aggregate(graph, eq: torch.Tensor, ek: torch.Tensor, activation,
         raise NotImplementedError(
             "the CSR aggregate on a plain GraphBatch is not yet ported; "
             "build a FastGraph")
+    if agg_type == "max":
+        if w_relation is None:
+            raise ValueError("max aggregation needs W_R per edge "
+                             "(w_relation)")
+        return ell_sir_aggregate_max(graph, eq, ek, w_relation, b_relation,
+                                     activation,
+                                     edge_dtype=get_edge_dtype())
     return ell_sir_aggregate(graph, eq, ek, activation, agg_type,
                              edge_dtype=get_edge_dtype())

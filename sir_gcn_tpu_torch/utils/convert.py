@@ -6,12 +6,15 @@ ogbn-arxiv ``SIRModel`` it holds
     params/embedding/Dense_0/{kernel,bias}
     params/conv_i/linear_{query,relation}/Dense_0/{kernel,bias}
     params/conv_i/linear_key/Dense_0/kernel
+    params/conv_i/relation_{kernel,bias}     (max convs, instead of
+                                              linear_relation)
     params/GraphBatchNorm_i/MaskedBatchNorm_0/{weight,bias}
     batch_stats/GraphBatchNorm_i/MaskedBatchNorm_0/{mean,var}
     params/readout/Dense_0/{kernel,bias}
 
-A flax ``kernel`` is [in, out] and a torch ``weight`` [out, in], so kernels
-are transposed. A key that is missing or left over raises.
+A flax ``kernel`` is [in, out] and a torch ``weight`` [out, in], so Dense
+kernels are transposed; a max conv's ``relation_kernel`` keeps the JAX
+layout [H, O] in both. A key that is missing or left over raises.
 """
 
 from __future__ import annotations
@@ -44,9 +47,18 @@ def _sir_model_slots(model) -> dict:
     """flax path -> (torch tensor, transpose) for an ogbn-arxiv SIRModel."""
     slots = _linear(("params", "embedding"), model.embedding)
     for i, conv in enumerate(model.convs):
-        for name in ("linear_query", "linear_key", "linear_relation"):
-            slots.update(_linear(("params", f"conv_{i}", name),
-                                 getattr(conv, name)))
+        path = ("params", f"conv_{i}")
+        for name in ("linear_query", "linear_key"):
+            slots.update(_linear(path + (name,), getattr(conv, name)))
+        if conv.agg_type == "max":
+            slots[path + ("relation_kernel",)] = (conv.relation_kernel,
+                                                  False)
+            if conv.relation_bias is not None:
+                slots[path + ("relation_bias",)] = (conv.relation_bias,
+                                                    False)
+        else:
+            slots.update(_linear(path + ("linear_relation",),
+                                 conv.linear_relation))
     for i, norm in enumerate(model.norms):
         if isinstance(norm, GraphBatchNorm):
             bn, node = norm.norm, (f"GraphBatchNorm_{i}", "MaskedBatchNorm_0")

@@ -136,7 +136,8 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tmp.sir_aggregate(tfg, eq, ek, torch.tanh, "sum")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmp.sir_aggregate(tfg, eq, ek, act, "max")
+        tmp.sir_aggregate(tfg, eq, ek, torch.tanh, "max",
+                          w_relation=torch.zeros(H, H))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tmp.sir_aggregate(tfg.graph, eq, ek, act, "sum")
     with pytest.raises(NotImplementedError, match="not yet ported"):

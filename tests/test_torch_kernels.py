@@ -166,8 +166,7 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch():
             plan.row_key, plan.row_ptr, tell.tanh]
     reset_launch_counts()
     ell_act_reduce(*good)
-    assert LAUNCHES == {"ell_act_reduce": 0, "ell_act_reduce2": 0,
-                        "ell_src_bwd": 0}
+    assert all(v == 0 for v in LAUNCHES.values())
     bad = [
         (0, _t(eq, torch.float64)),                 # eq dtype
         (1, _t(ek)[:, :8].contiguous()),            # width mismatch
@@ -212,8 +211,8 @@ def test_kernels_match_plain_on_card(cuda_device, graph, h, act, dt):
            splan.row_ptr, tact)
     gek = ell_src_bwd(*bwd)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"ell_act_reduce": 1, "ell_act_reduce2": 1,
-                        "ell_src_bwd": 1}
+    assert {k: v for k, v in LAUNCHES.items() if v} == {
+        "ell_act_reduce": 1, "ell_act_reduce2": 1, "ell_src_bwd": 1}
     want = ell_act_reduce_plain(*fwd)
     want2 = ell_act_reduce_plain(*fwd, derivative=True)
     torch.testing.assert_close(rows, want, **FWD_TOL)
