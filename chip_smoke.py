@@ -10,18 +10,27 @@ Phases, each printed as it runs; any failure exits non-zero:
            ptxas register, shared-memory and spill report
   kernels  each ELL kernel against its plain PyTorch version on the card:
            awkward small plans (hub stage 2, H = 24 and 200, O != H,
-           budget-1 pad rows, zero scales, a row with no valid slot,
-           duplicated edges that tie exactly), then the ogbn-arxiv plan in
-           f32 and bf16, with CUDA-event times of kernel and plain version
-           beside the kernel's bound
+           De = 5 and 16, budget-1 pad rows, zero scales, a row with no
+           valid slot, isolated nodes, row counts that are not a multiple
+           of a block's, duplicated edges that tie exactly), then the
+           ogbn-arxiv plan in f32 and bf16, with CUDA-event times of kernel
+           and plain version beside the kernel's bound
   train    the arxiv trainer's entry point at full width (169,343 nodes,
            H = 96, 3 layers, bn, residual, bf16 edges), once with sym and
            once with max aggregation, 5 steps and evals each, with the
            launch counters set to 0 before and read after each run
+  sireconv one SIREConv layer at full width on the arxiv graph (96 in,
+           De = 16 edge features, 96 hidden and out, sym, bf16 edges):
+           5 AdamW steps and 5 evals on the fused-edge route (dropout 0)
+           and on the generic edge route (dropout 0.2), with exact launch
+           counts for each
   e2e      one training step on a ~20k-node graph on the card (kernels)
-           against the same step on the CPU (plain versions), sym and max
+           against the same step on the CPU (plain versions): the arxiv
+           model with sym and with max, and the SIREConv layer on its fused
+           and its generic route
   profile  device time by kernel over warm training steps of each train
-           configuration (torch.profiler), and the device's idle share
+           and sireconv configuration (torch.profiler), and the device's
+           idle share
 
 The last line is the JSON contract line; the line before it lists each
 kernel's launches on the main path, error, times and bound. Needs a CUDA
@@ -67,20 +76,31 @@ TRAIN_FLAGS = [
 ]
 SOURCE = "sir_gcn_tpu_torch/csrc/ell_kernels.cu"
 MAX_SOURCE = "sir_gcn_tpu_torch/csrc/ell_max_kernels.cu"
+EDGE_SOURCE = "sir_gcn_tpu_torch/csrc/ell_edge_kernels.cu"
 PALLAS = "sir_gcn_tpu/ops/pallas/kernels.py"
 # kernel -> (source, TPU function it replaces, flops per slot and feature;
-# for the max kernels per valid slot and per H*O)
+# for the max kernels per valid slot and per H*O; for the fused-edge
+# kernels per valid slot and feature on top of 2 De (forward) or 4 De
+# (backward) for the edge projection and g_WE)
 KERNELS = {
     "ell_act_reduce": (SOURCE, f"{PALLAS}:55", 5),     # add, sigma, scale-add
     "ell_act_reduce2": (SOURCE, f"{PALLAS}:94", 8),    # + sigma', scale-add
     "ell_src_bwd": (SOURCE, f"{PALLAS}:198", 6),       # add, sigma', 2 mul, add
+    "ell_act_reduce_edge": (SOURCE, f"{PALLAS}:55", 6),    # + the e add
+    "ell_act_reduce2_edge": (SOURCE, f"{PALLAS}:94", 9),
+    "ell_src_bwd_edge": (SOURCE, f"{PALLAS}:198", 7),
+    "ell_edge_act_reduce2": (EDGE_SOURCE, f"{PALLAS}:399", 9),  # + 2 De
+    "ell_edge_src_bwd": (EDGE_SOURCE, f"{PALLAS}:470", 7),      # + 4 De
     "ell_max_fwd": (MAX_SOURCE, f"{PALLAS}:574", 2),   # m = a @ W
     "ell_max_wincount": (MAX_SOURCE, f"{PALLAS}:625", 2),
     "ell_max_bwd": (MAX_SOURCE, f"{PALLAS}:679", 6),   # m, g_W, g_a
     "ell_scaled_reduce": (MAX_SOURCE, f"{PALLAS}:781", 2),  # mul, add
 }
 LINEAR = ("ell_act_reduce", "ell_act_reduce2", "ell_src_bwd")
+EDGE = ("ell_act_reduce_edge", "ell_act_reduce2_edge", "ell_src_bwd_edge",
+        "ell_edge_act_reduce2", "ell_edge_src_bwd")
 MAX = ("ell_max_fwd", "ell_max_wincount", "ell_max_bwd", "ell_scaled_reduce")
+EDGE_DIM = 16  # the edge basis width of the SIREConv configuration
 
 
 def flags_for(agg: str) -> list:
@@ -175,7 +195,8 @@ def phase_build():
 
 def small_case(graph: str, h: int, device):
     """Awkward plans: a hub above the chunk budget (stage 2), H = 24 or
-    200, budget-1 pad rows, and a fifth of the scales zeroed."""
+    200, budget-1 pad rows, isolated nodes (nodes 30..59 of "isolated"
+    have no edge), and a fifth of the scales zeroed."""
     import numpy as np
     import torch
 
@@ -189,6 +210,10 @@ def small_case(graph: str, h: int, device):
                               rng.integers(0, n, 60)])
         fg = build_fast_graph(build_graph(src, dst, n, device=device),
                               max_budget=64)
+    elif graph == "isolated":
+        fg = build_fast_graph(build_graph(rng.integers(0, 30, 150),
+                                          rng.integers(0, 30, 150), 60,
+                                          device=device), max_budget=16)
     else:
         n, e = 40, 203
         fg = build_fast_graph(build_graph(rng.integers(0, n, e),
@@ -263,6 +288,96 @@ def linear_bound(name, args, outs):
     node_tbl = args[0] if name == "ell_src_bwd" else args[1]
     slots = args[3].numel() if name == "ell_src_bwd" else args[2].numel()
     return bound(args, outs, slots * node_tbl.shape[1] * KERNELS[name][2])
+
+
+def edge_tables(fg, h: int, de: int, seed: int):
+    """An edge table e [E_pad, H], an edge basis [E_pad, De] and W_E
+    [De, H] on the graph's device, from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device=fg.graph.device).manual_seed(seed)
+    dev = fg.graph.device
+    e = torch.randn((fg.e_pad, h), generator=gen, device=dev)
+    eb = torch.randn((fg.e_pad, de), generator=gen, device=dev)
+    we = 0.3 * torch.randn((de, h), generator=gen, device=dev)
+    return e, eb, we
+
+
+def check_edge_kernels(label, fg, eq, ek, g, sd, ss, e, eb, we, act, dtype,
+                       errs, timing=None):
+    """The edge-term forms of #1, #2 and #4 (with its per-edge cotangent)
+    and the fused-edge kernels #7 and #8 against their plain versions;
+    g_WE at GW_TOL, a g_e stored in bf16 at one bf16 step."""
+    import torch
+
+    from sir_gcn_tpu_torch.ops import cuda as K
+
+    fwd, bwd = kernel_args(fg, eq, ek, g, sd, ss, act, dtype)
+    plan, splan = fg.dst_plan, fg.src_plan
+    bd, bs = plan.buckets1, splan.buckets1
+    et = e.to(dtype).contiguous()
+    fe = (et, plan.slot_edge)
+    be = (et, splan.slot_edge, fg.edge2src_slot, fg.edge_mask)
+    ffwd = (eq, fwd[1], eb, we, fg.dst_slot_srcnode, plan.slot_edge) + fwd[3:]
+    fbwd = bwd[:3] + (eb, we, fg.src_slot_dstnode, splan.slot_edge) + bwd[4:]
+    ge_tol = BF16_STEP if dtype == torch.bfloat16 else BWD_TOL
+    plain_fwd = dict(buckets=bd, e=et, slot_edge=plan.slot_edge)
+    runs = {
+        "ell_act_reduce_edge": (
+            lambda: K.ell_act_reduce_edge(*fwd, *fe),
+            lambda: K.ell_act_reduce_plain(*fwd, **plain_fwd), (FWD_TOL,)),
+        "ell_act_reduce2_edge": (
+            lambda: K.ell_act_reduce2_edge(*fwd, *fe),
+            lambda: K.ell_act_reduce_plain(*fwd, derivative=True,
+                                           **plain_fwd), (FWD_TOL,) * 2),
+        "ell_src_bwd_edge": (
+            lambda: K.ell_src_bwd_edge(*bwd, *be),
+            lambda: K.ell_src_bwd_plain(
+                *bwd, buckets=bs, e=et, slot_edge=splan.slot_edge,
+                edge2slot=fg.edge2src_slot, edge_mask=fg.edge_mask),
+            (BWD_TOL, ge_tol)),
+        "ell_edge_act_reduce2": (
+            lambda: K.ell_edge_act_reduce2(*ffwd),
+            lambda: K.ell_edge_act_reduce2_plain(*ffwd, buckets=bd),
+            (FWD_TOL,) * 2),
+        "ell_edge_src_bwd": (
+            lambda: K.ell_edge_src_bwd(*fbwd),
+            lambda: K.ell_edge_src_bwd_plain(*fbwd, buckets=bs),
+            (BWD_TOL, GW_TOL)),
+    }
+    outs = {}
+    for name, (kernel, plain, tols) in runs.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for i, (a, b, tol) in enumerate(zip(got, want, tols)):
+            err = compare(f"{label} {name}[{i}]", a, b, tol)
+            errs[name] = max(errs.get(name, 0.0), err)
+        outs[name] = got
+    if timing is None:
+        return
+    h, de = eq.shape[1], eb.shape[1]
+    valid_d, valid_s = int((sd != 0).sum()), int((ss != 0).sum())
+    # what each kernel reads: the wrappers' inputs less edge2slot and
+    # edge_mask, which only the plain version of #4's g_e reads
+    needs = {
+        "ell_act_reduce_edge": (fwd + fe, valid_d * h * KERNELS[
+            "ell_act_reduce_edge"][2]),
+        "ell_act_reduce2_edge": (fwd + fe, valid_d * h * KERNELS[
+            "ell_act_reduce2_edge"][2]),
+        "ell_src_bwd_edge": (bwd + be[:2], valid_s * h * KERNELS[
+            "ell_src_bwd_edge"][2]),
+        "ell_edge_act_reduce2": (ffwd, valid_d * h * (2 * de + KERNELS[
+            "ell_edge_act_reduce2"][2])),
+        "ell_edge_src_bwd": (fbwd, valid_s * h * (4 * de + KERNELS[
+            "ell_edge_src_bwd"][2])),
+    }
+    for name, (kernel, plain, _) in runs.items():
+        args, flops = needs[name]
+        timing[name] = dict(ms=cuda_ms(kernel, 20),
+                            plain_ms=cuda_ms(plain, 3, warmup=1),
+                            bound=bound(args, outs[name], flops))
 
 
 def max_case(graph: str, h: int, o: int, device):
@@ -461,6 +576,18 @@ def phase_kernels(device):
             for dtype in dtypes:
                 check_kernels(f"{graph} H={h} {act.name} {dtype}", *case,
                               act, dtype, errs)
+    for graph, h, de in (("hub", 24, 5), ("random", 96, 16),
+                         ("isolated", 200, 16), ("isolated", 24, 16),
+                         ("random", 200, 5)):
+        case = small_case(graph, h, device)
+        tables = edge_tables(case[0], h, de, seed=h + de)
+        log(f"  {graph} H={h} De={de}: rows {case[0].dst_plan.num_rows} "
+            f"(dst) {case[0].src_plan.num_rows} (src)")
+        for act in acts:
+            for dtype in dtypes:
+                check_edge_kernels(f"{graph} H={h} De={de} {act.name} "
+                                   f"{dtype}", *case, *tables, act, dtype,
+                                   errs)
     for graph, h, o in (("hub", 24, 40), ("random", 96, 96),
                         ("random", 200, 200), ("ties", 32, 24)):
         case = max_case(graph, h, o, device)
@@ -478,14 +605,18 @@ def phase_kernels(device):
                  for _ in range(3))
     sd, ss = fg.dst_slot_scales["sym"], fg.src_slot_scales["sym"]
     w = (torch.rand((96, 96), generator=gen, device=device) * 2 - 1) / 96**0.5
-    log(f"  arxiv plan: N {fg.n_pad}, S_dst {fg.dst_plan.num_slots}, "
-        f"S_src {fg.src_plan.num_slots}, R1 {fg.dst_plan.num_rows}, H 96, "
-        f"O 96, stage 2 {fg.dst_plan.s2_gather is not None}")
+    tables = edge_tables(fg, 96, EDGE_DIM, seed=0)
+    log(f"  arxiv plan: N {fg.n_pad}, E_pad {fg.e_pad}, S_dst "
+        f"{fg.dst_plan.num_slots}, S_src {fg.src_plan.num_slots}, R1 "
+        f"{fg.dst_plan.num_rows}, H 96, O 96, De {EDGE_DIM}, stage 2 "
+        f"{fg.dst_plan.s2_gather is not None}")
     timing = {}  # of the main path's bf16 edges
     for dtype in dtypes:
         keep = timing if dtype == torch.bfloat16 else None
         check_kernels(f"arxiv {dtype}", fg, eq, ek, g, sd, ss,
                       leaky_relu(0.2), dtype, errs, timing=keep)
+        check_edge_kernels(f"arxiv {dtype}", fg, eq, ek, g, sd, ss, *tables,
+                           leaky_relu(0.2), dtype, errs, timing=keep)
         check_max_kernels(f"arxiv {dtype}", fg, eq, ek, w, g,
                           fg.dst_slot_scales["sum"], leaky_relu(0.2), dtype,
                           errs, timing=keep, mask_near_ties=True)
@@ -495,7 +626,8 @@ def phase_kernels(device):
             f"{t['plain_ms']:.3f} ms, bound {b_ms:.4f} ms by {by} "
             f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
             f"{100 * b_ms / t['ms']:.1f}% of bound")
-    return errs, timing
+    del eq, ek, g, w, tables
+    return errs, timing, fg
 
 
 def expected_launches(agg: str, steps: int) -> dict:
@@ -549,6 +681,112 @@ def phase_train(agg: str):
     return launches
 
 
+def sireconv_inputs(fg, seed: int):
+    """Node features [N, 96] and edge features [E, De] N(0, 1), in original
+    edge order, and the loss weights [N, 96], on the graph's device."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((fg.n_pad, 96), generator=gen)
+    ef = torch.randn((fg.graph.num_edges, EDGE_DIM), generator=gen)
+    w = torch.randn((fg.n_pad, 96), generator=gen)
+    dev = fg.graph.device
+    return x.to(dev), ef.to(dev), w.to(dev)
+
+
+def make_sireconv(dropout: float, edge_encoder=None):
+    """The SIREConv of the sireconv phase: 96 in, De = 16, 96 hidden and
+    out, leaky_relu(0.2), sym; weights from seed 0."""
+    import torch
+
+    from sir_gcn_tpu_torch.models import SIREConv
+    from sir_gcn_tpu_torch.ops.ell import leaky_relu
+
+    return SIREConv(96, EDGE_DIM, 96, 96, leaky_relu(0.2), dropout=dropout,
+                    agg_type="sym", edge_encoder=edge_encoder,
+                    generator=torch.Generator().manual_seed(0))
+
+
+def sireconv_step(conv, fg, x, ef, w, opt, gen):
+    """One training step: forward, loss = sum(out * w), backward, AdamW."""
+    conv.train()
+    opt.zero_grad(set_to_none=True)
+    out = conv(fg, x, ef, generator=gen)
+    loss = (out * w).sum()
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def phase_sireconv(device, fg, steps: int = 5):
+    """SIREConv at full width on the arxiv plan, bf16 edges: (a) dropout 0,
+    the fused-edge route; (b) dropout 0.2 in training, the generic edge
+    route. Each runs ``steps`` steps, each followed by a no-grad eval
+    (eval mode: the fused route), with exact launch counts."""
+    import numpy as np
+    import torch
+
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+    from sir_gcn_tpu_torch.train import make_adamw
+
+    log(f"== sireconv: one SIREConv (96 -> 96, De {EDGE_DIM}, sym, bf16 "
+        f"edges) on the arxiv plan, {steps} steps and evals per setting")
+    set_edge_dtype(torch.bfloat16)
+    x, ef, w = sireconv_inputs(fg, seed=0)
+    total = dict.fromkeys(KERNELS, 0)
+    expected = {
+        "a": dict(ell_edge_act_reduce2=2 * steps, ell_edge_src_bwd=steps),
+        "b": dict(ell_act_reduce2_edge=steps, ell_src_bwd_edge=steps,
+                  ell_edge_act_reduce2=steps),
+    }
+    for setting, dropout in (("a", 0.0), ("b", 0.2)):
+        conv = make_sireconv(dropout).to(device)
+        opt = make_adamw(conv.parameters(), 1e-3, 0.0)
+        gen = torch.Generator(device=device).manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        step_s, eval_s, losses = [], [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss = sireconv_step(conv, fg, x, ef, w, opt, gen)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            conv.eval()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = conv(fg, x, ef)
+            torch.cuda.synchronize()
+            eval_s.append(time.perf_counter() - t0)
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"({setting}) non-finite eval output")
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        steady = 1e3 * float(np.median(step_s[1:]))
+        log(f"  ({setting}) dropout {dropout}: step ms "
+            f"{[round(t * 1e3, 3) for t in step_s]}, eval ms "
+            f"{[round(t * 1e3, 3) for t in eval_s]}")
+        log(f"  ({setting}) steady step (median of steps 2..{steps}) "
+            f"{steady:.3f} ms, eval median "
+            f"{1e3 * float(np.median(eval_s[1:])):.3f} ms, peak memory "
+            f"{peak / 2**30:.3f} GiB, losses {losses}")
+        log(f"  ({setting}) launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"({setting}) non-finite loss")
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(expected[setting])
+        if launches != want:
+            raise AssertionError(f"({setting}) launch counts {launches}, "
+                                 f"expected {want}")
+        for k, v in launches.items():
+            total[k] += v
+    set_edge_dtype(None)
+    return total
+
+
 def step_inputs(data, n_pad, device):
     """Padded features, labels and the train-node loss weights."""
     import torch
@@ -568,8 +806,6 @@ def phase_profile(device, agg: str, steps: int = 3):
     phase's configuration with ``agg``, and the device's busy share of the
     wall time. Informational: it fails only if the step itself fails."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from sir_gcn_tpu_torch.data import synthetic_node_classification
     from sir_gcn_tpu_torch.experiments.ogbn_arxiv import train
@@ -591,14 +827,46 @@ def phase_profile(device, agg: str, steps: int = 3):
                                                        args.lr, args.wd))
     inputs = step_inputs(data, fg.n_pad, device)
     gen = torch.Generator(device=device).manual_seed(0)
+    profile_steps(lambda: step(*inputs, gen), steps)
+    set_edge_dtype(None)
+
+
+def phase_profile_sireconv(device, fg, steps: int = 3):
+    """The same breakdown for the sireconv phase's steps, on each route."""
+    import torch
+
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+    from sir_gcn_tpu_torch.train import make_adamw
+
+    set_edge_dtype(torch.bfloat16)
+    x, ef, w = sireconv_inputs(fg, seed=0)
+    for setting, dropout in (("a", 0.0), ("b", 0.2)):
+        log(f"== profile sireconv ({setting}), dropout {dropout}: {steps} "
+            f"warm training steps")
+        conv = make_sireconv(dropout).to(device)
+        opt = make_adamw(conv.parameters(), 1e-3, 0.0)
+        gen = torch.Generator(device=device).manual_seed(0)
+        profile_steps(lambda: sireconv_step(conv, fg, x, ef, w, opt, gen),
+                      steps)
+    set_edge_dtype(None)
+
+
+def profile_steps(step, steps: int):
+    """Run ``step`` twice to warm up, then ``steps`` times under
+    torch.profiler; log the wall and device-busy time per step, the idle
+    share and the 15 largest device items."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(2):
-        step(*inputs, gen)
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            step(*inputs, gen)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
 
@@ -761,6 +1029,72 @@ def phase_e2e(device, agg: str):
                 GW_TOL if k.endswith("relation_kernel") else BWD_TOL)
 
 
+def phase_e2e_sireconv(device):
+    """One SIREConv training step on a ~20k-node graph on the card against
+    the CPU, f32 edges: (fused) the default W_E, dropout 0; (generic) an
+    Embed encoder of 8 discrete edge types, dropout 0, which takes the
+    generic edge route and is as deterministic on both devices. The output
+    at the forward tolerance and every parameter gradient at the backward
+    tolerance, elementwise, and the card's launches exactly those of the
+    route."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sir_gcn_tpu_torch.data import synthetic_node_classification
+    from sir_gcn_tpu_torch.experiments.ogbn_arxiv.train import (
+        build_arxiv_graph,
+        get_args,
+    )
+    from sir_gcn_tpu_torch.models import Embed
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+
+    set_edge_dtype(None)
+    args = get_args(["--add-reverse-edge", "--add-self-loop"])
+    data = synthetic_node_classification(20_000, 140_000, feat_dim=128,
+                                         num_classes=40, seed=1)
+    graphs = {name: build_arxiv_graph(data, args, dev)
+              for name, dev in (("cpu", "cpu"), ("card", device))}
+    x, ef, w = sireconv_inputs(graphs["cpu"], seed=1)
+    types = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 8, graphs["cpu"].graph.num_edges))
+    routes = {
+        "fused": (lambda: make_sireconv(0.0), ef,
+                  dict(ell_edge_act_reduce2=1, ell_edge_src_bwd=1)),
+        "generic": (lambda: make_sireconv(0.0, edge_encoder=Embed(
+            8, 96, generator=torch.Generator().manual_seed(2))), types,
+            dict(ell_act_reduce2_edge=1, ell_src_bwd_edge=1)),
+    }
+    for route, (make, feats, want) in routes.items():
+        log(f"== e2e sireconv {route}: one step on the card (kernels) "
+            f"against the CPU (plain)")
+        conv = make()
+        runs = {}
+        for name, fg in graphs.items():
+            dev = fg.graph.device
+            m = copy.deepcopy(conv).to(dev)
+            m.train()
+            reset_launch_counts()
+            out = m(fg, x.to(dev), feats.to(dev))
+            (out * w.to(dev)).sum().backward()
+            if name == "card":
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in LAUNCHES.items() if v}
+                if launches != want:
+                    raise AssertionError(f"{route}: card launches "
+                                         f"{launches}, expected {want}")
+            runs[name] = dict(out=out.detach().cpu(), grads={
+                k: p.grad.cpu() for k, p in m.named_parameters()})
+        c, g = runs["cpu"], runs["card"]
+        log(f"  nodes 20000, edges {graphs['card'].graph.num_edges}, "
+            f"launches {want}")
+        compare("out", g["out"], c["out"], FWD_TOL)
+        for k in c["grads"]:
+            compare(f"grad {k}", g["grads"][k], c["grads"][k], BWD_TOL)
+
+
 def main() -> int:
     import torch
 
@@ -774,14 +1108,18 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_env()
     phase_build()
-    errs, timing = phase_kernels(device)
+    errs, timing, arxiv_fg = phase_kernels(device)
     launches = phase_train("sym")
     launches.update({k: v for k, v in phase_train("max").items()
                      if k in MAX})
+    launches.update({k: v for k, v in phase_sireconv(device, arxiv_fg).items()
+                     if k in EDGE})
     for agg in ("sym", "max"):
         phase_e2e(device, agg)
+    phase_e2e_sireconv(device)
     for agg in ("sym", "max"):
         phase_profile(device, agg)
+    phase_profile_sireconv(device, arxiv_fg)
     log(f"== all phases ok in {time.perf_counter() - t0:.1f}s")
 
     rows = []

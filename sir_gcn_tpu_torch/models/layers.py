@@ -1,7 +1,8 @@
 """Shared low-level layers (port of ``sir_gcn_tpu/models/layers.py``).
 
 ``Linear`` keeps the reference's PyTorch default scales: weight and bias
-both U(-1/sqrt(fan_in), 1/sqrt(fan_in)), drawn from an explicit generator.
+both U(-1/sqrt(fan_in), 1/sqrt(fan_in)), drawn from an explicit generator;
+``Embed`` PyTorch's N(0, 1) for an embedding table.
 """
 
 from __future__ import annotations
@@ -39,6 +40,25 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
+
+
+class Embed(nn.Module):
+    """``nn.Embedding``'s table [num_embeddings, features] drawn N(0, 1)
+    from ``generator``, as the parameter ``embedding``. ``padding_idx``
+    pins that row to zero at init only, as the JAX package's ``Embed`` does
+    (it still receives a gradient)."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 padding_idx: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        table = torch.randn(num_embeddings, features, generator=generator)
+        if padding_idx is not None:
+            table[padding_idx] = 0.0
+        self.embedding = nn.Parameter(table)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.embedding)
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,

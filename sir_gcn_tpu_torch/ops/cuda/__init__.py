@@ -6,7 +6,13 @@ from .kernels import (
     LAUNCHES,
     ell_act_reduce,
     ell_act_reduce2,
+    ell_act_reduce2_edge,
+    ell_act_reduce_edge,
     ell_act_reduce_plain,
+    ell_edge_act_reduce2,
+    ell_edge_act_reduce2_plain,
+    ell_edge_src_bwd,
+    ell_edge_src_bwd_plain,
     ell_max_bwd,
     ell_max_bwd_plain,
     ell_max_fwd,
@@ -16,6 +22,7 @@ from .kernels import (
     ell_scaled_reduce,
     ell_scaled_reduce_plain,
     ell_src_bwd,
+    ell_src_bwd_edge,
     ell_src_bwd_plain,
     on_cuda,
     reset_launch_counts,

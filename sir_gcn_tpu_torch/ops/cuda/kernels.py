@@ -1,6 +1,7 @@
 """Wrappers of the ELL CUDA kernels (``csrc/ell_kernels.cu`` for the
-linear aggregations, ``csrc/ell_max_kernels.cu`` for max) and their plain
-PyTorch versions (port of ``sir_gcn_tpu/ops/pallas/kernels.py``).
+linear aggregations and their edge-term forms, ``csrc/ell_edge_kernels.cu``
+for the fused edge projection, ``csrc/ell_max_kernels.cu`` for max) and
+their plain PyTorch versions (port of ``sir_gcn_tpu/ops/pallas/kernels.py``).
 
 A wrapper takes the node tables and one plan's slot arrays, checks them,
 and on CUDA tensors launches its kernel on the current stream; on CPU
@@ -16,6 +17,8 @@ Shared arguments (S slots, R rows of one plan, N nodes, width H):
   row_key   [R] int32  the node of each row
   row_ptr   [R+1] int32  row r owns slots row_ptr[r]:row_ptr[r+1]
   act       an ``ops.ell.Activation`` from the registry
+  slot_edge [S] int32  the sorted-edge id of each slot (the plan's
+                       ``slot_edge``), for the edge terms
 The index arrays come from a plan built by ``ops/ell.py`` and are trusted
 to lie in range; checking them would cost a device sync.
 """
@@ -28,8 +31,10 @@ import numpy as np
 import torch
 
 LAUNCHES = {"ell_act_reduce": 0, "ell_act_reduce2": 0, "ell_src_bwd": 0,
-            "ell_max_fwd": 0, "ell_max_wincount": 0, "ell_max_bwd": 0,
-            "ell_scaled_reduce": 0}
+            "ell_act_reduce_edge": 0, "ell_act_reduce2_edge": 0,
+            "ell_src_bwd_edge": 0, "ell_edge_act_reduce2": 0,
+            "ell_edge_src_bwd": 0, "ell_max_fwd": 0, "ell_max_wincount": 0,
+            "ell_max_bwd": 0, "ell_scaled_reduce": 0}
 
 
 def reset_launch_counts() -> None:
@@ -47,6 +52,19 @@ _ARGTYPES = {
                             _VP, _VP, _VP],
         "ell_src_bwd": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F,
                         _VP, _VP],
+        "ell_act_reduce_edge": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP,
+                                _I, _I, _I, _F, _VP, _VP],
+        "ell_act_reduce2_edge": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP,
+                                 _I, _I, _I, _F, _VP, _VP, _VP],
+        "ell_src_bwd_edge": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP,
+                             _I, _I, _I, _F, _VP, _VP, _VP],
+    },
+    "ell_edge_kernels": {
+        "ell_edge_act_reduce2": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP,
+                                 _VP, _I, _I, _I, _I, _F, _VP, _VP, _VP],
+        "ell_edge_src_bwd": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                             _VP, _I, _I, _I, _I, _F, _I, _VP, _VP, _VP,
+                             _VP],
     },
     "ell_max_kernels": {
         "ell_max_fwd": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
@@ -59,16 +77,20 @@ _ARGTYPES = {
     },
 }
 # entries that launch nothing and return an int
-_QUERIES = {"ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 5}}
+_QUERIES = {"ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 5},
+            "ell_edge_kernels": {"ell_edge_src_bwd_blocks": [_I] * 5}}
 _ERROR_STRING = {"ell_kernels": "ell_error_string",
-                 "ell_max_kernels": "ell_max_error_string"}
+                 "ell_max_kernels": "ell_max_error_string",
+                 "ell_edge_kernels": "ell_edge_error_string"}
 _LIBRARY_OF = {entry: lib for lib, entries in _ARGTYPES.items()
                for entry in entries}
 
 _LIBS: dict = {}
-# ell_max_bwd's grid size per (device, R, H, O, act, bf16): fixed for a
-# model and its plan, so the occupancy query runs once
+# the grid size of ell_max_bwd per (device, R, H, O, act, bf16) and of
+# ell_edge_src_bwd per (device, R, H, De, act, bf16): fixed for a model and
+# its plan, so the occupancy query runs once
 _BWD_BLOCKS: dict = {}
+_EDGE_BWD_BLOCKS: dict = {}
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -175,17 +197,28 @@ def bucket_offsets(buckets) -> list:
 # #1 and #2: forward, with and without the derivative mass
 # ----------------------------------------------------------------------
 
+def add_cast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b added in f32 and carried in a's type (f32 or bf16), as the JAX
+    route's ``add_cast`` (sir_gcn_tpu/ops/ell.py) rounds an edge term."""
+    return (a.float() + b.float()).to(a.dtype)
+
+
 def ell_act_reduce_plain(eq, ek, slot_src, scale, row_key, row_ptr, act,
-                         buckets=None, derivative=False):
+                         buckets=None, derivative=False, e=None,
+                         slot_edge=None):
     """Plain version of ``ell_act_reduce`` (and of ``ell_act_reduce2`` with
-    ``derivative=True``): gather, apply sigma, scale and reduce per bucket
-    with ``reshape(nr, b, H).sum(1)``, as the Pallas kernels do. ek is
-    gathered in its own dtype and widened to f32 before the add.
-    ``buckets`` defaults to the runs read from ``row_ptr``."""
+    ``derivative=True``, and of their edge-term forms with ``e`` and
+    ``slot_edge``): gather, apply sigma, scale and reduce per bucket with
+    ``reshape(nr, b, H).sum(1)``, as the Pallas kernels do. ek (plus the
+    edge row, by ``add_cast``) is gathered in its own dtype and widened to
+    f32 before the add. ``buckets`` defaults to the runs read from
+    ``row_ptr``."""
     if buckets is None:
         buckets = _buckets(row_ptr)
     h = eq.shape[1]
     ekg = ek.index_select(0, slot_src)
+    if e is not None:
+        ekg = add_cast(ekg, e.index_select(0, slot_edge))
     eq_rows = eq.index_select(0, row_key)
     rows, srows = [], []
     for b, nr, so, ro in bucket_offsets(buckets):
@@ -199,7 +232,18 @@ def ell_act_reduce_plain(eq, ek, slot_src, scale, row_key, row_ptr, act,
     return (rows, torch.cat(srows)) if derivative else rows
 
 
-def _fwd(name, eq, ek, slot_src, scale, row_key, row_ptr, act, derivative):
+def _check_edge(e, slot_edge, width, dtype, slot_like, device):
+    _check("e", e, (dtype,), 2, device)
+    _check("slot_edge", slot_edge, _I32, 1, device)
+    if e.shape[1] != width:
+        raise ValueError(f"e {tuple(e.shape)} does not have width {width}")
+    if slot_edge.shape != slot_like.shape:
+        raise ValueError(f"slot_edge {tuple(slot_edge.shape)} and the slot "
+                         f"array {tuple(slot_like.shape)} differ")
+
+
+def _fwd(name, eq, ek, slot_src, scale, row_key, row_ptr, act, derivative,
+         e=None, slot_edge=None):
     device = eq.device
     _check("eq", eq, _F32, 2, device)
     _check("ek", ek, _EDGE, 2, device)
@@ -207,17 +251,22 @@ def _fwd(name, eq, ek, slot_src, scale, row_key, row_ptr, act, derivative):
         raise ValueError(f"eq {tuple(eq.shape)} and ek {tuple(ek.shape)} "
                          f"differ in width")
     _check_plan(slot_src, scale, row_key, row_ptr, device)
+    edge = e is not None
+    if edge:
+        _check_edge(e, slot_edge, eq.shape[1], ek.dtype, slot_src, device)
     if not on_cuda(device):
         return ell_act_reduce_plain(eq, ek, slot_src, scale, row_key,
-                                    row_ptr, act, derivative=derivative)
+                                    row_ptr, act, derivative=derivative,
+                                    e=e, slot_edge=slot_edge)
     r, h = row_key.shape[0], eq.shape[1]
     rows = torch.empty((r, h), dtype=torch.float32, device=device)
     outs = [rows]
     if derivative:
         outs.append(torch.empty((r, h), dtype=torch.float32, device=device))
-    _launch(name, device, _ptr(eq), _ptr(ek),
-            int(ek.dtype == torch.bfloat16), _ptr(slot_src), _ptr(scale),
-            _ptr(row_key), _ptr(row_ptr), r, h, act.kernel_id,
+    tables = (_ptr(eq), _ptr(ek)) + ((_ptr(e),) if edge else ())
+    slots = (_ptr(slot_src),) + ((_ptr(slot_edge),) if edge else ())
+    _launch(name, device, *tables, int(ek.dtype == torch.bfloat16), *slots,
+            _ptr(scale), _ptr(row_key), _ptr(row_ptr), r, h, act.kernel_id,
             float(act.param), *map(_ptr, outs))
     return tuple(outs) if derivative else rows
 
@@ -244,28 +293,79 @@ def ell_act_reduce2(eq, ek, slot_src, scale, row_key, row_ptr, act):
                 row_ptr, act, derivative=True)
 
 
+def ell_act_reduce_edge(eq, ek, slot_src, scale, row_key, row_ptr, act, e,
+                        slot_edge):
+    """``ell_act_reduce`` with an edge term: the key-side value of slot s is
+    add_cast(ek[slot_src[s]], e[slot_edge[s]]), added in f32 and carried in
+    ek's type. e [E_pad, H] in sorted-edge order shares ek's type.
+
+    Replaces ``bucket_bcast_act_reduce`` on the JAX route's ``with_edge``
+    inputs (sir_gcn_tpu/ops/ell.py ``dst_slot_inputs``), the edge rows read
+    by index in the kernel. Bound: bytes, as ``ell_act_reduce`` plus one
+    e row per slot."""
+    return _fwd("ell_act_reduce_edge", eq, ek, slot_src, scale, row_key,
+                row_ptr, act, derivative=False, e=e, slot_edge=slot_edge)
+
+
+def ell_act_reduce2_edge(eq, ek, slot_src, scale, row_key, row_ptr, act, e,
+                         slot_edge):
+    """``ell_act_reduce2`` with the edge term of ``ell_act_reduce_edge``.
+
+    Replaces ``bucket_bcast_act_reduce2`` on the ``with_edge`` inputs.
+    Bound: bytes, as ``ell_act_reduce2`` plus one e row per slot."""
+    return _fwd("ell_act_reduce2_edge", eq, ek, slot_src, scale, row_key,
+                row_ptr, act, derivative=True, e=e, slot_edge=slot_edge)
+
+
 # ----------------------------------------------------------------------
 # #4: the src-major backward for the key-side gradient
 # ----------------------------------------------------------------------
 
 def ell_src_bwd_plain(eq, g, ek, slot_dst, scale, row_key, row_ptr, act,
-                      buckets=None):
+                      buckets=None, e=None, slot_edge=None, edge2slot=None,
+                      edge_mask=None):
     """Plain version of ``ell_src_bwd``, bucket by bucket. eq and g are
-    gathered in their own dtype and widened to f32."""
+    gathered in their own dtype and widened to f32. With ``e`` (and
+    ``slot_edge``, ``edge2slot``, ``edge_mask``) it is the plain version of
+    ``ell_src_bwd_edge``: the dst-side value adds the edge row by
+    ``add_cast``, and it returns (rows, g_e) with g_e the JAX route's
+    ``_edge_cotangent`` of the per-slot g_z rounded to eq's type."""
     if buckets is None:
         buckets = _buckets(row_ptr)
     h = ek.shape[1]
     eqg = eq.index_select(0, slot_dst)
+    if e is not None:
+        eqg = add_cast(eqg, e.index_select(0, slot_edge))
     gg = g.index_select(0, slot_dst)
     ek_rows = ek.index_select(0, row_key)
-    rows = []
+    rows, gzs = [], []
     for b, nr, so, ro in bucket_offsets(buckets):
         z = (eqg[so:so + b * nr].float().reshape(nr, b, h)
              + ek_rows[ro:ro + nr, None, :])
         g_m = (gg[so:so + b * nr].float().reshape(nr, b, h)
                * scale[so:so + b * nr].reshape(nr, b, 1))
-        rows.append((act.grad(z) * g_m).sum(1))
-    return torch.cat(rows)
+        g_z = act.grad(z) * g_m
+        rows.append(g_z.sum(1))
+        gzs.append(g_z.reshape(nr * b, h))
+    rows = torch.cat(rows)
+    if e is None:
+        return rows
+    from ..ell import edge_cotangent
+
+    g_z = torch.cat(gzs).to(eq.dtype)
+    return rows, edge_cotangent(g_z, edge2slot, edge_mask)
+
+
+def _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr):
+    device = ek.device
+    _check("ek", ek, _F32, 2, device)
+    _check("eq", eq, _EDGE, 2, device)
+    _check("g", g, (eq.dtype,), 2, device)
+    if eq.shape != g.shape or eq.shape[1] != ek.shape[1]:
+        raise ValueError(f"eq {tuple(eq.shape)}, g {tuple(g.shape)} and ek "
+                         f"{tuple(ek.shape)} do not match")
+    _check_plan(slot_dst, scale, row_key, row_ptr, device)
+    return device, row_key.shape[0], ek.shape[1]
 
 
 def ell_src_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr, act):
@@ -276,24 +376,210 @@ def ell_src_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr, act):
     Replaces ``bucket_src_bwd`` without its per-slot g_z output
     (sir_gcn_tpu/ops/pallas/kernels.py). Bound: bytes, eq and g rows in,
     one f32 [R, H] out."""
-    device = ek.device
-    _check("ek", ek, _F32, 2, device)
-    _check("eq", eq, _EDGE, 2, device)
-    _check("g", g, (eq.dtype,), 2, device)
-    if eq.shape != g.shape or eq.shape[1] != ek.shape[1]:
-        raise ValueError(f"eq {tuple(eq.shape)}, g {tuple(g.shape)} and ek "
-                         f"{tuple(ek.shape)} do not match")
-    _check_plan(slot_dst, scale, row_key, row_ptr, device)
+    device, r, h = _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr)
     if not on_cuda(device):
         return ell_src_bwd_plain(eq, g, ek, slot_dst, scale, row_key,
                                  row_ptr, act)
-    r, h = row_key.shape[0], ek.shape[1]
     out = torch.empty((r, h), dtype=torch.float32, device=device)
     _launch("ell_src_bwd", device, _ptr(eq), _ptr(g),
             int(eq.dtype == torch.bfloat16), _ptr(ek), _ptr(slot_dst),
             _ptr(scale), _ptr(row_key), _ptr(row_ptr), r, h, act.kernel_id,
             float(act.param), _ptr(out))
     return out
+
+
+def ell_src_bwd_edge(eq, g, ek, slot_dst, scale, row_key, row_ptr, act, e,
+                     slot_edge, edge2slot, edge_mask):
+    """``ell_src_bwd`` with an edge term, and the per-edge cotangent: the
+    dst-side value of slot s is add_cast(eq[slot_dst[s]], e[slot_edge[s]])
+    and g_z[s] = act'(z) * scale[s] * g[slot_dst[s]]. e [E_pad, H] shares
+    eq's type; edge2slot [E_pad] int32 is the plan's edge -> src-slot map and
+    edge_mask [E_pad] bool the edges' validity. Returns (rows [R, H] f32,
+    g_e [E_pad, H] f32), g_e = ``edge_cotangent(g_z rounded to eq's type,
+    edge2slot, edge_mask)``.
+
+    Replaces ``bucket_src_bwd`` with its per-slot g_z output and the take
+    of ``_edge_cotangent`` after it (sir_gcn_tpu/ops/ell.py ``src_pass``):
+    the kernel writes each slot's g_z straight into row slot_edge[s] of a
+    zeroed g_e, so no [S, H] table is written. Bound: bytes, the f32 g_e
+    write the largest part."""
+    device, r, h = _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr)
+    _check_edge(e, slot_edge, h, eq.dtype, slot_dst, device)
+    _check("edge2slot", edge2slot, _I32, 1, device)
+    _check("edge_mask", edge_mask, (torch.bool,), 1, device)
+    if not edge2slot.shape == edge_mask.shape == e.shape[:1]:
+        raise ValueError(f"edge2slot {tuple(edge2slot.shape)}, edge_mask "
+                         f"{tuple(edge_mask.shape)} and e {tuple(e.shape)} "
+                         f"differ in edge count")
+    if not on_cuda(device):
+        return ell_src_bwd_plain(eq, g, ek, slot_dst, scale, row_key,
+                                 row_ptr, act, e=e, slot_edge=slot_edge,
+                                 edge2slot=edge2slot, edge_mask=edge_mask)
+    out = torch.empty((r, h), dtype=torch.float32, device=device)
+    g_e = torch.zeros((e.shape[0], h), dtype=torch.float32, device=device)
+    _launch("ell_src_bwd_edge", device, _ptr(eq), _ptr(g), _ptr(e),
+            int(eq.dtype == torch.bfloat16), _ptr(ek), _ptr(slot_dst),
+            _ptr(slot_edge), _ptr(scale), _ptr(row_key), _ptr(row_ptr), r, h,
+            act.kernel_id, float(act.param), _ptr(out), _ptr(g_e))
+    return out, g_e
+
+
+# ----------------------------------------------------------------------
+# #7 and #8: the fused edge projection (SIREConv's W_E inside the kernels)
+# ----------------------------------------------------------------------
+#
+# e_basis [E_pad, De] f32 is the edge basis in sorted-edge order and w_e
+# [De, H] f32 the projection, in the JAX layout; a slot's edge term is
+# e_basis[slot_edge[s]] @ w_e, in f32 and never rounded. W_E (and, in the
+# backward, the warps' g_WE partials) sits in a block's shared memory.
+
+# the dynamic shared memory a block may use on an H100: 232,448 bytes less
+# room for static arrays
+EDGE_SMEM_BYTES = 232448 - 1024
+EDGE_BWD_WARPS = 8
+
+
+def _edge_projection(e_basis, w_e, slot_edge):
+    """[S, H] f32 edge terms of the slots, one matmul."""
+    return e_basis.index_select(0, slot_edge) @ w_e
+
+
+def ell_edge_act_reduce2_plain(eq, ek, e_basis, w_e, slot_src, slot_edge,
+                               scale, row_key, row_ptr, act, buckets=None):
+    """Plain version of ``ell_edge_act_reduce2``, bucket by bucket."""
+    if buckets is None:
+        buckets = _buckets(row_ptr)
+    h = eq.shape[1]
+    kv = ek.index_select(0, slot_src).float() + _edge_projection(
+        e_basis, w_e, slot_edge)
+    eq_rows = eq.index_select(0, row_key)
+    rows, srows = [], []
+    for b, nr, so, ro in bucket_offsets(buckets):
+        z = (kv[so:so + b * nr].reshape(nr, b, h)
+             + eq_rows[ro:ro + nr, None, :])
+        sc = scale[so:so + b * nr].reshape(nr, b, 1)
+        rows.append((act(z) * sc).sum(1))
+        srows.append((act.grad(z) * sc).sum(1))
+    return torch.cat(rows), torch.cat(srows)
+
+
+def ell_edge_src_bwd_plain(eq, g, ek, e_basis, w_e, slot_dst, slot_edge,
+                           scale, row_key, row_ptr, act, buckets=None):
+    """Plain version of ``ell_edge_src_bwd``, bucket by bucket; a slot with
+    scale 0 contributes exactly 0 (``where``, not a product)."""
+    if buckets is None:
+        buckets = _buckets(row_ptr)
+    h = ek.shape[1]
+    qv = eq.index_select(0, slot_dst).float() + _edge_projection(
+        e_basis, w_e, slot_edge)
+    gg = g.index_select(0, slot_dst)
+    ek_rows = ek.index_select(0, row_key)
+    rows, gzs = [], []
+    for b, nr, so, ro in bucket_offsets(buckets):
+        z = (qv[so:so + b * nr].reshape(nr, b, h)
+             + ek_rows[ro:ro + nr, None, :])
+        sc = scale[so:so + b * nr].reshape(nr, b, 1)
+        g_z = torch.where(sc != 0, act.grad(z) * (
+            gg[so:so + b * nr].float().reshape(nr, b, h) * sc), 0.0)
+        rows.append(g_z.sum(1))
+        gzs.append(g_z.reshape(nr * b, h))
+    egr = e_basis.index_select(0, slot_edge)
+    return torch.cat(rows), egr.T @ torch.cat(gzs)
+
+
+def _check_fused(node_tbl, e_basis, w_e, slot_idx, slot_edge, scale, row_key,
+                 row_ptr, backward):
+    device = node_tbl.device
+    _check("e_basis", e_basis, _F32, 2, device)
+    _check("w_e", w_e, _F32, 2, device)
+    h, de = node_tbl.shape[1], e_basis.shape[1]
+    if w_e.shape != (de, h):
+        raise ValueError(f"w_e {tuple(w_e.shape)} is not [De, H] = "
+                         f"{(de, h)}")
+    _check("slot_edge", slot_edge, _I32, 1, device)
+    if slot_edge.shape != slot_idx.shape:
+        raise ValueError(f"slot_edge {tuple(slot_edge.shape)} and the slot "
+                         f"array {tuple(slot_idx.shape)} differ")
+    _check_plan(slot_idx, scale, row_key, row_ptr, device)
+    copies = 1 + (EDGE_BWD_WARPS if backward else 0)
+    if copies * de * h * 4 > EDGE_SMEM_BYTES:
+        raise ValueError(f"De = {de}, H = {h}: {copies} [De, H] f32 tables "
+                         f"do not fit in a block's shared memory")
+    return device, row_key.shape[0], h, de
+
+
+def ell_edge_act_reduce2(eq, ek, e_basis, w_e, slot_src, slot_edge, scale,
+                         row_key, row_ptr, act):
+    """With z = eq[row_key[r]] + (ek[slot_src[s]] + e_basis[slot_edge[s]]
+    @ w_e), rows[r] = sum_s scale[s] * act(z) and srows[r] = sum_s
+    scale[s] * act'(z), both f32 [R, H]. eq [N, H] f32, ek [N, H] f32 or
+    bf16, e_basis [E_pad, De] f32, w_e [De, H] f32. Zero-scale slots are
+    skipped.
+
+    Replaces ``bucket_edge_act_reduce2`` (sir_gcn_tpu/ops/pallas/
+    kernels.py), one launch for all buckets. Bound: operations at the arxiv
+    width, 2 De + 8 flops per valid slot and feature."""
+    device = eq.device
+    _check("eq", eq, _F32, 2, device)
+    _check("ek", ek, _EDGE, 2, device)
+    if ek.shape[1] != eq.shape[1]:
+        raise ValueError(f"eq {tuple(eq.shape)} and ek {tuple(ek.shape)} "
+                         f"differ in width")
+    _, r, h, de = _check_fused(eq, e_basis, w_e, slot_src, slot_edge, scale,
+                               row_key, row_ptr, backward=False)
+    if not on_cuda(device):
+        return ell_edge_act_reduce2_plain(eq, ek, e_basis, w_e, slot_src,
+                                          slot_edge, scale, row_key,
+                                          row_ptr, act)
+    rows = torch.empty((r, h), dtype=torch.float32, device=device)
+    srows = torch.empty((r, h), dtype=torch.float32, device=device)
+    _launch("ell_edge_act_reduce2", device, _ptr(eq), _ptr(ek),
+            int(ek.dtype == torch.bfloat16), _ptr(e_basis), _ptr(w_e),
+            _ptr(slot_src), _ptr(slot_edge), _ptr(scale), _ptr(row_key),
+            _ptr(row_ptr), r, h, de, act.kernel_id, float(act.param),
+            _ptr(rows), _ptr(srows))
+    return rows, srows
+
+
+def ell_edge_src_bwd(eq, g, ek, e_basis, w_e, slot_dst, slot_edge, scale,
+                     row_key, row_ptr, act):
+    """The src-major backward of ``ell_edge_act_reduce2``: with z =
+    ek[row_key[r]] + (eq[slot_dst[s]] + e_basis[slot_edge[s]] @ w_e) and
+    g_z = act'(z) * scale[s] * g[slot_dst[s]], returns rows [R, H] f32 =
+    sum over row r's slots of g_z, and g_we [De, H] f32 = sum over all slots
+    of e_basis[slot_edge[s]]^T g_z[s]. eq and g [N, H] share one dtype (f32
+    or bf16); ek [N, H] f32. Zero-scale slots contribute exactly 0.
+
+    Replaces ``bucket_edge_src_bwd`` (sir_gcn_tpu/ops/pallas/kernels.py).
+    Bound: operations at the arxiv width, 4 De + 6 flops per valid slot and
+    feature. g_we is summed per warp, block and then over blocks in a fixed
+    order, so it is the same from run to run."""
+    device, r, h = _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr)
+    _, _, _, de = _check_fused(ek, e_basis, w_e, slot_dst, slot_edge, scale,
+                               row_key, row_ptr, backward=True)
+    if not on_cuda(device):
+        return ell_edge_src_bwd_plain(eq, g, ek, e_basis, w_e, slot_dst,
+                                      slot_edge, scale, row_key, row_ptr,
+                                      act)
+    bf16 = int(eq.dtype == torch.bfloat16)
+    key = (device.index, r, h, de, act.kernel_id, bf16)
+    if key not in _EDGE_BWD_BLOCKS:
+        with torch.cuda.device(device):
+            _EDGE_BWD_BLOCKS[key] = _library(
+                "ell_edge_kernels").ell_edge_src_bwd_blocks(
+                    r, h, de, act.kernel_id, bf16)
+    blocks = _EDGE_BWD_BLOCKS[key]
+    if blocks <= 0:
+        raise ValueError(f"ell_edge_src_bwd cannot take H = {h}, De = {de}")
+    out = torch.empty((r, h), dtype=torch.float32, device=device)
+    part = torch.empty((blocks, de * h), dtype=torch.float32, device=device)
+    g_we = torch.empty((de, h), dtype=torch.float32, device=device)
+    _launch("ell_edge_src_bwd", device, _ptr(eq), _ptr(g), bf16, _ptr(ek),
+            _ptr(e_basis), _ptr(w_e), _ptr(slot_dst), _ptr(slot_edge),
+            _ptr(scale), _ptr(row_key), _ptr(row_ptr), r, h, de,
+            act.kernel_id, float(act.param), blocks, _ptr(out), _ptr(part),
+            _ptr(g_we))
+    return out, g_we
 
 
 # ----------------------------------------------------------------------

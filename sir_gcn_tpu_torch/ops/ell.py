@@ -9,12 +9,17 @@ to the JAX package's.
 
 On top of the plans, :func:`ell_sir_aggregate` computes
 
-    out[u] = sum_{e in in(u)} scale_e * sigma(eq[u] + ek[src_e])
+    out[u] = sum_{e in in(u)} scale_e * sigma(eq[u] + ek[src_e] [+ e_e])
 
 with the three CUDA kernels of ``ops/cuda``: ``ell_act_reduce2`` for the
 forward when a gradient is taken (it also returns the derivative mass
 ``sbar``), ``ell_src_bwd`` for the key-side gradient, and
-``ell_act_reduce`` for the forward without a gradient.
+``ell_act_reduce`` for the forward without a gradient; with an edge table
+``e`` their edge-term forms ``ell_act_reduce2_edge``, ``ell_src_bwd_edge``
+(which also gives the per-edge cotangent) and ``ell_act_reduce_edge``.
+:func:`ell_sir_aggregate_fused_edge` computes the same with e = e_basis @
+w_e formed inside the kernels ``ell_edge_act_reduce2`` and
+``ell_edge_src_bwd`` from the narrow edge basis, SIREConv's fused route.
 :func:`ell_sir_aggregate_max` computes the max aggregation
 
     out[u] = max_{e in in(u)} sigma(eq[u] + ek[src_e]) @ W_R + b
@@ -40,11 +45,16 @@ from ..graph import GraphBatch
 from .cuda import (
     ell_act_reduce,
     ell_act_reduce2,
+    ell_act_reduce2_edge,
+    ell_act_reduce_edge,
+    ell_edge_act_reduce2,
+    ell_edge_src_bwd,
     ell_max_bwd,
     ell_max_fwd,
     ell_max_wincount,
     ell_scaled_reduce,
     ell_src_bwd,
+    ell_src_bwd_edge,
 )
 from .cuda.kernels import NEG
 from .cuda.kernels import bucket_offsets as _bucket_offsets
@@ -288,7 +298,9 @@ class FastGraph:
     ``dst_slot_srcnode`` [S_dst] is the src node of each dst slot and
     ``src_slot_dstnode`` [S_src] the dst node of each src slot;
     ``src_slot_from_dst_slot`` [S_src] is the dst slot holding each src
-    slot's edge (0 on padding slots). The static
+    slot's edge (0 on padding slots); ``edge2dst_slot`` and
+    ``edge2src_slot`` [E_pad] are each sorted edge's dst and src slot (0 for
+    padding edges), which recover per-edge values. The static
     per-slot scales (agg_type "sum"/"mean"/"sym" -> [S] f32, slot validity
     folded in) are precomputed on the host."""
 
@@ -298,6 +310,8 @@ class FastGraph:
     dst_slot_srcnode: torch.Tensor
     src_slot_dstnode: torch.Tensor
     src_slot_from_dst_slot: torch.Tensor
+    edge2dst_slot: torch.Tensor
+    edge2src_slot: torch.Tensor
     dst_slot_scales: dict
     src_slot_scales: dict
 
@@ -312,6 +326,14 @@ class FastGraph:
     @property
     def node_mask(self):
         return self.graph.node_mask
+
+    @property
+    def edge_mask(self):
+        return self.graph.edge_mask
+
+    @property
+    def edge_perm(self):
+        return self.graph.edge_perm
 
 
 def static_edge_scale(agg: str, src, dst, valid, in_deg, out_deg
@@ -355,9 +377,12 @@ def build_fast_graph(graph: GraphBatch,
     svalid = src_plan.host["slot_valid"] > 0
     edge2dst_slot = np.zeros(graph.e_pad, np.int64)
     edge2dst_slot[dst_slot_edge[dvalid]] = np.nonzero(dvalid)[0]
+    edge2src_slot = np.zeros(graph.e_pad, np.int64)
+    edge2src_slot[src_slot_edge[svalid]] = np.nonzero(svalid)[0]
     host = dict(dst_slot_srcnode=src[dst_slot_edge],
                 src_slot_dstnode=dst[src_slot_edge],
-                src_slot_from_dst_slot=edge2dst_slot[src_slot_edge])
+                src_slot_from_dst_slot=edge2dst_slot[src_slot_edge],
+                edge2dst_slot=edge2dst_slot, edge2src_slot=edge2src_slot)
 
     dst_scales, src_scales = {}, {}
     for agg in ("sum", "mean", "sym"):
@@ -454,62 +479,164 @@ def _cast(x: torch.Tensor, edge_dtype) -> torch.Tensor:
     return (x if edge_dtype is None else x.to(edge_dtype)).contiguous()
 
 
+def edge_cotangent(g_z: torch.Tensor, edge2slot: torch.Tensor,
+                   edge_mask: torch.Tensor) -> torch.Tensor:
+    """[E_pad, H] f32 per-edge cotangent in sorted-edge order from a
+    per-slot table g_z [S, H]: ``g_z[edge2slot] * edge_mask`` (the JAX
+    route's ``_edge_cotangent``). It is the contract of the g_e output of
+    ``ell_src_bwd_edge``, and that output's plain version."""
+    return (g_z.index_select(0, edge2slot).float()
+            * edge_mask.to(torch.float32)[:, None])
+
+
 class _EllSirAggregate(torch.autograd.Function):
     """Forward with ``ell_act_reduce2`` (row sums and derivative mass
     ``sbar``); backward ``g_eq = g * sbar`` and ``g_ek`` from the
-    src-major ``ell_src_bwd``. Only node-sized tensors are saved."""
+    src-major ``ell_src_bwd``. With an edge table ``e`` [E_pad, H] (sorted
+    edge order) the edge-term forms run instead, and the backward's
+    ``ell_src_bwd_edge`` also gives g_e [E_pad, H] f32. Only node-sized
+    tensors and e in the edge dtype are saved."""
 
     @staticmethod
-    def forward(ctx, eq, ek, fg: FastGraph, act: Activation, agg_type: str,
-                edge_dtype):
+    def forward(ctx, eq, ek, e, fg: FastGraph, act: Activation,
+                agg_type: str, edge_dtype):
         plan = fg.dst_plan
-        rows, srows = ell_act_reduce2(
-            eq.contiguous(), _cast(ek, edge_dtype), fg.dst_slot_srcnode,
-            fg.dst_slot_scales[agg_type], plan.row_key, plan.row_ptr, act)
+        args = (eq.contiguous(), _cast(ek, edge_dtype), fg.dst_slot_srcnode,
+                fg.dst_slot_scales[agg_type], plan.row_key, plan.row_ptr, act)
+        if e is None:
+            rows, srows = ell_act_reduce2(*args)
+        else:
+            e = _cast(e, edge_dtype)
+            rows, srows = ell_act_reduce2_edge(*args, e, plan.slot_edge)
         sbar = plan.finalize_rows_sum(srows)
-        ctx.save_for_backward(eq, ek, sbar)
+        ctx.save_for_backward(eq, ek, e, sbar)
         ctx.fg, ctx.act, ctx.agg_type, ctx.edge_dtype = (
             fg, act, agg_type, edge_dtype)
         return plan.finalize_rows_sum(rows)
 
     @staticmethod
     def backward(ctx, g):
-        eq, ek, sbar = ctx.saved_tensors
+        eq, ek, e, sbar = ctx.saved_tensors
         fg = ctx.fg
         g_eq = g * sbar if ctx.needs_input_grad[0] else None
-        g_ek = None
-        if ctx.needs_input_grad[1]:
+        g_ek = g_e = None
+        if any(ctx.needs_input_grad[1:3]):
             splan = fg.src_plan
-            rows = ell_src_bwd(
-                _cast(eq, ctx.edge_dtype), _cast(g, ctx.edge_dtype),
-                ek.contiguous(), fg.src_slot_dstnode,
-                fg.src_slot_scales[ctx.agg_type], splan.row_key,
-                splan.row_ptr, ctx.act)
-            g_ek = splan.finalize_rows_sum(rows)
-        return g_eq, g_ek, None, None, None, None
+            args = (_cast(eq, ctx.edge_dtype), _cast(g, ctx.edge_dtype),
+                    ek.contiguous(), fg.src_slot_dstnode,
+                    fg.src_slot_scales[ctx.agg_type], splan.row_key,
+                    splan.row_ptr, ctx.act)
+            if e is None:
+                rows = ell_src_bwd(*args)
+            else:
+                rows, g_e = ell_src_bwd_edge(*args, e, splan.slot_edge,
+                                             fg.edge2src_slot, fg.edge_mask)
+            if ctx.needs_input_grad[1]:
+                g_ek = splan.finalize_rows_sum(rows)
+        if not ctx.needs_input_grad[2]:
+            g_e = None
+        return g_eq, g_ek, g_e, None, None, None, None
 
 
 def ell_sir_aggregate(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
                       activation, agg_type: str, *,
+                      e: Optional[torch.Tensor] = None,
                       edge_dtype: Optional[torch.dtype] = None
                       ) -> torch.Tensor:
-    """out[u] = sum_e scale_e * sigma(eq[u] + ek[src_e]) over u's incoming
-    edges, with the FastGraph's static per-slot scales for ``agg_type``.
+    """out[u] = sum_e scale_e * sigma(eq[u] + ek[src_e] [+ e_e]) over u's
+    incoming edges, with the FastGraph's static per-slot scales for
+    ``agg_type``. ``e`` [E_pad, H] f32 is an optional edge term in sorted
+    edge order (the JAX route's ``with_edge``), and gets a gradient.
 
     ``edge_dtype`` (None or torch.bfloat16) is the type the gathered
-    operands are carried in; all sums are f32. Without a gradient
-    (``torch.is_grad_enabled()`` False, or neither input needs one) the
-    forward runs ``ell_act_reduce`` alone."""
+    operands are carried in; the edge term is added to a gathered row in
+    f32 and rounded to it; all sums are f32. Without a gradient
+    (``torch.is_grad_enabled()`` False, or no input needs one) the forward
+    runs ``ell_act_reduce`` (``ell_act_reduce_edge``) alone."""
     if agg_type not in fg.dst_slot_scales:
         raise ValueError(f"agg_type {agg_type!r} is not a linear aggregation")
     act = resolve_activation(activation)
-    if torch.is_grad_enabled() and (eq.requires_grad or ek.requires_grad):
-        return _EllSirAggregate.apply(eq, ek, fg, act, agg_type, edge_dtype)
+    inputs = (eq, ek) if e is None else (eq, ek, e)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _EllSirAggregate.apply(eq, ek, e, fg, act, agg_type,
+                                      edge_dtype)
     plan = fg.dst_plan
-    rows = ell_act_reduce(eq.contiguous(), _cast(ek, edge_dtype),
-                          fg.dst_slot_srcnode, fg.dst_slot_scales[agg_type],
-                          plan.row_key, plan.row_ptr, act)
+    args = (eq.contiguous(), _cast(ek, edge_dtype), fg.dst_slot_srcnode,
+            fg.dst_slot_scales[agg_type], plan.row_key, plan.row_ptr, act)
+    if e is None:
+        rows = ell_act_reduce(*args)
+    else:
+        rows = ell_act_reduce_edge(*args, _cast(e, edge_dtype),
+                                   plan.slot_edge)
     return plan.finalize_rows_sum(rows)
+
+
+# ======================================================================
+# The fused-edge route: SIREConv's W_E inside the kernels
+# ======================================================================
+
+class _EllSirAggregateFusedEdge(torch.autograd.Function):
+    """Forward: ``ell_edge_act_reduce2`` gives the row sums and ``sbar``
+    (also without a gradient: the JAX route has no single-output form).
+    Backward: ``g_eq = g * sbar``; ``ell_edge_src_bwd`` gives the g_ek rows
+    and g_WE. e_basis gets no gradient. Only ek and, in the backward, eq
+    and g are carried in the edge dtype; e_basis, w_e and the projection
+    stay f32. Only node-sized tensors, e_basis and w_e are saved."""
+
+    @staticmethod
+    def forward(ctx, eq, ek, e_basis, w_e, fg: FastGraph, act: Activation,
+                agg_type: str, edge_dtype):
+        plan = fg.dst_plan
+        rows, srows = ell_edge_act_reduce2(
+            eq.contiguous(), _cast(ek, edge_dtype), e_basis.contiguous(),
+            w_e.contiguous(), fg.dst_slot_srcnode, plan.slot_edge,
+            fg.dst_slot_scales[agg_type], plan.row_key, plan.row_ptr, act)
+        sbar = plan.finalize_rows_sum(srows)
+        ctx.save_for_backward(eq, ek, e_basis, w_e, sbar)
+        ctx.fg, ctx.act, ctx.agg_type, ctx.edge_dtype = (
+            fg, act, agg_type, edge_dtype)
+        return plan.finalize_rows_sum(rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        eq, ek, e_basis, w_e, sbar = ctx.saved_tensors
+        fg = ctx.fg
+        g_eq = g * sbar if ctx.needs_input_grad[0] else None
+        g_ek = g_we = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[3]:
+            splan = fg.src_plan
+            rows, g_we = ell_edge_src_bwd(
+                _cast(eq, ctx.edge_dtype), _cast(g, ctx.edge_dtype),
+                ek.contiguous(), e_basis.contiguous(), w_e.contiguous(),
+                fg.src_slot_dstnode, splan.slot_edge,
+                fg.src_slot_scales[ctx.agg_type], splan.row_key,
+                splan.row_ptr, ctx.act)
+            if ctx.needs_input_grad[1]:
+                g_ek = splan.finalize_rows_sum(rows)
+        if not ctx.needs_input_grad[3]:
+            g_we = None
+        return g_eq, g_ek, None, g_we, None, None, None, None
+
+
+def ell_sir_aggregate_fused_edge(fg: FastGraph, eq: torch.Tensor,
+                                 ek: torch.Tensor, e_basis: torch.Tensor,
+                                 w_e: torch.Tensor, activation,
+                                 agg_type: str, *,
+                                 edge_dtype: Optional[torch.dtype] = None
+                                 ) -> torch.Tensor:
+    """out[u] = sum_e scale_e * sigma(eq[u] + ek[src_e] + e_basis_e @ w_e)
+    with the FastGraph's static per-slot scales for ``agg_type``: the
+    ``ell_sir_aggregate`` of ``e = e_basis @ w_e``, with the projection
+    formed inside the kernels, so no [E_pad, H] edge table or cotangent
+    exists. e_basis [E_pad, De] f32 in sorted edge order (no gradient),
+    w_e [De, H] f32 in the JAX layout. The port of
+    ``make_ell_sir_aggregate_pallas_fused_edge`` with static scales,
+    without its TPU padding (``pad_basis``, the 128-lane wrapper)."""
+    if agg_type not in fg.dst_slot_scales:
+        raise ValueError(f"agg_type {agg_type!r} is not a linear aggregation")
+    act = resolve_activation(activation)
+    return _EllSirAggregateFusedEdge.apply(eq, ek, e_basis, w_e, fg, act,
+                                           agg_type, edge_dtype)
 
 
 # ======================================================================

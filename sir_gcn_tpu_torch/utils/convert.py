@@ -12,9 +12,19 @@ ogbn-arxiv ``SIRModel`` it holds
     batch_stats/GraphBatchNorm_i/MaskedBatchNorm_0/{mean,var}
     params/readout/Dense_0/{kernel,bias}
 
+A ``SIRConv`` or ``SIREConv`` on its own holds its conv's keys under
+``params/``; a ``SIREConv`` adds
+
+    params/linear_edge/Dense_0/kernel        [De, H] (the default W_E)
+    params/edge_encoder/embedding            [T, H]  (an ``Embed`` encoder,
+                                                      instead of linear_edge)
+
+and an ``Embed`` on its own holds ``params/embedding``.
+
 A flax ``kernel`` is [in, out] and a torch ``weight`` [out, in], so Dense
-kernels are transposed; a max conv's ``relation_kernel`` keeps the JAX
-layout [H, O] in both. A key that is missing or left over raises.
+kernels are transposed (``linear_edge``'s [De, H] kernel is the weight
+[H, De]); a max conv's ``relation_kernel`` and an ``embedding`` table keep
+the JAX layout in both. A key that is missing or left over raises.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models import GraphBatchNorm, Linear
+from ..models import Embed, GraphBatchNorm, Linear, SIRConv, SIREConv
 
 
 def _flatten(tree, prefix=()) -> dict:
@@ -43,22 +53,38 @@ def _linear(path, mod: Linear) -> dict:
     return slots
 
 
+def _embed(path, mod: Embed) -> dict:
+    return {path + ("embedding",): (mod.embedding, False)}
+
+
+def _conv_slots(path, conv) -> dict:
+    """flax path -> (torch tensor, transpose) for a SIRConv or SIREConv."""
+    slots = {}
+    for name in ("linear_query", "linear_key"):
+        slots.update(_linear(path + (name,), getattr(conv, name)))
+    if isinstance(conv, SIREConv):
+        if conv.edge_encoder is None:
+            slots.update(_linear(path + ("linear_edge",), conv.linear_edge))
+        elif isinstance(conv.edge_encoder, Embed):
+            slots.update(_embed(path + ("edge_encoder",), conv.edge_encoder))
+        else:
+            raise TypeError(f"no bridge for the edge encoder "
+                            f"{type(conv.edge_encoder).__name__}")
+    if conv.agg_type == "max":
+        slots[path + ("relation_kernel",)] = (conv.relation_kernel, False)
+        if conv.relation_bias is not None:
+            slots[path + ("relation_bias",)] = (conv.relation_bias, False)
+    else:
+        slots.update(_linear(path + ("linear_relation",),
+                             conv.linear_relation))
+    return slots
+
+
 def _sir_model_slots(model) -> dict:
     """flax path -> (torch tensor, transpose) for an ogbn-arxiv SIRModel."""
     slots = _linear(("params", "embedding"), model.embedding)
     for i, conv in enumerate(model.convs):
-        path = ("params", f"conv_{i}")
-        for name in ("linear_query", "linear_key"):
-            slots.update(_linear(path + (name,), getattr(conv, name)))
-        if conv.agg_type == "max":
-            slots[path + ("relation_kernel",)] = (conv.relation_kernel,
-                                                  False)
-            if conv.relation_bias is not None:
-                slots[path + ("relation_bias",)] = (conv.relation_bias,
-                                                    False)
-        else:
-            slots.update(_linear(path + ("linear_relation",),
-                                 conv.linear_relation))
+        slots.update(_conv_slots(("params", f"conv_{i}"), conv))
     for i, norm in enumerate(model.norms):
         if isinstance(norm, GraphBatchNorm):
             bn, node = norm.norm, (f"GraphBatchNorm_{i}", "MaskedBatchNorm_0")
@@ -72,10 +98,18 @@ def _sir_model_slots(model) -> dict:
     return slots
 
 
+def _slots(model: nn.Module) -> dict:
+    if isinstance(model, (SIRConv, SIREConv)):
+        return _conv_slots(("params",), model)
+    if isinstance(model, Embed):
+        return _embed(("params",), model)
+    return _sir_model_slots(model)
+
+
 def load_jax_variables(model: nn.Module, variables: dict) -> None:
-    """Copy the flax ``variables`` of the JAX ``SIRModel`` into ``model``
-    (the port's ogbn-arxiv ``SIRModel``), in place."""
-    slots = _sir_model_slots(model)
+    """Copy the flax ``variables`` of a JAX ``SIRModel``, ``SIRConv``,
+    ``SIREConv`` or ``Embed`` into its port ``model``, in place."""
+    slots = _slots(model)
     given = _flatten(variables)
     missing = sorted("/".join(k) for k in slots.keys() - given.keys())
     extra = sorted("/".join(k) for k in given.keys() - slots.keys())
