@@ -12,9 +12,11 @@ Phases, each printed as it runs; any failure exits non-zero:
            awkward small plans (hub stage 2, H = 24 and 200, O != H,
            De = 5 and 16, budget-1 pad rows, zero scales, a row with no
            valid slot, isolated nodes, row counts that are not a multiple
-           of a block's, duplicated edges that tie exactly), then the
-           ogbn-arxiv plan in f32 and bf16, with CUDA-event times of kernel
-           and plain version beside the kernel's bound
+           of a block's, duplicated edges that tie exactly; the general
+           route's kernels with centered_relu, softmax and tanh sent down
+           the general route), then the ogbn-arxiv plan in f32 and bf16,
+           with CUDA-event times of kernel and plain version beside the
+           kernel's bound
   train    the arxiv trainer's entry point at full width (169,343 nodes,
            H = 96, 3 layers, bn, residual, bf16 edges), once with sym and
            once with max aggregation, 5 steps and evals each, with the
@@ -24,13 +26,21 @@ Phases, each printed as it runs; any failure exits non-zero:
            5 AdamW steps and 5 evals on the fused-edge route (dropout 0)
            and on the generic edge route (dropout 0.2), with exact launch
            counts for each
+  general  one SIRConv with the row-wise sigma centered_relu(0.5) at full
+           width on the arxiv graph (96 in, hidden and out, sym, bf16
+           edges): 5 AdamW steps and 5 evals on the general route, with
+           exact launch counts
+  bwd      the forward and backward of one aggregate at the arxiv plan
+           (H = 96, sym, tanh) three ways: src-major (#2, #4), fused take
+           (#2, #5) and dst-major (#1, #6, #12); each design's time, and
+           the gradients of the other two against the src-major one
   e2e      one training step on a ~20k-node graph on the card (kernels)
            against the same step on the CPU (plain versions): the arxiv
-           model with sym and with max, and the SIREConv layer on its fused
-           and its generic route
-  profile  device time by kernel over warm training steps of each train
-           and sireconv configuration (torch.profiler), and the device's
-           idle share
+           model with sym and with max, the SIREConv layer on its fused
+           and its generic route, and the general phase's SIRConv
+  profile  device time by kernel over warm training steps of each train,
+           sireconv and general configuration (torch.profiler), and the
+           device's idle share
 
 The last line is the JSON contract line; the line before it lists each
 kernel's launches on the main path, error, times and bound. Needs a CUDA
@@ -39,6 +49,7 @@ card and the port beside this script; exits non-zero without either.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -62,6 +73,11 @@ GW_TOL = dict(atol=3e-4, rtol=1e-3, amax=1e-5)
 # may pick another winner on the card than in the plain version: the two
 # sum H products in another order
 NEAR_TIE = 1e-5
+# (slot, feature) whose centered_relu gate m = z - alpha * mean(z) lies
+# within this of 0 (relative to 1 + |alpha * mean|) may take the other side
+# of the relu on the card: the two sum the mean in another order, which
+# moves m by about 1e-8
+NEAR_GATE = 1e-5
 # H100 SXM data sheet: HBM rate and the f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -77,11 +93,13 @@ TRAIN_FLAGS = [
 SOURCE = "sir_gcn_tpu_torch/csrc/ell_kernels.cu"
 MAX_SOURCE = "sir_gcn_tpu_torch/csrc/ell_max_kernels.cu"
 EDGE_SOURCE = "sir_gcn_tpu_torch/csrc/ell_edge_kernels.cu"
+GENERAL_SOURCE = "sir_gcn_tpu_torch/csrc/ell_general_kernels.cu"
 PALLAS = "sir_gcn_tpu/ops/pallas/kernels.py"
 # kernel -> (source, TPU function it replaces, flops per slot and feature;
 # for the max kernels per valid slot and per H*O; for the fused-edge
 # kernels per valid slot and feature on top of 2 De (forward) or 4 De
-# (backward) for the edge projection and g_WE)
+# (backward) for the edge projection and g_WE; for the general route's
+# kernels per valid slot and feature with centered_relu)
 KERNELS = {
     "ell_act_reduce": (SOURCE, f"{PALLAS}:55", 5),     # add, sigma, scale-add
     "ell_act_reduce2": (SOURCE, f"{PALLAS}:94", 8),    # + sigma', scale-add
@@ -95,11 +113,20 @@ KERNELS = {
     "ell_max_wincount": (MAX_SOURCE, f"{PALLAS}:625", 2),
     "ell_max_bwd": (MAX_SOURCE, f"{PALLAS}:679", 6),   # m, g_W, g_a
     "ell_scaled_reduce": (MAX_SOURCE, f"{PALLAS}:781", 2),  # mul, add
+    # add, mean add, sub, max, scale-add
+    "ell_act_reduce_rowwise": (GENERAL_SOURCE, f"{PALLAS}:55", 6),
+    # z add, mean add, sub, gate, g*scale, sum add, mul-sub, add
+    "ell_geq_reduce": (GENERAL_SOURCE, f"{PALLAS}:152", 9),
+    "ell_src_bwd_rowwise": (GENERAL_SOURCE, f"{PALLAS}:198", 9),
+    "ell_src_bwd_fused": (GENERAL_SOURCE, f"{PALLAS}:264", 9),
+    "ell_act_reduce_bwd": (GENERAL_SOURCE, f"{PALLAS}:326", 9),
 }
 LINEAR = ("ell_act_reduce", "ell_act_reduce2", "ell_src_bwd")
 EDGE = ("ell_act_reduce_edge", "ell_act_reduce2_edge", "ell_src_bwd_edge",
         "ell_edge_act_reduce2", "ell_edge_src_bwd")
 MAX = ("ell_max_fwd", "ell_max_wincount", "ell_max_bwd", "ell_scaled_reduce")
+GENERAL = ("ell_act_reduce_rowwise", "ell_geq_reduce", "ell_src_bwd_rowwise")
+BWD = ("ell_src_bwd_fused", "ell_act_reduce_bwd")
 EDGE_DIM = 16  # the edge basis width of the SIREConv configuration
 
 
@@ -113,11 +140,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def compare(label, got, want, tol) -> float:
-    """Max abs error of ``got`` against ``want``; raises past ``tol``."""
+def compare(label, got, want, tol, keep=None) -> float:
+    """Max abs error of ``got`` against ``want``; raises past ``tol``. With
+    ``keep`` (bool over the first dim) only those rows are compared."""
     import torch
 
     got, want = got.float(), want.float()
+    if keep is not None:
+        got, want = got[keep], want[keep]
     if not torch.isfinite(got).all():
         raise AssertionError(f"{label}: non-finite output")
     diff = (got - want).abs()
@@ -556,6 +586,112 @@ def check_max_kernels(label, fg, eq, ek, w, g, scale, act, dtype, errs,
         f"{timing['ell_scaled_reduce']['library_ms']:.4f} ms")
 
 
+def general_case(graph: str, h: int, device):
+    """The small cases, with every slot of one multi-slot row of each plan
+    at scale 0 besides (a row with no valid slot)."""
+    fg, eq, ek, g, sd, ss = small_case(graph, h, device)
+    for plan, scale in ((fg.dst_plan, sd), (fg.src_plan, ss)):
+        ptr = plan.host["row_ptr"]
+        r = int((ptr[1:] - ptr[:-1] > 1).argmax())
+        scale[int(ptr[r]):int(ptr[r + 1])] = 0.0
+    return fg, eq, ek, g, sd, ss
+
+
+def near_gates(plan, z, scale, act):
+    """(slot flags [S], row flags [R], pairs): the valid slots of ``plan``
+    with a feature whose centered_relu gate lies within NEAR_GATE of 0, at
+    the slot values z [S, H] f32 (the plain version's), the rows holding
+    such a slot, and the number of such (slot, feature)."""
+    import torch
+
+    c = act.param * (z.sum(-1, keepdim=True) / z.shape[1])
+    near = ((z - c).abs() <= NEAR_GATE * (1 + c.abs())) & (scale != 0)[:, None]
+    slots = near.any(1)
+    ptr = plan.row_ptr.long()
+    rows = torch.zeros(ptr.numel() - 1, dtype=torch.bool, device=z.device)
+    slot_row = torch.repeat_interleave(
+        torch.arange(rows.numel(), device=z.device), ptr.diff())
+    rows[slot_row[slots]] = True
+    return slots, rows, int(near.sum())
+
+
+def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
+                          timing=None, mask_gates=False):
+    """The general route's kernels (#1r, #3, #6 on the dst plan; #4r and
+    #5 on the src plan) against their plain versions; a g_z stored in bf16
+    at one bf16 step. With ``mask_gates`` (centered_relu) the rows and
+    slots holding a near-gate (slot, feature) are left out of the backward
+    comparisons and counted: the relu may take the other side there."""
+    import torch
+
+    from sir_gcn_tpu_torch.ops import cuda as K
+
+    fwd, bwd = kernel_args(fg, eq, ek, g, sd, ss, act, dtype)
+    plan, splan = fg.dst_plan, fg.src_plan
+    bd, bs = plan.buckets1, splan.buckets1
+    fbwd = (torch.cat([bwd[0], bwd[1]], 1),) + bwd[2:]
+    keep_d = keep_ds = keep_s = None
+    if mask_gates and act.name == "centered_relu":
+        zd = (fwd[1].index_select(0, fg.dst_slot_srcnode).float()
+              + eq.index_select(0, plan.slot_key))
+        ds, dr, dn = near_gates(plan, zd, sd, act)
+        del zd
+        zs = (bwd[0].index_select(0, fg.src_slot_dstnode).float()
+              + ek.index_select(0, splan.slot_key))
+        _, sr, sn = near_gates(splan, zs, ss, act)
+        del zs
+        keep_d, keep_ds, keep_s = ~dr, ~ds, ~sr
+        log(f"  {label}: near-gate (slot, feature): {dn} dst, {sn} src; "
+            f"left out {int(dr.sum())} of {dr.numel()} dst rows, "
+            f"{int(ds.sum())} g_slots rows, {int(sr.sum())} of "
+            f"{sr.numel()} src rows")
+    gz_tol = BF16_STEP if dtype == torch.bfloat16 else BWD_TOL
+    runs = {
+        "ell_act_reduce_rowwise": (
+            fwd, lambda: K.ell_act_reduce_rowwise(*fwd),
+            lambda: K.ell_act_reduce_plain(*fwd, buckets=bd),
+            ((FWD_TOL, None),)),
+        "ell_geq_reduce": (
+            fwd + (g,), lambda: K.ell_geq_reduce(*fwd, g),
+            lambda: K.ell_geq_reduce_plain(*fwd, g, buckets=bd),
+            ((BWD_TOL, keep_d),)),
+        "ell_act_reduce_bwd": (
+            fwd + (g,), lambda: K.ell_act_reduce_bwd(*fwd, g, gz_dtype=dtype),
+            lambda: K.ell_act_reduce_bwd_plain(*fwd, g, dtype, buckets=bd),
+            ((gz_tol, keep_ds), (BWD_TOL, keep_d))),
+        "ell_src_bwd_rowwise": (
+            bwd, lambda: K.ell_src_bwd_rowwise(*bwd),
+            lambda: K.ell_src_bwd_plain(*bwd, buckets=bs),
+            ((BWD_TOL, keep_s),)),
+        "ell_src_bwd_fused": (
+            fbwd, lambda: K.ell_src_bwd_fused(*fbwd),
+            lambda: K.ell_src_bwd_fused_plain(*fbwd, buckets=bs),
+            ((BWD_TOL, keep_s),)),
+    }
+    outs = {}
+    for name, (_, kernel, plain, tols) in runs.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for i, (a, b, (tol, keep)) in enumerate(zip(got, want, tols)):
+            err = compare(f"{label} {name}[{i}]", a, b, tol, keep)
+            errs[name] = max(errs.get(name, 0.0), err)
+        outs[name] = got
+        del want
+    if timing is None:
+        return
+    valid_d, valid_s = int((sd != 0).sum()), int((ss != 0).sum())
+    h = eq.shape[1]
+    for name, (args, kernel, plain, _) in runs.items():
+        valid = valid_s if name in ("ell_src_bwd_rowwise",
+                                    "ell_src_bwd_fused") else valid_d
+        timing[name] = dict(ms=cuda_ms(kernel, 20),
+                            plain_ms=cuda_ms(plain, 3, warmup=1),
+                            bound=bound(args, outs[name],
+                                        valid * h * KERNELS[name][2]))
+
+
 def phase_kernels(device):
     import torch
 
@@ -564,12 +700,19 @@ def phase_kernels(device):
         build_arxiv_graph,
         get_args,
     )
-    from sir_gcn_tpu_torch.ops.ell import leaky_relu, tanh
+    from sir_gcn_tpu_torch.ops.ell import (
+        centered_relu,
+        leaky_relu,
+        softmax,
+        tanh,
+    )
 
     log("== kernels")
     errs = {}
     acts = (leaky_relu(0.2), tanh)
     dtypes = (torch.float32, torch.bfloat16)
+    general_acts = (centered_relu(0.5), softmax,
+                    dataclasses.replace(tanh, sir_elementwise=False))
     for graph, h in (("hub", 24), ("random", 96), ("random", 200)):
         case = small_case(graph, h, device)
         for act in acts:
@@ -595,6 +738,12 @@ def phase_kernels(device):
             for dtype in dtypes:
                 check_max_kernels(f"{graph} H={h} O={o} {act.name} {dtype}",
                                   *case, act, dtype, errs)
+    for graph, h in (("hub", 24), ("random", 96), ("isolated", 200)):
+        case = general_case(graph, h, device)
+        for act in general_acts:
+            for dtype in dtypes:
+                check_general_kernels(f"{graph} H={h} {act.name} {dtype}",
+                                      *case, act, dtype, errs)
 
     args = get_args(TRAIN_FLAGS)
     data = synthetic_node_classification(
@@ -620,6 +769,11 @@ def phase_kernels(device):
         check_max_kernels(f"arxiv {dtype}", fg, eq, ek, w, g,
                           fg.dst_slot_scales["sum"], leaky_relu(0.2), dtype,
                           errs, timing=keep, mask_near_ties=True)
+        check_general_kernels(f"arxiv {dtype} centered_relu", fg, eq, ek, g,
+                              sd, ss, centered_relu(0.5), dtype, errs,
+                              timing=keep, mask_gates=True)
+    check_general_kernels("arxiv bf16 softmax", fg, eq, ek, g, sd, ss,
+                          softmax, torch.bfloat16, errs)
     for name, t in timing.items():
         b_ms, by, nbytes, flops = t["bound"]
         log(f"  {name} (bf16 edges): {t['ms']:.4f} ms, plain "
@@ -785,6 +939,272 @@ def phase_sireconv(device, fg, steps: int = 5):
             total[k] += v
     set_edge_dtype(None)
     return total
+
+
+def make_general_conv():
+    """The SIRConv of the general phase: 96 in, hidden and out, the
+    row-wise centered_relu(0.5), sym; weights from seed 0."""
+    import torch
+
+    from sir_gcn_tpu_torch.models import SIRConv
+    from sir_gcn_tpu_torch.ops.ell import centered_relu
+
+    return SIRConv(96, 96, 96, centered_relu(0.5), agg_type="sym",
+                   generator=torch.Generator().manual_seed(0))
+
+
+def conv_step(conv, fg, x, w, opt):
+    """One training step of a SIRConv: forward, loss = sum(out * w),
+    backward, AdamW."""
+    conv.train()
+    opt.zero_grad(set_to_none=True)
+    loss = (conv(fg, x) * w).sum()
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def phase_general(device, fg, steps: int = 5):
+    """One SIRConv with centered_relu(0.5) at full width on the arxiv plan,
+    bf16 edges: ``steps`` AdamW steps, each followed by a no-grad eval,
+    with exact launch counts (per step #1r, #3 and #4r once each, per eval
+    #1r once, nothing else)."""
+    import numpy as np
+    import torch
+
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+    from sir_gcn_tpu_torch.train import make_adamw
+
+    log(f"== general: one SIRConv (96 -> 96, centered_relu(0.5), sym, bf16 "
+        f"edges) on the arxiv plan, {steps} steps and evals")
+    set_edge_dtype(torch.bfloat16)
+    x, _, w = sireconv_inputs(fg, seed=0)
+    conv = make_general_conv().to(device)
+    opt = make_adamw(conv.parameters(), 1e-3, 0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    step_s, eval_s, losses = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = conv_step(conv, fg, x, w, opt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        conv.eval()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = conv(fg, x)
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("non-finite eval output")
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  step ms {[round(t * 1e3, 3) for t in step_s]}, eval ms "
+        f"{[round(t * 1e3, 3) for t in eval_s]}")
+    log(f"  steady step (median of steps 2..{steps}) "
+        f"{1e3 * float(np.median(step_s[1:])):.3f} ms, eval median "
+        f"{1e3 * float(np.median(eval_s[1:])):.3f} ms, peak memory "
+        f"{peak / 2**30:.3f} GiB, losses {losses}")
+    log(f"  launches { {k: v for k, v in launches.items() if v} }")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite loss")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(ell_act_reduce_rowwise=2 * steps, ell_geq_reduce=steps,
+                ell_src_bwd_rowwise=steps)
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    set_edge_dtype(None)
+    return launches
+
+
+def phase_bwd(device, fg, iters: int = 10):
+    """The forward and backward of one aggregate at the arxiv plan (H = 96,
+    sym, tanh), three ways, each timed whole by CUDA events (casts, the
+    [N, 2H] table and the finalizes included):
+      (i)   src-major: #2, g_eq = g * sbar, #4 (the default);
+      (ii)  fused take: #2, g * sbar, #5 over cat([eq, g], 1);
+      (iii) dst-major: #1, #6 (g_z stored in the edge dtype), #12 over
+            g_z through src_slot_from_dst_slot for g_ek.
+    In f32 (g_z f32) every output of (ii) and (iii) is held against (i); in
+    bf16 those of (ii), and out and g_eq of (iii). (iii)'s bf16 g_ek rounds
+    other operands than (i) (ek and each slot's g_z, where (i) rounds eq and
+    g), so its difference is logged. The launch counters run from the
+    start of the phase to its end."""
+    import torch
+
+    from sir_gcn_tpu_torch.ops import cuda as K
+    from sir_gcn_tpu_torch.ops.ell import ell_sir_aggregate, tanh
+
+    log("== bwd: forward + backward of one aggregate at the arxiv plan "
+        "(H 96, sym, tanh), three designs")
+    K.reset_launch_counts()
+    plan, splan = fg.dst_plan, fg.src_plan
+    gen = torch.Generator(device=device).manual_seed(1)
+    eq0, ek0, w = (torch.randn((fg.n_pad, 96), generator=gen, device=device)
+                   for _ in range(3))
+
+    def src_major(dtype, fuse):
+        def run():
+            eq = eq0.detach().requires_grad_()
+            ek = ek0.detach().requires_grad_()
+            out = ell_sir_aggregate(fg, eq, ek, tanh, "sym", edge_dtype=dtype,
+                                    fuse_bwd_take=fuse)
+            return (out.detach(),) + torch.autograd.grad(out, (eq, ek), w)
+        return run
+
+    def dst_major(dtype):
+        def run():
+            args = (eq0, ek0.to(dtype), fg.dst_slot_srcnode,
+                    fg.dst_slot_scales["sym"], plan.row_key, plan.row_ptr,
+                    tanh)
+            out = plan.finalize_rows_sum(K.ell_act_reduce(*args))
+            g_slots, geq = K.ell_act_reduce_bwd(*args, w, gz_dtype=dtype)
+            g_ek = splan.finalize_rows_sum(K.ell_scaled_reduce(
+                g_slots, fg.src_slot_from_dst_slot, splan.slot_valid,
+                splan.row_ptr))
+            return out, plan.finalize_rows_sum(geq), g_ek
+        return run
+
+    names = ("out", "g_eq", "g_ek")
+    tols = (FWD_TOL, BWD_TOL, BWD_TOL)
+    want_launches = {
+        "i": dict(ell_act_reduce2=1, ell_src_bwd=1),
+        "ii": dict(ell_act_reduce2=1, ell_src_bwd_fused=1),
+        "iii": dict(ell_act_reduce=1, ell_act_reduce_bwd=1,
+                    ell_scaled_reduce=1)}
+    for dtype in (torch.float32, torch.bfloat16):
+        designs = {"i": src_major(dtype, False), "ii": src_major(dtype, True),
+                   "iii": dst_major(dtype)}
+        outs = {}
+        for key, run in designs.items():
+            before = dict(K.LAUNCHES)
+            outs[key] = run()
+            torch.cuda.synchronize()
+            did = {k: v - before[k] for k, v in K.LAUNCHES.items()
+                   if v != before[k]}
+            if did != want_launches[key]:
+                raise AssertionError(f"({key}) launched {did}, expected "
+                                     f"{want_launches[key]}")
+        for key in ("ii", "iii"):
+            for i, (name, tol) in enumerate(zip(names, tols)):
+                label = f"{dtype} ({key}) {name} against (i)"
+                if key == "iii" and name == "g_ek" and dtype != torch.float32:
+                    diff = (outs[key][i] - outs["i"][i]).abs()
+                    log(f"  {label}: max abs diff {float(diff.max()):.3e}, "
+                        f"max |g_ek| {float(outs['i'][i].abs().max()):.3e} "
+                        f"(other rounding points, not held)")
+                    continue
+                compare(label, outs[key][i], outs["i"][i], tol)
+        del outs
+    ms = {key: [] for key in designs}
+    for key in ("i", "ii", "iii", "iii", "ii", "i"):
+        ms[key].append(cuda_ms(designs[key], iters))
+    for key, label in (("i", "src-major (#2, #4)"),
+                       ("ii", "fused take (#2, #5)"),
+                       ("iii", "dst-major (#1, #6, #12)")):
+        log(f"  ({key}) {label}: {ms[key][0]:.4f} / {ms[key][1]:.4f} ms "
+            f"per forward + backward (bf16, two turns)")
+    # the designs' backward kernels alone, on the same bf16 inputs
+    bf = torch.bfloat16
+    eqb, gb = eq0.to(bf), w.to(bf)
+    rest = (ek0, fg.src_slot_dstnode, fg.src_slot_scales["sym"],
+            splan.row_key, splan.row_ptr, tanh)
+    both = torch.cat([eqb, gb], 1)
+    fwd = (eq0, ek0.to(bf), fg.dst_slot_srcnode, fg.dst_slot_scales["sym"],
+           plan.row_key, plan.row_ptr, tanh)
+    g_slots, _ = K.ell_act_reduce_bwd(*fwd, w, gz_dtype=bf)
+    alone = {
+        "#4 ell_src_bwd": lambda: K.ell_src_bwd(eqb, gb, *rest),
+        "#5 ell_src_bwd_fused": lambda: K.ell_src_bwd_fused(both, *rest),
+        "[N, 2H] table": lambda: torch.cat([eq0.to(bf), w.to(bf)], 1),
+        "#6 ell_act_reduce_bwd": lambda: K.ell_act_reduce_bwd(
+            *fwd, w, gz_dtype=bf),
+        "#12 ell_scaled_reduce": lambda: K.ell_scaled_reduce(
+            g_slots, fg.src_slot_from_dst_slot, splan.slot_valid,
+            splan.row_ptr)}
+    log("  backward kernels alone (bf16, tanh): " + ", ".join(
+        f"{name} {cuda_ms(fn, 20):.4f} ms" for name, fn in alone.items()))
+    return dict(K.LAUNCHES)
+
+
+def phase_e2e_general(device):
+    """One training step of the general phase's SIRConv on a ~20k-node
+    graph on the card against the CPU, f32 edges: out at the forward
+    tolerance, every parameter gradient at the backward tolerance,
+    elementwise, and the card's launches exactly #1r, #3 and #4r once each.
+    The features and weights lie on a dyadic grid (x on multiples of 2^-3
+    in [-4, 4], weights on multiples of 2^-7), so eq, ek, z and each row's
+    sum are exact in f32 in any order: both devices see the same z and the
+    same centered_relu gates, and only the continuous parts differ."""
+    import copy
+
+    import torch
+
+    from sir_gcn_tpu_torch.data import synthetic_node_classification
+    from sir_gcn_tpu_torch.experiments.ogbn_arxiv.train import (
+        build_arxiv_graph,
+        get_args,
+    )
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+
+    log("== e2e general: one SIRConv (centered_relu) step on the card "
+        "(kernels) against the CPU (plain)")
+    set_edge_dtype(None)
+    args = get_args(["--add-reverse-edge", "--add-self-loop"])
+    data = synthetic_node_classification(20_000, 140_000, feat_dim=128,
+                                         num_classes=40, seed=1)
+    graphs = {name: build_arxiv_graph(data, args, dev)
+              for name, dev in (("cpu", "cpu"), ("card", device))}
+    x, _, w = sireconv_inputs(graphs["cpu"], seed=1)
+    x = torch.round(x * 8).clamp(-32, 32) / 8
+    conv = make_general_conv()
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.copy_(torch.round(p * 128) / 128)
+    want = dict(ell_act_reduce_rowwise=1, ell_geq_reduce=1,
+                ell_src_bwd_rowwise=1)
+    runs = {}
+    for name, fg in graphs.items():
+        dev = fg.graph.device
+        m = copy.deepcopy(conv).to(dev)
+        m.train()
+        reset_launch_counts()
+        out = m(fg, x.to(dev))
+        (out * w.to(dev)).sum().backward()
+        if name == "card":
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in LAUNCHES.items() if v}
+            if launches != want:
+                raise AssertionError(f"card launches {launches}, expected "
+                                     f"{want}")
+        runs[name] = dict(out=out.detach().cpu(), grads={
+            k: p.grad.cpu() for k, p in m.named_parameters()})
+    c, g = runs["cpu"], runs["card"]
+    log(f"  nodes 20000, edges {graphs['card'].graph.num_edges}, launches "
+        f"{want}")
+    compare("out", g["out"], c["out"], FWD_TOL)
+    for k in c["grads"]:
+        compare(f"grad {k}", g["grads"][k], c["grads"][k], BWD_TOL)
+
+
+def phase_profile_general(device, fg, steps: int = 3):
+    """The profile breakdown of the general phase's step."""
+    import torch
+
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+    from sir_gcn_tpu_torch.train import make_adamw
+
+    log(f"== profile general: {steps} warm training steps")
+    set_edge_dtype(torch.bfloat16)
+    x, _, w = sireconv_inputs(fg, seed=0)
+    conv = make_general_conv().to(device)
+    opt = make_adamw(conv.parameters(), 1e-3, 0.0)
+    profile_steps(lambda: conv_step(conv, fg, x, w, opt), steps)
+    set_edge_dtype(None)
 
 
 def step_inputs(data, n_pad, device):
@@ -1114,12 +1534,18 @@ def main() -> int:
                      if k in MAX})
     launches.update({k: v for k, v in phase_sireconv(device, arxiv_fg).items()
                      if k in EDGE})
+    launches.update({k: v for k, v in phase_general(device, arxiv_fg).items()
+                     if k in GENERAL})
+    launches.update({k: v for k, v in phase_bwd(device, arxiv_fg).items()
+                     if k in BWD})
     for agg in ("sym", "max"):
         phase_e2e(device, agg)
     phase_e2e_sireconv(device)
+    phase_e2e_general(device)
     for agg in ("sym", "max"):
         phase_profile(device, agg)
     phase_profile_sireconv(device, arxiv_fg)
+    phase_profile_general(device, arxiv_fg)
     log(f"== all phases ok in {time.perf_counter() - t0:.1f}s")
 
     rows = []

@@ -1,7 +1,9 @@
 """Wrappers of the ELL CUDA kernels (``csrc/ell_kernels.cu`` for the
 linear aggregations and their edge-term forms, ``csrc/ell_edge_kernels.cu``
-for the fused edge projection, ``csrc/ell_max_kernels.cu`` for max) and
-their plain PyTorch versions (port of ``sir_gcn_tpu/ops/pallas/kernels.py``).
+for the fused edge projection, ``csrc/ell_max_kernels.cu`` for max,
+``csrc/ell_general_kernels.cu`` for the general sigma route and the full
+vector-Jacobian backwards) and their plain PyTorch versions (port of
+``sir_gcn_tpu/ops/pallas/kernels.py``).
 
 A wrapper takes the node tables and one plan's slot arrays, checks them,
 and on CUDA tensors launches its kernel on the current stream; on CPU
@@ -34,7 +36,10 @@ LAUNCHES = {"ell_act_reduce": 0, "ell_act_reduce2": 0, "ell_src_bwd": 0,
             "ell_act_reduce_edge": 0, "ell_act_reduce2_edge": 0,
             "ell_src_bwd_edge": 0, "ell_edge_act_reduce2": 0,
             "ell_edge_src_bwd": 0, "ell_max_fwd": 0, "ell_max_wincount": 0,
-            "ell_max_bwd": 0, "ell_scaled_reduce": 0}
+            "ell_max_bwd": 0, "ell_scaled_reduce": 0,
+            "ell_act_reduce_rowwise": 0, "ell_geq_reduce": 0,
+            "ell_src_bwd_rowwise": 0, "ell_src_bwd_fused": 0,
+            "ell_act_reduce_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -75,15 +80,30 @@ _ARGTYPES = {
                         _I, _I, _I, _F, _I, _VP, _VP, _VP, _VP, _VP],
         "ell_scaled_reduce": [_VP, _I, _VP, _VP, _VP, _I, _I, _VP, _VP],
     },
+    "ell_general_kernels": {
+        "ell_act_reduce_rowwise": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I,
+                                   _I, _F, _VP, _VP],
+        "ell_geq_reduce": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                           _F, _VP, _VP],
+        "ell_act_reduce_bwd": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                               _I, _F, _I, _VP, _VP, _VP],
+        "ell_src_bwd_rowwise": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                                _I, _F, _VP, _VP],
+        "ell_src_bwd_fused": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                              _F, _VP, _VP],
+    },
 }
 # entries that launch nothing and return an int
 _QUERIES = {"ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 5},
             "ell_edge_kernels": {"ell_edge_src_bwd_blocks": [_I] * 5}}
 _ERROR_STRING = {"ell_kernels": "ell_error_string",
                  "ell_max_kernels": "ell_max_error_string",
-                 "ell_edge_kernels": "ell_edge_error_string"}
+                 "ell_edge_kernels": "ell_edge_error_string",
+                 "ell_general_kernels": "ell_general_error_string"}
 _LIBRARY_OF = {entry: lib for lib, entries in _ARGTYPES.items()
                for entry in entries}
+# the kernels that take any sigma of the registry, a row-wise one included
+_GENERAL = tuple(_ARGTYPES["ell_general_kernels"])
 
 _LIBS: dict = {}
 # the grid size of ell_max_bwd per (device, R, H, O, act, bf16) and of
@@ -160,6 +180,27 @@ def _check_plan(slot_node, scale, row_key, row_ptr, device):
     if row_ptr.shape[0] != row_key.shape[0] + 1:
         raise ValueError(f"row_ptr has {row_ptr.shape[0]} entries for "
                          f"{row_key.shape[0]} rows")
+
+
+# a row-wise sigma keeps a slot's whole row in one warp's registers, at
+# most 8 features a lane
+ROWWISE_MAX_H = 256
+
+
+def _need_diagonal(name: str, act) -> None:
+    """Raise for a sigma that couples a row's features: ``name`` computes
+    sigma' elementwise."""
+    if not act.diagonal:
+        raise ValueError(f"{name} needs an elementwise sigma; {act.name} "
+                         f"couples a row's features (the general route's "
+                         f"kernels take it)")
+
+
+def _check_rowwise_width(name: str, act, h: int) -> None:
+    if not act.diagonal and h > ROWWISE_MAX_H:
+        raise ValueError(f"{name}: the row-wise sigma {act.name} needs a "
+                         f"slot's whole row in one warp; H = {h} exceeds "
+                         f"{ROWWISE_MAX_H}")
 
 
 def on_cuda(device: torch.device) -> bool:
@@ -242,8 +283,9 @@ def _check_edge(e, slot_edge, width, dtype, slot_like, device):
                          f"array {tuple(slot_like.shape)} differ")
 
 
-def _fwd(name, eq, ek, slot_src, scale, row_key, row_ptr, act, derivative,
-         e=None, slot_edge=None):
+def _check_fwd(name, eq, ek, slot_src, scale, row_key, row_ptr, act):
+    """The checks of a dst-plan kernel's inputs: eq [N, H] f32, ek [N, H]
+    f32 or bf16; a row-wise sigma for the general route's kernels only."""
     device = eq.device
     _check("eq", eq, _F32, 2, device)
     _check("ek", ek, _EDGE, 2, device)
@@ -251,6 +293,16 @@ def _fwd(name, eq, ek, slot_src, scale, row_key, row_ptr, act, derivative,
         raise ValueError(f"eq {tuple(eq.shape)} and ek {tuple(ek.shape)} "
                          f"differ in width")
     _check_plan(slot_src, scale, row_key, row_ptr, device)
+    if name in _GENERAL:
+        _check_rowwise_width(name, act, eq.shape[1])
+    else:
+        _need_diagonal(name, act)
+    return device
+
+
+def _fwd(name, eq, ek, slot_src, scale, row_key, row_ptr, act, derivative,
+         e=None, slot_edge=None):
+    device = _check_fwd(name, eq, ek, slot_src, scale, row_key, row_ptr, act)
     edge = e is not None
     if edge:
         _check_edge(e, slot_edge, eq.shape[1], ek.dtype, slot_src, device)
@@ -324,8 +376,10 @@ def ell_act_reduce2_edge(eq, ek, slot_src, scale, row_key, row_ptr, act, e,
 def ell_src_bwd_plain(eq, g, ek, slot_dst, scale, row_key, row_ptr, act,
                       buckets=None, e=None, slot_edge=None, edge2slot=None,
                       edge_mask=None):
-    """Plain version of ``ell_src_bwd``, bucket by bucket. eq and g are
-    gathered in their own dtype and widened to f32. With ``e`` (and
+    """Plain version of ``ell_src_bwd`` (and of ``ell_src_bwd_rowwise``),
+    bucket by bucket: g_z = vjp(act, z)(scale * g), which for an
+    elementwise act is act'(z) * (scale * g). eq and g are gathered in
+    their own dtype and widened to f32. With ``e`` (and
     ``slot_edge``, ``edge2slot``, ``edge_mask``) it is the plain version of
     ``ell_src_bwd_edge``: the dst-side value adds the edge row by
     ``add_cast``, and it returns (rows, g_e) with g_e the JAX route's
@@ -344,7 +398,7 @@ def ell_src_bwd_plain(eq, g, ek, slot_dst, scale, row_key, row_ptr, act,
              + ek_rows[ro:ro + nr, None, :])
         g_m = (gg[so:so + b * nr].float().reshape(nr, b, h)
                * scale[so:so + b * nr].reshape(nr, b, 1))
-        g_z = act.grad(z) * g_m
+        g_z = act.vjp(z, g_m)
         rows.append(g_z.sum(1))
         gzs.append(g_z.reshape(nr * b, h))
     rows = torch.cat(rows)
@@ -368,6 +422,22 @@ def _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr):
     return device, row_key.shape[0], ek.shape[1]
 
 
+def _src_bwd(name, eq, g, ek, slot_dst, scale, row_key, row_ptr, act):
+    device, r, h = _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr)
+    if name in _GENERAL:
+        _check_rowwise_width(name, act, h)
+    else:
+        _need_diagonal(name, act)
+    if not on_cuda(device):
+        return ell_src_bwd_plain(eq, g, ek, slot_dst, scale, row_key,
+                                 row_ptr, act)
+    out = torch.empty((r, h), dtype=torch.float32, device=device)
+    _launch(name, device, _ptr(eq), _ptr(g), int(eq.dtype == torch.bfloat16),
+            _ptr(ek), _ptr(slot_dst), _ptr(scale), _ptr(row_key),
+            _ptr(row_ptr), r, h, act.kernel_id, float(act.param), _ptr(out))
+    return out
+
+
 def ell_src_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr, act):
     """out[r] = sum_s act'(eq[slot_dst[s]] + ek[row_key[r]]) * scale[s]
     * g[slot_dst[s]] over the slots of src-plan row r, in f32. eq and g
@@ -376,16 +446,8 @@ def ell_src_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr, act):
     Replaces ``bucket_src_bwd`` without its per-slot g_z output
     (sir_gcn_tpu/ops/pallas/kernels.py). Bound: bytes, eq and g rows in,
     one f32 [R, H] out."""
-    device, r, h = _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr)
-    if not on_cuda(device):
-        return ell_src_bwd_plain(eq, g, ek, slot_dst, scale, row_key,
-                                 row_ptr, act)
-    out = torch.empty((r, h), dtype=torch.float32, device=device)
-    _launch("ell_src_bwd", device, _ptr(eq), _ptr(g),
-            int(eq.dtype == torch.bfloat16), _ptr(ek), _ptr(slot_dst),
-            _ptr(scale), _ptr(row_key), _ptr(row_ptr), r, h, act.kernel_id,
-            float(act.param), _ptr(out))
-    return out
+    return _src_bwd("ell_src_bwd", eq, g, ek, slot_dst, scale, row_key,
+                    row_ptr, act)
 
 
 def ell_src_bwd_edge(eq, g, ek, slot_dst, scale, row_key, row_ptr, act, e,
@@ -404,6 +466,7 @@ def ell_src_bwd_edge(eq, g, ek, slot_dst, scale, row_key, row_ptr, act, e,
     zeroed g_e, so no [S, H] table is written. Bound: bytes, the f32 g_e
     write the largest part."""
     device, r, h = _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr)
+    _need_diagonal("ell_src_bwd_edge", act)
     _check_edge(e, slot_edge, h, eq.dtype, slot_dst, device)
     _check("edge2slot", edge2slot, _I32, 1, device)
     _check("edge_mask", edge_mask, (torch.bool,), 1, device)
@@ -519,12 +582,8 @@ def ell_edge_act_reduce2(eq, ek, e_basis, w_e, slot_src, slot_edge, scale,
     Replaces ``bucket_edge_act_reduce2`` (sir_gcn_tpu/ops/pallas/
     kernels.py), one launch for all buckets. Bound: operations at the arxiv
     width, 2 De + 8 flops per valid slot and feature."""
-    device = eq.device
-    _check("eq", eq, _F32, 2, device)
-    _check("ek", ek, _EDGE, 2, device)
-    if ek.shape[1] != eq.shape[1]:
-        raise ValueError(f"eq {tuple(eq.shape)} and ek {tuple(ek.shape)} "
-                         f"differ in width")
+    device = _check_fwd("ell_edge_act_reduce2", eq, ek, slot_src, scale,
+                        row_key, row_ptr, act)
     _, r, h, de = _check_fused(eq, e_basis, w_e, slot_src, slot_edge, scale,
                                row_key, row_ptr, backward=False)
     if not on_cuda(device):
@@ -555,6 +614,7 @@ def ell_edge_src_bwd(eq, g, ek, e_basis, w_e, slot_dst, slot_edge, scale,
     feature. g_we is summed per warp, block and then over blocks in a fixed
     order, so it is the same from run to run."""
     device, r, h = _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr)
+    _need_diagonal("ell_edge_src_bwd", act)
     _, _, _, de = _check_fused(ek, e_basis, w_e, slot_dst, slot_edge, scale,
                                row_key, row_ptr, backward=True)
     if not on_cuda(device):
@@ -663,7 +723,9 @@ def ell_max_bwd_plain(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max,
     return torch.cat(geq), torch.cat(gz), gw
 
 
-def _check_max(eq, ek, slot_src, scale, row_key, row_ptr, w, node_tables):
+def _check_max(eq, ek, slot_src, scale, row_key, row_ptr, w, node_tables,
+               act):
+    _need_diagonal("the max kernels", act)
     device = eq.device
     _check("eq", eq, _F32, 2, device)
     _check("ek", ek, _EDGE, 2, device)
@@ -689,7 +751,7 @@ def ell_max_fwd(eq, ek, slot_src, scale, row_key, row_ptr, w, act):
     Replaces ``bucket_max_gemm_fwd`` (sir_gcn_tpu/ops/pallas/kernels.py),
     one launch for all buckets. Bound: operations, 2 H O flops per slot."""
     device, r, h, o = _check_max(eq, ek, slot_src, scale, row_key, row_ptr,
-                                 w, {})
+                                 w, {}, act)
     if not on_cuda(device):
         return ell_max_fwd_plain(eq, ek, slot_src, scale, row_key, row_ptr,
                                  w, act)
@@ -710,7 +772,7 @@ def ell_max_wincount(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max,
 
     Replaces ``bucket_max_wincount``. Bound: operations, as the forward."""
     device, r, h, o = _check_max(eq, ek, slot_src, scale, row_key, row_ptr,
-                                 w, {"key_max": key_max})
+                                 w, {"key_max": key_max}, act)
     if not on_cuda(device):
         return ell_max_wincount_plain(eq, ek, slot_src, scale, row_key,
                                       row_ptr, w, key_max, act)
@@ -735,7 +797,7 @@ def ell_max_bwd(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max, gsc,
     slot. g_w is summed per block and then over blocks in a fixed order,
     so it is the same from run to run."""
     device, r, h, o = _check_max(eq, ek, slot_src, scale, row_key, row_ptr,
-                                 w, {"key_max": key_max, "gsc": gsc})
+                                 w, {"key_max": key_max, "gsc": gsc}, act)
     if not on_cuda(device):
         return ell_max_bwd_plain(eq, ek, slot_src, scale, row_key, row_ptr,
                                  w, key_max, gsc, act)
@@ -794,4 +856,168 @@ def ell_scaled_reduce(values, slot_idx, scale, row_ptr):
     _launch("ell_scaled_reduce", device, _ptr(values),
             int(values.dtype == torch.bfloat16), _ptr(slot_idx), _ptr(scale),
             _ptr(row_ptr), r, h, _ptr(out))
+    return out
+
+
+# ----------------------------------------------------------------------
+# #1r, #3, #4r, #5, #6: the general route and the full-vjp backwards
+# ----------------------------------------------------------------------
+#
+# These take any sigma of the registry. A row-wise one (centered_relu,
+# softmax) couples a slot's H features, so its kernels hold the whole row
+# (H <= ROWWISE_MAX_H); an elementwise one takes any H. For an elementwise
+# sigma each vjp is act'(z) * cotangent, the arithmetic of #4.
+
+def ell_act_reduce_rowwise(eq, ek, slot_src, scale, row_key, row_ptr, act):
+    """``ell_act_reduce`` for any sigma of the registry: rows[r] = sum_s
+    scale[s] * act(eq[row_key[r]] + ek[slot_src[s]]), act applied to a
+    slot's whole row. Its plain version is ``ell_act_reduce_plain``.
+
+    Replaces ``bucket_bcast_act_reduce`` on the JAX general route
+    (``make_ell_sir_aggregate_pallas(act_elementwise=False)``, training
+    forward and eval). Bound: bytes, as ``ell_act_reduce``."""
+    return _fwd("ell_act_reduce_rowwise", eq, ek, slot_src, scale, row_key,
+                row_ptr, act, derivative=False)
+
+
+def ell_src_bwd_rowwise(eq, g, ek, slot_dst, scale, row_key, row_ptr, act):
+    """``ell_src_bwd`` for any sigma of the registry: out[r] = sum_s
+    vjp(act, eq[slot_dst[s]] + ek[row_key[r]])(scale[s] * g[slot_dst[s]]).
+    Its plain version is ``ell_src_bwd_plain``.
+
+    Replaces ``bucket_src_bwd`` with the full vjp, the general route's
+    key-side backward (``src_pass``). Bound: bytes, as ``ell_src_bwd``."""
+    return _src_bwd("ell_src_bwd_rowwise", eq, g, ek, slot_dst, scale,
+                    row_key, row_ptr, act)
+
+
+def ell_act_reduce_bwd_plain(eq, ek, slot_src, scale, row_key, row_ptr, act,
+                             g, gz_dtype=torch.float32, buckets=None):
+    """Plain version of ``ell_act_reduce_bwd``, bucket by bucket: z as in
+    ``ell_act_reduce_plain``, g_z = vjp(act, z)(g[row_key[r]] * scale[s]).
+    Returns (g_slots [S, H] in ``gz_dtype``, geq_rows [R, H] f32), the row
+    sums taken before the rounding to ``gz_dtype``."""
+    if buckets is None:
+        buckets = _buckets(row_ptr)
+    h = eq.shape[1]
+    ekg = ek.index_select(0, slot_src)
+    eq_rows = eq.index_select(0, row_key)
+    g_rows = g.index_select(0, row_key)
+    gzs, rows = [], []
+    for b, nr, so, ro in bucket_offsets(buckets):
+        z = (ekg[so:so + b * nr].float().reshape(nr, b, h)
+             + eq_rows[ro:ro + nr, None, :])
+        g_m = g_rows[ro:ro + nr, None, :] * scale[so:so + b * nr].reshape(
+            nr, b, 1)
+        g_z = act.vjp(z, g_m)
+        rows.append(g_z.sum(1))
+        gzs.append(g_z.reshape(nr * b, h))
+    return torch.cat(gzs).to(gz_dtype), torch.cat(rows)
+
+
+def ell_geq_reduce_plain(eq, ek, slot_src, scale, row_key, row_ptr, act, g,
+                         buckets=None):
+    """Plain version of ``ell_geq_reduce``: the row sums of
+    ``ell_act_reduce_bwd_plain``."""
+    return ell_act_reduce_bwd_plain(eq, ek, slot_src, scale, row_key,
+                                    row_ptr, act, g, buckets=buckets)[1]
+
+
+def _check_geq(name, eq, ek, slot_src, scale, row_key, row_ptr, act, g):
+    device = _check_fwd(name, eq, ek, slot_src, scale, row_key, row_ptr, act)
+    _check("g", g, _F32, 2, device)
+    if g.shape != eq.shape:
+        raise ValueError(f"g {tuple(g.shape)} and eq {tuple(eq.shape)} "
+                         f"differ")
+    return device, row_key.shape[0], eq.shape[1]
+
+
+def ell_geq_reduce(eq, ek, slot_src, scale, row_key, row_ptr, act, g):
+    """The dst-side backward of ``ell_act_reduce_rowwise``: geq_rows[r] =
+    sum_s vjp(act, z_s)(scale[s] * g[row_key[r]]) with z_s =
+    eq[row_key[r]] + ek[slot_src[s]], f32 [R, H]. eq and g [N, H] f32 (g
+    the cotangent of the aggregate), ek [N, H] f32 or bf16.
+
+    Replaces ``bucket_geq_reduce`` (sir_gcn_tpu/ops/pallas/kernels.py), the
+    general route's g_eq, with ek gathered by index in the kernel instead
+    of the saved [S, H] gather. Bound: bytes, eq, g and ek rows in, one f32
+    [R, H] out."""
+    device, r, h = _check_geq("ell_geq_reduce", eq, ek, slot_src, scale,
+                              row_key, row_ptr, act, g)
+    if not on_cuda(device):
+        return ell_geq_reduce_plain(eq, ek, slot_src, scale, row_key,
+                                    row_ptr, act, g)
+    out = torch.empty((r, h), dtype=torch.float32, device=device)
+    _launch("ell_geq_reduce", device, _ptr(eq), _ptr(ek),
+            int(ek.dtype == torch.bfloat16), _ptr(g), _ptr(slot_src),
+            _ptr(scale), _ptr(row_key), _ptr(row_ptr), r, h, act.kernel_id,
+            float(act.param), _ptr(out))
+    return out
+
+
+def ell_act_reduce_bwd(eq, ek, slot_src, scale, row_key, row_ptr, act, g,
+                       gz_dtype=torch.float32):
+    """The dst-major backward: ``ell_geq_reduce``'s rows plus each slot's
+    g_z = vjp(act, z_s)(scale[s] * g[row_key[r]]), the cotangent of the
+    gathered ek row. Returns (g_slots [S, H] in ``gz_dtype``, f32 or bf16;
+    geq_rows [R, H] f32, summed before the rounding). A zero-scale slot's
+    g_slots row is 0. g_slots reduced by src through
+    ``src_slot_from_dst_slot`` (``ell_scaled_reduce``) gives g_ek.
+
+    Replaces ``bucket_bcast_act_reduce_bwd`` (sir_gcn_tpu/ops/pallas/
+    kernels.py). As in the JAX package, no route of the library calls it.
+    Bound: bytes, the [S, H] g_slots write the largest part."""
+    device, r, h = _check_geq("ell_act_reduce_bwd", eq, ek, slot_src, scale,
+                              row_key, row_ptr, act, g)
+    if gz_dtype not in _EDGE:
+        raise TypeError(f"gz_dtype {gz_dtype} is not f32 or bf16")
+    if not on_cuda(device):
+        return ell_act_reduce_bwd_plain(eq, ek, slot_src, scale, row_key,
+                                        row_ptr, act, g, gz_dtype)
+    geq = torch.empty((r, h), dtype=torch.float32, device=device)
+    gz = torch.empty((slot_src.shape[0], h), dtype=gz_dtype, device=device)
+    _launch("ell_act_reduce_bwd", device, _ptr(eq), _ptr(ek),
+            int(ek.dtype == torch.bfloat16), _ptr(g), _ptr(slot_src),
+            _ptr(scale), _ptr(row_key), _ptr(row_ptr), r, h, act.kernel_id,
+            float(act.param), int(gz_dtype == torch.bfloat16), _ptr(geq),
+            _ptr(gz))
+    return gz, geq
+
+
+def ell_src_bwd_fused_plain(both, ek, slot_dst, scale, row_key, row_ptr, act,
+                            buckets=None):
+    """Plain version of ``ell_src_bwd_fused``: ``ell_src_bwd_plain`` on the
+    table's two halves."""
+    h = ek.shape[1]
+    return ell_src_bwd_plain(both[:, :h], both[:, h:], ek, slot_dst, scale,
+                             row_key, row_ptr, act, buckets=buckets)
+
+
+def ell_src_bwd_fused(both, ek, slot_dst, scale, row_key, row_ptr, act):
+    """``ell_src_bwd_rowwise`` with eq and g read as the two halves of one
+    node table both [N, 2H] = cat([eq, g], 1), f32 or bf16: one row read
+    per slot instead of two. ek [N, H] f32. Any sigma of the registry.
+
+    Replaces ``bucket_src_bwd_fused`` (sir_gcn_tpu/ops/pallas/kernels.py),
+    the backward under ``fuse_bwd_take=True``; the JAX kernel's H % 128 == 0
+    is a TPU lane layout and is not asked here. Bound: bytes, the table's
+    rows in, one f32 [R, H] out."""
+    device = ek.device
+    _check("ek", ek, _F32, 2, device)
+    _check("both", both, _EDGE, 2, device)
+    h = ek.shape[1]
+    if both.shape != (ek.shape[0], 2 * h):
+        raise ValueError(f"both {tuple(both.shape)} is not [N, 2H] = "
+                         f"{(ek.shape[0], 2 * h)}")
+    _check_plan(slot_dst, scale, row_key, row_ptr, device)
+    _check_rowwise_width("ell_src_bwd_fused", act, h)
+    if not on_cuda(device):
+        return ell_src_bwd_fused_plain(both, ek, slot_dst, scale, row_key,
+                                       row_ptr, act)
+    r = row_key.shape[0]
+    out = torch.empty((r, h), dtype=torch.float32, device=device)
+    _launch("ell_src_bwd_fused", device, _ptr(both),
+            int(both.dtype == torch.bfloat16), _ptr(ek), _ptr(slot_dst),
+            _ptr(scale), _ptr(row_key), _ptr(row_ptr), r, h, act.kernel_id,
+            float(act.param), _ptr(out))
     return out

@@ -17,6 +17,11 @@ forward when a gradient is taken (it also returns the derivative mass
 ``ell_act_reduce`` for the forward without a gradient; with an edge table
 ``e`` their edge-term forms ``ell_act_reduce2_edge``, ``ell_src_bwd_edge``
 (which also gives the per-edge cotangent) and ``ell_act_reduce_edge``.
+With ``fuse_bwd_take`` the key-side gradient reads eq and g from one
+[N, 2H] table (``ell_src_bwd_fused``). A sigma that is not elementwise
+takes the general route: ``ell_act_reduce_rowwise`` forward,
+``ell_geq_reduce`` and ``ell_src_bwd_rowwise`` (or ``ell_src_bwd_fused``)
+backward.
 :func:`ell_sir_aggregate_fused_edge` computes the same with e = e_basis @
 w_e formed inside the kernels ``ell_edge_act_reduce2`` and
 ``ell_edge_src_bwd`` from the narrow edge basis, SIREConv's fused route.
@@ -29,7 +34,7 @@ then in the backward ``ell_max_wincount``, ``ell_max_bwd`` and
 ``ell_scaled_reduce``. Each kernel walks all buckets of a plan in one
 launch through the plan's per-row slot pointer ``row_ptr``. sigma must be
 in the activation registry below, whose entries carry a written
-derivative.
+derivative and vector-Jacobian product.
 """
 
 from __future__ import annotations
@@ -47,14 +52,18 @@ from .cuda import (
     ell_act_reduce2,
     ell_act_reduce2_edge,
     ell_act_reduce_edge,
+    ell_act_reduce_rowwise,
     ell_edge_act_reduce2,
     ell_edge_src_bwd,
+    ell_geq_reduce,
     ell_max_bwd,
     ell_max_fwd,
     ell_max_wincount,
     ell_scaled_reduce,
     ell_src_bwd,
     ell_src_bwd_edge,
+    ell_src_bwd_fused,
+    ell_src_bwd_rowwise,
 )
 from .cuda.kernels import NEG
 from .cuda.kernels import bucket_offsets as _bucket_offsets
@@ -406,9 +415,14 @@ def build_fast_graph(graph: GraphBatch,
 
 @dataclasses.dataclass(frozen=True)
 class _ActivationKind:
-    kernel_id: int    # the ACT_* constant of csrc/ell_kernels.cu
+    """``fn(z, param)`` over the last dim and its vector-Jacobian product
+    ``vjp(z, g, param)``; ``grad(z, param)``, sigma' elementwise, only for
+    an entry whose Jacobian is diagonal (None for a row-wise one)."""
+
+    kernel_id: int    # the ACT_* constant of csrc/ell_*kernels.cu
     fn: Callable[[torch.Tensor, float], torch.Tensor]
-    grad: Callable[[torch.Tensor, float], torch.Tensor]
+    vjp: Callable[[torch.Tensor, torch.Tensor, float], torch.Tensor]
+    grad: Optional[Callable[[torch.Tensor, float], torch.Tensor]] = None
 
 
 def _leaky_relu_grad(z, slope):
@@ -421,43 +435,120 @@ def _tanh_grad(z, _):
     return (1.0 + t) * (1.0 - t)
 
 
+def _elementwise(kernel_id, fn, grad) -> _ActivationKind:
+    return _ActivationKind(kernel_id, fn, lambda z, g, p: grad(z, p) * g,
+                           grad)
+
+
+def _centered_shift(z, alpha):
+    # alpha * mean_H(z), the mean as sum / H (jnp.mean's division)
+    return alpha * (z.sum(-1, keepdim=True) / z.shape[-1])
+
+
+def _centered_relu(z, alpha):
+    return F.relu(z - _centered_shift(z, alpha))
+
+
+def _centered_relu_vjp(z, g, alpha):
+    # relu'(0) = 0, as jax.nn.relu; the mean spreads -alpha * sum(d) / H
+    d = torch.where(z - _centered_shift(z, alpha) > 0, g, 0.0)
+    return d - _centered_shift(d, alpha)
+
+
+def _softmax(z, _):
+    e = torch.exp(z - z.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def _softmax_vjp(z, g, _):
+    y = _softmax(z, None)
+    return y * (g - (g * y).sum(-1, keepdim=True))
+
+
 _ACTIVATIONS = {
-    "leaky_relu": _ActivationKind(0, lambda z, s: F.leaky_relu(z, s),
-                                  _leaky_relu_grad),
-    "tanh": _ActivationKind(1, lambda z, _: torch.tanh(z), _tanh_grad),
+    "leaky_relu": _elementwise(0, lambda z, s: F.leaky_relu(z, s),
+                               _leaky_relu_grad),
+    "tanh": _elementwise(1, lambda z, _: torch.tanh(z), _tanh_grad),
+    # row-wise: sigma couples the H features of a row
+    "centered_relu": _ActivationKind(2, _centered_relu, _centered_relu_vjp),
+    "softmax": _ActivationKind(3, _softmax, _softmax_vjp),
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class Activation:
-    """An elementwise sigma from the registry, with its parameter (the
-    negative slope of leaky_relu). Callable on tensors."""
+    """A sigma from the registry, with its parameter (the negative slope of
+    leaky_relu, the alpha of centered_relu). Callable on tensors, over the
+    last dim.
+
+    ``sir_elementwise=False`` sends an elementwise entry down the general
+    route, as the attribute of that name does for a sigma in the JAX package
+    (``sir_gcn_tpu/ops/ell.py`` ``_activation_info``); a row-wise entry
+    cannot be declared elementwise."""
 
     name: str
     param: float = 0.0
+    sir_elementwise: Optional[bool] = None
 
     def __post_init__(self):
         if self.name not in _ACTIVATIONS:
             raise NotImplementedError(
                 f"activation {self.name!r} is not in the kernel registry")
+        if self.sir_elementwise and not self.diagonal:
+            raise ValueError(f"{self.name} couples a row's features; it "
+                             f"cannot be declared elementwise")
 
     @property
     def kernel_id(self) -> int:
         return _ACTIVATIONS[self.name].kernel_id
 
+    @property
+    def diagonal(self) -> bool:
+        """Whether the entry's Jacobian is diagonal (sigma elementwise)."""
+        return _ACTIVATIONS[self.name].grad is not None
+
+    @property
+    def elementwise(self) -> bool:
+        """Whether the elementwise route (the derivative mass of #2) takes
+        this sigma; otherwise the general route does."""
+        return self.diagonal and self.sir_elementwise is not False
+
     def __call__(self, z: torch.Tensor) -> torch.Tensor:
         return _ACTIVATIONS[self.name].fn(z, self.param)
 
     def grad(self, z: torch.Tensor) -> torch.Tensor:
-        """sigma'(z), elementwise."""
-        return _ACTIVATIONS[self.name].grad(z, self.param)
+        """sigma'(z), elementwise; raises for a row-wise sigma."""
+        grad = _ACTIVATIONS[self.name].grad
+        if grad is None:
+            raise ValueError(f"{self.name} couples a row's features: it has "
+                             f"no elementwise derivative")
+        return grad(z, self.param)
+
+    def vjp(self, z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """The vector-Jacobian product of sigma at z with g, row by row over
+        the last dim (for an elementwise sigma, sigma'(z) * g)."""
+        return _ACTIVATIONS[self.name].vjp(z, g, self.param)
 
 
 def leaky_relu(slope: float) -> Activation:
     return Activation("leaky_relu", float(slope))
 
 
+def centered_relu(alpha: float) -> Activation:
+    """relu(z - alpha * mean_H(z)), row-wise."""
+    return Activation("centered_relu", float(alpha))
+
+
 tanh = Activation("tanh")
+softmax = Activation("softmax")  # over H, row-wise
+
+
+def _elementwise_only(act: Activation, what: str) -> Activation:
+    if not act.elementwise:
+        raise NotImplementedError(
+            f"sigma {act.name} is not elementwise: its route with {what} is "
+            f"not yet ported")
+    return act
 
 
 def resolve_activation(act) -> Activation:
@@ -489,20 +580,45 @@ def edge_cotangent(g_z: torch.Tensor, edge2slot: torch.Tensor,
             * edge_mask.to(torch.float32)[:, None])
 
 
+def _dst_args(fg: FastGraph, eq, ek, act, agg_type, edge_dtype) -> tuple:
+    """The dst-plan arguments of the forward kernels: eq, ek in the edge
+    dtype, the slot arrays and the static scales of ``agg_type``."""
+    plan = fg.dst_plan
+    return (eq.contiguous(), _cast(ek, edge_dtype), fg.dst_slot_srcnode,
+            fg.dst_slot_scales[agg_type], plan.row_key, plan.row_ptr, act)
+
+
+def _src_rows(fg: FastGraph, eq, ek, g, act, agg_type, edge_dtype,
+              fuse: bool) -> torch.Tensor:
+    """Src-plan rows of the key-side gradient without an edge term (the JAX
+    route's ``src_pass``): ``ell_src_bwd`` (``ell_src_bwd_rowwise`` for a
+    sigma that is not elementwise) from the eq and g tables in the edge
+    dtype, or with ``fuse`` ``ell_src_bwd_fused`` from one [N, 2H] table
+    cat([eq, g], 1) in the edge dtype, built here in every backward."""
+    splan = fg.src_plan
+    rest = (ek.contiguous(), fg.src_slot_dstnode,
+            fg.src_slot_scales[agg_type], splan.row_key, splan.row_ptr, act)
+    if fuse:
+        both = torch.cat([_cast(eq, edge_dtype), _cast(g, edge_dtype)], 1)
+        return ell_src_bwd_fused(both, *rest)
+    kernel = ell_src_bwd if act.elementwise else ell_src_bwd_rowwise
+    return kernel(_cast(eq, edge_dtype), _cast(g, edge_dtype), *rest)
+
+
 class _EllSirAggregate(torch.autograd.Function):
     """Forward with ``ell_act_reduce2`` (row sums and derivative mass
     ``sbar``); backward ``g_eq = g * sbar`` and ``g_ek`` from the
-    src-major ``ell_src_bwd``. With an edge table ``e`` [E_pad, H] (sorted
-    edge order) the edge-term forms run instead, and the backward's
-    ``ell_src_bwd_edge`` also gives g_e [E_pad, H] f32. Only node-sized
-    tensors and e in the edge dtype are saved."""
+    src-major ``ell_src_bwd`` (``ell_src_bwd_fused`` with ``fuse``). With
+    an edge table ``e`` [E_pad, H] (sorted edge order) the edge-term forms
+    run instead, and the backward's ``ell_src_bwd_edge`` also gives g_e
+    [E_pad, H] f32. Only node-sized tensors and e in the edge dtype are
+    saved."""
 
     @staticmethod
     def forward(ctx, eq, ek, e, fg: FastGraph, act: Activation,
-                agg_type: str, edge_dtype):
+                agg_type: str, edge_dtype, fuse: bool):
         plan = fg.dst_plan
-        args = (eq.contiguous(), _cast(ek, edge_dtype), fg.dst_slot_srcnode,
-                fg.dst_slot_scales[agg_type], plan.row_key, plan.row_ptr, act)
+        args = _dst_args(fg, eq, ek, act, agg_type, edge_dtype)
         if e is None:
             rows, srows = ell_act_reduce2(*args)
         else:
@@ -510,8 +626,8 @@ class _EllSirAggregate(torch.autograd.Function):
             rows, srows = ell_act_reduce2_edge(*args, e, plan.slot_edge)
         sbar = plan.finalize_rows_sum(srows)
         ctx.save_for_backward(eq, ek, e, sbar)
-        ctx.fg, ctx.act, ctx.agg_type, ctx.edge_dtype = (
-            fg, act, agg_type, edge_dtype)
+        ctx.fg, ctx.act, ctx.agg_type, ctx.edge_dtype, ctx.fuse = (
+            fg, act, agg_type, edge_dtype, fuse)
         return plan.finalize_rows_sum(rows)
 
     @staticmethod
@@ -522,27 +638,66 @@ class _EllSirAggregate(torch.autograd.Function):
         g_ek = g_e = None
         if any(ctx.needs_input_grad[1:3]):
             splan = fg.src_plan
-            args = (_cast(eq, ctx.edge_dtype), _cast(g, ctx.edge_dtype),
+            if e is None:
+                rows = _src_rows(fg, eq, ek, g, ctx.act, ctx.agg_type,
+                                 ctx.edge_dtype, ctx.fuse)
+            else:
+                rows, g_e = ell_src_bwd_edge(
+                    _cast(eq, ctx.edge_dtype), _cast(g, ctx.edge_dtype),
                     ek.contiguous(), fg.src_slot_dstnode,
                     fg.src_slot_scales[ctx.agg_type], splan.row_key,
-                    splan.row_ptr, ctx.act)
-            if e is None:
-                rows = ell_src_bwd(*args)
-            else:
-                rows, g_e = ell_src_bwd_edge(*args, e, splan.slot_edge,
-                                             fg.edge2src_slot, fg.edge_mask)
+                    splan.row_ptr, ctx.act, e, splan.slot_edge,
+                    fg.edge2src_slot, fg.edge_mask)
             if ctx.needs_input_grad[1]:
                 g_ek = splan.finalize_rows_sum(rows)
         if not ctx.needs_input_grad[2]:
             g_e = None
-        return g_eq, g_ek, g_e, None, None, None, None
+        return g_eq, g_ek, g_e, None, None, None, None, None
+
+
+class _EllSirAggregateGeneral(torch.autograd.Function):
+    """The general route, for a sigma that is not elementwise (the port of
+    the ``act_elementwise=False`` branch of
+    ``make_ell_sir_aggregate_pallas``). Forward: ``ell_act_reduce_rowwise``.
+    Backward: g_eq from ``ell_geq_reduce``, the dst-major vjp over the
+    forward's slots; g_ek from ``ell_src_bwd_rowwise`` (``ell_src_bwd_fused``
+    with ``fuse``). The kernels gather their operands by index, so only eq
+    and ek are saved and nothing slot-sized is kept or gathered again: the
+    JAX route's ``remat`` switch, which trades its saved [S, H] gather for a
+    second gather, has no counterpart here."""
+
+    @staticmethod
+    def forward(ctx, eq, ek, fg: FastGraph, act: Activation, agg_type: str,
+                edge_dtype, fuse: bool):
+        rows = ell_act_reduce_rowwise(
+            *_dst_args(fg, eq, ek, act, agg_type, edge_dtype))
+        ctx.save_for_backward(eq, ek)
+        ctx.fg, ctx.act, ctx.agg_type, ctx.edge_dtype, ctx.fuse = (
+            fg, act, agg_type, edge_dtype, fuse)
+        return fg.dst_plan.finalize_rows_sum(rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        eq, ek = ctx.saved_tensors
+        fg, act, agg_type, edge_dtype = (ctx.fg, ctx.act, ctx.agg_type,
+                                         ctx.edge_dtype)
+        g = g.contiguous()
+        g_eq = g_ek = None
+        if ctx.needs_input_grad[0]:
+            rows = ell_geq_reduce(
+                *_dst_args(fg, eq, ek, act, agg_type, edge_dtype), g)
+            g_eq = fg.dst_plan.finalize_rows_sum(rows)
+        if ctx.needs_input_grad[1]:
+            g_ek = fg.src_plan.finalize_rows_sum(_src_rows(
+                fg, eq, ek, g, act, agg_type, edge_dtype, ctx.fuse))
+        return g_eq, g_ek, None, None, None, None, None
 
 
 def ell_sir_aggregate(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
                       activation, agg_type: str, *,
                       e: Optional[torch.Tensor] = None,
-                      edge_dtype: Optional[torch.dtype] = None
-                      ) -> torch.Tensor:
+                      edge_dtype: Optional[torch.dtype] = None,
+                      fuse_bwd_take: bool = False) -> torch.Tensor:
     """out[u] = sum_e scale_e * sigma(eq[u] + ek[src_e] [+ e_e]) over u's
     incoming edges, with the FastGraph's static per-slot scales for
     ``agg_type``. ``e`` [E_pad, H] f32 is an optional edge term in sorted
@@ -552,17 +707,38 @@ def ell_sir_aggregate(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
     operands are carried in; the edge term is added to a gathered row in
     f32 and rounded to it; all sums are f32. Without a gradient
     (``torch.is_grad_enabled()`` False, or no input needs one) the forward
-    runs ``ell_act_reduce`` (``ell_act_reduce_edge``) alone."""
+    runs ``ell_act_reduce`` (``ell_act_reduce_edge``) alone.
+
+    A sigma that is not elementwise (a row-wise registry entry, or one with
+    ``sir_elementwise=False``) takes the general route, as
+    ``sir_gcn_tpu/ops/ell.py`` ``ell_sir_aggregate`` sends it to
+    ``act_elementwise=False``; with ``e`` it raises (not yet ported).
+    ``fuse_bwd_take`` (default off, as in JAX) makes the key-side backward
+    read eq and g from one [N, 2H] table; it is ignored with an edge term,
+    as in JAX."""
     if agg_type not in fg.dst_slot_scales:
         raise ValueError(f"agg_type {agg_type!r} is not a linear aggregation")
     act = resolve_activation(activation)
     inputs = (eq, ek) if e is None else (eq, ek, e)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+    if not act.elementwise:
+        if e is not None:
+            raise NotImplementedError(
+                f"the general route with an edge term (sigma {act.name} "
+                f"with e, the edge-term form of bucket_geq_reduce) is not "
+                f"yet ported")
+        if grad:
+            return _EllSirAggregateGeneral.apply(eq, ek, fg, act, agg_type,
+                                                 edge_dtype, fuse_bwd_take)
+        rows = ell_act_reduce_rowwise(
+            *_dst_args(fg, eq, ek, act, agg_type, edge_dtype))
+        return fg.dst_plan.finalize_rows_sum(rows)
+    if grad:
         return _EllSirAggregate.apply(eq, ek, e, fg, act, agg_type,
-                                      edge_dtype)
+                                      edge_dtype,
+                                      fuse_bwd_take and e is None)
     plan = fg.dst_plan
-    args = (eq.contiguous(), _cast(ek, edge_dtype), fg.dst_slot_srcnode,
-            fg.dst_slot_scales[agg_type], plan.row_key, plan.row_ptr, act)
+    args = _dst_args(fg, eq, ek, act, agg_type, edge_dtype)
     if e is None:
         rows = ell_act_reduce(*args)
     else:
@@ -634,7 +810,7 @@ def ell_sir_aggregate_fused_edge(fg: FastGraph, eq: torch.Tensor,
     without its TPU padding (``pad_basis``, the 128-lane wrapper)."""
     if agg_type not in fg.dst_slot_scales:
         raise ValueError(f"agg_type {agg_type!r} is not a linear aggregation")
-    act = resolve_activation(activation)
+    act = _elementwise_only(resolve_activation(activation), "e_basis")
     return _EllSirAggregateFusedEdge.apply(eq, ek, e_basis, w_e, fg, act,
                                            agg_type, edge_dtype)
 
@@ -700,7 +876,7 @@ def ell_sir_aggregate_max(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
     and the per-slot g_z stored in; m, the max and all sums are f32.
     Without a gradient the forward runs ``ell_max_fwd`` alone. The port of
     ``make_ell_sir_aggregate_max_pallas`` without edge features."""
-    act = resolve_activation(activation)
+    act = _elementwise_only(resolve_activation(activation), "max")
     if b is None:
         b = w.new_zeros(w.shape[1])
     if torch.is_grad_enabled() and any(

@@ -13,8 +13,10 @@ Math contract (reference ``models/conv.py``):
 
 This port has the FastGraph branches: static scales for sum/mean/sym, with
 an optional edge term (``e``, or ``e_basis`` and ``w_edge`` for the fused
-route), and the max kernels, for a sigma in the activation registry. The
-other branches raise.
+route), and the max kernels, for a sigma in the activation registry. A
+sigma that is not elementwise (centered_relu, softmax, or an entry with
+``sir_elementwise=False``) takes the general route of sum/mean/sym without
+an edge term. The other branches raise.
 """
 
 from __future__ import annotations
@@ -71,8 +73,11 @@ def sir_aggregate(graph, eq: torch.Tensor, ek: torch.Tensor, activation,
     applied per edge before the reduce, and takes the max kernels for a
     sigma in the activation registry (the route of the JAX package's
     ``_max_pallas_route``); the linear aggregations ignore both (the caller
-    applies W_R per node). Any other sigma raises; so do max with edge
-    features and DropEdge masks (dynamic scales), not yet ported."""
+    applies W_R per node). A sigma that is not elementwise takes the
+    general route (``ell_sir_aggregate``) of a linear aggregation. Any
+    other sigma raises; so do max with edge features, a sigma that is not
+    elementwise with edge features or max, and DropEdge masks (dynamic
+    scales), not yet ported."""
     if agg_type not in ("sum", "mean", "max", "sym"):
         raise NotImplementedError(f"agg_type = {agg_type} not implemented")
     if e is not None and e_basis is not None:

@@ -1,0 +1,561 @@
+"""The port's general sigma route and full-vjp kernels against the JAX
+package's.
+
+* the registry's row-wise entries (centered_relu, softmax): their written
+  vjp against torch's autograd;
+* the plain versions of ``ell_act_reduce_rowwise`` (#1r),
+  ``ell_geq_reduce`` (#3), ``ell_src_bwd_rowwise`` (#4r),
+  ``ell_src_bwd_fused`` (#5) and ``ell_act_reduce_bwd`` (#6) against the
+  Pallas kernels run in interpret mode bucket by bucket, with a fifth of
+  the slot scales zeroed, for centered_relu, softmax and tanh;
+* the general route of ``sir_aggregate``, out and gradients, against
+  ``make_ell_sir_aggregate_pallas(act_elementwise=False, interpret=True)``
+  and ``make_ell_sir_aggregate``, on random, hub (stage 2) and
+  isolated-node graphs, sum/mean/sym, f32/bf16;
+* tanh forced onto the general route (``sir_elementwise=False``) against
+  the elementwise route; ``fuse_bwd_take`` against the default backward and
+  JAX's fused backward; the dst-major composition (#6 then #12) against
+  JAX's gradients;
+* ``SIRConv`` with centered_relu against the JAX ``SIRConv`` through the
+  weight bridge: out, every parameter gradient, one AdamW step;
+* which kernels the route reaches, and what raises.
+
+Tolerances are the JAX suite's: forward atol 2e-4 / rtol 1e-4, gradients
+atol 3e-4 / rtol 1e-3; a g_z stored in bf16 at one bf16 step. bf16 is
+rounded at the same points in both packages.
+
+The ``cuda`` test compares each kernel with its plain version on the card
+and skips where there is none. JAX is imported inside the tests that use
+it (``pytest -m cuda --noconftest tests/test_torch_general.py`` on the
+card).
+"""
+
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import sir_gcn_tpu_torch.ops.cuda.kernels as tkernels
+import sir_gcn_tpu_torch.ops.ell as tell
+import sir_gcn_tpu_torch.ops.message_passing as tmp
+from sir_gcn_tpu_torch import build_graph
+from sir_gcn_tpu_torch.ops.cuda import (
+    LAUNCHES,
+    ell_act_reduce,
+    ell_act_reduce_bwd,
+    ell_act_reduce_bwd_plain,
+    ell_act_reduce_plain,
+    ell_act_reduce_rowwise,
+    ell_geq_reduce,
+    ell_geq_reduce_plain,
+    ell_scaled_reduce,
+    ell_src_bwd,
+    ell_src_bwd_fused,
+    ell_src_bwd_fused_plain,
+    ell_src_bwd_plain,
+    ell_src_bwd_rowwise,
+    reset_launch_counts,
+)
+
+FWD_TOL = dict(atol=2e-4, rtol=1e-4)
+BWD_TOL = dict(atol=3e-4, rtol=1e-3)
+BF16_STEP = dict(atol=3e-4, rtol=2.0 ** -7)
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+ALPHA = 0.5
+ACTS = {"centered_relu": tell.centered_relu(ALPHA), "softmax": tell.softmax,
+        "tanh": dataclasses.replace(tell.tanh, sir_elementwise=False)}
+
+
+def jax_act(name: str):
+    import jax
+    import jax.numpy as jnp
+
+    return {"centered_relu": lambda z: jax.nn.relu(
+                z - ALPHA * z.mean(-1, keepdims=True)),
+            "softmax": lambda z: jax.nn.softmax(z, axis=-1),
+            "tanh": jnp.tanh}[name]
+
+
+def jax_dtype(dt: str):
+    import jax.numpy as jnp
+
+    return {"f32": None, "bf16": jnp.bfloat16}[dt]
+
+
+def graph_edges(graph: str, rng):
+    """(src, dst, n, max_budget) of the test graphs."""
+    if graph == "hub":  # node 0 takes 300 in-edges: the hub stage 2
+        n = 40
+        return (rng.integers(0, n, 360),
+                np.concatenate([np.zeros(300, np.int64),
+                                rng.integers(0, n, 60)]), n, 64)
+    if graph == "isolated":  # nodes 30..59 have no edge
+        return rng.integers(0, 30, 150), rng.integers(0, 30, 150), 60, 16
+    n = 40  # budgets 1..16, with 10, 12, 14
+    return rng.integers(0, n, 203), rng.integers(0, n, 203), n, 16
+
+
+def make_case(graph: str, h: int, seed: int = 0, device="cpu",
+              with_jax: bool = True):
+    """Both packages' FastGraphs of one graph, node tables eq/ek/g [N, H],
+    and slot scales (sym) with a fifth of the slots zeroed."""
+    rng = np.random.default_rng(seed)
+    src, dst, n, mb = graph_edges(graph, rng)
+    tfg = tell.build_fast_graph(build_graph(src, dst, n, device=device),
+                                max_budget=mb)
+    jfg = None
+    if with_jax:
+        import sir_gcn_tpu.ops.ell as jell
+        from sir_gcn_tpu import build_graph as j_build_graph
+
+        jfg = jell.build_fast_graph(j_build_graph(src, dst, n),
+                                    max_budget=mb)
+    eq, ek, g = (rng.normal(size=(tfg.n_pad, h)).astype(np.float32)
+                 for _ in range(3))
+    scales = {}
+    for side in ("dst", "src"):
+        s = getattr(tfg, f"{side}_slot_scales")["sym"].cpu().numpy()
+        scales[side] = (s * (rng.random(s.shape) > 0.2)).astype(np.float32)
+    return SimpleNamespace(tfg=tfg, jfg=jfg, eq=eq, ek=ek, g=g,
+                           scales=scales)
+
+
+def _t(x, dtype=torch.float32, device="cpu"):
+    return torch.from_numpy(np.asarray(x)).to(device=device, dtype=dtype)
+
+
+def _jnp(x):
+    import jax.numpy as jnp
+
+    return jnp.asarray(x.numpy() if isinstance(x, torch.Tensor) else x)
+
+
+def _cast(x, jdt):
+    return x if jdt is None else x.astype(jdt)
+
+
+@pytest.fixture
+def edge_dtype():
+    def use(name):
+        tmp.set_edge_dtype(DTYPES[name])
+    yield use
+    tmp.set_edge_dtype(None)
+
+
+# ----------------------------------------------------------------------
+# The registry's row-wise entries
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["centered_relu", "softmax"])
+def test_rowwise_vjp_matches_autograd(name):
+    act = ACTS[name]
+    rng = np.random.default_rng(1)
+    z = _t(rng.normal(size=(5, 3, 24)))
+    g = _t(rng.normal(size=(5, 3, 24)))
+    _, want = torch.autograd.functional.vjp(act, z, g)
+    torch.testing.assert_close(act.vjp(z, g), want, atol=1e-6, rtol=1e-5)
+    assert not act.diagonal and not act.elementwise
+    with pytest.raises(ValueError, match="elementwise derivative"):
+        act.grad(z)
+    forced = ACTS["tanh"]
+    assert forced.diagonal and not forced.elementwise
+    torch.testing.assert_close(forced.vjp(z, g), tell.tanh.grad(z) * g)
+
+
+# ----------------------------------------------------------------------
+# Plain versions against the Pallas kernels
+# ----------------------------------------------------------------------
+
+def _dst_inputs(c, jdt):
+    import jax.numpy as jnp
+
+    plan = c.tfg.dst_plan
+    ekg = jnp.take(_cast(_jnp(c.ek), jdt), _jnp(c.tfg.dst_slot_srcnode),
+                   axis=0)
+    rk = _jnp(plan.row_key)
+    return (ekg, jnp.take(_jnp(c.eq), rk, axis=0),
+            jnp.take(_jnp(c.g), rk, axis=0))
+
+
+@pytest.mark.parametrize("act", sorted(ACTS))
+@pytest.mark.parametrize("graph,h,dt", [("random", 24, "f32"),
+                                        ("hub", 40, "bf16"),
+                                        ("isolated", 128, "bf16")])
+def test_general_plains_match_pallas(graph, h, dt, act):
+    import jax.numpy as jnp
+    import sir_gcn_tpu.ops.ell as jell
+    from sir_gcn_tpu.ops import pallas
+
+    jact, jdt, tact, tdt = jax_act(act), jax_dtype(dt), ACTS[act], DTYPES[dt]
+    c = make_case(graph, h, seed=1)
+    fg = c.tfg
+    plan, splan = fg.dst_plan, fg.src_plan
+    sd, ss = c.scales["dst"], c.scales["src"]
+    fwd = (_t(c.eq), _t(c.ek, tdt), fg.dst_slot_srcnode, _t(sd), plan.row_key,
+           plan.row_ptr, tact)
+
+    ekg, eq_rows, g_rows = _dst_inputs(c, jdt)
+    want1, want3, want6 = [], [], []
+    for b, nr, so, ro in jell._bucket_offsets(plan.buckets1):
+        args = (ekg[so:so + b * nr], eq_rows[ro:ro + nr],
+                _jnp(sd[so:so + b * nr]).reshape(nr, b))
+        want1.append(np.asarray(pallas.bucket_bcast_act_reduce(
+            *args, b, jact, interpret=True)))
+        want3.append(np.asarray(pallas.bucket_geq_reduce(
+            *args, g_rows[ro:ro + nr], b, jact, interpret=True)))
+        want6.append(pallas.bucket_bcast_act_reduce_bwd(
+            *args, g_rows[ro:ro + nr], b, jact, interpret=True,
+            gz_dtype=jdt or jnp.float32))
+    np.testing.assert_allclose(ell_act_reduce_rowwise(*fwd).numpy(),
+                               np.concatenate(want1), **FWD_TOL)
+    np.testing.assert_allclose(ell_geq_reduce(*fwd, _t(c.g)).numpy(),
+                               np.concatenate(want3), **BWD_TOL)
+    g_slots, geq = ell_act_reduce_bwd(*fwd, _t(c.g), gz_dtype=tdt)
+    assert g_slots.dtype == tdt and geq.dtype == torch.float32
+    np.testing.assert_allclose(
+        g_slots.float().numpy(),
+        np.concatenate([np.asarray(gz, np.float32) for gz, _ in want6]),
+        **(BF16_STEP if dt == "bf16" else BWD_TOL))
+    np.testing.assert_allclose(
+        geq.numpy(), np.concatenate([np.asarray(r) for _, r in want6]),
+        **BWD_TOL)
+
+    # the src-major backward, from two tables (#4r) and from one (#5)
+    idx = _jnp(fg.src_slot_dstnode)
+    eqg = jnp.take(_cast(_jnp(c.eq), jdt), idx, axis=0)
+    gg = jnp.take(_cast(_jnp(c.g), jdt), idx, axis=0)
+    ek_rows = jnp.take(_jnp(c.ek), _jnp(splan.row_key), axis=0)
+    want4, want5 = [], []
+    for b, nr, so, ro in jell._bucket_offsets(splan.buckets1):
+        sc = _jnp(ss[so:so + b * nr]).reshape(nr, b)
+        r, _ = pallas.bucket_src_bwd(eqg[so:so + b * nr], ek_rows[ro:ro + nr],
+                                     sc, gg[so:so + b * nr], b, jact,
+                                     interpret=True)
+        want4.append(np.asarray(r))
+        if h % 128 == 0:  # the TPU kernel's lane split
+            both = jnp.concatenate([eqg[so:so + b * nr], gg[so:so + b * nr]],
+                                   axis=1)
+            r, _ = pallas.bucket_src_bwd_fused(both, ek_rows[ro:ro + nr], sc,
+                                               b, jact, interpret=True)
+            want5.append(np.asarray(r))
+    bwd = (fg.src_slot_dstnode, _t(ss), splan.row_key, splan.row_ptr, tact)
+    np.testing.assert_allclose(
+        ell_src_bwd_rowwise(_t(c.eq, tdt), _t(c.g, tdt), _t(c.ek),
+                            *bwd).numpy(), np.concatenate(want4), **BWD_TOL)
+    both = torch.cat([_t(c.eq, tdt), _t(c.g, tdt)], 1)
+    np.testing.assert_allclose(
+        ell_src_bwd_fused(both, _t(c.ek), *bwd).numpy(),
+        np.concatenate(want5 or want4), **BWD_TOL)
+
+
+# ----------------------------------------------------------------------
+# The general route of sir_aggregate against the JAX routes
+# ----------------------------------------------------------------------
+
+def _port_grads(c, act, agg, w, **kw):
+    teq, tek = _t(c.eq).requires_grad_(), _t(c.ek).requires_grad_()
+    if kw:
+        out = tell.ell_sir_aggregate(c.tfg, teq, tek, act, agg,
+                                     edge_dtype=tmp.get_edge_dtype(), **kw)
+    else:
+        out = tmp.sir_aggregate(c.tfg, teq, tek, act, agg)
+    (out * _t(w)).sum().backward()
+    return out.detach().numpy(), teq.grad.numpy(), tek.grad.numpy()
+
+
+def _jax_grads(f, c, w):
+    import jax
+    import jax.numpy as jnp
+
+    s0 = jnp.zeros((c.jfg.e_pad,), jnp.float32)
+    e0 = jnp.zeros((0,), jnp.float32)
+    out = f(c.eq, c.ek, e0, s0)
+    g = jax.grad(lambda a, b: jnp.sum(f(a, b, e0, s0) * w),
+                 argnums=(0, 1))(c.eq, c.ek)
+    return (np.asarray(out),) + tuple(np.asarray(x) for x in g)
+
+
+def _assert_same(got, want):
+    np.testing.assert_allclose(got[0], want[0], **FWD_TOL)
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a, b, **BWD_TOL)
+
+
+@pytest.mark.parametrize("graph,agg,dt,act", [
+    ("random", "sum", "f32", "centered_relu"),
+    ("random", "sym", "bf16", "softmax"),
+    ("hub", "mean", "f32", "softmax"),
+    ("hub", "sym", "bf16", "centered_relu"),
+    ("isolated", "sum", "bf16", "softmax"),
+    ("isolated", "mean", "f32", "centered_relu"),
+])
+def test_general_route_matches_jax(graph, agg, dt, act, edge_dtype):
+    import sir_gcn_tpu.ops.ell as jell
+
+    edge_dtype(dt)
+    c = make_case(graph, 24, seed=3)
+    w = np.random.default_rng(4).normal(size=c.eq.shape).astype(np.float32)
+    got = _port_grads(c, ACTS[act], agg, w)
+    f = jell.make_ell_sir_aggregate_pallas(
+        c.jfg, jax_act(act), agg, interpret=True, edge_dtype=jax_dtype(dt),
+        static_scale=True, act_elementwise=False)
+    _assert_same(got, _jax_grads(f, c, w))
+    if dt == "f32":  # the XLA builder carries no edge dtype
+        _assert_same(got, _jax_grads(jell.make_ell_sir_aggregate(
+            c.jfg, jax_act(act), agg, static_scale=True), c, w))
+    with torch.no_grad():  # the forward without a gradient
+        np.testing.assert_allclose(
+            tmp.sir_aggregate(c.tfg, _t(c.eq), _t(c.ek), ACTS[act],
+                              agg).numpy(), got[0], **FWD_TOL)
+
+
+@pytest.mark.parametrize("graph,agg,dt", [("random", "sym", "bf16"),
+                                          ("hub", "mean", "f32")])
+def test_tanh_forced_general_equals_elementwise(graph, agg, dt, edge_dtype):
+    edge_dtype(dt)
+    c = make_case(graph, 40, seed=5, with_jax=False)
+    w = np.random.default_rng(6).normal(size=c.eq.shape).astype(np.float32)
+    _assert_same(_port_grads(c, ACTS["tanh"], agg, w),
+                 _port_grads(c, tell.tanh, agg, w))
+
+
+@pytest.mark.parametrize("act,h,dt", [("tanh", 24, "bf16"),
+                                      ("centered_relu", 128, "f32"),
+                                      ("softmax", 128, "bf16")])
+def test_fuse_bwd_take_matches_default_and_jax(act, h, dt, edge_dtype):
+    """fuse_bwd_take=True: the same gradients as the default backward and
+    as JAX's fused backward (on its elementwise route at any width, which
+    it pads to 128 lanes; on its general route at H % 128 == 0)."""
+    import sir_gcn_tpu.ops.ell as jell
+
+    edge_dtype(dt)
+    tact = tell.tanh if act == "tanh" else ACTS[act]
+    c = make_case("random", h, seed=7)
+    w = np.random.default_rng(8).normal(size=c.eq.shape).astype(np.float32)
+    fused = _port_grads(c, tact, "sym", w, fuse_bwd_take=True)
+    _assert_same(fused, _port_grads(c, tact, "sym", w))
+    f = jell.make_ell_sir_aggregate_pallas(
+        c.jfg, jax_act(act), "sym", interpret=True, edge_dtype=jax_dtype(dt),
+        static_scale=True, act_elementwise=tact.elementwise,
+        fuse_bwd_take=True)
+    _assert_same(fused, _jax_grads(f, c, w))
+
+
+@pytest.mark.parametrize("act", sorted(ACTS))
+def test_dst_major_composition_matches_jax(act):
+    """#6 then #12: g_eq from the dst-major rows, g_ek from the per-slot
+    g_z reduced by src through ``src_slot_from_dst_slot``."""
+    import sir_gcn_tpu.ops.ell as jell
+
+    c = make_case("hub", 24, seed=9)
+    fg = c.tfg
+    plan, splan = fg.dst_plan, fg.src_plan
+    w = np.random.default_rng(10).normal(size=c.eq.shape).astype(np.float32)
+    g_slots, geq = ell_act_reduce_bwd(
+        _t(c.eq), _t(c.ek), fg.dst_slot_srcnode, fg.dst_slot_scales["mean"],
+        plan.row_key, plan.row_ptr, ACTS[act], _t(w))
+    g_eq = plan.finalize_rows_sum(geq)
+    g_ek = splan.finalize_rows_sum(ell_scaled_reduce(
+        g_slots, fg.src_slot_from_dst_slot, splan.slot_valid, splan.row_ptr))
+    f = jell.make_ell_sir_aggregate_pallas(
+        c.jfg, jax_act(act), "mean", interpret=True, static_scale=True,
+        act_elementwise=False)
+    want = _jax_grads(f, c, w)
+    np.testing.assert_allclose(g_eq.numpy(), want[1], **BWD_TOL)
+    np.testing.assert_allclose(g_ek.numpy(), want[2], **BWD_TOL)
+
+
+# ----------------------------------------------------------------------
+# SIRConv with a row-wise sigma through the weight bridge
+# ----------------------------------------------------------------------
+
+def _flat(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, prefix + (k,)) if hasattr(v, "items")
+                   else {prefix + (k,): np.asarray(v)})
+    return out
+
+
+@pytest.mark.parametrize("graph,agg", [("hub", "sym"), ("isolated", "mean")])
+def test_sirconv_centered_relu_matches_jax(graph, agg):
+    import jax
+    import jax.numpy as jnp
+    from sir_gcn_tpu.models.conv import SIRConv as JSIRConv
+    from sir_gcn_tpu.train import init_state
+    from sir_gcn_tpu.train import make_adamw as j_make_adamw
+
+    from sir_gcn_tpu_torch.models import SIRConv
+    from sir_gcn_tpu_torch.train import make_adamw
+    from sir_gcn_tpu_torch.utils import load_jax_variables
+    from sir_gcn_tpu_torch.utils.convert import _slots
+
+    lr, wd = 1e-2, 1e-3
+    c = make_case(graph, 16, seed=11)
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(c.tfg.n_pad, 10)).astype(np.float32)
+    w = rng.normal(size=(c.tfg.n_pad, 12)).astype(np.float32)
+    jconv = JSIRConv(hidden_dim=16, output_dim=12,
+                     activation=jax_act("centered_relu"), agg_type=agg)
+    variables = jax.tree_util.tree_map(np.asarray, jconv.init(
+        jax.random.PRNGKey(3), c.jfg, jnp.asarray(x)))
+    conv = SIRConv(10, 16, 12, ACTS["centered_relu"], agg_type=agg)
+    load_jax_variables(conv, variables)
+    slots = _slots(conv)
+
+    tx = torch.from_numpy(x).requires_grad_()
+    out = conv(c.tfg, tx)
+    (out * _t(w)).sum().backward()
+
+    def loss(p, xx):
+        y = jconv.apply(p, c.jfg, xx, deterministic=True)
+        return jnp.sum(y * w), y
+
+    (_, jout), (gp, gx) = jax.value_and_grad(loss, argnums=(0, 1),
+                                             has_aux=True)(
+        variables, jnp.asarray(x))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               **FWD_TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), **BWD_TOL)
+    grads = _flat(gp)
+    assert set(grads) == set(slots)
+    for key, g in grads.items():
+        tensor, transpose = slots[key]
+        have = tensor.grad.numpy()
+        np.testing.assert_allclose(have.T if transpose else have, g,
+                                   **BWD_TOL, err_msg="/".join(key))
+
+    # one AdamW step; Adam's first step is about lr * sign(g), so entries
+    # with |g| < 1e-6 are left out
+    make_adamw(conv.parameters(), lr, wd).step()
+    tx_j = j_make_adamw(lr, wd)
+    state = init_state(variables, tx_j)
+    updates, _ = tx_j.update(gp["params"], state.opt_state, state.params)
+    new = _flat(jax.tree_util.tree_map(lambda p, u: p + u, state.params,
+                                       updates))
+    for key, p in new.items():
+        tensor, transpose = slots[("params",) + key]
+        have = tensor.detach().numpy()
+        keep = np.abs(grads[("params",) + key]) >= 1e-6
+        np.testing.assert_allclose((have.T if transpose else have)[keep],
+                                   p[keep], **FWD_TOL, err_msg="/".join(key))
+
+
+# ----------------------------------------------------------------------
+# Which kernels the route reaches, and what raises
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def kernel_calls(monkeypatch):
+    calls = []
+    for name in ("ell_act_reduce_plain", "ell_geq_reduce_plain",
+                 "ell_src_bwd_plain", "ell_src_bwd_fused_plain"):
+        fn = getattr(tkernels, name)
+        monkeypatch.setattr(tkernels, name, lambda *a, _n=name, _f=fn, **k: (
+            calls.append(_n[4:-6]), _f(*a, **k))[1])
+    return calls
+
+
+def test_general_route_reaches_its_kernels(kernel_calls):
+    c = make_case("random", 24, with_jax=False)
+    act = ACTS["centered_relu"]
+    with torch.no_grad():
+        tmp.sir_aggregate(c.tfg, _t(c.eq), _t(c.ek), act, "sym")
+    assert kernel_calls == ["act_reduce"]
+    for fuse, last in ((False, "src_bwd"), (True, "src_bwd_fused")):
+        kernel_calls.clear()
+        reset_launch_counts()
+        w = np.ones_like(c.eq)
+        _port_grads(c, act, "sym", w, fuse_bwd_take=fuse)
+        # ell_src_bwd_fused's plain version runs ell_src_bwd's
+        assert kernel_calls[:3] == ["act_reduce", "geq_reduce", last]
+        assert all(v == 0 for v in LAUNCHES.values())  # CPU: no launch
+
+
+def test_general_route_raises():
+    c = make_case("random", 24, with_jax=False)
+    fg, plan = c.tfg, c.tfg.dst_plan
+    eq, ek = _t(c.eq), _t(c.ek)
+    act = ACTS["centered_relu"]
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tmp.sir_aggregate(fg, eq, ek, act, "sum",
+                          e=torch.zeros(fg.e_pad, 24))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tmp.sir_aggregate(fg, eq, ek, act, "sym",
+                          e_basis=torch.zeros(fg.e_pad, 5),
+                          w_edge=torch.zeros(5, 24))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tmp.sir_aggregate(fg, eq, ek, ACTS["tanh"], "max",
+                          w_relation=torch.zeros(24, 8))
+    with pytest.raises(ValueError, match="declared elementwise"):
+        tell.Activation("softmax", sir_elementwise=True)
+    # the row-wise kernels hold a whole row: H = 257 is too wide for a
+    # row-wise sigma, not for an elementwise one
+    wide = torch.zeros(fg.n_pad, 257)
+    args = (fg.dst_slot_srcnode, fg.dst_slot_scales["sym"], plan.row_key,
+            plan.row_ptr)
+    with pytest.raises(ValueError, match="exceeds 256"):
+        ell_act_reduce_rowwise(wide, wide, *args, act)
+    with pytest.raises(ValueError, match="exceeds 256"):
+        ell_src_bwd_fused(torch.zeros(fg.n_pad, 514), wide, *args, act)
+    assert ell_act_reduce_rowwise(wide, wide, *args,
+                                  ACTS["tanh"]).shape[1] == 257
+    # the elementwise kernels refuse a row-wise sigma
+    with pytest.raises(ValueError, match="needs an elementwise sigma"):
+        ell_act_reduce(eq, ek, *args, act)
+    with pytest.raises(ValueError, match="needs an elementwise sigma"):
+        ell_src_bwd(eq, eq, ek, *args, tell.softmax)
+    with pytest.raises(ValueError, match="g "):
+        ell_geq_reduce(eq, ek, *args, act, eq[:-1].contiguous())
+    with pytest.raises(TypeError, match="gz_dtype"):
+        ell_act_reduce_bwd(eq, ek, *args, act, eq, gz_dtype=torch.float16)
+
+
+# ----------------------------------------------------------------------
+# On the card: each kernel against its plain version
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("act", sorted(ACTS))
+@pytest.mark.parametrize("graph,h", [("hub", 24), ("random", 96),
+                                     ("isolated", 200)])
+def test_general_kernels_match_plain_on_card(cuda_device, graph, h, act,
+                                             dt):
+    c = make_case(graph, h, device=cuda_device, with_jax=False)
+    d, tdt, tact, fg = cuda_device, DTYPES[dt], ACTS[act], c.tfg
+    plan, splan = fg.dst_plan, fg.src_plan
+    fwd = (_t(c.eq, device=d), _t(c.ek, tdt, d), fg.dst_slot_srcnode,
+           _t(c.scales["dst"], device=d), plan.row_key, plan.row_ptr, tact)
+    g = _t(c.g, device=d)
+    eqb, gb = _t(c.eq, tdt, d), _t(c.g, tdt, d)
+    rest = (_t(c.ek, device=d), fg.src_slot_dstnode,
+            _t(c.scales["src"], device=d), splan.row_key, splan.row_ptr, tact)
+    both = torch.cat([eqb, gb], 1)
+    reset_launch_counts()
+    got = (ell_act_reduce_rowwise(*fwd), ell_geq_reduce(*fwd, g),
+           *ell_act_reduce_bwd(*fwd, g, gz_dtype=tdt),
+           ell_src_bwd_rowwise(eqb, gb, *rest),
+           ell_src_bwd_fused(both, *rest))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.items() if v} == {
+        "ell_act_reduce_rowwise": 1, "ell_geq_reduce": 1,
+        "ell_act_reduce_bwd": 1, "ell_src_bwd_rowwise": 1,
+        "ell_src_bwd_fused": 1}
+    want = (ell_act_reduce_plain(*fwd), ell_geq_reduce_plain(*fwd, g),
+            *ell_act_reduce_bwd_plain(*fwd, g, tdt),
+            ell_src_bwd_plain(eqb, gb, *rest),
+            ell_src_bwd_fused_plain(both, *rest))
+    gz_tol = BF16_STEP if dt == "bf16" else BWD_TOL
+    for a, b, tol in zip(got, want, (FWD_TOL, BWD_TOL, gz_tol, BWD_TOL,
+                                     BWD_TOL, BWD_TOL)):
+        torch.testing.assert_close(a, b, **tol)
