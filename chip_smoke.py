@@ -34,6 +34,14 @@ Phases, each printed as it runs; any failure exits non-zero:
            (H = 96, sym, tanh) three ways: src-major (#2, #4), fused take
            (#2, #5) and dst-major (#1, #6, #12); each design's time, and
            the gradients of the other two against the src-major one
+  lab      the timing lab at the JAX tools' sizes: the entry points of
+           sir_gcn_tpu_torch.tools.kernel_lab (every tag; R = 111,104 rows
+           of B = 16 slots, H = 128) and .gather_dma (N = 169,984, S =
+           2,752,512, T = 4096, TSUM = 8192), with the launch counters set
+           to 0 before and read after; then each of #13-#24 against its
+           plain version on the same inputs, with CUDA-event times of
+           kernel, plain version and library call beside the bound; its
+           inputs are freed before the e2e and profile phases
   e2e      one training step on a ~20k-node graph on the card (kernels)
            against the same step on the CPU (plain versions): the arxiv
            model with sym and with max, the SIREConv layer on its fused
@@ -78,6 +86,14 @@ NEAR_TIE = 1e-5
 # of the relu on the card: the two sum the mean in another order, which
 # moves m by about 1e-8
 NEAR_GATE = 1e-5
+# the lab's gather and tile sums add 4096 or 8192 rows in f32, in another
+# order in the kernel than in the plain version; each sum's error is at most
+# (chain - 1) * 2^-24 * (sum of the terms' magnitudes) for its longest chain
+# of rounded adds, and in practice far less (it grows as the chain's square
+# root): allowed is that bound for a chain of 1024 adds
+SUM_TOL = 2.0 ** -24 * 1024
+# the passthrough rounds x + 1 to bf16 once on both sides
+EXACT = dict(atol=0.0, rtol=0.0)
 # H100 SXM data sheet: HBM rate and the f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -94,12 +110,15 @@ SOURCE = "sir_gcn_tpu_torch/csrc/ell_kernels.cu"
 MAX_SOURCE = "sir_gcn_tpu_torch/csrc/ell_max_kernels.cu"
 EDGE_SOURCE = "sir_gcn_tpu_torch/csrc/ell_edge_kernels.cu"
 GENERAL_SOURCE = "sir_gcn_tpu_torch/csrc/ell_general_kernels.cu"
+LAB_SOURCE = "sir_gcn_tpu_torch/csrc/lab_kernels.cu"
 PALLAS = "sir_gcn_tpu/ops/pallas/kernels.py"
+KERNEL_LAB, GATHER_DMA = "tools/kernel_lab.py", "tools/gather_dma.py"
 # kernel -> (source, TPU function it replaces, flops per slot and feature;
 # for the max kernels per valid slot and per H*O; for the fused-edge
 # kernels per valid slot and feature on top of 2 De (forward) or 4 De
 # (backward) for the edge projection and g_WE; for the general route's
-# kernels per valid slot and feature with centered_relu)
+# kernels per valid slot and feature with centered_relu; for the lab's
+# kernels per element of the slot rows)
 KERNELS = {
     "ell_act_reduce": (SOURCE, f"{PALLAS}:55", 5),     # add, sigma, scale-add
     "ell_act_reduce2": (SOURCE, f"{PALLAS}:94", 8),    # + sigma', scale-add
@@ -120,6 +139,19 @@ KERNELS = {
     "ell_src_bwd_rowwise": (GENERAL_SOURCE, f"{PALLAS}:198", 9),
     "ell_src_bwd_fused": (GENERAL_SOURCE, f"{PALLAS}:264", 9),
     "ell_act_reduce_bwd": (GENERAL_SOURCE, f"{PALLAS}:326", 9),
+    # add, compare, mul, scale, add
+    "lab_v1": (LAB_SOURCE, f"{KERNEL_LAB}:68", 5),
+    "lab_v2": (LAB_SOURCE, f"{KERNEL_LAB}:99", 5),
+    "lab_v3": (LAB_SOURCE, f"{KERNEL_LAB}:138", 5),
+    "lab_v4": (LAB_SOURCE, f"{KERNEL_LAB}:171", 5),
+    "lab_v5": (LAB_SOURCE, f"{KERNEL_LAB}:207", 5),
+    "lab_v6": (LAB_SOURCE, f"{KERNEL_LAB}:238", 5),
+    "lab_copy": (LAB_SOURCE, f"{KERNEL_LAB}:277", 1),   # add
+    "lab_copy32": (LAB_SOURCE, f"{KERNEL_LAB}:300", 1),
+    "lab_pass": (LAB_SOURCE, f"{KERNEL_LAB}:323", 1),
+    "lab_pass2": (LAB_SOURCE, f"{KERNEL_LAB}:345", 1),
+    "lab_gather": (LAB_SOURCE, f"{GATHER_DMA}:67", 1),
+    "lab_tile_sum": (LAB_SOURCE, f"{GATHER_DMA}:166", 1),
 }
 LINEAR = ("ell_act_reduce", "ell_act_reduce2", "ell_src_bwd")
 EDGE = ("ell_act_reduce_edge", "ell_act_reduce2_edge", "ell_src_bwd_edge",
@@ -127,6 +159,7 @@ EDGE = ("ell_act_reduce_edge", "ell_act_reduce2_edge", "ell_src_bwd_edge",
 MAX = ("ell_max_fwd", "ell_max_wincount", "ell_max_bwd", "ell_scaled_reduce")
 GENERAL = ("ell_act_reduce_rowwise", "ell_geq_reduce", "ell_src_bwd_rowwise")
 BWD = ("ell_src_bwd_fused", "ell_act_reduce_bwd")
+LAB = tuple(k for k in KERNELS if k.startswith("lab_"))
 EDGE_DIM = 16  # the edge basis width of the SIREConv configuration
 
 
@@ -1130,6 +1163,118 @@ def phase_bwd(device, fg, iters: int = 10):
     return dict(K.LAUNCHES)
 
 
+def compare_sum(label, got, want, mag) -> float:
+    """Max abs error of the sums ``got`` against ``want``; raises where it
+    passes SUM_TOL times ``mag``, the sum of the terms' magnitudes."""
+    import torch
+
+    diff = (got - want).abs()
+    allowed = SUM_TOL * mag
+    err = float(diff.max())
+    ok = bool(torch.isfinite(got).all() and (diff <= allowed).all())
+    log(f"  {label}: max abs err {err:.3e}, allowed {float(allowed.min()):.3g}"
+        f"-{float(allowed.max()):.3g} (SUM_TOL x sum of |terms|) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def phase_lab(device):
+    """The timing lab's main path: both tools' ``run`` at their full sizes
+    (every line, each timed there), with the launch counters set to 0
+    before and read after. Then each of #13-#24 at its default knob
+    against its plain version on the same inputs (the gather and tile sums
+    at SUM_TOL, the passthrough exactly, the rest at FWD_TOL), and its time
+    beside the plain version's, the library call's and its bound. Returns
+    (launches, errors, timing) of the lab's kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.ops.cuda import lab as L
+    from sir_gcn_tpu_torch.tools import gather_dma, kernel_lab
+
+    log("== lab: tools.kernel_lab (all tags) and tools.gather_dma at the "
+        "JAX tools' sizes")
+    t0 = time.perf_counter()
+    kin = kernel_lab.make_inputs(device)
+    gin = gather_dma.make_inputs(device)
+    torch.cuda.synchronize()
+    log(f"  inputs made in {time.perf_counter() - t0:.1f}s")
+    reset_launch_counts()
+    kernel_lab.run(device, kernel_lab.TAGS, inputs=kin)
+    gather_dma.run(device, inputs=gin)
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in LAB}
+    log(f"  launches {launches}")
+    missing = [k for k, v in launches.items() if not v]
+    if missing:
+        raise AssertionError(f"the lab launched no {missing}")
+
+    ekg, eq, sc, ekg3, sc3, ekg32 = (
+        kin[k] for k in ("ekg", "eq", "sc", "ekg3", "sc3", "ekg32"))
+    tbl, idx = gin["tbl"], gin["idx"]
+    (r, h), b = eq.shape, ekg.shape[0] // eq.shape[0]
+    t, tsum = gather_dma.SIZES["T"], gather_dma.SIZES["TSUM"]
+    taken = tbl.index_select(0, idx)
+
+    def embedding_bag(weight):
+        return lambda: F.embedding_bag(idx.view(-1, t), weight, mode="sum")
+
+    bag = embedding_bag(tbl)
+    try:
+        bag()
+    except RuntimeError:  # no bf16 embedding_bag on this build
+        bag = embedding_bag(tbl.float())
+    # kernel -> (inputs, library call or None)
+    cases = {
+        **{k: ((ekg, eq, sc), None)
+           for k in ("lab_v1", "lab_v2", "lab_v3", "lab_v4")},
+        **{k: ((ekg3, eq, sc3), None) for k in ("lab_v5", "lab_v6")},
+        "lab_copy": ((ekg, r), lambda: torch.sum(ekg.view(r, b, h), 1,
+                                                  dtype=torch.float32)),
+        "lab_copy32": ((ekg32, r), lambda: ekg32.view(r, b, h).sum(1)),
+        "lab_pass": ((ekg,), lambda: torch.add(ekg, 1.0)),
+        "lab_pass2": ((ekg,), lambda: torch.add(ekg, 1.0)),
+        "lab_gather": ((tbl, idx, t), bag),
+        "lab_tile_sum": ((taken, tsum), lambda: torch.sum(
+            taken.view(-1, tsum, h), 1, dtype=torch.float32)),
+    }
+    errs, timing = {}, {}
+    for name, (args, library) in cases.items():
+        kernel = lambda name=name, args=args: getattr(L, name)(*args)
+        plain = lambda name=name, args=args: L.PLAIN[name](*args)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if name in ("lab_gather", "lab_tile_sum"):
+            mag = L.PLAIN[name](args[0].abs(), *args[1:])
+            errs[name] = compare_sum(f"lab {name}", got, want, mag)
+            del mag
+        else:
+            errs[name] = compare(f"lab {name}", got, want,
+                                 EXACT if "pass" in name else FWD_TOL)
+        del want
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        elems = idx.numel() * h if name == "lab_gather" else args[0].numel()
+        timing[name] = dict(
+            ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 3, warmup=1),
+            bound=bound(tensors, (got,), KERNELS[name][2] * elems),
+            library_ms=None if library is None else cuda_ms(library, 20))
+        del got
+    for name, tm in timing.items():
+        b_ms, by, nbytes, flops = tm["bound"]
+        lib = tm["library_ms"]
+        log(f"  {name}: {tm['ms']:.4f} ms ({nbytes / tm['ms'] / 1e6:.0f} "
+            f"GB/s), plain {tm['plain_ms']:.3f} ms, library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{b_ms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP), {100 * b_ms / tm['ms']:.1f}% of bound")
+    log(f"  library of lab_gather: F.embedding_bag, output "
+        f"{bag().dtype} (the kernel's is f32 [G, 8, H])")
+    return launches, errs, timing
+
+
 def phase_e2e_general(device):
     """One training step of the general phase's SIRConv on a ~20k-node
     graph on the card against the CPU, f32 edges: out at the forward
@@ -1538,6 +1683,11 @@ def main() -> int:
                      if k in GENERAL})
     launches.update({k: v for k, v in phase_bwd(device, arxiv_fg).items()
                      if k in BWD})
+    lab_launches, lab_errs, lab_timing = phase_lab(device)
+    launches.update(lab_launches)
+    errs.update(lab_errs)
+    timing.update(lab_timing)
+    torch.cuda.empty_cache()  # the lab's ~3 GB, before e2e and profile
     for agg in ("sym", "max"):
         phase_e2e(device, agg)
     phase_e2e_sireconv(device)

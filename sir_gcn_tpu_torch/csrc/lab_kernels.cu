@@ -1,0 +1,611 @@
+// Timing-lab kernels for Hopper (sm_90a), with a plain C interface bound
+// from Python through ctypes (sir_gcn_tpu_torch/ops/cuda/lab.py).
+//
+// They replace the Pallas kernels of the JAX package's timing lab:
+// tools/kernel_lab.py make_v1 .. make_v6 (variants of the bucket
+// broadcast + act + reduce of #1 at one bucket, B slots a row), make_copy,
+// make_copy32, make_pass, make_pass2 (stream probes), and
+// tools/gather_dma.py's gather kernel and copy_kernel (a per-row gather
+// and a row-sum consumer). Each computes what its Pallas kernel computes,
+// to the same output; where the Pallas variants differ only in a TPU knob
+// (tile size, inner chunk, form of the reduce, lane layout of the scale,
+// megacore semantics), the kernel here varies the matching Hopper knob:
+//
+//   lab_v1       make_v1 (whole tile staged in VMEM): a block stages its
+//                tile of rows in shared memory with cp.async, then reduces
+//                it; knob: rows per tile (the TPU's 4096-16384 slots are
+//                1-4 MB, over the 227 KB a block can have)
+//   lab_v2       make_v2 (inner loop, small live set): one warp per row,
+//                16-byte loads straight into registers; knob: loads in
+//                flight per lane (the TPU's row chunk)
+//   lab_v3       make_v3 (reduce as B strided-slice adds): one thread per
+//                feature pair of a row adds its B slots in order
+//   lab_v4       make_v4 (bf16 compute): lab_v2 rounded to bf16 where the
+//                Pallas kernel computes in bf16, summed in f32
+//   lab_v5/v6    make_v5/make_v6 (plane-major [B, R, H]): a thread owns a
+//                16-byte chunk of a row and walks the B planes, each read
+//                coalesced; the scale [B, R] is loaded per lane (v5, the
+//                TPU's [B, R, 1]) or once per row and passed by
+//                __shfl_sync (v6, the TPU's [B, R]); knob: rows per block
+//   lab_copy     make_copy / make_copy32: the sum-only stream of lab_v2
+//   lab_copy32   (bf16 or f32 rows, no act, no scale)
+//   lab_pass     make_pass: x + 1 in bf16, one 16-byte chunk a thread
+//   lab_pass2    make_pass2: the same over tiles of rows, one block a tile
+//                ("parallel") or a persistent grid of a few blocks an SM
+//                walking the tiles ("arbitrary")
+//   lab_gather   gather_dma.py's kernel: per tile of T indices, the f32 sum
+//                of the indexed table rows, written to 8 rows. Mosaic could
+//                not DMA one row, so the TPU kernel copies each row's 8-row
+//                tile; here each row is read alone, 16 B a lane, with
+//                INFLIGHT = 16 rows in flight a warp (the TPU's 16 DMA
+//                semaphores), then summed across the block's warps in
+//                shared memory
+//   lab_tile_sum gather_dma.py's copy_kernel: the column sum of each tile
+//                of T rows, written to 8 rows; lab_gather's kernel without
+//                the index
+//
+// Bound: device-memory bytes for every kernel (a few flops per element
+// read). The act-reduce kernels read ekg once and write each output row
+// once; the stream kernels use 16-byte loads throughout. lab_gather's
+// table (43.5 MB at the lab's size) fits in the 50 MB L2, so its rate is
+// L2-assisted. All sums are f32; the act-reduce kernels and lab_copy sum a
+// row's slots in slot order within a lane. Offsets are size_t.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kGatherInflight = 16;
+constexpr int kMaxH = 256;  // a bf16 row of 32 16-byte chunks
+
+// 16 bytes of T widened to f32.
+template <typename T>
+struct Pack;
+template <>
+struct Pack<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void widen(const uint4& u, float* f) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+};
+template <>
+struct Pack<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void widen(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// x rounded to bf16 (nearest even) and widened back, as astype(bf16).
+__device__ __forceinline__ float rnd(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float leaky(float z, float slope) {
+  return z >= 0.f ? z : slope * z;
+}
+
+// Load n f32 values (n a multiple of 4) as float4s.
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float* f) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p + i));
+    f[i] = t.x;
+    f[i + 1] = t.y;
+    f[i + 2] = t.z;
+    f[i + 3] = t.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_f32(float* p, const float* f) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4)
+    *reinterpret_cast<float4*>(p + i) =
+        make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
+}
+
+// ---------------------------------------------------------------------
+// lab_v2, lab_v4, lab_copy, lab_copy32: one warp per row of B slots
+// ---------------------------------------------------------------------
+
+enum { MODE_ACT = 0, MODE_ACT_BF16 = 1, MODE_SUM = 2 };
+
+// One slot's term for feature value f, eq value q (bf16-rounded under
+// MODE_ACT_BF16) and scale w.
+template <int MODE>
+__device__ __forceinline__ float term(float f, float q, float w, float slope) {
+  if (MODE == MODE_SUM) return f;
+  if (MODE == MODE_ACT) return leaky(f + q, slope) * w;
+  // make_v4: z = bf16(ekg + bf16(eq)); a = where(z >= 0, z, bf16(bf16(slope)
+  // * z)); m = bf16(a * bf16(sc)); each product of two bf16 values is exact
+  // in f32, so one rounding after it is the bf16 product
+  const float z = rnd(f + q);
+  const float a = z >= 0.f ? z : rnd(rnd(slope) * z);
+  return rnd(a * rnd(w));
+}
+
+// The row r of x [R*B, H] holds slots r*B .. r*B+B-1. C = H / Pack::N
+// 16-byte chunks a row (a power of two <= 32): lane l owns chunk l % C and
+// the slots l / C, l / C + 32 / C, ...; U loads a lane are issued before
+// any is used. The lanes of one chunk are summed by shuffles at the end.
+template <int MODE, typename T, int U>
+__global__ void __launch_bounds__(kThreads)
+row_reduce_kernel(const T* __restrict__ x, const float* __restrict__ eq,
+                  const float* __restrict__ sc, int R, int B, int H,
+                  float slope, float* __restrict__ out) {
+  constexpr int EPV = Pack<T>::N;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= R) return;  // the whole warp leaves together
+  const int C = H / EPV;
+  const int step = 32 / C;  // slots one warp load covers
+  const int c = lane & (C - 1);
+  float q[EPV], acc[EPV];
+#pragma unroll
+  for (int j = 0; j < EPV; ++j) acc[j] = q[j] = 0.f;
+  if (MODE != MODE_SUM) {
+    load_f32<EPV>(eq + (size_t)r * H + c * EPV, q);
+    if (MODE == MODE_ACT_BF16) {
+#pragma unroll
+      for (int j = 0; j < EPV; ++j) q[j] = rnd(q[j]);
+    }
+  }
+  const T* row = x + (size_t)r * B * H + c * EPV;
+  const float* srow = sc + (size_t)r * B;
+  for (int s = lane / C; s < B; s += step * U) {
+    uint4 v[U];
+    float w[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = s + u * step;
+      v[u] = t < B ? load16(row + (size_t)t * H) : make_uint4(0, 0, 0, 0);
+      w[u] = MODE != MODE_SUM && t < B ? __ldg(srow + t) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (s + u * step < B) {
+        float f[EPV];
+        Pack<T>::widen(v[u], f);
+#pragma unroll
+        for (int j = 0; j < EPV; ++j) acc[j] += term<MODE>(f[j], q[j], w[u], slope);
+      }
+    }
+  }
+  for (int off = C; off < 32; off <<= 1) {
+#pragma unroll
+    for (int j = 0; j < EPV; ++j) acc[j] += __shfl_xor_sync(kFull, acc[j], off);
+  }
+  if (lane < C) store_f32<EPV>(out + (size_t)r * H + c * EPV, acc);
+}
+
+// ---------------------------------------------------------------------
+// lab_v1: the tile staged in shared memory first
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// A block owns rows r0 .. r0+TR-1: it copies their TR*B slot rows (bf16,
+// contiguous) into shared memory, waits, and then each thread reduces
+// feature pairs (row, p) over the B slots in order.
+__global__ void __launch_bounds__(kThreads)
+staged_act_reduce_kernel(const __nv_bfloat16* __restrict__ ekg,
+                         const float* __restrict__ eq,
+                         const float* __restrict__ sc, int R, int B, int H,
+                         int TR, float slope, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const int r0 = blockIdx.x * TR;
+  const int rows = min(TR, R - r0);
+  const size_t chunks = (size_t)rows * B * H / 8;
+  const unsigned char* src =
+      reinterpret_cast<const unsigned char*>(ekg + (size_t)r0 * B * H);
+  for (size_t i = threadIdx.x; i < chunks; i += blockDim.x)
+    cp_async16(tile_smem + 16 * i, src + 16 * i);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  const __nv_bfloat162* tile =
+      reinterpret_cast<const __nv_bfloat162*>(tile_smem);
+  const int P = H / 2;
+  for (int i = threadIdx.x; i < rows * P; i += blockDim.x) {
+    const int rr = i / P, p = i - rr * P;
+    const size_t r = (size_t)r0 + rr;
+    const float2 q = __ldg(reinterpret_cast<const float2*>(eq + r * H) + p);
+    float a0 = 0.f, a1 = 0.f;
+    for (int b = 0; b < B; ++b) {
+      const float2 f = __bfloat1622float2(tile[((size_t)rr * B + b) * P + p]);
+      const float w = __ldg(sc + r * B + b);
+      a0 += leaky(f.x + q.x, slope) * w;
+      a1 += leaky(f.y + q.y, slope) * w;
+    }
+    reinterpret_cast<float2*>(out + r * H)[p] = make_float2(a0, a1);
+  }
+}
+
+// ---------------------------------------------------------------------
+// lab_v3: one thread per feature pair of a row, B slot adds in order
+// ---------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+pair_act_reduce_kernel(const __nv_bfloat16* __restrict__ ekg,
+                       const float* __restrict__ eq,
+                       const float* __restrict__ sc, int R, int B, int H,
+                       float slope, float* __restrict__ out) {
+  const int P = H / 2;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)R * P) return;
+  const size_t r = i / P;
+  const int p = (int)(i - r * P);
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(ekg);
+  const float2 q = __ldg(reinterpret_cast<const float2*>(eq + r * H) + p);
+  float a0 = 0.f, a1 = 0.f;
+  for (int b = 0; b < B; ++b) {
+    const float2 f = __bfloat1622float2(x[(r * B + b) * P + p]);
+    const float w = __ldg(sc + r * B + b);
+    a0 += leaky(f.x + q.x, slope) * w;
+    a1 += leaky(f.y + q.y, slope) * w;
+  }
+  reinterpret_cast<float2*>(out + r * H)[p] = make_float2(a0, a1);
+}
+
+// ---------------------------------------------------------------------
+// lab_v5, lab_v6: plane-major x3 [B, R, H], scale [B, R]
+// ---------------------------------------------------------------------
+
+// Thread t owns chunk t % C (C = H / 8, a power of two <= 32) of row t / C;
+// a warp covers 32 / C rows. SHFL: the first 32 / C lanes load the warp's
+// rows' scales of plane b and pass each to its row's lanes.
+template <bool SHFL>
+__global__ void __launch_bounds__(512)
+plane_act_reduce_kernel(const __nv_bfloat16* __restrict__ x3,
+                        const float* __restrict__ eq,
+                        const float* __restrict__ sc, int R, int B, int H,
+                        float slope, float* __restrict__ out) {
+  const int C = H / 8;
+  const int lane = threadIdx.x & 31;
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t r = t / C;
+  const int c = (int)(t & (C - 1));
+  const size_t warp_row0 = (t - lane) / C;
+  const bool live = r < (size_t)R;
+  float q[8], acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = q[j] = 0.f;
+  if (live) load_f32<8>(eq + r * H + c * 8, q);
+#pragma unroll 4
+  for (int b = 0; b < B; ++b) {
+    float w;
+    if (SHFL) {
+      const size_t mine_row = warp_row0 + lane;
+      const float mine = lane < 32 / C && mine_row < (size_t)R
+                             ? __ldg(sc + (size_t)b * R + mine_row)
+                             : 0.f;
+      w = __shfl_sync(kFull, mine, lane / C);
+    } else {
+      w = live ? __ldg(sc + (size_t)b * R + r) : 0.f;
+    }
+    if (live) {
+      float f[8];
+      Pack<__nv_bfloat16>::widen(
+          load16(x3 + ((size_t)b * R + r) * H + c * 8), f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] += leaky(f[j] + q[j], slope) * w;
+    }
+  }
+  if (live) store_f32<8>(out + r * H + c * 8, acc);
+}
+
+// ---------------------------------------------------------------------
+// lab_pass, lab_pass2: y = x + 1 in bf16, 16 bytes at a time
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ uint4 add_one(uint4 u) {
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    h[i] = __floats2bfloat162_rn(f.x + 1.f, f.y + 1.f);
+  }
+  return u;
+}
+
+__global__ void __launch_bounds__(kThreads)
+pass_kernel(const uint4* __restrict__ x, uint4* __restrict__ y, size_t n16) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n16) y[i] = add_one(__ldg(x + i));
+}
+
+// Tiles of `tile16` chunks; block b takes tiles b, b + gridDim.x, ...
+__global__ void __launch_bounds__(kThreads)
+pass_tiles_kernel(const uint4* __restrict__ x, uint4* __restrict__ y,
+                  size_t n16, int tile16, size_t tiles) {
+  for (size_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const size_t base = tile * tile16;
+    for (int i = threadIdx.x; i < tile16; i += blockDim.x) {
+      const size_t k = base + i;
+      if (k < n16) y[k] = add_one(__ldg(x + k));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// lab_gather, lab_tile_sum: one block per tile of T rows, f32 column sum
+// ---------------------------------------------------------------------
+
+// Block g sums rows tbl[idx[g*T + i]] (GATHER) or v[g*T + i] for i < T and
+// writes the sum to out rows 8g .. 8g+7. C = H / 8 chunks a row: a warp
+// load covers 32 / C rows, and each lane issues U loads before using any,
+// so kGatherInflight rows are in flight a warp.
+template <int C, bool GATHER>
+__global__ void __launch_bounds__(kThreads)
+tile_sum_kernel(const __nv_bfloat16* __restrict__ tbl,
+                const int* __restrict__ idx, int T, int H,
+                float* __restrict__ out) {
+  constexpr int kStep = 32 / C;
+  constexpr int U = kGatherInflight / kStep > 0 ? kGatherInflight / kStep : 1;
+  __shared__ float part[kWarps][kMaxH];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = lane & (C - 1), sub = lane / C;
+  const size_t first = (size_t)blockIdx.x * T;
+  float acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  for (int i0 = warp * kStep * U; i0 < T; i0 += kWarps * kStep * U) {
+    uint4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * kStep + sub;
+      v[u] = make_uint4(0, 0, 0, 0);
+      if (i < T) {
+        const size_t row = GATHER ? (size_t)__ldg(idx + first + i) : first + i;
+        v[u] = load16(tbl + row * H + c * 8);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (i0 + u * kStep + sub < T) {
+        float f[8];
+        Pack<__nv_bfloat16>::widen(v[u], f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] += f[j];
+      }
+    }
+  }
+#pragma unroll
+  for (int off = C; off < 32; off <<= 1) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] += __shfl_xor_sync(kFull, acc[j], off);
+  }
+  if (sub == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) part[warp][c * 8 + j] = acc[j];
+  }
+  __syncthreads();
+  for (int f = threadIdx.x; f < H; f += blockDim.x) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += part[w][f];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) out[((size_t)blockIdx.x * 8 + k) * H + f] = s;
+  }
+}
+
+// ---------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------
+
+bool pow2_upto_32(int c) { return c >= 1 && c <= 32 && (c & (c - 1)) == 0; }
+
+unsigned blocks_for(size_t n, int per_block) {
+  return (unsigned)((n + per_block - 1) / per_block);
+}
+
+template <int MODE, typename T>
+int launch_row_reduce(const void* x, const void* eq, const void* sc, int R,
+                      int B, int H, int inflight, float slope, void* out,
+                      cudaStream_t st) {
+  if (R <= 0 || B <= 0 || !pow2_upto_32(H / Pack<T>::N) ||
+      H % Pack<T>::N != 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks_for(R, kWarps));
+#define SIR_ROW_REDUCE(U)                                                  \
+  row_reduce_kernel<MODE, T, U><<<grid, kThreads, 0, st>>>(                \
+      (const T*)x, (const float*)eq, (const float*)sc, R, B, H, slope,     \
+      (float*)out)
+  switch (inflight) {
+    case 2: SIR_ROW_REDUCE(2); break;
+    case 4: SIR_ROW_REDUCE(4); break;
+    case 8: SIR_ROW_REDUCE(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SIR_ROW_REDUCE
+  return (int)cudaGetLastError();
+}
+
+template <bool GATHER>
+int launch_tile_sum(const void* tbl, const void* idx, int G, int T, int H,
+                    void* out, cudaStream_t st) {
+  if (G <= 0 || T <= 0 || H % 8 != 0 || !pow2_upto_32(H / 8))
+    return (int)cudaErrorInvalidValue;
+#define SIR_TILE_SUM(C)                                                    \
+  tile_sum_kernel<C, GATHER><<<G, kThreads, 0, st>>>(                      \
+      (const __nv_bfloat16*)tbl, (const int*)idx, T, H, (float*)out)
+  switch (H / 8) {
+    case 1: SIR_TILE_SUM(1); break;
+    case 2: SIR_TILE_SUM(2); break;
+    case 4: SIR_TILE_SUM(4); break;
+    case 8: SIR_TILE_SUM(8); break;
+    case 16: SIR_TILE_SUM(16); break;
+    default: SIR_TILE_SUM(32); break;
+  }
+#undef SIR_TILE_SUM
+  return (int)cudaGetLastError();
+}
+
+template <bool SHFL>
+int launch_plane(const void* x3, const void* eq, const void* sc, int R, int B,
+                 int H, int block_rows, float slope, void* out,
+                 cudaStream_t st) {
+  const int C = H / 8;
+  if (R <= 0 || B <= 0 || H % 8 != 0 || !pow2_upto_32(C) || block_rows <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int threads = block_rows * C;
+  if (threads % 32 != 0 || threads > 512) return (int)cudaErrorInvalidValue;
+  plane_act_reduce_kernel<SHFL>
+      <<<blocks_for((size_t)R * C, threads), threads, 0, st>>>(
+          (const __nv_bfloat16*)x3, (const float*)eq, (const float*)sc, R, B,
+          H, slope, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry launches on `stream` and returns cudaGetLastError() (0 when
+// the launch was accepted), or cudaErrorInvalidValue for sizes or a knob it
+// does not take. ekg, x3, tbl and v are bf16; eq, sc and every output f32;
+// idx int32. R rows of B slots, width H.
+
+int lab_v1(const void* ekg, const void* eq, const void* sc, int R, int B,
+           int H, int tile_rows, float slope, void* out, void* stream) {
+  const size_t smem = (size_t)tile_rows * B * H * 2;
+  if (R <= 0 || B <= 0 || H % 8 != 0 || tile_rows <= 0 || smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        staged_act_reduce_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  staged_act_reduce_kernel<<<blocks_for(R, tile_rows), kThreads, smem,
+                             (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)ekg, (const float*)eq, (const float*)sc, R, B, H,
+      tile_rows, slope, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+int lab_v2(const void* ekg, const void* eq, const void* sc, int R, int B,
+           int H, int inflight, float slope, void* out, void* stream) {
+  return launch_row_reduce<MODE_ACT, __nv_bfloat16>(
+      ekg, eq, sc, R, B, H, inflight, slope, out, (cudaStream_t)stream);
+}
+
+int lab_v3(const void* ekg, const void* eq, const void* sc, int R, int B,
+           int H, float slope, void* out, void* stream) {
+  if (R <= 0 || B <= 0 || H % 2 != 0) return (int)cudaErrorInvalidValue;
+  pair_act_reduce_kernel<<<blocks_for((size_t)R * (H / 2), kThreads),
+                           kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)ekg, (const float*)eq, (const float*)sc, R, B, H,
+      slope, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+int lab_v4(const void* ekg, const void* eq, const void* sc, int R, int B,
+           int H, int inflight, float slope, void* out, void* stream) {
+  return launch_row_reduce<MODE_ACT_BF16, __nv_bfloat16>(
+      ekg, eq, sc, R, B, H, inflight, slope, out, (cudaStream_t)stream);
+}
+
+int lab_v5(const void* x3, const void* eq, const void* sc, int R, int B,
+           int H, int block_rows, float slope, void* out, void* stream) {
+  return launch_plane<false>(x3, eq, sc, R, B, H, block_rows, slope, out,
+                             (cudaStream_t)stream);
+}
+
+int lab_v6(const void* x3, const void* eq, const void* sc, int R, int B,
+           int H, int block_rows, float slope, void* out, void* stream) {
+  return launch_plane<true>(x3, eq, sc, R, B, H, block_rows, slope, out,
+                            (cudaStream_t)stream);
+}
+
+int lab_copy(const void* x, int R, int B, int H, int inflight, void* out,
+             void* stream) {
+  return launch_row_reduce<MODE_SUM, __nv_bfloat16>(
+      x, nullptr, nullptr, R, B, H, inflight, 0.f, out, (cudaStream_t)stream);
+}
+
+int lab_copy32(const void* x, int R, int B, int H, int inflight, void* out,
+               void* stream) {
+  return launch_row_reduce<MODE_SUM, float>(x, nullptr, nullptr, R, B, H,
+                                            inflight, 0.f, out,
+                                            (cudaStream_t)stream);
+}
+
+// n bf16 elements, a multiple of 8.
+int lab_pass(const void* x, long long n, void* out, void* stream) {
+  if (n <= 0 || n % 8 != 0) return (int)cudaErrorInvalidValue;
+  const size_t n16 = (size_t)n / 8;
+  pass_kernel<<<blocks_for(n16, kThreads), kThreads, 0,
+                (cudaStream_t)stream>>>((const uint4*)x, (uint4*)out, n16);
+  return (int)cudaGetLastError();
+}
+
+// Tiles of tile_elems elements (a multiple of 8); persistent != 0 walks
+// them with a few blocks an SM, as many as fit at once.
+int lab_pass2(const void* x, long long n, int tile_elems, int persistent,
+              void* out, void* stream) {
+  if (n <= 0 || n % 8 != 0 || tile_elems <= 0 || tile_elems % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t n16 = (size_t)n / 8;
+  const int tile16 = tile_elems / 8;
+  const size_t tiles = (n16 + tile16 - 1) / tile16;
+  size_t grid = tiles;
+  if (persistent) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, pass_tiles_kernel, kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    const size_t resident = (size_t)sms * per_sm;
+    grid = resident < tiles ? resident : tiles;
+  }
+  pass_tiles_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)x, (uint4*)out, n16, tile16, tiles);
+  return (int)cudaGetLastError();
+}
+
+// out [G, 8, H]: tile g sums tbl rows idx[g*T .. g*T+T-1].
+int lab_gather(const void* tbl, const void* idx, int G, int T, int H,
+               void* out, void* stream) {
+  return launch_tile_sum<true>(tbl, idx, G, T, H, out, (cudaStream_t)stream);
+}
+
+// out [G*8, H]: tile g sums v rows g*T .. g*T+T-1.
+int lab_tile_sum(const void* v, int G, int T, int H, void* out,
+                 void* stream) {
+  return launch_tile_sum<false>(v, nullptr, G, T, H, out,
+                                (cudaStream_t)stream);
+}
+
+const char* lab_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

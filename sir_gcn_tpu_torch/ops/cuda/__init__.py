@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the ELL fast path (port of
-``sir_gcn_tpu/ops/pallas``). ``on_cuda`` takes the place of
-``pallas_available``: tensors on a CUDA device take the kernels."""
+``sir_gcn_tpu/ops/pallas``) and of the timing lab (``lab``, port of the
+Pallas kernels of ``tools/kernel_lab.py`` and ``tools/gather_dma.py``).
+``on_cuda`` takes the place of ``pallas_available``: tensors on a CUDA
+device take the kernels."""
 
 from .kernels import (
     LAUNCHES,
@@ -34,4 +36,18 @@ from .kernels import (
     ell_src_bwd_rowwise,
     on_cuda,
     reset_launch_counts,
+)
+from .lab import (
+    lab_copy,
+    lab_copy32,
+    lab_gather,
+    lab_pass,
+    lab_pass2,
+    lab_tile_sum,
+    lab_v1,
+    lab_v2,
+    lab_v3,
+    lab_v4,
+    lab_v5,
+    lab_v6,
 )

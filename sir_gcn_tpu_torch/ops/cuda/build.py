@@ -20,7 +20,8 @@ _PKG = Path(__file__).resolve().parents[2]
 SOURCES = {"ell_kernels": _PKG / "csrc" / "ell_kernels.cu",
            "ell_max_kernels": _PKG / "csrc" / "ell_max_kernels.cu",
            "ell_edge_kernels": _PKG / "csrc" / "ell_edge_kernels.cu",
-           "ell_general_kernels": _PKG / "csrc" / "ell_general_kernels.cu"}
+           "ell_general_kernels": _PKG / "csrc" / "ell_general_kernels.cu",
+           "lab_kernels": _PKG / "csrc" / "lab_kernels.cu"}
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -39,7 +39,11 @@ LAUNCHES = {"ell_act_reduce": 0, "ell_act_reduce2": 0, "ell_src_bwd": 0,
             "ell_max_bwd": 0, "ell_scaled_reduce": 0,
             "ell_act_reduce_rowwise": 0, "ell_geq_reduce": 0,
             "ell_src_bwd_rowwise": 0, "ell_src_bwd_fused": 0,
-            "ell_act_reduce_bwd": 0}
+            "ell_act_reduce_bwd": 0,
+            # the timing lab's kernels (ops/cuda/lab.py)
+            "lab_v1": 0, "lab_v2": 0, "lab_v3": 0, "lab_v4": 0, "lab_v5": 0,
+            "lab_v6": 0, "lab_copy": 0, "lab_copy32": 0, "lab_pass": 0,
+            "lab_pass2": 0, "lab_gather": 0, "lab_tile_sum": 0}
 
 
 def reset_launch_counts() -> None:
@@ -48,6 +52,7 @@ def reset_launch_counts() -> None:
 
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # library -> entry -> argument types (the stream last)
 _ARGTYPES = {
     "ell_kernels": {
@@ -92,6 +97,17 @@ _ARGTYPES = {
         "ell_src_bwd_fused": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                               _F, _VP, _VP],
     },
+    "lab_kernels": {
+        **{name: [_VP, _VP, _VP, _I, _I, _I, _I, _F, _VP, _VP]
+           for name in ("lab_v1", "lab_v2", "lab_v4", "lab_v5", "lab_v6")},
+        "lab_v3": [_VP, _VP, _VP, _I, _I, _I, _F, _VP, _VP],
+        "lab_copy": [_VP, _I, _I, _I, _I, _VP, _VP],
+        "lab_copy32": [_VP, _I, _I, _I, _I, _VP, _VP],
+        "lab_pass": [_VP, _LL, _VP, _VP],
+        "lab_pass2": [_VP, _LL, _I, _I, _VP, _VP],
+        "lab_gather": [_VP, _VP, _I, _I, _I, _VP, _VP],
+        "lab_tile_sum": [_VP, _I, _I, _I, _VP, _VP],
+    },
 }
 # entries that launch nothing and return an int
 _QUERIES = {"ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 5},
@@ -99,7 +115,8 @@ _QUERIES = {"ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 5},
 _ERROR_STRING = {"ell_kernels": "ell_error_string",
                  "ell_max_kernels": "ell_max_error_string",
                  "ell_edge_kernels": "ell_edge_error_string",
-                 "ell_general_kernels": "ell_general_error_string"}
+                 "ell_general_kernels": "ell_general_error_string",
+                 "lab_kernels": "lab_error_string"}
 _LIBRARY_OF = {entry: lib for lib, entries in _ARGTYPES.items()
                for entry in entries}
 # the kernels that take any sigma of the registry, a row-wise one included
