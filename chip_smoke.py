@@ -9,14 +9,16 @@ Phases, each printed as it runs; any failure exits non-zero:
   build    nvcc of the port's CUDA sources (all started together), with the
            ptxas register, shared-memory and spill report
   kernels  each ELL kernel against its plain PyTorch version on the card:
-           awkward small plans (hub stage 2, H = 24 and 200, O != H,
+           awkward small plans (hub stage 2, H = 20, 24, 96, 128 and 200, O != H,
            De = 5 and 16, budget-1 pad rows, zero scales, a row with no
            valid slot, isolated nodes, row counts that are not a multiple
            of a block's, duplicated edges that tie exactly; the general
            route's kernels with centered_relu, softmax and tanh sent down
            the general route), then the ogbn-arxiv plan in f32 and bf16,
            with CUDA-event times of kernel and plain version beside the
-           kernel's bound
+           kernel's bound; for #1, #2, #4 and their edge-term forms the
+           path each launch took (the 16-byte vector path with its layout,
+           which the arxiv plan must take, or the scalar loop)
   train    the arxiv trainer's entry point at full width (169,343 nodes,
            H = 96, 3 layers, bn, residual, bf16 edges), once with sym and
            once with max aggregation, 5 steps and evals each, with the
@@ -32,16 +34,19 @@ Phases, each printed as it runs; any failure exits non-zero:
            exact launch counts
   bwd      the forward and backward of one aggregate at the arxiv plan
            (H = 96, sym, tanh) three ways: src-major (#2, #4), fused take
-           (#2, #5) and dst-major (#1, #6, #12); each design's time, and
-           the gradients of the other two against the src-major one
+           (#2, #5) and dst-major (#1, #6, #12); each design's time, the
+           gradients of the other two against the src-major one, and the
+           backward kernels alone (#4 with tanh and with leaky_relu)
   lab      the timing lab at the JAX tools' sizes: the entry points of
            sir_gcn_tpu_torch.tools.kernel_lab (every tag; R = 111,104 rows
            of B = 16 slots, H = 128) and .gather_dma (N = 169,984, S =
            2,752,512, T = 4096, TSUM = 8192), with the launch counters set
-           to 0 before and read after; then each of #13-#24 against its
-           plain version on the same inputs, with CUDA-event times of
-           kernel, plain version and library call beside the bound; its
-           inputs are freed before the e2e and profile phases
+           to 0 before and read after; gather_dma once more with a table
+           of N = 679,936 rows (174 MB, beyond the 50 MB L2); then each of
+           #13-#24 against its plain version on the same inputs, with
+           CUDA-event times of kernel, plain version and library call
+           beside the bound; its inputs are freed before the e2e and
+           profile phases
   e2e      one training step on a ~20k-node graph on the card (kernels)
            against the same step on the CPU (plain versions): the arxiv
            model with sym and with max, the SIREConv layer on its fused
@@ -161,6 +166,8 @@ GENERAL = ("ell_act_reduce_rowwise", "ell_geq_reduce", "ell_src_bwd_rowwise")
 BWD = ("ell_src_bwd_fused", "ell_act_reduce_bwd")
 LAB = tuple(k for k in KERNELS if k.startswith("lab_"))
 EDGE_DIM = 16  # the edge basis width of the SIREConv configuration
+# the gather probe's table beyond the L2: 174 MB of bf16 rows at H = 128
+BIG_GATHER_ROWS = 679_936
 
 
 def flags_for(agg: str) -> list:
@@ -300,8 +307,25 @@ def kernel_args(fg, eq, ek, g, sd, ss, act, dtype):
     return fwd, bwd
 
 
+def log_layout(label, name, args, outs, extra=(), require_vector=False):
+    """Log the path a launch of ``name`` (a kernel of ell_kernels.cu, its
+    wrapper's ``args`` and outputs ``outs``, an edge form's table in
+    ``extra``) took: the vector path with its (C, G, U) or the scalar loop.
+    With ``require_vector`` the scalar loop raises."""
+    from sir_gcn_tpu_torch.ops import cuda as K
+
+    bwd = "src_bwd" in name
+    tables = (args[:3] if bwd else args[:2]) + tuple(extra)
+    dtype = (args[0] if bwd else args[1]).dtype
+    lay = K.ell_layout(name, args[0].shape[1], dtype, *tables, *outs)
+    log(f"  {label} {name}: " + ("scalar path" if lay is None else
+                                 "vector path, C {}, G {}, U {}".format(*lay)))
+    if require_vector and lay is None:
+        raise AssertionError(f"{label} {name} took the scalar path")
+
+
 def check_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
-                  timing=None):
+                  timing=None, require_vector=False):
     import torch
 
     from sir_gcn_tpu_torch.ops import cuda as K
@@ -328,6 +352,7 @@ def check_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
         for i, (a, b) in enumerate(zip(got, want)):
             err = compare(f"{label} {name}[{i}]", a, b, tol)
             errs[name] = max(errs.get(name, 0.0), err)
+        log_layout(label, name, args, got, require_vector=require_vector)
         if timing is not None:
             timing[name] = dict(ms=cuda_ms(kernel, 50),
                                 plain_ms=cuda_ms(plain, 5, warmup=1),
@@ -367,7 +392,7 @@ def edge_tables(fg, h: int, de: int, seed: int):
 
 
 def check_edge_kernels(label, fg, eq, ek, g, sd, ss, e, eb, we, act, dtype,
-                       errs, timing=None):
+                       errs, timing=None, require_vector=False):
     """The edge-term forms of #1, #2 and #4 (with its per-edge cotangent)
     and the fused-edge kernels #7 and #8 against their plain versions;
     g_WE at GW_TOL, a g_e stored in bf16 at one bf16 step."""
@@ -408,6 +433,8 @@ def check_edge_kernels(label, fg, eq, ek, g, sd, ss, e, eb, we, act, dtype,
             lambda: K.ell_edge_src_bwd_plain(*fbwd, buckets=bs),
             (BWD_TOL, GW_TOL)),
     }
+    layout_args = {"ell_act_reduce_edge": fwd, "ell_act_reduce2_edge": fwd,
+                   "ell_src_bwd_edge": bwd}
     outs = {}
     for name, (kernel, plain, tols) in runs.items():
         got, want = kernel(), plain()
@@ -417,6 +444,9 @@ def check_edge_kernels(label, fg, eq, ek, g, sd, ss, e, eb, we, act, dtype,
         for i, (a, b, tol) in enumerate(zip(got, want, tols)):
             err = compare(f"{label} {name}[{i}]", a, b, tol)
             errs[name] = max(errs.get(name, 0.0), err)
+        if name in layout_args:
+            log_layout(label, name, layout_args[name], got, extra=(et,),
+                       require_vector=require_vector)
         outs[name] = got
     if timing is None:
         return
@@ -746,7 +776,8 @@ def phase_kernels(device):
     dtypes = (torch.float32, torch.bfloat16)
     general_acts = (centered_relu(0.5), softmax,
                     dataclasses.replace(tanh, sir_elementwise=False))
-    for graph, h in (("hub", 24), ("random", 96), ("random", 200)):
+    for graph, h in (("hub", 24), ("random", 96), ("random", 200),
+                     ("random", 20), ("random", 128), ("isolated", 96)):
         case = small_case(graph, h, device)
         for act in acts:
             for dtype in dtypes:
@@ -754,7 +785,8 @@ def phase_kernels(device):
                               act, dtype, errs)
     for graph, h, de in (("hub", 24, 5), ("random", 96, 16),
                          ("isolated", 200, 16), ("isolated", 24, 16),
-                         ("random", 200, 5)):
+                         ("random", 200, 5), ("random", 20, 5),
+                         ("random", 128, 16)):
         case = small_case(graph, h, device)
         tables = edge_tables(case[0], h, de, seed=h + de)
         log(f"  {graph} H={h} De={de}: rows {case[0].dst_plan.num_rows} "
@@ -796,9 +828,11 @@ def phase_kernels(device):
     for dtype in dtypes:
         keep = timing if dtype == torch.bfloat16 else None
         check_kernels(f"arxiv {dtype}", fg, eq, ek, g, sd, ss,
-                      leaky_relu(0.2), dtype, errs, timing=keep)
+                      leaky_relu(0.2), dtype, errs, timing=keep,
+                      require_vector=True)
         check_edge_kernels(f"arxiv {dtype}", fg, eq, ek, g, sd, ss, *tables,
-                           leaky_relu(0.2), dtype, errs, timing=keep)
+                           leaky_relu(0.2), dtype, errs, timing=keep,
+                           require_vector=True)
         check_max_kernels(f"arxiv {dtype}", fg, eq, ek, w, g,
                           fg.dst_slot_scales["sum"], leaky_relu(0.2), dtype,
                           errs, timing=keep, mask_near_ties=True)
@@ -1069,7 +1103,7 @@ def phase_bwd(device, fg, iters: int = 10):
     import torch
 
     from sir_gcn_tpu_torch.ops import cuda as K
-    from sir_gcn_tpu_torch.ops.ell import ell_sir_aggregate, tanh
+    from sir_gcn_tpu_torch.ops.ell import ell_sir_aggregate, leaky_relu, tanh
 
     log("== bwd: forward + backward of one aggregate at the arxiv plan "
         "(H 96, sym, tanh), three designs")
@@ -1149,8 +1183,10 @@ def phase_bwd(device, fg, iters: int = 10):
     fwd = (eq0, ek0.to(bf), fg.dst_slot_srcnode, fg.dst_slot_scales["sym"],
            plan.row_key, plan.row_ptr, tanh)
     g_slots, _ = K.ell_act_reduce_bwd(*fwd, w, gz_dtype=bf)
+    leaky = rest[:-1] + (leaky_relu(0.2),)
     alone = {
         "#4 ell_src_bwd": lambda: K.ell_src_bwd(eqb, gb, *rest),
+        "#4 with leaky_relu": lambda: K.ell_src_bwd(eqb, gb, *leaky),
         "#5 ell_src_bwd_fused": lambda: K.ell_src_bwd_fused(both, *rest),
         "[N, 2H] table": lambda: torch.cat([eq0.to(bf), w.to(bf)], 1),
         "#6 ell_act_reduce_bwd": lambda: K.ell_act_reduce_bwd(
@@ -1158,8 +1194,15 @@ def phase_bwd(device, fg, iters: int = 10):
         "#12 ell_scaled_reduce": lambda: K.ell_scaled_reduce(
             g_slots, fg.src_slot_from_dst_slot, splan.slot_valid,
             splan.row_ptr)}
+    alone_ms = {name: cuda_ms(fn, 20) for name, fn in alone.items()}
     log("  backward kernels alone (bf16, tanh): " + ", ".join(
-        f"{name} {cuda_ms(fn, 20):.4f} ms" for name, fn in alone.items()))
+        f"{name} {ms:.4f} ms" for name, ms in alone_ms.items()))
+    # #4 evaluates tanhf once per slot and feature
+    count = fg.src_slot_dstnode.numel() * 96
+    extra = alone_ms["#4 ell_src_bwd"] - alone_ms["#4 with leaky_relu"]
+    log(f"  #4 tanh: {count / 1e6:.1f}M tanhf a launch; tanh costs "
+        f"{extra:.4f} ms more than leaky_relu, {1e9 * extra / count:.4f} "
+        f"ps a tanhf")
     return dict(K.LAUNCHES)
 
 
@@ -1211,6 +1254,10 @@ def phase_lab(device):
     missing = [k for k, v in launches.items() if not v]
     if missing:
         raise AssertionError(f"the lab launched no {missing}")
+    log(f"  gather_dma with N = {BIG_GATHER_ROWS} rows "
+        f"({BIG_GATHER_ROWS * gather_dma.SIZES['H'] * 2 / 1e6:.1f} MB of "
+        f"bf16, beyond the 50 MB L2)")
+    gather_dma.run(device, N=BIG_GATHER_ROWS)
 
     ekg, eq, sc, ekg3, sc3, ekg32 = (
         kin[k] for k in ("ekg", "eq", "sc", "ekg3", "sc3", "ekg32"))

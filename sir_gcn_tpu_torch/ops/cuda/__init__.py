@@ -20,6 +20,7 @@ from .kernels import (
     ell_edge_src_bwd_plain,
     ell_geq_reduce,
     ell_geq_reduce_plain,
+    ell_layout,
     ell_max_bwd,
     ell_max_bwd_plain,
     ell_max_fwd,

@@ -110,7 +110,8 @@ _ARGTYPES = {
     },
 }
 # entries that launch nothing and return an int
-_QUERIES = {"ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 5},
+_QUERIES = {"ell_kernels": {"ell_layout": [_I] * 3 + [_VP] * 6},
+            "ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 5},
             "ell_edge_kernels": {"ell_edge_src_bwd_blocks": [_I] * 5}}
 _ERROR_STRING = {"ell_kernels": "ell_error_string",
                  "ell_max_kernels": "ell_max_error_string",
@@ -239,6 +240,31 @@ def _buckets(row_ptr: torch.Tensor) -> list:
     starts = np.concatenate([[0], cut])
     ends = np.concatenate([cut, [budgets.size]])
     return [(int(budgets[s]), int(e - s)) for s, e in zip(starts, ends)]
+
+
+# csrc/ell_kernels.cu's kernels by family: the forward (#1, #2 and their
+# edge-term forms), the backward (#4) and its edge-term form
+_LAYOUT_FAMILY = {"ell_act_reduce": 0, "ell_act_reduce2": 0,
+                  "ell_act_reduce_edge": 0, "ell_act_reduce2_edge": 0,
+                  "ell_src_bwd": 1, "ell_src_bwd_edge": 2}
+
+
+def ell_layout(name: str, h: int, dtype, *tensors):
+    """The path a launch of ``name`` (a kernel of ``csrc/ell_kernels.cu``)
+    takes for rows of width ``h`` in the gathered tables' ``dtype`` (f32 or
+    bf16), given the CUDA tensors it reads and writes whole rows of (at
+    most six: its node and edge tables and its outputs): (C, G, U) for the
+    vector path, with C 16-byte chunks a row, G slots gathered at once by
+    a warp's groups of C lanes and U gathers in flight a lane; None for the
+    scalar path. The entry itself decides from the same H and pointers."""
+    if len(tensors) > 6:
+        raise ValueError(f"at most six tensors, got {len(tensors)}")
+    ptrs = [_ptr(t) for t in tensors] + [None] * (6 - len(tensors))
+    code = _library("ell_kernels").ell_layout(
+        _LAYOUT_FAMILY[name], h, int(dtype == torch.bfloat16), *ptrs)
+    if code == 0:
+        return None
+    return code >> 16, (code >> 8) & 0xFF, code & 0xFF
 
 
 def bucket_offsets(buckets) -> list:

@@ -646,7 +646,9 @@ def cuda_device():
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("graph,h,de", [("hub", 24, 5), ("random", 96, 16),
                                         ("isolated", 200, 16),
-                                        ("random", 200, 5)])
+                                        ("random", 200, 5),
+                                        ("random", 20, 5),
+                                        ("random", 128, 16)])
 def test_edge_kernels_match_plain_on_card(cuda_device, graph, h, de, dt):
     c = make_case(graph, de=de, h=h, device=cuda_device, with_jax=False)
     d, tdt, fg = cuda_device, DTYPES[dt], c.tfg

@@ -25,6 +25,7 @@ from sir_gcn_tpu_torch.ops.cuda import (
     ell_act_reduce,
     ell_act_reduce2,
     ell_act_reduce_plain,
+    ell_layout,
     ell_src_bwd,
     ell_src_bwd_plain,
     reset_launch_counts,
@@ -95,7 +96,8 @@ def _jax_fwd(kernel, fg, eq, ek, scale, jact, jdt):
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("act", sorted(ACTS))
-@pytest.mark.parametrize("graph,h", [("hub", 24), ("random", 96)])
+@pytest.mark.parametrize("graph,h", [("hub", 24), ("random", 96),
+                                     ("random", 20)])
 def test_act_reduce_plain_matches_pallas(graph, h, act, dt):
     fg, eq, ek, _, scales = make_case(graph, h)
     pallas, jact, jdt = jax_side(act, dt)
@@ -123,7 +125,8 @@ def test_act_reduce_plain_matches_pallas(graph, h, act, dt):
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("act", sorted(ACTS))
-@pytest.mark.parametrize("graph,h", [("hub", 24), ("random", 96)])
+@pytest.mark.parametrize("graph,h", [("hub", 24), ("random", 96),
+                                     ("random", 20)])
 def test_src_bwd_plain_matches_pallas(graph, h, act, dt):
     import jax.numpy as jnp
     from sir_gcn_tpu.ops.ell import _bucket_offsets
@@ -191,31 +194,96 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a contiguous view that starts one element into
+    its storage, so its data_ptr is not 16-byte aligned."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("act", sorted(ACTS))
 @pytest.mark.parametrize("graph,h", [("hub", 24), ("random", 96),
-                                     ("random", 200)])
+                                     ("random", 200), ("random", 20),
+                                     ("random", 128), ("misaligned", 96)])
 def test_kernels_match_plain_on_card(cuda_device, graph, h, act, dt):
-    fg, eq, ek, g, scales = make_case(graph, h, device=cuda_device)
+    """Every kernel against its plain version, on the path its entry
+    chooses: the 16-byte vector path where H * sizeof(T) is a multiple of
+    16 and the tables are 16-byte aligned, else the scalar loop (H = 20 in
+    bf16; tables that start one element into their storage). The plans
+    have budgets that are not multiples of 8 (1, 2, 4, 10, ...), rows of
+    more than 32 slots (the hub) and zero-scale padding slots."""
+    fg, eq, ek, g, scales = make_case(
+        "random" if graph == "misaligned" else graph, h, device=cuda_device)
     tact, tdt = ACTS[act], DTYPES[dt]
     d = cuda_device
     plan, splan = fg.dst_plan, fg.src_plan
-    fwd = (_t(eq, device=d), _t(ek, tdt, d), fg.dst_slot_srcnode,
-           _t(scales["dst"], device=d), plan.row_key, plan.row_ptr, tact)
+    assert any(b % 8 for b, _ in plan.buckets1)
+    assert (scales["dst"] == 0).any() and (scales["src"] == 0).any()
+    place = _misaligned if graph == "misaligned" else (lambda t: t)
+    fwd = (place(_t(eq, device=d)), place(_t(ek, tdt, d)),
+           fg.dst_slot_srcnode, _t(scales["dst"], device=d), plan.row_key,
+           plan.row_ptr, tact)
     reset_launch_counts()
     rows = ell_act_reduce(*fwd)
     rows2, srows = ell_act_reduce2(*fwd)
-    bwd = (_t(eq, tdt, d), _t(g, tdt, d), _t(ek, device=d),
-           fg.src_slot_dstnode, _t(scales["src"], device=d), splan.row_key,
-           splan.row_ptr, tact)
+    bwd = (place(_t(eq, tdt, d)), place(_t(g, tdt, d)),
+           place(_t(ek, device=d)), fg.src_slot_dstnode,
+           _t(scales["src"], device=d), splan.row_key, splan.row_ptr, tact)
     gek = ell_src_bwd(*bwd)
     torch.cuda.synchronize()
     assert {k: v for k, v in LAUNCHES.items() if v} == {
         "ell_act_reduce": 1, "ell_act_reduce2": 1, "ell_src_bwd": 1}
+    vector = graph != "misaligned" and h * tdt.itemsize % 16 == 0
+    layouts = (ell_layout("ell_act_reduce", h, tdt, *fwd[:2], rows),
+               ell_layout("ell_act_reduce2", h, tdt, *fwd[:2], rows2, srows),
+               ell_layout("ell_src_bwd", h, tdt, *bwd[:3], gek))
+    assert all((lay is not None) == vector for lay in layouts), layouts
     want = ell_act_reduce_plain(*fwd)
     want2 = ell_act_reduce_plain(*fwd, derivative=True)
     torch.testing.assert_close(rows, want, **FWD_TOL)
     torch.testing.assert_close(rows2, want2[0], **FWD_TOL)
     torch.testing.assert_close(srows, want2[1], **FWD_TOL)
     torch.testing.assert_close(gek, ell_src_bwd_plain(*bwd), **BWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("act", sorted(ACTS))
+def test_kernels_are_bitwise_repeatable_on_card(cuda_device, act, dt):
+    """Two launches of #2 and #4 on the same inputs give bitwise equal
+    outputs: each sum's order is fixed by the layout, with no atomics. A
+    graph of 4,000 nodes and 40,000 edges fills many blocks."""
+    rng = np.random.default_rng(7)
+    n, e = 4000, 40000
+    fg = tell.build_fast_graph(
+        build_graph(rng.integers(0, n, e), rng.integers(0, n, e), n,
+                    device=cuda_device), max_budget=64)
+    tact, tdt, d = ACTS[act], DTYPES[dt], cuda_device
+    eq, ek, g = (_t(rng.normal(size=(fg.n_pad, 96)).astype(np.float32),
+                    device=d) for _ in range(3))
+    plan, splan = fg.dst_plan, fg.src_plan
+    fwd = (eq, ek.to(tdt), fg.dst_slot_srcnode, fg.dst_slot_scales["sym"],
+           plan.row_key, plan.row_ptr, tact)
+    bwd = (eq.to(tdt), g.to(tdt), ek, fg.src_slot_dstnode,
+           fg.src_slot_scales["sym"], splan.row_key, splan.row_ptr, tact)
+    first = ell_act_reduce2(*fwd) + (ell_src_bwd(*bwd),)
+    second = ell_act_reduce2(*fwd) + (ell_src_bwd(*bwd),)
+    torch.cuda.synchronize()
+    assert ell_layout("ell_act_reduce2", 96, tdt, *fwd[:2], *first[:2])
+    assert ell_layout("ell_src_bwd", 96, tdt, *bwd[:3], first[2])
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_ell_ab_needs_a_card(tmp_path):
+    """The A/B tool of two ell_kernels.cu builds runs on the card only."""
+    from sir_gcn_tpu_torch.tools import ell_ab
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ell_ab.main([str(tmp_path / "other.cu")])
