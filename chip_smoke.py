@@ -16,7 +16,8 @@ Phases, each printed as it runs; any failure exits non-zero:
            route's kernels with centered_relu, softmax and tanh sent down
            the general route), then the ogbn-arxiv plan in f32 and bf16,
            with CUDA-event times of kernel and plain version beside the
-           kernel's bound; for #1, #2, #4 and their edge-term forms the
+           kernel's bound (#12 and its CSR product in alternating turns,
+           as in the lab phase); for #1, #2, #4 and their edge-term forms the
            path each launch took (the 16-byte vector path with its layout,
            which the arxiv plan must take, or the scalar loop)
   train    the arxiv trainer's entry point at full width (169,343 nodes,
@@ -45,8 +46,11 @@ Phases, each printed as it runs; any failure exits non-zero:
            of N = 679,936 rows (174 MB, beyond the 50 MB L2); then each of
            #13-#24 against its plain version on the same inputs, with
            CUDA-event times of kernel, plain version and library call
-           beside the bound; its inputs are freed before the e2e and
-           profile phases
+           beside the bound (kernel and library call in 4 alternating
+           turns of 20 launches, the median kept: #12 and #19-#24); #22
+           with its persistent grid and #20 at each inflight held and
+           timed the same way, and #20 launched twice for equal bits; its
+           inputs are freed before the e2e and profile phases
   e2e      one training step on a ~20k-node graph on the card (kernels)
            against the same step on the CPU (plain versions): the arxiv
            model with sym and with max, the SIREConv layer on its fused
@@ -67,6 +71,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -99,6 +104,9 @@ NEAR_GATE = 1e-5
 SUM_TOL = 2.0 ** -24 * 1024
 # the passthrough rounds x + 1 to bf16 once on both sides
 EXACT = dict(atol=0.0, rtol=0.0)
+# a kernel with a library call is timed against it in TURNS alternating
+# turns of LIBRARY_ITERS launches, and each side's median is kept
+TURNS, LIBRARY_ITERS = 4, 20
 # H100 SXM data sheet: HBM rate and the f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -216,6 +224,26 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def library_turns(name, kernel, library, tm, what="") -> None:
+    """Times ``kernel`` and ``library`` (one PyTorch call computing the
+    same function) in TURNS alternating turns of LIBRARY_ITERS launches
+    each (kernel, library, library, kernel, ...), logs each side's median,
+    spread and turns with the kernel's verdict, and puts the medians into
+    ``tm`` as its ``ms`` and ``library_ms``."""
+    from sir_gcn_tpu_torch.tools import alternating_ms, verdict
+
+    ms = alternating_ms({"kernel": kernel, "library": library},
+                        LIBRARY_ITERS, TURNS)
+    tm.update(ms=statistics.median(ms["kernel"]),
+              library_ms=statistics.median(ms["library"]))
+    log(f"  {name} against {what or 'its library call'}, {TURNS} turns of "
+        f"{LIBRARY_ITERS}: " + ", ".join(
+            f"{k} median {statistics.median(v):.4f} ms [{min(v):.4f}-"
+            f"{max(v):.4f}] ({' / '.join(f'{x:.4f}' for x in v)})"
+            for k, v in ms.items())
+        + f": {verdict(ms['kernel'], ms['library'])}")
 
 
 def phase_env():
@@ -642,11 +670,11 @@ def check_max_kernels(label, fg, eq, ek, w, g, scale, act, dtype, errs,
         torch.sparse.mm(*lib_in)
     except RuntimeError:  # no CSR product in this type on this build
         lib_in = (a.to(torch.float32), gz.float())
-    timing["ell_scaled_reduce"]["library_ms"] = cuda_ms(
-        lambda: torch.sparse.mm(*lib_in), 10)
-    log(f"  library: torch.sparse.mm (CSR [{n_src}, {gz.shape[0]}] x "
-        f"{lib_in[1].dtype} [{gz.shape[0]}, {h}]) "
-        f"{timing['ell_scaled_reduce']['library_ms']:.4f} ms")
+    library_turns("ell_scaled_reduce", runs["ell_scaled_reduce"][1],
+                  lambda: torch.sparse.mm(*lib_in),
+                  timing["ell_scaled_reduce"],
+                  f"torch.sparse.mm (CSR [{n_src}, {gz.shape[0]}] x "
+                  f"{lib_in[1].dtype} [{gz.shape[0]}, {h}])")
 
 
 def general_case(graph: str, h: int, device):
@@ -1229,8 +1257,12 @@ def phase_lab(device):
     before and read after. Then each of #13-#24 at its default knob
     against its plain version on the same inputs (the gather and tile sums
     at SUM_TOL, the passthrough exactly, the rest at FWD_TOL), and its time
-    beside the plain version's, the library call's and its bound. Returns
-    (launches, errors, timing) of the lab's kernels."""
+    beside the plain version's, the library call's and its bound; a kernel
+    with a library call is timed against it in alternating turns. #22 with
+    its persistent grid and #20 at each ``inflight`` are held against
+    their plain versions and library calls too, and two launches of #20
+    must give equal bits. Returns (launches, errors, timing) of the lab's
+    kernels."""
     import torch
     import torch.nn.functional as F
 
@@ -1304,11 +1336,33 @@ def phase_lab(device):
         del want
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
         elems = idx.numel() * h if name == "lab_gather" else args[0].numel()
-        timing[name] = dict(
-            ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 3, warmup=1),
-            bound=bound(tensors, (got,), KERNELS[name][2] * elems),
-            library_ms=None if library is None else cuda_ms(library, 20))
+        tm = timing[name] = dict(
+            plain_ms=cuda_ms(plain, 3, warmup=1),
+            bound=bound(tensors, (got,), KERNELS[name][2] * elems))
         del got
+        if library is None:
+            tm.update(ms=cuda_ms(kernel, 20), library_ms=None)
+        else:
+            library_turns(name, kernel, library, tm)
+
+    # the redesigned streams' other knobs against their plain versions and
+    # their library calls, and #20 launched twice
+    for name, knob in [("lab_pass2", dict(persistent=True))] + [
+            ("lab_copy32", dict(inflight=u)) for u in L.INFLIGHT]:
+        args, library = cases[name]
+        got = getattr(L, name)(*args, **knob)
+        err = compare(f"lab {name} {knob}", got, L.PLAIN[name](*args),
+                      EXACT if "pass" in name else FWD_TOL)
+        errs[name] = max(errs[name], err)
+        del got
+        library_turns(f"{name} {knob}",
+                      lambda name=name, args=args, knob=knob: getattr(
+                          L, name)(*args, **knob), library, {})
+    first, second = L.lab_copy32(ekg32, r), L.lab_copy32(ekg32, r)
+    if not torch.equal(first, second):
+        raise AssertionError("lab_copy32: two launches differ")
+    log("  lab_copy32 launched twice: equal bits")
+    del first, second
     for name, tm in timing.items():
         b_ms, by, nbytes, flops = tm["bound"]
         lib = tm["library_ms"]

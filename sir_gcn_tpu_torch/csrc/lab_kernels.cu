@@ -27,12 +27,27 @@
 //                coalesced; the scale [B, R] is loaded per lane (v5, the
 //                TPU's [B, R, 1]) or once per row and passed by
 //                __shfl_sync (v6, the TPU's [B, R]); knob: rows per block
-//   lab_copy     make_copy / make_copy32: the sum-only stream of lab_v2
-//   lab_copy32   (bf16 or f32 rows, no act, no scale)
+//   lab_copy     make_copy: the sum-only stream of lab_v2 (bf16 rows, no
+//                act, no scale)
+//   lab_copy32   make_copy32: the same from f32 rows, by bulk copies: a
+//                row's B slot rows are one contiguous slab; a block of
+//                `inflight` warps keeps a ring of two stages of `inflight`
+//                consecutive slabs in shared memory, each stage brought by
+//                one cp.async.bulk that completes on its mbarrier, and
+//                sums one stage while the other is in flight: lane c of
+//                warp w sums chunk c of slab w over its B slots in slot
+//                order and writes it as a float4 (below H = 128 a warp's
+//                unit is 32 / C rows, one per group of C lanes); knob:
+//                slabs in flight a block
 //   lab_pass     make_pass: x + 1 in bf16, one 16-byte chunk a thread
 //   lab_pass2    make_pass2: the same over tiles of rows, one block a tile
-//                ("parallel") or a persistent grid of a few blocks an SM
-//                walking the tiles ("arbitrary")
+//                ("parallel") or a persistent grid of as many blocks as fit
+//                at once walking the tiles ("arbitrary"); a thread issues
+//                its 16 loads of a 64 KB tile (no L1 allocation) before it
+//                stores any (evict-first). A ring of bulk copies in and out
+//                through shared memory ran 0.4% slower on an H100 with one
+//                block a tile, 0.7% faster with the persistent grid
+//                (PERF.md)
 //   lab_gather   gather_dma.py's kernel: per tile of T indices, the f32 sum
 //                of the indexed table rows, written to 8 rows. Mosaic could
 //                not DMA one row, so the TPU kernel copies each row's 8-row
@@ -48,8 +63,11 @@
 // read). The act-reduce kernels read ekg once and write each output row
 // once; the stream kernels use 16-byte loads throughout. lab_gather's
 // table (43.5 MB at the lab's size) fits in the 50 MB L2, so its rate is
-// L2-assisted. All sums are f32; the act-reduce kernels and lab_copy sum a
-// row's slots in slot order within a lane. Offsets are size_t.
+// L2-assisted. All sums are f32; the act-reduce kernels, lab_copy and
+// lab_copy32 sum a row's slots in slot order within a lane. Offsets are
+// size_t. lab_copy32 moves its bytes with the Tensor Memory Accelerator's
+// 1-D bulk copies (no tensor map): no register or load instruction a
+// 16-byte chunk, 64 KB copies of 8 rows at the lab's size.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +80,15 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGatherInflight = 16;
 constexpr int kMaxH = 256;  // a bf16 row of 32 16-byte chunks
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can have
+
+// lab_pass2: 16-byte loads a thread in flight before its stores (the
+// lab's 64 KB tile over kThreads threads).
+constexpr int kPassLoads = 16;
+
+// lab_copy32's ring: a block sums one stage while the other is in flight
+// (3 or 4 stages of 2 slabs ran slower on an H100, PERF.md).
+constexpr int kSlabStages = 2;
 
 // 16 bytes of T widened to f32.
 template <typename T>
@@ -77,16 +104,6 @@ struct Pack<__nv_bfloat16> {
       f[2 * i] = t.x;
       f[2 * i + 1] = t.y;
     }
-  }
-};
-template <>
-struct Pack<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void widen(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
   }
 };
 
@@ -125,7 +142,7 @@ __device__ __forceinline__ void store_f32(float* p, const float* f) {
 }
 
 // ---------------------------------------------------------------------
-// lab_v2, lab_v4, lab_copy, lab_copy32: one warp per row of B slots
+// lab_v2, lab_v4, lab_copy: one warp per row of B slots
 // ---------------------------------------------------------------------
 
 enum { MODE_ACT = 0, MODE_ACT_BF16 = 1, MODE_SUM = 2 };
@@ -319,6 +336,132 @@ plane_act_reduce_kernel(const __nv_bfloat16* __restrict__ x3,
 }
 
 // ---------------------------------------------------------------------
+// Hopper's 1-D bulk copies (cp.async.bulk, no tensor map) and mbarriers
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One arrival expected a phase: the thread that arms the barrier with the
+// byte count of the copy (mbar_expect_tx).
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the copy engine.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned b = smem_u32(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+  }
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global
+// to shared memory; completes `bytes` of the transaction count of `bar`.
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------
+// lab_copy32: the f32 sum-only stream by bulk copies of whole slabs
+// ---------------------------------------------------------------------
+
+// A block is W warps. C = H / 4 float4 chunks a row (a power of two <=
+// 32); a unit is 32 / C consecutive rows, lane group g = lane / C of a
+// warp owning row g of it, and its B slot rows a row are contiguous: 512 *
+// B bytes a full unit. A stage holds W consecutive units, brought by one
+// bulk copy, and warp w sums unit w. Block b takes the stages' worth of
+// rows b, b + gridDim.x, ... through a ring of kSlabStages stages, each
+// with its mbarrier: while the block sums one stage the others are in
+// flight, and thread 0 refills a stage as soon as the block has read it.
+template <int W>
+__global__ void __launch_bounds__(32 * W)
+slab_sum_kernel(const float* __restrict__ x, int R, int B, int H,
+                float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char slab_ring[];
+  __shared__ uint64_t full[kSlabStages];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int C = H / 4;
+  const int rows = 32 / C;  // a unit's rows
+  const int g = lane / C, c = lane & (C - 1);
+  const unsigned stage_bytes = 512u * B * W;
+  const size_t row_bytes = (size_t)B * H * 4;
+  const long long stage_rows = (long long)rows * W;
+  const long long copies = (R + stage_rows - 1) / stage_rows;
+  const long long step = gridDim.x;
+  auto load = [&](long long i, int s) {
+    const long long left = R - i * stage_rows;  // the last may be short
+    const unsigned bytes =
+        (unsigned)((left < stage_rows ? left : stage_rows) * row_bytes);
+    mbar_expect_tx(&full[s], bytes);
+    bulk_load(slab_ring + (size_t)s * stage_bytes,
+              reinterpret_cast<const unsigned char*>(x) +
+                  i * stage_rows * row_bytes,
+              bytes, &full[s]);
+  };
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kSlabStages; ++s) mbar_init(&full[s]);
+    mbar_init_fence();
+#pragma unroll
+    for (int s = 0; s < kSlabStages; ++s)
+      if (blockIdx.x + s * step < copies) load(blockIdx.x + s * step, s);
+  }
+  __syncthreads();
+  unsigned k = 0;
+  for (long long i = blockIdx.x; i < copies; ++k, i += step) {
+    const int s = (int)(k % kSlabStages);
+    mbar_wait(&full[s], (k / kSlabStages) & 1u);
+    const long long r = i * stage_rows + warp * rows + g;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < R) {
+      const float4* p = reinterpret_cast<const float4*>(
+                            slab_ring + (size_t)s * stage_bytes) +
+                        ((size_t)warp * rows + g) * B * C + c;
+#pragma unroll 4
+      for (int b = 0; b < B; ++b) {
+        const float4 v = p[(size_t)b * C];
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+    }
+    __syncthreads();  // the block has read stage s
+    if (threadIdx.x == 0 && i + kSlabStages * step < copies)
+      load(i + kSlabStages * step, s);
+    if (r < R) reinterpret_cast<float4*>(out + r * H)[c] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------
 // lab_pass, lab_pass2: y = x + 1 in bf16, 16 bytes at a time
 // ---------------------------------------------------------------------
 
@@ -338,15 +481,43 @@ pass_kernel(const uint4* __restrict__ x, uint4* __restrict__ y, size_t n16) {
   if (i < n16) y[i] = add_one(__ldg(x + i));
 }
 
-// Tiles of `tile16` chunks; block b takes tiles b, b + gridDim.x, ...
+// 16 bytes read once (no L1 allocation) and written once (evict first).
+__device__ __forceinline__ uint4 load16_stream(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void store16_stream(uint4* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Tiles of `tile16` chunks; block b takes tiles b, b + gridDim.x, ... A
+// thread issues kPassLoads 16-byte loads of the tile (the whole 64 KB tile
+// a block at the lab's H) before it adds and stores any.
 __global__ void __launch_bounds__(kThreads)
-pass_tiles_kernel(const uint4* __restrict__ x, uint4* __restrict__ y,
+pass_burst_kernel(const uint4* __restrict__ x, uint4* __restrict__ y,
                   size_t n16, int tile16, size_t tiles) {
   for (size_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const size_t base = tile * tile16;
-    for (int i = threadIdx.x; i < tile16; i += blockDim.x) {
-      const size_t k = base + i;
-      if (k < n16) y[k] = add_one(__ldg(x + k));
+    const size_t end = base + tile16 < n16 ? base + tile16 : n16;
+    for (size_t i0 = base + threadIdx.x; i0 < end;
+         i0 += (size_t)kThreads * kPassLoads) {
+      uint4 v[kPassLoads];
+#pragma unroll
+      for (int u = 0; u < kPassLoads; ++u) {
+        const size_t k = i0 + (size_t)u * kThreads;
+        if (k < end) v[u] = load16_stream(x + k);
+      }
+#pragma unroll
+      for (int u = 0; u < kPassLoads; ++u) {
+        const size_t k = i0 + (size_t)u * kThreads;
+        if (k < end) store16_stream(y + k, add_one(v[u]));
+      }
     }
   }
 }
@@ -442,6 +613,43 @@ int launch_row_reduce(const void* x, const void* eq, const void* sc, int R,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SIR_ROW_REDUCE
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory, and returns in
+// `grid` the blocks of `threads` that fit on the card at once.
+template <typename K>
+cudaError_t fit(K kernel, int threads, size_t smem, size_t* grid) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  *grid = (size_t)sms * per_sm;
+  return e;
+}
+
+// W warps a block, W units a stage.
+template <int W>
+int launch_slab_sum(const void* x, int R, int B, int H, void* out,
+                    cudaStream_t st) {
+  const size_t smem = (size_t)kSlabStages * W * 512 * B;
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  size_t grid = 0;
+  const cudaError_t e = fit(slab_sum_kernel<W>, 32 * W, smem, &grid);
+  if (e != cudaSuccess) return (int)e;
+  const size_t stage_rows = (size_t)(32 / (H / 4)) * W;
+  const size_t copies = (R + stage_rows - 1) / stage_rows;
+  slab_sum_kernel<W><<<(unsigned)(grid < copies ? grid : copies), 32 * W,
+                       smem, st>>>((const float*)x, R, B, H, (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -548,11 +756,20 @@ int lab_copy(const void* x, int R, int B, int H, int inflight, void* out,
       x, nullptr, nullptr, R, B, H, inflight, 0.f, out, (cudaStream_t)stream);
 }
 
+// x [R*B, H] f32, 16-byte aligned, as out; `inflight` warps a block and
+// units of 512 * B bytes a stage, kSlabStages stages in at most 227 KB.
 int lab_copy32(const void* x, int R, int B, int H, int inflight, void* out,
                void* stream) {
-  return launch_row_reduce<MODE_SUM, float>(x, nullptr, nullptr, R, B, H,
-                                            inflight, 0.f, out,
-                                            (cudaStream_t)stream);
+  if (R <= 0 || B <= 0 || H % 4 != 0 || !pow2_upto_32(H / 4) ||
+      !aligned16(x) || !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (inflight) {
+    case 2: return launch_slab_sum<2>(x, R, B, H, out, st);
+    case 4: return launch_slab_sum<4>(x, R, B, H, out, st);
+    case 8: return launch_slab_sum<8>(x, R, B, H, out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // n bf16 elements, a multiple of 8.
@@ -565,28 +782,23 @@ int lab_pass(const void* x, long long n, void* out, void* stream) {
 }
 
 // Tiles of tile_elems elements (a multiple of 8); persistent != 0 walks
-// them with a few blocks an SM, as many as fit at once.
+// them with as many blocks as fit at once. x and out 16-byte aligned.
 int lab_pass2(const void* x, long long n, int tile_elems, int persistent,
               void* out, void* stream) {
-  if (n <= 0 || n % 8 != 0 || tile_elems <= 0 || tile_elems % 8 != 0)
+  if (n <= 0 || n % 8 != 0 || tile_elems <= 0 || tile_elems % 8 != 0 ||
+      !aligned16(x) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
   const size_t n16 = (size_t)n / 8;
   const int tile16 = tile_elems / 8;
   const size_t tiles = (n16 + tile16 - 1) / tile16;
   size_t grid = tiles;
   if (persistent) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, pass_tiles_kernel, kThreads, 0);
+    size_t resident = 0;
+    const cudaError_t e = fit(pass_burst_kernel, kThreads, 0, &resident);
     if (e != cudaSuccess) return (int)e;
-    const size_t resident = (size_t)sms * per_sm;
     grid = resident < tiles ? resident : tiles;
   }
-  pass_tiles_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+  pass_burst_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint4*)x, (uint4*)out, n16, tile16, tiles);
   return (int)cudaGetLastError();
 }

@@ -34,6 +34,8 @@ SLOPE = 0.2
 TILE_ROWS_OUT = 8
 # a block's rows in lab_pass2's tiles
 PASS2_TILE_ROWS = 256
+# the dynamic shared memory a block can have on an H100 (lab_copy32's ring)
+SMEM_BYTES = 232_448
 
 _BF16 = (torch.bfloat16,)
 _F32 = (torch.float32,)
@@ -217,7 +219,7 @@ def lab_v6(ekg3, eq, sc3, block_rows=16):
     return _plane("lab_v6", ekg3, eq, sc3, block_rows)
 
 
-def _row_sum(name, dtypes, x, rows, inflight):
+def _row_sum(name, dtypes, x, rows, inflight, max_slots=None):
     _check_knob("inflight", inflight, INFLIGHT)
     device = x.device
     _check("x", x, dtypes, 2, device)
@@ -225,6 +227,9 @@ def _row_sum(name, dtypes, x, rows, inflight):
         raise ValueError(f"x has {x.shape[0]} rows, not a multiple of "
                          f"{rows}")
     h = _check_width("x", x)
+    if max_slots is not None and x.shape[0] // rows > max_slots:
+        raise ValueError(f"{name}: {x.shape[0] // rows} slots a row, at "
+                         f"most {max_slots} with {inflight} in flight")
     if not on_cuda(device):
         return row_sum_plain(x, rows)
     out = torch.empty((rows, h), dtype=torch.float32, device=device)
@@ -239,10 +244,16 @@ def lab_copy(x, rows, inflight=4):
     return _row_sum("lab_copy", _BF16, x, rows, inflight)
 
 
-def lab_copy32(x, rows, inflight=4):
-    """``lab_copy`` from f32 rows. Replaces ``make_copy32``. Bound:
-    bytes."""
-    return _row_sum("lab_copy32", _F32, x, rows, inflight)
+def lab_copy32(x, rows, inflight=8):
+    """``lab_copy`` from f32 rows, by bulk copies: a block of ``inflight``
+    warps keeps ``inflight`` slabs in flight while it sums as many more,
+    two stages of shared memory of ``inflight`` slabs each, a slab the B
+    slot rows of 32 / C rows (C = H / 4; one row at H = 128), 512 * B
+    bytes; both stages fit in SMEM_BYTES. Each feature's B values are
+    summed in slot order, so a launch repeats its bits. Replaces
+    ``make_copy32``. Bound: bytes."""
+    return _row_sum("lab_copy32", _F32, x, rows, inflight,
+                    max_slots=SMEM_BYTES // (2 * 512 * inflight))
 
 
 def _check_pass(x):
@@ -265,7 +276,10 @@ def lab_pass2(x, persistent=False):
     """``lab_pass`` over tiles of PASS2_TILE_ROWS rows: one block a tile
     (the Pallas grid's "parallel" semantics), or with ``persistent`` a
     grid of as many blocks as fit on the card at once walking the tiles
-    in turn ("arbitrary"). Replaces ``make_pass2``. Bound: bytes."""
+    in turn ("arbitrary"). A thread issues all its 16-byte loads of a
+    tile before any store, so x and the output must start 16-byte aligned
+    (the launch raises otherwise). Replaces ``make_pass2``. Bound:
+    bytes."""
     _check_pass(x)
     if not on_cuda(x.device):
         return pass_plain(x)

@@ -56,6 +56,29 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def alternating_ms(calls: dict, iters: int, rounds: int) -> dict:
+    """name -> the ms per call of each of ``rounds`` turns of ``iters`` warm
+    calls (``cuda_ms``), the names taken in order and every other round in
+    reverse: (a, b, b, a, ...) for two calls, so that a drift of the card
+    falls on both alike."""
+    names = list(calls)
+    ms = {k: [] for k in names}
+    for i in range(rounds):
+        for k in names if i % 2 == 0 else names[::-1]:
+            ms[k].append(cuda_ms(calls[k], iters))
+    return ms
+
+
+def verdict(kernel_ms: list, library_ms: list) -> str:
+    """'win' if the kernel's slowest turn beats the library call's fastest,
+    'loss' if its fastest is slower than the call's slowest, else 'tie'."""
+    if max(kernel_ms) < min(library_ms):
+        return "win"
+    if min(kernel_ms) > max(library_ms):
+        return "loss"
+    return "tie"
+
+
 def host_ms(fn) -> float:
     """ms of one call by the host clock (the CPU's plain versions)."""
     t0 = time.perf_counter()

@@ -1,22 +1,38 @@
-"""Same-card A/B of two builds of the ELL kernels of ``csrc/ell_kernels.cu``:
-another source with the same C interface (an earlier revision of the file,
-for example) against the package's own, at the ogbn-arxiv plan with bf16
-edges.
+"""Same-card A/B of two builds of one of the port's CUDA sources: another
+source with the same C interface (an earlier revision of the file, for
+example) against the package's own.
 
     git show <rev>:sir_gcn_tpu_torch/csrc/ell_kernels.cu > other.cu
     python -m sir_gcn_tpu_torch.tools.ell_ab other.cu [--probes]
+    git show <rev>:sir_gcn_tpu_torch/csrc/lab_kernels.cu > other.cu
+    python -m sir_gcn_tpu_torch.tools.ell_ab --lab other.cu
 
-The other source is built with the package's nvcc flags into a library of
-its own (``build/kernels/ab-<hash>/``), which the package never loads.
-Each of #1, #2, #4 and their edge-term forms (leaky_relu(0.2); #2 and #4
-also with tanh) runs from both libraries on the same inputs: ms per launch
-by CUDA events over 50 warm launches in four turns (other, this, this,
-other), and the largest difference of the two outputs. ``--probes`` adds
-#2 and #4 with every gathered index folded into 1/2, 1/4 and 1/8 of the
-node table and into 16,384 rows: the same gathers from a smaller table,
-which the 50 MB L2 holds. The plan is the trainer's synthetic stand-in
-for ogbn-arxiv (169,343 nodes, 1,166,243 edges, seed 0, bidirected with
-self-loops), H = 96. Needs a CUDA card.
+The other source is built with the package's nvcc flags for its source
+into a library of its own (``build/kernels/ab-<hash>/``), which the
+package never loads.
+
+The ELL mode (``csrc/ell_kernels.cu``) runs each of #1, #2, #4 and their
+edge-term forms (leaky_relu(0.2); #2 and #4 also with tanh) from both
+libraries on the same inputs at the ogbn-arxiv plan with bf16 edges: ms
+per launch by CUDA events over 50 warm launches in four turns (other,
+this, this, other), and the largest difference of the two outputs.
+``--probes`` adds #2 and #4 with every gathered index folded into 1/2,
+1/4 and 1/8 of the node table and into 16,384 rows: the same gathers from
+a smaller table, which the 50 MB L2 holds. The plan is the trainer's
+synthetic stand-in for ogbn-arxiv (169,343 nodes, 1,166,243 edges, seed
+0, bidirected with self-loops), H = 96.
+
+The lab mode (``--lab``, ``csrc/lab_kernels.cu``) runs the streams #19
+``lab_copy``, #20 ``lab_copy32`` (at each ``inflight``), #21 ``lab_pass``,
+#22 ``lab_pass2`` (both modes) and #24 ``lab_tile_sum`` from both
+libraries and the PyTorch call that computes the same function, at the
+lab tools' sizes (``kernel_lab.SIZES``, ``gather_dma.SIZES``), on random
+inputs from seed 0 made on the card: ms per launch over 20 warm launches
+in eight turns (other, this, library, library, this, other, ...), the
+median and the spread of each, the kernel's verdict against the library
+call (win: its slowest turn beats the call's fastest; loss: the other
+way round; else tie), and the largest difference of the two kernels'
+outputs, which must be 0 for the passthroughs. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -24,6 +40,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import statistics
 import subprocess
 from pathlib import Path
 
@@ -33,32 +50,47 @@ from ..data import synthetic_node_classification
 from ..experiments.ogbn_arxiv.train import build_arxiv_graph, get_args
 from ..ops.cuda import build
 from ..ops.cuda.kernels import _ARGTYPES, _library
+from ..ops.cuda.lab import INFLIGHT, PASS2_TILE_ROWS
 from ..ops.ell import leaky_relu, tanh
-from . import card_line, cuda_ms, resolve_device
+from . import (
+    alternating_ms,
+    card_line,
+    gather_dma,
+    kernel_lab,
+    resolve_device,
+    verdict,
+)
 
 ARXIV = dict(nodes=169_343, edges=1_166_243, seed=0)
 H = 96
 ITERS = 50
 FOLDS = (2, 4, 8)
 FOLD_ROWS = 16_384
+LAB_ITERS = 20
+LAB_ROUNDS = 8  # turns of (other, this, library), alternating in order
 
 
-def build_other(source: Path) -> ctypes.CDLL:
-    """``source`` built as the package builds ell_kernels.cu, with the
-    package's argument types on its entries."""
+def build_other(source: Path, name: str = "ell_kernels") -> ctypes.CDLL:
+    """``source`` built as the package builds its source ``name`` (a key of
+    ``build.SOURCES``), with the package's argument types of ``name`` on
+    its entries."""
+    if name not in build.SOURCES:
+        raise ValueError(f"no source {name!r}; the sources are "
+                         f"{sorted(build.SOURCES)}")
+    flags = build._flags(name)
     text = source.read_bytes()
-    tag = hashlib.sha256(text + " ".join(build.NVCC_FLAGS).encode())
+    tag = hashlib.sha256(text + " ".join(flags).encode())
     lib = build.BUILD_DIR / f"ab-{tag.hexdigest()[:16]}" / "libab.so"
     if not lib.exists():
         lib.parent.mkdir(parents=True, exist_ok=True)
         out = subprocess.run(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(source)],
+            [build._nvcc(), *flags, "-o", str(lib), str(source)],
             capture_output=True, text=True)
         if out.returncode:
             raise RuntimeError(f"nvcc failed for {source}:\n{out.stdout}"
                                f"{out.stderr}")
     other = ctypes.CDLL(str(lib))
-    for entry, argtypes in _ARGTYPES["ell_kernels"].items():
+    for entry, argtypes in _ARGTYPES[name].items():
         fn = getattr(other, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -129,9 +161,58 @@ def launches(inp: dict, act, fold: int | None = None) -> dict:
             for k, (e, args, outs) in runs.items()}
 
 
-def ab(label: str, entry: str, args, outs, libs: dict) -> dict:
-    """Run ``entry`` from both libraries; print and return the ms of each
-    turn and the largest difference of the outputs."""
+def lab_launches(device) -> tuple:
+    """label -> (entry, ctypes arguments less the stream, outputs, library
+    call) of #19-#22 and #24 at the lab tools' sizes, on random inputs
+    from seed 0 made on the card; and the inputs, to keep alive."""
+    R, B, H = (kernel_lab.SIZES[k] for k in "RBH")
+    S, TSUM = gather_dma.SIZES["S"], gather_dma.SIZES["TSUM"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    ekg32 = torch.randn((R * B, H), generator=gen, device=device)
+    ekg = ekg32.to(torch.bfloat16)
+    v = torch.randn((S, H), generator=gen, device=device).to(torch.bfloat16)
+    f32 = dict(dtype=torch.float32, device=device)
+    rows, rows32 = torch.empty((R, H), **f32), torch.empty((R, H), **f32)
+    passed = torch.empty_like(ekg)
+    sums = torch.empty((S // TSUM * 8, H), **f32)
+    p, n = torch.Tensor.data_ptr, ekg.numel()
+
+    def add():
+        return torch.add(ekg, 1.0)
+
+    runs = {
+        "#19 lab_copy (4 in flight)": (
+            "lab_copy", (p(ekg), R, B, H, 4, p(rows)), (rows,),
+            lambda: torch.sum(ekg.view(R, B, H), 1, dtype=torch.float32)),
+        **{f"#20 lab_copy32 ({u} in flight)": (
+            "lab_copy32", (p(ekg32), R, B, H, u, p(rows32)), (rows32,),
+            lambda: ekg32.view(R, B, H).sum(1)) for u in INFLIGHT},
+        "#21 lab_pass": ("lab_pass", (p(ekg), n, p(passed)), (passed,), add),
+        **{f"#22 lab_pass2 ({sem})": (
+            "lab_pass2", (p(ekg), n, PASS2_TILE_ROWS * H, persistent,
+                          p(passed)), (passed,), add)
+           for sem, persistent in (("parallel", 0), ("persistent", 1))},
+        "#24 lab_tile_sum": (
+            "lab_tile_sum", (p(v), S // TSUM, TSUM, H, p(sums)), (sums,),
+            lambda: torch.sum(v.view(-1, TSUM, H), 1, dtype=torch.float32)),
+    }
+    return runs, (ekg32, ekg, v)
+
+
+def _fmt(ms: list) -> str:
+    """The turns' ms, with their median and spread past two turns."""
+    turns = " / ".join(f"{x:.4f}" for x in ms)
+    if len(ms) <= 2:
+        return f"{turns} ms"
+    return (f"median {statistics.median(ms):.4f} [{min(ms):.4f}-"
+            f"{max(ms):.4f}] ms ({turns})")
+
+
+def ab(label: str, entry: str, args, outs, libs: dict, library=None,
+       rounds: int = 2, iters: int = ITERS) -> dict:
+    """Run ``entry`` from both libraries, and ``library`` (a PyTorch call)
+    if given, in ``rounds`` alternating turns; print and return the ms of
+    each turn and the largest difference of the two libraries' outputs."""
     stream = torch.cuda.current_stream().cuda_stream
     calls = {k: (lambda fn=getattr(lib, entry): fn(*args, stream))
              for k, lib in libs.items()}
@@ -142,21 +223,24 @@ def ab(label: str, entry: str, args, outs, libs: dict) -> dict:
             raise RuntimeError(f"{k} {entry}: CUDA error {code}")
         torch.cuda.synchronize()
         got[k] = [o.clone() for o in outs]
-    diff = max(float((a - b).abs().max())
+    diff = max(float((a.float() - b.float()).abs().max())
                for a, b in zip(got["other"], got["this"]))
-    ms = {"other": [], "this": []}
-    for k in ("other", "this", "this", "other"):
-        ms[k].append(cuda_ms(calls[k], ITERS))
-    print(f"{label}: other {ms['other'][0]:.4f} / {ms['other'][1]:.4f} ms, "
-          f"this {ms['this'][0]:.4f} / {ms['this'][1]:.4f} ms, "
-          f"max |diff| {diff:.3e}", flush=True)
+    if library is not None:
+        calls["library"] = library
+    ms = alternating_ms(calls, iters, rounds)
+    line = ", ".join(f"{k} {_fmt(v)}" for k, v in ms.items())
+    if library is not None:
+        line += ", " + ", ".join(
+            f"{k} {verdict(ms[k], ms['library'])}" for k in libs)
+    print(f"{label}: {line}, max |diff| {diff:.3e}", flush=True)
     return dict(ms=ms, diff=diff)
 
 
 def run(device, other: Path, probes: bool = False) -> dict:
-    """Every A/B line (and with ``probes`` the folded ones); returns
-    label -> record."""
-    libs = {"other": build_other(other), "this": _library("ell_kernels")}
+    """Every A/B line of the ELL kernels (and with ``probes`` the folded
+    ones); returns label -> record."""
+    libs = {"other": build_other(other, "ell_kernels"),
+            "this": _library("ell_kernels")}
     inp = arxiv_inputs(device)
     recs = {}
     for act in (leaky_relu(0.2), tanh):
@@ -174,19 +258,42 @@ def run(device, other: Path, probes: bool = False) -> dict:
     return recs
 
 
+def run_lab(device, other: Path) -> dict:
+    """Every A/B line of the lab's streams; returns label -> record. Raises
+    if the passthroughs of the two libraries differ."""
+    libs = {"other": build_other(other, "lab_kernels"),
+            "this": _library("lab_kernels")}
+    runs, _inputs = lab_launches(device)
+    recs = {}
+    for label, (entry, args, outs, library) in runs.items():
+        recs[label] = ab(label, entry, args, outs, libs, library,
+                         LAB_ROUNDS, LAB_ITERS)
+        if "pass" in entry and recs[label]["diff"] != 0:
+            raise AssertionError(f"{label}: the two builds' outputs differ")
+    return recs
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(
-        "same-card A/B of two builds of the ELL kernels")
+        "same-card A/B of two builds of the port's ELL or lab kernels")
     p.add_argument("other", type=Path,
-                   help="a source with the C interface of ell_kernels.cu")
+                   help="a source with the C interface of ell_kernels.cu "
+                        "(with --lab, of lab_kernels.cu)")
+    p.add_argument("--lab", action="store_true",
+                   help="time the lab's streams (#19-#22, #24) with their "
+                        "library calls")
     p.add_argument("--probes", action="store_true",
                    help="also time #2 and #4 with their gathers folded "
                         "into a smaller table")
     args = p.parse_args(argv)
+    if args.lab and args.probes:
+        p.error("--probes is for the ELL kernels, not --lab")
     device = resolve_device(False)
+    name = "lab_kernels" if args.lab else "ell_kernels"
     print(card_line(), flush=True)
-    print(f"other: {args.other}; this: {build.SOURCES['ell_kernels']}",
-          flush=True)
+    print(f"other: {args.other}; this: {build.SOURCES[name]}", flush=True)
+    if args.lab:
+        return run_lab(device, args.other)
     return run(device, args.other, args.probes)
 
 

@@ -140,7 +140,8 @@ def variants(inputs: dict, tags) -> list:
                     "lab_copy", lambda u=u: lab_copy(ekg, R, u),
                     S * H * 2 + R * H * 4, S * H))
     for u in (4, 8) if "bound32" in tags else ():
-        out.append(("bound32", f"sum-only stream f32, {u} loads in flight",
+        out.append(("bound32",
+                    f"sum-only stream f32, {u} slabs in flight a block",
                     "lab_copy32", lambda u=u: lab_copy32(ekg32, R, u),
                     S * H * 4 + R * H * 4, S * H))
     if "copy" in tags:

@@ -308,6 +308,51 @@ def test_wrappers_check_inputs():
             fn()
 
 
+@pytest.mark.parametrize("case", ["inflight", "24 chunks", "8 bytes",
+                                  "too many slots"])
+def test_copy32_wrapper_refuses(case):
+    """lab_copy32's knob, width and shared-memory checks hold on the CPU
+    as on the card: 3 in flight, a row of 24 or of half a 16-byte chunk,
+    and 100 slots a row (50 KB slabs: two stages of four pass 227 KB, of
+    two do not)."""
+    bad = {"inflight": (torch.zeros((64, 128)), 4, 3),
+           "24 chunks": (torch.zeros((64, 96)), 4, 4),
+           "8 bytes": (torch.zeros((64, 2)), 4, 4),
+           "too many slots": (torch.zeros((200, 128)), 2, 4)}[case]
+    with pytest.raises(ValueError):
+        lab.lab_copy32(*bad)
+    # the same input at a good knob, width and slot count is taken
+    assert lab.lab_copy32(torch.zeros((64, 128)), 4, 8).shape == (4, 128)
+    assert lab.lab_copy32(torch.zeros((200, 128)), 2, 2).shape == (2, 128)
+
+
+def test_alternating_turns(monkeypatch):
+    """The A/B's turns alternate (a, b, c, c, b, a, ...) and the verdict
+    reads the spread of both sides."""
+    from sir_gcn_tpu_torch import tools
+
+    order = []
+    monkeypatch.setattr(tools, "cuda_ms",
+                        lambda fn, iters: order.append(fn()) or len(order))
+    ms = tools.alternating_ms({k: (lambda k=k: k) for k in "abc"}, 20, 4)
+    assert "".join(order) == "abccbaabccba"
+    assert ms == {"a": [1, 6, 7, 12], "b": [2, 5, 8, 11], "c": [3, 4, 9, 10]}
+    assert tools.verdict([1.0, 1.1], [1.2, 1.3]) == "win"
+    assert tools.verdict([1.0, 1.25], [1.2, 1.3]) == "tie"
+    assert tools.verdict([1.4, 1.5], [1.2, 1.3]) == "loss"
+
+
+def test_lab_ab_needs_a_card_and_a_known_source(tmp_path):
+    from sir_gcn_tpu_torch.tools import ell_ab
+
+    with pytest.raises(ValueError, match="no source"):
+        ell_ab.build_other(tmp_path / "other.cu", "lab_kernel")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ell_ab.main(["--lab", str(tmp_path / "other.cu")])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -355,3 +400,45 @@ def test_lab_kernel_matches_plain_on_card(cuda_device, name):
         assert ((got - want).abs() <= SUM_TOL * mag).all()
     else:
         torch.testing.assert_close(got, want, **FWD_TOL)
+
+
+# lab_copy32's shapes (R, B, H) on the card: a unit of a block's ring is
+# 32 / (H / 4) rows, so H = 32 makes units of 4 rows and R = 29 a short
+# last one; B = 1 and B = 12 (not a multiple of 8) make 512 B and 6 KB
+# units
+COPY32_SHAPES = {"lab": (R, B, H), "short last unit": (29, 16, 32),
+                 "one slot": (37, 1, 128), "twelve slots": (30, 12, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inflight", lab.INFLIGHT)
+@pytest.mark.parametrize("shape", sorted(COPY32_SHAPES))
+def test_copy32_bulk_cases_on_card(cuda_device, shape, inflight):
+    r, b, h = COPY32_SHAPES[shape]
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(r * b, h)).astype(np.float32))
+    x = x.to(cuda_device)
+    got = lab.lab_copy32(x, r, inflight)
+    again = lab.lab_copy32(x, r, inflight)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, lab.row_sum_plain(x, r), **FWD_TOL)
+    assert torch.equal(got, again)  # slot order: the same bits each launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("persistent", [False, True])
+@pytest.mark.parametrize("rows", [R * B, 5, 256 * 997 + 37])
+def test_pass2_cases_on_card(cuda_device, rows, persistent):
+    """n not a whole number of 256-row tiles (1.75 tiles; 5 rows, fewer
+    16-byte chunks than a block has threads; 997 tiles and 37 rows, many
+    tiles a persistent block), and a table off 16-byte alignment, which
+    the launch refuses."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(rows, H)).astype(np.float32))
+    x = x.to(torch.bfloat16).to(cuda_device)
+    got = lab.lab_pass2(x, persistent)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, lab.pass_plain(x), rtol=0, atol=0)
+    off = x.view(-1)[4:4 + (rows - 1) * H].view(rows - 1, H)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lab.lab_pass2(off, persistent)
