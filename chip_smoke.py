@@ -8,7 +8,9 @@ Phases, each printed as it runs; any failure exits non-zero:
   env      the card's name and power limit, torch and CUDA versions
   build    nvcc of the port's CUDA sources (all started together), with the
            ptxas register, shared-memory and spill report
-  kernels  each ELL kernel against its plain PyTorch version on the card:
+  kernels  each ELL kernel against its plain PyTorch version on the card
+           (and the path of the max kernels #9-#11 for each W_R, which
+           must be the tensor-core product at the arxiv plan):
            awkward small plans (hub stage 2, H = 20, 24, 96, 128 and 200, O != H,
            De = 5 and 16, budget-1 pad rows, zero scales, a row with no
            valid slot, isolated nodes, row counts that are not a multiple
@@ -23,7 +25,9 @@ Phases, each printed as it runs; any failure exits non-zero:
   train    the arxiv trainer's entry point at full width (169,343 nodes,
            H = 96, 3 layers, bn, residual, bf16 edges), once with sym and
            once with max aggregation, 5 steps and evals each, with the
-           launch counters set to 0 before and read after each run
+           launch counters set to 0 before and read after each run (with
+           max, the path of #9-#11 is logged and must be the tensor-core
+           product)
   sireconv one SIREConv layer at full width on the arxiv graph (96 in,
            De = 16 edge features, 96 hidden and out, sym, bf16 edges):
            5 AdamW steps and 5 evals on the fused-edge route (dropout 0)
@@ -107,9 +111,13 @@ EXACT = dict(atol=0.0, rtol=0.0)
 # a kernel with a library call is timed against it in TURNS alternating
 # turns of LIBRARY_ITERS launches, and each side's median is kept
 TURNS, LIBRARY_ITERS = 4, 20
-# H100 SXM data sheet: HBM rate and the f32 rate outside the tensor cores
+# H100 SXM data sheet: HBM rate, the f32 rate outside the tensor cores and
+# the dense TF32 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+# #9-#11 do each f32 product as three TF32 products on the tensor cores
+TF32_PASSES = 3
 ARXIV_NODES, ARXIV_EDGES = 169_343, 1_166_243
 TRAIN_FLAGS = [
     "--synthetic-nodes", str(ARXIV_NODES), "--synthetic-edges",
@@ -352,6 +360,19 @@ def log_layout(label, name, args, outs, extra=(), require_vector=False):
         raise AssertionError(f"{label} {name} took the scalar path")
 
 
+def log_max_layout(label, h, o, require_tensor=False):
+    """Log the path #9-#11 take for W [h, o] (ell_max_layout: the
+    tensor-core product and the launch shapes). With ``require_tensor``
+    any other path raises: the redesign must not be bypassed."""
+    from sir_gcn_tpu_torch.ops import cuda as K
+
+    lay = K.ell_max_layout(h, o)
+    log(f"  {label} #9-#11 path (H {h}, O {o}): {lay}")
+    if require_tensor and (lay is None or lay.path != "tensor"):
+        raise AssertionError(f"{label}: #9-#11 do not take the tensor-core "
+                             f"path ({lay})")
+
+
 def check_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
                   timing=None, require_vector=False):
     import torch
@@ -387,15 +408,15 @@ def check_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
                                 bound=linear_bound(name, args, got))
 
 
-def bound(args, outs, flops):
+def bound(args, outs, flops, rate=PEAK_F32_FLOPS):
     """(least ms, what bounds it, bytes, flops): every input tensor read
     once and every output written once at the HBM rate, against ``flops``
-    at the f32 rate. An int in ``args`` is the bytes the function needs of
-    an input it reads only in part."""
+    at ``rate`` (the f32 rate unless given). An int in ``args`` is the
+    bytes the function needs of an input it reads only in part."""
     nbytes = sum(a if isinstance(a, int) else a.numel() * a.element_size()
                  for a in args if isinstance(a, int) or hasattr(a, "numel"))
     nbytes += sum(o.numel() * o.element_size() for o in outs)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / rate
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
             else "operations", nbytes, flops)
 
@@ -569,14 +590,17 @@ def near_ties(fg, args, act):
 def check_max_kernels(label, fg, eq, ek, w, g, scale, act, dtype, errs,
                       timing=None, mask_near_ties=False):
     """The four max kernels against their plain versions, each side's
-    win counts and backward against its own forward's maxima. With
-    ``mask_near_ties`` the cotangent is zeroed at near-tie (key, o), where
-    the two may pick different winners, and win counts are compared
-    elsewhere; without it every count must agree."""
+    win counts and backward against its own forward's maxima, after the
+    path of #9-#11 is logged (with ``timing``, the arxiv plan, it must be
+    the tensor-core product). With ``mask_near_ties`` the cotangent is
+    zeroed at near-tie (key, o), where the two may pick different winners,
+    and win counts are compared elsewhere; without it every count must
+    agree."""
     import torch
 
     from sir_gcn_tpu_torch.ops import cuda as K
 
+    log_max_layout(label, *w.shape, require_tensor=timing is not None)
     plan, splan = fg.dst_plan, fg.src_plan
     bd, bs = plan.buckets1, splan.buckets1
     args = (eq, ek.to(dtype).contiguous(), fg.dst_slot_srcnode, scale,
@@ -660,6 +684,16 @@ def check_max_kernels(label, fg, eq, ek, w, g, scale, act, dtype, errs,
         timing[name] = dict(ms=cuda_ms(kernel, 10),
                             plain_ms=cuda_ms(plain, 3, warmup=1),
                             bound=bound(targs, touts, flops))
+        if name != "ell_scaled_reduce":
+            # the f32 SIMT bound above, and the bound of the three-pass
+            # TF32 product on the tensor cores, which the kernel runs
+            f32 = timing[name]["bound"][0]
+            timing[name]["bound"] = bound(targs, touts, TF32_PASSES * flops,
+                                          PEAK_TF32_FLOPS)
+            log(f"  {name}: {timing[name]['ms']:.4f} ms; bound "
+                f"{timing[name]['bound'][0]:.4f} ms as {TF32_PASSES} x TF32 "
+                f"at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, {f32:.4f} ms as "
+                f"f32 at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s")
     # one PyTorch call computing ell_scaled_reduce: a CSR product
     n_src = splan.row_ptr.numel() - 1
     a = torch.sparse_csr_tensor(
@@ -825,7 +859,8 @@ def phase_kernels(device):
                                    f"{dtype}", *case, *tables, act, dtype,
                                    errs)
     for graph, h, o in (("hub", 24, 40), ("random", 96, 96),
-                        ("random", 200, 200), ("ties", 32, 24)):
+                        ("random", 200, 200), ("ties", 32, 24),
+                        ("random", 36, 100)):
         case = max_case(graph, h, o, device)
         for act in acts:
             for dtype in dtypes:
@@ -902,6 +937,9 @@ def phase_train(agg: str):
 
     flags = flags_for(agg)
     log("== train: " + " ".join(flags))
+    if agg == "max":  # W_R of each layer is [nhidden, nhidden]
+        h = int(flags[flags.index("--nhidden") + 1])
+        log_max_layout("train max", h, h, require_tensor=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()

@@ -28,7 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Flags of one source on top of NVCC_FLAGS. The max kernels test products
 # for equality across kernels, so nvcc may fuse no multiply-add of its own
-# there: each fused one is written out (__fmaf_rn).
+# around them (the activations feeding the tensor-core products).
 EXTRA_FLAGS = {"ell_max_kernels": ["--fmad=false"]}
 
 _LIBS: dict = {}

@@ -28,6 +28,7 @@ to lie in range; checking them would cost a device sync.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -111,7 +112,8 @@ _ARGTYPES = {
 }
 # entries that launch nothing and return an int
 _QUERIES = {"ell_kernels": {"ell_layout": [_I] * 3 + [_VP] * 6},
-            "ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 5},
+            "ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 5,
+                                "ell_max_layout": [_I] * 2},
             "ell_edge_kernels": {"ell_edge_src_bwd_blocks": [_I] * 5}}
 _ERROR_STRING = {"ell_kernels": "ell_error_string",
                  "ell_max_kernels": "ell_max_error_string",
@@ -698,6 +700,46 @@ def ell_edge_src_bwd(eq, g, ek, e_basis, w_e, slot_dst, slot_edge, scale,
 NEG = torch.finfo(torch.float32).min
 
 
+class MaxLayout(NamedTuple):
+    """How ``csrc/ell_max_kernels.cu`` runs #9-#11 for widths (H, O):
+    ``path`` "tensor" (the three-pass TF32 product on the tensor cores, the
+    same for all three kernels); the forward's warps a block and W columns
+    a block (more columns take more blocks in grid.y); the backward's warps
+    a block, whether W sits in its shared memory (else it is read from
+    device memory) and whether each warp keeps its g_W tiles in registers
+    for the whole walk (else in the block's slice of the scratch)."""
+
+    path: str
+    fwd_warps: int
+    fwd_columns: int
+    bwd_warps: int
+    w_in_smem: bool
+    gw_in_registers: bool
+
+
+def decode_max_layout(code: int) -> Optional[MaxLayout]:
+    """The ``MaxLayout`` of a code from the library's ``ell_max_layout``
+    (bit 0 the tensor-core path, bits 1-5 forward warps, 6-13 forward
+    columns, 14-17 backward warps, 18 W in shared memory, 19 g_W in
+    registers); None for -1, widths the kernels cannot take."""
+    if code < 0:
+        return None
+    if not code & 1:
+        raise ValueError(f"layout code {code:#x} names no product path")
+    return MaxLayout("tensor", (code >> 1) & 0x1F, (code >> 6) & 0xFF,
+                     (code >> 14) & 0xF, bool(code >> 18 & 1),
+                     bool(code >> 19 & 1))
+
+
+def ell_max_layout(h: int, o: int) -> Optional[MaxLayout]:
+    """The path #9, #10 and #11 take for W [h, o] (see ``MaxLayout``), or
+    None for widths they cannot take; the library's entries decide from
+    the same h and o. Needs a card: it asks the built library."""
+    if h < 1 or o < 1:
+        raise ValueError(f"widths must be positive, got H = {h}, O = {o}")
+    return decode_max_layout(_library("ell_max_kernels").ell_max_layout(h, o))
+
+
 def slot_products(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a [n, H] @ w [H, O] in f32, summed over h in increasing order with
     one rounded multiply and one rounded add per term. Each output row
@@ -792,7 +834,9 @@ def ell_max_fwd(eq, ek, slot_src, scale, row_key, row_ptr, w, act):
     f32; no bias.
 
     Replaces ``bucket_max_gemm_fwd`` (sir_gcn_tpu/ops/pallas/kernels.py),
-    one launch for all buckets. Bound: operations, 2 H O flops per slot."""
+    one launch for all buckets. Bound: tensor-core operations, 2 H O flops
+    per slot three times over (the three-pass TF32 split of every product,
+    which keeps m as accurate as f32); ``ell_max_layout`` tells the path."""
     device, r, h, o = _check_max(eq, ek, slot_src, scale, row_key, row_ptr,
                                  w, {}, act)
     if not on_cuda(device):
@@ -813,7 +857,8 @@ def ell_max_wincount(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max,
     key_max [N, O] f32 must come from the same computation of m (its own
     ``ell_max_fwd`` and max finalize).
 
-    Replaces ``bucket_max_wincount``. Bound: operations, as the forward."""
+    Replaces ``bucket_max_wincount``. Bound: operations, as the forward,
+    whose product it repeats bit for bit."""
     device, r, h, o = _check_max(eq, ek, slot_src, scale, row_key, row_ptr,
                                  w, {"key_max": key_max}, act)
     if not on_cuda(device):
@@ -836,9 +881,10 @@ def ell_max_bwd(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max, gsc,
         g_z      [S, H]       act'(z) * (g_m @ w.T), in ek's dtype
         g_w      [H, O] f32   sum over all slots of a^T g_m
 
-    Replaces ``bucket_max_gemm_bwd``. Bound: operations, 6 H O flops per
-    slot. g_w is summed per block and then over blocks in a fixed order,
-    so it is the same from run to run."""
+    Replaces ``bucket_max_gemm_bwd``. Bound: tensor-core operations, 6 H O
+    flops per slot three times over (m, g_a and g_W, each split in three
+    TF32 passes). g_w is summed per block and then over blocks in a fixed
+    order, so it is the same from run to run."""
     device, r, h, o = _check_max(eq, ek, slot_src, scale, row_key, row_ptr,
                                  w, {"key_max": key_max, "gsc": gsc}, act)
     if not on_cuda(device):

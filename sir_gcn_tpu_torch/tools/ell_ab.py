@@ -6,6 +6,8 @@ example) against the package's own.
     python -m sir_gcn_tpu_torch.tools.ell_ab other.cu [--probes]
     git show <rev>:sir_gcn_tpu_torch/csrc/lab_kernels.cu > other.cu
     python -m sir_gcn_tpu_torch.tools.ell_ab --lab other.cu
+    git show <rev>:sir_gcn_tpu_torch/csrc/ell_max_kernels.cu > other.cu
+    python -m sir_gcn_tpu_torch.tools.ell_ab --max other.cu
 
 The other source is built with the package's nvcc flags for its source
 into a library of its own (``build/kernels/ab-<hash>/``), which the
@@ -32,7 +34,19 @@ in eight turns (other, this, library, library, this, other, ...), the
 median and the spread of each, the kernel's verdict against the library
 call (win: its slowest turn beats the call's fastest; loss: the other
 way round; else tie), and the largest difference of the two kernels'
-outputs, which must be 0 for the passthroughs. Needs a CUDA card.
+outputs, which must be 0 for the passthroughs.
+
+The max mode (``--max``, ``csrc/ell_max_kernels.cu``) runs #9
+``ell_max_fwd``, #10 ``ell_max_wincount`` and #11 ``ell_max_bwd`` from
+both libraries at the ogbn-arxiv plan with bf16 edges, H = O = 96,
+leaky_relu(0.2) (#11 also with tanh), W ~ U(-1, 1)/sqrt(H) and a
+cotangent from seed 0 made on the card: ms per launch over 10 warm
+launches in eight turns (other, this, this, other, ...), the median and
+the spread of each. Each library's counts and backward are taken against
+its own forward's maxima, as the aggregate uses them; the tool prints the
+largest difference of the maxima, the (row, o) whose counts differ (near
+ties that the two products round apart) and the largest difference of
+geq_rows, g_z and g_W. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -49,7 +63,12 @@ import torch
 from ..data import synthetic_node_classification
 from ..experiments.ogbn_arxiv.train import build_arxiv_graph, get_args
 from ..ops.cuda import build
-from ..ops.cuda.kernels import _ARGTYPES, _library
+from ..ops.cuda.kernels import (
+    _ARGTYPES,
+    _QUERIES,
+    _library,
+    ell_max_layout,
+)
 from ..ops.cuda.lab import INFLIGHT, PASS2_TILE_ROWS
 from ..ops.ell import leaky_relu, tanh
 from . import (
@@ -63,11 +82,13 @@ from . import (
 
 ARXIV = dict(nodes=169_343, edges=1_166_243, seed=0)
 H = 96
+O_MAX = 96  # W_R's width in the max mode
 ITERS = 50
 FOLDS = (2, 4, 8)
 FOLD_ROWS = 16_384
 LAB_ITERS = 20
 LAB_ROUNDS = 8  # turns of (other, this, library), alternating in order
+MAX_ITERS, MAX_ROUNDS = 10, 8
 
 
 def build_other(source: Path, name: str = "ell_kernels") -> ctypes.CDLL:
@@ -90,7 +111,9 @@ def build_other(source: Path, name: str = "ell_kernels") -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed for {source}:\n{out.stdout}"
                                f"{out.stderr}")
     other = ctypes.CDLL(str(lib))
-    for entry, argtypes in _ARGTYPES[name].items():
+    queries = {k: v for k, v in _QUERIES.get(name, {}).items()
+               if hasattr(other, k)}
+    for entry, argtypes in {**_ARGTYPES[name], **queries}.items():
         fn = getattr(other, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -273,27 +296,155 @@ def run_lab(device, other: Path) -> dict:
     return recs
 
 
+def max_tiles(row_ptr, valid, warps: int) -> dict:
+    """The 16-slot tiles the max kernels walk on a plan with ``warps``
+    warps in the grid (host mirror of ``warp_rows`` and ``next_tile`` in
+    csrc/ell_max_kernels.cu): each warp takes the rows that start in its
+    share of the slots and walks their slots 16 at a time. Returns the
+    tile count and the shares of the tiles' 16 rows that hold a slot and
+    a valid slot."""
+    import numpy as np
+
+    ptr = np.asarray(row_ptr, np.int64)
+    total = int(ptr[-1])
+    cuts = total * np.arange(warps + 1, dtype=np.int64) // warps
+    first = np.minimum(np.searchsorted(ptr, cuts, side="left"), ptr.size - 1)
+    first[-1] = ptr.size - 1
+    slots = np.diff(ptr[first])
+    tiles = int((-(-slots // 16)).sum())
+    rows = 16 * max(tiles, 1)
+    return dict(tiles=tiles, slot_share=total / rows,
+                valid_share=int(np.count_nonzero(valid)) / rows)
+
+
+def max_launches(lib, inp: dict, w, gsc, act) -> dict:
+    """#9, #10 and #11 of one library on ``inp`` (bf16 edges): name ->
+    a call that launches it; and the outputs, #10 and #11 against the
+    library's own forward's maxima."""
+    fg = inp["fg"]
+    plan = fg.dst_plan
+    eq, ekb = inp["eq"], inp["ek"].to(torch.bfloat16)
+    r, s = plan.row_key.numel(), plan.slot_edge.numel()
+    p = torch.Tensor.data_ptr
+    f32 = dict(dtype=torch.float32, device=eq.device)
+    a, sl = act.kernel_id, float(act.param)
+    stream = torch.cuda.current_stream().cuda_stream
+    base = (p(eq), p(ekb), 1, p(fg.dst_slot_srcnode),
+            p(fg.dst_slot_scales["sum"]), p(plan.row_key), p(plan.row_ptr),
+            p(w))
+    rows, counts = torch.empty((r, O_MAX), **f32), torch.empty((r, O_MAX),
+                                                                 **f32)
+    blocks = lib.ell_max_bwd_blocks(r, H, O_MAX, a, 1)
+    if blocks <= 0:
+        raise RuntimeError(f"ell_max_bwd cannot take H = O = {H}")
+    geq = torch.empty((r, H), **f32)
+    gz = torch.empty((s, H), dtype=torch.bfloat16, device=eq.device)
+    part = torch.empty((blocks, H * O_MAX), **f32)
+    gw = torch.empty((H, O_MAX), **f32)
+
+    def check(code, entry):
+        if code:
+            raise RuntimeError(f"{entry}: CUDA error {code}")
+
+    def fwd():
+        check(lib.ell_max_fwd(*base, r, H, O_MAX, a, sl, p(rows), stream),
+              "ell_max_fwd")
+
+    fwd()
+    key_max = plan.finalize_rows_max(rows).contiguous()
+
+    def count():
+        check(lib.ell_max_wincount(*base, p(key_max), r, H, O_MAX, a, sl,
+                                   p(counts), stream), "ell_max_wincount")
+
+    def bwd():
+        check(lib.ell_max_bwd(*base, p(key_max), p(gsc), r, H, O_MAX, a, sl,
+                              blocks, p(geq), p(gz), p(part), p(gw), stream),
+              "ell_max_bwd")
+
+    count()
+    bwd()
+    torch.cuda.synchronize()
+    outs = dict(rows=rows.clone(), counts=counts.clone(), geq=geq.clone(),
+                gz=gz.float(), gw=gw.clone(), keep=(ekb, key_max, part))
+    return dict(fwd=fwd, count=count, bwd=bwd), outs
+
+
+def run_max(device, other: Path) -> dict:
+    """Every A/B line of #9-#11; returns label -> record."""
+    libs = {"other": build_other(other, "ell_max_kernels"),
+            "this": _library("ell_max_kernels")}
+    inp = arxiv_inputs(device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    w = ((torch.rand((H, O_MAX), generator=gen, device=device) * 2 - 1)
+         / H ** 0.5)
+    gsc = torch.randn((inp["fg"].n_pad, O_MAX), generator=gen, device=device)
+    plan = inp["fg"].dst_plan
+    lay = ell_max_layout(H, O_MAX)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    st = max_tiles(plan.host["row_ptr"], plan.host["slot_valid"],
+                   sms * lay.fwd_warps)
+    print(f"layout at H = O = {H}: {lay}", flush=True)
+    print(f"tiles of the plan: {st['tiles']} of 16 slots; slots fill "
+          f"{100 * st['slot_share']:.1f}% of their rows, valid slots "
+          f"{100 * st['valid_share']:.1f}%", flush=True)
+    recs = {"tiles": st}
+    for act in (leaky_relu(0.2), tanh):
+        runs = {k: max_launches(lib, inp, w, gsc, act)
+                for k, lib in libs.items()}
+        o, t = runs["other"][1], runs["this"][1]
+        differ = int((o["counts"] != t["counts"]).sum())
+        diffs = {k: float((o[k] - t[k]).abs().max())
+                 for k in ("rows", "geq", "gz", "gw")}
+        print(f"{act.name}: max |diff| of the maxima {diffs['rows']:.3e}; "
+              f"counts differ at {differ} of {t['counts'].numel()} (row, o); "
+              f"max |diff| geq_rows {diffs['geq']:.3e}, g_z {diffs['gz']:.3e},"
+              f" g_W {diffs['gw']:.3e}", flush=True)
+        names = {"fwd": "#9 ell_max_fwd", "count": "#10 ell_max_wincount",
+                 "bwd": "#11 ell_max_bwd"}
+        for key, label in names.items():
+            if act.name != "leaky_relu" and key != "bwd":
+                continue
+            ms = alternating_ms({k: r[0][key] for k, r in runs.items()},
+                                MAX_ITERS, MAX_ROUNDS)
+            line = ", ".join(f"{k} {_fmt(v)}" for k, v in ms.items())
+            gain = statistics.median(ms["other"]) / statistics.median(
+                ms["this"])
+            print(f"{label} ({act.name}, bf16): {line}, this/other "
+                  f"{gain:.2f}x faster", flush=True)
+            recs[f"{label} ({act.name})"] = dict(ms=ms, counts_differ=differ,
+                                                 **diffs)
+    return recs
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(
         "same-card A/B of two builds of the port's ELL or lab kernels")
     p.add_argument("other", type=Path,
                    help="a source with the C interface of ell_kernels.cu "
-                        "(with --lab, of lab_kernels.cu)")
-    p.add_argument("--lab", action="store_true",
-                   help="time the lab's streams (#19-#22, #24) with their "
-                        "library calls")
+                        "(with --lab, of lab_kernels.cu; with --max, of "
+                        "ell_max_kernels.cu)")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--lab", action="store_true",
+                      help="time the lab's streams (#19-#22, #24) with "
+                           "their library calls")
+    mode.add_argument("--max", action="store_true",
+                      help="time the max kernels #9-#11 (ell_max_kernels.cu)")
     p.add_argument("--probes", action="store_true",
                    help="also time #2 and #4 with their gathers folded "
                         "into a smaller table")
     args = p.parse_args(argv)
-    if args.lab and args.probes:
-        p.error("--probes is for the ELL kernels, not --lab")
+    if (args.lab or args.max) and args.probes:
+        p.error("--probes is for the ELL kernels, not --lab or --max")
     device = resolve_device(False)
-    name = "lab_kernels" if args.lab else "ell_kernels"
+    name = ("lab_kernels" if args.lab else
+            "ell_max_kernels" if args.max else "ell_kernels")
     print(card_line(), flush=True)
     print(f"other: {args.other}; this: {build.SOURCES[name]}", flush=True)
     if args.lab:
         return run_lab(device, args.other)
+    if args.max:
+        return run_max(device, args.other)
     return run(device, args.other, args.probes)
 
 

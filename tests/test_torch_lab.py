@@ -353,6 +353,21 @@ def test_lab_ab_needs_a_card_and_a_known_source(tmp_path):
         ell_ab.main(["--lab", str(tmp_path / "other.cu")])
 
 
+def test_max_ab_needs_a_card_and_a_known_source(tmp_path):
+    """``ell_ab --max`` (#9-#11 of two ell_max_kernels.cu builds) refuses
+    an unknown source name and runs on the card only."""
+    from sir_gcn_tpu_torch.tools import ell_ab
+
+    with pytest.raises(ValueError, match="no source"):
+        ell_ab.build_other(tmp_path / "other.cu", "ell_max_kernel")
+    with pytest.raises(SystemExit):  # one mode at a time
+        ell_ab.main(["--max", "--lab", str(tmp_path / "other.cu")])
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ell_ab.main(["--max", str(tmp_path / "other.cu")])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

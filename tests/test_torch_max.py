@@ -19,8 +19,16 @@ against its own forward's maxima, as the kernels are used. A per-slot g_z
 stored in bf16 is held to one bf16 step (rtol 2^-7) besides, since two
 f32 values that agree to 1e-6 can round to neighbouring bf16 values.
 
+The kernels compute every product as three TF32 tensor-core products
+(hi and lo halves of each operand); ``split_products`` emulates that here
+and is held within the forward tolerance of ``slot_products`` and a tenth
+of chip_smoke.py's NEAR_TIE of the exact product.
+
 The ``cuda`` tests compare each kernel with its plain version on the card
-and skip where there is none. JAX is imported inside the tests that use
+(any H, O; rows longer than a tile; W beyond shared memory), hold each
+slot's product to the same bits in any tiling and #10's counts to cover
+every key's max, ask #11 for equal bits twice, and skip where there is
+no card. JAX is imported inside the tests that use
 it, so that the card's tests run where JAX is not installed
 (``pytest -m cuda --noconftest tests/test_torch_max.py``).
 """
@@ -36,20 +44,26 @@ import sir_gcn_tpu_torch.ops.message_passing as tmp
 from sir_gcn_tpu_torch import build_graph
 from sir_gcn_tpu_torch.ops.cuda import (
     LAUNCHES,
+    MaxLayout,
     ell_max_bwd,
     ell_max_bwd_plain,
     ell_max_fwd,
     ell_max_fwd_plain,
+    ell_max_layout,
     ell_max_wincount,
     ell_max_wincount_plain,
     ell_scaled_reduce,
     ell_scaled_reduce_plain,
     reset_launch_counts,
 )
+from sir_gcn_tpu_torch.ops.cuda.kernels import decode_max_layout, slot_products
 
 FWD_TOL = dict(atol=2e-4, rtol=1e-4)
 BWD_TOL = dict(atol=3e-4, rtol=1e-3)
 BF16_STEP = dict(atol=3e-4, rtol=2.0 ** -7)
+# chip_smoke.py's window for (key, o) whose two largest products may round
+# apart on the card
+NEAR_TIE = 1e-5
 
 ACTS = {"leaky_relu": tell.leaky_relu(0.2), "tanh": tell.tanh}
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -78,6 +92,11 @@ def graph_edges(graph: str, rng):
                 np.array([5, 5, 6, 7, 7, 7, 8] * 2), 16, 4)
     if graph == "isolated":  # nodes 30..59 have no edge: zero-filled
         return rng.integers(0, 30, 150), rng.integers(0, 30, 150), 60, 16
+    if graph == "hub256":  # node 0 takes 600 in-edges: chunk rows of 256
+        n = 40
+        return (rng.integers(0, n, 700),
+                np.concatenate([np.zeros(600, np.int64),
+                                rng.integers(0, n, 100)]), n, 256)
     n = 40  # budgets 1..16, with 10, 12, 14
     return rng.integers(0, n, 203), rng.integers(0, n, 203), n, 16
 
@@ -408,6 +427,91 @@ def test_max_wrappers_check_inputs_and_count_no_cpu_launch():
 
 
 # ----------------------------------------------------------------------
+# The kernels' product: TF32 in three passes
+# ----------------------------------------------------------------------
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32`` and the kernels' ``tf32_rna``: half of
+    the 13 dropped bits is added to the magnitude's bit pattern, then they
+    are cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_products(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [n, H] @ w [H, O] as ``csrc/ell_max_kernels.cu`` computes it: both
+    operands split into hi = tf32(x) and lo = tf32(x - hi), k steps of 8
+    in increasing h, each step three m16n8k8 products (a_lo w_hi, a_hi
+    w_lo, a_hi w_hi) summed from zero and then added to the f32
+    accumulator. Each product's eight terms are exact in TF32 x TF32; the
+    emulation adds them in f64 and rounds once per product, a model of
+    the tensor core's own adder (which on the card rounds with a bias:
+    hence the kernels' step-wise sums)."""
+    hp = -(-a.shape[1] // 8) * 8
+    a = torch.nn.functional.pad(a, (0, hp - a.shape[1]))
+    w = torch.nn.functional.pad(w, (0, 0, 0, hp - w.shape[0]))
+    ah, wh = tf32_rna(a), tf32_rna(w)
+    al, wl = tf32_rna(a - ah), tf32_rna(w - wh)
+    acc = torch.zeros((a.shape[0], w.shape[1]), dtype=torch.float32)
+    for k in range(0, hp, 8):
+        part = torch.zeros_like(acc)
+        for x, y in ((al, wh), (ah, wl), (ah, wh)):
+            part = (part.double() + x[:, k:k + 8].double()
+                    @ y[k:k + 8].double()).float()
+        acc = acc + part
+    return acc
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10  # the TF32 value after 1
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -12, one + 2.0 ** -11 - 2.0 ** -23,
+                      0.0, -0.0], dtype=torch.float32)
+    want = [1.0, one, -one, 1.0, one, 0.0, -0.0]
+    assert tf32_rna(x).tolist() == want
+    assert (tf32_rna(x).view(torch.int32) & 0x1FFF).eq(0).all()
+
+
+@pytest.mark.parametrize("act", sorted(ACTS))
+@pytest.mark.parametrize("h,o", [(96, 96), (24, 40), (200, 200)])
+def test_three_pass_tf32_product_is_f32_accurate(h, o, act):
+    """The split product of the max kernels stays within the forward
+    tolerance of ``slot_products`` (the plain versions' yardstick) and
+    within a tenth of NEAR_TIE of the exact product, relative to 1 + |m|,
+    at the arxiv width and the test widths; one TF32 pass would not."""
+    rng = np.random.default_rng(h + o)
+    z = rng.normal(size=(4000, h)) + rng.normal(size=(4000, h))
+    a = ACTS[act](torch.from_numpy(z.astype(np.float32)))
+    w = torch.from_numpy(
+        (rng.uniform(-1, 1, size=(h, o)) / np.sqrt(h)).astype(np.float32))
+    exact = a.double() @ w.double()
+    got = split_products(a, w)
+    torch.testing.assert_close(got, slot_products(a, w), **FWD_TOL)
+    rel = ((got.double() - exact).abs() / (1 + exact.abs())).max()
+    assert rel <= NEAR_TIE / 10, float(rel)
+    one_pass = (tf32_rna(a).double() @ tf32_rna(w).double()).float()
+    assert ((one_pass.double() - exact).abs() / (1 + exact.abs())).max() \
+        > NEAR_TIE
+
+
+def test_max_layout_python_side():
+    """``ell_max_layout`` checks its widths before it asks the library,
+    and its codes decode to the path and the launch shapes."""
+    for h, o in ((0, 96), (96, 0), (-1, 8)):
+        with pytest.raises(ValueError, match="positive"):
+            ell_max_layout(h, o)
+    code = 1 | 16 << 1 | 96 << 6 | 8 << 14 | 1 << 18 | 1 << 19
+    assert decode_max_layout(code) == MaxLayout("tensor", 16, 96, 8, True,
+                                                True)
+    assert decode_max_layout(1 | 4 << 1 | 8 << 6 | 5 << 14) == MaxLayout(
+        "tensor", 4, 8, 5, False, False)
+    assert decode_max_layout(-1) is None
+    with pytest.raises(ValueError, match="no product path"):
+        decode_max_layout(code & ~1)
+
+
+# ----------------------------------------------------------------------
 # SIRConv, the arxiv SIRModel and the trainer with max
 # ----------------------------------------------------------------------
 
@@ -609,13 +713,19 @@ def cuda_device():
 @pytest.mark.parametrize("act", sorted(ACTS))
 @pytest.mark.parametrize("graph,h,o", [("hub", 24, 40), ("random", 96, 96),
                                        ("random", 200, 200),
-                                       ("ties", 32, 24)])
+                                       ("ties", 32, 24), ("random", 36, 100),
+                                       ("hub256", 24, 40)])
 def test_max_kernels_match_plain_on_card(cuda_device, graph, h, o, act, dt):
+    """Every shape on the tensor-core path: H and O off multiples of 8
+    (36 x 100), rows longer than a 16-slot tile (hub: budget 64; hub256:
+    chunk rows of 256), W too large for one block's shared memory (200 x
+    200), exact ties."""
     c = make_case(graph, h, o, device=cuda_device)
     d, tact = cuda_device, ACTS[act]
     args = _port_args(c, DTYPES[dt], d)
     plan, splan = c.fg.dst_plan, c.fg.src_plan
     gsc = _t(c.g, device=d)
+    assert ell_max_layout(h, o).path == "tensor"
     reset_launch_counts()
     rows = ell_max_fwd(*args, tact)
     key_max = plan.finalize_rows_max(rows)
@@ -646,3 +756,88 @@ def test_max_kernels_match_plain_on_card(cuda_device, graph, h, o, act, dt):
         **BWD_TOL)
     if graph == "ties":
         assert counts.max() >= 2
+
+
+TILINGS = [("random", 96, 96), ("hub256", 24, 40), ("random", 36, 100),
+           ("random", 200, 200)]
+
+
+def _one_slot_products(c, args, tact):
+    """Each valid slot's m [V, O] by ``ell_max_fwd`` on a plan of one-slot
+    rows (what ``winner_flips`` in chip_smoke.py reads), and each valid
+    slot's row in the full plan."""
+    eq, ek, slot_src, scale, row_key, row_ptr, w = args
+    vs = (scale > 0).nonzero().flatten()
+    row = torch.searchsorted(row_ptr[1:].long(), vs, right=True)
+    one = ell_max_fwd(eq, ek, slot_src[vs].contiguous(),
+                      torch.ones(vs.numel(), device=eq.device),
+                      row_key[row].contiguous(),
+                      torch.arange(vs.numel() + 1, dtype=torch.int32,
+                                   device=eq.device), w, tact)
+    return one, row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("graph,h,o", TILINGS)
+def test_max_products_have_the_same_bits_in_any_tiling(cuda_device, graph, h,
+                                                       o, dt):
+    """A slot's m is rounded alike in the full plan's tiles (rows packed
+    into 16-slot tiles or walked in chunks) and alone in a plan of
+    one-slot rows: the row maxima and the win counts of the full plan are
+    those of the one-slot products, bit for bit."""
+    c = make_case(graph, h, o, device=cuda_device)
+    tact = ACTS["leaky_relu"]
+    args = _port_args(c, DTYPES[dt], cuda_device)
+    plan = c.fg.dst_plan
+    rows = ell_max_fwd(*args, tact)
+    key_max = plan.finalize_rows_max(rows)
+    counts = ell_max_wincount(*args, key_max, tact)
+    one, row = _one_slot_products(c, args, tact)
+    idx = row[:, None].expand(-1, o)
+    want = torch.full_like(rows, float(np.finfo(np.float32).min))
+    want.scatter_reduce_(0, idx, one, "amax")
+    assert torch.equal(rows, want)
+    wins = (one == key_max.index_select(0, plan.row_key)[row]).float()
+    assert torch.equal(counts, torch.zeros_like(counts).index_add_(0, row,
+                                                                   wins))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph,h,o", TILINGS + [("hub", 24, 40)])
+def test_win_counts_cover_every_key_max_on_card(cuda_device, graph, h, o):
+    """Summed over a key's rows, #10 counts at least one winner at every
+    (key, o) of a key with a valid slot: #9 and #10 agree bit for bit."""
+    c = make_case(graph, h, o, device=cuda_device)
+    tact = ACTS["tanh"]
+    args = _port_args(c, torch.bfloat16, cuda_device)
+    plan = c.fg.dst_plan
+    key_max = plan.finalize_rows_max(ell_max_fwd(*args, tact))
+    counts = plan.finalize_rows_sum(ell_max_wincount(*args, key_max, tact))
+    ptr = plan.row_ptr.long()
+    slot_row = torch.repeat_interleave(
+        torch.arange(ptr.numel() - 1, device=cuda_device), ptr.diff())
+    nvalid = torch.zeros(ptr.numel() - 1, device=cuda_device).index_add_(
+        0, slot_row, (args[3] > 0).float())
+    has = plan.finalize_rows_sum(nvalid[:, None])[:, 0] > 0
+    assert has.any()
+    assert (counts[has] >= 1).all()
+    assert (counts[~has] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph,h,o", [("random", 96, 96),
+                                       ("random", 200, 200),
+                                       ("hub256", 24, 40)])
+def test_max_bwd_is_bitwise_repeatable_on_card(cuda_device, graph, h, o):
+    """Two launches of #11 on the same inputs give the same bits: g_W's
+    partials are summed in block order, with no atomics."""
+    c = make_case(graph, h, o, device=cuda_device)
+    tact = ACTS["leaky_relu"]
+    args = _port_args(c, torch.bfloat16, cuda_device)
+    key_max = c.fg.dst_plan.finalize_rows_max(ell_max_fwd(*args, tact))
+    gsc = _t(c.g, device=cuda_device)
+    first = ell_max_bwd(*args, key_max, gsc, tact)
+    second = ell_max_bwd(*args, key_max, gsc, tact)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
