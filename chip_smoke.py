@@ -21,7 +21,9 @@ Phases, each printed as it runs; any failure exits non-zero:
            kernel's bound (#12 and its CSR product in alternating turns,
            as in the lab phase); for #1, #2, #4 and their edge-term forms the
            path each launch took (the 16-byte vector path with its layout,
-           which the arxiv plan must take, or the scalar loop)
+           which the arxiv plan must take, or the scalar loop), and for #7
+           and #8 theirs (W_E and g_WE in registers, which the arxiv plan
+           must take, or the shared-memory loop)
   train    the arxiv trainer's entry point at full width (169,343 nodes,
            H = 96, 3 layers, bn, residual, bf16 edges), once with sym and
            once with max aggregation, 5 steps and evals each, with the
@@ -373,6 +375,21 @@ def log_max_layout(label, h, o, require_tensor=False):
                              f"path ({lay})")
 
 
+def log_edge_layout(label, h, de, act, dtype, require_registers=False):
+    """Log the paths #7 and #8 take for rows of width h and a basis of
+    width de (ell_edge_layout: registers or the shared-memory loop). With
+    ``require_registers`` the shared loop raises for either kernel: the
+    redesign must not be bypassed."""
+    from sir_gcn_tpu_torch.ops import cuda as K
+
+    lay = K.ell_edge_layout(h, de, act, dtype)
+    log(f"  {label} #7/#8 paths (H {h}, De {de}): {lay}")
+    if require_registers and (lay is None or lay.fwd != "registers"
+                              or lay.bwd != "registers"):
+        raise AssertionError(f"{label}: #7 and #8 do not take the register "
+                             f"path ({lay})")
+
+
 def check_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
                   timing=None, require_vector=False):
     import torch
@@ -497,6 +514,8 @@ def check_edge_kernels(label, fg, eq, ek, g, sd, ss, e, eb, we, act, dtype,
             log_layout(label, name, layout_args[name], got, extra=(et,),
                        require_vector=require_vector)
         outs[name] = got
+    log_edge_layout(label, eq.shape[1], eb.shape[1], act, dtype,
+                    require_registers=require_vector)
     if timing is None:
         return
     h, de = eq.shape[1], eb.shape[1]

@@ -20,25 +20,60 @@
 //
 // Bound: operations at the arxiv width (H = 96, De = 16): the projection
 // costs 2 * De flops per slot and feature (twice that in the backward, for
-// g_WE), against 2-4 bytes per feature read. Design: one warp per row, 8
-// rows per block, as ell_kernels.cu; the slots' indices and scales are read
-// 32 at a time and passed round by shuffles, and a slot with scale 0
-// (padding) is skipped whole, so it reads nothing and contributes exactly 0.
+// g_WE), against 2-4 bytes per feature read. Both paths below walk a row's
+// slots in order, skip a slot with scale 0 (padding) whole, so that it reads
+// nothing and contributes exactly 0, and form e_h for a lane's feature f as
+// fmaf(b_d, W_E[d, f], e_h) in increasing d from 0. Each row's sums are
+// therefore the same bits on both paths. The entries choose the path from H
+// and De; ell_edge_layout reports the choice.
+//
+// The register path (H <= 128, De <= 16, and in the backward NF * DB <= 48;
+// NF = ceil(H / 32) features a lane, DB = 8 or 16 basis values a slot held):
+// what the shared path does on the shared-memory pipe, a slot at a time (the
+// broadcast of the basis by De shuffles and De * NF reads of W_E, and in the
+// backward De * NF reads and writes of the g_WE partial), it does in
+// registers. Lane l of a warp owns features l, l + 32, ... of the whole row
+// and keeps their W_E columns, DB x NF values (0 past De and H), loaded once.
+// The warps of a persistent grid walk rows gw, gw + nw, ... (as the shared
+// backward) in chunks of at most 32 slots; the next chunk's slot indices and
+// scales are loaded while this one is worked on, and the slot ranges and
+// keys of 32 rows at a time. At a chunk's start each lane copies its slot's
+// basis row into the warp's ring in shared memory with cp.async (16 bytes at
+// a time where De % 4 == 0 and the basis is 16-byte aligned, else 4; the
+// ring's values past De stay 0), and the node rows of the first U slots are
+// loaded; slot k + U's node rows are loaded as slot k's are taken, so U
+// slots' gathers are in flight while one is computed. A slot reads its basis
+// row from the ring by broadcast, DB / 4 16-byte reads, and forms e_h from
+// registers (the padded d >= De add exactly 0). The backward adds b_d * g_z
+// into the warp's g_WE partial, also in registers (each lane owns its
+// features' columns); at the end the block sums its warps' partials in warp
+// order through shared memory, and a second kernel sums the blocks' partials
+// in block order. No atomics, so g_WE is the same from launch to launch; it
+// depends on the grid, and so differs from the shared path's in rounding.
+// Registers set the occupancy: the forward is held to 128 a thread (16
+// warps an SM), the backward, with W_E and g_WE both held, takes about 168
+// (12 warps), and with tanh keeps one slot in flight instead of two. A
+// deeper pipeline (two rings, the next chunk's basis rows, row values and
+// first node rows in flight during this chunk) measured slower on an H100:
+// it costs registers and instructions a slot for latency that these warps
+// already hide.
+//
+// The shared-memory path (every other shape the wrappers take) is the first
+// design: one warp per row, 8 rows per block, as ell_kernels.cu; the slots'
+// indices and scales are read 32 at a time and passed round by shuffles.
 // W_E sits in shared memory; the lanes load a slot's basis row (De values)
 // with one coalesced read and broadcast it by shuffles, and each lane forms
-// e_h for its own features (lanes striding h, so the shared reads of W_E
-// hit 32 banks).
-//
-// g_WE: the backward's blocks are persistent; each warp walks its rows in
-// a fixed order and adds egr_d * g_z into its own [De, H] partial in shared
-// memory (each lane owns its features' columns, so no two lanes write one
-// address). At the end a block sums its warps' partials in warp order into
-// one partial per block, and a second kernel sums those in block order. No
-// atomics, so g_WE is the same from run to run.
+// e_h for its own features (lanes striding h, so the shared reads of W_E hit
+// 32 banks). Rows wider than 4 features a lane take passes. The backward's
+// blocks are persistent; each warp walks its rows in a fixed order and adds
+// egr_d * g_z into its own [De, H] partial in shared memory, summed as on
+// the register path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -49,8 +84,24 @@ constexpr int kMaxFeatPerLane = 4;  // features per lane and pass
 constexpr int kMaxSmem = 232448 - 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
+// The register path: warps a block, the widest row and basis it holds, the
+// cap on DB * NF in the backward (W_E's and g_WE's registers), and the
+// slots whose node rows are in flight in the forward and the backward.
+constexpr int kRegWarps = 4;
+constexpr int kRegMaxH = 32 * kMaxFeatPerLane;
+constexpr int kRegMaxDe = 16;
+constexpr int kRegMaxBwd = 48;
+constexpr int kRegInflightFwd = 4;
+constexpr int kRegInflightBwd = 2;
+
 // Activation ids, as registered in sir_gcn_tpu_torch/ops/ell.py.
 enum { ACT_LEAKY_RELU = 0, ACT_TANH = 1 };
+
+// The backward's slots in flight on the register path: tanh's longer
+// derivative leaves registers for one.
+__host__ __device__ constexpr int inflight_bwd(int act) {
+  return act == ACT_TANH ? 1 : kRegInflightBwd;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -70,6 +121,10 @@ __device__ __forceinline__ float act_grad(float z, float slope) {
   const float t = tanhf(z);
   return (1.f + t) * (1.f - t);
 }
+
+// ---------------------------------------------------------------------
+// The shared-memory path
+// ---------------------------------------------------------------------
 
 // e_h[j] = sum_d basis[d] * w_s[d, f0 + j * 32 + lane] for the lane's
 // features, summed in increasing d; basis is one slot's [De] row.
@@ -253,32 +308,491 @@ edge_src_bwd_kernel(const T* __restrict__ eq, const T* __restrict__ g,
   }
 }
 
+// ---------------------------------------------------------------------
+// The register path
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// The slot range and key of the warp's rows k0 .. k0 + 31 in its walk, lane
+// l holding row gw + (k0 + l) * nw (an empty range past R).
+struct RowGroup {
+  int k0, s0, s1, key;
+};
+
+__device__ __forceinline__ void load_rows(RowGroup& g, int k0,
+                                          const int* __restrict__ row_ptr,
+                                          const int* __restrict__ row_key,
+                                          int R, int gw, int nw, int lane) {
+  const int64_t r = gw + (int64_t)(k0 + lane) * nw;
+  const bool in = r < R;
+  g.k0 = k0;
+  g.s0 = in ? row_ptr[r] : 0;
+  g.s1 = in ? row_ptr[r + 1] : 0;
+  g.key = in ? row_key[r] : 0;
+}
+
+// Slots s .. min(s + 32, s1) - 1 of the warp's k-th row, whose key is key;
+// first when they start the row.
+struct Chunk {
+  int k, s, s1, key;
+  bool first;
+};
+
+// The first chunk of the warp's k-th row; the next 32 rows' ranges are
+// loaded when k leaves the group (the branch is the warp's).
+__device__ __forceinline__ Chunk row_chunk(int k, RowGroup& g,
+                                           const int* __restrict__ row_ptr,
+                                           const int* __restrict__ row_key,
+                                           int R, int gw, int nw, int lane) {
+  if (k - g.k0 >= 32) load_rows(g, k, row_ptr, row_key, R, gw, nw, lane);
+  const int i = k - g.k0;
+  return Chunk{k, __shfl_sync(kFull, g.s0, i), __shfl_sync(kFull, g.s1, i),
+               __shfl_sync(kFull, g.key, i), true};
+}
+
+// Step c to the next chunk of the warp's walk; false past its last row.
+__device__ __forceinline__ bool next_chunk(Chunk& c, RowGroup& g,
+                                           const int* __restrict__ row_ptr,
+                                           const int* __restrict__ row_key,
+                                           int R, int gw, int nw, int lane) {
+  if (c.s + 32 < c.s1) {
+    c.s += 32;
+    c.first = false;
+    return true;
+  }
+  if (gw + (int64_t)(c.k + 1) * nw >= R) return false;
+  c = row_chunk(c.k + 1, g, row_ptr, row_key, R, gw, nw, lane);
+  return true;
+}
+
+// Lane l's slot of a chunk: the node it gathers, its edge and scale (0
+// past the row).
+struct Slots {
+  int node, edge;
+  float sc;
+};
+
+__device__ __forceinline__ Slots load_slots(const Chunk& c,
+                                            const int* __restrict__ slot_node,
+                                            const int* __restrict__ slot_edge,
+                                            const float* __restrict__ scale,
+                                            int lane) {
+  const int s = c.s + lane;
+  Slots t{0, 0, 0.f};
+  if (s < c.s1) {
+    t.node = slot_node[s];
+    t.edge = slot_edge[s];
+    t.sc = scale[s];
+  }
+  return t;
+}
+
+// Lane l copies its slot's basis row into row l of the warp's ring [32, DB]
+// (when `mine`), and commits the copies as one group.
+template <int DB>
+__device__ __forceinline__ void copy_basis(const float* __restrict__ e_basis,
+                                           int De, int vec, const Slots& t,
+                                           bool mine, float* ring, int lane) {
+  if (mine) {
+    const float* src = e_basis + (int64_t)t.edge * De;
+    float* dst = ring + lane * DB;
+    if (vec) {
+      for (int d = 0; d < De; d += 4) cp_async16(dst + d, src + d);
+    } else {
+      for (int d = 0; d < De; ++d) cp_async4(dst + d, src + d);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait for this lane's copies and make the warp's visible to every lane.
+__device__ __forceinline__ void ring_ready() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+}
+
+// Row k of the ring, read by every lane at one address (a broadcast).
+template <int DB>
+__device__ __forceinline__ void ring_row(const float* ring, int k, float* b) {
+  const float4* row = reinterpret_cast<const float4*>(ring + k * DB);
+#pragma unroll
+  for (int i = 0; i < DB / 4; ++i) {
+    const float4 v = row[i];
+    b[4 * i] = v.x;
+    b[4 * i + 1] = v.y;
+    b[4 * i + 2] = v.z;
+    b[4 * i + 3] = v.w;
+  }
+}
+
+// The lane's W_E columns, 0 past De and H.
+template <int NF, int DB>
+__device__ __forceinline__ void load_w(const float* __restrict__ w_e, int H,
+                                       int De, int lane, float (&w)[DB][NF]) {
+#pragma unroll
+  for (int d = 0; d < DB; ++d) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const int f = j * 32 + lane;
+      w[d][j] = d < De && f < H ? w_e[d * H + f] : 0.f;
+    }
+  }
+}
+
+// e_h[j] = sum_d b[d] * w[d][j], in increasing d as edge_term sums.
+template <int NF, int DB>
+__device__ __forceinline__ void project(const float* b,
+                                        const float (&w)[DB][NF], float* eh) {
+#pragma unroll
+  for (int j = 0; j < NF; ++j) eh[j] = 0.f;
+#pragma unroll
+  for (int d = 0; d < DB; ++d) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) eh[j] = fmaf(b[d], w[d][j], eh[j]);
+  }
+}
+
+// The lane's features of row `node` of an [N, H] table.
+template <int NF, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ tbl, int node,
+                                         int H, int lane, T (&v)[NF]) {
+  const T* row = tbl + (int64_t)node * H;
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    const int f = j * 32 + lane;
+    if (f < H) v[j] = row[f];
+  }
+}
+
+template <int ACT, int NF, int DB, typename TK>
+__global__ void __launch_bounds__(kRegWarps * 32, 4)
+edge_act_reduce_reg_kernel(const float* __restrict__ eq,
+                           const TK* __restrict__ ek,
+                           const float* __restrict__ e_basis,
+                           const float* __restrict__ w_e,
+                           const int* __restrict__ slot_src,
+                           const int* __restrict__ slot_edge,
+                           const float* __restrict__ scale,
+                           const int* __restrict__ row_key,
+                           const int* __restrict__ row_ptr, int R, int H,
+                           int De, float slope, int vec,
+                           float* __restrict__ rows,
+                           float* __restrict__ srows) {
+  constexpr int U = kRegInflightFwd;
+  extern __shared__ __align__(16) float reg_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * kRegWarps + warp;
+  const int nw = gridDim.x * kRegWarps;
+  if (gw >= R) return;  // the whole warp leaves together
+  float* ring = reg_smem + warp * 32 * DB;  // [32, DB], 0 past De
+  for (int i = lane; i < 32 * DB; i += 32) ring[i] = 0.f;
+  float w[DB][NF];
+  load_w<NF, DB>(w_e, H, De, lane, w);
+  RowGroup grp;
+  load_rows(grp, 0, row_ptr, row_key, R, gw, nw, lane);
+  Chunk c = row_chunk(0, grp, row_ptr, row_key, R, gw, nw, lane);
+  Slots cur = load_slots(c, slot_src, slot_edge, scale, lane);
+  float q[NF], acc[NF], sacc[NF];
+  TK buf[U][NF] = {};  // node rows in flight, slot k in buf[k % U]
+  float bsc[U];        // their scales, 0 for a slot that loads nothing
+  for (;;) {
+    Chunk nc = c;
+    const bool more = next_chunk(nc, grp, row_ptr, row_key, R, gw, nw, lane);
+    const Slots nxt = more ? load_slots(nc, slot_src, slot_edge, scale, lane)
+                           : Slots{0, 0, 0.f};
+    const int n = min(32, c.s1 - c.s);
+    if (c.first) {
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        const int f = j * 32 + lane;
+        q[j] = f < H ? eq[(int64_t)c.key * H + f] : 0.f;
+        acc[j] = 0.f;
+        sacc[j] = 0.f;
+      }
+    }
+    __syncwarp();  // every lane is done with the ring's last chunk
+    copy_basis<DB>(e_basis, De, vec, cur, lane < n && cur.sc != 0.f, ring,
+                   lane);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int src = __shfl_sync(kFull, cur.node, u);
+      const float sc = __shfl_sync(kFull, cur.sc, u);
+      bsc[u] = u < n ? sc : 0.f;
+      if (bsc[u] != 0.f) load_row<NF>(ek, src, H, lane, buf[u]);
+    }
+    ring_ready();
+    for (int k0 = 0; k0 < n; k0 += U) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = k0 + u;
+        const float sc = bsc[u];
+        float kv[NF];
+#pragma unroll
+        for (int j = 0; j < NF; ++j) kv[j] = to_f32(buf[u][j]);
+        // slot k + U's row goes in flight before slot k is computed
+        const int kn = k + U;
+        const int src_n = __shfl_sync(kFull, cur.node, kn & 31);
+        const float sc_n = __shfl_sync(kFull, cur.sc, kn & 31);
+        bsc[u] = kn < n ? sc_n : 0.f;
+        if (bsc[u] != 0.f) load_row<NF>(ek, src_n, H, lane, buf[u]);
+        if (sc == 0.f) continue;  // warp-uniform
+        float b[DB], eh[NF];
+        ring_row<DB>(ring, k, b);
+        project<NF, DB>(b, w, eh);
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+          const int f = j * 32 + lane;
+          if (f < H) {
+            const float z = (kv[j] + eh[j]) + q[j];
+            acc[j] += act_fn<ACT>(z, slope) * sc;
+            sacc[j] += act_grad<ACT>(z, slope) * sc;
+          }
+        }
+      }
+    }
+    if (c.s + 32 >= c.s1) {  // the row's last chunk
+      const int64_t r = gw + (int64_t)c.k * nw;
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        const int f = j * 32 + lane;
+        if (f < H) {
+          rows[r * H + f] = acc[j];
+          srows[r * H + f] = sacc[j];
+        }
+      }
+    }
+    if (!more) break;
+    c = nc;
+    cur = nxt;
+  }
+}
+
+template <int ACT, int NF, int DB, typename T>
+__global__ void __launch_bounds__(kRegWarps * 32, 3)
+edge_src_bwd_reg_kernel(const T* __restrict__ eq, const T* __restrict__ g,
+                        const float* __restrict__ ek,
+                        const float* __restrict__ e_basis,
+                        const float* __restrict__ w_e,
+                        const int* __restrict__ slot_dst,
+                        const int* __restrict__ slot_edge,
+                        const float* __restrict__ scale,
+                        const int* __restrict__ row_key,
+                        const int* __restrict__ row_ptr, int R, int H, int De,
+                        float slope, int vec, float* __restrict__ out,
+                        float* __restrict__ gwe_part) {
+  constexpr int U = inflight_bwd(ACT);
+  extern __shared__ __align__(16) float reg_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * kRegWarps + warp;
+  const int nw = gridDim.x * kRegWarps;
+  float* ring = reg_smem + warp * 32 * DB;  // [32, DB], 0 past De
+  for (int i = lane; i < 32 * DB; i += 32) ring[i] = 0.f;
+  float w[DB][NF];
+  load_w<NF, DB>(w_e, H, De, lane, w);
+  float part[DB][NF];  // the warp's g_WE partial, the lane's columns
+#pragma unroll
+  for (int d = 0; d < DB; ++d) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) part[d][j] = 0.f;
+  }
+  // no early return: every warp reaches the block's barriers
+  if (gw < R) {
+    RowGroup grp;
+    load_rows(grp, 0, row_ptr, row_key, R, gw, nw, lane);
+    Chunk c = row_chunk(0, grp, row_ptr, row_key, R, gw, nw, lane);
+    Slots cur = load_slots(c, slot_dst, slot_edge, scale, lane);
+    float kv[NF], acc[NF];
+    T qb[U][NF] = {}, gb[U][NF] = {};  // eq and g rows in flight
+    float bsc[U];
+    for (;;) {
+      Chunk nc = c;
+      const bool more =
+          next_chunk(nc, grp, row_ptr, row_key, R, gw, nw, lane);
+      const Slots nxt = more
+                            ? load_slots(nc, slot_dst, slot_edge, scale, lane)
+                            : Slots{0, 0, 0.f};
+      const int n = min(32, c.s1 - c.s);
+      if (c.first) {
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+          const int f = j * 32 + lane;
+          kv[j] = f < H ? ek[(int64_t)c.key * H + f] : 0.f;
+          acc[j] = 0.f;
+        }
+      }
+      __syncwarp();  // every lane is done with the ring's last chunk
+      copy_basis<DB>(e_basis, De, vec, cur, lane < n && cur.sc != 0.f, ring,
+                     lane);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int dst = __shfl_sync(kFull, cur.node, u);
+        const float sc = __shfl_sync(kFull, cur.sc, u);
+        bsc[u] = u < n ? sc : 0.f;
+        if (bsc[u] != 0.f) {
+          load_row<NF>(eq, dst, H, lane, qb[u]);
+          load_row<NF>(g, dst, H, lane, gb[u]);
+        }
+      }
+      ring_ready();
+      for (int k0 = 0; k0 < n; k0 += U) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int k = k0 + u;
+          const float sc = bsc[u];
+          float qv[NF], gv[NF];
+#pragma unroll
+          for (int j = 0; j < NF; ++j) {
+            qv[j] = to_f32(qb[u][j]);
+            gv[j] = to_f32(gb[u][j]);
+          }
+          const int kn = k + U;
+          const int dst_n = __shfl_sync(kFull, cur.node, kn & 31);
+          const float sc_n = __shfl_sync(kFull, cur.sc, kn & 31);
+          bsc[u] = kn < n ? sc_n : 0.f;
+          if (bsc[u] != 0.f) {
+            load_row<NF>(eq, dst_n, H, lane, qb[u]);
+            load_row<NF>(g, dst_n, H, lane, gb[u]);
+          }
+          if (sc == 0.f) continue;  // warp-uniform
+          float b[DB], eh[NF], gz[NF];
+          ring_row<DB>(ring, k, b);
+          project<NF, DB>(b, w, eh);
+#pragma unroll
+          for (int j = 0; j < NF; ++j) {
+            const int f = j * 32 + lane;
+            gz[j] = 0.f;
+            if (f < H) {
+              const float z = (qv[j] + eh[j]) + kv[j];
+              gz[j] = act_grad<ACT>(z, slope) * (gv[j] * sc);
+              acc[j] += gz[j];
+            }
+          }
+          // g_WE[d, f] += egr_d * g_z[f]; the padded d add exactly 0
+#pragma unroll
+          for (int d = 0; d < DB; ++d) {
+#pragma unroll
+            for (int j = 0; j < NF; ++j)
+              part[d][j] = fmaf(b[d], gz[j], part[d][j]);
+          }
+        }
+      }
+      if (c.s + 32 >= c.s1) {  // the row's last chunk
+        const int64_t r = gw + (int64_t)c.k * nw;
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+          const int f = j * 32 + lane;
+          if (f < H) out[r * H + f] = acc[j];
+        }
+      }
+      if (!more) break;
+      c = nc;
+      cur = nxt;
+    }
+  }
+  __syncthreads();  // every ring is done: its memory takes the partials
+  const int n_w = De * H;
+  float* part_s = reg_smem;  // [kRegWarps, De, H]
+#pragma unroll
+  for (int d = 0; d < DB; ++d) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const int f = j * 32 + lane;
+      if (d < De && f < H) part_s[warp * n_w + d * H + f] = part[d][j];
+    }
+  }
+  __syncthreads();
+  float* dst = gwe_part + (int64_t)blockIdx.x * n_w;
+  for (int i = threadIdx.x; i < n_w; i += blockDim.x) {
+    float s = 0.f;
+    for (int v = 0; v < kRegWarps; ++v) s += part_s[v * n_w + i];
+    dst[i] = s;
+  }
+}
+
 // out[i] = sum over p in order of part[p, i].
 __global__ void sum_partials_kernel(const float* __restrict__ part, int P,
                                     int n, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
+#pragma unroll 8
   for (int p = 0; p < P; ++p) s += part[(int64_t)p * n + i];
   out[i] = s;
 }
 
+// ---------------------------------------------------------------------
+// Host side: a launch's path, kernel instance and grid
+// ---------------------------------------------------------------------
+
+// Features a lane: the whole row on the register path, a pass's on the
+// shared one.
 int feat_per_lane(int H) {
   const int nf = (H + 31) / 32;
   return nf < kMaxFeatPerLane ? nf : kMaxFeatPerLane;
 }
 
-size_t fwd_smem(int H, int De) { return sizeof(float) * (size_t)De * H; }
+// The basis values a register-path kernel holds a slot: De padded to 8 or 16.
+int basis_width(int De) { return De <= 8 ? 8 : 16; }
+
+bool fwd_on_registers(int H, int De) {
+  return H <= kRegMaxH && De <= kRegMaxDe;
+}
+
+bool bwd_on_registers(int H, int De) {
+  return fwd_on_registers(H, De) &&
+         feat_per_lane(H) * basis_width(De) <= kRegMaxBwd;
+}
+
+size_t fwd_smem(int H, int De) {
+  if (fwd_on_registers(H, De))
+    return sizeof(float) * kRegWarps * 32 * basis_width(De);
+  return sizeof(float) * (size_t)De * H;
+}
 
 size_t bwd_smem(int H, int De) {
+  if (bwd_on_registers(H, De)) {
+    const size_t ring = (size_t)kRegWarps * 32 * basis_width(De);
+    const size_t parts = (size_t)kRegWarps * De * H;
+    return sizeof(float) * (ring > parts ? ring : parts);
+  }
   return sizeof(float) * (size_t)(1 + kWarps) * De * H;
 }
 
-// The kernel instance for (act, edge type, H), so that the occupancy query
-// and the launch see the same one.
+#define EDGE_REG_CASE(KERNEL, NF, DB) \
+  if (nf == NF && db == DB) return (const void*)KERNEL<ACT, NF, DB, T>;
+
+// The kernel instance for (act, edge type, H, De), so that the occupancy
+// query and the launch see the same one.
 template <int ACT, typename T>
-const void* pick_fwd(int H) {
-  switch (feat_per_lane(H)) {
+const void* pick_fwd(int H, int De) {
+  const int nf = feat_per_lane(H), db = basis_width(De);
+  if (fwd_on_registers(H, De)) {
+    EDGE_REG_CASE(edge_act_reduce_reg_kernel, 1, 8)
+    EDGE_REG_CASE(edge_act_reduce_reg_kernel, 2, 8)
+    EDGE_REG_CASE(edge_act_reduce_reg_kernel, 3, 8)
+    EDGE_REG_CASE(edge_act_reduce_reg_kernel, 4, 8)
+    EDGE_REG_CASE(edge_act_reduce_reg_kernel, 1, 16)
+    EDGE_REG_CASE(edge_act_reduce_reg_kernel, 2, 16)
+    EDGE_REG_CASE(edge_act_reduce_reg_kernel, 3, 16)
+    EDGE_REG_CASE(edge_act_reduce_reg_kernel, 4, 16)
+    return nullptr;
+  }
+  switch (nf) {
     case 1: return (const void*)edge_act_reduce_kernel<ACT, 1, T>;
     case 2: return (const void*)edge_act_reduce_kernel<ACT, 2, T>;
     case 3: return (const void*)edge_act_reduce_kernel<ACT, 3, T>;
@@ -287,8 +801,19 @@ const void* pick_fwd(int H) {
 }
 
 template <int ACT, typename T>
-const void* pick_bwd(int H) {
-  switch (feat_per_lane(H)) {
+const void* pick_bwd(int H, int De) {
+  const int nf = feat_per_lane(H), db = basis_width(De);
+  if (bwd_on_registers(H, De)) {
+    EDGE_REG_CASE(edge_src_bwd_reg_kernel, 1, 8)
+    EDGE_REG_CASE(edge_src_bwd_reg_kernel, 2, 8)
+    EDGE_REG_CASE(edge_src_bwd_reg_kernel, 3, 8)
+    EDGE_REG_CASE(edge_src_bwd_reg_kernel, 4, 8)
+    EDGE_REG_CASE(edge_src_bwd_reg_kernel, 1, 16)
+    EDGE_REG_CASE(edge_src_bwd_reg_kernel, 2, 16)
+    EDGE_REG_CASE(edge_src_bwd_reg_kernel, 3, 16)
+    return nullptr;
+  }
+  switch (nf) {
     case 1: return (const void*)edge_src_bwd_kernel<ACT, 1, T>;
     case 2: return (const void*)edge_src_bwd_kernel<ACT, 2, T>;
     case 3: return (const void*)edge_src_bwd_kernel<ACT, 3, T>;
@@ -296,36 +821,98 @@ const void* pick_bwd(int H) {
   }
 }
 
-const void* fwd_kernel(int act, int bf16, int H) {
+#undef EDGE_REG_CASE
+
+const void* fwd_kernel(int act, int bf16, int H, int De) {
   if (act == ACT_LEAKY_RELU)
-    return bf16 ? pick_fwd<ACT_LEAKY_RELU, __nv_bfloat16>(H)
-                : pick_fwd<ACT_LEAKY_RELU, float>(H);
+    return bf16 ? pick_fwd<ACT_LEAKY_RELU, __nv_bfloat16>(H, De)
+                : pick_fwd<ACT_LEAKY_RELU, float>(H, De);
   if (act == ACT_TANH)
-    return bf16 ? pick_fwd<ACT_TANH, __nv_bfloat16>(H)
-                : pick_fwd<ACT_TANH, float>(H);
+    return bf16 ? pick_fwd<ACT_TANH, __nv_bfloat16>(H, De)
+                : pick_fwd<ACT_TANH, float>(H, De);
   return nullptr;
 }
 
-const void* bwd_kernel(int act, int bf16, int H) {
+const void* bwd_kernel(int act, int bf16, int H, int De) {
   if (act == ACT_LEAKY_RELU)
-    return bf16 ? pick_bwd<ACT_LEAKY_RELU, __nv_bfloat16>(H)
-                : pick_bwd<ACT_LEAKY_RELU, float>(H);
+    return bf16 ? pick_bwd<ACT_LEAKY_RELU, __nv_bfloat16>(H, De)
+                : pick_bwd<ACT_LEAKY_RELU, float>(H, De);
   if (act == ACT_TANH)
-    return bf16 ? pick_bwd<ACT_TANH, __nv_bfloat16>(H)
-                : pick_bwd<ACT_TANH, float>(H);
+    return bf16 ? pick_bwd<ACT_TANH, __nv_bfloat16>(H, De)
+                : pick_bwd<ACT_TANH, float>(H, De);
   return nullptr;
+}
+
+// Set the kernel's dynamic shared memory limit to smem; returns the error.
+int allow_smem(const void* k, size_t smem) {
+  if (k == nullptr || smem > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// The blocks of a persistent grid of `k` (threads a block, smem bytes):
+// the card's SMs times the blocks an SM holds, at most `tiles`; -1 on an
+// error. The occupancy of a (device, kernel, smem) is asked once.
+int persistent_blocks(const void* k, int threads, size_t smem, int tiles) {
+  struct Entry {
+    int dev;
+    const void* k;
+    size_t smem;
+    int blocks;
+  };
+  static std::mutex mu;
+  static Entry cache[64];
+  static int cached = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  int full = -1;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < cached; ++i)
+      if (cache[i].dev == dev && cache[i].k == k && cache[i].smem == smem)
+        full = cache[i].blocks;
+  }
+  if (full < 0) {
+    int sms = 0, per_sm = 0;
+    if (allow_smem(k, smem) != 0 ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads,
+                                                      smem) != cudaSuccess)
+      return -1;
+    full = sms * (per_sm > 0 ? per_sm : 1);
+    std::lock_guard<std::mutex> lock(mu);
+    if (cached < 64) cache[cached++] = Entry{dev, k, smem, full};
+  }
+  return tiles < full ? tiles : full;
 }
 
 // Set the kernel's dynamic shared memory and launch it; returns the error.
-int launch(const void* k, int blocks, size_t smem, void** args,
+int launch(const void* k, int blocks, int threads, size_t smem, void** args,
            cudaStream_t st) {
-  if (k == nullptr || smem > (size_t)kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchKernel(k, dim3(blocks), dim3(kWarps * 32), args, smem, st);
-  return (int)e;
+  const int code = allow_smem(k, smem);
+  if (code != 0) return code;
+  return (int)cudaLaunchKernel(k, dim3(blocks), dim3(threads), args, smem,
+                               st);
+}
+
+// 16-byte basis copies: each row starts on a 16-byte boundary.
+int basis_vec(const void* e_basis, int De) {
+  return De % 4 == 0 && ((uintptr_t)e_basis & 15) == 0;
+}
+
+// Path codes of ell_edge_layout.
+enum { PATH_NONE = 0, PATH_SHARED = 1, PATH_REGISTERS = 2 };
+
+int fwd_path(int H, int De) {
+  if (fwd_on_registers(H, De)) return PATH_REGISTERS;
+  return fwd_smem(H, De) <= (size_t)kMaxSmem ? PATH_SHARED : PATH_NONE;
+}
+
+int bwd_path(int H, int De) {
+  if (bwd_on_registers(H, De)) return PATH_REGISTERS;
+  return bwd_smem(H, De) <= (size_t)kMaxSmem ? PATH_SHARED : PATH_NONE;
 }
 
 }  // namespace
@@ -345,35 +932,41 @@ int ell_edge_act_reduce2(const void* eq, const void* ek, int bf16,
                          const void* row_ptr, int R, int H, int De, int act,
                          float slope, void* rows, void* srows, void* stream) {
   if (R <= 0 || H <= 0 || De <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const void* k = fwd_kernel(act, bf16, H, De);
+  const size_t smem = fwd_smem(H, De);
+  if (fwd_on_registers(H, De)) {
+    const int vec = basis_vec(e_basis, De);
+    const int threads = kRegWarps * 32;
+    const int blocks = persistent_blocks(
+        k, threads, smem, (R + kRegWarps - 1) / kRegWarps);
+    if (blocks <= 0) return (int)cudaErrorInvalidValue;
+    void* args[] = {(void*)&eq,       (void*)&ek,        (void*)&e_basis,
+                    (void*)&w_e,      (void*)&slot_src,  (void*)&slot_edge,
+                    (void*)&scale,    (void*)&row_key,   (void*)&row_ptr,
+                    (void*)&R,        (void*)&H,         (void*)&De,
+                    (void*)&slope,    (void*)&vec,       (void*)&rows,
+                    (void*)&srows};
+    return launch(k, blocks, threads, smem, args, st);
+  }
   void* args[] = {(void*)&eq,      (void*)&ek,        (void*)&e_basis,
                   (void*)&w_e,     (void*)&slot_src,  (void*)&slot_edge,
                   (void*)&scale,   (void*)&row_key,   (void*)&row_ptr,
                   (void*)&R,       (void*)&H,         (void*)&De,
                   (void*)&slope,   (void*)&rows,      (void*)&srows};
-  return launch(fwd_kernel(act, bf16, H), (R + kWarps - 1) / kWarps,
-                fwd_smem(H, De), args, (cudaStream_t)stream);
+  return launch(k, (R + kWarps - 1) / kWarps, kWarps * 32, smem, args, st);
 }
 
 // The number of blocks ell_edge_src_bwd launches (its g_WE scratch holds
 // one [De, H] partial per block), or -1 for widths it cannot take.
 int ell_edge_src_bwd_blocks(int R, int H, int De, int act, int bf16) {
-  if (R <= 0 || H <= 0 || De <= 0) return -1;
-  const size_t smem = bwd_smem(H, De);
-  const void* k = bwd_kernel(act, bf16, H);
-  if (k == nullptr || smem > (size_t)kMaxSmem) return -1;
-  if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess)
+  if (R <= 0 || H <= 0 || De <= 0 || bwd_path(H, De) == PATH_NONE)
     return -1;
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kWarps * 32,
-                                                    smem) != cudaSuccess)
-    return -1;
-  const int tiles = (R + kWarps - 1) / kWarps;
-  const int blocks = sms * (per_sm > 0 ? per_sm : 1);
-  return tiles < blocks ? tiles : blocks;
+  const void* k = bwd_kernel(act, bf16, H, De);
+  if (k == nullptr) return -1;
+  const int warps = bwd_on_registers(H, De) ? kRegWarps : kWarps;
+  return persistent_blocks(k, warps * 32, bwd_smem(H, De),
+                           (R + warps - 1) / warps);
 }
 
 // gwe_part holds `blocks` (from ell_edge_src_bwd_blocks) partials of
@@ -387,20 +980,54 @@ int ell_edge_src_bwd(const void* eq, const void* g, int bf16, const void* ek,
                      void* gwe, void* stream) {
   if (R <= 0 || H <= 0 || De <= 0 || blocks <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  void* args[] = {(void*)&eq,        (void*)&g,        (void*)&ek,
-                  (void*)&e_basis,   (void*)&w_e,      (void*)&slot_dst,
-                  (void*)&slot_edge, (void*)&scale,    (void*)&row_key,
-                  (void*)&row_ptr,   (void*)&R,        (void*)&H,
-                  (void*)&De,        (void*)&slope,    (void*)&out,
-                  (void*)&gwe_part};
-  const int code =
-      launch(bwd_kernel(act, bf16, H), blocks, bwd_smem(H, De), args, st);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const void* k = bwd_kernel(act, bf16, H, De);
+  const size_t smem = bwd_smem(H, De);
+  int code;
+  if (bwd_on_registers(H, De)) {
+    const int vec = basis_vec(e_basis, De);
+    void* args[] = {(void*)&eq,        (void*)&g,         (void*)&ek,
+                    (void*)&e_basis,   (void*)&w_e,       (void*)&slot_dst,
+                    (void*)&slot_edge, (void*)&scale,     (void*)&row_key,
+                    (void*)&row_ptr,   (void*)&R,         (void*)&H,
+                    (void*)&De,        (void*)&slope,     (void*)&vec,
+                    (void*)&out,       (void*)&gwe_part};
+    code = launch(k, blocks, kRegWarps * 32, smem, args, st);
+  } else {
+    void* args[] = {(void*)&eq,        (void*)&g,        (void*)&ek,
+                    (void*)&e_basis,   (void*)&w_e,      (void*)&slot_dst,
+                    (void*)&slot_edge, (void*)&scale,    (void*)&row_key,
+                    (void*)&row_ptr,   (void*)&R,        (void*)&H,
+                    (void*)&De,        (void*)&slope,    (void*)&out,
+                    (void*)&gwe_part};
+    code = launch(k, blocks, kWarps * 32, smem, args, st);
+  }
   if (code != 0) return code;
   const int n = De * H;
   sum_partials_kernel<<<(n + 255) / 256, 256, 0, st>>>(
       (const float*)gwe_part, blocks, n, (float*)gwe);
   return (int)cudaGetLastError();
+}
+
+// How the two kernels run rows of width H with a basis of width De, as the
+// entries above decide: bits 0-1 the forward's path and 2-3 the
+// backward's (0 none, 1 the shared-memory loop, 2 registers), 4-6 the
+// features a lane (a pass's on the shared path), 7-11 the basis values a
+// register-path kernel holds a slot (0 when neither takes that path), 12-15
+// and 16-19 the slots whose node rows are in flight (forward, backward; 1
+// on the shared path, and in the backward with tanh), 20-23 and 24-27 the
+// warps a block. -1 for a width that is not positive or an unknown
+// activation.
+int ell_edge_layout(int H, int De, int act, int bf16) {
+  if (H <= 0 || De <= 0 || fwd_kernel(act, bf16 != 0, 1, 1) == nullptr)
+    return -1;
+  const int fp = fwd_path(H, De), bp = bwd_path(H, De);
+  const bool fr = fp == PATH_REGISTERS, br = bp == PATH_REGISTERS;
+  const int db = fr || br ? basis_width(De) : 0;
+  const int uf = fr ? kRegInflightFwd : 1, ub = br ? inflight_bwd(act) : 1;
+  return fp | bp << 2 | feat_per_lane(H) << 4 | db << 7 | uf << 12 |
+         ub << 16 | (fr ? kRegWarps : kWarps) << 20 |
+         (br ? kRegWarps : kWarps) << 24;
 }
 
 const char* ell_edge_error_string(int code) {

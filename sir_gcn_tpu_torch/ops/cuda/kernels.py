@@ -114,7 +114,8 @@ _ARGTYPES = {
 _QUERIES = {"ell_kernels": {"ell_layout": [_I] * 3 + [_VP] * 6},
             "ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 5,
                                 "ell_max_layout": [_I] * 2},
-            "ell_edge_kernels": {"ell_edge_src_bwd_blocks": [_I] * 5}}
+            "ell_edge_kernels": {"ell_edge_src_bwd_blocks": [_I] * 5,
+                                 "ell_edge_layout": [_I] * 4}}
 _ERROR_STRING = {"ell_kernels": "ell_error_string",
                  "ell_max_kernels": "ell_max_error_string",
                  "ell_edge_kernels": "ell_edge_error_string",
@@ -538,13 +539,68 @@ def ell_src_bwd_edge(eq, g, ek, slot_dst, scale, row_key, row_ptr, act, e,
 #
 # e_basis [E_pad, De] f32 is the edge basis in sorted-edge order and w_e
 # [De, H] f32 the projection, in the JAX layout; a slot's edge term is
-# e_basis[slot_edge[s]] @ w_e, in f32 and never rounded. W_E (and, in the
-# backward, the warps' g_WE partials) sits in a block's shared memory.
+# e_basis[slot_edge[s]] @ w_e, in f32 and never rounded. On the register
+# path (H <= 128, De <= 16; see ``EdgeLayout``) W_E and, in the backward,
+# the warps' g_WE partials sit in the lanes' registers; on the shared path
+# (every other shape) in a block's shared memory, which bounds De * H.
 
 # the dynamic shared memory a block may use on an H100: 232,448 bytes less
 # room for static arrays
 EDGE_SMEM_BYTES = 232448 - 1024
-EDGE_BWD_WARPS = 8
+EDGE_BWD_WARPS = 8  # the shared path's backward: a g_WE partial per warp
+_EDGE_PATHS = {1: "shared", 2: "registers"}
+
+
+class EdgeLayout(NamedTuple):
+    """How ``csrc/ell_edge_kernels.cu`` runs #7 (``fwd``) and #8
+    (``bwd``) for rows of width H and a basis of width De: each kernel's
+    path, "registers" (W_E and #8's g_WE partial in the lanes' registers,
+    the slots' basis rows copied into shared memory by cp.async, several
+    slots' node rows in flight), "shared" (the first design: W_E and the
+    partials in shared memory) or None (the kernel cannot take the
+    shape); the features a lane (a pass's on the shared path); the basis
+    values a register-path kernel holds a slot (De padded to 8 or 16; 0
+    when neither takes that path); the slots whose node rows are in flight
+    in each kernel (in the backward one with tanh, two with leaky_relu);
+    and each kernel's warps a block."""
+
+    fwd: Optional[str]
+    bwd: Optional[str]
+    feat_per_lane: int
+    basis_width: int
+    fwd_inflight: int
+    bwd_inflight: int
+    fwd_warps: int
+    bwd_warps: int
+
+
+def decode_edge_layout(code: int) -> Optional[EdgeLayout]:
+    """The ``EdgeLayout`` of a code from the library's ``ell_edge_layout``
+    (bits 0-1 the forward's path and 2-3 the backward's, 0 none, 1
+    shared, 2 registers; 4-6 features a lane, 7-11 the basis width held,
+    12-15 and 16-19 the slots in flight, 20-23 and 24-27 the warps a
+    block); None for -1, arguments the library refuses."""
+    if code < 0:
+        return None
+    paths = code & 3, code >> 2 & 3
+    if 3 in paths:
+        raise ValueError(f"layout code {code:#x} names no path")
+    fwd, bwd = (_EDGE_PATHS.get(p) for p in paths)
+    return EdgeLayout(fwd, bwd, code >> 4 & 7, code >> 7 & 0x1F,
+                      code >> 12 & 0xF, code >> 16 & 0xF, code >> 20 & 0xF,
+                      code >> 24 & 0xF)
+
+
+def ell_edge_layout(h: int, de: int, act, dtype) -> Optional[EdgeLayout]:
+    """The paths #7 and #8 take for rows of width ``h``, a basis of width
+    ``de``, the elementwise sigma ``act`` and node rows of ``dtype`` (see
+    ``EdgeLayout``); the library's entries decide from the same h and de.
+    Needs a card: it asks the built library."""
+    if h < 1 or de < 1:
+        raise ValueError(f"widths must be positive, got H = {h}, De = {de}")
+    code = _library("ell_edge_kernels").ell_edge_layout(
+        h, de, act.kernel_id, int(dtype == torch.bfloat16))
+    return decode_edge_layout(code)
 
 
 def _edge_projection(e_basis, w_e, slot_edge):
@@ -625,8 +681,9 @@ def ell_edge_act_reduce2(eq, ek, e_basis, w_e, slot_src, slot_edge, scale,
     skipped.
 
     Replaces ``bucket_edge_act_reduce2`` (sir_gcn_tpu/ops/pallas/
-    kernels.py), one launch for all buckets. Bound: operations at the arxiv
-    width, 2 De + 8 flops per valid slot and feature."""
+    kernels.py), one launch for all buckets; ``ell_edge_layout`` tells its
+    path. Bound: operations at the arxiv width, 2 De + 9 flops per valid
+    slot and feature."""
     device = _check_fwd("ell_edge_act_reduce2", eq, ek, slot_src, scale,
                         row_key, row_ptr, act)
     _, r, h, de = _check_fused(eq, e_basis, w_e, slot_src, slot_edge, scale,
@@ -655,9 +712,10 @@ def ell_edge_src_bwd(eq, g, ek, e_basis, w_e, slot_dst, slot_edge, scale,
     or bf16); ek [N, H] f32. Zero-scale slots contribute exactly 0.
 
     Replaces ``bucket_edge_src_bwd`` (sir_gcn_tpu/ops/pallas/kernels.py).
-    Bound: operations at the arxiv width, 4 De + 6 flops per valid slot and
+    Bound: operations at the arxiv width, 4 De + 7 flops per valid slot and
     feature. g_we is summed per warp, block and then over blocks in a fixed
-    order, so it is the same from run to run."""
+    order, so it is the same from run to run; ``ell_edge_layout`` tells
+    the path."""
     device, r, h = _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr)
     _need_diagonal("ell_edge_src_bwd", act)
     _, _, _, de = _check_fused(ek, e_basis, w_e, slot_dst, slot_edge, scale,

@@ -8,6 +8,8 @@ example) against the package's own.
     python -m sir_gcn_tpu_torch.tools.ell_ab --lab other.cu
     git show <rev>:sir_gcn_tpu_torch/csrc/ell_max_kernels.cu > other.cu
     python -m sir_gcn_tpu_torch.tools.ell_ab --max other.cu
+    git show <rev>:sir_gcn_tpu_torch/csrc/ell_edge_kernels.cu > other.cu
+    python -m sir_gcn_tpu_torch.tools.ell_ab --edge other.cu
 
 The other source is built with the package's nvcc flags for its source
 into a library of its own (``build/kernels/ab-<hash>/``), which the
@@ -46,7 +48,17 @@ the spread of each. Each library's counts and backward are taken against
 its own forward's maxima, as the aggregate uses them; the tool prints the
 largest difference of the maxima, the (row, o) whose counts differ (near
 ties that the two products round apart) and the largest difference of
-geq_rows, g_z and g_W. Needs a CUDA card.
+geq_rows, g_z and g_W.
+
+The edge mode (``--edge``, ``csrc/ell_edge_kernels.cu``) runs #7
+``ell_edge_act_reduce2`` and #8 ``ell_edge_src_bwd`` from both libraries
+at the ogbn-arxiv plan, H = 96, De = 16, with bf16 and with f32 edges,
+leaky_relu(0.2) and tanh, the basis and W_E from seed 0 made on the card
+(as chip_smoke.py's ``edge_tables``): ms per launch over 20 warm launches
+in eight turns (other, this, this, other, ...), the median and the spread
+of each; the largest difference of rows, srows, the g_ek rows and g_WE
+between the two libraries, and whether each is bitwise equal; and the
+paths this library's ``ell_edge_layout`` reports. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ from ..ops.cuda.kernels import (
     _ARGTYPES,
     _QUERIES,
     _library,
+    ell_edge_layout,
     ell_max_layout,
 )
 from ..ops.cuda.lab import INFLIGHT, PASS2_TILE_ROWS
@@ -89,6 +102,11 @@ FOLD_ROWS = 16_384
 LAB_ITERS = 20
 LAB_ROUNDS = 8  # turns of (other, this, library), alternating in order
 MAX_ITERS, MAX_ROUNDS = 10, 8
+EDGE_DE = 16  # the edge basis width of the SIREConv configuration
+EDGE_ITERS, EDGE_ROUNDS = 20, 8
+# g_WE sums a product over every slot: two grids sum it in another order,
+# held to chip_smoke.py's GW_TOL (atol grows by 1e-5 of the largest entry)
+GW_TOL = dict(atol=3e-4, rtol=1e-3, amax=1e-5)
 
 
 def build_other(source: Path, name: str = "ell_kernels") -> ctypes.CDLL:
@@ -417,34 +435,136 @@ def run_max(device, other: Path) -> dict:
     return recs
 
 
+def edge_launches(lib, inp: dict, eb, we, act, dtype) -> tuple:
+    """#7 and #8 of one library on ``inp`` with edges of ``dtype``: name
+    -> a call that launches it; and the outputs after one launch each."""
+    fg = inp["fg"]
+    plan, splan = fg.dst_plan, fg.src_plan
+    eq, ek, g = inp["eq"], inp["ek"], inp["g"]
+    ekt, eqt, gt = (t.to(dtype) for t in (ek, eq, g))
+    r, rs = plan.row_key.numel(), splan.row_key.numel()
+    p = torch.Tensor.data_ptr
+    f32 = dict(dtype=torch.float32, device=eq.device)
+    a, sl, bf = act.kernel_id, float(act.param), int(dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    blocks = lib.ell_edge_src_bwd_blocks(rs, H, EDGE_DE, a, bf)
+    if blocks <= 0:
+        raise RuntimeError(f"ell_edge_src_bwd cannot take H = {H}, De = "
+                           f"{EDGE_DE}")
+    rows, srows = torch.empty((r, H), **f32), torch.empty((r, H), **f32)
+    out = torch.empty((rs, H), **f32)
+    part = torch.empty((blocks, EDGE_DE * H), **f32)
+    gwe = torch.empty((EDGE_DE, H), **f32)
+
+    def check(code, entry):
+        if code:
+            raise RuntimeError(f"{entry}: CUDA error {code}")
+
+    def fwd():
+        check(lib.ell_edge_act_reduce2(
+            p(eq), p(ekt), bf, p(eb), p(we), p(fg.dst_slot_srcnode),
+            p(plan.slot_edge), p(fg.dst_slot_scales["sym"]),
+            p(plan.row_key), p(plan.row_ptr), r, H, EDGE_DE, a, sl, p(rows),
+            p(srows), stream), "ell_edge_act_reduce2")
+
+    def bwd():
+        check(lib.ell_edge_src_bwd(
+            p(eqt), p(gt), bf, p(ek), p(eb), p(we), p(fg.src_slot_dstnode),
+            p(splan.slot_edge), p(fg.src_slot_scales["sym"]),
+            p(splan.row_key), p(splan.row_ptr), rs, H, EDGE_DE, a, sl,
+            blocks, p(out), p(part), p(gwe), stream), "ell_edge_src_bwd")
+
+    fwd()
+    bwd()
+    torch.cuda.synchronize()
+    outs = dict(rows=rows.clone(), srows=srows.clone(), out=out.clone(),
+                gwe=gwe.clone(), keep=(ekt, eqt, gt, part, blocks))
+    return dict(fwd=fwd, bwd=bwd), outs
+
+
+def run_edge(device, other: Path) -> dict:
+    """Every A/B line of #7 and #8; returns label -> record."""
+    libs = {"other": build_other(other, "ell_edge_kernels"),
+            "this": _library("ell_edge_kernels")}
+    inp = arxiv_inputs(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    eb = torch.randn((inp["fg"].e_pad, EDGE_DE), generator=gen,
+                     device=device)
+    we = 0.3 * torch.randn((EDGE_DE, H), generator=gen, device=device)
+    recs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        for act in (leaky_relu(0.2), tanh):
+            print(f"layout at H = {H}, De = {EDGE_DE} ({act.name}, {dt}): "
+                  f"{ell_edge_layout(H, EDGE_DE, act, dtype)}", flush=True)
+            runs = {k: edge_launches(lib, inp, eb, we, act, dtype)
+                    for k, lib in libs.items()}
+            o, t = runs["other"][1], runs["this"][1]
+            diffs = {k: float((o[k] - t[k]).abs().max())
+                     for k in ("rows", "srows", "out", "gwe")}
+            equal = [k for k in diffs if torch.equal(o[k], t[k])]
+            ref = o["gwe"].abs()
+            gw_ok = bool(((o["gwe"] - t["gwe"]).abs() <= GW_TOL["atol"]
+                          + GW_TOL["amax"] * float(ref.max())
+                          + GW_TOL["rtol"] * ref).all())
+            print(f"{act.name}, {dt}: max |diff| rows {diffs['rows']:.3e}, "
+                  f"srows {diffs['srows']:.3e}, g_ek rows {diffs['out']:.3e},"
+                  f" g_WE {diffs['gwe']:.3e} (largest entry "
+                  f"{float(ref.max()):.3e}, within GW_TOL: {gw_ok}); "
+                  f"bitwise equal: {', '.join(equal) or 'none'}; #8's "
+                  f"blocks: other {o['keep'][-1]}, this {t['keep'][-1]}",
+                  flush=True)
+            names = {"fwd": "#7 ell_edge_act_reduce2",
+                     "bwd": "#8 ell_edge_src_bwd"}
+            for key, label in names.items():
+                ms = alternating_ms({k: r[0][key] for k, r in runs.items()},
+                                    EDGE_ITERS, EDGE_ROUNDS)
+                line = ", ".join(f"{k} {_fmt(v)}" for k, v in ms.items())
+                gain = statistics.median(ms["other"]) / statistics.median(
+                    ms["this"])
+                print(f"{label} ({act.name}, {dt}): {line}, this/other "
+                      f"{gain:.2f}x faster", flush=True)
+                recs[f"{label} ({act.name}, {dt})"] = dict(
+                    ms=ms, equal=equal, gw_within_tol=gw_ok, **diffs)
+    return recs
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(
         "same-card A/B of two builds of the port's ELL or lab kernels")
     p.add_argument("other", type=Path,
                    help="a source with the C interface of ell_kernels.cu "
                         "(with --lab, of lab_kernels.cu; with --max, of "
-                        "ell_max_kernels.cu)")
+                        "ell_max_kernels.cu; with --edge, of "
+                        "ell_edge_kernels.cu)")
     mode = p.add_mutually_exclusive_group()
     mode.add_argument("--lab", action="store_true",
                       help="time the lab's streams (#19-#22, #24) with "
                            "their library calls")
     mode.add_argument("--max", action="store_true",
                       help="time the max kernels #9-#11 (ell_max_kernels.cu)")
+    mode.add_argument("--edge", action="store_true",
+                      help="time the fused-edge kernels #7 and #8 "
+                           "(ell_edge_kernels.cu)")
     p.add_argument("--probes", action="store_true",
                    help="also time #2 and #4 with their gathers folded "
                         "into a smaller table")
     args = p.parse_args(argv)
-    if (args.lab or args.max) and args.probes:
-        p.error("--probes is for the ELL kernels, not --lab or --max")
+    if (args.lab or args.max or args.edge) and args.probes:
+        p.error("--probes is for the ELL kernels, not --lab, --max or "
+                "--edge")
     device = resolve_device(False)
     name = ("lab_kernels" if args.lab else
-            "ell_max_kernels" if args.max else "ell_kernels")
+            "ell_max_kernels" if args.max else
+            "ell_edge_kernels" if args.edge else "ell_kernels")
     print(card_line(), flush=True)
     print(f"other: {args.other}; this: {build.SOURCES[name]}", flush=True)
     if args.lab:
         return run_lab(device, args.other)
     if args.max:
         return run_max(device, args.other)
+    if args.edge:
+        return run_edge(device, args.other)
     return run(device, args.other, args.probes)
 
 

@@ -15,15 +15,20 @@
   random, hub (stage 2) and isolated-node graphs, sum/mean/sym, f32/bf16;
 * ``SIREConv`` on both routes, with ``linear_edge`` and with an ``Embed``
   edge encoder, against the JAX ``SIREConv`` through the weight bridge;
-* which kernels each route reaches, and what still raises.
+* which kernels each route reaches, and what still raises;
+* the decode of ``ell_edge_layout``'s codes (the paths of #7 and #8).
 
 Tolerances are the JAX suite's: forward atol 2e-4 / rtol 1e-4, gradients
 atol 3e-4 / rtol 1e-3. g_WE, a sum over every slot, is held at GW_TOL:
 atol 3e-4 plus 1e-5 of its largest entry, rtol 1e-3. bf16 is rounded at
 the same points in both packages.
 
-The ``cuda`` test compares each kernel with its plain version on the card
-and skips where there is none. JAX is imported inside the tests that use
+The ``cuda`` tests compare each kernel with its plain version on the card
+(on both of #7's and #8's paths, the register path and the shared-memory
+loop, with the path each shape takes; and on plans with odd row counts,
+rows of more than 32 slots, budgets off multiples of 8, zero scales and a
+basis off 16-byte alignment), ask two launches of #7 and #8 for equal
+bits, and skip where there is no card. JAX is imported inside the tests that use
 it, so that the card's tests run where JAX is not installed
 (``pytest -m cuda --noconftest tests/test_torch_edge.py``).
 """
@@ -41,11 +46,14 @@ from sir_gcn_tpu_torch import build_graph
 from sir_gcn_tpu_torch.models import Embed, SIREConv
 from sir_gcn_tpu_torch.ops.cuda import (
     LAUNCHES,
+    EdgeLayout,
+    decode_edge_layout,
     ell_act_reduce2_edge,
     ell_act_reduce_edge,
     ell_act_reduce_plain,
     ell_edge_act_reduce2,
     ell_edge_act_reduce2_plain,
+    ell_edge_layout,
     ell_edge_src_bwd,
     ell_edge_src_bwd_plain,
     ell_src_bwd_edge,
@@ -504,6 +512,43 @@ def test_edge_wrappers_check_inputs_and_count_no_cpu_launch():
                          splan.row_ptr, ACT)
 
 
+def test_edge_layout_python_side():
+    """``ell_edge_layout`` checks its widths before it asks the library,
+    and its codes decode to each kernel's path and the launch shapes."""
+    for h, de in ((0, 16), (96, 0), (-1, 5)):
+        with pytest.raises(ValueError, match="positive"):
+            ell_edge_layout(h, de, ACT, torch.float32)
+    arxiv = 2 | 2 << 2 | 3 << 4 | 16 << 7 | 4 << 12 | 2 << 16 | 4 << 20 \
+        | 4 << 24
+    assert decode_edge_layout(arxiv) == EdgeLayout(
+        "registers", "registers", 3, 16, 4, 2, 4, 4)
+    # H = 128, De = 16: the backward's W_E and g_WE exceed its registers
+    mixed = 2 | 1 << 2 | 4 << 4 | 16 << 7 | 4 << 12 | 1 << 16 | 4 << 20 \
+        | 8 << 24
+    assert decode_edge_layout(mixed) == EdgeLayout(
+        "registers", "shared", 4, 16, 4, 1, 4, 8)
+    # De = 60 at H = 128: the forward's loop, no backward
+    wide = 1 | 4 << 4 | 1 << 12 | 1 << 16 | 8 << 20 | 8 << 24
+    assert decode_edge_layout(wide) == EdgeLayout(
+        "shared", None, 4, 0, 1, 1, 8, 8)
+    assert decode_edge_layout(-1) is None
+    with pytest.raises(ValueError, match="no path"):
+        decode_edge_layout(arxiv | 3)
+
+
+def test_ell_ab_edge_needs_a_card(tmp_path):
+    """The A/B tool's edge mode (two ell_edge_kernels.cu builds) runs on
+    the card only, and --probes is not one of its options."""
+    from sir_gcn_tpu_torch.tools import ell_ab
+
+    with pytest.raises(SystemExit):
+        ell_ab.main(["--edge", "--probes", str(tmp_path / "other.cu")])
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ell_ab.main(["--edge", str(tmp_path / "other.cu")])
+
+
 # ----------------------------------------------------------------------
 # Embed, SIREConv and the weight bridge
 # ----------------------------------------------------------------------
@@ -642,6 +687,30 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the paths #7 and #8 take (csrc/ell_edge_kernels.cu): registers for H <=
+# 128 and De <= 16, in the backward only while ceil(H / 32) features a lane
+# times the basis width held (De padded to 8 or 16) stay <= 48
+EDGE_PATHS = {(24, 5): ("registers", "registers"),
+              (20, 5): ("registers", "registers"),
+              (40, 12): ("registers", "registers"),
+              (96, 16): ("registers", "registers"),
+              (128, 8): ("registers", "registers"),
+              (128, 16): ("registers", "shared"),
+              (200, 5): ("shared", "shared"),
+              (200, 16): ("shared", "shared")}
+
+
+def fused_args(fg, eq, ek, g, eb, we, sd, ss, act, dtype):
+    """The arguments of #7 and #8 on the card: ek (#7) and eq, g (#8) in
+    the edge type."""
+    plan, splan = fg.dst_plan, fg.src_plan
+    fwd = (eq, ek.to(dtype), eb, we, fg.dst_slot_srcnode, plan.slot_edge,
+           sd, plan.row_key, plan.row_ptr, act)
+    bwd = (eq.to(dtype), g.to(dtype), ek, eb, we, fg.src_slot_dstnode,
+           splan.slot_edge, ss, splan.row_key, splan.row_ptr, act)
+    return fwd, bwd
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("graph,h,de", [("hub", 24, 5), ("random", 96, 16),
@@ -692,3 +761,83 @@ def test_edge_kernels_match_plain_on_card(cuda_device, graph, h, de, dt):
         torch.testing.assert_close(a, b, **tol)
     torch.testing.assert_close(got[-1], want[-1],
                                **gw_tol(want[-1].cpu().numpy()))
+    lay = ell_edge_layout(h, de, ACT, tdt)
+    assert (lay.fwd, lay.bwd) == EDGE_PATHS[h, de], lay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,de,dt,aligned", [
+    (96, 16, "bf16", True), (96, 16, "f32", False), (40, 12, "bf16", True),
+    (24, 5, "f32", True), (128, 8, "bf16", False), (128, 16, "f32", True),
+    (200, 16, "bf16", True)])
+def test_fused_edge_kernels_on_awkward_plans_on_card(cuda_device, h, de, dt,
+                                                     aligned):
+    """#7 and #8 against their plain versions on plans with odd row counts
+    on both sides (a part-full last tile of rows), rows of 40 to 104 slots
+    (several 32-slot chunks), budgets off multiples of 8 (10, 12, 28), a
+    fifth of the scales zeroed, both sigmas, and a basis that starts 4
+    bytes past a 16-byte boundary (``aligned`` False: 4-byte copies)."""
+    rng = np.random.default_rng(0)
+    n, d = 70, cuda_device
+    dst = np.concatenate([np.repeat([0, 1, 2, 3], [100, 37, 27, 45]),
+                          rng.integers(4, n, 260)])
+    src = rng.integers(0, n, dst.size)
+    src[rng.permutation(dst.size)[:110]] = np.repeat([5, 6], [70, 40])
+    fg = tell.build_fast_graph(build_graph(src, dst, n, device=d),
+                               max_budget=256)
+    for plan in (fg.dst_plan, fg.src_plan):
+        budgets = set(np.diff(plan.row_ptr.cpu().numpy()).tolist())
+        assert plan.num_rows % 2 == 1
+        assert max(budgets) > 32 and {b % 8 for b in budgets} - {0}
+    eq, ek, g = (_t(rng.normal(size=(fg.n_pad, h)), device=d)
+                 for _ in range(3))
+    basis = rng.normal(size=(fg.e_pad, de)).astype(np.float32)
+    eb = torch.empty(fg.e_pad * de + 1, device=d)[1 - aligned:][
+        :fg.e_pad * de].view(fg.e_pad, de)
+    eb.copy_(_t(basis, device=d))
+    assert (eb.data_ptr() % 16 == 0) == aligned
+    we = _t(rng.normal(size=(de, h)) * 0.3, device=d)
+    sd, ss = (getattr(fg, f"{side}_slot_scales")["sym"] * _t(
+        rng.random(getattr(fg, f"{side}_plan").num_slots) > 0.2, device=d)
+        for side in ("dst", "src"))
+    assert bool((sd == 0).any()) and bool((ss == 0).any())
+    for act in (ACT, tell.tanh):
+        fwd, bwd = fused_args(fg, eq, ek, g, eb, we, sd, ss, act, DTYPES[dt])
+        got = ell_edge_act_reduce2(*fwd) + ell_edge_src_bwd(*bwd)
+        want = (ell_edge_act_reduce2_plain(*fwd)
+                + ell_edge_src_bwd_plain(*bwd))
+        for a, b, tol in zip(got, want, (FWD_TOL, FWD_TOL, BWD_TOL)):
+            torch.testing.assert_close(a, b, **tol)
+        torch.testing.assert_close(got[3], want[3],
+                                   **gw_tol(want[3].cpu().numpy()))
+        lay = ell_edge_layout(h, de, act, DTYPES[dt])
+        assert (lay.fwd, lay.bwd) == EDGE_PATHS[h, de], lay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,de,dt,act", [
+    (96, 16, "bf16", "leaky_relu"), (96, 16, "f32", "tanh"),
+    (128, 16, "bf16", "leaky_relu"), (40, 12, "f32", "leaky_relu")])
+def test_fused_edge_kernels_are_bitwise_repeatable_on_card(cuda_device, h,
+                                                           de, dt, act):
+    """Two launches of #7 and #8 on the same inputs give bitwise equal
+    rows, srows, g_ek rows and g_WE, on both of #8's paths: every sum's
+    order is fixed by the grid, with no atomics. A graph of 4,000 nodes
+    and 40,000 edges fills many blocks."""
+    rng = np.random.default_rng(7)
+    n, e, d = 4000, 40000, cuda_device
+    fg = tell.build_fast_graph(
+        build_graph(rng.integers(0, n, e), rng.integers(0, n, e), n,
+                    device=d), max_budget=64)
+    eq, ek, g = (_t(rng.normal(size=(fg.n_pad, h)), device=d)
+                 for _ in range(3))
+    eb = _t(rng.normal(size=(fg.e_pad, de)), device=d)
+    we = _t(rng.normal(size=(de, h)) * 0.3, device=d)
+    tact = {"leaky_relu": ACT, "tanh": tell.tanh}[act]
+    fwd, bwd = fused_args(fg, eq, ek, g, eb, we, fg.dst_slot_scales["sym"],
+                          fg.src_slot_scales["sym"], tact, DTYPES[dt])
+    first = ell_edge_act_reduce2(*fwd) + ell_edge_src_bwd(*bwd)
+    second = ell_edge_act_reduce2(*fwd) + ell_edge_src_bwd(*bwd)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
