@@ -21,9 +21,12 @@ Phases, each printed as it runs; any failure exits non-zero:
            kernel's bound (#12 and its CSR product in alternating turns,
            as in the lab phase); for #1, #2, #4 and their edge-term forms the
            path each launch took (the 16-byte vector path with its layout,
-           which the arxiv plan must take, or the scalar loop), and for #7
+           which the arxiv plan must take, or the scalar loop), for #7
            and #8 theirs (W_E and g_WE in registers, which the arxiv plan
-           must take, or the shared-memory loop)
+           must take, or the shared-memory loop), and for #3 and #4r
+           theirs (the lane-group path, which the arxiv plan must take in
+           f32 and bf16 with centered_relu and softmax, or the first
+           design)
   train    the arxiv trainer's entry point at full width (169,343 nodes,
            H = 96, 3 layers, bn, residual, bf16 edges), once with sym and
            once with max aggregation, 5 steps and evals each, with the
@@ -388,6 +391,27 @@ def log_edge_layout(label, h, de, act, dtype, require_registers=False):
                               or lay.bwd != "registers"):
         raise AssertionError(f"{label}: #7 and #8 do not take the register "
                              f"path ({lay})")
+
+
+def log_general_layout(label, name, args, outs, require_group=False):
+    """Log the path a launch of ``name`` (#3 ``ell_geq_reduce`` or #4r
+    ``ell_src_bwd_rowwise``, its wrapper's ``args`` and output ``outs``)
+    took (ell_general_layout: the lane-group path with its layout, or the
+    first design). With ``require_group`` the first design raises: the
+    redesign must not be bypassed."""
+    from sir_gcn_tpu_torch.ops import cuda as K
+
+    if name == "ell_geq_reduce":  # eq, ek (gathered), ..., act, g
+        tables, act = (args[0], args[1], args[-1]), args[-2]
+        dtype = args[1].dtype
+    else:  # eq, g (gathered), ek, ..., act
+        tables, act, dtype = args[:3], args[-1], args[0].dtype
+    lay = K.ell_general_layout(name, args[0].shape[1], dtype, act, *tables,
+                               *outs)
+    log(f"  {label} {name}: " + ("first design" if lay is None else
+                                 f"lane-group path, {lay}"))
+    if require_group and lay is None:
+        raise AssertionError(f"{label} {name} took the first design")
 
 
 def check_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
@@ -760,12 +784,14 @@ def near_gates(plan, z, scale, act):
 
 
 def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
-                          timing=None, mask_gates=False):
+                          timing=None, mask_gates=False, require_group=False):
     """The general route's kernels (#1r, #3, #6 on the dst plan; #4r and
     #5 on the src plan) against their plain versions; a g_z stored in bf16
     at one bf16 step. With ``mask_gates`` (centered_relu) the rows and
     slots holding a near-gate (slot, feature) are left out of the backward
-    comparisons and counted: the relu may take the other side there."""
+    comparisons and counted: the relu may take the other side there. The
+    path of #3 and #4r is logged; with ``require_group`` it must be the
+    lane-group path."""
     import torch
 
     from sir_gcn_tpu_torch.ops import cuda as K
@@ -823,6 +849,9 @@ def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
             errs[name] = max(errs.get(name, 0.0), err)
         outs[name] = got
         del want
+        if name in ("ell_geq_reduce", "ell_src_bwd_rowwise"):
+            log_general_layout(label, name, runs[name][0], got,
+                               require_group=require_group)
     if timing is None:
         return
     valid_d, valid_s = int((sd != 0).sum()), int((ss != 0).sum())
@@ -920,9 +949,10 @@ def phase_kernels(device):
                           errs, timing=keep, mask_near_ties=True)
         check_general_kernels(f"arxiv {dtype} centered_relu", fg, eq, ek, g,
                               sd, ss, centered_relu(0.5), dtype, errs,
-                              timing=keep, mask_gates=True)
-    check_general_kernels("arxiv bf16 softmax", fg, eq, ek, g, sd, ss,
-                          softmax, torch.bfloat16, errs)
+                              timing=keep, mask_gates=True,
+                              require_group=True)
+        check_general_kernels(f"arxiv {dtype} softmax", fg, eq, ek, g, sd,
+                              ss, softmax, dtype, errs, require_group=True)
     for name, t in timing.items():
         b_ms, by, nbytes, flops = t["bound"]
         log(f"  {name} (bf16 edges): {t['ms']:.4f} ms, plain "

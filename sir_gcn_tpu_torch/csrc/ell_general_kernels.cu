@@ -27,17 +27,60 @@
 // driven by sir_gcn_tpu/ops/ell.py make_ell_sir_aggregate_pallas).
 //
 // Bound: device-memory bytes, as for the linear kernels: each slot costs one
-// random H-wide row read (an H-wide g_slots row write besides in
-// ell_act_reduce_bwd) and some ten flops per feature. Design: one warp per
-// row, 8 rows per block; the lanes load 32 slot indices and scales at a
-// time and pass them round with warp shuffles. A row-wise sigma needs a
-// slot's whole row at once: each lane keeps NF = 1, 2, 3, 4 or 8 features
-// (NF * 32 >= H, so H <= 256) in registers, and a slot costs one warp
-// reduction (__shfl_xor_sync) for the centered relu's mean (two in its vjp)
-// and two for softmax's max and sum (three in its vjp). An elementwise sigma
-// walks the features in chunks of up to 128, so any H is taken. A slot with
-// scale 0 is skipped whole (the test is warp-uniform): it contributes exactly
-// 0, and ell_act_reduce_bwd writes its g_slots row as 0. All sums are f32.
+// random H-wide row read (two in ell_src_bwd_*, an H-wide g_slots row write
+// besides in ell_act_reduce_bwd) and some ten flops per feature.
+//
+// The first design (every kernel, and #3 and #4r where the lane-group path
+// below cannot go): one warp per row, 8 rows per block; the lanes load 32
+// slot indices and scales at a time and pass them round with warp shuffles.
+// A row-wise sigma needs a slot's whole row at once: each lane keeps NF = 1,
+// 2, 3, 4 or 8 features (NF * 32 >= H, so H <= 256) in registers, and a
+// slot costs one warp reduction (__shfl_xor_sync) for the centered relu's
+// mean (two in its vjp) and two for softmax's max and sum (three in its
+// vjp). An elementwise sigma walks the features in chunks of up to 128, so
+// any H is taken. A slot with scale 0 is skipped whole (the test is
+// warp-uniform): it contributes exactly 0, and ell_act_reduce_bwd writes its
+// g_slots row as 0. All sums are f32. The slots of a row are walked one at a
+// time, each an exposed gather latency and a chain of dependent shuffles.
+//
+// The lane-group path of ell_geq_reduce (#3) and ell_src_bwd_rowwise (#4r),
+// for a row-wise sigma when H * sizeof(T) is a multiple of 16 and every
+// table is 16-byte aligned (T the gathered type): a gathered row is C = H *
+// sizeof(T) / 16 chunks of 16 bytes (12 at H = 96 in bf16, 24 in f32). A
+// group of GW lanes (a power of two) holds one slot's whole row, lane j of
+// a group chunks j, j + GW, ..., so a warp works on G = 32 / GW slots at
+// once, each group on its own. GW is the narrowest power of two that leaves
+// a lane at most kMaxValuesPerLane values of a row: at H = 96 groups of 8
+// lanes, 2 chunks (16 values) a lane in bf16 with 4 of 16 chunk places
+// idle, 3 chunks (12 values) in f32 with every lane busy. The row-wise
+// reductions are a pairwise tree over the lane's values followed by an xor
+// butterfly over the group (lanes past the row hold values that add 0 to a
+// sum and -inf to a max; every lane of a group ends with the same bits).
+// Every lane runs every slot of its group: a zero-scale slot, or a group
+// past the row's last slot, runs with scale 0 and adds exactly 0 (for
+// finite inputs), so no shuffle sits under a branch that some groups skip.
+// The scale multiplies each slot's vjp, which is linear in its cotangent;
+// the centered relu's mean is a sum times 1 / H, and softmax takes __expf
+// (a few ulp) and one reciprocal a slot.
+//
+// The kernels are persistent (warp w of W takes rows w, w + W, ...) and
+// walk a warp's slots as a stream of batches of kGroupInflight slots a
+// group (one; two need registers that spill under the cap of 128 a thread
+// that keeps 16 warps an SM): the gathers of the next batch, of this row
+// or the next, are issued before the current batch is worked, the group
+// width is a template parameter (its butterflies unrolled; only the widths
+// and chunk counts group_layout gives are built), the next row's slot
+// range, key and first 32 slot
+// indices and scales are loaded a row ahead, and its f32 key rows (ek for
+// #4r; eq and g for #3) are copied into the warp's shared memory by
+// cp.async when its first batch is issued. Each group sums its slots in
+// slot order in f32; at the end of the row the groups' sums are added by an
+// xor butterfly over the groups, a fixed order, and the groups share the
+// row's 16-byte stores. No atomics: two launches give the same bits.
+// ell_general_layout reports the path a launch takes. At the arxiv plan #4r
+// gathers two bf16 rows a slot from eq and g, 65 MB together, more than
+// the 50 MB L2, so its floor is HBM's rate for random rows; #3 gathers ek,
+// 32.5 MB, which the L2 holds, and is held by the SM's instruction issue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,6 +90,13 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
+// The lane-group path: the values of a gathered row a lane holds at most
+// (the group is made just wide enough), the slots a group has in flight in
+// a batch, and the blocks an SM must fit (the register cap of
+// __launch_bounds__).
+constexpr int kMaxValuesPerLane = 16;
+constexpr int kGroupInflight = 1;
+constexpr int kGroupMinBlocks = 2;
 
 // Activation ids, as registered in sir_gcn_tpu_torch/ops/ell.py.
 enum {
@@ -356,6 +406,376 @@ src_bwd_rw_kernel(const T* __restrict__ eq, const T* __restrict__ g,
   }
 }
 
+// ---------------------------------------------------------------------
+// The lane-group path of #3 and #4r
+// ---------------------------------------------------------------------
+
+// 16 bytes of T widened to f32.
+template <typename T>
+struct Vec;
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  // a bf16 value is the top half of its f32 value
+  static __device__ __forceinline__ void widen(const uint4& u, float* f) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void widen(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// A row's slot range and key, and one lane's slot of a run of 32: what a
+// warp loads ahead of the row it works on.
+struct Head {
+  int s0, s1, key;
+};
+struct Slot {
+  int node;
+  float sc;
+};
+
+__device__ __forceinline__ Head load_head(const int* __restrict__ row_ptr,
+                                          const int* __restrict__ row_key,
+                                          int r, int R) {
+  Head h{0, 0, 0};
+  if (r < R) {
+    h.s0 = __ldg(row_ptr + r);
+    h.s1 = __ldg(row_ptr + r + 1);
+    h.key = __ldg(row_key + r);
+  }
+  return h;
+}
+
+// Slot base + lane of a row ending at s1 (zeros past it).
+__device__ __forceinline__ Slot load_slot(const int* __restrict__ slot_node,
+                                          const float* __restrict__ scale,
+                                          int base, int s1, int lane) {
+  Slot d{0, 0.f};
+  const int mine = base + lane;
+  if (mine < s1) {
+    d.node = __ldg(slot_node + mine);
+    d.sc = __ldg(scale + mine);
+  }
+  return d;
+}
+
+// Butterflies over the aligned groups of GW lanes (a power of two): every
+// lane of a group ends with the same bits.
+template <int GW>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = GW / 2; o > 0; o /= 2) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+template <int GW>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = GW / 2; o > 0; o /= 2)
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// A pairwise tree over a lane's NV values: a chain of log2 NV operations,
+// not NV.
+template <int NV>
+__device__ __forceinline__ float tree_sum(const float (&x)[NV]) {
+  float t[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) t[j] = x[j];
+#pragma unroll
+  for (int w = 1; w < NV; w *= 2) {
+#pragma unroll
+    for (int j = 0; j + w < NV; j += 2 * w) t[j] += t[j + w];
+  }
+  return t[0];
+}
+
+template <int NV>
+__device__ __forceinline__ float tree_max(const float (&x)[NV]) {
+  float t[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) t[j] = x[j];
+#pragma unroll
+  for (int w = 1; w < NV; w *= 2) {
+#pragma unroll
+    for (int j = 0; j + w < NV; j += 2 * w) t[j] = fmaxf(t[j], t[j + w]);
+  }
+  return t[0];
+}
+
+// acc += w * vjp(act, z)(gs) for one slot whose row is spread over a group
+// of GW lanes: gs is the slot's cotangent before its scale w (the vjp is
+// linear in it, so w multiplies the result instead). inv_h = 1 / H. A
+// lane's values past the row hold z = 0 (centered_relu) or -inf (softmax)
+// and gs = 0, so that they add nothing to a sum or a max. Straight-line
+// code: the slots a lane has in flight interleave.
+template <int ACT, int GW, int NV>
+__device__ __forceinline__ void add_vjp_group(const float (&z)[NV],
+                                              const float (&gs)[NV],
+                                              float w, float inv_h, float p,
+                                              float (&acc)[NV]) {
+  if (ACT == ACT_CENTERED_RELU) {
+    // d = g_m where z - c > 0 (relu'(0) = 0), g_z = d - alpha * mean(d)
+    const float c = p * (group_sum<GW>(tree_sum(z)) * inv_h);
+    float d[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) d[j] = z[j] > c ? gs[j] : 0.f;
+    const float sd = p * (group_sum<GW>(tree_sum(d)) * inv_h);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) acc[j] = fmaf(w, d[j] - sd, acc[j]);
+  } else {  // ACT_SOFTMAX: g_z = y * (g_m - sum(g_m * y))
+    const float mx = group_max<GW>(tree_max(z));
+    float y[NV], gy[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) y[j] = __expf(z[j] - mx);
+    const float inv_s = __frcp_rn(group_sum<GW>(tree_sum(y)));
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      y[j] *= inv_s;
+      gy[j] = gs[j] * y[j];
+    }
+    const float dot = group_sum<GW>(tree_sum(gy));
+#pragma unroll
+    for (int j = 0; j < NV; ++j) acc[j] = fmaf(w, y[j] * (gs[j] - dot), acc[j]);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// out[r] = sum_s vjp(act, z_s)(g_m), z_s = a[slot_idx[s]] + ka[row_key[r]]:
+// #4r with GATHER_G (a = eq and ga = g in T, gathered; ka = ek f32; g_m =
+// scale[s] * g[slot_dst[s]]), #3 without (a = ek in T, gathered; ka = eq
+// and kg = g f32, the key's rows; g_m = g[row_key[r]] * scale[s]). GW is
+// the group width and K the chunks a lane, from group_layout; the block's
+// dynamic shared memory holds 2 * KEYS * H floats a warp.
+//
+// A warp walks its rows' slots as a stream of batches: a batch is up to
+// G * U slots of one run of 32 of a row (U a group), and a row has at least
+// one (an empty row one with no live slot, so that its zero row is
+// written). The gathers of the next batch, of this row or the next, are
+// issued before the current batch is worked, and the next row's key rows
+// are copied into the warp's shared memory by cp.async when its first batch
+// is issued: a warp always has a batch of gathers in flight.
+template <int ACT, typename T, int GW, int K, bool GATHER_G>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kGroupMinBlocks)
+group_vjp_kernel(const T* __restrict__ a, const T* __restrict__ ga,
+                 const float* __restrict__ ka, const float* __restrict__ kg,
+                 const int* __restrict__ slot_idx,
+                 const float* __restrict__ scale,
+                 const int* __restrict__ row_key,
+                 const int* __restrict__ row_ptr, int R, int H, float p,
+                 float* __restrict__ out) {
+  constexpr int EPV = Vec<T>::N;
+  constexpr int NV = K * EPV;
+  constexpr int U = kGroupInflight;
+  constexpr int KEYS = GATHER_G ? 1 : 2;  // f32 key rows a row
+  extern __shared__ float4 group_smem[];
+  const int lane = threadIdx.x & 31;
+  const int W = gridDim.x * kWarpsPerBlock;
+  const int r0 = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (r0 >= R) return;  // the whole warp leaves together
+  // two buffers of key rows a warp, by the parity of the row's place among
+  // the warp's rows: the next row's copy never lands in the rows in use
+  float* kbufs = reinterpret_cast<float*>(group_smem) +
+                 (threadIdx.x >> 5) * 2 * KEYS * H;
+  constexpr int G = 32 / GW;
+  const int C = H / EPV;
+  const int grp = lane / GW;
+  const float inv_h = 1.f / (float)H;
+  // past the row: 0 (centered_relu) or -inf (softmax) in z
+  const float pad = ACT == ACT_SOFTMAX ? __int_as_float((int)0xff800000u)
+                                       : 0.f;
+  // the lane's chunks gl + GW * k and their first features
+  bool ok[K];
+  int f[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = (lane & (GW - 1)) + GW * k;
+    ok[k] = c < C;
+    f[k] = ok[k] ? c * EPV : 0;
+  }
+
+  // The load cursor: row lr with head lh, the run of 32 slots at lbase (the
+  // lane's slot of it in lmine), the batch at lk0 of the run; and the next
+  // row's head and first run, loaded a row ahead.
+  int lr = r0, lord = 0;  // lord: the row's place among the warp's rows
+  Head lh = load_head(row_ptr, row_key, lr, R);
+  int lbase = lh.s0, lk0 = 0;
+  Slot lmine = load_slot(slot_idx, scale, lbase, lh.s1, lane);
+  Head hn = load_head(row_ptr, row_key, lr + W, R);
+  Slot first_n = load_slot(slot_idx, scale, hn.s0, hn.s1, lane);
+
+  struct Batch {
+    uint4 va[U][K], vg[U][K];
+    float w[U];
+    int row, kb;  // kb: the buffer of the row's key rows
+    bool first, last;
+  };
+  // issue the gathers of the batch at the cursor, and with a row's first
+  // batch the cp.async of its f32 key rows into buffer b.kb ([KEYS][H]);
+  // one cp.async group a batch
+  auto issue = [&](Batch& b) {
+    const int n = min(32, lh.s1 - lbase);
+    b.row = lr;
+    b.kb = lord & 1;
+    b.first = lbase == lh.s0 && lk0 == 0;
+    b.last = lk0 + G * U >= n && lbase + 32 >= lh.s1;
+    if (b.first) {
+      const int q = H / 4;  // 16-byte chunks of a key row
+      float* kbuf = kbufs + b.kb * KEYS * H;
+      for (int c = lane; c < KEYS * q; c += 32) {
+        const float* src = c < q ? ka + (int64_t)lh.key * H + 4 * c
+                                 : kg + (int64_t)lh.key * H + 4 * (c - q);
+        cp_async16(kbuf + 4 * c, src);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = lk0 + u * G + grp;  // the group's slot, within the run
+      const bool live = k < n;
+      const int node = __shfl_sync(kFull, lmine.node, k & 31);
+      const float sc = __shfl_sync(kFull, lmine.sc, k & 31);
+      b.w[u] = live ? sc : 0.f;
+      const int64_t at = (int64_t)node * H;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const bool ld = live && ok[c];
+        b.va[u][c] = ld ? load16(a + at + f[c]) : make_uint4(0, 0, 0, 0);
+        if (GATHER_G)
+          b.vg[u][c] = ld ? load16(ga + at + f[c]) : make_uint4(0, 0, 0, 0);
+      }
+    }
+  };
+  // move the cursor to the next batch; false past the warp's last row
+  auto advance = [&]() -> bool {
+    lk0 += G * U;
+    if (lk0 < min(32, lh.s1 - lbase)) return true;
+    lk0 = 0;
+    lbase += 32;
+    if (lbase < lh.s1) {
+      lmine = load_slot(slot_idx, scale, lbase, lh.s1, lane);
+      return true;
+    }
+    lr += W;
+    ++lord;
+    if (lr >= R) return false;
+    lh = hn;
+    lbase = lh.s0;
+    lmine = first_n;
+    hn = load_head(row_ptr, row_key, lr + W, R);
+    first_n = load_slot(slot_idx, scale, hn.s0, hn.s1, lane);
+    return true;
+  };
+
+  float kv[NV], kgv[NV], acc[NV];
+  bool more;
+  // work batch cur with nxt's gathers in flight; false after the last
+  // batch
+  auto step = [&](Batch& cur, Batch& nxt) -> bool {
+    if (cur.first) {  // its key rows: wait for the copy, read, release
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncwarp();
+      const float* kbuf = kbufs + cur.kb * KEYS * H;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+#pragma unroll
+        for (int j = 0; j < EPV; j += 4) {
+          const float4 t = ok[k] ? *reinterpret_cast<const float4*>(
+                                       kbuf + f[k] + j)
+                                 : make_float4(pad, pad, pad, pad);
+          kv[k * EPV + j] = t.x;
+          kv[k * EPV + j + 1] = t.y;
+          kv[k * EPV + j + 2] = t.z;
+          kv[k * EPV + j + 3] = t.w;
+          if (!GATHER_G) {
+            const float4 v = ok[k] ? *reinterpret_cast<const float4*>(
+                                         kbuf + H + f[k] + j)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+            kgv[k * EPV + j] = v.x;
+            kgv[k * EPV + j + 1] = v.y;
+            kgv[k * EPV + j + 2] = v.z;
+            kgv[k * EPV + j + 3] = v.w;
+          }
+        }
+      }
+      __syncwarp();  // every lane has read kbuf before it is copied into
+#pragma unroll
+      for (int j = 0; j < NV; ++j) acc[j] = 0.f;
+    }
+    const bool issued = more;
+    if (more) {
+      issue(nxt);
+      more = advance();
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float z[NV], gs[NV];
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        Vec<T>::widen(cur.va[u][c], z + c * EPV);
+        if (GATHER_G) Vec<T>::widen(cur.vg[u][c], gs + c * EPV);
+      }
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        z[j] += kv[j];
+        if (!GATHER_G) gs[j] = kgv[j];
+      }
+      add_vjp_group<ACT, GW, NV>(z, gs, cur.w[u], inv_h, p, acc);
+    }
+    if (cur.last) {
+      // the groups' sums, added by a butterfly over the groups
+#pragma unroll
+      for (int o = GW; o < 32; o *= 2) {
+#pragma unroll
+        for (int j = 0; j < NV; ++j)
+          acc[j] += __shfl_xor_sync(kFull, acc[j], o);
+      }
+      // every group holds the row: group q % G stores the lane's q-th float4
+      float* out_row = out + (int64_t)cur.row * H;
+#pragma unroll
+      for (int q = 0; q < NV / 4; ++q) {
+        const int c = q / (EPV / 4);
+        if (ok[c] && (q & (G - 1)) == grp) {
+          const float* v = acc + 4 * q;
+          *reinterpret_cast<float4*>(out_row + f[c] + 4 * q - c * EPV) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+    return issued;
+  };
+
+  Batch A, B;
+  issue(A);
+  more = advance();
+  while (step(A, B) && step(B, A)) {
+  }
+}
+
 // Features a lane holds: a row-wise act takes the whole row in one pass
 // (1, 2, 3, 4 or 8; 0 past H = 256), an elementwise act chunks of up to 128.
 template <int ACT>
@@ -393,6 +813,117 @@ dim3 grid_for(int R) { return dim3((R + kWarpsPerBlock - 1) / kWarpsPerBlock); }
     case ACT_SOFTMAX: return CALL(ACT_SOFTMAX);                    \
     default: return (int)cudaErrorInvalidValue;                    \
   }
+
+// The lane-group path's layout for rows of H values of `bytes` bytes under
+// a row-wise act (act_id), with the tables and outputs at ptrs (null ones
+// unused), packed as C << 16 | GW << 8 | U; 0 where the launch takes the
+// first design (an elementwise act, H * bytes not a multiple of 16, a table
+// off 16-byte alignment, or H past 256). GW is the narrowest power of two
+// that leaves a lane at most kMaxValuesPerLane values of a row.
+int group_layout(int act_id, int H, int bytes, const void* const* ptrs,
+                 int n) {
+  if (act_id != ACT_CENTERED_RELU && act_id != ACT_SOFTMAX) return 0;
+  if (H <= 0 || H > 256 || (H * bytes) % 16) return 0;
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15) return 0;
+  const int C = H * bytes / 16, per_chunk = 16 / bytes;
+  int gw = 1;
+  while (gw < 32 && (C + gw - 1) / gw * per_chunk > kMaxValuesPerLane)
+    gw <<= 1;
+  const int K = (C + gw - 1) / gw;  // launch_group takes K <= 4, GW <= 16
+  if (K * per_chunk > kMaxValuesPerLane || K > 4 || gw > 16) return 0;
+  return C << 16 | gw << 8 | kGroupInflight;
+}
+
+// A persistent kernel's grid: as many blocks as are resident on the card at
+// once, at most one warp a row. per_sm caches the kernel's resident blocks
+// an SM (-1 before the first query), asked with the most dynamic shared
+// memory a block of it takes (smem_max bytes).
+template <typename Kernel>
+dim3 persistent_grid(Kernel kernel, int R, size_t smem_max, int& per_sm) {
+  if (per_sm < 0 && cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &per_sm, kernel, kWarpsPerBlock * 32, smem_max) != 0)
+    per_sm = 0;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const dim3 all = grid_for(R);
+  const unsigned most = (unsigned)(sms * per_sm);
+  return dim3(most > 0 && most < all.x ? most : all.x);
+}
+
+template <int ACT, typename T, int GW, int K, bool GATHER_G>
+int launch_group_k(const void* a, const void* ga, const void* ka,
+                   const void* kg, const void* slot_idx, const void* scale,
+                   const void* row_key, const void* row_ptr, int R, int H,
+                   float p, void* out, cudaStream_t st) {
+  const auto kernel = group_vjp_kernel<ACT, T, GW, K, GATHER_G>;
+  constexpr size_t row_bytes = 2 * (GATHER_G ? 1 : 2) * sizeof(float);
+  const size_t smem = kWarpsPerBlock * row_bytes * H;
+  static int per_sm = -1;
+  kernel<<<persistent_grid(kernel, R, kWarpsPerBlock * row_bytes * 256,
+                           per_sm),
+           kWarpsPerBlock * 32, smem, st>>>(
+      (const T*)a, (const T*)ga, (const float*)ka, (const float*)kg,
+      (const int*)slot_idx, (const float*)scale, (const int*)row_key,
+      (const int*)row_ptr, R, H, p, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// The K chunks a lane that group_layout can give a group of GW lanes: K = 1
+// or 2 for GW = 1, else K * 16 / sizeof(T) values fill more than half of
+// kMaxValuesPerLane (a narrower group would do otherwise). Only these are
+// built.
+template <typename T, int GW, int K>
+constexpr bool group_shape() {
+  constexpr int per_chunk = Vec<T>::N;
+  return K * per_chunk <= kMaxValuesPerLane &&
+         (GW == 1 || 2 * K * per_chunk > kMaxValuesPerLane);
+}
+
+template <int ACT, typename T, int GW, bool GATHER_G>
+int launch_group_gw(int K, const void* a, const void* ga, const void* ka,
+                    const void* kg, const void* slot_idx, const void* scale,
+                    const void* row_key, const void* row_ptr, int R, int H,
+                    float p, void* out, cudaStream_t st) {
+#define SIR_ARGS \
+  a, ga, ka, kg, slot_idx, scale, row_key, row_ptr, R, H, p, out, st
+#define SIR_CASE(KK)                                                      \
+  case KK:                                                                \
+    if constexpr (group_shape<T, GW, KK>())                               \
+      return launch_group_k<ACT, T, GW, KK, GATHER_G>(SIR_ARGS);          \
+    break;
+  switch (K) {
+    SIR_CASE(1)
+    SIR_CASE(2)
+    SIR_CASE(3)
+    SIR_CASE(4)
+  }
+#undef SIR_CASE
+#undef SIR_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// The lane-group kernel for `layout` (from group_layout, not 0).
+template <int ACT, typename T, bool GATHER_G>
+int launch_group(const void* a, const void* ga, const void* ka,
+                 const void* kg, const void* slot_idx, const void* scale,
+                 const void* row_key, const void* row_ptr, int R, int H,
+                 float p, int layout, void* out, cudaStream_t st) {
+  const int C = layout >> 16, gw = (layout >> 8) & 0xff;
+  const int K = (C + gw - 1) / gw;
+#define SIR_ARGS \
+  K, a, ga, ka, kg, slot_idx, scale, row_key, row_ptr, R, H, p, out, st
+  switch (gw) {
+    case 1: return launch_group_gw<ACT, T, 1, GATHER_G>(SIR_ARGS);
+    case 2: return launch_group_gw<ACT, T, 2, GATHER_G>(SIR_ARGS);
+    case 4: return launch_group_gw<ACT, T, 4, GATHER_G>(SIR_ARGS);
+    case 8: return launch_group_gw<ACT, T, 8, GATHER_G>(SIR_ARGS);
+    case 16: return launch_group_gw<ACT, T, 16, GATHER_G>(SIR_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SIR_ARGS
+}
 
 template <int ACT, typename TK>
 int launch_act_reduce(const void* eq, const void* ek, const void* slot_src,
@@ -477,6 +1008,20 @@ int ell_geq_reduce(const void* eq, const void* ek, int ek_bf16,
                    int act, float p, void* geq_rows, void* stream) {
   if (R <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const void* tables[] = {eq, ek, g, geq_rows};
+  const int layout = group_layout(act, H, ek_bf16 ? 2 : 4, tables, 4);
+  if (layout) {
+#define SIR_ARGS                                                           \
+  ek, nullptr, eq, g, slot_src, scale, row_key, row_ptr, R, H, p, layout, \
+      geq_rows, st
+#define SIR_CALL(A)                                                 \
+  (ek_bf16 ? launch_group<A, __nv_bfloat16, false>(SIR_ARGS)        \
+           : launch_group<A, float, false>(SIR_ARGS))
+    return act == ACT_CENTERED_RELU ? SIR_CALL(ACT_CENTERED_RELU)
+                                    : SIR_CALL(ACT_SOFTMAX);
+#undef SIR_CALL
+#undef SIR_ARGS
+  }
 #define SIR_ARGS \
   eq, ek, g, slot_src, scale, row_key, row_ptr, R, H, p, geq_rows, nullptr, st
 #define SIR_CALL(A)                                                       \
@@ -517,6 +1062,19 @@ int ell_src_bwd_rowwise(const void* eq, const void* g, int bf16,
                         void* out, void* stream) {
   if (R <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const void* tables[] = {eq, g, ek, out};
+  const int layout = group_layout(act, H, bf16 ? 2 : 4, tables, 4);
+  if (layout) {
+#define SIR_ARGS \
+  eq, g, ek, nullptr, slot_dst, scale, row_key, row_ptr, R, H, p, layout, out, st
+#define SIR_CALL(A)                                              \
+  (bf16 ? launch_group<A, __nv_bfloat16, true>(SIR_ARGS)         \
+        : launch_group<A, float, true>(SIR_ARGS))
+    return act == ACT_CENTERED_RELU ? SIR_CALL(ACT_CENTERED_RELU)
+                                    : SIR_CALL(ACT_SOFTMAX);
+#undef SIR_CALL
+#undef SIR_ARGS
+  }
 #define SIR_ARGS eq, g, ek, slot_dst, scale, row_key, row_ptr, R, H, p, out, st
 #define SIR_CALL(A)                                                   \
   (bf16 ? launch_src_bwd<A, __nv_bfloat16, false>(SIR_ARGS)           \
@@ -541,6 +1099,20 @@ int ell_src_bwd_fused(const void* both, int bf16, const void* ek,
   SIR_ACT_SWITCH(act, SIR_CALL)
 #undef SIR_CALL
 #undef SIR_ARGS
+}
+
+// Launches nothing: the path a launch of `kernel` (0 ell_geq_reduce, 1
+// ell_src_bwd_rowwise; the other entries always take the first design)
+// takes for rows of H values, the gathered table in bf16 (bf16 != 0) or
+// f32, the act id `act` and the tables and output p0..p3 it is given (null
+// ones unused). Returns C << 16 | GW << 8 | U for the lane-group path (C
+// 16-byte chunks a row, groups of GW lanes, U slots in flight a group), 0
+// for the first design.
+int ell_general_layout(int kernel, int H, int bf16, int act, const void* p0,
+                       const void* p1, const void* p2, const void* p3) {
+  if (kernel != 0 && kernel != 1) return 0;
+  const void* ptrs[] = {p0, p1, p2, p3};
+  return group_layout(act, H, bf16 ? 2 : 4, ptrs, 4);
 }
 
 const char* ell_general_error_string(int code) {

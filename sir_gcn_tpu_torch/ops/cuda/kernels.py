@@ -115,7 +115,9 @@ _QUERIES = {"ell_kernels": {"ell_layout": [_I] * 3 + [_VP] * 6},
             "ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 5,
                                 "ell_max_layout": [_I] * 2},
             "ell_edge_kernels": {"ell_edge_src_bwd_blocks": [_I] * 5,
-                                 "ell_edge_layout": [_I] * 4}}
+                                 "ell_edge_layout": [_I] * 4},
+            "ell_general_kernels": {"ell_general_layout": [_I] * 4
+                                    + [_VP] * 4}}
 _ERROR_STRING = {"ell_kernels": "ell_error_string",
                  "ell_max_kernels": "ell_max_error_string",
                  "ell_edge_kernels": "ell_edge_error_string",
@@ -1013,7 +1015,70 @@ def ell_scaled_reduce(values, slot_idx, scale, row_ptr):
 # These take any sigma of the registry. A row-wise one (centered_relu,
 # softmax) couples a slot's H features, so its kernels hold the whole row
 # (H <= ROWWISE_MAX_H); an elementwise one takes any H. For an elementwise
-# sigma each vjp is act'(z) * cotangent, the arithmetic of #4.
+# sigma each vjp is act'(z) * cotangent, the arithmetic of #4. #3 and #4r
+# take a lane-group path for a row-wise sigma (``ell_general_layout``).
+
+# the kernels of csrc/ell_general_kernels.cu with a lane-group path, by the
+# id ell_general_layout takes; the others always take the first design
+_GENERAL_LAYOUT_KERNEL = {"ell_geq_reduce": 0, "ell_src_bwd_rowwise": 1}
+
+
+class GeneralLayout(NamedTuple):
+    """The lane-group path of #3 ``ell_geq_reduce`` and #4r
+    ``ell_src_bwd_rowwise`` (``csrc/ell_general_kernels.cu``) for rows of
+    width H under a row-wise sigma: a gathered row is ``chunks`` chunks of
+    16 bytes, spread over a group of ``group_width`` lanes (a power of
+    two), ``chunks_per_lane`` chunks a lane; a warp's ``groups`` groups
+    each work on their own slot, ``inflight`` slots a group to a batch of
+    gathers, the next batch in flight while one is worked."""
+
+    chunks: int
+    group_width: int
+    groups: int
+    chunks_per_lane: int
+    inflight: int
+
+
+def decode_general_layout(code: int) -> Optional[GeneralLayout]:
+    """The ``GeneralLayout`` of a code from the library's
+    ``ell_general_layout`` (bits 16-23 the chunks of a row, 8-15 the group
+    width, 0-7 the slots in flight); None for 0, the first design."""
+    if code == 0:
+        return None
+    c, gw, u = code >> 16 & 0xFF, code >> 8 & 0xFF, code & 0xFF
+    if code < 0 or code >> 24 or not c or not u or gw not in (1, 2, 4, 8,
+                                                              16, 32):
+        raise ValueError(f"layout code {code:#x} names no lane-group path")
+    return GeneralLayout(c, gw, 32 // gw, -(-c // gw), u)
+
+
+def ell_general_layout(name: str, h: int, dtype, act,
+                       *tensors) -> Optional[GeneralLayout]:
+    """The path a launch of ``name`` (a kernel of
+    ``csrc/ell_general_kernels.cu``) takes for rows of width ``h``, the
+    gathered table in ``dtype`` (f32 or bf16: ek for ``ell_geq_reduce``,
+    eq and g for ``ell_src_bwd_rowwise``), the sigma ``act`` and the CUDA
+    tensors it reads and writes whole rows of (at most four: its node
+    tables and its output): a ``GeneralLayout`` for the lane-group path,
+    None for the first design (an elementwise sigma, rows that are not
+    whole 16-byte chunks, a table off 16-byte alignment, or a kernel with
+    no other design). The entry decides from the same H and pointers.
+    Needs a card: it asks the built library."""
+    if name not in _GENERAL:
+        raise ValueError(f"{name!r} is not a kernel of the general route "
+                         f"({', '.join(_GENERAL)})")
+    if h < 1:
+        raise ValueError(f"the width must be positive, got H = {h}")
+    if len(tensors) > 4:
+        raise ValueError(f"at most four tensors, got {len(tensors)}")
+    if name not in _GENERAL_LAYOUT_KERNEL:
+        return None
+    ptrs = [_ptr(t) for t in tensors] + [None] * (4 - len(tensors))
+    code = _library("ell_general_kernels").ell_general_layout(
+        _GENERAL_LAYOUT_KERNEL[name], h, int(dtype == torch.bfloat16),
+        act.kernel_id, *ptrs)
+    return decode_general_layout(code)
+
 
 def ell_act_reduce_rowwise(eq, ek, slot_src, scale, row_key, row_ptr, act):
     """``ell_act_reduce`` for any sigma of the registry: rows[r] = sum_s

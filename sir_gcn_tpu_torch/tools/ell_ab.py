@@ -10,6 +10,8 @@ example) against the package's own.
     python -m sir_gcn_tpu_torch.tools.ell_ab --max other.cu
     git show <rev>:sir_gcn_tpu_torch/csrc/ell_edge_kernels.cu > other.cu
     python -m sir_gcn_tpu_torch.tools.ell_ab --edge other.cu
+    git show <rev>:sir_gcn_tpu_torch/csrc/ell_general_kernels.cu > other.cu
+    python -m sir_gcn_tpu_torch.tools.ell_ab --general other.cu
 
 The other source is built with the package's nvcc flags for its source
 into a library of its own (``build/kernels/ab-<hash>/``), which the
@@ -58,7 +60,20 @@ leaky_relu(0.2) and tanh, the basis and W_E from seed 0 made on the card
 in eight turns (other, this, this, other, ...), the median and the spread
 of each; the largest difference of rows, srows, the g_ek rows and g_WE
 between the two libraries, and whether each is bitwise equal; and the
-paths this library's ``ell_edge_layout`` reports. Needs a CUDA card.
+paths this library's ``ell_edge_layout`` reports.
+
+The general mode (``--general``, ``csrc/ell_general_kernels.cu``) runs #3
+``ell_geq_reduce`` and #4r ``ell_src_bwd_rowwise`` from both libraries at
+the ogbn-arxiv plan, H = 96, with the gathered tables in bf16 and in f32,
+centered_relu(0.5) and softmax, the node tables and cotangent from seed 0
+made on the card: ms per launch over 20 warm launches in eight turns
+(other, this, this, other, ...), the median and the spread of each; the
+largest difference of each kernel's rows between the two libraries and
+how many entries lie beyond BWD_TOL of the other's (centered_relu's gate
+may take the other side of the relu where the two sum a row's mean in
+another order); and the layout this library's ``ell_general_layout``
+reports. #1r, #5 and #6 run once in each setting and must be bitwise
+equal to the other library's. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -80,10 +95,11 @@ from ..ops.cuda.kernels import (
     _QUERIES,
     _library,
     ell_edge_layout,
+    ell_general_layout,
     ell_max_layout,
 )
 from ..ops.cuda.lab import INFLIGHT, PASS2_TILE_ROWS
-from ..ops.ell import leaky_relu, tanh
+from ..ops.ell import centered_relu, leaky_relu, softmax, tanh
 from . import (
     alternating_ms,
     card_line,
@@ -107,6 +123,8 @@ EDGE_ITERS, EDGE_ROUNDS = 20, 8
 # g_WE sums a product over every slot: two grids sum it in another order,
 # held to chip_smoke.py's GW_TOL (atol grows by 1e-5 of the largest entry)
 GW_TOL = dict(atol=3e-4, rtol=1e-3, amax=1e-5)
+GENERAL_ITERS, GENERAL_ROUNDS = 20, 8
+BWD_TOL = dict(atol=3e-4, rtol=1e-3)
 
 
 def build_other(source: Path, name: str = "ell_kernels") -> ctypes.CDLL:
@@ -529,6 +547,109 @@ def run_edge(device, other: Path) -> dict:
     return recs
 
 
+def general_launches(lib, inp: dict, act, dtype) -> tuple:
+    """#1r, #3, #4r, #5 and #6 of one library on ``inp`` with the gathered
+    tables in ``dtype`` (ek for the dst-major kernels, eq and g for the
+    src-major ones): name -> a call that launches it; and the outputs
+    after one launch each."""
+    fg = inp["fg"]
+    plan, splan = fg.dst_plan, fg.src_plan
+    eq, ek, g = inp["eq"], inp["ek"], inp["g"]
+    ekt, eqt, gt = (t.to(dtype) for t in (ek, eq, g))
+    both = torch.cat([eqt, gt], 1)
+    r, rs = plan.row_key.numel(), splan.row_key.numel()
+    p = torch.Tensor.data_ptr
+    f32 = dict(dtype=torch.float32, device=eq.device)
+    a, prm, bf = act.kernel_id, float(act.param), int(dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = dict(rows=torch.empty((r, H), **f32),
+                geq=torch.empty((r, H), **f32),
+                out=torch.empty((rs, H), **f32),
+                fused=torch.empty((rs, H), **f32),
+                gz=torch.empty((plan.num_slots, H), dtype=dtype,
+                               device=eq.device),
+                geq6=torch.empty((r, H), **f32))
+    dst = (p(fg.dst_slot_srcnode), p(fg.dst_slot_scales["sym"]),
+           p(plan.row_key), p(plan.row_ptr), r, H, a, prm)
+    src = (p(fg.src_slot_dstnode), p(fg.src_slot_scales["sym"]),
+           p(splan.row_key), p(splan.row_ptr), rs, H, a, prm)
+
+    def call(entry, *args):
+        def run():
+            code = getattr(lib, entry)(*args, stream)
+            if code:
+                raise RuntimeError(f"{entry}: CUDA error {code}")
+        return run
+
+    calls = {
+        "#1r": call("ell_act_reduce_rowwise", p(eq), p(ekt), bf, *dst,
+                    p(outs["rows"])),
+        "#3": call("ell_geq_reduce", p(eq), p(ekt), bf, p(g), *dst,
+                   p(outs["geq"])),
+        "#4r": call("ell_src_bwd_rowwise", p(eqt), p(gt), bf, p(ek), *src,
+                    p(outs["out"])),
+        "#5": call("ell_src_bwd_fused", p(both), bf, p(ek), *src,
+                   p(outs["fused"])),
+        "#6": call("ell_act_reduce_bwd", p(eq), p(ekt), bf, p(g), *dst, bf,
+                   p(outs["geq6"]), p(outs["gz"])),
+    }
+    for run in calls.values():
+        run()
+    torch.cuda.synchronize()
+    layouts = {"#3": ell_general_layout("ell_geq_reduce", H, dtype, act, eq,
+                                        ekt, g, outs["geq"]),
+               "#4r": ell_general_layout("ell_src_bwd_rowwise", H, dtype,
+                                         act, eqt, gt, ek, outs["out"])}
+    # the calls hold raw pointers: keep what they point into alive
+    return calls, dict(**{k: v.clone() for k, v in outs.items()},
+                       layouts=layouts, keep=(ekt, eqt, gt, both, outs))
+
+
+def run_general(device, other: Path) -> dict:
+    """Every A/B line of #3 and #4r, and the bitwise check of #1r, #5 and
+    #6; returns label -> record. Raises if #1r, #5 or #6 differ."""
+    libs = {"other": build_other(other, "ell_general_kernels"),
+            "this": _library("ell_general_kernels")}
+    inp = arxiv_inputs(device)
+    recs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        for act in (centered_relu(0.5), softmax):
+            runs = {k: general_launches(lib, inp, act, dtype)
+                    for k, lib in libs.items()}
+            o, t = runs["other"][1], runs["this"][1]
+            print(f"layout at H = {H} ({act.name}, {dt}): #3 "
+                  f"{t['layouts']['#3']}, #4r {t['layouts']['#4r']}",
+                  flush=True)
+            same = {k: torch.equal(o[k], t[k])
+                    for k in ("rows", "fused", "gz", "geq6")}
+            if not all(same.values()):
+                raise AssertionError(f"{act.name}, {dt}: #1r, #5 or #6 "
+                                     f"differ from the other build: {same}")
+            names = {"geq": "#3 ell_geq_reduce", "out": "#4r "
+                     "ell_src_bwd_rowwise"}
+            for key, label in names.items():
+                diff = (o[key] - t[key]).abs()
+                beyond = int((diff > BWD_TOL["atol"]
+                              + BWD_TOL["rtol"] * o[key].abs()).sum())
+                tag = "#3" if key == "geq" else "#4r"
+                ms = alternating_ms({k: r[0][tag] for k, r in runs.items()},
+                                    GENERAL_ITERS, GENERAL_ROUNDS)
+                line = ", ".join(f"{k} {_fmt(v)}" for k, v in ms.items())
+                gain = statistics.median(ms["other"]) / statistics.median(
+                    ms["this"])
+                print(f"{label} ({act.name}, {dt}): {line}, this/other "
+                      f"{gain:.2f}x faster; max |diff| "
+                      f"{float(diff.max()):.3e}, {beyond} of {diff.numel()} "
+                      f"beyond BWD_TOL", flush=True)
+                recs[f"{label} ({act.name}, {dt})"] = dict(
+                    ms=ms, diff=float(diff.max()), beyond=beyond)
+            print(f"{act.name}, {dt}: #1r, #5 and #6 bitwise equal to the "
+                  f"other build's", flush=True)
+            del runs
+    return recs
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(
         "same-card A/B of two builds of the port's ELL or lab kernels")
@@ -536,7 +657,8 @@ def main(argv=None) -> dict:
                    help="a source with the C interface of ell_kernels.cu "
                         "(with --lab, of lab_kernels.cu; with --max, of "
                         "ell_max_kernels.cu; with --edge, of "
-                        "ell_edge_kernels.cu)")
+                        "ell_edge_kernels.cu; with --general, of "
+                        "ell_general_kernels.cu)")
     mode = p.add_mutually_exclusive_group()
     mode.add_argument("--lab", action="store_true",
                       help="time the lab's streams (#19-#22, #24) with "
@@ -546,17 +668,21 @@ def main(argv=None) -> dict:
     mode.add_argument("--edge", action="store_true",
                       help="time the fused-edge kernels #7 and #8 "
                            "(ell_edge_kernels.cu)")
+    mode.add_argument("--general", action="store_true",
+                      help="time the general route's backward kernels #3 "
+                           "and #4r (ell_general_kernels.cu)")
     p.add_argument("--probes", action="store_true",
                    help="also time #2 and #4 with their gathers folded "
                         "into a smaller table")
     args = p.parse_args(argv)
-    if (args.lab or args.max or args.edge) and args.probes:
-        p.error("--probes is for the ELL kernels, not --lab, --max or "
-                "--edge")
+    if (args.lab or args.max or args.edge or args.general) and args.probes:
+        p.error("--probes is for the ELL kernels, not --lab, --max, --edge "
+                "or --general")
     device = resolve_device(False)
     name = ("lab_kernels" if args.lab else
             "ell_max_kernels" if args.max else
-            "ell_edge_kernels" if args.edge else "ell_kernels")
+            "ell_edge_kernels" if args.edge else
+            "ell_general_kernels" if args.general else "ell_kernels")
     print(card_line(), flush=True)
     print(f"other: {args.other}; this: {build.SOURCES[name]}", flush=True)
     if args.lab:
@@ -565,6 +691,8 @@ def main(argv=None) -> dict:
         return run_max(device, args.other)
     if args.edge:
         return run_edge(device, args.other)
+    if args.general:
+        return run_general(device, args.other)
     return run(device, args.other, args.probes)
 
 

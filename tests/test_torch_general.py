@@ -18,16 +18,19 @@ package's.
   JAX's gradients;
 * ``SIRConv`` with centered_relu against the JAX ``SIRConv`` through the
   weight bridge: out, every parameter gradient, one AdamW step;
-* which kernels the route reaches, and what raises.
+* which kernels the route reaches, and what raises; the layout query's
+  decoder and checks, and the A/B tool's ``--general`` mode without a
+  card.
 
 Tolerances are the JAX suite's: forward atol 2e-4 / rtol 1e-4, gradients
 atol 3e-4 / rtol 1e-3; a g_z stored in bf16 at one bf16 step. bf16 is
 rounded at the same points in both packages.
 
-The ``cuda`` test compares each kernel with its plain version on the card
-and skips where there is none. JAX is imported inside the tests that use
-it (``pytest -m cuda --noconftest tests/test_torch_general.py`` on the
-card).
+The ``cuda`` tests compare each kernel with its plain version on the card,
+on the path its entry chooses (``GENERAL_PATHS``), on awkward plans, and
+ask two launches of #3 and #4r for the same bits; they skip where there
+is no card. JAX is imported inside the tests that use it (``pytest -m
+cuda --noconftest tests/test_torch_general.py`` on the card).
 """
 
 import dataclasses
@@ -43,12 +46,15 @@ import sir_gcn_tpu_torch.ops.message_passing as tmp
 from sir_gcn_tpu_torch import build_graph
 from sir_gcn_tpu_torch.ops.cuda import (
     LAUNCHES,
+    GeneralLayout,
+    decode_general_layout,
     ell_act_reduce,
     ell_act_reduce_bwd,
     ell_act_reduce_bwd_plain,
     ell_act_reduce_plain,
     ell_act_reduce_rowwise,
     ell_geq_reduce,
+    ell_general_layout,
     ell_geq_reduce_plain,
     ell_scaled_reduce,
     ell_src_bwd,
@@ -513,6 +519,55 @@ def test_general_route_raises():
         ell_act_reduce_bwd(eq, ek, *args, act, eq, gz_dtype=torch.float16)
 
 
+def test_general_layout_python_side():
+    """``ell_general_layout`` checks its arguments before it asks the
+    library, answers None for the kernels with only the first design, and
+    its codes decode to the lane-group layout."""
+    act = ACTS["centered_relu"]
+    with pytest.raises(ValueError, match="not a kernel of the general"):
+        ell_general_layout("ell_src_bwd", 96, torch.bfloat16, act)
+    for h in (0, -4):
+        with pytest.raises(ValueError, match="positive"):
+            ell_general_layout("ell_geq_reduce", h, torch.bfloat16, act)
+    with pytest.raises(ValueError, match="at most four"):
+        ell_general_layout("ell_geq_reduce", 96, torch.bfloat16, act,
+                           *[torch.zeros(1)] * 5)
+    for name in ("ell_act_reduce_rowwise", "ell_src_bwd_fused",
+                 "ell_act_reduce_bwd"):
+        assert ell_general_layout(name, 96, torch.bfloat16, act) is None
+    # the arxiv width: 12 chunks of bf16 on groups of 8 lanes (2 chunks, 16
+    # values a lane), 24 of f32 on groups of 8 (3 chunks, 12 values); 64
+    # chunks (H = 256, f32) on 16 lanes, 4 a lane
+    assert decode_general_layout(12 << 16 | 8 << 8 | 2) == GeneralLayout(
+        12, 8, 4, 2, 2)
+    assert decode_general_layout(24 << 16 | 8 << 8 | 2) == GeneralLayout(
+        24, 8, 4, 3, 2)
+    assert decode_general_layout(64 << 16 | 16 << 8 | 2) == GeneralLayout(
+        64, 16, 2, 4, 2)
+    assert decode_general_layout(1 << 16 | 1 << 8 | 4) == GeneralLayout(
+        1, 1, 32, 1, 4)
+    assert decode_general_layout(0) is None
+    for bad in (12 << 16 | 3 << 8 | 2, 12 << 16 | 64 << 8 | 2,
+                4 << 8 | 2, 12 << 16 | 4 << 8, -1, 1 << 24 | 4 << 8 | 2):
+        with pytest.raises(ValueError, match="no lane-group path"):
+            decode_general_layout(bad)
+
+
+def test_ell_ab_general_needs_a_card(tmp_path):
+    """The A/B tool's general mode (two ell_general_kernels.cu builds) runs
+    on the card only, and --probes is not one of its options."""
+    from sir_gcn_tpu_torch.tools import ell_ab
+
+    with pytest.raises(SystemExit):
+        ell_ab.main(["--general", "--probes", str(tmp_path / "other.cu")])
+    with pytest.raises(SystemExit):
+        ell_ab.main(["--general", "--edge", str(tmp_path / "other.cu")])
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ell_ab.main(["--general", str(tmp_path / "other.cu")])
+
+
 # ----------------------------------------------------------------------
 # On the card: each kernel against its plain version
 # ----------------------------------------------------------------------
@@ -524,13 +579,47 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the lane-group path of #3 and #4r (csrc/ell_general_kernels.cu) for a
+# row-wise sigma, by (H, gathered dtype): (16-byte chunks a row, lanes a
+# group), the group the narrowest power of two that leaves a lane at most
+# 16 values of a row; None where the rows are not whole 16-byte chunks (the
+# first design, which an elementwise sigma and a misaligned table also
+# take)
+GENERAL_PATHS = {(24, "bf16"): (3, 2), (24, "f32"): (6, 2),
+                 (20, "bf16"): None, (20, "f32"): (5, 2),
+                 (96, "bf16"): (12, 8), (96, "f32"): (24, 8),
+                 (128, "bf16"): (16, 8), (128, "f32"): (32, 8),
+                 (200, "bf16"): (25, 16), (200, "f32"): (50, 16),
+                 (256, "bf16"): (32, 16), (256, "f32"): (64, 16)}
+
+
+def assert_general_paths(h, dt, act, geq_args, src_args, outs,
+                         aligned=True):
+    """#3 (``ell_geq_reduce``'s args) and #4r (``ell_src_bwd_rowwise``'s)
+    took the path GENERAL_PATHS names."""
+    want = GENERAL_PATHS[h, dt] if act.name != "tanh" and aligned else None
+    lays = (ell_general_layout("ell_geq_reduce", h, DTYPES[dt], act,
+                               geq_args[0], geq_args[1], geq_args[-1],
+                               outs[0]),
+            ell_general_layout("ell_src_bwd_rowwise", h, DTYPES[dt], act,
+                               *src_args[:3], outs[1]))
+    for lay in lays:
+        got = None if lay is None else (lay.chunks, lay.group_width)
+        assert got == want, (h, dt, act.name, lay)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("act", sorted(ACTS))
 @pytest.mark.parametrize("graph,h", [("hub", 24), ("random", 96),
-                                     ("isolated", 200)])
+                                     ("isolated", 200), ("random", 20),
+                                     ("random", 128), ("random", 256)])
 def test_general_kernels_match_plain_on_card(cuda_device, graph, h, act,
                                              dt):
+    """Each kernel against its plain version, #3 and #4r on the path
+    their entries choose: the lane-group path for a row-wise sigma where
+    a row is whole 16-byte chunks, else the first design (H = 20 in bf16,
+    tanh sent down the general route)."""
     c = make_case(graph, h, device=cuda_device, with_jax=False)
     d, tdt, tact, fg = cuda_device, DTYPES[dt], ACTS[act], c.tfg
     plan, splan = fg.dst_plan, fg.src_plan
@@ -559,3 +648,109 @@ def test_general_kernels_match_plain_on_card(cuda_device, graph, h, act,
     for a, b, tol in zip(got, want, (FWD_TOL, BWD_TOL, gz_tol, BWD_TOL,
                                      BWD_TOL, BWD_TOL)):
         torch.testing.assert_close(a, b, **tol)
+    assert_general_paths(h, dt, tact, fwd + (g,), (eqb, gb) + rest,
+                         (got[1], got[4]))
+
+
+def _offset(t, aligned):
+    """t itself, or a copy that starts one element into its storage (off
+    16-byte alignment)."""
+    if aligned:
+        return t
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,dt,aligned", [
+    (96, "bf16", True), (96, "f32", True), (96, "bf16", False),
+    (96, "f32", False), (24, "bf16", True), (128, "f32", True),
+    (200, "bf16", True), (256, "bf16", True), (256, "f32", True)])
+def test_general_kernels_on_awkward_plans_on_card(cuda_device, h, dt,
+                                                  aligned):
+    """#3 and #4r (and #1r, #5, #6 beside them) against their plain
+    versions on plans with odd row counts on both sides (a part-full last
+    run of rows), rows of 40 to 256 slots (several 32-slot runs), budgets
+    off multiples of 8 (10, 12, 28), a fifth of the scales zeroed and one
+    multi-slot row with every scale 0, for centered_relu, softmax and tanh
+    sent down the general route; with ``aligned`` False every node table
+    starts one element past a 16-byte boundary (the first design)."""
+    rng = np.random.default_rng(0)
+    n, d, tdt = 70, cuda_device, DTYPES[dt]
+    dst = np.concatenate([np.repeat([0, 1, 2, 3], [250, 40, 27, 45]),
+                          rng.integers(4, n, 260)])
+    src = rng.integers(0, n, dst.size)
+    src[rng.permutation(dst.size)[:160]] = np.repeat([5, 6], [120, 40])
+    fg = tell.build_fast_graph(build_graph(src, dst, n, device=d),
+                               max_budget=256)
+    scales = []
+    for side in ("dst", "src"):
+        plan = getattr(fg, f"{side}_plan")
+        ptr = plan.row_ptr.cpu().numpy()
+        budgets = np.diff(ptr)
+        assert plan.num_rows % 2 == 1 and budgets.max() >= 128
+        assert {b % 8 for b in budgets.tolist()} - {0}
+        sc = getattr(fg, f"{side}_slot_scales")["sym"] * _t(
+            rng.random(plan.num_slots) > 0.2, device=d)
+        r = int(np.argmax(budgets >= 40))  # a row of 40 or more slots
+        sc[int(ptr[r]):int(ptr[r + 1])] = 0.0
+        scales.append(sc)
+    eq, ek, g = (rng.normal(size=(fg.n_pad, h)).astype(np.float32)
+                 for _ in range(3))
+    eqd, gd = (_offset(_t(x, device=d), aligned) for x in (eq, g))
+    ekf = _offset(_t(ek, device=d), aligned)
+    ekt = _offset(_t(ek, tdt, d), aligned)
+    eqt, gt = (_offset(_t(x, tdt, d), aligned) for x in (eq, g))
+    plan, splan = fg.dst_plan, fg.src_plan
+    for act in ACTS.values():
+        fwd = (eqd, ekt, fg.dst_slot_srcnode, scales[0], plan.row_key,
+               plan.row_ptr, act)
+        bwd = (eqt, gt, ekf, fg.src_slot_dstnode, scales[1], splan.row_key,
+               splan.row_ptr, act)
+        both = torch.cat([eqt, gt], 1)
+        got = (ell_act_reduce_rowwise(*fwd), ell_geq_reduce(*fwd, gd),
+               *ell_act_reduce_bwd(*fwd, gd, gz_dtype=tdt),
+               ell_src_bwd_rowwise(*bwd), ell_src_bwd_fused(both, *bwd[2:]))
+        torch.cuda.synchronize()
+        want = (ell_act_reduce_plain(*fwd), ell_geq_reduce_plain(*fwd, gd),
+                *ell_act_reduce_bwd_plain(*fwd, gd, tdt),
+                ell_src_bwd_plain(*bwd),
+                ell_src_bwd_fused_plain(both, *bwd[2:]))
+        gz_tol = BF16_STEP if dt == "bf16" else BWD_TOL
+        for a, b, tol in zip(got, want, (FWD_TOL, BWD_TOL, gz_tol, BWD_TOL,
+                                         BWD_TOL, BWD_TOL)):
+            torch.testing.assert_close(a, b, **tol)
+        assert_general_paths(h, dt, act, fwd + (gd,), bwd, (got[1], got[4]),
+                             aligned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("act", ["centered_relu", "softmax"])
+def test_general_kernels_are_bitwise_repeatable_on_card(cuda_device, act,
+                                                        dt):
+    """Two launches of #3 and #4r on the same inputs give bitwise equal
+    rows on the lane-group path: each sum's order is fixed by the layout,
+    with no atomics. A graph of 4,000 nodes and 40,000 edges fills many
+    blocks."""
+    rng = np.random.default_rng(7)
+    n, e, d = 4000, 40000, cuda_device
+    fg = tell.build_fast_graph(
+        build_graph(rng.integers(0, n, e), rng.integers(0, n, e), n,
+                    device=d), max_budget=64)
+    tact, tdt = ACTS[act], DTYPES[dt]
+    eq, ek, g = (_t(rng.normal(size=(fg.n_pad, 96)), device=d)
+                 for _ in range(3))
+    plan, splan = fg.dst_plan, fg.src_plan
+    fwd = (eq, ek.to(tdt), fg.dst_slot_srcnode, fg.dst_slot_scales["sym"],
+           plan.row_key, plan.row_ptr, tact)
+    bwd = (eq.to(tdt), g.to(tdt), ek, fg.src_slot_dstnode,
+           fg.src_slot_scales["sym"], splan.row_key, splan.row_ptr, tact)
+    first = (ell_geq_reduce(*fwd, g), ell_src_bwd_rowwise(*bwd))
+    second = (ell_geq_reduce(*fwd, g), ell_src_bwd_rowwise(*bwd))
+    torch.cuda.synchronize()
+    assert_general_paths(96, dt, tact, fwd + (g,), bwd, first)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
