@@ -23,10 +23,11 @@ Phases, each printed as it runs; any failure exits non-zero:
            path each launch took (the 16-byte vector path with its layout,
            which the arxiv plan must take, or the scalar loop), for #7
            and #8 theirs (W_E and g_WE in registers, which the arxiv plan
-           must take, or the shared-memory loop), and for #3 and #4r
-           theirs (the lane-group path, which the arxiv plan must take in
-           f32 and bf16 with centered_relu and softmax, or the first
-           design)
+           must take, or the shared-memory loop), and for #1r, #3, #4r
+           and #5 theirs (the lane-group path, which the arxiv plan must
+           take in f32 and bf16 with centered_relu and softmax, and #5
+           also with leaky_relu(0.2) and tanh, timed in bf16; or the
+           first design)
   train    the arxiv trainer's entry point at full width (169,343 nodes,
            H = 96, 3 layers, bn, residual, bf16 edges), once with sym and
            once with max aggregation, 5 steps and evals each, with the
@@ -45,8 +46,9 @@ Phases, each printed as it runs; any failure exits non-zero:
   bwd      the forward and backward of one aggregate at the arxiv plan
            (H = 96, sym, tanh) three ways: src-major (#2, #4), fused take
            (#2, #5) and dst-major (#1, #6, #12); each design's time, the
-           gradients of the other two against the src-major one, and the
-           backward kernels alone (#4 with tanh and with leaky_relu)
+           gradients of the other two against the src-major one, #5's
+           path (the lane-group path required), and the backward kernels
+           alone (#4 and #5 with tanh and with leaky_relu)
   lab      the timing lab at the JAX tools' sizes: the entry points of
            sir_gcn_tpu_torch.tools.kernel_lab (every tag; R = 111,104 rows
            of B = 16 slots, H = 128) and .gather_dma (N = 169,984, S =
@@ -277,6 +279,13 @@ def phase_env():
     return smi
 
 
+def short_name(fn: str) -> str:
+    """A mangled kernel name without its anonymous namespace and
+    parameter list: the kernel and its template arguments."""
+    m = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?)(?:EEv|Ev)", fn)
+    return m.group(1)[:80] if m else fn[:80]
+
+
 def phase_build():
     from sir_gcn_tpu_torch.ops.cuda import build
 
@@ -296,7 +305,7 @@ def phase_build():
                 regs.append(int(m.group(1)))
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and int(m.group(1)) and fn:
-                spills.append(f"{fn[:50]} {m.group(1)} B")
+                spills.append(f"{short_name(fn)} {m.group(1)} B")
         log(f"  ptxas {name}: {n} kernels, registers "
             f"{min(regs, default=0)}-{max(regs, default=0)}, "
             f"{len(spills)} with spill stores")
@@ -394,20 +403,23 @@ def log_edge_layout(label, h, de, act, dtype, require_registers=False):
 
 
 def log_general_layout(label, name, args, outs, require_group=False):
-    """Log the path a launch of ``name`` (#3 ``ell_geq_reduce`` or #4r
-    ``ell_src_bwd_rowwise``, its wrapper's ``args`` and output ``outs``)
-    took (ell_general_layout: the lane-group path with its layout, or the
-    first design). With ``require_group`` the first design raises: the
-    redesign must not be bypassed."""
+    """Log the path a launch of ``name`` (#1r ``ell_act_reduce_rowwise``,
+    #3 ``ell_geq_reduce``, #4r ``ell_src_bwd_rowwise`` or #5
+    ``ell_src_bwd_fused``, its wrapper's ``args`` and output ``outs``) took
+    (ell_general_layout: the lane-group path with its layout, or the first
+    design). With ``require_group`` the first design raises: the redesign
+    must not be bypassed."""
     from sir_gcn_tpu_torch.ops import cuda as K
 
-    if name == "ell_geq_reduce":  # eq, ek (gathered), ..., act, g
-        tables, act = (args[0], args[1], args[-1]), args[-2]
-        dtype = args[1].dtype
-    else:  # eq, g (gathered), ek, ..., act
+    h = args[1].shape[1] if name == "ell_src_bwd_fused" else args[0].shape[1]
+    if name in ("ell_act_reduce_rowwise", "ell_geq_reduce"):
+        # eq, ek (gathered), ..., act[, g]
+        tables, act, dtype = args[:2] + args[7:], args[6], args[1].dtype
+    elif name == "ell_src_bwd_rowwise":  # eq, g (gathered), ek, ..., act
         tables, act, dtype = args[:3], args[-1], args[0].dtype
-    lay = K.ell_general_layout(name, args[0].shape[1], dtype, act, *tables,
-                               *outs)
+    else:  # both [N, 2H] (gathered), ek, ..., act
+        tables, act, dtype = args[:2], args[-1], args[0].dtype
+    lay = K.ell_general_layout(name, h, dtype, act, *tables, *outs)
     log(f"  {label} {name}: " + ("first design" if lay is None else
                                  f"lane-group path, {lay}"))
     if require_group and lay is None:
@@ -784,14 +796,15 @@ def near_gates(plan, z, scale, act):
 
 
 def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
-                          timing=None, mask_gates=False, require_group=False):
+                          timing=None, mask_gates=False, require_group=False,
+                          names=None):
     """The general route's kernels (#1r, #3, #6 on the dst plan; #4r and
-    #5 on the src plan) against their plain versions; a g_z stored in bf16
-    at one bf16 step. With ``mask_gates`` (centered_relu) the rows and
-    slots holding a near-gate (slot, feature) are left out of the backward
-    comparisons and counted: the relu may take the other side there. The
-    path of #3 and #4r is logged; with ``require_group`` it must be the
-    lane-group path."""
+    #5 on the src plan; only ``names`` where given) against their plain
+    versions; a g_z stored in bf16 at one bf16 step. With ``mask_gates``
+    (centered_relu) the rows and slots holding a near-gate (slot, feature)
+    are left out of the backward comparisons and counted: the relu may take
+    the other side there. The path of #1r, #3, #4r and #5 is logged; with
+    ``require_group`` it must be the lane-group path."""
     import torch
 
     from sir_gcn_tpu_torch.ops import cuda as K
@@ -838,6 +851,8 @@ def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
             lambda: K.ell_src_bwd_fused_plain(*fbwd, buckets=bs),
             ((BWD_TOL, keep_s),)),
     }
+    if names is not None:
+        runs = {k: v for k, v in runs.items() if k in names}
     outs = {}
     for name, (_, kernel, plain, tols) in runs.items():
         got, want = kernel(), plain()
@@ -849,7 +864,7 @@ def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
             errs[name] = max(errs.get(name, 0.0), err)
         outs[name] = got
         del want
-        if name in ("ell_geq_reduce", "ell_src_bwd_rowwise"):
+        if name != "ell_act_reduce_bwd":
             log_general_layout(label, name, runs[name][0], got,
                                require_group=require_group)
     if timing is None:
@@ -936,6 +951,7 @@ def phase_kernels(device):
         f"{fg.dst_plan.num_rows}, H 96, O 96, De {EDGE_DIM}, stage 2 "
         f"{fg.dst_plan.s2_gather is not None}")
     timing = {}  # of the main path's bf16 edges
+    fused_timing = {}  # #5 with the elementwise sigmas, bf16
     for dtype in dtypes:
         keep = timing if dtype == torch.bfloat16 else None
         check_kernels(f"arxiv {dtype}", fg, eq, ek, g, sd, ss,
@@ -953,12 +969,26 @@ def phase_kernels(device):
                               require_group=True)
         check_general_kernels(f"arxiv {dtype} softmax", fg, eq, ek, g, sd,
                               ss, softmax, dtype, errs, require_group=True)
+        # #5 on its lane-group path for the elementwise sigmas too:
+        # leaky_relu(0.2) is the arxiv SIRModel's, which JAX's fused
+        # backward runs (the elementwise route, padded to 128 lanes)
+        for act in acts:
+            check_general_kernels(
+                f"arxiv {dtype} {act.name}", fg, eq, ek, g, sd, ss, act,
+                dtype, errs, require_group=True, names=("ell_src_bwd_fused",),
+                timing=fused_timing.setdefault(act.name, {}) if keep
+                is not None else None)
     for name, t in timing.items():
         b_ms, by, nbytes, flops = t["bound"]
         log(f"  {name} (bf16 edges): {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.3f} ms, bound {b_ms:.4f} ms by {by} "
             f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
             f"{100 * b_ms / t['ms']:.1f}% of bound")
+    for act_name, t in fused_timing.items():
+        t = t["ell_src_bwd_fused"]
+        log(f"  ell_src_bwd_fused ({act_name}, bf16 edges): {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} ms, "
+            f"{100 * t['bound'][0] / t['ms']:.1f}% of bound")
     del eq, ek, g, w, tables
     return errs, timing, fg
 
@@ -1303,12 +1333,18 @@ def phase_bwd(device, fg, iters: int = 10):
         "#4 ell_src_bwd": lambda: K.ell_src_bwd(eqb, gb, *rest),
         "#4 with leaky_relu": lambda: K.ell_src_bwd(eqb, gb, *leaky),
         "#5 ell_src_bwd_fused": lambda: K.ell_src_bwd_fused(both, *rest),
+        "#5 with leaky_relu": lambda: K.ell_src_bwd_fused(both, *leaky),
         "[N, 2H] table": lambda: torch.cat([eq0.to(bf), w.to(bf)], 1),
         "#6 ell_act_reduce_bwd": lambda: K.ell_act_reduce_bwd(
             *fwd, w, gz_dtype=bf),
         "#12 ell_scaled_reduce": lambda: K.ell_scaled_reduce(
             g_slots, fg.src_slot_from_dst_slot, splan.slot_valid,
             splan.row_ptr)}
+    for act in (tanh, leaky[-1]):
+        log_general_layout(f"bwd (ii) {act.name}", "ell_src_bwd_fused",
+                           (both,) + rest[:-1] + (act,),
+                           (K.ell_src_bwd_fused(both, *rest[:-1], act),),
+                           require_group=True)
     alone_ms = {name: cuda_ms(fn, 20) for name, fn in alone.items()}
     log("  backward kernels alone (bf16, tanh): " + ", ".join(
         f"{name} {ms:.4f} ms" for name, ms in alone_ms.items()))

@@ -27,13 +27,16 @@
 // driven by sir_gcn_tpu/ops/ell.py make_ell_sir_aggregate_pallas).
 //
 // Bound: device-memory bytes, as for the linear kernels: each slot costs one
-// random H-wide row read (two in ell_src_bwd_*, an H-wide g_slots row write
-// besides in ell_act_reduce_bwd) and some ten flops per feature.
+// random H-wide row read (two in ell_src_bwd_rowwise, one 2H-wide row in
+// ell_src_bwd_fused, an H-wide g_slots row write besides in
+// ell_act_reduce_bwd) and some ten flops per feature.
 //
-// The first design (every kernel, and #3 and #4r where the lane-group path
-// below cannot go): one warp per row, 8 rows per block; the lanes load 32
-// slot indices and scales at a time and pass them round with warp shuffles.
-// A row-wise sigma needs a slot's whole row at once: each lane keeps NF = 1,
+// The first design (ell_act_reduce_bwd always; the others where the
+// lane-group path below cannot go: H past 256, rows that are not whole
+// 16-byte chunks, a table off 16-byte alignment, an elementwise sigma but
+// in #5): one warp per row, 8 rows per block; the lanes load 32 slot
+// indices and scales at a time and pass them round with warp shuffles. A
+// row-wise sigma needs a slot's whole row at once: each lane keeps NF = 1,
 // 2, 3, 4 or 8 features (NF * 32 >= H, so H <= 256) in registers, and a
 // slot costs one warp reduction (__shfl_xor_sync) for the centered relu's
 // mean (two in its vjp) and two for softmax's max and sum (three in its
@@ -43,44 +46,58 @@
 // g_slots row as 0. All sums are f32. The slots of a row are walked one at a
 // time, each an exposed gather latency and a chain of dependent shuffles.
 //
-// The lane-group path of ell_geq_reduce (#3) and ell_src_bwd_rowwise (#4r),
-// for a row-wise sigma when H * sizeof(T) is a multiple of 16 and every
-// table is 16-byte aligned (T the gathered type): a gathered row is C = H *
-// sizeof(T) / 16 chunks of 16 bytes (12 at H = 96 in bf16, 24 in f32). A
-// group of GW lanes (a power of two) holds one slot's whole row, lane j of
-// a group chunks j, j + GW, ..., so a warp works on G = 32 / GW slots at
-// once, each group on its own. GW is the narrowest power of two that leaves
-// a lane at most kMaxValuesPerLane values of a row: at H = 96 groups of 8
-// lanes, 2 chunks (16 values) a lane in bf16 with 4 of 16 chunk places
-// idle, 3 chunks (12 values) in f32 with every lane busy. The row-wise
-// reductions are a pairwise tree over the lane's values followed by an xor
-// butterfly over the group (lanes past the row hold values that add 0 to a
-// sum and -inf to a max; every lane of a group ends with the same bits).
-// Every lane runs every slot of its group: a zero-scale slot, or a group
-// past the row's last slot, runs with scale 0 and adds exactly 0 (for
-// finite inputs), so no shuffle sits under a branch that some groups skip.
-// The scale multiplies each slot's vjp, which is linear in its cotangent;
-// the centered relu's mean is a sum times 1 / H, and softmax takes __expf
-// (a few ulp) and one reciprocal a slot.
+// The lane-group path (group_kernel), one template for four kernels, each a
+// compile-time mode: ell_act_reduce_rowwise (#1r, the forward, a row-wise
+// sigma), ell_geq_reduce (#3) and ell_src_bwd_rowwise (#4r) for a row-wise
+// sigma, and ell_src_bwd_fused (#5) for any sigma (an elementwise one's
+// vjp, act'(z) * g_m, needs no reduction). It takes rows whose H *
+// sizeof(T) is a multiple of 16 (so #5's second half starts 16-byte
+// aligned too) with every table 16-byte aligned (T the gathered type): a
+// gathered row is C = H * sizeof(T) / 16 chunks of 16 bytes (12 at H = 96
+// in bf16, 24 in f32). A group of GW lanes (a power of two) holds one
+// slot's whole row, lane j of a group chunks j, j + GW, ..., so a warp
+// works on G = 32 / GW slots at once, each group on its own. GW is the
+// narrowest power of two that leaves a lane at most 4 chunks and
+// group_max_values values of a row: 16 in the vjps (at H = 96 groups of 8
+// lanes, 2 chunks a lane in bf16 with 4 of 16 chunk places idle, 3 in f32
+// with every lane busy), 24 in the forward, which holds no cotangent row
+// (in bf16 groups of 4 lanes, 3 chunks each, every lane busy). The
+// row-wise reductions are a pairwise tree over the lane's values followed
+// by an xor butterfly over the group (lanes past the row hold values that
+// add 0 to a sum and -inf to a max; every lane of a group ends with the
+// same bits). Every lane runs every slot of its group: a zero-scale slot,
+// or a group past the row's last slot, runs with scale 0 and adds exactly
+// 0 (for finite inputs), so no shuffle sits under a branch that some
+// groups skip. The scale multiplies each slot's vjp, which is linear in
+// its cotangent, or its act(z) in the forward; the centered relu's mean
+// is a sum times 1 / H, softmax takes __expf (a few ulp) and one
+// reciprocal a slot, and tanh' one __expf and one fast division (see
+// group_act_grad).
 //
 // The kernels are persistent (warp w of W takes rows w, w + W, ...) and
-// walk a warp's slots as a stream of batches of kGroupInflight slots a
-// group (one; two need registers that spill under the cap of 128 a thread
-// that keeps 16 warps an SM): the gathers of the next batch, of this row
-// or the next, are issued before the current batch is worked, the group
-// width is a template parameter (its butterflies unrolled; only the widths
-// and chunk counts group_layout gives are built), the next row's slot
-// range, key and first 32 slot
-// indices and scales are loaded a row ahead, and its f32 key rows (ek for
-// #4r; eq and g for #3) are copied into the warp's shared memory by
-// cp.async when its first batch is issued. Each group sums its slots in
-// slot order in f32; at the end of the row the groups' sums are added by an
-// xor butterfly over the groups, a fixed order, and the groups share the
-// row's 16-byte stores. No atomics: two launches give the same bits.
-// ell_general_layout reports the path a launch takes. At the arxiv plan #4r
-// gathers two bf16 rows a slot from eq and g, 65 MB together, more than
-// the 50 MB L2, so its floor is HBM's rate for random rows; #3 gathers ek,
-// 32.5 MB, which the L2 holds, and is held by the SM's instruction issue.
+// walk a warp's slots as a stream of batches of one slot a group (two need
+// registers that spill under the cap of 128 a thread that keeps 16 warps an
+// SM, or, uncapped, halve the warps): the gathers of the next batch, of
+// this row or the next, are issued before the current batch is worked, the
+// group width is a template parameter (its butterflies unrolled; only the
+// widths and chunk counts group_layout gives are built), the next row's
+// slot range, key and first 32 slot indices and scales are loaded a row
+// ahead, and its f32 key rows (eq for #1r; eq and g for #3; ek for #4r and
+// #5) are copied into the warp's shared memory by cp.async when its first
+// batch is issued. Each group sums its slots in slot order in f32; at the
+// end of the row the groups' sums are added by an xor butterfly over the
+// groups in reduce-scatter form (RowEnd), a fixed order, and each lane
+// stores the part of the row it ends with. No atomics: two launches give
+// the same bits. ell_general_layout reports the path a launch takes.
+//
+// What bounds each at the arxiv plan (H = 96, bf16): #4r gathers two bf16
+// rows a slot from eq and g, and #5 one 384-byte row of [eq | g], 65 MB of
+// tables either way, more than the 50 MB L2, so their floor is HBM's rate
+// for random rows (on an H100 SXM at 700 W, #5 with leaky_relu reads its
+// 1,020 MB of rows at some 3.1 TB/s); #3 and #1r gather ek, 32.5 MB, which the L2 holds, and are
+// held by the SM's instruction issue and the gathers' latency at 16 warps
+// an SM: per row a key-row copy and the row end's butterfly, per batch
+// the cursor's bookkeeping, besides the slots' arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,10 +108,11 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
 // The lane-group path: the values of a gathered row a lane holds at most
-// (the group is made just wide enough), the slots a group has in flight in
-// a batch, and the blocks an SM must fit (the register cap of
-// __launch_bounds__).
+// (the group is made just wide enough; the vjps, and the forward, which
+// holds no cotangent row), the slots a group has in flight in a batch, and
+// the blocks an SM must fit (the register cap of __launch_bounds__).
 constexpr int kMaxValuesPerLane = 16;
+constexpr int kMaxValuesPerLaneFwd = 24;
 constexpr int kGroupInflight = 1;
 constexpr int kGroupMinBlocks = 2;
 
@@ -521,18 +539,35 @@ __device__ __forceinline__ float tree_max(const float (&x)[NV]) {
   return t[0];
 }
 
+// act'(z) of an elementwise act on the lane-group path. tanh'(z) =
+// 1 / cosh(z)^2 = 4 e / (1 + e)^2 with e = exp(-2 |z|) in (0, 1]: one
+// __expf and one fast division, no cancellation (a relative error of a few
+// ulp of e, some 1e-6 at |z| = 5), where tanhf and (1 + t)(1 - t) take a
+// branch and some twenty instructions; leaky_relu as act_grad.
+template <int ACT>
+__device__ __forceinline__ float group_act_grad(float z, float p) {
+  if (ACT == ACT_LEAKY_RELU) return act_grad<ACT>(z, p);
+  const float e = __expf(-2.f * fabsf(z));
+  const float d = 1.f + e;
+  return __fdividef(4.f * e, d * d);
+}
+
 // acc += w * vjp(act, z)(gs) for one slot whose row is spread over a group
 // of GW lanes: gs is the slot's cotangent before its scale w (the vjp is
 // linear in it, so w multiplies the result instead). inv_h = 1 / H. A
-// lane's values past the row hold z = 0 (centered_relu) or -inf (softmax)
-// and gs = 0, so that they add nothing to a sum or a max. Straight-line
-// code: the slots a lane has in flight interleave.
+// lane's values past the row hold z = 0 (centered_relu, an elementwise
+// act) or -inf (softmax) and gs = 0, so that they add nothing to a sum or
+// a max. Straight-line code: the slots a lane has in flight interleave.
 template <int ACT, int GW, int NV>
 __device__ __forceinline__ void add_vjp_group(const float (&z)[NV],
                                               const float (&gs)[NV],
                                               float w, float inv_h, float p,
                                               float (&acc)[NV]) {
-  if (ACT == ACT_CENTERED_RELU) {
+  if (!Rowwise<ACT>::value) {  // g_z = act'(z) * g_m, no reduction
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      acc[j] = fmaf(w, group_act_grad<ACT>(z[j], p) * gs[j], acc[j]);
+  } else if (ACT == ACT_CENTERED_RELU) {
     // d = g_m where z - c > 0 (relu'(0) = 0), g_z = d - alpha * mean(d)
     const float c = p * (group_sum<GW>(tree_sum(z)) * inv_h);
     float d[NV];
@@ -558,6 +593,45 @@ __device__ __forceinline__ void add_vjp_group(const float (&z)[NV],
   }
 }
 
+// acc += w * act(z) for one slot whose row is spread over a group of GW
+// lanes (the forward of a row-wise act), with add_vjp_group's conventions:
+// centered_relu takes one butterfly (the mean), softmax two (the max, then
+// the sum). A value past the row adds act(z) to an accumulator that is
+// never stored, and nothing to a sum or a max.
+template <int ACT, int GW, int NV>
+__device__ __forceinline__ void add_act_group(const float (&z)[NV], float w,
+                                              float inv_h, float p,
+                                              float (&acc)[NV]) {
+  if (ACT == ACT_CENTERED_RELU) {
+    const float c = p * (group_sum<GW>(tree_sum(z)) * inv_h);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) acc[j] = fmaf(w, fmaxf(z[j] - c, 0.f), acc[j]);
+  } else {  // ACT_SOFTMAX: y = exp(z - max z) / sum exp(z - max z)
+    const float mx = group_max<GW>(tree_max(z));
+    float y[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) y[j] = __expf(z[j] - mx);
+    const float inv_s = __frcp_rn(group_sum<GW>(tree_sum(y)));
+#pragma unroll
+    for (int j = 0; j < NV; ++j) acc[j] = fmaf(w, y[j] * inv_s, acc[j]);
+  }
+}
+
+// The lane-group kernels, by what a slot gathers (T, by slot_idx), the
+// f32 key rows of its row (by row_key) and what it adds; MODE is also the
+// kernel's id in ell_general_layout.
+enum {
+  MODE_GEQ = 0,    // #3:  a = ek; ka = eq, kg = g; vjp(act, z)(scale * g_r)
+  MODE_SRC = 1,    // #4r: a = eq, ga = g; ka = ek; vjp(act, z)(scale * g_b)
+  MODE_FWD = 2,    // #1r: a = ek; ka = eq; scale * act(z)
+  MODE_FUSED = 3,  // #5:  #4r with a = both, ga = both + H, rows 2H apart
+};
+
+// The values of a gathered row a lane holds at most, by mode.
+constexpr int group_max_values(int mode) {
+  return mode == MODE_FWD ? kMaxValuesPerLaneFwd : kMaxValuesPerLane;
+}
+
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
@@ -565,12 +639,68 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
                : "memory");
 }
 
-// out[r] = sum_s vjp(act, z_s)(g_m), z_s = a[slot_idx[s]] + ka[row_key[r]]:
-// #4r with GATHER_G (a = eq and ga = g in T, gathered; ka = ek f32; g_m =
-// scale[s] * g[slot_dst[s]]), #3 without (a = ek in T, gathered; ka = eq
-// and kg = g f32, the key's rows; g_m = g[row_key[r]] * scale[s]). GW is
-// the group width and K the chunks a lane, from group_layout; the block's
-// dynamic shared memory holds 2 * KEYS * H floats a warp.
+// The end of a row on the lane-group path: the G groups' partial rows (a
+// lane's L live values v, the first of them its value `base` of NV) added
+// over the groups and stored, by an xor butterfly over the groups in
+// reduce-scatter form. In the round of offset O a lane keeps the half of
+// its live values that its lane bit O picks, adds the partner's partials
+// of them and passes the other half on, so a round moves half the values
+// of the one before; a round with an odd count adds them all, and of the
+// groups that then hold the same values only those with the bit clear
+// (none in DUP) store them. Each sum adds the same two partials in the same
+// order as a plain all-reduce butterfly (mine + the partner's), so the
+// row's bits are the all-reduce's. A lane's value j is feature (gl + GW (j /
+// EPV)) EPV + j % EPV of the row, gl its place in its group, stored where
+// that chunk is below C.
+template <int L, int O, int DUP, int GW, int EPV>
+struct RowEnd {
+  static __device__ __forceinline__ void run(const float (&v)[L], int base,
+                                             int lane, int C,
+                                             float* __restrict__ out_row) {
+    if constexpr (O < 32 && L % 2 == 0) {
+      constexpr int h = L / 2;
+      const bool hi = lane & O;
+      float w[h];
+#pragma unroll
+      for (int i = 0; i < h; ++i) {
+        const float send = hi ? v[i] : v[h + i];
+        const float keep = hi ? v[h + i] : v[i];
+        w[i] = keep + __shfl_xor_sync(kFull, send, O);
+      }
+      RowEnd<h, 2 * O, DUP, GW, EPV>::run(w, base + (hi ? h : 0), lane, C,
+                                          out_row);
+    } else if constexpr (O < 32) {
+      float w[L];
+#pragma unroll
+      for (int i = 0; i < L; ++i)
+        w[i] = v[i] + __shfl_xor_sync(kFull, v[i], O);
+      RowEnd<L, 2 * O, DUP | O, GW, EPV>::run(w, base, lane, C, out_row);
+    } else {
+      if (lane & DUP) return;
+      const int gl = lane & (GW - 1);
+      constexpr int STEP = L % 4 == 0 ? 4 : 1;  // float4 stores where whole
+#pragma unroll
+      for (int i = 0; i < L; i += STEP) {
+        const int j = base + i, c = gl + GW * (j / EPV);
+        if (c >= C) continue;
+        float* at = out_row + c * EPV + j % EPV;
+        if constexpr (STEP == 4)
+          *reinterpret_cast<float4*>(at) =
+              make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+        else
+          *at = v[i];
+      }
+    }
+  }
+};
+
+// out[r] = sum_s of a slot's term at z_s = a[slot_idx[s]] + ka[row_key[r]]
+// (MODE above): the vjp modes add vjp(act, z_s)(g_m), g_m = scale[s] times
+// the gathered ga row (#4r, #5) or the key's kg row (#3); the forward adds
+// scale[s] * act(z_s). GW is the group width and K the chunks a lane, from
+// group_layout; the block's dynamic shared memory holds 2 * KEYS * H
+// floats a warp. Every mode is fixed at compile time: no branch on it is
+// left in the loop.
 //
 // A warp walks its rows' slots as a stream of batches: a batch is up to
 // G * U slots of one run of 32 of a row (U a group), and a row has at least
@@ -579,19 +709,20 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
 // issued before the current batch is worked, and the next row's key rows
 // are copied into the warp's shared memory by cp.async when its first batch
 // is issued: a warp always has a batch of gathers in flight.
-template <int ACT, typename T, int GW, int K, bool GATHER_G>
+template <int ACT, typename T, int GW, int K, int MODE>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kGroupMinBlocks)
-group_vjp_kernel(const T* __restrict__ a, const T* __restrict__ ga,
-                 const float* __restrict__ ka, const float* __restrict__ kg,
-                 const int* __restrict__ slot_idx,
-                 const float* __restrict__ scale,
-                 const int* __restrict__ row_key,
-                 const int* __restrict__ row_ptr, int R, int H, float p,
-                 float* __restrict__ out) {
+group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
+             const float* __restrict__ ka, const float* __restrict__ kg,
+             const int* __restrict__ slot_idx,
+             const float* __restrict__ scale,
+             const int* __restrict__ row_key,
+             const int* __restrict__ row_ptr, int R, int H, float p,
+             float* __restrict__ out) {
   constexpr int EPV = Vec<T>::N;
   constexpr int NV = K * EPV;
   constexpr int U = kGroupInflight;
-  constexpr int KEYS = GATHER_G ? 1 : 2;  // f32 key rows a row
+  constexpr bool GATHER_G = MODE == MODE_SRC || MODE == MODE_FUSED;
+  constexpr int KEYS = MODE == MODE_GEQ ? 2 : 1;  // f32 key rows a row
   extern __shared__ float4 group_smem[];
   const int lane = threadIdx.x & 31;
   const int W = gridDim.x * kWarpsPerBlock;
@@ -605,7 +736,10 @@ group_vjp_kernel(const T* __restrict__ a, const T* __restrict__ ga,
   const int C = H / EPV;
   const int grp = lane / GW;
   const float inv_h = 1.f / (float)H;
-  // past the row: 0 (centered_relu) or -inf (softmax) in z
+  // the gathered rows' stride: H, or 2H in the [N, 2H] table
+  const int64_t stride = MODE == MODE_FUSED ? 2 * (int64_t)H : (int64_t)H;
+  // past the row: 0 (centered_relu, an elementwise act) or -inf (softmax)
+  // in z
   const float pad = ACT == ACT_SOFTMAX ? __int_as_float((int)0xff800000u)
                                        : 0.f;
   // the lane's chunks gl + GW * k and their first features
@@ -660,7 +794,7 @@ group_vjp_kernel(const T* __restrict__ a, const T* __restrict__ ga,
       const int node = __shfl_sync(kFull, lmine.node, k & 31);
       const float sc = __shfl_sync(kFull, lmine.sc, k & 31);
       b.w[u] = live ? sc : 0.f;
-      const int64_t at = (int64_t)node * H;
+      const int64_t at = (int64_t)node * stride;
 #pragma unroll
       for (int c = 0; c < K; ++c) {
         const bool ld = live && ok[c];
@@ -711,7 +845,7 @@ group_vjp_kernel(const T* __restrict__ a, const T* __restrict__ ga,
           kv[k * EPV + j + 1] = t.y;
           kv[k * EPV + j + 2] = t.z;
           kv[k * EPV + j + 3] = t.w;
-          if (!GATHER_G) {
+          if (KEYS == 2) {
             const float4 v = ok[k] ? *reinterpret_cast<const float4*>(
                                          kbuf + H + f[k] + j)
                                    : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -742,30 +876,16 @@ group_vjp_kernel(const T* __restrict__ a, const T* __restrict__ ga,
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         z[j] += kv[j];
-        if (!GATHER_G) gs[j] = kgv[j];
+        if (KEYS == 2) gs[j] = kgv[j];
       }
-      add_vjp_group<ACT, GW, NV>(z, gs, cur.w[u], inv_h, p, acc);
+      if constexpr (MODE == MODE_FWD)
+        add_act_group<ACT, GW, NV>(z, cur.w[u], inv_h, p, acc);
+      else
+        add_vjp_group<ACT, GW, NV>(z, gs, cur.w[u], inv_h, p, acc);
     }
-    if (cur.last) {
-      // the groups' sums, added by a butterfly over the groups
-#pragma unroll
-      for (int o = GW; o < 32; o *= 2) {
-#pragma unroll
-        for (int j = 0; j < NV; ++j)
-          acc[j] += __shfl_xor_sync(kFull, acc[j], o);
-      }
-      // every group holds the row: group q % G stores the lane's q-th float4
-      float* out_row = out + (int64_t)cur.row * H;
-#pragma unroll
-      for (int q = 0; q < NV / 4; ++q) {
-        const int c = q / (EPV / 4);
-        if (ok[c] && (q & (G - 1)) == grp) {
-          const float* v = acc + 4 * q;
-          *reinterpret_cast<float4*>(out_row + f[c] + 4 * q - c * EPV) =
-              make_float4(v[0], v[1], v[2], v[3]);
-        }
-      }
-    }
+    if (cur.last)  // the groups' sums, added over the groups and stored
+      RowEnd<NV, GW, 0, GW, EPV>::run(acc, 0, lane, C,
+                                      out + (int64_t)cur.row * H);
     return issued;
   };
 
@@ -814,24 +934,32 @@ dim3 grid_for(int R) { return dim3((R + kWarpsPerBlock - 1) / kWarpsPerBlock); }
     default: return (int)cudaErrorInvalidValue;                    \
   }
 
-// The lane-group path's layout for rows of H values of `bytes` bytes under
-// a row-wise act (act_id), with the tables and outputs at ptrs (null ones
-// unused), packed as C << 16 | GW << 8 | U; 0 where the launch takes the
-// first design (an elementwise act, H * bytes not a multiple of 16, a table
-// off 16-byte alignment, or H past 256). GW is the narrowest power of two
-// that leaves a lane at most kMaxValuesPerLane values of a row.
-int group_layout(int act_id, int H, int bytes, const void* const* ptrs,
-                 int n) {
-  if (act_id != ACT_CENTERED_RELU && act_id != ACT_SOFTMAX) return 0;
+// The lane-group path's layout for a launch of `kernel` (a MODE) under the
+// act act_id, rows of H values of `bytes` bytes, with the tables and outputs
+// at ptrs (null ones unused), packed as C << 16 | GW << 8 | U; 0 where the
+// launch takes the first design: an elementwise act (but for #5, whose vjp
+// needs no reduction), H * bytes not a multiple of 16 (so also #5's second
+// half off 16 bytes from the first), a table off 16-byte alignment, or H
+// past 256. GW is the narrowest power of two that leaves a lane at most 4
+// chunks and group_max_values(kernel) values of a row.
+int group_layout(int kernel, int act_id, int H, int bytes,
+                 const void* const* ptrs, int n) {
+  const bool rowwise = act_id == ACT_CENTERED_RELU || act_id == ACT_SOFTMAX;
+  const bool elementwise = act_id == ACT_LEAKY_RELU || act_id == ACT_TANH;
+  if (kernel < MODE_GEQ || kernel > MODE_FUSED) return 0;
+  if (!rowwise && !(elementwise && kernel == MODE_FUSED)) return 0;
   if (H <= 0 || H > 256 || (H * bytes) % 16) return 0;
   for (int i = 0; i < n; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15) return 0;
   const int C = H * bytes / 16, per_chunk = 16 / bytes;
+  const int most = group_max_values(kernel);
+  auto fits = [&](int gw) {  // launch_group takes K <= 4, GW <= 16
+    const int K = (C + gw - 1) / gw;
+    return K * per_chunk <= most && K <= 4;
+  };
   int gw = 1;
-  while (gw < 32 && (C + gw - 1) / gw * per_chunk > kMaxValuesPerLane)
-    gw <<= 1;
-  const int K = (C + gw - 1) / gw;  // launch_group takes K <= 4, GW <= 16
-  if (K * per_chunk > kMaxValuesPerLane || K > 4 || gw > 16) return 0;
+  while (gw < 32 && !fits(gw)) gw <<= 1;
+  if (!fits(gw) || gw > 16) return 0;
   return C << 16 | gw << 8 | kGroupInflight;
 }
 
@@ -852,13 +980,13 @@ dim3 persistent_grid(Kernel kernel, int R, size_t smem_max, int& per_sm) {
   return dim3(most > 0 && most < all.x ? most : all.x);
 }
 
-template <int ACT, typename T, int GW, int K, bool GATHER_G>
+template <int ACT, typename T, int GW, int K, int MODE>
 int launch_group_k(const void* a, const void* ga, const void* ka,
                    const void* kg, const void* slot_idx, const void* scale,
                    const void* row_key, const void* row_ptr, int R, int H,
                    float p, void* out, cudaStream_t st) {
-  const auto kernel = group_vjp_kernel<ACT, T, GW, K, GATHER_G>;
-  constexpr size_t row_bytes = 2 * (GATHER_G ? 1 : 2) * sizeof(float);
+  const auto kernel = group_kernel<ACT, T, GW, K, MODE>;
+  constexpr size_t row_bytes = 2 * (MODE == MODE_GEQ ? 2 : 1) * sizeof(float);
   const size_t smem = kWarpsPerBlock * row_bytes * H;
   static int per_sm = -1;
   kernel<<<persistent_grid(kernel, R, kWarpsPerBlock * row_bytes * 256,
@@ -870,18 +998,18 @@ int launch_group_k(const void* a, const void* ga, const void* ka,
   return (int)cudaGetLastError();
 }
 
-// The K chunks a lane that group_layout can give a group of GW lanes: K = 1
-// or 2 for GW = 1, else K * 16 / sizeof(T) values fill more than half of
-// kMaxValuesPerLane (a narrower group would do otherwise). Only these are
-// built.
-template <typename T, int GW, int K>
+// The K chunks a lane that group_layout can give a group of GW lanes in
+// MODE: at most 4 chunks and group_max_values(MODE) values a lane, and for
+// GW > 1 more than the half-width group takes (a row of GW K chunks needs
+// 2K chunks a lane there). Only these are built.
+template <typename T, int GW, int K, int MODE>
 constexpr bool group_shape() {
-  constexpr int per_chunk = Vec<T>::N;
-  return K * per_chunk <= kMaxValuesPerLane &&
-         (GW == 1 || 2 * K * per_chunk > kMaxValuesPerLane);
+  constexpr int per_chunk = Vec<T>::N, most = group_max_values(MODE);
+  return K * per_chunk <= most && K <= 4 &&
+         (GW == 1 || 2 * K * per_chunk > most || 2 * K > 4);
 }
 
-template <int ACT, typename T, int GW, bool GATHER_G>
+template <int ACT, typename T, int GW, int MODE>
 int launch_group_gw(int K, const void* a, const void* ga, const void* ka,
                     const void* kg, const void* slot_idx, const void* scale,
                     const void* row_key, const void* row_ptr, int R, int H,
@@ -890,8 +1018,8 @@ int launch_group_gw(int K, const void* a, const void* ga, const void* ka,
   a, ga, ka, kg, slot_idx, scale, row_key, row_ptr, R, H, p, out, st
 #define SIR_CASE(KK)                                                      \
   case KK:                                                                \
-    if constexpr (group_shape<T, GW, KK>())                               \
-      return launch_group_k<ACT, T, GW, KK, GATHER_G>(SIR_ARGS);          \
+    if constexpr (group_shape<T, GW, KK, MODE>())                               \
+      return launch_group_k<ACT, T, GW, KK, MODE>(SIR_ARGS);              \
     break;
   switch (K) {
     SIR_CASE(1)
@@ -905,24 +1033,54 @@ int launch_group_gw(int K, const void* a, const void* ga, const void* ka,
 }
 
 // The lane-group kernel for `layout` (from group_layout, not 0).
-template <int ACT, typename T, bool GATHER_G>
-int launch_group(const void* a, const void* ga, const void* ka,
-                 const void* kg, const void* slot_idx, const void* scale,
-                 const void* row_key, const void* row_ptr, int R, int H,
-                 float p, int layout, void* out, cudaStream_t st) {
+template <int ACT, typename T, int MODE>
+int launch_group_t(const void* a, const void* ga, const void* ka,
+                   const void* kg, const void* slot_idx, const void* scale,
+                   const void* row_key, const void* row_ptr, int R, int H,
+                   float p, int layout, void* out, cudaStream_t st) {
   const int C = layout >> 16, gw = (layout >> 8) & 0xff;
   const int K = (C + gw - 1) / gw;
 #define SIR_ARGS \
   K, a, ga, ka, kg, slot_idx, scale, row_key, row_ptr, R, H, p, out, st
   switch (gw) {
-    case 1: return launch_group_gw<ACT, T, 1, GATHER_G>(SIR_ARGS);
-    case 2: return launch_group_gw<ACT, T, 2, GATHER_G>(SIR_ARGS);
-    case 4: return launch_group_gw<ACT, T, 4, GATHER_G>(SIR_ARGS);
-    case 8: return launch_group_gw<ACT, T, 8, GATHER_G>(SIR_ARGS);
-    case 16: return launch_group_gw<ACT, T, 16, GATHER_G>(SIR_ARGS);
+    case 1: return launch_group_gw<ACT, T, 1, MODE>(SIR_ARGS);
+    case 2: return launch_group_gw<ACT, T, 2, MODE>(SIR_ARGS);
+    case 4: return launch_group_gw<ACT, T, 4, MODE>(SIR_ARGS);
+    case 8: return launch_group_gw<ACT, T, 8, MODE>(SIR_ARGS);
+    case 16: return launch_group_gw<ACT, T, 16, MODE>(SIR_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SIR_ARGS
+}
+
+// The lane-group kernel of MODE for the act id and the gathered type (bf16
+// when bf16 != 0, else f32); an elementwise act is built for #5 only, as
+// group_layout allows.
+template <int MODE>
+int launch_group(int act, int bf16, const void* a, const void* ga,
+                 const void* ka, const void* kg, const void* slot_idx,
+                 const void* scale, const void* row_key, const void* row_ptr,
+                 int R, int H, float p, int layout, void* out,
+                 cudaStream_t st) {
+#define SIR_ARGS                                                        \
+  a, ga, ka, kg, slot_idx, scale, row_key, row_ptr, R, H, p, layout, out, \
+      st
+#define SIR_CALL(A)                                                  \
+  (bf16 ? launch_group_t<A, __nv_bfloat16, MODE>(SIR_ARGS)           \
+        : launch_group_t<A, float, MODE>(SIR_ARGS))
+  switch (act) {
+    case ACT_CENTERED_RELU: return SIR_CALL(ACT_CENTERED_RELU);
+    case ACT_SOFTMAX: return SIR_CALL(ACT_SOFTMAX);
+    case ACT_LEAKY_RELU:
+      if constexpr (MODE == MODE_FUSED) return SIR_CALL(ACT_LEAKY_RELU);
+      break;
+    case ACT_TANH:
+      if constexpr (MODE == MODE_FUSED) return SIR_CALL(ACT_TANH);
+      break;
+  }
+#undef SIR_CALL
+#undef SIR_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int ACT, typename TK>
@@ -973,6 +1131,13 @@ int launch_src_bwd(const void* eq, const void* g, const void* ek,
   return (int)cudaGetLastError();
 }
 
+// The second half of a row of the [N, 2H] table at `both`: H values of
+// `bytes` bytes in.
+const void* second_half(const void* both, int H, int bytes) {
+  return reinterpret_cast<const void*>(reinterpret_cast<uintptr_t>(both) +
+                                       (uintptr_t)H * bytes);
+}
+
 }  // namespace
 
 extern "C" {
@@ -992,6 +1157,13 @@ int ell_act_reduce_rowwise(const void* eq, const void* ek, int ek_bf16,
                            void* stream) {
   if (R <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const void* tables[] = {eq, ek, rows};
+  const int layout =
+      group_layout(MODE_FWD, act, H, ek_bf16 ? 2 : 4, tables, 3);
+  if (layout)
+    return launch_group<MODE_FWD>(act, ek_bf16, ek, nullptr, eq, nullptr,
+                                  slot_src, scale, row_key, row_ptr, R, H, p,
+                                  layout, rows, st);
 #define SIR_ARGS eq, ek, slot_src, scale, row_key, row_ptr, R, H, p, rows, st
 #define SIR_CALL(A)                                              \
   (ek_bf16 ? launch_act_reduce<A, __nv_bfloat16>(SIR_ARGS)       \
@@ -1009,19 +1181,12 @@ int ell_geq_reduce(const void* eq, const void* ek, int ek_bf16,
   if (R <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const void* tables[] = {eq, ek, g, geq_rows};
-  const int layout = group_layout(act, H, ek_bf16 ? 2 : 4, tables, 4);
-  if (layout) {
-#define SIR_ARGS                                                           \
-  ek, nullptr, eq, g, slot_src, scale, row_key, row_ptr, R, H, p, layout, \
-      geq_rows, st
-#define SIR_CALL(A)                                                 \
-  (ek_bf16 ? launch_group<A, __nv_bfloat16, false>(SIR_ARGS)        \
-           : launch_group<A, float, false>(SIR_ARGS))
-    return act == ACT_CENTERED_RELU ? SIR_CALL(ACT_CENTERED_RELU)
-                                    : SIR_CALL(ACT_SOFTMAX);
-#undef SIR_CALL
-#undef SIR_ARGS
-  }
+  const int layout =
+      group_layout(MODE_GEQ, act, H, ek_bf16 ? 2 : 4, tables, 4);
+  if (layout)
+    return launch_group<MODE_GEQ>(act, ek_bf16, ek, nullptr, eq, g, slot_src,
+                                  scale, row_key, row_ptr, R, H, p, layout,
+                                  geq_rows, st);
 #define SIR_ARGS \
   eq, ek, g, slot_src, scale, row_key, row_ptr, R, H, p, geq_rows, nullptr, st
 #define SIR_CALL(A)                                                       \
@@ -1063,18 +1228,11 @@ int ell_src_bwd_rowwise(const void* eq, const void* g, int bf16,
   if (R <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const void* tables[] = {eq, g, ek, out};
-  const int layout = group_layout(act, H, bf16 ? 2 : 4, tables, 4);
-  if (layout) {
-#define SIR_ARGS \
-  eq, g, ek, nullptr, slot_dst, scale, row_key, row_ptr, R, H, p, layout, out, st
-#define SIR_CALL(A)                                              \
-  (bf16 ? launch_group<A, __nv_bfloat16, true>(SIR_ARGS)         \
-        : launch_group<A, float, true>(SIR_ARGS))
-    return act == ACT_CENTERED_RELU ? SIR_CALL(ACT_CENTERED_RELU)
-                                    : SIR_CALL(ACT_SOFTMAX);
-#undef SIR_CALL
-#undef SIR_ARGS
-  }
+  const int layout = group_layout(MODE_SRC, act, H, bf16 ? 2 : 4, tables, 4);
+  if (layout)
+    return launch_group<MODE_SRC>(act, bf16, eq, g, ek, nullptr, slot_dst,
+                                  scale, row_key, row_ptr, R, H, p, layout,
+                                  out, st);
 #define SIR_ARGS eq, g, ek, slot_dst, scale, row_key, row_ptr, R, H, p, out, st
 #define SIR_CALL(A)                                                   \
   (bf16 ? launch_src_bwd<A, __nv_bfloat16, false>(SIR_ARGS)           \
@@ -1091,6 +1249,14 @@ int ell_src_bwd_fused(const void* both, int bf16, const void* ek,
                       int act, float p, void* out, void* stream) {
   if (R <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const void* g = second_half(both, H, bf16 ? 2 : 4);
+  const void* tables[] = {both, g, ek, out};
+  const int layout =
+      group_layout(MODE_FUSED, act, H, bf16 ? 2 : 4, tables, 4);
+  if (layout)
+    return launch_group<MODE_FUSED>(act, bf16, both, g, ek, nullptr,
+                                    slot_dst, scale, row_key, row_ptr, R, H,
+                                    p, layout, out, st);
 #define SIR_ARGS \
   both, nullptr, ek, slot_dst, scale, row_key, row_ptr, R, H, p, out, st
 #define SIR_CALL(A)                                                   \
@@ -1102,17 +1268,20 @@ int ell_src_bwd_fused(const void* both, int bf16, const void* ek,
 }
 
 // Launches nothing: the path a launch of `kernel` (0 ell_geq_reduce, 1
-// ell_src_bwd_rowwise; the other entries always take the first design)
-// takes for rows of H values, the gathered table in bf16 (bf16 != 0) or
-// f32, the act id `act` and the tables and output p0..p3 it is given (null
-// ones unused). Returns C << 16 | GW << 8 | U for the lane-group path (C
-// 16-byte chunks a row, groups of GW lanes, U slots in flight a group), 0
-// for the first design.
+// ell_src_bwd_rowwise, 2 ell_act_reduce_rowwise, 3 ell_src_bwd_fused;
+// ell_act_reduce_bwd always takes the first design) takes for rows of H
+// values, the gathered table in bf16 (bf16 != 0) or f32, the act id `act`
+// and the tables and output p0..p3 it is given (null ones unused; for
+// ell_src_bwd_fused p0 is the [N, 2H] table, whose second half is checked
+// too, as the entry does). Returns C << 16 | GW << 8 | U for the
+// lane-group path (C 16-byte chunks a row, groups of GW lanes, U slots in
+// flight a group), 0 for the first design.
 int ell_general_layout(int kernel, int H, int bf16, int act, const void* p0,
                        const void* p1, const void* p2, const void* p3) {
-  if (kernel != 0 && kernel != 1) return 0;
-  const void* ptrs[] = {p0, p1, p2, p3};
-  return group_layout(act, H, bf16 ? 2 : 4, ptrs, 4);
+  const int bytes = bf16 ? 2 : 4;
+  const void* ptrs[] = {p0, p1, p2, p3, second_half(p0, H, bytes)};
+  return group_layout(kernel, act, H, bytes, ptrs,
+                      kernel == MODE_FUSED ? 5 : 4);
 }
 
 const char* ell_general_error_string(int code) {

@@ -1015,22 +1015,27 @@ def ell_scaled_reduce(values, slot_idx, scale, row_ptr):
 # These take any sigma of the registry. A row-wise one (centered_relu,
 # softmax) couples a slot's H features, so its kernels hold the whole row
 # (H <= ROWWISE_MAX_H); an elementwise one takes any H. For an elementwise
-# sigma each vjp is act'(z) * cotangent, the arithmetic of #4. #3 and #4r
-# take a lane-group path for a row-wise sigma (``ell_general_layout``).
+# sigma each vjp is act'(z) * cotangent, the arithmetic of #4. #1r, #3 and
+# #4r take a lane-group path for a row-wise sigma, #5 for any sigma
+# (``ell_general_layout``).
 
 # the kernels of csrc/ell_general_kernels.cu with a lane-group path, by the
-# id ell_general_layout takes; the others always take the first design
-_GENERAL_LAYOUT_KERNEL = {"ell_geq_reduce": 0, "ell_src_bwd_rowwise": 1}
+# id ell_general_layout takes; ell_act_reduce_bwd always takes the first
+# design
+_GENERAL_LAYOUT_KERNEL = {"ell_geq_reduce": 0, "ell_src_bwd_rowwise": 1,
+                          "ell_act_reduce_rowwise": 2,
+                          "ell_src_bwd_fused": 3}
 
 
 class GeneralLayout(NamedTuple):
-    """The lane-group path of #3 ``ell_geq_reduce`` and #4r
-    ``ell_src_bwd_rowwise`` (``csrc/ell_general_kernels.cu``) for rows of
-    width H under a row-wise sigma: a gathered row is ``chunks`` chunks of
-    16 bytes, spread over a group of ``group_width`` lanes (a power of
-    two), ``chunks_per_lane`` chunks a lane; a warp's ``groups`` groups
-    each work on their own slot, ``inflight`` slots a group to a batch of
-    gathers, the next batch in flight while one is worked."""
+    """The lane-group path of #1r ``ell_act_reduce_rowwise``, #3
+    ``ell_geq_reduce``, #4r ``ell_src_bwd_rowwise`` and #5
+    ``ell_src_bwd_fused`` (``csrc/ell_general_kernels.cu``) for rows of
+    width H: a gathered row is ``chunks`` chunks of 16 bytes, spread over a
+    group of ``group_width`` lanes (a power of two), ``chunks_per_lane``
+    chunks a lane; a warp's ``groups`` groups each work on their own slot,
+    ``inflight`` slots a group to a batch of gathers, the next batch in
+    flight while one is worked."""
 
     chunks: int
     group_width: int
@@ -1056,14 +1061,17 @@ def ell_general_layout(name: str, h: int, dtype, act,
                        *tensors) -> Optional[GeneralLayout]:
     """The path a launch of ``name`` (a kernel of
     ``csrc/ell_general_kernels.cu``) takes for rows of width ``h``, the
-    gathered table in ``dtype`` (f32 or bf16: ek for ``ell_geq_reduce``,
-    eq and g for ``ell_src_bwd_rowwise``), the sigma ``act`` and the CUDA
-    tensors it reads and writes whole rows of (at most four: its node
-    tables and its output): a ``GeneralLayout`` for the lane-group path,
-    None for the first design (an elementwise sigma, rows that are not
-    whole 16-byte chunks, a table off 16-byte alignment, or a kernel with
-    no other design). The entry decides from the same H and pointers.
-    Needs a card: it asks the built library."""
+    gathered table in ``dtype`` (f32 or bf16: ek for
+    ``ell_act_reduce_rowwise`` and ``ell_geq_reduce``, eq and g for
+    ``ell_src_bwd_rowwise``, the [N, 2H] table for ``ell_src_bwd_fused``),
+    the sigma ``act`` and the CUDA tensors it reads and writes whole rows of
+    (at most four: its node tables and its output; for
+    ``ell_src_bwd_fused`` the [N, 2H] table first): a ``GeneralLayout`` for
+    the lane-group path, None for the first design (an elementwise sigma
+    but in ``ell_src_bwd_fused``, rows that are not whole 16-byte chunks, a
+    table off 16-byte alignment, or ``ell_act_reduce_bwd``, which has no
+    other design). The entry decides from the same H and pointers. Needs a
+    card: it asks the built library."""
     if name not in _GENERAL:
         raise ValueError(f"{name!r} is not a kernel of the general route "
                          f"({', '.join(_GENERAL)})")

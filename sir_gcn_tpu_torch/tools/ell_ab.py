@@ -62,18 +62,23 @@ of each; the largest difference of rows, srows, the g_ek rows and g_WE
 between the two libraries, and whether each is bitwise equal; and the
 paths this library's ``ell_edge_layout`` reports.
 
-The general mode (``--general``, ``csrc/ell_general_kernels.cu``) runs #3
-``ell_geq_reduce`` and #4r ``ell_src_bwd_rowwise`` from both libraries at
-the ogbn-arxiv plan, H = 96, with the gathered tables in bf16 and in f32,
-centered_relu(0.5) and softmax, the node tables and cotangent from seed 0
-made on the card: ms per launch over 20 warm launches in eight turns
-(other, this, this, other, ...), the median and the spread of each; the
-largest difference of each kernel's rows between the two libraries and
-how many entries lie beyond BWD_TOL of the other's (centered_relu's gate
-may take the other side of the relu where the two sum a row's mean in
-another order); and the layout this library's ``ell_general_layout``
-reports. #1r, #5 and #6 run once in each setting and must be bitwise
-equal to the other library's. Needs a CUDA card.
+The general mode (``--general``, ``csrc/ell_general_kernels.cu``) runs
+#1r ``ell_act_reduce_rowwise``, #3 ``ell_geq_reduce``, #4r
+``ell_src_bwd_rowwise``, #5 ``ell_src_bwd_fused`` and #6
+``ell_act_reduce_bwd`` from both libraries at the ogbn-arxiv plan, H = 96,
+with the gathered tables in bf16 and in f32, the node tables and
+cotangent from seed 0 made on the card, for centered_relu(0.5), softmax,
+leaky_relu(0.2) and tanh. The kernels of ``GENERAL_AB`` (#1r, #3, #4r
+and #5 for a row-wise sigma, #5 alone for an elementwise one) are timed:
+ms per launch over 20 warm launches in eight turns (other, this, this,
+other, ...), the median and the spread of each, with the largest
+difference of their rows between the two libraries and, for #1r and #5,
+how many entries lie beyond FWD_TOL (#1r) or BWD_TOL (#5) of the other's
+(centered_relu's gate may take the other side of the relu where the two
+sum a row's mean in another order). #3 and #4r, and every kernel not
+timed, run once in each setting and must be bitwise equal to the other
+library's. The layout this library's ``ell_general_layout`` reports is
+printed for #1r, #3, #4r and #5. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -124,7 +129,19 @@ EDGE_ITERS, EDGE_ROUNDS = 20, 8
 # held to chip_smoke.py's GW_TOL (atol grows by 1e-5 of the largest entry)
 GW_TOL = dict(atol=3e-4, rtol=1e-3, amax=1e-5)
 GENERAL_ITERS, GENERAL_ROUNDS = 20, 8
+FWD_TOL = dict(atol=2e-4, rtol=1e-4)
 BWD_TOL = dict(atol=3e-4, rtol=1e-3)
+# the general kernels timed, by sigma kind: output key -> (label, tag,
+# tolerance against the other build's rows, or None: its bits); the others
+# must give the other build's bits too
+GENERAL_AB = {
+    "rowwise": {"rows": ("#1r ell_act_reduce_rowwise", "#1r", FWD_TOL),
+                "geq": ("#3 ell_geq_reduce", "#3", None),
+                "out": ("#4r ell_src_bwd_rowwise", "#4r", None),
+                "fused": ("#5 ell_src_bwd_fused", "#5", BWD_TOL)},
+    "elementwise": {"fused": ("#5 ell_src_bwd_fused", "#5", BWD_TOL)}}
+# general_launches' outputs: #1r, #3, #4r, #5 rows, #6's g_z and rows
+GENERAL_OUTS = ("rows", "geq", "out", "fused", "gz", "geq6")
 
 
 def build_other(source: Path, name: str = "ell_kernels") -> ctypes.CDLL:
@@ -596,56 +613,63 @@ def general_launches(lib, inp: dict, act, dtype) -> tuple:
     for run in calls.values():
         run()
     torch.cuda.synchronize()
-    layouts = {"#3": ell_general_layout("ell_geq_reduce", H, dtype, act, eq,
+    layouts = {"#1r": ell_general_layout("ell_act_reduce_rowwise", H, dtype,
+                                         act, eq, ekt, outs["rows"]),
+               "#3": ell_general_layout("ell_geq_reduce", H, dtype, act, eq,
                                         ekt, g, outs["geq"]),
                "#4r": ell_general_layout("ell_src_bwd_rowwise", H, dtype,
-                                         act, eqt, gt, ek, outs["out"])}
+                                         act, eqt, gt, ek, outs["out"]),
+               "#5": ell_general_layout("ell_src_bwd_fused", H, dtype, act,
+                                        both, ek, outs["fused"])}
     # the calls hold raw pointers: keep what they point into alive
     return calls, dict(**{k: v.clone() for k, v in outs.items()},
                        layouts=layouts, keep=(ekt, eqt, gt, both, outs))
 
 
 def run_general(device, other: Path) -> dict:
-    """Every A/B line of #3 and #4r, and the bitwise check of #1r, #5 and
-    #6; returns label -> record. Raises if #1r, #5 or #6 differ."""
+    """Every A/B line of ``GENERAL_AB``, and the bitwise check of every
+    kernel it holds to no tolerance; returns label -> record. Raises if
+    one of those differs from the other build."""
     libs = {"other": build_other(other, "ell_general_kernels"),
             "this": _library("ell_general_kernels")}
     inp = arxiv_inputs(device)
     recs = {}
     for dtype in (torch.bfloat16, torch.float32):
         dt = "bf16" if dtype == torch.bfloat16 else "f32"
-        for act in (centered_relu(0.5), softmax):
+        for act in (centered_relu(0.5), softmax, leaky_relu(0.2), tanh):
+            timed = GENERAL_AB["elementwise" if act.diagonal else "rowwise"]
             runs = {k: general_launches(lib, inp, act, dtype)
                     for k, lib in libs.items()}
             o, t = runs["other"][1], runs["this"][1]
-            print(f"layout at H = {H} ({act.name}, {dt}): #3 "
-                  f"{t['layouts']['#3']}, #4r {t['layouts']['#4r']}",
-                  flush=True)
-            same = {k: torch.equal(o[k], t[k])
-                    for k in ("rows", "fused", "gz", "geq6")}
+            print(f"layout at H = {H} ({act.name}, {dt}): " + ", ".join(
+                f"{k} {v}" for k, v in t["layouts"].items()), flush=True)
+            same = {k: torch.equal(o[k], t[k]) for k in GENERAL_OUTS
+                    if k not in timed or timed[k][2] is None}
             if not all(same.values()):
-                raise AssertionError(f"{act.name}, {dt}: #1r, #5 or #6 "
-                                     f"differ from the other build: {same}")
-            names = {"geq": "#3 ell_geq_reduce", "out": "#4r "
-                     "ell_src_bwd_rowwise"}
-            for key, label in names.items():
-                diff = (o[key] - t[key]).abs()
-                beyond = int((diff > BWD_TOL["atol"]
-                              + BWD_TOL["rtol"] * o[key].abs()).sum())
-                tag = "#3" if key == "geq" else "#4r"
+                raise AssertionError(f"{act.name}, {dt}: kernels held to "
+                                     f"the other build's bits differ: "
+                                     f"{same}")
+            for key, (label, tag, tol) in timed.items():
                 ms = alternating_ms({k: r[0][tag] for k, r in runs.items()},
                                     GENERAL_ITERS, GENERAL_ROUNDS)
                 line = ", ".join(f"{k} {_fmt(v)}" for k, v in ms.items())
                 gain = statistics.median(ms["other"]) / statistics.median(
                     ms["this"])
+                diff = (o[key] - t[key]).abs()
+                rec = dict(ms=ms, diff=float(diff.max()))
+                if tol is None:
+                    held = "the same bits"
+                else:
+                    rec["beyond"] = int((diff > tol["atol"] + tol["rtol"]
+                                         * o[key].abs()).sum())
+                    held = (f"{rec['beyond']} of {diff.numel()} beyond "
+                            f"{'FWD_TOL' if tol is FWD_TOL else 'BWD_TOL'}")
                 print(f"{label} ({act.name}, {dt}): {line}, this/other "
-                      f"{gain:.2f}x faster; max |diff| "
-                      f"{float(diff.max()):.3e}, {beyond} of {diff.numel()} "
-                      f"beyond BWD_TOL", flush=True)
-                recs[f"{label} ({act.name}, {dt})"] = dict(
-                    ms=ms, diff=float(diff.max()), beyond=beyond)
-            print(f"{act.name}, {dt}: #1r, #5 and #6 bitwise equal to the "
-                  f"other build's", flush=True)
+                      f"{gain:.2f}x faster; max |diff| {rec['diff']:.3e}, "
+                      f"{held}", flush=True)
+                recs[f"{label} ({act.name}, {dt})"] = rec
+            print(f"{act.name}, {dt}: {', '.join(sorted(same))} bitwise "
+                  f"equal to the other build's", flush=True)
             del runs
     return recs
 
@@ -669,8 +693,9 @@ def main(argv=None) -> dict:
                       help="time the fused-edge kernels #7 and #8 "
                            "(ell_edge_kernels.cu)")
     mode.add_argument("--general", action="store_true",
-                      help="time the general route's backward kernels #3 "
-                           "and #4r (ell_general_kernels.cu)")
+                      help="time the general route's #1r, #3, #4r and "
+                           "#5 (ell_general_kernels.cu); #3, #4r and #6 "
+                           "must give the other build's bits")
     p.add_argument("--probes", action="store_true",
                    help="also time #2 and #4 with their gathers folded "
                         "into a smaller table")

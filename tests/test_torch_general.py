@@ -14,8 +14,10 @@ package's.
   isolated-node graphs, sum/mean/sym, f32/bf16;
 * tanh forced onto the general route (``sir_elementwise=False``) against
   the elementwise route; ``fuse_bwd_take`` against the default backward and
-  JAX's fused backward; the dst-major composition (#6 then #12) against
-  JAX's gradients;
+  JAX's fused backward (leaky_relu(0.2) at H = 96 among them, the arxiv
+  SIRModel's); #5's plain version with leaky_relu against the Pallas
+  kernel; the dst-major composition (#6 then #12) against JAX's
+  gradients;
 * ``SIRConv`` with centered_relu against the JAX ``SIRConv`` through the
   weight bridge: out, every parameter gradient, one AdamW step;
 * which kernels the route reaches, and what raises; the layout query's
@@ -27,9 +29,10 @@ atol 3e-4 / rtol 1e-3; a g_z stored in bf16 at one bf16 step. bf16 is
 rounded at the same points in both packages.
 
 The ``cuda`` tests compare each kernel with its plain version on the card,
-on the path its entry chooses (``GENERAL_PATHS``), on awkward plans, and
-ask two launches of #3 and #4r for the same bits; they skip where there
-is no card. JAX is imported inside the tests that use it (``pytest -m
+on the path its entry chooses (``GENERAL_PATHS``), on awkward plans, with
+leaky_relu besides (#5's lane-group path for an elementwise sigma), and
+ask two launches of #1r, #3, #4r and #5 for the same bits; they skip where
+there is no card. JAX is imported inside the tests that use it (``pytest -m
 cuda --noconftest tests/test_torch_general.py`` on the card).
 """
 
@@ -70,8 +73,12 @@ BWD_TOL = dict(atol=3e-4, rtol=1e-3)
 BF16_STEP = dict(atol=3e-4, rtol=2.0 ** -7)
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 ALPHA = 0.5
+SLOPE = 0.2  # the arxiv SIRModel's leaky_relu
 ACTS = {"centered_relu": tell.centered_relu(ALPHA), "softmax": tell.softmax,
         "tanh": dataclasses.replace(tell.tanh, sir_elementwise=False)}
+# on the card also the elementwise sigma that #5 takes on its lane-group
+# path (and the other kernels on their first design)
+CARD_ACTS = {**ACTS, "leaky_relu": tell.leaky_relu(SLOPE)}
 
 
 def jax_act(name: str):
@@ -81,7 +88,8 @@ def jax_act(name: str):
     return {"centered_relu": lambda z: jax.nn.relu(
                 z - ALPHA * z.mean(-1, keepdims=True)),
             "softmax": lambda z: jax.nn.softmax(z, axis=-1),
-            "tanh": jnp.tanh}[name]
+            "tanh": jnp.tanh,
+            "leaky_relu": lambda z: jax.nn.leaky_relu(z, SLOPE)}[name]
 
 
 def jax_dtype(dt: str):
@@ -329,15 +337,18 @@ def test_tanh_forced_general_equals_elementwise(graph, agg, dt, edge_dtype):
 
 @pytest.mark.parametrize("act,h,dt", [("tanh", 24, "bf16"),
                                       ("centered_relu", 128, "f32"),
-                                      ("softmax", 128, "bf16")])
+                                      ("softmax", 128, "bf16"),
+                                      ("leaky_relu", 96, "bf16")])
 def test_fuse_bwd_take_matches_default_and_jax(act, h, dt, edge_dtype):
     """fuse_bwd_take=True: the same gradients as the default backward and
     as JAX's fused backward (on its elementwise route at any width, which
-    it pads to 128 lanes; on its general route at H % 128 == 0)."""
+    it pads to 128 lanes; on its general route at H % 128 == 0). The
+    leaky_relu case is the arxiv SIRModel's sigma and width."""
     import sir_gcn_tpu.ops.ell as jell
 
     edge_dtype(dt)
-    tact = tell.tanh if act == "tanh" else ACTS[act]
+    tact = {"tanh": tell.tanh, "leaky_relu": CARD_ACTS["leaky_relu"]}.get(
+        act) or ACTS[act]
     c = make_case("random", h, seed=7)
     w = np.random.default_rng(8).normal(size=c.eq.shape).astype(np.float32)
     fused = _port_grads(c, tact, "sym", w, fuse_bwd_take=True)
@@ -347,6 +358,38 @@ def test_fuse_bwd_take_matches_default_and_jax(act, h, dt, edge_dtype):
         static_scale=True, act_elementwise=tact.elementwise,
         fuse_bwd_take=True)
     _assert_same(fused, _jax_grads(f, c, w))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_fused_plain_matches_pallas_elementwise(dt):
+    """``ell_src_bwd_fused_plain`` with the elementwise leaky_relu (the
+    sigma #5 runs on JAX's elementwise route) against
+    ``bucket_src_bwd_fused`` in interpret mode, bucket by bucket, at
+    H = 128 (the TPU kernel's lane split)."""
+    import jax.numpy as jnp
+    import sir_gcn_tpu.ops.ell as jell
+    from sir_gcn_tpu.ops import pallas
+
+    h, jdt, tdt = 128, jax_dtype(dt), DTYPES[dt]
+    c = make_case("hub", h, seed=13)
+    fg, splan, ss = c.tfg, c.tfg.src_plan, c.scales["src"]
+    idx = _jnp(fg.src_slot_dstnode)
+    both = jnp.concatenate([jnp.take(_cast(_jnp(c.eq), jdt), idx, axis=0),
+                            jnp.take(_cast(_jnp(c.g), jdt), idx, axis=0)],
+                           axis=1)
+    ek_rows = jnp.take(_jnp(c.ek), _jnp(splan.row_key), axis=0)
+    want = []
+    for b, nr, so, ro in jell._bucket_offsets(splan.buckets1):
+        r, _ = pallas.bucket_src_bwd_fused(
+            both[so:so + b * nr], ek_rows[ro:ro + nr],
+            _jnp(ss[so:so + b * nr]).reshape(nr, b), b,
+            jax_act("leaky_relu"), interpret=True)
+        want.append(np.asarray(r))
+    got = ell_src_bwd_fused_plain(
+        torch.cat([_t(c.eq, tdt), _t(c.g, tdt)], 1), _t(c.ek),
+        fg.src_slot_dstnode, _t(ss), splan.row_key, splan.row_ptr,
+        CARD_ACTS["leaky_relu"])
+    np.testing.assert_allclose(got.numpy(), np.concatenate(want), **BWD_TOL)
 
 
 @pytest.mark.parametrize("act", sorted(ACTS))
@@ -521,8 +564,10 @@ def test_general_route_raises():
 
 def test_general_layout_python_side():
     """``ell_general_layout`` checks its arguments before it asks the
-    library, answers None for the kernels with only the first design, and
-    its codes decode to the lane-group layout."""
+    library, answers None for the kernel with only the first design
+    (``ell_act_reduce_bwd``), asks it by the ids of the source's modes for
+    the four with a lane-group path, and its codes decode to the lane-group
+    layout."""
     act = ACTS["centered_relu"]
     with pytest.raises(ValueError, match="not a kernel of the general"):
         ell_general_layout("ell_src_bwd", 96, torch.bfloat16, act)
@@ -532,9 +577,12 @@ def test_general_layout_python_side():
     with pytest.raises(ValueError, match="at most four"):
         ell_general_layout("ell_geq_reduce", 96, torch.bfloat16, act,
                            *[torch.zeros(1)] * 5)
-    for name in ("ell_act_reduce_rowwise", "ell_src_bwd_fused",
-                 "ell_act_reduce_bwd"):
-        assert ell_general_layout(name, 96, torch.bfloat16, act) is None
+    assert ell_general_layout("ell_act_reduce_bwd", 96, torch.bfloat16,
+                              act) is None
+    # MODE_GEQ, MODE_SRC, MODE_FWD, MODE_FUSED of csrc/ell_general_kernels.cu
+    assert tkernels._GENERAL_LAYOUT_KERNEL == {
+        "ell_geq_reduce": 0, "ell_src_bwd_rowwise": 1,
+        "ell_act_reduce_rowwise": 2, "ell_src_bwd_fused": 3}
     # the arxiv width: 12 chunks of bf16 on groups of 8 lanes (2 chunks, 16
     # values a lane), 24 of f32 on groups of 8 (3 chunks, 12 values); 64
     # chunks (H = 256, f32) on 16 lanes, 4 a lane
@@ -579,12 +627,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# the lane-group path of #3 and #4r (csrc/ell_general_kernels.cu) for a
-# row-wise sigma, by (H, gathered dtype): (16-byte chunks a row, lanes a
-# group), the group the narrowest power of two that leaves a lane at most
-# 16 values of a row; None where the rows are not whole 16-byte chunks (the
-# first design, which an elementwise sigma and a misaligned table also
-# take)
+# the lane-group path of #3, #4r (csrc/ell_general_kernels.cu) for a
+# row-wise sigma and of #5 for any sigma, by (H, gathered dtype): (16-byte
+# chunks a row, lanes a group), the group the narrowest power of two that
+# leaves a lane at most 16 values and 4 chunks of a row; None where the
+# rows are not whole 16-byte chunks (the first design, which an elementwise
+# sigma but in #5, and a misaligned table, also take)
 GENERAL_PATHS = {(24, "bf16"): (3, 2), (24, "f32"): (6, 2),
                  (20, "bf16"): None, (20, "f32"): (5, 2),
                  (96, "bf16"): (12, 8), (96, "f32"): (24, 8),
@@ -593,35 +641,48 @@ GENERAL_PATHS = {(24, "bf16"): (3, 2), (24, "f32"): (6, 2),
                  (256, "bf16"): (32, 16), (256, "f32"): (64, 16)}
 
 
-def assert_general_paths(h, dt, act, geq_args, src_args, outs,
+# #1r's, whose lane holds at most 24 values (the forward holds no
+# cotangent row): groups of 4 lanes, 3 chunks each, at H = 96 in bf16
+FWD_PATHS = {**GENERAL_PATHS, (24, "bf16"): (3, 1), (96, "bf16"): (12, 4)}
+
+
+def assert_general_paths(h, dt, act, geq_args, src_args, both, outs,
                          aligned=True):
-    """#3 (``ell_geq_reduce``'s args) and #4r (``ell_src_bwd_rowwise``'s)
-    took the path GENERAL_PATHS names."""
-    want = GENERAL_PATHS[h, dt] if act.name != "tanh" and aligned else None
-    lays = (ell_general_layout("ell_geq_reduce", h, DTYPES[dt], act,
-                               geq_args[0], geq_args[1], geq_args[-1],
-                               outs[0]),
-            ell_general_layout("ell_src_bwd_rowwise", h, DTYPES[dt], act,
-                               *src_args[:3], outs[1]))
-    for lay in lays:
+    """#1r, #3 (``ell_geq_reduce``'s args: eq, ek, ..., g), #4r
+    (``ell_src_bwd_rowwise``'s: eq, g, ek, ...) and #5 (``both``, then
+    #4r's ek) took the path GENERAL_PATHS names; ``outs`` are the outputs
+    of #1r, #3, #4r and #5."""
+    eq, ek, g = geq_args[0], geq_args[1], geq_args[-1]
+    tables = {"ell_act_reduce_rowwise": (eq, ek, outs[0]),
+              "ell_geq_reduce": (eq, ek, g, outs[1]),
+              "ell_src_bwd_rowwise": (*src_args[:3], outs[2]),
+              "ell_src_bwd_fused": (both, src_args[2], outs[3])}
+    for name, ts in tables.items():
+        group = aligned and (not act.diagonal or name == "ell_src_bwd_fused")
+        paths = FWD_PATHS if name == "ell_act_reduce_rowwise" else \
+            GENERAL_PATHS
+        want = paths[h, dt] if group else None
+        lay = ell_general_layout(name, h, DTYPES[dt], act, *ts)
         got = None if lay is None else (lay.chunks, lay.group_width)
-        assert got == want, (h, dt, act.name, lay)
+        assert got == want, (name, h, dt, act.name, lay)
+        assert lay is None or lay.inflight == 1, lay
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", sorted(DTYPES))
-@pytest.mark.parametrize("act", sorted(ACTS))
+@pytest.mark.parametrize("act", sorted(CARD_ACTS))
 @pytest.mark.parametrize("graph,h", [("hub", 24), ("random", 96),
                                      ("isolated", 200), ("random", 20),
                                      ("random", 128), ("random", 256)])
 def test_general_kernels_match_plain_on_card(cuda_device, graph, h, act,
                                              dt):
-    """Each kernel against its plain version, #3 and #4r on the path
-    their entries choose: the lane-group path for a row-wise sigma where
-    a row is whole 16-byte chunks, else the first design (H = 20 in bf16,
-    tanh sent down the general route)."""
+    """Each kernel against its plain version, on the path its entry
+    chooses: #1r, #3, #4r on the lane-group path for a row-wise sigma, #5
+    for any sigma, where a row is whole 16-byte chunks, else the first
+    design (H = 20 in bf16; tanh sent down the general route and leaky_relu
+    but in #5)."""
     c = make_case(graph, h, device=cuda_device, with_jax=False)
-    d, tdt, tact, fg = cuda_device, DTYPES[dt], ACTS[act], c.tfg
+    d, tdt, tact, fg = cuda_device, DTYPES[dt], CARD_ACTS[act], c.tfg
     plan, splan = fg.dst_plan, fg.src_plan
     fwd = (_t(c.eq, device=d), _t(c.ek, tdt, d), fg.dst_slot_srcnode,
            _t(c.scales["dst"], device=d), plan.row_key, plan.row_ptr, tact)
@@ -648,8 +709,8 @@ def test_general_kernels_match_plain_on_card(cuda_device, graph, h, act,
     for a, b, tol in zip(got, want, (FWD_TOL, BWD_TOL, gz_tol, BWD_TOL,
                                      BWD_TOL, BWD_TOL)):
         torch.testing.assert_close(a, b, **tol)
-    assert_general_paths(h, dt, tact, fwd + (g,), (eqb, gb) + rest,
-                         (got[1], got[4]))
+    assert_general_paths(h, dt, tact, fwd + (g,), (eqb, gb) + rest, both,
+                         (got[0], got[1], got[4], got[5]))
 
 
 def _offset(t, aligned):
@@ -670,13 +731,14 @@ def _offset(t, aligned):
     (200, "bf16", True), (256, "bf16", True), (256, "f32", True)])
 def test_general_kernels_on_awkward_plans_on_card(cuda_device, h, dt,
                                                   aligned):
-    """#3 and #4r (and #1r, #5, #6 beside them) against their plain
+    """#1r, #3, #4r and #5 (and #6 beside them) against their plain
     versions on plans with odd row counts on both sides (a part-full last
     run of rows), rows of 40 to 256 slots (several 32-slot runs), budgets
     off multiples of 8 (10, 12, 28), a fifth of the scales zeroed and one
-    multi-slot row with every scale 0, for centered_relu, softmax and tanh
-    sent down the general route; with ``aligned`` False every node table
-    starts one element past a 16-byte boundary (the first design)."""
+    multi-slot row with every scale 0, for centered_relu, softmax, tanh
+    sent down the general route and leaky_relu; with ``aligned`` False
+    every node table, the [N, 2H] one too, starts one element past a
+    16-byte boundary (the first design)."""
     rng = np.random.default_rng(0)
     n, d, tdt = 70, cuda_device, DTYPES[dt]
     dst = np.concatenate([np.repeat([0, 1, 2, 3], [250, 40, 27, 45]),
@@ -704,12 +766,12 @@ def test_general_kernels_on_awkward_plans_on_card(cuda_device, h, dt,
     ekt = _offset(_t(ek, tdt, d), aligned)
     eqt, gt = (_offset(_t(x, tdt, d), aligned) for x in (eq, g))
     plan, splan = fg.dst_plan, fg.src_plan
-    for act in ACTS.values():
+    both = _offset(torch.cat([eqt, gt], 1), aligned)
+    for act in CARD_ACTS.values():
         fwd = (eqd, ekt, fg.dst_slot_srcnode, scales[0], plan.row_key,
                plan.row_ptr, act)
         bwd = (eqt, gt, ekf, fg.src_slot_dstnode, scales[1], splan.row_key,
                splan.row_ptr, act)
-        both = torch.cat([eqt, gt], 1)
         got = (ell_act_reduce_rowwise(*fwd), ell_geq_reduce(*fwd, gd),
                *ell_act_reduce_bwd(*fwd, gd, gz_dtype=tdt),
                ell_src_bwd_rowwise(*bwd), ell_src_bwd_fused(both, *bwd[2:]))
@@ -722,25 +784,25 @@ def test_general_kernels_on_awkward_plans_on_card(cuda_device, h, dt,
         for a, b, tol in zip(got, want, (FWD_TOL, BWD_TOL, gz_tol, BWD_TOL,
                                          BWD_TOL, BWD_TOL)):
             torch.testing.assert_close(a, b, **tol)
-        assert_general_paths(h, dt, act, fwd + (gd,), bwd, (got[1], got[4]),
-                             aligned)
+        assert_general_paths(h, dt, act, fwd + (gd,), bwd, both,
+                             (got[0], got[1], got[4], got[5]), aligned)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", sorted(DTYPES))
-@pytest.mark.parametrize("act", ["centered_relu", "softmax"])
+@pytest.mark.parametrize("act", ["centered_relu", "softmax", "leaky_relu"])
 def test_general_kernels_are_bitwise_repeatable_on_card(cuda_device, act,
                                                         dt):
-    """Two launches of #3 and #4r on the same inputs give bitwise equal
-    rows on the lane-group path: each sum's order is fixed by the layout,
-    with no atomics. A graph of 4,000 nodes and 40,000 edges fills many
-    blocks."""
+    """Two launches of #1r, #3, #4r and #5 on the same inputs give bitwise
+    equal rows on the lane-group path (for leaky_relu #5's; the others'
+    first design): each sum's order is fixed by the layout, with no
+    atomics. A graph of 4,000 nodes and 40,000 edges fills many blocks."""
     rng = np.random.default_rng(7)
     n, e, d = 4000, 40000, cuda_device
     fg = tell.build_fast_graph(
         build_graph(rng.integers(0, n, e), rng.integers(0, n, e), n,
                     device=d), max_budget=64)
-    tact, tdt = ACTS[act], DTYPES[dt]
+    tact, tdt = CARD_ACTS[act], DTYPES[dt]
     eq, ek, g = (_t(rng.normal(size=(fg.n_pad, 96)), device=d)
                  for _ in range(3))
     plan, splan = fg.dst_plan, fg.src_plan
@@ -748,9 +810,12 @@ def test_general_kernels_are_bitwise_repeatable_on_card(cuda_device, act,
            plan.row_key, plan.row_ptr, tact)
     bwd = (eq.to(tdt), g.to(tdt), ek, fg.src_slot_dstnode,
            fg.src_slot_scales["sym"], splan.row_key, splan.row_ptr, tact)
-    first = (ell_geq_reduce(*fwd, g), ell_src_bwd_rowwise(*bwd))
-    second = (ell_geq_reduce(*fwd, g), ell_src_bwd_rowwise(*bwd))
+    both = torch.cat(bwd[:2], 1)
+    runs = [(ell_act_reduce_rowwise(*fwd), ell_geq_reduce(*fwd, g),
+             ell_src_bwd_rowwise(*bwd), ell_src_bwd_fused(both, *bwd[2:]))
+            for _ in range(2)]
     torch.cuda.synchronize()
-    assert_general_paths(96, dt, tact, fwd + (g,), bwd, first)
+    first, second = runs
+    assert_general_paths(96, dt, tact, fwd + (g,), bwd, both, first)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
