@@ -23,11 +23,13 @@ Phases, each printed as it runs; any failure exits non-zero:
            path each launch took (the 16-byte vector path with its layout,
            which the arxiv plan must take, or the scalar loop), for #7
            and #8 theirs (W_E and g_WE in registers, which the arxiv plan
-           must take, or the shared-memory loop), and for #1r, #3, #4r
-           and #5 theirs (the lane-group path, which the arxiv plan must
-           take in f32 and bf16 with centered_relu and softmax, and #5
-           also with leaky_relu(0.2) and tanh, timed in bf16; or the
-           first design)
+           must take, or the shared-memory loop), and for #1r, #3, #4r,
+           #5 and #6 theirs (the lane-group path, which the arxiv plan
+           must take in f32 and bf16 with centered_relu and softmax, and
+           #5 also with leaky_relu(0.2) and tanh, timed in bf16 with #6
+           beside it on its first design; or the first design); where
+           #3 and #6 both take the lane-group path, #6's rows must be #3's
+           bits
   train    the arxiv trainer's entry point at full width (169,343 nodes,
            H = 96, 3 layers, bn, residual, bf16 edges), once with sym and
            once with max aggregation, 5 steps and evals each, with the
@@ -47,8 +49,8 @@ Phases, each printed as it runs; any failure exits non-zero:
            (H = 96, sym, tanh) three ways: src-major (#2, #4), fused take
            (#2, #5) and dst-major (#1, #6, #12); each design's time, the
            gradients of the other two against the src-major one, #5's
-           path (the lane-group path required), and the backward kernels
-           alone (#4 and #5 with tanh and with leaky_relu)
+           path (the lane-group path required) and #6's, and the backward
+           kernels alone (#4 and #5 with tanh and with leaky_relu)
   lab      the timing lab at the JAX tools' sizes: the entry points of
            sir_gcn_tpu_torch.tools.kernel_lab (every tag; R = 111,104 rows
            of B = 16 slots, H = 128) and .gather_dma (N = 169,984, S =
@@ -60,8 +62,8 @@ Phases, each printed as it runs; any failure exits non-zero:
            beside the bound (kernel and library call in 4 alternating
            turns of 20 launches, the median kept: #12 and #19-#24); #22
            with its persistent grid and #20 at each inflight held and
-           timed the same way, and #20 launched twice for equal bits; its
-           inputs are freed before the e2e and profile phases
+           timed the same way, and #20 and #23 launched twice for equal
+           bits; its inputs are freed before the e2e and profile phases
   e2e      one training step on a ~20k-node graph on the card (kernels)
            against the same step on the CPU (plain versions): the arxiv
            model with sym and with max, the SIREConv layer on its fused
@@ -189,8 +191,6 @@ GENERAL = ("ell_act_reduce_rowwise", "ell_geq_reduce", "ell_src_bwd_rowwise")
 BWD = ("ell_src_bwd_fused", "ell_act_reduce_bwd")
 LAB = tuple(k for k in KERNELS if k.startswith("lab_"))
 EDGE_DIM = 16  # the edge basis width of the SIREConv configuration
-# the gather probe's table beyond the L2: 174 MB of bf16 rows at H = 128
-BIG_GATHER_ROWS = 679_936
 
 
 def flags_for(agg: str) -> list:
@@ -404,15 +404,17 @@ def log_edge_layout(label, h, de, act, dtype, require_registers=False):
 
 def log_general_layout(label, name, args, outs, require_group=False):
     """Log the path a launch of ``name`` (#1r ``ell_act_reduce_rowwise``,
-    #3 ``ell_geq_reduce``, #4r ``ell_src_bwd_rowwise`` or #5
-    ``ell_src_bwd_fused``, its wrapper's ``args`` and output ``outs``) took
-    (ell_general_layout: the lane-group path with its layout, or the first
-    design). With ``require_group`` the first design raises: the redesign
-    must not be bypassed."""
+    #3 ``ell_geq_reduce``, #4r ``ell_src_bwd_rowwise``, #5
+    ``ell_src_bwd_fused`` or #6 ``ell_act_reduce_bwd``, its wrapper's
+    ``args`` and outputs ``outs``) took (ell_general_layout: the lane-group
+    path with its layout, or the first design); returns the layout. With
+    ``require_group`` the first design raises: the redesign must not be
+    bypassed."""
     from sir_gcn_tpu_torch.ops import cuda as K
 
     h = args[1].shape[1] if name == "ell_src_bwd_fused" else args[0].shape[1]
-    if name in ("ell_act_reduce_rowwise", "ell_geq_reduce"):
+    if name in ("ell_act_reduce_rowwise", "ell_geq_reduce",
+                "ell_act_reduce_bwd"):
         # eq, ek (gathered), ..., act[, g]
         tables, act, dtype = args[:2] + args[7:], args[6], args[1].dtype
     elif name == "ell_src_bwd_rowwise":  # eq, g (gathered), ek, ..., act
@@ -424,6 +426,7 @@ def log_general_layout(label, name, args, outs, require_group=False):
                                  f"lane-group path, {lay}"))
     if require_group and lay is None:
         raise AssertionError(f"{label} {name} took the first design")
+    return lay
 
 
 def check_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
@@ -796,15 +799,16 @@ def near_gates(plan, z, scale, act):
 
 
 def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
-                          timing=None, mask_gates=False, require_group=False,
+                          timing=None, mask_gates=False, require_group=(),
                           names=None):
     """The general route's kernels (#1r, #3, #6 on the dst plan; #4r and
     #5 on the src plan; only ``names`` where given) against their plain
     versions; a g_z stored in bf16 at one bf16 step. With ``mask_gates``
     (centered_relu) the rows and slots holding a near-gate (slot, feature)
     are left out of the backward comparisons and counted: the relu may take
-    the other side there. The path of #1r, #3, #4r and #5 is logged; with
-    ``require_group`` it must be the lane-group path."""
+    the other side there. Each kernel's path is logged; those named in
+    ``require_group`` (True: all) must take the lane-group path. Where #3
+    and #6 both take it, #6's rows must be #3's bits."""
     import torch
 
     from sir_gcn_tpu_torch.ops import cuda as K
@@ -853,7 +857,7 @@ def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
     }
     if names is not None:
         runs = {k: v for k, v in runs.items() if k in names}
-    outs = {}
+    outs, lays = {}, {}
     for name, (_, kernel, plain, tols) in runs.items():
         got, want = kernel(), plain()
         torch.cuda.synchronize()
@@ -864,9 +868,14 @@ def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
             errs[name] = max(errs.get(name, 0.0), err)
         outs[name] = got
         del want
-        if name != "ell_act_reduce_bwd":
-            log_general_layout(label, name, runs[name][0], got,
-                               require_group=require_group)
+        lays[name] = log_general_layout(
+            label, name, runs[name][0], got,
+            require_group=require_group is True or name in require_group)
+    if lays.get("ell_geq_reduce") and lays.get("ell_act_reduce_bwd"):
+        if not torch.equal(outs["ell_act_reduce_bwd"][1],
+                           outs["ell_geq_reduce"][0]):
+            raise AssertionError(f"{label}: #6's rows are not #3's bits")
+        log(f"  {label}: #6's rows are #3's bits")
     if timing is None:
         return
     valid_d, valid_s = int((sd != 0).sum()), int((ss != 0).sum())
@@ -971,11 +980,13 @@ def phase_kernels(device):
                               ss, softmax, dtype, errs, require_group=True)
         # #5 on its lane-group path for the elementwise sigmas too:
         # leaky_relu(0.2) is the arxiv SIRModel's, which JAX's fused
-        # backward runs (the elementwise route, padded to 128 lanes)
+        # backward runs (the elementwise route, padded to 128 lanes); #6
+        # beside it, its path logged (its first design there)
         for act in acts:
             check_general_kernels(
                 f"arxiv {dtype} {act.name}", fg, eq, ek, g, sd, ss, act,
-                dtype, errs, require_group=True, names=("ell_src_bwd_fused",),
+                dtype, errs, require_group=("ell_src_bwd_fused",),
+                names=("ell_src_bwd_fused", "ell_act_reduce_bwd"),
                 timing=fused_timing.setdefault(act.name, {}) if keep
                 is not None else None)
     for name, t in timing.items():
@@ -984,11 +995,11 @@ def phase_kernels(device):
             f"{t['plain_ms']:.3f} ms, bound {b_ms:.4f} ms by {by} "
             f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
             f"{100 * b_ms / t['ms']:.1f}% of bound")
-    for act_name, t in fused_timing.items():
-        t = t["ell_src_bwd_fused"]
-        log(f"  ell_src_bwd_fused ({act_name}, bf16 edges): {t['ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} ms, "
-            f"{100 * t['bound'][0] / t['ms']:.1f}% of bound")
+    for act_name, ts in fused_timing.items():
+        for name, t in ts.items():
+            log(f"  {name} ({act_name}, bf16 edges): {t['ms']:.4f} ms, "
+                f"plain {t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} "
+                f"ms, {100 * t['bound'][0] / t['ms']:.1f}% of bound")
     del eq, ek, g, w, tables
     return errs, timing, fg
 
@@ -1345,6 +1356,9 @@ def phase_bwd(device, fg, iters: int = 10):
                            (both,) + rest[:-1] + (act,),
                            (K.ell_src_bwd_fused(both, *rest[:-1], act),),
                            require_group=True)
+        args6 = fwd[:-1] + (act, w)
+        log_general_layout(f"bwd (iii) {act.name}", "ell_act_reduce_bwd",
+                           args6, K.ell_act_reduce_bwd(*args6, gz_dtype=bf))
     alone_ms = {name: cuda_ms(fn, 20) for name, fn in alone.items()}
     log("  backward kernels alone (bf16, tanh): " + ", ".join(
         f"{name} {ms:.4f} ms" for name, ms in alone_ms.items()))
@@ -1409,10 +1423,10 @@ def phase_lab(device):
     missing = [k for k, v in launches.items() if not v]
     if missing:
         raise AssertionError(f"the lab launched no {missing}")
-    log(f"  gather_dma with N = {BIG_GATHER_ROWS} rows "
-        f"({BIG_GATHER_ROWS * gather_dma.SIZES['H'] * 2 / 1e6:.1f} MB of "
+    log(f"  gather_dma with N = {gather_dma.BIG_N} rows "
+        f"({gather_dma.BIG_N * gather_dma.SIZES['H'] * 2 / 1e6:.1f} MB of "
         f"bf16, beyond the 50 MB L2)")
-    gather_dma.run(device, N=BIG_GATHER_ROWS)
+    gather_dma.run(device, N=gather_dma.BIG_N)
 
     ekg, eq, sc, ekg3, sc3, ekg32 = (
         kin[k] for k in ("ekg", "eq", "sc", "ekg3", "sc3", "ekg32"))
@@ -1469,7 +1483,7 @@ def phase_lab(device):
             library_turns(name, kernel, library, tm)
 
     # the redesigned streams' other knobs against their plain versions and
-    # their library calls, and #20 launched twice
+    # their library calls, and #20 and #23 launched twice
     for name, knob in [("lab_pass2", dict(persistent=True))] + [
             ("lab_copy32", dict(inflight=u)) for u in L.INFLIGHT]:
         args, library = cases[name]
@@ -1481,11 +1495,13 @@ def phase_lab(device):
         library_turns(f"{name} {knob}",
                       lambda name=name, args=args, knob=knob: getattr(
                           L, name)(*args, **knob), library, {})
-    first, second = L.lab_copy32(ekg32, r), L.lab_copy32(ekg32, r)
-    if not torch.equal(first, second):
-        raise AssertionError("lab_copy32: two launches differ")
-    log("  lab_copy32 launched twice: equal bits")
-    del first, second
+    for name, args in (("lab_copy32", (ekg32, r)),
+                       ("lab_gather", (tbl, idx, t))):
+        first, second = getattr(L, name)(*args), getattr(L, name)(*args)
+        if not torch.equal(first, second):
+            raise AssertionError(f"{name}: two launches differ")
+        log(f"  {name} launched twice: equal bits")
+        del first, second
     for name, tm in timing.items():
         b_ms, by, nbytes, flops = tm["bound"]
         lib = tm["library_ms"]

@@ -31,10 +31,10 @@
 // ell_src_bwd_fused, an H-wide g_slots row write besides in
 // ell_act_reduce_bwd) and some ten flops per feature.
 //
-// The first design (ell_act_reduce_bwd always; the others where the
-// lane-group path below cannot go: H past 256, rows that are not whole
-// 16-byte chunks, a table off 16-byte alignment, an elementwise sigma but
-// in #5): one warp per row, 8 rows per block; the lanes load 32 slot
+// The first design (where the lane-group path below cannot go: H past
+// 256, rows that are not whole 16-byte chunks, a table off 16-byte
+// alignment, an elementwise sigma but in #5, #6's g_slots in another type
+// than ek): one warp per row, 8 rows per block; the lanes load 32 slot
 // indices and scales at a time and pass them round with warp shuffles. A
 // row-wise sigma needs a slot's whole row at once: each lane keeps NF = 1,
 // 2, 3, 4 or 8 features (NF * 32 >= H, so H <= 256) in registers, and a
@@ -46,11 +46,13 @@
 // g_slots row as 0. All sums are f32. The slots of a row are walked one at a
 // time, each an exposed gather latency and a chain of dependent shuffles.
 //
-// The lane-group path (group_kernel), one template for four kernels, each a
+// The lane-group path (group_kernel), one template for five kernels, each a
 // compile-time mode: ell_act_reduce_rowwise (#1r, the forward, a row-wise
 // sigma), ell_geq_reduce (#3) and ell_src_bwd_rowwise (#4r) for a row-wise
-// sigma, and ell_src_bwd_fused (#5) for any sigma (an elementwise one's
-// vjp, act'(z) * g_m, needs no reduction). It takes rows whose H *
+// sigma, ell_src_bwd_fused (#5) for any sigma (an elementwise one's vjp,
+// act'(z) * g_m, needs no reduction), and ell_act_reduce_bwd (#6, #3's
+// walk plus a g_slots row stored a slot) for a row-wise sigma. It takes
+// rows whose H *
 // sizeof(T) is a multiple of 16 (so #5's second half starts 16-byte
 // aligned too) with every table 16-byte aligned (T the gathered type): a
 // gathered row is C = H * sizeof(T) / 16 chunks of 16 bytes (12 at H = 96
@@ -84,11 +86,14 @@
 // slot range, key and first 32 slot indices and scales are loaded a row
 // ahead, and its f32 key rows (eq for #1r; eq and g for #3; ek for #4r and
 // #5) are copied into the warp's shared memory by cp.async when its first
-// batch is issued. Each group sums its slots in slot order in f32; at the
-// end of the row the groups' sums are added by an xor butterfly over the
-// groups in reduce-scatter form (RowEnd), a fixed order, and each lane
+// batch is issued; #6 stores each slot's g_z row from the group's chunks
+// by 16-byte evict-first stores (st.global.cs). Each group sums its slots in
+// slot order in f32; at the end of the row the groups' sums are added by
+// an xor butterfly over the groups in reduce-scatter form (RowEnd), a
+// fixed order, and each lane
 // stores the part of the row it ends with. No atomics: two launches give
-// the same bits. ell_general_layout reports the path a launch takes.
+// the same bits; #6's rows are #3's bits (the same walk and row end).
+// ell_general_layout reports the path a launch takes.
 //
 // What bounds each at the arxiv plan (H = 96, bf16): #4r gathers two bf16
 // rows a slot from eq and g, and #5 one 384-byte row of [eq | g], 65 MB of
@@ -97,7 +102,12 @@
 // 1,020 MB of rows at some 3.1 TB/s); #3 and #1r gather ek, 32.5 MB, which the L2 holds, and are
 // held by the SM's instruction issue and the gathers' latency at 16 warps
 // an SM: per row a key-row copy and the row end's butterfly, per batch
-// the cursor's bookkeeping, besides the slots' arithmetic.
+// the cursor's bookkeeping, besides the slots' arithmetic. #6 is #3's walk
+// plus 510 MB of bf16 g_slots written (0.152 ms at 3.35 TB/s); on an H100
+// the stream adds its own time to the walk's rather than hide under it
+// (0.30 ms without the stores, 0.35 with stores the L2 absorbs, 0.46 with
+// the real ones; L2 policies and one bulk copy a batch did not help,
+// PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -552,21 +562,19 @@ __device__ __forceinline__ float group_act_grad(float z, float p) {
   return __fdividef(4.f * e, d * d);
 }
 
-// acc += w * vjp(act, z)(gs) for one slot whose row is spread over a group
-// of GW lanes: gs is the slot's cotangent before its scale w (the vjp is
-// linear in it, so w multiplies the result instead). inv_h = 1 / H. A
-// lane's values past the row hold z = 0 (centered_relu, an elementwise
-// act) or -inf (softmax) and gs = 0, so that they add nothing to a sum or
-// a max. Straight-line code: the slots a lane has in flight interleave.
+// v = vjp(act, z)(gs) for one slot whose row is spread over a group of GW
+// lanes: gs is the slot's cotangent before its scale (the vjp is linear in
+// it, so the scale multiplies v instead). inv_h = 1 / H. A lane's values
+// past the row hold z = 0 (centered_relu, an elementwise act) or -inf
+// (softmax) and gs = 0, so that they add nothing to a sum or a max.
+// Straight-line code: the slots a lane has in flight interleave.
 template <int ACT, int GW, int NV>
-__device__ __forceinline__ void add_vjp_group(const float (&z)[NV],
-                                              const float (&gs)[NV],
-                                              float w, float inv_h, float p,
-                                              float (&acc)[NV]) {
+__device__ __forceinline__ void vjp_group(const float (&z)[NV],
+                                          const float (&gs)[NV], float inv_h,
+                                          float p, float (&v)[NV]) {
   if (!Rowwise<ACT>::value) {  // g_z = act'(z) * g_m, no reduction
 #pragma unroll
-    for (int j = 0; j < NV; ++j)
-      acc[j] = fmaf(w, group_act_grad<ACT>(z[j], p) * gs[j], acc[j]);
+    for (int j = 0; j < NV; ++j) v[j] = group_act_grad<ACT>(z[j], p) * gs[j];
   } else if (ACT == ACT_CENTERED_RELU) {
     // d = g_m where z - c > 0 (relu'(0) = 0), g_z = d - alpha * mean(d)
     const float c = p * (group_sum<GW>(tree_sum(z)) * inv_h);
@@ -575,7 +583,7 @@ __device__ __forceinline__ void add_vjp_group(const float (&z)[NV],
     for (int j = 0; j < NV; ++j) d[j] = z[j] > c ? gs[j] : 0.f;
     const float sd = p * (group_sum<GW>(tree_sum(d)) * inv_h);
 #pragma unroll
-    for (int j = 0; j < NV; ++j) acc[j] = fmaf(w, d[j] - sd, acc[j]);
+    for (int j = 0; j < NV; ++j) v[j] = d[j] - sd;
   } else {  // ACT_SOFTMAX: g_z = y * (g_m - sum(g_m * y))
     const float mx = group_max<GW>(tree_max(z));
     float y[NV], gy[NV];
@@ -589,8 +597,20 @@ __device__ __forceinline__ void add_vjp_group(const float (&z)[NV],
     }
     const float dot = group_sum<GW>(tree_sum(gy));
 #pragma unroll
-    for (int j = 0; j < NV; ++j) acc[j] = fmaf(w, y[j] * (gs[j] - dot), acc[j]);
+    for (int j = 0; j < NV; ++j) v[j] = y[j] * (gs[j] - dot);
   }
+}
+
+// acc += w * vjp(act, z)(gs), vjp_group's v scaled by the slot's scale w.
+template <int ACT, int GW, int NV>
+__device__ __forceinline__ void add_vjp_group(const float (&z)[NV],
+                                              const float (&gs)[NV],
+                                              float w, float inv_h, float p,
+                                              float (&acc)[NV]) {
+  float v[NV];
+  vjp_group<ACT, GW, NV>(z, gs, inv_h, p, v);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) acc[j] = fmaf(w, v[j], acc[j]);
 }
 
 // acc += w * act(z) for one slot whose row is spread over a group of GW
@@ -625,6 +645,7 @@ enum {
   MODE_SRC = 1,    // #4r: a = eq, ga = g; ka = ek; vjp(act, z)(scale * g_b)
   MODE_FWD = 2,    // #1r: a = ek; ka = eq; scale * act(z)
   MODE_FUSED = 3,  // #5:  #4r with a = both, ga = both + H, rows 2H apart
+  MODE_EMIT = 4,   // #6:  #3, and each slot's scale * vjp into g_slots
 };
 
 // The values of a gathered row a lane holds at most, by mode.
@@ -632,11 +653,44 @@ constexpr int group_max_values(int mode) {
   return mode == MODE_FWD ? kMaxValuesPerLaneFwd : kMaxValuesPerLane;
 }
 
+// Whether the lane-group path takes `act` in `mode`: a row-wise act in
+// every mode; an elementwise one (its vjp, act'(z) * g_m, needs no
+// reduction) in #5 only (#6's lane path ran within 1.3% of its first
+// design under leaky_relu and tanh on an H100, PERF.md).
+constexpr bool group_takes(int mode, int act) {
+  return act == ACT_CENTERED_RELU || act == ACT_SOFTMAX ||
+         (mode == MODE_FUSED && (act == ACT_LEAKY_RELU || act == ACT_TANH));
+}
+
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
+}
+
+// 16 bytes written once, evict-first in L1 and L2 (st.global.cs): #6's
+// [S, H] g_slots stream.
+__device__ __forceinline__ void store16_stream(void* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Vec<T>::N f32 values narrowed to T (bf16 rounded to nearest even, as
+// astype(bf16)), 16 bytes.
+__device__ __forceinline__ uint4 narrow16(const float* f, __nv_bfloat16*) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ uint4 narrow16(const float* f, float*) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
 }
 
 // The end of a row on the lane-group path: the G groups' partial rows (a
@@ -697,10 +751,13 @@ struct RowEnd {
 // out[r] = sum_s of a slot's term at z_s = a[slot_idx[s]] + ka[row_key[r]]
 // (MODE above): the vjp modes add vjp(act, z_s)(g_m), g_m = scale[s] times
 // the gathered ga row (#4r, #5) or the key's kg row (#3); the forward adds
-// scale[s] * act(z_s). GW is the group width and K the chunks a lane, from
-// group_layout; the block's dynamic shared memory holds 2 * KEYS * H
-// floats a warp. Every mode is fixed at compile time: no branch on it is
-// left in the loop.
+// scale[s] * act(z_s). MODE_EMIT walks as MODE_GEQ and also stores each
+// slot's scale[s] * vjp(act, z_s)(g_r) into g_slots[s] (T, the gathered
+// type), 16 bytes at a time from the group's chunks, evict-first; a
+// zero-scale slot's row is +0 by a select. GW is the group width and K the
+// chunks a lane, from group_layout; the block's dynamic shared memory holds
+// 2 * KEYS * H floats a warp. Every mode is fixed at compile time: no
+// branch on it is left in the loop.
 //
 // A warp walks its rows' slots as a stream of batches: a batch is up to
 // G * U slots of one run of 32 of a row (U a group), and a row has at least
@@ -717,12 +774,14 @@ group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
              const float* __restrict__ scale,
              const int* __restrict__ row_key,
              const int* __restrict__ row_ptr, int R, int H, float p,
-             float* __restrict__ out) {
+             float* __restrict__ out, T* __restrict__ g_slots) {
   constexpr int EPV = Vec<T>::N;
   constexpr int NV = K * EPV;
   constexpr int U = kGroupInflight;
   constexpr bool GATHER_G = MODE == MODE_SRC || MODE == MODE_FUSED;
-  constexpr int KEYS = MODE == MODE_GEQ ? 2 : 1;  // f32 key rows a row
+  constexpr bool EMIT = MODE == MODE_EMIT;
+  // f32 key rows a row
+  constexpr int KEYS = MODE == MODE_GEQ || EMIT ? 2 : 1;
   extern __shared__ float4 group_smem[];
   const int lane = threadIdx.x & 31;
   const int W = gridDim.x * kWarpsPerBlock;
@@ -765,7 +824,8 @@ group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
   struct Batch {
     uint4 va[U][K], vg[U][K];
     float w[U];
-    int row, kb;  // kb: the buffer of the row's key rows
+    int s0, live;  // EMIT: the batch's first slot and its slots in the row
+    int row, kb;   // kb: the buffer of the row's key rows
     bool first, last;
   };
   // issue the gathers of the batch at the cursor, and with a row's first
@@ -775,6 +835,10 @@ group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
     const int n = min(32, lh.s1 - lbase);
     b.row = lr;
     b.kb = lord & 1;
+    if (EMIT) {  // slots lk0 + j, j < live, of the run: consecutive
+      b.s0 = lbase + lk0;
+      b.live = max(0, min(G * U, n - lk0));
+    }
     b.first = lbase == lh.s0 && lk0 == 0;
     b.last = lk0 + G * U >= n && lbase + 32 >= lh.s1;
     if (b.first) {
@@ -878,10 +942,30 @@ group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
         z[j] += kv[j];
         if (KEYS == 2) gs[j] = kgv[j];
       }
-      if constexpr (MODE == MODE_FWD)
+      if constexpr (MODE == MODE_FWD) {
         add_act_group<ACT, GW, NV>(z, cur.w[u], inv_h, p, acc);
-      else
+      } else if constexpr (EMIT) {
+        // the row's sum as MODE_GEQ adds it, and the slot's scaled vjp
+        float v[NV];
+        vjp_group<ACT, GW, NV>(z, gs, inv_h, p, v);
+        const float w = cur.w[u];
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          acc[j] = fmaf(w, v[j], acc[j]);
+          v[j] = w == 0.f ? 0.f : w * v[j];
+        }
+        const int j = u * G + grp;  // the slot's place in the batch
+        if (j < cur.live) {
+          T* gs_row = g_slots + (int64_t)(cur.s0 + j) * H;
+#pragma unroll
+          for (int c = 0; c < K; ++c)
+            if (ok[c])
+              store16_stream(gs_row + f[c],
+                             narrow16(v + c * EPV, (T*)nullptr));
+        }
+      } else {
         add_vjp_group<ACT, GW, NV>(z, gs, cur.w[u], inv_h, p, acc);
+      }
     }
     if (cur.last)  // the groups' sums, added over the groups and stored
       RowEnd<NV, GW, 0, GW, EPV>::run(acc, 0, lane, C,
@@ -937,17 +1021,15 @@ dim3 grid_for(int R) { return dim3((R + kWarpsPerBlock - 1) / kWarpsPerBlock); }
 // The lane-group path's layout for a launch of `kernel` (a MODE) under the
 // act act_id, rows of H values of `bytes` bytes, with the tables and outputs
 // at ptrs (null ones unused), packed as C << 16 | GW << 8 | U; 0 where the
-// launch takes the first design: an elementwise act (but for #5, whose vjp
-// needs no reduction), H * bytes not a multiple of 16 (so also #5's second
+// launch takes the first design: an act group_takes does not take in the
+// mode, H * bytes not a multiple of 16 (so also #5's second
 // half off 16 bytes from the first), a table off 16-byte alignment, or H
 // past 256. GW is the narrowest power of two that leaves a lane at most 4
 // chunks and group_max_values(kernel) values of a row.
 int group_layout(int kernel, int act_id, int H, int bytes,
                  const void* const* ptrs, int n) {
-  const bool rowwise = act_id == ACT_CENTERED_RELU || act_id == ACT_SOFTMAX;
-  const bool elementwise = act_id == ACT_LEAKY_RELU || act_id == ACT_TANH;
-  if (kernel < MODE_GEQ || kernel > MODE_FUSED) return 0;
-  if (!rowwise && !(elementwise && kernel == MODE_FUSED)) return 0;
+  if (kernel < MODE_GEQ || kernel > MODE_EMIT) return 0;
+  if (!group_takes(kernel, act_id)) return 0;
   if (H <= 0 || H > 256 || (H * bytes) % 16) return 0;
   for (int i = 0; i < n; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15) return 0;
@@ -984,9 +1066,10 @@ template <int ACT, typename T, int GW, int K, int MODE>
 int launch_group_k(const void* a, const void* ga, const void* ka,
                    const void* kg, const void* slot_idx, const void* scale,
                    const void* row_key, const void* row_ptr, int R, int H,
-                   float p, void* out, cudaStream_t st) {
+                   float p, void* out, void* g_slots, cudaStream_t st) {
   const auto kernel = group_kernel<ACT, T, GW, K, MODE>;
-  constexpr size_t row_bytes = 2 * (MODE == MODE_GEQ ? 2 : 1) * sizeof(float);
+  constexpr size_t row_bytes =
+      2 * (MODE == MODE_GEQ || MODE == MODE_EMIT ? 2 : 1) * sizeof(float);
   const size_t smem = kWarpsPerBlock * row_bytes * H;
   static int per_sm = -1;
   kernel<<<persistent_grid(kernel, R, kWarpsPerBlock * row_bytes * 256,
@@ -994,7 +1077,7 @@ int launch_group_k(const void* a, const void* ga, const void* ka,
            kWarpsPerBlock * 32, smem, st>>>(
       (const T*)a, (const T*)ga, (const float*)ka, (const float*)kg,
       (const int*)slot_idx, (const float*)scale, (const int*)row_key,
-      (const int*)row_ptr, R, H, p, (float*)out);
+      (const int*)row_ptr, R, H, p, (float*)out, (T*)g_slots);
   return (int)cudaGetLastError();
 }
 
@@ -1013,9 +1096,9 @@ template <int ACT, typename T, int GW, int MODE>
 int launch_group_gw(int K, const void* a, const void* ga, const void* ka,
                     const void* kg, const void* slot_idx, const void* scale,
                     const void* row_key, const void* row_ptr, int R, int H,
-                    float p, void* out, cudaStream_t st) {
+                    float p, void* out, void* g_slots, cudaStream_t st) {
 #define SIR_ARGS \
-  a, ga, ka, kg, slot_idx, scale, row_key, row_ptr, R, H, p, out, st
+  a, ga, ka, kg, slot_idx, scale, row_key, row_ptr, R, H, p, out, g_slots, st
 #define SIR_CASE(KK)                                                      \
   case KK:                                                                \
     if constexpr (group_shape<T, GW, KK, MODE>())                               \
@@ -1037,11 +1120,13 @@ template <int ACT, typename T, int MODE>
 int launch_group_t(const void* a, const void* ga, const void* ka,
                    const void* kg, const void* slot_idx, const void* scale,
                    const void* row_key, const void* row_ptr, int R, int H,
-                   float p, int layout, void* out, cudaStream_t st) {
+                   float p, int layout, void* out, void* g_slots,
+                   cudaStream_t st) {
   const int C = layout >> 16, gw = (layout >> 8) & 0xff;
   const int K = (C + gw - 1) / gw;
-#define SIR_ARGS \
-  K, a, ga, ka, kg, slot_idx, scale, row_key, row_ptr, R, H, p, out, st
+#define SIR_ARGS                                                        \
+  K, a, ga, ka, kg, slot_idx, scale, row_key, row_ptr, R, H, p, out, g_slots, \
+      st
   switch (gw) {
     case 1: return launch_group_gw<ACT, T, 1, MODE>(SIR_ARGS);
     case 2: return launch_group_gw<ACT, T, 2, MODE>(SIR_ARGS);
@@ -1054,17 +1139,18 @@ int launch_group_t(const void* a, const void* ga, const void* ka,
 }
 
 // The lane-group kernel of MODE for the act id and the gathered type (bf16
-// when bf16 != 0, else f32); an elementwise act is built for #5 only, as
-// group_layout allows.
+// when bf16 != 0, else f32); an elementwise act is built only where
+// group_takes it. g_slots: MODE_EMIT's [S, H] output, null in the other
+// modes.
 template <int MODE>
 int launch_group(int act, int bf16, const void* a, const void* ga,
                  const void* ka, const void* kg, const void* slot_idx,
                  const void* scale, const void* row_key, const void* row_ptr,
-                 int R, int H, float p, int layout, void* out,
+                 int R, int H, float p, int layout, void* out, void* g_slots,
                  cudaStream_t st) {
 #define SIR_ARGS                                                        \
   a, ga, ka, kg, slot_idx, scale, row_key, row_ptr, R, H, p, layout, out, \
-      st
+      g_slots, st
 #define SIR_CALL(A)                                                  \
   (bf16 ? launch_group_t<A, __nv_bfloat16, MODE>(SIR_ARGS)           \
         : launch_group_t<A, float, MODE>(SIR_ARGS))
@@ -1072,10 +1158,11 @@ int launch_group(int act, int bf16, const void* a, const void* ga,
     case ACT_CENTERED_RELU: return SIR_CALL(ACT_CENTERED_RELU);
     case ACT_SOFTMAX: return SIR_CALL(ACT_SOFTMAX);
     case ACT_LEAKY_RELU:
-      if constexpr (MODE == MODE_FUSED) return SIR_CALL(ACT_LEAKY_RELU);
+      if constexpr (group_takes(MODE, ACT_LEAKY_RELU))
+        return SIR_CALL(ACT_LEAKY_RELU);
       break;
     case ACT_TANH:
-      if constexpr (MODE == MODE_FUSED) return SIR_CALL(ACT_TANH);
+      if constexpr (group_takes(MODE, ACT_TANH)) return SIR_CALL(ACT_TANH);
       break;
   }
 #undef SIR_CALL
@@ -1163,7 +1250,7 @@ int ell_act_reduce_rowwise(const void* eq, const void* ek, int ek_bf16,
   if (layout)
     return launch_group<MODE_FWD>(act, ek_bf16, ek, nullptr, eq, nullptr,
                                   slot_src, scale, row_key, row_ptr, R, H, p,
-                                  layout, rows, st);
+                                  layout, rows, nullptr, st);
 #define SIR_ARGS eq, ek, slot_src, scale, row_key, row_ptr, R, H, p, rows, st
 #define SIR_CALL(A)                                              \
   (ek_bf16 ? launch_act_reduce<A, __nv_bfloat16>(SIR_ARGS)       \
@@ -1186,7 +1273,7 @@ int ell_geq_reduce(const void* eq, const void* ek, int ek_bf16,
   if (layout)
     return launch_group<MODE_GEQ>(act, ek_bf16, ek, nullptr, eq, g, slot_src,
                                   scale, row_key, row_ptr, R, H, p, layout,
-                                  geq_rows, st);
+                                  geq_rows, nullptr, st);
 #define SIR_ARGS \
   eq, ek, g, slot_src, scale, row_key, row_ptr, R, H, p, geq_rows, nullptr, st
 #define SIR_CALL(A)                                                       \
@@ -1197,7 +1284,8 @@ int ell_geq_reduce(const void* eq, const void* ek, int ek_bf16,
 #undef SIR_ARGS
 }
 
-// ell_geq_reduce plus g_slots [S, H], f32, or bf16 when gz_bf16 != 0.
+// ell_geq_reduce plus g_slots [S, H], f32, or bf16 when gz_bf16 != 0; the
+// lane-group path only where g_slots has ek's type.
 int ell_act_reduce_bwd(const void* eq, const void* ek, int ek_bf16,
                        const void* g, const void* slot_src,
                        const void* scale, const void* row_key,
@@ -1206,6 +1294,15 @@ int ell_act_reduce_bwd(const void* eq, const void* ek, int ek_bf16,
                        void* stream) {
   if (R <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const void* tables[] = {eq, ek, g, g_slots, geq_rows};
+  const int layout =
+      !ek_bf16 == !gz_bf16
+          ? group_layout(MODE_EMIT, act, H, ek_bf16 ? 2 : 4, tables, 5)
+          : 0;
+  if (layout)
+    return launch_group<MODE_EMIT>(act, ek_bf16, ek, nullptr, eq, g, slot_src,
+                                   scale, row_key, row_ptr, R, H, p, layout,
+                                   geq_rows, g_slots, st);
 #define SIR_ARGS \
   eq, ek, g, slot_src, scale, row_key, row_ptr, R, H, p, geq_rows, g_slots, st
 #define SIR_CALL(A)                                                          \
@@ -1232,7 +1329,7 @@ int ell_src_bwd_rowwise(const void* eq, const void* g, int bf16,
   if (layout)
     return launch_group<MODE_SRC>(act, bf16, eq, g, ek, nullptr, slot_dst,
                                   scale, row_key, row_ptr, R, H, p, layout,
-                                  out, st);
+                                  out, nullptr, st);
 #define SIR_ARGS eq, g, ek, slot_dst, scale, row_key, row_ptr, R, H, p, out, st
 #define SIR_CALL(A)                                                   \
   (bf16 ? launch_src_bwd<A, __nv_bfloat16, false>(SIR_ARGS)           \
@@ -1256,7 +1353,7 @@ int ell_src_bwd_fused(const void* both, int bf16, const void* ek,
   if (layout)
     return launch_group<MODE_FUSED>(act, bf16, both, g, ek, nullptr,
                                     slot_dst, scale, row_key, row_ptr, R, H,
-                                    p, layout, out, st);
+                                    p, layout, out, nullptr, st);
 #define SIR_ARGS \
   both, nullptr, ek, slot_dst, scale, row_key, row_ptr, R, H, p, out, st
 #define SIR_CALL(A)                                                   \
@@ -1268,20 +1365,21 @@ int ell_src_bwd_fused(const void* both, int bf16, const void* ek,
 }
 
 // Launches nothing: the path a launch of `kernel` (0 ell_geq_reduce, 1
-// ell_src_bwd_rowwise, 2 ell_act_reduce_rowwise, 3 ell_src_bwd_fused;
-// ell_act_reduce_bwd always takes the first design) takes for rows of H
-// values, the gathered table in bf16 (bf16 != 0) or f32, the act id `act`
-// and the tables and output p0..p3 it is given (null ones unused; for
-// ell_src_bwd_fused p0 is the [N, 2H] table, whose second half is checked
-// too, as the entry does). Returns C << 16 | GW << 8 | U for the
-// lane-group path (C 16-byte chunks a row, groups of GW lanes, U slots in
-// flight a group), 0 for the first design.
+// ell_src_bwd_rowwise, 2 ell_act_reduce_rowwise, 3 ell_src_bwd_fused, 4
+// ell_act_reduce_bwd with g_slots in the gathered type; mixed types take
+// the first design) takes for rows of H values, the gathered table in bf16
+// (bf16 != 0) or f32, the act id `act` and the tables and outputs p0..p4 it
+// is given (null ones unused; for ell_src_bwd_fused p0 is the [N, 2H]
+// table, whose second half is checked too, as the entry does). Returns C
+// << 16 | GW << 8 | U for the lane-group path (C 16-byte chunks a row,
+// groups of GW lanes, U slots in flight a group), 0 for the first design.
 int ell_general_layout(int kernel, int H, int bf16, int act, const void* p0,
-                       const void* p1, const void* p2, const void* p3) {
+                       const void* p1, const void* p2, const void* p3,
+                       const void* p4) {
   const int bytes = bf16 ? 2 : 4;
-  const void* ptrs[] = {p0, p1, p2, p3, second_half(p0, H, bytes)};
+  const void* ptrs[] = {p0, p1, p2, p3, p4, second_half(p0, H, bytes)};
   return group_layout(kernel, act, H, bytes, ptrs,
-                      kernel == MODE_FUSED ? 5 : 4);
+                      kernel == MODE_FUSED ? 6 : 5);
 }
 
 const char* ell_general_error_string(int code) {

@@ -51,20 +51,26 @@
 //   lab_gather   gather_dma.py's kernel: per tile of T indices, the f32 sum
 //                of the indexed table rows, written to 8 rows. Mosaic could
 //                not DMA one row, so the TPU kernel copies each row's 8-row
-//                tile; here each row is read alone, 16 B a lane, with
-//                INFLIGHT = 16 rows in flight a warp (the TPU's 16 DMA
-//                semaphores), then summed across the block's warps in
-//                shared memory
+//                tile; here each row is read alone. A persistent grid splits
+//                the index stream evenly over its warps in batches of 32
+//                indices (one tile per block left 12 of 132 SMs working
+//                alone at the end); each warp writes a partial row for each
+//                tile its share meets, and a second launch adds them in a
+//                fixed order. A warp loads a batch's indices with one
+//                coalesced load, a batch ahead, and gathers 16 B a lane,
+//                8 rows in flight a warp
 //   lab_tile_sum gather_dma.py's copy_kernel: the column sum of each tile
-//                of T rows, written to 8 rows; lab_gather's kernel without
-//                the index
+//                of T rows, written to 8 rows, one block a tile, 16 rows in
+//                flight a warp, the block's warps summed in shared memory
 //
 // Bound: device-memory bytes for every kernel (a few flops per element
 // read). The act-reduce kernels read ekg once and write each output row
 // once; the stream kernels use 16-byte loads throughout. lab_gather's
 // table (43.5 MB at the lab's size) fits in the 50 MB L2, so its rate is
-// L2-assisted. All sums are f32; the act-reduce kernels, lab_copy and
-// lab_copy32 sum a row's slots in slot order within a lane. Offsets are
+// L2-assisted: its 704.6 MB of gathered rows cross from the L2 to the SMs,
+// and that crossing, not the 57 MB its bound counts, is what it is held
+// to. All sums are f32; the act-reduce kernels, lab_copy and lab_copy32
+// sum a row's slots in slot order within a lane. Offsets are
 // size_t. lab_copy32 moves its bytes with the Tensor Memory Accelerator's
 // 1-D bulk copies (no tensor map): no register or load instruction a
 // 16-byte chunk, 64 KB copies of 8 rows at the lab's size.
@@ -80,6 +86,11 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGatherInflight = 16;
 constexpr int kMaxH = 256;  // a bf16 row of 32 16-byte chunks
+// the rows each tile's sum is written to (the TPU's (8, 128) output block)
+constexpr int TILE_ROWS = 8;
+// lab_gather: rows in flight a warp (from the L2 on an H100, 8 ran 6%
+// faster than 16 and 1.5% faster than 4, 32 slower, PERF.md)
+constexpr int kGatherRows = 8;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can have
 
 // lab_pass2: 16-byte loads a thread in flight before its stores (the
@@ -523,17 +534,16 @@ pass_burst_kernel(const uint4* __restrict__ x, uint4* __restrict__ y,
 }
 
 // ---------------------------------------------------------------------
-// lab_gather, lab_tile_sum: one block per tile of T rows, f32 column sum
+// lab_tile_sum: one block per tile of T rows, f32 column sum
 // ---------------------------------------------------------------------
 
-// Block g sums rows tbl[idx[g*T + i]] (GATHER) or v[g*T + i] for i < T and
-// writes the sum to out rows 8g .. 8g+7. C = H / 8 chunks a row: a warp
-// load covers 32 / C rows, and each lane issues U loads before using any,
-// so kGatherInflight rows are in flight a warp.
-template <int C, bool GATHER>
+// Block g sums rows v[g*T + i] for i < T and writes the sum to out rows
+// 8g .. 8g+7. C = H / 8 chunks a row: a warp load covers 32 / C rows, and
+// each lane issues U loads before using any, so kGatherInflight rows are
+// in flight a warp.
+template <int C>
 __global__ void __launch_bounds__(kThreads)
-tile_sum_kernel(const __nv_bfloat16* __restrict__ tbl,
-                const int* __restrict__ idx, int T, int H,
+tile_sum_kernel(const __nv_bfloat16* __restrict__ tbl, int T, int H,
                 float* __restrict__ out) {
   constexpr int kStep = 32 / C;
   constexpr int U = kGatherInflight / kStep > 0 ? kGatherInflight / kStep : 1;
@@ -550,10 +560,7 @@ tile_sum_kernel(const __nv_bfloat16* __restrict__ tbl,
     for (int u = 0; u < U; ++u) {
       const int i = i0 + u * kStep + sub;
       v[u] = make_uint4(0, 0, 0, 0);
-      if (i < T) {
-        const size_t row = GATHER ? (size_t)__ldg(idx + first + i) : first + i;
-        v[u] = load16(tbl + row * H + c * 8);
-      }
+      if (i < T) v[u] = load16(tbl + (first + i) * H + c * 8);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -582,6 +589,126 @@ tile_sum_kernel(const __nv_bfloat16* __restrict__ tbl,
 #pragma unroll
     for (int k = 0; k < 8; ++k) out[((size_t)blockIdx.x * 8 + k) * H + f] = s;
   }
+}
+
+// ---------------------------------------------------------------------
+// lab_gather: an even persistent split of the gather stream
+// ---------------------------------------------------------------------
+
+// The index stream is cut into batches of 32 indices that never cross a
+// tile (a tile of T indices is nbt = ceil(T / 32) batches, the last one
+// short where 32 does not divide T), nb = G * nbt batches in all. Warp w of
+// the nw walking them takes batches [w nb / nw, (w + 1) nb / nw): the same
+// count to within one. Each warp sums the rows of each tile its range
+// meets and writes that partial row into the tile's output rows 1..7, at
+// row 1 + (w - the warp that holds the tile's first batch); nw is kept low
+// enough (gather_warps) that at most 7 warps meet a tile. gather_combine
+// then adds a tile's partials in warp order and writes the sum to its 8
+// rows. Fixed orders throughout, no atomics: two launches give the same
+// bits.
+struct GatherSplit {
+  int T, nbt, nb, nw;
+  __device__ __forceinline__ int first(int w) const {  // of warp w's range
+    return (int)((long long)w * nb / nw);
+  }
+  // the warp whose range holds batch b
+  __device__ __forceinline__ int owner(int b) const {
+    return (int)(((long long)(b + 1) * nw - 1) / nb);
+  }
+};
+
+// The end of a warp's share of a tile: the lanes of each chunk c (C = H / 8
+// chunks a row, 32 / C lanes a chunk) add their sums, and chunk c's first
+// lane writes them into row `row` of tile g's 8 output rows.
+template <int C>
+__device__ __forceinline__ void gather_flush(float (&acc)[8], int lane,
+                                             int g, int row, int H,
+                                             float* __restrict__ out) {
+#pragma unroll
+  for (int off = C; off < 32; off <<= 1) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] += __shfl_xor_sync(kFull, acc[j], off);
+  }
+  if (lane < C)
+    store_f32<8>(out + ((size_t)g * TILE_ROWS + row) * H + lane * 8, acc);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+}
+
+// Lane l of a warp loads index l of the next batch
+// (one coalesced load) before the current batch's rows are gathered; a
+// row's index reaches its C lanes by __shfl_sync, and each lane gathers
+// its 16-byte chunk of LOADS rows (kGatherRows rows in flight a warp)
+// before it adds any. kWarps warps a block.
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+gather_loads_kernel(const __nv_bfloat16* __restrict__ tbl,
+                    const int* __restrict__ idx, GatherSplit sp, int H,
+                    float* __restrict__ out) {
+  constexpr int kStep = 32 / C;  // rows a warp load covers
+  constexpr int LOADS = kGatherRows / kStep < 1 ? 1
+                        : kGatherRows / kStep > C ? C
+                        : kGatherRows / kStep;
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (w >= sp.nw) return;
+  const int b0 = sp.first(w), b1 = sp.first(w + 1);
+  if (b0 >= b1) return;
+  const int c = lane & (C - 1), sub = lane / C;
+  int g = b0 / sp.nbt, j = b0 - g * sp.nbt;  // the batch's tile and place
+  int row = 1 + w - sp.owner(g * sp.nbt);
+  auto index_of = [&](int gg, int jj) {  // lane's index of batch (gg, jj)
+    const int i = jj * 32 + lane;
+    return i < sp.T ? __ldg(idx + (size_t)gg * sp.T + i) : 0;
+  };
+  int cur = index_of(g, j);
+  float acc[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+  for (int b = b0; b < b1; ++b) {
+    const int n = min(32, sp.T - j * 32);  // rows of the batch
+    int ng = g, nj = j + 1;
+    if (nj == sp.nbt) ng = g + 1, nj = 0;
+    const int nxt = b + 1 < b1 ? index_of(ng, nj) : 0;
+#pragma unroll
+    for (int h = 0; h < 32 / kStep; h += LOADS) {
+      uint4 v[LOADS];
+#pragma unroll
+      for (int u = 0; u < LOADS; ++u) {
+        const int r = (h + u) * kStep + sub;  // the row in the batch
+        const int node = __shfl_sync(kFull, cur, r);
+        v[u] = r < n ? load16(tbl + (size_t)node * H + c * 8)
+                     : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < LOADS; ++u) {
+        float f[8];
+        Pack<__nv_bfloat16>::widen(v[u], f);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[k] += f[k];
+      }
+    }
+    if (nj == 0 || b + 1 == b1) {  // the end of the warp's share of tile g
+      gather_flush<C>(acc, lane, g, row, H, out);
+      row = 1;  // the next tile's first batch is this warp's
+    }
+    g = ng, j = nj, cur = nxt;
+  }
+}
+
+// Tile g's partial rows 1 .. m (m the warps that meet it) added in warp
+// order, the sum written to its 8 rows; one thread a (tile, feature).
+__global__ void __launch_bounds__(kThreads)
+gather_combine_kernel(GatherSplit sp, int G, int H, float* __restrict__ out) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)G * H) return;
+  const int g = (int)(i / H), f = (int)(i - (size_t)g * H);
+  const int m = sp.owner((g + 1) * sp.nbt - 1) - sp.owner(g * sp.nbt) + 1;
+  float* tile = out + (size_t)g * TILE_ROWS * H + f;
+  float s = 0.f;
+  for (int k = 1; k <= m; ++k) s += tile[(size_t)k * H];
+#pragma unroll
+  for (int k = 0; k < TILE_ROWS; ++k) tile[(size_t)k * H] = s;
 }
 
 // ---------------------------------------------------------------------
@@ -653,14 +780,13 @@ int launch_slab_sum(const void* x, int R, int B, int H, void* out,
   return (int)cudaGetLastError();
 }
 
-template <bool GATHER>
-int launch_tile_sum(const void* tbl, const void* idx, int G, int T, int H,
-                    void* out, cudaStream_t st) {
+int launch_tile_sum(const void* tbl, int G, int T, int H, void* out,
+                    cudaStream_t st) {
   if (G <= 0 || T <= 0 || H % 8 != 0 || !pow2_upto_32(H / 8))
     return (int)cudaErrorInvalidValue;
 #define SIR_TILE_SUM(C)                                                    \
-  tile_sum_kernel<C, GATHER><<<G, kThreads, 0, st>>>(                      \
-      (const __nv_bfloat16*)tbl, (const int*)idx, T, H, (float*)out)
+  tile_sum_kernel<C><<<G, kThreads, 0, st>>>((const __nv_bfloat16*)tbl, T, \
+                                             H, (float*)out)
   switch (H / 8) {
     case 1: SIR_TILE_SUM(1); break;
     case 2: SIR_TILE_SUM(2); break;
@@ -671,6 +797,63 @@ int launch_tile_sum(const void* tbl, const void* idx, int G, int T, int H,
   }
 #undef SIR_TILE_SUM
   return (int)cudaGetLastError();
+}
+
+// The warps lab_gather's split takes: as many as are resident (`resident`),
+// but few enough that each has at least ceil((nbt - 1) / 6) batches, so
+// that at most 7 warps meet a tile of nbt batches (its output rows 1..7
+// hold their partials); at least one.
+int gather_warps(long long resident, int nbt, int nb) {
+  const int qmin = nbt > 7 ? (nbt - 1 + 5) / 6 : 1;
+  const long long most = nb / qmin;
+  const long long nw = resident < most ? resident : most;
+  return nw > 0 ? (int)nw : 1;
+}
+
+// lab_gather's split and the grid of its kernel, or an error.
+template <int C>
+cudaError_t gather_plan(int G, int T, GatherSplit* sp, unsigned* grid) {
+  size_t resident = 0;
+  const cudaError_t e = fit(gather_loads_kernel<C>, kThreads, 0, &resident);
+  if (e != cudaSuccess) return e;
+  sp->T = T;
+  sp->nbt = (T + 31) / 32;
+  sp->nb = G * sp->nbt;
+  sp->nw = gather_warps((long long)resident * kWarps, sp->nbt, sp->nb);
+  *grid = (unsigned)((sp->nw + kWarps - 1) / kWarps);
+  return cudaSuccess;
+}
+
+template <int C>
+int launch_gather(const void* tbl, const void* idx, int G, int T, int H,
+                  void* out, cudaStream_t st) {
+  GatherSplit sp;
+  unsigned grid = 0;
+  const cudaError_t e = gather_plan<C>(G, T, &sp, &grid);
+  if (e != cudaSuccess) return (int)e;
+  gather_loads_kernel<C><<<grid, kThreads, 0, st>>>(
+      (const __nv_bfloat16*)tbl, (const int*)idx, sp, H, (float*)out);
+  const cudaError_t e1 = cudaGetLastError();
+  if (e1 != cudaSuccess) return (int)e1;
+  gather_combine_kernel<<<blocks_for((size_t)G * H, kThreads), kThreads, 0,
+                          st>>>(sp, G, H, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// CALL(C) for the chunks C = H / 8 of a bf16 row (a power of two <= 32).
+#define SIR_CHUNKS_SWITCH(H, CALL) \
+  switch ((H) / 8) {               \
+    case 1: return CALL(1);        \
+    case 2: return CALL(2);        \
+    case 4: return CALL(4);        \
+    case 8: return CALL(8);        \
+    case 16: return CALL(16);      \
+    default: return CALL(32);      \
+  }
+
+bool gather_args_ok(int G, int T, int H) {
+  return G > 0 && T > 0 && H % 8 == 0 && pow2_upto_32(H / 8) &&
+         (long long)G * T <= 0x7fffffffLL;
 }
 
 template <bool SHFL>
@@ -803,17 +986,36 @@ int lab_pass2(const void* x, long long n, int tile_elems, int persistent,
   return (int)cudaGetLastError();
 }
 
-// out [G, 8, H]: tile g sums tbl rows idx[g*T .. g*T+T-1].
+// out [G, 8, H]: tile g sums tbl rows idx[g*T .. g*T+T-1]; tbl and out
+// 16-byte aligned. Two launches: the split's warps write partials into
+// out, and gather_combine adds them.
 int lab_gather(const void* tbl, const void* idx, int G, int T, int H,
                void* out, void* stream) {
-  return launch_tile_sum<true>(tbl, idx, G, T, H, out, (cudaStream_t)stream);
+  if (!gather_args_ok(G, T, H) || !aligned16(tbl) || !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define SIR_GATHER(C) launch_gather<C>(tbl, idx, G, T, H, out, st)
+  SIR_CHUNKS_SWITCH(H, SIR_GATHER)
+#undef SIR_GATHER
+}
+
+// Launches nothing: the warps lab_gather's split takes for these sizes
+// (the launch's own choice), or a negative CUDA error.
+int lab_gather_warps(int G, int T, int H) {
+  if (!gather_args_ok(G, T, H)) return -(int)cudaErrorInvalidValue;
+  GatherSplit sp;
+  unsigned grid = 0;
+#define SIR_PLAN(C)                                           \
+  (gather_plan<C>(G, T, &sp, &grid) == cudaSuccess ? sp.nw    \
+                                                   : -(int)cudaErrorInvalidValue)
+  SIR_CHUNKS_SWITCH(H, SIR_PLAN)
+#undef SIR_PLAN
 }
 
 // out [G*8, H]: tile g sums v rows g*T .. g*T+T-1.
 int lab_tile_sum(const void* v, int G, int T, int H, void* out,
                  void* stream) {
-  return launch_tile_sum<false>(v, nullptr, G, T, H, out,
-                                (cudaStream_t)stream);
+  return launch_tile_sum(v, G, T, H, out, (cudaStream_t)stream);
 }
 
 const char* lab_error_string(int code) {

@@ -117,7 +117,8 @@ _QUERIES = {"ell_kernels": {"ell_layout": [_I] * 3 + [_VP] * 6},
             "ell_edge_kernels": {"ell_edge_src_bwd_blocks": [_I] * 5,
                                  "ell_edge_layout": [_I] * 4},
             "ell_general_kernels": {"ell_general_layout": [_I] * 4
-                                    + [_VP] * 4}}
+                                    + [_VP] * 5},
+            "lab_kernels": {"lab_gather_warps": [_I] * 3}}
 _ERROR_STRING = {"ell_kernels": "ell_error_string",
                  "ell_max_kernels": "ell_max_error_string",
                  "ell_edge_kernels": "ell_edge_error_string",
@@ -1016,21 +1017,22 @@ def ell_scaled_reduce(values, slot_idx, scale, row_ptr):
 # softmax) couples a slot's H features, so its kernels hold the whole row
 # (H <= ROWWISE_MAX_H); an elementwise one takes any H. For an elementwise
 # sigma each vjp is act'(z) * cotangent, the arithmetic of #4. #1r, #3 and
-# #4r take a lane-group path for a row-wise sigma, #5 for any sigma
+# #4r take a lane-group path for a row-wise sigma, #5 for any sigma, #6 for
+# a row-wise sigma where its g_slots has ek's type
 # (``ell_general_layout``).
 
 # the kernels of csrc/ell_general_kernels.cu with a lane-group path, by the
-# id ell_general_layout takes; ell_act_reduce_bwd always takes the first
-# design
+# id ell_general_layout takes (the source's MODE)
 _GENERAL_LAYOUT_KERNEL = {"ell_geq_reduce": 0, "ell_src_bwd_rowwise": 1,
                           "ell_act_reduce_rowwise": 2,
-                          "ell_src_bwd_fused": 3}
+                          "ell_src_bwd_fused": 3, "ell_act_reduce_bwd": 4}
 
 
 class GeneralLayout(NamedTuple):
     """The lane-group path of #1r ``ell_act_reduce_rowwise``, #3
-    ``ell_geq_reduce``, #4r ``ell_src_bwd_rowwise`` and #5
-    ``ell_src_bwd_fused`` (``csrc/ell_general_kernels.cu``) for rows of
+    ``ell_geq_reduce``, #4r ``ell_src_bwd_rowwise``, #5
+    ``ell_src_bwd_fused`` and #6 ``ell_act_reduce_bwd``
+    (``csrc/ell_general_kernels.cu``) for rows of
     width H: a gathered row is ``chunks`` chunks of 16 bytes, spread over a
     group of ``group_width`` lanes (a power of two), ``chunks_per_lane``
     chunks a lane; a warp's ``groups`` groups each work on their own slot,
@@ -1062,26 +1064,28 @@ def ell_general_layout(name: str, h: int, dtype, act,
     """The path a launch of ``name`` (a kernel of
     ``csrc/ell_general_kernels.cu``) takes for rows of width ``h``, the
     gathered table in ``dtype`` (f32 or bf16: ek for
-    ``ell_act_reduce_rowwise`` and ``ell_geq_reduce``, eq and g for
-    ``ell_src_bwd_rowwise``, the [N, 2H] table for ``ell_src_bwd_fused``),
-    the sigma ``act`` and the CUDA tensors it reads and writes whole rows of
-    (at most four: its node tables and its output; for
-    ``ell_src_bwd_fused`` the [N, 2H] table first): a ``GeneralLayout`` for
-    the lane-group path, None for the first design (an elementwise sigma
-    but in ``ell_src_bwd_fused``, rows that are not whole 16-byte chunks, a
-    table off 16-byte alignment, or ``ell_act_reduce_bwd``, which has no
-    other design). The entry decides from the same H and pointers. Needs a
-    card: it asks the built library."""
+    ``ell_act_reduce_rowwise``, ``ell_geq_reduce`` and
+    ``ell_act_reduce_bwd``, eq and g for ``ell_src_bwd_rowwise``, the
+    [N, 2H] table for ``ell_src_bwd_fused``), the sigma ``act`` and the CUDA
+    tensors it reads and writes whole rows of (at most five: its node
+    tables and its outputs, in the order the wrapper takes and returns
+    them; for ``ell_src_bwd_fused`` the [N, 2H] table first): a
+    ``GeneralLayout`` for the lane-group path, None for the first design
+    (an elementwise sigma but in ``ell_src_bwd_fused``, rows that are not whole 16-byte chunks, a table
+    off 16-byte alignment, or an ``ell_act_reduce_bwd`` whose g_slots, its
+    fourth tensor, is not in ``dtype``). The entry decides from the same H,
+    types and pointers. Needs a card: it asks the built library."""
     if name not in _GENERAL:
         raise ValueError(f"{name!r} is not a kernel of the general route "
                          f"({', '.join(_GENERAL)})")
     if h < 1:
         raise ValueError(f"the width must be positive, got H = {h}")
-    if len(tensors) > 4:
-        raise ValueError(f"at most four tensors, got {len(tensors)}")
-    if name not in _GENERAL_LAYOUT_KERNEL:
-        return None
-    ptrs = [_ptr(t) for t in tensors] + [None] * (4 - len(tensors))
+    if len(tensors) > 5:
+        raise ValueError(f"at most five tensors, got {len(tensors)}")
+    if (name == "ell_act_reduce_bwd" and len(tensors) > 3
+            and tensors[3].dtype != dtype):
+        return None  # g_slots in another type than ek: the first design
+    ptrs = [_ptr(t) for t in tensors] + [None] * (5 - len(tensors))
     code = _library("ell_general_kernels").ell_general_layout(
         _GENERAL_LAYOUT_KERNEL[name], h, int(dtype == torch.bfloat16),
         act.kernel_id, *ptrs)
@@ -1186,6 +1190,8 @@ def ell_act_reduce_bwd(eq, ek, slot_src, scale, row_key, row_ptr, act, g,
 
     Replaces ``bucket_bcast_act_reduce_bwd`` (sir_gcn_tpu/ops/pallas/
     kernels.py). As in the JAX package, no route of the library calls it.
+    Where g_slots has ek's type it takes ``ell_geq_reduce``'s lane-group
+    walk, and its rows are that kernel's bits (``ell_general_layout``).
     Bound: bytes, the [S, H] g_slots write the largest part."""
     device, r, h = _check_geq("ell_act_reduce_bwd", eq, ek, slot_src, scale,
                               row_key, row_ptr, act, g)

@@ -298,7 +298,12 @@ def _check_tiles(name, n, tile):
 def lab_gather(tbl, idx, tile):
     """Per tile of ``tile`` indices, the f32 sum of the rows tbl[idx[i]],
     written to 8 rows: [S / tile, 8, H] f32. tbl [N, H] bf16, idx [S] int32
-    in [0, N), trusted (checking would cost a device sync). Replaces the
+    in [0, N), trusted (checking would cost a device sync). A persistent
+    grid splits the indices evenly over its warps, 32 at a time; each
+    warp's partial row of each tile it meets is added to the others in a
+    fixed order, so a launch repeats its bits. The rows come in by 16-byte
+    loads, so tbl must start 16-byte aligned (the launch raises
+    otherwise). Replaces the
     gather kernel of tools/gather_dma.py. Bound: bytes (at the lab's size
     the table fits in the L2)."""
     device = tbl.device
@@ -313,6 +318,20 @@ def lab_gather(tbl, idx, tile):
     _launch("lab_gather", device, _ptr(tbl), _ptr(idx), g, tile, h,
             _ptr(out))
     return out
+
+
+def lab_gather_warps(h, tiles, tile) -> int:
+    """The warps a launch of ``lab_gather`` on ``tiles`` tiles of ``tile``
+    indices of width ``h`` splits the indices over: as many as the card
+    holds at once, fewer where a tile would meet more than 7 of them. Needs
+    a card: it asks the built library."""
+    from .kernels import _library
+
+    n = _library("lab_kernels").lab_gather_warps(tiles, tile, h)
+    if n <= 0:
+        raise ValueError(f"lab_gather takes no split of {tiles} tiles of "
+                         f"{tile} rows of width {h}")
+    return n
 
 
 def lab_tile_sum(v, tile):

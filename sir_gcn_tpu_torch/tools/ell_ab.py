@@ -30,7 +30,8 @@ synthetic stand-in for ogbn-arxiv (169,343 nodes, 1,166,243 edges, seed
 
 The lab mode (``--lab``, ``csrc/lab_kernels.cu``) runs the streams #19
 ``lab_copy``, #20 ``lab_copy32`` (at each ``inflight``), #21 ``lab_pass``,
-#22 ``lab_pass2`` (both modes) and #24 ``lab_tile_sum`` from both
+#22 ``lab_pass2`` (both modes), #24 ``lab_tile_sum`` and the gather #23
+``lab_gather`` (below) from both
 libraries and the PyTorch call that computes the same function, at the
 lab tools' sizes (``kernel_lab.SIZES``, ``gather_dma.SIZES``), on random
 inputs from seed 0 made on the card: ms per launch over 20 warm launches
@@ -65,20 +66,24 @@ paths this library's ``ell_edge_layout`` reports.
 The general mode (``--general``, ``csrc/ell_general_kernels.cu``) runs
 #1r ``ell_act_reduce_rowwise``, #3 ``ell_geq_reduce``, #4r
 ``ell_src_bwd_rowwise``, #5 ``ell_src_bwd_fused`` and #6
-``ell_act_reduce_bwd`` from both libraries at the ogbn-arxiv plan, H = 96,
-with the gathered tables in bf16 and in f32, the node tables and
-cotangent from seed 0 made on the card, for centered_relu(0.5), softmax,
-leaky_relu(0.2) and tanh. The kernels of ``GENERAL_AB`` (#1r, #3, #4r
-and #5 for a row-wise sigma, #5 alone for an elementwise one) are timed:
-ms per launch over 20 warm launches in eight turns (other, this, this,
-other, ...), the median and the spread of each, with the largest
-difference of their rows between the two libraries and, for #1r and #5,
-how many entries lie beyond FWD_TOL (#1r) or BWD_TOL (#5) of the other's
-(centered_relu's gate may take the other side of the relu where the two
-sum a row's mean in another order). #3 and #4r, and every kernel not
-timed, run once in each setting and must be bitwise equal to the other
-library's. The layout this library's ``ell_general_layout`` reports is
-printed for #1r, #3, #4r and #5. Needs a CUDA card.
+``ell_act_reduce_bwd`` (g_z in the gathered type) from both libraries at
+the ogbn-arxiv plan, H = 96, with the gathered tables in bf16 and in f32,
+the node tables and cotangent from seed 0 made on the card, for
+centered_relu(0.5), softmax, leaky_relu(0.2) and tanh. The kernels of
+``GENERAL_AB`` (all five for a row-wise sigma, #5 for an elementwise
+one) are timed: ms per launch over 20 warm launches in eight
+turns (other, this, this, other, ...), the median and the spread of each.
+Every output is held to the other library's as ``GENERAL_HELD`` says:
+#1r's, #3's, #4r's and #5's rows to its bits, #6's g_z and rows to a
+tolerance (with how many entries lie beyond it: centered_relu's gate may
+take the other side of the relu where the two sum a row's mean in another
+order); and where #3 and #6 take the lane-group path, #6's rows to #3's
+bits. The layout this library's ``ell_general_layout`` reports is printed
+for each kernel. Needs a CUDA card.
+
+The lab mode runs #23 ``lab_gather`` from gather_dma's 43.5 MB table and
+from one of ``gather_dma.BIG_N`` rows (174 MB, beyond the L2), with
+``F.embedding_bag`` as its library call.
 """
 
 from __future__ import annotations
@@ -131,17 +136,24 @@ GW_TOL = dict(atol=3e-4, rtol=1e-3, amax=1e-5)
 GENERAL_ITERS, GENERAL_ROUNDS = 20, 8
 FWD_TOL = dict(atol=2e-4, rtol=1e-4)
 BWD_TOL = dict(atol=3e-4, rtol=1e-3)
-# the general kernels timed, by sigma kind: output key -> (label, tag,
-# tolerance against the other build's rows, or None: its bits); the others
-# must give the other build's bits too
-GENERAL_AB = {
-    "rowwise": {"rows": ("#1r ell_act_reduce_rowwise", "#1r", FWD_TOL),
-                "geq": ("#3 ell_geq_reduce", "#3", None),
-                "out": ("#4r ell_src_bwd_rowwise", "#4r", None),
-                "fused": ("#5 ell_src_bwd_fused", "#5", BWD_TOL)},
-    "elementwise": {"fused": ("#5 ell_src_bwd_fused", "#5", BWD_TOL)}}
-# general_launches' outputs: #1r, #3, #4r, #5 rows, #6's g_z and rows
-GENERAL_OUTS = ("rows", "geq", "out", "fused", "gz", "geq6")
+# a g_z stored in bf16: one bf16 step apart where the two round f32 values
+# that differ in their last bits
+BF16_STEP = dict(atol=3e-4, rtol=2.0 ** -7)
+# the general kernels: tag -> label, and the output each is timed by
+GENERAL_KERNELS = {"#1r": ("#1r ell_act_reduce_rowwise", "rows"),
+                   "#3": ("#3 ell_geq_reduce", "geq"),
+                   "#4r": ("#4r ell_src_bwd_rowwise", "out"),
+                   "#5": ("#5 ell_src_bwd_fused", "fused"),
+                   "#6": ("#6 ell_act_reduce_bwd", "gz")}
+# the kernels timed, by sigma kind (the others run once in each setting)
+GENERAL_AB = {"rowwise": ("#1r", "#3", "#4r", "#5", "#6"),
+              "elementwise": ("#5",)}
+# general_launches' outputs (#1r, #3, #4r, #5 rows, #6's g_z and rows)
+# against the other build's: None its bits; else a tolerance, "step" for
+# g_z (one bf16 step in bf16, BWD_TOL in f32): #6's lane-group path sums
+# in another order than its first design
+GENERAL_HELD = {"rows": None, "geq": None, "out": None, "fused": None,
+                "gz": "step", "geq6": BWD_TOL}
 
 
 def build_other(source: Path, name: str = "ell_kernels") -> ctypes.CDLL:
@@ -239,10 +251,12 @@ def launches(inp: dict, act, fold: int | None = None) -> dict:
 
 def lab_launches(device) -> tuple:
     """label -> (entry, ctypes arguments less the stream, outputs, library
-    call) of #19-#22 and #24 at the lab tools' sizes, on random inputs
-    from seed 0 made on the card; and the inputs, to keep alive."""
+    call) of #19-#24 at the lab tools' sizes (#23 from gather_dma's table
+    and from one of gather_dma.BIG_N rows), on random inputs from seed 0
+    made on the card; and the inputs, to keep alive."""
     R, B, H = (kernel_lab.SIZES[k] for k in "RBH")
     S, TSUM = gather_dma.SIZES["S"], gather_dma.SIZES["TSUM"]
+    T = gather_dma.SIZES["T"]
     gen = torch.Generator(device=device).manual_seed(0)
     ekg32 = torch.randn((R * B, H), generator=gen, device=device)
     ekg = ekg32.to(torch.bfloat16)
@@ -272,7 +286,33 @@ def lab_launches(device) -> tuple:
             "lab_tile_sum", (p(v), S // TSUM, TSUM, H, p(sums)), (sums,),
             lambda: torch.sum(v.view(-1, TSUM, H), 1, dtype=torch.float32)),
     }
-    return runs, (ekg32, ekg, v)
+    keep = [ekg32, ekg, v]
+    gathered = torch.empty((S // T, 8, H), **f32)
+    for n in (gather_dma.SIZES["N"], gather_dma.BIG_N):
+        tbl = torch.randn((n, H), generator=gen, device=device).to(
+            torch.bfloat16)
+        idx = torch.randint(0, n, (S,), generator=gen, device=device,
+                            dtype=torch.int32)
+        keep += [tbl, idx]
+        runs[f"#23 lab_gather ({n * H * 2 / 1e6:.1f} MB table)"] = (
+            "lab_gather", (p(tbl), p(idx), S // T, T, H, p(gathered)),
+            (gathered,), _embedding_bag(idx.view(-1, T), tbl))
+    return runs, keep
+
+
+def _embedding_bag(bags, weight):
+    """One ``F.embedding_bag`` sum over each row of ``bags`` (in f32 where
+    the build has no bf16 embedding_bag)."""
+    import torch.nn.functional as F
+
+    def call(w):
+        return lambda: F.embedding_bag(bags, w, mode="sum")
+
+    try:
+        call(weight)()
+        return call(weight)
+    except RuntimeError:
+        return call(weight.float())
 
 
 def _fmt(ms: list) -> str:
@@ -620,20 +660,25 @@ def general_launches(lib, inp: dict, act, dtype) -> tuple:
                "#4r": ell_general_layout("ell_src_bwd_rowwise", H, dtype,
                                          act, eqt, gt, ek, outs["out"]),
                "#5": ell_general_layout("ell_src_bwd_fused", H, dtype, act,
-                                        both, ek, outs["fused"])}
+                                        both, ek, outs["fused"]),
+               "#6": ell_general_layout("ell_act_reduce_bwd", H, dtype, act,
+                                        eq, ekt, g, outs["gz"],
+                                        outs["geq6"])}
     # the calls hold raw pointers: keep what they point into alive
     return calls, dict(**{k: v.clone() for k, v in outs.items()},
                        layouts=layouts, keep=(ekt, eqt, gt, both, outs))
 
 
 def run_general(device, other: Path) -> dict:
-    """Every A/B line of ``GENERAL_AB``, and the bitwise check of every
-    kernel it holds to no tolerance; returns label -> record. Raises if
-    one of those differs from the other build."""
+    """Every A/B line of ``GENERAL_AB``, each output held to the other
+    build's as ``GENERAL_HELD`` says, and #6's rows to #3's bits where both
+    take the lane-group path; returns label -> record. Raises at the end
+    if an output held to the other build's bits, or #6's rows to #3's,
+    differ."""
     libs = {"other": build_other(other, "ell_general_kernels"),
             "this": _library("ell_general_kernels")}
     inp = arxiv_inputs(device)
-    recs = {}
+    recs, faults = {}, []
     for dtype in (torch.bfloat16, torch.float32):
         dt = "bf16" if dtype == torch.bfloat16 else "f32"
         for act in (centered_relu(0.5), softmax, leaky_relu(0.2), tanh):
@@ -641,36 +686,46 @@ def run_general(device, other: Path) -> dict:
             runs = {k: general_launches(lib, inp, act, dtype)
                     for k, lib in libs.items()}
             o, t = runs["other"][1], runs["this"][1]
-            print(f"layout at H = {H} ({act.name}, {dt}): " + ", ".join(
+            setting = f"{act.name}, {dt}"
+            print(f"layout at H = {H} ({setting}): " + ", ".join(
                 f"{k} {v}" for k, v in t["layouts"].items()), flush=True)
-            same = {k: torch.equal(o[k], t[k]) for k in GENERAL_OUTS
-                    if k not in timed or timed[k][2] is None}
-            if not all(same.values()):
-                raise AssertionError(f"{act.name}, {dt}: kernels held to "
-                                     f"the other build's bits differ: "
-                                     f"{same}")
-            for key, (label, tag, tol) in timed.items():
+            held = {}
+            for key, tol in GENERAL_HELD.items():
+                diff = (o[key].float() - t[key].float()).abs()
+                if tol is None:
+                    same = torch.equal(o[key], t[key])
+                    held[key] = "same bits" if same else "DIFFERENT bits"
+                    if not same:
+                        faults.append(f"{setting}: {key} differs")
+                    continue
+                if tol == "step":
+                    tol = BF16_STEP if dtype == torch.bfloat16 else BWD_TOL
+                beyond = int((diff > tol["atol"] + tol["rtol"]
+                              * o[key].float().abs()).sum())
+                name = "BF16_STEP" if tol is BF16_STEP else "BWD_TOL"
+                held[key] = (f"max |diff| {float(diff.max()):.3e}, {beyond} "
+                             f"of {diff.numel()} beyond {name}")
+            print(f"{setting} against the other build: " + "; ".join(
+                f"{k} {v}" for k, v in held.items()), flush=True)
+            if t["layouts"]["#3"] is not None and t["layouts"]["#6"]:
+                same = torch.equal(t["geq6"], t["geq"])
+                print(f"{setting}: #6's rows {'are' if same else 'are NOT'} "
+                      f"#3's bits", flush=True)
+                if not same:
+                    faults.append(f"{setting}: #6's rows differ from #3's")
+            for tag in timed:
+                label, key = GENERAL_KERNELS[tag]
                 ms = alternating_ms({k: r[0][tag] for k, r in runs.items()},
                                     GENERAL_ITERS, GENERAL_ROUNDS)
                 line = ", ".join(f"{k} {_fmt(v)}" for k, v in ms.items())
                 gain = statistics.median(ms["other"]) / statistics.median(
                     ms["this"])
-                diff = (o[key] - t[key]).abs()
-                rec = dict(ms=ms, diff=float(diff.max()))
-                if tol is None:
-                    held = "the same bits"
-                else:
-                    rec["beyond"] = int((diff > tol["atol"] + tol["rtol"]
-                                         * o[key].abs()).sum())
-                    held = (f"{rec['beyond']} of {diff.numel()} beyond "
-                            f"{'FWD_TOL' if tol is FWD_TOL else 'BWD_TOL'}")
-                print(f"{label} ({act.name}, {dt}): {line}, this/other "
-                      f"{gain:.2f}x faster; max |diff| {rec['diff']:.3e}, "
-                      f"{held}", flush=True)
-                recs[f"{label} ({act.name}, {dt})"] = rec
-            print(f"{act.name}, {dt}: {', '.join(sorted(same))} bitwise "
-                  f"equal to the other build's", flush=True)
+                print(f"{label} ({setting}): {line}, this/other {gain:.2f}x "
+                      f"faster; {held[key]}", flush=True)
+                recs[f"{label} ({setting})"] = dict(ms=ms, held=held[key])
             del runs
+    if faults:
+        raise AssertionError("; ".join(faults))
     return recs
 
 
@@ -685,17 +740,17 @@ def main(argv=None) -> dict:
                         "ell_general_kernels.cu)")
     mode = p.add_mutually_exclusive_group()
     mode.add_argument("--lab", action="store_true",
-                      help="time the lab's streams (#19-#22, #24) with "
-                           "their library calls")
+                      help="time the lab's streams and gather (#19-#24) "
+                           "with their library calls")
     mode.add_argument("--max", action="store_true",
                       help="time the max kernels #9-#11 (ell_max_kernels.cu)")
     mode.add_argument("--edge", action="store_true",
                       help="time the fused-edge kernels #7 and #8 "
                            "(ell_edge_kernels.cu)")
     mode.add_argument("--general", action="store_true",
-                      help="time the general route's #1r, #3, #4r and "
-                           "#5 (ell_general_kernels.cu); #3, #4r and #6 "
-                           "must give the other build's bits")
+                      help="time the general route's #1r, #3, #4r, #5 "
+                           "and #6 (ell_general_kernels.cu); #1r, #3, #4r "
+                           "and #5 must give the other build's bits")
     p.add_argument("--probes", action="store_true",
                    help="also time #2 and #4 with their gathers folded "
                         "into a smaller table")

@@ -1,7 +1,7 @@
 """Per-row gather on the card: can a kernel that gathers each indexed
-node row itself, 16 rows in flight a warp, beat a take (``index_select``)
-that writes the gathered rows out? Port of ``tools/gather_dma.py``, its
-two Pallas kernels hand-written CUDA kernels (``ops/cuda/lab.py``).
+node row itself beat a take (``index_select``) that writes the gathered
+rows out? Port of ``tools/gather_dma.py``, its two Pallas kernels
+hand-written CUDA kernels (``ops/cuda/lab.py``).
 
     python -m sir_gcn_tpu_torch.tools.gather_dma [--cpu]
 
@@ -10,7 +10,8 @@ cannot DMA one row); the kernel here reads each 256-byte row alone. Sizes
 are the JAX tool's: a table of N = 169,984 rows of H = 128 bf16, S =
 2,752,512 indices from ``np.random.default_rng(0)``, tiles of T = 4096
 indices, and a consumer summing tiles of TSUM = 8192 rows. Lines:
-  * the gather kernel (#23): per tile, the f32 sum of its rows;
+  * the gather kernel (#23), per tile the f32 sum of its rows, by 16-byte
+    loads, 8 rows in flight a warp;
   * take + sum: ``index_select``, then a sum in f32;
   * take -> materialised f32 -> sum: the taken rows widened to f32 first;
   * take -> #24 consumer: the taken rows summed per tile by the kernel
@@ -37,6 +38,9 @@ from ..ops.cuda.lab import TILE_ROWS_OUT
 from . import card_line, measure, resolve_device
 
 SIZES = dict(N=169_984, S=2_752_512, H=128, T=4096, TSUM=8192)
+# a table of 174 MB at H = 128, beyond the card's 50 MB L2 (the lab's 43.5
+# MB one fits in it)
+BIG_N = 679_936
 STEPS = 10
 
 
@@ -70,7 +74,7 @@ def run(device, inputs=None, N=SIZES["N"], S=SIZES["S"], H=SIZES["H"],
     # the gather's own bytes: the table, the indices and its [G, 8, H] f32
     nbytes = N * H * 2 + S * 4 + G * TILE_ROWS_OUT * H * 4
     lines = [
-        ("#23 gather kernel, 16 rows in flight a warp", "lab_gather",
+        ("#23 gather kernel, 8 rows in flight a warp", "lab_gather",
          lambda: lab_gather(tbl, idx, T)),
         ("take + sum (index_select, f32 sum)", None,
          lambda: torch.sum(tbl.index_select(0, idx), dtype=torch.float32)),

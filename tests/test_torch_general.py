@@ -30,10 +30,11 @@ rounded at the same points in both packages.
 
 The ``cuda`` tests compare each kernel with its plain version on the card,
 on the path its entry chooses (``GENERAL_PATHS``), on awkward plans, with
-leaky_relu besides (#5's lane-group path for an elementwise sigma), and
-ask two launches of #1r, #3, #4r and #5 for the same bits; they skip where
-there is no card. JAX is imported inside the tests that use it (``pytest -m
-cuda --noconftest tests/test_torch_general.py`` on the card).
+leaky_relu besides (#5's lane-group path for an elementwise sigma), ask
+two launches of #1r, #3, #4r, #5 and #6 for the same
+bits, and #6's rows for #3's bits; they skip where there is no card. JAX
+is imported inside the tests that use it (``pytest -m cuda --noconftest
+tests/test_torch_general.py`` on the card).
 """
 
 import dataclasses
@@ -562,27 +563,51 @@ def test_general_route_raises():
         ell_act_reduce_bwd(eq, ek, *args, act, eq, gz_dtype=torch.float16)
 
 
-def test_general_layout_python_side():
+def test_general_layout_python_side(monkeypatch):
     """``ell_general_layout`` checks its arguments before it asks the
-    library, answers None for the kernel with only the first design
-    (``ell_act_reduce_bwd``), asks it by the ids of the source's modes for
-    the four with a lane-group path, and its codes decode to the lane-group
-    layout."""
+    library, asks it by the ids of the source's modes for the five kernels
+    with a lane-group path (#6 ``ell_act_reduce_bwd`` by MODE_EMIT, with
+    its five tensors), answers None for #6 without asking where its g_slots
+    is not in ek's type (the entry's mixed types take the first design),
+    and its codes decode to the lane-group layout."""
     act = ACTS["centered_relu"]
     with pytest.raises(ValueError, match="not a kernel of the general"):
         ell_general_layout("ell_src_bwd", 96, torch.bfloat16, act)
     for h in (0, -4):
         with pytest.raises(ValueError, match="positive"):
             ell_general_layout("ell_geq_reduce", h, torch.bfloat16, act)
-    with pytest.raises(ValueError, match="at most four"):
+    with pytest.raises(ValueError, match="at most five"):
         ell_general_layout("ell_geq_reduce", 96, torch.bfloat16, act,
-                           *[torch.zeros(1)] * 5)
-    assert ell_general_layout("ell_act_reduce_bwd", 96, torch.bfloat16,
-                              act) is None
-    # MODE_GEQ, MODE_SRC, MODE_FWD, MODE_FUSED of csrc/ell_general_kernels.cu
+                           *[torch.zeros(1)] * 6)
+    # MODE_GEQ, MODE_SRC, MODE_FWD, MODE_FUSED, MODE_EMIT of
+    # csrc/ell_general_kernels.cu
     assert tkernels._GENERAL_LAYOUT_KERNEL == {
         "ell_geq_reduce": 0, "ell_src_bwd_rowwise": 1,
-        "ell_act_reduce_rowwise": 2, "ell_src_bwd_fused": 3}
+        "ell_act_reduce_rowwise": 2, "ell_src_bwd_fused": 3,
+        "ell_act_reduce_bwd": 4}
+    # #6 at the arxiv width in bf16, a library answering the layout the
+    # source gives a vjp mode there: groups of 8 lanes, 2 chunks a lane
+    asked = []
+
+    class Library:
+        def ell_general_layout(self, *args):
+            asked.append(args)
+            return 12 << 16 | 8 << 8 | 1
+
+    monkeypatch.setattr(tkernels, "_library", lambda name: Library())
+    bf = torch.bfloat16
+    eq, ek, g = torch.zeros((4, 96)), torch.zeros((4, 96), dtype=bf), \
+        torch.zeros((4, 96))
+    gz, geq = torch.zeros((9, 96), dtype=bf), torch.zeros((4, 96))
+    assert ell_general_layout("ell_act_reduce_bwd", 96, torch.bfloat16, act,
+                              eq, ek, g, gz, geq) == GeneralLayout(
+                                  12, 8, 4, 2, 1)
+    (call,) = asked
+    assert call[:4] == (4, 96, 1, act.kernel_id) and len(call) == 9
+    assert call[4:] == tuple(t.data_ptr() for t in (eq, ek, g, gz, geq))
+    assert ell_general_layout("ell_act_reduce_bwd", 96, torch.bfloat16, act,
+                              eq, ek, g, gz.float(), geq) is None
+    assert len(asked) == 1
     # the arxiv width: 12 chunks of bf16 on groups of 8 lanes (2 chunks, 16
     # values a lane), 24 of f32 on groups of 8 (3 chunks, 12 values); 64
     # chunks (H = 256, f32) on 16 lanes, 4 a lane
@@ -647,16 +672,19 @@ FWD_PATHS = {**GENERAL_PATHS, (24, "bf16"): (3, 1), (96, "bf16"): (12, 4)}
 
 
 def assert_general_paths(h, dt, act, geq_args, src_args, both, outs,
-                         aligned=True):
+                         aligned=True, emit=None):
     """#1r, #3 (``ell_geq_reduce``'s args: eq, ek, ..., g), #4r
-    (``ell_src_bwd_rowwise``'s: eq, g, ek, ...) and #5 (``both``, then
-    #4r's ek) took the path GENERAL_PATHS names; ``outs`` are the outputs
-    of #1r, #3, #4r and #5."""
+    (``ell_src_bwd_rowwise``'s: eq, g, ek, ...), #5 (``both``, then #4r's
+    ek) and, given its outputs ``emit`` (g_slots, geq_rows), #6 took the
+    path GENERAL_PATHS names; ``outs`` are the outputs of #1r, #3, #4r and
+    #5."""
     eq, ek, g = geq_args[0], geq_args[1], geq_args[-1]
     tables = {"ell_act_reduce_rowwise": (eq, ek, outs[0]),
               "ell_geq_reduce": (eq, ek, g, outs[1]),
               "ell_src_bwd_rowwise": (*src_args[:3], outs[2]),
               "ell_src_bwd_fused": (both, src_args[2], outs[3])}
+    if emit is not None:
+        tables["ell_act_reduce_bwd"] = (eq, ek, g, *emit)
     for name, ts in tables.items():
         group = aligned and (not act.diagonal or name == "ell_src_bwd_fused")
         paths = FWD_PATHS if name == "ell_act_reduce_rowwise" else \
@@ -678,9 +706,9 @@ def test_general_kernels_match_plain_on_card(cuda_device, graph, h, act,
                                              dt):
     """Each kernel against its plain version, on the path its entry
     chooses: #1r, #3, #4r on the lane-group path for a row-wise sigma, #5
-    for any sigma, where a row is whole 16-byte chunks, else the first
-    design (H = 20 in bf16; tanh sent down the general route and leaky_relu
-    but in #5)."""
+    for any sigma and #6 for a row-wise sigma, where a row is whole 16-byte
+    chunks, else the first design (H = 20 in bf16; tanh sent down the
+    general route and leaky_relu but in #5)."""
     c = make_case(graph, h, device=cuda_device, with_jax=False)
     d, tdt, tact, fg = cuda_device, DTYPES[dt], CARD_ACTS[act], c.tfg
     plan, splan = fg.dst_plan, fg.src_plan
@@ -710,7 +738,7 @@ def test_general_kernels_match_plain_on_card(cuda_device, graph, h, act,
                                      BWD_TOL, BWD_TOL)):
         torch.testing.assert_close(a, b, **tol)
     assert_general_paths(h, dt, tact, fwd + (g,), (eqb, gb) + rest, both,
-                         (got[0], got[1], got[4], got[5]))
+                         (got[0], got[1], got[4], got[5]), emit=got[2:4])
 
 
 def _offset(t, aligned):
@@ -785,7 +813,8 @@ def test_general_kernels_on_awkward_plans_on_card(cuda_device, h, dt,
                                          BWD_TOL, BWD_TOL)):
             torch.testing.assert_close(a, b, **tol)
         assert_general_paths(h, dt, act, fwd + (gd,), bwd, both,
-                             (got[0], got[1], got[4], got[5]), aligned)
+                             (got[0], got[1], got[4], got[5]), aligned,
+                             emit=got[2:4])
 
 
 @pytest.mark.cuda
@@ -793,10 +822,11 @@ def test_general_kernels_on_awkward_plans_on_card(cuda_device, h, dt,
 @pytest.mark.parametrize("act", ["centered_relu", "softmax", "leaky_relu"])
 def test_general_kernels_are_bitwise_repeatable_on_card(cuda_device, act,
                                                         dt):
-    """Two launches of #1r, #3, #4r and #5 on the same inputs give bitwise
-    equal rows on the lane-group path (for leaky_relu #5's; the others'
-    first design): each sum's order is fixed by the layout, with no
-    atomics. A graph of 4,000 nodes and 40,000 edges fills many blocks."""
+    """Two launches of #1r, #3, #4r, #5 and #6 on the same inputs give
+    bitwise equal rows (and #6 g_slots) on the lane-group path (for
+    leaky_relu #5's; the others' first design): each sum's order is fixed
+    by the layout, with no atomics. A graph of 4,000 nodes and 40,000
+    edges fills many blocks."""
     rng = np.random.default_rng(7)
     n, e, d = 4000, 40000, cuda_device
     fg = tell.build_fast_graph(
@@ -812,10 +842,56 @@ def test_general_kernels_are_bitwise_repeatable_on_card(cuda_device, act,
            fg.src_slot_scales["sym"], splan.row_key, splan.row_ptr, tact)
     both = torch.cat(bwd[:2], 1)
     runs = [(ell_act_reduce_rowwise(*fwd), ell_geq_reduce(*fwd, g),
-             ell_src_bwd_rowwise(*bwd), ell_src_bwd_fused(both, *bwd[2:]))
+             ell_src_bwd_rowwise(*bwd), ell_src_bwd_fused(both, *bwd[2:]),
+             *ell_act_reduce_bwd(*fwd, g, gz_dtype=tdt))
             for _ in range(2)]
     torch.cuda.synchronize()
     first, second = runs
-    assert_general_paths(96, dt, tact, fwd + (g,), bwd, both, first)
+    assert_general_paths(96, dt, tact, fwd + (g,), bwd, both, first[:4],
+                         emit=first[4:])
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("act", ["centered_relu", "softmax"])
+def test_act_reduce_bwd_rows_are_geq_bits_on_card(cuda_device, act, dt):
+    """#6 on its lane-group path walks as #3 does: its g_eq rows are
+    ``ell_geq_reduce``'s bits on the same inputs. A zero-scale slot's
+    g_slots row is exactly +0 (a select, not a multiply: every bit 0). With
+    g_slots in the other type than ek it takes the first design, within
+    tolerance of the plain version."""
+    rng = np.random.default_rng(11)
+    n, e, d = 3000, 30000, cuda_device
+    fg = tell.build_fast_graph(
+        build_graph(rng.integers(0, n, e), rng.integers(0, n, e), n,
+                    device=d), max_budget=64)
+    plan, tact, tdt = fg.dst_plan, CARD_ACTS[act], DTYPES[dt]
+    sc = fg.dst_slot_scales["sym"] * _t(rng.random(plan.num_slots) > 0.2,
+                                        device=d)
+    eq, ek, g = (_t(rng.normal(size=(fg.n_pad, 96)), device=d)
+                 for _ in range(3))
+    fwd = (eq, ek.to(tdt), fg.dst_slot_srcnode, sc, plan.row_key,
+           plan.row_ptr, tact)
+    gz, geq6 = ell_act_reduce_bwd(*fwd, g, gz_dtype=tdt)
+    geq = ell_geq_reduce(*fwd, g)
+    torch.cuda.synchronize()
+    assert ell_general_layout("ell_act_reduce_bwd", 96, tdt, tact, eq,
+                              fwd[1], g, gz, geq6) is not None
+    assert torch.equal(geq6, geq)
+    zero = sc == 0
+    assert zero.any() and (sc != 0).any()
+    bits = torch.int16 if dt == "bf16" else torch.int32
+    assert (gz[zero].view(bits) == 0).all()
+    other = torch.float32 if dt == "bf16" else torch.bfloat16
+    gz2, geq2 = ell_act_reduce_bwd(*fwd, g, gz_dtype=other)
+    torch.cuda.synchronize()
+    assert ell_general_layout("ell_act_reduce_bwd", 96, tdt, tact, eq,
+                              fwd[1], g, gz2, geq2) is None
+    want = ell_act_reduce_bwd_plain(*fwd, g, other)
+    torch.testing.assert_close(gz2, want[0], **(
+        BF16_STEP if other == torch.bfloat16 else BWD_TOL))
+    torch.testing.assert_close(geq2, want[1], **BWD_TOL)
+    assert (gz2[zero].view(torch.int32 if dt == "bf16" else torch.int16)
+            == 0).all()

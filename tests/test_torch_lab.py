@@ -225,6 +225,19 @@ def test_gather_matches_pallas():
     assert (got == got[:, :1]).all()
 
 
+@pytest.mark.parametrize("tile", [T, 5])
+def test_gather_variants_take_the_plain_version_on_the_cpu(tile):
+    """On the CPU lab_gather is the plain version, and launches nothing,
+    for the lab's tiles and for short ones."""
+    tbl, idx = gather_inputs(seed=5)
+    idx = idx[:idx.shape[0] // tile * tile]
+    reset_launch_counts()
+    got = lab.lab_gather(tbl, idx, tile)
+    assert LAUNCHES["lab_gather"] == 0
+    torch.testing.assert_close(got, lab.gather_sum_plain(tbl, idx, tile),
+                               rtol=0, atol=0)
+
+
 def test_tile_sum_matches_pallas():
     tbl, idx = gather_inputs(seed=4)
     v = tbl.index_select(0, idx)
@@ -457,3 +470,55 @@ def test_pass2_cases_on_card(cuda_device, rows, persistent):
     off = x.view(-1)[4:4 + (rows - 1) * H].view(rows - 1, H)
     with pytest.raises(RuntimeError, match="launch failed"):
         lab.lab_pass2(off, persistent)
+
+
+# lab_gather on the card, (tiles G, tile T, width H): G below the card's
+# 132 SMs and not a multiple of them; T off the 32-index batch (a short
+# last batch a tile); tiles of 5 indices (one short batch each, many tiles
+# a warp); one tile (few warps, each with a long share); every width 8 ..
+# 256 of the wrapper
+GATHER_CASES = {"G below the SMs": (100, 4096, 128),
+                "T off the batch": (300, 1000, 128),
+                "short tiles": (1000, 5, 64),
+                "one tile": (1, 4096, 128),
+                "one tile of one row": (1, 1, 32),
+                **{f"H {h}": (37, 300, h) for h in (8, 16, 32, 64, 256)}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_gather_cases_on_card(cuda_device, case):
+    """lab_gather against gather_sum_plain, the 8 rows of a tile equal,
+    and a second launch with the same bits."""
+    g, t, h = GATHER_CASES[case]
+    rng = np.random.default_rng(10)
+    n = 3000
+    tbl = torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32)).to(
+        torch.bfloat16).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(0, n, g * t).astype(np.int32)).to(
+        cuda_device)
+    warps = lab.lab_gather_warps(h, g, t)
+    assert 1 <= warps <= g * -(-t // 32)
+    got = lab.lab_gather(tbl, idx, t)
+    again = lab.lab_gather(tbl, idx, t)
+    torch.cuda.synchronize()
+    assert got.shape == (g, 8, h)
+    mag = lab.gather_sum_plain(tbl.abs(), idx, t)
+    diff = (got - lab.gather_sum_plain(tbl, idx, t)).abs()
+    assert (diff <= SUM_TOL * mag).all(), (case, float(diff.max()))
+    assert (got == got[:, :1]).all()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_gather_is_bitwise_repeatable_on_card(cuda_device):
+    """At the lab's size (672 tiles of 4096 indices into a 43.5 MB table)
+    two launches give the same bits: the split and every sum's order are
+    fixed, with no atomics."""
+    sizes = gather_dma.SIZES
+    inp = gather_dma.make_inputs(cuda_device)
+    runs = [lab.lab_gather(inp["tbl"], inp["idx"], sizes["T"])
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert runs[0].shape == (sizes["S"] // sizes["T"], 8, sizes["H"])
+    assert torch.equal(*runs)
