@@ -36,6 +36,15 @@ Phases, each printed as it runs; any failure exits non-zero:
            launch counters set to 0 before and read after each run (with
            max, the path of #9-#11 is logged and must be the tensor-core
            product)
+  bench    bench_torch.run in-process at full size (169,343 nodes, 1,166,243
+           raw edges, padded to 1024; 10 steps, then 2 timed blocks of 10):
+           (a) random, (b) powerlaw with RCM reordering, (c) community, (d)
+           random with the SIREConv lane; each record on its own line, the
+           losses finite, exact launch counts and each step profiled; on
+           (b)'s plan both plans with a stage 2, one aggregate (#2, #4;
+           bf16, leaky_relu(0.2), H = 96) against its plain versions and
+           #1, #2, #4 against theirs, timed beside (a)'s random plan; a
+           second build of (d)'s graph a memo hit
   sireconv one SIREConv layer at full width on the arxiv graph (96 in,
            De = 16 edge features, 96 hidden and out, sym, bf16 edges):
            5 AdamW steps and 5 evals on the fused-edge route (dropout 0)
@@ -1058,6 +1067,156 @@ def phase_train(agg: str):
     return launches
 
 
+# bench_torch.run settings of the bench phase: (tag, --graph, --reorder,
+# --edge-features); each runs a first block and BENCH_WINDOWS timed blocks
+BENCH_RUNS = (("a", "random", False, False), ("b", "powerlaw", True, False),
+              ("c", "community", False, False), ("d", "random", False, True))
+BENCH_WINDOWS = 2
+
+
+def bench_aggregate(label, fg, errs, h: int = 96):
+    """One sym aggregate at ``fg``'s plan (bf16 edges, leaky_relu(0.2), H =
+    ``h``): the output and both gradients through the kernels (#2, #4;
+    ``ell_sir_aggregate``) against the same aggregate composed of their
+    plain versions on the card, stage 2 and key lookup included."""
+    import torch
+
+    from sir_gcn_tpu_torch.ops import cuda as K
+    from sir_gcn_tpu_torch.ops.ell import ell_sir_aggregate, leaky_relu
+
+    act, dtype, dev = leaky_relu(0.2), torch.bfloat16, fg.graph.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    eq, ek, g = (torch.randn((fg.n_pad, h), generator=gen, device=dev)
+                 for _ in range(3))
+    eq_k, ek_k = eq.clone().requires_grad_(), ek.clone().requires_grad_()
+    out = ell_sir_aggregate(fg, eq_k, ek_k, act, "sym", edge_dtype=dtype)
+    out.backward(g)
+    fwd, bwd = kernel_args(fg, eq, ek, g, fg.dst_slot_scales["sym"],
+                           fg.src_slot_scales["sym"], act, dtype)
+    rows, srows = K.ell_act_reduce_plain(*fwd, buckets=fg.dst_plan.buckets1,
+                                         derivative=True)
+    want = {
+        "out": (out, fg.dst_plan.finalize_rows_sum(rows), FWD_TOL),
+        "g_eq": (eq_k.grad, g * fg.dst_plan.finalize_rows_sum(srows),
+                 BWD_TOL),
+        "g_ek": (ek_k.grad, fg.src_plan.finalize_rows_sum(
+            K.ell_src_bwd_plain(*bwd, buckets=fg.src_plan.buckets1)),
+            BWD_TOL),
+    }
+    for name, (got, ref, tol) in want.items():
+        err = compare(f"{label} aggregate {name}", got.detach(), ref, tol)
+        kernel = "ell_act_reduce2" if name == "out" else "ell_src_bwd"
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+
+
+def phase_bench(device, errs):
+    """``bench_torch.run`` in-process at full size for each of BENCH_RUNS,
+    with the launch counters set to 0 before and read after each run; each
+    record printed on its own line. Every loss finite and the launches
+    exact (3 of #2 and #4, or of #7 and #8, per step); the profile of each
+    lane's step; on (b)'s powerlaw plan a stage 2 in both plans, the
+    aggregate through #2 and #4 against their plain versions, and #1, #2
+    and #4 against theirs with times beside (a)'s random plan; a second
+    build of (d)'s graph a memo hit."""
+    import numpy as np
+    import torch
+
+    import bench_torch
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.ops.ell import (
+        MAX_BUDGET,
+        build_fast_graph,
+        last_build_memo_hit,
+        leaky_relu,
+    )
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+    from sir_gcn_tpu_torch.train import make_adamw
+
+    plans, steps = {}, bench_torch.STEPS * (1 + BENCH_WINDOWS)
+    for tag, graph, reorder, edge in BENCH_RUNS:
+        log(f"== bench ({tag}): --graph {graph}"
+            + (" --reorder" if reorder else "")
+            + (" --edge-features" if edge else "")
+            + f" --windows {BENCH_WINDOWS}")
+        details = {}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        record = bench_torch.run(graph, reorder, edge, BENCH_WINDOWS, device,
+                                 details=details)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        print(json.dumps(record), flush=True)
+        fg = details["fg"]
+        log(f"  ({tag}) plan {record['plan_seconds']:.3f}s, kernel build "
+            f"{details['build_seconds']:.1f}s, first block "
+            f"{details['first_block_seconds']:.3f}s, windows ms "
+            f"{details['window_ms']}, peak memory "
+            f"{details['peak_memory_bytes'] / 2**30:.3f} GiB, stage 2 dst "
+            f"{fg.dst_plan.buckets2 is not None} src "
+            f"{fg.src_plan.buckets2 is not None}, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if not all(math.isfinite(x) for x in details["losses"]):
+            raise AssertionError(f"bench ({tag}): non-finite loss "
+                                 f"{details['losses']}")
+        pair = (("ell_edge_act_reduce2", "ell_edge_src_bwd") if edge
+                else ("ell_act_reduce2", "ell_src_bwd"))
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(dict.fromkeys(pair, 3 * steps))
+        if launches != want:
+            raise AssertionError(f"bench ({tag}): launch counts {launches}, "
+                                 f"expected {want}")
+        log(f"== profile bench ({tag})")
+        set_edge_dtype(torch.bfloat16)
+        model = bench_torch.make_model(
+            edge, generator=torch.Generator().manual_seed(0)).to(device)
+        opt = make_adamw(model.parameters(), 1e-2, 1e-3)
+        inputs = bench_torch.bench_inputs(np.random.default_rng(1), fg, edge,
+                                          device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        profile_steps(lambda: bench_torch.train_step(model, opt, fg, *inputs,
+                                                     gen), 3)
+        set_edge_dtype(None)
+        del model, opt, inputs
+        if tag in ("a", "b"):
+            plans[tag] = fg
+    t0 = time.perf_counter()
+    build_fast_graph(fg.graph)
+    log(f"  a second build of ({tag})'s graph: memo hit "
+        f"{last_build_memo_hit()}, {time.perf_counter() - t0:.3f}s")
+    if not last_build_memo_hit():
+        raise AssertionError("the same graph built twice missed the memo")
+
+    fg = plans["b"]
+    if fg.dst_plan.buckets2 is None or fg.src_plan.buckets2 is None:
+        raise AssertionError("the powerlaw plans have no stage 2")
+    hubs = {}
+    for side, deg in (("dst", "in_deg"), ("src", "out_deg")):
+        deg = fg.graph.host[deg]
+        big = deg[deg > MAX_BUDGET]
+        hubs[side] = (f"{len(big)} keys above {MAX_BUDGET} in "
+                      f"{int(np.ceil(big / MAX_BUDGET).sum())} chunk rows")
+    log(f"== bench plans: #2 and #4 at (b)'s powerlaw plan (dst "
+        f"{hubs['dst']}, src {hubs['src']}), beside (a)'s random plan")
+    bench_aggregate("bench (b)", fg, errs)
+    gen = torch.Generator(device=device).manual_seed(0)
+    times = {}
+    for tag, fg in plans.items():
+        eq, ek, g = (torch.randn((fg.n_pad, 96), generator=gen,
+                                 device=device) for _ in range(3))
+        times[tag] = {}
+        check_kernels(f"bench ({tag}) bf16", fg, eq, ek, g,
+                      fg.dst_slot_scales["sym"], fg.src_slot_scales["sym"],
+                      leaky_relu(0.2), torch.bfloat16, errs,
+                      timing=times[tag], require_vector=True)
+    for name in LINEAR:
+        log(f"  {name} (bf16 edges): " + ", ".join(
+            f"({tag}) {t[name]['ms']:.4f} ms, plain "
+            f"{t[name]['plain_ms']:.3f} ms, bound "
+            f"{t[name]['bound'][0]:.4f} ms, "
+            f"{100 * t[name]['bound'][0] / t[name]['ms']:.1f}% of bound"
+            for tag, t in times.items()))
+
+
 def sireconv_inputs(fg, seed: int):
     """Node features [N, 96] and edge features [E, De] N(0, 1), in original
     edge order, and the loss weights [N, 96], on the graph's device."""
@@ -1917,6 +2076,7 @@ def main() -> int:
     launches = phase_train("sym")
     launches.update({k: v for k, v in phase_train("max").items()
                      if k in MAX})
+    phase_bench(device, errs)
     launches.update({k: v for k, v in phase_sireconv(device, arxiv_fg).items()
                      if k in EDGE})
     launches.update({k: v for k, v in phase_general(device, arxiv_fg).items()

@@ -9,7 +9,12 @@ and numpy, and nothing of JAX or of ``sir_gcn_tpu``.
 from .graph import (
     GraphBatch,
     add_self_loops,
+    bandwidth,
+    batch_graphs,
     build_graph,
+    drop_edge_mask,
+    permute_nodes,
+    rcm_order,
     remove_self_loops,
     reverse_edges,
     to_bidirected,

@@ -3,3 +3,4 @@ from .loaders import (
     load_node_classification,
     synthetic_node_classification,
 )
+from .synthetic import powerlaw_edges

@@ -11,7 +11,9 @@ array):
   * padding nodes and edges appended at the end and tracked by masks;
     padding edges point at the last padded node so dst stays sorted.
 
-Graph transforms (reverse / bidirect / self-loops) are host-side NumPy.
+Graph transforms (reverse / bidirect / self-loops), batching and the RCM
+locality reordering are host-side NumPy; the DropEdge mask is drawn on the
+graph's device.
 """
 
 from __future__ import annotations
@@ -142,6 +144,36 @@ def build_graph(
                       num_graphs=int(num_graphs), host=host, **dev)
 
 
+def batch_graphs(
+    graphs: list[tuple[np.ndarray, np.ndarray, int]],
+    *,
+    n_pad: Optional[int] = None,
+    e_pad: Optional[int] = None,
+    g_pad: Optional[int] = None,
+    pad_multiple: int = 8,
+    device: torch.device | str = "cpu",
+) -> GraphBatch:
+    """Disjoint union of ``(src, dst, num_nodes)`` triples into one
+    :class:`GraphBatch` on ``device`` (``dgl.batch``); one padding graph
+    unless ``g_pad`` is given."""
+    num_graphs = len(graphs)
+    srcs, dsts, n2g = [], [], []
+    offset = 0
+    for gid, (s, d, n) in enumerate(graphs):
+        srcs.append(np.asarray(s, np.int64) + offset)
+        dsts.append(np.asarray(d, np.int64) + offset)
+        n2g.append(np.full(n, gid, np.int32))
+        offset += n
+    src = np.concatenate(srcs) if srcs else np.zeros(0, np.int64)
+    dst = np.concatenate(dsts) if dsts else np.zeros(0, np.int64)
+    node2graph = np.concatenate(n2g) if n2g else np.zeros(0, np.int32)
+    return build_graph(
+        src, dst, offset, n_pad=n_pad, e_pad=e_pad, node2graph=node2graph,
+        num_graphs=num_graphs,
+        g_pad=g_pad if g_pad is not None else num_graphs + 1,
+        pad_multiple=pad_multiple, device=device)
+
+
 # ----------------------------------------------------------------------
 # Host-side graph transforms (reference: dgl.reverse / to_bidirected /
 # add_self_loop / remove_self_loop)
@@ -170,3 +202,104 @@ def remove_self_loops(src: np.ndarray, dst: np.ndarray):
 def add_self_loops(src: np.ndarray, dst: np.ndarray, num_nodes: int):
     loop = np.arange(num_nodes, dtype=src.dtype if src.size else np.int64)
     return np.concatenate([src, loop]), np.concatenate([dst, loop])
+
+
+# ----------------------------------------------------------------------
+# Host-side locality reordering
+# ----------------------------------------------------------------------
+
+def rcm_order(src: np.ndarray, dst: np.ndarray, num_nodes: int
+              ) -> np.ndarray:
+    """Reverse Cuthill-McKee ordering of the undirected support graph,
+    ``perm[new_id] = old_id``: scipy's ``reverse_cuthill_mckee``, or
+    :func:`_rcm_numpy` where scipy is missing. Relabelling by it puts each
+    node's neighbours in a narrow id band, so the row gathers read nearby
+    rows. Apply with :func:`permute_nodes` before :func:`build_graph`."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    try:
+        from scipy.sparse import coo_matrix
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+    except ImportError:
+        return _rcm_numpy(src, dst, num_nodes)
+    a = coo_matrix(
+        (np.ones(2 * len(src), np.int8),
+         (np.concatenate([src, dst]), np.concatenate([dst, src]))),
+        shape=(num_nodes, num_nodes)).tocsr()
+    return np.asarray(reverse_cuthill_mckee(a, symmetric_mode=True),
+                      np.int64)
+
+
+def _rcm_numpy(src: np.ndarray, dst: np.ndarray, num_nodes: int
+               ) -> np.ndarray:
+    """NumPy RCM: a BFS from a least-degree unvisited node of each
+    component, neighbours visited in increasing-degree order, then the
+    whole order reversed."""
+    s = np.concatenate([src, dst])
+    d = np.concatenate([dst, src])
+    order = np.argsort(s, kind="stable")
+    s, d = s[order], d[order]
+    deg = np.bincount(s, minlength=num_nodes)
+    ptr = np.zeros(num_nodes + 1, np.int64)
+    np.cumsum(deg, out=ptr[1:])
+
+    visited = np.zeros(num_nodes, bool)
+    out = np.empty(num_nodes, np.int64)
+    pos = 0
+    for seed in np.argsort(deg, kind="stable"):
+        if visited[seed]:
+            continue
+        visited[seed] = True
+        out[pos] = seed
+        head = pos
+        pos += 1
+        while head < pos:
+            u = out[head]
+            head += 1
+            nbr = d[ptr[u]:ptr[u + 1]]
+            nbr = nbr[~visited[nbr]]
+            if nbr.size:
+                nbr = np.unique(nbr)
+                nbr = nbr[np.argsort(deg[nbr], kind="stable")]
+                visited[nbr] = True
+                out[pos:pos + nbr.size] = nbr
+                pos += nbr.size
+    return out[::-1].copy()
+
+
+def permute_nodes(src: np.ndarray, dst: np.ndarray, perm: np.ndarray):
+    """Relabel endpoints under ``perm`` (``perm[new_id] = old_id``).
+
+    Returns ``(new_src, new_dst, relabel)`` with ``relabel[old] = new``;
+    node data moves as ``x_new = x_old[perm]``, results map back as
+    ``y_old = y_new[relabel]``."""
+    perm = np.asarray(perm, np.int64)
+    relabel = np.empty_like(perm)
+    relabel[perm] = np.arange(len(perm))
+    return (relabel[np.asarray(src, np.int64)],
+            relabel[np.asarray(dst, np.int64)], relabel)
+
+
+def bandwidth(src: np.ndarray, dst: np.ndarray) -> float:
+    """Mean |src - dst| id distance, the locality figure RCM lowers."""
+    if len(src) == 0:
+        return 0.0
+    return float(np.mean(np.abs(np.asarray(src, np.int64)
+                                - np.asarray(dst, np.int64))))
+
+
+# ----------------------------------------------------------------------
+# DropEdge mask (device side)
+# ----------------------------------------------------------------------
+
+def drop_edge_mask(generator: torch.Generator, graph: GraphBatch,
+                   rate: float) -> torch.Tensor:
+    """Bernoulli(1 - rate) keep-mask over the padded edges, False on
+    padding, drawn from ``generator`` (on the graph's device): the
+    static-shape form of DGL's ``DropEdge``. Rate 0 returns the edge
+    mask."""
+    if rate <= 0.0:
+        return graph.edge_mask
+    keep = torch.rand(graph.e_pad, generator=generator,
+                      device=graph.device) < 1.0 - rate
+    return keep & graph.edge_mask

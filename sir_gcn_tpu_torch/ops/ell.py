@@ -39,7 +39,10 @@ derivative and vector-Jacobian product.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -69,6 +72,42 @@ from .cuda.kernels import NEG
 from .cuda.kernels import bucket_offsets as _bucket_offsets
 
 MAX_BUDGET = 256
+
+# Stage timings (seconds) of the latest top-level plan build, read through
+# plan_timings(); build_fast_graph resets them on entry, so a standalone
+# build_reduce_plan adds to the last build's.
+_PLAN_TIMINGS: dict = {}
+_LAST_MEMO_HIT: bool = False
+
+
+def plan_timings() -> dict:
+    """{stage: seconds} of the latest plan build: ``fetch_host``,
+    ``memo_hash``, then on a memo miss ``bucketize`` and ``plan_upload``
+    (both plans together), ``fetch_plans``, ``fg_host``, ``scales_host``
+    and ``fg_upload``."""
+    return dict(_PLAN_TIMINGS)
+
+
+def reset_plan_timings() -> None:
+    global _LAST_MEMO_HIT
+    _PLAN_TIMINGS.clear()
+    _LAST_MEMO_HIT = False
+
+
+def last_build_memo_hit() -> bool:
+    """Whether the latest :func:`build_fast_graph` returned memoised plans
+    (then plan_timings() holds only ``fetch_host`` and ``memo_hash``)."""
+    return _LAST_MEMO_HIT
+
+
+@contextlib.contextmanager
+def _timed_stage(stage: str):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _PLAN_TIMINGS[stage] = (_PLAN_TIMINGS.get(stage, 0.0)
+                                + time.perf_counter() - t0)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -238,8 +277,9 @@ def build_reduce_plan(keys: np.ndarray, valid: np.ndarray, num_keys: int,
     valid = np.asarray(valid, bool)
     eids = np.nonzero(valid)[0]
 
-    slot_edge, slot_valid, slot_key, buckets1, row_keys = _bucketize(
-        keys[eids], eids, num_keys, max_budget)
+    with _timed_stage("bucketize"):
+        slot_edge, slot_valid, slot_key, buckets1, row_keys = _bucketize(
+            keys[eids], eids, num_keys, max_budget)
 
     # pad slots to a multiple of 8 with an extra budget-1 bucket; the
     # bucket list may then repeat budget 1
@@ -287,7 +327,8 @@ def build_reduce_plan(keys: np.ndarray, valid: np.ndarray, num_keys: int,
                 key2row=key2row.astype(np.int32))
     if s2_gather is not None:
         host.update(s2_gather=s2_gather.astype(np.int32), s2_valid=s2_valid)
-    dev = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    with _timed_stage("plan_upload"):
+        dev = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
     return ReducePlan(
         s2_gather=dev.pop("s2_gather", None),
         s2_valid=dev.pop("s2_valid", None), buckets1=tuple(buckets1),
@@ -366,47 +407,82 @@ def static_edge_scale(agg: str, src, dst, valid, in_deg, out_deg
     raise ValueError(f"unknown static scale agg {agg}")
 
 
+# The latest builds' plans, keyed by content: a harness rebuilds the same
+# graph once per run. Entries hold device tensors, so keep few.
+_FAST_GRAPH_MEMO: dict = {}
+_FAST_GRAPH_MEMO_MAX = 2
+_STATIC_SCALES = ("sum", "mean", "sym")
+
+
 def build_fast_graph(graph: GraphBatch,
                      max_budget: int = MAX_BUDGET) -> FastGraph:
     """Host-side: attach ELL plans and the static sum/mean/sym scales to a
-    GraphBatch, on the graph's device."""
-    h = graph.host
-    src = np.asarray(h["src"], np.int64)
-    dst = np.asarray(h["dst"], np.int64)
-    valid = np.asarray(h["edge_mask"], bool)
+    GraphBatch, on the graph's device.
+
+    The plans are memoised by a blake2b hash of src, dst, the edge mask
+    and both degree arrays (the scales bake the degrees in), with n_pad,
+    e_pad, ``max_budget`` and the device: a hit returns the cached plans
+    with ``graph`` attached (:func:`last_build_memo_hit`)."""
+    global _LAST_MEMO_HIT
+    reset_plan_timings()
+    with _timed_stage("fetch_host"):
+        h = graph.host
+        src32, dst32 = h["src"], h["dst"]
+        valid = np.asarray(h["edge_mask"], bool)
+        in_deg, out_deg = h["in_deg"], h["out_deg"]
     n = graph.n_pad
     device = graph.device
 
+    with _timed_stage("memo_hash"):
+        digest = hashlib.blake2b(digest_size=16)
+        for a in (src32, dst32, valid, in_deg, out_deg):
+            digest.update(np.ascontiguousarray(a).tobytes())
+        key = (digest.hexdigest(), n, graph.e_pad, max_budget,
+               _STATIC_SCALES, str(device))
+    hit = _FAST_GRAPH_MEMO.get(key)
+    if hit is not None:
+        _LAST_MEMO_HIT = True
+        return dataclasses.replace(hit, graph=graph)
+
+    src = np.asarray(src32, np.int64)
+    dst = np.asarray(dst32, np.int64)
     dst_plan = build_reduce_plan(dst, valid, n, max_budget, device=device)
     src_plan = build_reduce_plan(src, valid, n, max_budget, device=device)
 
-    dst_slot_edge = dst_plan.host["slot_edge"]
-    src_slot_edge = src_plan.host["slot_edge"]
-    dvalid = dst_plan.host["slot_valid"] > 0
-    svalid = src_plan.host["slot_valid"] > 0
-    edge2dst_slot = np.zeros(graph.e_pad, np.int64)
-    edge2dst_slot[dst_slot_edge[dvalid]] = np.nonzero(dvalid)[0]
-    edge2src_slot = np.zeros(graph.e_pad, np.int64)
-    edge2src_slot[src_slot_edge[svalid]] = np.nonzero(svalid)[0]
-    host = dict(dst_slot_srcnode=src[dst_slot_edge],
-                src_slot_dstnode=dst[src_slot_edge],
-                src_slot_from_dst_slot=edge2dst_slot[src_slot_edge],
-                edge2dst_slot=edge2dst_slot, edge2src_slot=edge2src_slot)
+    with _timed_stage("fetch_plans"):
+        dst_slot_edge = dst_plan.host["slot_edge"]
+        src_slot_edge = src_plan.host["slot_edge"]
+        dvalid = dst_plan.host["slot_valid"] > 0
+        svalid = src_plan.host["slot_valid"] > 0
+    with _timed_stage("fg_host"):
+        edge2dst_slot = np.zeros(graph.e_pad, np.int64)
+        edge2dst_slot[dst_slot_edge[dvalid]] = np.nonzero(dvalid)[0]
+        edge2src_slot = np.zeros(graph.e_pad, np.int64)
+        edge2src_slot[src_slot_edge[svalid]] = np.nonzero(svalid)[0]
+        host = dict(dst_slot_srcnode=src[dst_slot_edge],
+                    src_slot_dstnode=dst[src_slot_edge],
+                    src_slot_from_dst_slot=edge2dst_slot[src_slot_edge],
+                    edge2dst_slot=edge2dst_slot, edge2src_slot=edge2src_slot)
+    with _timed_stage("scales_host"):
+        dst_scales_np, src_scales_np = {}, {}
+        for agg in _STATIC_SCALES:
+            base = static_edge_scale(agg, src, dst, valid, in_deg, out_deg)
+            dst_scales_np[agg] = (base[dst_slot_edge] * dvalid).astype(
+                np.float32)
+            src_scales_np[agg] = (base[src_slot_edge] * svalid).astype(
+                np.float32)
 
-    dst_scales, src_scales = {}, {}
-    for agg in ("sum", "mean", "sym"):
-        base = static_edge_scale(agg, src, dst, valid, h["in_deg"],
-                                 h["out_deg"])
-        dst_scales[agg] = torch.from_numpy(
-            (base[dst_slot_edge] * dvalid).astype(np.float32)).to(device)
-        src_scales[agg] = torch.from_numpy(
-            (base[src_slot_edge] * svalid).astype(np.float32)).to(device)
-
-    return FastGraph(
-        graph=graph, dst_plan=dst_plan, src_plan=src_plan,
-        dst_slot_scales=dst_scales, src_slot_scales=src_scales,
-        **{k: torch.from_numpy(v.astype(np.int32)).to(device)
-           for k, v in host.items()})
+    with _timed_stage("fg_upload"):
+        up = lambda a: torch.from_numpy(a).to(device)
+        fg = FastGraph(
+            graph=graph, dst_plan=dst_plan, src_plan=src_plan,
+            dst_slot_scales={a: up(v) for a, v in dst_scales_np.items()},
+            src_slot_scales={a: up(v) for a, v in src_scales_np.items()},
+            **{k: up(v.astype(np.int32)) for k, v in host.items()})
+    while len(_FAST_GRAPH_MEMO) >= _FAST_GRAPH_MEMO_MAX:
+        _FAST_GRAPH_MEMO.pop(next(iter(_FAST_GRAPH_MEMO)))
+    _FAST_GRAPH_MEMO[key] = fg
+    return fg
 
 
 # ======================================================================

@@ -108,7 +108,10 @@ def _slots(model: nn.Module) -> dict:
 
 def load_jax_variables(model: nn.Module, variables: dict) -> None:
     """Copy the flax ``variables`` of a JAX ``SIRModel``, ``SIRConv``,
-    ``SIREConv`` or ``Embed`` into its port ``model``, in place."""
+    ``SIREConv`` or ``Embed`` into its port ``model``, in place. A model
+    with ``SIRModel``'s attribute names (``embedding``, ``convs``,
+    ``norms``, ``readout``), such as the benchmark's SIREConv model, takes
+    the ``SIRModel`` layout."""
     slots = _slots(model)
     given = _flatten(variables)
     missing = sorted("/".join(k) for k in slots.keys() - given.keys())

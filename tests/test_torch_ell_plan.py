@@ -1,5 +1,6 @@
 """The port's host ELL planner against the JAX package's: slot, key,
-scale and stage-2 arrays equal, on the graphs that reach each branch."""
+scale and stage-2 arrays equal, on the graphs that reach each branch; the
+content memo of build_fast_graph and its stage timings."""
 
 import numpy as np
 import pytest
@@ -158,3 +159,50 @@ def test_plan_stream_ops_match_jax():
         tp.finalize_rows_sum(torch.from_numpy(rows)).numpy(),
         np.asarray(jp.finalize_rows_sum(jnp.asarray(rows))),
         atol=2e-4, rtol=1e-4)  # the JAX suite's forward tolerance
+
+
+STAGES = {"fetch_host", "memo_hash", "bucketize", "plan_upload",
+          "fetch_plans", "fg_host", "scales_host", "fg_upload"}
+
+
+def test_plan_memo_hits_and_misses():
+    import dataclasses
+
+    src, dst, n, pad = hub_graph(np.random.default_rng(11))
+    g = t_build_graph(src, dst, n, **pad)
+    first = tell.build_fast_graph(g)
+    assert not tell.last_build_memo_hit()
+    again = t_build_graph(src, dst, n, **pad)
+    hit = tell.build_fast_graph(again)
+    assert tell.last_build_memo_hit()
+    assert hit.graph is again and hit.dst_plan is first.dst_plan
+    for f in PLAN_ARRAYS:
+        a, b = getattr(first.src_plan, f), getattr(hit.src_plan, f)
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+    # the static scales bake the degrees in: a changed degree array misses
+    deg = g.host["in_deg"].copy()
+    deg[0] += 1.0
+    other = dataclasses.replace(g, host={**g.host, "in_deg": deg})
+    missed = tell.build_fast_graph(other)
+    assert not tell.last_build_memo_hit()
+    assert not torch.equal(missed.dst_slot_scales["sym"],
+                           first.dst_slot_scales["sym"])
+    # and so does another max_budget
+    tell.build_fast_graph(again, max_budget=64)
+    assert not tell.last_build_memo_hit()
+
+
+def test_plan_stage_names_match_jax():
+    src, dst, n, pad = random_graph(np.random.default_rng(12))
+    for builds in range(1, 3):  # a miss, then a hit
+        jell.build_fast_graph(j_build_graph(src, dst, n, **pad))
+        tell.build_fast_graph(t_build_graph(src, dst, n, **pad))
+        want = set(jell.plan_timings())
+        assert set(tell.plan_timings()) == want
+        assert tell.last_build_memo_hit() == jell.last_build_memo_hit() \
+            == (builds == 2)
+        assert want == (STAGES if builds == 1 else {"fetch_host",
+                                                    "memo_hash"})
+        assert all(v >= 0.0 for v in tell.plan_timings().values())
+    tell.reset_plan_timings()
+    assert tell.plan_timings() == {} and not tell.last_build_memo_hit()

@@ -18,7 +18,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sir_gcn_tpu"}
 
 def _port_files():
     files = sorted((ROOT / "sir_gcn_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
 
 
 def test_no_file_of_the_port_imports_jax():
@@ -39,6 +39,7 @@ def test_no_file_of_the_port_imports_jax():
 def test_importing_the_whole_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
+        "import bench_torch\n"
         "import sir_gcn_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
