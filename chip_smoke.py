@@ -16,7 +16,9 @@ Phases, each printed as it runs; any failure exits non-zero:
            valid slot, isolated nodes, row counts that are not a multiple
            of a block's, duplicated edges that tie exactly; the general
            route's kernels with centered_relu, softmax and tanh sent down
-           the general route), then the ogbn-arxiv plan in f32 and bf16,
+           the general route), then the ogbn-arxiv plan in f32 and bf16
+           (#1, #2 and #4 also on DropEdge's dynamic scales from a numpy
+           mask at rate 0.2, bf16 timed beside the static scales),
            with CUDA-event times of kernel and plain version beside the
            kernel's bound (#12 and its CSR product in alternating turns,
            as in the lab phase); for #1, #2, #4 and their edge-term forms the
@@ -36,6 +38,10 @@ Phases, each printed as it runs; any failure exits non-zero:
            launch counters set to 0 before and read after each run (with
            max, the path of #9-#11 is logged and must be the tensor-core
            product)
+  dropedge the sym run with --edge-dropout 0.2, twice, then sym once more
+           (sym, max, dropedge, dropedge, sym): a fresh DropEdge mask per
+           layer and step, #2 and #4 on dynamic slot scales, exactly the
+           sym run's launches; the mean step, eval and peak beside sym's
   bench    bench_torch.run in-process at full size (169,343 nodes, 1,166,243
            raw edges, padded to 1024; 10 steps, then 2 timed blocks of 10):
            (a) random, (b) powerlaw with RCM reordering, (c) community, (d)
@@ -76,10 +82,19 @@ Phases, each printed as it runs; any failure exits non-zero:
   e2e      one training step on a ~20k-node graph on the card (kernels)
            against the same step on the CPU (plain versions): the arxiv
            model with sym and with max, the SIREConv layer on its fused
-           and its generic route, and the general phase's SIRConv
+           and its generic route, and the general phase's SIRConv; then
+           each route of sir_aggregate under one numpy DropEdge mask on
+           the same graph (the five kernel routes on dynamic scales with
+           their exact launches, the pure ELL route and the CSR aggregate
+           with none), out and every gradient
+  pure     one forward and backward of the pure ELL route with a sigma
+           that holds a tensor (erf-GELU times a per-feature gain: JAX's
+           XLA route) at the arxiv plan beside the kernel route's with
+           leaky_relu; a parameter-free sigma outside the registry raises
   profile  device time by kernel over warm training steps of each train,
-           sireconv and general configuration (torch.profiler), and the
-           device's idle share
+           dropedge, sireconv and general configuration (torch.profiler;
+           dropedge's beside sym's, kernel by kernel), and the device's
+           idle share
 
 The last line is the JSON contract line; the line before it lists each
 kernel's launches on the main path, error, times and bound. Needs a CUDA
@@ -899,6 +914,7 @@ def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
 
 
 def phase_kernels(device):
+    import numpy as np
     import torch
 
     from sir_gcn_tpu_torch.data import synthetic_node_classification
@@ -909,6 +925,7 @@ def phase_kernels(device):
     from sir_gcn_tpu_torch.ops.ell import (
         centered_relu,
         leaky_relu,
+        slot_scale,
         softmax,
         tanh,
     )
@@ -998,6 +1015,21 @@ def phase_kernels(device):
                 names=("ell_src_bwd_fused", "ell_act_reduce_bwd"),
                 timing=fused_timing.setdefault(act.name, {}) if keep
                 is not None else None)
+    # #1, #2 and #4 on DropEdge's dynamic scales at the arxiv plan: a
+    # numpy mask at rate 0.2 zeroes slots in the middle of rows
+    mask = torch.from_numpy(np.random.default_rng(5).random(fg.e_pad)
+                            >= 0.2).to(device)
+    dsd, dss = (slot_scale(fg, side, "sym", mask) for side in ("dst", "src"))
+    dyn_timing = {}
+    for dtype in dtypes:
+        check_kernels(f"arxiv {dtype} dropedge", fg, eq, ek, g, dsd, dss,
+                      leaky_relu(0.2), dtype, errs, require_vector=True,
+                      timing=dyn_timing if dtype == torch.bfloat16 else None)
+    for name, t in dyn_timing.items():
+        log(f"  {name} (bf16 edges, dynamic scales): {t['ms']:.4f} ms "
+            f"against {timing[name]['ms']:.4f} ms on the static ones "
+            f"({100 * (t['ms'] / timing[name]['ms'] - 1):+.1f}%)")
+    del mask, dsd, dss
     for name, t in timing.items():
         b_ms, by, nbytes, flops = t["bound"]
         log(f"  {name} (bf16 edges): {t['ms']:.4f} ms, plain "
@@ -1027,15 +1059,19 @@ def expected_launches(agg: str, steps: int) -> dict:
     return want
 
 
-def phase_train(agg: str):
+def phase_train(agg: str, extra=(), label: str = ""):
+    """The arxiv trainer at full width with ``agg`` (and the ``extra``
+    flags), the launch counters set to 0 before and read after; the
+    launches must be those of ``agg``'s steps and evals. Returns the
+    launches and the run's steady step, eval times and peak memory."""
     import numpy as np
     import torch
 
     from sir_gcn_tpu_torch.experiments.ogbn_arxiv import train
     from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
 
-    flags = flags_for(agg)
-    log("== train: " + " ".join(flags))
+    flags = flags_for(agg) + list(extra)
+    log(f"== {label or 'train'}: " + " ".join(flags))
     if agg == "max":  # W_R of each layer is [nhidden, nhidden]
         h = int(flags[flags.index("--nhidden") + 1])
         log_max_layout("train max", h, h, require_tensor=True)
@@ -1053,10 +1089,10 @@ def phase_train(agg: str):
     log(f"  dst buckets {result['dst_buckets']}")
     log(f"  src buckets {result['src_buckets']}")
     ms = lambda key: [round(s * 1e3, 3) for s in result[key]]
+    steady = 1e3 * float(np.median(result["step_seconds"][1:]))
     log(f"  train step ms {ms('step_seconds')}, eval ms "
         f"{ms('eval_seconds')}")
-    log(f"  steady step (median of steps 2..{steps}) "
-        f"{1e3 * float(np.median(result['step_seconds'][1:])):.3f} ms, "
+    log(f"  steady step (median of steps 2..{steps}) {steady:.3f} ms, "
         f"peak memory {peak / 2**30:.3f} GiB")
     log(f"  losses {result['train_losses']}, launches {launches}")
     if not all(math.isfinite(x) for x in result["train_losses"]):
@@ -1064,7 +1100,32 @@ def phase_train(agg: str):
     want = expected_launches(agg, steps)
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
-    return launches
+    return launches, dict(step_ms=steady, eval_ms=ms("eval_seconds"),
+                          peak_gib=peak / 2**30)
+
+
+def phase_dropedge(sym: dict):
+    """The train phase's sym configuration with ``--edge-dropout 0.2``:
+    each layer's step draws a DropEdge mask and runs #2 and #4 on dynamic
+    slot scales, the eval keeps the static ones, so the launches are
+    exactly the sym phase's. Runs dropedge twice and sym once more, so
+    that with the sym phase's run (``sym``) and the max phase's the order
+    is sym, max, dropedge, dropedge, sym, and logs the mean steady step, eval and peak memory of
+    each beside the other's."""
+    drop = [phase_train("sym", ["--edge-dropout", "0.2"],
+                        label=f"dropedge {i + 1} of 2")[1] for i in range(2)]
+    syms = [sym, phase_train("sym", label="sym again")[1]]
+    mean = lambda runs, k: statistics.fmean(r[k] for r in runs)
+    step_d, step_s = mean(drop, "step_ms"), mean(syms, "step_ms")
+    peak_d, peak_s = mean(drop, "peak_gib"), mean(syms, "peak_gib")
+    gap = step_d - step_s
+    log(f"  dropedge against sym (sym, max, dropedge, dropedge, sym): step "
+        f"{[round(r['step_ms'], 3) for r in drop]} against "
+        f"{[round(r['step_ms'], 3) for r in syms]} ms, means {step_d:.3f} "
+        f"against {step_s:.3f} ms ({gap:+.3f} ms, {100 * gap / step_s:+.1f}%)"
+        f", eval {[r['eval_ms'] for r in drop]} against "
+        f"{[r['eval_ms'] for r in syms]} ms, peak {peak_d:.3f} against "
+        f"{peak_s:.3f} GiB ({peak_d - peak_s:+.3f})")
 
 
 # bench_torch.run settings of the bench phase: (tag, --graph, --reorder,
@@ -1735,6 +1796,248 @@ def phase_e2e_general(device):
         compare(f"grad {k}", g["grads"][k], c["grads"][k], BWD_TOL)
 
 
+def dyadic(t, step: int, bound: float):
+    """``t`` rounded to multiples of 1/step in [-bound, bound]."""
+    import torch
+
+    return torch.round(t * step).clamp(-bound * step, bound * step) / step
+
+
+def card_against_cpu(label, graphs, fn, arrays, gw, want, gw_keys=()):
+    """Run ``fn(graph, tensors)`` on each of ``graphs`` ({"cpu": .., "card":
+    ..}) with ``arrays`` as leaf tensors on its device, backward of
+    sum(out * gw); the card's launches must be ``want`` exactly ({} for a
+    route that runs no kernel); out is held at FWD_TOL, every gradient at
+    BWD_TOL (GW_TOL for ``gw_keys``, sums over every slot)."""
+    import torch
+
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+
+    runs = {}
+    for name, graph in graphs.items():
+        dev = graph.device
+        ts = {k: v.detach().to(dev, copy=True).requires_grad_()
+              for k, v in arrays.items()}
+        reset_launch_counts()
+        out = fn(graph, ts)
+        (out * gw.to(dev)).sum().backward()
+        if name == "card":
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in LAUNCHES.items() if v}
+            if launches != want:
+                raise AssertionError(f"{label}: card launches {launches}, "
+                                     f"expected {want}")
+        runs[name] = (out.detach().cpu(),
+                      {k: t.grad.cpu() for k, t in ts.items()})
+    (c_out, c_grads), (g_out, g_grads) = runs["cpu"], runs["card"]
+    log(f"  {label}: launches {want}")
+    compare(f"{label} out", g_out, c_out, FWD_TOL)
+    for k in c_grads:
+        compare(f"{label} grad {k}", g_grads[k], c_grads[k],
+                GW_TOL if k in gw_keys else BWD_TOL)
+
+
+def route_inputs(fg, seed: int):
+    """The route checks' inputs on the CPU: eq, ek [N, 96], e [E_pad, 96]
+    and e_basis [E_pad, 16] on multiples of 2^-3 in [-4, 4]; W_E [16, 96]
+    and W_R [96, 96] on multiples of 2^-7 in [-1/2, 1/2], b_R [96]; the
+    loss weights [N, 96] N(0, 1); and a DropEdge mask [E_pad] drawn with
+    numpy: a fifth of the edges and every in-edge of 200 nodes."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    n, e = fg.n_pad, fg.e_pad
+    x = lambda *shape: dyadic(torch.randn(shape, generator=gen), 8, 4.0)
+    wt = lambda *shape: dyadic(0.2 * torch.randn(shape, generator=gen), 128,
+                               0.5)
+    rng = np.random.default_rng(seed)
+    dst = fg.graph.host["dst"]
+    mask = (rng.random(e) >= 0.2) & ~np.isin(
+        dst, rng.choice(fg.graph.num_nodes, 200, replace=False))
+    return dict(eq=x(n, 96), ek=x(n, 96), e=x(e, 96), eb=x(e, EDGE_DIM),
+                we=wt(EDGE_DIM, 96), w=wt(96, 96), b=wt(96),
+                gw=torch.randn((n, 96), generator=gen),
+                mask=torch.from_numpy(mask))
+
+
+def gain_sigma(base, h: int, device):
+    """``base(z) * gain``, a per-feature gain [h] on a dyadic grid (1/2 to
+    3/2 in quarters): a sigma that holds a tensor, which the JAX package
+    sends to its XLA route (a Pallas kernel cannot hold a captured array),
+    so the port's pure ELL route is its route on the card too."""
+    import torch
+
+    gain = ((torch.arange(h) % 5 + 2) / 4).to(device)
+
+    def gained(z):
+        return base(z) * gain
+
+    gained.__name__ = f"gain_{base.__name__}"
+    return gained
+
+
+def phase_e2e_routes(device):
+    """Each route of ``sir_aggregate`` once on the e2e phases' ~20k-node
+    graph, on the card against the CPU, f32 edges, forward and every
+    gradient:
+      dropedge  one aggregate per kernel route under one numpy DropEdge
+                mask (the kernels on dynamic slot scales): the elementwise
+                route with mean, the general route (centered_relu(0.5))
+                and the e route with sym, the fused-edge route with mean,
+                max; exactly the route's kernels launch;
+      pure      the pure ELL route under the same mask, with sigmas that
+                hold a tensor (``gain_sigma``, JAX's XLA route): gained
+                erf-GELU with sym and e, and max of gained relu with e; no
+                kernel launches;
+      csr       the CSR aggregate on the plain GraphBatch: sum, mean, sym
+                (erf-GELU) and max (relu), with e and the mask; no kernel
+                launches.
+    Inputs and weights lie on a dyadic grid and the kernel routes'
+    leaky_relu has slope 1/4, so z, sigma(z), e_basis @ W_E and the max's
+    products are exact in f32 in any order: both devices see the same z,
+    the same centered_relu gates and the same max winners, and the
+    continuous parts (scales, sums, GELU) differ by rounding only."""
+    import torch
+    import torch.nn.functional as F
+
+    from sir_gcn_tpu_torch.data import synthetic_node_classification
+    from sir_gcn_tpu_torch.experiments.ogbn_arxiv.train import (
+        build_arxiv_graph,
+        get_args,
+    )
+    from sir_gcn_tpu_torch.ops import message_passing as mp
+    from sir_gcn_tpu_torch.ops.ell import centered_relu, leaky_relu
+
+    log("== e2e routes: each route of sir_aggregate under one DropEdge mask, "
+        "on the card against the CPU")
+    mp.set_edge_dtype(None)
+    args = get_args(["--add-reverse-edge", "--add-self-loop"])
+    data = synthetic_node_classification(20_000, 140_000, feat_dim=128,
+                                         num_classes=40, seed=1)
+    graphs = {name: build_arxiv_graph(data, args, dev)
+              for name, dev in (("cpu", "cpu"), ("card", device))}
+    inp = route_inputs(graphs["cpu"], seed=2)
+    mask, gw = inp["mask"], inp["gw"]
+    log(f"  nodes 20000, edges {graphs['card'].graph.num_edges}, kept "
+        f"{int(mask.sum())} of {int(graphs['card'].edge_mask.sum())}")
+    act = leaky_relu(0.25)
+    pick = lambda *keys: {k: inp[k] for k in keys}
+    gained = lambda base: {"cpu": gain_sigma(base, 96, "cpu"),
+                           "cuda": gain_sigma(base, 96, device)}
+
+    def agg(sigma, kind, **fixed):
+        """``sigma`` is a callable, or one per device type (a dict)."""
+        def fn(graph, t):
+            s = (sigma[graph.device.type] if isinstance(sigma, dict)
+                 else sigma)
+            kw = dict(fixed, edge_mask=mask.to(graph.device))
+            if "e" in t:
+                kw["e"] = t["e"]
+            if "we" in t:
+                kw.update(e_basis=inp["eb"].to(graph.device),
+                          w_edge=t["we"])
+            if "w" in t:
+                kw.update(w_relation=t["w"], b_relation=t["b"])
+            return mp.sir_aggregate(graph, t["eq"], t["ek"], s, kind, **kw)
+        return fn
+
+    checks = [  # W_R is [96, 96]: max's loss weights are gw too
+        ("dropedge linear mean", agg(act, "mean"), pick("eq", "ek"),
+         dict(ell_act_reduce2=1, ell_src_bwd=1), ()),
+        ("dropedge general sym", agg(centered_relu(0.5), "sym"),
+         pick("eq", "ek"), dict(ell_act_reduce_rowwise=1, ell_geq_reduce=1,
+                                ell_src_bwd_rowwise=1), ()),
+        ("dropedge e sym", agg(act, "sym"), pick("eq", "ek", "e"),
+         dict(ell_act_reduce2_edge=1, ell_src_bwd_edge=1), ()),
+        ("dropedge fused-edge mean", agg(act, "mean"),
+         pick("eq", "ek", "we"),
+         dict(ell_edge_act_reduce2=1, ell_edge_src_bwd=1), ("we",)),
+        ("dropedge max", agg(act, "max"), pick("eq", "ek", "w", "b"),
+         dict(ell_max_fwd=1, ell_max_wincount=1, ell_max_bwd=1,
+              ell_scaled_reduce=1), ("w", "b")),
+        ("pure gain-gelu sym", agg(gained(F.gelu), "sym"),
+         pick("eq", "ek", "e"), {}, ()),
+        ("pure gain-relu max", agg(gained(F.relu), "max"),
+         pick("eq", "ek", "e", "w", "b"), {}, ("w", "b")),
+    ]
+    for label, fn, arrays, want, gw_keys in checks:
+        card_against_cpu(label, graphs, fn, arrays, gw, want, gw_keys)
+    plain = {name: fg.graph for name, fg in graphs.items()}
+    for kind in ("sum", "mean", "sym", "max"):
+        sigma = F.relu if kind == "max" else F.gelu
+        keys = ("eq", "ek", "e") + (("w", "b") if kind == "max" else ())
+        card_against_cpu(f"csr {kind}", plain, agg(sigma, kind),
+                         pick(*keys), gw, {},
+                         ("w", "b") if kind == "max" else ())
+
+
+def phase_pure(device, fg, iters: int = 5):
+    """One forward and backward of one aggregate at the arxiv plan (H = 96,
+    sym), each timed whole by CUDA events over ``iters`` calls: the pure
+    ELL route with erf-GELU times a per-feature gain (``gain_sigma``, a
+    sigma that holds a tensor, which JAX also runs on its XLA route; f32,
+    it launches no kernel) beside the kernel route with leaky_relu(0.2)
+    (#2, #4) in f32 and in bf16 edges; each one's peak memory above what
+    was allocated before it. Plain erf-GELU, which holds no tensor, must
+    raise on the card: JAX runs it on its kernels, the port has none."""
+    import torch
+    import torch.nn.functional as F
+
+    from sir_gcn_tpu_torch.ops import message_passing as mp
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.ops.ell import leaky_relu
+
+    log(f"== pure: one aggregate's forward and backward at the arxiv plan "
+        f"(H 96, sym), {iters} calls each")
+    gen = torch.Generator(device=device).manual_seed(3)
+    eq, ek, g = (torch.randn((fg.n_pad, 96), generator=gen, device=device)
+                 for _ in range(3))
+    eq.requires_grad_()
+    ek.requires_grad_()
+    try:
+        mp.sir_aggregate(fg, eq, ek, F.gelu, "sym")
+    except NotImplementedError as err:
+        log(f"  plain erf-GELU on the card raises: {err}")
+    else:
+        raise AssertionError("plain erf-GELU took the pure route on the card")
+    times = {}
+    for label, sigma, dtype in (("pure gain-GELU f32",
+                                 gain_sigma(F.gelu, 96, device), None),
+                                ("kernels leaky_relu f32", leaky_relu(0.2),
+                                 None),
+                                ("kernels leaky_relu bf16", leaky_relu(0.2),
+                                 torch.bfloat16)):
+        mp.set_edge_dtype(dtype)
+
+        def step():
+            eq.grad = ek.grad = None
+            mp.sir_aggregate(fg, eq, ek, sigma, "sym").backward(g)
+
+        step()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        times[label] = cuda_ms(step, iters, warmup=1)
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        extra = (torch.cuda.max_memory_allocated() - base) / 2**30
+        finite = bool(torch.isfinite(eq.grad).all()
+                      and torch.isfinite(ek.grad).all())
+        log(f"  {label}: {times[label]:.4f} ms a forward and backward, "
+            f"peak {extra:.3f} GiB above its inputs, launches {launches}")
+        if not finite:
+            raise AssertionError(f"{label}: non-finite gradient")
+        if (launches != {}) != label.startswith("kernels"):
+            raise AssertionError(f"{label}: launches {launches}")
+    mp.set_edge_dtype(None)
+    pure = times["pure gain-GELU f32"]
+    log(f"  pure gain-GELU / kernels leaky_relu: "
+        f"{pure / times['kernels leaky_relu f32']:.2f}x (f32), "
+        f"{pure / times['kernels leaky_relu bf16']:.2f}x (bf16)")
+    del eq, ek, g
+
+
 def phase_profile_general(device, fg, steps: int = 3):
     """The profile breakdown of the general phase's step."""
     import torch
@@ -1765,10 +2068,14 @@ def step_inputs(data, n_pad, device):
     return feats, labels, w
 
 
-def phase_profile(device, agg: str, steps: int = 3):
+def phase_profile(device, agg: str, steps: int = 3,
+                  edge_dropout: float = 0.0, against=None):
     """Device time by kernel over a few warm training steps of the train
-    phase's configuration with ``agg``, and the device's busy share of the
-    wall time. Informational: it fails only if the step itself fails."""
+    phase's configuration with ``agg`` (and ``edge_dropout``, the dropedge
+    phase's), and the device's busy share of the wall time; with
+    ``against`` (another profile's per-kernel times) also the kernels
+    whose time a step differs most from it. Returns the per-kernel times.
+    Informational: it fails only if the step itself fails."""
     import torch
 
     from sir_gcn_tpu_torch.data import synthetic_node_classification
@@ -1777,8 +2084,9 @@ def phase_profile(device, agg: str, steps: int = 3):
     from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
     from sir_gcn_tpu_torch.train import make_adamw
 
-    log(f"== profile {agg}: {steps} warm training steps of the train "
-        f"configuration")
+    log(f"== profile {agg}" + (f", edge dropout {edge_dropout}"
+                               if edge_dropout else "")
+        + f": {steps} warm training steps of the train configuration")
     args = train.get_args(flags_for(agg))
     set_edge_dtype(torch.bfloat16)
     data = synthetic_node_classification(
@@ -1786,13 +2094,23 @@ def phase_profile(device, agg: str, steps: int = 3):
     fg = train.build_arxiv_graph(data, args, device)
     model = SIRModel(128, 96, 40, num_layers=3, norm="bn", residual=True,
                      dropout=0.2, feat_dropout=0.2, agg_type=agg,
+                     edge_dropout=edge_dropout,
                      generator=torch.Generator().manual_seed(0)).to(device)
     step, _ = train.make_harness(model, fg, make_adamw(model.parameters(),
                                                        args.lr, args.wd))
     inputs = step_inputs(data, fg.n_pad, device)
     gen = torch.Generator(device=device).manual_seed(0)
-    profile_steps(lambda: step(*inputs, gen), steps)
+    per_kernel = profile_steps(lambda: step(*inputs, gen), steps)
     set_edge_dtype(None)
+    if against is not None and per_kernel:
+        delta = {k: per_kernel.get(k, (0.0, 0))[0] - against.get(
+            k, (0.0, 0))[0] for k in set(per_kernel) | set(against)}
+        log(f"  against the profile without edge dropout: device "
+            f"{sum(delta.values()):+.3f} ms a step; largest differences:")
+        for k in sorted(delta, key=lambda k: -abs(delta[k]))[:8]:
+            log(f"  {delta[k]:+8.3f} ms/step  x{against.get(k, (0, 0))[1]}"
+                f" -> x{per_kernel.get(k, (0, 0))[1]}  {k[:90]}")
+    return per_kernel
 
 
 def phase_profile_sireconv(device, fg, steps: int = 3):
@@ -1815,10 +2133,11 @@ def phase_profile_sireconv(device, fg, steps: int = 3):
     set_edge_dtype(None)
 
 
-def profile_steps(step, steps: int):
+def profile_steps(step, steps: int) -> dict:
     """Run ``step`` twice to warm up, then ``steps`` times under
     torch.profiler; log the wall and device-busy time per step, the idle
-    share and the 15 largest device items."""
+    share and the 15 largest device items. Returns {kernel: (ms a step,
+    launches a step)} ({} if the profiler saw no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1847,13 +2166,15 @@ def profile_steps(step, steps: int):
     busy_ms = sum(dev_us(e) for e in events) / 1e3 / steps
     if not events:
         log("  the profiler recorded no device time")
-        return
+        return {}
     log(f"  per step: wall {wall_ms:.3f} ms (profiled), device busy "
         f"{busy_ms:.3f} ms, idle share {100 * (1 - busy_ms / wall_ms):.1f}%")
     for e in sorted(events, key=dev_us, reverse=True)[:15]:
         log(f"  {dev_us(e) / 1e3 / steps:8.3f} ms/step "
             f"{100 * dev_us(e) / 1e3 / steps / busy_ms:5.1f}%  "
             f"x{e.count // steps:<4d} {e.key[:90]}")
+    return {e.key: (dev_us(e) / 1e3 / steps, e.count // steps)
+            for e in events}
 
 
 def winner_flips(runs, act) -> int:
@@ -2073,9 +2394,10 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     errs, timing, arxiv_fg = phase_kernels(device)
-    launches = phase_train("sym")
-    launches.update({k: v for k, v in phase_train("max").items()
+    launches, sym_run = phase_train("sym")
+    launches.update({k: v for k, v in phase_train("max")[0].items()
                      if k in MAX})
+    phase_dropedge(sym_run)
     phase_bench(device, errs)
     launches.update({k: v for k, v in phase_sireconv(device, arxiv_fg).items()
                      if k in EDGE})
@@ -2092,8 +2414,11 @@ def main() -> int:
         phase_e2e(device, agg)
     phase_e2e_sireconv(device)
     phase_e2e_general(device)
-    for agg in ("sym", "max"):
-        phase_profile(device, agg)
+    phase_e2e_routes(device)
+    phase_pure(device, arxiv_fg)
+    sym_profile = phase_profile(device, "sym")
+    phase_profile(device, "max")
+    phase_profile(device, "sym", edge_dropout=0.2, against=sym_profile)
     phase_profile_sireconv(device, arxiv_fg)
     phase_profile_general(device, arxiv_fg)
     log(f"== all phases ok in {time.perf_counter() - t0:.1f}s")

@@ -147,7 +147,8 @@ def run_single(args, seed: int, data, device: torch.device) -> dict:
 
     model = SIRModel(
         feats.shape[1], args.nhidden, num_classes, num_layers=args.nlayers,
-        input_dropout=args.input_dropout, dropout=args.dropout,
+        input_dropout=args.input_dropout, edge_dropout=args.edge_dropout,
+        dropout=args.dropout,
         norm=args.norm, residual=args.residual,
         feat_dropout=args.feat_dropout, agg_type=args.agg_type,
         generator=torch.Generator().manual_seed(seed)).to(device)
@@ -215,7 +216,8 @@ def run_single(args, seed: int, data, device: torch.device) -> dict:
 # raises. The parser keeps the JAX harness's full flag set so that its
 # commands parse unchanged.
 PORTED = {
-    "cpu", "seed", "nhidden", "nlayers", "input_dropout", "dropout",
+    "cpu", "seed", "nhidden", "nlayers", "input_dropout", "edge_dropout",
+    "dropout",
     "feat_dropout", "norm", "residual", "agg_type", "add_self_loop",
     "add_reverse_edge", "edge_bf16", "epochs", "lr", "wd", "factor",
     "patience", "nruns", "log_every", "synthetic_nodes", "synthetic_edges",

@@ -292,12 +292,13 @@ def bandwidth(src: np.ndarray, dst: np.ndarray) -> float:
 # DropEdge mask (device side)
 # ----------------------------------------------------------------------
 
-def drop_edge_mask(generator: torch.Generator, graph: GraphBatch,
+def drop_edge_mask(generator: Optional[torch.Generator], graph,
                    rate: float) -> torch.Tensor:
     """Bernoulli(1 - rate) keep-mask over the padded edges, False on
-    padding, drawn from ``generator`` (on the graph's device): the
-    static-shape form of DGL's ``DropEdge``. Rate 0 returns the edge
-    mask."""
+    padding, drawn from ``generator`` (on the graph's device; None draws
+    from the device's default generator): the static-shape form of DGL's
+    ``DropEdge``. ``graph`` is a GraphBatch or a FastGraph. Rate 0 returns
+    the edge mask."""
     if rate <= 0.0:
         return graph.edge_mask
     keep = torch.rand(graph.e_pad, generator=generator,

@@ -64,7 +64,10 @@ class SIRConv(nn.Module):
                                           generator=generator)
 
     def forward(self, graph, feat, *,
+                edge_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``edge_mask`` bool [E_pad] (DropEdge) drops edges on top of the
+        graph's padding mask."""
         feat_src, feat_dst = expand_as_pair(feat)
         eq = apply_dropout(self.linear_query(feat_dst), self.dropout,
                            self.training, generator)
@@ -73,8 +76,10 @@ class SIRConv(nn.Module):
         if self.agg_type == "max":
             return mp.sir_aggregate(graph, eq, ek, self.activation, "max",
                                     w_relation=self.relation_kernel,
-                                    b_relation=self.relation_bias)
-        agg = mp.sir_aggregate(graph, eq, ek, self.activation, self.agg_type)
+                                    b_relation=self.relation_bias,
+                                    edge_mask=edge_mask)
+        agg = mp.sir_aggregate(graph, eq, ek, self.activation, self.agg_type,
+                               edge_mask=edge_mask)
         return self.linear_relation(agg)
 
 
@@ -88,9 +93,9 @@ class SIREConv(nn.Module):
     SIREConv2 uses an ``Embed`` of discrete bond types). With the default
     W_E and no active edge dropout (rate 0 or eval mode) the layer hands
     ``sir_aggregate`` the raw features and W_E [De, H], so the fused-edge
-    kernels form the projection themselves; otherwise it forms e, applies
-    dropout and takes the ``e`` route. Max with edge features is not yet
-    ported."""
+    kernels form the projection themselves, under a DropEdge ``edge_mask``
+    too; otherwise it forms e, applies dropout and takes the ``e`` route.
+    Max with edge features is not yet ported."""
 
     def __init__(self, input_dim: int, edge_dim: int, hidden_dim: int,
                  output_dim: int, activation, dropout: float = 0.0,
@@ -120,6 +125,7 @@ class SIREConv(nn.Module):
                                       bias=outer_bias, generator=generator)
 
     def forward(self, graph, nfeat, efeat: torch.Tensor, *,
+                edge_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         feat_src, feat_dst = expand_as_pair(nfeat)
         eq = apply_dropout(self.linear_query(feat_dst), self.dropout,
@@ -132,7 +138,8 @@ class SIREConv(nn.Module):
             e_basis = efeat.index_select(0, graph.edge_perm)
             agg = mp.sir_aggregate(graph, eq, ek, self.activation,
                                    self.agg_type, e_basis=e_basis,
-                                   w_edge=self.linear_edge.weight.t())
+                                   w_edge=self.linear_edge.weight.t(),
+                                   edge_mask=edge_mask)
             return self.linear_relation(agg)
         if self.edge_encoder is not None:
             e = self.edge_encoder(efeat)
@@ -141,5 +148,5 @@ class SIREConv(nn.Module):
         e = apply_dropout(e, self.dropout, self.training, generator)
         e = e.index_select(0, graph.edge_perm)  # original -> sorted order
         agg = mp.sir_aggregate(graph, eq, ek, self.activation, self.agg_type,
-                               e=e)
+                               e=e, edge_mask=edge_mask)
         return self.linear_relation(agg)

@@ -32,16 +32,31 @@ w_e formed inside the kernels ``ell_edge_act_reduce2`` and
 (0 for a node with no incoming edge) with four more: ``ell_max_fwd``,
 then in the backward ``ell_max_wincount``, ``ell_max_bwd`` and
 ``ell_scaled_reduce``. Each kernel walks all buckets of a plan in one
-launch through the plan's per-row slot pointer ``row_ptr``. sigma must be
-in the activation registry below, whose entries carry a written
-derivative and vector-Jacobian product.
+launch through the plan's per-row slot pointer ``row_ptr``. The kernels
+take a sigma from the activation registry below, whose entries carry a
+written derivative and vector-Jacobian product. Each kernel reads one
+per-slot scale array: the FastGraph's static scales, or under a DropEdge
+``edge_mask`` those scales of the kept edges (:func:`slot_scale`).
+
+A sigma outside the registry that holds tensors (an ``nn.Module`` with
+parameters, a closure over a tensor) takes the pure ELL route
+(:func:`pure_ell_sir_aggregate`, :func:`pure_ell_sir_aggregate_max`): the
+JAX package's pure-XLA routes (``make_ell_sir_aggregate``,
+``make_ell_sir_aggregate_max``) in plain PyTorch on the same plans, with
+their scatter-free backward. JAX sends such a sigma there because a Pallas
+kernel cannot hold a captured array; it is a route of its own, not a
+kernel's plain version. A parameter-free sigma outside the registry runs
+on Pallas kernels in JAX, so on a CUDA tensor it raises until the registry
+holds it; on the CPU it takes the pure route too.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import dataclasses
 import hashlib
+import logging
 import time
 from typing import Callable, Optional
 
@@ -68,7 +83,7 @@ from .cuda import (
     ell_src_bwd_fused,
     ell_src_bwd_rowwise,
 )
-from .cuda.kernels import NEG
+from .cuda.kernels import NEG, on_cuda
 from .cuda.kernels import bucket_offsets as _bucket_offsets
 
 MAX_BUDGET = 256
@@ -118,11 +133,14 @@ def _round_up(x: int, m: int) -> int:
 # Reduce plan: bucketed slots + optional hub stage + key lookup
 # ======================================================================
 
-def bucket_reduce(values: torch.Tensor, buckets) -> torch.Tensor:
-    """[S, H] slot values -> [R, H] row sums, one ``reshape(nr, b, H)
-    .sum(1)`` per (budget, num_rows) bucket."""
-    outs = [values[so:so + b * nr].reshape(nr, b, -1).sum(1)
+def bucket_reduce(values: torch.Tensor, buckets, op: str = "sum"
+                  ) -> torch.Tensor:
+    """[S, H] slot values -> [R, H] row sums (``op="max"``: row maxes), one
+    ``reshape(nr, b, H).sum(1)`` (``.amax(1)``) per (budget, num_rows)
+    bucket."""
+    outs = [values[so:so + b * nr].reshape(nr, b, -1)
             for b, nr, so, _ in _bucket_offsets(buckets)]
+    outs = [o.sum(1) if op == "sum" else o.amax(1) for o in outs]
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
@@ -175,13 +193,24 @@ class ReducePlan:
             vals = torch.where(self.s2_valid[:, None] > 0,
                                rows1.index_select(0, self.s2_gather),
                                torch.full_like(rows1[:1], neg))
-            outs = [vals[so:so + b * nr].reshape(nr, b, -1).amax(1)
-                    for b, nr, so, _ in _bucket_offsets(self.buckets2)]
-            rows = outs[0] if len(outs) == 1 else torch.cat(outs)
+            rows = bucket_reduce(vals, self.buckets2, "max")
         else:
             rows = rows1
         rows = torch.cat([rows, torch.full_like(rows[:1], neg)])
         return rows.index_select(0, self.key2row)
+
+    def reduce_slots_sum(self, slot_values: torch.Tensor) -> torch.Tensor:
+        """[S1, H] slot values (zero on padding slots) -> [num_keys, H]
+        sums."""
+        return self.finalize_rows_sum(bucket_reduce(slot_values,
+                                                    self.buckets1))
+
+    def reduce_slots_max(self, slot_values: torch.Tensor) -> torch.Tensor:
+        """[S1, H] slot values (the f32 min on invalid slots) ->
+        [num_keys, H] maxes; empty keys read the f32 min, and the caller
+        zero-fills them."""
+        return self.finalize_rows_max(bucket_reduce(slot_values,
+                                                    self.buckets1, "max"))
 
     def spread(self, node_values: torch.Tensor) -> torch.Tensor:
         """[num_keys, H] -> [S1, H]: each slot gets its key's value."""
@@ -384,6 +413,26 @@ class FastGraph:
     @property
     def edge_perm(self):
         return self.graph.edge_perm
+
+    @property
+    def src(self):
+        return self.graph.src
+
+    @property
+    def dst(self):
+        return self.graph.dst
+
+    @property
+    def in_deg(self):
+        return self.graph.in_deg
+
+    @property
+    def out_deg(self):
+        return self.graph.out_deg
+
+    @property
+    def device(self):
+        return self.graph.device
 
 
 def static_edge_scale(agg: str, src, dst, valid, in_deg, out_deg
@@ -619,7 +668,11 @@ tanh = Activation("tanh")
 softmax = Activation("softmax")  # over H, row-wise
 
 
-def _elementwise_only(act: Activation, what: str) -> Activation:
+def _elementwise_only(act: Optional[Activation], what: str) -> Activation:
+    if act is None:
+        raise NotImplementedError(
+            f"a sigma outside the activation registry with {what} on the "
+            f"kernels is not yet ported")
     if not act.elementwise:
         raise NotImplementedError(
             f"sigma {act.name} is not elementwise: its route with {what} is "
@@ -627,15 +680,95 @@ def _elementwise_only(act: Activation, what: str) -> Activation:
     return act
 
 
-def resolve_activation(act) -> Activation:
-    """The registry entry for ``act``; any other sigma raises (the pure
-    ELL route that would take it is not yet ported)."""
+_routing_logger = logging.getLogger("sir_gcn_tpu_torch.routing")
+_LOGGED: set = set()  # names of the sigma whose pure route was logged
+
+
+def _holds_tensors(act, depth: int = 3) -> bool:
+    """Whether sigma holds tensors: an ``nn.Module`` with parameters or
+    buffers, or a callable that closes over (or names as a global) a tensor
+    or such a module, through partials and bound methods, ``depth`` levels
+    deep. The port of the JAX package's test ``make_jaxpr(act).consts``,
+    which sends such a sigma to its XLA route."""
+    if isinstance(act, torch.Tensor):
+        return True
+    if isinstance(act, torch.nn.Module):
+        return any(True for _ in act.parameters()) or any(
+            True for _ in act.buffers())
+    if depth == 0:
+        return False
+    if isinstance(act, functools.partial):
+        inner = (act.func, *act.args, *act.keywords.values())
+    elif hasattr(act, "__self__") and hasattr(act, "__func__"):
+        inner = (act.__self__, act.__func__)
+    else:
+        code = getattr(act, "__code__", None)
+        names = code.co_names if code is not None else ()
+        scope = getattr(act, "__globals__", {})
+        inner = [scope[k] for k in names if k in scope]
+        for cell in getattr(act, "__closure__", None) or ():
+            with contextlib.suppress(ValueError):  # an empty cell
+                inner.append(cell.cell_contents)
+    return any(_holds_tensors(x, depth - 1) for x in inner
+               if isinstance(x, torch.Tensor) or (callable(x) and x is not act))
+
+
+def resolve_activation(act, device: torch.device) -> Optional[Activation]:
+    """The registry entry for ``act``, or None for a sigma outside the
+    registry, which takes the pure ELL route (:func:`pure_ell_sir_aggregate`,
+    :func:`pure_ell_sir_aggregate_max`), logged once per sigma name at INFO
+    on the ``sir_gcn_tpu_torch.routing`` logger, as the JAX package's
+    ``_activation_info`` logs its routes. On a CUDA ``device`` only a
+    sigma that holds tensors takes it (JAX's XLA route); a parameter-free
+    one raises: JAX runs it on its Pallas kernels, and the port's kernels
+    take only the registry's sigma."""
     if isinstance(act, Activation):
         return act
-    name = getattr(act, "__name__", None) or repr(act)
-    raise NotImplementedError(
-        f"sigma {name} is not in the activation registry; the pure ELL "
-        f"route for other sigma is not yet ported")
+    name = getattr(act, "__name__", None) or type(act).__name__
+    if on_cuda(device) and not _holds_tensors(act):
+        raise NotImplementedError(
+            f"sigma {name} is outside the activation registry and holds no "
+            f"tensor: the JAX package runs it on its Pallas kernels, and the "
+            f"port has no kernel for it yet; on the card only a sigma that "
+            f"holds parameters or tensors takes the pure ELL route")
+    if name not in _LOGGED:
+        _LOGGED.add(name)
+        _routing_logger.info("sigma routing: %s -> pure-ell", name)
+    return None
+
+
+# ======================================================================
+# Slot scales: static (precomputed) or from a per-edge scale (DropEdge)
+# ======================================================================
+
+def slot_scale(fg: FastGraph, side: str, agg_type: str,
+               edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-slot scales [S] of ``agg_type`` on the ``side`` ("dst" or
+    "src") plan: the FastGraph's static ones, or under a DropEdge
+    ``edge_mask`` bool [E_pad] (sorted edge order) those of the kept edges,
+    ``gather_edges(edge_mask) * static``. That equals the JAX route's
+    ``gather_edges(valid * sym_norm) * slot_valid``: DropEdge keeps the full
+    graph's sym norms. mean takes the sum scales there, and its division
+    by the kept in-edges is the aggregate's (:func:`_kept_mean`)."""
+    scales = getattr(fg, f"{side}_slot_scales")
+    if edge_mask is None:
+        return scales[agg_type]
+    if edge_mask.shape != (fg.e_pad,):
+        raise ValueError(f"edge_mask {tuple(edge_mask.shape)} is not "
+                         f"[E_pad] = {(fg.e_pad,)}")
+    plan = getattr(fg, f"{side}_plan")
+    base = "sum" if agg_type == "mean" else agg_type
+    return plan.gather_edges(edge_mask.to(torch.float32)) * scales[base]
+
+
+def _kept_mean(fg: FastGraph, out: torch.Tensor, agg_type: str,
+               edge_mask, sd: torch.Tensor) -> torch.Tensor:
+    """mean under a DropEdge mask: ``out`` (the sums over the kept edges,
+    dst slot scales ``sd``) divided by each node's kept in-edges, at
+    least 1; ``out`` unchanged otherwise."""
+    if agg_type != "mean" or edge_mask is None:
+        return out
+    return out / fg.dst_plan.reduce_slots_sum(sd[:, None]).clamp_min(1.0)
 
 
 # ======================================================================
@@ -656,24 +789,25 @@ def edge_cotangent(g_z: torch.Tensor, edge2slot: torch.Tensor,
             * edge_mask.to(torch.float32)[:, None])
 
 
-def _dst_args(fg: FastGraph, eq, ek, act, agg_type, edge_dtype) -> tuple:
+def _dst_args(fg: FastGraph, eq, ek, sd, act, edge_dtype) -> tuple:
     """The dst-plan arguments of the forward kernels: eq, ek in the edge
-    dtype, the slot arrays and the static scales of ``agg_type``."""
+    dtype, the slot arrays and the dst slot scales ``sd``."""
     plan = fg.dst_plan
-    return (eq.contiguous(), _cast(ek, edge_dtype), fg.dst_slot_srcnode,
-            fg.dst_slot_scales[agg_type], plan.row_key, plan.row_ptr, act)
+    return (eq.contiguous(), _cast(ek, edge_dtype), fg.dst_slot_srcnode, sd,
+            plan.row_key, plan.row_ptr, act)
 
 
-def _src_rows(fg: FastGraph, eq, ek, g, act, agg_type, edge_dtype,
+def _src_rows(fg: FastGraph, eq, ek, g, ss, act, edge_dtype,
               fuse: bool) -> torch.Tensor:
     """Src-plan rows of the key-side gradient without an edge term (the JAX
-    route's ``src_pass``): ``ell_src_bwd`` (``ell_src_bwd_rowwise`` for a
-    sigma that is not elementwise) from the eq and g tables in the edge
-    dtype, or with ``fuse`` ``ell_src_bwd_fused`` from one [N, 2H] table
-    cat([eq, g], 1) in the edge dtype, built here in every backward."""
+    route's ``src_pass``) under the src slot scales ``ss``: ``ell_src_bwd``
+    (``ell_src_bwd_rowwise`` for a sigma that is not elementwise) from the
+    eq and g tables in the edge dtype, or with ``fuse``
+    ``ell_src_bwd_fused`` from one [N, 2H] table cat([eq, g], 1) in the
+    edge dtype, built here in every backward."""
     splan = fg.src_plan
-    rest = (ek.contiguous(), fg.src_slot_dstnode,
-            fg.src_slot_scales[agg_type], splan.row_key, splan.row_ptr, act)
+    rest = (ek.contiguous(), fg.src_slot_dstnode, ss, splan.row_key,
+            splan.row_ptr, act)
     if fuse:
         both = torch.cat([_cast(eq, edge_dtype), _cast(g, edge_dtype)], 1)
         return ell_src_bwd_fused(both, *rest)
@@ -687,48 +821,46 @@ class _EllSirAggregate(torch.autograd.Function):
     src-major ``ell_src_bwd`` (``ell_src_bwd_fused`` with ``fuse``). With
     an edge table ``e`` [E_pad, H] (sorted edge order) the edge-term forms
     run instead, and the backward's ``ell_src_bwd_edge`` also gives g_e
-    [E_pad, H] f32. Only node-sized tensors and e in the edge dtype are
-    saved."""
+    [E_pad, H] f32. ``sd`` and ``ss`` are the dst and src slot scales.
+    Only node-sized tensors, e in the edge dtype and ``ss`` are saved."""
 
     @staticmethod
-    def forward(ctx, eq, ek, e, fg: FastGraph, act: Activation,
-                agg_type: str, edge_dtype, fuse: bool):
+    def forward(ctx, eq, ek, e, sd, ss, fg: FastGraph, act: Activation,
+                edge_dtype, fuse: bool):
         plan = fg.dst_plan
-        args = _dst_args(fg, eq, ek, act, agg_type, edge_dtype)
+        args = _dst_args(fg, eq, ek, sd, act, edge_dtype)
         if e is None:
             rows, srows = ell_act_reduce2(*args)
         else:
             e = _cast(e, edge_dtype)
             rows, srows = ell_act_reduce2_edge(*args, e, plan.slot_edge)
         sbar = plan.finalize_rows_sum(srows)
-        ctx.save_for_backward(eq, ek, e, sbar)
-        ctx.fg, ctx.act, ctx.agg_type, ctx.edge_dtype, ctx.fuse = (
-            fg, act, agg_type, edge_dtype, fuse)
+        ctx.save_for_backward(eq, ek, e, sbar, ss)
+        ctx.fg, ctx.act, ctx.edge_dtype, ctx.fuse = fg, act, edge_dtype, fuse
         return plan.finalize_rows_sum(rows)
 
     @staticmethod
     def backward(ctx, g):
-        eq, ek, e, sbar = ctx.saved_tensors
+        eq, ek, e, sbar, ss = ctx.saved_tensors
         fg = ctx.fg
         g_eq = g * sbar if ctx.needs_input_grad[0] else None
         g_ek = g_e = None
         if any(ctx.needs_input_grad[1:3]):
             splan = fg.src_plan
             if e is None:
-                rows = _src_rows(fg, eq, ek, g, ctx.act, ctx.agg_type,
-                                 ctx.edge_dtype, ctx.fuse)
+                rows = _src_rows(fg, eq, ek, g, ss, ctx.act, ctx.edge_dtype,
+                                 ctx.fuse)
             else:
                 rows, g_e = ell_src_bwd_edge(
                     _cast(eq, ctx.edge_dtype), _cast(g, ctx.edge_dtype),
-                    ek.contiguous(), fg.src_slot_dstnode,
-                    fg.src_slot_scales[ctx.agg_type], splan.row_key,
+                    ek.contiguous(), fg.src_slot_dstnode, ss, splan.row_key,
                     splan.row_ptr, ctx.act, e, splan.slot_edge,
                     fg.edge2src_slot, fg.edge_mask)
             if ctx.needs_input_grad[1]:
                 g_ek = splan.finalize_rows_sum(rows)
         if not ctx.needs_input_grad[2]:
             g_e = None
-        return g_eq, g_ek, g_e, None, None, None, None, None
+        return g_eq, g_ek, g_e, None, None, None, None, None, None
 
 
 class _EllSirAggregateGeneral(torch.autograd.Function):
@@ -737,47 +869,52 @@ class _EllSirAggregateGeneral(torch.autograd.Function):
     ``make_ell_sir_aggregate_pallas``). Forward: ``ell_act_reduce_rowwise``.
     Backward: g_eq from ``ell_geq_reduce``, the dst-major vjp over the
     forward's slots; g_ek from ``ell_src_bwd_rowwise`` (``ell_src_bwd_fused``
-    with ``fuse``). The kernels gather their operands by index, so only eq
-    and ek are saved and nothing slot-sized is kept or gathered again: the
-    JAX route's ``remat`` switch, which trades its saved [S, H] gather for a
-    second gather, has no counterpart here."""
+    with ``fuse``). The kernels gather their operands by index, so only eq,
+    ek and the slot scales are saved and nothing slot-sized and
+    feature-wide is kept or gathered again: the JAX route's ``remat``
+    switch, which trades its saved [S, H] gather for a second gather, has
+    no counterpart here."""
 
     @staticmethod
-    def forward(ctx, eq, ek, fg: FastGraph, act: Activation, agg_type: str,
+    def forward(ctx, eq, ek, sd, ss, fg: FastGraph, act: Activation,
                 edge_dtype, fuse: bool):
         rows = ell_act_reduce_rowwise(
-            *_dst_args(fg, eq, ek, act, agg_type, edge_dtype))
-        ctx.save_for_backward(eq, ek)
-        ctx.fg, ctx.act, ctx.agg_type, ctx.edge_dtype, ctx.fuse = (
-            fg, act, agg_type, edge_dtype, fuse)
+            *_dst_args(fg, eq, ek, sd, act, edge_dtype))
+        ctx.save_for_backward(eq, ek, sd, ss)
+        ctx.fg, ctx.act, ctx.edge_dtype, ctx.fuse = fg, act, edge_dtype, fuse
         return fg.dst_plan.finalize_rows_sum(rows)
 
     @staticmethod
     def backward(ctx, g):
-        eq, ek = ctx.saved_tensors
-        fg, act, agg_type, edge_dtype = (ctx.fg, ctx.act, ctx.agg_type,
-                                         ctx.edge_dtype)
+        eq, ek, sd, ss = ctx.saved_tensors
+        fg, act, edge_dtype = ctx.fg, ctx.act, ctx.edge_dtype
         g = g.contiguous()
         g_eq = g_ek = None
         if ctx.needs_input_grad[0]:
             rows = ell_geq_reduce(
-                *_dst_args(fg, eq, ek, act, agg_type, edge_dtype), g)
+                *_dst_args(fg, eq, ek, sd, act, edge_dtype), g)
             g_eq = fg.dst_plan.finalize_rows_sum(rows)
         if ctx.needs_input_grad[1]:
             g_ek = fg.src_plan.finalize_rows_sum(_src_rows(
-                fg, eq, ek, g, act, agg_type, edge_dtype, ctx.fuse))
-        return g_eq, g_ek, None, None, None, None, None
+                fg, eq, ek, g, ss, act, edge_dtype, ctx.fuse))
+        return g_eq, g_ek, None, None, None, None, None, None
 
 
 def ell_sir_aggregate(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
                       activation, agg_type: str, *,
                       e: Optional[torch.Tensor] = None,
+                      edge_mask: Optional[torch.Tensor] = None,
                       edge_dtype: Optional[torch.dtype] = None,
                       fuse_bwd_take: bool = False) -> torch.Tensor:
     """out[u] = sum_e scale_e * sigma(eq[u] + ek[src_e] [+ e_e]) over u's
-    incoming edges, with the FastGraph's static per-slot scales for
-    ``agg_type``. ``e`` [E_pad, H] f32 is an optional edge term in sorted
+    incoming edges. ``e`` [E_pad, H] f32 is an optional edge term in sorted
     edge order (the JAX route's ``with_edge``), and gets a gradient.
+
+    The scales are the FastGraph's static per-slot scales for ``agg_type``
+    or, under a DropEdge ``edge_mask`` bool [E_pad] (sorted edge order),
+    those of the kept edges (:func:`slot_scale`, once per call); mean then
+    divides by each node's kept in-edges after the aggregate, as the JAX
+    package's ``sir_aggregate`` does.
 
     ``edge_dtype`` (None or torch.bfloat16) is the type the gathered
     operands are carried in; the edge term is added to a gathered row in
@@ -788,39 +925,44 @@ def ell_sir_aggregate(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
     A sigma that is not elementwise (a row-wise registry entry, or one with
     ``sir_elementwise=False``) takes the general route, as
     ``sir_gcn_tpu/ops/ell.py`` ``ell_sir_aggregate`` sends it to
-    ``act_elementwise=False``; with ``e`` it raises (not yet ported).
-    ``fuse_bwd_take`` (default off, as in JAX) makes the key-side backward
-    read eq and g from one [N, 2H] table; it is ignored with an edge term,
-    as in JAX."""
+    ``act_elementwise=False``; with ``e`` it raises (not yet ported). A
+    sigma outside the registry takes the pure ELL route
+    (:func:`pure_ell_sir_aggregate`) where :func:`resolve_activation`
+    allows it, and there ``edge_dtype`` and ``fuse_bwd_take`` do not
+    apply. ``fuse_bwd_take`` (default off, as in JAX) makes the key-side
+    backward read eq and g from one [N, 2H] table; it is ignored with an
+    edge term, as in JAX."""
     if agg_type not in fg.dst_slot_scales:
         raise ValueError(f"agg_type {agg_type!r} is not a linear aggregation")
-    act = resolve_activation(activation)
+    act = resolve_activation(activation, eq.device)
+    if act is None:
+        return pure_ell_sir_aggregate(fg, eq, ek, activation, agg_type, e=e,
+                                      edge_mask=edge_mask)
     inputs = (eq, ek) if e is None else (eq, ek, e)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
-    if not act.elementwise:
-        if e is not None:
-            raise NotImplementedError(
-                f"the general route with an edge term (sigma {act.name} "
-                f"with e, the edge-term form of bucket_geq_reduce) is not "
-                f"yet ported")
-        if grad:
-            return _EllSirAggregateGeneral.apply(eq, ek, fg, act, agg_type,
-                                                 edge_dtype, fuse_bwd_take)
-        rows = ell_act_reduce_rowwise(
-            *_dst_args(fg, eq, ek, act, agg_type, edge_dtype))
-        return fg.dst_plan.finalize_rows_sum(rows)
+    sd = slot_scale(fg, "dst", agg_type, edge_mask)
+    if not act.elementwise and e is not None:
+        raise NotImplementedError(
+            f"the general route with an edge term (sigma {act.name} with e, "
+            f"the edge-term form of bucket_geq_reduce) is not yet ported")
     if grad:
-        return _EllSirAggregate.apply(eq, ek, e, fg, act, agg_type,
-                                      edge_dtype,
-                                      fuse_bwd_take and e is None)
-    plan = fg.dst_plan
-    args = _dst_args(fg, eq, ek, act, agg_type, edge_dtype)
-    if e is None:
-        rows = ell_act_reduce(*args)
+        fn = _EllSirAggregate if act.elementwise else _EllSirAggregateGeneral
+        extra = (e,) if act.elementwise else ()
+        out = fn.apply(eq, ek, *extra, sd,
+                       slot_scale(fg, "src", agg_type, edge_mask), fg, act,
+                       edge_dtype, fuse_bwd_take and e is None)
     else:
-        rows = ell_act_reduce_edge(*args, _cast(e, edge_dtype),
-                                   plan.slot_edge)
-    return plan.finalize_rows_sum(rows)
+        plan = fg.dst_plan
+        args = _dst_args(fg, eq, ek, sd, act, edge_dtype)
+        if not act.elementwise:
+            rows = ell_act_reduce_rowwise(*args)
+        elif e is None:
+            rows = ell_act_reduce(*args)
+        else:
+            rows = ell_act_reduce_edge(*args, _cast(e, edge_dtype),
+                                       plan.slot_edge)
+        out = plan.finalize_rows_sum(rows)
+    return _kept_mean(fg, out, agg_type, edge_mask, sd)
 
 
 # ======================================================================
@@ -833,25 +975,25 @@ class _EllSirAggregateFusedEdge(torch.autograd.Function):
     Backward: ``g_eq = g * sbar``; ``ell_edge_src_bwd`` gives the g_ek rows
     and g_WE. e_basis gets no gradient. Only ek and, in the backward, eq
     and g are carried in the edge dtype; e_basis, w_e and the projection
-    stay f32. Only node-sized tensors, e_basis and w_e are saved."""
+    stay f32. ``sd`` and ``ss`` are the dst and src slot scales. Only
+    node-sized tensors, e_basis, w_e and ``ss`` are saved."""
 
     @staticmethod
-    def forward(ctx, eq, ek, e_basis, w_e, fg: FastGraph, act: Activation,
-                agg_type: str, edge_dtype):
+    def forward(ctx, eq, ek, e_basis, w_e, sd, ss, fg: FastGraph,
+                act: Activation, edge_dtype):
         plan = fg.dst_plan
         rows, srows = ell_edge_act_reduce2(
             eq.contiguous(), _cast(ek, edge_dtype), e_basis.contiguous(),
-            w_e.contiguous(), fg.dst_slot_srcnode, plan.slot_edge,
-            fg.dst_slot_scales[agg_type], plan.row_key, plan.row_ptr, act)
+            w_e.contiguous(), fg.dst_slot_srcnode, plan.slot_edge, sd,
+            plan.row_key, plan.row_ptr, act)
         sbar = plan.finalize_rows_sum(srows)
-        ctx.save_for_backward(eq, ek, e_basis, w_e, sbar)
-        ctx.fg, ctx.act, ctx.agg_type, ctx.edge_dtype = (
-            fg, act, agg_type, edge_dtype)
+        ctx.save_for_backward(eq, ek, e_basis, w_e, sbar, ss)
+        ctx.fg, ctx.act, ctx.edge_dtype = fg, act, edge_dtype
         return plan.finalize_rows_sum(rows)
 
     @staticmethod
     def backward(ctx, g):
-        eq, ek, e_basis, w_e, sbar = ctx.saved_tensors
+        eq, ek, e_basis, w_e, sbar, ss = ctx.saved_tensors
         fg = ctx.fg
         g_eq = g * sbar if ctx.needs_input_grad[0] else None
         g_ek = g_we = None
@@ -860,35 +1002,40 @@ class _EllSirAggregateFusedEdge(torch.autograd.Function):
             rows, g_we = ell_edge_src_bwd(
                 _cast(eq, ctx.edge_dtype), _cast(g, ctx.edge_dtype),
                 ek.contiguous(), e_basis.contiguous(), w_e.contiguous(),
-                fg.src_slot_dstnode, splan.slot_edge,
-                fg.src_slot_scales[ctx.agg_type], splan.row_key,
+                fg.src_slot_dstnode, splan.slot_edge, ss, splan.row_key,
                 splan.row_ptr, ctx.act)
             if ctx.needs_input_grad[1]:
                 g_ek = splan.finalize_rows_sum(rows)
         if not ctx.needs_input_grad[3]:
             g_we = None
-        return g_eq, g_ek, None, g_we, None, None, None, None
+        return g_eq, g_ek, None, g_we, None, None, None, None, None
 
 
 def ell_sir_aggregate_fused_edge(fg: FastGraph, eq: torch.Tensor,
                                  ek: torch.Tensor, e_basis: torch.Tensor,
                                  w_e: torch.Tensor, activation,
                                  agg_type: str, *,
+                                 edge_mask: Optional[torch.Tensor] = None,
                                  edge_dtype: Optional[torch.dtype] = None
                                  ) -> torch.Tensor:
     """out[u] = sum_e scale_e * sigma(eq[u] + ek[src_e] + e_basis_e @ w_e)
-    with the FastGraph's static per-slot scales for ``agg_type``: the
-    ``ell_sir_aggregate`` of ``e = e_basis @ w_e``, with the projection
-    formed inside the kernels, so no [E_pad, H] edge table or cotangent
-    exists. e_basis [E_pad, De] f32 in sorted edge order (no gradient),
-    w_e [De, H] f32 in the JAX layout. The port of
-    ``make_ell_sir_aggregate_pallas_fused_edge`` with static scales,
-    without its TPU padding (``pad_basis``, the 128-lane wrapper)."""
+    with the FastGraph's static per-slot scales for ``agg_type``, or those
+    of the edges a DropEdge ``edge_mask`` keeps (as in
+    :func:`ell_sir_aggregate`): the ``ell_sir_aggregate`` of ``e = e_basis
+    @ w_e``, with the projection formed inside the kernels, so no [E_pad,
+    H] edge table or cotangent exists. e_basis [E_pad, De] f32 in sorted
+    edge order (no gradient), w_e [De, H] f32 in the JAX layout. The port
+    of ``make_ell_sir_aggregate_pallas_fused_edge``, without its TPU
+    padding (``pad_basis``, the 128-lane wrapper)."""
     if agg_type not in fg.dst_slot_scales:
         raise ValueError(f"agg_type {agg_type!r} is not a linear aggregation")
-    act = _elementwise_only(resolve_activation(activation), "e_basis")
-    return _EllSirAggregateFusedEdge.apply(eq, ek, e_basis, w_e, fg, act,
-                                           agg_type, edge_dtype)
+    act = _elementwise_only(resolve_activation(activation, eq.device),
+                            "e_basis")
+    sd = slot_scale(fg, "dst", agg_type, edge_mask)
+    out = _EllSirAggregateFusedEdge.apply(
+        eq, ek, e_basis, w_e, sd, slot_scale(fg, "src", agg_type, edge_mask),
+        fg, act, edge_dtype)
+    return _kept_mean(fg, out, agg_type, edge_mask, sd)
 
 
 # ======================================================================
@@ -901,24 +1048,25 @@ class _EllSirAggregateMax(torch.autograd.Function):
     where(out1 > NEG/2, out1 + b, 0)``. Backward: ``ell_max_wincount``
     counts tied winners, ``ell_max_bwd`` routes ``gsc = g / count`` to them
     (g_eq, per-slot g_z, g_W), ``ell_scaled_reduce`` sums g_z in src order
-    for g_ek. Only node-sized tensors and W are saved."""
+    for g_ek. A slot is valid where its dst scale ``sd`` is positive. Only
+    node-sized tensors, W and ``sd`` are saved."""
 
     @staticmethod
-    def forward(ctx, eq, ek, w, b, fg: FastGraph, act: Activation,
+    def forward(ctx, eq, ek, w, b, sd, fg: FastGraph, act: Activation,
                 edge_dtype):
-        out1 = _max_rows(fg, eq, ek, w, act, edge_dtype)
-        ctx.save_for_backward(eq, ek, w, out1)
+        out1 = _max_rows(fg, eq, ek, w, sd, act, edge_dtype)
+        ctx.save_for_backward(eq, ek, w, out1, sd)
         ctx.fg, ctx.act, ctx.edge_dtype = fg, act, edge_dtype
         return torch.where(out1 > NEG / 2, out1 + b, 0.0)
 
     @staticmethod
     def backward(ctx, g):
-        eq, ek, w, out1 = ctx.saved_tensors
+        eq, ek, w, out1, sd = ctx.saved_tensors
         fg, act = ctx.fg, ctx.act
         plan, splan = fg.dst_plan, fg.src_plan
         args = (eq.contiguous(), _cast(ek, ctx.edge_dtype),
-                fg.dst_slot_srcnode, fg.dst_slot_scales["sum"], plan.row_key,
-                plan.row_ptr, w.contiguous())
+                fg.dst_slot_srcnode, sd, plan.row_key, plan.row_ptr,
+                w.contiguous())
         counts = plan.finalize_rows_sum(ell_max_wincount(*args, out1, act))
         g_act = torch.where(out1 > NEG / 2, g, 0.0)
         gsc = (g_act / counts.clamp_min(1.0)).contiguous()
@@ -926,37 +1074,181 @@ class _EllSirAggregateMax(torch.autograd.Function):
         g_eq = plan.finalize_rows_sum(geq_rows)
         g_ek = splan.finalize_rows_sum(ell_scaled_reduce(
             g_z, fg.src_slot_from_dst_slot, splan.slot_valid, splan.row_ptr))
-        return g_eq, g_ek, g_w, g_act.sum(0), None, None, None
+        return g_eq, g_ek, g_w, g_act.sum(0), None, None, None, None
 
 
-def _max_rows(fg: FastGraph, eq, ek, w, act, edge_dtype) -> torch.Tensor:
+def _max_rows(fg: FastGraph, eq, ek, w, sd, act, edge_dtype) -> torch.Tensor:
     """[N, O] key-level max before the bias (the f32 min for empty keys)."""
     plan = fg.dst_plan
     rows = ell_max_fwd(eq.contiguous(), _cast(ek, edge_dtype),
-                       fg.dst_slot_srcnode, fg.dst_slot_scales["sum"],
-                       plan.row_key, plan.row_ptr, w.contiguous(), act)
+                       fg.dst_slot_srcnode, sd, plan.row_key, plan.row_ptr,
+                       w.contiguous(), act)
     return plan.finalize_rows_max(rows)
 
 
 def ell_sir_aggregate_max(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
                           w: torch.Tensor, b: Optional[torch.Tensor],
-                          activation, *,
+                          activation, *, e: Optional[torch.Tensor] = None,
+                          edge_mask: Optional[torch.Tensor] = None,
                           edge_dtype: Optional[torch.dtype] = None
                           ) -> torch.Tensor:
-    """out[u] = max_e sigma(eq[u] + ek[src_e]) @ w + b over u's valid
-    incoming edges, and 0 for a node with none (DGL's zero fill). eq, ek
-    [N, H] f32, w [H, O] f32 (the JAX layout), b [O] or None; returns
+    """out[u] = max_e sigma(eq[u] + ek[src_e] [+ e_e]) @ w + b over u's
+    valid incoming edges, and 0 for a node with none (DGL's zero fill). eq,
+    ek [N, H] f32, w [H, O] f32 (the JAX layout), b [O] or None; returns
     [N, O] f32. A cotangent is split equally among tied winners.
 
-    ``edge_dtype`` (None or torch.bfloat16) is the type ek is gathered in
-    and the per-slot g_z stored in; m, the max and all sums are f32.
-    Without a gradient the forward runs ``ell_max_fwd`` alone. The port of
-    ``make_ell_sir_aggregate_max_pallas`` without edge features."""
-    act = _elementwise_only(resolve_activation(activation), "max")
+    An edge is valid where the graph's edge mask holds and, with a DropEdge
+    ``edge_mask`` bool [E_pad], where that holds too: the dst slot scales
+    are the sum scales of the kept edges (:func:`slot_scale`), positive on
+    a valid slot. ``edge_dtype`` (None or torch.bfloat16) is the type ek
+    is gathered in and the per-slot g_z stored in; m, the max and all sums
+    are f32. Without a gradient the forward runs ``ell_max_fwd`` alone. The
+    port of ``make_ell_sir_aggregate_max_pallas``, for a sigma from the
+    registry, without an edge term; a sigma outside the registry takes the
+    pure ELL route (:func:`pure_ell_sir_aggregate_max`), with or without
+    ``e``, where :func:`resolve_activation` allows it. A registry sigma
+    with ``e``, or one that is not elementwise, raises (not yet ported)."""
+    act = resolve_activation(activation, eq.device)
+    if act is None:
+        return pure_ell_sir_aggregate_max(fg, eq, ek, w, b, activation, e=e,
+                                          edge_mask=edge_mask)
+    if e is not None:
+        raise NotImplementedError("max aggregation with edge features on "
+                                  "the kernels is not yet ported")
+    act = _elementwise_only(act, "max")
     if b is None:
         b = w.new_zeros(w.shape[1])
+    sd = slot_scale(fg, "dst", "sum", edge_mask)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (eq, ek, w, b)):
-        return _EllSirAggregateMax.apply(eq, ek, w, b, fg, act, edge_dtype)
-    out1 = _max_rows(fg, eq, ek, w, act, edge_dtype)
+        return _EllSirAggregateMax.apply(eq, ek, w, b, sd, fg, act,
+                                         edge_dtype)
+    out1 = _max_rows(fg, eq, ek, w, sd, act, edge_dtype)
     return torch.where(out1 > NEG / 2, out1 + b, 0.0)
+
+
+# ======================================================================
+# The pure ELL route: any sigma, in plain PyTorch (JAX's XLA route)
+# ======================================================================
+
+class _SlotInputs(torch.autograd.Function):
+    """z [S, H] = eq[slot key] + ek[dst_slot_srcnode] (+ e[slot_edge]) on
+    the dst plan, with JAX's scatter-free transpose: g_eq reduces g_z by
+    dst, g_ek takes g_z into src-slot order (``src_slot_from_dst_slot``)
+    and reduces it by src, and g_e reads each edge's slot
+    (:func:`edge_cotangent`)."""
+
+    @staticmethod
+    def forward(ctx, eq, ek, e, fg: FastGraph):
+        plan = fg.dst_plan
+        z = plan.spread(eq) + ek.index_select(0, fg.dst_slot_srcnode)
+        if e is not None:
+            z = z + plan.gather_edges(e)
+        ctx.fg = fg
+        return z
+
+    @staticmethod
+    def backward(ctx, g_z):
+        fg = ctx.fg
+        plan, splan = fg.dst_plan, fg.src_plan
+        g_eq = g_ek = g_e = None
+        if ctx.needs_input_grad[0]:
+            g_eq = plan.reduce_slots_sum(g_z * plan.slot_valid[:, None])
+        if ctx.needs_input_grad[1]:
+            g_ek = splan.reduce_slots_sum(
+                g_z.index_select(0, fg.src_slot_from_dst_slot)
+                * splan.slot_valid[:, None])
+        if ctx.needs_input_grad[2]:
+            g_e = edge_cotangent(g_z, fg.edge2dst_slot, fg.edge_mask)
+        return g_eq, g_ek, g_e, None
+
+
+class _SlotSum(torch.autograd.Function):
+    """[S, H] -> [N, H] ``reduce_slots_sum`` on a plan; backward
+    ``spread(g)``, its transpose for values that vanish on padding slots
+    (the caller's scale is 0 there)."""
+
+    @staticmethod
+    def forward(ctx, values, plan: ReducePlan):
+        ctx.plan = plan
+        return plan.reduce_slots_sum(values)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plan.spread(g), None
+
+
+class _SlotMax(torch.autograd.Function):
+    """[S, O] per-slot products -> [N, O] max over each key's valid slots,
+    0 for a key with none (DGL's zero fill). Backward: the cotangent is
+    split equally among the valid slots that equal the max."""
+
+    @staticmethod
+    def forward(ctx, m, valid, plan: ReducePlan):
+        neg = torch.finfo(m.dtype).min
+        out = plan.reduce_slots_max(torch.where(valid[:, None], m, neg))
+        has_any = plan.reduce_slots_sum(valid.to(m.dtype)[:, None]) > 0
+        out = torch.where(has_any & (out > neg / 2), out, 0.0)
+        ctx.save_for_backward(m, valid, out)
+        ctx.plan = plan
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        m, valid, out = ctx.saved_tensors
+        plan = ctx.plan
+        win = ((m == plan.spread(out)) & valid[:, None]).to(m.dtype)
+        counts = plan.reduce_slots_sum(win)
+        return plan.spread(g / counts.clamp_min(1.0)) * win, None, None
+
+
+def pure_ell_sir_aggregate(fg: FastGraph, eq: torch.Tensor,
+                           ek: torch.Tensor, activation: Callable,
+                           agg_type: str, *,
+                           e: Optional[torch.Tensor] = None,
+                           edge_mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The linear aggregate of :func:`ell_sir_aggregate` for any torch
+    callable sigma (elementwise, row-wise, an ``nn.Module``), in plain
+    PyTorch on the plans: the port of the JAX package's pure-XLA factory
+    ``make_ell_sir_aggregate``, the route JAX takes for a sigma that closes
+    over arrays, which a Pallas kernel cannot hold. It is that route, not a
+    kernel's plain version: no kernel computes it. ``sir_aggregate`` sends
+    a sigma here as :func:`resolve_activation` says; a direct call runs on
+    any device, as JAX's factory does.
+
+    z = eq[u] + ek[src_e] (+ e_e) per dst slot, out = the slot sums of
+    sigma(z) * scale, with the static scales of ``agg_type`` or those of
+    the edges a DropEdge ``edge_mask`` keeps (mean then divides by the
+    kept in-edges). The gathers and reduces have JAX's scatter-free
+    backward (src-plan takes and reduces), and sigma is differentiated by
+    autograd between them, so a sigma with parameters gets their
+    gradients. f32, as the JAX route; the edge dtype does not apply. Keeps
+    z and sigma's own residuals, [S, H] each."""
+    if agg_type not in fg.dst_slot_scales:
+        raise ValueError(f"agg_type {agg_type!r} is not a linear aggregation")
+    s = slot_scale(fg, "dst", agg_type, edge_mask)
+    z = _SlotInputs.apply(eq, ek, e, fg)
+    out = _SlotSum.apply(activation(z) * s[:, None], fg.dst_plan)
+    return _kept_mean(fg, out, agg_type, edge_mask, s)
+
+
+def pure_ell_sir_aggregate_max(fg: FastGraph, eq: torch.Tensor,
+                               ek: torch.Tensor, w: torch.Tensor,
+                               b: Optional[torch.Tensor],
+                               activation: Callable, *,
+                               e: Optional[torch.Tensor] = None,
+                               edge_mask: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """The max aggregate of :func:`ell_sir_aggregate_max` for any torch
+    callable sigma, in plain PyTorch on the plans: the port of the JAX
+    package's ``make_ell_sir_aggregate_max`` (its XLA route, not a kernel's
+    plain version). m = sigma(z) @ w + b per dst slot, the max over a
+    node's valid slots (the graph's edge mask, and ``edge_mask`` when
+    given), 0 for a node with none; the cotangent is split equally among
+    tied winners, and the gathers have JAX's scatter-free backward. f32."""
+    valid = slot_scale(fg, "dst", "sum", edge_mask) > 0
+    m = activation(_SlotInputs.apply(eq, ek, e, fg)) @ w
+    if b is not None:
+        m = m + b
+    return _SlotMax.apply(m, valid, fg.dst_plan)

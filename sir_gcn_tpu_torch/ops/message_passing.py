@@ -5,26 +5,31 @@ Math contract (reference ``models/conv.py``):
 
   sum/mean/sym:  h*_u = reduce_{(v,u) in E} s_vu * sigma(eq_u + ek_v [+ e_vu])
                  followed by W_R applied per node in the caller
-  max:           h*_u = max_{(v,u) in E} sigma(eq_u + ek_v) @ W_R + b_R,
-                 W_R per edge before the reduce; 0 for a node with no
-                 incoming edge
+  max:           h*_u = max_{(v,u) in E} sigma(eq_u + ek_v [+ e_vu]) @ W_R
+                 + b_R, W_R per edge before the reduce; 0 for a node with
+                 no incoming edge
   sym scale:     s_vu = out_deg(v)^-1/2 * in_deg(u)^-1/2, degrees clamped
-                 >= 1; mean folds 1/clamp(in_deg(u), 1) into s_vu.
+                 >= 1; mean divides by the count of valid in-edges.
 
-This port has the FastGraph branches: static scales for sum/mean/sym, with
-an optional edge term (``e``, or ``e_basis`` and ``w_edge`` for the fused
-route), and the max kernels, for a sigma in the activation registry. A
-sigma that is not elementwise (centered_relu, softmax, or an entry with
-``sir_elementwise=False``) takes the general route of sum/mean/sym without
-an edge term. The other branches raise.
+Every route of the JAX package's ``sir_aggregate`` but the distributed
+HaloGraph's: on a FastGraph the kernels (static scales, or DropEdge's
+dynamic ones under ``edge_mask``), or the pure ELL route for a sigma
+outside the activation registry that holds tensors (JAX's XLA route); on a
+plain ``GraphBatch`` the CSR aggregate over ``ops/segment.py``. The forms
+that JAX runs on Pallas kernels and the port's kernels do not yet take
+raise: a registry sigma with max and an edge term, a row-wise registry
+sigma with an edge term or with max, and on a CUDA tensor a parameter-free
+sigma outside the registry.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
+from ..graph import GraphBatch
+from . import segment as seg
 from .ell import (
     Activation,
     FastGraph,
@@ -50,62 +55,160 @@ def get_edge_dtype() -> Optional[torch.dtype]:
     return _EDGE_DTYPE
 
 
+def _edge_scale(graph, agg_type: str) -> Optional[torch.Tensor]:
+    """Per-edge symmetric-norm scale s_vu [E_pad] of the CSR aggregate from
+    the graph's full degrees (DropEdge does not renormalize it), or None
+    for the other aggregations."""
+    if agg_type != "sym":
+        return None
+    in_norm = graph.in_deg.clamp_min(1.0).pow(-0.5)
+    out_norm = graph.out_deg.clamp_min(1.0).pow(-0.5)
+    return out_norm.index_select(0, graph.src) * in_norm.index_select(
+        0, graph.dst)
+
+
+def _valid(graph, edge_mask) -> torch.Tensor:
+    """The graph's edge mask, and ``edge_mask`` (DropEdge) when given."""
+    return graph.edge_mask if edge_mask is None else (graph.edge_mask
+                                                      & edge_mask)
+
+
 def sir_aggregate(graph, eq: torch.Tensor, ek: torch.Tensor, activation,
                   agg_type: str = "sum", *, e=None,
                   e_basis: Optional[torch.Tensor] = None,
                   w_edge: Optional[torch.Tensor] = None,
                   w_relation: Optional[torch.Tensor] = None,
                   b_relation: Optional[torch.Tensor] = None,
-                  edge_mask=None) -> torch.Tensor:
+                  edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused SIR edge aggregation: [N_pad, H] query and key projections
-    -> [N_pad, H] for sum/mean/sym, [N_pad, O] for max. ``graph`` must be a
-    FastGraph.
+    -> [N_pad, H] for sum/mean/sym, [N_pad, O] for max.
 
     ``e`` [E_pad, H] is an edge term in sorted edge order, added inside
     sigma. ``e_basis`` [E_pad, De] and ``w_edge`` [De, H] are the
-    alternative for an affine edge encoder, e = e_basis @ w_edge: with a
-    linear aggregation and a sigma in the registry they take the fused
-    route, whose kernels form the projection themselves (the route the JAX
-    package takes on its accelerator); otherwise the projection is formed
-    here and the ``e`` route runs. ``e_basis`` gets no gradient.
+    alternative for an affine edge encoder, e = e_basis @ w_edge: on a
+    FastGraph with a linear aggregation and a registry sigma they take the
+    fused route, whose kernels form the projection themselves; otherwise
+    the projection is formed here. ``e_basis`` gets no gradient. max needs
+    ``w_relation`` [H, O] (and takes ``b_relation`` [O]), the W_R applied
+    per edge before the reduce; the linear aggregations ignore both.
+    ``edge_mask`` bool [E_pad] (DropEdge) drops edges on top of the
+    padding mask.
 
-    max needs ``w_relation`` [H, O] (and takes ``b_relation`` [O]), the W_R
-    applied per edge before the reduce, and takes the max kernels for a
-    sigma in the activation registry (the route of the JAX package's
-    ``_max_pallas_route``); the linear aggregations ignore both (the caller
-    applies W_R per node). A sigma that is not elementwise takes the
-    general route (``ell_sir_aggregate``) of a linear aggregation. Any
-    other sigma raises; so do max with edge features, a sigma that is not
-    elementwise with edge features or max, and DropEdge masks (dynamic
-    scales), not yet ported."""
+    On a FastGraph, a registry sigma takes the kernels: with no
+    ``edge_mask`` the static per-slot scales, with one those of the kept
+    edges (``ops/ell.py`` ``slot_scale``; mean divides by the kept
+    in-edges after the aggregate, max takes them as validity). A sigma
+    that is not elementwise takes the general route of a linear
+    aggregation. A sigma outside the registry that holds tensors takes the
+    pure ELL route (``pure_ell_sir_aggregate``, the JAX package's XLA
+    route), for every aggregation, with or without ``e`` and
+    ``edge_mask``; on the CPU any callable does. On a plain ``GraphBatch``
+    the CSR aggregate runs with any torch callable sigma, differentiated by
+    autograd.
+
+    Raises for the HaloGraph (not ported) and for the forms that JAX runs
+    on Pallas kernels and the port's kernels do not yet take: a registry
+    sigma with max and an edge term, a row-wise registry sigma with an
+    edge term or with max, and on a CUDA tensor a parameter-free sigma
+    outside the registry (``resolve_activation``)."""
     if agg_type not in ("sum", "mean", "max", "sym"):
         raise NotImplementedError(f"agg_type = {agg_type} not implemented")
     if e is not None and e_basis is not None:
         raise ValueError("pass e or (e_basis, w_edge), not both")
     if e_basis is not None and w_edge is None:
         raise ValueError("e_basis needs w_edge")
-    if edge_mask is not None:
-        raise NotImplementedError("DropEdge masks (dynamic scales) are not "
-                                  "yet ported")
-    if not isinstance(graph, FastGraph):
+    if agg_type == "max" and w_relation is None:
+        raise ValueError("max aggregation needs W_R per edge (w_relation)")
+    if not isinstance(graph, (FastGraph, GraphBatch)):
         raise NotImplementedError(
-            "the CSR aggregate on a plain GraphBatch is not yet ported; "
-            "build a FastGraph")
-    if e_basis is not None:
-        if agg_type != "max" and isinstance(activation, Activation):
-            return ell_sir_aggregate_fused_edge(
-                graph, eq, ek, e_basis, w_edge, activation, agg_type,
-                edge_dtype=get_edge_dtype())
+            f"sir_aggregate on a {type(graph).__name__} (the distributed "
+            f"HaloGraph's route) is not yet ported")
+    fused = (e_basis is not None and isinstance(graph, FastGraph)
+             and agg_type != "max" and isinstance(activation, Activation))
+    if e_basis is not None and not fused:
         e = (e_basis @ w_edge).to(eq.dtype)
+    if not isinstance(graph, FastGraph):
+        return _csr_aggregate(graph, eq, ek, activation, agg_type, e,
+                              w_relation, b_relation, edge_mask)
+
     if agg_type == "max":
-        if e is not None:
-            raise NotImplementedError("max aggregation with edge features "
-                                      "is not yet ported")
-        if w_relation is None:
-            raise ValueError("max aggregation needs W_R per edge "
-                             "(w_relation)")
         return ell_sir_aggregate_max(graph, eq, ek, w_relation, b_relation,
-                                     activation,
+                                     activation, e=e, edge_mask=edge_mask,
                                      edge_dtype=get_edge_dtype())
+    if fused:
+        return ell_sir_aggregate_fused_edge(
+            graph, eq, ek, e_basis, w_edge, activation, agg_type,
+            edge_mask=edge_mask, edge_dtype=get_edge_dtype())
     return ell_sir_aggregate(graph, eq, ek, activation, agg_type, e=e,
-                             edge_dtype=get_edge_dtype())
+                             edge_mask=edge_mask, edge_dtype=get_edge_dtype())
+
+
+def _reduce_messages(graph, m: torch.Tensor, agg_type: str,
+                     valid: torch.Tensor,
+                     scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """Reduce per-edge messages [E_pad, ...] by dst: the max over valid
+    edges (0 for none), or the masked sum of ``scale`` * m, divided by the
+    valid in-degree for mean."""
+    n = graph.n_pad
+    if agg_type == "max":
+        return seg.segment_max(m, graph.dst, n, valid)
+    vmask = valid.reshape((-1,) + (1,) * (m.dim() - 1))
+    if scale is not None:
+        m = m * scale.reshape(vmask.shape)
+    m = torch.where(vmask, m, 0.0)
+    if agg_type == "mean":
+        counts = seg.segment_sum(valid.to(m.dtype), graph.dst, n)
+        return seg.segment_mean(m, graph.dst, n, counts)
+    return seg.segment_sum(m, graph.dst, n)
+
+
+def _csr_aggregate(graph, eq, ek, activation, agg_type, e, w_relation,
+                   b_relation, edge_mask) -> torch.Tensor:
+    """The generic branch of ``sir_aggregate``: per-edge messages over the
+    dst-sorted edge arrays, reduced by segment."""
+    z = (seg.gather_rows(eq, graph.dst) + seg.gather_rows(ek, graph.src))
+    if e is not None:
+        z = z + e
+    m = activation(z)
+    if agg_type == "max":
+        m = m @ w_relation
+        if b_relation is not None:
+            m = m + b_relation
+    return _reduce_messages(graph, m, agg_type, _valid(graph, edge_mask),
+                            _edge_scale(graph, agg_type))
+
+
+def sir_aggregate_concat(graph, eq: torch.Tensor, ek: torch.Tensor,
+                         message_func: Callable, agg_type: str = "sum", *,
+                         e: Optional[torch.Tensor] = None,
+                         edge_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """The concatenated form ``reduce g([h_u || h_v (|| h_uv)])`` of
+    ``SIRConvBase`` / ``SIREConvBase`` (reference conv.py:156-158,
+    199-201), on the dst-sorted edge arrays of a ``GraphBatch`` or
+    FastGraph. The columns are ordered as the reference's
+    ``torch.cat((edges.dst['eq'], edges.src['ek'], edges.data['e']))``, so
+    its message-MLP weights carry over; ``message_func`` is any row-wise
+    torch callable; sym scales by the degree norms."""
+    if agg_type not in ("sum", "mean", "max", "sym"):
+        raise NotImplementedError(f"agg_type = {agg_type} not implemented")
+    parts = [seg.gather_rows(eq, graph.dst), seg.gather_rows(ek, graph.src)]
+    if e is not None:
+        parts.append(e)
+    m = message_func(torch.cat(parts, -1))
+    return _reduce_messages(graph, m, agg_type, _valid(graph, edge_mask),
+                            _edge_scale(graph, agg_type))
+
+
+def copy_src_aggregate(graph, x: torch.Tensor, agg_type: str = "sum", *,
+                       edge_scale: Optional[torch.Tensor] = None,
+                       edge_mask: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """``update_all(fn.copy_u, fn.sum|mean|max)``: the plain SpMM of the
+    Correct & Smooth label spreading
+    (``benchmark-datasets/ogbn-arxiv/correct_and_smooth.py:41-58``) and of
+    GCN/GIN-style baseline convs. ``edge_scale`` [E_pad] weights each
+    edge's message for sum and mean."""
+    m = seg.gather_rows(x, graph.src)
+    return _reduce_messages(graph, m, agg_type, _valid(graph, edge_mask),
+                            edge_scale)

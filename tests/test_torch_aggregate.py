@@ -130,16 +130,41 @@ def test_grad_and_no_grad_paths_reach_their_kernels(monkeypatch):
 
 
 def test_unported_branches_raise():
-    _, tfg, eq, ek, _ = make_graphs("random")
-    eq, ek = torch.from_numpy(eq), torch.from_numpy(ek)
+    """What still raises: the HaloGraph's route (not ported). The branches
+    that raised before this port had them now compute, held against the
+    JAX package's ``sir_aggregate`` on the same graph (its CPU route): a
+    sigma outside the registry (the pure ELL route), with sum and with
+    max, a plain ``GraphBatch`` (the CSR aggregate), and a DropEdge mask
+    (dynamic scales)."""
+    jfg, tfg, eq, ek, w = make_graphs("random")
+    rng = np.random.default_rng(4)
+    wr = rng.normal(size=(H, 9)).astype(np.float32)
+    mask = rng.random(tfg.e_pad) >= 0.3
     act = tell.leaky_relu(0.2)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmp.sir_aggregate(tfg, eq, ek, torch.tanh, "sum")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmp.sir_aggregate(tfg, eq, ek, torch.tanh, "max",
-                          w_relation=torch.zeros(H, H))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmp.sir_aggregate(tfg.graph, eq, ek, act, "sum")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmp.sir_aggregate(tfg, eq, ek, act, "sum",
-                          edge_mask=torch.ones(tfg.e_pad, dtype=torch.bool))
+        tmp.sir_aggregate(object(), torch.from_numpy(eq),
+                          torch.from_numpy(ek), act, "sum")
+
+    cases = [  # (port graph, JAX graph, port sigma, JAX sigma, agg, kw)
+        (tfg, jfg, torch.tanh, jnp.tanh, "sum", {}),
+        (tfg, jfg, torch.tanh, jnp.tanh, "max", {"w_relation": wr}),
+        (tfg.graph, jfg.graph, act, jax_act, "sum", {}),
+        (tfg, jfg, act, jax_act, "sum", {"edge_mask": mask}),
+    ]
+    for tg, jg, tact, jact, agg, kw in cases:
+        gw = w if agg == "sum" else w[:, :9]
+        teq = torch.from_numpy(eq).requires_grad_()
+        tek = torch.from_numpy(ek).requires_grad_()
+        out = tmp.sir_aggregate(tg, teq, tek, tact, agg, **{
+            k: torch.from_numpy(v) for k, v in kw.items()})
+        (out * torch.from_numpy(gw)).sum().backward()
+        f = lambda a, b: jmp.sir_aggregate(jg, a, b, jact, agg, **{
+            k: jnp.asarray(v) for k, v in kw.items()})
+        np.testing.assert_allclose(
+            out.detach().numpy(),
+            np.asarray(f(jnp.asarray(eq), jnp.asarray(ek))), **FWD_TOL)
+        jgeq, jgek = _jax_grads(f, eq, ek, gw)
+        np.testing.assert_allclose(teq.grad.numpy(), np.asarray(jgeq),
+                                   **BWD_TOL)
+        np.testing.assert_allclose(tek.grad.numpy(), np.asarray(jgek),
+                                   **BWD_TOL)

@@ -302,9 +302,9 @@ def test_fused_edge_plains_match_pallas(graph, de, dt):
 # The two routes of sir_aggregate against the JAX routes
 # ----------------------------------------------------------------------
 
-def _port_grads(c, agg, w, **edge):
+def _port_grads(c, agg, w, act=ACT, **edge):
     teq, tek = _t(c.eq).requires_grad_(), _t(c.ek).requires_grad_()
-    out = tmp.sir_aggregate(c.tfg, teq, tek, ACT, agg, **edge)
+    out = tmp.sir_aggregate(c.tfg, teq, tek, act, agg, **edge)
     (out * _t(w)).sum().backward()
     return out.detach().numpy(), teq.grad.numpy(), tek.grad.numpy()
 
@@ -453,24 +453,58 @@ def test_routes_reach_their_kernels(kernel_calls):
 
 
 def test_unported_edge_branches_raise():
-    c = make_case("random", de=5, with_jax=False)
+    """What still raises: max with edge features on the kernels (a
+    registry sigma; the SIREConv max layer), and malformed edge
+    arguments. The branches that raised before this port had them now
+    compute, held against the JAX package's: e_basis under a DropEdge
+    mask (the fused kernels on dynamic scales), and a sigma outside the
+    registry with e (the pure ELL route)."""
+    import jax
+    import jax.numpy as jnp
+
+    jell, _, jact, _ = jax_side("f32")
+    c = make_case("random", de=5)
     eq, ek, e, eb, we = (_t(a) for a in (c.eq, c.ek, c.e, c.eb, c.we))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         _conv(agg="max")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tmp.sir_aggregate(c.tfg, eq, ek, ACT, "max", e_basis=eb, w_edge=we,
                           w_relation=torch.zeros(H, H))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmp.sir_aggregate(c.tfg, eq, ek, ACT, "sum", e_basis=eb, w_edge=we,
-                          edge_mask=torch.ones(c.tfg.e_pad,
-                                               dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="activation registry"):
-        tmp.sir_aggregate(c.tfg, eq, ek, torch.tanh, "sum", e=e)
     with pytest.raises(ValueError, match="not both"):
         tmp.sir_aggregate(c.tfg, eq, ek, ACT, "sum", e=e, e_basis=eb,
                           w_edge=we)
     with pytest.raises(ValueError, match="w_edge"):
         tmp.sir_aggregate(c.tfg, eq, ek, ACT, "sum", e_basis=eb)
+
+    mask = np.random.default_rng(3).random(c.tfg.e_pad) >= 0.3
+    w = np.random.default_rng(4).normal(size=c.eq.shape).astype(np.float32)
+    twe = _t(c.we).requires_grad_()
+    out, geq, gek = _port_grads(c, "sum", w, e_basis=eb, w_edge=twe,
+                                edge_mask=torch.from_numpy(mask))
+    f = jell.make_ell_sir_aggregate_pallas_fused_edge(
+        c.jfg, jact, "sum", interpret=True, static_scale=False)
+    s = jnp.asarray(mask & np.asarray(c.jfg.edge_mask), jnp.float32)
+    jeb = jnp.asarray(c.eb)
+    np.testing.assert_allclose(out, np.asarray(f(c.eq, c.ek, jeb, c.we, s)),
+                               **FWD_TOL)
+    want = jax.grad(lambda a, b, m: jnp.sum(f(a, b, jeb, m, s) * w),
+                    argnums=(0, 1, 2))(c.eq, c.ek, c.we)
+    np.testing.assert_allclose(geq, np.asarray(want[0]), **BWD_TOL)
+    np.testing.assert_allclose(gek, np.asarray(want[1]), **BWD_TOL)
+    np.testing.assert_allclose(twe.grad.numpy(), np.asarray(want[2]),
+                               **gw_tol(want[2]))
+
+    te = _t(c.e).requires_grad_()
+    out, geq, gek = _port_grads(c, "sum", w, e=te, act=torch.tanh)
+    f = jell.make_ell_sir_aggregate(c.jfg, jnp.tanh, "sum", with_edge=True,
+                                    static_scale=True)
+    s0 = jnp.zeros((c.jfg.e_pad,), jnp.float32)
+    np.testing.assert_allclose(out, np.asarray(f(c.eq, c.ek, c.e, s0)),
+                               **FWD_TOL)
+    want = jax.grad(lambda a, b, x: jnp.sum(f(a, b, x, s0) * w),
+                    argnums=(0, 1, 2))(c.eq, c.ek, c.e)
+    for got, ref in zip((geq, gek, te.grad.numpy()), want):
+        np.testing.assert_allclose(got, np.asarray(ref), **BWD_TOL)
 
 
 def test_edge_wrappers_check_inputs_and_count_no_cpu_launch():
