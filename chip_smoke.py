@@ -95,6 +95,18 @@ Phases, each printed as it runs; any failure exits non-zero:
            dropedge, sireconv and general configuration (torch.profiler;
            dropedge's beside sym's, kernel by kernel), and the device's
            idle share
+  oracles  the two synthetic oracles through their entry points, with
+           the launch counters at 0 before and after each run (their
+           batches take the CSR aggregate, no kernel of the port): (a)
+           DictionaryLookup SIR n=10 (h=40, 5000 samples, batch 256) to
+           its early stop, test accuracy exactly 1.0; (b) its GCN for 15
+           epochs, exactly 0.1; (c) HeteroEdgeCount SIR c=2 (h=20, 50
+           nodes, unnormalized) to its early stop or epoch 500, test MSE
+           under 2e-3; each run's epochs, wall time, median train step
+           and HEC's collation time per batch; one profiled train step
+           of DL SIR and of HEC SIR (with and without its collation); (d)
+           the twelve models of both harnesses, two layers at full width,
+           one forward and backward on the card against the CPU
 
 The last line is the JSON contract line; the line before it lists each
 kernel's launches on the main path, error, times and bound. Needs a CUDA
@@ -2380,6 +2392,188 @@ def phase_e2e_sireconv(device):
             compare(f"grad {k}", g["grads"][k], c["grads"][k], BWD_TOL)
 
 
+# the oracles phase: the README commands of the two synthetic oracles
+DL_SIR_FLAGS = ["--nodes", "10", "--nhidden", "40", "--nruns", "1",
+                "--seed", "0"]
+DL_GCN_FLAGS = ["--model", "GCN", "--nodes", "10", "--nhidden", "40",
+                "--epochs", "15", "--nruns", "1", "--seed", "0"]
+HEC_SIR_FLAGS = ["--classes", "2", "--nhidden", "20", "--nruns", "1",
+                 "--seed", "0"]
+ORACLE_MODELS = ("SIR", "GCN", "SAGE", "GAT", "GIN", "PNA")
+
+
+def oracle_run(label, main, flags, check):
+    """One run of an oracle's entry point on the card with every train
+    step timed between device syncs, the launch counters set to 0 before
+    and read after (the CSR aggregate runs no kernel of the port, as JAX
+    runs these batches on XLA); ``check(test)`` must hold. Returns the
+    run's stats."""
+    import torch
+
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+
+    log(f"== oracles {label}: " + " ".join(flags))
+    stats = []
+    reset_launch_counts()
+    _, (test,) = main(flags, stats=stats, time_steps=True)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    (st,) = stats
+    log(f"  {label}: test {test!r} after {st['epochs']} epochs in "
+        f"{st['seconds']:.1f} s; train step median "
+        f"{statistics.median(st['step_ms']):.3f} ms over "
+        f"{len(st['step_ms'])} steps (min {min(st['step_ms']):.3f}, max "
+        f"{max(st['step_ms']):.3f}); kernel launches {launches}")
+    if "collate_ms" in st:
+        c = st["collate_ms"]
+        log(f"  {label}: collate ms per batch median "
+            f"{statistics.median(c):.3f}, mean {statistics.fmean(c):.3f} "
+            f"over {len(c)} batches ({sum(c) / 1e3:.1f} s of the run)")
+    if launches:
+        raise AssertionError(f"{label}: the CSR route launched {launches}")
+    if not check(test):
+        raise AssertionError(f"{label}: test {test!r} misses the oracle")
+    return st
+
+
+def oracle_batches(device):
+    """The full-width first batch of each harness: DL (n=10, 5000 samples,
+    batch 256) as (template graph, feats, labels, weights) and HEC (50
+    nodes, c=2, 5000 samples, batch 256) as a collated batch on
+    ``device``; the HEC collection and train indices too."""
+    import numpy as np
+    import torch
+
+    from sir_gcn_tpu_torch.data import (
+        DictionaryLookupDataset,
+        GraphCollection,
+        HeteroEdgeCountDataset,
+    )
+    from sir_gcn_tpu_torch.experiments.dictionary_lookup import train as dl
+
+    ds = DictionaryLookupDataset(10, 5000, rng=np.random.default_rng(0))
+    template = dl.make_batcher(ds, 256, device)
+    f, lab, w = dl.pad_batch(ds.feats[:256], ds.labels[:256], 256, 10,
+                             template.n_pad)
+    dl_batch = (template, torch.from_numpy(f).to(device),
+                torch.from_numpy(lab).to(device, torch.int64),
+                torch.from_numpy(w).to(device))
+    hds = HeteroEdgeCountDataset(50, 2, 5000, normalize=False,
+                                 rng=np.random.default_rng(0))
+    coll = GraphCollection(hds.graphs, node_feats=hds.feats,
+                           labels=hds.labels)
+    return dl_batch, coll, np.arange(4000)
+
+
+def oracle_model(harness, name):
+    """A two-layer model of ``harness`` at its README width (GAT with two
+    heads), weights from seed 0."""
+    import torch
+
+    from sir_gcn_tpu_torch.experiments.dictionary_lookup import (
+        model as dl_model,
+    )
+    from sir_gcn_tpu_torch.experiments.hetero_edge_count import (
+        model as hec_model,
+    )
+
+    mods, dims = ((dl_model, (10, 40, 10)) if harness == "dl"
+                  else (hec_model, (2, 20, 1)))
+    kw = {} if name == "SIR" else {"num_heads": 2}
+    return mods.MODELS[name](*dims, num_layers=2,
+                             generator=torch.Generator().manual_seed(0),
+                             **kw)
+
+
+def oracle_card_against_cpu(device):
+    """Each of the twelve models on one full-width batch, forward and
+    backward of its harness's loss on the card and on the CPU from the
+    same weights: out and loss at FWD_TOL, every weight gradient at
+    GW_TOL (each sums over every node or edge of the batch, in the order
+    of the card's atomic adds)."""
+    import copy
+
+    import torch
+
+    from sir_gcn_tpu_torch.experiments.dictionary_lookup import train as dl
+    from sir_gcn_tpu_torch.experiments.hetero_edge_count import train as hec
+
+    log("== oracles (d): the twelve models, card against CPU")
+    cpu = torch.device("cpu")
+    (dl_cpu, coll, idx), (dl_card, _, _) = (oracle_batches(cpu),
+                                            oracle_batches(device))
+    hec_cpu = hec.batch_tensors(coll.collate(idx[:256], 256, cpu), cpu)
+    hec_card = hec.batch_tensors(coll.collate(idx[:256], 256, device),
+                                 device)
+    for harness, batches in (("dl", (dl_cpu, dl_card)),
+                             ("hec", (hec_cpu, hec_card))):
+        for name in ORACLE_MODELS:
+            model = oracle_model(harness, name)
+            runs = []
+            for graph, f, lab, w in batches:
+                m = copy.deepcopy(model).to(f.device).train()
+                out = m(graph, f)
+                loss = (dl.weighted_ce(out, lab, w) if harness == "dl"
+                        else hec.weighted_mse(out[:, 0], lab, w))
+                loss.backward()
+                runs.append((out.detach().cpu(), loss.detach().cpu(),
+                             {k: p.grad.cpu()
+                              for k, p in m.named_parameters()}))
+            (o_c, l_c, g_c), (o_g, l_g, g_g) = runs
+            label = f"{harness} {name}"
+            compare(f"{label} out", o_g, o_c, FWD_TOL)
+            compare(f"{label} loss", l_g[None], l_c[None], FWD_TOL)
+            for k in g_c:
+                compare(f"{label} grad {k}", g_g[k], g_c[k], GW_TOL)
+
+
+def phase_oracles(device):
+    """The two synthetic oracles on the card through their entry points:
+    (a) DL SIR n=10 (README command) to its early stop, test accuracy
+    exactly 1.0; (b) DL GCN n=10 for 15 epochs, exactly 0.1; (c) HEC SIR
+    c=2 (README command, unnormalized) to its early stop or epoch 500,
+    test MSE under 2e-3; then one profiled train step of DL SIR and of HEC
+    SIR (with and without its batch's collation), and (d) the twelve
+    models card against CPU."""
+    import torch
+
+    from sir_gcn_tpu_torch.experiments.dictionary_lookup import train as dl
+    from sir_gcn_tpu_torch.experiments.hetero_edge_count import train as hec
+    from sir_gcn_tpu_torch.train import make_adamw
+
+    t0 = time.perf_counter()
+    oracle_run("(a) DL SIR n=10", dl.main, DL_SIR_FLAGS,
+               lambda acc: acc == 1.0)
+    oracle_run("(b) DL GCN n=10", dl.main, DL_GCN_FLAGS,
+               lambda acc: acc == 0.1)
+    t_c = time.perf_counter()
+    oracle_run("(c) HEC SIR c=2", hec.main, HEC_SIR_FLAGS,
+               lambda mse: mse < 2e-3)
+    log(f"  (c) took {time.perf_counter() - t_c:.1f} s")
+
+    dl_batch, coll, idx = oracle_batches(device)
+    for harness, label in (("dl", "DL SIR"), ("hec", "HEC SIR")):
+        model = oracle_model(harness, "SIR").to(device)
+        opt = make_adamw(model.parameters(), 1e-3)
+        if harness == "dl":
+            step = dl.make_harness(model, dl_batch[0], opt)[0]
+            log(f"== profile oracles {label}: 5 warm train steps")
+            profile_steps(lambda: step(*dl_batch[1:], None), 5)
+            continue
+        step = hec.make_harness(model, opt)[0]
+        batch = hec.batch_tensors(coll.collate(idx[:256], 256, device),
+                                  device)
+        log(f"== profile oracles {label}: 5 warm train steps")
+        profile_steps(lambda: step(*batch, None), 5)
+        log(f"== profile oracles {label}: 5 warm train steps, each with "
+            f"its batch's collation")
+        profile_steps(lambda: step(*hec.batch_tensors(
+            coll.collate(idx[:256], 256, device), device), None), 5)
+    torch.cuda.empty_cache()
+    oracle_card_against_cpu(device)
+    log(f"== oracles ok in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2421,6 +2615,7 @@ def main() -> int:
     phase_profile(device, "sym", edge_dropout=0.2, against=sym_profile)
     phase_profile_sireconv(device, arxiv_fg)
     phase_profile_general(device, arxiv_fg)
+    phase_oracles(device)
     log(f"== all phases ok in {time.perf_counter() - t0:.1f}s")
 
     rows = []

@@ -38,24 +38,16 @@ from ...train import (
     ReduceLROnPlateau,
     make_adamw,
     param_count,
+    resolve_device,
     set_lr_scale,
     set_seed,
+    synchronize,
     warmup_scale,
 )
 from .model import SIRModel
 
 EPS = 1.0 - np.log(2.0)
 WARMUP = 20
-
-
-def resolve_device(cpu: bool) -> torch.device:
-    """The CUDA card, or the CPU when asked for; never a silent fallback."""
-    if cpu:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass --cpu to run "
-                           "on the CPU")
-    return torch.device("cuda")
 
 
 def build_arxiv_graph(data, args, device) -> FastGraph:
@@ -113,11 +105,6 @@ def make_harness(model, graph, optimizer):
     return train_step, eval_step
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run_single(args, seed: int, data, device: torch.device) -> dict:
     """One training run. Returns the best-by-val-loss metrics plus the
     run's record: per-epoch train losses, train-step and eval seconds
@@ -170,7 +157,7 @@ def run_single(args, seed: int, data, device: torch.device) -> dict:
                      warmup_scale(epoch, WARMUP) * plateau.scale)
         t0 = time.perf_counter()
         loss = train_step(feats_t, labels_t, loss_w, dropout_gen)
-        _sync(device)
+        synchronize(device)
         step_seconds.append(time.perf_counter() - t0)
         losses.append(float(loss))
 

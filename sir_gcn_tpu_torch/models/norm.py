@@ -1,7 +1,10 @@
 """Normalisation (port of ``sir_gcn_tpu/models/norm.py``): the masked
-BatchNorm and its graph adapter. Statistics cover real nodes only."""
+BatchNorm, its graph adapter and the identities. Statistics cover real
+nodes only."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -22,14 +25,16 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
-    def forward(self, feats: torch.Tensor, mask: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, feats: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """BatchNorm of ``feats`` [N, dim] over the rows where ``mask``
-        [N] is set; eval mode uses the running statistics."""
+        [N] is set (every row without one); eval mode uses the running
+        statistics."""
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            m = mask.to(feats.dtype)[:, None]
+            m = (torch.ones_like(feats[:, :1]) if mask is None
+                 else mask.to(feats.dtype)[:, None])
             n = m.sum().clamp_min(1.0)
             mean = (feats * m).sum(0) / n
             var = ((feats - mean).square() * m).sum(0) / n
@@ -60,10 +65,13 @@ class GraphIdentity(nn.Module):
 
 
 def get_norm(norm: str, with_graph: bool, dim: int) -> nn.Module:
-    """'bn' or 'none' with a graph; the other norms are not yet ported."""
+    """'bn' or 'none', in the ``(graph, feats)`` signature with a graph
+    and the ``(feats)`` one without; gn, cn and ln are not yet ported."""
     if norm not in ("gn", "cn", "bn", "ln", "none"):
         raise NotImplementedError(f"norm = {norm} not implemented")
-    if not with_graph or norm not in ("bn", "none"):
+    if norm not in ("bn", "none"):
         raise NotImplementedError(
             f"norm = {norm} (with_graph={with_graph}) is not yet ported")
-    return GraphBatchNorm(dim) if norm == "bn" else GraphIdentity()
+    if with_graph:
+        return GraphBatchNorm(dim) if norm == "bn" else GraphIdentity()
+    return MaskedBatchNorm(dim) if norm == "bn" else nn.Identity()

@@ -1,2 +1,11 @@
-from .engine import make_adamw, param_count, set_lr_scale, set_seed
+from .engine import (
+    EpochDriver,
+    aggregate_runs,
+    make_adamw,
+    param_count,
+    resolve_device,
+    set_lr_scale,
+    set_seed,
+    synchronize,
+)
 from .schedulers import ReduceLROnPlateau, warmup_scale

@@ -21,6 +21,30 @@ A ``SIRConv`` or ``SIREConv`` on its own holds its conv's keys under
 
 and an ``Embed`` on its own holds ``params/embedding``.
 
+The zoo convs hold, under ``params/`` on their own or under
+``params/conv_i/`` in a model,
+
+    GraphConv    weight/Dense_0/kernel, bias
+    GATv2Conv    fc_src/Dense_0, fc_dst/Dense_0 (share_weights=False),
+                 res_fc/Dense_0 (a projected residual), attn [H, F]
+    SAGEConv     fc_pool/Dense_0, fc_self/Dense_0/kernel, fc_neigh/Dense_0
+    PNAConv      M/Dense_0, U/Dense_0 (one tower), or M_t, U_t and
+                 mixing/Dense_0 (towers t)
+    GINConv      eps (learn_eps), apply_func/... (an MLP given as the
+    GINEConv     apply function, on its own)
+
+and an ``MLP`` ``linear_j/Dense_0`` with, for norm 'bn',
+``{GraphBatchNorm_j/MaskedBatchNorm_0 | MaskedBatchNorm_j}/{weight,bias}``
+and their ``batch_stats`` ``mean`` and ``var``.
+
+The DictionaryLookup models hold ``params/{key,val}_embedding/embedding``,
+``params/conv_i/...`` and ``params/classifier/Dense_0/kernel``; SIR adds
+the shared σ's ``params/activation_linear/Dense_0`` (filled once). The
+HeteroEdgeCount models hold ``params/embedding/embedding``,
+``params/conv_i/...`` and ``params/regression/Dense_0/kernel``. A GIN
+model's MLPs are the model's own, ``params/mlp_i/...``, beside a
+parameter-free ``conv_i``.
+
 A flax ``kernel`` is [in, out] and a torch ``weight`` [out, in], so Dense
 kernels are transposed (``linear_edge``'s [De, H] kernel is the weight
 [H, De]); a max conv's ``relation_kernel`` and an ``embedding`` table keep
@@ -33,7 +57,21 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models import Embed, GraphBatchNorm, Linear, SIRConv, SIREConv
+from ..models import (
+    MLP,
+    Embed,
+    GATv2Conv,
+    GINConv,
+    GINEConv,
+    GraphBatchNorm,
+    GraphConv,
+    Linear,
+    MaskedBatchNorm,
+    PNAConv,
+    SAGEConv,
+    SIRConv,
+    SIREConv,
+)
 
 
 def _flatten(tree, prefix=()) -> dict:
@@ -80,6 +118,87 @@ def _conv_slots(path, conv) -> dict:
     return slots
 
 
+def _batch_norm(params, stats, bn: MaskedBatchNorm) -> dict:
+    return {params + ("weight",): (bn.weight, False),
+            params + ("bias",): (bn.bias, False),
+            stats + ("mean",): (bn.running_mean, False),
+            stats + ("var",): (bn.running_var, False)}
+
+
+def _mlp_slots(path, mlp: MLP) -> dict:
+    """``path`` = ("params", ...) of an MLP."""
+    slots = {}
+    for j, linear in enumerate(mlp.linears):
+        slots.update(_linear(path + (f"linear_{j}",), linear))
+    stats = ("batch_stats",) + path[1:]
+    for j, norm in enumerate(mlp.norms):
+        if isinstance(norm, GraphBatchNorm):
+            node = (f"GraphBatchNorm_{j}", "MaskedBatchNorm_0")
+            slots.update(_batch_norm(path + node, stats + node, norm.norm))
+        elif isinstance(norm, MaskedBatchNorm):
+            node = (f"MaskedBatchNorm_{j}",)
+            slots.update(_batch_norm(path + node, stats + node, norm))
+    return slots
+
+
+def _zoo_slots(path, conv) -> dict:
+    """flax path -> (torch tensor, transpose) for a zoo conv."""
+    slots = {}
+    if isinstance(conv, GraphConv):
+        slots.update(_linear(path + ("weight",), conv.linear))
+        if conv.bias is not None:
+            slots[path + ("bias",)] = (conv.bias, False)
+    elif isinstance(conv, GATv2Conv):
+        for name in ("fc_src", "fc_dst", "res_fc"):
+            if getattr(conv, name) is not None:
+                slots.update(_linear(path + (name,), getattr(conv, name)))
+        slots[path + ("attn",)] = (conv.attn, False)
+    elif isinstance(conv, SAGEConv):
+        for name in ("fc_pool", "fc_self", "fc_neigh"):
+            slots.update(_linear(path + (name,), getattr(conv, name)))
+    elif isinstance(conv, PNAConv):
+        one = conv.num_towers == 1
+        for t in range(conv.num_towers):
+            slots.update(_linear(path + ("M" if one else f"M_{t}",),
+                                 conv.M[t]))
+            slots.update(_linear(path + ("U" if one else f"U_{t}",),
+                                 conv.U[t]))
+        if conv.mixing is not None:
+            slots.update(_linear(path + ("mixing",), conv.mixing))
+    elif isinstance(conv, (GINConv, GINEConv)):
+        if isinstance(conv.eps, nn.Parameter):
+            slots[path + ("eps",)] = (conv.eps, False)
+        if isinstance(conv.apply_func, MLP):
+            slots.update(_mlp_slots(path + ("apply_func",),
+                                    conv.apply_func))
+        elif isinstance(conv.apply_func, nn.Module):
+            raise TypeError(f"no bridge for the apply function "
+                            f"{type(conv.apply_func).__name__}")
+    else:
+        raise TypeError(f"no bridge for {type(conv).__name__}")
+    return slots
+
+
+def _harness_slots(model, embeddings: tuple, head: str) -> dict:
+    """flax path -> (torch tensor, transpose) for a DictionaryLookup or
+    HeteroEdgeCount model."""
+    slots = {}
+    for name in embeddings:
+        slots.update(_embed(("params", name), getattr(model, name)))
+    sigma = getattr(model, "activation", None)
+    if sigma is not None:  # DictionaryLookup SIR's shared σ-MLP
+        slots.update(_linear(("params", "activation_linear"), sigma.linear))
+    for i, conv in enumerate(model.convs):
+        if isinstance(conv, (SIRConv, SIREConv)):
+            slots.update(_conv_slots(("params", f"conv_{i}"), conv))
+        elif isinstance(conv, GINConv):
+            slots.update(_mlp_slots(("params", f"mlp_{i}"), conv.apply_func))
+        else:
+            slots.update(_zoo_slots(("params", f"conv_{i}"), conv))
+    slots.update(_linear(("params", head), getattr(model, head)))
+    return slots
+
+
 def _sir_model_slots(model) -> dict:
     """flax path -> (torch tensor, transpose) for an ogbn-arxiv SIRModel."""
     slots = _linear(("params", "embedding"), model.embedding)
@@ -103,15 +222,27 @@ def _slots(model: nn.Module) -> dict:
         return _conv_slots(("params",), model)
     if isinstance(model, Embed):
         return _embed(("params",), model)
+    if isinstance(model, MLP):
+        return _mlp_slots(("params",), model)
+    if isinstance(model, (GraphConv, GATv2Conv, SAGEConv, PNAConv, GINConv,
+                          GINEConv)):
+        return _zoo_slots(("params",), model)
+    if hasattr(model, "key_embedding"):
+        return _harness_slots(model, ("key_embedding", "val_embedding"),
+                              "classifier")
+    if isinstance(getattr(model, "embedding", None), Embed):
+        return _harness_slots(model, ("embedding",), "regression")
     return _sir_model_slots(model)
 
 
 def load_jax_variables(model: nn.Module, variables: dict) -> None:
-    """Copy the flax ``variables`` of a JAX ``SIRModel``, ``SIRConv``,
-    ``SIREConv`` or ``Embed`` into its port ``model``, in place. A model
-    with ``SIRModel``'s attribute names (``embedding``, ``convs``,
-    ``norms``, ``readout``), such as the benchmark's SIREConv model, takes
-    the ``SIRModel`` layout."""
+    """Copy the flax ``variables`` of a JAX model or layer into its port
+    ``model``, in place: the ogbn-arxiv ``SIRModel``, the twelve
+    DictionaryLookup and HeteroEdgeCount models, ``SIRConv``,
+    ``SIREConv``, a zoo conv, ``MLP`` or ``Embed``. A model with the
+    arxiv ``SIRModel``'s attribute names (``embedding`` a ``Linear``,
+    ``convs``, ``norms``, ``readout``), such as the benchmark's SIREConv
+    model, takes that layout."""
     slots = _slots(model)
     given = _flatten(variables)
     missing = sorted("/".join(k) for k in slots.keys() - given.keys())
