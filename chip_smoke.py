@@ -107,6 +107,21 @@ Phases, each printed as it runs; any failure exits non-zero:
            of DL SIR and of HEC SIR (with and without its collation); (d)
            the twelve models of both harnesses, two layers at full width,
            one forward and backward on the card against the CPU
+  batched  the four batched-graph workloads through their entry points
+           (their batches take the CSR aggregate, no kernel of the
+           port): (a) the README commands zinc --norm gn
+           --jumping-knowledge --residual (1,000 molecules, batch 128),
+           ogbg_molhiv --virtual-node --flag (1,000 molecules, batch 512,
+           m = 3), sbm --dataset PATTERN (500 graphs, batch 128) and
+           super_pixel --dataset MNIST --use-feature (500 graphs, batch
+           128), hidden 64, 4 layers, 3 epochs each: epochs, run time,
+           median synced train step, the median batch wait with prefetch
+           and collation without, peak memory; a profiled warm train step
+           of each, with and without its batch's collation; (b) eleven
+           models (the four, zinc edge max, molhiv centrality + edge +
+           JK, molhiv GIN with a virtual node, zinc cn and ln, sbm GAT,
+           zinc GIN) one step on the card against the CPU; (c) the launch
+           counters at 0 around (a), the profiles and (b)'s card steps
 
 The last line is the JSON contract line; the line before it lists each
 kernel's launches on the main path, error, times and bound. Needs a CUDA
@@ -124,6 +139,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 FWD_TOL = dict(atol=2e-4, rtol=1e-4)
 BWD_TOL = dict(atol=3e-4, rtol=1e-3)
@@ -239,9 +255,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def compare(label, got, want, tol, keep=None) -> float:
+def compare(label, got, want, tol, keep=None, quiet=False) -> float:
     """Max abs error of ``got`` against ``want``; raises past ``tol``. With
-    ``keep`` (bool over the first dim) only those rows are compared."""
+    ``keep`` (bool over the first dim) only those rows are compared; with
+    ``quiet`` it logs only a failure."""
     import torch
 
     got, want = got.float(), want.float()
@@ -254,8 +271,10 @@ def compare(label, got, want, tol, keep=None) -> float:
     rel = float((diff / want.abs().clamp_min(1e-12)).max())
     atol = tol["atol"] + tol.get("amax", 0.0) * float(want.abs().max())
     ok = bool((diff <= atol + tol["rtol"] * want.abs()).all())
-    log(f"  {label}: max abs err {err:.3e}, max rel err {rel:.3e} "
-        f"(atol {atol:.3g}, rtol {tol['rtol']}) {'ok' if ok else 'FAIL'}")
+    if not (quiet and ok):
+        log(f"  {label}: max abs err {err:.3e}, max rel err {rel:.3e} "
+            f"(atol {atol:.3g}, rtol {tol['rtol']}) "
+            f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label} disagrees with its plain version")
     return err
@@ -2574,6 +2593,262 @@ def phase_oracles(device):
     log(f"== oracles ok in {time.perf_counter() - t0:.1f} s")
 
 
+# the batched phase: the README commands of the four batched-graph
+# workloads, 3 epochs each, at the harnesses' default widths (hidden 64,
+# 4 layers) and synthetic sizes
+BATCHED_EPOCHS = ["--epochs", "3", "--nruns", "1", "--log-every", "1",
+                  "--seed", "0"]
+BATCHED_RUNS = (
+    ("zinc", ["--norm", "gn", "--jumping-knowledge", "--residual"]),
+    ("ogbg_molhiv", ["--virtual-node", "--flag"]),
+    ("sbm", ["--dataset", "PATTERN"]),
+    ("super_pixel", ["--dataset", "MNIST", "--use-feature"]),
+)
+# (b): each README model and the other forms, one step card against CPU
+BATCHED_MODELS = BATCHED_RUNS + (
+    ("zinc", ["--use-edge-feats", "--agg-type", "max"]),
+    ("ogbg_molhiv", ["--centrality-encoder", "--use-edge-feats",
+                     "--readout-layers", "1", "--jumping-knowledge"]),
+    ("ogbg_molhiv", ["--model", "GIN", "--virtual-node"]),
+    ("zinc", ["--norm", "cn"]),
+    ("zinc", ["--norm", "ln"]),
+    ("sbm", ["--model", "GAT"]),
+    ("zinc", ["--model", "GIN"]),
+)
+
+
+def batched_module(name):
+    import importlib
+
+    return importlib.import_module(
+        f"sir_gcn_tpu_torch.experiments.{name}.train")
+
+
+def batched_setup(name, flags, device, seed: int = 0):
+    """The model of ``flags`` for harness ``name`` on ``device`` (weights
+    from ``seed``), its first training batch of the default synthetic
+    data as a host batch, and (model, batch -> (preds, loss), host batch,
+    collection, train indices). Dropout rates are the flags' (0 in
+    every flag set here)."""
+    import torch
+
+    from sir_gcn_tpu_torch.data import GraphCollection
+
+    mod = batched_module(name)
+    args = mod._parser().parse_args(flags)
+    gen = torch.Generator().manual_seed(seed)
+    if name == "zinc":
+        graphs, nf, ef, lab, (tr, _, _), _ = mod.load_zinc(args, seed)
+        coll = GraphCollection(graphs, node_feats=nf, edge_feats=ef,
+                               labels=lab)
+        model = mod.build_model(args, int(max(f.max() for f in nf)) + 1,
+                                int(max(f.max() for f in ef)) + 1, gen)
+        loss_fn, labels, edge = mod.l1_loss, "labels", args.use_edge_feats
+    elif name == "ogbg_molhiv":
+        graphs, nf, ef, lab, (tr, _, _), _ = mod.load_molhiv(args, seed)
+        coll = GraphCollection(graphs, node_feats=nf, edge_feats=ef,
+                               labels=lab)
+        deg = (mod.dataset_max_degree(graphs) if args.centrality_encoder
+               else args.max_degree)
+        model = mod.build_model(args, deg, gen)
+        loss_fn, labels, edge = mod.bce, "labels", True
+    elif name == "sbm":
+        graphs, nf, nl, (tr, _, _), vocab, classes = mod.load_sbm(args, seed)
+        coll = GraphCollection(graphs, node_feats=nf, node_labels=nl)
+        model = mod.build_model(args, vocab, classes, gen)
+        loss_fn = mod.make_weighted_ce(classes)
+        labels, edge = "node_labels", False
+    else:
+        graphs, nf, lab, (tr, _, _) = mod.load_superpixel(args, seed)
+        coll = GraphCollection(graphs, node_feats=nf, labels=lab)
+        model = mod.build_model(args, nf[0].shape[-1], mod.NUM_CLASSES, gen)
+        loss_fn, labels, edge = mod.ce_loss, "labels", False
+    weights = "node_weights" if labels == "node_labels" else "graph_weights"
+    label_dtype = (torch.int64 if name in ("sbm", "super_pixel")
+                   else torch.float32)
+
+    def forward(m, db):
+        a = [db["graph"], db["node_feats"]] + (
+            [db["edge_feats"]] if edge else [])
+        preds = m(*a)
+        return preds, loss_fn(preds, db[labels].to(label_dtype),
+                              db[weights])
+
+    host = coll.collate(tr[:args.batch_size], args.batch_size)
+    return SimpleNamespace(args=args, model=model.to(device),
+                           forward=forward, host=host, coll=coll, tr=tr,
+                           label_dtype=label_dtype, mod=mod)
+
+
+def batched_run(name, flags):
+    """(a) One README command through the port's entry point, every train
+    step timed between device syncs, launch counters at 0 before and read
+    after: no kernel may launch (the CSR aggregate, as JAX sends these
+    batches to XLA). Logs the run's epochs, seconds, median step, the
+    median wait for a prefetched batch and the median collation without
+    prefetch, and the peak memory; the test metric must be finite."""
+    import torch
+
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+
+    log(f"== batched (a) {name}: " + " ".join(flags + BATCHED_EPOCHS))
+    stats = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    _, (test,) = batched_module(name).main(flags + BATCHED_EPOCHS,
+                                           stats=stats, time_steps=True)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    (st,) = stats
+    step, wait, coll = st["step_ms"], st["wait_ms"], st["collate_ms"]
+    log(f"  {name}: test metric {test!r} after {st['epochs']} epochs in "
+        f"{st['seconds']:.2f} s; train step median "
+        f"{statistics.median(step):.3f} ms over {len(step)} steps (min "
+        f"{min(step):.3f}, max {max(step):.3f}); batch wait with prefetch "
+        f"median {statistics.median(wait):.3f} ms over {len(wait)}; "
+        f"collation without prefetch median {statistics.median(coll):.3f} "
+        f"ms over {len(coll)} (mean {statistics.fmean(coll):.3f}); peak "
+        f"memory {peak:.3f} GiB; kernel launches {launches}")
+    if launches:
+        raise AssertionError(f"{name}: the CSR route launched {launches}")
+    if not math.isfinite(test):
+        raise AssertionError(f"{name}: test metric {test!r}")
+
+
+def batched_profile(name, flags, device):
+    """One profiled warm train step of a README command's model on its
+    first batch, then the same with the batch's collation and copies in
+    each step; with --flag the FLAG step."""
+    import torch
+
+    from sir_gcn_tpu_torch.experiments.batched_harness import to_device
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.train import make_adamw
+
+    s = batched_setup(name, flags, device)
+    opt = make_adamw(s.model.parameters(), 1e-3)
+    gen = torch.Generator(device=device).manual_seed(0)
+    if name == "ogbg_molhiv":
+        flag_step = s.mod.make_train_step(s.model, opt, s.args)
+
+        def step(db):
+            flag_step(db, gen)
+    else:
+        def step(db):
+            s.model.train()
+            opt.zero_grad(set_to_none=True)
+            s.forward(s.model, db)[1].backward()
+            opt.step()
+
+    db = to_device(s.host, device, s.label_dtype)
+    bs = s.args.batch_size
+    reset_launch_counts()
+    log(f"== profile batched {name}: 5 warm train steps")
+    profile_steps(lambda: step(db), 5)
+    log(f"== profile batched {name}: 5 warm train steps, each with its "
+        f"batch's collation and copies")
+    profile_steps(lambda: step(to_device(s.coll.collate(s.tr[:bs], bs),
+                                         device, s.label_dtype)), 5)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    if launches:
+        raise AssertionError(f"{name}: the profiled steps launched "
+                             f"{launches}")
+
+
+def batched_card_against_cpu(device):
+    """(b) Each model of BATCHED_MODELS at full width on its harness's
+    first training batch: forward and backward of the harness's loss on
+    the CPU and twice on the card from the same weights (seed 0), dropout
+    off, in training mode. The card's first run is under
+    ``torch.use_deterministic_algorithms``, whose index_add sums each
+    segment in the CPU's order: out and loss at FWD_TOL, every weight
+    gradient at GW_TOL. The second takes the atomic adds the training
+    runs take: out and loss at FWD_TOL, and the gradients' largest
+    difference logged with the tensors past GW_TOL, not held to it: in
+    the atomics' order a sum can round to the other side of the leaky
+    kink at an input within rounding of 0, which scales that one entry's
+    gradient by 0.2 or 5 (seen on the zinc GraphNorm model). Neither card
+    run launches a kernel of the port (c)."""
+    import copy
+
+    import torch
+
+    from sir_gcn_tpu_torch.experiments.batched_harness import to_device
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+
+    cpu = torch.device("cpu")
+    log("== batched (b): one step card against CPU")
+    for name, flags in BATCHED_MODELS:
+        s = batched_setup(name, flags, cpu)
+        label = f"{name} {' '.join(flags)}"
+        runs = {}
+        for run, dev in (("cpu", cpu), ("ordered", device),
+                         ("atomic", device)):
+            torch.use_deterministic_algorithms(run == "ordered",
+                                               warn_only=True)
+            m = copy.deepcopy(s.model).to(dev).train()
+            reset_launch_counts()
+            out, loss = s.forward(m, to_device(s.host, dev, s.label_dtype))
+            loss.backward()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in LAUNCHES.items() if v}
+                if launches:
+                    raise AssertionError(f"{label}: launched {launches}")
+            runs[run] = (out.detach().cpu(), loss.detach().cpu(),
+                         {k: p.grad.cpu() for k, p in m.named_parameters()
+                          if p.grad is not None})
+        torch.use_deterministic_algorithms(False)
+        o_c, l_c, g_c = runs["cpu"]
+        log(f"  {label}: out {tuple(o_c.shape)}, card launches none")
+        for run in ("ordered", "atomic"):
+            o_g, l_g, g_g = runs[run]
+            if set(g_c) != set(g_g):
+                raise AssertionError(f"{label}: gradients of {sorted(g_c)} "
+                                     f"on the CPU, {sorted(g_g)} on the "
+                                     f"card")
+            compare(f"{label} {run} out", o_g, o_c, FWD_TOL)
+            compare(f"{label} {run} loss", l_g[None], l_c[None], FWD_TOL)
+            if run == "ordered":
+                errs = {k: compare(f"{label} grad {k}", g_g[k], g_c[k],
+                                   GW_TOL, quiet=True) for k in g_c}
+            else:
+                errs = {k: float((g_g[k] - g_c[k]).abs().max())
+                        for k in g_c}
+                past = [k for k in g_c if not gw_within(g_g[k], g_c[k])]
+            worst = max(errs, key=errs.get)
+            log(f"  {label} {run}: {len(errs)} weight gradients, the "
+                f"largest abs err {errs[worst]:.3e} ({worst})"
+                + (" within GW_TOL" if run == "ordered" else
+                   f"; past GW_TOL: {past or 'none'}"))
+
+
+def gw_within(got, want) -> bool:
+    """``got`` within GW_TOL of ``want``, as ``compare`` holds it."""
+    diff = (got.float() - want.float()).abs()
+    atol = GW_TOL["atol"] + GW_TOL["amax"] * float(want.abs().max())
+    return bool((diff <= atol + GW_TOL["rtol"] * want.abs()).all())
+
+
+def phase_batched(device):
+    """The batched-graph workloads on the card: (a) the four README
+    commands through their entry points, 3 epochs each, with (c) their
+    kernel launches at 0, and a profiled train step of each; (b) the
+    models one step card against CPU."""
+    import torch
+
+    t0 = time.perf_counter()
+    for name, flags in BATCHED_RUNS:
+        batched_run(name, flags)
+    for name, flags in BATCHED_RUNS:
+        batched_profile(name, flags, device)
+    torch.cuda.empty_cache()
+    batched_card_against_cpu(device)
+    log(f"== batched ok in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2616,6 +2891,7 @@ def main() -> int:
     phase_profile_sireconv(device, arxiv_fg)
     phase_profile_general(device, arxiv_fg)
     phase_oracles(device)
+    phase_batched(device)
     log(f"== all phases ok in {time.perf_counter() - t0:.1f}s")
 
     rows = []

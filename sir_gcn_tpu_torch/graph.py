@@ -74,6 +74,28 @@ class GraphBatch:
     def device(self) -> torch.device:
         return self.src.device
 
+    def batch_num_nodes(self) -> torch.Tensor:
+        """Number of real nodes per graph, float32 [G_pad] (0 for padded
+        graphs)."""
+        m = self.node_mask.to(torch.float32)
+        return m.new_zeros(self.g_pad).index_add(0, self.node2graph, m)
+
+    def broadcast_nodes(self, gfeat: torch.Tensor) -> torch.Tensor:
+        """Graph-level -> node-level broadcast (``dgl.broadcast_nodes``):
+        row ``node2graph[u]`` of ``gfeat`` for each node u."""
+        return gfeat.index_select(0, self.node2graph)
+
+    def to(self, device: torch.device | str) -> "GraphBatch":
+        """This graph with its tensors on ``device``, copied from the host
+        mirrors (the same object if it is there already)."""
+        device = torch.device(device)
+        here = self.device
+        if device.type == here.type and device.index in (None, here.index):
+            return self
+        return dataclasses.replace(
+            self, **{k: torch.from_numpy(v).to(device)
+                     for k, v in self.host.items()})
+
 
 def build_graph(
     src: np.ndarray,

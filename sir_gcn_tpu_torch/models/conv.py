@@ -32,6 +32,21 @@ def expand_as_pair(feat):
     return feat, feat
 
 
+def _relation(conv: nn.Module, hidden_dim: int, output_dim: int,
+              outer_bias: bool, agg_type: str, generator) -> None:
+    """W_R of a conv: for max the explicit ``relation_kernel`` [H, O] (the
+    JAX layout, for the per-edge product) and ``relation_bias`` [O], else
+    ``linear_relation``, applied per node after the aggregate."""
+    if agg_type == "max":
+        conv.relation_kernel = uniform_parameter(
+            (hidden_dim, output_dim), hidden_dim, generator)
+        conv.relation_bias = (uniform_parameter(
+            (output_dim,), hidden_dim, generator) if outer_bias else None)
+    else:
+        conv.linear_relation = Linear(hidden_dim, output_dim,
+                                      bias=outer_bias, generator=generator)
+
+
 class SIRConv(nn.Module):
     r"""h*_u = agg_{v in N(u)} W_R sigma(W_Q h_u + W_K h_v)
     (reference ``models/conv.py:7-67``), for agg_type sum, mean, sym or
@@ -51,17 +66,8 @@ class SIRConv(nn.Module):
                                    generator=generator)
         self.linear_key = Linear(input_dim, hidden_dim, bias=False,
                                  generator=generator)
-        if agg_type == "max":
-            # W_R [H, O] in the JAX layout, for the kernels' per-edge product
-            self.relation_kernel = uniform_parameter(
-                (hidden_dim, output_dim), hidden_dim, generator)
-            self.relation_bias = (uniform_parameter(
-                (output_dim,), hidden_dim, generator) if outer_bias
-                else None)
-        else:
-            self.linear_relation = Linear(hidden_dim, output_dim,
-                                          bias=outer_bias,
-                                          generator=generator)
+        _relation(self, hidden_dim, output_dim, outer_bias, agg_type,
+                  generator)
 
     def forward(self, graph, feat, *,
                 edge_mask: Optional[torch.Tensor] = None,
@@ -85,17 +91,23 @@ class SIRConv(nn.Module):
 
 class SIREConv(nn.Module):
     r"""h*_u = agg_{v in N(u)} W_R sigma(W_Q h_u + W_E h_uv + W_K h_v)
-    (reference ``models/conv.py:70-134``), for agg_type sum, mean or sym.
+    (reference ``models/conv.py:70-134``), for agg_type sum, mean, sym or
+    max.
 
     ``efeat`` [E, De] comes in original edge order; the layer takes it into
     sorted order through ``graph.edge_perm``. ``linear_edge`` (W_E, no
     bias) is replaced by ``edge_encoder`` when one is given (zinc's
-    SIREConv2 uses an ``Embed`` of discrete bond types). With the default
-    W_E and no active edge dropout (rate 0 or eval mode) the layer hands
+    SIREConv2 uses an ``Embed`` of discrete bond types, molhiv a
+    ``BondEncoder``). With the default W_E, a linear aggregation and no
+    active edge dropout (rate 0 or eval mode) the layer hands
     ``sir_aggregate`` the raw features and W_E [De, H], so the fused-edge
     kernels form the projection themselves, under a DropEdge ``edge_mask``
     too; otherwise it forms e, applies dropout and takes the ``e`` route.
-    Max with edge features is not yet ported."""
+    Max applies W_R per edge before the reduce, as ``SIRConv`` does, with
+    the explicit ``relation_kernel`` [H, O] and ``relation_bias`` [O]: on a
+    plain ``GraphBatch`` through the CSR aggregate; on a FastGraph a
+    registry sigma raises, since the edge-term forms of the max kernels
+    are not yet ported."""
 
     def __init__(self, input_dim: int, edge_dim: int, hidden_dim: int,
                  output_dim: int, activation, dropout: float = 0.0,
@@ -104,11 +116,7 @@ class SIREConv(nn.Module):
                  edge_encoder: Optional[nn.Module] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if agg_type == "max":
-            raise NotImplementedError(
-                "SIREConv with max aggregation (the edge-term forms of the "
-                "max kernels) is not yet ported")
-        if agg_type not in ("sum", "mean", "sym"):
+        if agg_type not in ("sum", "mean", "sym", "max"):
             raise NotImplementedError(f"agg_type = {agg_type} not implemented")
         self.activation = activation
         self.dropout = dropout
@@ -121,8 +129,8 @@ class SIREConv(nn.Module):
         self.linear_edge = (Linear(edge_dim, hidden_dim, bias=False,
                                    generator=generator)
                             if edge_encoder is None else None)
-        self.linear_relation = Linear(hidden_dim, output_dim,
-                                      bias=outer_bias, generator=generator)
+        _relation(self, hidden_dim, output_dim, outer_bias, agg_type,
+                  generator)
 
     def forward(self, graph, nfeat, efeat: torch.Tensor, *,
                 edge_mask: Optional[torch.Tensor] = None,
@@ -134,7 +142,7 @@ class SIREConv(nn.Module):
                            self.training, generator)
         edge_drop_off = self.dropout == 0.0 or not self.training
         if (self.edge_encoder is None and edge_drop_off
-                and efeat.dim() == 2):
+                and self.agg_type != "max" and efeat.dim() == 2):
             e_basis = efeat.index_select(0, graph.edge_perm)
             agg = mp.sir_aggregate(graph, eq, ek, self.activation,
                                    self.agg_type, e_basis=e_basis,
@@ -147,6 +155,50 @@ class SIREConv(nn.Module):
             e = self.linear_edge(efeat)
         e = apply_dropout(e, self.dropout, self.training, generator)
         e = e.index_select(0, graph.edge_perm)  # original -> sorted order
+        if self.agg_type == "max":
+            return mp.sir_aggregate(graph, eq, ek, self.activation, "max",
+                                    e=e, w_relation=self.relation_kernel,
+                                    b_relation=self.relation_bias,
+                                    edge_mask=edge_mask)
         agg = mp.sir_aggregate(graph, eq, ek, self.activation, self.agg_type,
                                e=e, edge_mask=edge_mask)
         return self.linear_relation(agg)
+
+
+class SIRConvBase(nn.Module):
+    r"""Generic form h*_u = agg_{v in N(u)} g([h_u || h_v]) for a row-wise
+    message module g (reference ``models/conv.py:137-177``), on
+    :func:`sir_aggregate_concat`."""
+
+    def __init__(self, message_func, agg_type: str = "sum"):
+        super().__init__()
+        self.message_func = message_func
+        self.agg_type = agg_type
+
+    def forward(self, graph, feat, *,
+                edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        feat_src, feat_dst = expand_as_pair(feat)
+        return mp.sir_aggregate_concat(graph, feat_dst, feat_src,
+                                       self.message_func, self.agg_type,
+                                       edge_mask=edge_mask)
+
+
+class SIREConvBase(nn.Module):
+    r"""Generic edge-feature form h*_u = agg g([h_u || h_v || h_uv])
+    (reference ``models/conv.py:180-221``). The columns follow the
+    reference's code, ``(edges.dst['eq'], edges.src['ek'],
+    edges.data['e'])`` (conv.py:201), so message-MLP weights carry over
+    column for column; ``efeat`` [E, De] comes in original edge order."""
+
+    def __init__(self, message_func, agg_type: str = "sum"):
+        super().__init__()
+        self.message_func = message_func
+        self.agg_type = agg_type
+
+    def forward(self, graph, nfeat, efeat: torch.Tensor, *,
+                edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        feat_src, feat_dst = expand_as_pair(nfeat)
+        e = efeat.index_select(0, graph.edge_perm)
+        return mp.sir_aggregate_concat(graph, feat_dst, feat_src,
+                                       self.message_func, self.agg_type,
+                                       e=e, edge_mask=edge_mask)

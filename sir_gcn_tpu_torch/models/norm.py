@@ -1,13 +1,54 @@
-"""Normalisation (port of ``sir_gcn_tpu/models/norm.py``): the masked
-BatchNorm, its graph adapter and the identities. Statistics cover real
-nodes only."""
+"""Normalisation zoo (port of ``sir_gcn_tpu/models/norm.py``; reference
+``models/norm.py``): GraphNorm, the masked BatchNorm, LayerNorm,
+ContraNorm, their ``(graph, feats)`` adapters and the identities.
+
+Every graph-aware norm computes its statistics over real nodes only, the
+static-shape form of the reference's exact per-graph statistics.
+"""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class GraphNorm(nn.Module):
+    """Per-graph normalisation with a learnable mean scale (reference
+    ``models/norm.py:7-29``): for each graph g,
+
+        out = weight * (x - mean_g(x) * mean_scale) / sqrt(var_g + eps)
+              + bias
+
+    with mean and var over g's real nodes; a graph slot with no node
+    counts as one node."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, use_bias: bool = True,
+                 use_mean_scale: bool = True):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+        self.mean_scale = (nn.Parameter(torch.ones(dim)) if use_mean_scale
+                           else None)
+
+    def forward(self, graph, feats: torch.Tensor) -> torch.Tensor:
+        g, n2g = graph.g_pad, graph.node2graph
+        mask = graph.node_mask.to(feats.dtype)[:, None]
+        n_per_graph = graph.batch_num_nodes().clamp_min(1.0)[:, None]
+        mean = feats.new_zeros(g, feats.shape[1]).index_add(
+            0, n2g, feats * mask) / n_per_graph
+        demean = graph.broadcast_nodes(mean)
+        if self.mean_scale is not None:
+            demean = demean * self.mean_scale
+        demean = feats - demean
+        var = feats.new_zeros(g, feats.shape[1]).index_add(
+            0, n2g, demean.square() * mask) / n_per_graph
+        out = self.weight * demean / graph.broadcast_nodes(
+            torch.sqrt(var + self.eps))
+        return out if self.bias is None else out + self.bias
 
 
 class MaskedBatchNorm(nn.Module):
@@ -48,6 +89,62 @@ class MaskedBatchNorm(nn.Module):
             + self.bias
 
 
+class LayerNorm(nn.Module):
+    """``nn.LayerNorm`` over the last axis with an elementwise affine, eps
+    1e-5 (flax's ``scale`` is ``weight`` here). Padding rows are
+    normalised too; nothing reads them."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, feats: torch.Tensor, *_) -> torch.Tensor:
+        return F.layer_norm(feats, feats.shape[-1:], self.weight, self.bias,
+                            self.eps)
+
+
+class ContraNorm(nn.Module):
+    """Feature-decorrelation norm (reference ``models/norm.py:32-45``):
+
+        W = softmax(X^T X / temp, axis=1)
+        X <- (1 + use_scale * scale) * X - scale * X W
+        X <- BatchNorm1d(X)
+
+    Padding rows are left out of the Gram matrix and of the BatchNorm
+    statistics."""
+
+    def __init__(self, dim: int, scale: float = 0.0, temp: float = 1.0,
+                 use_scale: bool = False):
+        super().__init__()
+        self.scale = scale
+        self.temp = temp
+        self.use_scale = use_scale
+        self.norm = MaskedBatchNorm(dim)
+
+    def forward(self, feats: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = feats if mask is None else feats * mask.to(feats.dtype)[:, None]
+        weights = torch.softmax((x.t() @ x) / self.temp, dim=1)
+        multiplier = 1.0 + int(self.use_scale) * self.scale
+        out = multiplier * feats - self.scale * (feats @ weights)
+        return self.norm(out, mask)
+
+
+class GraphContraNorm(nn.Module):
+    """``(graph, feats)`` adapter: ContraNorm over the graph's real
+    nodes."""
+
+    def __init__(self, dim: int, scale: float = 0.0, temp: float = 1.0,
+                 use_scale: bool = False):
+        super().__init__()
+        self.norm = ContraNorm(dim, scale, temp, use_scale)
+
+    def forward(self, graph, feats: torch.Tensor) -> torch.Tensor:
+        return self.norm(feats, graph.node_mask)
+
+
 class GraphBatchNorm(nn.Module):
     """``(graph, feats)`` adapter: BatchNorm over the graph's real nodes."""
 
@@ -59,19 +156,40 @@ class GraphBatchNorm(nn.Module):
         return self.norm(feats, graph.node_mask)
 
 
+class GraphLayerNorm(nn.Module):
+    """``(graph, feats)`` adapter of :class:`LayerNorm`."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = LayerNorm(dim)
+
+    def forward(self, graph, feats: torch.Tensor) -> torch.Tensor:
+        return self.norm(feats)
+
+
 class GraphIdentity(nn.Module):
     def forward(self, graph, feats: torch.Tensor) -> torch.Tensor:
         return feats
 
 
-def get_norm(norm: str, with_graph: bool, dim: int) -> nn.Module:
-    """'bn' or 'none', in the ``(graph, feats)`` signature with a graph
-    and the ``(feats)`` one without; gn, cn and ln are not yet ported."""
-    if norm not in ("gn", "cn", "bn", "ln", "none"):
-        raise NotImplementedError(f"norm = {norm} not implemented")
-    if norm not in ("bn", "none"):
-        raise NotImplementedError(
-            f"norm = {norm} (with_graph={with_graph}) is not yet ported")
+class Identity(nn.Module):
+    def forward(self, feats: torch.Tensor, *_) -> torch.Tensor:
+        return feats
+
+
+def get_norm(norm: str, with_graph: bool, dim: int, **kwargs) -> nn.Module:
+    """'gn', 'cn', 'bn', 'ln' or 'none' (reference ``models/norm.py:
+    68-82``): the ``(graph, feats)`` modules with a graph, the ``(feats,
+    mask)`` ones without; 'gn' needs a graph. ``kwargs`` go to the norm's
+    constructor ('none' takes none)."""
     if with_graph:
-        return GraphBatchNorm(dim) if norm == "bn" else GraphIdentity()
-    return MaskedBatchNorm(dim) if norm == "bn" else nn.Identity()
+        table = {"gn": GraphNorm, "cn": GraphContraNorm, "bn": GraphBatchNorm,
+                 "ln": GraphLayerNorm, "none": GraphIdentity}
+    else:
+        table = {"cn": ContraNorm, "bn": MaskedBatchNorm, "ln": LayerNorm,
+                 "none": Identity}
+    if norm not in table:
+        raise NotImplementedError(f"norm = {norm} not implemented")
+    if norm == "none":
+        return table[norm]()
+    return table[norm](dim, **kwargs)

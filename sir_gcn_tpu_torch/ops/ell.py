@@ -1113,8 +1113,10 @@ def ell_sir_aggregate_max(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
         return pure_ell_sir_aggregate_max(fg, eq, ek, w, b, activation, e=e,
                                           edge_mask=edge_mask)
     if e is not None:
-        raise NotImplementedError("max aggregation with edge features on "
-                                  "the kernels is not yet ported")
+        raise NotImplementedError(
+            "max aggregation with edge features on the kernels is not yet "
+            "ported (the edge-term forms of #9-#11, ROADMAP.md Queue B part "
+            "1 item 3)")
     act = _elementwise_only(act, "max")
     if b is None:
         b = w.new_zeros(w.shape[1])

@@ -1,6 +1,7 @@
 from .engine import (
     EpochDriver,
     aggregate_runs,
+    l1_l2_regularizer,
     make_adamw,
     param_count,
     resolve_device,

@@ -58,6 +58,18 @@ def set_lr_scale(opt: torch.optim.Optimizer, scale: float) -> None:
         group["lr"] = group["base_lr"] * scale
 
 
+def l1_l2_regularizer(model: nn.Module, l1: float, l2: float):
+    """Reference ``regularizer`` (``benchmark-datasets/ogbn-arxiv/
+    train.py:66-69``): l1 * sum|w| + l2 * sum w^2 over every parameter;
+    the float 0.0 when both are 0."""
+    reg = 0.0
+    if l1 > 0:
+        reg = reg + l1 * sum(p.abs().sum() for p in model.parameters())
+    if l2 > 0:
+        reg = reg + l2 * sum(p.square().sum() for p in model.parameters())
+    return reg
+
+
 def param_count(model: nn.Module) -> int:
     """Parameters of ``model``, each shared one counted once."""
     return int(sum(p.numel() for p in model.parameters()))

@@ -45,6 +45,26 @@ HeteroEdgeCount models hold ``params/embedding/embedding``,
 model's MLPs are the model's own, ``params/mlp_i/...``, beside a
 parameter-free ``conv_i``.
 
+The norms sit under their class's flax name with the index of their
+layer (``GraphNorm_i``, ``GraphContraNorm_i/ContraNorm_0/norm``,
+``GraphBatchNorm_i/MaskedBatchNorm_0``,
+``GraphLayerNorm_i/LayerNorm_0/LayerNorm_0``; without a graph
+``ContraNorm_j/norm``, ``MaskedBatchNorm_j``, ``LayerNorm_j/LayerNorm_0``):
+GraphNorm holds ``weight``, ``bias`` and ``mean_scale``, each BatchNorm
+``weight``, ``bias`` and the ``batch_stats`` ``mean`` and ``var``, flax's
+LayerNorm ``scale`` (the torch ``weight``) and ``bias``.
+
+The batched-graph models (``experiments/common_models.py``) hold
+``node_encoder/embedding`` (an ``Embed`` encoder), ``resid_i``,
+``conv_i`` (SIREConv's edge encoder ``conv_i/edge_encoder_i``), the
+norms, ``comb_i`` (GIN's MLPs) and ``readout_i``. The molhiv models hold
+``embedding/embedding_k/embedding`` (AtomEncoder),
+``centrality/encoder_{in,out}/embedding``, ``vn/init_emb/embedding``,
+``vn_mlp``, ``conv_i`` (with ``conv_i/bond_i/embedding_k`` for its
+BondEncoder), ``bond_i`` and ``mlp_i`` (GIN), and ``readout`` (the
+MLPEgc's ``linear_k`` and BatchNorms ``norm_k``, or GIN's Linear) or
+``readout_i``.
+
 A flax ``kernel`` is [in, out] and a torch ``weight`` [out, in], so Dense
 kernels are transposed (``linear_edge``'s [De, H] kernel is the weight
 [H, De]); a max conv's ``relation_kernel`` and an ``embedding`` table keep
@@ -59,19 +79,31 @@ from torch import nn
 
 from ..models import (
     MLP,
+    AtomEncoder,
+    BondEncoder,
+    CentralityEncoder,
+    ContraNorm,
     Embed,
     GATv2Conv,
     GINConv,
     GINEConv,
     GraphBatchNorm,
+    GraphContraNorm,
     GraphConv,
+    GraphIdentity,
+    GraphLayerNorm,
+    GraphNorm,
+    Identity,
+    LayerNorm,
     Linear,
     MaskedBatchNorm,
     PNAConv,
     SAGEConv,
     SIRConv,
     SIREConv,
+    VirtualNode,
 )
+from ..models.encoders import _SumEncoder
 
 
 def _flatten(tree, prefix=()) -> dict:
@@ -95,19 +127,32 @@ def _embed(path, mod: Embed) -> dict:
     return {path + ("embedding",): (mod.embedding, False)}
 
 
-def _conv_slots(path, conv) -> dict:
-    """flax path -> (torch tensor, transpose) for a SIRConv or SIREConv."""
+def _sum_encoder(path, enc: _SumEncoder) -> dict:
+    """An AtomEncoder or BondEncoder: one table per feature column."""
+    slots = {}
+    for k, emb in enumerate(enc.embeddings):
+        slots.update(_embed(path + (f"embedding_{k}",), emb))
+    return slots
+
+
+def _conv_slots(path, conv, edge_name: str = "edge_encoder") -> dict:
+    """flax path -> (torch tensor, transpose) for a SIRConv or SIREConv;
+    a SIREConv's edge encoder (an ``Embed`` or a ``BondEncoder``) under
+    ``edge_name``."""
     slots = {}
     for name in ("linear_query", "linear_key"):
         slots.update(_linear(path + (name,), getattr(conv, name)))
     if isinstance(conv, SIREConv):
-        if conv.edge_encoder is None:
+        enc = conv.edge_encoder
+        if enc is None:
             slots.update(_linear(path + ("linear_edge",), conv.linear_edge))
-        elif isinstance(conv.edge_encoder, Embed):
-            slots.update(_embed(path + ("edge_encoder",), conv.edge_encoder))
+        elif isinstance(enc, Embed):
+            slots.update(_embed(path + (edge_name,), enc))
+        elif isinstance(enc, _SumEncoder):
+            slots.update(_sum_encoder(path + (edge_name,), enc))
         else:
             raise TypeError(f"no bridge for the edge encoder "
-                            f"{type(conv.edge_encoder).__name__}")
+                            f"{type(enc).__name__}")
     if conv.agg_type == "max":
         slots[path + ("relation_kernel",)] = (conv.relation_kernel, False)
         if conv.relation_bias is not None:
@@ -125,19 +170,43 @@ def _batch_norm(params, stats, bn: MaskedBatchNorm) -> dict:
             stats + ("var",): (bn.running_var, False)}
 
 
+def _norm_slots(path, norm) -> dict:
+    """flax path -> (torch tensor, transpose) for a norm whose own flax
+    path is ``path`` = ("params", ...)."""
+    stats = ("batch_stats",) + path[1:]
+    if isinstance(norm, GraphNorm):
+        slots = {path + ("weight",): (norm.weight, False)}
+        for name in ("bias", "mean_scale"):
+            if getattr(norm, name) is not None:
+                slots[path + (name,)] = (getattr(norm, name), False)
+        return slots
+    if isinstance(norm, MaskedBatchNorm):
+        return _batch_norm(path, stats, norm)
+    if isinstance(norm, LayerNorm):
+        node = path + ("LayerNorm_0",)
+        return {node + ("scale",): (norm.weight, False),
+                node + ("bias",): (norm.bias, False)}
+    inner = {GraphBatchNorm: "MaskedBatchNorm_0", ContraNorm: "norm",
+             GraphContraNorm: "ContraNorm_0", GraphLayerNorm: "LayerNorm_0"}
+    if type(norm) in inner:
+        return _norm_slots(path + (inner[type(norm)],), norm.norm)
+    if isinstance(norm, (Identity, GraphIdentity)):
+        return {}
+    raise TypeError(f"no bridge for the norm {type(norm).__name__}")
+
+
+def _named_norm(path, j: int, norm) -> dict:
+    """A norm made in a flax compact method, as ``{class name}_{j}``."""
+    return _norm_slots(path + (f"{type(norm).__name__}_{j}",), norm)
+
+
 def _mlp_slots(path, mlp: MLP) -> dict:
     """``path`` = ("params", ...) of an MLP."""
     slots = {}
     for j, linear in enumerate(mlp.linears):
         slots.update(_linear(path + (f"linear_{j}",), linear))
-    stats = ("batch_stats",) + path[1:]
     for j, norm in enumerate(mlp.norms):
-        if isinstance(norm, GraphBatchNorm):
-            node = (f"GraphBatchNorm_{j}", "MaskedBatchNorm_0")
-            slots.update(_batch_norm(path + node, stats + node, norm.norm))
-        elif isinstance(norm, MaskedBatchNorm):
-            node = (f"MaskedBatchNorm_{j}",)
-            slots.update(_batch_norm(path + node, stats + node, norm))
+        slots.update(_named_norm(path, j, norm))
     return slots
 
 
@@ -205,19 +274,114 @@ def _sir_model_slots(model) -> dict:
     for i, conv in enumerate(model.convs):
         slots.update(_conv_slots(("params", f"conv_{i}"), conv))
     for i, norm in enumerate(model.norms):
-        if isinstance(norm, GraphBatchNorm):
-            bn, node = norm.norm, (f"GraphBatchNorm_{i}", "MaskedBatchNorm_0")
-            slots[("params",) + node + ("weight",)] = (bn.weight, False)
-            slots[("params",) + node + ("bias",)] = (bn.bias, False)
-            slots[("batch_stats",) + node + ("mean",)] = (bn.running_mean,
-                                                          False)
-            slots[("batch_stats",) + node + ("var",)] = (bn.running_var,
-                                                         False)
+        slots.update(_named_norm(("params",), i, norm))
     slots.update(_linear(("params", "readout"), model.readout))
     return slots
 
 
+def _graph_model_slots(model) -> dict:
+    """flax path -> (torch tensor, transpose) for a GraphSIRModel,
+    GraphGINModel or GraphGATModel."""
+    from ..experiments.common_models import GraphGINModel
+
+    p = ("params",)
+    slots = {}
+    if isinstance(model.encoder, Embed):
+        slots.update(_embed(p + ("node_encoder",), model.encoder))
+    for i, mlp in enumerate(getattr(model, "resids", ())):
+        slots.update(_mlp_slots(p + (f"resid_{i}",), mlp))
+    if isinstance(model, GraphGINModel):
+        for i, comb in enumerate(model.combs):
+            slots.update(_mlp_slots(p + (f"comb_{i}",), comb))
+    else:
+        for i, (conv, norm) in enumerate(zip(model.convs, model.norms)):
+            if isinstance(conv, GATv2Conv):
+                slots.update(_zoo_slots(p + (f"conv_{i}",), conv))
+            else:
+                slots.update(_conv_slots(p + (f"conv_{i}",), conv,
+                                         f"edge_encoder_{i}"))
+            slots.update(_named_norm(p, i, norm))
+    for i, mlp in enumerate(model.readouts):
+        slots.update(_mlp_slots(p + (f"readout_{i}",), mlp))
+    return slots
+
+
+def _vn_slots(vn: VirtualNode, path, mlp_path) -> dict:
+    """A VirtualNode at ``path``, its MLP at ``mlp_path``."""
+    slots = {}
+    if vn.init_emb is not None:
+        slots.update(_embed(path + ("init_emb",), vn.init_emb))
+    if vn.mod_emb is not None:
+        slots.update(_mlp_slots(mlp_path, vn.mod_emb))
+    return slots
+
+
+def _molhiv_slots(model) -> dict:
+    """flax path -> (torch tensor, transpose) for the molhiv SIRModel or
+    GINModel."""
+    from ..experiments.ogbg_molhiv.model import GINModel
+
+    p = ("params",)
+    slots = _sum_encoder(p + ("embedding",), model.embedding)
+    slots.update(_vn_slots(model.vn, p + ("vn",), p + ("vn_mlp",)))
+    if isinstance(model, GINModel):
+        for i, (bond, mlp) in enumerate(zip(model.bonds, model.mlps)):
+            slots.update(_sum_encoder(p + (f"bond_{i}",), bond))
+            slots.update(_mlp_slots(p + (f"mlp_{i}",), mlp))
+        slots.update(_linear(p + ("readout",), model.readout))
+        return slots
+    for name in ("encoder_in", "encoder_out"):
+        enc = getattr(model.centrality, name)
+        if enc is not None:
+            slots.update(_embed(p + ("centrality", name), enc))
+    for i, mlp in enumerate(model.resids):
+        slots.update(_mlp_slots(p + (f"resid_{i}",), mlp))
+    for i, (conv, norm) in enumerate(zip(model.convs, model.norms)):
+        slots.update(_conv_slots(p + (f"conv_{i}",), conv, f"bond_{i}"))
+        slots.update(_named_norm(p, i, norm))
+    if model.readouts is not None:
+        for i, mlp in enumerate(model.readouts):
+            slots.update(_mlp_slots(p + (f"readout_{i}",), mlp))
+    else:
+        slots.update(_egc_slots(p + ("readout",), model.readout))
+    return slots
+
+
+def _egc_slots(path, egc) -> dict:
+    """An MLPEgc: ``linear_k`` and the BatchNorms ``norm_k``."""
+    slots = {}
+    for k, linear in enumerate(egc.linears):
+        slots.update(_linear(path + (f"linear_{k}",), linear))
+    for k, bn in enumerate(egc.norms):
+        slots.update(_norm_slots(path + (f"norm_{k}",), bn))
+    return slots
+
+
 def _slots(model: nn.Module) -> dict:
+    from ..experiments import common_models
+    from ..experiments.ogbg_molhiv import model as molhiv
+
+    p = ("params",)
+    if isinstance(model, (common_models.GraphSIRModel,
+                          common_models.GraphGINModel,
+                          common_models.GraphGATModel)):
+        return _graph_model_slots(model)
+    if isinstance(model, (molhiv.SIRModel, molhiv.GINModel)):
+        return _molhiv_slots(model)
+    if isinstance(model, molhiv.MLPEgc):
+        return _egc_slots(p, model)
+    if isinstance(model, VirtualNode):
+        return _vn_slots(model, p, p + ("mod_emb",))
+    if isinstance(model, CentralityEncoder):
+        return {k: v for name in ("encoder_in", "encoder_out")
+                if getattr(model, name) is not None
+                for k, v in _embed(p + (name,), getattr(model, name)).items()}
+    if isinstance(model, (AtomEncoder, BondEncoder)):
+        return _sum_encoder(p, model)
+    if isinstance(model, (GraphNorm, MaskedBatchNorm, LayerNorm, ContraNorm,
+                          GraphBatchNorm, GraphContraNorm, GraphLayerNorm,
+                          Identity, GraphIdentity)):
+        return _norm_slots(p, model)
     if isinstance(model, (SIRConv, SIREConv)):
         return _conv_slots(("params",), model)
     if isinstance(model, Embed):
@@ -238,8 +402,12 @@ def _slots(model: nn.Module) -> dict:
 def load_jax_variables(model: nn.Module, variables: dict) -> None:
     """Copy the flax ``variables`` of a JAX model or layer into its port
     ``model``, in place: the ogbn-arxiv ``SIRModel``, the twelve
-    DictionaryLookup and HeteroEdgeCount models, ``SIRConv``,
-    ``SIREConv``, a zoo conv, ``MLP`` or ``Embed``. A model with the
+    DictionaryLookup and HeteroEdgeCount models, the batched-graph
+    models (``GraphSIRModel``, ``GraphGINModel``, ``GraphGATModel``), the
+    molhiv ``SIRModel``, ``GINModel`` and ``MLPEgc``, ``SIRConv``,
+    ``SIREConv``, a zoo conv, ``MLP``, a norm, ``VirtualNode`` (its MLP
+    as ``mod_emb``), ``CentralityEncoder``, ``AtomEncoder``,
+    ``BondEncoder`` or ``Embed``. A model with the
     arxiv ``SIRModel``'s attribute names (``embedding`` a ``Linear``,
     ``convs``, ``norms``, ``readout``), such as the benchmark's SIREConv
     model, takes that layout."""

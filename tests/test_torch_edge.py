@@ -454,19 +454,21 @@ def test_routes_reach_their_kernels(kernel_calls):
 
 def test_unported_edge_branches_raise():
     """What still raises: max with edge features on the kernels (a
-    registry sigma; the SIREConv max layer), and malformed edge
-    arguments. The branches that raised before this port had them now
-    compute, held against the JAX package's: e_basis under a DropEdge
-    mask (the fused kernels on dynamic scales), and a sigma outside the
-    registry with e (the pure ELL route)."""
+    registry sigma; the SIREConv max layer on a FastGraph, which computes
+    on a plain GraphBatch), and malformed edge arguments. The branches
+    that raised before this port had them now compute, held against the
+    JAX package's: e_basis under a DropEdge mask (the fused kernels on
+    dynamic scales), and a sigma outside the registry with e (the pure
+    ELL route)."""
     import jax
     import jax.numpy as jnp
 
     jell, _, jact, _ = jax_side("f32")
     c = make_case("random", de=5)
     eq, ek, e, eb, we = (_t(a) for a in (c.eq, c.ek, c.e, c.eb, c.we))
+    x = _t(np.random.default_rng(9).normal(size=(c.tfg.n_pad, 12)))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        _conv(agg="max")
+        _conv(agg="max")(c.tfg, x, _t(c.eb[:c.tfg.graph.num_edges]))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tmp.sir_aggregate(c.tfg, eq, ek, ACT, "max", e_basis=eb, w_edge=we,
                           w_relation=torch.zeros(H, H))

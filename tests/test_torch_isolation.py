@@ -59,3 +59,37 @@ def test_trainer_without_cpu_flag_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(["--epochs", "1", "--nruns", "1",
                      "--synthetic-nodes", "64", "--synthetic-edges", "128"])
+
+
+BATCHED = ("experiments/batched_harness.py", "experiments/common_models.py",
+           "experiments/zinc/train.py", "experiments/zinc/model.py",
+           "experiments/ogbg_molhiv/train.py",
+           "experiments/ogbg_molhiv/model.py",
+           "experiments/ogbg_molhiv/fingerprint.py",
+           "experiments/sbm/train.py", "experiments/super_pixel/train.py",
+           "data/prefetch.py", "models/encoders.py")
+
+
+def test_the_batched_workloads_are_in_the_walk():
+    """The import walks above reach the batched-graph workloads and the
+    layers they brought (each a package module, so walk_packages imports
+    it)."""
+    files = {p.relative_to(ROOT / "sir_gcn_tpu_torch").as_posix()
+             for p in _port_files()[:-2]}
+    assert set(BATCHED) <= files
+    for rel in BATCHED:
+        assert (ROOT / "sir_gcn_tpu_torch" / rel).parent.joinpath(
+            "__init__.py").exists(), rel
+
+
+@pytest.mark.parametrize("name", ["zinc", "ogbg_molhiv", "sbm",
+                                  "super_pixel"])
+def test_batched_entry_points_need_a_card(monkeypatch, name):
+    import importlib
+
+    train = importlib.import_module(
+        f"sir_gcn_tpu_torch.experiments.{name}.train")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--epochs", "1", "--nruns", "1", "--nhidden", "4",
+                    "--nlayers", "1", "--synthetic-samples", "20"])

@@ -306,9 +306,14 @@ def test_pna_rejects_unknown_forms():
 
 
 def test_mlp_rejects_unported_norms():
-    for norm in ("gn", "cn", "ln"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    """Every norm of the JAX package's ``get_norm`` is ported; what it
+    rejects the port rejects: GraphNorm without a graph, an unknown
+    name."""
+    for norm in ("gn", "foo"):
+        with pytest.raises(NotImplementedError, match=norm):
             MLP(4, 4, 4, 2, norm=norm, with_graph=False)
+    for norm in ("cn", "ln"):
+        assert len(MLP(4, 4, 4, 2, norm=norm, with_graph=False).norms) == 2
 
 
 def test_bridge_rejects_missing_zoo_keys():
