@@ -31,7 +31,12 @@ Phases, each printed as it runs; any failure exits non-zero:
            #5 also with leaky_relu(0.2) and tanh, timed in bf16 with #6
            beside it on its first design; or the first design); where
            #3 and #6 both take the lane-group path, #6's rows must be #3's
-           bits
+           bits; erf-GELU (the registry's gelu(), sigma id 4) on the
+           small plans, at the arxiv plan in f32 and bf16 (bf16 timed
+           beside leaky_relu) and at H = O = 512 on a plan of the
+           heterophilous minesweeper's size (10,000 nodes, 78,804 edges),
+           beside leaky_relu(0.2), for #1, #2, #4, their edge forms, #7,
+           #8 and #9-#12 (near ties masked for max)
   train    the arxiv trainer's entry point at full width (169,343 nodes,
            H = 96, 3 layers, bn, residual, bf16 edges), once with sym and
            once with max aggregation, 5 steps and evals each, with the
@@ -90,11 +95,31 @@ Phases, each printed as it runs; any failure exits non-zero:
   pure     one forward and backward of the pure ELL route with a sigma
            that holds a tensor (erf-GELU times a per-feature gain: JAX's
            XLA route) at the arxiv plan beside the kernel route's with
-           leaky_relu; a parameter-free sigma outside the registry raises
+           leaky_relu; a parameter-free sigma outside the registry
+           (F.gelu) raises, and so does the registry's erf-GELU declared
+           non-elementwise (the general route), before any launch
   profile  device time by kernel over warm training steps of each train,
            dropedge, sireconv and general configuration (torch.profiler;
            dropedge's beside sym's, kernel by kernel), and the device's
            idle share
+  fullgraph the full-graph workloads through their entry points on
+           synthetic stand-ins at the published sizes, the launch
+           counters at 0 before and read after each run, each kernel's
+           count exact: (b) heterophilous --dataset roman-empire
+           --agg-type max (22,662 nodes, 65,854 edges; hidden 512, 5
+           layers, 3 epochs: #9-#12 with erf-GELU), (a) heterophilous
+           --dataset minesweeper --use-amp (10,000 nodes, 78,804 edges;
+           5 epochs: #2, #4 and #1 with erf-GELU), (c) wiki-cs
+           --jumping-knowledge --resid-layers 1 (11,701 nodes, 431,726
+           edges; hidden 64, 4 layers, 5 epochs: #1, #2, #4 with
+           leaky_relu) and its --model GAT (no kernel): epochs, run time,
+           median synced train step and eval, peak memory, the test
+           metric; a profiled warm train step of (a); (d) the
+           heterophilous SIRModel (2 layers, hidden 512, ln, residual,
+           bf16 inputs) with mean and with max, wiki-cs's JK
+           GraphSIRModel and GATModel, one step card against CPU; then
+           one SIREConv with erf-GELU on the arxiv plan, 2 steps and
+           evals on each edge route (the edge kernels' erf-GELU forms)
   oracles  the two synthetic oracles through their entry points, with
            the launch counters at 0 before and after each run (their
            batches take the CSR aggregate, no kernel of the port): (a)
@@ -243,6 +268,16 @@ GENERAL = ("ell_act_reduce_rowwise", "ell_geq_reduce", "ell_src_bwd_rowwise")
 BWD = ("ell_src_bwd_fused", "ell_act_reduce_bwd")
 LAB = tuple(k for k in KERNELS if k.startswith("lab_"))
 EDGE_DIM = 16  # the edge basis width of the SIREConv configuration
+# the kernels with an erf-GELU form (sigma id 4): each is a row of its own
+# in the kernels line, "<name>[gelu]", timed at the arxiv plan beside the
+# leaky_relu form, its launches those of the fullgraph phase's runs
+GELU = LINEAR + EDGE + MAX[:3]
+# the heterophilous plan of the kernels phase: minesweeper's size
+# (10,000 nodes, 39,402 undirected edges: Platonov et al. 2023, Table 1),
+# H = O = 512, the heterophilous default width; De = 8 for #7 and #8
+# (#8 at De = 16 needs nine [16, 512] f32 tables, 288 KiB, in a block's
+# shared memory, more than the 227 KiB it has, and raises)
+HETERO_NODES, HETERO_EDGES, HETERO_H, HETERO_DE = 10_000, 78_804, 512, 8
 
 
 def flags_for(agg: str) -> list:
@@ -955,6 +990,7 @@ def phase_kernels(device):
     )
     from sir_gcn_tpu_torch.ops.ell import (
         centered_relu,
+        gelu,
         leaky_relu,
         slot_scale,
         softmax,
@@ -962,8 +998,9 @@ def phase_kernels(device):
     )
 
     log("== kernels")
-    errs = {}
-    acts = (leaky_relu(0.2), tanh)
+    errs, gelu_errs = {}, {}  # gelu_errs: the erf-GELU forms'
+    acts = (leaky_relu(0.2), tanh, gelu())
+    errs_for = lambda act: gelu_errs if act.name == "gelu" else errs
     dtypes = (torch.float32, torch.bfloat16)
     general_acts = (centered_relu(0.5), softmax,
                     dataclasses.replace(tanh, sir_elementwise=False))
@@ -973,7 +1010,7 @@ def phase_kernels(device):
         for act in acts:
             for dtype in dtypes:
                 check_kernels(f"{graph} H={h} {act.name} {dtype}", *case,
-                              act, dtype, errs)
+                              act, dtype, errs_for(act))
     for graph, h, de in (("hub", 24, 5), ("random", 96, 16),
                          ("isolated", 200, 16), ("isolated", 24, 16),
                          ("random", 200, 5), ("random", 20, 5),
@@ -986,7 +1023,7 @@ def phase_kernels(device):
             for dtype in dtypes:
                 check_edge_kernels(f"{graph} H={h} De={de} {act.name} "
                                    f"{dtype}", *case, *tables, act, dtype,
-                                   errs)
+                                   errs_for(act))
     for graph, h, o in (("hub", 24, 40), ("random", 96, 96),
                         ("random", 200, 200), ("ties", 32, 24),
                         ("random", 36, 100)):
@@ -994,7 +1031,7 @@ def phase_kernels(device):
         for act in acts:
             for dtype in dtypes:
                 check_max_kernels(f"{graph} H={h} O={o} {act.name} {dtype}",
-                                  *case, act, dtype, errs)
+                                  *case, act, dtype, errs_for(act))
     for graph, h in (("hub", 24), ("random", 96), ("isolated", 200)):
         case = general_case(graph, h, device)
         for act in general_acts:
@@ -1038,8 +1075,9 @@ def phase_kernels(device):
         # #5 on its lane-group path for the elementwise sigmas too:
         # leaky_relu(0.2) is the arxiv SIRModel's, which JAX's fused
         # backward runs (the elementwise route, padded to 128 lanes); #6
-        # beside it, its path logged (its first design there)
-        for act in acts:
+        # beside it, its path logged (its first design there); the general
+        # route's kernels take no erf-GELU
+        for act in acts[:2]:
             check_general_kernels(
                 f"arxiv {dtype} {act.name}", fg, eq, ek, g, sd, ss, act,
                 dtype, errs, require_group=("ell_src_bwd_fused",),
@@ -1061,6 +1099,26 @@ def phase_kernels(device):
             f"against {timing[name]['ms']:.4f} ms on the static ones "
             f"({100 * (t['ms'] / timing[name]['ms'] - 1):+.1f}%)")
     del mask, dsd, dss
+    # erf-GELU at the arxiv plan in f32 and bf16, the bf16 forms timed
+    gelu_timing = {}
+    for dtype in dtypes:
+        keep = gelu_timing if dtype == torch.bfloat16 else None
+        check_kernels(f"arxiv {dtype} gelu", fg, eq, ek, g, sd, ss, gelu(),
+                      dtype, gelu_errs, timing=keep,
+                      require_vector=True)
+        check_edge_kernels(f"arxiv {dtype} gelu", fg, eq, ek, g, sd, ss,
+                           *tables, gelu(), dtype, gelu_errs,
+                           timing=keep, require_vector=True)
+        check_max_kernels(f"arxiv {dtype} gelu", fg, eq, ek, w, g,
+                          fg.dst_slot_scales["sum"], gelu(), dtype,
+                          gelu_errs, timing=keep,
+                          mask_near_ties=True)
+    for name, t in gelu_timing.items():
+        if name in GELU:
+            log(f"  {name} (bf16 edges) gelu {t['ms']:.4f} ms against "
+                f"leaky_relu {timing[name]['ms']:.4f} ms "
+                f"({100 * (t['ms'] / timing[name]['ms'] - 1):+.1f}%), plain "
+                f"{t['plain_ms']:.3f} ms")
     for name, t in timing.items():
         b_ms, by, nbytes, flops = t["bound"]
         log(f"  {name} (bf16 edges): {t['ms']:.4f} ms, plain "
@@ -1073,7 +1131,67 @@ def phase_kernels(device):
                 f"plain {t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} "
                 f"ms, {100 * t['bound'][0] / t['ms']:.1f}% of bound")
     del eq, ek, g, w, tables
+    hetero_kernels(device, errs, gelu_errs)
+    timing.update({f"{k}[gelu]": v for k, v in gelu_timing.items()
+                   if k in GELU})
+    errs.update({f"{k}[gelu]": v for k, v in gelu_errs.items() if k in GELU})
     return errs, timing, fg
+
+
+def hetero_kernels(device, errs, gelu_errs):
+    """The kernels with an erf-GELU form at H = O = 512 on a plan of the
+    heterophilous minesweeper's size (its synthetic stand-in, no self
+    loops): #1, #2 and #4 and their edge forms, #7 and #8 (De = 16, on the
+    shared-memory loop above H = 128; De = 8), #9-#12 with near ties
+    masked as at
+    the arxiv plan, in f32 and bf16; erf-GELU against its plain versions,
+    and leaky_relu(0.2) beside it, each timed (bf16) and logged with its
+    path."""
+    import torch
+
+    from sir_gcn_tpu_torch.data import synthetic_node_classification
+    from sir_gcn_tpu_torch.experiments.heterophilous import train as het
+    from sir_gcn_tpu_torch.ops.ell import gelu, leaky_relu
+
+    h = HETERO_H
+    args = het._parser().parse_args([
+        "--dataset", "minesweeper", "--synthetic-nodes", str(HETERO_NODES),
+        "--synthetic-edges", str(HETERO_EDGES)])
+    fg = het.prepare(args, 0, 0, device)["graph"]
+    gen = torch.Generator(device=device).manual_seed(4)
+    eq, ek, g = (torch.randn((fg.n_pad, h), generator=gen, device=device)
+                 for _ in range(3))
+    sd, ss = fg.dst_slot_scales["mean"], fg.src_slot_scales["mean"]
+    w = (torch.rand((h, h), generator=gen, device=device) * 2 - 1) / h**0.5
+    tables = edge_tables(fg, h, HETERO_DE, seed=4)
+    log(f"  heterophilous plan (minesweeper's size): N {fg.n_pad}, E_pad "
+        f"{fg.e_pad}, S_dst {fg.dst_plan.num_slots}, S_src "
+        f"{fg.src_plan.num_slots}, R1 {fg.dst_plan.num_rows}, H {h}, O {h}, "
+        f"De {HETERO_DE}, stage 2 {fg.dst_plan.s2_gather is not None}")
+    log_max_layout("heterophilous", h, h)
+    times = {}
+    for act in (gelu(), leaky_relu(0.2)):
+        tag = act.name
+        for dtype in (torch.float32, torch.bfloat16):
+            keep = (times.setdefault(tag, {}) if dtype == torch.bfloat16
+                    else None)
+            label = f"H={h} {dtype} {tag}"
+            e = gelu_errs if tag == "gelu" else errs
+            check_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, e,
+                          timing=keep, require_vector=True)
+            check_edge_kernels(label, fg, eq, ek, g, sd, ss, *tables, act,
+                               dtype, e, timing=keep)
+            check_max_kernels(label, fg, eq, ek, w, g,
+                              fg.dst_slot_scales["sum"], act, dtype, e,
+                              timing=keep, mask_near_ties=True)
+    for name in GELU:
+        t, lr = times["gelu"][name], times["leaky_relu"][name]
+        log(f"  {name} at H={h} (bf16): gelu {t['ms']:.4f} ms against "
+            f"leaky_relu {lr['ms']:.4f} ms "
+            f"({100 * (t['ms'] / lr['ms'] - 1):+.1f}%), plain "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} ms by "
+            f"{t['bound'][1]}, {100 * t['bound'][0] / t['ms']:.1f}% of bound")
+    del eq, ek, g, w, tables
 
 
 def expected_launches(agg: str, steps: int) -> dict:
@@ -1322,16 +1440,17 @@ def sireconv_inputs(fg, seed: int):
     return x.to(dev), ef.to(dev), w.to(dev)
 
 
-def make_sireconv(dropout: float, edge_encoder=None):
+def make_sireconv(dropout: float, edge_encoder=None, act=None):
     """The SIREConv of the sireconv phase: 96 in, De = 16, 96 hidden and
-    out, leaky_relu(0.2), sym; weights from seed 0."""
+    out, ``act`` (leaky_relu(0.2) by default), sym; weights from seed 0."""
     import torch
 
     from sir_gcn_tpu_torch.models import SIREConv
     from sir_gcn_tpu_torch.ops.ell import leaky_relu
 
-    return SIREConv(96, EDGE_DIM, 96, 96, leaky_relu(0.2), dropout=dropout,
-                    agg_type="sym", edge_encoder=edge_encoder,
+    return SIREConv(96, EDGE_DIM, 96, 96, act or leaky_relu(0.2),
+                    dropout=dropout, agg_type="sym",
+                    edge_encoder=edge_encoder,
                     generator=torch.Generator().manual_seed(0))
 
 
@@ -1346,11 +1465,12 @@ def sireconv_step(conv, fg, x, ef, w, opt, gen):
     return loss.detach()
 
 
-def phase_sireconv(device, fg, steps: int = 5):
+def phase_sireconv(device, fg, steps: int = 5, act=None):
     """SIREConv at full width on the arxiv plan, bf16 edges: (a) dropout 0,
     the fused-edge route; (b) dropout 0.2 in training, the generic edge
     route. Each runs ``steps`` steps, each followed by a no-grad eval
-    (eval mode: the fused route), with exact launch counts."""
+    (eval mode: the fused route), with exact launch counts. ``act`` is the
+    conv's sigma (leaky_relu(0.2) by default)."""
     import numpy as np
     import torch
 
@@ -1359,7 +1479,8 @@ def phase_sireconv(device, fg, steps: int = 5):
     from sir_gcn_tpu_torch.train import make_adamw
 
     log(f"== sireconv: one SIREConv (96 -> 96, De {EDGE_DIM}, sym, bf16 "
-        f"edges) on the arxiv plan, {steps} steps and evals per setting")
+        f"edges, {act.name if act else 'leaky_relu'}) on the arxiv plan, "
+        f"{steps} steps and evals per setting")
     set_edge_dtype(torch.bfloat16)
     x, ef, w = sireconv_inputs(fg, seed=0)
     total = dict.fromkeys(KERNELS, 0)
@@ -1369,7 +1490,7 @@ def phase_sireconv(device, fg, steps: int = 5):
                   ell_edge_act_reduce2=steps),
     }
     for setting, dropout in (("a", 0.0), ("b", 0.2)):
-        conv = make_sireconv(dropout).to(device)
+        conv = make_sireconv(dropout, act=act).to(device)
         opt = make_adamw(conv.parameters(), 1e-3, 0.0)
         gen = torch.Generator(device=device).manual_seed(0)
         torch.cuda.synchronize()
@@ -2010,14 +2131,17 @@ def phase_pure(device, fg, iters: int = 5):
     sigma that holds a tensor, which JAX also runs on its XLA route; f32,
     it launches no kernel) beside the kernel route with leaky_relu(0.2)
     (#2, #4) in f32 and in bf16 edges; each one's peak memory above what
-    was allocated before it. Plain erf-GELU, which holds no tensor, must
-    raise on the card: JAX runs it on its kernels, the port has none."""
+    was allocated before it. Plain erf-GELU (``F.gelu``), which holds no
+    tensor, must raise on the card: JAX runs it on its kernels, the port's
+    kernels take the registry's ``gelu()``; and the registry's erf-GELU
+    declared non-elementwise must raise before any launch, since the
+    general route's kernels do not take it."""
     import torch
     import torch.nn.functional as F
 
     from sir_gcn_tpu_torch.ops import message_passing as mp
     from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
-    from sir_gcn_tpu_torch.ops.ell import leaky_relu
+    from sir_gcn_tpu_torch.ops.ell import Activation, leaky_relu
 
     log(f"== pure: one aggregate's forward and backward at the arxiv plan "
         f"(H 96, sym), {iters} calls each")
@@ -2032,6 +2156,19 @@ def phase_pure(device, fg, iters: int = 5):
         log(f"  plain erf-GELU on the card raises: {err}")
     else:
         raise AssertionError("plain erf-GELU took the pure route on the card")
+    # the registry's erf-GELU declared non-elementwise: the general route,
+    # whose kernels take no erf-GELU, raises before any launch
+    reset_launch_counts()
+    try:
+        mp.sir_aggregate(fg, eq, ek, Activation("gelu", sir_elementwise=False),
+                         "sym")
+    except NotImplementedError as err:
+        log(f"  Activation('gelu', sir_elementwise=False) on the card "
+            f"raises: {err}")
+    else:
+        raise AssertionError("erf-GELU ran on the general route's kernels")
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"launches before the raise: {LAUNCHES}")
     times = {}
     for label, sigma, dtype in (("pure gain-GELU f32",
                                  gain_sigma(F.gelu, 96, device), None),
@@ -2849,6 +2986,225 @@ def phase_batched(device):
     log(f"== batched ok in {time.perf_counter() - t0:.1f} s")
 
 
+# the fullgraph phase: the README commands of the two full-graph workloads
+# through their entry points, on their synthetic stand-ins at the
+# published datasets' sizes (nodes; directed edges, each undirected edge
+# both ways): minesweeper 10,000 and 39,402 and roman-empire 22,662 and
+# 32,927 (Platonov et al. 2023, Table 1), wiki-cs 11,701 and 431,726
+# (DGL's WikiCSDataset)
+FULLGRAPH_FLAGS = ["--nsplits", "1", "--nruns", "1", "--log-every", "1",
+                   "--seed", "0"]
+MINESWEEPER = ["--synthetic-nodes", "10000", "--synthetic-edges", "78804"]
+ROMAN_EMPIRE = ["--synthetic-nodes", "22662", "--synthetic-edges", "65854"]
+WIKI_CS = ["--synthetic-nodes", "11701", "--synthetic-edges", "431726"]
+# (label, harness, flags, launches a train step and an eval): hidden 512
+# and 5 layers (heterophilous), 64 and 4 (wiki-cs); the kernels launch once
+# a layer in the step (forward and backward) and in the eval
+FULLGRAPH_RUNS = (
+    ("b", "heterophilous", ["--dataset", "roman-empire", "--agg-type",
+                            "max", "--epochs", "3"] + ROMAN_EMPIRE,
+     (dict(ell_max_fwd=5, ell_max_wincount=5, ell_max_bwd=5,
+           ell_scaled_reduce=5), dict(ell_max_fwd=5))),
+    ("a", "heterophilous", ["--dataset", "minesweeper", "--use-amp",
+                            "--epochs", "5"] + MINESWEEPER,
+     (dict(ell_act_reduce2=5, ell_src_bwd=5), dict(ell_act_reduce=5))),
+    ("c", "wiki_cs", ["--jumping-knowledge", "--resid-layers", "1",
+                      "--epochs", "5"] + WIKI_CS,
+     (dict(ell_act_reduce2=4, ell_src_bwd=4), dict(ell_act_reduce=4))),
+    ("c GAT", "wiki_cs", ["--jumping-knowledge", "--resid-layers", "1",
+                          "--model", "GAT", "--epochs", "5"] + WIKI_CS,
+     ({}, {})),
+)
+
+
+def fullgraph_module(name):
+    import importlib
+
+    return importlib.import_module(
+        f"sir_gcn_tpu_torch.experiments.{name}.train")
+
+
+def fullgraph_run(label, name, flags, per_epoch) -> dict:
+    """One README command through the port's entry point, every train
+    step and eval timed between device syncs, the launch counters at 0
+    before and read after: each kernel must have launched exactly its
+    ``per_epoch`` (train step, eval) counts times the epochs. Logs the
+    epochs, the run's seconds, the median step and eval, the peak memory
+    and the test metric, which must be finite. Returns the launches."""
+    import torch
+
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+
+    flags = flags + FULLGRAPH_FLAGS
+    log(f"== fullgraph ({label}) {name}: " + " ".join(flags))
+    stats = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    _, (test,) = fullgraph_module(name).main(flags, stats=stats,
+                                            time_steps=True)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    (st,) = stats
+    step, ev = st["step_ms"], st["eval_ms"]
+    log(f"  ({label}) test metric {test!r} after {st['epochs']} epochs in "
+        f"{st['seconds']:.2f} s; train step median "
+        f"{statistics.median(step):.3f} ms (first {step[0]:.3f}, min "
+        f"{min(step):.3f}, max {max(step):.3f}); eval median "
+        f"{statistics.median(ev):.3f} ms (first {ev[0]:.3f}); peak memory "
+        f"{peak:.3f} GiB; launches {launches}")
+    epochs = st["epochs"]
+    want = {}
+    for counts in per_epoch:
+        for k, v in counts.items():
+            want[k] = want.get(k, 0) + v * epochs
+    if launches != want:
+        raise AssertionError(f"({label}) launch counts {launches}, "
+                             f"expected {want}")
+    if not math.isfinite(test):
+        raise AssertionError(f"({label}) test metric {test!r}")
+    return launches
+
+
+def fullgraph_profile(device):
+    """One profiled warm train step of (a)'s model (hidden 512, 5 layers,
+    --use-amp) on its graph: device time by kernel, the idle share."""
+    import torch
+
+    from sir_gcn_tpu_torch.experiments import fullgraph_harness as fh
+    from sir_gcn_tpu_torch.train import make_adamw
+
+    het = fullgraph_module("heterophilous")
+    args = het._parser().parse_args(FULLGRAPH_RUNS[1][2] + FULLGRAPH_FLAGS)
+    run = het.prepare(args, 0, 0, device)
+    model = het.build_model(args, run["feats"].shape[1], run["num_classes"],
+                            torch.Generator().manual_seed(0)).to(device)
+    opt = make_adamw(model.parameters(), args.lr, args.wd)
+    feats = torch.from_numpy(run["feats"]).to(device)
+    labels = torch.from_numpy(run["labels"]).to(device)
+    w = torch.from_numpy(run["masks"][0]).to(device)
+
+    def step():
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        fh.masked_bce_logits(model(run["graph"], feats), labels,
+                             w).backward()
+        opt.step()
+
+    log("== profile fullgraph (a): 3 warm train steps")
+    profile_steps(step, 3)
+
+
+def fullgraph_card_against_cpu(device):
+    """(d) One training-mode forward and backward on the card (kernels)
+    and on the CPU (plain versions) from the same weights (seed 0),
+    dropout off: the heterophilous SIRModel (2 layers, hidden 512, ln,
+    residual, use_bf16) with mean and with max, on a graph of 5,000 nodes
+    and 39,402 edges (homophily 0.15, 128 features); wiki-cs's JK
+    GraphSIRModel and the GATv2 GATModel of its README commands on 5,000
+    nodes and 40,000 edges (300 features). The masked loss and the logits
+    at FWD_TOL, every parameter gradient at GW_TOL (sums over the nodes);
+    the card's launches exactly those of one step. GATModel's attention
+    sums by index_add; it runs under torch.use_deterministic_algorithms so
+    that its sums take the CPU's order, as the batched phase's (b)."""
+    import copy
+
+    import torch
+
+    from sir_gcn_tpu_torch import build_fast_graph, build_graph
+    from sir_gcn_tpu_torch.data import synthetic_node_classification
+    from sir_gcn_tpu_torch.experiments import fullgraph_harness as fh
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+
+    log("== fullgraph (d): one step card against CPU")
+    set_edge_dtype(None)
+    het, wiki = fullgraph_module("heterophilous"), fullgraph_module("wiki_cs")
+    hargs = het._parser().parse_args(["--nlayers", "2", "--norm", "ln",
+                                      "--residual", "--use-amp"])
+    wflags = ["--jumping-knowledge", "--resid-layers", "1"]
+    cases = []
+    for agg, want in (("mean", dict(ell_act_reduce2=2, ell_src_bwd=2)),
+                      ("max", dict(ell_max_fwd=2, ell_max_wincount=2,
+                                   ell_max_bwd=2, ell_scaled_reduce=2))):
+        hargs.agg_type = agg
+        cases.append((f"heterophilous {agg}", het.build_model(
+            hargs, 128, 1, torch.Generator().manual_seed(0)),
+            (5000, 39_402, 128, 0.15, 2), fh.masked_bce_logits, want,
+            False))
+    for model, want in (("SIR", dict(ell_act_reduce2=4, ell_src_bwd=4)),
+                        ("GAT", {})):
+        wargs = wiki._parser().parse_args(wflags + ["--model", model])
+        cases.append((f"wiki-cs {model}", wiki.build_model(
+            wargs, 300, 10, torch.Generator().manual_seed(0)),
+            (5000, 40_000, 300, 0.6, 10), fh.masked_ce, want,
+            model == "GAT"))
+    for label, model, (n, e, d, hom, c), loss_fn, want, ordered in cases:
+        data = synthetic_node_classification(n, e, feat_dim=d,
+                                             num_classes=c, homophily=hom,
+                                             seed=0)
+        n = data.feat.shape[0]
+        runs = []
+        for dev in (torch.device("cpu"), device):
+            torch.use_deterministic_algorithms(ordered, warn_only=True)
+            fg = build_fast_graph(build_graph(data.src, data.dst, n,
+                                              pad_multiple=128, device=dev))
+            feats = torch.zeros((fg.n_pad, d), device=dev)
+            feats[:n] = torch.from_numpy(data.feat).to(dev)
+            labels = torch.zeros(fg.n_pad, device=dev,
+                                 dtype=torch.float32 if c == 2
+                                 else torch.int64)
+            labels[:n] = torch.from_numpy(data.labels).to(dev, labels.dtype)
+            w = torch.zeros(fg.n_pad, device=dev)
+            w[torch.from_numpy(data.train_idx).to(dev)] = 1.0
+            m = copy.deepcopy(model).to(dev).train()
+            reset_launch_counts()
+            out = m(fg, feats)
+            loss = loss_fn(out, labels, w)
+            loss.backward()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in LAUNCHES.items() if v}
+                if launches != want:
+                    raise AssertionError(f"{label}: card launches "
+                                         f"{launches}, expected {want}")
+            runs.append((out.detach().cpu(), loss.detach().cpu(), {
+                k: p.grad.cpu() for k, p in m.named_parameters()
+                if p.grad is not None}))
+        torch.use_deterministic_algorithms(False)
+        (o_c, l_c, g_c), (o_g, l_g, g_g) = runs
+        log(f"  {label}: out {tuple(o_c.shape)}, loss card {float(l_g):.6f} "
+            f"cpu {float(l_c):.6f}, card launches {want}")
+        compare(f"{label} out", o_g, o_c, FWD_TOL)
+        compare(f"{label} loss", l_g[None], l_c[None], FWD_TOL)
+        if set(g_c) != set(g_g):
+            raise AssertionError(f"{label}: gradients differ in keys")
+        errs = {k: compare(f"{label} grad {k}", g_g[k], g_c[k], GW_TOL,
+                           quiet=True) for k in g_c}
+        worst = max(errs, key=errs.get)
+        log(f"  {label}: {len(errs)} parameter gradients within GW_TOL, the "
+            f"largest abs err {errs[worst]:.3e} ({worst})")
+
+
+def phase_fullgraph(device) -> dict:
+    """The full-graph workloads on the card: (b), (a) and (c) through
+    their entry points with exact launch counts, a profiled step of (a),
+    and (d) four models one step card against CPU. Returns the erf-GELU
+    forms' launches of (a) (#1, #2, #4) and (b) (#9-#11)."""
+    import torch
+
+    t0 = time.perf_counter()
+    runs = {label: fullgraph_run(label, name, flags, per_epoch)
+            for label, name, flags, per_epoch in FULLGRAPH_RUNS}
+    fullgraph_profile(device)
+    torch.cuda.empty_cache()
+    fullgraph_card_against_cpu(device)
+    log(f"== fullgraph ok in {time.perf_counter() - t0:.1f} s")
+    return {**{k: runs["a"].get(k, 0) for k in LINEAR},
+            **{k: runs["b"].get(k, 0) for k in MAX[:3]}}
+
+
 def main() -> int:
     import torch
 
@@ -2857,6 +3213,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import sir_gcn_tpu_torch  # noqa: F401  (fails without the port)
+
+    from sir_gcn_tpu_torch.ops.ell import gelu
 
     device = torch.device("cuda")
     t0 = time.perf_counter()
@@ -2890,6 +3248,12 @@ def main() -> int:
     phase_profile(device, "sym", edge_dropout=0.2, against=sym_profile)
     phase_profile_sireconv(device, arxiv_fg)
     phase_profile_general(device, arxiv_fg)
+    gelu_launches = phase_fullgraph(device)
+    # the edge kernels' erf-GELU forms: no workload runs a SIREConv with
+    # erf-GELU; this one does, at the arxiv plan, 2 steps and evals a route
+    gelu_launches.update({
+        k: v for k, v in phase_sireconv(device, arxiv_fg, steps=2,
+                                        act=gelu()).items() if k in EDGE})
     phase_oracles(device)
     phase_batched(device)
     log(f"== all phases ok in {time.perf_counter() - t0:.1f}s")
@@ -2902,6 +3266,15 @@ def main() -> int:
             launches=launches[name], max_abs_err=errs[name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
             bound_by=t["bound"][1], library_ms=t.get("library_ms")))
+    for name in GELU:
+        source, replaces, _ = KERNELS[name]
+        t = timing[f"{name}[gelu]"]
+        rows.append(dict(
+            name=f"{name}[gelu]", route="cuda", source=source,
+            replaces=replaces, launches=gelu_launches[name],
+            max_abs_err=errs[f"{name}[gelu]"], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+            bound_by=t["bound"][1], library_ms=None))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -52,7 +52,8 @@
 // depends on the grid, and so differs from the shared path's in rounding.
 // Registers set the occupancy: the forward is held to 128 a thread (16
 // warps an SM), the backward, with W_E and g_WE both held, takes about 168
-// (12 warps), and with tanh keeps one slot in flight instead of two. A
+// (12 warps), and with tanh or erf-GELU keeps one slot in flight instead
+// of two. A
 // deeper pipeline (two rings, the next chunk's basis rows, row values and
 // first node rows in flight during this chunk) measured slower on an H100:
 // it costs registers and instructions a slot for latency that these warps
@@ -95,12 +96,27 @@ constexpr int kRegInflightFwd = 4;
 constexpr int kRegInflightBwd = 2;
 
 // Activation ids, as registered in sir_gcn_tpu_torch/ops/ell.py.
-enum { ACT_LEAKY_RELU = 0, ACT_TANH = 1 };
+enum { ACT_LEAKY_RELU = 0, ACT_TANH = 1, ACT_GELU = 4 };
 
-// The backward's slots in flight on the register path: tanh's longer
-// derivative leaves registers for one.
+// The backward's slots in flight on the register path: the longer
+// derivatives of tanh and erf-GELU leave registers for one.
 __host__ __device__ constexpr int inflight_bwd(int act) {
-  return act == ACT_TANH ? 1 : kRegInflightBwd;
+  return act == ACT_TANH || act == ACT_GELU ? 1 : kRegInflightBwd;
+}
+
+// False for every id: the static_assert of an activation id that has no
+// branch in act_grad or act_both fails the build.
+template <int ACT>
+constexpr bool kNoBranch = false;
+
+// erf-GELU as jax.nn.gelu(approximate=False) computes it, z * Phi(z) with
+// Phi(z) = 0.5 * erfc(-z / sqrt(2)), and gelu'(z) = Phi(z) + z * exp(-z^2
+// / 2) / sqrt(2 pi).
+constexpr float kSqrtHalf = 0.70710678118654752f;
+constexpr float kInvSqrt2Pi = 0.39894228040143268f;
+
+__device__ __forceinline__ float gelu_cdf(float z) {
+  return 0.5f * erfcf(-z * kSqrtHalf);
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -108,18 +124,40 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <int ACT>
-__device__ __forceinline__ float act_fn(float z, float slope) {
-  if (ACT == ACT_LEAKY_RELU) return z >= 0.f ? z : slope * z;
-  return tanhf(z);
-}
-
 // act'(z); leaky_relu'(0) = 1, matching where(z >= 0, z, slope * z).
 template <int ACT>
 __device__ __forceinline__ float act_grad(float z, float slope) {
-  if (ACT == ACT_LEAKY_RELU) return z >= 0.f ? 1.f : slope;
-  const float t = tanhf(z);
-  return (1.f + t) * (1.f - t);
+  if constexpr (ACT == ACT_LEAKY_RELU) {
+    return z >= 0.f ? 1.f : slope;
+  } else if constexpr (ACT == ACT_TANH) {
+    const float t = tanhf(z);
+    return (1.f + t) * (1.f - t);
+  } else if constexpr (ACT == ACT_GELU) {
+    return gelu_cdf(z) + z * (expf(-0.5f * z * z) * kInvSqrt2Pi);
+  } else {
+    static_assert(kNoBranch<ACT>, "an activation id without a branch");
+    return 0.f;
+  }
+}
+
+// act(z) and act'(z) together: tanh evaluated once, erf-GELU's erfc once;
+// leaky_relu(z) as z * act'(z), which rounds as slope * z does.
+template <int ACT>
+__device__ __forceinline__ void act_both(float z, float slope, float& a,
+                                         float& d) {
+  if constexpr (ACT == ACT_LEAKY_RELU) {
+    d = z >= 0.f ? 1.f : slope;
+    a = z * d;
+  } else if constexpr (ACT == ACT_TANH) {
+    a = tanhf(z);
+    d = (1.f + a) * (1.f - a);
+  } else if constexpr (ACT == ACT_GELU) {
+    const float cdf = gelu_cdf(z);
+    a = z * cdf;
+    d = cdf + z * (expf(-0.5f * z * z) * kInvSqrt2Pi);
+  } else {
+    static_assert(kNoBranch<ACT>, "an activation id without a branch");
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -197,8 +235,10 @@ edge_act_reduce_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
           const int f = f0 + j * 32 + lane;
           if (f < H) {
             const float z = (to_f32(ek_row[f]) + eh[j]) + q[j];
-            acc[j] += act_fn<ACT>(z, slope) * sc;
-            sacc[j] += act_grad<ACT>(z, slope) * sc;
+            float a, d;
+            act_both<ACT>(z, slope, a, d);
+            acc[j] += a * sc;
+            sacc[j] += d * sc;
           }
         }
       }
@@ -558,8 +598,10 @@ edge_act_reduce_reg_kernel(const float* __restrict__ eq,
           const int f = j * 32 + lane;
           if (f < H) {
             const float z = (kv[j] + eh[j]) + q[j];
-            acc[j] += act_fn<ACT>(z, slope) * sc;
-            sacc[j] += act_grad<ACT>(z, slope) * sc;
+            float a, d;
+            act_both<ACT>(z, slope, a, d);
+            acc[j] += a * sc;
+            sacc[j] += d * sc;
           }
         }
       }
@@ -830,6 +872,9 @@ const void* fwd_kernel(int act, int bf16, int H, int De) {
   if (act == ACT_TANH)
     return bf16 ? pick_fwd<ACT_TANH, __nv_bfloat16>(H, De)
                 : pick_fwd<ACT_TANH, float>(H, De);
+  if (act == ACT_GELU)
+    return bf16 ? pick_fwd<ACT_GELU, __nv_bfloat16>(H, De)
+                : pick_fwd<ACT_GELU, float>(H, De);
   return nullptr;
 }
 
@@ -840,6 +885,9 @@ const void* bwd_kernel(int act, int bf16, int H, int De) {
   if (act == ACT_TANH)
     return bf16 ? pick_bwd<ACT_TANH, __nv_bfloat16>(H, De)
                 : pick_bwd<ACT_TANH, float>(H, De);
+  if (act == ACT_GELU)
+    return bf16 ? pick_bwd<ACT_GELU, __nv_bfloat16>(H, De)
+                : pick_bwd<ACT_GELU, float>(H, De);
   return nullptr;
 }
 
@@ -1015,8 +1063,8 @@ int ell_edge_src_bwd(const void* eq, const void* g, int bf16, const void* ek,
 // features a lane (a pass's on the shared path), 7-11 the basis values a
 // register-path kernel holds a slot (0 when neither takes that path), 12-15
 // and 16-19 the slots whose node rows are in flight (forward, backward; 1
-// on the shared path, and in the backward with tanh), 20-23 and 24-27 the
-// warps a block. -1 for a width that is not positive or an unknown
+// on the shared path, and in the backward with tanh or erf-GELU), 20-23
+// and 24-27 the warps a block. -1 for a width that is not positive or an unknown
 // activation.
 int ell_edge_layout(int H, int De, int act, int bf16) {
   if (H <= 0 || De <= 0 || fwd_kernel(act, bf16 != 0, 1, 1) == nullptr)

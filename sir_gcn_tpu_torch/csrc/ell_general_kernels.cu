@@ -182,18 +182,36 @@ __device__ __forceinline__ float row_sum(const float (&x)[NF],
   return warp_sum(s);
 }
 
+// False for every id: the static_assert of an elementwise activation id
+// that has no branch in act_fn, act_grad or group_act_grad fails the build
+// (the row-wise ids take act_row, vjp_row and vjp_group's own branches).
+template <int ACT>
+constexpr bool kNoBranch = false;
+
 template <int ACT>
 __device__ __forceinline__ float act_fn(float z, float p) {
-  if (ACT == ACT_LEAKY_RELU) return z >= 0.f ? z : p * z;
-  return tanhf(z);
+  if constexpr (ACT == ACT_LEAKY_RELU) {
+    return z >= 0.f ? z : p * z;
+  } else if constexpr (ACT == ACT_TANH) {
+    return tanhf(z);
+  } else {
+    static_assert(kNoBranch<ACT>, "an activation id without a branch");
+    return 0.f;
+  }
 }
 
 // act'(z); leaky_relu'(0) = 1, matching where(z >= 0, z, slope * z).
 template <int ACT>
 __device__ __forceinline__ float act_grad(float z, float p) {
-  if (ACT == ACT_LEAKY_RELU) return z >= 0.f ? 1.f : p;
-  const float t = tanhf(z);
-  return (1.f + t) * (1.f - t);
+  if constexpr (ACT == ACT_LEAKY_RELU) {
+    return z >= 0.f ? 1.f : p;
+  } else if constexpr (ACT == ACT_TANH) {
+    const float t = tanhf(z);
+    return (1.f + t) * (1.f - t);
+  } else {
+    static_assert(kNoBranch<ACT>, "an activation id without a branch");
+    return 0.f;
+  }
 }
 
 // softmax over the row: y = exp(z - max z) / sum exp(z - max z)
@@ -219,11 +237,11 @@ template <int ACT, int NF>
 __device__ __forceinline__ void act_row(const float (&z)[NF],
                                         const bool (&ok)[NF], int H, float p,
                                         float (&y)[NF]) {
-  if (ACT == ACT_CENTERED_RELU) {
+  if constexpr (ACT == ACT_CENTERED_RELU) {
     const float c = p * (row_sum(z, ok) / (float)H);
 #pragma unroll
     for (int j = 0; j < NF; ++j) y[j] = fmaxf(z[j] - c, 0.f);
-  } else if (ACT == ACT_SOFTMAX) {
+  } else if constexpr (ACT == ACT_SOFTMAX) {
     softmax_row(z, ok, y);
   } else {
 #pragma unroll
@@ -239,7 +257,7 @@ __device__ __forceinline__ void vjp_row(const float (&z)[NF],
                                         const float (&gm)[NF],
                                         const bool (&ok)[NF], int H, float p,
                                         float (&gz)[NF]) {
-  if (ACT == ACT_CENTERED_RELU) {
+  if constexpr (ACT == ACT_CENTERED_RELU) {
     const float c = p * (row_sum(z, ok) / (float)H);
     float d[NF];
 #pragma unroll
@@ -247,7 +265,7 @@ __device__ __forceinline__ void vjp_row(const float (&z)[NF],
     const float sd = p * (row_sum(d, ok) / (float)H);
 #pragma unroll
     for (int j = 0; j < NF; ++j) gz[j] = d[j] - sd;
-  } else if (ACT == ACT_SOFTMAX) {
+  } else if constexpr (ACT == ACT_SOFTMAX) {
     float y[NF], gy[NF];
     softmax_row(z, ok, y);
 #pragma unroll
@@ -556,10 +574,16 @@ __device__ __forceinline__ float tree_max(const float (&x)[NV]) {
 // branch and some twenty instructions; leaky_relu as act_grad.
 template <int ACT>
 __device__ __forceinline__ float group_act_grad(float z, float p) {
-  if (ACT == ACT_LEAKY_RELU) return act_grad<ACT>(z, p);
-  const float e = __expf(-2.f * fabsf(z));
-  const float d = 1.f + e;
-  return __fdividef(4.f * e, d * d);
+  if constexpr (ACT == ACT_LEAKY_RELU) {
+    return act_grad<ACT>(z, p);
+  } else if constexpr (ACT == ACT_TANH) {
+    const float e = __expf(-2.f * fabsf(z));
+    const float d = 1.f + e;
+    return __fdividef(4.f * e, d * d);
+  } else {
+    static_assert(kNoBranch<ACT>, "an activation id without a branch");
+    return 0.f;
+  }
 }
 
 // v = vjp(act, z)(gs) for one slot whose row is spread over a group of GW
@@ -572,10 +596,10 @@ template <int ACT, int GW, int NV>
 __device__ __forceinline__ void vjp_group(const float (&z)[NV],
                                           const float (&gs)[NV], float inv_h,
                                           float p, float (&v)[NV]) {
-  if (!Rowwise<ACT>::value) {  // g_z = act'(z) * g_m, no reduction
+  if constexpr (!Rowwise<ACT>::value) {  // g_z = act'(z) * g_m
 #pragma unroll
     for (int j = 0; j < NV; ++j) v[j] = group_act_grad<ACT>(z[j], p) * gs[j];
-  } else if (ACT == ACT_CENTERED_RELU) {
+  } else if constexpr (ACT == ACT_CENTERED_RELU) {
     // d = g_m where z - c > 0 (relu'(0) = 0), g_z = d - alpha * mean(d)
     const float c = p * (group_sum<GW>(tree_sum(z)) * inv_h);
     float d[NV];

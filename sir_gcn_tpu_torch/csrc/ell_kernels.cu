@@ -80,7 +80,26 @@ constexpr int kInflightBwd = 8;
 constexpr int kInflightBwdEdge = 4;
 
 // Activation ids, as registered in sir_gcn_tpu_torch/ops/ell.py.
-enum { ACT_LEAKY_RELU = 0, ACT_TANH = 1 };
+enum { ACT_LEAKY_RELU = 0, ACT_TANH = 1, ACT_GELU = 4 };
+
+// False for every id: the static_assert of an activation id that has no
+// branch in act_fn, act_grad or act_both fails the build.
+template <int ACT>
+constexpr bool kNoBranch = false;
+
+// erf-GELU as jax.nn.gelu(approximate=False) computes it, z * Phi(z) with
+// Phi(z) = 0.5 * erfc(-z / sqrt(2)) (no cancellation for z << 0), and
+// gelu'(z) = Phi(z) + z * exp(-z^2 / 2) / sqrt(2 pi).
+constexpr float kSqrtHalf = 0.70710678118654752f;
+constexpr float kInvSqrt2Pi = 0.39894228040143268f;
+
+__device__ __forceinline__ float gelu_cdf(float z) {
+  return 0.5f * erfcf(-z * kSqrtHalf);
+}
+
+__device__ __forceinline__ float gelu_pdf_term(float z) {
+  return z * (expf(-0.5f * z * z) * kInvSqrt2Pi);
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -108,30 +127,52 @@ __device__ __forceinline__ float add_cast(T a, T b) {
 
 template <int ACT>
 __device__ __forceinline__ float act_fn(float z, float slope) {
-  if (ACT == ACT_LEAKY_RELU) return z >= 0.f ? z : slope * z;
-  return tanhf(z);
+  if constexpr (ACT == ACT_LEAKY_RELU) {
+    return z >= 0.f ? z : slope * z;
+  } else if constexpr (ACT == ACT_TANH) {
+    return tanhf(z);
+  } else if constexpr (ACT == ACT_GELU) {
+    return z * gelu_cdf(z);
+  } else {
+    static_assert(kNoBranch<ACT>, "an activation id without a branch");
+    return 0.f;
+  }
 }
 
 // act'(z); leaky_relu'(0) = 1, matching where(z >= 0, z, slope * z).
 template <int ACT>
 __device__ __forceinline__ float act_grad(float z, float slope) {
-  if (ACT == ACT_LEAKY_RELU) return z >= 0.f ? 1.f : slope;
-  const float t = tanhf(z);
-  return (1.f + t) * (1.f - t);
+  if constexpr (ACT == ACT_LEAKY_RELU) {
+    return z >= 0.f ? 1.f : slope;
+  } else if constexpr (ACT == ACT_TANH) {
+    const float t = tanhf(z);
+    return (1.f + t) * (1.f - t);
+  } else if constexpr (ACT == ACT_GELU) {
+    return gelu_cdf(z) + gelu_pdf_term(z);
+  } else {
+    static_assert(kNoBranch<ACT>, "an activation id without a branch");
+    return 0.f;
+  }
 }
 
-// act(z) and act'(z) together, tanh evaluated once; leaky_relu(z) as
-// z * act'(z), which rounds as slope * z does.
+// act(z) and act'(z) together: tanh evaluated once, GELU's erfc and exp
+// once each; leaky_relu(z) as z * act'(z), which rounds as slope * z does.
 template <int ACT>
 __device__ __forceinline__ void act_both(float z, float slope, float& a,
                                          float& d) {
-  if (ACT == ACT_LEAKY_RELU) {
+  if constexpr (ACT == ACT_LEAKY_RELU) {
     d = act_grad<ACT>(z, slope);
     a = z * d;
-    return;
+  } else if constexpr (ACT == ACT_TANH) {
+    a = tanhf(z);
+    d = (1.f + a) * (1.f - a);
+  } else if constexpr (ACT == ACT_GELU) {
+    const float cdf = gelu_cdf(z);
+    a = z * cdf;
+    d = cdf + gelu_pdf_term(z);
+  } else {
+    static_assert(kNoBranch<ACT>, "an activation id without a branch");
   }
-  a = tanhf(z);
-  d = (1.f + a) * (1.f - a);
 }
 
 // ---------------------------------------------------------------------
@@ -696,6 +737,10 @@ int act_reduce_entry(const void* eq, const void* ek, const void* e,
     return ek_bf16
         ? launch_act_reduce<ACT_TANH, EMIT_S, EDGE, __nv_bfloat16>(SIR_ARGS)
         : launch_act_reduce<ACT_TANH, EMIT_S, EDGE, float>(SIR_ARGS);
+  if (act == ACT_GELU)
+    return ek_bf16
+        ? launch_act_reduce<ACT_GELU, EMIT_S, EDGE, __nv_bfloat16>(SIR_ARGS)
+        : launch_act_reduce<ACT_GELU, EMIT_S, EDGE, float>(SIR_ARGS);
 #undef SIR_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -715,6 +760,9 @@ int src_bwd_entry(const void* eq, const void* g, const void* e, int bf16,
   if (act == ACT_TANH)
     return bf16 ? launch_src_bwd<ACT_TANH, EDGE, __nv_bfloat16>(SIR_ARGS)
                 : launch_src_bwd<ACT_TANH, EDGE, float>(SIR_ARGS);
+  if (act == ACT_GELU)
+    return bf16 ? launch_src_bwd<ACT_GELU, EDGE, __nv_bfloat16>(SIR_ARGS)
+                : launch_src_bwd<ACT_GELU, EDGE, float>(SIR_ARGS);
 #undef SIR_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -98,7 +98,7 @@ constexpr int kMaxSmem = 232448 - 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Activation ids, as registered in sir_gcn_tpu_torch/ops/ell.py.
-enum { ACT_LEAKY_RELU = 0, ACT_TANH = 1 };
+enum { ACT_LEAKY_RELU = 0, ACT_TANH = 1, ACT_GELU = 4 };
 enum { MODE_MAX = 0, MODE_COUNT = 1 };
 // where slot_products reads W: split in shared memory, f32 in shared
 // memory, f32 in device memory
@@ -113,18 +113,36 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as astype(bf16)
 }
 
+// False for every id: the static_assert of an activation id that has no
+// branch in act_both fails the build.
 template <int ACT>
-__device__ __forceinline__ float act_fn(float z, float slope) {
-  if (ACT == ACT_LEAKY_RELU) return z >= 0.f ? z : slope * z;
-  return tanhf(z);
-}
+constexpr bool kNoBranch = false;
 
-// act'(z); leaky_relu'(0) = 1, matching where(z >= 0, z, slope * z).
-template <int ACT>
-__device__ __forceinline__ float act_grad(float z, float slope) {
-  if (ACT == ACT_LEAKY_RELU) return z >= 0.f ? 1.f : slope;
-  const float t = tanhf(z);
-  return (1.f + t) * (1.f - t);
+// erf-GELU as jax.nn.gelu(approximate=False) computes it, z * Phi(z) with
+// Phi(z) = 0.5 * erfc(-z / sqrt(2)), and gelu'(z) = Phi(z) + z * exp(-z^2
+// / 2) / sqrt(2 pi).
+constexpr float kSqrtHalf = 0.70710678118654752f;
+constexpr float kInvSqrt2Pi = 0.39894228040143268f;
+
+// a = act(z) and, with WITH_D, d = act'(z); leaky_relu'(0) = 1, matching
+// where(z >= 0, z, slope * z). a is the same bits with and without d: the
+// products of #9, #10 and #11 must agree exactly.
+template <int ACT, bool WITH_D>
+__device__ __forceinline__ void act_both(float z, float slope, float& a,
+                                         float& d) {
+  if constexpr (ACT == ACT_LEAKY_RELU) {
+    a = z >= 0.f ? z : slope * z;
+    if (WITH_D) d = z >= 0.f ? 1.f : slope;
+  } else if constexpr (ACT == ACT_TANH) {
+    a = tanhf(z);
+    if (WITH_D) d = (1.f + a) * (1.f - a);
+  } else if constexpr (ACT == ACT_GELU) {
+    const float cdf = 0.5f * erfcf(-z * kSqrtHalf);
+    a = z * cdf;
+    if (WITH_D) d = cdf + z * (expf(-0.5f * z * z) * kInvSqrt2Pi);
+  } else {
+    static_assert(kNoBranch<ACT>, "an activation id without a branch");
+  }
 }
 
 __host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
@@ -438,8 +456,8 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ eq,
         float av[E], dv[E];
 #pragma unroll
         for (int e = 0; e < E; ++e) {
-          av[e] = ok[u] ? act_fn<ACT>(z[u][e], slope) : 0.f;
-          dv[e] = ok[u] ? act_grad<ACT>(z[u][e], slope) : 0.f;
+          av[e] = dv[e] = 0.f;
+          if (ok[u]) act_both<ACT, WITH_D>(z[u][e], slope, av[e], dv[e]);
         }
         // 16-byte stores (lda is a multiple of 4): a lane's E features
         // at once, not E lanes on one bank
@@ -1156,6 +1174,9 @@ int fwd_dispatch(const void* eq, const void* ek, int ek_bf16,
   if (act == ACT_TANH)
     return ek_bf16 ? fwd_entry<ACT_TANH, MODE, __nv_bfloat16>(SIR_ARGS)
                    : fwd_entry<ACT_TANH, MODE, float>(SIR_ARGS);
+  if (act == ACT_GELU)
+    return ek_bf16 ? fwd_entry<ACT_GELU, MODE, __nv_bfloat16>(SIR_ARGS)
+                   : fwd_entry<ACT_GELU, MODE, float>(SIR_ARGS);
 #undef SIR_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -1176,6 +1197,9 @@ const void* bwd_kernel(int act, int bf16, bool vec, bool wsmem) {
   if (act == ACT_TANH)
     return bf16 ? bwd_pick<ACT_TANH, __nv_bfloat16>(vec, wsmem)
                 : bwd_pick<ACT_TANH, float>(vec, wsmem);
+  if (act == ACT_GELU)
+    return bf16 ? bwd_pick<ACT_GELU, __nv_bfloat16>(vec, wsmem)
+                : bwd_pick<ACT_GELU, float>(vec, wsmem);
   return nullptr;
 }
 

@@ -6,9 +6,11 @@ selection.
 
 Runs on the CUDA card unless ``--cpu`` is given; with no card and no
 ``--cpu`` it raises. With no dataset cache a synthetic arxiv-shaped task
-stands in. The label trick, FLAG, knowledge distillation, checkpoints,
-RCM reordering and the multi-device paths are not yet ported: setting
-their flags away from the defaults raises.
+stands in. ``--model GAT`` trains the GATv2 baseline; jumping knowledge
+and MLP residuals are the model's flags. The label trick, FLAG,
+knowledge distillation, ``--l1``/``--l2``, ``--mask-rate``, checkpoints,
+RCM reordering, ``--no-fast-path`` and the multi-device paths are not yet
+ported: setting their flags away from the defaults raises.
 
     python -m sir_gcn_tpu_torch.experiments.ogbn_arxiv.train --nhidden 96 \\
         --nlayers 3 --agg-type sym --norm bn --residual --dropout 0.2 \\
@@ -20,6 +22,7 @@ from __future__ import annotations
 import argparse
 import math
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,7 +47,7 @@ from ...train import (
     synchronize,
     warmup_scale,
 )
-from .model import SIRModel
+from .model import GATModel, SIRModel
 
 EPS = 1.0 - np.log(2.0)
 WARMUP = 20
@@ -82,6 +85,27 @@ def _np_soft_ce(logits, labels):
     logp = z - np.log(np.exp(z).sum(-1, keepdims=True))
     ce = -logp[np.arange(len(labels)), labels]
     return float(np.mean(np.log(ce + EPS) - np.log(EPS)))
+
+
+def build_model(args, input_dim: int, num_classes: int,
+                generator: Optional[torch.Generator] = None):
+    """The ``--model`` of ``args``: the SIRModel or the GATv2 baseline."""
+    kwargs = dict(
+        num_layers=args.nlayers, input_dropout=args.input_dropout,
+        edge_dropout=args.edge_dropout, dropout=args.dropout,
+        norm=args.norm, readout_layers=args.readout_layers,
+        readout_dropout=args.readout_dropout,
+        jumping_knowledge=args.jumping_knowledge, residual=args.residual,
+        generator=generator)
+    if args.model == "GAT":
+        return GATModel(input_dim, args.nhidden, num_classes,
+                        num_heads=args.nheads,
+                        attn_dropout=args.attn_dropout, **kwargs)
+    return SIRModel(input_dim, args.nhidden, num_classes,
+                    resid_layers=args.resid_layers,
+                    resid_dropout=args.resid_dropout,
+                    feat_dropout=args.feat_dropout, agg_type=args.agg_type,
+                    **kwargs)
 
 
 def make_harness(model, graph, optimizer):
@@ -132,13 +156,8 @@ def run_single(args, seed: int, data, device: torch.device) -> dict:
     train_w, val_w, test_w = (mask_of(i) for i in
                               (data.train_idx, data.val_idx, data.test_idx))
 
-    model = SIRModel(
-        feats.shape[1], args.nhidden, num_classes, num_layers=args.nlayers,
-        input_dropout=args.input_dropout, edge_dropout=args.edge_dropout,
-        dropout=args.dropout,
-        norm=args.norm, residual=args.residual,
-        feat_dropout=args.feat_dropout, agg_type=args.agg_type,
-        generator=torch.Generator().manual_seed(seed)).to(device)
+    model = build_model(args, feats.shape[1], num_classes,
+                        torch.Generator().manual_seed(seed)).to(device)
     optimizer = make_adamw(model.parameters(), args.lr, args.wd)
     print(f"Params: {param_count(model)}")
     train_step, eval_step = make_harness(model, graph, optimizer)
@@ -203,9 +222,10 @@ def run_single(args, seed: int, data, device: torch.device) -> dict:
 # raises. The parser keeps the JAX harness's full flag set so that its
 # commands parse unchanged.
 PORTED = {
-    "cpu", "seed", "nhidden", "nlayers", "input_dropout", "edge_dropout",
-    "dropout",
-    "feat_dropout", "norm", "residual", "agg_type", "add_self_loop",
+    "cpu", "seed", "model", "nhidden", "nlayers", "input_dropout",
+    "edge_dropout", "dropout", "norm", "readout_layers", "readout_dropout",
+    "jumping_knowledge", "residual", "resid_layers", "resid_dropout",
+    "feat_dropout", "agg_type", "nheads", "attn_dropout", "add_self_loop",
     "add_reverse_edge", "edge_bf16", "epochs", "lr", "wd", "factor",
     "patience", "nruns", "log_every", "synthetic_nodes", "synthetic_edges",
 }

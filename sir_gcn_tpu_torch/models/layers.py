@@ -27,7 +27,12 @@ def uniform_parameter(shape, fan_in: int,
 
 class Linear(nn.Module):
     """``nn.Linear`` with weight [out, in] and bias [out], both drawn
-    U(+-1/sqrt(in_features)) from ``generator``."""
+    U(+-1/sqrt(in_features)) from ``generator``.
+
+    An input of another floating type than the weight is promoted as flax's
+    ``nn.Dense`` (``dtype=None``) promotes it: a bf16 input against f32
+    weights is widened to f32 and the product is f32, so only the input's
+    rounding to bf16 remains (the JAX package's ``use_bf16`` models)."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True,
@@ -39,7 +44,11 @@ class Linear(nn.Module):
                                        generator) if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        weight, bias = self.weight.to(dtype), self.bias
+        if bias is not None:
+            bias = bias.to(dtype)
+        return F.linear(x.to(dtype), weight, bias)
 
 
 class Embed(nn.Module):

@@ -220,11 +220,20 @@ def _need_diagonal(name: str, act) -> None:
                          f"kernels take it)")
 
 
-def _check_rowwise_width(name: str, act, h: int) -> None:
+def _check_general(name: str, act, h: int, device: torch.device) -> None:
+    """The sigma of a general-route kernel: a row-wise one keeps a slot's
+    row in one warp, at most ROWWISE_MAX_H wide; on the card, one that
+    ``csrc/ell_general_kernels.cu`` has a branch for (it raises before the
+    launch for erf-GELU, which only the elementwise, edge and max kernels
+    take)."""
     if not act.diagonal and h > ROWWISE_MAX_H:
         raise ValueError(f"{name}: the row-wise sigma {act.name} needs a "
                          f"slot's whole row in one warp; H = {h} exceeds "
                          f"{ROWWISE_MAX_H}")
+    if on_cuda(device) and not act.general_kernels:
+        raise NotImplementedError(
+            f"{name}: the general route's kernels do not take sigma "
+            f"{act.name} yet (ROADMAP.md Queue B part 1 item 1)")
 
 
 def on_cuda(device: torch.device) -> bool:
@@ -343,7 +352,7 @@ def _check_fwd(name, eq, ek, slot_src, scale, row_key, row_ptr, act):
                          f"differ in width")
     _check_plan(slot_src, scale, row_key, row_ptr, device)
     if name in _GENERAL:
-        _check_rowwise_width(name, act, eq.shape[1])
+        _check_general(name, act, eq.shape[1], device)
     else:
         _need_diagonal(name, act)
     return device
@@ -474,7 +483,7 @@ def _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr):
 def _src_bwd(name, eq, g, ek, slot_dst, scale, row_key, row_ptr, act):
     device, r, h = _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr)
     if name in _GENERAL:
-        _check_rowwise_width(name, act, h)
+        _check_general(name, act, h, device)
     else:
         _need_diagonal(name, act)
     if not on_cuda(device):
@@ -1236,7 +1245,7 @@ def ell_src_bwd_fused(both, ek, slot_dst, scale, row_key, row_ptr, act):
         raise ValueError(f"both {tuple(both.shape)} is not [N, 2H] = "
                          f"{(ek.shape[0], 2 * h)}")
     _check_plan(slot_dst, scale, row_key, row_ptr, device)
-    _check_rowwise_width("ell_src_bwd_fused", act, h)
+    _check_general("ell_src_bwd_fused", act, h, device)
     if not on_cuda(device):
         return ell_src_bwd_fused_plain(both, ek, slot_dst, scale, row_key,
                                        row_ptr, act)

@@ -57,6 +57,7 @@ import functools
 import dataclasses
 import hashlib
 import logging
+import math
 import time
 from typing import Callable, Optional
 
@@ -548,6 +549,8 @@ class _ActivationKind:
     fn: Callable[[torch.Tensor, float], torch.Tensor]
     vjp: Callable[[torch.Tensor, torch.Tensor, float], torch.Tensor]
     grad: Optional[Callable[[torch.Tensor, float], torch.Tensor]] = None
+    # whether csrc/ell_general_kernels.cu (the general route, #5) takes it
+    general: bool = True
 
 
 def _leaky_relu_grad(z, slope):
@@ -560,9 +563,24 @@ def _tanh_grad(z, _):
     return (1.0 + t) * (1.0 - t)
 
 
-def _elementwise(kernel_id, fn, grad) -> _ActivationKind:
+_SQRT_HALF = math.sqrt(0.5)
+_INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+
+
+def _gelu(z, _):
+    # as jax.nn.gelu(approximate=False): 0.5 * z * erfc(-z / sqrt(2))
+    return 0.5 * z * torch.erfc(-z * _SQRT_HALF)
+
+
+def _gelu_grad(z, _):
+    # Phi(z) + z * phi(z), the derivative jax.grad takes of the form above
+    return (0.5 * torch.erfc(-z * _SQRT_HALF)
+            + z * (torch.exp(-0.5 * z * z) * _INV_SQRT_2PI))
+
+
+def _elementwise(kernel_id, fn, grad, general=True) -> _ActivationKind:
     return _ActivationKind(kernel_id, fn, lambda z, g, p: grad(z, p) * g,
-                           grad)
+                           grad, general)
 
 
 def _centered_shift(z, alpha):
@@ -597,6 +615,9 @@ _ACTIVATIONS = {
     # row-wise: sigma couples the H features of a row
     "centered_relu": _ActivationKind(2, _centered_relu, _centered_relu_vjp),
     "softmax": _ActivationKind(3, _softmax, _softmax_vjp),
+    # erf-GELU on the elementwise, edge and max kernels; the general
+    # route's kernels do not take it yet (ROADMAP.md Queue B part 1 item 1)
+    "gelu": _elementwise(4, _gelu, _gelu_grad, general=False),
 }
 
 
@@ -638,6 +659,12 @@ class Activation:
         this sigma; otherwise the general route does."""
         return self.diagonal and self.sir_elementwise is not False
 
+    @property
+    def general_kernels(self) -> bool:
+        """Whether the general route's kernels (``ell_general_kernels.cu``)
+        take this sigma on the card."""
+        return _ACTIVATIONS[self.name].general
+
     def __call__(self, z: torch.Tensor) -> torch.Tensor:
         return _ACTIVATIONS[self.name].fn(z, self.param)
 
@@ -657,6 +684,11 @@ class Activation:
 
 def leaky_relu(slope: float) -> Activation:
     return Activation("leaky_relu", float(slope))
+
+
+def gelu() -> Activation:
+    """erf-GELU, ``jax.nn.gelu(approximate=False)``: z * Phi(z)."""
+    return Activation("gelu")
 
 
 def centered_relu(alpha: float) -> Activation:
@@ -729,8 +761,9 @@ def resolve_activation(act, device: torch.device) -> Optional[Activation]:
         raise NotImplementedError(
             f"sigma {name} is outside the activation registry and holds no "
             f"tensor: the JAX package runs it on its Pallas kernels, and the "
-            f"port has no kernel for it yet; on the card only a sigma that "
-            f"holds parameters or tensors takes the pure ELL route")
+            f"port's kernels take only the registry's sigma (erf-GELU is "
+            f"ops.ell.Activation('gelu'), gelu()); on the card only a sigma "
+            f"that holds parameters or tensors takes the pure ELL route")
     if name not in _LOGGED:
         _LOGGED.add(name)
         _routing_logger.info("sigma routing: %s -> pure-ell", name)
@@ -945,6 +978,11 @@ def ell_sir_aggregate(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
         raise NotImplementedError(
             f"the general route with an edge term (sigma {act.name} with e, "
             f"the edge-term form of bucket_geq_reduce) is not yet ported")
+    if on_cuda(eq.device) and not act.general_kernels and (
+            not act.elementwise or (fuse_bwd_take and e is None and grad)):
+        raise NotImplementedError(
+            f"the general route's kernels (#1r, #3, #4r, #5) do not take "
+            f"sigma {act.name} yet (ROADMAP.md Queue B part 1 item 1)")
     if grad:
         fn = _EllSirAggregate if act.elementwise else _EllSirAggregateGeneral
         extra = (e,) if act.elementwise else ()

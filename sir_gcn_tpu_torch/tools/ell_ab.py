@@ -18,10 +18,11 @@ into a library of its own (``build/kernels/ab-<hash>/``), which the
 package never loads.
 
 The ELL mode (``csrc/ell_kernels.cu``) runs each of #1, #2, #4 and their
-edge-term forms (leaky_relu(0.2); #2 and #4 also with tanh) from both
-libraries on the same inputs at the ogbn-arxiv plan with bf16 edges: ms
-per launch by CUDA events over 50 warm launches in four turns (other,
-this, this, other), and the largest difference of the two outputs.
+edge-term forms (leaky_relu(0.2) and erf-GELU; #2 and #4 also with tanh)
+from both libraries on the same inputs at the ogbn-arxiv plan with bf16
+edges: ms per launch by CUDA events over 50 warm launches in four turns
+(other, this, this, other), and the largest difference of the two
+outputs.
 ``--probes`` adds #2 and #4 with every gathered index folded into 1/2,
 1/4 and 1/8 of the node table and into 16,384 rows: the same gathers from
 a smaller table, which the 50 MB L2 holds. The plan is the trainer's
@@ -56,10 +57,10 @@ geq_rows, g_z and g_W.
 The edge mode (``--edge``, ``csrc/ell_edge_kernels.cu``) runs #7
 ``ell_edge_act_reduce2`` and #8 ``ell_edge_src_bwd`` from both libraries
 at the ogbn-arxiv plan, H = 96, De = 16, with bf16 and with f32 edges,
-leaky_relu(0.2) and tanh, the basis and W_E from seed 0 made on the card
-(as chip_smoke.py's ``edge_tables``): ms per launch over 20 warm launches
-in eight turns (other, this, this, other, ...), the median and the spread
-of each; the largest difference of rows, srows, the g_ek rows and g_WE
+leaky_relu(0.2), tanh and erf-GELU, the basis and W_E from seed 0 made
+on the card (as chip_smoke.py's ``edge_tables``): ms per launch over 20
+warm launches in eight turns (other, this, this, other, ...), the median
+and the spread of each; the largest difference of rows, srows, the g_ek rows and g_WE
 between the two libraries, and whether each is bitwise equal; and the
 paths this library's ``ell_edge_layout`` reports.
 
@@ -109,7 +110,7 @@ from ..ops.cuda.kernels import (
     ell_max_layout,
 )
 from ..ops.cuda.lab import INFLIGHT, PASS2_TILE_ROWS
-from ..ops.ell import centered_relu, leaky_relu, softmax, tanh
+from ..ops.ell import centered_relu, gelu, leaky_relu, softmax, tanh
 from . import (
     alternating_ms,
     card_line,
@@ -231,7 +232,7 @@ def launches(inp: dict, act, fold: int | None = None) -> dict:
                                (rows, srows)),
         "#4 ell_src_bwd": ("ell_src_bwd", bwd + (p(out),), (out,)),
     }
-    if fold is None and act.name == "leaky_relu":
+    if fold is None and act.name in ("leaky_relu", "gelu"):
         runs = {
             "#1 ell_act_reduce": ("ell_act_reduce", fwd + (p(rows),),
                                   (rows,)),
@@ -359,7 +360,7 @@ def run(device, other: Path, probes: bool = False) -> dict:
             "this": _library("ell_kernels")}
     inp = arxiv_inputs(device)
     recs = {}
-    for act in (leaky_relu(0.2), tanh):
+    for act in (leaky_relu(0.2), tanh, gelu()):
         for label, (entry, args, outs, _) in launches(inp, act).items():
             recs[f"{label} ({act.name})"] = ab(f"{label} ({act.name}, bf16)",
                                                entry, args, outs, libs)
@@ -569,7 +570,7 @@ def run_edge(device, other: Path) -> dict:
     recs = {}
     for dtype in (torch.bfloat16, torch.float32):
         dt = "bf16" if dtype == torch.bfloat16 else "f32"
-        for act in (leaky_relu(0.2), tanh):
+        for act in (leaky_relu(0.2), tanh, gelu()):
             print(f"layout at H = {H}, De = {EDGE_DE} ({act.name}, {dt}): "
                   f"{ell_edge_layout(H, EDGE_DE, act, dtype)}", flush=True)
             runs = {k: edge_launches(lib, inp, eb, we, act, dtype)

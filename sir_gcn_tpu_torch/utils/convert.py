@@ -54,6 +54,13 @@ GraphNorm holds ``weight``, ``bias`` and ``mean_scale``, each BatchNorm
 ``weight``, ``bias`` and the ``batch_stats`` ``mean`` and ``var``, flax's
 LayerNorm ``scale`` (the torch ``weight``) and ``bias``.
 
+The ogbn-arxiv SIRModel with jumping knowledge holds ``readout_i``
+MLPs (the input features' head first) instead of ``readout``, and with
+MLP residuals ``resid_i``; its GATModel holds ``conv_i`` (GATv2Conv), the
+norms and the readouts. The heterophilous SIRModel holds
+``input_linear``, ``conv_i``, ``linear_i``, the norms (``{class}_j``, the
+last after the blocks) and ``output_linear``.
+
 The batched-graph models (``experiments/common_models.py``) hold
 ``node_encoder/embedding`` (an ``Embed`` encoder), ``resid_i``,
 ``conv_i`` (SIREConv's edge encoder ``conv_i/edge_encoder_i``), the
@@ -268,14 +275,54 @@ def _harness_slots(model, embeddings: tuple, head: str) -> dict:
     return slots
 
 
+def _readout_slots(model) -> dict:
+    """The jumping-knowledge readouts ``readout_i`` of an ogbn-arxiv model,
+    or its linear ``readout``."""
+    p = ("params",)
+    if getattr(model, "jumping_knowledge", False):
+        slots = {}
+        for i, mlp in enumerate(model.readouts):
+            slots.update(_mlp_slots(p + (f"readout_{i}",), mlp))
+        return slots
+    return _linear(p + ("readout",), model.readout)
+
+
 def _sir_model_slots(model) -> dict:
     """flax path -> (torch tensor, transpose) for an ogbn-arxiv SIRModel."""
     slots = _linear(("params", "embedding"), model.embedding)
+    for i, mlp in enumerate(getattr(model, "resids", ())):
+        slots.update(_mlp_slots(("params", f"resid_{i}"), mlp))
     for i, conv in enumerate(model.convs):
         slots.update(_conv_slots(("params", f"conv_{i}"), conv))
     for i, norm in enumerate(model.norms):
         slots.update(_named_norm(("params",), i, norm))
-    slots.update(_linear(("params", "readout"), model.readout))
+    slots.update(_readout_slots(model))
+    return slots
+
+
+def _gat_model_slots(model) -> dict:
+    """flax path -> (torch tensor, transpose) for the ogbn-arxiv
+    GATModel."""
+    slots = {}
+    for i, (conv, norm) in enumerate(zip(model.convs, model.norms)):
+        slots.update(_zoo_slots(("params", f"conv_{i}"), conv))
+        slots.update(_named_norm(("params",), i, norm))
+    slots.update(_readout_slots(model))
+    return slots
+
+
+def _hetero_model_slots(model) -> dict:
+    """flax path -> (torch tensor, transpose) for the heterophilous
+    SIRModel: ``input_linear``, ``conv_i``, ``linear_i``,
+    ``output_linear`` and the norms, the last one after the blocks."""
+    p = ("params",)
+    slots = _linear(p + ("input_linear",), model.input_linear)
+    for i, (conv, linear) in enumerate(zip(model.convs, model.linears)):
+        slots.update(_conv_slots(p + (f"conv_{i}",), conv))
+        slots.update(_linear(p + (f"linear_{i}",), linear))
+    for j, norm in enumerate(model.norms):
+        slots.update(_named_norm(p, j, norm))
+    slots.update(_linear(p + ("output_linear",), model.output_linear))
     return slots
 
 
@@ -359,9 +406,15 @@ def _egc_slots(path, egc) -> dict:
 
 def _slots(model: nn.Module) -> dict:
     from ..experiments import common_models
+    from ..experiments.heterophilous import model as hetero
     from ..experiments.ogbg_molhiv import model as molhiv
+    from ..experiments.ogbn_arxiv import model as arxiv
 
     p = ("params",)
+    if isinstance(model, hetero.SIRModel):
+        return _hetero_model_slots(model)
+    if isinstance(model, arxiv.GATModel):
+        return _gat_model_slots(model)
     if isinstance(model, (common_models.GraphSIRModel,
                           common_models.GraphGINModel,
                           common_models.GraphGATModel)):
@@ -401,7 +454,9 @@ def _slots(model: nn.Module) -> dict:
 
 def load_jax_variables(model: nn.Module, variables: dict) -> None:
     """Copy the flax ``variables`` of a JAX model or layer into its port
-    ``model``, in place: the ogbn-arxiv ``SIRModel``, the twelve
+    ``model``, in place: the ogbn-arxiv ``SIRModel`` (with its
+    jumping-knowledge readouts and MLP residuals) and ``GATModel``, the
+    heterophilous ``SIRModel``, the twelve
     DictionaryLookup and HeteroEdgeCount models, the batched-graph
     models (``GraphSIRModel``, ``GraphGINModel``, ``GraphGATModel``), the
     molhiv ``SIRModel``, ``GINModel`` and ``MLPEgc``, ``SIRConv``,

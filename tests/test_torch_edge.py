@@ -76,15 +76,20 @@ def gw_tol(want) -> dict:
                 rtol=1e-3)
 
 
-def jax_side(dt: str):
+# the port's sigma of each case name (leaky_relu the default)
+ACTS = {"leaky_relu": ACT, "gelu": tell.gelu()}
+
+
+def jax_side(dt: str, act: str = "leaky_relu"):
     """The JAX package's ell module, Pallas kernels, sigma and edge dtype."""
     import jax
     import jax.numpy as jnp
     import sir_gcn_tpu.ops.ell as jell
     from sir_gcn_tpu.ops import pallas
 
-    return (jell, pallas, lambda x: jax.nn.leaky_relu(x, 0.2),
-            {"f32": None, "bf16": jnp.bfloat16}[dt])
+    jact = {"leaky_relu": lambda x: jax.nn.leaky_relu(x, 0.2),
+            "gelu": lambda x: jax.nn.gelu(x, approximate=False)}[act]
+    return jell, pallas, jact, {"f32": None, "bf16": jnp.bfloat16}[dt]
 
 
 def graph_edges(graph: str, rng):
@@ -185,18 +190,28 @@ def _add_cast(a, b, jdt):
     return (a.astype(jnp.float32) + b.astype(jnp.float32)).astype(jdt)
 
 
-@pytest.mark.parametrize("graph,dt", [("random", "f32"), ("hub", "bf16"),
-                                      ("isolated", "bf16")])
-def test_edge_term_plains_match_pallas(graph, dt):
+def _cases(*cases):
+    """leaky_relu cases under their own ids, and erf-GELU cases (the last
+    field "gelu") with it appended."""
+    return [pytest.param(*c, id="-".join(map(str, c[:-1]))
+                         + ("-gelu" if c[-1] == "gelu" else ""))
+            for c in cases]
+
+
+@pytest.mark.parametrize("graph,dt,act", _cases(
+    ("random", "f32", "leaky_relu"), ("hub", "bf16", "leaky_relu"),
+    ("isolated", "bf16", "leaky_relu"), ("random", "f32", "gelu"),
+    ("hub", "bf16", "gelu")))
+def test_edge_term_plains_match_pallas(graph, dt, act):
     import jax.numpy as jnp
 
-    jell, pallas, jact, jdt = jax_side(dt)
+    jell, pallas, jact, jdt = jax_side(dt, act)
     c = make_case(graph, de=5, seed=1)
     fg, tdt = c.tfg, DTYPES[dt]
     plan, splan = fg.dst_plan, fg.src_plan
     sd, ss = c.scales["dst"], c.scales["src"]
     fwd = (_t(c.eq), _t(c.ek, tdt), fg.dst_slot_srcnode, _t(sd), plan.row_key,
-           plan.row_ptr, ACT)
+           plan.row_ptr, ACTS[act])
     edge = dict(e=_t(c.e, tdt), slot_edge=plan.slot_edge)
 
     ekg = _add_cast(jnp.take(_cast(_jnp(c.ek), jdt), _jnp(fg.dst_slot_srcnode),
@@ -222,8 +237,8 @@ def test_edge_term_plains_match_pallas(graph, dt):
 
     rows, g_e = ell_src_bwd_edge(
         _t(c.eq, tdt), _t(c.g, tdt), _t(c.ek), fg.src_slot_dstnode, _t(ss),
-        splan.row_key, splan.row_ptr, ACT, _t(c.e, tdt), splan.slot_edge,
-        fg.edge2src_slot, fg.edge_mask)
+        splan.row_key, splan.row_ptr, ACTS[act], _t(c.e, tdt),
+        splan.slot_edge, fg.edge2src_slot, fg.edge_mask)
     idx = _jnp(fg.src_slot_dstnode)
     eqg = _add_cast(jnp.take(_cast(_jnp(c.eq), jdt), idx, axis=0),
                     jnp.take(_cast(_jnp(c.e), jdt), _jnp(splan.slot_edge),
@@ -246,13 +261,14 @@ def test_edge_term_plains_match_pallas(graph, dt):
     np.testing.assert_allclose(g_e.numpy(), np.asarray(want_ge), **BWD_TOL)
 
 
-@pytest.mark.parametrize("graph,de,dt", [("random", 5, "f32"),
-                                         ("hub", 16, "bf16"),
-                                         ("isolated", 16, "f32")])
-def test_fused_edge_plains_match_pallas(graph, de, dt):
+@pytest.mark.parametrize("graph,de,dt,act", _cases(
+    ("random", 5, "f32", "leaky_relu"), ("hub", 16, "bf16", "leaky_relu"),
+    ("isolated", 16, "f32", "leaky_relu"), ("random", 5, "f32", "gelu"),
+    ("hub", 16, "bf16", "gelu")))
+def test_fused_edge_plains_match_pallas(graph, de, dt, act):
     import jax.numpy as jnp
 
-    jell, pallas, jact, jdt = jax_side(dt)
+    jell, pallas, jact, jdt = jax_side(dt, act)
     c = make_case(graph, de=de, seed=2)
     fg, tdt = c.tfg, DTYPES[dt]
     plan, splan = fg.dst_plan, fg.src_plan
@@ -260,7 +276,7 @@ def test_fused_edge_plains_match_pallas(graph, de, dt):
 
     rows, srows = ell_edge_act_reduce2(
         _t(c.eq), _t(c.ek, tdt), _t(c.eb), _t(c.we), fg.dst_slot_srcnode,
-        plan.slot_edge, _t(sd), plan.row_key, plan.row_ptr, ACT)
+        plan.slot_edge, _t(sd), plan.row_key, plan.row_ptr, ACTS[act])
     ekg = jnp.take(_cast(_jnp(c.ek), jdt), _jnp(fg.dst_slot_srcnode), axis=0)
     egr = jnp.take(_jnp(c.eb), _jnp(plan.slot_edge), axis=0)
     eq_rows = jnp.take(_jnp(c.eq), _jnp(plan.row_key), axis=0)
@@ -279,7 +295,7 @@ def test_fused_edge_plains_match_pallas(graph, de, dt):
     rows, g_we = ell_edge_src_bwd(
         _t(c.eq, tdt), _t(c.g, tdt), _t(c.ek), _t(c.eb), _t(c.we),
         fg.src_slot_dstnode, splan.slot_edge, _t(ss), splan.row_key,
-        splan.row_ptr, ACT)
+        splan.row_ptr, ACTS[act])
     idx = _jnp(fg.src_slot_dstnode)
     eqg = jnp.take(_cast(_jnp(c.eq), jdt), idx, axis=0)
     gg = jnp.take(_cast(_jnp(c.g), jdt), idx, axis=0)
@@ -754,9 +770,12 @@ def fused_args(fg, eq, ek, g, eb, we, sd, ss, act, dtype):
                                         ("random", 200, 5),
                                         ("random", 20, 5),
                                         ("random", 128, 16)])
-def test_edge_kernels_match_plain_on_card(cuda_device, graph, h, de, dt):
+@pytest.mark.parametrize("act", sorted(ACTS))
+def test_edge_kernels_match_plain_on_card(cuda_device, graph, h, de, dt,
+                                          act):
     c = make_case(graph, de=de, h=h, device=cuda_device, with_jax=False)
     d, tdt, fg = cuda_device, DTYPES[dt], c.tfg
+    ACT = ACTS[act]
     plan, splan = fg.dst_plan, fg.src_plan
     sd, ss = _t(c.scales["dst"], device=d), _t(c.scales["src"], device=d)
     e = _t(c.e, tdt, d)
@@ -837,7 +856,7 @@ def test_fused_edge_kernels_on_awkward_plans_on_card(cuda_device, h, de, dt,
         rng.random(getattr(fg, f"{side}_plan").num_slots) > 0.2, device=d)
         for side in ("dst", "src"))
     assert bool((sd == 0).any()) and bool((ss == 0).any())
-    for act in (ACT, tell.tanh):
+    for act in (ACT, tell.tanh, tell.gelu()):
         fwd, bwd = fused_args(fg, eq, ek, g, eb, we, sd, ss, act, DTYPES[dt])
         got = ell_edge_act_reduce2(*fwd) + ell_edge_src_bwd(*bwd)
         want = (ell_edge_act_reduce2_plain(*fwd)

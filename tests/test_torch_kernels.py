@@ -34,7 +34,8 @@ from sir_gcn_tpu_torch.ops.cuda import (
 FWD_TOL = dict(atol=2e-4, rtol=1e-4)
 BWD_TOL = dict(atol=3e-4, rtol=1e-3)
 
-ACTS = {"leaky_relu": tell.leaky_relu(0.2), "tanh": tell.tanh}
+ACTS = {"leaky_relu": tell.leaky_relu(0.2), "tanh": tell.tanh,
+        "gelu": tell.gelu()}
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -45,7 +46,8 @@ def jax_side(act: str, dt: str):
     from sir_gcn_tpu.ops import pallas
 
     jact = {"leaky_relu": lambda x: jax.nn.leaky_relu(x, 0.2),
-            "tanh": jnp.tanh}[act]
+            "tanh": jnp.tanh,
+            "gelu": lambda x: jax.nn.gelu(x, approximate=False)}[act]
     return pallas, jact, {"f32": jnp.float32, "bf16": jnp.bfloat16}[dt]
 
 
@@ -184,7 +186,53 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch():
         with pytest.raises((TypeError, ValueError)):
             ell_act_reduce(*args)
     with pytest.raises(NotImplementedError):
-        tell.Activation("gelu")
+        tell.Activation("swish")
+
+
+def test_gelu_matches_jax_on_a_grid():
+    """The registry's erf-GELU and its derivative against
+    jax.nn.gelu(approximate=False) and its jax.grad, in f32 on [-12, 12]
+    with +-0 (the kernels' plain versions and the CPU use these)."""
+    import jax
+    import jax.numpy as jnp
+
+    z = np.concatenate([np.linspace(-12, 12, 24_001), [0.0, -0.0, 1e-30,
+                                                       -1e-30]])
+    z = z.astype(np.float32)
+    f = lambda x: jax.nn.gelu(x, approximate=False)
+    act, t = tell.gelu(), torch.from_numpy(z)
+    assert act.kernel_id == 4 and act.elementwise and act.diagonal
+    assert not act.general_kernels
+    np.testing.assert_allclose(act(t).numpy(), np.asarray(f(jnp.asarray(z))),
+                               **FWD_TOL)
+    np.testing.assert_allclose(
+        act.grad(t).numpy(),
+        np.asarray(jax.vmap(jax.grad(f))(jnp.asarray(z))), **BWD_TOL)
+    g = torch.from_numpy(z[::-1].copy())
+    torch.testing.assert_close(act.vjp(t, g), act.grad(t) * g)
+    assert act(torch.tensor([-0.0])).item() == 0.0
+    assert float(act(torch.tensor([-12.0]))) <= 0.0
+
+
+def test_gelu_general_route_raises_on_card_before_a_launch():
+    """erf-GELU declared non-elementwise takes the general route, whose
+    kernels do not take it: on a CUDA tensor the aggregate raises before
+    any launch, naming the ROADMAP item; on the CPU the plain versions
+    compute it. Checked here through the device check alone (no card):
+    the route's check asks ``on_cuda`` of the tensors' device."""
+    import dataclasses
+
+    fg, eq, ek, g, scales = make_case("random", 24)
+    act = dataclasses.replace(tell.gelu(), sir_elementwise=False)
+    assert not act.elementwise
+    out = tell.ell_sir_aggregate(fg, _t(eq), _t(ek), act, "sym")
+    want = tell.ell_sir_aggregate(fg, _t(eq), _t(ek), tell.gelu(), "sym")
+    torch.testing.assert_close(out, want, **FWD_TOL)
+    import sir_gcn_tpu_torch.ops.cuda.kernels as tk
+
+    with pytest.raises(NotImplementedError, match="Queue B part 1 item 1"):
+        tk._check_general("ell_act_reduce_rowwise", act, 24,
+                          torch.device("cuda"))
 
 
 @pytest.fixture

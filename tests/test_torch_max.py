@@ -65,7 +65,8 @@ BF16_STEP = dict(atol=3e-4, rtol=2.0 ** -7)
 # apart on the card
 NEAR_TIE = 1e-5
 
-ACTS = {"leaky_relu": tell.leaky_relu(0.2), "tanh": tell.tanh}
+ACTS = {"leaky_relu": tell.leaky_relu(0.2), "tanh": tell.tanh,
+        "gelu": tell.gelu()}
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -76,7 +77,8 @@ def jax_side(act: str, dt: str):
     from sir_gcn_tpu.ops import pallas
 
     jact = {"leaky_relu": lambda x: jax.nn.leaky_relu(x, 0.2),
-            "tanh": jnp.tanh}[act]
+            "tanh": jnp.tanh,
+            "gelu": lambda x: jax.nn.gelu(x, approximate=False)}[act]
     return pallas, jact, {"f32": jnp.float32, "bf16": jnp.bfloat16}[dt]
 
 

@@ -195,8 +195,8 @@ def test_trainer_entry_point_on_cpu(capsys):
 def test_trainer_rejects_unported_flags():
     with pytest.raises(NotImplementedError, match="--use-labels"):
         ttrain.get_args(["--cpu", "--use-labels"])
-    with pytest.raises(NotImplementedError, match="jumping"):
-        tmodel.SIRModel(8, 8, 2, jumping_knowledge=True)
+    with pytest.raises(NotImplementedError, match="--flag"):
+        ttrain.get_args(["--cpu", "--flag"])
 
 
 # imports every module named on the command line with flax unimportable, as
