@@ -120,6 +120,20 @@ Phases, each printed as it runs; any failure exits non-zero:
            GraphSIRModel and GATModel, one step card against CPU; then
            one SIREConv with erf-GELU on the arxiv plan, 2 steps and
            evals on each edge route (the edge kernels' erf-GELU forms)
+  bot      the reference's best arxiv pipeline through the entry points,
+           in a temporary working directory, the launch counters at 0
+           before and read after each run: (a) the teacher, the train
+           phase's sym configuration with the label trick, label reuse
+           (1), mask-rate 0.5, FLAG (m = 3) and --save-pred, 5 epochs,
+           exactly 18 #1, 12 #2 and 12 #4 a step and eval; (b) the
+           student (--kd-mode student), the same; (c) C&S --use-sym on
+           both files, no launch; (d) at one layer, 4 epochs straight
+           against 2 with a checkpoint and a resume to 4: the same bits;
+           (e) one FLAG + reuse + KD step of the teacher's model on a
+           2,000-node graph, card against CPU from the same weights and
+           initial perturbation; (f) --no-fast-path for 2 epochs, no
+           launch; (g) two CSR aggregates on the HEC batch: the same
+           bits, and its segment sum timed beside index_add's
   oracles  the two synthetic oracles through their entry points, with
            the launch counters at 0 before and after each run (their
            batches take the CSR aggregate, no kernel of the port): (a)
@@ -2265,7 +2279,8 @@ def phase_profile(device, agg: str, steps: int = 3,
                      edge_dropout=edge_dropout,
                      generator=torch.Generator().manual_seed(0)).to(device)
     step, _ = train.make_harness(model, fg, make_adamw(model.parameters(),
-                                                       args.lr, args.wd))
+                                                       args.lr, args.wd),
+                                 args, 40)
     inputs = step_inputs(data, fg.n_pad, device)
     gen = torch.Generator(device=device).manual_seed(0)
     per_kernel = profile_steps(lambda: step(*inputs, gen), steps)
@@ -3205,6 +3220,309 @@ def phase_fullgraph(device) -> dict:
             **{k: runs["b"].get(k, 0) for k in MAX[:3]}}
 
 
+# the bot phase: the reference's best arxiv pipeline on the train phase's
+# configuration (TRAIN_FLAGS, sym): a teacher with the label trick, label
+# reuse (1 iteration), mask-rate 0.5 and FLAG (m = 3) saving its
+# predictions, a student learning from them by KD, and C&S on both
+BOT_FLAGS = ["--use-labels", "--label-iters", "1", "--mask-rate", "0.5",
+             "--flag", "--m", "3"]
+CS_FLAGS = ["--use-sym", "--add-reverse-edge", "--add-self-loop",
+            "--synthetic-nodes", str(ARXIV_NODES), "--synthetic-edges",
+            str(ARXIV_EDGES)]
+
+
+def bot_launches(steps: int, m: int = 3, reuse: int = 1,
+                 layers: int = 3) -> dict:
+    """Launches of ``steps`` bag-of-tricks steps and evals: each of a
+    step's m + 1 FLAG passes runs ``reuse`` forwards without a gradient
+    (#1 a layer) and one with (#2), then its backward (#4); the eval runs
+    reuse + 1 forwards without a gradient."""
+    want = dict.fromkeys(KERNELS, 0)
+    passes = m + 1
+    want.update(ell_act_reduce=steps * layers * (passes * reuse + reuse + 1),
+                ell_act_reduce2=steps * layers * passes,
+                ell_src_bwd=steps * layers * passes)
+    return want
+
+
+def bot_run(label, main, flags, want=None):
+    """One entry point's run on the card, the launch counters at 0 before
+    and read after (exactly ``want`` if given); logs its steady step, eval,
+    peak memory and plan seconds. Returns the run's results."""
+    import torch
+
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+
+    log(f"== bot {label}: " + " ".join(flags))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = main(flags)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    r = results[0]
+    if "train_losses" in r:
+        steps = r["step_seconds"]
+        steady = (1e3 * statistics.median(steps[1:]) if len(steps) > 1
+                  else float("nan"))
+        log(f"  {label}: {len(steps)} epochs in {seconds:.1f} s, plan "
+            f"{r['plan_seconds']:.2f} s; train step ms "
+            f"{[round(s * 1e3, 3) for s in steps]} (steady {steady:.3f}), "
+            f"eval ms {[round(s * 1e3, 3) for s in r['eval_seconds']]}, "
+            f"peak {peak:.3f} GiB; losses {r['train_losses']}; val_acc "
+            f"{r['val_acc']:.6f}, test_acc {r['test_acc']:.6f}")
+        if not all(math.isfinite(x) for x in r["train_losses"]):
+            raise AssertionError(f"{label}: non-finite training loss")
+    else:
+        log(f"  {label}: {seconds:.1f} s, peak {peak:.3f} GiB: {results}")
+    nonzero = {k: v for k, v in launches.items() if v}
+    log(f"  {label}: launches {nonzero}")
+    if want is not None and launches != want:
+        raise AssertionError(f"{label}: launch counts {nonzero}, expected "
+                             f"{ {k: v for k, v in want.items() if v} }")
+    return results
+
+
+def bot_resume(workdir):
+    """(d) The teacher's configuration at one layer: 4 epochs straight,
+    then 2 epochs with a checkpoint and a resume to 4; the resumed run
+    must give the straight run's losses, metrics and logits bit for bit
+    (the kernels and every other op of the step repeat their bits on the
+    card, and the checkpoint restores the model, AdamW, the plateau, the
+    best selection, the dropout generator and the mask-rate draws)."""
+    import numpy as np
+
+    from sir_gcn_tpu_torch.experiments.ogbn_arxiv import train
+
+    flags = flags_for("sym") + BOT_FLAGS + ["--nlayers", "1"]
+    ck = ["--ckpt-dir", os.path.join(workdir, "ck"), "--ckpt-every", "2"]
+
+    def epochs(n):
+        return flags + ["--epochs", str(n)]
+
+    (a,) = bot_run("(d) 4 epochs straight", train.main, epochs(4),
+                   bot_launches(4, layers=1))
+    bot_run("(d) 2 epochs, checkpoint", train.main, epochs(2) + ck,
+            bot_launches(2, layers=1))
+    (b,) = bot_run("(d) resume to 4", train.main,
+                   epochs(4) + ck + ["--resume"], bot_launches(2, layers=1))
+    same = (b["train_losses"] == a["train_losses"][2:]
+            and all(b[k] == a[k] for k in train.METRIC_KEYS)
+            and np.array_equal(b["logits"], a["logits"]))
+    log(f"  (d) resumed losses {b['train_losses']} against "
+        f"{a['train_losses'][2:]}: bitwise {'equal' if same else 'UNEQUAL'}")
+    if not same:
+        raise AssertionError("(d) the resumed run is not the straight one")
+
+
+def bot_card_against_cpu(device):
+    """(e) One FLAG (m = 3) + label reuse + KD step of the teacher's model
+    (3 layers, H = 96, bn, residual, sym, f32 edges, dropout 0) on a
+    2,000-node graph on the card (kernels) and on the CPU (plain versions),
+    from the same weights, masks, teacher and initial perturbation: the
+    loss, the parameters after AdamW (entries with |g| >= 1e-6: Adam's
+    first step is about lr * sign(g)) and the BatchNorm statistics at
+    FWD_TOL; the eval logits with reuse from the CPU's updated state at
+    FWD_TOL; the last perturbation (steps 1e-3 and 5e-4) at FWD_TOL but
+    for entries a near-zero gradient's sign moved by a whole step, which
+    must be under 0.1% of them."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sir_gcn_tpu_torch.data import synthetic_node_classification
+    from sir_gcn_tpu_torch.experiments.ogbn_arxiv import train
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+    from sir_gcn_tpu_torch.train import (
+        make_adamw,
+        set_lr_scale,
+        warmup_scale,
+    )
+
+    log("== bot (e): one FLAG + label reuse + KD step, card against CPU")
+    args = train.get_args(flags_for("sym") + BOT_FLAGS + [
+        "--kd-mode", "student", "--dropout", "0", "--feat-dropout", "0",
+        "--train-step-size", "1e-3", "--untrain-step-size", "5e-4"])
+    set_edge_dtype(None)
+    data = synthetic_node_classification(2000, 12_000, feat_dim=128,
+                                         num_classes=40, seed=1)
+    cpu = torch.device("cpu")
+    graphs = {d: train.build_arxiv_graph(data, args, d)
+              for d in (cpu, device)}
+    n_pad = graphs[cpu].n_pad
+    rng = np.random.default_rng(1)
+
+    def mask_of(idx):
+        w = np.zeros(n_pad, np.float32)
+        w[idx] = 1.0
+        return w
+
+    feats = np.zeros((n_pad, 128), np.float32)
+    feats[:2000] = data.feat
+    labels = np.zeros(n_pad, np.int64)
+    labels[:2000] = data.labels
+    train_w = mask_of(data.train_idx)
+    sub = rng.random(len(data.train_idx)) < args.mask_rate
+    labeled = mask_of(data.train_idx[~sub])
+    rest = np.clip(mask_of(data.val_idx) + mask_of(data.test_idx), 0, 1)
+    teacher = rng.random((n_pad, 40)).astype(np.float32)
+    teacher /= teacher.sum(-1, keepdims=True)
+    u = args.untrain_step_size
+    p0 = (rng.uniform(-u, u, (n_pad, 128)) * np.where(
+        train_w[:, None] > 0, args.train_step_size / u, 1.0)).astype(
+        np.float32)
+    arrays = dict(feats=feats, labels=labels, loss_w=mask_of(
+        data.train_idx[sub]), labeled=labeled,
+        unlabeled=np.clip(train_w - labeled + rest, 0, 1),
+        train_mask=train_w > 0, kd_teacher=teacher, perturb=p0,
+        eval_labeled=train_w, eval_unlabeled=rest)
+    model = train.build_model(args, 168, 40,
+                              torch.Generator().manual_seed(0))
+    runs = []
+    for d in (cpu, device):
+        t = {k: torch.from_numpy(v).to(d) for k, v in arrays.items()}
+        m = copy.deepcopy(model).to(d)
+        opt = make_adamw(m.parameters(), args.lr, args.wd)
+        set_lr_scale(opt, warmup_scale(1, train.WARMUP))
+        step, ev = train.make_harness(m, graphs[d], opt, args, 40)
+        loss, pert = step(t["feats"], t["labels"], t["loss_w"], None,
+                          labeled=t["labeled"], unlabeled=t["unlabeled"],
+                          train_mask=t["train_mask"],
+                          kd_teacher=t["kd_teacher"], perturb=t["perturb"])
+        runs.append(dict(m=m, ev=ev, t=t, loss=loss.cpu(),
+                            pert=pert.cpu(), state={
+                                k: v.detach().cpu()
+                                for k, v in m.state_dict().items()},
+                            grads={k: p.grad.cpu()
+                                   for k, p in m.named_parameters()}))
+    c, g = runs
+    compare("(e) loss", g["loss"][None], c["loss"][None], FWD_TOL)
+    held = 0
+    for k, want in c["state"].items():
+        keep = (c["grads"][k].abs() >= 1e-6 if k in c["grads"]
+                else torch.ones_like(want, dtype=torch.bool))
+        if keep.any():
+            compare(f"(e) {k}", g["state"][k][keep], want[keep], FWD_TOL,
+                    quiet=True)
+            held += int(keep.sum())
+    log(f"  (e) {held} entries of {len(c['state'])} parameters and "
+        f"statistics within FWD_TOL")
+    diff = (g["pert"] - c["pert"]).abs()
+    bad = diff > FWD_TOL["atol"] + FWD_TOL["rtol"] * c["pert"].abs()
+    step = torch.where(c["t"]["train_mask"][:, None],
+                       args.train_step_size, args.untrain_step_size)
+    whole = (diff / (2 * step)).round() * (2 * step)
+    flips = bool((whole[bad] - diff[bad]).abs().le(1e-6).all())
+    log(f"  (e) perturbation: {int(bad.sum())} of {bad.numel()} entries "
+        f"beyond FWD_TOL, each a whole step apart: {flips}")
+    if not flips or int(bad.sum()) > bad.numel() // 1000:
+        raise AssertionError("(e) the perturbations disagree")
+    g["m"].load_state_dict(c["m"].state_dict())
+    logits = [r["ev"](*(r["t"][k] for k in ("feats", "labels",
+                                           "eval_labeled",
+                                           "eval_unlabeled"))).cpu()
+              for r in (c, g)]
+    compare("(e) eval logits with reuse", logits[1], logits[0], FWD_TOL)
+
+
+def bot_segment_sum(device):
+    """(g) The CSR aggregate on the oracles' HEC batch (634,880 edges, 559k
+    of them padding on one node): two calls give the same bits, forward
+    and gradients; then the batch's segment sum of its [E, 20] messages,
+    forward and backward, timed in alternating turns beside index_add's
+    (its atomics, the sum before the fixed order)."""
+    import torch
+
+    from sir_gcn_tpu_torch.experiments.hetero_edge_count import train as hec
+    from sir_gcn_tpu_torch.ops import message_passing as mp
+    from sir_gcn_tpu_torch.ops import segment as seg
+    from sir_gcn_tpu_torch.tools import alternating_ms, verdict
+
+    log("== bot (g): the fixed-order segment sum on the HEC batch")
+    _, coll, idx = oracle_batches(device)
+    graph = hec.batch_tensors(coll.collate(idx[:256], 256, device),
+                              device)[0]
+    gen = torch.Generator(device=device).manual_seed(0)
+    eq0 = torch.randn(graph.n_pad, 20, device=device, generator=gen)
+    ek0 = torch.randn(graph.n_pad, 20, device=device, generator=gen)
+    runs = []
+    for _ in range(2):
+        eq, ek = (x.clone().requires_grad_() for x in (eq0, ek0))
+        out = mp.sir_aggregate(graph, eq, ek, torch.relu, "sum")
+        out.square().sum().backward()
+        runs.append((out.detach(), eq.grad, ek.grad))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    log(f"  (g) e_pad {graph.e_pad}, real edges {graph.num_edges}: two "
+        f"calls bitwise {'equal' if same else 'UNEQUAL'}")
+    if not same:
+        raise AssertionError("(g) the CSR aggregate is not repeatable")
+    msg = torch.randn(graph.e_pad, 20, device=device, generator=gen,
+                      requires_grad=True)
+    n, dst = graph.n_pad, graph.dst
+
+    def index_add():
+        msg.grad = None
+        msg.new_zeros(n, 20).index_add(0, dst, msg).sum().backward()
+
+    def fixed():
+        msg.grad = None
+        seg.segment_sum(msg, graph.dst_segments, n).sum().backward()
+
+    ms = alternating_ms({"fixed order": fixed, "index_add": index_add},
+                        20, 4)
+    log("  (g) sum forward and backward, 4 turns of 20: " + ", ".join(
+        f"{k} median {statistics.median(v):.4f} ms [{min(v):.4f}-"
+        f"{max(v):.4f}]" for k, v in ms.items())
+        + f": fixed order {verdict(ms['fixed order'], ms['index_add'])}")
+
+
+def phase_bot(device):
+    """The bag of tricks on the card through the entry points: (a) the
+    teacher and (b) the student at full width (5 epochs each, exact
+    launches), (c) C&S on both, (d) checkpoint resume, (e) a step card
+    against CPU, (f) --no-fast-path launching no kernel, (g) the segment
+    sum's repeatability."""
+    import tempfile
+
+    import torch
+
+    from sir_gcn_tpu_torch.experiments.ogbn_arxiv import correct_and_smooth
+    from sir_gcn_tpu_torch.experiments.ogbn_arxiv import train
+
+    t0 = time.perf_counter()
+    here = os.getcwd()
+    flags = flags_for("sym") + BOT_FLAGS + ["--save-pred"]
+    with tempfile.TemporaryDirectory() as workdir:
+        os.chdir(workdir)
+        try:
+            bot_run("(a) teacher", train.main, flags, bot_launches(5))
+            bot_run("(b) student", train.main,
+                    flags + ["--kd-mode", "student"], bot_launches(5))
+            t_cs = time.perf_counter()
+            res = bot_run("(c) C&S", correct_and_smooth.main, CS_FLAGS,
+                          dict.fromkeys(KERNELS, 0))
+            log(f"  (c) {time.perf_counter() - t_cs:.1f} s for "
+                f"{len(res)} files")
+            if len(res) != 2 or not all(
+                    0.0 <= r[k] <= 1.0 for r in res for k in r):
+                raise AssertionError(f"(c) C&S results {res}")
+            bot_resume(workdir)
+        finally:
+            os.chdir(here)
+    torch.cuda.empty_cache()
+    bot_card_against_cpu(device)
+    bot_run("(f) --no-fast-path", train.main,
+            flags_for("sym") + ["--no-fast-path", "--epochs", "2"],
+            dict.fromkeys(KERNELS, 0))
+    torch.cuda.empty_cache()
+    bot_segment_sum(device)
+    log(f"== bot ok in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3254,6 +3572,7 @@ def main() -> int:
     gelu_launches.update({
         k: v for k, v in phase_sireconv(device, arxiv_fg, steps=2,
                                         act=gelu()).items() if k in EDGE})
+    phase_bot(device)
     phase_oracles(device)
     phase_batched(device)
     log(f"== all phases ok in {time.perf_counter() - t0:.1f}s")

@@ -31,6 +31,11 @@ def _edge_mask(model: nn.Module, graph, generator):
     return None
 
 
+def _perturbed(feats: torch.Tensor, perturb) -> torch.Tensor:
+    """``feats + perturb``; the float 0.0 adds nothing."""
+    return feats + perturb if torch.is_tensor(perturb) or perturb else feats
+
+
 def _readout(model: nn.Module, heads: list, generator) -> torch.Tensor:
     """The sum of the jumping-knowledge readouts over ``heads``, or the
     linear readout of the last."""
@@ -76,16 +81,18 @@ class SIRModel(nn.Module):
             self.readout = Linear(hidden_dim, output_dim,
                                   generator=generator)
 
-    def forward(self, graph, feats: torch.Tensor, *,
+    def forward(self, graph, feats: torch.Tensor,
+                perturb: torch.Tensor | float = 0.0, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Logits [N_pad, output_dim]. In training mode dropout and each
-        layer's DropEdge mask draw from ``generator`` (on the graph's
-        device) and BatchNorm updates its running statistics; in eval mode,
-        or at edge dropout 0, the convs get no mask and keep the static
-        scales."""
+        """Logits [N_pad, output_dim]. ``perturb`` (FLAG's, [N_pad,
+        input_dim]) is added to the features after the input dropout. In
+        training mode dropout and each layer's DropEdge mask draw from
+        ``generator`` (on the graph's device) and BatchNorm updates its
+        running statistics; in eval mode, or at edge dropout 0, the convs
+        get no mask and keep the static scales."""
         act = leaky_relu02
-        feats = apply_dropout(feats, self.input_dropout, self.training,
-                              generator)
+        feats = _perturbed(apply_dropout(feats, self.input_dropout,
+                                         self.training, generator), perturb)
         x = self.embedding(feats)
         heads = [feats]
         for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
@@ -140,10 +147,11 @@ class GATModel(nn.Module):
         else:
             self.readout = Linear(width, output_dim, generator=generator)
 
-    def forward(self, graph, feats: torch.Tensor, *,
+    def forward(self, graph, feats: torch.Tensor,
+                perturb: torch.Tensor | float = 0.0, *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = apply_dropout(feats, self.input_dropout, self.training,
-                          generator)
+        x = _perturbed(apply_dropout(feats, self.input_dropout,
+                                     self.training, generator), perturb)
         heads = [x]
         for conv, norm in zip(self.convs, self.norms):
             emask = _edge_mask(self, graph, generator)

@@ -19,6 +19,7 @@ graph's device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -41,6 +42,13 @@ class GraphBatch:
     num_nodes, num_edges, num_graphs : int, the true (unpadded) counts.
     in_deg, out_deg : float32 [N_pad], true degrees (0 on padding).
     host : NumPy copies of the array fields, keyed by field name.
+
+    ``dst_segments``, ``src_segments`` and ``graph_segments`` hold dst, src
+    and ``node2graph`` (sorted: graphs in order, padding nodes in the last)
+    as the segment ops' ``Segments``, whose fixed-order sum plans (for
+    the sums and the gathers' backward on a card) a graph builds once,
+    told that the padding edges (nodes) come last and point at the last
+    node (graph), and the longest real run.
     """
 
     src: torch.Tensor
@@ -80,10 +88,37 @@ class GraphBatch:
         m = self.node_mask.to(torch.float32)
         return m.new_zeros(self.g_pad).index_add(0, self.node2graph, m)
 
+    @functools.cached_property
+    def dst_segments(self):
+        from .ops.segment import Segments
+
+        return Segments(self.dst, self.n_pad, sorted_ids=True,
+                        tail=self.e_pad - self.num_edges,
+                        max_run=int(self.host["in_deg"].max(initial=0)))
+
+    @functools.cached_property
+    def src_segments(self):
+        from .ops.segment import Segments
+
+        return Segments(self.src, self.n_pad,
+                        tail=self.e_pad - self.num_edges,
+                        max_run=int(self.host["out_deg"].max(initial=0)))
+
+    @functools.cached_property
+    def graph_segments(self):
+        from .ops.segment import Segments
+
+        sizes = np.bincount(self.host["node2graph"][:self.num_nodes])
+        return Segments(self.node2graph, self.g_pad, sorted_ids=True,
+                        tail=self.n_pad - self.num_nodes,
+                        max_run=int(sizes.max(initial=0)))
+
     def broadcast_nodes(self, gfeat: torch.Tensor) -> torch.Tensor:
         """Graph-level -> node-level broadcast (``dgl.broadcast_nodes``):
         row ``node2graph[u]`` of ``gfeat`` for each node u."""
-        return gfeat.index_select(0, self.node2graph)
+        from .ops.segment import gather_rows
+
+        return gather_rows(gfeat, self.graph_segments)
 
     def to(self, device: torch.device | str) -> "GraphBatch":
         """This graph with its tensors on ``device``, copied from the host

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.segment import segment_sum
+
 
 class GraphNorm(nn.Module):
     """Per-graph normalisation with a learnable mean scale (reference
@@ -35,17 +37,17 @@ class GraphNorm(nn.Module):
                            else None)
 
     def forward(self, graph, feats: torch.Tensor) -> torch.Tensor:
-        g, n2g = graph.g_pad, graph.node2graph
+        g = graph.g_pad
         mask = graph.node_mask.to(feats.dtype)[:, None]
         n_per_graph = graph.batch_num_nodes().clamp_min(1.0)[:, None]
-        mean = feats.new_zeros(g, feats.shape[1]).index_add(
-            0, n2g, feats * mask) / n_per_graph
+        mean = segment_sum(feats * mask, graph.graph_segments,
+                           g) / n_per_graph
         demean = graph.broadcast_nodes(mean)
         if self.mean_scale is not None:
             demean = demean * self.mean_scale
         demean = feats - demean
-        var = feats.new_zeros(g, feats.shape[1]).index_add(
-            0, n2g, demean.square() * mask) / n_per_graph
+        var = segment_sum(demean.square() * mask, graph.graph_segments,
+                          g) / n_per_graph
         out = self.weight * demean / graph.broadcast_nodes(
             torch.sqrt(var + self.eps))
         return out if self.bias is None else out + self.bias

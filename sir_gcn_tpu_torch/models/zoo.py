@@ -91,14 +91,15 @@ class GATv2Conv(nn.Module):
         fdst = fsrc if self.fc_dst is None else self.fc_dst(feat).reshape(
             -1, h, f)
         valid = _valid(graph, edge_mask)
-        src_rows = seg.gather_rows(fsrc, graph.src)
-        z = seg.gather_rows(fdst, graph.dst) + src_rows       # [E, H, F]
+        src_rows = seg.gather_rows(fsrc, graph.src_segments)
+        z = seg.gather_rows(fdst, graph.dst_segments) + src_rows  # [E,H,F]
         e = (F.leaky_relu(z, self.negative_slope) * self.attn).sum(-1)
-        alpha = seg.segment_softmax(e, graph.dst, graph.n_pad, valid)
+        alpha = seg.segment_softmax(e, graph.dst_segments, graph.n_pad,
+                                    valid)
         alpha = dropout(alpha, self.attn_dropout, self.training, generator)
         msg = torch.where(valid[:, None, None], src_rows * alpha[..., None],
                           0.0)
-        rst = seg.segment_sum(msg, graph.dst, graph.n_pad)
+        rst = seg.segment_sum(msg, graph.dst_segments, graph.n_pad)
         if self.residual:
             res = feat if self.res_fc is None else self.res_fc(feat)
             rst = rst + res.reshape(-1, h, f)
@@ -140,9 +141,9 @@ class GINEConv(nn.Module):
                 edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         valid = _valid(graph, edge_mask)
         e = efeat.index_select(0, graph.edge_perm)  # original -> sorted
-        msg = torch.relu(seg.gather_rows(feat, graph.src) + e)
+        msg = torch.relu(seg.gather_rows(feat, graph.src_segments) + e)
         msg = torch.where(valid[:, None], msg, 0.0)
-        agg = seg.segment_sum(msg, graph.dst, graph.n_pad)
+        agg = seg.segment_sum(msg, graph.dst_segments, graph.n_pad)
         return self.apply_func((1.0 + self.eps) * feat + agg)
 
 
@@ -189,19 +190,19 @@ class PNAConv(nn.Module):
                 edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         valid = _valid(graph, edge_mask)
         vmask = valid[:, None]
-        n, dst = graph.n_pad, graph.dst
+        n, segs = graph.n_pad, graph.dst_segments
         din = feat.shape[-1] // self.num_towers
-        counts = seg.segment_sum(valid.to(feat.dtype), dst,
+        counts = seg.segment_sum(valid.to(feat.dtype), segs,
                                  n).clamp_min(1.0)[:, None]
         logd = torch.log(graph.in_deg.clamp_min(1.0) + 1.0)[:, None]
-        h_dst = seg.gather_rows(feat, dst)
-        h_src = seg.gather_rows(feat, graph.src)
+        h_dst = seg.gather_rows(feat, segs)
+        h_src = seg.gather_rows(feat, graph.src_segments)
 
         outs = []
         for t in range(self.num_towers):
             sl = slice(t * din, (t + 1) * din)
             m = self.M[t](torch.cat([h_dst[:, sl], h_src[:, sl]], -1))
-            s = seg.segment_sum(torch.where(vmask, m, 0.0), dst, n)
+            s = seg.segment_sum(torch.where(vmask, m, 0.0), segs, n)
             aggs = []
             for agg in self.aggregators:
                 if agg == "sum":
@@ -209,13 +210,13 @@ class PNAConv(nn.Module):
                 elif agg == "mean":
                     aggs.append(s / counts)
                 elif agg == "max":
-                    aggs.append(seg.segment_max(m, dst, n, valid))
+                    aggs.append(seg.segment_max(m, segs, n, valid))
                 elif agg == "min":
-                    aggs.append(-seg.segment_max(-m, dst, n, valid))
+                    aggs.append(-seg.segment_max(-m, segs, n, valid))
                 else:  # std, var
                     mean = s / counts
                     sq = seg.segment_sum(torch.where(vmask, m * m, 0.0),
-                                         dst, n) / counts
+                                         segs, n) / counts
                     v = torch.relu(sq - mean * mean)
                     aggs.append(v if agg == "var"
                                 else torch.sqrt(v + 1e-10))
@@ -257,7 +258,7 @@ class SAGEConv(nn.Module):
     def forward(self, graph, feat: torch.Tensor,
                 edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         pooled = torch.relu(self.fc_pool(feat))
-        msg = seg.gather_rows(pooled, graph.src)
-        h_neigh = seg.segment_max(msg, graph.dst, graph.n_pad,
+        msg = seg.gather_rows(pooled, graph.src_segments)
+        h_neigh = seg.segment_max(msg, graph.dst_segments, graph.n_pad,
                                   _valid(graph, edge_mask))
         return self.fc_self(feat) + self.fc_neigh(h_neigh)

@@ -435,6 +435,14 @@ class FastGraph:
     def device(self):
         return self.graph.device
 
+    @property
+    def dst_segments(self):
+        return self.graph.dst_segments
+
+    @property
+    def src_segments(self):
+        return self.graph.src_segments
+
 
 def static_edge_scale(agg: str, src, dst, valid, in_deg, out_deg
                       ) -> np.ndarray:

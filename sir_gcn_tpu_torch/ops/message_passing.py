@@ -149,24 +149,25 @@ def _reduce_messages(graph, m: torch.Tensor, agg_type: str,
     """Reduce per-edge messages [E_pad, ...] by dst: the max over valid
     edges (0 for none), or the masked sum of ``scale`` * m, divided by the
     valid in-degree for mean."""
-    n = graph.n_pad
+    n, dst = graph.n_pad, graph.dst_segments
     if agg_type == "max":
-        return seg.segment_max(m, graph.dst, n, valid)
+        return seg.segment_max(m, dst, n, valid)
     vmask = valid.reshape((-1,) + (1,) * (m.dim() - 1))
     if scale is not None:
         m = m * scale.reshape(vmask.shape)
     m = torch.where(vmask, m, 0.0)
     if agg_type == "mean":
-        counts = seg.segment_sum(valid.to(m.dtype), graph.dst, n)
-        return seg.segment_mean(m, graph.dst, n, counts)
-    return seg.segment_sum(m, graph.dst, n)
+        counts = seg.segment_sum(valid.to(m.dtype), dst, n)
+        return seg.segment_mean(m, dst, n, counts)
+    return seg.segment_sum(m, dst, n)
 
 
 def _csr_aggregate(graph, eq, ek, activation, agg_type, e, w_relation,
                    b_relation, edge_mask) -> torch.Tensor:
     """The generic branch of ``sir_aggregate``: per-edge messages over the
     dst-sorted edge arrays, reduced by segment."""
-    z = (seg.gather_rows(eq, graph.dst) + seg.gather_rows(ek, graph.src))
+    z = (seg.gather_rows(eq, graph.dst_segments)
+         + seg.gather_rows(ek, graph.src_segments))
     if e is not None:
         z = z + e
     m = activation(z)
@@ -192,7 +193,8 @@ def sir_aggregate_concat(graph, eq: torch.Tensor, ek: torch.Tensor,
     torch callable; sym scales by the degree norms."""
     if agg_type not in ("sum", "mean", "max", "sym"):
         raise NotImplementedError(f"agg_type = {agg_type} not implemented")
-    parts = [seg.gather_rows(eq, graph.dst), seg.gather_rows(ek, graph.src)]
+    parts = [seg.gather_rows(eq, graph.dst_segments),
+             seg.gather_rows(ek, graph.src_segments)]
     if e is not None:
         parts.append(e)
     m = message_func(torch.cat(parts, -1))
@@ -209,6 +211,6 @@ def copy_src_aggregate(graph, x: torch.Tensor, agg_type: str = "sum", *,
     (``benchmark-datasets/ogbn-arxiv/correct_and_smooth.py:41-58``) and of
     GCN/GIN-style baseline convs. ``edge_scale`` [E_pad] weights each
     edge's message for sum and mean."""
-    m = seg.gather_rows(x, graph.src)
+    m = seg.gather_rows(x, graph.src_segments)
     return _reduce_messages(graph, m, agg_type, _valid(graph, edge_mask),
                             edge_scale)

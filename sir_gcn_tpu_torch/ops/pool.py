@@ -12,13 +12,13 @@ from .segment import _rows, segment_sum
 def sum_pool(graph, feats: torch.Tensor) -> torch.Tensor:
     """Per-graph node sum -> [G_pad, ...]; padding nodes excluded."""
     masked = torch.where(_rows(graph.node_mask, feats), feats, 0.0)
-    return segment_sum(masked, graph.node2graph, graph.g_pad)
+    return segment_sum(masked, graph.graph_segments, graph.g_pad)
 
 
 def avg_pool(graph, feats: torch.Tensor) -> torch.Tensor:
     """Per-graph node mean -> [G_pad, ...] (0 for a graph with no node)."""
     s = sum_pool(graph, feats)
-    n = segment_sum(graph.node_mask.to(s.dtype), graph.node2graph,
+    n = segment_sum(graph.node_mask.to(s.dtype), graph.graph_segments,
                     graph.g_pad)
     return s / _rows(n.clamp_min(1.0), s)
 

@@ -54,7 +54,11 @@ GraphNorm holds ``weight``, ``bias`` and ``mean_scale``, each BatchNorm
 ``weight``, ``bias`` and the ``batch_stats`` ``mean`` and ``var``, flax's
 LayerNorm ``scale`` (the torch ``weight``) and ``bias``.
 
-The ogbn-arxiv SIRModel with jumping knowledge holds ``readout_i``
+With the label trick the arxiv models' input is the features and the
+one-hot labels, D + C wide: build the port model with that ``input_dim``
+and its ``embedding`` (SIR) or first conv (GAT) takes the [D + C, H]
+kernels as any other width. The ogbn-arxiv SIRModel with jumping
+knowledge holds ``readout_i``
 MLPs (the input features' head first) instead of ``readout``, and with
 MLP residuals ``resid_i``; its GATModel holds ``conv_i`` (GATv2Conv), the
 norms and the readouts. The heterophilous SIRModel holds

@@ -193,10 +193,18 @@ def test_trainer_entry_point_on_cpu(capsys):
 
 
 def test_trainer_rejects_unported_flags():
-    with pytest.raises(NotImplementedError, match="--use-labels"):
-        ttrain.get_args(["--cpu", "--use-labels"])
-    with pytest.raises(NotImplementedError, match="--flag"):
-        ttrain.get_args(["--cpu", "--flag"])
+    """Only the multi-device flags are left to port: ``--mesh-devices``
+    above 1, ``--dist-path`` and ``--remat`` raise; every other flag of the
+    JAX trainer parses."""
+    for flags, name in ((["--mesh-devices", "2"], "--mesh-devices"),
+                        (["--dist-path", "gspmd"], "--dist-path"),
+                        (["--remat"], "--remat")):
+        with pytest.raises(NotImplementedError, match=name):
+            ttrain.get_args(["--cpu"] + flags)
+    ttrain.get_args(["--cpu", "--mesh-devices", "1", "--gpu", "1",
+                     "--use-labels", "--label-iters", "2", "--flag",
+                     "--kd-mode", "student", "--l1", "1e-4", "--reorder",
+                     "--no-fast-path", "--use-xrt-emb", "--resume"])
 
 
 # imports every module named on the command line with flax unimportable, as
