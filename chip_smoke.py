@@ -161,6 +161,23 @@ Phases, each printed as it runs; any failure exits non-zero:
            JK, molhiv GIN with a virtual node, zinc cn and ln, sbm GAT,
            zinc GIN) one step on the card against the CPU; (c) the launch
            counters at 0 around (a), the profiles and (b)'s card steps
+  dist     the multi-GPU slice on the one card: (a) the bench graph
+           (169,343 nodes, random, bidirected, self-loops, padded to
+           128 x 4) planned by the native planner and by NumPy, the plans
+           array-equal, seconds of each, then the halo and all-gather
+           plans of 4 shards; (b) each of the 4 ranks' local forward and
+           backward (H = 96, sym, bf16 edges, leaky_relu(0.2)) on #2 and
+           #4 over its own plans, and its forward without a gradient on
+           #1, the exchanged tables assembled by indexing the whole ek;
+           out and both gradients against the single-card aggregate on the
+           FastGraph, for the halo aggregate on static and on DropEdge
+           scales and for the all-gather one, the launches exact (counters
+           at 0 before each, read after); rank 0's forward and backward
+           timed beside the single card's; (c) a one-rank NCCL group on
+           the card (its mesh built): one arxiv-configuration step through
+           a HaloGraph of one shard against the FastGraph's (loss and
+           every weight), and one zinc --norm bn step through
+           make_dp_train_step_stateful, bitwise the single-device step
 
 The last line is the JSON contract line; the line before it lists each
 kernel's launches on the main path, error, times and bound. Needs a CUDA
@@ -3523,6 +3540,377 @@ def phase_bot(device):
     log(f"== bot ok in {time.perf_counter() - t0:.1f} s")
 
 
+DIST_SHARDS = 4
+
+
+def dist_plans():
+    """(a) of the dist phase: the bench graph (random, bidirected, with
+    self-loops, padded to 128 x DIST_SHARDS nodes) on the host, its dst and
+    src plans from the native planner and from NumPy, array-equal; then
+    the halo and all-gather plans of DIST_SHARDS shards (sym)."""
+    import numpy as np
+
+    from bench_torch import E_RAW, N, bench_edges
+    from sir_gcn_tpu_torch import build_graph, native
+    from sir_gcn_tpu_torch.ops.ell import build_reduce_plan
+    from sir_gcn_tpu_torch.parallel.ell_distributed import (
+        build_sharded_fast_graph,
+    )
+    from sir_gcn_tpu_torch.parallel.halo import build_halo_fast_graph
+
+    if not native.available():
+        raise AssertionError("(a) the native planner did not build")
+    src, dst = bench_edges("random", False, np.random.default_rng(0), N,
+                           E_RAW)
+    graph = build_graph(src, dst, N, pad_multiple=128 * DIST_SHARDS)
+    h = graph.host
+    valid = np.asarray(h["edge_mask"], bool)
+    log(f"  (a) bench graph: {N} nodes, {graph.num_edges} edges with "
+        f"self-loops, n_pad {graph.n_pad}, e_pad {graph.e_pad}; library "
+        f"{native.library_path()}")
+    for side in ("dst", "src"):
+        keys = np.asarray(h[side], np.int64)
+        plans, secs = {}, {}
+        for name, flag in (("native", True), ("numpy", False)):
+            t0 = time.perf_counter()
+            plans[name] = build_reduce_plan(keys, valid, graph.n_pad,
+                                            native=flag)
+            secs[name] = time.perf_counter() - t0
+        a, b = plans["native"], plans["numpy"]
+        same = (a.host.keys() == b.host.keys() and all(
+            np.array_equal(a.host[k], b.host[k]) for k in a.host)
+            and (a.buckets1, a.buckets2) == (b.buckets1, b.buckets2))
+        log(f"  (a) {side} plan: native {secs['native']:.3f} s, NumPy "
+            f"{secs['numpy']:.3f} s, {a.num_slots} slots, array-equal "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"(a) the native {side} plan differs")
+    t0 = time.perf_counter()
+    hfg = build_halo_fast_graph(graph, DIST_SHARDS, "sym")
+    t_halo = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sfg = build_sharded_fast_graph(graph, DIST_SHARDS, "sym")
+    t_sharded = time.perf_counter() - t0
+    boundary = [int(p.host["slot_valid"].sum()) for p in hfg.dst_plan_b]
+    interior = [int(p.host["slot_valid"].sum()) for p in hfg.dst_plan_i]
+    log(f"  (a) halo plans of {DIST_SHARDS} shards: {t_halo:.2f} s, h_max "
+        f"{hfg.h_max} (halo table {hfg.halo_rows} rows a shard against "
+        f"{graph.n_pad} gathered), interior edges {interior}, boundary "
+        f"edges {boundary}; all-gather plans {t_sharded:.2f} s")
+    return graph, hfg, sfg
+
+
+def dist_ranks(device, graph, hfg, sfg, errs, timing, smi: str):
+    """(b) of the dist phase: each of DIST_SHARDS ranks' local forward and
+    backward on its own plans, one after another on the one card, the
+    exchanged tables assembled here by indexing the whole ek; held against
+    the single-card aggregate on the FastGraph. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from sir_gcn_tpu_torch.ops import message_passing as mp
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.ops.ell import _cast, build_fast_graph, leaky_relu
+    from sir_gcn_tpu_torch.parallel import ell_distributed as ed
+    from sir_gcn_tpu_torch.parallel import halo as hl
+
+    act, dtype, h, S = leaky_relu(0.2), torch.bfloat16, 96, DIST_SHARDS
+    mp.set_edge_dtype(dtype)
+    gcard = graph.to(device)
+    fg = build_fast_graph(gcard)
+    n_local = hfg.n_local
+    rows = [slice(r * n_local, (r + 1) * n_local) for r in range(S)]
+    gen = torch.Generator(device=device).manual_seed(3)
+    eq, ek, g = (torch.randn((graph.n_pad, h), generator=gen, device=device)
+                 for _ in range(3))
+    mask = torch.from_numpy(np.random.default_rng(4).random(graph.e_pad)
+                            >= 0.2).to(device)
+    locs = [hl.local_view(hfg, r, device) for r in range(S)]
+    slocs = [ed.take_shard(sfg, r, device) for r in range(S)]
+    hm = hfg.h_max
+
+    def reference(edge_mask):
+        eq_r, ek_r = eq.clone().requires_grad_(), ek.clone().requires_grad_()
+        out = mp.sir_aggregate(fg, eq_r, ek_r, act, "sym",
+                               edge_mask=edge_mask)
+        out.backward(g)
+        return out.detach(), eq_r.grad, ek_r.grad
+
+    def halo_ranks(edge_mask, grad=True):
+        scales = [hl.halo_slot_scales(loc, gcard, "sym", edge_mask)
+                  for loc in locs]
+        sends = [hl.halo_send(loc, ek[rows[r]], dtype)
+                 for r, loc in enumerate(locs)]
+        sends32 = [hl.halo_send(loc, ek[rows[r]])
+                   for r, loc in enumerate(locs)]
+        out, g_eq, g_halo, g_ek = [], [], [], []
+        for r, loc in enumerate(locs):
+            # the exchanges: block r of each sender, in bf16 and in f32
+            halo = torch.cat([sends[j][r * hm:(r + 1) * hm]
+                              for j in range(S)])
+            halo32 = torch.cat([sends32[j][r * hm:(r + 1) * hm]
+                                for j in range(S)])
+            s_i, s_b, s_si, s_hp = scales[r]
+            if not grad:
+                out.append(hl.halo_local_forward(
+                    loc, eq[rows[r]], ek[rows[r]], halo, s_i, s_b, act,
+                    dtype, derivative=False))
+                continue
+            o, sbar = hl.halo_local_forward(loc, eq[rows[r]], ek[rows[r]],
+                                            halo, s_i, s_b, act, dtype)
+            gi, gh = hl.halo_local_backward(loc, g[rows[r]], eq[rows[r]],
+                                            ek[rows[r]], halo32, s_si, s_hp,
+                                            act, dtype)
+            out.append(o)
+            g_eq.append(g[rows[r]] * sbar)
+            g_ek.append(gi)
+            g_halo.append(gh)
+        if not grad:
+            return torch.cat(out)
+        for r, loc in enumerate(locs):  # the cotangents' return exchange
+            ret = torch.cat([g_halo[j][r * hm:(r + 1) * hm]
+                             for j in range(S)])
+            g_ek[r] = g_ek[r] + hl.halo_return(loc, ret)
+        return torch.cat(out), torch.cat(g_eq), torch.cat(g_ek)
+
+    def sharded_ranks(grad=True):
+        ek_full = _cast(ek, dtype)  # the all-gathered table
+        out, g_eq, g_full = [], [], 0.0
+        for r, loc in enumerate(slocs):
+            if not grad:
+                out.append(ed.sharded_local_forward(loc, eq[rows[r]],
+                                                    ek_full, act, False))
+                continue
+            o, sbar = ed.sharded_local_forward(loc, eq[rows[r]], ek_full,
+                                               act, True)
+            out.append(o)
+            g_eq.append(g[rows[r]] * sbar)
+            g_full = g_full + ed.sharded_local_backward(
+                loc, g[rows[r]], eq[rows[r]], ek, act, dtype)
+        if not grad:
+            return torch.cat(out)
+        return torch.cat(out), torch.cat(g_eq), g_full  # reduce-scattered
+
+    launches = {}
+    for label, run, edge_mask in (
+            ("halo", lambda grad=True: halo_ranks(None, grad), None),
+            ("halo dropedge", lambda grad=True: halo_ranks(mask, grad), mask),
+            ("all-gather", sharded_ranks, None)):
+        want = reference(edge_mask)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = run()
+        got_ng = run(grad=False)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in LAUNCHES.items() if v}
+        per_rank = 2 if label.startswith("halo") else 1
+        expect = {"ell_act_reduce2": per_rank * S, "ell_src_bwd": per_rank * S,
+                  "ell_act_reduce": per_rank * S}
+        log(f"  (b) {label}, {S} ranks: launches {counts}")
+        if counts != expect:
+            raise AssertionError(f"(b) {label} launches {counts}, expected "
+                                 f"{expect}")
+        launches[label] = counts
+        for name, a, b, tol in (("out", got[0], want[0], FWD_TOL),
+                                ("out without a gradient", got_ng, want[0],
+                                 FWD_TOL),
+                                ("g_eq", got[1], want[1], BWD_TOL),
+                                ("g_ek", got[2], want[2], BWD_TOL)):
+            err = compare(f"(b) {label} {name} against the single card",
+                          a, b, tol)
+            kernel = {"out": "ell_act_reduce2", "g_ek": "ell_src_bwd",
+                      "g_eq": "ell_act_reduce2"}.get(name, "ell_act_reduce")
+            errs[f"{kernel}[{label}]"] = max(
+                errs.get(f"{kernel}[{label}]", 0.0), err)
+
+    # the time of one rank's local forward and backward (rank 0) beside
+    # the single-card aggregate's, in alternating turns
+    from sir_gcn_tpu_torch.tools import alternating_ms
+
+    loc, (s_i, s_b, s_si, s_hp) = locs[0], hl.halo_slot_scales(
+        locs[0], gcard, "sym", None)
+    halo0 = torch.cat([hl.halo_send(locs[j], ek[rows[j]], dtype)[:hm]
+                       for j in range(S)])
+    halo0_32 = torch.cat([hl.halo_send(locs[j], ek[rows[j]])[:hm]
+                          for j in range(S)])
+    eq_r, ek_r = eq.clone().requires_grad_(), ek.clone().requires_grad_()
+
+    def single():
+        mp.sir_aggregate(fg, eq_r, ek_r, act, "sym").backward(g)
+
+    def rank0():
+        hl.halo_local_forward(loc, eq[rows[0]], ek[rows[0]], halo0, s_i,
+                              s_b, act, dtype)
+        hl.halo_local_backward(loc, g[rows[0]], eq[rows[0]], ek[rows[0]],
+                               halo0_32, s_si, s_hp, act, dtype)
+
+    ek_full = _cast(ek, dtype)
+
+    def sharded0():
+        ed.sharded_local_forward(slocs[0], eq[rows[0]], ek_full, act, True)
+        ed.sharded_local_backward(slocs[0], g[rows[0]], eq[rows[0]], ek,
+                                  act, dtype)
+
+    ms = alternating_ms({"single card": single, "halo rank 0": rank0,
+                         "all-gather rank 0": sharded0}, 10, 4)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    log(f"  (b) forward + backward at {S} shards, 4 turns of 10 ({smi}): "
+        + ", ".join(
+        f"{k} median {v:.4f} ms [{min(ms[k]):.4f}-{max(ms[k]):.4f}]"
+        for k, v in med.items()))
+    timing["dist"] = med
+    mp.set_edge_dtype(None)
+    return launches
+
+
+def dist_one_rank(device, smi: str):
+    """(c) of the dist phase, under a one-rank NCCL group on the card:
+    one arxiv-configuration training step through a HaloGraph of one
+    shard against the same step on the FastGraph (loss and every weight at
+    the tolerances), and one zinc --norm bn step through
+    make_dp_train_step_stateful against the single-device step (bitwise,
+    under deterministic algorithms)."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sir_gcn_tpu_torch.data import GraphCollection, synthetic_molecules
+    from sir_gcn_tpu_torch.data import synthetic_node_classification
+    from sir_gcn_tpu_torch.experiments.ogbn_arxiv import train
+    from sir_gcn_tpu_torch.experiments.zinc.model import make_sir_model
+    from sir_gcn_tpu_torch.experiments.zinc.train import l1_loss
+    from sir_gcn_tpu_torch.ops import message_passing as mp
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step_stateful,
+    )
+    from sir_gcn_tpu_torch.parallel.halo import build_halo_graph
+    from sir_gcn_tpu_torch.parallel.mesh import make_mesh
+    from sir_gcn_tpu_torch.parallel.multihost import initialize_multihost
+    from sir_gcn_tpu_torch.train import make_adamw
+
+    with tempfile.TemporaryDirectory() as store:
+        initialize_multihost(cpu=False, init_method="file://" + os.path.join(
+            store, "store"), rank=0, world_size=1, timeout_s=120)
+        try:
+            mesh = make_mesh((1,), ("graph",), "cuda")
+            log(f"  (c) process group: {dist.get_backend()}, "
+                f"{dist.get_world_size()} rank on {device}; mesh {mesh}")
+            args = train.get_args(flags_for("sym"))
+            mp.set_edge_dtype(torch.bfloat16)
+            data = synthetic_node_classification(
+                ARXIV_NODES, ARXIV_EDGES, feat_dim=128, num_classes=40,
+                seed=0)
+            fg = train.build_arxiv_graph(data, args, device)
+            graphs = {"FastGraph": fg,
+                      "HaloGraph": build_halo_graph(
+                          fg.graph, 1, mesh.get_group("graph"), "sym")}
+            feats, labels, w = step_inputs(data, fg.n_pad, device)
+            results = {}
+            for name, graph in graphs.items():
+                model = train.build_model(args, 128, 40, torch.Generator()
+                                          .manual_seed(0)).to(device)
+                opt = make_adamw(model.parameters(), args.lr, args.wd)
+                step, _ = train.make_harness(model, graph, opt, args, 40)
+                gen = torch.Generator(device=device).manual_seed(0)
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                loss, _ = step(feats, labels, w, gen)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                counts = {k: v for k, v in LAUNCHES.items() if v}
+                results[name] = (float(loss), {
+                    k: v.detach().clone() for k, v in model.state_dict()
+                    .items()})
+                log(f"  (c) arxiv step on the {name}: loss "
+                    f"{float(loss):.6f}, {dt * 1e3:.1f} ms (first step; "
+                    f"{smi}), launches {counts}")
+                layers = args.nlayers
+                per = 2 if name == "HaloGraph" else 1
+                want = {"ell_act_reduce2": per * layers,
+                        "ell_src_bwd": per * layers}
+                if counts != want:
+                    raise AssertionError(f"(c) {name} launches {counts}, "
+                                         f"expected {want}")
+            (l_f, w_f), (l_h, w_h) = results.values()
+            compare("(c) halo step loss", torch.tensor([l_h]),
+                    torch.tensor([l_f]), FWD_TOL)
+            err = max(compare(f"(c) halo step {k}", w_h[k], w_f[k], BWD_TOL,
+                              quiet=True) for k in w_f
+                      if w_f[k].is_floating_point())
+            log(f"  (c) every weight after the step within BWD_TOL, max abs "
+                f"err {err:.3e}")
+            mp.set_edge_dtype(None)
+
+            g_, nf, ef, lab = synthetic_molecules(64, seed=0)
+            coll = GraphCollection(g_, node_feats=nf, edge_feats=ef,
+                                   labels=lab)
+            batch = coll.collate(np.arange(64), 64, device)
+            model = make_sir_model(28, 4, 64, 1, num_layers=4, norm="bn",
+                                   generator=torch.Generator().manual_seed(0)
+                                   ).to(device)
+            twin = copy.deepcopy(model)
+
+            def loss_fn(m, b, gen):
+                preds = m(b["graph"],
+                          torch.from_numpy(b["node_feats"]).to(device),
+                          torch.from_numpy(b["edge_feats"]).to(device),
+                          generator=gen)
+                return l1_loss(preds,
+                               torch.from_numpy(b["labels"]).to(device),
+                               torch.from_numpy(b["graph_weights"])
+                               .to(device))
+
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                opt = make_adamw(model.parameters(), 1e-3)
+                opt.zero_grad()
+                loss_fn(model, batch, None).backward()
+                opt.step()
+                dp = make_dp_train_step_stateful(
+                    twin, loss_fn, make_adamw(twin.parameters(), 1e-3))
+                dp(batch)
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            a, b = model.state_dict(), twin.state_dict()
+            same = all(torch.equal(a[k], b[k]) for k in a)
+            log(f"  (c) zinc --norm bn step through "
+                f"make_dp_train_step_stateful: {len(a)} weights and buffers "
+                f"bitwise {'equal' if same else 'UNEQUAL'} to the "
+                f"single-device step")
+            if not same:
+                raise AssertionError("(c) the one-rank data-parallel step "
+                                     "differs from the single-device step")
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_dist(device, errs, timing, smi: str):
+    """The multi-GPU slice on the one card: (a) the native planner against
+    NumPy at the bench graph, and the halo and all-gather plans of 4
+    shards; (b) each rank's local forward and backward on #2 and #4 (and
+    #1 without a gradient) on its own plans, held against the single-card
+    aggregate, static and DropEdge scales; (c) one-rank NCCL steps."""
+    import torch
+
+    t0 = time.perf_counter()
+    log(f"== dist: {DIST_SHARDS} shards rank by rank on one card, then a "
+        f"one-rank NCCL group")
+    graph, hfg, sfg = dist_plans()
+    launches = dist_ranks(device, graph, hfg, sfg, errs, timing, smi)
+    del graph, hfg, sfg
+    torch.cuda.empty_cache()
+    dist_one_rank(device, smi)
+    torch.cuda.empty_cache()
+    log(f"== dist ok in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3575,6 +3963,7 @@ def main() -> int:
     phase_bot(device)
     phase_oracles(device)
     phase_batched(device)
+    phase_dist(device, errs, timing, smi)
     log(f"== all phases ok in {time.perf_counter() - t0:.1f}s")
 
     rows = []

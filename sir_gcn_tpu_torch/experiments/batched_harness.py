@@ -9,10 +9,20 @@ Each training batch is collated on the host by a prefetch thread
 (``data/prefetch.py``) while the card runs the previous step; the copies
 to the card happen on the calling thread. Every batch is a plain
 ``GraphBatch`` and takes the CSR aggregate, as in the JAX package.
+
+``--dp-devices N`` trains data-parallel over N ranks (one card each, or
+gloo processes with ``--cpu``; ``parallel/multihost.py`` starts them): of
+each N consecutive batches rank r takes the r-th, the gradients, the loss
+and BatchNorm's running statistics are averaged over the ranks
+(``parallel/data_parallel.py``), and the last fewer than N batches of an
+epoch run as one step on every rank, as the JAX harness runs them
+single-device. Every rank evaluates every split.
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
 import time
 from typing import Callable, Iterator, Optional
 
@@ -22,6 +32,8 @@ import torch
 from ..data.batching import GraphCollection
 from ..data.prefetch import prefetch
 from ..graph import add_self_loops
+from ..parallel.collectives import rank_of, world_size
+from ..parallel.data_parallel import make_dp_train_step_stateful, rank_batches
 from ..train import (
     EpochDriver,
     l1_l2_regularizer,
@@ -34,15 +46,6 @@ from ..train import (
 
 ARRAYS = ("node_feats", "edge_feats", "labels", "graph_weights",
           "node_labels", "node_weights")
-
-
-def check_single_device(args) -> None:
-    """``--dp-devices`` above 1 is the data-parallel branch of the JAX
-    harness, which the port does not have yet."""
-    if int(getattr(args, "dp_devices", 0) or 0) > 1:
-        raise NotImplementedError(
-            "--dp-devices > 1 (data parallelism) is not yet ported "
-            "(ROADMAP.md Queue A item 11)")
 
 
 def to_device(batch: dict, device: torch.device,
@@ -105,7 +108,10 @@ def run_batched_workload(
     collation and its copies) and ``collate_ms`` (per eval batch, not
     prefetched: its collation and copies); with ``time_steps``
     ``step_ms``, each train step timed between two device syncs."""
-    check_single_device(args)
+    dp = int(getattr(args, "dp_devices", 0) or 0)
+    if dp > 1 and world_size() != dp:
+        raise RuntimeError(f"--dp-devices {dp} needs a process group of {dp} "
+                           f"ranks (parallel/multihost.py)")
     set_seed(seed)
     t_run = time.perf_counter()
     batch_size = args.batch_size
@@ -138,6 +144,15 @@ def run_batched_workload(
         opt.step()
         return loss.detach()
 
+    if dp > 1:
+        # the rank's own batches draw dropout from a generator of its own;
+        # a batch every rank runs, from the shared one
+        rank_gen = torch.Generator(device=device).manual_seed(int(
+            np.random.SeedSequence([seed, rank_of()]).generate_state(1)[0]))
+        dp_step = make_dp_train_step_stateful(
+            model, lambda m, b, gen: (loss_of(forward(b, gen), b)
+                                      + l1_l2_regularizer(m, l1, l2)), opt)
+
     @torch.no_grad()
     def evaluate(idx):
         model.eval()
@@ -167,15 +182,26 @@ def run_batched_workload(
     for epoch in range(1, args.epochs + 1):
         # the warmup and plateau scale apply to THIS epoch's steps
         set_lr_scale(opt, driver.lr_scale(epoch))
-        loader = prefetch(coll.loader(np.asarray(train_idx), batch_size,
-                                      shuffle_rng))
-        for _, db in timed_batches(loader, device, label_dtype, wait_ms):
+        if dp > 1:
+            order = shuffle_rng.permutation(np.asarray(train_idx))
+            plan = list(rank_batches(order, batch_size, rank_of(), dp))
+            loader = prefetch(coll.collate(sel, batch_size)
+                              for _, sel in plan)
+            steps = [functools.partial(
+                dp_step, generator=rank_gen if kind == "dp" else dropout_gen)
+                for kind, _ in plan]
+        else:
+            loader = prefetch(coll.loader(np.asarray(train_idx), batch_size,
+                                          shuffle_rng))
+            steps = itertools.repeat(train_step)
+        for step, (_, db) in zip(steps, timed_batches(loader, device,
+                                                      label_dtype, wait_ms)):
             if not time_steps:
-                train_step(db)
+                step(db)
                 continue
             synchronize(device)
             t0 = time.perf_counter()
-            train_step(db)
+            step(db)
             synchronize(device)
             step_ms.append((time.perf_counter() - t0) * 1e3)
 

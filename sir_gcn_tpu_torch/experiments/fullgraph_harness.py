@@ -10,6 +10,7 @@ best-by-val-loss selection: the ``run`` skeleton of
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Optional
 
@@ -17,6 +18,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..graph import build_graph
+from ..models.layers import row_shard
+from ..ops.ell import FastGraph
+from ..parallel.collectives import all_gather_rows, sum_gradients
+from ..parallel.halo import HaloGraph, build_halo_graph
+from ..parallel.mesh import make_mesh
 from ..train import (
     EpochDriver,
     l1_l2_regularizer,
@@ -28,22 +35,28 @@ from ..train import (
 )
 
 
+def _denominator(w: torch.Tensor, weight_sum) -> torch.Tensor:
+    return (w.sum() if weight_sum is None else weight_sum).clamp_min(1.0)
+
+
 def masked_ce(logits: torch.Tensor, labels: torch.Tensor,
-              w: torch.Tensor) -> torch.Tensor:
-    """Softmax cross-entropy weighted by ``w`` [N], over max(sum w, 1)."""
+              w: torch.Tensor, weight_sum=None) -> torch.Tensor:
+    """Softmax cross-entropy weighted by ``w`` [N], over max(sum w, 1);
+    ``weight_sum`` replaces sum w (the sum over every rank's rows, on one
+    rank's shard)."""
     logp = torch.log_softmax(logits, -1)
     ce = -logp.gather(1, labels.long()[:, None])[:, 0]
-    return (ce * w).sum() / w.sum().clamp_min(1.0)
+    return (ce * w).sum() / _denominator(w, weight_sum)
 
 
 def masked_bce_logits(logits: torch.Tensor, labels: torch.Tensor,
-                      w: torch.Tensor) -> torch.Tensor:
+                      w: torch.Tensor, weight_sum=None) -> torch.Tensor:
     """Binary cross-entropy on logits (the first column of [N, 1], or
     [N]), in the stable form max(z, 0) - z y + log1p(exp(-|z|)), weighted
-    by ``w`` over max(sum w, 1)."""
+    by ``w`` over max(sum w, 1) (``weight_sum`` as in :func:`masked_ce`)."""
     z = logits[:, 0] if logits.ndim > 1 else logits
     ce = F.relu(z) - z * labels + torch.log1p(torch.exp(-z.abs()))
-    return (ce * w).sum() / w.sum().clamp_min(1.0)
+    return (ce * w).sum() / _denominator(w, weight_sum)
 
 
 def pad_inputs(n_pad: int, feat: np.ndarray, labels: np.ndarray,
@@ -65,15 +78,72 @@ def pad_inputs(n_pad: int, feat: np.ndarray, labels: np.ndarray,
     return feats_p, labels_p, tuple(weights)
 
 
-def setup_mesh_graph(graph, args):
-    """``--mesh-devices`` above 1 partitions the graph over a mesh in the
-    JAX harness; the port runs on one device until that path is ported
-    and returns ``graph`` as JAX's single-device branch does."""
-    if int(getattr(args, "mesh_devices", 0) or 0) > 1:
+def check_mesh_path(args, halo_model: bool = True) -> None:
+    """Raise for a ``--mesh-devices`` run that the JAX harness sends to the
+    GSPMD-partitioned CSR: ``--dist-path gspmd``, a model outside the halo
+    path (``halo_model`` False: not a SIR model) or max aggregation. That
+    path is not yet ported."""
+    if int(getattr(args, "mesh_devices", 0) or 0) <= 1:
+        return
+    if (getattr(args, "dist_path", "halo") != "halo" or not halo_model
+            or getattr(args, "agg_type", "sum") not in ("sum", "mean",
+                                                        "sym")):
         raise NotImplementedError(
-            "--mesh-devices > 1 (the edge-partitioned full graph) is not yet "
-            "ported (ROADMAP.md Queue A item 11)")
-    return graph
+            "the GSPMD-partitioned full graph (--dist-path gspmd, or a "
+            "model or aggregation outside the halo path: not a SIR model "
+            "with sum, mean or sym) is not yet ported (ROADMAP.md Queue A "
+            "item 11)")
+
+
+def setup_mesh_graph(graph, args, halo_model: bool = True):
+    """``--mesh-devices N`` above 1 (this process one of the N ranks):
+    partition the graph over the ranks for the boundary-only halo
+    aggregate, after re-padding its nodes to a multiple of 128 N where N
+    does not divide their padding. Returns ``graph`` as it is for one
+    device. The JAX harness's other distributed path, the GSPMD-partitioned
+    CSR (``--dist-path gspmd``, and its automatic choice for a model
+    outside the halo path, ``halo_model`` False, or for max aggregation),
+    raises: it is not yet ported."""
+    n = int(getattr(args, "mesh_devices", 0) or 0)
+    if n <= 1:
+        return graph
+    check_mesh_path(args, halo_model)
+    if isinstance(graph, FastGraph):
+        graph = graph.graph  # partition the plain graph
+    if graph.n_pad % n:
+        # padding edges sit at the tail of the dst-sorted arrays; they keep
+        # their count, so a DropEdge mask is drawn at the same shape
+        h, ne = graph.host, graph.num_edges
+        graph = build_graph(h["src"][:ne], h["dst"][:ne], graph.num_nodes,
+                            pad_multiple=128 * n, e_pad=graph.e_pad,
+                            device=graph.device)
+    mesh = make_mesh((n,), ("graph",), graph.device.type)
+    return build_halo_graph(graph, n, mesh.get_group("graph"),
+                            getattr(args, "agg_type", "sum"))
+
+
+def grow_rows(a: np.ndarray, n: int) -> np.ndarray:
+    """``a`` with zero rows appended up to ``n`` (a node-indexed array of a
+    graph re-padded for the mesh)."""
+    return np.concatenate([a, np.zeros((n - a.shape[0],) + a.shape[1:],
+                                       a.dtype)])
+
+
+def rank_rows(graph):
+    """A context for one rank's forward on a ``HaloGraph``: random draws
+    at the whole graph's shape, its rows kept (``row_shard``); a null
+    context on any other graph."""
+    if not isinstance(graph, HaloGraph):
+        return contextlib.nullcontext()
+    return row_shard(graph.rows.start, graph.rows.stop, graph.n_global)
+
+
+def gather_logits(graph, logits: torch.Tensor) -> torch.Tensor:
+    """The whole graph's rows of ``logits`` on every rank: an all-gather of
+    the ranks' rows on a ``HaloGraph``, else ``logits``."""
+    if not isinstance(graph, HaloGraph):
+        return logits
+    return all_gather_rows(logits.contiguous(), graph.group)
 
 
 def run_fullgraph_workload(
@@ -96,6 +166,13 @@ def run_fullgraph_workload(
     best-by-val-loss epoch's ``loss``, ``metric``, ``val_loss``,
     ``val_metric``, ``test_loss`` and ``test_metric``.
 
+    With ``--mesh-devices N`` each of the N ranks runs this on its own
+    device: the graph is partitioned (:func:`setup_mesh_graph`), the model
+    sees the rank's node rows, the train loss's weight sum spans every
+    rank, the parameter gradients are summed over the ranks, and each eval
+    gathers the logits of every rank, so every rank computes the same
+    metrics.
+
     With ``stats`` (a dict) it also records ``epochs`` and ``seconds``
     (the run, from the upload of the inputs to the last eval); with
     ``time_steps`` ``step_ms`` and ``eval_ms``, each train step and each
@@ -104,12 +181,22 @@ def run_fullgraph_workload(
     set_seed(seed)
     t_run = time.perf_counter()
     train_w, val_w, test_w = masks
-    graph = setup_mesh_graph(graph, args)
+    graph = setup_mesh_graph(graph, args,
+                             halo_model=getattr(args, "model", "SIR")
+                             == "SIR")
+    n_pad = getattr(graph, "n_global", graph.n_pad)
+    if n_pad > feats.shape[0]:  # re-padded for the mesh
+        feats, labels = grow_rows(feats, n_pad), grow_rows(labels, n_pad)
+        train_w, val_w, test_w = (grow_rows(w, n_pad)
+                                  for w in (train_w, val_w, test_w))
+    sharded = isinstance(graph, HaloGraph)
+    rows = graph.rows if sharded else slice(None)  # a rank's own rows
 
     feats_t = torch.from_numpy(np.asarray(feats, np.float32)).to(device)
     labels_t = torch.from_numpy(np.asarray(labels)).to(device)
     split_w = [torch.from_numpy(np.asarray(w, np.float32)).to(device)
                for w in (train_w, val_w, test_w)]
+    train_sum = float(np.asarray(train_w, np.float32).sum())
     model.to(device)
     opt = make_adamw(model.parameters(), args.lr, args.wd)
     print(f"Params: {param_count(model)}")
@@ -121,16 +208,25 @@ def run_fullgraph_workload(
     def train_step():
         model.train()
         opt.zero_grad(set_to_none=True)
-        logits = model(graph, feats_t, generator=dropout_gen)
-        loss = (loss_fn(logits, labels_t, split_w[0])
-                + l1_l2_regularizer(model, l1, l2))
+        with rank_rows(graph):
+            logits = model(graph, feats_t[rows], generator=dropout_gen)
+        if sharded:
+            loss = loss_fn(logits, labels_t[rows], split_w[0][rows],
+                           weight_sum=torch.tensor(train_sum, device=device))
+        else:
+            loss = loss_fn(logits, labels_t, split_w[0])
+        if not sharded or graph.rank == 0:  # the ranks' losses are summed
+            loss = loss + l1_l2_regularizer(model, l1, l2)
         loss.backward()
+        if sharded:
+            sum_gradients(model, graph.group)
         opt.step()
 
     @torch.no_grad()
     def eval_step():
         model.eval()
-        return model(graph, feats_t)
+        with rank_rows(graph):
+            return gather_logits(graph, model(graph, feats_t[rows]))
 
     def timed(fn, record):
         if not time_steps:

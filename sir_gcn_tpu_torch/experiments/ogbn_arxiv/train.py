@@ -9,9 +9,12 @@ Correct & Smooth, checkpoints, RCM reordering and ``--no-fast-path``.
 
 Runs on the CUDA card unless ``--cpu`` is given; with no card and no
 ``--cpu`` it raises. With no dataset cache a synthetic arxiv-shaped task
-stands in. ``--model GAT`` trains the GATv2 baseline. The multi-device
-paths are not yet ported: ``--mesh-devices`` above 1, ``--dist-path`` and
-``--remat`` raise.
+stands in. ``--model GAT`` trains the GATv2 baseline. ``--mesh-devices
+N`` partitions the graph by node ranges over N ranks (N cards, or N gloo
+processes with ``--cpu``) for the halo aggregate, spawned here unless a
+launcher (torchrun) started them; every other flag carries over. Still
+to port: ``--dist-path gspmd`` (and the GSPMD path's automatic choice, a
+GAT model or max aggregation with ``--mesh-devices``) and ``--remat``.
 
 The reference's best configuration is a teacher, a student and C&S:
 
@@ -31,6 +34,7 @@ from __future__ import annotations
 import argparse
 import math
 import os
+import sys
 import time
 from typing import Optional
 
@@ -49,8 +53,12 @@ from ...graph import (
     reverse_edges,
     to_bidirected,
 )
+from ...models.layers import rand_rows
 from ...ops.ell import FastGraph, build_fast_graph
 from ...ops.message_passing import set_edge_dtype
+from ...parallel.collectives import all_reduce_sum, sum_gradients
+from ...parallel.halo import HaloGraph
+from ...parallel.multihost import needs_spawn, spawn_ranks, trainer_device
 from ...train import (
     EpochDriver,
     l1_l2_regularizer,
@@ -62,6 +70,12 @@ from ...train import (
     synchronize,
 )
 from ...utils.checkpoint import latest_step, load_checkpoint, save_checkpoint
+from ..fullgraph_harness import (
+    check_mesh_path,
+    gather_logits,
+    rank_rows,
+    setup_mesh_graph,
+)
 from .model import GATModel, SIRModel
 
 EPS = 1.0 - np.log(2.0)
@@ -75,7 +89,9 @@ def build_arxiv_graph(data, args, device) -> FastGraph | GraphBatch:
     """Graph transforms as the reference's load_dataset: bidirect or
     reverse, then an optional self-loop refresh; then the ELL plans, unless
     ``args.no_fast_path`` asks for the plain ``GraphBatch`` (the CSR
-    aggregate, no kernel)."""
+    aggregate, no kernel). With ``--mesh-devices N`` the nodes are padded
+    to a multiple of 128 N (the edges to one of 128, as on one device) and
+    the plain graph is returned, for the mesh's partition."""
     src, dst = data.src, data.dst
     if args.add_reverse_edge:
         src, dst = to_bidirected(src, dst)
@@ -84,22 +100,30 @@ def build_arxiv_graph(data, args, device) -> FastGraph | GraphBatch:
     if args.add_self_loop:
         src, dst = remove_self_loops(src, dst)
         src, dst = add_self_loops(src, dst, data.feat.shape[0])
-    graph = build_graph(src, dst, data.feat.shape[0], pad_multiple=128,
-                        device=device)
-    if getattr(args, "no_fast_path", False):
-        return graph
+    n_mesh = getattr(args, "mesh_devices", 0)
+    pad = 128 * n_mesh if n_mesh > 1 else 128
+    # the edges keep the single-device padding, so that a DropEdge mask
+    # is drawn at the same shape on every mesh
+    e_pad = max(-(-len(src) // 128) * 128, 128)
+    graph = build_graph(src, dst, data.feat.shape[0], pad_multiple=pad,
+                        e_pad=e_pad, device=device)
+    if n_mesh > 1 or getattr(args, "no_fast_path", False):
+        return graph  # the mesh partitions the plain graph
     return build_fast_graph(graph)
 
 
-def masked_mean(x, w):
-    return (x * w).sum() / w.sum().clamp_min(1.0)
+def masked_mean(x, w, weight_sum=None):
+    """sum(x w) / max(sum w, 1); ``weight_sum`` replaces sum w (every
+    rank's, on one rank's rows)."""
+    return (x * w).sum() / (w.sum() if weight_sum is None
+                            else weight_sum).clamp_min(1.0)
 
 
-def soft_ce(logits, labels, w):
+def soft_ce(logits, labels, w, weight_sum=None):
     """Log-softened CE: mean(log(CE + eps) - log(eps)) (train.py:71-75)."""
     logp = torch.log_softmax(logits, -1)
     ce = -logp.gather(1, labels[:, None])[:, 0]
-    return masked_mean(torch.log(ce + EPS) - math.log(EPS), w)
+    return masked_mean(torch.log(ce + EPS) - math.log(EPS), w, weight_sum)
 
 
 def _np_soft_ce(logits, labels):
@@ -136,7 +160,7 @@ def initial_perturbation(shape, train_mask: torch.Tensor, args,
     """FLAG's first perturbation (train.py:177-184): uniform in
     ±untrain_step_size, scaled on the train nodes by train / untrain."""
     u = args.untrain_step_size
-    p = torch.rand(shape, generator=generator, device=train_mask.device)
+    p = rand_rows(shape, generator, train_mask.device)
     scale = torch.where(train_mask[:, None], args.train_step_size / u, 1.0)
     return (p * (2.0 * u) - u) * scale
 
@@ -154,9 +178,17 @@ def make_harness(model, graph, optimizer, args, num_classes: int):
     train nodes' step on the train nodes). It starts from ``perturb``, or
     from :func:`initial_perturbation` drawn from ``generator``.
     ``eval_step(feats, labels, labeled, unlabeled)`` returns the eval
-    logits with label reuse."""
+    logits with label reuse.
+
+    On a ``HaloGraph`` (one rank of a ``--mesh-devices`` run) every
+    node-indexed input is the rank's rows: random draws are made at the
+    whole graph's shape (``row_shard``), the loss's weight sum and KD's
+    mean span every rank, the regulariser is added on rank 0 only, the
+    parameter gradients are summed over the ranks before AdamW steps, and
+    ``eval_step`` gathers every rank's logits."""
     m = args.m + 1 if args.flag else 1
     reuse = args.label_iters if args.use_labels else 0
+    sharded = isinstance(graph, HaloGraph)
 
     def assemble(feats, labels, labeled):
         """The label trick: the labeled rows' one-hot labels as extra
@@ -197,32 +229,49 @@ def make_harness(model, graph, optimizer, args, num_classes: int):
             perturb = torch.cat(
                 [perturb, perturb.new_zeros(f.shape[0], num_classes)], -1)
         logits = predict(f, perturb, unlabeled, generator, grad=True)
-        loss = (soft_ce(logits, labels, loss_w)
-                + l1_l2_regularizer(model, args.l1, args.l2)) / m
+        wsum = (all_reduce_sum(loss_w.sum(), graph.group) if sharded
+                else None)
+        loss = soft_ce(logits, labels, loss_w, wsum)
+        if not sharded or graph.rank == 0:  # the ranks' losses are summed
+            loss = loss + l1_l2_regularizer(model, args.l1, args.l2)
+        loss = loss / m
         if args.kd_mode == "student":
             t = args.kd_temp
             logp = torch.log_softmax(logits / t, -1)
             p_teacher = torch.softmax(kd_teacher / t, -1)
             kd = (t * t) * (p_teacher * (
-                torch.log(p_teacher.clamp_min(1e-12)) - logp)).sum(-1).mean()
+                torch.log(p_teacher.clamp_min(1e-12)) - logp)).sum(-1)
+            kd = kd.sum() / graph.n_global if sharded else kd.mean()
             loss = loss * (1 - args.kd_alpha) + kd / m * args.kd_alpha
         return loss
+
+    def step(total):
+        if sharded:
+            sum_gradients(model, graph.group)
+            total = all_reduce_sum(total, graph.group)
+        optimizer.step()
+        return total
 
     def train_step(feats, labels, loss_w, generator, labeled=None,
                    unlabeled=None, train_mask=None, kd_teacher=None,
                    perturb=None):
+        with rank_rows(graph):
+            return _train_step(feats, labels, loss_w, generator, labeled,
+                               unlabeled, train_mask, kd_teacher, perturb)
+
+    def _train_step(feats, labels, loss_w, generator, labeled, unlabeled,
+                    train_mask, kd_teacher, perturb):
         model.train()
         optimizer.zero_grad(set_to_none=True)
         inputs = (feats, labels, loss_w, labeled, unlabeled, kd_teacher)
         if not args.flag:
             loss = loss_fn(*inputs, 0.0, generator)
             loss.backward()
-            optimizer.step()
-            return loss.detach(), None
+            return step(loss.detach()), None
         if perturb is None:
             perturb = initial_perturbation(feats.shape, train_mask, args,
                                            generator)
-        step = torch.where(train_mask[:, None], args.train_step_size,
+        size = torch.where(train_mask[:, None], args.train_step_size,
                            args.untrain_step_size)
         total = 0.0
         for _ in range(m):
@@ -230,15 +279,16 @@ def make_harness(model, graph, optimizer, args, num_classes: int):
             loss = loss_fn(*inputs, perturb, generator)
             loss.backward()
             total = total + loss.detach()
-            perturb = perturb + step * torch.sign(perturb.grad)
-        optimizer.step()
-        return total, perturb.detach()
+            perturb = perturb + size * torch.sign(perturb.grad)
+        return step(total), perturb.detach()
 
     @torch.no_grad()
     def eval_step(feats, labels, labeled, unlabeled):
         model.eval()
-        return predict(assemble(feats, labels, labeled), 0.0, unlabeled,
-                       None, grad=False)
+        with rank_rows(graph):
+            logits = predict(assemble(feats, labels, labeled), 0.0,
+                             unlabeled, None, grad=False)
+        return gather_logits(graph, logits)
 
     return train_step, eval_step
 
@@ -296,7 +346,8 @@ def run_single(args, seed: int, data, device: torch.device,
     if args.reorder:
         perm, relabel = reorder_data(data)
     t0 = time.perf_counter()
-    graph = build_arxiv_graph(data, args, device)
+    graph = setup_mesh_graph(build_arxiv_graph(data, args, device), args,
+                             halo_model=args.model == "SIR")
     plan_seconds = time.perf_counter() - t0
     fast = isinstance(graph, FastGraph)
     if fast:
@@ -304,7 +355,15 @@ def run_single(args, seed: int, data, device: torch.device,
               f"{graph.dst_plan.num_slots}, src slots "
               f"{graph.src_plan.num_slots}; dst buckets "
               f"{graph.dst_plan.buckets1}")
-    n_pad = graph.n_pad
+    sharded = isinstance(graph, HaloGraph)
+    if sharded:
+        print(f"halo plans: {plan_seconds:.2f}s; {graph.hfg.n_shards} "
+              f"shards of {graph.hfg.n_local} nodes, h_max "
+              f"{graph.hfg.h_max}")
+    # a rank of a --mesh-devices run holds its own node rows
+    n_pad = graph.n_global if sharded else graph.n_pad
+    rows = graph.rows if sharded else slice(None)
+    lead = not sharded or graph.rank == 0  # writes the files
     num_classes = data.num_classes
 
     feats = np.zeros((n_pad, data.feat.shape[1]), np.float32)
@@ -330,15 +389,18 @@ def run_single(args, seed: int, data, device: torch.device,
     dropout_gen = torch.Generator(device=device).manual_seed(seed)
 
     def dev(x):
-        return torch.from_numpy(x).to(device)
+        return torch.from_numpy(x[rows]).to(device)
 
     feats_t, labels_t = dev(feats), dev(labels)
     train_mask = dev(train_w.astype(bool))
-    kd_teacher = torch.zeros((n_pad, num_classes), device=device)
+    kd_teacher = dev(np.zeros((n_pad, num_classes), np.float32))
     if args.kd_mode == "student":
         teacher = np.load(f"./output/teacher_{iter_idx}.npy")
         if perm is not None:  # the teacher is in the original node order
             teacher = np.concatenate([teacher[perm], teacher[len(perm):]], 0)
+        if teacher.shape[0] < n_pad:  # saved at another padding
+            teacher = np.concatenate([teacher, np.zeros(
+                (n_pad - teacher.shape[0], num_classes), teacher.dtype)])
         kd_teacher = dev(teacher.astype(np.float32))
     eval_labeled = dev(train_w)
     eval_unlabeled = dev(np.clip(val_w + test_w, 0, 1)
@@ -410,7 +472,8 @@ def run_single(args, seed: int, data, device: torch.device,
             best_val_loss = metrics["val_loss"]
             result = dict(metrics, logits=logits_np)
 
-        if ckpt_dir and args.ckpt_every and epoch % args.ckpt_every == 0:
+        if (lead and ckpt_dir and args.ckpt_every
+                and epoch % args.ckpt_every == 0):
             save_checkpoint(ckpt_dir, _ckpt_payload(
                 model, optimizer, driver, best_val_loss, result, n_pad,
                 num_classes, dropout_gen), step=epoch)
@@ -431,7 +494,7 @@ def run_single(args, seed: int, data, device: torch.device,
         print(f"step_time_ms: {dt * 1e3:.1f} (train+eval wall per epoch, "
               f"{n_ep} epochs)")
 
-    if args.save_pred:
+    if args.save_pred and lead:
         os.makedirs("./output", exist_ok=True)
         probs = torch.softmax(torch.from_numpy(result["logits"]), -1).numpy()
         if relabel is not None:  # saved in the original node order
@@ -441,7 +504,8 @@ def run_single(args, seed: int, data, device: torch.device,
     result.update(
         train_losses=losses, step_seconds=step_seconds,
         eval_seconds=eval_seconds, plan_seconds=plan_seconds,
-        num_edges=(graph.graph if fast else graph).num_edges)
+        num_edges=(graph if isinstance(graph, GraphBatch)
+                   else graph.graph).num_edges)
     if fast:
         result.update(
             dst_slots=graph.dst_plan.num_slots,
@@ -520,7 +584,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--no-fast-path", action="store_true",
                    help="the plain GraphBatch on the CSR aggregate, no "
                         "kernel (debugging)")
-    p.add_argument("--mesh-devices", type=int, default=0)
+    p.add_argument("--mesh-devices", type=int, default=0,
+                   help="ranks to partition the graph over, one card each "
+                        "(gloo CPU processes with --cpu); 0/1 = one device")
     p.add_argument("--dist-path", type=str, default="halo",
                    choices=["halo", "gspmd"])
     p.add_argument("--reorder", action="store_true",
@@ -532,24 +598,32 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def get_args(argv=None):
-    """The parsed flags; the multi-device ones (``--mesh-devices`` above
-    1, ``--dist-path``, ``--remat``) raise until they are ported."""
+    """The parsed flags. Those still to port raise: ``--dist-path gspmd``
+    (the GSPMD-partitioned graph, ROADMAP.md Queue A item 11) and
+    ``--remat``; so does ``--mesh-devices`` above 1 with a model or an
+    aggregation the halo path does not take (``check_mesh_path``)."""
     args = _parser().parse_args(argv)
     unported = [flag for flag, on in (
-        ("--mesh-devices", args.mesh_devices > 1),
         ("--dist-path", args.dist_path != "halo"),
         ("--remat", args.remat)) if on]
     if unported:
         raise NotImplementedError("flags not yet ported: "
-                                  + ", ".join(unported))
+                                  + ", ".join(unported)
+                                  + " (ROADMAP.md Queue A item 11)")
+    check_mesh_path(args, args.model == "SIR")
     return args
 
 
 def main(argv=None) -> list:
     """Parse the flags, train ``--nruns`` runs, and return each run's
-    result (see :func:`run_single`)."""
+    result (see :func:`run_single`). With ``--mesh-devices N`` outside a
+    launcher it spawns N ranks (``--cpu``: gloo processes) and returns
+    rank 0's results."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = get_args(argv)
-    device = resolve_device(args.cpu)
+    if needs_spawn(args.mesh_devices, args.cpu):
+        return spawn_ranks(args.mesh_devices, main, argv, cpu=args.cpu)
+    device = trainer_device(args.cpu, args.mesh_devices)
     set_edge_dtype(torch.bfloat16 if args.edge_bf16 else None)
 
     results = []

@@ -20,6 +20,7 @@ runs on the kernels (``--no-fast-path`` keeps the CSR aggregate).
 from __future__ import annotations
 
 import argparse
+import sys
 from typing import Optional
 
 import numpy as np
@@ -36,10 +37,15 @@ from ...graph import (
 )
 from ...ops.ell import build_fast_graph
 from ...ops.message_passing import set_edge_dtype
-from ...train import aggregate_runs, resolve_device
+from ...parallel.multihost import needs_spawn, spawn_ranks, trainer_device
+from ...train import aggregate_runs
 from ...train.metrics import accuracy
 from ..common_models import GraphSIRModel
-from ..fullgraph_harness import pad_inputs, run_fullgraph_workload
+from ..fullgraph_harness import (
+    check_mesh_path,
+    pad_inputs,
+    run_fullgraph_workload,
+)
 from ..ogbn_arxiv.model import GATModel
 
 NUM_SPLITS = 20
@@ -104,7 +110,7 @@ def prepare(args, seed: int, split: int, device: torch.device) -> dict:
         src, dst = remove_self_loops(src, dst)
         src, dst = add_self_loops(src, dst, n)
     graph = build_graph(src, dst, n, pad_multiple=128, device=device)
-    if not args.no_fast_path:
+    if not args.no_fast_path and args.mesh_devices <= 1:
         graph = build_fast_graph(graph)
 
     feats_p, labels_p, masks = pad_inputs(graph.n_pad, feat, labels,
@@ -173,8 +179,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--log-every", type=int, default=20)
     p.add_argument("--no-fast-path", action="store_true")
     p.add_argument("--mesh-devices", type=int, default=0,
-                   help="devices to partition the graph over (0/1 = one "
-                        "device; more raises: not yet ported)")
+                   help="ranks to partition the graph over, one card each "
+                        "(gloo CPU processes with --cpu); 0/1 = one device")
     p.add_argument("--dist-path", type=str, default="halo",
                    choices=["halo", "gspmd"])
     p.add_argument("--synthetic-nodes", type=int, default=2048)
@@ -182,12 +188,28 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+def _rank_main(argv: list, time_steps: bool):
+    """``main`` on one rank of a ``--mesh-devices`` run; its stats come
+    back to the spawning process with the metrics."""
+    stats = []
+    vals, tests = main(argv, stats, time_steps)
+    return vals, tests, stats
+
+
 def main(argv=None, stats: Optional[list] = None, time_steps: bool = False):
     """Train ``--nruns`` x ``--nsplits`` runs; returns (val accuracies, test
     accuracies). With ``stats`` (a list) each run appends its harness
     stats."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
-    device = resolve_device(args.cpu)
+    check_mesh_path(args, args.model == "SIR")
+    if needs_spawn(args.mesh_devices, args.cpu):
+        vals, tests, run_stats = spawn_ranks(
+            args.mesh_devices, _rank_main, argv, time_steps, cpu=args.cpu)
+        if stats is not None:
+            stats.extend(run_stats)
+        return vals, tests
+    device = trainer_device(args.cpu, args.mesh_devices)
     set_edge_dtype(torch.bfloat16 if args.edge_bf16 else None)
 
     val_accs, test_accs = [], []

@@ -15,6 +15,7 @@ Runs on the CUDA card unless ``--cpu`` is given; with no card and no
 from __future__ import annotations
 
 import argparse
+import sys
 from typing import Optional
 
 import numpy as np
@@ -23,7 +24,8 @@ import torch
 from ...data import GraphCollection, has_cache, load_graph_cache
 from ...data import synthetic_molecules
 from ...ops.message_passing import set_edge_dtype
-from ...train import aggregate_runs, resolve_device
+from ...parallel.multihost import needs_spawn, spawn_ranks, trainer_device
+from ...train import aggregate_runs
 from ...train.metrics import mae
 from ..batched_harness import (
     apply_self_loops,
@@ -142,8 +144,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=400)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--dp-devices", type=int, default=0,
-                   help="data-parallel devices (0/1 = one device; more "
-                        "raises: not yet ported)")
+                   help="data-parallel ranks, one card each (gloo CPU "
+                        "processes with --cpu); 0/1 = one device")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--wd", type=float, default=0)
     p.add_argument("--l1", type=float, default=0)
@@ -156,11 +158,26 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+def _rank_main(argv: list, time_steps: bool):
+    """``main`` on one rank of a ``--dp-devices`` run; its stats come back
+    to the spawning process with the metrics."""
+    stats = []
+    vals, tests = main(argv, stats, time_steps)
+    return vals, tests, stats
+
+
 def main(argv=None, stats: Optional[list] = None, time_steps: bool = False):
     """Train ``--nruns`` runs; returns (val MAEs, test MAEs). With
     ``stats`` (a list) each run appends its harness stats."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
-    device = resolve_device(args.cpu)
+    if needs_spawn(args.dp_devices, args.cpu):
+        vals, tests, run_stats = spawn_ranks(
+            args.dp_devices, _rank_main, argv, time_steps, cpu=args.cpu)
+        if stats is not None:
+            stats.extend(run_stats)
+        return vals, tests
+    device = trainer_device(args.cpu, args.dp_devices)
     set_edge_dtype(torch.bfloat16 if args.edge_bf16 else None)
 
     val_maes, test_maes = [], []

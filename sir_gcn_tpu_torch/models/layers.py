@@ -7,6 +7,8 @@ both U(-1/sqrt(fan_in), 1/sqrt(fan_in)), drawn from an explicit generator;
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional
 
@@ -70,11 +72,57 @@ class Embed(nn.Module):
         return F.embedding(ids, self.embedding)
 
 
+# (lo, hi, n) while node-indexed tensors hold rows lo:hi of n (one rank's
+# shard of a node-partitioned graph)
+_ROW_SHARD: contextvars.ContextVar = contextvars.ContextVar("row_shard",
+                                                           default=None)
+
+
+@contextlib.contextmanager
+def row_shard(lo: int, hi: int, n: int):
+    """Within the block, a random draw for a tensor of ``hi - lo`` rows
+    (dropout's mask, :func:`rand_rows`) is made at the whole graph's ``n``
+    rows and rows ``lo:hi`` are kept: each rank of a node-partitioned run
+    draws what the single-device run draws for its rows, from the same
+    generator state."""
+    token = _ROW_SHARD.set((lo, hi, n))
+    try:
+        yield
+    finally:
+        _ROW_SHARD.reset(token)
+
+
+def _global_rows(shape) -> Optional[tuple]:
+    shard = _ROW_SHARD.get()
+    if shard is None or len(shape) == 0 or shape[0] != shard[1] - shard[0]:
+        return None
+    return shard
+
+
+def rand_rows(shape, generator: Optional[torch.Generator] = None,
+              device=None) -> torch.Tensor:
+    """``torch.rand(shape)``, drawn at the whole graph's rows under
+    :func:`row_shard`."""
+    shard = _global_rows(tuple(shape))
+    if shard is None:
+        return torch.rand(shape, generator=generator, device=device)
+    lo, hi, n = shard
+    return torch.rand((n,) + tuple(shape[1:]), generator=generator,
+                      device=device)[lo:hi]
+
+
 def dropout(x: torch.Tensor, p: float, training: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout with an explicit generator (on ``x``'s device);
-    rate 0 or eval mode returns ``x``."""
+    rate 0 or eval mode returns ``x``. Under :func:`row_shard` the mask is
+    drawn at the whole graph's rows."""
     if p == 0.0 or not training:
         return x
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    shard = _global_rows(tuple(x.shape))
+    if shard is None:
+        keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    else:
+        lo, hi, n = shard
+        keep = x.new_empty((n,) + tuple(x.shape[1:])).bernoulli_(
+            1.0 - p, generator=generator)[lo:hi]
     return torch.where(keep > 0, x / (1.0 - p), torch.zeros_like(x))

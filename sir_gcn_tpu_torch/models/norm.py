@@ -8,7 +8,7 @@ static-shape form of the reference's exact per-graph statistics.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -69,18 +69,22 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(dim))
 
     def forward(self, feats: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                reduce: Optional[Callable] = None) -> torch.Tensor:
         """BatchNorm of ``feats`` [N, dim] over the rows where ``mask``
         [N] is set (every row without one); eval mode uses the running
-        statistics."""
+        statistics. ``reduce`` sums a partial statistic over the ranks
+        that hold the other rows (a differentiable all-reduce; a
+        ``HaloGraph``'s ``rank_sum``)."""
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
+            reduce = reduce or (lambda t: t)
             m = (torch.ones_like(feats[:, :1]) if mask is None
                  else mask.to(feats.dtype)[:, None])
-            n = m.sum().clamp_min(1.0)
-            mean = (feats * m).sum(0) / n
-            var = ((feats - mean).square() * m).sum(0) / n
+            n = reduce(m.sum()).clamp_min(1.0)
+            mean = reduce((feats * m).sum(0)) / n
+            var = reduce(((feats - mean).square() * m).sum(0)) / n
             with torch.no_grad():
                 unbiased = var * n / (n - 1.0).clamp_min(1.0)
                 self.running_mean.mul_(1 - self.momentum).add_(
@@ -126,12 +130,18 @@ class ContraNorm(nn.Module):
         self.norm = MaskedBatchNorm(dim)
 
     def forward(self, feats: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                reduce: Optional[Callable] = None) -> torch.Tensor:
+        """``reduce`` sums the Gram matrix and the BatchNorm statistics
+        over the ranks that hold the other rows."""
         x = feats if mask is None else feats * mask.to(feats.dtype)[:, None]
-        weights = torch.softmax((x.t() @ x) / self.temp, dim=1)
+        gram = x.t() @ x
+        if reduce is not None:
+            gram = reduce(gram)
+        weights = torch.softmax(gram / self.temp, dim=1)
         multiplier = 1.0 + int(self.use_scale) * self.scale
         out = multiplier * feats - self.scale * (feats @ weights)
-        return self.norm(out, mask)
+        return self.norm(out, mask, reduce)
 
 
 class GraphContraNorm(nn.Module):
@@ -144,7 +154,8 @@ class GraphContraNorm(nn.Module):
         self.norm = ContraNorm(dim, scale, temp, use_scale)
 
     def forward(self, graph, feats: torch.Tensor) -> torch.Tensor:
-        return self.norm(feats, graph.node_mask)
+        return self.norm(feats, graph.node_mask,
+                         getattr(graph, "rank_sum", None))
 
 
 class GraphBatchNorm(nn.Module):
@@ -155,7 +166,9 @@ class GraphBatchNorm(nn.Module):
         self.norm = MaskedBatchNorm(dim)
 
     def forward(self, graph, feats: torch.Tensor) -> torch.Tensor:
-        return self.norm(feats, graph.node_mask)
+        """Over every rank's real nodes on a ``HaloGraph``."""
+        return self.norm(feats, graph.node_mask,
+                         getattr(graph, "rank_sum", None))
 
 
 class GraphLayerNorm(nn.Module):

@@ -229,6 +229,11 @@ class ReducePlan:
     def num_rows(self) -> int:
         return self.row_key.shape[0]
 
+    def to(self, device) -> "ReducePlan":
+        """The same plan with its tensors on ``device``."""
+        return _plan_from_host(self.host, self.buckets1, self.buckets2,
+                               self.num_keys, device)
+
 
 def _chunk_budgets(chunk_cnt: np.ndarray) -> np.ndarray:
     """Budget per chunk: power of two up to 8, multiples of 2 to 16,
@@ -243,20 +248,24 @@ def _chunk_budgets(chunk_cnt: np.ndarray) -> np.ndarray:
 
 
 def _bucketize(item_keys: np.ndarray, item_ids: np.ndarray, num_keys: int,
-               max_budget: int):
+               max_budget: int, native: Optional[bool] = None):
     """Group items by key, chunk runs at ``max_budget``, pad chunks to
     bucketed budgets (see :func:`_chunk_budgets`).
 
     Returns (slot_item [S], slot_valid [S], slot_key [S], buckets,
-    row_keys [R]). A vectorised form of the JAX package's
-    ``_bucketize_numpy``, with the same output: chunks in key order, then
-    grouped by ascending budget, stable within a budget."""
+    row_keys [R]): chunks in key order, then grouped by ascending budget,
+    stable within a budget, as the JAX package's ``_bucketize``. The
+    chunking and the slot fill run in the native planner
+    (``sir_gcn_tpu_torch/native.py``) where it loads, as in JAX, or with
+    ``native=False`` in vectorised NumPy; the two give the same arrays."""
     del num_keys  # kept for the JAX signature
+    from .. import native as _native
+
+    if native is None:
+        native = _native.available()
     order = np.argsort(item_keys, kind="stable")
-    gkeys = np.asarray(item_keys, np.int64)[order]
-    gids = np.asarray(item_ids, np.int64)[order]
-    uniq, starts, counts = np.unique(gkeys, return_index=True,
-                                     return_counts=True)
+    gkeys = np.ascontiguousarray(np.asarray(item_keys, np.int64)[order])
+    gids = np.ascontiguousarray(np.asarray(item_ids, np.int64)[order])
 
     def run_offsets(lengths):
         # position of each element inside its run, for runs of `lengths`
@@ -264,27 +273,38 @@ def _bucketize(item_keys: np.ndarray, item_ids: np.ndarray, num_keys: int,
         firsts = np.repeat(np.cumsum(lengths) - lengths, lengths)
         return np.arange(total, dtype=np.int64) - firsts
 
-    n_chunks = -(-counts // max_budget)
-    chunk_off = run_offsets(n_chunks) * max_budget
-    chunk_key = np.repeat(uniq, n_chunks)
-    chunk_start = np.repeat(starts, n_chunks) + chunk_off
-    chunk_cnt = np.minimum(np.repeat(counts, n_chunks) - chunk_off,
-                           max_budget)
+    if native:
+        chunk_key, chunk_cnt, chunk_start = _native.ell_chunks(gkeys,
+                                                               max_budget)
+    else:
+        uniq, starts, counts = np.unique(gkeys, return_index=True,
+                                         return_counts=True)
+        n_chunks = -(-counts // max_budget)
+        chunk_off = run_offsets(n_chunks) * max_budget
+        chunk_key = np.repeat(uniq, n_chunks)
+        chunk_start = np.repeat(starts, n_chunks) + chunk_off
+        chunk_cnt = np.minimum(np.repeat(counts, n_chunks) - chunk_off,
+                               max_budget)
     budgets = _chunk_budgets(chunk_cnt)
 
     corder = np.argsort(budgets, kind="stable")
     sorted_b = budgets[corder]
-    cnt = chunk_cnt[corder]
     slot_base = np.cumsum(sorted_b) - sorted_b
     total = int(sorted_b.sum())
 
-    slot_item = np.zeros(total, np.int64)
-    slot_valid = np.zeros(total, np.float32)
-    slot_key = np.repeat(chunk_key[corder], sorted_b)
-    within = run_offsets(cnt)
-    pos = np.repeat(slot_base, cnt) + within
-    slot_item[pos] = gids[np.repeat(chunk_start[corder], cnt) + within]
-    slot_valid[pos] = 1.0
+    if native:
+        slot_item, slot_valid, slot_key = _native.ell_fill_slots(
+            gids, chunk_key, chunk_cnt, chunk_start, budgets,
+            corder.astype(np.int64), slot_base.astype(np.int64), total)
+    else:
+        slot_item = np.zeros(total, np.int64)
+        slot_valid = np.zeros(total, np.float32)
+        slot_key = np.repeat(chunk_key[corder], sorted_b)
+        cnt = chunk_cnt[corder]
+        within = run_offsets(cnt)
+        pos = np.repeat(slot_base, cnt) + within
+        slot_item[pos] = gids[np.repeat(chunk_start[corder], cnt) + within]
+        slot_valid[pos] = 1.0
 
     uniq_b, counts_b = np.unique(sorted_b, return_counts=True)
     buckets = [(int(b), int(c)) for b, c in zip(uniq_b, counts_b)]
@@ -299,17 +319,22 @@ def _row_ptr(buckets) -> np.ndarray:
 
 def build_reduce_plan(keys: np.ndarray, valid: np.ndarray, num_keys: int,
                       max_budget: int = MAX_BUDGET,
-                      device: torch.device | str = "cpu") -> ReducePlan:
+                      device: torch.device | str = "cpu",
+                      force_stage2: bool = False,
+                      native: Optional[bool] = None) -> ReducePlan:
     """Host-side construction of a :class:`ReducePlan` over the graph's
     sorted-edge arrays, with its tensors placed on ``device``. The hub
-    second stage is built when some key has more than one chunk row."""
+    second stage is built when some key has more than one chunk row, or
+    always with ``force_stage2`` (plans that must share one structure, see
+    :func:`harmonize_reduce_plans`). ``native`` picks the planner of
+    :func:`_bucketize` (None: the native one where it loads)."""
     keys = np.asarray(keys, np.int64)
     valid = np.asarray(valid, bool)
     eids = np.nonzero(valid)[0]
 
     with _timed_stage("bucketize"):
         slot_edge, slot_valid, slot_key, buckets1, row_keys = _bucketize(
-            keys[eids], eids, num_keys, max_budget)
+            keys[eids], eids, num_keys, max_budget, native)
 
     # pad slots to a multiple of 8 with an extra budget-1 bucket; the
     # bucket list may then repeat budget 1
@@ -334,12 +359,19 @@ def build_reduce_plan(keys: np.ndarray, valid: np.ndarray, num_keys: int,
 
     s2_gather = s2_valid = buckets2 = None
     final_keys, n_final = row_keys, n_rows1
-    if multi:
+    if multi or force_stage2:
         rids = np.nonzero(real)[0]
-        # stage 2 is small (<= E / max_budget rows), so no chunk cap:
-        # every key collapses to exactly one row
-        s2_gather, s2_valid, _, buckets2, row_keys2 = _bucketize(
-            row_keys[rids], rids, num_keys, max_budget=1 << 30)
+        if len(rids) == 0:
+            # no real row: one all-padding stage-2 row
+            s2_gather = np.zeros(1, np.int64)
+            s2_valid = np.zeros(1, np.float32)
+            buckets2 = [(1, 1)]
+            row_keys2 = np.full(1, num_keys, np.int64)
+        else:
+            # stage 2 is small (<= E / max_budget rows), so no chunk cap:
+            # every key collapses to exactly one row
+            s2_gather, s2_valid, _, buckets2, row_keys2 = _bucketize(
+                row_keys[rids], rids, num_keys, 1 << 30, native)
         final_keys, n_final = row_keys2, len(row_keys2)
         buckets2 = tuple(buckets2)
 
@@ -353,15 +385,23 @@ def build_reduce_plan(keys: np.ndarray, valid: np.ndarray, num_keys: int,
                 slot_valid=slot_valid,
                 slot_key=slot_key.astype(np.int32),
                 row_key=row_key.astype(np.int32),
-                row_ptr=_row_ptr(buckets1).astype(np.int32),
                 key2row=key2row.astype(np.int32))
     if s2_gather is not None:
         host.update(s2_gather=s2_gather.astype(np.int32), s2_valid=s2_valid)
     with _timed_stage("plan_upload"):
-        dev = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        return _plan_from_host(host, tuple(buckets1), buckets2, num_keys,
+                               device)
+
+
+def _plan_from_host(host: dict, buckets1: tuple, buckets2, num_keys: int,
+                    device) -> ReducePlan:
+    """A :class:`ReducePlan` of the NumPy arrays ``host`` (``row_ptr`` is
+    derived from ``buckets1``) with their tensors on ``device``."""
+    host = dict(host, row_ptr=_row_ptr(buckets1).astype(np.int32))
+    dev = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
     return ReducePlan(
         s2_gather=dev.pop("s2_gather", None),
-        s2_valid=dev.pop("s2_valid", None), buckets1=tuple(buckets1),
+        s2_valid=dev.pop("s2_valid", None), buckets1=buckets1,
         buckets2=buckets2, num_keys=num_keys, host=host, **dev)
 
 
@@ -1300,3 +1340,105 @@ def pure_ell_sir_aggregate_max(fg: FastGraph, eq: torch.Tensor,
     if b is not None:
         m = m + b
     return _SlotMax.apply(m, valid, fg.dst_plan)
+
+
+# ======================================================================
+# Plan harmonization (for the distributed aggregates)
+# ======================================================================
+
+def uniform_stage2(plans: list, rebuild_args: list) -> list:
+    """Make a plan list stage-2-uniform: if any plan has a hub second
+    stage, rebuild the ones without (``rebuild_args[i]`` are the
+    positional arguments of ``build_reduce_plan`` for plan i) with
+    ``force_stage2``; if none has, leave all stage-1-only."""
+    if any(p.s2_gather is not None for p in plans):
+        plans = [p if p.s2_gather is not None
+                 else build_reduce_plan(*a, force_stage2=True)
+                 for p, a in zip(plans, rebuild_args)]
+    return plans
+
+
+def _common_buckets(bucket_lists) -> tuple:
+    """Each budget's largest row count over the plans, duplicate budgets
+    within a plan merged, budgets ascending."""
+    per = []
+    for buckets in bucket_lists:
+        d = {}
+        for b, nr in buckets:
+            d[b] = d.get(b, 0) + nr
+        per.append(d)
+    budgets = sorted(set(b for d in per for b in d))
+    return tuple((b, max(d.get(b, 0) for d in per)) for b in budgets)
+
+
+def _relayout_stage(plan_buckets, cbuckets, arrays, pad_values):
+    """Re-lay per-slot ``arrays`` of a plan's (possibly duplicate-budget)
+    bucket sequence into the common bucket structure ``cbuckets``, padding
+    rows with ``pad_values``. Returns the arrays, the old-row -> new-row
+    map (its last entry maps the appended zero row) and the new row
+    count."""
+    seg_slots, row_spans = {}, {}
+    s = r = 0
+    for b, nr in plan_buckets:
+        seg_slots.setdefault(b, []).append((s, nr))
+        row_spans.setdefault(b, []).append((r, nr))
+        s += b * nr
+        r += nr
+    outs = [[] for _ in arrays]
+    rowmap = np.zeros(r + 1, np.int64)
+    new_r = 0
+    for b, nrc in cbuckets:
+        taken = 0
+        for (so, nrp), (ro, _) in zip(seg_slots.get(b, []),
+                                      row_spans.get(b, [])):
+            for out, arr in zip(outs, arrays):
+                out.append(arr[so:so + b * nrp])
+            rowmap[ro:ro + nrp] = new_r + taken + np.arange(nrp)
+            taken += nrp
+        for out, arr, padv in zip(outs, arrays, pad_values):
+            out.append(np.full((b * (nrc - taken),) + arr.shape[1:], padv,
+                               arr.dtype))
+        new_r += nrc
+    rowmap[r] = new_r
+    return [np.concatenate(o) for o in outs], rowmap, new_r
+
+
+def harmonize_reduce_plans(plans: list, device=None) -> list:
+    """Re-lay :class:`ReducePlan` objects into one common structure (the same
+    ``buckets1``, ``buckets2`` and row counts), as the JAX package does so
+    that one program runs every shard; here it gives every rank the same
+    bucket list. All plans share ``num_keys`` and are stage-2-uniform
+    (:func:`uniform_stage2`). Padding rows and slots are zero-valid and no
+    key maps to them, so the reductions keep their values. The new plans'
+    tensors go to ``device`` (default: the first plan's)."""
+    no_s2 = all(p.s2_gather is None for p in plans)
+    if not (no_s2 or all(p.s2_gather is not None for p in plans)):
+        raise ValueError("mixed stage-2 plans; pass them through "
+                         "uniform_stage2 first")
+    num_keys = plans[0].num_keys
+    if any(p.num_keys != num_keys for p in plans):
+        raise ValueError("the plans differ in num_keys")
+    device = plans[0].slot_edge.device if device is None else device
+    cb1 = _common_buckets(p.buckets1 for p in plans)
+    cb2 = None if no_s2 else _common_buckets(p.buckets2 for p in plans)
+
+    out = []
+    for p in plans:
+        h = p.host
+        (se, sv, sk), rowmap1, n_rows1 = _relayout_stage(
+            p.buckets1, cb1, [h["slot_edge"], h["slot_valid"],
+                              h["slot_key"]], [0, 0.0, 0])
+        rk = np.zeros(n_rows1, np.int32)
+        rk[rowmap1[:len(h["row_key"])]] = h["row_key"]
+        host = dict(slot_edge=se, slot_valid=sv, slot_key=sk, row_key=rk)
+        if no_s2:
+            # key2row points at stage-1 rows; the sentinel at the zero row
+            host["key2row"] = rowmap1[h["key2row"]].astype(np.int32)
+        else:
+            (g2, v2), rowmap2, _ = _relayout_stage(
+                p.buckets2, cb2, [rowmap1[h["s2_gather"]], h["s2_valid"]],
+                [0, 0.0])
+            host.update(s2_gather=g2.astype(np.int32), s2_valid=v2,
+                        key2row=rowmap2[h["key2row"]].astype(np.int32))
+        out.append(_plan_from_host(host, cb1, cb2, num_keys, device))
+    return out

@@ -11,11 +11,13 @@ Math contract (reference ``models/conv.py``):
   sym scale:     s_vu = out_deg(v)^-1/2 * in_deg(u)^-1/2, degrees clamped
                  >= 1; mean divides by the count of valid in-edges.
 
-Every route of the JAX package's ``sir_aggregate`` but the distributed
-HaloGraph's: on a FastGraph the kernels (static scales, or DropEdge's
-dynamic ones under ``edge_mask``), or the pure ELL route for a sigma
-outside the activation registry that holds tensors (JAX's XLA route); on a
-plain ``GraphBatch`` the CSR aggregate over ``ops/segment.py``. The forms
+Every route of the JAX package's ``sir_aggregate``: on a FastGraph the
+kernels (static scales, or DropEdge's dynamic ones under ``edge_mask``),
+or the pure ELL route for a sigma outside the activation registry that
+holds tensors (JAX's XLA route); on a plain ``GraphBatch`` the CSR
+aggregate over ``ops/segment.py``; on a ``HaloGraph`` (one rank's shard of
+a graph partitioned by node ranges) the halo aggregate of
+``parallel/halo.py``. The forms
 that JAX runs on Pallas kernels and the port's kernels do not yet take
 raise: a registry sigma with max and an edge term, a row-wise registry
 sigma with an edge term or with max, and on a CUDA tensor a parameter-free
@@ -24,6 +26,7 @@ sigma outside the registry.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional
 
 import torch
@@ -39,6 +42,60 @@ from .ell import (
 )
 
 _EDGE_DTYPE: Optional[torch.dtype] = None  # None (f32) | torch.bfloat16
+
+# Scale guards: an edge term or max aggregation off the kernels (the pure
+# ELL route, the halo's pure variants, the CSR aggregate) forms an
+# [E_pad, H] table per layer and differentiates through gathers of it.
+# Above these sizes sir_aggregate warns once per padded edge count.
+EDGE_FEATURE_EDGE_LIMIT = 500_000
+MAX_AGG_WARN_EDGES = 500_000
+_ALLOW_LARGE_EDGE_AGG = False
+_EDGE_AGG_WARNED: set = set()
+_MAX_AGG_WARNED: set = set()
+
+
+def allow_large_edge_aggregate(enabled: bool = True) -> None:
+    """Silence the edge-term scale warning of :func:`sir_aggregate` (an
+    edge term off the kernels above ``EDGE_FEATURE_EDGE_LIMIT`` padded
+    edges)."""
+    global _ALLOW_LARGE_EDGE_AGG
+    _ALLOW_LARGE_EDGE_AGG = bool(enabled)
+
+
+def _scale_guards(graph, agg_type: str, has_edge_feats: bool,
+                  kernel_route: bool) -> None:
+    """Once-per-size cost warnings for an edge term or max aggregation
+    that no kernel computes (``kernel_route`` False): the pure ELL route,
+    the halo's pure variants or the CSR aggregate, each of which keeps
+    per-edge [E_pad, H] tables for the backward."""
+    if kernel_route:
+        return
+    e_pad = int(graph.e_pad)
+    if (has_edge_feats and e_pad > EDGE_FEATURE_EDGE_LIMIT
+            and not _ALLOW_LARGE_EDGE_AGG and e_pad not in _EDGE_AGG_WARNED):
+        _EDGE_AGG_WARNED.add(e_pad)
+        warnings.warn(
+            f"sir_aggregate with an edge term on a graph with {e_pad} "
+            f"padded edges (> {EDGE_FEATURE_EDGE_LIMIT}) takes a route with "
+            f"no kernel (the pure ELL route, the halo's pure variant or the "
+            f"CSR aggregate): it forms [E_pad, H] edge tables each layer "
+            f"and runs several times slower than the kernel routes "
+            f"(PERF.md). On a FastGraph with a registry sigma the edge "
+            f"kernels take it; pass (e_basis, w_edge) for the fused edge "
+            f"route. Call sir_gcn_tpu_torch.ops.message_passing."
+            f"allow_large_edge_aggregate(True) to silence this warning.",
+            stacklevel=3)
+    if (agg_type == "max" and e_pad > MAX_AGG_WARN_EDGES
+            and e_pad not in _MAX_AGG_WARNED):
+        _MAX_AGG_WARNED.add(e_pad)
+        warnings.warn(
+            f"max aggregation on a graph with {e_pad} padded edges takes a "
+            f"route with no kernel (the pure ELL route, the halo's pure "
+            f"variant or the CSR aggregate): the per-edge W_R product "
+            f"before the reduce (reference models/conv.py:47) runs on "
+            f"[E_pad, H] tables. On a FastGraph with a registry sigma the "
+            f"max kernels take it; consider sum, mean or sym at full-graph "
+            f"scale otherwise.", stacklevel=3)
 
 
 def set_edge_dtype(dtype: Optional[torch.dtype]) -> None:
@@ -106,7 +163,15 @@ def sir_aggregate(graph, eq: torch.Tensor, ek: torch.Tensor, activation,
     the CSR aggregate runs with any torch callable sigma, differentiated by
     autograd.
 
-    Raises for the HaloGraph (not ported) and for the forms that JAX runs
+    On a ``HaloGraph`` ``eq`` and ``ek`` are the rank's own node rows
+    and ``e`` and ``edge_mask`` are global, in sorted edge order
+    (``parallel/halo.py`` ``halo_sir_aggregate``).
+
+    An edge term or max off the kernels warns once per graph size above
+    ``EDGE_FEATURE_EDGE_LIMIT`` and ``MAX_AGG_WARN_EDGES`` padded edges
+    (:func:`allow_large_edge_aggregate` silences the first).
+
+    Raises for the forms that JAX runs
     on Pallas kernels and the port's kernels do not yet take: a registry
     sigma with max and an edge term, a row-wise registry sigma with an
     edge term or with max, and on a CUDA tensor a parameter-free sigma
@@ -119,14 +184,24 @@ def sir_aggregate(graph, eq: torch.Tensor, ek: torch.Tensor, activation,
         raise ValueError("e_basis needs w_edge")
     if agg_type == "max" and w_relation is None:
         raise ValueError("max aggregation needs W_R per edge (w_relation)")
-    if not isinstance(graph, (FastGraph, GraphBatch)):
+    from ..parallel.halo import HaloGraph, halo_sir_aggregate
+
+    if not isinstance(graph, (FastGraph, GraphBatch, HaloGraph)):
         raise NotImplementedError(
-            f"sir_aggregate on a {type(graph).__name__} (the distributed "
-            f"HaloGraph's route) is not yet ported")
+            f"sir_aggregate on a {type(graph).__name__}: not a GraphBatch, "
+            f"FastGraph or HaloGraph")
     fused = (e_basis is not None and isinstance(graph, FastGraph)
              and agg_type != "max" and isinstance(activation, Activation))
     if e_basis is not None and not fused:
         e = (e_basis @ w_edge).to(eq.dtype)
+    _scale_guards(graph, agg_type, e is not None or fused,
+                  kernel_route=(isinstance(graph, FastGraph)
+                                and isinstance(activation, Activation)))
+    if isinstance(graph, HaloGraph):
+        return halo_sir_aggregate(graph, eq, ek, activation, agg_type, e=e,
+                                  w_relation=w_relation,
+                                  b_relation=b_relation,
+                                  edge_mask=edge_mask)
     if not isinstance(graph, FastGraph):
         return _csr_aggregate(graph, eq, ek, activation, agg_type, e,
                               w_relation, b_relation, edge_mask)

@@ -130,8 +130,10 @@ def test_grad_and_no_grad_paths_reach_their_kernels(monkeypatch):
 
 
 def test_unported_branches_raise():
-    """What still raises: the HaloGraph's route (not ported). The branches
-    that raised before this port had them now compute, held against the
+    """What still raises: a graph of no type sir_aggregate knows (the
+    HaloGraph's route is ported, in tests/test_torch_dist_aggregate.py).
+    The branches that raised before this port had them now compute, held
+    against the
     JAX package's ``sir_aggregate`` on the same graph (its CPU route): a
     sigma outside the registry (the pure ELL route), with sum and with
     max, a plain ``GraphBatch`` (the CSR aggregate), and a DropEdge mask
@@ -141,7 +143,7 @@ def test_unported_branches_raise():
     wr = rng.normal(size=(H, 9)).astype(np.float32)
     mask = rng.random(tfg.e_pad) >= 0.3
     act = tell.leaky_relu(0.2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="not a GraphBatch"):
         tmp.sir_aggregate(object(), torch.from_numpy(eq),
                           torch.from_numpy(ek), act, "sum")
 

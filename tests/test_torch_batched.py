@@ -931,11 +931,13 @@ def test_entry_points_raise_without_a_card(harness, monkeypatch):
 
 
 @pytest.mark.parametrize("harness", ["zinc", "sbm", "super_pixel"])
-def test_data_parallel_raises(harness):
+def test_data_parallel_raises(harness, monkeypatch):
+    """--dp-devices runs (tests/test_torch_dist_train.py); without a card
+    and without --cpu it raises before any rank starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     main, argv = TINY[harness]
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        main(["--cpu", "--dp-devices", "2", "--nruns", "1", "--epochs",
-              "1"] + argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--dp-devices", "2", "--nruns", "1", "--epochs", "1"] + argv)
 
 
 def test_fingerprint_needs_rdkit():

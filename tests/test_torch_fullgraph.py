@@ -484,8 +484,8 @@ def test_wiki_entry_point_on_cpu(flags, capsys):
 @pytest.mark.parametrize("main", [thtrain.main, twtrain.main])
 def test_fullgraph_entry_points_raise(main):
     with pytest.raises(NotImplementedError, match="item 11"):
-        main(["--cpu", "--mesh-devices", "2", "--nhidden", "8",
-              "--nlayers", "1"] + TINY)
+        main(["--cpu", "--mesh-devices", "2", "--dist-path", "gspmd",
+              "--nhidden", "8", "--nlayers", "1"] + TINY)
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -193,14 +193,14 @@ def test_trainer_entry_point_on_cpu(capsys):
 
 
 def test_trainer_rejects_unported_flags():
-    """Only the multi-device flags are left to port: ``--mesh-devices``
-    above 1, ``--dist-path`` and ``--remat`` raise; every other flag of the
-    JAX trainer parses."""
-    for flags, name in ((["--mesh-devices", "2"], "--mesh-devices"),
-                        (["--dist-path", "gspmd"], "--dist-path"),
+    """Only ``--dist-path gspmd`` (the GSPMD-partitioned graph) and
+    ``--remat`` are left to port and raise; every other flag of the JAX
+    trainer parses, ``--mesh-devices 2`` among them."""
+    for flags, name in ((["--dist-path", "gspmd"], "--dist-path"),
                         (["--remat"], "--remat")):
         with pytest.raises(NotImplementedError, match=name):
             ttrain.get_args(["--cpu"] + flags)
+    ttrain.get_args(["--cpu", "--mesh-devices", "2"])
     ttrain.get_args(["--cpu", "--mesh-devices", "1", "--gpu", "1",
                      "--use-labels", "--label-iters", "2", "--flag",
                      "--kd-mode", "student", "--l1", "1e-4", "--reorder",
