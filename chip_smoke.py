@@ -178,6 +178,24 @@ Phases, each printed as it runs; any failure exits non-zero:
            a HaloGraph of one shard against the FastGraph's (loss and
            every weight), and one zinc --norm bn step through
            make_dp_train_step_stateful, bitwise the single-device step
+  gspmd    the row-sharded full graph (parallel/full_graph.py), where no
+           kernel of the port runs: (a) under a one-rank NCCL group, the
+           heterophilous roman-empire --agg-type max (hidden 512, 5
+           layers) and the wiki-cs --model GAT runs of the fullgraph
+           phase, 3 epochs each, through the trainers' run_single on the
+           plain graph and on a one-shard ShardedGraph of it: the synced
+           step and eval, the peak memory, no launch (the counters at 0
+           before and read after), the best epoch's losses of the two
+           within FWD_TOL; (b) four row shards one after another on the
+           card, each handed its gathered table: a SIRConv with max and
+           erf-GELU at H = O = 512 on the roman-empire stand-in and a
+           GATv2 layer of the wiki-cs GAT on the wiki-cs stand-in, the
+           joined rows at FWD_TOL and the summed input and weight
+           gradients at BWD_TOL against the single card, no launch; (c)
+           bench_scaling_torch.py --devices 1 on the halo and the
+           row-sharded path at its default size (16,384 nodes, 131,072
+           edges, hidden 64, 2 layers), its JSON lines logged; (d)
+           dryrun_multichip(1), the seven parts on one spawned NCCL rank
 
 The last line is the JSON contract line; the line before it lists each
 kernel's launches on the main path, error, times and bound. Needs a CUDA
@@ -3911,6 +3929,233 @@ def phase_dist(device, errs, timing, smi: str):
     return launches
 
 
+# the gspmd phase: the row-sharded full graph (parallel/full_graph.py) at
+# the fullgraph phase's published sizes; GSPMD_SHARDS ranks for (b)
+GSPMD_SHARDS = 4
+GSPMD_RUNS = (
+    ("heterophilous roman-empire max", "heterophilous",
+     ["--dataset", "roman-empire", "--agg-type", "max", "--epochs", "3"]
+     + ROMAN_EMPIRE),
+    ("wiki-cs GAT", "wiki_cs",
+     ["--jumping-knowledge", "--resid-layers", "1", "--model", "GAT",
+      "--epochs", "3"] + WIKI_CS),
+)
+
+# (b)'s layers: (nodes, edges, input width) of their graphs
+GSPMD_LAYERS = {"SIRConv max H = O = 512": (22_662, 65_854, 512),
+                "GATv2 wiki-cs layer": (11_701, 431_726, 300)}
+
+
+def gspmd_trainer_runs(device, smi: str):
+    """(a) of the gspmd phase, under a one-rank NCCL group: each of
+    GSPMD_RUNS through its trainer's ``run_single`` twice, on the plain
+    graph (``--no-fast-path``) and on a one-shard ShardedGraph of it (the
+    trainer's ``prepare`` wrapped to hand over the rank's graph): the
+    epochs' step and eval (synced), the peak memory, no launch of any
+    kernel of the port, and the best epoch's losses of the two within
+    FWD_TOL."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+    from sir_gcn_tpu_torch.parallel.full_graph import (
+        ShardedGraph,
+        shard_full_graph,
+    )
+    from sir_gcn_tpu_torch.parallel.mesh import make_mesh
+    from sir_gcn_tpu_torch.parallel.multihost import initialize_multihost
+
+    set_edge_dtype(None)
+    with tempfile.TemporaryDirectory() as store:
+        initialize_multihost(cpu=False, init_method="file://" + os.path.join(
+            store, "store"), rank=0, world_size=1, timeout_s=120)
+        try:
+            group = make_mesh((1,), ("graph",), "cuda").get_group("graph")
+            log(f"  (a) process group: {dist.get_backend()}, "
+                f"{dist.get_world_size()} rank on {device}")
+            for label, name, flags in GSPMD_RUNS:
+                module = fullgraph_module(name)
+                args = module._parser().parse_args(
+                    flags + FULLGRAPH_FLAGS + ["--no-fast-path"])
+                prepare = module.prepare
+                best, made = {}, []
+                for kind in ("plain graph", "row-sharded graph"):
+                    def sharded(*a, **k):
+                        run = prepare(*a, **k)
+                        run["graph"] = shard_full_graph(run["graph"], 1, 0,
+                                                        group)
+                        made.append(type(run["graph"]))
+                        return run
+
+                    module.prepare = (prepare if kind == "plain graph"
+                                      else sharded)
+                    stats = {}
+                    try:
+                        torch.cuda.synchronize()
+                        torch.cuda.empty_cache()
+                        torch.cuda.reset_peak_memory_stats()
+                        reset_launch_counts()
+                        best[kind] = module.run_single(
+                            args, 0, 0, device, stats, time_steps=True)
+                        torch.cuda.synchronize()
+                    finally:
+                        module.prepare = prepare
+                    launches = {k: v for k, v in LAUNCHES.items() if v}
+                    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                    step, ev = stats["step_ms"], stats["eval_ms"]
+                    log(f"  (a) {label} on the {kind}: "
+                        f"{stats['epochs']} epochs in "
+                        f"{stats['seconds']:.2f} s; train step median "
+                        f"{statistics.median(step):.3f} ms (first "
+                        f"{step[0]:.3f}), eval median "
+                        f"{statistics.median(ev):.3f} ms (first "
+                        f"{ev[0]:.3f}); peak memory {peak:.3f} GiB "
+                        f"({smi}); best epoch's loss "
+                        f"{best[kind]['loss']:.6f}, val_loss "
+                        f"{best[kind]['val_loss']:.6f}, test metric "
+                        f"{best[kind]['test_metric']!r}; launches "
+                        f"{launches}")
+                    if launches:
+                        raise AssertionError(f"(a) {label}: the {kind} "
+                                             f"launched {launches}")
+                if made != [ShardedGraph]:
+                    raise AssertionError(f"(a) {label}: the rank's graphs "
+                                         f"{made}")
+                for key in ("loss", "val_loss", "test_loss"):
+                    compare(f"(a) {label} {key}, row-sharded against plain",
+                            torch.tensor([best["row-sharded graph"][key]]),
+                            torch.tensor([best["plain graph"][key]]),
+                            FWD_TOL)
+        finally:
+            dist.destroy_process_group()
+
+
+def gspmd_ranks(device):
+    """(b) of the gspmd phase: GSPMD_SHARDS row shards run one after
+    another on the card, each handed the gathered table (its src
+    projection of the whole input) in place of the all-gather: a SIRConv
+    with max and erf-GELU at H = O = 512 on the roman-empire stand-in and
+    a GATv2 layer of the wiki-cs GAT (300 features, 64 wide, its own dst
+    weights) on the wiki-cs stand-in. The joined rows against the single
+    card's at FWD_TOL, the summed input and weight gradients at BWD_TOL;
+    no launch."""
+    import numpy as np
+    import torch
+
+    from sir_gcn_tpu_torch import build_graph
+    from sir_gcn_tpu_torch.data import synthetic_node_classification
+    from sir_gcn_tpu_torch.models import GATv2Conv, SIRConv
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.ops.ell import gelu
+    from sir_gcn_tpu_torch.parallel.full_graph import shard_full_graph
+
+    S = GSPMD_SHARDS
+    for label, (n, e, d) in GSPMD_LAYERS.items():
+        data = synthetic_node_classification(n, e, feat_dim=8,
+                                             num_classes=2, seed=0)
+        g = build_graph(data.src, data.dst, data.feat.shape[0],
+                        pad_multiple=128 * S, device=device)
+        gen = torch.Generator().manual_seed(0)
+        if label.startswith("SIRConv"):
+            conv = SIRConv(d, d, d, gelu(), agg_type="max", generator=gen)
+            table = conv.linear_key
+        else:
+            conv = GATv2Conv(d, 64, 1, share_weights=False, generator=gen)
+            table = conv.fc_src
+        conv = conv.to(device)
+        x = torch.randn((g.n_pad, d), generator=torch.Generator(
+            device=device).manual_seed(1), device=device)
+        gw = None
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        xr = x.clone().requires_grad_()
+        want = conv(g, xr)
+        gw = torch.randn(want.shape, generator=torch.Generator(
+            device=device).manual_seed(2), device=device)
+        (want * gw).sum().backward()
+        want_g = {k: p.grad.clone() for k, p in conv.named_parameters()}
+        conv.zero_grad()
+        outs, g_x = [], torch.zeros_like(x)
+        t0 = time.perf_counter()
+        for r in range(S):
+            xf = x.clone().requires_grad_()
+            sg = shard_full_graph(g, S, r, gather=lambda t, xf=xf: table(xf)
+                                  .reshape((-1,) + t.shape[1:]))
+            xl = x[sg.rows].clone().requires_grad_()
+            out = conv(sg, xl)
+            (out * gw[sg.rows]).sum().backward()
+            outs.append(out.detach())
+            g_x += xf.grad
+            g_x[sg.rows] += xl.grad
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        log(f"  (b) {label}: {g.n_pad} nodes, {g.e_pad} edges in {S} "
+            f"shards of {g.n_pad // S} nodes (edge runs "
+            f"{[shard_full_graph(g, S, r).e_pad for r in range(S)]}); the "
+            f"{S} ranks' forward and backward {dt * 1e3:.1f} ms; launches "
+            f"{launches}")
+        if launches:
+            raise AssertionError(f"(b) {label} launched {launches}")
+        compare(f"(b) {label} out, {S} ranks joined against the single "
+                f"card", torch.cat(outs), want.detach(), FWD_TOL)
+        compare(f"(b) {label} input gradient, summed over the ranks", g_x,
+                xr.grad, BWD_TOL)
+        err = max(compare(f"(b) {label} grad {k}", p.grad, want_g[k],
+                          BWD_TOL, quiet=True)
+                  for k, p in conv.named_parameters())
+        log(f"  (b) {label}: every weight gradient, summed over the ranks, "
+            f"within BWD_TOL, max abs err {err:.3e}")
+        del conv, x, xr, want, want_g, outs, g_x, gw
+        torch.cuda.empty_cache()
+
+
+def phase_gspmd(device, smi: str):
+    """The row-sharded full graph on the card: (a) the two trainers'
+    runs that JAX sends to its GSPMD path, through the trainers' code on
+    a one-rank NCCL group; (b) four shards rank by rank against the single
+    card; (c) bench_scaling_torch.py --devices 1 on both paths at its
+    default size (a record); (d) the multi-device dry run on one NCCL
+    rank."""
+    import contextlib
+    import io
+
+    import torch
+
+    import bench_scaling_torch
+    from sir_gcn_tpu_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    log("== gspmd: the row-sharded full graph")
+    gspmd_trainer_runs(device, smi)
+    torch.cuda.empty_cache()
+    log(f"  (a) done at {time.perf_counter() - t0:.1f} s")
+    gspmd_ranks(device)
+    log(f"  (b) done at {time.perf_counter() - t0:.1f} s")
+    for path in ("halo", "gspmd"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            (record,) = bench_scaling_torch.main(["--devices", "1",
+                                                  "--path", path])
+        log(f"  (c) bench_scaling_torch.py --devices 1 --path {path} "
+            f"({smi}): {out.getvalue().strip()}")
+        if not record["value"] > 0:
+            raise AssertionError(f"(c) {path}: {record}")
+    log(f"  (c) done at {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    from sir_gcn_tpu_torch.parallel import multihost
+
+    multihost.DEFAULT_TIMEOUT_S, multihost.DEFAULT_DEADLINE_S = 120.0, 300.0
+    lines = dryrun_multichip(1)
+    log(f"  (d) dryrun_multichip(1) on one NCCL rank: {len(lines)} lines ok")
+    if len(lines) != 8:
+        raise AssertionError(f"(d) the dry run printed {lines}")
+    log(f"== gspmd ok in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3964,6 +4209,7 @@ def main() -> int:
     phase_oracles(device)
     phase_batched(device)
     phase_dist(device, errs, timing, smi)
+    phase_gspmd(device, smi)
     log(f"== all phases ok in {time.perf_counter() - t0:.1f}s")
 
     rows = []

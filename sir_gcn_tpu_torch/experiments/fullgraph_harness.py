@@ -21,8 +21,9 @@ import torch.nn.functional as F
 from ..graph import build_graph
 from ..models.layers import row_shard
 from ..ops.ell import FastGraph
-from ..parallel.collectives import all_gather_rows, sum_gradients
-from ..parallel.halo import HaloGraph, build_halo_graph
+from ..parallel.collectives import all_gather_rows, rank_of, sum_gradients
+from ..parallel.full_graph import NodeShard, shard_full_graph
+from ..parallel.halo import build_halo_graph
 from ..parallel.mesh import make_mesh
 from ..train import (
     EpochDriver,
@@ -78,36 +79,19 @@ def pad_inputs(n_pad: int, feat: np.ndarray, labels: np.ndarray,
     return feats_p, labels_p, tuple(weights)
 
 
-def check_mesh_path(args, halo_model: bool = True) -> None:
-    """Raise for a ``--mesh-devices`` run that the JAX harness sends to the
-    GSPMD-partitioned CSR: ``--dist-path gspmd``, a model outside the halo
-    path (``halo_model`` False: not a SIR model) or max aggregation. That
-    path is not yet ported."""
-    if int(getattr(args, "mesh_devices", 0) or 0) <= 1:
-        return
-    if (getattr(args, "dist_path", "halo") != "halo" or not halo_model
-            or getattr(args, "agg_type", "sum") not in ("sum", "mean",
-                                                        "sym")):
-        raise NotImplementedError(
-            "the GSPMD-partitioned full graph (--dist-path gspmd, or a "
-            "model or aggregation outside the halo path: not a SIR model "
-            "with sum, mean or sym) is not yet ported (ROADMAP.md Queue A "
-            "item 11)")
-
-
 def setup_mesh_graph(graph, args, halo_model: bool = True):
     """``--mesh-devices N`` above 1 (this process one of the N ranks):
-    partition the graph over the ranks for the boundary-only halo
-    aggregate, after re-padding its nodes to a multiple of 128 N where N
-    does not divide their padding. Returns ``graph`` as it is for one
-    device. The JAX harness's other distributed path, the GSPMD-partitioned
-    CSR (``--dist-path gspmd``, and its automatic choice for a model
-    outside the halo path, ``halo_model`` False, or for max aggregation),
-    raises: it is not yet ported."""
+    partition the graph by node ranges over the ranks, after re-padding
+    its nodes to a multiple of 128 N where N does not divide their padding
+    (the edges keep theirs). The path is chosen as the JAX harness chooses
+    it: the boundary-only halo aggregate for a SIR model (``halo_model``)
+    with sum, mean or sym, else, or with ``--dist-path gspmd``, the
+    row-sharded CSR (``parallel/full_graph.py``), printing the JAX
+    harness's note where the halo path was asked for. Returns ``graph`` as
+    it is for one device."""
     n = int(getattr(args, "mesh_devices", 0) or 0)
     if n <= 1:
         return graph
-    check_mesh_path(args, halo_model)
     if isinstance(graph, FastGraph):
         graph = graph.graph  # partition the plain graph
     if graph.n_pad % n:
@@ -117,9 +101,18 @@ def setup_mesh_graph(graph, args, halo_model: bool = True):
         graph = build_graph(h["src"][:ne], h["dst"][:ne], graph.num_nodes,
                             pad_multiple=128 * n, e_pad=graph.e_pad,
                             device=graph.device)
-    mesh = make_mesh((n,), ("graph",), graph.device.type)
-    return build_halo_graph(graph, n, mesh.get_group("graph"),
-                            getattr(args, "agg_type", "sum"))
+    group = make_mesh((n,), ("graph",), graph.device.type).get_group("graph")
+    agg = getattr(args, "agg_type", "sum")
+    dist_path = getattr(args, "dist_path", "halo")
+    use_halo = (dist_path == "halo" and halo_model
+                and agg in ("sum", "mean", "sym"))
+    if dist_path == "halo" and not use_halo:
+        print("[note] halo path needs a SIR model with a linear "
+              "aggregator; using the row-sharded CSR (--dist-path gspmd) "
+              "instead")
+    if use_halo:
+        return build_halo_graph(graph, n, group, agg)
+    return shard_full_graph(graph, n, rank_of(group), group)
 
 
 def grow_rows(a: np.ndarray, n: int) -> np.ndarray:
@@ -130,18 +123,20 @@ def grow_rows(a: np.ndarray, n: int) -> np.ndarray:
 
 
 def rank_rows(graph):
-    """A context for one rank's forward on a ``HaloGraph``: random draws
-    at the whole graph's shape, its rows kept (``row_shard``); a null
-    context on any other graph."""
-    if not isinstance(graph, HaloGraph):
+    """A context for one rank's forward on its shard of a node-partitioned
+    graph (a ``NodeShard``): random draws at the whole graph's shape, its
+    rows (and on a ``ShardedGraph`` its edges) kept (``row_shard``); a
+    null context on any other graph."""
+    if not isinstance(graph, NodeShard):
         return contextlib.nullcontext()
-    return row_shard(graph.rows.start, graph.rows.stop, graph.n_global)
+    return row_shard(graph.rows.start, graph.rows.stop, graph.n_global,
+                     graph.edge_run)
 
 
 def gather_logits(graph, logits: torch.Tensor) -> torch.Tensor:
     """The whole graph's rows of ``logits`` on every rank: an all-gather of
-    the ranks' rows on a ``HaloGraph``, else ``logits``."""
-    if not isinstance(graph, HaloGraph):
+    the ranks' rows on a ``NodeShard``, else ``logits``."""
+    if not isinstance(graph, NodeShard):
         return logits
     return all_gather_rows(logits.contiguous(), graph.group)
 
@@ -184,12 +179,12 @@ def run_fullgraph_workload(
     graph = setup_mesh_graph(graph, args,
                              halo_model=getattr(args, "model", "SIR")
                              == "SIR")
-    n_pad = getattr(graph, "n_global", graph.n_pad)
+    sharded = isinstance(graph, NodeShard)
+    n_pad = graph.n_global if sharded else graph.n_pad
     if n_pad > feats.shape[0]:  # re-padded for the mesh
         feats, labels = grow_rows(feats, n_pad), grow_rows(labels, n_pad)
         train_w, val_w, test_w = (grow_rows(w, n_pad)
                                   for w in (train_w, val_w, test_w))
-    sharded = isinstance(graph, HaloGraph)
     rows = graph.rows if sharded else slice(None)  # a rank's own rows
 
     feats_t = torch.from_numpy(np.asarray(feats, np.float32)).to(device)

@@ -37,7 +37,6 @@ from ...parallel.multihost import needs_spawn, spawn_ranks, trainer_device
 from ...train import aggregate_runs
 from ...train.metrics import accuracy, roc_auc
 from ..fullgraph_harness import (
-    check_mesh_path,
     masked_bce_logits,
     masked_ce,
     pad_inputs,
@@ -195,7 +194,6 @@ def main(argv=None, stats: Optional[list] = None, time_steps: bool = False):
     stats."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
-    check_mesh_path(args, True)
     if needs_spawn(args.mesh_devices, args.cpu):
         vals, tests, run_stats = spawn_ranks(
             args.mesh_devices, _rank_main, argv, time_steps, cpu=args.cpu)

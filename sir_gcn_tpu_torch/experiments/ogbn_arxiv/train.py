@@ -11,10 +11,10 @@ Runs on the CUDA card unless ``--cpu`` is given; with no card and no
 ``--cpu`` it raises. With no dataset cache a synthetic arxiv-shaped task
 stands in. ``--model GAT`` trains the GATv2 baseline. ``--mesh-devices
 N`` partitions the graph by node ranges over N ranks (N cards, or N gloo
-processes with ``--cpu``) for the halo aggregate, spawned here unless a
-launcher (torchrun) started them; every other flag carries over. Still
-to port: ``--dist-path gspmd`` (and the GSPMD path's automatic choice, a
-GAT model or max aggregation with ``--mesh-devices``) and ``--remat``.
+processes with ``--cpu``), spawned here unless a launcher (torchrun)
+started them: the halo aggregate for a SIR model with sum, mean or sym,
+else, or with ``--dist-path gspmd``, the row-sharded CSR; every other
+flag carries over. ``--remat`` raises.
 
 The reference's best configuration is a teacher, a student and C&S:
 
@@ -57,6 +57,7 @@ from ...models.layers import rand_rows
 from ...ops.ell import FastGraph, build_fast_graph
 from ...ops.message_passing import set_edge_dtype
 from ...parallel.collectives import all_reduce_sum, sum_gradients
+from ...parallel.full_graph import NodeShard, ShardedGraph
 from ...parallel.halo import HaloGraph
 from ...parallel.multihost import needs_spawn, spawn_ranks, trainer_device
 from ...train import (
@@ -71,7 +72,6 @@ from ...train import (
 )
 from ...utils.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from ..fullgraph_harness import (
-    check_mesh_path,
     gather_logits,
     rank_rows,
     setup_mesh_graph,
@@ -180,7 +180,7 @@ def make_harness(model, graph, optimizer, args, num_classes: int):
     ``eval_step(feats, labels, labeled, unlabeled)`` returns the eval
     logits with label reuse.
 
-    On a ``HaloGraph`` (one rank of a ``--mesh-devices`` run) every
+    On a ``NodeShard`` (one rank of a ``--mesh-devices`` run) every
     node-indexed input is the rank's rows: random draws are made at the
     whole graph's shape (``row_shard``), the loss's weight sum and KD's
     mean span every rank, the regulariser is added on rank 0 only, the
@@ -188,7 +188,7 @@ def make_harness(model, graph, optimizer, args, num_classes: int):
     ``eval_step`` gathers every rank's logits."""
     m = args.m + 1 if args.flag else 1
     reuse = args.label_iters if args.use_labels else 0
-    sharded = isinstance(graph, HaloGraph)
+    sharded = isinstance(graph, NodeShard)
 
     def assemble(feats, labels, labeled):
         """The label trick: the labeled rows' one-hot labels as extra
@@ -346,8 +346,8 @@ def run_single(args, seed: int, data, device: torch.device,
     if args.reorder:
         perm, relabel = reorder_data(data)
     t0 = time.perf_counter()
-    graph = setup_mesh_graph(build_arxiv_graph(data, args, device), args,
-                             halo_model=args.model == "SIR")
+    whole = build_arxiv_graph(data, args, device)
+    graph = setup_mesh_graph(whole, args, halo_model=args.model == "SIR")
     plan_seconds = time.perf_counter() - t0
     fast = isinstance(graph, FastGraph)
     if fast:
@@ -355,11 +355,14 @@ def run_single(args, seed: int, data, device: torch.device,
               f"{graph.dst_plan.num_slots}, src slots "
               f"{graph.src_plan.num_slots}; dst buckets "
               f"{graph.dst_plan.buckets1}")
-    sharded = isinstance(graph, HaloGraph)
-    if sharded:
+    sharded = isinstance(graph, NodeShard)
+    if isinstance(graph, HaloGraph):
         print(f"halo plans: {plan_seconds:.2f}s; {graph.hfg.n_shards} "
               f"shards of {graph.hfg.n_local} nodes, h_max "
               f"{graph.hfg.h_max}")
+    elif isinstance(graph, ShardedGraph):
+        print(f"row-sharded CSR: {graph.n_shards} shards of {graph.n_pad} "
+              f"nodes; rank {graph.rank} owns {graph.e_pad} edges")
     # a rank of a --mesh-devices run holds its own node rows
     n_pad = graph.n_global if sharded else graph.n_pad
     rows = graph.rows if sharded else slice(None)
@@ -504,8 +507,8 @@ def run_single(args, seed: int, data, device: torch.device,
     result.update(
         train_losses=losses, step_seconds=step_seconds,
         eval_seconds=eval_seconds, plan_seconds=plan_seconds,
-        num_edges=(graph if isinstance(graph, GraphBatch)
-                   else graph.graph).num_edges)
+        num_edges=(whole if isinstance(whole, GraphBatch)
+                   else whole.graph).num_edges)
     if fast:
         result.update(
             dst_slots=graph.dst_plan.num_slots,
@@ -598,19 +601,12 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def get_args(argv=None):
-    """The parsed flags. Those still to port raise: ``--dist-path gspmd``
-    (the GSPMD-partitioned graph, ROADMAP.md Queue A item 11) and
-    ``--remat``; so does ``--mesh-devices`` above 1 with a model or an
-    aggregation the halo path does not take (``check_mesh_path``)."""
+    """The parsed flags. ``--remat`` raises: the port keeps every
+    activation for the backward (ROADMAP.md Queue A item 10)."""
     args = _parser().parse_args(argv)
-    unported = [flag for flag, on in (
-        ("--dist-path", args.dist_path != "halo"),
-        ("--remat", args.remat)) if on]
-    if unported:
-        raise NotImplementedError("flags not yet ported: "
-                                  + ", ".join(unported)
-                                  + " (ROADMAP.md Queue A item 11)")
-    check_mesh_path(args, args.model == "SIR")
+    if args.remat:
+        raise NotImplementedError("flags not yet ported: --remat "
+                                  "(ROADMAP.md Queue A item 10)")
     return args
 
 

@@ -42,7 +42,6 @@ from ...train import aggregate_runs
 from ...train.metrics import accuracy
 from ..common_models import GraphSIRModel
 from ..fullgraph_harness import (
-    check_mesh_path,
     pad_inputs,
     run_fullgraph_workload,
 )
@@ -202,7 +201,6 @@ def main(argv=None, stats: Optional[list] = None, time_steps: bool = False):
     stats."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
-    check_mesh_path(args, args.model == "SIR")
     if needs_spawn(args.mesh_devices, args.cpu):
         vals, tests, run_stats = spawn_ranks(
             args.mesh_devices, _rank_main, argv, time_steps, cpu=args.cpu)

@@ -355,9 +355,14 @@ def drop_edge_mask(generator: Optional[torch.Generator], graph,
     padding, drawn from ``generator`` (on the graph's device; None draws
     from the device's default generator): the static-shape form of DGL's
     ``DropEdge``. ``graph`` is a GraphBatch or a FastGraph. Rate 0 returns
-    the edge mask."""
+    the edge mask. On one rank's run lo:hi of a whole graph's e edges (a
+    graph with ``edge_run`` (lo, hi, e), ``parallel/full_graph.py``) the
+    draw is made at the whole graph's e edges and the run kept, so each
+    rank keeps the single-device mask's edges."""
     if rate <= 0.0:
         return graph.edge_mask
-    keep = torch.rand(graph.e_pad, generator=generator,
-                      device=graph.device) < 1.0 - rate
+    run = getattr(graph, "edge_run", None)
+    lo, hi, e = run if run is not None else (0, graph.e_pad, graph.e_pad)
+    keep = torch.rand(e, generator=generator,
+                      device=graph.device)[lo:hi] < 1.0 - rate
     return keep & graph.edge_mask

@@ -73,27 +73,32 @@ class Embed(nn.Module):
 
 
 # (lo, hi, n) while node-indexed tensors hold rows lo:hi of n (one rank's
-# shard of a node-partitioned graph)
+# shard of a node-partitioned graph); the same for edge-indexed ones
 _ROW_SHARD: contextvars.ContextVar = contextvars.ContextVar("row_shard",
                                                            default=None)
+_EDGE_SHARD: contextvars.ContextVar = contextvars.ContextVar("edge_shard",
+                                                            default=None)
 
 
 @contextlib.contextmanager
-def row_shard(lo: int, hi: int, n: int):
+def row_shard(lo: int, hi: int, n: int, edges: Optional[tuple] = None):
     """Within the block, a random draw for a tensor of ``hi - lo`` rows
     (dropout's mask, :func:`rand_rows`) is made at the whole graph's ``n``
     rows and rows ``lo:hi`` are kept: each rank of a node-partitioned run
     draws what the single-device run draws for its rows, from the same
-    generator state."""
-    token = _ROW_SHARD.set((lo, hi, n))
+    generator state. ``edges`` (lo, hi, e) does the same for a draw over
+    the rank's run of the whole graph's e edges (``dropout(...,
+    edges=True)``)."""
+    tokens = _ROW_SHARD.set((lo, hi, n)), _EDGE_SHARD.set(edges)
     try:
         yield
     finally:
-        _ROW_SHARD.reset(token)
+        _EDGE_SHARD.reset(tokens[1])
+        _ROW_SHARD.reset(tokens[0])
 
 
-def _global_rows(shape) -> Optional[tuple]:
-    shard = _ROW_SHARD.get()
+def _global_rows(shape, edges: bool = False) -> Optional[tuple]:
+    shard = (_EDGE_SHARD if edges else _ROW_SHARD).get()
     if shard is None or len(shape) == 0 or shape[0] != shard[1] - shard[0]:
         return None
     return shard
@@ -112,13 +117,15 @@ def rand_rows(shape, generator: Optional[torch.Generator] = None,
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None, *,
+            edges: bool = False) -> torch.Tensor:
     """Inverted dropout with an explicit generator (on ``x``'s device);
     rate 0 or eval mode returns ``x``. Under :func:`row_shard` the mask is
-    drawn at the whole graph's rows."""
+    drawn at the whole graph's rows, or with ``edges`` (``x`` indexed by
+    edges) at its edges."""
     if p == 0.0 or not training:
         return x
-    shard = _global_rows(tuple(x.shape))
+    shard = _global_rows(tuple(x.shape), edges)
     if shard is None:
         keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
     else:

@@ -96,7 +96,8 @@ class GATv2Conv(nn.Module):
         e = (F.leaky_relu(z, self.negative_slope) * self.attn).sum(-1)
         alpha = seg.segment_softmax(e, graph.dst_segments, graph.n_pad,
                                     valid)
-        alpha = dropout(alpha, self.attn_dropout, self.training, generator)
+        alpha = dropout(alpha, self.attn_dropout, self.training, generator,
+                        edges=True)
         msg = torch.where(valid[:, None, None], src_rows * alpha[..., None],
                           0.0)
         rst = seg.segment_sum(msg, graph.dst_segments, graph.n_pad)

@@ -15,8 +15,10 @@ Every route of the JAX package's ``sir_aggregate``: on a FastGraph the
 kernels (static scales, or DropEdge's dynamic ones under ``edge_mask``),
 or the pure ELL route for a sigma outside the activation registry that
 holds tensors (JAX's XLA route); on a plain ``GraphBatch`` the CSR
-aggregate over ``ops/segment.py``; on a ``HaloGraph`` (one rank's shard of
-a graph partitioned by node ranges) the halo aggregate of
+aggregate over ``ops/segment.py``, which a ``ShardedGraph`` (one rank's
+rows of a graph partitioned by node ranges, ``parallel/full_graph.py``)
+takes too, its src gathers reading every rank's rows; on a ``HaloGraph``
+(one rank's shard for the boundary-only exchange) the halo aggregate of
 ``parallel/halo.py``. The forms
 that JAX runs on Pallas kernels and the port's kernels do not yet take
 raise: a registry sigma with max and an edge term, a row-wise registry
@@ -115,13 +117,15 @@ def get_edge_dtype() -> Optional[torch.dtype]:
 def _edge_scale(graph, agg_type: str) -> Optional[torch.Tensor]:
     """Per-edge symmetric-norm scale s_vu [E_pad] of the CSR aggregate from
     the graph's full degrees (DropEdge does not renormalize it), or None
-    for the other aggregations."""
+    for the other aggregations. The src side is read through the graph's
+    src gather, which on a rank's ``ShardedGraph`` reads every rank's
+    rows."""
     if agg_type != "sym":
         return None
     in_norm = graph.in_deg.clamp_min(1.0).pow(-0.5)
     out_norm = graph.out_deg.clamp_min(1.0).pow(-0.5)
-    return out_norm.index_select(0, graph.src) * in_norm.index_select(
-        0, graph.dst)
+    return (seg.gather_rows(out_norm, graph.src_segments)
+            * seg.gather_rows(in_norm, graph.dst_segments))
 
 
 def _valid(graph, edge_mask) -> torch.Tensor:
@@ -165,7 +169,12 @@ def sir_aggregate(graph, eq: torch.Tensor, ek: torch.Tensor, activation,
 
     On a ``HaloGraph`` ``eq`` and ``ek`` are the rank's own node rows
     and ``e`` and ``edge_mask`` are global, in sorted edge order
-    (``parallel/halo.py`` ``halo_sir_aggregate``).
+    (``parallel/halo.py`` ``halo_sir_aggregate``). A ``ShardedGraph`` is a
+    plain ``GraphBatch`` of the rank's rows and in-edges and takes the CSR
+    aggregate with any sigma: ``eq`` and ``ek`` are the rank's rows, ``e``
+    and ``edge_mask`` its run of edges, and the gather of ``ek`` by src
+    all-gathers every rank's rows first (no kernel, as on JAX's GSPMD
+    path).
 
     An edge term or max off the kernels warns once per graph size above
     ``EDGE_FEATURE_EDGE_LIMIT`` and ``MAX_AGG_WARN_EDGES`` padded edges

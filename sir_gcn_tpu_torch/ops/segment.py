@@ -24,7 +24,7 @@ knows: a CUDA sum sorts them first, stably) or as :class:`Segments`.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -46,16 +46,23 @@ class Segments:
     sorted order) all hold the last id (a graph's padding edges or nodes)
     and are summed apart by one reduction over rows, and no other run is
     longer than ``max_run`` (None: the ids' length), so a batch of small
-    graphs takes no level but the last."""
+    graphs takes no level but the last.
+
+    ``source``, where given, makes the table the ids index from the rows
+    that :func:`gather_rows` is handed: on one rank's shard of a graph
+    partitioned by node ranges, the whole graph's rows (an all-gather with
+    a gradient) from the rank's own."""
 
     def __init__(self, ids: torch.Tensor, num_segments: int,
                  sorted_ids: bool = False, *, tail: int = 0,
-                 max_run: Optional[int] = None):
+                 max_run: Optional[int] = None,
+                 source: Optional[Callable] = None):
         self.ids = ids
         self.num_segments = num_segments
         self.sorted_ids = sorted_ids
         self.tail = tail
         self.max_run = max_run
+        self.source = source
         self._plan: Optional[tuple] = None
 
     def plan(self) -> tuple:
@@ -144,7 +151,10 @@ def gather_rows(x: torch.Tensor, idx: SegmentIds) -> torch.Tensor:
     """Row gather ``x[idx]`` (DGL's ``edges.src[...]`` / ``edges.dst[...]``
     access). On a CUDA device, where ``x`` needs a gradient, the backward
     is the fixed-order segment sum over ``idx`` (given as ``Segments`` over
-    x's rows, a graph's own, so that its plan is built once)."""
+    x's rows, a graph's own, so that its plan is built once). Segments
+    with a ``source`` gather from ``source(x)``."""
+    if isinstance(idx, Segments) and idx.source is not None:
+        x = idx.source(x)
     ids = _ids(idx)
     if (x.device.type == "cpu" or not x.is_floating_point()
             or not (torch.is_grad_enabled() and x.requires_grad)):

@@ -1,7 +1,8 @@
 """Distribution (port of ``sir_gcn_tpu/parallel``): process groups and
-meshes, data parallelism over batched graphs, and the node-partitioned
+meshes, data parallelism over batched graphs, the node-partitioned
 full-graph SIR aggregates (all-gather and boundary-only halo exchange) on
-the port's kernels. One process a rank; see ``multihost``."""
+the port's kernels, and the row-sharded full graph on the CSR aggregate
+for every model. One process a rank; see ``multihost``."""
 
 from .collectives import rank_sum, sum_gradients
 from .data_parallel import (
@@ -14,6 +15,7 @@ from .ell_distributed import (
     build_sharded_fast_graph,
     make_sharded_sir_aggregate,
 )
+from .full_graph import NodeShard, ShardedGraph, shard_full_graph
 from .halo import (
     HaloFastGraph,
     HaloGraph,

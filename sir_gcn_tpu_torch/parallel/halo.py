@@ -55,8 +55,9 @@ from ..ops.ell import (
     static_edge_scale,
     uniform_stage2,
 )
-from .collectives import all_to_all, rank_of, rank_sum
+from .collectives import all_to_all, rank_of
 from .ell_distributed import StageInputs, _stack, take_shard
+from .full_graph import NodeShard
 
 
 def _round_up(x: int, m: int) -> int:
@@ -310,7 +311,7 @@ def local_view(hfg: HaloFastGraph, rank: int, device):
 
 
 @dataclasses.dataclass(frozen=True)
-class HaloGraph:
+class HaloGraph(NodeShard):
     """One rank's handle of a node-partitioned graph, for the models:
     ``sir_aggregate`` dispatches on it, so SIRConv-based models run
     unchanged on node-sharded features (the rank's rows).
@@ -329,11 +330,6 @@ class HaloGraph:
     local: object
     rank: int
     group: object = None
-
-    @property
-    def rows(self) -> slice:
-        lo = self.rank * self.hfg.n_local
-        return slice(lo, lo + self.hfg.n_local)
 
     @property
     def n_pad(self) -> int:
@@ -378,9 +374,6 @@ class HaloGraph:
     @property
     def edge_perm(self):
         return self.graph.edge_perm
-
-    def rank_sum(self, x: torch.Tensor) -> torch.Tensor:
-        return rank_sum(x, self.group)
 
 
 def build_halo_graph(graph: GraphBatch, n_shards: int, group=None,

@@ -3,9 +3,11 @@ ranks spawned on the CPU: ``--mesh-devices 2`` (the halo aggregate under
 the models, rank-summed BatchNorm statistics, losses and gradients) on the
 arxiv, wiki-cs and heterophilous trainers against the port's own
 single-device ``--no-fast-path`` runs, as ``tests/test_parallel.py``
-holds the JAX package's; one ``make_dp_train_step_stateful`` step on two
-ranks against JAX's on a 2-device mesh; ``--dp-devices 2`` through the
-batched trainers; and what still raises."""
+holds the JAX package's; the same for the row-sharded CSR (``--dist-path
+gspmd``, and JAX's automatic choice of it for a GAT model or max
+aggregation); one ``make_dp_train_step_stateful`` step on two ranks
+against JAX's on a 2-device mesh; ``--dp-devices 2`` through the batched
+trainers; and what raises without a card."""
 
 import numpy as np
 import pytest
@@ -190,22 +192,66 @@ def test_dp_devices_entry_points_train(harness):
     assert len(stats) == 1 and len(stats[0]["step_ms"]) > 0
 
 
+# the single-device --no-fast-path flags beside which each trainer's
+# --dist-path gspmd run is held
+GSPMD_RUNS = {
+    tatrain.main: ["--nhidden", "12", "--nlayers", "2", "--agg-type",
+                   "mean", "--norm", "bn", "--epochs", "3"] + DROPOUTS,
+    twtrain.main: ["--nsplits", "1", "--nhidden", "12", "--nlayers", "2",
+                   "--agg-type", "sym", "--norm", "cn", "--epochs", "3",
+                   "--jumping-knowledge"] + DROPOUTS,
+    thtrain.main: ["--nsplits", "1", "--nhidden", "8", "--nlayers", "2",
+                   "--dataset", "roman-empire", "--agg-type", "max",
+                   "--norm", "bn", "--dropout", "0.2", "--epochs", "2"],
+}
+
+
+def _val_test(main, argv):
+    """(val, test) of a run: the metrics of every split, or the arxiv
+    trainer's accuracies."""
+    out = main(argv)
+    if main is tatrain.main:
+        (r,) = out
+        return [r["val_acc"]], [r["test_acc"]], r["train_losses"]
+    return out[0], out[1], None
+
+
 @pytest.mark.parametrize("main", [tatrain.main, twtrain.main,
                                   thtrain.main])
-def test_gspmd_path_raises(main):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main(["--cpu", "--mesh-devices", "2", "--dist-path", "gspmd"]
-             + GRAPH)
+def test_gspmd_path_matches_single_device(main):
+    """``--dist-path gspmd`` trains on the row-sharded CSR and matches the
+    single-device ``--no-fast-path`` run."""
+    common = ["--cpu"] + GRAPH + GSPMD_RUNS[main]
+    val_1, test_1, loss_1 = _val_test(main, common + ["--no-fast-path"])
+    val_2, test_2, loss_2 = _val_test(main, common + [
+        "--mesh-devices", "2", "--dist-path", "gspmd"])
+    _close(val_2 + test_2, val_1 + test_1)
+    if loss_1 is not None:
+        np.testing.assert_allclose(loss_2, loss_1, rtol=1e-5)
 
 
 @pytest.mark.parametrize("flags", [["--model", "GAT"],
                                    ["--agg-type", "max"]])
-def test_mesh_outside_the_halo_path_raises(flags):
-    """JAX sends these to the GSPMD path (not yet ported)."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        twtrain.main(["--cpu", "--mesh-devices", "2"] + flags + GRAPH)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tatrain.main(["--cpu", "--mesh-devices", "2"] + flags + GRAPH)
+def test_mesh_outside_the_halo_path_takes_the_row_sharded_csr(flags,
+                                                              capfd):
+    """JAX sends these to the GSPMD path; the port to the row-sharded CSR,
+    with JAX's note. Each trains on two ranks and matches the
+    single-device ``--no-fast-path`` run on the wiki-cs and arxiv
+    trainers (GAT with two heads and attention dropout)."""
+    for main, extra in ((twtrain.main, ["--nsplits", "1"]),
+                        (tatrain.main, [])):
+        common = (["--cpu", "--epochs", "3", "--nhidden", "8", "--nlayers",
+                   "2", "--nheads", "2", "--attn-dropout", "0.1",
+                   "--jumping-knowledge", "--norm", "bn"] + GRAPH + extra
+                  + flags + DROPOUTS)
+        val_1, test_1, loss_1 = _val_test(main, common + ["--no-fast-path"])
+        capfd.readouterr()
+        val_2, test_2, loss_2 = _val_test(main, common + ["--mesh-devices",
+                                                          "2"])
+        assert "using the row-sharded CSR" in capfd.readouterr().out
+        _close(val_2 + test_2, val_1 + test_1)
+        if loss_1 is not None:
+            np.testing.assert_allclose(loss_2, loss_1, rtol=1e-5)
 
 
 @pytest.mark.parametrize("main,flag", [

@@ -41,6 +41,7 @@ import sir_gcn_tpu_torch.experiments.ogbn_arxiv.model as tamodel
 import sir_gcn_tpu_torch.experiments.wiki_cs.train as twtrain
 import sir_gcn_tpu_torch.ops.ell as tell
 import sir_gcn_tpu_torch.ops.message_passing as tmp
+import sir_gcn_tpu_torch.parallel.multihost as multihost
 from sir_gcn_tpu_torch import build_graph
 from sir_gcn_tpu_torch.data import synthetic_node_classification
 from sir_gcn_tpu_torch.experiments.common_models import GraphSIRModel
@@ -482,10 +483,23 @@ def test_wiki_entry_point_on_cpu(flags, capsys):
 
 
 @pytest.mark.parametrize("main", [thtrain.main, twtrain.main])
+def test_fullgraph_gspmd_matches_single_device(main, monkeypatch):
+    """``--dist-path gspmd`` on two gloo ranks trains on the row-sharded
+    CSR and matches the single-device ``--no-fast-path`` run (a hung
+    collective fails in a minute)."""
+    monkeypatch.setattr(multihost, "DEFAULT_TIMEOUT_S", 60.0)
+    monkeypatch.setattr(multihost, "DEFAULT_DEADLINE_S", 240.0)
+    argv = ["--cpu", "--nhidden", "8", "--nlayers", "1", "--dropout",
+            "0.2"] + TINY
+    val_1, test_1 = main(argv + ["--no-fast-path"])
+    val_2, test_2 = main(argv + ["--mesh-devices", "2", "--dist-path",
+                                 "gspmd"])
+    for a, b in zip(val_2 + test_2, val_1 + test_1):
+        assert abs(a - b) < 1e-6, (val_1, test_1, val_2, test_2)
+
+
+@pytest.mark.parametrize("main", [thtrain.main, twtrain.main])
 def test_fullgraph_entry_points_raise(main):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main(["--cpu", "--mesh-devices", "2", "--dist-path", "gspmd",
-              "--nhidden", "8", "--nlayers", "1"] + TINY)
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -119,6 +119,75 @@ def sharded_rank(case: dict) -> dict:
             "g_ek": _gather(ek.grad.numpy())}
 
 
+def row_sharded_rank(case: dict) -> dict:
+    """One rank's row-sharded CSR forward and backward of ``case``
+    against the cotangent ``gw``: 'sym' (``sir_aggregate`` sym with tanh,
+    eq = ek = x @ w), 'max' (max with tanh, an edge term, W_R, b_R and a
+    DropEdge mask) or 'gat' (a GATv2 layer with its own dst weights and a
+    residual, from ``case``'s weights). The output and the gradients of
+    the rank's rows (and edges) are gathered in rank order, those of
+    replicated inputs (w, W_R, b_R, the layer's weights) summed."""
+    from sir_gcn_tpu_torch.models import GATv2Conv
+    from sir_gcn_tpu_torch.ops.message_passing import sir_aggregate
+    from sir_gcn_tpu_torch.parallel.full_graph import shard_full_graph
+
+    graph = build_graph(case["src"], case["dst"], case["n"],
+                        pad_multiple=128)
+    sg = shard_full_graph(graph, dist.get_world_size(), dist.get_rank())
+    rows, (lo, hi, _) = sg.rows, sg.edge_run
+
+    def leaf(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_()
+
+    if case["kind"] == "sym":
+        local = {"g_x": leaf(case["x"][rows])}
+        replicated = {"g_w": leaf(case["w"])}
+
+        def run():
+            h = local["g_x"] @ replicated["g_w"]
+            return sir_aggregate(sg, h, h, torch.tanh, "sym")
+    elif case["kind"] == "max":
+        local = {"g_eq": leaf(case["eq"][rows]),
+                 "g_ek": leaf(case["ek"][rows]),
+                 "g_e": leaf(case["e"][lo:hi])}
+        replicated = {"g_w": leaf(case["w"]), "g_b": leaf(case["b"])}
+        mask = torch.from_numpy(case["edge_mask"][lo:hi])
+
+        def run():
+            return sir_aggregate(sg, local["g_eq"], local["g_ek"],
+                                 torch.tanh, "max", e=local["g_e"],
+                                 w_relation=replicated["g_w"],
+                                 b_relation=replicated["g_b"],
+                                 edge_mask=mask)
+    else:
+        conv = GATv2Conv(case["x"].shape[1], 4, 2, share_weights=False,
+                         residual=True)
+        conv.load_state_dict({k: torch.from_numpy(v)
+                              for k, v in case["state"].items()})
+        local = {"g_x": leaf(case["x"][rows])}
+        replicated = {f"g_{k}": p for k, p in conv.named_parameters()}
+
+        def run():
+            return conv(sg, local["g_x"])
+
+    out = run()
+    (out * torch.from_numpy(case["gw"][rows])).sum().backward()
+    with torch.no_grad():
+        out_ng = run()
+    res = {"out": _gather(out.detach().numpy()),
+           "out_nograd": _gather(out_ng.numpy())}
+    for name, t in local.items():
+        res[name] = _gather(t.grad.numpy())
+    for name, t in replicated.items():
+        res[name] = _summed(t.grad.numpy())
+    return res
+
+
+def run_row_sharded(cases: list) -> list:
+    """``row_sharded_rank`` for each case, in one spawn."""
+    return [row_sharded_rank(c) for c in cases]
+
+
 def main_rank(module: str, argv: list):
     """A trainer's ``main(argv)`` on this rank (a process group of
     ``--mesh-devices`` or ``--dp-devices`` ranks is already joined)."""
