@@ -31,7 +31,17 @@ Phases, each printed as it runs; any failure exits non-zero:
            #5 also with leaky_relu(0.2) and tanh, timed in bf16 with #6
            beside it on its first design; or the first design); where
            #3 and #6 both take the lane-group path, #6's rows must be #3's
-           bits; erf-GELU (the registry's gelu(), sigma id 4) on the
+           bits; the general route's new forms: the edge forms of #1r,
+           #3 and #4r (#4r's g_e too) with centered_relu, softmax, and
+           tanh and erf-GELU declared non-elementwise on the small plans
+           (H = 20 to 200) and at the arxiv plan (centered_relu timed in
+           bf16, the lane-group path required), erf-GELU declared
+           non-elementwise on all five (timed at the arxiv plan in bf16),
+           and the wide path (a row-wise sigma past H = 256, required) of
+           all five and of the edge forms at H = 300, 512 and 520 on the
+           small plans and at H = 512 on the arxiv plan (centered_relu
+           timed, near gates masked, then softmax); erf-GELU (the
+           registry's gelu(), sigma id 4) on the
            small plans, at the arxiv plan in f32 and bf16 (bf16 timed
            beside leaky_relu) and at H = O = 512 on a plan of the
            heterophilous minesweeper's size (10,000 nodes, 78,804 edges),
@@ -65,6 +75,24 @@ Phases, each printed as it runs; any failure exits non-zero:
            width on the arxiv graph (96 in, hidden and out, sym, bf16
            edges): 5 AdamW steps and 5 evals on the general route, with
            exact launch counts
+  general_edge (a) one SIREConv at bench lane (d)'s shape with the
+           row-wise centered_relu(0.5) on the arxiv plan (96 in, De = 16
+           raw edge features, 96 hidden and out, sym, bf16 edges): 5 AdamW
+           steps and 5 evals on the general route's edge forms, exactly
+           #1r·e, #3e and #4r·e once a step and #1r·e once an eval, and a
+           profile of 3 warm steps; (b) one step of it on a ~20k-node
+           graph, card against CPU, f32 edges, dyadic inputs, out and
+           every gradient (W_E's too)
+  general_wide one SIRConv at the heterophilous width (512 in, hidden and
+           out) on the arxiv plan, bf16 edges, 3 steps and evals each
+           with exact launch counts: (a) softmax, mean and (b)
+           centered_relu(0.5), sym on the wide path ((b) profiled), (c)
+           erf-GELU declared non-elementwise, sym; then one aggregate
+           each with its exact launches: (d) erf-GELU at H = 96 with
+           fuse_bwd_take (#2, #5), (e) centered_relu at H = 512 with
+           fuse_bwd_take (#1r, #3, #5), and the dst-major composition
+           (#1r, #6, #12) with (f) centered_relu at H = 512 and (g)
+           erf-GELU declared non-elementwise at H = 96
   bwd      the forward and backward of one aggregate at the arxiv plan
            (H = 96, sym, tanh) three ways: src-major (#2, #4), fused take
            (#2, #5) and dst-major (#1, #6, #12); each design's time, the
@@ -96,8 +124,7 @@ Phases, each printed as it runs; any failure exits non-zero:
            that holds a tensor (erf-GELU times a per-feature gain: JAX's
            XLA route) at the arxiv plan beside the kernel route's with
            leaky_relu; a parameter-free sigma outside the registry
-           (F.gelu) raises, and so does the registry's erf-GELU declared
-           non-elementwise (the general route), before any launch
+           (F.gelu) raises
   profile  device time by kernel over warm training steps of each train,
            dropedge, sireconv and general configuration (torch.profiler;
            dropedge's beside sym's, kernel by kernel), and the device's
@@ -198,7 +225,10 @@ Phases, each printed as it runs; any failure exits non-zero:
            dryrun_multichip(1), the seven parts on one spawned NCCL rank
 
 The last line is the JSON contract line; the line before it lists each
-kernel's launches on the main path, error, times and bound. Needs a CUDA
+kernel's launches on the main path, error, times and bound: the edge forms
+as "<name>[edge]", and the general route's erf-GELU and wide forms as
+"<name>[gelu]" and "<name>[wide]", their launches those of the
+general_edge and general_wide phases. Needs a CUDA
 card and the port beside this script; exits non-zero without either.
 """
 
@@ -295,6 +325,10 @@ KERNELS = {
     "ell_src_bwd_rowwise": (GENERAL_SOURCE, f"{PALLAS}:198", 9),
     "ell_src_bwd_fused": (GENERAL_SOURCE, f"{PALLAS}:264", 9),
     "ell_act_reduce_bwd": (GENERAL_SOURCE, f"{PALLAS}:326", 9),
+    # the general route's edge forms (#1r·e, #3e, #4r·e): + the e add
+    "ell_act_reduce_rowwise_edge": (GENERAL_SOURCE, f"{PALLAS}:55", 7),
+    "ell_geq_reduce_edge": (GENERAL_SOURCE, f"{PALLAS}:152", 10),
+    "ell_src_bwd_rowwise_edge": (GENERAL_SOURCE, f"{PALLAS}:198", 10),
     # add, compare, mul, scale, add
     "lab_v1": (LAB_SOURCE, f"{KERNEL_LAB}:68", 5),
     "lab_v2": (LAB_SOURCE, f"{KERNEL_LAB}:99", 5),
@@ -315,6 +349,18 @@ EDGE = ("ell_act_reduce_edge", "ell_act_reduce2_edge", "ell_src_bwd_edge",
 MAX = ("ell_max_fwd", "ell_max_wincount", "ell_max_bwd", "ell_scaled_reduce")
 GENERAL = ("ell_act_reduce_rowwise", "ell_geq_reduce", "ell_src_bwd_rowwise")
 BWD = ("ell_src_bwd_fused", "ell_act_reduce_bwd")
+# the general route's edge forms; each is a row of the kernels line under
+# its base kernel's name and "[edge]", its launches the general_edge
+# phase's
+GENERAL_EDGE = {"ell_act_reduce_rowwise_edge": "ell_act_reduce_rowwise",
+                "ell_geq_reduce_edge": "ell_geq_reduce",
+                "ell_src_bwd_rowwise_edge": "ell_src_bwd_rowwise"}
+# the general route's kernels with an erf-GELU form and a wide form (a
+# row-wise sigma past H = 256), each a row of its own, "<name>[gelu]" and
+# "<name>[wide]", its launches the general_wide phase's
+GENERAL_FORMS = GENERAL + BWD
+# the general_wide phase's width: the heterophilous default
+WIDE_H = 512
 LAB = tuple(k for k in KERNELS if k.startswith("lab_"))
 EDGE_DIM = 16  # the edge basis width of the SIREConv configuration
 # the kernels with an erf-GELU form (sigma id 4): each is a row of its own
@@ -541,30 +587,39 @@ def log_edge_layout(label, h, de, act, dtype, require_registers=False):
                              f"path ({lay})")
 
 
-def log_general_layout(label, name, args, outs, require_group=False):
+def log_general_layout(label, name, args, outs, require_group=False,
+                       require_wide=False):
     """Log the path a launch of ``name`` (#1r ``ell_act_reduce_rowwise``,
-    #3 ``ell_geq_reduce``, #4r ``ell_src_bwd_rowwise``, #5
-    ``ell_src_bwd_fused`` or #6 ``ell_act_reduce_bwd``, its wrapper's
+    #3 ``ell_geq_reduce``, #4r ``ell_src_bwd_rowwise``, their edge forms,
+    #5 ``ell_src_bwd_fused`` or #6 ``ell_act_reduce_bwd``, its wrapper's
     ``args`` and outputs ``outs``) took (ell_general_layout: the lane-group
-    path with its layout, or the first design); returns the layout. With
-    ``require_group`` the first design raises: the redesign must not be
-    bypassed."""
+    path with its layout, the wide path, or the first design); returns the
+    layout. With ``require_group`` any other path raises: the redesign must
+    not be bypassed; with ``require_wide`` any but the wide path."""
     from sir_gcn_tpu_torch.ops import cuda as K
 
     h = args[1].shape[1] if name == "ell_src_bwd_fused" else args[0].shape[1]
     if name in ("ell_act_reduce_rowwise", "ell_geq_reduce",
-                "ell_act_reduce_bwd"):
-        # eq, ek (gathered), ..., act[, g]
+                "ell_act_reduce_bwd", "ell_act_reduce_rowwise_edge",
+                "ell_geq_reduce_edge"):
+        # eq, ek (gathered), ..., act[, g][, e]
         tables, act, dtype = args[:2] + args[7:], args[6], args[1].dtype
     elif name == "ell_src_bwd_rowwise":  # eq, g (gathered), ek, ..., act
         tables, act, dtype = args[:3], args[-1], args[0].dtype
+    elif name == "ell_src_bwd_rowwise_edge":  # ..., act, e
+        tables, act, dtype = args[:3] + args[8:], args[7], args[0].dtype
     else:  # both [N, 2H] (gathered), ek, ..., act
         tables, act, dtype = args[:2], args[-1], args[0].dtype
     lay = K.ell_general_layout(name, h, dtype, act, *tables, *outs)
+    wide = isinstance(lay, K.WideLayout)
     log(f"  {label} {name}: " + ("first design" if lay is None else
+                                 f"wide path, {lay}" if wide else
                                  f"lane-group path, {lay}"))
-    if require_group and lay is None:
-        raise AssertionError(f"{label} {name} took the first design")
+    if require_group and (lay is None or wide):
+        raise AssertionError(f"{label} {name} did not take the lane-group "
+                             f"path")
+    if require_wide and not wide:
+        raise AssertionError(f"{label} {name} did not take the wide path")
     return lay
 
 
@@ -939,61 +994,97 @@ def near_gates(plan, z, scale, act):
 
 def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
                           timing=None, mask_gates=False, require_group=(),
-                          names=None):
+                          names=None, e=None, tag="", require_wide=False):
     """The general route's kernels (#1r, #3, #6 on the dst plan; #4r and
     #5 on the src plan; only ``names`` where given) against their plain
-    versions; a g_z stored in bf16 at one bf16 step. With ``mask_gates``
-    (centered_relu) the rows and slots holding a near-gate (slot, feature)
-    are left out of the backward comparisons and counted: the relu may take
-    the other side there. Each kernel's path is logged; those named in
-    ``require_group`` (True: all) must take the lane-group path. Where #3
-    and #6 both take it, #6's rows must be #3's bits."""
+    versions; with an edge table ``e`` [E_pad, H] instead the edge forms
+    of #1r, #3 and #4r (#4r·e's g_e in f32 from g_z rounded to the edge
+    type); a g_z stored in bf16 at one bf16 step. With ``mask_gates``
+    (centered_relu) the rows and slots (and g_e rows) holding a near-gate
+    (slot, feature) are left out of the backward comparisons and counted:
+    the relu may take the other side there. Each kernel's path is logged;
+    those named in ``require_group`` (True: all) must take the lane-group
+    path, and with ``require_wide`` all the wide path. Where #3 and #6 both
+    take the lane-group path, #6's rows must be #3's bits. Errors and times
+    go under the kernel's name plus ``tag`` ("[gelu]", "[wide]")."""
     import torch
 
     from sir_gcn_tpu_torch.ops import cuda as K
+    from sir_gcn_tpu_torch.ops.cuda.kernels import add_cast
 
     fwd, bwd = kernel_args(fg, eq, ek, g, sd, ss, act, dtype)
     plan, splan = fg.dst_plan, fg.src_plan
     bd, bs = plan.buckets1, splan.buckets1
-    fbwd = (torch.cat([bwd[0], bwd[1]], 1),) + bwd[2:]
-    keep_d = keep_ds = keep_s = None
+    et = None if e is None else e.to(dtype).contiguous()
+    keep_d = keep_ds = keep_s = keep_e = None
     if mask_gates and act.name == "centered_relu":
-        zd = (fwd[1].index_select(0, fg.dst_slot_srcnode).float()
-              + eq.index_select(0, plan.slot_key))
+        kd = fwd[1].index_select(0, fg.dst_slot_srcnode)
+        ks = bwd[0].index_select(0, fg.src_slot_dstnode)
+        if et is not None:  # the gathered side's add_cast
+            kd = add_cast(kd, et.index_select(0, plan.slot_edge))
+            ks = add_cast(ks, et.index_select(0, splan.slot_edge))
+        zd = kd.float() + eq.index_select(0, plan.slot_key)
+        del kd
         ds, dr, dn = near_gates(plan, zd, sd, act)
         del zd
-        zs = (bwd[0].index_select(0, fg.src_slot_dstnode).float()
-              + ek.index_select(0, splan.slot_key))
-        _, sr, sn = near_gates(splan, zs, ss, act)
+        zs = ks.float() + ek.index_select(0, splan.slot_key)
+        del ks
+        s_slots, sr, sn = near_gates(splan, zs, ss, act)
         del zs
         keep_d, keep_ds, keep_s = ~dr, ~ds, ~sr
+        keep_e = ~s_slots.index_select(0, fg.edge2src_slot.long())
         log(f"  {label}: near-gate (slot, feature): {dn} dst, {sn} src; "
             f"left out {int(dr.sum())} of {dr.numel()} dst rows, "
             f"{int(ds.sum())} g_slots rows, {int(sr.sum())} of "
             f"{sr.numel()} src rows")
     gz_tol = BF16_STEP if dtype == torch.bfloat16 else BWD_TOL
-    runs = {
-        "ell_act_reduce_rowwise": (
-            fwd, lambda: K.ell_act_reduce_rowwise(*fwd),
-            lambda: K.ell_act_reduce_plain(*fwd, buckets=bd),
-            ((FWD_TOL, None),)),
-        "ell_geq_reduce": (
-            fwd + (g,), lambda: K.ell_geq_reduce(*fwd, g),
-            lambda: K.ell_geq_reduce_plain(*fwd, g, buckets=bd),
-            ((BWD_TOL, keep_d),)),
-        "ell_act_reduce_bwd": (
-            fwd + (g,), lambda: K.ell_act_reduce_bwd(*fwd, g, gz_dtype=dtype),
-            lambda: K.ell_act_reduce_bwd_plain(*fwd, g, dtype, buckets=bd),
-            ((gz_tol, keep_ds), (BWD_TOL, keep_d))),
-        "ell_src_bwd_rowwise": (
-            bwd, lambda: K.ell_src_bwd_rowwise(*bwd),
-            lambda: K.ell_src_bwd_plain(*bwd, buckets=bs),
-            ((BWD_TOL, keep_s),)),
-        "ell_src_bwd_fused": (
-            fbwd, lambda: K.ell_src_bwd_fused(*fbwd),
-            lambda: K.ell_src_bwd_fused_plain(*fbwd, buckets=bs),
-            ((BWD_TOL, keep_s),)),
-    }
+    if et is None:
+        fbwd = (torch.cat([bwd[0], bwd[1]], 1),) + bwd[2:]
+        runs = {
+            "ell_act_reduce_rowwise": (
+                fwd, lambda: K.ell_act_reduce_rowwise(*fwd),
+                lambda: K.ell_act_reduce_plain(*fwd, buckets=bd),
+                ((FWD_TOL, None),)),
+            "ell_geq_reduce": (
+                fwd + (g,), lambda: K.ell_geq_reduce(*fwd, g),
+                lambda: K.ell_geq_reduce_plain(*fwd, g, buckets=bd),
+                ((BWD_TOL, keep_d),)),
+            "ell_act_reduce_bwd": (
+                fwd + (g,),
+                lambda: K.ell_act_reduce_bwd(*fwd, g, gz_dtype=dtype),
+                lambda: K.ell_act_reduce_bwd_plain(*fwd, g, dtype,
+                                                   buckets=bd),
+                ((gz_tol, keep_ds), (BWD_TOL, keep_d))),
+            "ell_src_bwd_rowwise": (
+                bwd, lambda: K.ell_src_bwd_rowwise(*bwd),
+                lambda: K.ell_src_bwd_plain(*bwd, buckets=bs),
+                ((BWD_TOL, keep_s),)),
+            "ell_src_bwd_fused": (
+                fbwd, lambda: K.ell_src_bwd_fused(*fbwd),
+                lambda: K.ell_src_bwd_fused_plain(*fbwd, buckets=bs),
+                ((BWD_TOL, keep_s),)),
+        }
+    else:
+        fe = (et, plan.slot_edge)
+        be = (et, splan.slot_edge, fg.edge2src_slot, fg.edge_mask)
+        runs = {
+            "ell_act_reduce_rowwise_edge": (
+                fwd + (et,), lambda: K.ell_act_reduce_rowwise_edge(*fwd, *fe),
+                lambda: K.ell_act_reduce_plain(*fwd, buckets=bd, e=et,
+                                               slot_edge=plan.slot_edge),
+                ((FWD_TOL, None),)),
+            "ell_geq_reduce_edge": (
+                fwd + (g, et), lambda: K.ell_geq_reduce_edge(*fwd, g, *fe),
+                lambda: K.ell_geq_reduce_plain(*fwd, g, buckets=bd, e=et,
+                                               slot_edge=plan.slot_edge),
+                ((BWD_TOL, keep_d),)),
+            "ell_src_bwd_rowwise_edge": (
+                bwd + (et,), lambda: K.ell_src_bwd_rowwise_edge(*bwd, *be),
+                lambda: K.ell_src_bwd_plain(
+                    *bwd, buckets=bs, e=et, slot_edge=splan.slot_edge,
+                    edge2slot=fg.edge2src_slot, edge_mask=fg.edge_mask),
+                ((BWD_TOL, keep_s), (gz_tol, keep_e))),
+        }
     if names is not None:
         runs = {k: v for k, v in runs.items() if k in names}
     outs, lays = {}, {}
@@ -1004,13 +1095,15 @@ def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
         want = want if isinstance(want, tuple) else (want,)
         for i, (a, b, (tol, keep)) in enumerate(zip(got, want, tols)):
             err = compare(f"{label} {name}[{i}]", a, b, tol, keep)
-            errs[name] = max(errs.get(name, 0.0), err)
+            errs[name + tag] = max(errs.get(name + tag, 0.0), err)
         outs[name] = got
         del want
         lays[name] = log_general_layout(
             label, name, runs[name][0], got,
-            require_group=require_group is True or name in require_group)
-    if lays.get("ell_geq_reduce") and lays.get("ell_act_reduce_bwd"):
+            require_group=require_group is True or name in require_group,
+            require_wide=require_wide)
+    if (isinstance(lays.get("ell_geq_reduce"), K.GeneralLayout)
+            and isinstance(lays.get("ell_act_reduce_bwd"), K.GeneralLayout)):
         if not torch.equal(outs["ell_act_reduce_bwd"][1],
                            outs["ell_geq_reduce"][0]):
             raise AssertionError(f"{label}: #6's rows are not #3's bits")
@@ -1020,12 +1113,16 @@ def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
     valid_d, valid_s = int((sd != 0).sum()), int((ss != 0).sum())
     h = eq.shape[1]
     for name, (args, kernel, plain, _) in runs.items():
-        valid = valid_s if name in ("ell_src_bwd_rowwise",
-                                    "ell_src_bwd_fused") else valid_d
-        timing[name] = dict(ms=cuda_ms(kernel, 20),
-                            plain_ms=cuda_ms(plain, 3, warmup=1),
-                            bound=bound(args, outs[name],
-                                        valid * h * KERNELS[name][2]))
+        src = name.startswith("ell_src_bwd")
+        # what each edge form reads besides its node tables: its slots'
+        # edge ids (the plain version of #4r·e's g_e also reads edge2slot
+        # and edge_mask, which the kernel does not)
+        need = args + ((splan.slot_edge if src else plan.slot_edge,)
+                       if et is not None else ())
+        timing[name + tag] = dict(
+            ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 3, warmup=1),
+            bound=bound(need, outs[name],
+                        (valid_s if src else valid_d) * h * KERNELS[name][2]))
 
 
 def phase_kernels(device):
@@ -1052,7 +1149,11 @@ def phase_kernels(device):
     errs_for = lambda act: gelu_errs if act.name == "gelu" else errs
     dtypes = (torch.float32, torch.bfloat16)
     general_acts = (centered_relu(0.5), softmax,
-                    dataclasses.replace(tanh, sir_elementwise=False))
+                    dataclasses.replace(tanh, sir_elementwise=False),
+                    dataclasses.replace(gelu(), sir_elementwise=False))
+    # the general route's forms: erf-GELU's errors and times under
+    # "<name>[gelu]", the wide path's under "<name>[wide]"
+    gelu_tag = lambda act: "[gelu]" if act.name == "gelu" else ""
     for graph, h in (("hub", 24), ("random", 96), ("random", 200),
                      ("random", 20), ("random", 128), ("isolated", 96)):
         case = small_case(graph, h, device)
@@ -1081,12 +1182,29 @@ def phase_kernels(device):
             for dtype in dtypes:
                 check_max_kernels(f"{graph} H={h} O={o} {act.name} {dtype}",
                                   *case, act, dtype, errs_for(act))
-    for graph, h in (("hub", 24), ("random", 96), ("isolated", 200)):
+    for graph, h in (("hub", 24), ("random", 96), ("isolated", 200),
+                     ("random", 20)):
         case = general_case(graph, h, device)
+        e = edge_tables(case[0], h, 1, seed=h)[0]
         for act in general_acts:
             for dtype in dtypes:
-                check_general_kernels(f"{graph} H={h} {act.name} {dtype}",
-                                      *case, act, dtype, errs)
+                label = f"{graph} H={h} {act.name} {dtype}"
+                check_general_kernels(label, *case, act, dtype, errs,
+                                      tag=gelu_tag(act))
+                check_general_kernels(f"{label} edge", *case, act, dtype,
+                                      errs, e=e)
+    # the wide path: a row-wise sigma past H = 256, rows whole 16-byte
+    # chunks (512, 520) or not (300); the edge forms beside
+    for graph, h in (("hub", 300), ("random", 512), ("isolated", 520)):
+        case = general_case(graph, h, device)
+        e = edge_tables(case[0], h, 1, seed=h)[0]
+        for act in general_acts[:2]:
+            for dtype in dtypes:
+                label = f"{graph} H={h} {act.name} {dtype}"
+                check_general_kernels(label, *case, act, dtype, errs,
+                                      tag="[wide]", require_wide=True)
+                check_general_kernels(f"{label} edge", *case, act, dtype,
+                                      errs, e=e, require_wide=True)
 
     args = get_args(TRAIN_FLAGS)
     data = synthetic_node_classification(
@@ -1104,6 +1222,7 @@ def phase_kernels(device):
         f"{fg.dst_plan.s2_gather is not None}")
     timing = {}  # of the main path's bf16 edges
     fused_timing = {}  # #5 with the elementwise sigmas, bf16
+    forced_gelu = dataclasses.replace(gelu(), sir_elementwise=False)
     for dtype in dtypes:
         keep = timing if dtype == torch.bfloat16 else None
         check_kernels(f"arxiv {dtype}", fg, eq, ek, g, sd, ss,
@@ -1121,11 +1240,25 @@ def phase_kernels(device):
                               require_group=True)
         check_general_kernels(f"arxiv {dtype} softmax", fg, eq, ek, g, sd,
                               ss, softmax, dtype, errs, require_group=True)
+        # the edge forms (#1r·e, #3e, #4r·e) at the general_edge phase's
+        # plan, H and sigma (timed in bf16), and with softmax
+        check_general_kernels(f"arxiv {dtype} centered_relu edge", fg, eq,
+                              ek, g, sd, ss, centered_relu(0.5), dtype, errs,
+                              timing=keep, mask_gates=True,
+                              require_group=True, e=tables[0])
+        check_general_kernels(f"arxiv {dtype} softmax edge", fg, eq, ek, g,
+                              sd, ss, softmax, dtype, errs,
+                              require_group=True, e=tables[0])
+        # erf-GELU declared non-elementwise on all five (#1r, #3, #4r and
+        # #6 on the first design, #5 on its lane-group path), timed in bf16
+        check_general_kernels(f"arxiv {dtype} gelu", fg, eq, ek, g, sd, ss,
+                              forced_gelu, dtype, errs, timing=keep,
+                              require_group=("ell_src_bwd_fused",),
+                              tag="[gelu]")
         # #5 on its lane-group path for the elementwise sigmas too:
         # leaky_relu(0.2) is the arxiv SIRModel's, which JAX's fused
         # backward runs (the elementwise route, padded to 128 lanes); #6
-        # beside it, its path logged (its first design there); the general
-        # route's kernels take no erf-GELU
+        # beside it, its path logged (its first design there)
         for act in acts[:2]:
             check_general_kernels(
                 f"arxiv {dtype} {act.name}", fg, eq, ek, g, sd, ss, act,
@@ -1181,10 +1314,42 @@ def phase_kernels(device):
                 f"ms, {100 * t['bound'][0] / t['ms']:.1f}% of bound")
     del eq, ek, g, w, tables
     hetero_kernels(device, errs, gelu_errs)
+    wide_kernels(device, fg, errs, timing)
     timing.update({f"{k}[gelu]": v for k, v in gelu_timing.items()
                    if k in GELU})
     errs.update({f"{k}[gelu]": v for k, v in gelu_errs.items() if k in GELU})
     return errs, timing, fg
+
+
+def wide_kernels(device, fg, errs, timing):
+    """The general route's five kernels on their wide path at the arxiv
+    plan, H = WIDE_H (the general_wide phase's), bf16 edges, each against
+    its plain version: centered_relu(0.5), near gates masked, timed; then
+    softmax. The times go under "<name>[wide]"."""
+    import torch
+
+    from sir_gcn_tpu_torch.ops.ell import centered_relu, softmax
+
+    h = WIDE_H
+    gen = torch.Generator(device=device).manual_seed(5)
+    eq, ek, g = (torch.randn((fg.n_pad, h), generator=gen, device=device)
+                 for _ in range(3))
+    sd, ss = fg.dst_slot_scales["sym"], fg.src_slot_scales["sym"]
+    log(f"  arxiv plan at H {h}: the wide path")
+    check_general_kernels(f"arxiv H={h} bf16 centered_relu", fg, eq, ek, g,
+                          sd, ss, centered_relu(0.5), torch.bfloat16, errs,
+                          timing=timing, mask_gates=True, tag="[wide]",
+                          require_wide=True)
+    check_general_kernels(f"arxiv H={h} bf16 softmax", fg, eq, ek, g, sd, ss,
+                          softmax, torch.bfloat16, errs, tag="[wide]",
+                          require_wide=True)
+    for name in GENERAL_FORMS:
+        t = timing[f"{name}[wide]"]
+        log(f"  {name} at H={h} (bf16, wide path): {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} ms by "
+            f"{t['bound'][1]}, {100 * t['bound'][0] / t['ms']:.1f}% of bound")
+    del eq, ek, g
+    torch.cuda.empty_cache()
 
 
 def hetero_kernels(device, errs, gelu_errs):
@@ -1520,10 +1685,8 @@ def phase_sireconv(device, fg, steps: int = 5, act=None):
     route. Each runs ``steps`` steps, each followed by a no-grad eval
     (eval mode: the fused route), with exact launch counts. ``act`` is the
     conv's sigma (leaky_relu(0.2) by default)."""
-    import numpy as np
     import torch
 
-    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
     from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
     from sir_gcn_tpu_torch.train import make_adamw
 
@@ -1542,43 +1705,14 @@ def phase_sireconv(device, fg, steps: int = 5, act=None):
         conv = make_sireconv(dropout, act=act).to(device)
         opt = make_adamw(conv.parameters(), 1e-3, 0.0)
         gen = torch.Generator(device=device).manual_seed(0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        step_s, eval_s, losses = [], [], []
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            loss = sireconv_step(conv, fg, x, ef, w, opt, gen)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            losses.append(float(loss))
-            conv.eval()
-            t0 = time.perf_counter()
-            with torch.no_grad():
-                out = conv(fg, x, ef)
-            torch.cuda.synchronize()
-            eval_s.append(time.perf_counter() - t0)
-            if not bool(torch.isfinite(out).all()):
-                raise AssertionError(f"({setting}) non-finite eval output")
-        launches = dict(LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        steady = 1e3 * float(np.median(step_s[1:]))
-        log(f"  ({setting}) dropout {dropout}: step ms "
-            f"{[round(t * 1e3, 3) for t in step_s]}, eval ms "
-            f"{[round(t * 1e3, 3) for t in eval_s]}")
-        log(f"  ({setting}) steady step (median of steps 2..{steps}) "
-            f"{steady:.3f} ms, eval median "
-            f"{1e3 * float(np.median(eval_s[1:])):.3f} ms, peak memory "
-            f"{peak / 2**30:.3f} GiB, losses {losses}")
-        log(f"  ({setting}) launches "
-            f"{ {k: v for k, v in launches.items() if v} }")
-        if not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"({setting}) non-finite loss")
-        want = dict.fromkeys(KERNELS, 0)
-        want.update(expected[setting])
-        if launches != want:
-            raise AssertionError(f"({setting}) launch counts {launches}, "
-                                 f"expected {want}")
+        label = f"({setting}) dropout {dropout}"
+        launches = conv_loop(
+            label, conv, fg, x, w, steps,
+            lambda: sireconv_step(conv, fg, x, ef, w, opt, gen),
+            lambda: conv(fg, x, ef))
+        if launches != expected[setting]:
+            raise AssertionError(f"{label}: launch counts {launches}, "
+                                 f"expected {expected[setting]}")
         for k, v in launches.items():
             total[k] += v
     set_edge_dtype(None)
@@ -1613,10 +1747,8 @@ def phase_general(device, fg, steps: int = 5):
     bf16 edges: ``steps`` AdamW steps, each followed by a no-grad eval,
     with exact launch counts (per step #1r, #3 and #4r once each, per eval
     #1r once, nothing else)."""
-    import numpy as np
     import torch
 
-    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
     from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
     from sir_gcn_tpu_torch.train import make_adamw
 
@@ -1626,42 +1758,264 @@ def phase_general(device, fg, steps: int = 5):
     x, _, w = sireconv_inputs(fg, seed=0)
     conv = make_general_conv().to(device)
     opt = make_adamw(conv.parameters(), 1e-3, 0.0)
+    launches = conv_loop("general", conv, fg, x, w, steps,
+                         lambda: conv_step(conv, fg, x, w, opt),
+                         lambda: conv(fg, x))
+    want = dict(ell_act_reduce_rowwise=2 * steps, ell_geq_reduce=steps,
+                ell_src_bwd_rowwise=steps)
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    set_edge_dtype(None)
+    return launches
+
+
+def conv_loop(label, conv, fg, x, w, steps, step_fn, eval_fn):
+    """``steps`` training steps of ``conv``, each followed by a no-grad
+    eval, every one synced and timed on the host clock; the launch counters
+    set to 0 before and read after. Logs the times, the peak memory and the
+    losses, and raises for a non-finite loss or eval output. Returns the
+    launches (the counts that are not 0)."""
+    import numpy as np
+    import torch
+
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     step_s, eval_s, losses = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
-        loss = conv_step(conv, fg, x, w, opt)
+        loss = step_fn()
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(loss))
         conv.eval()
         t0 = time.perf_counter()
         with torch.no_grad():
-            out = conv(fg, x)
+            out = eval_fn()
         torch.cuda.synchronize()
         eval_s.append(time.perf_counter() - t0)
         if not bool(torch.isfinite(out).all()):
-            raise AssertionError("non-finite eval output")
-    launches = dict(LAUNCHES)
+            raise AssertionError(f"{label}: non-finite eval output")
+    launches = {k: v for k, v in LAUNCHES.items() if v}
     peak = torch.cuda.max_memory_allocated()
-    log(f"  step ms {[round(t * 1e3, 3) for t in step_s]}, eval ms "
-        f"{[round(t * 1e3, 3) for t in eval_s]}")
-    log(f"  steady step (median of steps 2..{steps}) "
+    log(f"  {label}: step ms {[round(t * 1e3, 3) for t in step_s]}, eval "
+        f"ms {[round(t * 1e3, 3) for t in eval_s]}")
+    log(f"  {label}: steady step (median of steps 2..{steps}) "
         f"{1e3 * float(np.median(step_s[1:])):.3f} ms, eval median "
         f"{1e3 * float(np.median(eval_s[1:])):.3f} ms, peak memory "
         f"{peak / 2**30:.3f} GiB, losses {losses}")
-    log(f"  launches { {k: v for k, v in launches.items() if v} }")
+    log(f"  {label}: launches {launches}")
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError("non-finite loss")
-    want = dict.fromkeys(KERNELS, 0)
-    want.update(ell_act_reduce_rowwise=2 * steps, ell_geq_reduce=steps,
-                ell_src_bwd_rowwise=steps)
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, expected {want}")
-    set_edge_dtype(None)
+        raise AssertionError(f"{label}: non-finite loss")
     return launches
+
+
+def phase_general_edge(device, fg, steps: int = 5):
+    """(a) One SIREConv at bench lane (d)'s shape with the row-wise
+    centered_relu(0.5) on the arxiv plan, sym, bf16 edges (96 in, De = 16
+    raw edge features, 96 hidden and out): ``steps`` AdamW steps, each
+    followed by a no-grad eval, on the general route's edge forms, with
+    exact launch counts (per step #1r·e, #3e and #4r·e once each, per eval
+    #1r·e once, nothing else), then a profile of 3 warm steps; (b) one step
+    of the same conv on a ~20k-node graph on the card against the CPU, f32
+    edges, on dyadic inputs (as the e2e general phase: eq, ek, e, z and
+    each row's sum exact in f32, so both devices take the same gates): out
+    at the forward tolerance and every parameter gradient, W_E's among
+    them, at the backward tolerance."""
+    import copy
+
+    import torch
+
+    from sir_gcn_tpu_torch.data import synthetic_node_classification
+    from sir_gcn_tpu_torch.experiments.ogbn_arxiv.train import (
+        build_arxiv_graph,
+        get_args,
+    )
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.ops.ell import centered_relu
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+    from sir_gcn_tpu_torch.train import make_adamw
+
+    log(f"== general_edge: one SIREConv (96 -> 96, De {EDGE_DIM}, "
+        f"centered_relu(0.5), sym, bf16 edges) on the arxiv plan, {steps} "
+        f"steps and evals")
+    set_edge_dtype(torch.bfloat16)
+    x, ef, w = sireconv_inputs(fg, seed=0)
+    conv = make_sireconv(0.0, act=centered_relu(0.5)).to(device)
+    opt = make_adamw(conv.parameters(), 1e-3, 0.0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    launches = conv_loop(
+        "(a)", conv, fg, x, w, steps,
+        lambda: sireconv_step(conv, fg, x, ef, w, opt, gen),
+        lambda: conv(fg, x, ef))
+    want = {"ell_act_reduce_rowwise_edge": 2 * steps,
+            "ell_geq_reduce_edge": steps, "ell_src_bwd_rowwise_edge": steps}
+    if launches != want:
+        raise AssertionError(f"(a) launch counts {launches}, expected {want}")
+    log("== profile general_edge: 3 warm training steps")
+    profile_steps(lambda: sireconv_step(conv, fg, x, ef, w, opt, gen), 3)
+    del conv, opt
+
+    log("== general_edge (b): one step on the card (kernels) against the "
+        "CPU (plain)")
+    set_edge_dtype(None)
+    args = get_args(["--add-reverse-edge", "--add-self-loop"])
+    data = synthetic_node_classification(20_000, 140_000, feat_dim=128,
+                                         num_classes=40, seed=1)
+    graphs = {name: build_arxiv_graph(data, args, dev)
+              for name, dev in (("cpu", "cpu"), ("card", device))}
+    x, ef, w = sireconv_inputs(graphs["cpu"], seed=1)
+    x = torch.round(x * 8).clamp(-32, 32) / 8
+    ef = torch.round(ef * 8).clamp(-32, 32) / 8
+    conv = make_sireconv(0.0, act=centered_relu(0.5))
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.copy_(torch.round(p * 128) / 128)
+    want = {"ell_act_reduce_rowwise_edge": 1, "ell_geq_reduce_edge": 1,
+            "ell_src_bwd_rowwise_edge": 1}
+    runs = {}
+    for name, g in graphs.items():
+        dev = g.graph.device
+        m = copy.deepcopy(conv).to(dev)
+        m.train()
+        reset_launch_counts()
+        out = m(g, x.to(dev), ef.to(dev))
+        (out * w.to(dev)).sum().backward()
+        if name == "card":
+            torch.cuda.synchronize()
+            did = {k: v for k, v in LAUNCHES.items() if v}
+            if did != want:
+                raise AssertionError(f"(b) card launches {did}, expected "
+                                     f"{want}")
+        runs[name] = dict(out=out.detach().cpu(), grads={
+            k: p.grad.cpu() for k, p in m.named_parameters()})
+    c, g = runs["cpu"], runs["card"]
+    log(f"  nodes 20000, edges {graphs['card'].graph.num_edges}, launches "
+        f"{want}")
+    compare("out", g["out"], c["out"], FWD_TOL)
+    for k in c["grads"]:
+        compare(f"grad {k}", g["grads"][k], c["grads"][k], BWD_TOL)
+    return launches
+
+
+def phase_general_wide(device, fg, steps: int = 3):
+    """One SIRConv at the heterophilous width (WIDE_H in, hidden and out)
+    on the arxiv plan, bf16 edges, three times: (a) softmax with mean, (b)
+    centered_relu(0.5) with sym, both on the wide path, (c) erf-GELU
+    declared non-elementwise (``Activation("gelu", sir_elementwise=
+    False)``) with sym, on the general route's first design; each
+    ``steps`` AdamW steps, each followed by a no-grad eval, with exact
+    launch counts (per step #1r, #3 and #4r once each, per eval #1r once)
+    and (b) profiled over 3 warm steps. Then single aggregates with a
+    gradient, each launching exactly what it names: (d) erf-GELU at H = 96
+    with fuse_bwd_take (#2, #5); (e) centered_relu at H = WIDE_H with
+    fuse_bwd_take (#1r, #3, #5, the wide path); the dst-major composition
+    (#1r, #6, #12) with (f) centered_relu at H = WIDE_H and (g) erf-GELU
+    declared non-elementwise at H = 96. Returns the launches of the wide
+    forms and of the erf-GELU forms by kernel."""
+    import torch
+
+    from sir_gcn_tpu_torch.models import SIRConv
+    from sir_gcn_tpu_torch.ops import cuda as K
+    from sir_gcn_tpu_torch.ops.ell import (
+        Activation,
+        centered_relu,
+        ell_sir_aggregate,
+        gelu,
+        softmax,
+    )
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+    from sir_gcn_tpu_torch.train import make_adamw
+
+    h = WIDE_H
+    log(f"== general_wide: one SIRConv ({h} -> {h} -> {h}, bf16 edges) on "
+        f"the arxiv plan, {steps} steps and evals each")
+    set_edge_dtype(torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(6)
+    x = torch.randn((fg.n_pad, h), generator=gen, device=device)
+    w = torch.randn((fg.n_pad, h), generator=gen, device=device)
+    forced_gelu = Activation("gelu", sir_elementwise=False)
+    wide = dict.fromkeys(GENERAL_FORMS, 0)
+    gelu_launches = dict.fromkeys(GENERAL_FORMS, 0)
+    per_run = {"ell_act_reduce_rowwise": 2 * steps,
+               "ell_geq_reduce": steps, "ell_src_bwd_rowwise": steps}
+    for setting, act, agg, into in (("a", softmax, "mean", wide),
+                                    ("b", centered_relu(0.5), "sym", wide),
+                                    ("c", forced_gelu, "sym",
+                                     gelu_launches)):
+        conv = SIRConv(h, h, h, act, agg_type=agg,
+                       generator=torch.Generator().manual_seed(0)).to(device)
+        opt = make_adamw(conv.parameters(), 1e-3, 0.0)
+        label = f"({setting}) {act.name} {agg}"
+        launches = conv_loop(label, conv, fg, x, w, steps,
+                             lambda: conv_step(conv, fg, x, w, opt),
+                             lambda: conv(fg, x))
+        if launches != per_run:
+            raise AssertionError(f"{label}: launch counts {launches}, "
+                                 f"expected {per_run}")
+        for k, v in launches.items():
+            into[k] += v
+        if setting == "b":
+            log(f"== profile general_wide (b): 3 warm training steps")
+            profile_steps(lambda: conv_step(conv, fg, x, w, opt), 3)
+        del conv, opt
+    del x, w
+
+    plan, splan = fg.dst_plan, fg.src_plan
+
+    def aggregate(label, act, width, fuse, into, want):
+        """One aggregate's forward and backward, or with ``fuse`` None the
+        dst-major composition; its launches must be ``want``."""
+        g2 = torch.Generator(device=device).manual_seed(width)
+        eq, ek, g = (torch.randn((fg.n_pad, width), generator=g2,
+                                 device=device) for _ in range(3))
+        K.reset_launch_counts()
+        if fuse is None:
+            bf = torch.bfloat16
+            args = (eq, ek.to(bf), fg.dst_slot_srcnode,
+                    fg.dst_slot_scales["sym"], plan.row_key, plan.row_ptr,
+                    act)
+            out = plan.finalize_rows_sum(K.ell_act_reduce_rowwise(*args))
+            g_slots, geq = K.ell_act_reduce_bwd(*args, g, gz_dtype=bf)
+            grads = (plan.finalize_rows_sum(geq),
+                     splan.finalize_rows_sum(K.ell_scaled_reduce(
+                         g_slots, fg.src_slot_from_dst_slot,
+                         splan.slot_valid, splan.row_ptr)))
+        else:
+            eq.requires_grad_()
+            ek.requires_grad_()
+            out = ell_sir_aggregate(fg, eq, ek, act, "sym",
+                                    edge_dtype=torch.bfloat16,
+                                    fuse_bwd_take=fuse)
+            grads = torch.autograd.grad(out, (eq, ek), g)
+        torch.cuda.synchronize()
+        did = {k: v for k, v in K.LAUNCHES.items() if v}
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+        log(f"  {label}: launches {did}, finite {finite}")
+        if did != want or not finite:
+            raise AssertionError(f"{label}: launches {did}, expected {want}; "
+                                 f"finite {finite}")
+        for k in GENERAL_FORMS:
+            into[k] += did.get(k, 0)
+
+    aggregate("(d) gelu H=96 fuse_bwd_take", gelu(), 96, True,
+              gelu_launches, {"ell_act_reduce2": 1, "ell_src_bwd_fused": 1})
+    aggregate(f"(e) centered_relu H={h} fuse_bwd_take", centered_relu(0.5),
+              h, True, wide, {"ell_act_reduce_rowwise": 1,
+                              "ell_geq_reduce": 1, "ell_src_bwd_fused": 1})
+    dst_major = {"ell_act_reduce_rowwise": 1, "ell_act_reduce_bwd": 1,
+                 "ell_scaled_reduce": 1}
+    aggregate(f"(f) centered_relu H={h} dst-major", centered_relu(0.5), h,
+              None, wide, dst_major)
+    aggregate("(g) gelu (declared non-elementwise) H=96 dst-major",
+              forced_gelu, 96, None, gelu_launches, dst_major)
+    set_edge_dtype(None)
+    torch.cuda.empty_cache()
+    log(f"  launches of the wide forms {wide}, of the erf-GELU forms "
+        f"{gelu_launches}")
+    return wide, gelu_launches
 
 
 def phase_bwd(device, fg, iters: int = 10):
@@ -2182,15 +2536,14 @@ def phase_pure(device, fg, iters: int = 5):
     (#2, #4) in f32 and in bf16 edges; each one's peak memory above what
     was allocated before it. Plain erf-GELU (``F.gelu``), which holds no
     tensor, must raise on the card: JAX runs it on its kernels, the port's
-    kernels take the registry's ``gelu()``; and the registry's erf-GELU
-    declared non-elementwise must raise before any launch, since the
-    general route's kernels do not take it."""
+    kernels take the registry's ``gelu()`` (declared non-elementwise, the
+    general route's kernels take it: the general_wide phase runs it)."""
     import torch
     import torch.nn.functional as F
 
     from sir_gcn_tpu_torch.ops import message_passing as mp
     from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
-    from sir_gcn_tpu_torch.ops.ell import Activation, leaky_relu
+    from sir_gcn_tpu_torch.ops.ell import leaky_relu
 
     log(f"== pure: one aggregate's forward and backward at the arxiv plan "
         f"(H 96, sym), {iters} calls each")
@@ -2205,19 +2558,6 @@ def phase_pure(device, fg, iters: int = 5):
         log(f"  plain erf-GELU on the card raises: {err}")
     else:
         raise AssertionError("plain erf-GELU took the pure route on the card")
-    # the registry's erf-GELU declared non-elementwise: the general route,
-    # whose kernels take no erf-GELU, raises before any launch
-    reset_launch_counts()
-    try:
-        mp.sir_aggregate(fg, eq, ek, Activation("gelu", sir_elementwise=False),
-                         "sym")
-    except NotImplementedError as err:
-        log(f"  Activation('gelu', sir_elementwise=False) on the card "
-            f"raises: {err}")
-    else:
-        raise AssertionError("erf-GELU ran on the general route's kernels")
-    if any(LAUNCHES.values()):
-        raise AssertionError(f"launches before the raise: {LAUNCHES}")
     times = {}
     for label, sigma, dtype in (("pure gain-GELU f32",
                                  gain_sigma(F.gelu, 96, device), None),
@@ -4181,6 +4521,9 @@ def main() -> int:
                      if k in EDGE})
     launches.update({k: v for k, v in phase_general(device, arxiv_fg).items()
                      if k in GENERAL})
+    launches.update({k: v for k, v in phase_general_edge(
+        device, arxiv_fg).items() if k in GENERAL_EDGE})
+    general_wide, general_gelu = phase_general_wide(device, arxiv_fg)
     launches.update({k: v for k, v in phase_bwd(device, arxiv_fg).items()
                      if k in BWD})
     lab_launches, lab_errs, lab_timing = phase_lab(device)
@@ -4215,8 +4558,10 @@ def main() -> int:
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         t = timing[name]
+        row = (f"{GENERAL_EDGE[name]}[edge]" if name in GENERAL_EDGE
+               else name)
         rows.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=row, route="cuda", source=source, replaces=replaces,
             launches=launches[name], max_abs_err=errs[name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
             bound_by=t["bound"][1], library_ms=t.get("library_ms")))
@@ -4229,6 +4574,16 @@ def main() -> int:
             max_abs_err=errs[f"{name}[gelu]"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
             bound_by=t["bound"][1], library_ms=None))
+    for form, counts in (("gelu", general_gelu), ("wide", general_wide)):
+        for name in GENERAL_FORMS:
+            source, replaces, _ = KERNELS[name]
+            key = f"{name}[{form}]"
+            t = timing[key]
+            rows.append(dict(
+                name=key, route="cuda", source=source, replaces=replaces,
+                launches=counts[name], max_abs_err=errs[key], ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+                bound_by=t["bound"][1], library_ms=None))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,12 @@
 // A row-wise sigma couples the H features of one slot (its Jacobian is not
 // diagonal), so the elementwise route's derivative mass does not exist for
 // it and every backward needs a full vector-Jacobian product (vjp). The
-// kernels here take any sigma of the registry: leaky_relu and tanh
-// elementwise, centered_relu (relu(z - alpha * mean_H(z))) and softmax over
-// H row-wise. As in ell_kernels.cu, row r owns slots [row_ptr[r],
-// row_ptr[r+1]) and reads its key's row through row_key[r]; node rows are
-// gathered by index inside the kernels, all buckets in one launch.
+// kernels here take any sigma of the registry: leaky_relu, tanh and
+// erf-GELU elementwise, centered_relu (relu(z - alpha * mean_H(z))) and
+// softmax over H row-wise, at any H. As in ell_kernels.cu, row r owns slots
+// [row_ptr[r], row_ptr[r+1]) and reads its key's row through row_key[r];
+// node rows are gathered by index inside the kernels, all buckets in one
+// launch.
 //
 //   ell_act_reduce_rowwise  rows[r] = sum_s scale[s] * act(z_s),
 //                           z_s = eq[row_key[r]] + ek[slot_src[s]]
@@ -21,10 +22,23 @@
 //   ell_src_bwd_fused       the same, eq and g read as the two halves of one
 //                           [N, 2H] node table
 //
+// The edge-term forms of the first three (``*_edge``) add an edge table e
+// [E_pad, H] in sorted-edge order, of the gathered table's type, read by
+// index through the plan's slot_edge: the key side of a forward slot is
+// add_cast(ek[slot_src[s]], e[slot_edge[s]]), the dst side of a backward
+// slot add_cast(eq[slot_dst[s]], e[slot_edge[s]]), added in f32 and rounded
+// to the gathered type, as ell_kernels.cu's edge forms round it.
+// ell_src_bwd_rowwise_edge also writes each slot's g_z (rounded to eq's
+// type, stored in f32) into row slot_edge[s] of the per-edge cotangent g_e;
+// each valid edge has one src slot, so no two slots write one row, and the
+// wrapper zeroes the rows no slot writes (padding edges, zero-scale slots).
+//
 // They replace the Pallas kernels bucket_bcast_act_reduce on the general
 // route, bucket_geq_reduce, bucket_bcast_act_reduce_bwd, bucket_src_bwd with
-// a full vjp, and bucket_src_bwd_fused (sir_gcn_tpu/ops/pallas/kernels.py,
-// driven by sir_gcn_tpu/ops/ell.py make_ell_sir_aggregate_pallas).
+// a full vjp (its per-slot g_z output, taken through _edge_cotangent, in
+// the edge form), and bucket_src_bwd_fused (sir_gcn_tpu/ops/pallas/
+// kernels.py, driven by sir_gcn_tpu/ops/ell.py
+// make_ell_sir_aggregate_pallas, with_edge or not).
 //
 // Bound: device-memory bytes, as for the linear kernels: each slot costs one
 // random H-wide row read (two in ell_src_bwd_rowwise, one 2H-wide row in
@@ -35,13 +49,23 @@
 // 256, rows that are not whole 16-byte chunks, a table off 16-byte
 // alignment, an elementwise sigma but in #5, #6's g_slots in another type
 // than ek): one warp per row, 8 rows per block; the lanes load 32 slot
-// indices and scales at a time and pass them round with warp shuffles. A
-// row-wise sigma needs a slot's whole row at once: each lane keeps NF = 1,
-// 2, 3, 4 or 8 features (NF * 32 >= H, so H <= 256) in registers, and a
-// slot costs one warp reduction (__shfl_xor_sync) for the centered relu's
-// mean (two in its vjp) and two for softmax's max and sum (three in its
-// vjp). An elementwise sigma walks the features in chunks of up to 128, so
-// any H is taken. A slot with scale 0 is skipped whole (the test is
+// indices (and edge ids) and scales at a time and pass them round with
+// warp shuffles. A row-wise sigma needs a slot's whole row at once: up to
+// H = 512 each lane keeps NF = 1, 2, 3, 4, 8 or 16 features (NF * 32 >= H)
+// in registers, and a slot costs one warp reduction (__shfl_xor_sync) for
+// the centered relu's mean (two in its vjp) and two for softmax's max and
+// sum (three in its vjp). An elementwise sigma walks the features in
+// chunks of up to 128, so any H is taken. Past H = 256 a row-wise sigma
+// takes the wide path: up to 512 the row in registers as above (16
+// features a lane), and past 512 the features are walked in chunks of 256
+// (8 a lane), and for each chunk a slot's statistics (the mean; the max
+// and the sum; the vjps' second sum or dot) come from passes over its
+// whole row, lane j taking features j, j + 32, ..., each value read again
+// from memory (the L1 or the L2 holds the rows just read) and recomputed
+// as the chunk computes it; then the chunk's values are formed from them.
+// It has no ceiling in H: a row costs ceil(H / 256) times (one to three
+// passes plus one) reads of the slot's rows. (At H = 512 in bf16 on an
+// H100 the passes took 27.4 ms for #4r at the arxiv plan, PERF.md.) A slot with scale 0 is skipped whole (the test is
 // warp-uniform): it contributes exactly 0, and ell_act_reduce_bwd writes its
 // g_slots row as 0. All sums are f32. The slots of a row are walked one at a
 // time, each an exposed gather latency and a chain of dependent shuffles.
@@ -49,7 +73,10 @@
 // The lane-group path (group_kernel), one template for five kernels, each a
 // compile-time mode: ell_act_reduce_rowwise (#1r, the forward, a row-wise
 // sigma), ell_geq_reduce (#3) and ell_src_bwd_rowwise (#4r) for a row-wise
-// sigma, ell_src_bwd_fused (#5) for any sigma (an elementwise one's vjp,
+// sigma, each also in its edge form (a compile-time flag: the slot's edge
+// row gathered beside its node row, by 16-byte chunks too, and #4r's g_z
+// stored into g_e by 16-byte stores from the group's chunks),
+// ell_src_bwd_fused (#5) for any sigma (an elementwise one's vjp,
 // act'(z) * g_m, needs no reduction), and ell_act_reduce_bwd (#6, #3's
 // walk plus a g_slots row stored a slot) for a row-wise sigma. It takes
 // rows whose H *
@@ -62,7 +89,8 @@
 // narrowest power of two that leaves a lane at most 4 chunks and
 // group_max_values values of a row: 16 in the vjps (at H = 96 groups of 8
 // lanes, 2 chunks a lane in bf16 with 4 of 16 chunk places idle, 3 in f32
-// with every lane busy), 24 in the forward, which holds no cotangent row
+// with every lane busy) and in the forward's edge form, which gathers a
+// second row a slot, 24 in the forward, which holds no cotangent row
 // (in bf16 groups of 4 lanes, 3 chunks each, every lane busy). The
 // row-wise reductions are a pairwise tree over the lane's values followed
 // by an xor butterfly over the group (lanes past the row hold values that
@@ -73,8 +101,8 @@
 // groups skip. The scale multiplies each slot's vjp, which is linear in
 // its cotangent, or its act(z) in the forward; the centered relu's mean
 // is a sum times 1 / H, softmax takes __expf (a few ulp) and one
-// reciprocal a slot, and tanh' one __expf and one fast division (see
-// group_act_grad).
+// reciprocal a slot, tanh' one __expf and one fast division, and erf-GELU'
+// the elementwise kernels' form (see group_act_grad).
 //
 // The kernels are persistent (warp w of W takes rows w, w + W, ...) and
 // walk a warp's slots as a stream of batches of one slot a group (two need
@@ -131,7 +159,8 @@ enum {
   ACT_LEAKY_RELU = 0,
   ACT_TANH = 1,
   ACT_CENTERED_RELU = 2,
-  ACT_SOFTMAX = 3
+  ACT_SOFTMAX = 3,
+  ACT_GELU = 4
 };
 
 template <int ACT>
@@ -139,9 +168,51 @@ struct Rowwise {
   static constexpr bool value = ACT == ACT_CENTERED_RELU || ACT == ACT_SOFTMAX;
 };
 
+// A row-wise act past this width takes the wide path of the first design:
+// the row in a warp's registers up to kRowRegMax, passes over it past.
+constexpr int kRowMax = 256;
+constexpr int kRowRegMax = 512;
+
+// erf-GELU as ell_kernels.cu computes it (jax.nn.gelu(approximate=False)):
+// z * Phi(z) with Phi(z) = 0.5 * erfc(-z / sqrt(2)), and gelu'(z) = Phi(z)
+// + z * exp(-z^2 / 2) / sqrt(2 pi).
+constexpr float kSqrtHalf = 0.70710678118654752f;
+constexpr float kInvSqrt2Pi = 0.39894228040143268f;
+
+__device__ __forceinline__ float gelu_cdf(float z) {
+  return 0.5f * erfcf(-z * kSqrtHalf);
+}
+
+__device__ __forceinline__ float gelu_pdf_term(float z) {
+  return z * (expf(-0.5f * z * z) * kInvSqrt2Pi);
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// x rounded to T and widened back: bf16 rounds to nearest even, as
+// astype(bf16) does.
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Feature f of a gathered row widened to f32, with the slot's edge row added
+// in f32 and rounded to T (ell.py's add_cast) where there is one (e_row not
+// null).
+template <typename T>
+__device__ __forceinline__ float gathered(const T* row, const T* e_row,
+                                          int f) {
+  return e_row != nullptr ? round_to<T>(to_f32(row[f]) + to_f32(e_row[f]))
+                          : to_f32(row[f]);
 }
 
 // f32 to T, bf16 rounded to nearest even as astype(bf16) does.
@@ -194,6 +265,8 @@ __device__ __forceinline__ float act_fn(float z, float p) {
     return z >= 0.f ? z : p * z;
   } else if constexpr (ACT == ACT_TANH) {
     return tanhf(z);
+  } else if constexpr (ACT == ACT_GELU) {
+    return z * gelu_cdf(z);
   } else {
     static_assert(kNoBranch<ACT>, "an activation id without a branch");
     return 0.f;
@@ -208,6 +281,8 @@ __device__ __forceinline__ float act_grad(float z, float p) {
   } else if constexpr (ACT == ACT_TANH) {
     const float t = tanhf(z);
     return (1.f + t) * (1.f - t);
+  } else if constexpr (ACT == ACT_GELU) {
+    return gelu_cdf(z) + gelu_pdf_term(z);
   } else {
     static_assert(kNoBranch<ACT>, "an activation id without a branch");
     return 0.f;
@@ -279,10 +354,74 @@ __device__ __forceinline__ void vjp_row(const float (&z)[NF],
   }
 }
 
-template <int ACT, int NF, typename TK>
+// The wide path's statistics of one slot's row (a row-wise act past
+// kRowMax): a is centered_relu's shift c = alpha * mean(z), or softmax's
+// max; b softmax's sum of exp(z - max); c the vjps' second statistic,
+// centered_relu's alpha * mean(d) (d = g_m where z - c > 0) or softmax's
+// dot(g_m, y). zf(f) and gf(f) give z and g_m at feature f of the row; lane
+// j takes features j, j + 32, ..., and every lane ends with the same bits.
+struct RowStats {
+  float a, b, c;
+};
+
+template <int ACT, bool VJP, typename ZF, typename GF>
+__device__ __forceinline__ RowStats wide_stats(int H, float p, int lane,
+                                               ZF zf, GF gf) {
+  RowStats st{0.f, 1.f, 0.f};
+  if constexpr (ACT == ACT_CENTERED_RELU) {
+    float s = 0.f;
+    for (int f = lane; f < H; f += 32) s += zf(f);
+    st.a = p * (warp_sum(s) / (float)H);
+    if constexpr (VJP) {
+      float d = 0.f;
+      for (int f = lane; f < H; f += 32)
+        if (zf(f) - st.a > 0.f) d += gf(f);
+      st.c = p * (warp_sum(d) / (float)H);
+    }
+  } else if constexpr (ACT == ACT_SOFTMAX) {
+    float mx = __int_as_float((int)0xff800000u);  // -inf
+    for (int f = lane; f < H; f += 32) mx = fmaxf(mx, zf(f));
+    st.a = warp_max(mx);
+    float s = 0.f;
+    for (int f = lane; f < H; f += 32) s += expf(zf(f) - st.a);
+    st.b = warp_sum(s);
+    if constexpr (VJP) {
+      float dot = 0.f;
+      for (int f = lane; f < H; f += 32)
+        dot += gf(f) * (expf(zf(f) - st.a) / st.b);
+      st.c = warp_sum(dot);
+    }
+  } else {
+    static_assert(kNoBranch<ACT>, "the wide path is for a row-wise act");
+  }
+  return st;
+}
+
+// act(z) and vjp(act, z)(g_m) at one feature on the wide path, from the
+// row's statistics, as act_row and vjp_row form them.
+template <int ACT>
+__device__ __forceinline__ float wide_act(float z, const RowStats& st) {
+  if constexpr (ACT == ACT_CENTERED_RELU) return fmaxf(z - st.a, 0.f);
+  return expf(z - st.a) / st.b;
+}
+
+template <int ACT>
+__device__ __forceinline__ float wide_vjp(float z, float gm,
+                                          const RowStats& st) {
+  if constexpr (ACT == ACT_CENTERED_RELU)
+    return (z - st.a > 0.f ? gm : 0.f) - st.c;
+  const float y = expf(z - st.a) / st.b;
+  return y * (gm - st.c);
+}
+
+// The forward. e, slot_edge: the edge form's (null without an edge term).
+// WIDE: the wide path (NF = 8 features a lane a chunk).
+template <int ACT, int NF, bool WIDE, typename TK>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 act_reduce_rw_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
+                     const TK* __restrict__ e,
                      const int* __restrict__ slot_src,
+                     const int* __restrict__ slot_edge,
                      const float* __restrict__ scale,
                      const int* __restrict__ row_key,
                      const int* __restrict__ row_ptr, int R, int H, float p,
@@ -306,18 +445,31 @@ act_reduce_rw_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
     for (int base = s0; base < s1; base += 32) {
       const int mine = base + lane;
       const int my_src = mine < s1 ? slot_src[mine] : 0;
+      const int my_edge = e != nullptr && mine < s1 ? slot_edge[mine] : 0;
       const float my_sc = mine < s1 ? scale[mine] : 0.f;
       const int n = min(32, s1 - base);
       for (int k = 0; k < n; ++k) {
         const int src = __shfl_sync(kFull, my_src, k);
         const float sc = __shfl_sync(kFull, my_sc, k);
+        const int edge = e != nullptr ? __shfl_sync(kFull, my_edge, k) : 0;
         if (sc == 0.f) continue;  // warp-uniform
         const TK* ek_row = ek + (int64_t)src * H;
+        const TK* e_row = e != nullptr ? e + (int64_t)edge * H : nullptr;
         float z[NF], y[NF];
 #pragma unroll
         for (int j = 0; j < NF; ++j)
-          z[j] = ok[j] ? to_f32(ek_row[f0 + j * 32 + lane]) + q[j] : 0.f;
-        act_row<ACT, NF>(z, ok, H, p, y);
+          z[j] = ok[j] ? gathered(ek_row, e_row, f0 + j * 32 + lane) + q[j]
+                       : 0.f;
+        if constexpr (WIDE) {
+          const RowStats st = wide_stats<ACT, false>(
+              H, p, lane,
+              [&](int f) { return gathered(ek_row, e_row, f) + eq_row[f]; },
+              [](int) { return 0.f; });
+#pragma unroll
+          for (int j = 0; j < NF; ++j) y[j] = wide_act<ACT>(z[j], st);
+        } else {
+          act_row<ACT, NF>(z, ok, H, p, y);
+        }
 #pragma unroll
         for (int j = 0; j < NF; ++j) acc[j] += y[j] * sc;
       }
@@ -330,11 +482,13 @@ act_reduce_rw_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
 
 // The dst-major backward: g_eq rows (ell_geq_reduce), and with EMIT each
 // slot's g_z in TG (ell_act_reduce_bwd). g [N, H] f32 is the cotangent of
-// the aggregate, read through row_key.
-template <int ACT, int NF, typename TK, typename TG, bool EMIT>
+// the aggregate, read through row_key. e, slot_edge as in the forward.
+template <int ACT, int NF, bool WIDE, typename TK, typename TG, bool EMIT>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 geq_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
-           const float* __restrict__ g, const int* __restrict__ slot_src,
+           const TK* __restrict__ e, const float* __restrict__ g,
+           const int* __restrict__ slot_src,
+           const int* __restrict__ slot_edge,
            const float* __restrict__ scale, const int* __restrict__ row_key,
            const int* __restrict__ row_ptr, int R, int H, float p,
            float* __restrict__ geq_rows, TG* __restrict__ g_slots) {
@@ -360,11 +514,13 @@ geq_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
     for (int base = s0; base < s1; base += 32) {
       const int mine = base + lane;
       const int my_src = mine < s1 ? slot_src[mine] : 0;
+      const int my_edge = e != nullptr && mine < s1 ? slot_edge[mine] : 0;
       const float my_sc = mine < s1 ? scale[mine] : 0.f;
       const int n = min(32, s1 - base);
       for (int k = 0; k < n; ++k) {
         const int src = __shfl_sync(kFull, my_src, k);
         const float sc = __shfl_sync(kFull, my_sc, k);
+        const int edge = e != nullptr ? __shfl_sync(kFull, my_edge, k) : 0;
         TG* gs_row = g_slots + (int64_t)(base + k) * H + f0 + lane;
         if (sc == 0.f) {  // warp-uniform; g_z is 0
           if (EMIT) {
@@ -375,13 +531,24 @@ geq_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
           continue;
         }
         const TK* ek_row = ek + (int64_t)src * H;
+        const TK* e_row = e != nullptr ? e + (int64_t)edge * H : nullptr;
         float z[NF], gm[NF], gz[NF];
 #pragma unroll
         for (int j = 0; j < NF; ++j) {
-          z[j] = ok[j] ? to_f32(ek_row[f0 + j * 32 + lane]) + q[j] : 0.f;
+          z[j] = ok[j] ? gathered(ek_row, e_row, f0 + j * 32 + lane) + q[j]
+                       : 0.f;
           gm[j] = gr[j] * sc;
         }
-        vjp_row<ACT, NF>(z, gm, ok, H, p, gz);
+        if constexpr (WIDE) {
+          const RowStats st = wide_stats<ACT, true>(
+              H, p, lane,
+              [&](int f) { return gathered(ek_row, e_row, f) + eq_row[f]; },
+              [&](int f) { return g_row[f] * sc; });
+#pragma unroll
+          for (int j = 0; j < NF; ++j) gz[j] = wide_vjp<ACT>(z[j], gm[j], st);
+        } else {
+          vjp_row<ACT, NF>(z, gm, ok, H, p, gz);
+        }
 #pragma unroll
         for (int j = 0; j < NF; ++j) {
           acc[j] += gz[j];
@@ -396,16 +563,19 @@ geq_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
 }
 
 // The src-major backward with a full vjp. FUSED: eq is the [N, 2H] table
-// whose row holds eq in [0, H) and g in [H, 2H), and g is unused.
-template <int ACT, int NF, typename T, bool FUSED>
+// whose row holds eq in [0, H) and g in [H, 2H), and g is unused. e,
+// slot_edge as in the forward (the dst side's edge row); with them each
+// slot's g_z, rounded to T, goes into row slot_edge[s] of g_e.
+template <int ACT, int NF, bool WIDE, typename T, bool FUSED>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 src_bwd_rw_kernel(const T* __restrict__ eq, const T* __restrict__ g,
-                  const float* __restrict__ ek,
+                  const T* __restrict__ e, const float* __restrict__ ek,
                   const int* __restrict__ slot_dst,
+                  const int* __restrict__ slot_edge,
                   const float* __restrict__ scale,
                   const int* __restrict__ row_key,
                   const int* __restrict__ row_ptr, int R, int H, float p,
-                  float* __restrict__ out) {
+                  float* __restrict__ out, float* __restrict__ g_e) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (r >= R) return;
@@ -426,24 +596,42 @@ src_bwd_rw_kernel(const T* __restrict__ eq, const T* __restrict__ g,
     for (int base = s0; base < s1; base += 32) {
       const int mine = base + lane;
       const int my_dst = mine < s1 ? slot_dst[mine] : 0;
+      const int my_edge = e != nullptr && mine < s1 ? slot_edge[mine] : 0;
       const float my_sc = mine < s1 ? scale[mine] : 0.f;
       const int n = min(32, s1 - base);
       for (int k = 0; k < n; ++k) {
         const int dst = __shfl_sync(kFull, my_dst, k);
         const float sc = __shfl_sync(kFull, my_sc, k);
+        const int edge = e != nullptr ? __shfl_sync(kFull, my_edge, k) : 0;
+        // a zero-scale slot writes no g_e row: its g_z is 0, and the row
+        // stays the wrapper's 0
         if (sc == 0.f) continue;  // warp-uniform
         const T* eq_row = eq + (int64_t)dst * stride;
         const T* g_row = FUSED ? eq_row + H : g + (int64_t)dst * H;
+        const T* e_row = e != nullptr ? e + (int64_t)edge * H : nullptr;
         float z[NF], gm[NF], gz[NF];
 #pragma unroll
         for (int j = 0; j < NF; ++j) {
           const int f = f0 + j * 32 + lane;
-          z[j] = ok[j] ? to_f32(eq_row[f]) + kv[j] : 0.f;
+          z[j] = ok[j] ? gathered(eq_row, e_row, f) + kv[j] : 0.f;
           gm[j] = ok[j] ? to_f32(g_row[f]) * sc : 0.f;
         }
-        vjp_row<ACT, NF>(z, gm, ok, H, p, gz);
+        if constexpr (WIDE) {
+          const RowStats st = wide_stats<ACT, true>(
+              H, p, lane,
+              [&](int f) { return gathered(eq_row, e_row, f) + ek_row[f]; },
+              [&](int f) { return to_f32(g_row[f]) * sc; });
 #pragma unroll
-        for (int j = 0; j < NF; ++j) acc[j] += gz[j];
+          for (int j = 0; j < NF; ++j) gz[j] = wide_vjp<ACT>(z[j], gm[j], st);
+        } else {
+          vjp_row<ACT, NF>(z, gm, ok, H, p, gz);
+        }
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+          acc[j] += gz[j];
+          if (e_row != nullptr && ok[j])
+            g_e[(int64_t)edge * H + f0 + j * 32 + lane] = round_to<T>(gz[j]);
+        }
       }
     }
 #pragma unroll
@@ -493,7 +681,7 @@ struct Head {
   int s0, s1, key;
 };
 struct Slot {
-  int node;
+  int node, edge;  // edge: the edge forms' sorted-edge id
   float sc;
 };
 
@@ -509,14 +697,18 @@ __device__ __forceinline__ Head load_head(const int* __restrict__ row_ptr,
   return h;
 }
 
-// Slot base + lane of a row ending at s1 (zeros past it).
+// Slot base + lane of a row ending at s1 (zeros past it), with its edge id
+// in the edge forms (EDGE).
+template <bool EDGE>
 __device__ __forceinline__ Slot load_slot(const int* __restrict__ slot_node,
+                                          const int* __restrict__ slot_edge,
                                           const float* __restrict__ scale,
                                           int base, int s1, int lane) {
-  Slot d{0, 0.f};
+  Slot d{0, 0, 0.f};
   const int mine = base + lane;
   if (mine < s1) {
     d.node = __ldg(slot_node + mine);
+    if (EDGE) d.edge = __ldg(slot_edge + mine);
     d.sc = __ldg(scale + mine);
   }
   return d;
@@ -571,10 +763,11 @@ __device__ __forceinline__ float tree_max(const float (&x)[NV]) {
 // 1 / cosh(z)^2 = 4 e / (1 + e)^2 with e = exp(-2 |z|) in (0, 1]: one
 // __expf and one fast division, no cancellation (a relative error of a few
 // ulp of e, some 1e-6 at |z| = 5), where tanhf and (1 + t)(1 - t) take a
-// branch and some twenty instructions; leaky_relu as act_grad.
+// branch and some twenty instructions; leaky_relu and erf-GELU as act_grad
+// (erf-GELU's the elementwise kernels' form).
 template <int ACT>
 __device__ __forceinline__ float group_act_grad(float z, float p) {
-  if constexpr (ACT == ACT_LEAKY_RELU) {
+  if constexpr (ACT == ACT_LEAKY_RELU || ACT == ACT_GELU) {
     return act_grad<ACT>(z, p);
   } else if constexpr (ACT == ACT_TANH) {
     const float e = __expf(-2.f * fabsf(z));
@@ -672,9 +865,10 @@ enum {
   MODE_EMIT = 4,   // #6:  #3, and each slot's scale * vjp into g_slots
 };
 
-// The values of a gathered row a lane holds at most, by mode.
-constexpr int group_max_values(int mode) {
-  return mode == MODE_FWD ? kMaxValuesPerLaneFwd : kMaxValuesPerLane;
+// The values of a gathered row a lane holds at most, by mode and whether
+// it is an edge form (the forward's gathers a second row a slot).
+constexpr int group_max_values(int mode, bool edge) {
+  return mode == MODE_FWD && !edge ? kMaxValuesPerLaneFwd : kMaxValuesPerLane;
 }
 
 // Whether the lane-group path takes `act` in `mode`: a row-wise act in
@@ -683,7 +877,8 @@ constexpr int group_max_values(int mode) {
 // design under leaky_relu and tanh on an H100, PERF.md).
 constexpr bool group_takes(int mode, int act) {
   return act == ACT_CENTERED_RELU || act == ACT_SOFTMAX ||
-         (mode == MODE_FUSED && (act == ACT_LEAKY_RELU || act == ACT_TANH));
+         (mode == MODE_FUSED && (act == ACT_LEAKY_RELU || act == ACT_TANH ||
+                                 act == ACT_GELU));
 }
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -780,8 +975,12 @@ struct RowEnd {
 // type), 16 bytes at a time from the group's chunks, evict-first; a
 // zero-scale slot's row is +0 by a select. GW is the group width and K the
 // chunks a lane, from group_layout; the block's dynamic shared memory holds
-// 2 * KEYS * H floats a warp. Every mode is fixed at compile time: no
-// branch on it is left in the loop.
+// 2 * KEYS * H floats a warp. EDGE (MODE_FWD, MODE_GEQ, MODE_SRC): each
+// slot also gathers its edge row e[slot_edge[s]] (T, rows H apart) and the
+// gathered value is add_cast(a, e); MODE_SRC then stores each slot's
+// scale[s] * vjp rounded to T into row slot_edge[s] of g_e (f32), 16 bytes
+// at a time, where the scale is not 0. Every mode is fixed at compile time:
+// no branch on it is left in the loop.
 //
 // A warp walks its rows' slots as a stream of batches: a batch is up to
 // G * U slots of one run of 32 of a row (U a group), and a row has at least
@@ -790,15 +989,20 @@ struct RowEnd {
 // issued before the current batch is worked, and the next row's key rows
 // are copied into the warp's shared memory by cp.async when its first batch
 // is issued: a warp always has a batch of gathers in flight.
-template <int ACT, typename T, int GW, int K, int MODE>
+template <int ACT, typename T, int GW, int K, int MODE, bool EDGE>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kGroupMinBlocks)
 group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
              const float* __restrict__ ka, const float* __restrict__ kg,
-             const int* __restrict__ slot_idx,
+             const T* __restrict__ e, const int* __restrict__ slot_idx,
+             const int* __restrict__ slot_edge,
              const float* __restrict__ scale,
              const int* __restrict__ row_key,
              const int* __restrict__ row_ptr, int R, int H, float p,
-             float* __restrict__ out, T* __restrict__ g_slots) {
+             float* __restrict__ out, T* __restrict__ g_slots,
+             float* __restrict__ g_e) {
+  static_assert(!EDGE || MODE == MODE_FWD || MODE == MODE_GEQ ||
+                    MODE == MODE_SRC,
+                "an edge form of #1r, #3 or #4r only");
   constexpr int EPV = Vec<T>::N;
   constexpr int NV = K * EPV;
   constexpr int U = kGroupInflight;
@@ -841,13 +1045,15 @@ group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
   int lr = r0, lord = 0;  // lord: the row's place among the warp's rows
   Head lh = load_head(row_ptr, row_key, lr, R);
   int lbase = lh.s0, lk0 = 0;
-  Slot lmine = load_slot(slot_idx, scale, lbase, lh.s1, lane);
+  Slot lmine = load_slot<EDGE>(slot_idx, slot_edge, scale, lbase, lh.s1, lane);
   Head hn = load_head(row_ptr, row_key, lr + W, R);
-  Slot first_n = load_slot(slot_idx, scale, hn.s0, hn.s1, lane);
+  Slot first_n =
+      load_slot<EDGE>(slot_idx, slot_edge, scale, hn.s0, hn.s1, lane);
 
   struct Batch {
-    uint4 va[U][K], vg[U][K];
+    uint4 va[U][K], vg[U][K], ve[U][K];  // ve: EDGE's edge rows
     float w[U];
+    int edge[U];   // EDGE: the slots' edge ids
     int s0, live;  // EMIT: the batch's first slot and its slots in the row
     int row, kb;   // kb: the buffer of the row's key rows
     bool first, last;
@@ -883,12 +1089,19 @@ group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
       const float sc = __shfl_sync(kFull, lmine.sc, k & 31);
       b.w[u] = live ? sc : 0.f;
       const int64_t at = (int64_t)node * stride;
+      int64_t eat = 0;
+      if constexpr (EDGE) {
+        b.edge[u] = __shfl_sync(kFull, lmine.edge, k & 31);
+        eat = (int64_t)b.edge[u] * H;
+      }
 #pragma unroll
       for (int c = 0; c < K; ++c) {
         const bool ld = live && ok[c];
         b.va[u][c] = ld ? load16(a + at + f[c]) : make_uint4(0, 0, 0, 0);
         if (GATHER_G)
           b.vg[u][c] = ld ? load16(ga + at + f[c]) : make_uint4(0, 0, 0, 0);
+        if (EDGE)
+          b.ve[u][c] = ld ? load16(e + eat + f[c]) : make_uint4(0, 0, 0, 0);
       }
     }
   };
@@ -899,7 +1112,7 @@ group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
     lk0 = 0;
     lbase += 32;
     if (lbase < lh.s1) {
-      lmine = load_slot(slot_idx, scale, lbase, lh.s1, lane);
+      lmine = load_slot<EDGE>(slot_idx, slot_edge, scale, lbase, lh.s1, lane);
       return true;
     }
     lr += W;
@@ -909,7 +1122,7 @@ group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
     lbase = lh.s0;
     lmine = first_n;
     hn = load_head(row_ptr, row_key, lr + W, R);
-    first_n = load_slot(slot_idx, scale, hn.s0, hn.s1, lane);
+    first_n = load_slot<EDGE>(slot_idx, slot_edge, scale, hn.s0, hn.s1, lane);
     return true;
   };
 
@@ -961,6 +1174,13 @@ group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
         Vec<T>::widen(cur.va[u][c], z + c * EPV);
         if (GATHER_G) Vec<T>::widen(cur.vg[u][c], gs + c * EPV);
       }
+      if constexpr (EDGE) {  // add_cast(a, e); chunks past the row: 0
+        float ev[NV];
+#pragma unroll
+        for (int c = 0; c < K; ++c) Vec<T>::widen(cur.ve[u][c], ev + c * EPV);
+#pragma unroll
+        for (int j = 0; j < NV; ++j) z[j] = round_to<T>(z[j] + ev[j]);
+      }
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         z[j] += kv[j];
@@ -968,6 +1188,29 @@ group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
       }
       if constexpr (MODE == MODE_FWD) {
         add_act_group<ACT, GW, NV>(z, cur.w[u], inv_h, p, acc);
+      } else if constexpr (MODE == MODE_SRC && EDGE) {
+        // the row's sum as add_vjp_group adds it, and the slot's scaled
+        // vjp rounded to T into its g_e row; a zero-scale slot, or a group
+        // past the row's last slot (w = 0), writes none
+        float v[NV];
+        vjp_group<ACT, GW, NV>(z, gs, inv_h, p, v);
+        const float w = cur.w[u];
+#pragma unroll
+        for (int j = 0; j < NV; ++j) acc[j] = fmaf(w, v[j], acc[j]);
+        if (w != 0.f) {
+          float* ge_row = g_e + (int64_t)cur.edge[u] * H;
+#pragma unroll
+          for (int c = 0; c < K; ++c) {
+            if (!ok[c]) continue;
+#pragma unroll
+            for (int i = 0; i < EPV; i += 4) {
+              const int j = c * EPV + i;
+              *reinterpret_cast<float4*>(ge_row + f[c] + i) = make_float4(
+                  round_to<T>(w * v[j]), round_to<T>(w * v[j + 1]),
+                  round_to<T>(w * v[j + 2]), round_to<T>(w * v[j + 3]));
+            }
+          }
+        }
       } else if constexpr (EMIT) {
         // the row's sum as MODE_GEQ adds it, and the slot's scaled vjp
         float v[NV];
@@ -1005,27 +1248,42 @@ group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
 }
 
 // Features a lane holds: a row-wise act takes the whole row in one pass
-// (1, 2, 3, 4 or 8; 0 past H = 256), an elementwise act chunks of up to 128.
+// (1, 2, 3, 4, 8 or 16; 0 past kRowRegMax: the wide path's passes, 8 a
+// chunk), an elementwise act chunks of up to 128.
 template <int ACT>
 int feat_per_lane(int H) {
   const int nf = (H + 31) / 32;
   if (!Rowwise<ACT>::value) return nf < 4 ? nf : 4;
   if (nf <= 4) return nf;
-  return nf <= 8 ? 8 : 0;
+  if (nf <= 8) return 8;
+  return H <= kRowRegMax ? 16 : 0;
 }
 
 dim3 grid_for(int R) { return dim3((R + kWarpsPerBlock - 1) / kWarpsPerBlock); }
 
-// LAUNCH(NF) for the NF that H needs; NF = 8 is built for row-wise acts only.
+// LAUNCH(NF, WIDE) for the NF that H needs; NF = 8 and 16 and the wide
+// path's passes are built for row-wise acts only.
 #define SIR_NF_SWITCH(ACT, H, LAUNCH)                  \
   switch (feat_per_lane<ACT>(H)) {                     \
-    case 1: LAUNCH(1); break;                          \
-    case 2: LAUNCH(2); break;                          \
-    case 3: LAUNCH(3); break;                          \
-    case 4: LAUNCH(4); break;                          \
+    case 1: LAUNCH(1, false); break;                   \
+    case 2: LAUNCH(2, false); break;                   \
+    case 3: LAUNCH(3, false); break;                   \
+    case 4: LAUNCH(4, false); break;                   \
     case 8:                                            \
       if constexpr (Rowwise<ACT>::value) {             \
-        LAUNCH(8);                                     \
+        LAUNCH(8, false);                              \
+        break;                                         \
+      }                                                \
+      return (int)cudaErrorInvalidValue;               \
+    case 16:                                           \
+      if constexpr (Rowwise<ACT>::value) {             \
+        LAUNCH(16, false);                             \
+        break;                                         \
+      }                                                \
+      return (int)cudaErrorInvalidValue;               \
+    case 0:                                            \
+      if constexpr (Rowwise<ACT>::value) {             \
+        LAUNCH(8, true);                               \
         break;                                         \
       }                                                \
       return (int)cudaErrorInvalidValue;               \
@@ -1039,26 +1297,42 @@ dim3 grid_for(int R) { return dim3((R + kWarpsPerBlock - 1) / kWarpsPerBlock); }
     case ACT_TANH: return CALL(ACT_TANH);                          \
     case ACT_CENTERED_RELU: return CALL(ACT_CENTERED_RELU);        \
     case ACT_SOFTMAX: return CALL(ACT_SOFTMAX);                    \
+    case ACT_GELU: return CALL(ACT_GELU);                          \
     default: return (int)cudaErrorInvalidValue;                    \
   }
 
-// The lane-group path's layout for a launch of `kernel` (a MODE) under the
-// act act_id, rows of H values of `bytes` bytes, with the tables and outputs
-// at ptrs (null ones unused), packed as C << 16 | GW << 8 | U; 0 where the
-// launch takes the first design: an act group_takes does not take in the
-// mode, H * bytes not a multiple of 16 (so also #5's second
-// half off 16 bytes from the first), a table off 16-byte alignment, or H
-// past 256. GW is the narrowest power of two that leaves a lane at most 4
-// chunks and group_max_values(kernel) values of a row.
-int group_layout(int kernel, int act_id, int H, int bytes,
+// Whether a launch under the act act_id at width H takes the wide path.
+bool wide_path(int act_id, int H) {
+  return (act_id == ACT_CENTERED_RELU || act_id == ACT_SOFTMAX) &&
+         H > kRowMax;
+}
+
+// ell_general_layout's code for the wide path: bit 30, the features a lane
+// holds in bits 16-23 and the chunks a row is walked in in bits 0-15 (one
+// up to kRowRegMax, the row in registers; past it chunks of 256 features,
+// the statistics from passes).
+int wide_code(int H) {
+  if (H <= kRowRegMax) return 1 << 30 | 16 << 16 | 1;
+  return 1 << 30 | 8 << 16 | (H + 32 * 8 - 1) / (32 * 8);
+}
+
+// The lane-group path's layout for a launch of `kernel` (a MODE; `edge`: its
+// edge form) under the act act_id, rows of H values of `bytes` bytes, with
+// the tables and outputs at ptrs (null ones unused), packed as C << 16 | GW
+// << 8 | U; 0 where the launch takes the first design: an act group_takes
+// does not take in the mode, H * bytes not a multiple of 16 (so also #5's
+// second half off 16 bytes from the first), a table off 16-byte alignment,
+// or H past kRowMax. GW is the narrowest power of two that leaves a lane
+// at most 4 chunks and group_max_values(kernel, edge) values of a row.
+int group_layout(int kernel, int act_id, int H, int bytes, bool edge,
                  const void* const* ptrs, int n) {
   if (kernel < MODE_GEQ || kernel > MODE_EMIT) return 0;
   if (!group_takes(kernel, act_id)) return 0;
-  if (H <= 0 || H > 256 || (H * bytes) % 16) return 0;
+  if (H <= 0 || H > kRowMax || (H * bytes) % 16) return 0;
   for (int i = 0; i < n; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15) return 0;
   const int C = H * bytes / 16, per_chunk = 16 / bytes;
-  const int most = group_max_values(kernel);
+  const int most = group_max_values(kernel, edge);
   auto fits = [&](int gw) {  // launch_group takes K <= 4, GW <= 16
     const int K = (C + gw - 1) / gw;
     return K * per_chunk <= most && K <= 4;
@@ -1086,47 +1360,56 @@ dim3 persistent_grid(Kernel kernel, int R, size_t smem_max, int& per_sm) {
   return dim3(most > 0 && most < all.x ? most : all.x);
 }
 
-template <int ACT, typename T, int GW, int K, int MODE>
-int launch_group_k(const void* a, const void* ga, const void* ka,
-                   const void* kg, const void* slot_idx, const void* scale,
-                   const void* row_key, const void* row_ptr, int R, int H,
-                   float p, void* out, void* g_slots, cudaStream_t st) {
-  const auto kernel = group_kernel<ACT, T, GW, K, MODE>;
+// A launch's arguments as the entries take them, by their role in the
+// lane-group kernel: a, the gathered table (ek for #1r, #3, #6; eq for
+// #4r; the [N, 2H] table for #5) and ga, the gathered cotangent (g for
+// #4r, the table's second half for #5); ka, the f32 key rows (eq for #1r,
+// #3, #6; ek for #4r, #5) and kg, the f32 key cotangent (g for #3, #6); e
+// and slot_edge, the edge forms' (null otherwise); out, the f32 [R, H]
+// rows; g_slots, #6's [S, H]; g_e, #4r's edge form's f32 [E_pad, H].
+struct Args {
+  const void *a, *ga, *ka, *kg, *e, *slot_idx, *slot_edge, *scale, *row_key,
+      *row_ptr;
+  int R, H;
+  float p;
+  void *out, *g_slots, *g_e;
+  cudaStream_t st;
+};
+
+template <int ACT, typename T, int GW, int K, int MODE, bool EDGE>
+int launch_group_k(const Args& x) {
+  const auto kernel = group_kernel<ACT, T, GW, K, MODE, EDGE>;
   constexpr size_t row_bytes =
       2 * (MODE == MODE_GEQ || MODE == MODE_EMIT ? 2 : 1) * sizeof(float);
-  const size_t smem = kWarpsPerBlock * row_bytes * H;
+  const size_t smem = kWarpsPerBlock * row_bytes * x.H;
   static int per_sm = -1;
-  kernel<<<persistent_grid(kernel, R, kWarpsPerBlock * row_bytes * 256,
+  kernel<<<persistent_grid(kernel, x.R, kWarpsPerBlock * row_bytes * kRowMax,
                            per_sm),
-           kWarpsPerBlock * 32, smem, st>>>(
-      (const T*)a, (const T*)ga, (const float*)ka, (const float*)kg,
-      (const int*)slot_idx, (const float*)scale, (const int*)row_key,
-      (const int*)row_ptr, R, H, p, (float*)out, (T*)g_slots);
+           kWarpsPerBlock * 32, smem, x.st>>>(
+      (const T*)x.a, (const T*)x.ga, (const float*)x.ka, (const float*)x.kg,
+      (const T*)x.e, (const int*)x.slot_idx, (const int*)x.slot_edge,
+      (const float*)x.scale, (const int*)x.row_key, (const int*)x.row_ptr,
+      x.R, x.H, x.p, (float*)x.out, (T*)x.g_slots, (float*)x.g_e);
   return (int)cudaGetLastError();
 }
 
 // The K chunks a lane that group_layout can give a group of GW lanes in
-// MODE: at most 4 chunks and group_max_values(MODE) values a lane, and for
-// GW > 1 more than the half-width group takes (a row of GW K chunks needs
-// 2K chunks a lane there). Only these are built.
-template <typename T, int GW, int K, int MODE>
+// MODE (EDGE: its edge form): at most 4 chunks and group_max_values(MODE,
+// EDGE) values a lane, and for GW > 1 more than the half-width group takes
+// (a row of GW K chunks needs 2K chunks a lane there). Only these are built.
+template <typename T, int GW, int K, int MODE, bool EDGE>
 constexpr bool group_shape() {
-  constexpr int per_chunk = Vec<T>::N, most = group_max_values(MODE);
+  constexpr int per_chunk = Vec<T>::N, most = group_max_values(MODE, EDGE);
   return K * per_chunk <= most && K <= 4 &&
          (GW == 1 || 2 * K * per_chunk > most || 2 * K > 4);
 }
 
-template <int ACT, typename T, int GW, int MODE>
-int launch_group_gw(int K, const void* a, const void* ga, const void* ka,
-                    const void* kg, const void* slot_idx, const void* scale,
-                    const void* row_key, const void* row_ptr, int R, int H,
-                    float p, void* out, void* g_slots, cudaStream_t st) {
-#define SIR_ARGS \
-  a, ga, ka, kg, slot_idx, scale, row_key, row_ptr, R, H, p, out, g_slots, st
+template <int ACT, typename T, int GW, int MODE, bool EDGE>
+int launch_group_gw(int K, const Args& x) {
 #define SIR_CASE(KK)                                                      \
   case KK:                                                                \
-    if constexpr (group_shape<T, GW, KK, MODE>())                               \
-      return launch_group_k<ACT, T, GW, KK, MODE>(SIR_ARGS);              \
+    if constexpr (group_shape<T, GW, KK, MODE, EDGE>())                   \
+      return launch_group_k<ACT, T, GW, KK, MODE, EDGE>(x);               \
     break;
   switch (K) {
     SIR_CASE(1)
@@ -1135,49 +1418,32 @@ int launch_group_gw(int K, const void* a, const void* ga, const void* ka,
     SIR_CASE(4)
   }
 #undef SIR_CASE
-#undef SIR_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 // The lane-group kernel for `layout` (from group_layout, not 0).
-template <int ACT, typename T, int MODE>
-int launch_group_t(const void* a, const void* ga, const void* ka,
-                   const void* kg, const void* slot_idx, const void* scale,
-                   const void* row_key, const void* row_ptr, int R, int H,
-                   float p, int layout, void* out, void* g_slots,
-                   cudaStream_t st) {
+template <int ACT, typename T, int MODE, bool EDGE>
+int launch_group_t(int layout, const Args& x) {
   const int C = layout >> 16, gw = (layout >> 8) & 0xff;
   const int K = (C + gw - 1) / gw;
-#define SIR_ARGS                                                        \
-  K, a, ga, ka, kg, slot_idx, scale, row_key, row_ptr, R, H, p, out, g_slots, \
-      st
   switch (gw) {
-    case 1: return launch_group_gw<ACT, T, 1, MODE>(SIR_ARGS);
-    case 2: return launch_group_gw<ACT, T, 2, MODE>(SIR_ARGS);
-    case 4: return launch_group_gw<ACT, T, 4, MODE>(SIR_ARGS);
-    case 8: return launch_group_gw<ACT, T, 8, MODE>(SIR_ARGS);
-    case 16: return launch_group_gw<ACT, T, 16, MODE>(SIR_ARGS);
+    case 1: return launch_group_gw<ACT, T, 1, MODE, EDGE>(K, x);
+    case 2: return launch_group_gw<ACT, T, 2, MODE, EDGE>(K, x);
+    case 4: return launch_group_gw<ACT, T, 4, MODE, EDGE>(K, x);
+    case 8: return launch_group_gw<ACT, T, 8, MODE, EDGE>(K, x);
+    case 16: return launch_group_gw<ACT, T, 16, MODE, EDGE>(K, x);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef SIR_ARGS
 }
 
-// The lane-group kernel of MODE for the act id and the gathered type (bf16
-// when bf16 != 0, else f32); an elementwise act is built only where
-// group_takes it. g_slots: MODE_EMIT's [S, H] output, null in the other
-// modes.
-template <int MODE>
-int launch_group(int act, int bf16, const void* a, const void* ga,
-                 const void* ka, const void* kg, const void* slot_idx,
-                 const void* scale, const void* row_key, const void* row_ptr,
-                 int R, int H, float p, int layout, void* out, void* g_slots,
-                 cudaStream_t st) {
-#define SIR_ARGS                                                        \
-  a, ga, ka, kg, slot_idx, scale, row_key, row_ptr, R, H, p, layout, out, \
-      g_slots, st
+// The lane-group kernel of MODE (EDGE: its edge form) for the act id and
+// the gathered type (bf16 when bf16 != 0, else f32); an elementwise act is
+// built only where group_takes it.
+template <int MODE, bool EDGE>
+int launch_group(int act, int bf16, int layout, const Args& x) {
 #define SIR_CALL(A)                                                  \
-  (bf16 ? launch_group_t<A, __nv_bfloat16, MODE>(SIR_ARGS)           \
-        : launch_group_t<A, float, MODE>(SIR_ARGS))
+  (bf16 ? launch_group_t<A, __nv_bfloat16, MODE, EDGE>(layout, x)    \
+        : launch_group_t<A, float, MODE, EDGE>(layout, x))
   switch (act) {
     case ACT_CENTERED_RELU: return SIR_CALL(ACT_CENTERED_RELU);
     case ACT_SOFTMAX: return SIR_CALL(ACT_SOFTMAX);
@@ -1188,56 +1454,54 @@ int launch_group(int act, int bf16, const void* a, const void* ga,
     case ACT_TANH:
       if constexpr (group_takes(MODE, ACT_TANH)) return SIR_CALL(ACT_TANH);
       break;
+    case ACT_GELU:
+      if constexpr (group_takes(MODE, ACT_GELU)) return SIR_CALL(ACT_GELU);
+      break;
   }
 #undef SIR_CALL
-#undef SIR_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 template <int ACT, typename TK>
-int launch_act_reduce(const void* eq, const void* ek, const void* slot_src,
-                      const void* scale, const void* row_key,
-                      const void* row_ptr, int R, int H, float p, void* rows,
-                      cudaStream_t st) {
-#define SIR_LAUNCH(NF)                                                       \
-  act_reduce_rw_kernel<ACT, NF, TK>                                          \
-      <<<grid_for(R), kWarpsPerBlock * 32, 0, st>>>(                         \
-          (const float*)eq, (const TK*)ek, (const int*)slot_src,             \
-          (const float*)scale, (const int*)row_key, (const int*)row_ptr, R,  \
-          H, p, (float*)rows)
-  SIR_NF_SWITCH(ACT, H, SIR_LAUNCH)
+int launch_act_reduce(const Args& x) {
+#define SIR_LAUNCH(NF, WIDE)                                                 \
+  act_reduce_rw_kernel<ACT, NF, WIDE, TK>                                    \
+      <<<grid_for(x.R), kWarpsPerBlock * 32, 0, x.st>>>(                     \
+          (const float*)x.ka, (const TK*)x.a, (const TK*)x.e,                \
+          (const int*)x.slot_idx, (const int*)x.slot_edge,                   \
+          (const float*)x.scale, (const int*)x.row_key,                      \
+          (const int*)x.row_ptr, x.R, x.H, x.p, (float*)x.out)
+  SIR_NF_SWITCH(ACT, x.H, SIR_LAUNCH)
 #undef SIR_LAUNCH
   return (int)cudaGetLastError();
 }
 
 template <int ACT, typename TK, typename TG, bool EMIT>
-int launch_geq(const void* eq, const void* ek, const void* g,
-               const void* slot_src, const void* scale, const void* row_key,
-               const void* row_ptr, int R, int H, float p, void* geq_rows,
-               void* g_slots, cudaStream_t st) {
-#define SIR_LAUNCH(NF)                                                       \
-  geq_kernel<ACT, NF, TK, TG, EMIT>                                          \
-      <<<grid_for(R), kWarpsPerBlock * 32, 0, st>>>(                         \
-          (const float*)eq, (const TK*)ek, (const float*)g,                  \
-          (const int*)slot_src, (const float*)scale, (const int*)row_key,    \
-          (const int*)row_ptr, R, H, p, (float*)geq_rows, (TG*)g_slots)
-  SIR_NF_SWITCH(ACT, H, SIR_LAUNCH)
+int launch_geq(const Args& x) {
+#define SIR_LAUNCH(NF, WIDE)                                                 \
+  geq_kernel<ACT, NF, WIDE, TK, TG, EMIT>                                    \
+      <<<grid_for(x.R), kWarpsPerBlock * 32, 0, x.st>>>(                     \
+          (const float*)x.ka, (const TK*)x.a, (const TK*)x.e,                \
+          (const float*)x.kg, (const int*)x.slot_idx,                        \
+          (const int*)x.slot_edge, (const float*)x.scale,                    \
+          (const int*)x.row_key, (const int*)x.row_ptr, x.R, x.H, x.p,       \
+          (float*)x.out, (TG*)x.g_slots)
+  SIR_NF_SWITCH(ACT, x.H, SIR_LAUNCH)
 #undef SIR_LAUNCH
   return (int)cudaGetLastError();
 }
 
 template <int ACT, typename T, bool FUSED>
-int launch_src_bwd(const void* eq, const void* g, const void* ek,
-                   const void* slot_dst, const void* scale,
-                   const void* row_key, const void* row_ptr, int R, int H,
-                   float p, void* out, cudaStream_t st) {
-#define SIR_LAUNCH(NF)                                                       \
-  src_bwd_rw_kernel<ACT, NF, T, FUSED>                                       \
-      <<<grid_for(R), kWarpsPerBlock * 32, 0, st>>>(                         \
-          (const T*)eq, (const T*)g, (const float*)ek, (const int*)slot_dst, \
-          (const float*)scale, (const int*)row_key, (const int*)row_ptr, R,  \
-          H, p, (float*)out)
-  SIR_NF_SWITCH(ACT, H, SIR_LAUNCH)
+int launch_src_bwd(const Args& x) {
+#define SIR_LAUNCH(NF, WIDE)                                                 \
+  src_bwd_rw_kernel<ACT, NF, WIDE, T, FUSED>                                 \
+      <<<grid_for(x.R), kWarpsPerBlock * 32, 0, x.st>>>(                     \
+          (const T*)x.a, (const T*)x.ga, (const T*)x.e, (const float*)x.ka,  \
+          (const int*)x.slot_idx, (const int*)x.slot_edge,                   \
+          (const float*)x.scale, (const int*)x.row_key,                      \
+          (const int*)x.row_ptr, x.R, x.H, x.p, (float*)x.out,               \
+          (float*)x.g_e)
+  SIR_NF_SWITCH(ACT, x.H, SIR_LAUNCH)
 #undef SIR_LAUNCH
   return (int)cudaGetLastError();
 }
@@ -1249,16 +1513,69 @@ const void* second_half(const void* both, int H, int bytes) {
                                        (uintptr_t)H * bytes);
 }
 
+// #1r and its edge form (x.e not null); ek (x.a) and e are f32, or bf16
+// when bf16 != 0.
+int act_reduce_entry(const Args& x, int bf16, int act) {
+  if (x.R <= 0 || x.H <= 0) return (int)cudaErrorInvalidValue;
+  const bool edge = x.e != nullptr;
+  const void* tables[] = {x.ka, x.a, x.e, x.out};
+  const int layout =
+      group_layout(MODE_FWD, act, x.H, bf16 ? 2 : 4, edge, tables, 4);
+  if (layout)
+    return edge ? launch_group<MODE_FWD, true>(act, bf16, layout, x)
+                : launch_group<MODE_FWD, false>(act, bf16, layout, x);
+#define SIR_CALL(A)                                            \
+  (bf16 ? launch_act_reduce<A, __nv_bfloat16>(x)               \
+        : launch_act_reduce<A, float>(x))
+  SIR_ACT_SWITCH(act, SIR_CALL)
+#undef SIR_CALL
+}
+
+// #3 and its edge form; as act_reduce_entry, with g (x.kg) f32.
+int geq_entry(const Args& x, int bf16, int act) {
+  if (x.R <= 0 || x.H <= 0) return (int)cudaErrorInvalidValue;
+  const bool edge = x.e != nullptr;
+  const void* tables[] = {x.ka, x.a, x.e, x.kg, x.out};
+  const int layout =
+      group_layout(MODE_GEQ, act, x.H, bf16 ? 2 : 4, edge, tables, 5);
+  if (layout)
+    return edge ? launch_group<MODE_GEQ, true>(act, bf16, layout, x)
+                : launch_group<MODE_GEQ, false>(act, bf16, layout, x);
+#define SIR_CALL(A)                                                  \
+  (bf16 ? launch_geq<A, __nv_bfloat16, float, false>(x)              \
+        : launch_geq<A, float, float, false>(x))
+  SIR_ACT_SWITCH(act, SIR_CALL)
+#undef SIR_CALL
+}
+
+// #4r and its edge form; eq (x.a), g (x.ga) and e share one type (f32, or
+// bf16 when bf16 != 0); ek (x.ka) and g_e are f32, g_e zeroed.
+int src_bwd_entry(const Args& x, int bf16, int act) {
+  if (x.R <= 0 || x.H <= 0) return (int)cudaErrorInvalidValue;
+  const bool edge = x.e != nullptr;
+  const void* tables[] = {x.a, x.ga, x.e, x.ka, x.out, x.g_e};
+  const int layout =
+      group_layout(MODE_SRC, act, x.H, bf16 ? 2 : 4, edge, tables, 6);
+  if (layout)
+    return edge ? launch_group<MODE_SRC, true>(act, bf16, layout, x)
+                : launch_group<MODE_SRC, false>(act, bf16, layout, x);
+#define SIR_CALL(A)                                                   \
+  (bf16 ? launch_src_bwd<A, __nv_bfloat16, false>(x)                  \
+        : launch_src_bwd<A, float, false>(x))
+  SIR_ACT_SWITCH(act, SIR_CALL)
+#undef SIR_CALL
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 when
-// the launch was accepted), or cudaErrorInvalidValue for an unknown act or a
-// row-wise act with H > 256. Pointers are device pointers; eq, g (but in
-// ell_src_bwd_*) and the row outputs are f32, the index arrays int32, the
-// scales f32; `p` is the act's parameter (leaky_relu's slope, the centered
-// relu's alpha).
+// the launch was accepted), or cudaErrorInvalidValue for an unknown act.
+// Pointers are device pointers; eq, g (but in ell_src_bwd_*) and the row
+// outputs are f32, the index arrays int32, the scales f32; `p` is the act's
+// parameter (leaky_relu's slope, the centered relu's alpha). The edge forms
+// take e [E_pad, H] in the gathered table's type and slot_edge [S] int32.
 
 // ek is f32, or bf16 when ek_bf16 != 0.
 int ell_act_reduce_rowwise(const void* eq, const void* ek, int ek_bf16,
@@ -1266,22 +1583,24 @@ int ell_act_reduce_rowwise(const void* eq, const void* ek, int ek_bf16,
                            const void* row_key, const void* row_ptr, int R,
                            int H, int act, float p, void* rows,
                            void* stream) {
-  if (R <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const void* tables[] = {eq, ek, rows};
-  const int layout =
-      group_layout(MODE_FWD, act, H, ek_bf16 ? 2 : 4, tables, 3);
-  if (layout)
-    return launch_group<MODE_FWD>(act, ek_bf16, ek, nullptr, eq, nullptr,
-                                  slot_src, scale, row_key, row_ptr, R, H, p,
-                                  layout, rows, nullptr, st);
-#define SIR_ARGS eq, ek, slot_src, scale, row_key, row_ptr, R, H, p, rows, st
-#define SIR_CALL(A)                                              \
-  (ek_bf16 ? launch_act_reduce<A, __nv_bfloat16>(SIR_ARGS)       \
-           : launch_act_reduce<A, float>(SIR_ARGS))
-  SIR_ACT_SWITCH(act, SIR_CALL)
-#undef SIR_CALL
-#undef SIR_ARGS
+  return act_reduce_entry(
+      Args{ek, nullptr, eq, nullptr, nullptr, slot_src, nullptr, scale,
+           row_key, row_ptr, R, H, p, rows, nullptr, nullptr,
+           (cudaStream_t)stream},
+      ek_bf16, act);
+}
+
+int ell_act_reduce_rowwise_edge(const void* eq, const void* ek,
+                                const void* e, int ek_bf16,
+                                const void* slot_src, const void* slot_edge,
+                                const void* scale, const void* row_key,
+                                const void* row_ptr, int R, int H, int act,
+                                float p, void* rows, void* stream) {
+  if (e == nullptr || slot_edge == nullptr) return (int)cudaErrorInvalidValue;
+  return act_reduce_entry(
+      Args{ek, nullptr, eq, nullptr, e, slot_src, slot_edge, scale, row_key,
+           row_ptr, R, H, p, rows, nullptr, nullptr, (cudaStream_t)stream},
+      ek_bf16, act);
 }
 
 // ek is f32, or bf16 when ek_bf16 != 0; g [N, H] f32.
@@ -1289,23 +1608,25 @@ int ell_geq_reduce(const void* eq, const void* ek, int ek_bf16,
                    const void* g, const void* slot_src, const void* scale,
                    const void* row_key, const void* row_ptr, int R, int H,
                    int act, float p, void* geq_rows, void* stream) {
-  if (R <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const void* tables[] = {eq, ek, g, geq_rows};
-  const int layout =
-      group_layout(MODE_GEQ, act, H, ek_bf16 ? 2 : 4, tables, 4);
-  if (layout)
-    return launch_group<MODE_GEQ>(act, ek_bf16, ek, nullptr, eq, g, slot_src,
-                                  scale, row_key, row_ptr, R, H, p, layout,
-                                  geq_rows, nullptr, st);
-#define SIR_ARGS \
-  eq, ek, g, slot_src, scale, row_key, row_ptr, R, H, p, geq_rows, nullptr, st
-#define SIR_CALL(A)                                                       \
-  (ek_bf16 ? launch_geq<A, __nv_bfloat16, float, false>(SIR_ARGS)         \
-           : launch_geq<A, float, float, false>(SIR_ARGS))
-  SIR_ACT_SWITCH(act, SIR_CALL)
-#undef SIR_CALL
-#undef SIR_ARGS
+  return geq_entry(
+      Args{ek, nullptr, eq, g, nullptr, slot_src, nullptr, scale, row_key,
+           row_ptr, R, H, p, geq_rows, nullptr, nullptr,
+           (cudaStream_t)stream},
+      ek_bf16, act);
+}
+
+int ell_geq_reduce_edge(const void* eq, const void* ek, const void* e,
+                        int ek_bf16, const void* g, const void* slot_src,
+                        const void* slot_edge, const void* scale,
+                        const void* row_key, const void* row_ptr, int R,
+                        int H, int act, float p, void* geq_rows,
+                        void* stream) {
+  if (e == nullptr || slot_edge == nullptr) return (int)cudaErrorInvalidValue;
+  return geq_entry(
+      Args{ek, nullptr, eq, g, e, slot_src, slot_edge, scale, row_key,
+           row_ptr, R, H, p, geq_rows, nullptr, nullptr,
+           (cudaStream_t)stream},
+      ek_bf16, act);
 }
 
 // ell_geq_reduce plus g_slots [S, H], f32, or bf16 when gz_bf16 != 0; the
@@ -1317,27 +1638,22 @@ int ell_act_reduce_bwd(const void* eq, const void* ek, int ek_bf16,
                        int gz_bf16, void* geq_rows, void* g_slots,
                        void* stream) {
   if (R <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+  const Args x{ek, nullptr, eq, g, nullptr, slot_src, nullptr, scale,
+               row_key, row_ptr, R, H, p, geq_rows, g_slots, nullptr,
+               (cudaStream_t)stream};
   const void* tables[] = {eq, ek, g, g_slots, geq_rows};
   const int layout =
       !ek_bf16 == !gz_bf16
-          ? group_layout(MODE_EMIT, act, H, ek_bf16 ? 2 : 4, tables, 5)
+          ? group_layout(MODE_EMIT, act, H, ek_bf16 ? 2 : 4, false, tables, 5)
           : 0;
-  if (layout)
-    return launch_group<MODE_EMIT>(act, ek_bf16, ek, nullptr, eq, g, slot_src,
-                                   scale, row_key, row_ptr, R, H, p, layout,
-                                   geq_rows, g_slots, st);
-#define SIR_ARGS \
-  eq, ek, g, slot_src, scale, row_key, row_ptr, R, H, p, geq_rows, g_slots, st
+  if (layout) return launch_group<MODE_EMIT, false>(act, ek_bf16, layout, x);
 #define SIR_CALL(A)                                                          \
-  (ek_bf16 ? (gz_bf16 ? launch_geq<A, __nv_bfloat16, __nv_bfloat16, true>(   \
-                            SIR_ARGS)                                        \
-                      : launch_geq<A, __nv_bfloat16, float, true>(SIR_ARGS)) \
-           : (gz_bf16 ? launch_geq<A, float, __nv_bfloat16, true>(SIR_ARGS)  \
-                      : launch_geq<A, float, float, true>(SIR_ARGS)))
+  (ek_bf16 ? (gz_bf16 ? launch_geq<A, __nv_bfloat16, __nv_bfloat16, true>(x) \
+                      : launch_geq<A, __nv_bfloat16, float, true>(x))        \
+           : (gz_bf16 ? launch_geq<A, float, __nv_bfloat16, true>(x)         \
+                      : launch_geq<A, float, float, true>(x)))
   SIR_ACT_SWITCH(act, SIR_CALL)
 #undef SIR_CALL
-#undef SIR_ARGS
 }
 
 // eq and g share one type (f32, or bf16 when bf16 != 0); ek is f32.
@@ -1346,21 +1662,25 @@ int ell_src_bwd_rowwise(const void* eq, const void* g, int bf16,
                         const void* scale, const void* row_key,
                         const void* row_ptr, int R, int H, int act, float p,
                         void* out, void* stream) {
-  if (R <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const void* tables[] = {eq, g, ek, out};
-  const int layout = group_layout(MODE_SRC, act, H, bf16 ? 2 : 4, tables, 4);
-  if (layout)
-    return launch_group<MODE_SRC>(act, bf16, eq, g, ek, nullptr, slot_dst,
-                                  scale, row_key, row_ptr, R, H, p, layout,
-                                  out, nullptr, st);
-#define SIR_ARGS eq, g, ek, slot_dst, scale, row_key, row_ptr, R, H, p, out, st
-#define SIR_CALL(A)                                                   \
-  (bf16 ? launch_src_bwd<A, __nv_bfloat16, false>(SIR_ARGS)           \
-        : launch_src_bwd<A, float, false>(SIR_ARGS))
-  SIR_ACT_SWITCH(act, SIR_CALL)
-#undef SIR_CALL
-#undef SIR_ARGS
+  return src_bwd_entry(
+      Args{eq, g, ek, nullptr, nullptr, slot_dst, nullptr, scale, row_key,
+           row_ptr, R, H, p, out, nullptr, nullptr, (cudaStream_t)stream},
+      bf16, act);
+}
+
+// eq, g and e share one type; g_e [E_pad, H] f32, zeroed by the caller.
+int ell_src_bwd_rowwise_edge(const void* eq, const void* g, const void* e,
+                             int bf16, const void* ek, const void* slot_dst,
+                             const void* slot_edge, const void* scale,
+                             const void* row_key, const void* row_ptr, int R,
+                             int H, int act, float p, void* out, void* g_e,
+                             void* stream) {
+  if (e == nullptr || slot_edge == nullptr || g_e == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return src_bwd_entry(
+      Args{eq, g, ek, nullptr, e, slot_dst, slot_edge, scale, row_key,
+           row_ptr, R, H, p, out, nullptr, g_e, (cudaStream_t)stream},
+      bf16, act);
 }
 
 // both [N, 2H] (eq | g) is f32, or bf16 when bf16 != 0; ek [N, H] f32.
@@ -1369,23 +1689,19 @@ int ell_src_bwd_fused(const void* both, int bf16, const void* ek,
                       const void* row_key, const void* row_ptr, int R, int H,
                       int act, float p, void* out, void* stream) {
   if (R <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   const void* g = second_half(both, H, bf16 ? 2 : 4);
+  const Args x{both, g, ek, nullptr, nullptr, slot_dst, nullptr, scale,
+               row_key, row_ptr, R, H, p, out, nullptr, nullptr,
+               (cudaStream_t)stream};
   const void* tables[] = {both, g, ek, out};
   const int layout =
-      group_layout(MODE_FUSED, act, H, bf16 ? 2 : 4, tables, 4);
-  if (layout)
-    return launch_group<MODE_FUSED>(act, bf16, both, g, ek, nullptr,
-                                    slot_dst, scale, row_key, row_ptr, R, H,
-                                    p, layout, out, nullptr, st);
-#define SIR_ARGS \
-  both, nullptr, ek, slot_dst, scale, row_key, row_ptr, R, H, p, out, st
+      group_layout(MODE_FUSED, act, H, bf16 ? 2 : 4, false, tables, 4);
+  if (layout) return launch_group<MODE_FUSED, false>(act, bf16, layout, x);
 #define SIR_CALL(A)                                                   \
-  (bf16 ? launch_src_bwd<A, __nv_bfloat16, true>(SIR_ARGS)            \
-        : launch_src_bwd<A, float, true>(SIR_ARGS))
+  (bf16 ? launch_src_bwd<A, __nv_bfloat16, true>(x)                   \
+        : launch_src_bwd<A, float, true>(x))
   SIR_ACT_SWITCH(act, SIR_CALL)
 #undef SIR_CALL
-#undef SIR_ARGS
 }
 
 // Launches nothing: the path a launch of `kernel` (0 ell_geq_reduce, 1
@@ -1396,14 +1712,31 @@ int ell_src_bwd_fused(const void* both, int bf16, const void* ek,
 // is given (null ones unused; for ell_src_bwd_fused p0 is the [N, 2H]
 // table, whose second half is checked too, as the entry does). Returns C
 // << 16 | GW << 8 | U for the lane-group path (C 16-byte chunks a row,
-// groups of GW lanes, U slots in flight a group), 0 for the first design.
+// groups of GW lanes, U slots in flight a group), 1 << 30 | F << 16 | n
+// for the wide path (a row-wise act past H = 256: F features a lane, n
+// chunks a row; see wide_code), 0 for the first design.
 int ell_general_layout(int kernel, int H, int bf16, int act, const void* p0,
                        const void* p1, const void* p2, const void* p3,
                        const void* p4) {
+  if (wide_path(act, H)) return wide_code(H);
   const int bytes = bf16 ? 2 : 4;
   const void* ptrs[] = {p0, p1, p2, p3, p4, second_half(p0, H, bytes)};
-  return group_layout(kernel, act, H, bytes, ptrs,
+  return group_layout(kernel, act, H, bytes, false, ptrs,
                       kernel == MODE_FUSED ? 6 : 5);
+}
+
+// ell_general_layout for the edge forms (0 ell_geq_reduce_edge, 1
+// ell_src_bwd_rowwise_edge, 2 ell_act_reduce_rowwise_edge; -1 for another
+// kernel), with up to six tables and outputs (their e and, for #4r, g_e
+// among them).
+int ell_general_edge_layout(int kernel, int H, int bf16, int act,
+                            const void* p0, const void* p1, const void* p2,
+                            const void* p3, const void* p4, const void* p5) {
+  if (kernel != MODE_GEQ && kernel != MODE_SRC && kernel != MODE_FWD)
+    return -1;
+  if (wide_path(act, H)) return wide_code(H);
+  const void* ptrs[] = {p0, p1, p2, p3, p4, p5};
+  return group_layout(kernel, act, H, bf16 ? 2 : 4, true, ptrs, 6);
 }
 
 const char* ell_general_error_string(int code) {

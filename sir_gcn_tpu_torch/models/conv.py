@@ -103,11 +103,14 @@ class SIREConv(nn.Module):
     ``sir_aggregate`` the raw features and W_E [De, H], so the fused-edge
     kernels form the projection themselves, under a DropEdge ``edge_mask``
     too; otherwise it forms e, applies dropout and takes the ``e`` route.
-    Max applies W_R per edge before the reduce, as ``SIRConv`` does, with
-    the explicit ``relation_kernel`` [H, O] and ``relation_bias`` [O]: on a
-    plain ``GraphBatch`` through the CSR aggregate; on a FastGraph a
-    registry sigma raises, since the edge-term forms of the max kernels
-    are not yet ported."""
+    A registry sigma that is not elementwise (row-wise, or declared
+    ``sir_elementwise=False``) takes the general route's edge-term kernels
+    with e = e_basis @ W_E formed by ``sir_aggregate``, at any width, as
+    JAX's ``sir_aggregate`` does. Max applies W_R per edge before the
+    reduce, as ``SIRConv`` does, with the explicit ``relation_kernel``
+    [H, O] and ``relation_bias`` [O]: on a plain ``GraphBatch`` through the
+    CSR aggregate; on a FastGraph a registry sigma raises, since the
+    edge-term forms of the max kernels are not yet ported."""
 
     def __init__(self, input_dim: int, edge_dim: int, hidden_dim: int,
                  output_dim: int, activation, dropout: float = 0.0,

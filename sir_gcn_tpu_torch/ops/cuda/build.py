@@ -28,8 +28,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Flags of one source on top of NVCC_FLAGS. The max kernels test products
 # for equality across kernels, so nvcc may fuse no multiply-add of its own
-# around them (the activations feeding the tensor-core products).
-EXTRA_FLAGS = {"ell_max_kernels": ["--fmad=false"]}
+# around them (the activations feeding the tensor-core products). The
+# general source holds some 640 kernels: its optimizer runs on as many
+# threads as the host has (split compilation), so its build is not the one
+# all the others wait for.
+EXTRA_FLAGS = {"ell_max_kernels": ["--fmad=false"],
+               "ell_general_kernels": ["--split-compile=0"]}
 
 _LIBS: dict = {}
 _LOGS: dict = {}

@@ -40,7 +40,8 @@ LAUNCHES = {"ell_act_reduce": 0, "ell_act_reduce2": 0, "ell_src_bwd": 0,
             "ell_max_bwd": 0, "ell_scaled_reduce": 0,
             "ell_act_reduce_rowwise": 0, "ell_geq_reduce": 0,
             "ell_src_bwd_rowwise": 0, "ell_src_bwd_fused": 0,
-            "ell_act_reduce_bwd": 0,
+            "ell_act_reduce_bwd": 0, "ell_act_reduce_rowwise_edge": 0,
+            "ell_geq_reduce_edge": 0, "ell_src_bwd_rowwise_edge": 0,
             # the timing lab's kernels (ops/cuda/lab.py)
             "lab_v1": 0, "lab_v2": 0, "lab_v3": 0, "lab_v4": 0, "lab_v5": 0,
             "lab_v6": 0, "lab_copy": 0, "lab_copy32": 0, "lab_pass": 0,
@@ -97,6 +98,13 @@ _ARGTYPES = {
                                 _I, _F, _VP, _VP],
         "ell_src_bwd_fused": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                               _F, _VP, _VP],
+        "ell_act_reduce_rowwise_edge": [_VP, _VP, _VP, _I, _VP, _VP, _VP,
+                                        _VP, _VP, _I, _I, _I, _F, _VP, _VP],
+        "ell_geq_reduce_edge": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP,
+                                _VP, _I, _I, _I, _F, _VP, _VP],
+        "ell_src_bwd_rowwise_edge": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _VP,
+                                     _VP, _VP, _I, _I, _I, _F, _VP, _VP,
+                                     _VP],
     },
     "lab_kernels": {
         **{name: [_VP, _VP, _VP, _I, _I, _I, _I, _F, _VP, _VP]
@@ -116,8 +124,9 @@ _QUERIES = {"ell_kernels": {"ell_layout": [_I] * 3 + [_VP] * 6},
                                 "ell_max_layout": [_I] * 2},
             "ell_edge_kernels": {"ell_edge_src_bwd_blocks": [_I] * 5,
                                  "ell_edge_layout": [_I] * 4},
-            "ell_general_kernels": {"ell_general_layout": [_I] * 4
-                                    + [_VP] * 5},
+            "ell_general_kernels": {
+                "ell_general_layout": [_I] * 4 + [_VP] * 5,
+                "ell_general_edge_layout": [_I] * 4 + [_VP] * 6},
             "lab_kernels": {"lab_gather_warps": [_I] * 3}}
 _ERROR_STRING = {"ell_kernels": "ell_error_string",
                  "ell_max_kernels": "ell_max_error_string",
@@ -126,7 +135,8 @@ _ERROR_STRING = {"ell_kernels": "ell_error_string",
                  "lab_kernels": "lab_error_string"}
 _LIBRARY_OF = {entry: lib for lib, entries in _ARGTYPES.items()
                for entry in entries}
-# the kernels that take any sigma of the registry, a row-wise one included
+# the kernels that take any sigma of the registry, a row-wise one included,
+# at any width
 _GENERAL = tuple(_ARGTYPES["ell_general_kernels"])
 
 _LIBS: dict = {}
@@ -206,11 +216,6 @@ def _check_plan(slot_node, scale, row_key, row_ptr, device):
                          f"{row_key.shape[0]} rows")
 
 
-# a row-wise sigma keeps a slot's whole row in one warp's registers, at
-# most 8 features a lane
-ROWWISE_MAX_H = 256
-
-
 def _need_diagonal(name: str, act) -> None:
     """Raise for a sigma that couples a row's features: ``name`` computes
     sigma' elementwise."""
@@ -218,22 +223,6 @@ def _need_diagonal(name: str, act) -> None:
         raise ValueError(f"{name} needs an elementwise sigma; {act.name} "
                          f"couples a row's features (the general route's "
                          f"kernels take it)")
-
-
-def _check_general(name: str, act, h: int, device: torch.device) -> None:
-    """The sigma of a general-route kernel: a row-wise one keeps a slot's
-    row in one warp, at most ROWWISE_MAX_H wide; on the card, one that
-    ``csrc/ell_general_kernels.cu`` has a branch for (it raises before the
-    launch for erf-GELU, which only the elementwise, edge and max kernels
-    take)."""
-    if not act.diagonal and h > ROWWISE_MAX_H:
-        raise ValueError(f"{name}: the row-wise sigma {act.name} needs a "
-                         f"slot's whole row in one warp; H = {h} exceeds "
-                         f"{ROWWISE_MAX_H}")
-    if on_cuda(device) and not act.general_kernels:
-        raise NotImplementedError(
-            f"{name}: the general route's kernels do not take sigma "
-            f"{act.name} yet (ROADMAP.md Queue B part 1 item 1)")
 
 
 def on_cuda(device: torch.device) -> bool:
@@ -351,9 +340,7 @@ def _check_fwd(name, eq, ek, slot_src, scale, row_key, row_ptr, act):
         raise ValueError(f"eq {tuple(eq.shape)} and ek {tuple(ek.shape)} "
                          f"differ in width")
     _check_plan(slot_src, scale, row_key, row_ptr, device)
-    if name in _GENERAL:
-        _check_general(name, act, eq.shape[1], device)
-    else:
+    if name not in _GENERAL:
         _need_diagonal(name, act)
     return device
 
@@ -482,9 +469,7 @@ def _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr):
 
 def _src_bwd(name, eq, g, ek, slot_dst, scale, row_key, row_ptr, act):
     device, r, h = _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr)
-    if name in _GENERAL:
-        _check_general(name, act, h, device)
-    else:
+    if name not in _GENERAL:
         _need_diagonal(name, act)
     if not on_cuda(device):
         return ell_src_bwd_plain(eq, g, ek, slot_dst, scale, row_key,
@@ -523,8 +508,16 @@ def ell_src_bwd_edge(eq, g, ek, slot_dst, scale, row_key, row_ptr, act, e,
     the kernel writes each slot's g_z straight into row slot_edge[s] of a
     zeroed g_e, so no [S, H] table is written. Bound: bytes, the f32 g_e
     write the largest part."""
+    return _src_bwd_edge("ell_src_bwd_edge", eq, g, ek, slot_dst, scale,
+                         row_key, row_ptr, act, e, slot_edge, edge2slot,
+                         edge_mask)
+
+
+def _src_bwd_edge(name, eq, g, ek, slot_dst, scale, row_key, row_ptr, act,
+                  e, slot_edge, edge2slot, edge_mask):
     device, r, h = _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr)
-    _need_diagonal("ell_src_bwd_edge", act)
+    if name not in _GENERAL:
+        _need_diagonal(name, act)
     _check_edge(e, slot_edge, h, eq.dtype, slot_dst, device)
     _check("edge2slot", edge2slot, _I32, 1, device)
     _check("edge_mask", edge_mask, (torch.bool,), 1, device)
@@ -538,7 +531,7 @@ def ell_src_bwd_edge(eq, g, ek, slot_dst, scale, row_key, row_ptr, act, e,
                                  edge2slot=edge2slot, edge_mask=edge_mask)
     out = torch.empty((r, h), dtype=torch.float32, device=device)
     g_e = torch.zeros((e.shape[0], h), dtype=torch.float32, device=device)
-    _launch("ell_src_bwd_edge", device, _ptr(eq), _ptr(g), _ptr(e),
+    _launch(name, device, _ptr(eq), _ptr(g), _ptr(e),
             int(eq.dtype == torch.bfloat16), _ptr(ek), _ptr(slot_dst),
             _ptr(slot_edge), _ptr(scale), _ptr(row_key), _ptr(row_ptr), r, h,
             act.kernel_id, float(act.param), _ptr(out), _ptr(g_e))
@@ -1022,25 +1015,33 @@ def ell_scaled_reduce(values, slot_idx, scale, row_ptr):
 # #1r, #3, #4r, #5, #6: the general route and the full-vjp backwards
 # ----------------------------------------------------------------------
 #
-# These take any sigma of the registry. A row-wise one (centered_relu,
-# softmax) couples a slot's H features, so its kernels hold the whole row
-# (H <= ROWWISE_MAX_H); an elementwise one takes any H. For an elementwise
-# sigma each vjp is act'(z) * cotangent, the arithmetic of #4. #1r, #3 and
-# #4r take a lane-group path for a row-wise sigma, #5 for any sigma, #6 for
-# a row-wise sigma where its g_slots has ek's type
+# These take any sigma of the registry at any width. A row-wise one
+# (centered_relu, softmax) couples a slot's H features, so its kernels hold
+# the whole row in a warp's registers, and past H = 512 take its
+# statistics by passes over it (the wide path); an elementwise one walks
+# the row in chunks. For an elementwise sigma each vjp is act'(z) *
+# cotangent, the arithmetic of #4. #1r, #3 and #4r, and their edge-term
+# forms (``*_edge``), take a lane-group path for a row-wise sigma, #5 for
+# any sigma, #6 for a row-wise sigma where its g_slots has ek's type
 # (``ell_general_layout``).
 
 # the kernels of csrc/ell_general_kernels.cu with a lane-group path, by the
-# id ell_general_layout takes (the source's MODE)
+# id ell_general_layout takes (the source's MODE), and the edge forms' by
+# the id ell_general_edge_layout takes
 _GENERAL_LAYOUT_KERNEL = {"ell_geq_reduce": 0, "ell_src_bwd_rowwise": 1,
                           "ell_act_reduce_rowwise": 2,
                           "ell_src_bwd_fused": 3, "ell_act_reduce_bwd": 4}
+_GENERAL_EDGE_LAYOUT_KERNEL = {"ell_geq_reduce_edge": 0,
+                               "ell_src_bwd_rowwise_edge": 1,
+                               "ell_act_reduce_rowwise_edge": 2}
+# the row width past which a row-wise sigma takes the wide path
+ROW_MAX = 256
 
 
 class GeneralLayout(NamedTuple):
     """The lane-group path of #1r ``ell_act_reduce_rowwise``, #3
-    ``ell_geq_reduce``, #4r ``ell_src_bwd_rowwise``, #5
-    ``ell_src_bwd_fused`` and #6 ``ell_act_reduce_bwd``
+    ``ell_geq_reduce``, #4r ``ell_src_bwd_rowwise`` (and their edge
+    forms), #5 ``ell_src_bwd_fused`` and #6 ``ell_act_reduce_bwd``
     (``csrc/ell_general_kernels.cu``) for rows of
     width H: a gathered row is ``chunks`` chunks of 16 bytes, spread over a
     group of ``group_width`` lanes (a power of two), ``chunks_per_lane``
@@ -1055,12 +1056,30 @@ class GeneralLayout(NamedTuple):
     inflight: int
 
 
-def decode_general_layout(code: int) -> Optional[GeneralLayout]:
+class WideLayout(NamedTuple):
+    """The wide path of the first design, for a row-wise sigma past H =
+    ``ROW_MAX``, one warp a row, ``features_per_lane`` features of a slot's
+    row in each lane's registers at once: up to H = 512 the whole row (16 a
+    lane, ``chunks`` 1); past it 8 a lane, the features walked in
+    ``chunks`` chunks of 256, and for each chunk every slot's
+    statistics (the mean; the max and the sum; the vjps' second sum or dot)
+    taken by passes over the slot's whole row."""
+
+    features_per_lane: int
+    chunks: int
+
+
+def decode_general_layout(code: int):
     """The ``GeneralLayout`` of a code from the library's
     ``ell_general_layout`` (bits 16-23 the chunks of a row, 8-15 the group
-    width, 0-7 the slots in flight); None for 0, the first design."""
+    width, 0-7 the slots in flight), the ``WideLayout`` of a code whose
+    bits 24-31 are 0x40 (bits 16-23 its features a lane, 0-15 its chunks);
+    None for 0, the first design."""
     if code == 0:
         return None
+    f, n = code >> 16 & 0xFF, code & 0xFFFF
+    if code >> 24 == 0x40 and f in (8, 16) and n:
+        return WideLayout(f, n)
     c, gw, u = code >> 16 & 0xFF, code >> 8 & 0xFF, code & 0xFF
     if code < 0 or code >> 24 or not c or not u or gw not in (1, 2, 4, 8,
                                                               16, 32):
@@ -1068,36 +1087,45 @@ def decode_general_layout(code: int) -> Optional[GeneralLayout]:
     return GeneralLayout(c, gw, 32 // gw, -(-c // gw), u)
 
 
-def ell_general_layout(name: str, h: int, dtype, act,
-                       *tensors) -> Optional[GeneralLayout]:
+def ell_general_layout(name: str, h: int, dtype, act, *tensors):
     """The path a launch of ``name`` (a kernel of
     ``csrc/ell_general_kernels.cu``) takes for rows of width ``h``, the
     gathered table in ``dtype`` (f32 or bf16: ek for
     ``ell_act_reduce_rowwise``, ``ell_geq_reduce`` and
     ``ell_act_reduce_bwd``, eq and g for ``ell_src_bwd_rowwise``, the
-    [N, 2H] table for ``ell_src_bwd_fused``), the sigma ``act`` and the CUDA
-    tensors it reads and writes whole rows of (at most five: its node
-    tables and its outputs, in the order the wrapper takes and returns
-    them; for ``ell_src_bwd_fused`` the [N, 2H] table first): a
-    ``GeneralLayout`` for the lane-group path, None for the first design
-    (an elementwise sigma but in ``ell_src_bwd_fused``, rows that are not whole 16-byte chunks, a table
-    off 16-byte alignment, or an ``ell_act_reduce_bwd`` whose g_slots, its
-    fourth tensor, is not in ``dtype``). The entry decides from the same H,
-    types and pointers. Needs a card: it asks the built library."""
+    [N, 2H] table for ``ell_src_bwd_fused``; the same for the edge forms),
+    the sigma ``act`` and the CUDA tensors it reads and writes whole rows of
+    (at most five: its node tables and its outputs, in the order the
+    wrapper takes and returns them; for ``ell_src_bwd_fused`` the [N, 2H]
+    table first; for an edge form at most six, its e and g_e among them): a
+    ``GeneralLayout`` for the lane-group path, a ``WideLayout`` for the wide
+    path (a row-wise sigma past H = ``ROW_MAX``: the row in registers, or
+    past H = 512 passes over it), None for the first design
+    (an elementwise sigma but in ``ell_src_bwd_fused``, rows that are not
+    whole 16-byte chunks, a table off 16-byte alignment, or an
+    ``ell_act_reduce_bwd`` whose g_slots, its fourth tensor, is not in
+    ``dtype``). The entry decides from the same H, types and pointers.
+    Needs a card: it asks the built library."""
     if name not in _GENERAL:
         raise ValueError(f"{name!r} is not a kernel of the general route "
                          f"({', '.join(_GENERAL)})")
     if h < 1:
         raise ValueError(f"the width must be positive, got H = {h}")
-    if len(tensors) > 5:
-        raise ValueError(f"at most five tensors, got {len(tensors)}")
+    edge = name in _GENERAL_EDGE_LAYOUT_KERNEL
+    most = 6 if edge else 5
+    if len(tensors) > most:
+        raise ValueError(f"at most {'six' if edge else 'five'} tensors, got "
+                         f"{len(tensors)}")
+    wide = not act.diagonal and h > ROW_MAX
     if (name == "ell_act_reduce_bwd" and len(tensors) > 3
-            and tensors[3].dtype != dtype):
+            and tensors[3].dtype != dtype and not wide):
         return None  # g_slots in another type than ek: the first design
-    ptrs = [_ptr(t) for t in tensors] + [None] * (5 - len(tensors))
-    code = _library("ell_general_kernels").ell_general_layout(
-        _GENERAL_LAYOUT_KERNEL[name], h, int(dtype == torch.bfloat16),
-        act.kernel_id, *ptrs)
+    ptrs = [_ptr(t) for t in tensors] + [None] * (most - len(tensors))
+    lib = _library("ell_general_kernels")
+    query = lib.ell_general_edge_layout if edge else lib.ell_general_layout
+    kernels = _GENERAL_EDGE_LAYOUT_KERNEL if edge else _GENERAL_LAYOUT_KERNEL
+    code = query(kernels[name], h, int(dtype == torch.bfloat16),
+                 act.kernel_id, *ptrs)
     return decode_general_layout(code)
 
 
@@ -1113,6 +1141,23 @@ def ell_act_reduce_rowwise(eq, ek, slot_src, scale, row_key, row_ptr, act):
                 row_ptr, act, derivative=False)
 
 
+def ell_act_reduce_rowwise_edge(eq, ek, slot_src, scale, row_key, row_ptr,
+                                act, e, slot_edge):
+    """``ell_act_reduce_rowwise`` with the edge term of
+    ``ell_act_reduce_edge``: the key side of slot s is
+    add_cast(ek[slot_src[s]], e[slot_edge[s]]), added in f32 and carried in
+    ek's type; e [E_pad, H] in sorted-edge order shares ek's type. Its
+    plain version is ``ell_act_reduce_plain`` with ``e`` and ``slot_edge``.
+
+    Replaces ``bucket_bcast_act_reduce`` on the JAX general route's
+    ``with_edge`` inputs (``dst_slot_inputs``), the edge rows read by index
+    in the kernel. Bound: bytes, as ``ell_act_reduce_rowwise`` plus one e
+    row per slot."""
+    return _fwd("ell_act_reduce_rowwise_edge", eq, ek, slot_src, scale,
+                row_key, row_ptr, act, derivative=False, e=e,
+                slot_edge=slot_edge)
+
+
 def ell_src_bwd_rowwise(eq, g, ek, slot_dst, scale, row_key, row_ptr, act):
     """``ell_src_bwd`` for any sigma of the registry: out[r] = sum_s
     vjp(act, eq[slot_dst[s]] + ek[row_key[r]])(scale[s] * g[slot_dst[s]]).
@@ -1124,16 +1169,39 @@ def ell_src_bwd_rowwise(eq, g, ek, slot_dst, scale, row_key, row_ptr, act):
                     row_key, row_ptr, act)
 
 
+def ell_src_bwd_rowwise_edge(eq, g, ek, slot_dst, scale, row_key, row_ptr,
+                             act, e, slot_edge, edge2slot, edge_mask):
+    """``ell_src_bwd_edge`` for any sigma of the registry: the dst side of
+    slot s is add_cast(eq[slot_dst[s]], e[slot_edge[s]]) and g_z[s] =
+    vjp(act, z)(scale[s] * g[slot_dst[s]]). Returns (rows [R, H] f32, g_e
+    [E_pad, H] f32), g_e = ``edge_cotangent(g_z rounded to eq's type,
+    edge2slot, edge_mask)``; its plain version is ``ell_src_bwd_plain``
+    with the edge arguments.
+
+    Replaces ``bucket_src_bwd`` with the full vjp and its per-slot g_z
+    output on the JAX general route's ``with_edge`` inputs, and the take
+    of ``_edge_cotangent`` after it (``src_pass(need_gz=True)``): the
+    kernel writes each slot's g_z straight into row slot_edge[s] of a
+    zeroed g_e. Bound: bytes, the f32 g_e write the largest part."""
+    return _src_bwd_edge("ell_src_bwd_rowwise_edge", eq, g, ek, slot_dst,
+                         scale, row_key, row_ptr, act, e, slot_edge,
+                         edge2slot, edge_mask)
+
+
 def ell_act_reduce_bwd_plain(eq, ek, slot_src, scale, row_key, row_ptr, act,
-                             g, gz_dtype=torch.float32, buckets=None):
+                             g, gz_dtype=torch.float32, buckets=None, e=None,
+                             slot_edge=None):
     """Plain version of ``ell_act_reduce_bwd``, bucket by bucket: z as in
-    ``ell_act_reduce_plain``, g_z = vjp(act, z)(g[row_key[r]] * scale[s]).
+    ``ell_act_reduce_plain`` (with the edge term where ``e`` and
+    ``slot_edge`` are given), g_z = vjp(act, z)(g[row_key[r]] * scale[s]).
     Returns (g_slots [S, H] in ``gz_dtype``, geq_rows [R, H] f32), the row
     sums taken before the rounding to ``gz_dtype``."""
     if buckets is None:
         buckets = _buckets(row_ptr)
     h = eq.shape[1]
     ekg = ek.index_select(0, slot_src)
+    if e is not None:
+        ekg = add_cast(ekg, e.index_select(0, slot_edge))
     eq_rows = eq.index_select(0, row_key)
     g_rows = g.index_select(0, row_key)
     gzs, rows = [], []
@@ -1149,11 +1217,12 @@ def ell_act_reduce_bwd_plain(eq, ek, slot_src, scale, row_key, row_ptr, act,
 
 
 def ell_geq_reduce_plain(eq, ek, slot_src, scale, row_key, row_ptr, act, g,
-                         buckets=None):
-    """Plain version of ``ell_geq_reduce``: the row sums of
-    ``ell_act_reduce_bwd_plain``."""
+                         buckets=None, e=None, slot_edge=None):
+    """Plain version of ``ell_geq_reduce`` (of ``ell_geq_reduce_edge`` with
+    ``e`` and ``slot_edge``): the row sums of ``ell_act_reduce_bwd_plain``."""
     return ell_act_reduce_bwd_plain(eq, ek, slot_src, scale, row_key,
-                                    row_ptr, act, g, buckets=buckets)[1]
+                                    row_ptr, act, g, buckets=buckets, e=e,
+                                    slot_edge=slot_edge)[1]
 
 
 def _check_geq(name, eq, ek, slot_src, scale, row_key, row_ptr, act, g):
@@ -1163,6 +1232,26 @@ def _check_geq(name, eq, ek, slot_src, scale, row_key, row_ptr, act, g):
         raise ValueError(f"g {tuple(g.shape)} and eq {tuple(eq.shape)} "
                          f"differ")
     return device, row_key.shape[0], eq.shape[1]
+
+
+def _geq(name, eq, ek, slot_src, scale, row_key, row_ptr, act, g, e=None,
+         slot_edge=None):
+    device, r, h = _check_geq(name, eq, ek, slot_src, scale, row_key,
+                              row_ptr, act, g)
+    edge = e is not None
+    if edge:
+        _check_edge(e, slot_edge, h, ek.dtype, slot_src, device)
+    if not on_cuda(device):
+        return ell_geq_reduce_plain(eq, ek, slot_src, scale, row_key,
+                                    row_ptr, act, g, e=e,
+                                    slot_edge=slot_edge)
+    out = torch.empty((r, h), dtype=torch.float32, device=device)
+    tables = (_ptr(eq), _ptr(ek)) + ((_ptr(e),) if edge else ())
+    slots = (_ptr(slot_src),) + ((_ptr(slot_edge),) if edge else ())
+    _launch(name, device, *tables, int(ek.dtype == torch.bfloat16), _ptr(g),
+            *slots, _ptr(scale), _ptr(row_key), _ptr(row_ptr), r, h,
+            act.kernel_id, float(act.param), _ptr(out))
+    return out
 
 
 def ell_geq_reduce(eq, ek, slot_src, scale, row_key, row_ptr, act, g):
@@ -1175,17 +1264,23 @@ def ell_geq_reduce(eq, ek, slot_src, scale, row_key, row_ptr, act, g):
     general route's g_eq, with ek gathered by index in the kernel instead
     of the saved [S, H] gather. Bound: bytes, eq, g and ek rows in, one f32
     [R, H] out."""
-    device, r, h = _check_geq("ell_geq_reduce", eq, ek, slot_src, scale,
-                              row_key, row_ptr, act, g)
-    if not on_cuda(device):
-        return ell_geq_reduce_plain(eq, ek, slot_src, scale, row_key,
-                                    row_ptr, act, g)
-    out = torch.empty((r, h), dtype=torch.float32, device=device)
-    _launch("ell_geq_reduce", device, _ptr(eq), _ptr(ek),
-            int(ek.dtype == torch.bfloat16), _ptr(g), _ptr(slot_src),
-            _ptr(scale), _ptr(row_key), _ptr(row_ptr), r, h, act.kernel_id,
-            float(act.param), _ptr(out))
-    return out
+    return _geq("ell_geq_reduce", eq, ek, slot_src, scale, row_key, row_ptr,
+                act, g)
+
+
+def ell_geq_reduce_edge(eq, ek, slot_src, scale, row_key, row_ptr, act, g,
+                        e, slot_edge):
+    """``ell_geq_reduce`` with the edge term of
+    ``ell_act_reduce_rowwise_edge``: z_s = eq[row_key[r]] +
+    add_cast(ek[slot_src[s]], e[slot_edge[s]]); e [E_pad, H] shares ek's
+    type.
+
+    Replaces ``bucket_geq_reduce`` on the JAX general route's
+    ``with_edge`` inputs (the saved ``add_cast(ek_b, e_b)`` gather, here
+    both rows read by index in the kernel). Bound: bytes, as
+    ``ell_geq_reduce`` plus one e row per slot."""
+    return _geq("ell_geq_reduce_edge", eq, ek, slot_src, scale, row_key,
+                row_ptr, act, g, e=e, slot_edge=slot_edge)
 
 
 def ell_act_reduce_bwd(eq, ek, slot_src, scale, row_key, row_ptr, act, g,
@@ -1245,7 +1340,6 @@ def ell_src_bwd_fused(both, ek, slot_dst, scale, row_key, row_ptr, act):
         raise ValueError(f"both {tuple(both.shape)} is not [N, 2H] = "
                          f"{(ek.shape[0], 2 * h)}")
     _check_plan(slot_dst, scale, row_key, row_ptr, device)
-    _check_general("ell_src_bwd_fused", act, h, device)
     if not on_cuda(device):
         return ell_src_bwd_fused_plain(both, ek, slot_dst, scale, row_key,
                                        row_ptr, act)

@@ -21,7 +21,8 @@ With ``fuse_bwd_take`` the key-side gradient reads eq and g from one
 [N, 2H] table (``ell_src_bwd_fused``). A sigma that is not elementwise
 takes the general route: ``ell_act_reduce_rowwise`` forward,
 ``ell_geq_reduce`` and ``ell_src_bwd_rowwise`` (or ``ell_src_bwd_fused``)
-backward.
+backward; with ``e`` their edge-term forms ``ell_act_reduce_rowwise_edge``,
+``ell_geq_reduce_edge`` and ``ell_src_bwd_rowwise_edge``.
 :func:`ell_sir_aggregate_fused_edge` computes the same with e = e_basis @
 w_e formed inside the kernels ``ell_edge_act_reduce2`` and
 ``ell_edge_src_bwd`` from the narrow edge basis, SIREConv's fused route.
@@ -72,9 +73,11 @@ from .cuda import (
     ell_act_reduce2_edge,
     ell_act_reduce_edge,
     ell_act_reduce_rowwise,
+    ell_act_reduce_rowwise_edge,
     ell_edge_act_reduce2,
     ell_edge_src_bwd,
     ell_geq_reduce,
+    ell_geq_reduce_edge,
     ell_max_bwd,
     ell_max_fwd,
     ell_max_wincount,
@@ -83,6 +86,7 @@ from .cuda import (
     ell_src_bwd_edge,
     ell_src_bwd_fused,
     ell_src_bwd_rowwise,
+    ell_src_bwd_rowwise_edge,
 )
 from .cuda.kernels import NEG, on_cuda
 from .cuda.kernels import bucket_offsets as _bucket_offsets
@@ -591,14 +595,15 @@ def build_fast_graph(graph: GraphBatch,
 class _ActivationKind:
     """``fn(z, param)`` over the last dim and its vector-Jacobian product
     ``vjp(z, g, param)``; ``grad(z, param)``, sigma' elementwise, only for
-    an entry whose Jacobian is diagonal (None for a row-wise one)."""
+    an entry whose Jacobian is diagonal (None for a row-wise one). Every
+    entry has kernels on both routes: an elementwise one on the elementwise,
+    edge, max and general route's kernels, a row-wise one on the general
+    route's."""
 
     kernel_id: int    # the ACT_* constant of csrc/ell_*kernels.cu
     fn: Callable[[torch.Tensor, float], torch.Tensor]
     vjp: Callable[[torch.Tensor, torch.Tensor, float], torch.Tensor]
     grad: Optional[Callable[[torch.Tensor, float], torch.Tensor]] = None
-    # whether csrc/ell_general_kernels.cu (the general route, #5) takes it
-    general: bool = True
 
 
 def _leaky_relu_grad(z, slope):
@@ -626,9 +631,9 @@ def _gelu_grad(z, _):
             + z * (torch.exp(-0.5 * z * z) * _INV_SQRT_2PI))
 
 
-def _elementwise(kernel_id, fn, grad, general=True) -> _ActivationKind:
+def _elementwise(kernel_id, fn, grad) -> _ActivationKind:
     return _ActivationKind(kernel_id, fn, lambda z, g, p: grad(z, p) * g,
-                           grad, general)
+                           grad)
 
 
 def _centered_shift(z, alpha):
@@ -663,9 +668,7 @@ _ACTIVATIONS = {
     # row-wise: sigma couples the H features of a row
     "centered_relu": _ActivationKind(2, _centered_relu, _centered_relu_vjp),
     "softmax": _ActivationKind(3, _softmax, _softmax_vjp),
-    # erf-GELU on the elementwise, edge and max kernels; the general
-    # route's kernels do not take it yet (ROADMAP.md Queue B part 1 item 1)
-    "gelu": _elementwise(4, _gelu, _gelu_grad, general=False),
+    "gelu": _elementwise(4, _gelu, _gelu_grad),
 }
 
 
@@ -707,12 +710,6 @@ class Activation:
         this sigma; otherwise the general route does."""
         return self.diagonal and self.sir_elementwise is not False
 
-    @property
-    def general_kernels(self) -> bool:
-        """Whether the general route's kernels (``ell_general_kernels.cu``)
-        take this sigma on the card."""
-        return _ACTIVATIONS[self.name].general
-
     def __call__(self, z: torch.Tensor) -> torch.Tensor:
         return _ACTIVATIONS[self.name].fn(z, self.param)
 
@@ -746,18 +743,6 @@ def centered_relu(alpha: float) -> Activation:
 
 tanh = Activation("tanh")
 softmax = Activation("softmax")  # over H, row-wise
-
-
-def _elementwise_only(act: Optional[Activation], what: str) -> Activation:
-    if act is None:
-        raise NotImplementedError(
-            f"a sigma outside the activation registry with {what} on the "
-            f"kernels is not yet ported")
-    if not act.elementwise:
-        raise NotImplementedError(
-            f"sigma {act.name} is not elementwise: its route with {what} is "
-            f"not yet ported")
-    return act
 
 
 _routing_logger = logging.getLogger("sir_gcn_tpu_torch.routing")
@@ -950,35 +935,55 @@ class _EllSirAggregateGeneral(torch.autograd.Function):
     ``make_ell_sir_aggregate_pallas``). Forward: ``ell_act_reduce_rowwise``.
     Backward: g_eq from ``ell_geq_reduce``, the dst-major vjp over the
     forward's slots; g_ek from ``ell_src_bwd_rowwise`` (``ell_src_bwd_fused``
-    with ``fuse``). The kernels gather their operands by index, so only eq,
-    ek and the slot scales are saved and nothing slot-sized and
-    feature-wide is kept or gathered again: the JAX route's ``remat``
-    switch, which trades its saved [S, H] gather for a second gather, has
-    no counterpart here."""
+    with ``fuse``). With an edge table ``e`` [E_pad, H] (sorted edge order)
+    the edge-term forms run instead, and ``ell_src_bwd_rowwise_edge`` also
+    gives g_e [E_pad, H] f32 (JAX's ``src_pass(need_gz=True)``); ``fuse``
+    is then off. The kernels gather their operands by index, so only eq,
+    ek, e in the edge dtype and the slot scales are saved and nothing
+    slot-sized and feature-wide is kept or gathered again: the JAX route's
+    ``remat`` switch, which trades its saved [S, H] gather for a second
+    gather, has no counterpart here."""
 
     @staticmethod
-    def forward(ctx, eq, ek, sd, ss, fg: FastGraph, act: Activation,
+    def forward(ctx, eq, ek, e, sd, ss, fg: FastGraph, act: Activation,
                 edge_dtype, fuse: bool):
-        rows = ell_act_reduce_rowwise(
-            *_dst_args(fg, eq, ek, sd, act, edge_dtype))
-        ctx.save_for_backward(eq, ek, sd, ss)
+        plan = fg.dst_plan
+        args = _dst_args(fg, eq, ek, sd, act, edge_dtype)
+        if e is None:
+            rows = ell_act_reduce_rowwise(*args)
+        else:
+            e = _cast(e, edge_dtype)
+            rows = ell_act_reduce_rowwise_edge(*args, e, plan.slot_edge)
+        ctx.save_for_backward(eq, ek, e, sd, ss)
         ctx.fg, ctx.act, ctx.edge_dtype, ctx.fuse = fg, act, edge_dtype, fuse
-        return fg.dst_plan.finalize_rows_sum(rows)
+        return plan.finalize_rows_sum(rows)
 
     @staticmethod
     def backward(ctx, g):
-        eq, ek, sd, ss = ctx.saved_tensors
+        eq, ek, e, sd, ss = ctx.saved_tensors
         fg, act, edge_dtype = ctx.fg, ctx.act, ctx.edge_dtype
+        plan, splan = fg.dst_plan, fg.src_plan
         g = g.contiguous()
-        g_eq = g_ek = None
+        g_eq = g_ek = g_e = None
         if ctx.needs_input_grad[0]:
-            rows = ell_geq_reduce(
-                *_dst_args(fg, eq, ek, sd, act, edge_dtype), g)
-            g_eq = fg.dst_plan.finalize_rows_sum(rows)
-        if ctx.needs_input_grad[1]:
-            g_ek = fg.src_plan.finalize_rows_sum(_src_rows(
-                fg, eq, ek, g, ss, act, edge_dtype, ctx.fuse))
-        return g_eq, g_ek, None, None, None, None, None, None
+            args = _dst_args(fg, eq, ek, sd, act, edge_dtype)
+            rows = (ell_geq_reduce(*args, g) if e is None else
+                    ell_geq_reduce_edge(*args, g, e, plan.slot_edge))
+            g_eq = plan.finalize_rows_sum(rows)
+        if e is None:
+            if ctx.needs_input_grad[1]:
+                g_ek = splan.finalize_rows_sum(_src_rows(
+                    fg, eq, ek, g, ss, act, edge_dtype, ctx.fuse))
+        elif any(ctx.needs_input_grad[1:3]):
+            rows, g_e = ell_src_bwd_rowwise_edge(
+                _cast(eq, edge_dtype), _cast(g, edge_dtype), ek.contiguous(),
+                fg.src_slot_dstnode, ss, splan.row_key, splan.row_ptr, act,
+                e, splan.slot_edge, fg.edge2src_slot, fg.edge_mask)
+            if ctx.needs_input_grad[1]:
+                g_ek = splan.finalize_rows_sum(rows)
+            if not ctx.needs_input_grad[2]:
+                g_e = None
+        return g_eq, g_ek, g_e, None, None, None, None, None, None
 
 
 def ell_sir_aggregate(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
@@ -1004,9 +1009,9 @@ def ell_sir_aggregate(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
     runs ``ell_act_reduce`` (``ell_act_reduce_edge``) alone.
 
     A sigma that is not elementwise (a row-wise registry entry, or one with
-    ``sir_elementwise=False``) takes the general route, as
-    ``sir_gcn_tpu/ops/ell.py`` ``ell_sir_aggregate`` sends it to
-    ``act_elementwise=False``; with ``e`` it raises (not yet ported). A
+    ``sir_elementwise=False``) takes the general route, with or without
+    ``e``, at any width, as ``sir_gcn_tpu/ops/ell.py`` ``ell_sir_aggregate``
+    sends it to ``act_elementwise=False``. A
     sigma outside the registry takes the pure ELL route
     (:func:`pure_ell_sir_aggregate`) where :func:`resolve_activation`
     allows it, and there ``edge_dtype`` and ``fuse_bwd_take`` do not
@@ -1022,31 +1027,22 @@ def ell_sir_aggregate(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
     inputs = (eq, ek) if e is None else (eq, ek, e)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
     sd = slot_scale(fg, "dst", agg_type, edge_mask)
-    if not act.elementwise and e is not None:
-        raise NotImplementedError(
-            f"the general route with an edge term (sigma {act.name} with e, "
-            f"the edge-term form of bucket_geq_reduce) is not yet ported")
-    if on_cuda(eq.device) and not act.general_kernels and (
-            not act.elementwise or (fuse_bwd_take and e is None and grad)):
-        raise NotImplementedError(
-            f"the general route's kernels (#1r, #3, #4r, #5) do not take "
-            f"sigma {act.name} yet (ROADMAP.md Queue B part 1 item 1)")
     if grad:
         fn = _EllSirAggregate if act.elementwise else _EllSirAggregateGeneral
-        extra = (e,) if act.elementwise else ()
-        out = fn.apply(eq, ek, *extra, sd,
+        out = fn.apply(eq, ek, e, sd,
                        slot_scale(fg, "src", agg_type, edge_mask), fg, act,
                        edge_dtype, fuse_bwd_take and e is None)
     else:
         plan = fg.dst_plan
         args = _dst_args(fg, eq, ek, sd, act, edge_dtype)
-        if not act.elementwise:
-            rows = ell_act_reduce_rowwise(*args)
-        elif e is None:
-            rows = ell_act_reduce(*args)
+        if e is None:
+            kernel = ell_act_reduce if act.elementwise else \
+                ell_act_reduce_rowwise
+            rows = kernel(*args)
         else:
-            rows = ell_act_reduce_edge(*args, _cast(e, edge_dtype),
-                                       plan.slot_edge)
+            kernel = ell_act_reduce_edge if act.elementwise else \
+                ell_act_reduce_rowwise_edge
+            rows = kernel(*args, _cast(e, edge_dtype), plan.slot_edge)
         out = plan.finalize_rows_sum(rows)
     return _kept_mean(fg, out, agg_type, edge_mask, sd)
 
@@ -1112,11 +1108,18 @@ def ell_sir_aggregate_fused_edge(fg: FastGraph, eq: torch.Tensor,
     H] edge table or cotangent exists. e_basis [E_pad, De] f32 in sorted
     edge order (no gradient), w_e [De, H] f32 in the JAX layout. The port
     of ``make_ell_sir_aggregate_pallas_fused_edge``, without its TPU
-    padding (``pad_basis``, the 128-lane wrapper)."""
+    padding (``pad_basis``, the 128-lane wrapper). The fused kernels take
+    an elementwise sigma of the registry; for any other ``sir_aggregate``
+    forms e itself and takes :func:`ell_sir_aggregate` (or the pure route),
+    as JAX's does, and this raises."""
     if agg_type not in fg.dst_slot_scales:
         raise ValueError(f"agg_type {agg_type!r} is not a linear aggregation")
-    act = _elementwise_only(resolve_activation(activation, eq.device),
-                            "e_basis")
+    act = resolve_activation(activation, eq.device)
+    if act is None or not act.elementwise:
+        raise ValueError(
+            f"the fused-edge kernels take an elementwise sigma of the "
+            f"registry, not {getattr(act, 'name', activation)}: sir_aggregate "
+            f"forms e = e_basis @ w_edge for it and takes the e route")
     sd = slot_scale(fg, "dst", agg_type, edge_mask)
     out = _EllSirAggregateFusedEdge.apply(
         eq, ek, e_basis, w_e, sd, slot_scale(fg, "src", agg_type, edge_mask),
@@ -1203,7 +1206,11 @@ def ell_sir_aggregate_max(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
             "max aggregation with edge features on the kernels is not yet "
             "ported (the edge-term forms of #9-#11, ROADMAP.md Queue B part "
             "1 item 3)")
-    act = _elementwise_only(act, "max")
+    if not act.elementwise:
+        raise NotImplementedError(
+            f"sigma {act.name} is not elementwise: its max route (the "
+            f"row-wise form of #9-#11, ROADMAP.md Queue B part 1 item 4) is "
+            f"not yet ported")
     if b is None:
         b = w.new_zeros(w.shape[1])
     sd = slot_scale(fg, "dst", "sum", edge_mask)

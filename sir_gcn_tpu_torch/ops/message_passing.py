@@ -147,11 +147,14 @@ def sir_aggregate(graph, eq: torch.Tensor, ek: torch.Tensor, activation,
     ``e`` [E_pad, H] is an edge term in sorted edge order, added inside
     sigma. ``e_basis`` [E_pad, De] and ``w_edge`` [De, H] are the
     alternative for an affine edge encoder, e = e_basis @ w_edge: on a
-    FastGraph with a linear aggregation and a registry sigma they take the
-    fused route, whose kernels form the projection themselves; otherwise
-    the projection is formed here. ``e_basis`` gets no gradient. max needs
-    ``w_relation`` [H, O] (and takes ``b_relation`` [O]), the W_R applied
-    per edge before the reduce; the linear aggregations ignore both.
+    FastGraph with a linear aggregation and a registry sigma whose route is
+    elementwise they take the fused route, whose kernels form the
+    projection themselves; otherwise (as in JAX) the projection is formed
+    here and ``e`` takes the route, the general route's edge-term kernels
+    for a sigma that is not elementwise. ``e_basis`` gets no gradient. max
+    needs ``w_relation`` [H, O] (and takes ``b_relation`` [O]), the W_R
+    applied per edge before the reduce; the linear aggregations ignore
+    both.
     ``edge_mask`` bool [E_pad] (DropEdge) drops edges on top of the
     padding mask.
 
@@ -160,7 +163,8 @@ def sir_aggregate(graph, eq: torch.Tensor, ek: torch.Tensor, activation,
     edges (``ops/ell.py`` ``slot_scale``; mean divides by the kept
     in-edges after the aggregate, max takes them as validity). A sigma
     that is not elementwise takes the general route of a linear
-    aggregation. A sigma outside the registry that holds tensors takes the
+    aggregation, with or without an edge term, at any width. A sigma
+    outside the registry that holds tensors takes the
     pure ELL route (``pure_ell_sir_aggregate``, the JAX package's XLA
     route), for every aggregation, with or without ``e`` and
     ``edge_mask``; on the CPU any callable does. On a plain ``GraphBatch``
@@ -182,9 +186,9 @@ def sir_aggregate(graph, eq: torch.Tensor, ek: torch.Tensor, activation,
 
     Raises for the forms that JAX runs
     on Pallas kernels and the port's kernels do not yet take: a registry
-    sigma with max and an edge term, a row-wise registry sigma with an
-    edge term or with max, and on a CUDA tensor a parameter-free sigma
-    outside the registry (``resolve_activation``)."""
+    sigma with max and an edge term, a sigma that is not elementwise with
+    max, and on a CUDA tensor a parameter-free sigma outside the registry
+    (``resolve_activation``)."""
     if agg_type not in ("sum", "mean", "max", "sym"):
         raise NotImplementedError(f"agg_type = {agg_type} not implemented")
     if e is not None and e_basis is not None:
@@ -200,7 +204,8 @@ def sir_aggregate(graph, eq: torch.Tensor, ek: torch.Tensor, activation,
             f"sir_aggregate on a {type(graph).__name__}: not a GraphBatch, "
             f"FastGraph or HaloGraph")
     fused = (e_basis is not None and isinstance(graph, FastGraph)
-             and agg_type != "max" and isinstance(activation, Activation))
+             and agg_type != "max" and isinstance(activation, Activation)
+             and activation.elementwise)
     if e_basis is not None and not fused:
         e = (e_basis @ w_edge).to(eq.dtype)
     _scale_guards(graph, agg_type, e is not None or fused,

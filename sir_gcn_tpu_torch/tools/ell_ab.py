@@ -160,7 +160,8 @@ GENERAL_HELD = {"rows": None, "geq": None, "out": None, "fused": None,
 def build_other(source: Path, name: str = "ell_kernels") -> ctypes.CDLL:
     """``source`` built as the package builds its source ``name`` (a key of
     ``build.SOURCES``), with the package's argument types of ``name`` on
-    its entries."""
+    its entries; an entry the other source does not have (one added since)
+    is left unbound."""
     if name not in build.SOURCES:
         raise ValueError(f"no source {name!r}; the sources are "
                          f"{sorted(build.SOURCES)}")
@@ -177,9 +178,10 @@ def build_other(source: Path, name: str = "ell_kernels") -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed for {source}:\n{out.stdout}"
                                f"{out.stderr}")
     other = ctypes.CDLL(str(lib))
-    queries = {k: v for k, v in _QUERIES.get(name, {}).items()
-               if hasattr(other, k)}
-    for entry, argtypes in {**_ARGTYPES[name], **queries}.items():
+    entries = {**_ARGTYPES[name], **_QUERIES.get(name, {})}
+    for entry, argtypes in entries.items():
+        if not hasattr(other, entry):
+            continue
         fn = getattr(other, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

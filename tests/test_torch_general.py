@@ -525,31 +525,43 @@ def test_general_route_reaches_its_kernels(kernel_calls):
 
 
 def test_general_route_raises():
+    """What still raises on the general route (max with a sigma that is not
+    elementwise, a row-wise sigma declared elementwise, malformed
+    arguments), and the calls that raised before the route took the edge
+    term and any width, which now compute: ``e`` and ``e_basis`` with a
+    row-wise sigma equal the pure ELL route's, and H = 257 takes the wide
+    path of a row-wise sigma (on the CPU its plain versions)."""
     c = make_case("random", 24, with_jax=False)
     fg, plan = c.tfg, c.tfg.dst_plan
     eq, ek = _t(c.eq), _t(c.ek)
     act = ACTS["centered_relu"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmp.sir_aggregate(fg, eq, ek, act, "sum",
-                          e=torch.zeros(fg.e_pad, 24))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmp.sir_aggregate(fg, eq, ek, act, "sym",
-                          e_basis=torch.zeros(fg.e_pad, 5),
-                          w_edge=torch.zeros(5, 24))
+    e = _t(np.random.default_rng(2).normal(size=(fg.e_pad, 24)))
+    torch.testing.assert_close(
+        tmp.sir_aggregate(fg, eq, ek, act, "sum", e=e),
+        tell.pure_ell_sir_aggregate(fg, eq, ek, act, "sum", e=e), **FWD_TOL)
+    basis, w_edge = e[:, :5].contiguous(), e[:5].contiguous()
+    torch.testing.assert_close(
+        tmp.sir_aggregate(fg, eq, ek, act, "sym", e_basis=basis,
+                          w_edge=w_edge),
+        tell.pure_ell_sir_aggregate(fg, eq, ek, act, "sym",
+                                    e=basis @ w_edge), **FWD_TOL)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tmp.sir_aggregate(fg, eq, ek, ACTS["tanh"], "max",
                           w_relation=torch.zeros(24, 8))
     with pytest.raises(ValueError, match="declared elementwise"):
         tell.Activation("softmax", sir_elementwise=True)
-    # the row-wise kernels hold a whole row: H = 257 is too wide for a
-    # row-wise sigma, not for an elementwise one
-    wide = torch.zeros(fg.n_pad, 257)
+    # H = 257 takes the wide path of a row-wise sigma, and chunks for an
+    # elementwise one
+    rng = np.random.default_rng(3)
+    wide = _t(rng.normal(size=(fg.n_pad, 257)))
     args = (fg.dst_slot_srcnode, fg.dst_slot_scales["sym"], plan.row_key,
             plan.row_ptr)
-    with pytest.raises(ValueError, match="exceeds 256"):
-        ell_act_reduce_rowwise(wide, wide, *args, act)
-    with pytest.raises(ValueError, match="exceeds 256"):
-        ell_src_bwd_fused(torch.zeros(fg.n_pad, 514), wide, *args, act)
+    torch.testing.assert_close(ell_act_reduce_rowwise(wide, wide, *args, act),
+                               ell_act_reduce_plain(wide, wide, *args, act))
+    both = _t(rng.normal(size=(fg.n_pad, 514)))
+    torch.testing.assert_close(
+        ell_src_bwd_fused(both, wide, *args, act),
+        ell_src_bwd_plain(both[:, :257], both[:, 257:], wide, *args, act))
     assert ell_act_reduce_rowwise(wide, wide, *args,
                                   ACTS["tanh"]).shape[1] == 257
     # the elementwise kernels refuse a row-wise sigma

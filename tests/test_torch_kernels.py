@@ -202,7 +202,6 @@ def test_gelu_matches_jax_on_a_grid():
     f = lambda x: jax.nn.gelu(x, approximate=False)
     act, t = tell.gelu(), torch.from_numpy(z)
     assert act.kernel_id == 4 and act.elementwise and act.diagonal
-    assert not act.general_kernels
     np.testing.assert_allclose(act(t).numpy(), np.asarray(f(jnp.asarray(z))),
                                **FWD_TOL)
     np.testing.assert_allclose(
@@ -216,11 +215,14 @@ def test_gelu_matches_jax_on_a_grid():
 
 def test_gelu_general_route_raises_on_card_before_a_launch():
     """erf-GELU declared non-elementwise takes the general route, whose
-    kernels do not take it: on a CUDA tensor the aggregate raises before
-    any launch, naming the ROADMAP item; on the CPU the plain versions
-    compute it. Checked here through the device check alone (no card):
-    the route's check asks ``on_cuda`` of the tensors' device."""
+    kernels (csrc/ell_general_kernels.cu, sigma id 4) now take it on the
+    card as on the CPU: nothing raises before a launch any more. On the
+    CPU the general route's plain versions give the elementwise route's
+    out, and every general-route kernel's argument checks accept it (the
+    same checks run on a CUDA tensor before its launch)."""
     import dataclasses
+
+    import sir_gcn_tpu_torch.ops.cuda.kernels as tk
 
     fg, eq, ek, g, scales = make_case("random", 24)
     act = dataclasses.replace(tell.gelu(), sir_elementwise=False)
@@ -228,11 +230,12 @@ def test_gelu_general_route_raises_on_card_before_a_launch():
     out = tell.ell_sir_aggregate(fg, _t(eq), _t(ek), act, "sym")
     want = tell.ell_sir_aggregate(fg, _t(eq), _t(ek), tell.gelu(), "sym")
     torch.testing.assert_close(out, want, **FWD_TOL)
-    import sir_gcn_tpu_torch.ops.cuda.kernels as tk
-
-    with pytest.raises(NotImplementedError, match="Queue B part 1 item 1"):
-        tk._check_general("ell_act_reduce_rowwise", act, 24,
-                          torch.device("cuda"))
+    assert not hasattr(tk, "_check_general")
+    plan = fg.dst_plan
+    for name in ("ell_act_reduce_rowwise", "ell_act_reduce_rowwise_edge"):
+        assert tk._check_fwd(name, _t(eq), _t(ek), fg.dst_slot_srcnode,
+                             _t(scales["dst"]), plan.row_key, plan.row_ptr,
+                             act) == torch.device("cpu")
 
 
 @pytest.fixture
