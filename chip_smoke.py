@@ -46,7 +46,16 @@ Phases, each printed as it runs; any failure exits non-zero:
            beside leaky_relu) and at H = O = 512 on a plan of the
            heterophilous minesweeper's size (10,000 nodes, 78,804 edges),
            beside leaky_relu(0.2), for #1, #2, #4, their edge forms, #7,
-           #8 and #9-#12 (near ties masked for max)
+           #8 and #9-#12 (near ties masked for max); the max kernels' new
+           forms: the edge forms #9e-#11e with leaky_relu(0.2) and
+           erf-GELU, the row-wise forms of #9-#11 with centered_relu(0.5)
+           and softmax, and both at once (centered_relu with the edge
+           term) on the small plans (H = 24 to 200; the row-wise forms
+           also at H = 300, 512 and 520), at the arxiv plan in f32 and
+           bf16 (the edge form with leaky_relu, the row-wise form with
+           centered_relu and both at once timed in bf16, near ties and
+           near gates masked) and the row-wise forms at H = O = 512 on the
+           heterophilous plan (centered_relu timed in bf16)
   train    the arxiv trainer's entry point at full width (169,343 nodes,
            H = 96, 3 layers, bn, residual, bf16 edges), once with sym and
            once with max aggregation, 5 steps and evals each, with the
@@ -93,6 +102,23 @@ Phases, each printed as it runs; any failure exits non-zero:
            fuse_bwd_take (#1r, #3, #5), and the dst-major composition
            (#1r, #6, #12) with (f) centered_relu at H = 512 and (g)
            erf-GELU declared non-elementwise at H = 96
+  sireconv_max lane (d)'s SIREConv with max at full width on the arxiv
+           plan (96 in, De = 16, 96 hidden and out, dropout 0.2, bf16
+           edges) through SIREConv.forward: (a) leaky_relu(0.2) and (b)
+           centered_relu(0.5) (the edge term and a row-wise sigma
+           together), 5 AdamW steps and 5 evals each, exactly #9e, #10e,
+           #11e and #12 once a step and #9e once an eval, the peak memory
+           and one profiled step each; (c) one step of (b) on a ~20k-node
+           graph, card against CPU, f32 edges, dyadic inputs, out and every
+           gradient
+  max_rowwise one SIRConv with max and a row-wise sigma, bf16 edges: (a)
+           centered_relu(0.5) and (b) softmax at 96 -> 96 on the arxiv plan,
+           5 steps and evals each; (c) centered_relu at 512 -> 512 on a
+           graph of roman-empire's size (22,662 nodes, 32,927 undirected
+           edges), 3 steps and evals, one more step profiled; (d) erf-GELU
+           declared non-elementwise at 96, 3 steps and evals (the max
+           kernels' erf-GELU forms); each with exact launches (#9, #10,
+           #11 and #12 once a step, #9 once an eval) and its peak memory
   bwd      the forward and backward of one aggregate at the arxiv plan
            (H = 96, sym, tanh) three ways: src-major (#2, #4), fused take
            (#2, #5) and dst-major (#1, #6, #12); each design's time, the
@@ -226,9 +252,13 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 The last line is the JSON contract line; the line before it lists each
 kernel's launches on the main path, error, times and bound: the edge forms
-as "<name>[edge]", and the general route's erf-GELU and wide forms as
+as "<name>[edge]" (the max kernels' with the sireconv_max phase's
+leaky_relu launches), the general route's erf-GELU and wide forms as
 "<name>[gelu]" and "<name>[wide]", their launches those of the
-general_edge and general_wide phases. Needs a CUDA
+general_edge and general_wide phases, and the max kernels' row-wise forms
+as "<name>[rowwise]", "<name>[rowwise,wide]" and "<name>[edge,rowwise]",
+their launches those of the max_rowwise phase's 96- and 512-wide runs and
+of the sireconv_max phase's centered_relu run. Needs a CUDA
 card and the port beside this script; exits non-zero without either.
 """
 
@@ -318,6 +348,10 @@ KERNELS = {
     "ell_max_wincount": (MAX_SOURCE, f"{PALLAS}:625", 2),
     "ell_max_bwd": (MAX_SOURCE, f"{PALLAS}:679", 6),   # m, g_W, g_a
     "ell_scaled_reduce": (MAX_SOURCE, f"{PALLAS}:781", 2),  # mul, add
+    # the max kernels' edge forms (#9e-#11e): the same products
+    "ell_max_fwd_edge": (MAX_SOURCE, f"{PALLAS}:574", 2),
+    "ell_max_wincount_edge": (MAX_SOURCE, f"{PALLAS}:625", 2),
+    "ell_max_bwd_edge": (MAX_SOURCE, f"{PALLAS}:679", 6),
     # add, mean add, sub, max, scale-add
     "ell_act_reduce_rowwise": (GENERAL_SOURCE, f"{PALLAS}:55", 6),
     # z add, mean add, sub, gate, g*scale, sum add, mul-sub, add
@@ -355,6 +389,17 @@ BWD = ("ell_src_bwd_fused", "ell_act_reduce_bwd")
 GENERAL_EDGE = {"ell_act_reduce_rowwise_edge": "ell_act_reduce_rowwise",
                 "ell_geq_reduce_edge": "ell_geq_reduce",
                 "ell_src_bwd_rowwise_edge": "ell_src_bwd_rowwise"}
+# the max kernels' edge forms, rows "<name>[edge]" of the kernels line,
+# their launches the sireconv_max phase's leaky_relu run
+MAX_EDGE = {"ell_max_fwd_edge": "ell_max_fwd",
+            "ell_max_wincount_edge": "ell_max_wincount",
+            "ell_max_bwd_edge": "ell_max_bwd"}
+EDGE_FORMS = {**GENERAL_EDGE, **MAX_EDGE}
+# the max kernels' row-wise forms, rows "<name>[<form>]": centered_relu
+# at the arxiv width ("rowwise", the max_rowwise phase's 96-wide runs), at
+# the heterophilous width ("rowwise,wide", its 512-wide run) and with the
+# edge term ("edge,rowwise", the sireconv_max phase's centered_relu run)
+MAX_FORMS = ("rowwise", "rowwise,wide", "edge,rowwise")
 # the general route's kernels with an erf-GELU form and a wide form (a
 # row-wise sigma past H = 256), each a row of its own, "<name>[gelu]" and
 # "<name>[wide]", its launches the general_wide phase's
@@ -805,10 +850,11 @@ def max_case(graph: str, h: int, o: int, device):
     return fg, eq, ek, w, g, fg.dst_slot_scales["sum"] * t(valid)
 
 
-def near_ties(fg, args, act):
+def near_ties(fg, args, act, e=None):
     """[N, O] bool: (key, o) whose two largest valid slot products (the
-    plain version's) lie within NEAR_TIE of each other, exact ties
-    included; such a key may take another winner in the kernel."""
+    plain version's, with the edge table ``e`` where given) lie within
+    NEAR_TIE of each other, exact ties included; such a key may take
+    another winner in the kernel."""
     import torch
 
     from sir_gcn_tpu_torch.ops.cuda import kernels as K
@@ -818,7 +864,8 @@ def near_ties(fg, args, act):
     t1, t2 = [], []
     eq, ek, slot_src, scale, row_key, _, w = args
     for _, _, _, _, m, valid in K.bucket_products(
-            eq, ek, slot_src, scale, row_key, w, act, plan.buckets1):
+            eq, ek, slot_src, scale, row_key, w, act, plan.buckets1, e,
+            None if e is None else plan.slot_edge):
         mv = torch.where(valid, m, neg)
         if mv.shape[1] >= 2:
             top = mv.topk(2, dim=1).values
@@ -840,112 +887,157 @@ def near_ties(fg, args, act):
 
 
 def check_max_kernels(label, fg, eq, ek, w, g, scale, act, dtype, errs,
-                      timing=None, mask_near_ties=False):
+                      timing=None, mask_near_ties=False, e=None, tag=""):
     """The four max kernels against their plain versions, each side's
     win counts and backward against its own forward's maxima, after the
     path of #9-#11 is logged (with ``timing``, the arxiv plan, it must be
     the tensor-core product). With ``mask_near_ties`` the cotangent is
     zeroed at near-tie (key, o), where the two may pick different winners,
     and win counts are compared elsewhere; without it every count must
-    agree."""
+    agree. With an edge table ``e`` [E_pad, H] the edge forms #9e-#11e
+    run; with centered_relu the slots and rows that hold a near-gate
+    (slot, feature) are left out of the g_z and g_eq comparisons and
+    counted (the relu may take the other side there). Errors and times go
+    under the kernel's name (the edge form's with ``e``) or, with ``tag``
+    ("[rowwise]", "[rowwise,wide]", "[edge,rowwise]"), the base name plus
+    the tag; #12 is checked and timed in the base form only."""
     import torch
 
     from sir_gcn_tpu_torch.ops import cuda as K
+    from sir_gcn_tpu_torch.ops.cuda.kernels import add_cast
 
     log_max_layout(label, *w.shape, require_tensor=timing is not None)
     plan, splan = fg.dst_plan, fg.src_plan
     bd, bs = plan.buckets1, splan.buckets1
+    edge = e is not None
+    base = not edge and not tag
     args = (eq, ek.to(dtype).contiguous(), fg.dst_slot_srcnode, scale,
             plan.row_key, plan.row_ptr, w)
-    rows = K.ell_max_fwd(*args, act)
-    rows_p = K.ell_max_fwd_plain(*args, act, buckets=bd)
+    et = e.to(dtype).contiguous() if edge else None
+    ex = (et, plan.slot_edge) if edge else ()
+    kw = dict(e=et, slot_edge=plan.slot_edge) if edge else {}
+    fwd_k, count_k, bwd_k = (
+        (K.ell_max_fwd_edge, K.ell_max_wincount_edge, K.ell_max_bwd_edge)
+        if edge else (K.ell_max_fwd, K.ell_max_wincount, K.ell_max_bwd))
+    key = lambda name: (name + tag if tag
+                        else f"{name}_edge" if edge else name)
+
+    keep_rows = keep_slots = None
+    if act.name == "centered_relu":
+        kd = args[1].index_select(0, fg.dst_slot_srcnode)
+        if edge:  # the key side's add_cast
+            kd = add_cast(kd, et.index_select(0, plan.slot_edge))
+        z = kd.float() + eq.index_select(0, plan.slot_key)
+        del kd
+        slots, rows_near, n_near = near_gates(plan, z, scale, act)
+        del z
+        keep_rows, keep_slots = ~rows_near, ~slots
+        log(f"  {label}: near-gate (slot, feature) {n_near}; left out "
+            f"{int(slots.sum())} g_z rows, {int(rows_near.sum())} of "
+            f"{rows_near.numel()} rows")
+
+    rows = fwd_k(*args, act, *ex)
+    rows_p = K.ell_max_fwd_plain(*args, act, buckets=bd, **kw)
     torch.cuda.synchronize()
-    err = {"ell_max_fwd": compare(f"{label} ell_max_fwd", rows, rows_p,
-                                  FWD_TOL)}
+    err = {"ell_max_fwd": compare(f"{label} {key('ell_max_fwd')}", rows,
+                                  rows_p, FWD_TOL)}
     key_max, key_max_p = (plan.finalize_rows_max(r) for r in (rows, rows_p))
     near = torch.zeros_like(key_max, dtype=torch.bool)
     if mask_near_ties:
-        near, _ = near_ties(fg, args, act)
+        near, _ = near_ties(fg, args, act, et)
     row_near = near.index_select(0, plan.row_key)
 
-    counts = K.ell_max_wincount(*args, key_max, act)
-    counts_p = K.ell_max_wincount_plain(*args, key_max_p, act, buckets=bd)
+    counts = count_k(*args, key_max, act, *ex)
+    counts_p = K.ell_max_wincount_plain(*args, key_max_p, act, buckets=bd,
+                                        **kw)
     torch.cuda.synchronize()
     differ = counts != counts_p
     bad = int((differ & ~row_near).sum())
     err["ell_max_wincount"] = float(
         torch.where(row_near, 0.0, (counts - counts_p).abs()).max())
-    log(f"  {label} ell_max_wincount: counts differ at {int(differ.sum())} "
-        f"of {counts.numel()} (row, o), {bad} outside the "
-        f"{int(near.sum())} near-tie (key, o); max count "
+    log(f"  {label} {key('ell_max_wincount')}: counts differ at "
+        f"{int(differ.sum())} of {counts.numel()} (row, o), {bad} outside "
+        f"the {int(near.sum())} near-tie (key, o); max count "
         f"{float(counts.max()):.0f} {'ok' if bad == 0 else 'FAIL'}")
     if bad:
         raise AssertionError(f"{label}: win counts disagree")
 
     gsc = torch.where(near, 0.0, g).contiguous()
-    outs = K.ell_max_bwd(*args, key_max, gsc, act)
-    outs_p = K.ell_max_bwd_plain(*args, key_max_p, gsc, act, buckets=bd)
+    outs = bwd_k(*args, key_max, gsc, act, *ex)
+    outs_p = K.ell_max_bwd_plain(*args, key_max_p, gsc, act, buckets=bd,
+                                 **kw)
     torch.cuda.synchronize()
-    tols = (BWD_TOL, BF16_STEP if dtype == torch.bfloat16 else BWD_TOL,
-            GW_TOL)
+    tols = ((BWD_TOL, keep_rows),
+            (BF16_STEP if dtype == torch.bfloat16 else BWD_TOL, keep_slots),
+            (GW_TOL, None))
     err["ell_max_bwd"] = max(
-        compare(f"{label} ell_max_bwd[{i}]", a, b, tol)
-        for i, (a, b, tol) in enumerate(zip(outs, outs_p, tols)))
+        compare(f"{label} {key('ell_max_bwd')}[{i}]", a, b, tol, keep)
+        for i, (a, b, (tol, keep)) in enumerate(zip(outs, outs_p, tols)))
 
     gz = outs[1]
     red_args = (gz, fg.src_slot_from_dst_slot, splan.slot_valid,
                 splan.row_ptr)
-    red = K.ell_scaled_reduce(*red_args)
-    red_p = K.ell_scaled_reduce_plain(*red_args, buckets=bs)
-    torch.cuda.synchronize()
-    err["ell_scaled_reduce"] = compare(f"{label} ell_scaled_reduce", red,
-                                       red_p, BWD_TOL)
-    for name, e in err.items():
-        errs[name] = max(errs.get(name, 0.0), e)
+    if base:
+        red = K.ell_scaled_reduce(*red_args)
+        red_p = K.ell_scaled_reduce_plain(*red_args, buckets=bs)
+        torch.cuda.synchronize()
+        err["ell_scaled_reduce"] = compare(f"{label} ell_scaled_reduce",
+                                           red, red_p, BWD_TOL)
+    for name, x in err.items():
+        k = name if name == "ell_scaled_reduce" else key(name)
+        errs[k] = max(errs.get(k, 0.0), x)
     if timing is None:
         return
 
     h, o = w.shape
     valid = int((scale > 0).sum())
-    src_valid = int((splan.slot_valid > 0).sum())
-    # the reduce skips zero-scale slots: it needs only the g_z rows that
-    # valid src slots point at, besides every slot's index and scale
-    red_need = (src_valid * h * gz.element_size(),) + red_args[1:]
+    # an edge form also reads the edge table and each slot's edge id
+    need = args + ((et, plan.slot_edge) if edge else ())
     runs = {
-        "ell_max_fwd": (args, lambda: K.ell_max_fwd(*args, act),
-                        lambda: K.ell_max_fwd_plain(*args, act, buckets=bd),
+        "ell_max_fwd": (need, lambda: fwd_k(*args, act, *ex),
+                        lambda: K.ell_max_fwd_plain(*args, act, buckets=bd,
+                                                    **kw),
                         (rows,), valid * h * o * 2),
         "ell_max_wincount": (
-            args + (key_max,),
-            lambda: K.ell_max_wincount(*args, key_max, act),
+            need + (key_max,),
+            lambda: count_k(*args, key_max, act, *ex),
             lambda: K.ell_max_wincount_plain(*args, key_max, act,
-                                             buckets=bd),
+                                             buckets=bd, **kw),
             (counts,), valid * h * o * 2),
         "ell_max_bwd": (
-            args + (key_max, gsc),
-            lambda: K.ell_max_bwd(*args, key_max, gsc, act),
+            need + (key_max, gsc),
+            lambda: bwd_k(*args, key_max, gsc, act, *ex),
             lambda: K.ell_max_bwd_plain(*args, key_max, gsc, act,
-                                        buckets=bd),
+                                        buckets=bd, **kw),
             outs, valid * h * o * 6),
-        "ell_scaled_reduce": (
+    }
+    if base:
+        src_valid = int((splan.slot_valid > 0).sum())
+        # the reduce skips zero-scale slots: it needs only the g_z rows
+        # that valid src slots point at, besides every slot's index and
+        # scale
+        red_need = (src_valid * h * gz.element_size(),) + red_args[1:]
+        runs["ell_scaled_reduce"] = (
             red_need, lambda: K.ell_scaled_reduce(*red_args),
             lambda: K.ell_scaled_reduce_plain(*red_args, buckets=bs),
-            (red,), src_valid * h * 2),
-    }
+            (red,), src_valid * h * 2)
     for name, (targs, kernel, plain, touts, flops) in runs.items():
-        timing[name] = dict(ms=cuda_ms(kernel, 10),
-                            plain_ms=cuda_ms(plain, 3, warmup=1),
-                            bound=bound(targs, touts, flops))
+        k = name if name == "ell_scaled_reduce" else key(name)
+        timing[k] = dict(ms=cuda_ms(kernel, 10),
+                         plain_ms=cuda_ms(plain, 3, warmup=1),
+                         bound=bound(targs, touts, flops))
         if name != "ell_scaled_reduce":
             # the f32 SIMT bound above, and the bound of the three-pass
             # TF32 product on the tensor cores, which the kernel runs
-            f32 = timing[name]["bound"][0]
-            timing[name]["bound"] = bound(targs, touts, TF32_PASSES * flops,
-                                          PEAK_TF32_FLOPS)
-            log(f"  {name}: {timing[name]['ms']:.4f} ms; bound "
-                f"{timing[name]['bound'][0]:.4f} ms as {TF32_PASSES} x TF32 "
+            f32 = timing[k]["bound"][0]
+            timing[k]["bound"] = bound(targs, touts, TF32_PASSES * flops,
+                                       PEAK_TF32_FLOPS)
+            log(f"  {k}: {timing[k]['ms']:.4f} ms; bound "
+                f"{timing[k]['bound'][0]:.4f} ms as {TF32_PASSES} x TF32 "
                 f"at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, {f32:.4f} ms as "
                 f"f32 at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s")
+    if not base:
+        return
     # one PyTorch call computing ell_scaled_reduce: a CSR product
     n_src = splan.row_ptr.numel() - 1
     a = torch.sparse_csr_tensor(
@@ -1182,6 +1274,27 @@ def phase_kernels(device):
             for dtype in dtypes:
                 check_max_kernels(f"{graph} H={h} O={o} {act.name} {dtype}",
                                   *case, act, dtype, errs_for(act))
+    # the max kernels' new forms: the edge forms with elementwise sigmas,
+    # the row-wise forms (past H = 256 "[rowwise,wide]") and both at once
+    for graph, h, o in (("hub", 24, 40), ("random", 96, 96),
+                        ("random", 200, 200), ("ties", 32, 24),
+                        ("random", 36, 100), ("hub", 300, 24),
+                        ("random", 512, 512), ("isolated", 520, 40)):
+        case = max_case(graph, h, o, device)
+        e = edge_tables(case[0], h, 1, seed=h + o)[0]
+        wide = ",wide" if h > 256 else ""
+        for dtype in dtypes:
+            label = f"{graph} H={h} O={o}"
+            if not wide:
+                for act in (leaky_relu(0.2), gelu()):
+                    check_max_kernels(f"{label} {act.name} {dtype} edge",
+                                      *case, act, dtype, errs, e=e)
+                check_max_kernels(f"{label} centered_relu {dtype} edge",
+                                  *case, centered_relu(0.5), dtype, errs,
+                                  e=e, tag="[edge,rowwise]")
+            for act in (centered_relu(0.5), softmax):
+                check_max_kernels(f"{label} {act.name} {dtype}", *case, act,
+                                  dtype, errs, tag=f"[rowwise{wide}]")
     for graph, h in (("hub", 24), ("random", 96), ("isolated", 200),
                      ("random", 20)):
         case = general_case(graph, h, device)
@@ -1234,6 +1347,24 @@ def phase_kernels(device):
         check_max_kernels(f"arxiv {dtype}", fg, eq, ek, w, g,
                           fg.dst_slot_scales["sum"], leaky_relu(0.2), dtype,
                           errs, timing=keep, mask_near_ties=True)
+        # the max kernels' new forms (timed in bf16): the edge form with
+        # the sireconv_max phase's sigma and edge table, the row-wise form
+        # with centered_relu (softmax beside it), and both at once
+        check_max_kernels(f"arxiv {dtype} edge", fg, eq, ek, w, g,
+                          fg.dst_slot_scales["sum"], leaky_relu(0.2), dtype,
+                          errs, timing=keep, mask_near_ties=True,
+                          e=tables[0])
+        check_max_kernels(f"arxiv {dtype} centered_relu", fg, eq, ek, w, g,
+                          fg.dst_slot_scales["sum"], centered_relu(0.5),
+                          dtype, errs, timing=keep, mask_near_ties=True,
+                          tag="[rowwise]")
+        check_max_kernels(f"arxiv {dtype} softmax", fg, eq, ek, w, g,
+                          fg.dst_slot_scales["sum"], softmax, dtype, errs,
+                          mask_near_ties=True, tag="[rowwise]")
+        check_max_kernels(f"arxiv {dtype} centered_relu edge", fg, eq, ek, w,
+                          g, fg.dst_slot_scales["sum"], centered_relu(0.5),
+                          dtype, errs, timing=keep, mask_near_ties=True,
+                          e=tables[0], tag="[edge,rowwise]")
         check_general_kernels(f"arxiv {dtype} centered_relu", fg, eq, ek, g,
                               sd, ss, centered_relu(0.5), dtype, errs,
                               timing=keep, mask_gates=True,
@@ -1313,7 +1444,7 @@ def phase_kernels(device):
                 f"plain {t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} "
                 f"ms, {100 * t['bound'][0] / t['ms']:.1f}% of bound")
     del eq, ek, g, w, tables
-    hetero_kernels(device, errs, gelu_errs)
+    hetero_kernels(device, errs, gelu_errs, timing)
     wide_kernels(device, fg, errs, timing)
     timing.update({f"{k}[gelu]": v for k, v in gelu_timing.items()
                    if k in GELU})
@@ -1352,7 +1483,7 @@ def wide_kernels(device, fg, errs, timing):
     torch.cuda.empty_cache()
 
 
-def hetero_kernels(device, errs, gelu_errs):
+def hetero_kernels(device, errs, gelu_errs, timing):
     """The kernels with an erf-GELU form at H = O = 512 on a plan of the
     heterophilous minesweeper's size (its synthetic stand-in, no self
     loops): #1, #2 and #4 and their edge forms, #7 and #8 (De = 16, on the
@@ -1360,12 +1491,19 @@ def hetero_kernels(device, errs, gelu_errs):
     masked as at
     the arxiv plan, in f32 and bf16; erf-GELU against its plain versions,
     and leaky_relu(0.2) beside it, each timed (bf16) and logged with its
-    path."""
+    path. Then #9-#11's row-wise forms there: centered_relu in bf16 (near
+    ties and gates masked), timed into ``timing`` as "[rowwise,wide]",
+    and softmax in f32."""
     import torch
 
     from sir_gcn_tpu_torch.data import synthetic_node_classification
     from sir_gcn_tpu_torch.experiments.heterophilous import train as het
-    from sir_gcn_tpu_torch.ops.ell import gelu, leaky_relu
+    from sir_gcn_tpu_torch.ops.ell import (
+        centered_relu,
+        gelu,
+        leaky_relu,
+        softmax,
+    )
 
     h = HETERO_H
     args = het._parser().parse_args([
@@ -1405,6 +1543,19 @@ def hetero_kernels(device, errs, gelu_errs):
             f"({100 * (t['ms'] / lr['ms'] - 1):+.1f}%), plain "
             f"{t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} ms by "
             f"{t['bound'][1]}, {100 * t['bound'][0] / t['ms']:.1f}% of bound")
+    for act, dtype, keep in ((centered_relu(0.5), torch.bfloat16, timing),
+                             (softmax, torch.float32, None)):
+        check_max_kernels(f"H={h} {dtype} {act.name}", fg, eq, ek, w, g,
+                          fg.dst_slot_scales["sum"], act, dtype, errs,
+                          timing=keep, mask_near_ties=True,
+                          tag="[rowwise,wide]")
+    for name in MAX[:3]:
+        t, lr = timing[f"{name}[rowwise,wide]"], times["leaky_relu"][name]
+        log(f"  {name} at H={h} (bf16): centered_relu {t['ms']:.4f} ms "
+            f"against leaky_relu {lr['ms']:.4f} ms "
+            f"({100 * (t['ms'] / lr['ms'] - 1):+.1f}%), plain "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} ms, "
+            f"{100 * t['bound'][0] / t['ms']:.1f}% of bound")
     del eq, ek, g, w, tables
 
 
@@ -1654,16 +1805,18 @@ def sireconv_inputs(fg, seed: int):
     return x.to(dev), ef.to(dev), w.to(dev)
 
 
-def make_sireconv(dropout: float, edge_encoder=None, act=None):
+def make_sireconv(dropout: float, edge_encoder=None, act=None,
+                  agg_type: str = "sym"):
     """The SIREConv of the sireconv phase: 96 in, De = 16, 96 hidden and
-    out, ``act`` (leaky_relu(0.2) by default), sym; weights from seed 0."""
+    out, ``act`` (leaky_relu(0.2) by default), ``agg_type`` (sym by
+    default); weights from seed 0."""
     import torch
 
     from sir_gcn_tpu_torch.models import SIREConv
     from sir_gcn_tpu_torch.ops.ell import leaky_relu
 
     return SIREConv(96, EDGE_DIM, 96, 96, act or leaky_relu(0.2),
-                    dropout=dropout, agg_type="sym",
+                    dropout=dropout, agg_type=agg_type,
                     edge_encoder=edge_encoder,
                     generator=torch.Generator().manual_seed(0))
 
@@ -1717,6 +1870,185 @@ def phase_sireconv(device, fg, steps: int = 5, act=None):
             total[k] += v
     set_edge_dtype(None)
     return total
+
+
+def max_launches(steps: int, edge: bool) -> dict:
+    """A max conv's launches over ``steps`` steps, each followed by a
+    no-grad eval: a step runs #9, #10, #11 and #12 once (the edge forms
+    with ``edge``), an eval #9 once."""
+    sfx = "_edge" if edge else ""
+    return {f"ell_max_fwd{sfx}": 2 * steps, f"ell_max_wincount{sfx}": steps,
+            f"ell_max_bwd{sfx}": steps, "ell_scaled_reduce": steps}
+
+
+def phase_sireconv_max(device, fg, steps: int = 5):
+    """Lane (d)'s SIREConv with max at full width on the arxiv plan (96 in,
+    De = 16 raw edge features, 96 hidden and out, dropout 0.2, bf16
+    edges), through ``SIREConv.forward``: (a) leaky_relu(0.2), (b)
+    centered_relu(0.5), the edge term and a row-wise sigma together; each
+    ``steps`` AdamW steps, each followed by a no-grad eval, with exact
+    launch counts (``max_launches``: #9e-#11e and #12), the peak memory and
+    one profiled step. Then (c) one step of (b) on a ~20k-node graph, card
+    against CPU, f32 edges, dropout 0, on dyadic inputs and weights (eq,
+    ek, e, z and each slot's sum over H exact in f32, so both devices take
+    the same gates), with no cotangent at the near-tie (key, o) of the
+    CPU's products (``near_ties``), where the devices may pick other
+    winners: out at FWD_TOL, every gradient at BWD_TOL (W_R's at GW_TOL, a
+    sum over every slot). Returns the launches of (a) and (b)."""
+    import copy
+
+    import torch
+
+    from sir_gcn_tpu_torch.data import synthetic_node_classification
+    from sir_gcn_tpu_torch.experiments.ogbn_arxiv.train import (
+        build_arxiv_graph,
+        get_args,
+    )
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.ops.ell import centered_relu, leaky_relu
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+    from sir_gcn_tpu_torch.train import make_adamw
+
+    log(f"== sireconv_max: one SIREConv (96 -> 96, De {EDGE_DIM}, max, "
+        f"dropout 0.2, bf16 edges) on the arxiv plan, {steps} steps and "
+        f"evals per sigma")
+    set_edge_dtype(torch.bfloat16)
+    x, ef, w = sireconv_inputs(fg, seed=0)
+    want = max_launches(steps, edge=True)
+    runs = {}
+    for setting, act in (("a", leaky_relu(0.2)), ("b", centered_relu(0.5))):
+        conv = make_sireconv(0.2, act=act, agg_type="max").to(device)
+        opt = make_adamw(conv.parameters(), 1e-3, 0.0)
+        gen = torch.Generator(device=device).manual_seed(0)
+        label = f"({setting}) {act.name}"
+        step = lambda: sireconv_step(conv, fg, x, ef, w, opt, gen)
+        runs[setting] = conv_loop(label, conv, fg, x, w, steps, step,
+                                  lambda: conv(fg, x, ef))
+        if runs[setting] != want:
+            raise AssertionError(f"{label}: launch counts {runs[setting]}, "
+                                 f"expected {want}")
+        log(f"== profile sireconv_max ({setting}): 1 warm training step")
+        profile_steps(step, 1)
+        del conv, opt, step
+    del x, ef, w
+
+    log("== sireconv_max (c): one step of (b) on the card (kernels) against "
+        "the CPU (plain)")
+    set_edge_dtype(None)
+    args = get_args(["--add-reverse-edge", "--add-self-loop"])
+    data = synthetic_node_classification(20_000, 140_000, feat_dim=128,
+                                         num_classes=40, seed=1)
+    graphs = {name: build_arxiv_graph(data, args, dev)
+              for name, dev in (("cpu", "cpu"), ("card", device))}
+    x, ef, w = sireconv_inputs(graphs["cpu"], seed=1)
+    x, ef = dyadic(x, 8, 4), dyadic(ef, 8, 4)
+    act = centered_relu(0.5)
+    conv = make_sireconv(0.0, act=act, agg_type="max")
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.copy_(torch.round(p * 128) / 128)
+        # no cotangent at the CPU's near-tie (key, o), where the two
+        # devices may pick other winners and move its whole cotangent
+        g = graphs["cpu"]
+        plan = g.dst_plan
+        e = conv.linear_edge(ef).index_select(0, g.graph.edge_perm)
+        near, _ = near_ties(g, (conv.linear_query(x), conv.linear_key(x),
+                                g.dst_slot_srcnode, g.dst_slot_scales["sum"],
+                                plan.row_key, plan.row_ptr,
+                                conv.relation_kernel), act, e)
+        w = torch.where(near, 0.0, w)
+    log(f"  {int(near.sum())} near-tie (key, o) of {near.numel()}: no "
+        f"cotangent there")
+    one = {k: v // (2 * steps) if k == "ell_max_fwd_edge" else v // steps
+           for k, v in want.items()}
+    out = {}
+    for name, g in graphs.items():
+        dev = g.graph.device
+        m = copy.deepcopy(conv).to(dev)
+        m.train()
+        reset_launch_counts()
+        y = m(g, x.to(dev), ef.to(dev))
+        (y * w.to(dev)).sum().backward()
+        if name == "card":
+            torch.cuda.synchronize()
+            did = {k: v for k, v in LAUNCHES.items() if v}
+            if did != one:
+                raise AssertionError(f"(c) card launches {did}, expected "
+                                     f"{one}")
+        out[name] = dict(out=y.detach().cpu(), grads={
+            k: p.grad.cpu() for k, p in m.named_parameters()})
+    c, g = out["cpu"], out["card"]
+    log(f"  nodes 20000, edges {graphs['card'].graph.num_edges}, launches "
+        f"{one}")
+    compare("out", g["out"], c["out"], FWD_TOL)
+    for k in c["grads"]:
+        compare(f"grad {k}", g["grads"][k], c["grads"][k],
+                GW_TOL if k == "relation_kernel" else BWD_TOL)
+    return runs["a"], runs["b"]
+
+
+def phase_max_rowwise(device, fg, steps: int = 5, wide_steps: int = 3):
+    """One SIRConv with max and a row-wise sigma, bf16 edges, each step
+    followed by a no-grad eval, with exact launch counts
+    (``max_launches``) and the peak memory: (a) centered_relu(0.5) and (b)
+    softmax at 96 -> 96 -> 96 on the arxiv plan, ``steps`` steps each; (c)
+    centered_relu(0.5) at 512 -> 512 -> 512 on a graph of roman-empire's
+    size (22,662 nodes, 32,927 undirected edges: the fullgraph phase's
+    stand-in), ``wide_steps`` steps, one more profiled;
+    (d) erf-GELU declared non-elementwise at 96 on the arxiv plan,
+    ``wide_steps`` steps, on the max kernels' erf-GELU forms. Returns the
+    launches of (a) and (b) together and of (c)."""
+    import torch
+
+    from sir_gcn_tpu_torch.experiments.heterophilous import train as het
+    from sir_gcn_tpu_torch.models import SIRConv
+    from sir_gcn_tpu_torch.ops.ell import Activation, centered_relu, softmax
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+    from sir_gcn_tpu_torch.train import make_adamw
+
+    log(f"== max_rowwise: one SIRConv with max and a row-wise sigma, bf16 "
+        f"edges, {steps} (96 wide) or {wide_steps} (512 wide) steps and "
+        f"evals")
+    set_edge_dtype(torch.bfloat16)
+    hargs = het._parser().parse_args([
+        "--dataset", "roman-empire", *ROMAN_EMPIRE])
+    roman = het.prepare(hargs, 0, 0, device)["graph"]
+    log(f"  roman-empire's size: N {roman.n_pad}, E_pad {roman.e_pad}, "
+        f"S_dst {roman.dst_plan.num_slots}")
+    log_max_layout("max_rowwise (c)", 512, 512, require_tensor=True)
+    rowwise = dict.fromkeys(MAX, 0)
+    wide = dict.fromkeys(MAX, 0)
+    for setting, act, graph, h, n, into in (
+            ("a", centered_relu(0.5), fg, 96, steps, rowwise),
+            ("b", softmax, fg, 96, steps, rowwise),
+            ("c", centered_relu(0.5), roman, 512, wide_steps, wide),
+            ("d", Activation("gelu", sir_elementwise=False), fg, 96,
+             wide_steps, None)):
+        gen = torch.Generator(device=device).manual_seed(7)
+        x = torch.randn((graph.n_pad, h), generator=gen, device=device)
+        w = torch.randn((graph.n_pad, h), generator=gen, device=device)
+        conv = SIRConv(h, h, h, act, agg_type="max",
+                       generator=torch.Generator().manual_seed(0)).to(device)
+        opt = make_adamw(conv.parameters(), 1e-3, 0.0)
+        declared = " (declared non-elementwise)" if act.diagonal and \
+            not act.elementwise else ""
+        label = f"({setting}) {act.name}{declared} H={h}"
+        step = lambda: conv_step(conv, graph, x, w, opt)
+        launches = conv_loop(label, conv, graph, x, w, n, step,
+                             lambda: conv(graph, x))
+        want = max_launches(n, edge=False)
+        if launches != want:
+            raise AssertionError(f"{label}: launch counts {launches}, "
+                                 f"expected {want}")
+        if into is not None:
+            for k, v in launches.items():
+                into[k] += v
+        if setting == "c":
+            log("== profile max_rowwise (c): 1 warm training step")
+            profile_steps(step, 1)
+        del conv, opt, step, x, w
+    set_edge_dtype(None)
+    return rowwise, wide
 
 
 def make_general_conv():
@@ -4524,6 +4856,12 @@ def main() -> int:
     launches.update({k: v for k, v in phase_general_edge(
         device, arxiv_fg).items() if k in GENERAL_EDGE})
     general_wide, general_gelu = phase_general_wide(device, arxiv_fg)
+    max_edge, max_both = phase_sireconv_max(device, arxiv_fg)
+    launches.update({k: v for k, v in max_edge.items() if k in MAX_EDGE})
+    max_rowwise, max_wide = phase_max_rowwise(device, arxiv_fg)
+    max_forms = {"rowwise": max_rowwise, "rowwise,wide": max_wide,
+                 "edge,rowwise": {MAX_EDGE[k]: v for k, v in max_both.items()
+                                  if k in MAX_EDGE}}
     launches.update({k: v for k, v in phase_bwd(device, arxiv_fg).items()
                      if k in BWD})
     lab_launches, lab_errs, lab_timing = phase_lab(device)
@@ -4558,8 +4896,7 @@ def main() -> int:
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         t = timing[name]
-        row = (f"{GENERAL_EDGE[name]}[edge]" if name in GENERAL_EDGE
-               else name)
+        row = f"{EDGE_FORMS[name]}[edge]" if name in EDGE_FORMS else name
         rows.append(dict(
             name=row, route="cuda", source=source, replaces=replaces,
             launches=launches[name], max_abs_err=errs[name], ms=t["ms"],
@@ -4574,6 +4911,16 @@ def main() -> int:
             max_abs_err=errs[f"{name}[gelu]"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
             bound_by=t["bound"][1], library_ms=None))
+    for form in MAX_FORMS:
+        for name in MAX[:3]:
+            source, replaces, _ = KERNELS[name]
+            key = f"{name}[{form}]"
+            t = timing[key]
+            rows.append(dict(
+                name=key, route="cuda", source=source, replaces=replaces,
+                launches=max_forms[form][name], max_abs_err=errs[key],
+                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+                bound_by=t["bound"][1], library_ms=None))
     for form, counts in (("gelu", general_gelu), ("wide", general_wide)):
         for name in GENERAL_FORMS:
             source, replaces, _ = KERNELS[name]

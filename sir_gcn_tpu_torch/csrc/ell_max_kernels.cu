@@ -9,12 +9,24 @@
 //   ell_max_fwd        rows (the f32 min where a row has no valid slot)
 //   ell_max_wincount   counts[r, o] = #valid s with m[s, o] == key_max[key, o]
 //   ell_max_bwd        g_m = win * gsc[key]; g_W = sum_s a^T g_m;
-//                      g_z = act'(z) * (g_m W^T) per slot; geq_rows = sum_s g_z
+//                      g_z = vjp(act, z)(g_m W^T) per slot;
+//                      geq_rows = sum_s g_z
 //   ell_scaled_reduce  out[r] = sum_s scale[s] * values[slot_idx[s]]
+//
+// act is any sigma of the registry: leaky_relu, tanh and erf-GELU
+// elementwise, centered_relu (relu(z - alpha mean_H(z))) and softmax over
+// H row-wise. The edge-term forms of the first three (``*_edge``) add an
+// edge table e [E_pad, H] in sorted-edge order, of ek's type, read by index
+// through the plan's slot_edge: the key side of slot s is
+// add_cast(ek[slot_src[s]], e[slot_edge[s]]), added in f32 and rounded to
+// ek's type, as the JAX route's ekg + e.astype(ekg.dtype) rounds it. The
+// per-edge cotangent is the caller's: g_z (in ek's type) read through the
+// edge -> dst-slot map.
 //
 // They replace the Pallas kernels bucket_max_gemm_fwd, bucket_max_wincount,
 // bucket_max_gemm_bwd and bucket_scaled_reduce of
-// sir_gcn_tpu/ops/pallas/kernels.py. One launch walks every row of a plan
+// sir_gcn_tpu/ops/pallas/kernels.py, with or without the with_edge inputs
+// of make_ell_sir_aggregate_max_pallas. One launch walks every row of a plan
 // through row_ptr and gathers node rows by index, so no [S, H] slot table is
 // read: ek rows, and the key-level max and cotangent rows, are read by
 // index; ell_scaled_reduce reads g_z through the src-slot -> dst-slot map
@@ -39,8 +51,21 @@
 //   cuts, up to budget 256 on hub graphs, carries its partial result (max,
 //   count or row sum) in shared memory from one tile to the next. The
 //   activations of a tile are staged once in shared memory (16-byte
-//   gathers where the row width allows), padding and invalid slots as 0,
-//   masked by scale > 0.
+//   gathers where the row width allows, the edge row beside the ek row in
+//   the edge forms), padding and invalid slots as 0, masked by scale > 0.
+// - A row-wise sigma: the tile's z [16, Hp] is staged first, then
+//   rowwise_act() takes each valid slot's statistic over its H features
+//   (not the padding up to Hp) and applies sigma in place: lanes 2i and
+//   2i + 1 hold slot i, each walking its half of the features in
+//   increasing h, and one xor shuffle joins the halves. The three kernels
+//   call it alike, so a (and m, and the win counts) has the same bits in
+//   each. #11 writes g_a itself where the elementwise forms write
+//   act'(z) g_a, and rowwise_vjp() forms g_z from it and a (relu's gate is
+//   a > 0, softmax's y is a) with the same lane pairs. A tile holds its
+//   16 slots' whole rows, so every width the elementwise forms take (a
+//   16-slot tile of Hp floats and a W chunk of 8 columns in a forward
+//   block's shared memory, the backward's three [16, Hp] buffers) the
+//   row-wise forms take too.
 // - slot_products(): m of a 16-slot tile for up to 12 column tiles of 8,
 //   in k steps of 8 in increasing h, three passes per step in one order.
 //   The three kernels call it alike, so a slot's m has the same bits in
@@ -74,7 +99,9 @@
 //   and added to the running sum by an f32 add that rounds to nearest.
 //
 // --fmad=false (ops/cuda/build.py) keeps nvcc from fusing the activation's
-// arithmetic differently in different kernels.
+// arithmetic differently in different kernels. The edge forms and the
+// forms without an edge term are separate instances (EDGE), so the
+// kernels without one carry no edge gather.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,8 +124,21 @@ constexpr int kMaxNJ = 4;      // ell_scaled_reduce: columns per lane
 constexpr int kMaxSmem = 232448 - 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Activation ids, as registered in sir_gcn_tpu_torch/ops/ell.py.
-enum { ACT_LEAKY_RELU = 0, ACT_TANH = 1, ACT_GELU = 4 };
+// Activation ids, as registered in sir_gcn_tpu_torch/ops/ell.py, and
+// ACT_ROWWISE, the one template both row-wise ids build (the id itself is
+// read at run time from the launch configuration: their kernels differ
+// only in rowwise_act and rowwise_vjp, once a tile).
+enum {
+  ACT_LEAKY_RELU = 0,
+  ACT_TANH = 1,
+  ACT_CENTERED_RELU = 2,
+  ACT_SOFTMAX = 3,
+  ACT_GELU = 4,
+  ACT_ROWWISE = 16
+};
+// Whether sigma couples a row's features (its Jacobian is not diagonal).
+template <int ACT>
+constexpr bool kRowwise = ACT == ACT_ROWWISE;
 enum { MODE_MAX = 0, MODE_COUNT = 1 };
 // where slot_products reads W: split in shared memory, f32 in shared
 // memory, f32 in device memory
@@ -111,6 +151,14 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as astype(bf16)
+}
+// k + e added in f32 and rounded to TK (nearest even): the key side of a
+// slot with its edge row.
+template <typename TK>
+__device__ __forceinline__ float add_cast(float k, float e) {
+  const float s = __fadd_rn(k, e);
+  if constexpr (sizeof(TK) == 2) return __bfloat162float(__float2bfloat16(s));
+  return s;
 }
 
 // False for every id: the static_assert of an activation id that has no
@@ -229,15 +277,16 @@ __device__ __forceinline__ void add_step(float (*acc)[4],
 // A warp's tile: 16 consecutive slots (fewer at the end of its share) and
 // the rows they hold, a row cut by the tile's edges included. Uniform
 // fields first; then per lane j < nrows row j's local slots [rlo, rhi) and
-// key, and per lane i < n slot i's source node and key. Row 0 may have
-// begun in the warp's last tile (carry_in), the last row may go on in the
-// next (!last); the rows between lie whole in the tile.
+// key, and per lane i < n slot i's source node, edge (the edge forms) and
+// key. Row 0 may have begun in the warp's last tile (carry_in), the last
+// row may go on in the next (!last); the rows between lie whole in the
+// tile.
 struct Tile {
   int s0, n, r0, nrows;
   bool carry_in, last;
   unsigned vmask;  // bit i: slot i is valid (scale > 0)
   int rlo, rhi, rkey;
-  int ssrc, skey;
+  int ssrc, sedge, skey;
 };
 
 // Whether row j of the tile began in the warp's last tile (its reduce
@@ -290,16 +339,17 @@ __device__ void warp_rows(const int* __restrict__ row_ptr, int R, int gw,
 // What a tile starting at slot s of row r reads of the plan, loaded by
 // load_meta as soon as the warp's previous tile is cut, so that the loads
 // are in flight during that tile's work: per lane j <= 16 row r + j's
-// start, per lane j < 16 its key, per lane i < 16 slot s + i's source and
-// scale.
+// start, per lane j < 16 its key, per lane i < 16 slot s + i's source,
+// edge (where slot_edge is given) and scale.
 struct Meta {
-  int p, rk, src;
+  int p, rk, src, edge;
   float sc;
 };
 
 __device__ __forceinline__ Meta load_meta(const int* __restrict__ row_ptr,
                                           const int* __restrict__ row_key,
                                           const int* __restrict__ slot_src,
+                                          const int* __restrict__ slot_edge,
                                           const float* __restrict__ scale,
                                           int r, int s, int r_end, int s_end,
                                           int lane) {
@@ -308,6 +358,7 @@ __device__ __forceinline__ Meta load_meta(const int* __restrict__ row_ptr,
   m.rk = lane < 16 && r + lane < r_end ? row_key[r + lane] : 0;
   const bool sl = lane < 16 && s + lane < s_end;
   m.src = sl ? slot_src[s + lane] : 0;
+  m.edge = sl && slot_edge != nullptr ? slot_edge[s + lane] : 0;
   m.sc = sl ? scale[s + lane] : 0.f;
   return m;
 }
@@ -346,6 +397,7 @@ __device__ bool next_tile(const Meta& m, int& r, int& s, int r_end,
   t.skey = __shfl_sync(kFull, t.rkey, my_row & 31);
   const bool sl = lane < t.n;
   t.ssrc = sl ? m.src : 0;
+  t.sedge = sl ? m.edge : 0;
   t.vmask = __ballot_sync(kFull, sl && m.sc > 0.f);
   return true;
 }
@@ -389,17 +441,94 @@ __device__ __forceinline__ float row_value(const float* __restrict__ tbl,
   return j < kPre ? buf[j * ld + o] : tbl[(int64_t)key * O + oc0 + o];
 }
 
+// A row-wise sigma over the H features of each slot of a tile, in place:
+// a_s holds z on entry and act(z) on return (0 for an invalid slot; the
+// padding h >= H is left as it is, 0). Lanes 2i and 2i + 1 take slot i,
+// features half, half + 2, ... (half = lane & 1) in increasing h; one xor
+// shuffle joins the two halves' sums or maxima (an f32 add commutes, so
+// both lanes hold the same bits). The statistic is formed alike wherever
+// the slot sits in a tile: #9, #10 and #11 give a the same bits.
+//   centered_relu: c = alpha * (sum / H); a = relu(z - c), 0 where z - c
+//                  <= 0 (jax.nn.relu)
+//   softmax:       a = exp(z - max) / sum of exp(z - max)
+__device__ __forceinline__ void rowwise_act(float* a_s, int lda,
+                                            const Tile& t, int H, int act,
+                                            float param, int lane) {
+  const int half = lane & 1;
+  const bool ok = slot_valid(t, lane >> 1);
+  float* row = a_s + (lane >> 1) * lda;
+  if (act == ACT_CENTERED_RELU) {
+    float s = 0.f;
+    if (ok)
+      for (int h = half; h < H; h += 2) s = __fadd_rn(s, row[h]);
+    s = __fadd_rn(s, __shfl_xor_sync(kFull, s, 1));
+    const float c = __fmul_rn(param, __fdiv_rn(s, (float)H));
+    for (int h = half; h < H; h += 2) {
+      const float v = __fsub_rn(row[h], c);
+      row[h] = ok && v > 0.f ? v : 0.f;
+    }
+  } else {  // ACT_SOFTMAX
+    float mx = -FLT_MAX;
+    if (ok)
+      for (int h = half; h < H; h += 2) mx = fmaxf(mx, row[h]);
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    float s = 0.f;
+    for (int h = half; h < H; h += 2) {
+      const float e = ok ? expf(__fsub_rn(row[h], mx)) : 0.f;
+      row[h] = e;
+      s = __fadd_rn(s, e);
+    }
+    s = __fadd_rn(s, __shfl_xor_sync(kFull, s, 1));
+    for (int h = half; h < H; h += 2)
+      row[h] = ok ? __fdiv_rn(row[h], s) : 0.f;
+  }
+}
+
+// g_z = vjp(act, z)(g_a) of a row-wise sigma for the slots of a tile, in
+// place of g_a in g_s, from a = act(z) in a_s, with rowwise_act's lanes
+// and order. An invalid slot has a = 0 and g_a = 0, and gets g_z = 0.
+//   centered_relu: d = g_a where a > 0 (relu'(0) = 0), g_z = d - alpha *
+//                  (sum of d / H)
+//   softmax:       g_z = a * (g_a - sum of a * g_a)
+__device__ __forceinline__ void rowwise_vjp(const float* a_s, float* g_s,
+                                            int lda, int H, int act,
+                                            float param, int lane) {
+  const int half = lane & 1;
+  const float* a = a_s + (lane >> 1) * lda;
+  float* g = g_s + (lane >> 1) * lda;
+  float s = 0.f;
+  const bool relu = act == ACT_CENTERED_RELU;  // else ACT_SOFTMAX
+  for (int h = half; h < H; h += 2)
+    s = __fadd_rn(s, relu ? (a[h] > 0.f ? g[h] : 0.f)
+                          : __fmul_rn(a[h], g[h]));
+  s = __fadd_rn(s, __shfl_xor_sync(kFull, s, 1));
+  if (relu) {
+    const float c = __fmul_rn(param, __fdiv_rn(s, (float)H));
+    for (int h = half; h < H; h += 2)
+      g[h] = __fsub_rn(a[h] > 0.f ? g[h] : 0.f, c);
+  } else {
+    for (int h = half; h < H; h += 2)
+      g[h] = __fmul_rn(a[h], __fsub_rn(g[h], s));
+  }
+}
+
 // Stage a tile's activations: a_s[i * lda + h] = act(z) (and d_s = act'(z)
-// with WITH_D) for slots i < 16 and h < Hp, 0 for padding, invalid slots
-// and h >= H. VEC gathers 16 bytes a lane (H a multiple of 8 for bf16 or 4
-// for f32, 16-byte aligned tables); else one feature a lane. Each lane
-// issues U gathers before it uses one.
-template <int ACT, typename TK, bool VEC, bool WITH_D>
+// with WITH_D, an elementwise sigma only) for slots i < 16 and h < Hp, 0
+// for padding, invalid slots and h >= H; z = eq[key] + ek[src], with EDGE
+// z = eq[key] + add_cast(ek[src], e[edge]). VEC gathers 16 bytes a lane
+// (H a multiple of 8 for bf16 or 4 for f32, 16-byte aligned tables); else
+// one feature a lane. Each lane issues U gathers before it uses one. A
+// row-wise sigma (ACT_ROWWISE, act its id) stages z and then applies
+// rowwise_act.
+template <int ACT, typename TK, bool VEC, bool WITH_D, bool EDGE>
 __device__ __forceinline__ void stage_tile(const float* __restrict__ eq,
                                            const TK* __restrict__ ek,
+                                           const TK* __restrict__ e,
                                            const Tile& t, int H, int Hp,
-                                           float slope, float* a_s, int lda,
-                                           float* d_s, int lane) {
+                                           int act, float slope, float* a_s,
+                                           int lda, float* d_s, int lane) {
+  static_assert(!(WITH_D && kRowwise<ACT>),
+                "a row-wise sigma has no elementwise derivative");
   constexpr int E = VEC ? 16 / (int)sizeof(TK) : 1;
   constexpr int U = VEC ? 6 : 8;  // H = 96 in bf16: one round a tile
   const int nch = H / E;
@@ -413,9 +542,11 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ eq,
       const int i = c / nch, ch = c - (c / nch) * nch;
       const int src = __shfl_sync(kFull, t.ssrc, i & 15);
       const int key = __shfl_sync(kFull, t.skey, i & 15);
+      const int edge = EDGE ? __shfl_sync(kFull, t.sedge, i & 15) : 0;
       ok[u] = c < total && slot_valid(t, i & 15);
       if (ok[u]) {
         const TK* kp = ek + (int64_t)src * H + ch * E;
+        const TK* ep = EDGE ? e + (int64_t)edge * H + ch * E : nullptr;
         const float* qp = eq + (int64_t)key * H + ch * E;
         if (VEC) {
           float kf[E];
@@ -424,28 +555,45 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ eq,
             const __nv_bfloat16* b =
                 reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
-            for (int e = 0; e < E; ++e) kf[e] = to_f32(b[e]);
+            for (int x = 0; x < E; ++x) kf[x] = to_f32(b[x]);
+            if (EDGE) {
+              const uint4 eraw = *reinterpret_cast<const uint4*>(ep);
+              const __nv_bfloat16* eb =
+                  reinterpret_cast<const __nv_bfloat16*>(&eraw);
+#pragma unroll
+              for (int x = 0; x < E; ++x)
+                kf[x] = add_cast<TK>(kf[x], to_f32(eb[x]));
+            }
           } else {
             const float4 raw = *reinterpret_cast<const float4*>(kp);
             kf[0] = raw.x;
             kf[1 % E] = raw.y;
             kf[2 % E] = raw.z;
             kf[3 % E] = raw.w;
+            if (EDGE) {
+              const float4 er = *reinterpret_cast<const float4*>(ep);
+              kf[0] = add_cast<TK>(kf[0], er.x);
+              kf[1 % E] = add_cast<TK>(kf[1 % E], er.y);
+              kf[2 % E] = add_cast<TK>(kf[2 % E], er.z);
+              kf[3 % E] = add_cast<TK>(kf[3 % E], er.w);
+            }
           }
 #pragma unroll
-          for (int e = 0; e < E; e += 4) {
-            const float4 q = *reinterpret_cast<const float4*>(qp + e);
-            z[u][e] = kf[e] + q.x;
-            z[u][(e + 1) % E] = kf[(e + 1) % E] + q.y;
-            z[u][(e + 2) % E] = kf[(e + 2) % E] + q.z;
-            z[u][(e + 3) % E] = kf[(e + 3) % E] + q.w;
+          for (int x = 0; x < E; x += 4) {
+            const float4 q = *reinterpret_cast<const float4*>(qp + x);
+            z[u][x] = kf[x] + q.x;
+            z[u][(x + 1) % E] = kf[(x + 1) % E] + q.y;
+            z[u][(x + 2) % E] = kf[(x + 2) % E] + q.z;
+            z[u][(x + 3) % E] = kf[(x + 3) % E] + q.w;
           }
         } else {
-          z[u][0] = to_f32(kp[0]) + qp[0];
+          float kf = to_f32(kp[0]);
+          if (EDGE) kf = add_cast<TK>(kf, to_f32(ep[0]));
+          z[u][0] = kf + qp[0];
         }
       } else {
 #pragma unroll
-        for (int e = 0; e < E; ++e) z[u][e] = 0.f;
+        for (int x = 0; x < E; ++x) z[u][x] = 0.f;
       }
     }
 #pragma unroll
@@ -455,27 +603,31 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ eq,
         const int i = c / nch, ch = c - (c / nch) * nch;
         float av[E], dv[E];
 #pragma unroll
-        for (int e = 0; e < E; ++e) {
-          av[e] = dv[e] = 0.f;
-          if (ok[u]) act_both<ACT, WITH_D>(z[u][e], slope, av[e], dv[e]);
+        for (int x = 0; x < E; ++x) {
+          av[x] = dv[x] = 0.f;
+          if constexpr (kRowwise<ACT>) {
+            av[x] = z[u][x];  // 0 for an invalid slot; sigma comes after
+          } else {
+            if (ok[u]) act_both<ACT, WITH_D>(z[u][x], slope, av[x], dv[x]);
+          }
         }
         // 16-byte stores (lda is a multiple of 4): a lane's E features
         // at once, not E lanes on one bank
 #pragma unroll
-        for (int e = 0; e < E; e += (VEC ? 4 : 1)) {
-          float* pa = a_s + i * lda + ch * E + e;
-          float* pd = d_s + i * lda + ch * E + e;
+        for (int x = 0; x < E; x += (VEC ? 4 : 1)) {
+          float* pa = a_s + i * lda + ch * E + x;
+          float* pd = d_s + i * lda + ch * E + x;
           if (VEC) {
             *reinterpret_cast<float4*>(pa) =
-                make_float4(av[e], av[(e + 1) % E], av[(e + 2) % E],
-                            av[(e + 3) % E]);
+                make_float4(av[x], av[(x + 1) % E], av[(x + 2) % E],
+                            av[(x + 3) % E]);
             if (WITH_D)
               *reinterpret_cast<float4*>(pd) =
-                  make_float4(dv[e], dv[(e + 1) % E], dv[(e + 2) % E],
-                              dv[(e + 3) % E]);
+                  make_float4(dv[x], dv[(x + 1) % E], dv[(x + 2) % E],
+                              dv[(x + 3) % E]);
           } else {
-            *pa = av[e];
-            if (WITH_D) *pd = dv[e];
+            *pa = av[x];
+            if (WITH_D) *pd = dv[x];
           }
         }
       }
@@ -486,6 +638,10 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ eq,
     const int i = c / pad, h = H + c - (c / pad) * pad;
     a_s[i * lda + h] = 0.f;
     if (WITH_D) d_s[i * lda + h] = 0.f;
+  }
+  if constexpr (kRowwise<ACT>) {
+    __syncwarp();  // every lane's z is staged
+    rowwise_act(a_s, lda, t, H, act, slope, lane);
   }
 }
 
@@ -627,6 +783,7 @@ __device__ __forceinline__ void grad_products(const float* gm_s, int ldg,
 // floats and kPre prefetched key_max rows (#10).
 struct FwdCfg {
   int Hp, oc, nchunks, ldw, lda, ldm, per_warp, warps;
+  int act;  // the activation id (ACT_ROWWISE's kernels read it)
   size_t smem;
 };
 
@@ -660,6 +817,7 @@ bool fwd_config(int H, int O, FwdCfg& c) {
 struct BwdCfg {
   int Hp, Op, lda, ldg, ldw, per_warp, warps, w_smem, Mt, Nt, wm, wn, im,
       jn, resident;
+  int act;  // the activation id (ACT_ROWWISE's kernels read it)
   size_t smem;
 };
 
@@ -707,10 +865,11 @@ bool bwd_config(int H, int O, BwdCfg& c) {
 // MODE_COUNT: out[r, o] = #valid slots with m == key_max[row_key[r], o].
 // Blocks of grid.y chunk c take columns [c oc, c oc + oc); every block
 // walks its warps' shares of the rows.
-template <int ACT, int MODE, bool VEC, typename TK>
+template <int ACT, int MODE, bool VEC, bool EDGE, typename TK>
 __global__ void __launch_bounds__(kFwdWarps * 32)
 max_fwd_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
-               const int* __restrict__ slot_src,
+               const TK* __restrict__ e, const int* __restrict__ slot_src,
+               const int* __restrict__ slot_edge,
                const float* __restrict__ scale,
                const int* __restrict__ row_key,
                const int* __restrict__ row_ptr, const float* __restrict__ w,
@@ -738,16 +897,18 @@ max_fwd_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
   int r, r_end, s, s_end;
   warp_rows(row_ptr, R, blockIdx.x * warps + warp, gridDim.x * warps, lane,
             r, r_end, s, s_end);
+  const int* sedge = EDGE ? slot_edge : nullptr;
   Tile t;
-  Meta meta =
-      load_meta(row_ptr, row_key, slot_src, scale, r, s, r_end, s_end, lane);
+  Meta meta = load_meta(row_ptr, row_key, slot_src, sedge, scale, r, s,
+                        r_end, s_end, lane);
   while (next_tile(meta, r, s, r_end, s_end, t, lane)) {
     meta =  // the next tile's, in flight during this one
-        load_meta(row_ptr, row_key, slot_src, scale, r, s, r_end, s_end, lane);
+        load_meta(row_ptr, row_key, slot_src, sedge, scale, r, s, r_end,
+                  s_end, lane);
     if (MODE == MODE_COUNT)
       prefetch_rows(key_max, t, O, oc0, ocn, pre, round4(c.oc), lane);
-    stage_tile<ACT, TK, VEC, false>(eq, ek, t, H, c.Hp, slope, buf, c.lda,
-                                    nullptr, lane);
+    stage_tile<ACT, TK, VEC, false, EDGE>(eq, ek, e, t, H, c.Hp, c.act,
+                                          slope, buf, c.lda, nullptr, lane);
     __syncwarp();
     float acc[kNT][4];
     slot_products<W_SPLIT>(buf, c.lda, wh, wl, c.ldw, H, O, c.Hp, 0, nt, acc,
@@ -887,10 +1048,11 @@ __device__ __forceinline__ void gw_io(float acc[kGW][kGW][4], const BwdCfg& c,
 // The backward (see the header). Persistent blocks; each warp walks the
 // tiles of its share of the rows, all warps of a block in step, and after
 // each step the block adds g_m^T a of its tiles to its g_W partial.
-template <int ACT, bool VEC, bool WSMEM, typename TK>
+template <int ACT, bool VEC, bool WSMEM, bool EDGE, typename TK>
 __global__ void __launch_bounds__(kBwdWarps * 32)
 max_bwd_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
-               const int* __restrict__ slot_src,
+               const TK* __restrict__ e, const int* __restrict__ slot_src,
+               const int* __restrict__ slot_edge,
                const float* __restrict__ scale,
                const int* __restrict__ row_key,
                const int* __restrict__ row_ptr, const float* __restrict__ w,
@@ -937,21 +1099,24 @@ max_bwd_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
   int r, r_end, s, s_end;
   warp_rows(row_ptr, R, blockIdx.x * warps + warp, gridDim.x * warps, lane,
             r, r_end, s, s_end);
+  const int* sedge = EDGE ? slot_edge : nullptr;
   Tile t;
-  Meta meta =
-      load_meta(row_ptr, row_key, slot_src, scale, r, s, r_end, s_end, lane);
+  Meta meta = load_meta(row_ptr, row_key, slot_src, sedge, scale, r, s,
+                        r_end, s_end, lane);
   for (;;) {
     const bool have = next_tile(meta, r, s, r_end, s_end, t, lane);
     if (!__syncthreads_or(have)) break;
     if (have)  // the next tile's, in flight during this one
-      meta = load_meta(row_ptr, row_key, slot_src, scale, r, s, r_end, s_end,
-                       lane);
+      meta = load_meta(row_ptr, row_key, slot_src, sedge, scale, r, s, r_end,
+                       s_end, lane);
     if (lane == 0) tile_n[warp] = have ? t.n : 0;
     if (have) {
       prefetch_rows(key_max, t, O, 0, O, pre_max, ldp, lane);
       prefetch_rows(gsc, t, O, 0, O, pre_gsc, ldp, lane);
-      stage_tile<ACT, TK, VEC, true>(eq, ek, t, H, c.Hp, slope, a_s, c.lda,
-                                     d_s, lane);
+      // d_s: act'(z) for an elementwise sigma; a row-wise one's vjp
+      // reads a and g_a
+      stage_tile<ACT, TK, VEC, !kRowwise<ACT>, EDGE>(
+          eq, ek, e, t, H, c.Hp, c.act, slope, a_s, c.lda, d_s, lane);
       __syncwarp();
       // m, into gm_s
       for (int nt0 = 0; nt0 < c.Op / 8; nt0 += kNT) {
@@ -986,7 +1151,8 @@ max_bwd_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
         gm_s[i * c.ldg + e - i * c.Op] = 0.f;
       }
       __syncwarp();
-      // g_a = g_m W^T; g_z = act'(z) g_a in place of d_s
+      // g_a = g_m W^T; g_z = act'(z) g_a in place of d_s, or for a
+      // row-wise sigma g_a into d_s and then g_z = vjp(act, z)(g_a)
       {
         const int g = lane >> 2, tq = lane & 3;
         for (int nt0 = 0; nt0 < c.Hp / 8; nt0 += kNT) {
@@ -1000,14 +1166,23 @@ max_bwd_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
               const int h = (nt0 + j) * 8 + 2 * tq;
               float2* p0 = reinterpret_cast<float2*>(d_s + g * c.lda + h);
               float2* p1 = reinterpret_cast<float2*>(d_s + (g + 8) * c.lda + h);
-              const float2 d0 = *p0, d1 = *p1;
-              *p0 = make_float2(d0.x * acc[j][0], d0.y * acc[j][1]);
-              *p1 = make_float2(d1.x * acc[j][2], d1.y * acc[j][3]);
+              if constexpr (kRowwise<ACT>) {
+                *p0 = make_float2(acc[j][0], acc[j][1]);
+                *p1 = make_float2(acc[j][2], acc[j][3]);
+              } else {
+                const float2 d0 = *p0, d1 = *p1;
+                *p0 = make_float2(d0.x * acc[j][0], d0.y * acc[j][1]);
+                *p1 = make_float2(d1.x * acc[j][2], d1.y * acc[j][3]);
+              }
             }
           }
         }
       }
       __syncwarp();
+      if constexpr (kRowwise<ACT>) {
+        rowwise_vjp(a_s, d_s, c.lda, H, c.act, slope, lane);
+        __syncwarp();
+      }
       // g_z out; per row, the sum over its slots in order
       for (int j = 0; j < t.nrows; ++j) {
         const int lo = __shfl_sync(kFull, t.rlo, j);
@@ -1102,10 +1277,13 @@ int cols_per_lane(int O) {
 }
 
 // Whether the gathers of a kernel may be 16 bytes a lane: rows of whole
-// 16-byte chunks, tables that start on 16 bytes.
-bool vec_ok(const void* eq, const void* ek, int ek_bf16, int H) {
-  const int e = ek_bf16 ? 8 : 4;
-  return H % e == 0 && ((uintptr_t)eq | (uintptr_t)ek) % 16 == 0;
+// 16-byte chunks, tables that start on 16 bytes (e, the edge table, may be
+// null).
+bool vec_ok(const void* eq, const void* ek, const void* e, int ek_bf16,
+            int H) {
+  const int n = ek_bf16 ? 8 : 4;
+  return H % n == 0 &&
+         ((uintptr_t)eq | (uintptr_t)ek | (uintptr_t)e) % 16 == 0;
 }
 
 int sm_count() {
@@ -1117,12 +1295,19 @@ int sm_count() {
   return sms;
 }
 
-template <int ACT, int MODE, bool VEC, typename TK>
-int fwd_launch(const void* eq, const void* ek, const void* slot_src,
-               const void* scale, const void* row_key, const void* row_ptr,
-               const void* w, const void* key_max, int R, int H, int O,
-               float slope, void* out, cudaStream_t st, const FwdCfg& c) {
-  auto kernel = max_fwd_kernel<ACT, MODE, VEC, TK>;
+// The arguments of #9 and #10: tables, slot arrays, W, key_max (#10) and
+// widths; e and slot_edge null without an edge term.
+struct FwdArgs {
+  const void *eq, *ek, *e, *slot_src, *slot_edge, *scale, *row_key, *row_ptr,
+      *w, *key_max;
+  int R, H, O, act;
+  float slope;
+  void* out;
+};
+
+template <int ACT, int MODE, bool VEC, bool EDGE, typename TK>
+int fwd_launch(const FwdArgs& a, cudaStream_t st, const FwdCfg& c) {
+  auto kernel = max_fwd_kernel<ACT, MODE, VEC, EDGE, TK>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
   if (e != cudaSuccess) return (int)e;
@@ -1135,122 +1320,85 @@ int fwd_launch(const void* eq, const void* ek, const void* slot_src,
   // as many blocks as the card holds at once, split over the chunks, and
   // no more warps than rows
   int bx = std::max(1, sms * std::max(per_sm, 1) / c.nchunks);
-  bx = std::min(bx, (R + c.warps - 1) / c.warps);
+  bx = std::min(bx, (a.R + c.warps - 1) / c.warps);
   kernel<<<dim3(bx, c.nchunks), c.warps * 32, c.smem, st>>>(
-      (const float*)eq, (const TK*)ek, (const int*)slot_src,
-      (const float*)scale, (const int*)row_key, (const int*)row_ptr,
-      (const float*)w, (const float*)key_max, R, H, O, slope, (float*)out, c);
+      (const float*)a.eq, (const TK*)a.ek, (const TK*)a.e,
+      (const int*)a.slot_src, (const int*)a.slot_edge, (const float*)a.scale,
+      (const int*)a.row_key, (const int*)a.row_ptr, (const float*)a.w,
+      (const float*)a.key_max, a.R, a.H, a.O, a.slope, (float*)a.out, c);
   return (int)cudaGetLastError();
 }
 
-template <int ACT, int MODE, typename TK>
-int fwd_entry(const void* eq, const void* ek, const void* slot_src,
-              const void* scale, const void* row_key, const void* row_ptr,
-              const void* w, const void* key_max, int R, int H, int O,
-              float slope, void* out, cudaStream_t st) {
+template <int ACT, int MODE, bool EDGE, typename TK>
+int fwd_entry(const FwdArgs& a, cudaStream_t st) {
   FwdCfg c;
-  if (!fwd_config(H, O, c)) return (int)cudaErrorInvalidValue;
-  if (vec_ok(eq, ek, sizeof(TK) == 2, H))
-    return fwd_launch<ACT, MODE, true, TK>(eq, ek, slot_src, scale, row_key,
-                                           row_ptr, w, key_max, R, H, O,
-                                           slope, out, st, c);
-  return fwd_launch<ACT, MODE, false, TK>(eq, ek, slot_src, scale, row_key,
-                                          row_ptr, w, key_max, R, H, O, slope,
-                                          out, st, c);
+  if (!fwd_config(a.H, a.O, c)) return (int)cudaErrorInvalidValue;
+  c.act = a.act;
+  if (vec_ok(a.eq, a.ek, a.e, sizeof(TK) == 2, a.H))
+    return fwd_launch<ACT, MODE, true, EDGE, TK>(a, st, c);
+  return fwd_launch<ACT, MODE, false, EDGE, TK>(a, st, c);
+}
+
+template <int ACT, int MODE>
+int fwd_act(const FwdArgs& a, int ek_bf16, cudaStream_t st) {
+  const bool edge = a.e != nullptr;
+  if (ek_bf16)
+    return edge ? fwd_entry<ACT, MODE, true, __nv_bfloat16>(a, st)
+                : fwd_entry<ACT, MODE, false, __nv_bfloat16>(a, st);
+  return edge ? fwd_entry<ACT, MODE, true, float>(a, st)
+              : fwd_entry<ACT, MODE, false, float>(a, st);
 }
 
 template <int MODE>
-int fwd_dispatch(const void* eq, const void* ek, int ek_bf16,
-                 const void* slot_src, const void* scale, const void* row_key,
-                 const void* row_ptr, const void* w, const void* key_max,
-                 int R, int H, int O, int act, float slope, void* out,
-                 void* stream) {
-  if (R <= 0 || H <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
+int fwd_dispatch(const FwdArgs& a, int ek_bf16, void* stream) {
+  if (a.R <= 0 || a.H <= 0 || a.O <= 0 ||
+      (a.e == nullptr) != (a.slot_edge == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define SIR_ARGS eq, ek, slot_src, scale, row_key, row_ptr, w, key_max, R, H, O, slope, out, st
-  if (act == ACT_LEAKY_RELU)
-    return ek_bf16 ? fwd_entry<ACT_LEAKY_RELU, MODE, __nv_bfloat16>(SIR_ARGS)
-                   : fwd_entry<ACT_LEAKY_RELU, MODE, float>(SIR_ARGS);
-  if (act == ACT_TANH)
-    return ek_bf16 ? fwd_entry<ACT_TANH, MODE, __nv_bfloat16>(SIR_ARGS)
-                   : fwd_entry<ACT_TANH, MODE, float>(SIR_ARGS);
-  if (act == ACT_GELU)
-    return ek_bf16 ? fwd_entry<ACT_GELU, MODE, __nv_bfloat16>(SIR_ARGS)
-                   : fwd_entry<ACT_GELU, MODE, float>(SIR_ARGS);
-#undef SIR_ARGS
+  switch (a.act) {
+    case ACT_LEAKY_RELU: return fwd_act<ACT_LEAKY_RELU, MODE>(a, ek_bf16, st);
+    case ACT_TANH: return fwd_act<ACT_TANH, MODE>(a, ek_bf16, st);
+    case ACT_CENTERED_RELU:
+    case ACT_SOFTMAX: return fwd_act<ACT_ROWWISE, MODE>(a, ek_bf16, st);
+    case ACT_GELU: return fwd_act<ACT_GELU, MODE>(a, ek_bf16, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-template <int ACT, typename TK>
+template <int ACT, bool EDGE, typename TK>
 const void* bwd_pick(bool vec, bool wsmem) {
   if (vec)
-    return wsmem ? (const void*)max_bwd_kernel<ACT, true, true, TK>
-                 : (const void*)max_bwd_kernel<ACT, true, false, TK>;
-  return wsmem ? (const void*)max_bwd_kernel<ACT, false, true, TK>
-               : (const void*)max_bwd_kernel<ACT, false, false, TK>;
+    return wsmem ? (const void*)max_bwd_kernel<ACT, true, true, EDGE, TK>
+                 : (const void*)max_bwd_kernel<ACT, true, false, EDGE, TK>;
+  return wsmem ? (const void*)max_bwd_kernel<ACT, false, true, EDGE, TK>
+               : (const void*)max_bwd_kernel<ACT, false, false, EDGE, TK>;
 }
 
-const void* bwd_kernel(int act, int bf16, bool vec, bool wsmem) {
-  if (act == ACT_LEAKY_RELU)
-    return bf16 ? bwd_pick<ACT_LEAKY_RELU, __nv_bfloat16>(vec, wsmem)
-                : bwd_pick<ACT_LEAKY_RELU, float>(vec, wsmem);
-  if (act == ACT_TANH)
-    return bf16 ? bwd_pick<ACT_TANH, __nv_bfloat16>(vec, wsmem)
-                : bwd_pick<ACT_TANH, float>(vec, wsmem);
-  if (act == ACT_GELU)
-    return bf16 ? bwd_pick<ACT_GELU, __nv_bfloat16>(vec, wsmem)
-                : bwd_pick<ACT_GELU, float>(vec, wsmem);
+template <int ACT>
+const void* bwd_act(int bf16, bool edge, bool vec, bool wsmem) {
+  if (bf16)
+    return edge ? bwd_pick<ACT, true, __nv_bfloat16>(vec, wsmem)
+                : bwd_pick<ACT, false, __nv_bfloat16>(vec, wsmem);
+  return edge ? bwd_pick<ACT, true, float>(vec, wsmem)
+              : bwd_pick<ACT, false, float>(vec, wsmem);
+}
+
+const void* bwd_kernel(int act, int bf16, bool edge, bool vec, bool wsmem) {
+  switch (act) {
+    case ACT_LEAKY_RELU:
+      return bwd_act<ACT_LEAKY_RELU>(bf16, edge, vec, wsmem);
+    case ACT_TANH: return bwd_act<ACT_TANH>(bf16, edge, vec, wsmem);
+    case ACT_CENTERED_RELU:
+    case ACT_SOFTMAX: return bwd_act<ACT_ROWWISE>(bf16, edge, vec, wsmem);
+    case ACT_GELU: return bwd_act<ACT_GELU>(bf16, edge, vec, wsmem);
+  }
   return nullptr;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Each entry launches on `stream` and returns a CUDA error code (0 when
-// the launch was accepted). Pointers are device pointers; eq, W, key_max,
-// gsc and the f32 outputs are f32, the index arrays int32, the scales f32;
-// ek (and g_z) is bf16 when ek_bf16 != 0, else f32.
-
-int ell_max_fwd(const void* eq, const void* ek, int ek_bf16,
-                const void* slot_src, const void* scale, const void* row_key,
-                const void* row_ptr, const void* w, int R, int H, int O,
-                int act, float slope, void* out, void* stream) {
-  return fwd_dispatch<MODE_MAX>(eq, ek, ek_bf16, slot_src, scale, row_key,
-                                row_ptr, w, nullptr, R, H, O, act, slope, out,
-                                stream);
-}
-
-int ell_max_wincount(const void* eq, const void* ek, int ek_bf16,
-                     const void* slot_src, const void* scale,
-                     const void* row_key, const void* row_ptr, const void* w,
-                     const void* key_max, int R, int H, int O, int act,
-                     float slope, void* out, void* stream) {
-  return fwd_dispatch<MODE_COUNT>(eq, ek, ek_bf16, slot_src, scale, row_key,
-                                  row_ptr, w, key_max, R, H, O, act, slope,
-                                  out, stream);
-}
-
-// The path the three max kernels take for widths H and O, or -1 if they
-// cannot take them: bit 0 the tensor-core product (the only one), bits
-// 1-5 the forward's warps a block, bits 6-13 its W columns a block, bits
-// 14-17 the backward's warps a block, bit 18 W in its shared memory, bit
-// 19 its g_W partial in registers.
-int ell_max_layout(int H, int O) {
-  FwdCfg f;
-  BwdCfg b;
-  if (H <= 0 || O <= 0 || !fwd_config(H, O, f) || !bwd_config(H, O, b))
-    return -1;
-  return 1 | f.warps << 1 | f.oc << 6 | b.warps << 14 | b.w_smem << 18 |
-         b.resident << 19;
-}
-
-// The number of blocks ell_max_bwd launches (its g_W scratch holds one
-// [H, O] partial per block), or -1 for widths it cannot take.
-int ell_max_bwd_blocks(int R, int H, int O, int act, int ek_bf16) {
+int bwd_blocks(int R, int H, int O, int act, int ek_bf16, bool edge) {
   BwdCfg c;
   if (R <= 0 || H <= 0 || O <= 0 || !bwd_config(H, O, c)) return -1;
-  const void* k = bwd_kernel(act, ek_bf16, true, c.w_smem);
+  const void* k = bwd_kernel(act, ek_bf16, edge, true, c.w_smem);
   if (k == nullptr) return -1;
   if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)c.smem) != cudaSuccess)
@@ -1266,6 +1414,118 @@ int ell_max_bwd_blocks(int R, int H, int O, int act, int ek_bf16) {
   return need < blocks ? need : blocks;
 }
 
+int bwd_launch(const void* eq, const void* ek, const void* e, int ek_bf16,
+               const void* slot_src, const void* slot_edge,
+               const void* scale, const void* row_key, const void* row_ptr,
+               const void* w, const void* key_max, const void* gsc, int R,
+               int H, int O, int act, float slope, int blocks,
+               void* geq_rows, void* gz, void* gw_part, void* gw,
+               void* stream) {
+  BwdCfg c;
+  if (R <= 0 || H <= 0 || O <= 0 || blocks <= 0 || !bwd_config(H, O, c) ||
+      (e == nullptr) != (slot_edge == nullptr))
+    return (int)cudaErrorInvalidValue;
+  c.act = act;
+  cudaStream_t st = (cudaStream_t)stream;
+  const void* k = bwd_kernel(act, ek_bf16, e != nullptr,
+                             vec_ok(eq, ek, e, ek_bf16, H), c.w_smem);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {(void*)&eq,       (void*)&ek,       (void*)&e,
+                  (void*)&slot_src, (void*)&slot_edge, (void*)&scale,
+                  (void*)&row_key,  (void*)&row_ptr,  (void*)&w,
+                  (void*)&key_max,  (void*)&gsc,      (void*)&R,
+                  (void*)&H,        (void*)&O,        (void*)&slope,
+                  (void*)&geq_rows, (void*)&gz,       (void*)&gw_part,
+                  (void*)&c};
+  err = cudaLaunchKernel(k, dim3(blocks), dim3(c.warps * 32), args, c.smem,
+                         st);
+  if (err != cudaSuccess) return (int)err;
+  const int n = H * O;
+  sum_partials_kernel<<<(n + 255) / 256, 256, 0, st>>>(
+      (const float*)gw_part, blocks, n, (float*)gw);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry launches on `stream` and returns a CUDA error code (0 when
+// the launch was accepted). Pointers are device pointers; eq, W, key_max,
+// gsc and the f32 outputs are f32, the index arrays int32, the scales f32;
+// ek (and g_z, and e in the edge forms) is bf16 when ek_bf16 != 0, else
+// f32. act is a registry id (0 leaky_relu, 1 tanh, 2 centered_relu, 3
+// softmax, 4 erf-GELU), slope its parameter.
+
+int ell_max_fwd(const void* eq, const void* ek, int ek_bf16,
+                const void* slot_src, const void* scale, const void* row_key,
+                const void* row_ptr, const void* w, int R, int H, int O,
+                int act, float slope, void* out, void* stream) {
+  const FwdArgs a{eq, ek, nullptr, slot_src, nullptr, scale, row_key,
+                  row_ptr, w, nullptr, R, H, O, act, slope, out};
+  return fwd_dispatch<MODE_MAX>(a, ek_bf16, stream);
+}
+
+int ell_max_wincount(const void* eq, const void* ek, int ek_bf16,
+                     const void* slot_src, const void* scale,
+                     const void* row_key, const void* row_ptr, const void* w,
+                     const void* key_max, int R, int H, int O, int act,
+                     float slope, void* out, void* stream) {
+  const FwdArgs a{eq, ek, nullptr, slot_src, nullptr, scale, row_key,
+                  row_ptr, w, key_max, R, H, O, act, slope, out};
+  return fwd_dispatch<MODE_COUNT>(a, ek_bf16, stream);
+}
+
+// The edge-term forms: e [E_pad, H] in ek's type, slot_edge [S] int32.
+int ell_max_fwd_edge(const void* eq, const void* ek, const void* e,
+                     int ek_bf16, const void* slot_src, const void* slot_edge,
+                     const void* scale, const void* row_key,
+                     const void* row_ptr, const void* w, int R, int H, int O,
+                     int act, float slope, void* out, void* stream) {
+  if (e == nullptr) return (int)cudaErrorInvalidValue;
+  const FwdArgs a{eq, ek, e, slot_src, slot_edge, scale, row_key,
+                  row_ptr, w, nullptr, R, H, O, act, slope, out};
+  return fwd_dispatch<MODE_MAX>(a, ek_bf16, stream);
+}
+
+int ell_max_wincount_edge(const void* eq, const void* ek, const void* e,
+                          int ek_bf16, const void* slot_src,
+                          const void* slot_edge, const void* scale,
+                          const void* row_key, const void* row_ptr,
+                          const void* w, const void* key_max, int R, int H,
+                          int O, int act, float slope, void* out,
+                          void* stream) {
+  if (e == nullptr) return (int)cudaErrorInvalidValue;
+  const FwdArgs a{eq, ek, e, slot_src, slot_edge, scale, row_key,
+                  row_ptr, w, key_max, R, H, O, act, slope, out};
+  return fwd_dispatch<MODE_COUNT>(a, ek_bf16, stream);
+}
+
+// The path the three max kernels take for widths H and O, or -1 if they
+// cannot take them: bit 0 the tensor-core product (the only one), bits
+// 1-5 the forward's warps a block, bits 6-13 its W columns a block, bits
+// 14-17 the backward's warps a block, bit 18 W in its shared memory, bit
+// 19 its g_W partial in registers. Every sigma and the edge forms take
+// the same path.
+int ell_max_layout(int H, int O) {
+  FwdCfg f;
+  BwdCfg b;
+  if (H <= 0 || O <= 0 || !fwd_config(H, O, f) || !bwd_config(H, O, b))
+    return -1;
+  return 1 | f.warps << 1 | f.oc << 6 | b.warps << 14 | b.w_smem << 18 |
+         b.resident << 19;
+}
+
+// The number of blocks ell_max_bwd (edge != 0: ell_max_bwd_edge) launches
+// (its g_W scratch holds one [H, O] partial per block), or -1 for widths
+// it cannot take.
+int ell_max_bwd_blocks(int R, int H, int O, int act, int ek_bf16, int edge) {
+  return bwd_blocks(R, H, O, act, ek_bf16, edge != 0);
+}
+
 // gw_part holds `blocks` (from ell_max_bwd_blocks) partials of [H, O].
 int ell_max_bwd(const void* eq, const void* ek, int ek_bf16,
                 const void* slot_src, const void* scale, const void* row_key,
@@ -1273,28 +1533,22 @@ int ell_max_bwd(const void* eq, const void* ek, int ek_bf16,
                 const void* gsc, int R, int H, int O, int act, float slope,
                 int blocks, void* geq_rows, void* gz, void* gw_part, void* gw,
                 void* stream) {
-  BwdCfg c;
-  if (R <= 0 || H <= 0 || O <= 0 || blocks <= 0 || !bwd_config(H, O, c))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const void* k =
-      bwd_kernel(act, ek_bf16, vec_ok(eq, ek, ek_bf16, H), c.w_smem);
-  if (k == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
-  if (e != cudaSuccess) return (int)e;
-  void* args[] = {(void*)&eq,       (void*)&ek,    (void*)&slot_src,
-                  (void*)&scale,    (void*)&row_key, (void*)&row_ptr,
-                  (void*)&w,        (void*)&key_max, (void*)&gsc,
-                  (void*)&R,        (void*)&H,     (void*)&O,
-                  (void*)&slope,    (void*)&geq_rows, (void*)&gz,
-                  (void*)&gw_part,  (void*)&c};
-  e = cudaLaunchKernel(k, dim3(blocks), dim3(c.warps * 32), args, c.smem, st);
-  if (e != cudaSuccess) return (int)e;
-  const int n = H * O;
-  sum_partials_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      (const float*)gw_part, blocks, n, (float*)gw);
-  return (int)cudaGetLastError();
+  return bwd_launch(eq, ek, nullptr, ek_bf16, slot_src, nullptr, scale,
+                    row_key, row_ptr, w, key_max, gsc, R, H, O, act, slope,
+                    blocks, geq_rows, gz, gw_part, gw, stream);
+}
+
+int ell_max_bwd_edge(const void* eq, const void* ek, const void* e,
+                     int ek_bf16, const void* slot_src, const void* slot_edge,
+                     const void* scale, const void* row_key,
+                     const void* row_ptr, const void* w, const void* key_max,
+                     const void* gsc, int R, int H, int O, int act,
+                     float slope, int blocks, void* geq_rows, void* gz,
+                     void* gw_part, void* gw, void* stream) {
+  if (e == nullptr) return (int)cudaErrorInvalidValue;
+  return bwd_launch(eq, ek, e, ek_bf16, slot_src, slot_edge, scale, row_key,
+                    row_ptr, w, key_max, gsc, R, H, O, act, slope, blocks,
+                    geq_rows, gz, gw_part, gw, stream);
 }
 
 // values [*, H] is bf16 when values_bf16 != 0, else f32.

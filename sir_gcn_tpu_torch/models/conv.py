@@ -109,8 +109,8 @@ class SIREConv(nn.Module):
     JAX's ``sir_aggregate`` does. Max applies W_R per edge before the
     reduce, as ``SIRConv`` does, with the explicit ``relation_kernel``
     [H, O] and ``relation_bias`` [O]: on a plain ``GraphBatch`` through the
-    CSR aggregate; on a FastGraph a registry sigma raises, since the
-    edge-term forms of the max kernels are not yet ported."""
+    CSR aggregate; on a FastGraph through the edge forms of the max
+    kernels, for any registry sigma (a row-wise one included)."""
 
     def __init__(self, input_dim: int, edge_dim: int, hidden_dim: int,
                  output_dim: int, activation, dropout: float = 0.0,

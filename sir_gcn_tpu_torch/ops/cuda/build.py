@@ -29,10 +29,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Flags of one source on top of NVCC_FLAGS. The max kernels test products
 # for equality across kernels, so nvcc may fuse no multiply-add of its own
 # around them (the activations feeding the tensor-core products). The
-# general source holds some 640 kernels: its optimizer runs on as many
-# threads as the host has (split compilation), so its build is not the one
-# all the others wait for.
-EXTRA_FLAGS = {"ell_max_kernels": ["--fmad=false"],
+# general source holds some 640 kernels and the max source some 140 large
+# ones: their optimizer runs on as many threads as the host has (split
+# compilation), so neither build is the one all the others wait for.
+EXTRA_FLAGS = {"ell_max_kernels": ["--fmad=false", "--split-compile=0"],
                "ell_general_kernels": ["--split-compile=0"]}
 
 _LIBS: dict = {}

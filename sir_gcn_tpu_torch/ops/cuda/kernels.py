@@ -38,6 +38,8 @@ LAUNCHES = {"ell_act_reduce": 0, "ell_act_reduce2": 0, "ell_src_bwd": 0,
             "ell_src_bwd_edge": 0, "ell_edge_act_reduce2": 0,
             "ell_edge_src_bwd": 0, "ell_max_fwd": 0, "ell_max_wincount": 0,
             "ell_max_bwd": 0, "ell_scaled_reduce": 0,
+            "ell_max_fwd_edge": 0, "ell_max_wincount_edge": 0,
+            "ell_max_bwd_edge": 0,
             "ell_act_reduce_rowwise": 0, "ell_geq_reduce": 0,
             "ell_src_bwd_rowwise": 0, "ell_src_bwd_fused": 0,
             "ell_act_reduce_bwd": 0, "ell_act_reduce_rowwise_edge": 0,
@@ -86,6 +88,13 @@ _ARGTYPES = {
         "ell_max_bwd": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
                         _I, _I, _I, _F, _I, _VP, _VP, _VP, _VP, _VP],
         "ell_scaled_reduce": [_VP, _I, _VP, _VP, _VP, _I, _I, _VP, _VP],
+        "ell_max_fwd_edge": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP,
+                             _I, _I, _I, _I, _F, _VP, _VP],
+        "ell_max_wincount_edge": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP,
+                                  _VP, _VP, _I, _I, _I, _I, _F, _VP, _VP],
+        "ell_max_bwd_edge": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP,
+                             _VP, _VP, _I, _I, _I, _I, _F, _I, _VP, _VP,
+                             _VP, _VP, _VP],
     },
     "ell_general_kernels": {
         "ell_act_reduce_rowwise": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I,
@@ -120,7 +129,7 @@ _ARGTYPES = {
 }
 # entries that launch nothing and return an int
 _QUERIES = {"ell_kernels": {"ell_layout": [_I] * 3 + [_VP] * 6},
-            "ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 5,
+            "ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 6,
                                 "ell_max_layout": [_I] * 2},
             "ell_edge_kernels": {"ell_edge_src_bwd_blocks": [_I] * 5,
                                  "ell_edge_layout": [_I] * 4},
@@ -140,7 +149,7 @@ _LIBRARY_OF = {entry: lib for lib, entries in _ARGTYPES.items()
 _GENERAL = tuple(_ARGTYPES["ell_general_kernels"])
 
 _LIBS: dict = {}
-# the grid size of ell_max_bwd per (device, R, H, O, act, bf16) and of
+# the grid size of ell_max_bwd per (device, R, H, O, act, bf16, edge) and of
 # ell_edge_src_bwd per (device, R, H, De, act, bf16): fixed for a model and
 # its plan, so the occupancy query runs once
 _BWD_BLOCKS: dict = {}
@@ -815,45 +824,85 @@ def slot_products(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return m
 
 
-def bucket_products(eq, ek, slot_src, scale, row_key, w, act, buckets):
-    """Per bucket: (rows nr, row offset, z [nr, b, H], a = act(z),
-    m = a @ w [nr, b, O], slot validity [nr, b, 1]), as the Pallas max
-    kernels compute them, with ``slot_products`` for m."""
+def _row_reduce(z: torch.Tensor, op) -> torch.Tensor:
+    """``op`` over the last dim of z in increasing order, one elementwise
+    op a feature, keeping that dim (size 1): each row's result depends on
+    its own values only, as ``slot_products``' sums do."""
+    r = z[..., :1]
+    for h in range(1, z.shape[-1]):
+        r = op(r, z[..., h:h + 1])
+    return r
+
+
+def slot_act(act, z: torch.Tensor) -> torch.Tensor:
+    """sigma(z) over each slot's row, as the plain max versions take it:
+    an elementwise sigma as the registry computes it; a row-wise one
+    (centered_relu, softmax) with its statistics summed by ``_row_reduce``.
+    A library reduction may sum rows that start at different offsets in
+    different orders (rows of an odd width), which would split the exact
+    ties that duplicated edges make; these rows are rounded alike."""
+    if act.diagonal:
+        return act(z)
+    if act.name == "centered_relu":
+        mean = _row_reduce(z, torch.add) / z.shape[-1]
+        return torch.relu(z - act.param * mean)
+    if act.name == "softmax":
+        x = torch.exp(z - _row_reduce(z, torch.maximum))
+        return x / _row_reduce(x, torch.add)
+    raise NotImplementedError(f"no plain max form of sigma {act.name}")
+
+
+def bucket_products(eq, ek, slot_src, scale, row_key, w, act, buckets,
+                    e=None, slot_edge=None):
+    """Per bucket: (rows nr, row offset, z [nr, b, H], a = act(z)
+    (``slot_act``), m = a @ w [nr, b, O], slot validity [nr, b, 1]), as the
+    Pallas max kernels compute them, with ``slot_products`` for m. With an
+    edge table ``e`` the key side of slot s is add_cast(ek[slot_src[s]],
+    e[slot_edge[s]]), as the JAX route's ``slot_inputs`` rounds it."""
     h, o = w.shape
     ekg = ek.index_select(0, slot_src)
+    if e is not None:
+        ekg = add_cast(ekg, e.index_select(0, slot_edge))
     eq_rows = eq.index_select(0, row_key)
     for b, nr, so, ro in bucket_offsets(buckets):
         z = (ekg[so:so + b * nr].float().reshape(nr, b, h)
              + eq_rows[ro:ro + nr, None, :])
-        a = act(z)
+        a = slot_act(act, z)
         m = slot_products(a.reshape(nr * b, h), w).reshape(nr, b, o)
         valid = scale[so:so + b * nr].reshape(nr, b, 1) > 0
         yield nr, ro, z, a, m, valid
 
 
 def ell_max_fwd_plain(eq, ek, slot_src, scale, row_key, row_ptr, w, act,
-                      buckets=None):
-    """Plain version of ``ell_max_fwd``, bucket by bucket."""
+                      buckets=None, e=None, slot_edge=None):
+    """Plain version of ``ell_max_fwd`` (of ``ell_max_fwd_edge`` with ``e``
+    and ``slot_edge``), bucket by bucket."""
     buckets = _buckets(row_ptr) if buckets is None else buckets
     return torch.cat([
         torch.where(valid, m, NEG).amax(1) for _, _, _, _, m, valid in
-        bucket_products(eq, ek, slot_src, scale, row_key, w, act, buckets)])
+        bucket_products(eq, ek, slot_src, scale, row_key, w, act, buckets,
+                        e, slot_edge)])
 
 
 def ell_max_wincount_plain(eq, ek, slot_src, scale, row_key, row_ptr, w,
-                           key_max, act, buckets=None):
-    """Plain version of ``ell_max_wincount``, bucket by bucket."""
+                           key_max, act, buckets=None, e=None,
+                           slot_edge=None):
+    """Plain version of ``ell_max_wincount`` (and of its edge form),
+    bucket by bucket."""
     buckets = _buckets(row_ptr) if buckets is None else buckets
     ref = key_max.index_select(0, row_key)
     return torch.cat([
         ((m == ref[ro:ro + nr, None, :]) & valid).float().sum(1)
         for nr, ro, _, _, m, valid in
-        bucket_products(eq, ek, slot_src, scale, row_key, w, act, buckets)])
+        bucket_products(eq, ek, slot_src, scale, row_key, w, act, buckets,
+                        e, slot_edge)])
 
 
 def ell_max_bwd_plain(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max,
-                      gsc, act, buckets=None):
-    """Plain version of ``ell_max_bwd``, bucket by bucket."""
+                      gsc, act, buckets=None, e=None, slot_edge=None):
+    """Plain version of ``ell_max_bwd`` (and of its edge form), bucket by
+    bucket: g_z = act.vjp(z, g_m @ w.T), sigma's vector-Jacobian product
+    over each slot's row (act'(z) * g_a for an elementwise sigma)."""
     buckets = _buckets(row_ptr) if buckets is None else buckets
     h, o = w.shape
     ref = key_max.index_select(0, row_key)
@@ -861,19 +910,20 @@ def ell_max_bwd_plain(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max,
     geq, gz = [], []
     gw = torch.zeros_like(w)
     for nr, ro, z, a, m, valid in bucket_products(
-            eq, ek, slot_src, scale, row_key, w, act, buckets):
+            eq, ek, slot_src, scale, row_key, w, act, buckets, e, slot_edge):
         win = ((m == ref[ro:ro + nr, None, :]) & valid).float()
         g_m = (win * gsc_rows[ro:ro + nr, None, :]).reshape(-1, o)
         gw += a.reshape(-1, h).T @ g_m
-        g_z = act.grad(z) * (g_m @ w.T).reshape(z.shape)
+        g_z = act.vjp(z, (g_m @ w.T).reshape(z.shape))
         geq.append(g_z.sum(1))
         gz.append(g_z.reshape(-1, h).to(ek.dtype))
     return torch.cat(geq), torch.cat(gz), gw
 
 
 def _check_max(eq, ek, slot_src, scale, row_key, row_ptr, w, node_tables,
-               act):
-    _need_diagonal("the max kernels", act)
+               e=None, slot_edge=None):
+    """The checks of a max kernel's inputs: any sigma of the registry, an
+    elementwise or a row-wise one, takes them."""
     device = eq.device
     _check("eq", eq, _F32, 2, device)
     _check("ek", ek, _EDGE, 2, device)
@@ -887,30 +937,72 @@ def _check_max(eq, ek, slot_src, scale, row_key, row_ptr, w, node_tables,
             raise ValueError(f"{name} {tuple(t.shape)} is not [N, O] = "
                              f"{(eq.shape[0], w.shape[1])}")
     _check_plan(slot_src, scale, row_key, row_ptr, device)
+    if e is not None:
+        _check_edge(e, slot_edge, eq.shape[1], ek.dtype, slot_src, device)
     return device, row_key.shape[0], eq.shape[1], w.shape[1]
+
+
+def _edge_ptrs(e, slot_edge) -> tuple:
+    """(the edge table's pointer, slot_edge's pointer) as argument tuples
+    of an edge form, or two empty tuples without an edge term."""
+    if e is None:
+        return (), ()
+    return (_ptr(e),), (_ptr(slot_edge),)
+
+
+def _max_fwd(name, eq, ek, slot_src, scale, row_key, row_ptr, w, act,
+             key_max=None, e=None, slot_edge=None):
+    """#9 (``key_max`` None) or #10, with the edge term where ``e`` is
+    given: the checks, the plain version on the CPU, else one launch of
+    ``name``."""
+    tables = {} if key_max is None else {"key_max": key_max}
+    device, r, h, o = _check_max(eq, ek, slot_src, scale, row_key, row_ptr,
+                                 w, tables, e, slot_edge)
+    if not on_cuda(device):
+        if key_max is None:
+            return ell_max_fwd_plain(eq, ek, slot_src, scale, row_key,
+                                     row_ptr, w, act, e=e,
+                                     slot_edge=slot_edge)
+        return ell_max_wincount_plain(eq, ek, slot_src, scale, row_key,
+                                      row_ptr, w, key_max, act, e=e,
+                                      slot_edge=slot_edge)
+    out = torch.empty((r, o), dtype=torch.float32, device=device)
+    edge_tbl, edge_slots = _edge_ptrs(e, slot_edge)
+    _launch(name, device, _ptr(eq), _ptr(ek), *edge_tbl,
+            int(ek.dtype == torch.bfloat16), _ptr(slot_src), *edge_slots,
+            _ptr(scale), _ptr(row_key), _ptr(row_ptr), _ptr(w),
+            *(() if key_max is None else (_ptr(key_max),)), r, h, o,
+            act.kernel_id, float(act.param), _ptr(out))
+    return out
 
 
 def ell_max_fwd(eq, ek, slot_src, scale, row_key, row_ptr, w, act):
     """rows[r, o] = max over the valid slots s of row r (scale > 0) of
     (act(eq[row_key[r]] + ek[slot_src[s]]) @ w)[o], f32; the f32 min where
     row r has no valid slot. eq [N, H] f32, ek [N, H] f32 or bf16, w [H, O]
-    f32; no bias.
+    f32; no bias. act is any sigma of the registry (a row-wise one over
+    each slot's H features).
 
     Replaces ``bucket_max_gemm_fwd`` (sir_gcn_tpu/ops/pallas/kernels.py),
     one launch for all buckets. Bound: tensor-core operations, 2 H O flops
     per slot three times over (the three-pass TF32 split of every product,
     which keeps m as accurate as f32); ``ell_max_layout`` tells the path."""
-    device, r, h, o = _check_max(eq, ek, slot_src, scale, row_key, row_ptr,
-                                 w, {}, act)
-    if not on_cuda(device):
-        return ell_max_fwd_plain(eq, ek, slot_src, scale, row_key, row_ptr,
-                                 w, act)
-    out = torch.empty((r, o), dtype=torch.float32, device=device)
-    _launch("ell_max_fwd", device, _ptr(eq), _ptr(ek),
-            int(ek.dtype == torch.bfloat16), _ptr(slot_src), _ptr(scale),
-            _ptr(row_key), _ptr(row_ptr), _ptr(w), r, h, o, act.kernel_id,
-            float(act.param), _ptr(out))
-    return out
+    return _max_fwd("ell_max_fwd", eq, ek, slot_src, scale, row_key,
+                    row_ptr, w, act)
+
+
+def ell_max_fwd_edge(eq, ek, slot_src, scale, row_key, row_ptr, w, act, e,
+                     slot_edge):
+    """``ell_max_fwd`` with an edge term: the key side of slot s is
+    add_cast(ek[slot_src[s]], e[slot_edge[s]]), added in f32 and carried in
+    ek's type. e [E_pad, H] in sorted-edge order shares ek's type.
+
+    Replaces ``bucket_max_gemm_fwd`` on the ``with_edge`` inputs of
+    ``make_ell_sir_aggregate_max_pallas`` (its ``slot_inputs``), the edge
+    rows read by index in the kernel. Bound: operations, as
+    ``ell_max_fwd``, plus one e row a slot."""
+    return _max_fwd("ell_max_fwd_edge", eq, ek, slot_src, scale, row_key,
+                    row_ptr, w, act, e=e, slot_edge=slot_edge)
 
 
 def ell_max_wincount(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max,
@@ -922,17 +1014,52 @@ def ell_max_wincount(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max,
 
     Replaces ``bucket_max_wincount``. Bound: operations, as the forward,
     whose product it repeats bit for bit."""
+    return _max_fwd("ell_max_wincount", eq, ek, slot_src, scale, row_key,
+                    row_ptr, w, act, key_max=key_max)
+
+
+def ell_max_wincount_edge(eq, ek, slot_src, scale, row_key, row_ptr, w,
+                          key_max, act, e, slot_edge):
+    """``ell_max_wincount`` with the edge term of ``ell_max_fwd_edge``, whose
+    product it repeats bit for bit.
+
+    Replaces ``bucket_max_wincount`` on the ``with_edge`` inputs. Bound:
+    operations, as ``ell_max_wincount``."""
+    return _max_fwd("ell_max_wincount_edge", eq, ek, slot_src, scale,
+                    row_key, row_ptr, w, act, key_max=key_max, e=e,
+                    slot_edge=slot_edge)
+
+
+def _max_bwd(name, eq, ek, slot_src, scale, row_key, row_ptr, w, key_max,
+             gsc, act, e=None, slot_edge=None):
     device, r, h, o = _check_max(eq, ek, slot_src, scale, row_key, row_ptr,
-                                 w, {"key_max": key_max}, act)
+                                 w, {"key_max": key_max, "gsc": gsc}, e,
+                                 slot_edge)
     if not on_cuda(device):
-        return ell_max_wincount_plain(eq, ek, slot_src, scale, row_key,
-                                      row_ptr, w, key_max, act)
-    out = torch.empty((r, o), dtype=torch.float32, device=device)
-    _launch("ell_max_wincount", device, _ptr(eq), _ptr(ek),
-            int(ek.dtype == torch.bfloat16), _ptr(slot_src), _ptr(scale),
-            _ptr(row_key), _ptr(row_ptr), _ptr(w), _ptr(key_max), r, h, o,
-            act.kernel_id, float(act.param), _ptr(out))
-    return out
+        return ell_max_bwd_plain(eq, ek, slot_src, scale, row_key, row_ptr,
+                                 w, key_max, gsc, act, e=e,
+                                 slot_edge=slot_edge)
+    bf16 = int(ek.dtype == torch.bfloat16)
+    edge = int(e is not None)
+    key = (device.index, r, h, o, act.kernel_id, bf16, edge)
+    if key not in _BWD_BLOCKS:
+        with torch.cuda.device(device):
+            _BWD_BLOCKS[key] = _library("ell_max_kernels").ell_max_bwd_blocks(
+                r, h, o, act.kernel_id, bf16, edge)
+    blocks = _BWD_BLOCKS[key]
+    if blocks <= 0:
+        raise ValueError(f"{name} cannot take H = {h}, O = {o}")
+    geq = torch.empty((r, h), dtype=torch.float32, device=device)
+    gz = torch.empty((slot_src.shape[0], h), dtype=ek.dtype, device=device)
+    part = torch.empty((blocks, h * o), dtype=torch.float32, device=device)
+    gw = torch.empty((h, o), dtype=torch.float32, device=device)
+    edge_tbl, edge_slots = _edge_ptrs(e, slot_edge)
+    _launch(name, device, _ptr(eq), _ptr(ek), *edge_tbl, bf16,
+            _ptr(slot_src), *edge_slots, _ptr(scale), _ptr(row_key),
+            _ptr(row_ptr), _ptr(w), _ptr(key_max), _ptr(gsc), r, h, o,
+            act.kernel_id, float(act.param), blocks, _ptr(geq), _ptr(gz),
+            _ptr(part), _ptr(gw))
+    return geq, gz, gw
 
 
 def ell_max_bwd(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max, gsc,
@@ -941,37 +1068,29 @@ def ell_max_bwd(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max, gsc,
     and m[s, o] == key_max[key, o] (else 0), returns
 
         geq_rows [R, H] f32   sum over row r's slots of g_z
-        g_z      [S, H]       act'(z) * (g_m @ w.T), in ek's dtype
+        g_z      [S, H]       vjp(act, z)(g_m @ w.T), in ek's dtype
         g_w      [H, O] f32   sum over all slots of a^T g_m
 
-    Replaces ``bucket_max_gemm_bwd``. Bound: tensor-core operations, 6 H O
-    flops per slot three times over (m, g_a and g_W, each split in three
-    TF32 passes). g_w is summed per block and then over blocks in a fixed
+    (vjp(act, z)(g) = act'(z) * g for an elementwise sigma). Replaces
+    ``bucket_max_gemm_bwd``. Bound: tensor-core operations, 6 H O flops
+    per slot three times over (m, g_a and g_W, each split in three TF32
+    passes). g_w is summed per block and then over blocks in a fixed
     order, so it is the same from run to run."""
-    device, r, h, o = _check_max(eq, ek, slot_src, scale, row_key, row_ptr,
-                                 w, {"key_max": key_max, "gsc": gsc}, act)
-    if not on_cuda(device):
-        return ell_max_bwd_plain(eq, ek, slot_src, scale, row_key, row_ptr,
-                                 w, key_max, gsc, act)
-    bf16 = int(ek.dtype == torch.bfloat16)
-    key = (device.index, r, h, o, act.kernel_id, bf16)
-    if key not in _BWD_BLOCKS:
-        with torch.cuda.device(device):
-            _BWD_BLOCKS[key] = _library("ell_max_kernels").ell_max_bwd_blocks(
-                r, h, o, act.kernel_id, bf16)
-    blocks = _BWD_BLOCKS[key]
-    if blocks <= 0:
-        raise ValueError(f"ell_max_bwd cannot take H = {h}, O = {o}")
-    geq = torch.empty((r, h), dtype=torch.float32, device=device)
-    gz = torch.empty((slot_src.shape[0], h), dtype=ek.dtype, device=device)
-    part = torch.empty((blocks, h * o), dtype=torch.float32, device=device)
-    gw = torch.empty((h, o), dtype=torch.float32, device=device)
-    _launch("ell_max_bwd", device, _ptr(eq), _ptr(ek), bf16, _ptr(slot_src),
-            _ptr(scale), _ptr(row_key), _ptr(row_ptr), _ptr(w),
-            _ptr(key_max), _ptr(gsc), r, h, o, act.kernel_id,
-            float(act.param), blocks, _ptr(geq), _ptr(gz), _ptr(part),
-            _ptr(gw))
-    return geq, gz, gw
+    return _max_bwd("ell_max_bwd", eq, ek, slot_src, scale, row_key,
+                    row_ptr, w, key_max, gsc, act)
+
+
+def ell_max_bwd_edge(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max,
+                     gsc, act, e, slot_edge):
+    """``ell_max_bwd`` with the edge term of ``ell_max_fwd_edge``. Its g_z
+    (in ek's dtype) gives the per-edge cotangent through the edge -> dst
+    slot map (``ops.ell.edge_cotangent``), as JAX's ``_edge_cotangent``
+    takes it from the Pallas kernel's g_z.
+
+    Replaces ``bucket_max_gemm_bwd`` on the ``with_edge`` inputs. Bound:
+    operations, as ``ell_max_bwd``."""
+    return _max_bwd("ell_max_bwd_edge", eq, ek, slot_src, scale, row_key,
+                    row_ptr, w, key_max, gsc, act, e=e, slot_edge=slot_edge)
 
 
 def ell_scaled_reduce_plain(values, slot_idx, scale, row_ptr, buckets=None):

@@ -28,16 +28,19 @@ w_e formed inside the kernels ``ell_edge_act_reduce2`` and
 ``ell_edge_src_bwd`` from the narrow edge basis, SIREConv's fused route.
 :func:`ell_sir_aggregate_max` computes the max aggregation
 
-    out[u] = max_{e in in(u)} sigma(eq[u] + ek[src_e]) @ W_R + b
+    out[u] = max_{e in in(u)} sigma(eq[u] + ek[src_e] [+ e_e]) @ W_R + b
 
 (0 for a node with no incoming edge) with four more: ``ell_max_fwd``,
 then in the backward ``ell_max_wincount``, ``ell_max_bwd`` and
-``ell_scaled_reduce``. Each kernel walks all buckets of a plan in one
-launch through the plan's per-row slot pointer ``row_ptr``. The kernels
-take a sigma from the activation registry below, whose entries carry a
-written derivative and vector-Jacobian product. Each kernel reads one
-per-slot scale array: the FastGraph's static scales, or under a DropEdge
-``edge_mask`` those scales of the kept edges (:func:`slot_scale`).
+``ell_scaled_reduce``; with ``e`` the edge forms ``ell_max_fwd_edge``,
+``ell_max_wincount_edge`` and ``ell_max_bwd_edge``, for any sigma of the
+registry, a row-wise one included. Each kernel walks all buckets of a
+plan in one launch through the plan's per-row slot pointer ``row_ptr``.
+The kernels take a sigma from the activation registry below, whose
+entries carry a written derivative and vector-Jacobian product. Each
+kernel reads one per-slot scale array: the FastGraph's static scales, or
+under a DropEdge ``edge_mask`` those scales of the kept edges
+(:func:`slot_scale`).
 
 A sigma outside the registry that holds tensors (an ``nn.Module`` with
 parameters, a closure over a tensor) takes the pure ELL route
@@ -79,8 +82,11 @@ from .cuda import (
     ell_geq_reduce,
     ell_geq_reduce_edge,
     ell_max_bwd,
+    ell_max_bwd_edge,
     ell_max_fwd,
+    ell_max_fwd_edge,
     ell_max_wincount,
+    ell_max_wincount_edge,
     ell_scaled_reduce,
     ell_src_bwd,
     ell_src_bwd_edge,
@@ -596,9 +602,9 @@ class _ActivationKind:
     """``fn(z, param)`` over the last dim and its vector-Jacobian product
     ``vjp(z, g, param)``; ``grad(z, param)``, sigma' elementwise, only for
     an entry whose Jacobian is diagonal (None for a row-wise one). Every
-    entry has kernels on both routes: an elementwise one on the elementwise,
-    edge, max and general route's kernels, a row-wise one on the general
-    route's."""
+    entry has kernels: an elementwise one on the elementwise, edge, max
+    and general route's kernels, a row-wise one on the general route's and
+    the max route's."""
 
     kernel_id: int    # the ACT_* constant of csrc/ell_*kernels.cu
     fn: Callable[[torch.Tensor, float], torch.Tensor]
@@ -679,9 +685,11 @@ class Activation:
     last dim.
 
     ``sir_elementwise=False`` sends an elementwise entry down the general
-    route, as the attribute of that name does for a sigma in the JAX package
-    (``sir_gcn_tpu/ops/ell.py`` ``_activation_info``); a row-wise entry
-    cannot be declared elementwise."""
+    route of a linear aggregation, as the attribute of that name does for a
+    sigma in the JAX package (``sir_gcn_tpu/ops/ell.py``
+    ``_activation_info``); max takes the max kernels' form of the entry's
+    id either way, as JAX's max route does. A row-wise entry cannot be
+    declared elementwise."""
 
     name: str
     param: float = 0.0
@@ -1137,41 +1145,53 @@ class _EllSirAggregateMax(torch.autograd.Function):
     where(out1 > NEG/2, out1 + b, 0)``. Backward: ``ell_max_wincount``
     counts tied winners, ``ell_max_bwd`` routes ``gsc = g / count`` to them
     (g_eq, per-slot g_z, g_W), ``ell_scaled_reduce`` sums g_z in src order
-    for g_ek. A slot is valid where its dst scale ``sd`` is positive. Only
-    node-sized tensors, W and ``sd`` are saved."""
+    for g_ek. With an edge table ``e`` [E_pad, H] the three are their edge
+    forms, and g_e is each edge's dst slot of g_z (in the edge dtype, as
+    JAX rounds it) widened to f32 (:func:`edge_cotangent`). A slot is valid
+    where its dst scale ``sd`` is positive. Only node- and edge-sized
+    tensors, W and ``sd`` are saved."""
 
     @staticmethod
-    def forward(ctx, eq, ek, w, b, sd, fg: FastGraph, act: Activation,
+    def forward(ctx, eq, ek, w, b, e, sd, fg: FastGraph, act: Activation,
                 edge_dtype):
-        out1 = _max_rows(fg, eq, ek, w, sd, act, edge_dtype)
-        ctx.save_for_backward(eq, ek, w, out1, sd)
+        out1 = _max_rows(fg, eq, ek, w, sd, act, edge_dtype, e)
+        ctx.save_for_backward(eq, ek, w, out1, sd, e)
         ctx.fg, ctx.act, ctx.edge_dtype = fg, act, edge_dtype
         return torch.where(out1 > NEG / 2, out1 + b, 0.0)
 
     @staticmethod
     def backward(ctx, g):
-        eq, ek, w, out1, sd = ctx.saved_tensors
+        eq, ek, w, out1, sd, e = ctx.saved_tensors
         fg, act = ctx.fg, ctx.act
         plan, splan = fg.dst_plan, fg.src_plan
         args = (eq.contiguous(), _cast(ek, ctx.edge_dtype),
                 fg.dst_slot_srcnode, sd, plan.row_key, plan.row_ptr,
                 w.contiguous())
-        counts = plan.finalize_rows_sum(ell_max_wincount(*args, out1, act))
+        edge = () if e is None else (_cast(e, ctx.edge_dtype),
+                                     plan.slot_edge)
+        wincount = ell_max_wincount if e is None else ell_max_wincount_edge
+        bwd = ell_max_bwd if e is None else ell_max_bwd_edge
+        counts = plan.finalize_rows_sum(wincount(*args, out1, act, *edge))
         g_act = torch.where(out1 > NEG / 2, g, 0.0)
         gsc = (g_act / counts.clamp_min(1.0)).contiguous()
-        geq_rows, g_z, g_w = ell_max_bwd(*args, out1, gsc, act)
+        geq_rows, g_z, g_w = bwd(*args, out1, gsc, act, *edge)
         g_eq = plan.finalize_rows_sum(geq_rows)
         g_ek = splan.finalize_rows_sum(ell_scaled_reduce(
             g_z, fg.src_slot_from_dst_slot, splan.slot_valid, splan.row_ptr))
-        return g_eq, g_ek, g_w, g_act.sum(0), None, None, None, None
+        g_e = None
+        if e is not None and ctx.needs_input_grad[4]:
+            g_e = edge_cotangent(g_z, fg.edge2dst_slot, fg.edge_mask)
+        return g_eq, g_ek, g_w, g_act.sum(0), g_e, None, None, None, None
 
 
-def _max_rows(fg: FastGraph, eq, ek, w, sd, act, edge_dtype) -> torch.Tensor:
+def _max_rows(fg: FastGraph, eq, ek, w, sd, act, edge_dtype,
+              e=None) -> torch.Tensor:
     """[N, O] key-level max before the bias (the f32 min for empty keys)."""
     plan = fg.dst_plan
-    rows = ell_max_fwd(eq.contiguous(), _cast(ek, edge_dtype),
-                       fg.dst_slot_srcnode, sd, plan.row_key, plan.row_ptr,
-                       w.contiguous(), act)
+    args = (eq.contiguous(), _cast(ek, edge_dtype), fg.dst_slot_srcnode, sd,
+            plan.row_key, plan.row_ptr, w.contiguous(), act)
+    rows = (ell_max_fwd(*args) if e is None else ell_max_fwd_edge(
+        *args, _cast(e, edge_dtype), plan.slot_edge))
     return plan.finalize_rows_max(rows)
 
 
@@ -1183,42 +1203,38 @@ def ell_sir_aggregate_max(fg: FastGraph, eq: torch.Tensor, ek: torch.Tensor,
                           ) -> torch.Tensor:
     """out[u] = max_e sigma(eq[u] + ek[src_e] [+ e_e]) @ w + b over u's
     valid incoming edges, and 0 for a node with none (DGL's zero fill). eq,
-    ek [N, H] f32, w [H, O] f32 (the JAX layout), b [O] or None; returns
-    [N, O] f32. A cotangent is split equally among tied winners.
+    ek [N, H] f32, e [E_pad, H] f32 in sorted edge order or None, w [H, O]
+    f32 (the JAX layout), b [O] or None; returns [N, O] f32. A cotangent is
+    split equally among tied winners.
 
     An edge is valid where the graph's edge mask holds and, with a DropEdge
     ``edge_mask`` bool [E_pad], where that holds too: the dst slot scales
     are the sum scales of the kept edges (:func:`slot_scale`), positive on
     a valid slot. ``edge_dtype`` (None or torch.bfloat16) is the type ek
-    is gathered in and the per-slot g_z stored in; m, the max and all sums
-    are f32. Without a gradient the forward runs ``ell_max_fwd`` alone. The
-    port of ``make_ell_sir_aggregate_max_pallas``, for a sigma from the
-    registry, without an edge term; a sigma outside the registry takes the
-    pure ELL route (:func:`pure_ell_sir_aggregate_max`), with or without
-    ``e``, where :func:`resolve_activation` allows it. A registry sigma
-    with ``e``, or one that is not elementwise, raises (not yet ported)."""
+    and e are gathered in (their sum rounded to it, as JAX's ``cast``) and
+    the per-slot g_z stored in; m, the max and all sums are f32. Without a
+    gradient the forward runs ``ell_max_fwd`` (``ell_max_fwd_edge``) alone.
+    The port of ``make_ell_sir_aggregate_max_pallas``, with or without its
+    edge term, for any sigma of the registry: an elementwise one (declared
+    ``sir_elementwise=False`` or not: the kernels take sigma by its id), or
+    a row-wise one over each slot's H features. (JAX's builder pads H to a
+    multiple of 128 first, exact for an elementwise sigma; a row-wise
+    sigma here takes its statistic over the H features, as JAX's XLA
+    builder ``make_ell_sir_aggregate_max`` does.) A sigma outside the
+    registry takes the pure ELL route (:func:`pure_ell_sir_aggregate_max`),
+    with or without ``e``, where :func:`resolve_activation` allows it."""
     act = resolve_activation(activation, eq.device)
     if act is None:
         return pure_ell_sir_aggregate_max(fg, eq, ek, w, b, activation, e=e,
                                           edge_mask=edge_mask)
-    if e is not None:
-        raise NotImplementedError(
-            "max aggregation with edge features on the kernels is not yet "
-            "ported (the edge-term forms of #9-#11, ROADMAP.md Queue B part "
-            "1 item 3)")
-    if not act.elementwise:
-        raise NotImplementedError(
-            f"sigma {act.name} is not elementwise: its max route (the "
-            f"row-wise form of #9-#11, ROADMAP.md Queue B part 1 item 4) is "
-            f"not yet ported")
     if b is None:
         b = w.new_zeros(w.shape[1])
     sd = slot_scale(fg, "dst", "sum", edge_mask)
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (eq, ek, w, b)):
-        return _EllSirAggregateMax.apply(eq, ek, w, b, sd, fg, act,
+            t is not None and t.requires_grad for t in (eq, ek, w, b, e)):
+        return _EllSirAggregateMax.apply(eq, ek, w, b, e, sd, fg, act,
                                          edge_dtype)
-    out1 = _max_rows(fg, eq, ek, w, sd, act, edge_dtype)
+    out1 = _max_rows(fg, eq, ek, w, sd, act, edge_dtype, e)
     return torch.where(out1 > NEG / 2, out1 + b, 0.0)
 
 

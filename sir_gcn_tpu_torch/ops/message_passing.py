@@ -19,11 +19,10 @@ aggregate over ``ops/segment.py``, which a ``ShardedGraph`` (one rank's
 rows of a graph partitioned by node ranges, ``parallel/full_graph.py``)
 takes too, its src gathers reading every rank's rows; on a ``HaloGraph``
 (one rank's shard for the boundary-only exchange) the halo aggregate of
-``parallel/halo.py``. The forms
-that JAX runs on Pallas kernels and the port's kernels do not yet take
-raise: a registry sigma with max and an edge term, a row-wise registry
-sigma with an edge term or with max, and on a CUDA tensor a parameter-free
-sigma outside the registry.
+``parallel/halo.py``. Max on a FastGraph takes the max kernels for every
+registry sigma, elementwise or row-wise, with or without an edge term. On
+a CUDA tensor a parameter-free sigma outside the registry raises (JAX
+runs it on its Pallas kernels).
 """
 
 from __future__ import annotations
@@ -163,7 +162,9 @@ def sir_aggregate(graph, eq: torch.Tensor, ek: torch.Tensor, activation,
     edges (``ops/ell.py`` ``slot_scale``; mean divides by the kept
     in-edges after the aggregate, max takes them as validity). A sigma
     that is not elementwise takes the general route of a linear
-    aggregation, with or without an edge term, at any width. A sigma
+    aggregation, with or without an edge term, at any width; max takes
+    the max kernels for every registry sigma (a row-wise one over each
+    slot's H features), with or without an edge term. A sigma
     outside the registry that holds tensors takes the
     pure ELL route (``pure_ell_sir_aggregate``, the JAX package's XLA
     route), for every aggregation, with or without ``e`` and
@@ -184,11 +185,9 @@ def sir_aggregate(graph, eq: torch.Tensor, ek: torch.Tensor, activation,
     ``EDGE_FEATURE_EDGE_LIMIT`` and ``MAX_AGG_WARN_EDGES`` padded edges
     (:func:`allow_large_edge_aggregate` silences the first).
 
-    Raises for the forms that JAX runs
-    on Pallas kernels and the port's kernels do not yet take: a registry
-    sigma with max and an edge term, a sigma that is not elementwise with
-    max, and on a CUDA tensor a parameter-free sigma outside the registry
-    (``resolve_activation``)."""
+    Raises on a CUDA tensor for a parameter-free sigma outside the
+    registry (``resolve_activation``), which JAX runs on its Pallas
+    kernels."""
     if agg_type not in ("sum", "mean", "max", "sym"):
         raise NotImplementedError(f"agg_type = {agg_type} not implemented")
     if e is not None and e_basis is not None:

@@ -430,7 +430,7 @@ def max_launches(lib, inp: dict, w, gsc, act) -> dict:
             p(w))
     rows, counts = torch.empty((r, O_MAX), **f32), torch.empty((r, O_MAX),
                                                                  **f32)
-    blocks = lib.ell_max_bwd_blocks(r, H, O_MAX, a, 1)
+    blocks = lib.ell_max_bwd_blocks(r, H, O_MAX, a, 1, 0)  # no edge term
     if blocks <= 0:
         raise RuntimeError(f"ell_max_bwd cannot take H = O = {H}")
     geq = torch.empty((r, H), **f32)

@@ -425,15 +425,28 @@ def test_sireconv_max_on_a_graph_batch_matches_jax(encoder):
 
 
 def test_sireconv_max_raises_on_a_fast_graph():
-    """On a FastGraph a registry σ with max and an edge term needs the
-    edge-term forms of the max kernels, not yet ported."""
+    """On a FastGraph a registry σ with max and an edge term, which raised
+    before the max kernels had their edge-term forms, now takes them: the
+    same layer on the batch's FastGraph equals it on the plain batch (the
+    CSR aggregate), out and every gradient."""
     s = _small_graphs()
     fg = build_fast_graph(s.tg)
-    conv = SIREConv(H, 3, H, 6, ACT, agg_type="max")
-    ef = torch.zeros(s.tg.num_edges, 3)
-    with pytest.raises(NotImplementedError,
-                       match="Queue B part 1 item 3"):
-        conv(fg, torch.from_numpy(s.x), ef)
+    conv = SIREConv(H, 3, H, 6, ACT, agg_type="max",
+                    generator=torch.Generator().manual_seed(4))
+    ef = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(s.tg.num_edges, 3)).astype(np.float32))
+    gw = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(32, 6)).astype(np.float32))
+    runs = []
+    for graph in (fg, s.tg):
+        conv.zero_grad()
+        x = torch.from_numpy(s.x).requires_grad_()
+        out = conv(graph, x, ef)
+        (out * gw).sum().backward()
+        runs.append([out.detach(), x.grad] + [p.grad.clone()
+                                              for p in conv.parameters()])
+    for i, (a, b) in enumerate(zip(*runs)):
+        torch.testing.assert_close(a, b, **(FWD_TOL if i == 0 else BWD_TOL))
 
 
 # -------------------------------------------------------------- models

@@ -469,25 +469,36 @@ def test_routes_reach_their_kernels(kernel_calls):
 
 
 def test_unported_edge_branches_raise():
-    """What still raises: max with edge features on the kernels (a
-    registry sigma; the SIREConv max layer on a FastGraph, which computes
-    on a plain GraphBatch), and malformed edge arguments. The branches
-    that raised before this port had them now compute, held against the
-    JAX package's: e_basis under a DropEdge mask (the fused kernels on
-    dynamic scales), and a sigma outside the registry with e (the pure
-    ELL route)."""
+    """What still raises: malformed edge arguments. The branches that
+    raised before the port had them now compute, held against the JAX
+    package's: the SIREConv max layer on a FastGraph (JAX's SIREConv),
+    max with e_basis on the kernels (JAX's max builder ``with_edge`` on
+    e = e_basis @ w_edge), e_basis under a DropEdge mask (the fused
+    kernels on dynamic scales), and a sigma outside the registry with e
+    (the pure ELL route)."""
     import jax
     import jax.numpy as jnp
 
     jell, _, jact, _ = jax_side("f32")
     c = make_case("random", de=5)
     eq, ek, e, eb, we = (_t(a) for a in (c.eq, c.ek, c.e, c.eb, c.we))
-    x = _t(np.random.default_rng(9).normal(size=(c.tfg.n_pad, 12)))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _conv(agg="max")(c.tfg, x, _t(c.eb[:c.tfg.graph.num_edges]))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    jconv, variables, x, ef = _jax_sireconv(c, False, "max", 5, 4)
+    conv = _conv(agg="max")
+    load_jax_variables(conv, variables)
+    np.testing.assert_allclose(
+        conv(c.tfg, _t(x), _t(ef)).detach().numpy(),
+        np.asarray(jconv.apply(variables, c.jfg, jnp.asarray(x),
+                               jnp.asarray(ef), deterministic=True)),
+        **FWD_TOL)
+    wr = np.random.default_rng(5).normal(size=(H, H)).astype(np.float32) / 5
+    f = jell.make_ell_sir_aggregate_max_pallas(c.jfg, jact, with_edge=True,
+                                               interpret=True)
+    np.testing.assert_allclose(
         tmp.sir_aggregate(c.tfg, eq, ek, ACT, "max", e_basis=eb, w_edge=we,
-                          w_relation=torch.zeros(H, H))
+                          w_relation=_t(wr)).numpy(),
+        np.asarray(f(c.eq, c.ek, jnp.asarray(c.eb) @ jnp.asarray(c.we),
+                     jnp.asarray(c.jfg.edge_mask, jnp.float32), wr,
+                     jnp.zeros((H,), jnp.float32))), **FWD_TOL)
     with pytest.raises(ValueError, match="not both"):
         tmp.sir_aggregate(c.tfg, eq, ek, ACT, "sum", e=e, e_basis=eb,
                           w_edge=we)

@@ -525,12 +525,14 @@ def test_general_route_reaches_its_kernels(kernel_calls):
 
 
 def test_general_route_raises():
-    """What still raises on the general route (max with a sigma that is not
-    elementwise, a row-wise sigma declared elementwise, malformed
-    arguments), and the calls that raised before the route took the edge
-    term and any width, which now compute: ``e`` and ``e_basis`` with a
-    row-wise sigma equal the pure ELL route's, and H = 257 takes the wide
-    path of a row-wise sigma (on the CPU its plain versions)."""
+    """What still raises on the general route (a row-wise sigma declared
+    elementwise, malformed arguments), and the calls that raised before
+    the route took the edge term and any width, which now compute: ``e``
+    and ``e_basis`` with a row-wise sigma equal the pure ELL route's, H =
+    257 takes the wide path of a row-wise sigma (on the CPU its plain
+    versions), and max with tanh declared non-elementwise takes the max
+    kernels' tanh form, JAX's max route (its Pallas builder in interpret
+    mode)."""
     c = make_case("random", 24, with_jax=False)
     fg, plan = c.tfg, c.tfg.dst_plan
     eq, ek = _t(c.eq), _t(c.ek)
@@ -545,9 +547,19 @@ def test_general_route_raises():
                           w_edge=w_edge),
         tell.pure_ell_sir_aggregate(fg, eq, ek, act, "sym",
                                     e=basis @ w_edge), **FWD_TOL)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmp.sir_aggregate(fg, eq, ek, ACTS["tanh"], "max",
-                          w_relation=torch.zeros(24, 8))
+    import jax.numpy as jnp
+    import sir_gcn_tpu.ops.ell as jell
+
+    cj = make_case("random", 24)
+    wr = np.random.default_rng(4).normal(size=(24, 8)).astype(np.float32)
+    f = jell.make_ell_sir_aggregate_max_pallas(cj.jfg, jax_act("tanh"),
+                                               interpret=True)
+    np.testing.assert_allclose(
+        tmp.sir_aggregate(cj.tfg, _t(cj.eq), _t(cj.ek), ACTS["tanh"], "max",
+                          w_relation=_t(wr)).numpy(),
+        np.asarray(f(cj.eq, cj.ek, jnp.zeros((0,), jnp.float32),
+                     jnp.asarray(cj.jfg.edge_mask, jnp.float32), wr,
+                     jnp.zeros((8,), jnp.float32))), **FWD_TOL)
     with pytest.raises(ValueError, match="declared elementwise"):
         tell.Activation("softmax", sir_elementwise=True)
     # H = 257 takes the wide path of a row-wise sigma, and chunks for an

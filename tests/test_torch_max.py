@@ -389,13 +389,14 @@ def test_max_paths_reach_their_kernels(monkeypatch):
 
 
 def test_max_unported_branches_raise():
-    """What still raises: max with edge features on the kernels (a
-    registry sigma), and max without W_R. The branches that raised before
-    this port had them now compute, held against the JAX package's: a
+    """What still raises: max without W_R. The branches that raised before
+    the port had them now compute, held against the JAX package's: a
     sigma outside the registry (the pure ELL route, JAX's
-    ``make_ell_sir_aggregate_max``), and a DropEdge mask (the max kernels
-    on dynamic validity, JAX's ``make_ell_sir_aggregate_max_pallas`` in
-    interpret mode), out and every gradient."""
+    ``make_ell_sir_aggregate_max``), a DropEdge mask (the max kernels on
+    dynamic validity, JAX's ``make_ell_sir_aggregate_max_pallas`` in
+    interpret mode), and an edge term with a registry sigma (the edge forms
+    of the max kernels, JAX's builder ``with_edge``), out and every
+    gradient."""
     import jax
     import jax.numpy as jnp
     import sir_gcn_tpu.ops.ell as jell
@@ -403,38 +404,42 @@ def test_max_unported_branches_raise():
     c = _agg_case("random")
     eq, ek, w = (torch.from_numpy(a) for a in (c.eq, c.ek, c.w))
     act = tell.leaky_relu(0.2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmp.sir_aggregate(c.tfg, eq, ek, act, "max", w_relation=w,
-                          e=torch.zeros(c.tfg.e_pad, 24))
     with pytest.raises(ValueError, match="w_relation"):
         tmp.sir_aggregate(c.tfg, eq, ek, act, "max")
 
     mask = np.random.default_rng(5).random(c.tfg.e_pad) >= 0.3
     jact = lambda x: jax.nn.leaky_relu(x, 0.2)
-    for tact, emask, f, valid in (
+    e = np.random.default_rng(6).normal(
+        size=(c.tfg.e_pad, 24)).astype(np.float32)
+    for tact, emask, f, valid, edge in (
             (torch.tanh, None, jell.make_ell_sir_aggregate_max(
-                c.jfg, jnp.tanh), np.asarray(c.jfg.edge_mask)),
+                c.jfg, jnp.tanh), np.asarray(c.jfg.edge_mask), None),
             (act, mask, jell.make_ell_sir_aggregate_max_pallas(
                 c.jfg, jact, interpret=True),
-             mask & np.asarray(c.jfg.edge_mask))):
-        ts = [torch.from_numpy(a.copy()).requires_grad_()
-              for a in (c.eq, c.ek, c.w, c.b)]
+             mask & np.asarray(c.jfg.edge_mask), None),
+            (act, mask, jell.make_ell_sir_aggregate_max_pallas(
+                c.jfg, jact, with_edge=True, interpret=True),
+             mask & np.asarray(c.jfg.edge_mask), e)):
+        arrays = (c.eq, c.ek, c.w, c.b) + (() if edge is None else (edge,))
+        ts = [torch.from_numpy(a.copy()).requires_grad_() for a in arrays]
         out = tmp.sir_aggregate(
             c.tfg, ts[0], ts[1], tact, "max", w_relation=ts[2],
-            b_relation=ts[3],
+            b_relation=ts[3], e=None if edge is None else ts[4],
             edge_mask=None if emask is None else torch.from_numpy(emask))
         (out * torch.from_numpy(c.gw)).sum().backward()
         v = jnp.asarray(valid, jnp.float32)
-        e0 = jnp.zeros((0,), jnp.float32)
+        e0 = jnp.zeros((0,), jnp.float32) if edge is None else \
+            jnp.asarray(edge)
         args = [jnp.asarray(a) for a in (c.eq, c.ek, c.w, c.b)]
         np.testing.assert_allclose(
             out.detach().numpy(),
             np.asarray(f(args[0], args[1], e0, v, args[2], args[3])),
             **FWD_TOL)
-        grads = jax.grad(lambda a, b, ww, bb: jnp.sum(
-            f(a, b, e0, v, ww, bb) * jnp.asarray(c.gw)),
-            argnums=(0, 1, 2, 3))(*args)
-        for name, t, g in zip(("eq", "ek", "w", "b"), ts, grads):
+        grads = jax.grad(lambda a, b, ww, bb, ee: jnp.sum(
+            f(a, b, ee, v, ww, bb) * jnp.asarray(c.gw)),
+            argnums=(0, 1, 2, 3, 4))(*args, e0)
+        names = ("eq", "ek", "w", "b") + (() if edge is None else ("e",))
+        for name, t, g in zip(names, ts, grads):
             np.testing.assert_allclose(t.grad.numpy(), np.asarray(g),
                                        **BWD_TOL, err_msg=name)
 
