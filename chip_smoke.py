@@ -4,7 +4,8 @@ NVIDIA card.
 
     python3 chip_smoke.py
 
-Phases, each printed as it runs; any failure exits non-zero:
+Phases, each printed as it runs with its seconds (all of them again on
+one line before the kernels line); any failure exits non-zero:
   env      the card's name and power limit, torch and CUDA versions
   build    nvcc of the port's CUDA sources (all started together), with the
            ptxas register, shared-memory and spill report
@@ -55,7 +56,13 @@ Phases, each printed as it runs; any failure exits non-zero:
            bf16 (the edge form with leaky_relu, the row-wise form with
            centered_relu and both at once timed in bf16, near ties and
            near gates masked) and the row-wise forms at H = O = 512 on the
-           heterophilous plan (centered_relu timed in bf16)
+           heterophilous plan (centered_relu timed in bf16); #7 and #8
+           past a block's shared memory (the columns path, required): on
+           the small plans at (H, De) = (100, 600), (40, 1024) and (40,
+           2000) (W_E and #8's partials in device memory for the last
+           two), at the heterophilous plan with De = 16 and at H = 512, De
+           = 16 on the arxiv plan in bf16 (timed, "[wide]"); every check
+           of #7 and #8 launches each twice for the same bits
   train    the arxiv trainer's entry point at full width (169,343 nodes,
            H = 96, 3 layers, bn, residual, bf16 edges), once with sym and
            once with max aggregation, 5 steps and evals each, with the
@@ -102,6 +109,14 @@ Phases, each printed as it runs; any failure exits non-zero:
            fuse_bwd_take (#1r, #3, #5), and the dst-major composition
            (#1r, #6, #12) with (f) centered_relu at H = 512 and (g)
            erf-GELU declared non-elementwise at H = 96
+  sireconv_wide the SIREConv of the heterophilous default width (512 ->
+           512, De = 16, sym, leaky_relu(0.2), dropout 0) on the fused
+           edge route, #8 on its columns path: (a) one step on the
+           heterophilous plan, card against CPU, f32 edges, dyadic inputs,
+           out and every gradient (W_E's too); (b) 3 AdamW steps and evals
+           on the arxiv plan, bf16 edges, exactly #7 once a step and once
+           an eval and #8 once a step, the step and eval times, the peak
+           memory and one profiled step
   sireconv_max lane (d)'s SIREConv with max at full width on the arxiv
            plan (96 in, De = 16, 96 hidden and out, dropout 0.2, bf16
            edges) through SIREConv.forward: (a) leaky_relu(0.2) and (b)
@@ -258,7 +273,8 @@ leaky_relu launches), the general route's erf-GELU and wide forms as
 general_edge and general_wide phases, and the max kernels' row-wise forms
 as "<name>[rowwise]", "<name>[rowwise,wide]" and "<name>[edge,rowwise]",
 their launches those of the max_rowwise phase's 96- and 512-wide runs and
-of the sireconv_max phase's centered_relu run. Needs a CUDA
+of the sireconv_max phase's centered_relu run; #7 and #8 at H = 512 as
+"<name>[wide]", their launches the sireconv_wide phase's (b). Needs a CUDA
 card and the port beside this script; exits non-zero without either.
 """
 
@@ -414,10 +430,18 @@ EDGE_DIM = 16  # the edge basis width of the SIREConv configuration
 GELU = LINEAR + EDGE + MAX[:3]
 # the heterophilous plan of the kernels phase: minesweeper's size
 # (10,000 nodes, 39,402 undirected edges: Platonov et al. 2023, Table 1),
-# H = O = 512, the heterophilous default width; De = 8 for #7 and #8
-# (#8 at De = 16 needs nine [16, 512] f32 tables, 288 KiB, in a block's
-# shared memory, more than the 227 KiB it has, and raises)
-HETERO_NODES, HETERO_EDGES, HETERO_H, HETERO_DE = 10_000, 78_804, 512, 8
+# H = O = 512, the heterophilous default width
+HETERO_NODES, HETERO_EDGES, HETERO_H = 10_000, 78_804, 512
+# #7 and #8 at H = 512, De = EDGE_DIM (the sireconv_wide phase's): the
+# forward's W_E fits a block's shared memory, the backward's nine tables
+# (288 KiB) do not and take the columns path
+WIDE_EDGE_PATHS = ("shared", "columns")
+# (H, De, the paths of #7 and #8) past a block's shared memory, checked on
+# the small plans: #7's W_E too (100, 600); #8's partials in device memory
+# (40, 1024); #7's W_E in device memory too (40, 2000)
+LARGE_DE = ((100, 600, ("columns", "columns")),
+            (40, 1024, ("shared", "columns")),
+            (40, 2000, ("columns", "columns")))
 
 
 def flags_for(agg: str) -> list:
@@ -617,19 +641,19 @@ def log_max_layout(label, h, o, require_tensor=False):
                              f"path ({lay})")
 
 
-def log_edge_layout(label, h, de, act, dtype, require_registers=False):
+def log_edge_layout(label, h, de, act, dtype, require=None):
     """Log the paths #7 and #8 take for rows of width h and a basis of
-    width de (ell_edge_layout: registers or the shared-memory loop). With
-    ``require_registers`` the shared loop raises for either kernel: the
-    redesign must not be bypassed."""
+    width de (ell_edge_layout: registers, the shared-memory loop or its
+    columns path with the chunks). With ``require`` (the forward's and the
+    backward's path) any other raises: a path must not be bypassed."""
     from sir_gcn_tpu_torch.ops import cuda as K
 
     lay = K.ell_edge_layout(h, de, act, dtype)
     log(f"  {label} #7/#8 paths (H {h}, De {de}): {lay}")
-    if require_registers and (lay is None or lay.fwd != "registers"
-                              or lay.bwd != "registers"):
-        raise AssertionError(f"{label}: #7 and #8 do not take the register "
-                             f"path ({lay})")
+    if require is not None and (lay is None
+                                or (lay.fwd, lay.bwd) != tuple(require)):
+        raise AssertionError(f"{label}: #7 and #8 take {lay}, not the "
+                             f"{require} paths")
 
 
 def log_general_layout(label, name, args, outs, require_group=False,
@@ -736,10 +760,15 @@ def edge_tables(fg, h: int, de: int, seed: int):
 
 
 def check_edge_kernels(label, fg, eq, ek, g, sd, ss, e, eb, we, act, dtype,
-                       errs, timing=None, require_vector=False):
+                       errs, timing=None, require_vector=False,
+                       edge_paths=None, fused_only=False, tag=""):
     """The edge-term forms of #1, #2 and #4 (with its per-edge cotangent)
     and the fused-edge kernels #7 and #8 against their plain versions;
-    g_WE at GW_TOL, a g_e stored in bf16 at one bf16 step."""
+    g_WE at GW_TOL, a g_e stored in bf16 at one bf16 step. #7 and #8 must
+    take ``edge_paths`` (the register path with ``require_vector``), and
+    a second launch of each must give the first one's bits. With
+    ``fused_only`` only #7 and #8 run; their errors and times go under
+    their names and ``tag``."""
     import torch
 
     from sir_gcn_tpu_torch.ops import cuda as K
@@ -747,7 +776,7 @@ def check_edge_kernels(label, fg, eq, ek, g, sd, ss, e, eb, we, act, dtype,
     fwd, bwd = kernel_args(fg, eq, ek, g, sd, ss, act, dtype)
     plan, splan = fg.dst_plan, fg.src_plan
     bd, bs = plan.buckets1, splan.buckets1
-    et = e.to(dtype).contiguous()
+    et = None if fused_only else e.to(dtype).contiguous()
     fe = (et, plan.slot_edge)
     be = (et, splan.slot_edge, fg.edge2src_slot, fg.edge_mask)
     ffwd = (eq, fwd[1], eb, we, fg.dst_slot_srcnode, plan.slot_edge) + fwd[3:]
@@ -777,6 +806,8 @@ def check_edge_kernels(label, fg, eq, ek, g, sd, ss, e, eb, we, act, dtype,
             lambda: K.ell_edge_src_bwd_plain(*fbwd, buckets=bs),
             (BWD_TOL, GW_TOL)),
     }
+    if fused_only:
+        runs = {k: v for k, v in runs.items() if k.startswith("ell_edge_")}
     layout_args = {"ell_act_reduce_edge": fwd, "ell_act_reduce2_edge": fwd,
                    "ell_src_bwd_edge": bwd}
     outs = {}
@@ -787,13 +818,21 @@ def check_edge_kernels(label, fg, eq, ek, g, sd, ss, e, eb, we, act, dtype,
         want = want if isinstance(want, tuple) else (want,)
         for i, (a, b, tol) in enumerate(zip(got, want, tols)):
             err = compare(f"{label} {name}[{i}]", a, b, tol)
-            errs[name] = max(errs.get(name, 0.0), err)
+            errs[name + tag] = max(errs.get(name + tag, 0.0), err)
         if name in layout_args:
             log_layout(label, name, layout_args[name], got, extra=(et,),
                        require_vector=require_vector)
+        if name.startswith("ell_edge_"):
+            again = kernel()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{label} {name}: a second launch "
+                                     f"gave other bits")
         outs[name] = got
+    log(f"  {label} #7, #8: a second launch gave the same bits")
     log_edge_layout(label, eq.shape[1], eb.shape[1], act, dtype,
-                    require_registers=require_vector)
+                    require=("registers",) * 2 if require_vector
+                    else edge_paths)
     if timing is None:
         return
     h, de = eq.shape[1], eb.shape[1]
@@ -814,9 +853,9 @@ def check_edge_kernels(label, fg, eq, ek, g, sd, ss, e, eb, we, act, dtype,
     }
     for name, (kernel, plain, _) in runs.items():
         args, flops = needs[name]
-        timing[name] = dict(ms=cuda_ms(kernel, 20),
-                            plain_ms=cuda_ms(plain, 3, warmup=1),
-                            bound=bound(args, outs[name], flops))
+        timing[name + tag] = dict(ms=cuda_ms(kernel, 20),
+                                  plain_ms=cuda_ms(plain, 3, warmup=1),
+                                  bound=bound(args, outs[name], flops))
 
 
 def max_case(graph: str, h: int, o: int, device):
@@ -1266,6 +1305,15 @@ def phase_kernels(device):
                 check_edge_kernels(f"{graph} H={h} De={de} {act.name} "
                                    f"{dtype}", *case, *tables, act, dtype,
                                    errs_for(act))
+    # past a block's shared memory: #7 and #8 on their columns path
+    for h, de, paths in LARGE_DE:
+        case = small_case("random", h, device)
+        tables = edge_tables(case[0], h, de, seed=h + de)
+        for act in acts:
+            for dtype in dtypes:
+                check_edge_kernels(f"random H={h} De={de} {act.name} "
+                                   f"{dtype}", *case, *tables, act, dtype,
+                                   errs_for(act), edge_paths=paths)
     for graph, h, o in (("hub", 24, 40), ("random", 96, 96),
                         ("random", 200, 200), ("ties", 32, 24),
                         ("random", 36, 100)):
@@ -1446,6 +1494,7 @@ def phase_kernels(device):
     del eq, ek, g, w, tables
     hetero_kernels(device, errs, gelu_errs, timing)
     wide_kernels(device, fg, errs, timing)
+    wide_edge_kernels(device, fg, errs, timing)
     timing.update({f"{k}[gelu]": v for k, v in gelu_timing.items()
                    if k in GELU})
     errs.update({f"{k}[gelu]": v for k, v in gelu_errs.items() if k in GELU})
@@ -1483,13 +1532,43 @@ def wide_kernels(device, fg, errs, timing):
     torch.cuda.empty_cache()
 
 
+def wide_edge_kernels(device, fg, errs, timing):
+    """#7 and #8 at the arxiv plan, H = WIDE_H, De = EDGE_DIM (the
+    sireconv_wide phase's), bf16 edges, leaky_relu(0.2), against their
+    plain versions, on the paths WIDE_EDGE_PATHS, timed under
+    "<name>[wide]"."""
+    import torch
+
+    from sir_gcn_tpu_torch.ops.ell import leaky_relu
+
+    h = WIDE_H
+    gen = torch.Generator(device=device).manual_seed(7)
+    eq, ek, g = (torch.randn((fg.n_pad, h), generator=gen, device=device)
+                 for _ in range(3))
+    eb = torch.randn((fg.e_pad, EDGE_DIM), generator=gen, device=device)
+    we = 0.3 * torch.randn((EDGE_DIM, h), generator=gen, device=device)
+    log(f"  arxiv plan at H {h}, De {EDGE_DIM}: #7 and #8")
+    check_edge_kernels(f"arxiv H={h} bf16", fg, eq, ek, g,
+                       fg.dst_slot_scales["sym"], fg.src_slot_scales["sym"],
+                       None, eb, we, leaky_relu(0.2), torch.bfloat16, errs,
+                       timing=timing, edge_paths=WIDE_EDGE_PATHS,
+                       fused_only=True, tag="[wide]")
+    for name in ("ell_edge_act_reduce2", "ell_edge_src_bwd"):
+        t = timing[f"{name}[wide]"]
+        log(f"  {name} at H={h} (bf16): {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} ms by "
+            f"{t['bound'][1]} ({t['bound'][3] / 1e9:.2f} GFLOP), "
+            f"{100 * t['bound'][0] / t['ms']:.1f}% of bound")
+    del eq, ek, g, eb, we
+    torch.cuda.empty_cache()
+
+
 def hetero_kernels(device, errs, gelu_errs, timing):
     """The kernels with an erf-GELU form at H = O = 512 on a plan of the
     heterophilous minesweeper's size (its synthetic stand-in, no self
-    loops): #1, #2 and #4 and their edge forms, #7 and #8 (De = 16, on the
-    shared-memory loop above H = 128; De = 8), #9-#12 with near ties
-    masked as at
-    the arxiv plan, in f32 and bf16; erf-GELU against its plain versions,
+    loops): #1, #2 and #4 and their edge forms, #7 and #8 (De = EDGE_DIM:
+    #7 on the shared-memory loop, #8 on its columns path, required), #9-#12
+    with near ties masked as at the arxiv plan, in f32 and bf16; erf-GELU against its plain versions,
     and leaky_relu(0.2) beside it, each timed (bf16) and logged with its
     path. Then #9-#11's row-wise forms there: centered_relu in bf16 (near
     ties and gates masked), timed into ``timing`` as "[rowwise,wide]",
@@ -1515,11 +1594,11 @@ def hetero_kernels(device, errs, gelu_errs, timing):
                  for _ in range(3))
     sd, ss = fg.dst_slot_scales["mean"], fg.src_slot_scales["mean"]
     w = (torch.rand((h, h), generator=gen, device=device) * 2 - 1) / h**0.5
-    tables = edge_tables(fg, h, HETERO_DE, seed=4)
+    tables = edge_tables(fg, h, EDGE_DIM, seed=4)
     log(f"  heterophilous plan (minesweeper's size): N {fg.n_pad}, E_pad "
         f"{fg.e_pad}, S_dst {fg.dst_plan.num_slots}, S_src "
         f"{fg.src_plan.num_slots}, R1 {fg.dst_plan.num_rows}, H {h}, O {h}, "
-        f"De {HETERO_DE}, stage 2 {fg.dst_plan.s2_gather is not None}")
+        f"De {EDGE_DIM}, stage 2 {fg.dst_plan.s2_gather is not None}")
     log_max_layout("heterophilous", h, h)
     times = {}
     for act in (gelu(), leaky_relu(0.2)):
@@ -1532,7 +1611,8 @@ def hetero_kernels(device, errs, gelu_errs, timing):
             check_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, e,
                           timing=keep, require_vector=True)
             check_edge_kernels(label, fg, eq, ek, g, sd, ss, *tables, act,
-                               dtype, e, timing=keep)
+                               dtype, e, timing=keep,
+                               edge_paths=WIDE_EDGE_PATHS)
             check_max_kernels(label, fg, eq, ek, w, g,
                               fg.dst_slot_scales["sum"], act, dtype, e,
                               timing=keep, mask_near_ties=True)
@@ -1792,30 +1872,31 @@ def phase_bench(device, errs):
             for tag, t in times.items()))
 
 
-def sireconv_inputs(fg, seed: int):
-    """Node features [N, 96] and edge features [E, De] N(0, 1), in original
-    edge order, and the loss weights [N, 96], on the graph's device."""
+def sireconv_inputs(fg, seed: int, width: int = 96):
+    """Node features [N, width] and edge features [E, De] N(0, 1), in
+    original edge order, and the loss weights [N, width], on the graph's
+    device."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
-    x = torch.randn((fg.n_pad, 96), generator=gen)
+    x = torch.randn((fg.n_pad, width), generator=gen)
     ef = torch.randn((fg.graph.num_edges, EDGE_DIM), generator=gen)
-    w = torch.randn((fg.n_pad, 96), generator=gen)
+    w = torch.randn((fg.n_pad, width), generator=gen)
     dev = fg.graph.device
     return x.to(dev), ef.to(dev), w.to(dev)
 
 
 def make_sireconv(dropout: float, edge_encoder=None, act=None,
-                  agg_type: str = "sym"):
-    """The SIREConv of the sireconv phase: 96 in, De = 16, 96 hidden and
-    out, ``act`` (leaky_relu(0.2) by default), ``agg_type`` (sym by
-    default); weights from seed 0."""
+                  agg_type: str = "sym", width: int = 96):
+    """The SIREConv of the sireconv phase: ``width`` (96) in, De = 16,
+    ``width`` hidden and out, ``act`` (leaky_relu(0.2) by default),
+    ``agg_type`` (sym by default); weights from seed 0."""
     import torch
 
     from sir_gcn_tpu_torch.models import SIREConv
     from sir_gcn_tpu_torch.ops.ell import leaky_relu
 
-    return SIREConv(96, EDGE_DIM, 96, 96, act or leaky_relu(0.2),
+    return SIREConv(width, EDGE_DIM, width, width, act or leaky_relu(0.2),
                     dropout=dropout, agg_type=agg_type,
                     edge_encoder=edge_encoder,
                     generator=torch.Generator().manual_seed(0))
@@ -1870,6 +1951,96 @@ def phase_sireconv(device, fg, steps: int = 5, act=None):
             total[k] += v
     set_edge_dtype(None)
     return total
+
+
+def phase_sireconv_wide(device, fg, steps: int = 3):
+    """The SIREConv of the heterophilous default width, 512 -> 512, De =
+    EDGE_DIM, sym, leaky_relu(0.2), dropout 0: the fused edge route with
+    #8 on its columns path. (a) One training step on the heterophilous
+    plan (minesweeper's size), f32 edges, on the card against the CPU
+    (plain versions) from the same weights, on dyadic inputs (x and the
+    edge features on multiples of 1/8, the weights on multiples of 1/128,
+    so that every z is exact in f32 and both devices take the same side of
+    leaky_relu's kink): out at FWD_TOL and every parameter's gradient, W_E's
+    among them, at BWD_TOL; exactly one #7 and one #8 on the card. (b) On
+    the arxiv plan, bf16 edges: ``steps`` AdamW steps, each followed by a
+    no-grad eval, exactly #7 once a step and once an eval and #8 once a
+    step, the step and eval times and the peak memory, then one profiled
+    step. Returns (b)'s launches."""
+    import copy
+
+    import torch
+
+    from sir_gcn_tpu_torch.experiments.heterophilous import train as het
+    from sir_gcn_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from sir_gcn_tpu_torch.ops.ell import leaky_relu
+    from sir_gcn_tpu_torch.ops.message_passing import set_edge_dtype
+    from sir_gcn_tpu_torch.train import make_adamw
+
+    h = WIDE_H
+    log(f"== sireconv_wide (a): one SIREConv ({h} -> {h}, De {EDGE_DIM}, "
+        f"sym, leaky_relu) step on the heterophilous plan, the card "
+        f"(kernels) against the CPU (plain)")
+    set_edge_dtype(None)
+    args = het._parser().parse_args([
+        "--dataset", "minesweeper", "--synthetic-nodes", str(HETERO_NODES),
+        "--synthetic-edges", str(HETERO_EDGES)])
+    graphs = {name: het.prepare(args, 0, 0, torch.device(dev))["graph"]
+              for name, dev in (("cpu", "cpu"), ("card", device))}
+    x, ef, w = sireconv_inputs(graphs["cpu"], seed=3, width=h)
+    x, ef = dyadic(x, 8, 32), dyadic(ef, 8, 32)
+    conv = make_sireconv(0.0, width=h)
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.copy_(dyadic(p, 128, 1.0))
+    want = {"ell_edge_act_reduce2": 1, "ell_edge_src_bwd": 1}
+    runs = {}
+    for name, g in graphs.items():
+        dev = g.graph.device
+        m = copy.deepcopy(conv).to(dev)
+        m.train()
+        reset_launch_counts()
+        out = m(g, x.to(dev), ef.to(dev))
+        (out * w.to(dev)).sum().backward()
+        if name == "card":
+            torch.cuda.synchronize()
+            did = {k: v for k, v in LAUNCHES.items() if v}
+            if did != want:
+                raise AssertionError(f"(a) card launches {did}, expected "
+                                     f"{want}")
+        runs[name] = dict(out=out.detach().cpu(), grads={
+            k: p.grad.cpu() for k, p in m.named_parameters()})
+    c, g = runs["cpu"], runs["card"]
+    log(f"  nodes {graphs['card'].graph.num_nodes}, edges "
+        f"{graphs['card'].graph.num_edges}, launches {want}")
+    compare("(a) out", g["out"], c["out"], FWD_TOL)
+    for k in c["grads"]:
+        compare(f"(a) grad {k}", g["grads"][k], c["grads"][k], BWD_TOL)
+    del graphs, runs, conv
+
+    log(f"== sireconv_wide (b): one SIREConv ({h} -> {h}, De {EDGE_DIM}, "
+        f"sym, bf16 edges) on the arxiv plan, {steps} steps and evals")
+    set_edge_dtype(torch.bfloat16)
+    log_edge_layout("(b)", h, EDGE_DIM, leaky_relu(0.2), torch.bfloat16,
+                    require=WIDE_EDGE_PATHS)
+    x, ef, w = sireconv_inputs(fg, seed=0, width=h)
+    conv = make_sireconv(0.0, width=h).to(device)
+    opt = make_adamw(conv.parameters(), 1e-3, 0.0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    launches = conv_loop(
+        "(b)", conv, fg, x, w, steps,
+        lambda: sireconv_step(conv, fg, x, ef, w, opt, gen),
+        lambda: conv(fg, x, ef))
+    want = {"ell_edge_act_reduce2": 2 * steps, "ell_edge_src_bwd": steps}
+    if launches != want:
+        raise AssertionError(f"(b) launch counts {launches}, expected "
+                             f"{want}")
+    log("== profile sireconv_wide (b): 1 warm training step")
+    profile_steps(lambda: sireconv_step(conv, fg, x, ef, w, opt, gen), 1)
+    del conv, opt, x, ef, w
+    set_edge_dtype(None)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def max_launches(steps: int, edge: bool) -> dict:
@@ -4841,56 +5012,76 @@ def main() -> int:
 
     device = torch.device("cuda")
     t0 = time.perf_counter()
-    smi = phase_env()
-    phase_build()
-    errs, timing, arxiv_fg = phase_kernels(device)
-    launches, sym_run = phase_train("sym")
-    launches.update({k: v for k, v in phase_train("max")[0].items()
-                     if k in MAX})
-    phase_dropedge(sym_run)
-    phase_bench(device, errs)
-    launches.update({k: v for k, v in phase_sireconv(device, arxiv_fg).items()
-                     if k in EDGE})
-    launches.update({k: v for k, v in phase_general(device, arxiv_fg).items()
-                     if k in GENERAL})
-    launches.update({k: v for k, v in phase_general_edge(
-        device, arxiv_fg).items() if k in GENERAL_EDGE})
-    general_wide, general_gelu = phase_general_wide(device, arxiv_fg)
-    max_edge, max_both = phase_sireconv_max(device, arxiv_fg)
+    seconds = {}
+
+    def run(name, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, its seconds logged and kept by name."""
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        log(f"== {name}: {seconds[name]} s")
+        return out
+
+    smi = run("env", phase_env)
+    run("build", phase_build)
+    errs, timing, arxiv_fg = run("kernels", phase_kernels, device)
+    launches, sym_run = run("train sym", phase_train, "sym")
+    launches.update({k: v for k, v in run(
+        "train max", phase_train, "max")[0].items() if k in MAX})
+    run("dropedge", phase_dropedge, sym_run)
+    run("bench", phase_bench, device, errs)
+    launches.update({k: v for k, v in run(
+        "sireconv", phase_sireconv, device, arxiv_fg).items() if k in EDGE})
+    launches.update({k: v for k, v in run(
+        "general", phase_general, device, arxiv_fg).items()
+        if k in GENERAL})
+    launches.update({k: v for k, v in run(
+        "general_edge", phase_general_edge, device, arxiv_fg).items()
+        if k in GENERAL_EDGE})
+    general_wide, general_gelu = run("general_wide", phase_general_wide,
+                                     device, arxiv_fg)
+    sireconv_wide = run("sireconv_wide", phase_sireconv_wide, device,
+                        arxiv_fg)
+    max_edge, max_both = run("sireconv_max", phase_sireconv_max, device,
+                             arxiv_fg)
     launches.update({k: v for k, v in max_edge.items() if k in MAX_EDGE})
-    max_rowwise, max_wide = phase_max_rowwise(device, arxiv_fg)
+    max_rowwise, max_wide = run("max_rowwise", phase_max_rowwise, device,
+                                arxiv_fg)
     max_forms = {"rowwise": max_rowwise, "rowwise,wide": max_wide,
                  "edge,rowwise": {MAX_EDGE[k]: v for k, v in max_both.items()
                                   if k in MAX_EDGE}}
-    launches.update({k: v for k, v in phase_bwd(device, arxiv_fg).items()
-                     if k in BWD})
-    lab_launches, lab_errs, lab_timing = phase_lab(device)
+    launches.update({k: v for k, v in run(
+        "bwd", phase_bwd, device, arxiv_fg).items() if k in BWD})
+    lab_launches, lab_errs, lab_timing = run("lab", phase_lab, device)
     launches.update(lab_launches)
     errs.update(lab_errs)
     timing.update(lab_timing)
     torch.cuda.empty_cache()  # the lab's ~3 GB, before e2e and profile
     for agg in ("sym", "max"):
-        phase_e2e(device, agg)
-    phase_e2e_sireconv(device)
-    phase_e2e_general(device)
-    phase_e2e_routes(device)
-    phase_pure(device, arxiv_fg)
-    sym_profile = phase_profile(device, "sym")
-    phase_profile(device, "max")
-    phase_profile(device, "sym", edge_dropout=0.2, against=sym_profile)
-    phase_profile_sireconv(device, arxiv_fg)
-    phase_profile_general(device, arxiv_fg)
-    gelu_launches = phase_fullgraph(device)
+        run(f"e2e {agg}", phase_e2e, device, agg)
+    run("e2e sireconv", phase_e2e_sireconv, device)
+    run("e2e general", phase_e2e_general, device)
+    run("e2e routes", phase_e2e_routes, device)
+    run("pure", phase_pure, device, arxiv_fg)
+    sym_profile = run("profile sym", phase_profile, device, "sym")
+    run("profile max", phase_profile, device, "max")
+    run("profile dropedge", phase_profile, device, "sym", edge_dropout=0.2,
+        against=sym_profile)
+    run("profile sireconv", phase_profile_sireconv, device, arxiv_fg)
+    run("profile general", phase_profile_general, device, arxiv_fg)
+    gelu_launches = run("fullgraph", phase_fullgraph, device)
     # the edge kernels' erf-GELU forms: no workload runs a SIREConv with
     # erf-GELU; this one does, at the arxiv plan, 2 steps and evals a route
     gelu_launches.update({
-        k: v for k, v in phase_sireconv(device, arxiv_fg, steps=2,
-                                        act=gelu()).items() if k in EDGE})
-    phase_bot(device)
-    phase_oracles(device)
-    phase_batched(device)
-    phase_dist(device, errs, timing, smi)
-    phase_gspmd(device, smi)
+        k: v for k, v in run("sireconv gelu", phase_sireconv, device,
+                             arxiv_fg, steps=2, act=gelu()).items()
+        if k in EDGE})
+    run("bot", phase_bot, device)
+    run("oracles", phase_oracles, device)
+    run("batched", phase_batched, device)
+    run("dist", phase_dist, device, errs, timing, smi)
+    run("gspmd", phase_gspmd, device, smi)
+    log(f"== phase seconds: {json.dumps(seconds)}")
     log(f"== all phases ok in {time.perf_counter() - t0:.1f}s")
 
     rows = []
@@ -4931,6 +5122,15 @@ def main() -> int:
                 launches=counts[name], max_abs_err=errs[key], ms=t["ms"],
                 plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
                 bound_by=t["bound"][1], library_ms=None))
+    for name in EDGE[3:]:  # #7 and #8 at H = WIDE_H, sireconv_wide's
+        source, replaces, _ = KERNELS[name]
+        key = f"{name}[wide]"
+        t = timing[key]
+        rows.append(dict(
+            name=key, route="cuda", source=source, replaces=replaces,
+            launches=sireconv_wide[name], max_abs_err=errs[key], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+            bound_by=t["bound"][1], library_ms=None))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

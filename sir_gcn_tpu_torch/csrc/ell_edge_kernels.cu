@@ -20,11 +20,11 @@
 //
 // Bound: operations at the arxiv width (H = 96, De = 16): the projection
 // costs 2 * De flops per slot and feature (twice that in the backward, for
-// g_WE), against 2-4 bytes per feature read. Both paths below walk a row's
-// slots in order, skip a slot with scale 0 (padding) whole, so that it reads
-// nothing and contributes exactly 0, and form e_h for a lane's feature f as
-// fmaf(b_d, W_E[d, f], e_h) in increasing d from 0. Each row's sums are
-// therefore the same bits on both paths. The entries choose the path from H
+// g_WE), against 2-4 bytes per feature read. The three paths below walk a
+// row's slots in order, skip a slot with scale 0 (padding) whole, so that it
+// reads nothing and contributes exactly 0, and form e_h for a lane's feature
+// f as fmaf(b_d, W_E[d, f], e_h) in increasing d from 0. Each row's sums are
+// therefore the same bits on every path. The entries choose the path from H
 // and De; ell_edge_layout reports the choice.
 //
 // The register path (H <= 128, De <= 16, and in the backward NF * DB <= 48;
@@ -59,16 +59,39 @@
 // it costs registers and instructions a slot for latency that these warps
 // already hide.
 //
-// The shared-memory path (every other shape the wrappers take) is the first
-// design: one warp per row, 8 rows per block, as ell_kernels.cu; the slots'
-// indices and scales are read 32 at a time and passed round by shuffles.
-// W_E sits in shared memory; the lanes load a slot's basis row (De values)
-// with one coalesced read and broadcast it by shuffles, and each lane forms
-// e_h for its own features (lanes striding h, so the shared reads of W_E hit
-// 32 banks). Rows wider than 4 features a lane take passes. The backward's
-// blocks are persistent; each warp walks its rows in a fixed order and adds
-// egr_d * g_z into its own [De, H] partial in shared memory, summed as on
-// the register path.
+// The shared-memory path (the other shapes whose tables fit a block's
+// shared memory: W_E, and in the backward the 8 warps' g_WE partials, De *
+// H f32 each) is the first design: one warp per row, 8 rows per block, as
+// ell_kernels.cu; the slots' indices and scales are read 32 at a time and
+// passed round by shuffles. W_E sits in shared memory; the lanes load a
+// slot's basis row (De values) with one coalesced read and broadcast it by
+// shuffles, and each lane forms e_h for its own features (lanes striding h,
+// so the shared reads of W_E hit 32 banks). Rows wider than 4 features a
+// lane take passes. The backward's blocks are persistent; each warp walks
+// its rows in a fixed order and adds egr_d * g_z into its own [De, H]
+// partial in shared memory, summed as on the register path.
+//
+// The columns path (every shape whose tables do not fit) runs the same
+// kernels on chunks of columns. The route takes only an elementwise sigma,
+// so feature f of a slot needs only column f of W_E, and column f of g_WE
+// only g_z[., f]: a block takes the columns c0 .. c0 + Hc - 1 of its rows
+// (grid.y runs over the chunks), with W_E[:, c0:c0 + Hc] and, in the
+// backward, its warps' partials [8, De, Hc] in shared memory. Hc is a
+// multiple of 32 of at most 128 (one pass of 4 features a lane), the widest
+// whose tables fit, spread evenly over the chunks H needs; at De = 16 the
+// backward takes 128 columns in 72 KiB, three blocks an SM. Where not even
+// 32 columns fit (De > 1808 in the forward, De > 200 in the backward), the
+// block reads W_E from device memory and each warp keeps its partial in a
+// row of the g_WE scratch in device memory (the L2 holds the rows in use),
+// which the second kernel sums with the others; the backward's grid is then
+// held to 256 MiB of scratch. Each feature's sums are formed as on the
+// shared path, so rows, srows and the g_ek rows are its bits, and g_WE is
+// summed per warp, per block and over blocks (or per warp and over warps)
+// in a fixed order, the same from launch to launch. A slot costs each
+// chunk De shuffles and De * NF shared reads for e_h, and as many
+// shuffles, reads and writes again for g_WE: the shared-memory pipe bounds
+// these kernels, not bytes or flops (#8 at H = 512, De = 16 runs at about
+// an eighth of its operations bound on an H100).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,6 +107,11 @@ constexpr int kMaxFeatPerLane = 4;  // features per lane and pass
 // room for the static arrays
 constexpr int kMaxSmem = 232448 - 1024;
 constexpr unsigned kFull = 0xffffffffu;
+// The columns path: the widest chunk (one pass of a warp), and the g_WE
+// scratch the backward's grid is held to where the partials stay in device
+// memory.
+constexpr int kMaxChunk = 32 * kMaxFeatPerLane;
+constexpr size_t kDeviceScratch = size_t(256) << 20;
 
 // The register path: warps a block, the widest row and basis it holds, the
 // cap on DB * NF in the backward (W_E's and g_WE's registers), and the
@@ -161,15 +189,24 @@ __device__ __forceinline__ void act_both(float z, float slope, float& a,
 }
 
 // ---------------------------------------------------------------------
-// The shared-memory path
+// The shared-memory path and the columns path
 // ---------------------------------------------------------------------
 
-// e_h[j] = sum_d basis[d] * w_s[d, f0 + j * 32 + lane] for the lane's
-// features, summed in increasing d; basis is one slot's [De] row.
+// Where a kernel of the shared-memory loop keeps its tables: all of W_E
+// (and #8's partials) in shared memory (the shared path), a chunk of its
+// columns there (the columns path), or in device memory (the columns path
+// where not even 32 columns fit). A template parameter, so that the shared
+// path's instances do the first design's arithmetic and no more.
+enum { LOOP_SHARED = 0, LOOP_COLUMNS = 1, LOOP_DEVICE = 2 };
+
+// e_h[j] = sum_d basis[d] * w[d * ldw + f0 + j * 32 + lane] for the lane's
+// features below nf, summed in increasing d; basis is one slot's [De] row,
+// w the block's columns of W_E (rows ldw apart).
 template <int NF>
 __device__ __forceinline__ void edge_term(const float* __restrict__ basis,
-                                          const float* w_s, int De, int H,
-                                          int f0, int lane, float* eh) {
+                                          const float* w, int ldw, int De,
+                                          int nf, int f0, int lane,
+                                          float* eh) {
 #pragma unroll
   for (int j = 0; j < NF; ++j) eh[j] = 0.f;
   for (int d0 = 0; d0 < De; d0 += 32) {
@@ -177,17 +214,35 @@ __device__ __forceinline__ void edge_term(const float* __restrict__ basis,
     const int nd = min(32, De - d0);
     for (int k = 0; k < nd; ++k) {
       const float b = __shfl_sync(kFull, mine, k);
-      const float* w_row = w_s + (d0 + k) * H;
+      const float* w_row = w + (d0 + k) * ldw;
 #pragma unroll
       for (int j = 0; j < NF; ++j) {
         const int f = f0 + j * 32 + lane;
-        if (f < H) eh[j] = fmaf(b, w_row[f], eh[j]);
+        if (f < nf) eh[j] = fmaf(b, w_row[f], eh[j]);
       }
     }
   }
 }
 
-template <int ACT, int NF, typename TK>
+// W_E into w_s: whole on the shared path, else its columns c0 .. c0 + nf -
+// 1 as [De, Hc] (0 past nf).
+template <int WHERE>
+__device__ __forceinline__ void load_w(const float* __restrict__ w_e, int H,
+                                       int De, int c0, int Hc, int nf,
+                                       float* w_s) {
+  if constexpr (WHERE == LOOP_SHARED) {
+    for (int i = threadIdx.x; i < De * H; i += blockDim.x) w_s[i] = w_e[i];
+  } else {
+    for (int i = threadIdx.x; i < De * Hc; i += blockDim.x) {
+      const int d = i / Hc, f = i - d * Hc;
+      w_s[i] = f < nf ? w_e[(int64_t)d * H + c0 + f] : 0.f;
+    }
+  }
+}
+
+// A block takes rows blockIdx.x * 8 .. + 7 and, on the columns path, the
+// columns c0 = blockIdx.y * Hc .. c0 + Hc - 1 (all H on the shared path).
+template <int ACT, int NF, int WHERE, typename TK>
 __global__ void __launch_bounds__(kWarps * 32)
 edge_act_reduce_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
                        const float* __restrict__ e_basis,
@@ -197,23 +252,30 @@ edge_act_reduce_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
                        const float* __restrict__ scale,
                        const int* __restrict__ row_key,
                        const int* __restrict__ row_ptr, int R, int H, int De,
-                       float slope, float* __restrict__ rows,
+                       int Hc, float slope, float* __restrict__ rows,
                        float* __restrict__ srows) {
-  extern __shared__ float w_s[];  // [De, H]
-  for (int i = threadIdx.x; i < De * H; i += blockDim.x) w_s[i] = w_e[i];
-  __syncthreads();
+  constexpr bool COLS = WHERE != LOOP_SHARED, DEV = WHERE == LOOP_DEVICE;
+  extern __shared__ float w_s[];  // [De, H], or [De, Hc] on the columns path
+  const int c0 = COLS ? blockIdx.y * Hc : 0;
+  const int nf = COLS ? min(Hc, H - c0) : H;  // the block's columns
+  if constexpr (!DEV) {
+    load_w<WHERE>(w_e, H, De, c0, Hc, nf, w_s);
+    __syncthreads();
+  }
+  const float* w = DEV ? w_e + c0 : w_s;
+  const int ldw = WHERE == LOOP_COLUMNS ? Hc : H;
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= R) return;  // the whole warp leaves together
   const int s0 = row_ptr[r];
   const int s1 = row_ptr[r + 1];
-  const float* eq_row = eq + (int64_t)row_key[r] * H;
-  for (int f0 = 0; f0 < H; f0 += 32 * NF) {
+  const float* eq_row = eq + (int64_t)row_key[r] * H + c0;
+  for (int f0 = 0; f0 < nf; f0 += 32 * NF) {
     float q[NF], acc[NF], sacc[NF], eh[NF];
 #pragma unroll
     for (int j = 0; j < NF; ++j) {
       const int f = f0 + j * 32 + lane;
-      q[j] = f < H ? eq_row[f] : 0.f;
+      q[j] = f < nf ? eq_row[f] : 0.f;
       acc[j] = 0.f;
       sacc[j] = 0.f;
     }
@@ -228,12 +290,13 @@ edge_act_reduce_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
         const int edge = __shfl_sync(kFull, my_edge, k);
         const float sc = __shfl_sync(kFull, my_sc, k);
         if (sc == 0.f) continue;  // warp-uniform
-        edge_term<NF>(e_basis + (int64_t)edge * De, w_s, De, H, f0, lane, eh);
-        const TK* ek_row = ek + (int64_t)src * H;
+        edge_term<NF>(e_basis + (int64_t)edge * De, w, ldw, De, nf, f0, lane,
+                      eh);
+        const TK* ek_row = ek + (int64_t)src * H + c0;
 #pragma unroll
         for (int j = 0; j < NF; ++j) {
           const int f = f0 + j * 32 + lane;
-          if (f < H) {
+          if (f < nf) {
             const float z = (to_f32(ek_row[f]) + eh[j]) + q[j];
             float a, d;
             act_both<ACT>(z, slope, a, d);
@@ -246,15 +309,23 @@ edge_act_reduce_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
 #pragma unroll
     for (int j = 0; j < NF; ++j) {
       const int f = f0 + j * 32 + lane;
-      if (f < H) {
-        rows[(int64_t)r * H + f] = acc[j];
-        srows[(int64_t)r * H + f] = sacc[j];
+      if (f < nf) {
+        rows[(int64_t)r * H + c0 + f] = acc[j];
+        srows[(int64_t)r * H + c0 + f] = sacc[j];
       }
     }
   }
 }
 
-template <int ACT, int NF, typename T>
+// A persistent grid: block (x, y) walks rows x * 8 + warp, then + 8 *
+// gridDim.x, on the columns c0 = y * Hc .. c0 + Hc - 1 (all H on the
+// shared path). Without LOOP_DEVICE, W_E's columns and the warps' g_WE
+// partials [8, De, columns] sit in shared memory and the block writes
+// their sum, in warp order, to its row x of gwe_part [gridDim.x, De, H];
+// with it, W_E is read from device memory and warp w's partial is row x *
+// 8 + w of gwe_part [gridDim.x * 8, De, H], each lane adding into the
+// columns it owns.
+template <int ACT, int NF, int WHERE, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 edge_src_bwd_kernel(const T* __restrict__ eq, const T* __restrict__ g,
                     const float* __restrict__ ek,
@@ -265,29 +336,45 @@ edge_src_bwd_kernel(const T* __restrict__ eq, const T* __restrict__ g,
                     const float* __restrict__ scale,
                     const int* __restrict__ row_key,
                     const int* __restrict__ row_ptr, int R, int H, int De,
-                    float slope, float* __restrict__ out,
+                    int Hc, float slope, float* __restrict__ out,
                     float* __restrict__ gwe_part) {
+  constexpr bool COLS = WHERE != LOOP_SHARED, DEV = WHERE == LOOP_DEVICE;
   extern __shared__ float smem[];
-  const int n_w = De * H;
-  float* w_s = smem;                               // [De, H]
+  const int c0 = COLS ? blockIdx.y * Hc : 0;
+  const int nf = COLS ? min(Hc, H - c0) : H;  // the block's columns
+  const int hc = COLS ? Hc : H;  // the width of its shared tables
+  const int n_w = De * hc;
   const int warp = threadIdx.x >> 5;
-  float* part_s = smem + n_w;                      // [kWarps, De, H]
-  float* part_w = part_s + (int64_t)warp * n_w;
-  for (int i = threadIdx.x; i < n_w; i += blockDim.x) w_s[i] = w_e[i];
-  for (int i = threadIdx.x; i < kWarps * n_w; i += blockDim.x) part_s[i] = 0.f;
-  __syncthreads();
   const int lane = threadIdx.x & 31;
+  float* w_s = smem;           // [De, hc]
+  float* part_s = smem + n_w;  // [kWarps, De, hc]
+  float* part_w =
+      DEV ? gwe_part + ((int64_t)blockIdx.x * kWarps + warp) * De * H + c0
+          : part_s + (int64_t)warp * n_w;
+  const int ldp = DEV ? H : hc;
+  if constexpr (DEV) {
+    // each lane clears the columns it adds into below (f = lane mod 32)
+    for (int d = 0; d < De; ++d)
+      for (int f = lane; f < nf; f += 32) part_w[(int64_t)d * H + f] = 0.f;
+  } else {
+    load_w<WHERE>(w_e, H, De, c0, Hc, nf, w_s);
+    for (int i = threadIdx.x; i < kWarps * n_w; i += blockDim.x)
+      part_s[i] = 0.f;
+    __syncthreads();
+  }
+  const float* w = DEV ? w_e + c0 : w_s;
+  const int ldw = DEV ? H : hc;
   // no early return: every warp reaches the block's final barrier
   for (int r = blockIdx.x * kWarps + warp; r < R; r += gridDim.x * kWarps) {
     const int s0 = row_ptr[r];
     const int s1 = row_ptr[r + 1];
-    const float* ek_row = ek + (int64_t)row_key[r] * H;
-    for (int f0 = 0; f0 < H; f0 += 32 * NF) {
+    const float* ek_row = ek + (int64_t)row_key[r] * H + c0;
+    for (int f0 = 0; f0 < nf; f0 += 32 * NF) {
       float kv[NF], acc[NF], eh[NF];
 #pragma unroll
       for (int j = 0; j < NF; ++j) {
         const int f = f0 + j * 32 + lane;
-        kv[j] = f < H ? ek_row[f] : 0.f;
+        kv[j] = f < nf ? ek_row[f] : 0.f;
         acc[j] = 0.f;
       }
       for (int base = s0; base < s1; base += 32) {
@@ -302,15 +389,15 @@ edge_src_bwd_kernel(const T* __restrict__ eq, const T* __restrict__ g,
           const float sc = __shfl_sync(kFull, my_sc, k);
           if (sc == 0.f) continue;  // warp-uniform
           const float* basis = e_basis + (int64_t)edge * De;
-          edge_term<NF>(basis, w_s, De, H, f0, lane, eh);
-          const T* eq_row = eq + (int64_t)dst * H;
-          const T* g_row = g + (int64_t)dst * H;
+          edge_term<NF>(basis, w, ldw, De, nf, f0, lane, eh);
+          const T* eq_row = eq + (int64_t)dst * H + c0;
+          const T* g_row = g + (int64_t)dst * H + c0;
           float gz[NF];
 #pragma unroll
           for (int j = 0; j < NF; ++j) {
             const int f = f0 + j * 32 + lane;
             gz[j] = 0.f;
-            if (f < H) {
+            if (f < nf) {
               const float z = (to_f32(eq_row[f]) + eh[j]) + kv[j];
               gz[j] = act_grad<ACT>(z, slope) * (to_f32(g_row[f]) * sc);
               acc[j] += gz[j];
@@ -322,11 +409,12 @@ edge_src_bwd_kernel(const T* __restrict__ eq, const T* __restrict__ g,
             const int nd = min(32, De - d0);
             for (int kd = 0; kd < nd; ++kd) {
               const float b = __shfl_sync(kFull, my_b, kd);
-              float* p_row = part_w + (d0 + kd) * H;
+              float* p_row = part_w + (DEV ? (int64_t)(d0 + kd) * ldp
+                                           : (int64_t)((d0 + kd) * ldp));
 #pragma unroll
               for (int j = 0; j < NF; ++j) {
                 const int f = f0 + j * 32 + lane;
-                if (f < H) p_row[f] = fmaf(b, gz[j], p_row[f]);
+                if (f < nf) p_row[f] = fmaf(b, gz[j], p_row[f]);
               }
             }
           }
@@ -335,16 +423,20 @@ edge_src_bwd_kernel(const T* __restrict__ eq, const T* __restrict__ g,
 #pragma unroll
       for (int j = 0; j < NF; ++j) {
         const int f = f0 + j * 32 + lane;
-        if (f < H) out[(int64_t)r * H + f] = acc[j];
+        if (f < nf) out[(int64_t)r * H + c0 + f] = acc[j];
       }
     }
   }
-  __syncthreads();
-  float* dst = gwe_part + (int64_t)blockIdx.x * n_w;
-  for (int i = threadIdx.x; i < n_w; i += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += part_s[(int64_t)w * n_w + i];
-    dst[i] = s;
+  if constexpr (!DEV) {
+    __syncthreads();
+    float* dst = gwe_part + (int64_t)blockIdx.x * De * H + c0;
+    for (int i = threadIdx.x; i < n_w; i += blockDim.x) {
+      const int d = COLS ? i / hc : 0, f = COLS ? i - d * hc : i;
+      if (COLS && f >= nf) continue;
+      float s = 0.f;
+      for (int v = 0; v < kWarps; ++v) s += part_s[(int64_t)v * n_w + i];
+      dst[COLS ? d * H + f : i] = s;
+    }
   }
 }
 
@@ -782,9 +874,9 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, int P,
 // ---------------------------------------------------------------------
 
 // Features a lane: the whole row on the register path, a pass's on the
-// shared one.
-int feat_per_lane(int H) {
-  const int nf = (H + 31) / 32;
+// shared and columns paths (of a chunk of `cols` columns).
+int feat_per_lane(int cols) {
+  const int nf = (cols + 31) / 32;
   return nf < kMaxFeatPerLane ? nf : kMaxFeatPerLane;
 }
 
@@ -800,10 +892,40 @@ bool bwd_on_registers(int H, int De) {
          feat_per_lane(H) * basis_width(De) <= kRegMaxBwd;
 }
 
+// Path codes of ell_edge_layout.
+enum { PATH_SHARED = 1, PATH_REGISTERS = 2, PATH_COLUMNS = 3 };
+
+// How a kernel of the shared-memory loop runs a width: its path (shared
+// or columns), the columns a block takes (H on the shared path), where its
+// tables sit (LOOP_*), and the block's dynamic shared memory. `tables` is
+// the [De, columns] f32 tables a block holds: 1 (W_E) in #7, 1 + kWarps
+// (the warps' partials besides) in #8.
+struct Loop {
+  int path, chunk, where;
+  size_t smem;
+  bool device() const { return where == LOOP_DEVICE; }
+};
+
+Loop loop_shape(int H, int De, int tables) {
+  const size_t col = sizeof(float) * (size_t)tables * De;  // bytes a column
+  if (col * H <= (size_t)kMaxSmem)
+    return {PATH_SHARED, H, LOOP_SHARED, col * H};
+  const size_t fit = (size_t)kMaxSmem / col / 32 * 32;
+  const bool device = fit < 32;
+  const int most = device || fit > (size_t)kMaxChunk ? kMaxChunk : (int)fit;
+  const int chunks = (H + most - 1) / most;
+  const int chunk = ((H + chunks - 1) / chunks + 31) / 32 * 32;
+  return {PATH_COLUMNS, chunk, device ? LOOP_DEVICE : LOOP_COLUMNS,
+          device ? 0 : col * chunk};
+}
+
+Loop fwd_loop(int H, int De) { return loop_shape(H, De, 1); }
+Loop bwd_loop(int H, int De) { return loop_shape(H, De, 1 + kWarps); }
+
 size_t fwd_smem(int H, int De) {
   if (fwd_on_registers(H, De))
     return sizeof(float) * kRegWarps * 32 * basis_width(De);
-  return sizeof(float) * (size_t)De * H;
+  return fwd_loop(H, De).smem;
 }
 
 size_t bwd_smem(int H, int De) {
@@ -812,11 +934,48 @@ size_t bwd_smem(int H, int De) {
     const size_t parts = (size_t)kRegWarps * De * H;
     return sizeof(float) * (ring > parts ? ring : parts);
   }
-  return sizeof(float) * (size_t)(1 + kWarps) * De * H;
+  return bwd_loop(H, De).smem;
+}
+
+int fwd_path(int H, int De) {
+  return fwd_on_registers(H, De) ? PATH_REGISTERS : fwd_loop(H, De).path;
+}
+
+int bwd_path(int H, int De) {
+  return bwd_on_registers(H, De) ? PATH_REGISTERS : bwd_loop(H, De).path;
 }
 
 #define EDGE_REG_CASE(KERNEL, NF, DB) \
   if (nf == NF && db == DB) return (const void*)KERNEL<ACT, NF, DB, T>;
+
+#define EDGE_LOOP_CASES(KERNEL, WHERE)                        \
+  switch (nf) {                                               \
+    case 1: return (const void*)KERNEL<ACT, 1, WHERE, T>;     \
+    case 2: return (const void*)KERNEL<ACT, 2, WHERE, T>;     \
+    case 3: return (const void*)KERNEL<ACT, 3, WHERE, T>;     \
+    default: return (const void*)KERNEL<ACT, 4, WHERE, T>;    \
+  }
+
+// The loop kernel for its tables' place and a chunk's features a lane.
+template <int ACT, typename T>
+const void* fwd_loop_kernel(const Loop& s) {
+  const int nf = feat_per_lane(s.chunk);
+  if (s.where == LOOP_SHARED)
+    EDGE_LOOP_CASES(edge_act_reduce_kernel, LOOP_SHARED)
+  if (s.where == LOOP_COLUMNS)
+    EDGE_LOOP_CASES(edge_act_reduce_kernel, LOOP_COLUMNS)
+  EDGE_LOOP_CASES(edge_act_reduce_kernel, LOOP_DEVICE)
+}
+
+template <int ACT, typename T>
+const void* bwd_loop_kernel(const Loop& s) {
+  const int nf = feat_per_lane(s.chunk);
+  if (s.where == LOOP_SHARED)
+    EDGE_LOOP_CASES(edge_src_bwd_kernel, LOOP_SHARED)
+  if (s.where == LOOP_COLUMNS)
+    EDGE_LOOP_CASES(edge_src_bwd_kernel, LOOP_COLUMNS)
+  EDGE_LOOP_CASES(edge_src_bwd_kernel, LOOP_DEVICE)
+}
 
 // The kernel instance for (act, edge type, H, De), so that the occupancy
 // query and the launch see the same one.
@@ -834,12 +993,7 @@ const void* pick_fwd(int H, int De) {
     EDGE_REG_CASE(edge_act_reduce_reg_kernel, 4, 16)
     return nullptr;
   }
-  switch (nf) {
-    case 1: return (const void*)edge_act_reduce_kernel<ACT, 1, T>;
-    case 2: return (const void*)edge_act_reduce_kernel<ACT, 2, T>;
-    case 3: return (const void*)edge_act_reduce_kernel<ACT, 3, T>;
-    default: return (const void*)edge_act_reduce_kernel<ACT, 4, T>;
-  }
+  return fwd_loop_kernel<ACT, T>(fwd_loop(H, De));
 }
 
 template <int ACT, typename T>
@@ -855,15 +1009,11 @@ const void* pick_bwd(int H, int De) {
     EDGE_REG_CASE(edge_src_bwd_reg_kernel, 3, 16)
     return nullptr;
   }
-  switch (nf) {
-    case 1: return (const void*)edge_src_bwd_kernel<ACT, 1, T>;
-    case 2: return (const void*)edge_src_bwd_kernel<ACT, 2, T>;
-    case 3: return (const void*)edge_src_bwd_kernel<ACT, 3, T>;
-    default: return (const void*)edge_src_bwd_kernel<ACT, 4, T>;
-  }
+  return bwd_loop_kernel<ACT, T>(bwd_loop(H, De));
 }
 
 #undef EDGE_REG_CASE
+#undef EDGE_LOOP_CASES
 
 const void* fwd_kernel(int act, int bf16, int H, int De) {
   if (act == ACT_LEAKY_RELU)
@@ -936,31 +1086,37 @@ int persistent_blocks(const void* k, int threads, size_t smem, int tiles) {
   return tiles < full ? tiles : full;
 }
 
+// The g_WE partials #8 writes on the shared-memory loop (one a block, or
+// with the partials in device memory one a warp): a persistent grid of
+// row walks, its resident blocks shared among the chunks of columns, and
+// with the partials in device memory at most kDeviceScratch of them; -1 on
+// an error.
+int bwd_loop_parts(const void* k, int R, int H, int De) {
+  const Loop s = bwd_loop(H, De);
+  const int chunks = (H + s.chunk - 1) / s.chunk;
+  const int full = persistent_blocks(k, kWarps * 32, s.smem, 1 << 30);
+  if (full <= 0) return -1;
+  int64_t gx = full / chunks > 1 ? full / chunks : 1;
+  const int64_t tiles = (R + kWarps - 1) / kWarps;
+  gx = gx < tiles ? gx : tiles;
+  if (!s.device()) return (int)gx;
+  const int64_t fit =
+      (int64_t)(kDeviceScratch / (sizeof(float) * kWarps * (size_t)De * H));
+  gx = gx < fit ? gx : (fit > 1 ? fit : 1);
+  return (int)gx * kWarps;
+}
+
 // Set the kernel's dynamic shared memory and launch it; returns the error.
-int launch(const void* k, int blocks, int threads, size_t smem, void** args,
+int launch(const void* k, dim3 grid, int threads, size_t smem, void** args,
            cudaStream_t st) {
   const int code = allow_smem(k, smem);
   if (code != 0) return code;
-  return (int)cudaLaunchKernel(k, dim3(blocks), dim3(threads), args, smem,
-                               st);
+  return (int)cudaLaunchKernel(k, grid, dim3(threads), args, smem, st);
 }
 
 // 16-byte basis copies: each row starts on a 16-byte boundary.
 int basis_vec(const void* e_basis, int De) {
   return De % 4 == 0 && ((uintptr_t)e_basis & 15) == 0;
-}
-
-// Path codes of ell_edge_layout.
-enum { PATH_NONE = 0, PATH_SHARED = 1, PATH_REGISTERS = 2 };
-
-int fwd_path(int H, int De) {
-  if (fwd_on_registers(H, De)) return PATH_REGISTERS;
-  return fwd_smem(H, De) <= (size_t)kMaxSmem ? PATH_SHARED : PATH_NONE;
-}
-
-int bwd_path(int H, int De) {
-  if (bwd_on_registers(H, De)) return PATH_REGISTERS;
-  return bwd_smem(H, De) <= (size_t)kMaxSmem ? PATH_SHARED : PATH_NONE;
 }
 
 }  // namespace
@@ -995,38 +1151,42 @@ int ell_edge_act_reduce2(const void* eq, const void* ek, int bf16,
                     (void*)&R,        (void*)&H,         (void*)&De,
                     (void*)&slope,    (void*)&vec,       (void*)&rows,
                     (void*)&srows};
-    return launch(k, blocks, threads, smem, args, st);
+    return launch(k, dim3(blocks), threads, smem, args, st);
   }
+  int hc = fwd_loop(H, De).chunk;
   void* args[] = {(void*)&eq,      (void*)&ek,        (void*)&e_basis,
                   (void*)&w_e,     (void*)&slot_src,  (void*)&slot_edge,
                   (void*)&scale,   (void*)&row_key,   (void*)&row_ptr,
                   (void*)&R,       (void*)&H,         (void*)&De,
-                  (void*)&slope,   (void*)&rows,      (void*)&srows};
-  return launch(k, (R + kWarps - 1) / kWarps, kWarps * 32, smem, args, st);
+                  (void*)&hc,      (void*)&slope,     (void*)&rows,
+                  (void*)&srows};
+  return launch(k, dim3((R + kWarps - 1) / kWarps, (H + hc - 1) / hc),
+                kWarps * 32, smem, args, st);
 }
 
-// The number of blocks ell_edge_src_bwd launches (its g_WE scratch holds
-// one [De, H] partial per block), or -1 for widths it cannot take.
+// The number of [De, H] g_WE partials ell_edge_src_bwd writes (the rows of
+// its scratch: one a block, or one a warp where the columns path keeps them
+// in device memory), or -1 for arguments it cannot take.
 int ell_edge_src_bwd_blocks(int R, int H, int De, int act, int bf16) {
-  if (R <= 0 || H <= 0 || De <= 0 || bwd_path(H, De) == PATH_NONE)
-    return -1;
+  if (R <= 0 || H <= 0 || De <= 0) return -1;
   const void* k = bwd_kernel(act, bf16, H, De);
   if (k == nullptr) return -1;
-  const int warps = bwd_on_registers(H, De) ? kRegWarps : kWarps;
-  return persistent_blocks(k, warps * 32, bwd_smem(H, De),
-                           (R + warps - 1) / warps);
+  if (bwd_on_registers(H, De))
+    return persistent_blocks(k, kRegWarps * 32, bwd_smem(H, De),
+                             (R + kRegWarps - 1) / kRegWarps);
+  return bwd_loop_parts(k, R, H, De);
 }
 
-// gwe_part holds `blocks` (from ell_edge_src_bwd_blocks) partials of
-// [De, H]; gwe [De, H] is their sum.
+// gwe_part holds `parts` (from ell_edge_src_bwd_blocks) partials of
+// [De, H]; gwe [De, H] is their sum, in order.
 int ell_edge_src_bwd(const void* eq, const void* g, int bf16, const void* ek,
                      const void* e_basis, const void* w_e,
                      const void* slot_dst, const void* slot_edge,
                      const void* scale, const void* row_key,
                      const void* row_ptr, int R, int H, int De, int act,
-                     float slope, int blocks, void* out, void* gwe_part,
+                     float slope, int parts, void* out, void* gwe_part,
                      void* gwe, void* stream) {
-  if (R <= 0 || H <= 0 || De <= 0 || blocks <= 0)
+  if (R <= 0 || H <= 0 || De <= 0 || parts <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const void* k = bwd_kernel(act, bf16, H, De);
@@ -1040,42 +1200,56 @@ int ell_edge_src_bwd(const void* eq, const void* g, int bf16, const void* ek,
                     (void*)&row_ptr,   (void*)&R,         (void*)&H,
                     (void*)&De,        (void*)&slope,     (void*)&vec,
                     (void*)&out,       (void*)&gwe_part};
-    code = launch(k, blocks, kRegWarps * 32, smem, args, st);
+    code = launch(k, dim3(parts), kRegWarps * 32, smem, args, st);
   } else {
+    const Loop s = bwd_loop(H, De);
+    if (s.device() && parts % kWarps != 0)
+      return (int)cudaErrorInvalidValue;
+    int hc = s.chunk;
     void* args[] = {(void*)&eq,        (void*)&g,        (void*)&ek,
                     (void*)&e_basis,   (void*)&w_e,      (void*)&slot_dst,
                     (void*)&slot_edge, (void*)&scale,    (void*)&row_key,
                     (void*)&row_ptr,   (void*)&R,        (void*)&H,
-                    (void*)&De,        (void*)&slope,    (void*)&out,
-                    (void*)&gwe_part};
-    code = launch(k, blocks, kWarps * 32, smem, args, st);
+                    (void*)&De,        (void*)&hc,       (void*)&slope,
+                    (void*)&out,       (void*)&gwe_part};
+    const int gx = s.device() ? parts / kWarps : parts;
+    code = launch(k, dim3(gx, (H + hc - 1) / hc), kWarps * 32, smem, args,
+                  st);
   }
   if (code != 0) return code;
   const int n = De * H;
   sum_partials_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      (const float*)gwe_part, blocks, n, (float*)gwe);
+      (const float*)gwe_part, parts, n, (float*)gwe);
   return (int)cudaGetLastError();
 }
 
 // How the two kernels run rows of width H with a basis of width De, as the
 // entries above decide: bits 0-1 the forward's path and 2-3 the
-// backward's (0 none, 1 the shared-memory loop, 2 registers), 4-6 the
-// features a lane (a pass's on the shared path), 7-11 the basis values a
-// register-path kernel holds a slot (0 when neither takes that path), 12-15
-// and 16-19 the slots whose node rows are in flight (forward, backward; 1
-// on the shared path, and in the backward with tanh or erf-GELU), 20-23
-// and 24-27 the warps a block. -1 for a width that is not positive or an unknown
-// activation.
-int ell_edge_layout(int H, int De, int act, int bf16) {
+// backward's (1 the shared-memory loop, 2 registers, 3 columns),
+// 4-6 the features a lane of the row (a pass's on the shared path; the
+// columns path's are its chunk / 32), 7-11 the basis values a register-path kernel holds
+// a slot (0 when neither takes that path), 12-15 and 16-19 the slots whose
+// node rows are in flight (forward, backward; 1 on the shared and columns
+// paths, and in the backward with tanh or erf-GELU), 20-23 and 24-27 the
+// warps a block, 28-30 and 31-33 the columns a block takes / 32 on the
+// columns path (forward, backward; 0 on the others), 34 and 35 whether the
+// columns path keeps W_E (and #8's partials) in device memory (forward,
+// backward). -1 for a width that is not positive or an unknown activation.
+long long ell_edge_layout(int H, int De, int act, int bf16) {
   if (H <= 0 || De <= 0 || fwd_kernel(act, bf16 != 0, 1, 1) == nullptr)
     return -1;
   const int fp = fwd_path(H, De), bp = bwd_path(H, De);
   const bool fr = fp == PATH_REGISTERS, br = bp == PATH_REGISTERS;
+  const bool fc = fp == PATH_COLUMNS, bc = bp == PATH_COLUMNS;
+  const Loop fl = fwd_loop(H, De), bl = bwd_loop(H, De);
   const int db = fr || br ? basis_width(De) : 0;
   const int uf = fr ? kRegInflightFwd : 1, ub = br ? inflight_bwd(act) : 1;
-  return fp | bp << 2 | feat_per_lane(H) << 4 | db << 7 | uf << 12 |
-         ub << 16 | (fr ? kRegWarps : kWarps) << 20 |
-         (br ? kRegWarps : kWarps) << 24;
+  const long long code =
+      fp | bp << 2 | feat_per_lane(H) << 4 | db << 7 | uf << 12 | ub << 16 |
+      (fr ? kRegWarps : kWarps) << 20 | (br ? kRegWarps : kWarps) << 24;
+  return code | (long long)(fc ? fl.chunk / 32 : 0) << 28 |
+         (long long)(bc ? bl.chunk / 32 : 0) << 31 |
+         (long long)fl.device() << 34 | (long long)bl.device() << 35;
 }
 
 const char* ell_edge_error_string(int code) {

@@ -127,7 +127,8 @@ _ARGTYPES = {
         "lab_tile_sum": [_VP, _I, _I, _I, _VP, _VP],
     },
 }
-# entries that launch nothing and return an int
+# entries that launch nothing and return an int (a long long where
+# _RESTYPE says so)
 _QUERIES = {"ell_kernels": {"ell_layout": [_I] * 3 + [_VP] * 6},
             "ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 6,
                                 "ell_max_layout": [_I] * 2},
@@ -137,6 +138,7 @@ _QUERIES = {"ell_kernels": {"ell_layout": [_I] * 3 + [_VP] * 6},
                 "ell_general_layout": [_I] * 4 + [_VP] * 5,
                 "ell_general_edge_layout": [_I] * 4 + [_VP] * 6},
             "lab_kernels": {"lab_gather_warps": [_I] * 3}}
+_RESTYPE = {"ell_edge_layout": _LL}
 _ERROR_STRING = {"ell_kernels": "ell_error_string",
                  "ell_max_kernels": "ell_max_error_string",
                  "ell_edge_kernels": "ell_edge_error_string",
@@ -149,9 +151,9 @@ _LIBRARY_OF = {entry: lib for lib, entries in _ARGTYPES.items()
 _GENERAL = tuple(_ARGTYPES["ell_general_kernels"])
 
 _LIBS: dict = {}
-# the grid size of ell_max_bwd per (device, R, H, O, act, bf16, edge) and of
-# ell_edge_src_bwd per (device, R, H, De, act, bf16): fixed for a model and
-# its plan, so the occupancy query runs once
+# the grid size of ell_max_bwd per (device, R, H, O, act, bf16, edge) and
+# the g_WE partials of ell_edge_src_bwd per (device, R, H, De, act, bf16):
+# fixed for a model and its plan, so the occupancy query runs once
 _BWD_BLOCKS: dict = {}
 _EDGE_BWD_BLOCKS: dict = {}
 
@@ -167,7 +169,7 @@ def _library(name: str) -> ctypes.CDLL:
         for entry, argtypes in entries.items():
             fn = getattr(lib, entry)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPE.get(entry, ctypes.c_int)
         err = getattr(lib, _ERROR_STRING[name])
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -553,16 +555,15 @@ def _src_bwd_edge(name, eq, g, ek, slot_dst, scale, row_key, row_ptr, act,
 #
 # e_basis [E_pad, De] f32 is the edge basis in sorted-edge order and w_e
 # [De, H] f32 the projection, in the JAX layout; a slot's edge term is
-# e_basis[slot_edge[s]] @ w_e, in f32 and never rounded. On the register
-# path (H <= 128, De <= 16; see ``EdgeLayout``) W_E and, in the backward,
-# the warps' g_WE partials sit in the lanes' registers; on the shared path
-# (every other shape) in a block's shared memory, which bounds De * H.
+# e_basis[slot_edge[s]] @ w_e, in f32 and never rounded. The kernels take
+# every De and H: on the register path (H <= 128, De <= 16; see
+# ``EdgeLayout``) W_E and, in the backward, the warps' g_WE partials sit in
+# the lanes' registers; on the shared path in a block's shared memory; on
+# the columns path (tables larger than a block's shared memory) a block
+# takes a chunk of W_E's columns, or reads W_E and keeps the partials in
+# device memory.
 
-# the dynamic shared memory a block may use on an H100: 232,448 bytes less
-# room for static arrays
-EDGE_SMEM_BYTES = 232448 - 1024
-EDGE_BWD_WARPS = 8  # the shared path's backward: a g_WE partial per warp
-_EDGE_PATHS = {1: "shared", 2: "registers"}
+_EDGE_PATHS = {1: "shared", 2: "registers", 3: "columns"}
 
 
 class EdgeLayout(NamedTuple):
@@ -571,38 +572,50 @@ class EdgeLayout(NamedTuple):
     path, "registers" (W_E and #8's g_WE partial in the lanes' registers,
     the slots' basis rows copied into shared memory by cp.async, several
     slots' node rows in flight), "shared" (the first design: W_E and the
-    partials in shared memory) or None (the kernel cannot take the
-    shape); the features a lane (a pass's on the shared path); the basis
-    values a register-path kernel holds a slot (De padded to 8 or 16; 0
-    when neither takes that path); the slots whose node rows are in flight
-    in each kernel (in the backward one with tanh, two with leaky_relu);
-    and each kernel's warps a block."""
+    partials in shared memory) or "columns" (the first design on chunks of
+    columns, for tables larger than a block's shared memory); the features
+    a lane of the row (a pass's on the shared path); the basis values a
+    register-path kernel holds a slot (De padded to 8 or 16; 0 when
+    neither takes that path); the slots whose node rows are in flight in
+    each kernel (in the backward one with tanh, two with leaky_relu); each
+    kernel's warps a block; on the columns path each kernel's chunk (the
+    columns a block takes, 0 on the other paths) and whether it keeps W_E
+    (and #8 its partials) in device memory, where not even 32 columns'
+    tables fit in shared memory."""
 
-    fwd: Optional[str]
-    bwd: Optional[str]
+    fwd: str
+    bwd: str
     feat_per_lane: int
     basis_width: int
     fwd_inflight: int
     bwd_inflight: int
     fwd_warps: int
     bwd_warps: int
+    fwd_chunk: int = 0
+    bwd_chunk: int = 0
+    fwd_device: bool = False
+    bwd_device: bool = False
 
 
 def decode_edge_layout(code: int) -> Optional[EdgeLayout]:
     """The ``EdgeLayout`` of a code from the library's ``ell_edge_layout``
-    (bits 0-1 the forward's path and 2-3 the backward's, 0 none, 1
-    shared, 2 registers; 4-6 features a lane, 7-11 the basis width held,
+    (bits 0-1 the forward's path and 2-3 the backward's, 1 shared, 2
+    registers, 3 columns; 4-6 features a lane, 7-11 the basis width held,
     12-15 and 16-19 the slots in flight, 20-23 and 24-27 the warps a
-    block); None for -1, arguments the library refuses."""
+    block, 28-30 and 31-33 the chunks / 32, 34 and 35 the tables in device
+    memory); None for -1, arguments the library refuses."""
     if code < 0:
         return None
     paths = code & 3, code >> 2 & 3
-    if 3 in paths:
-        raise ValueError(f"layout code {code:#x} names no path")
-    fwd, bwd = (_EDGE_PATHS.get(p) for p in paths)
+    chunks = 32 * (code >> 28 & 7), 32 * (code >> 31 & 7)
+    if 0 in paths or any((p == 3) != (c > 0) for p, c in zip(paths, chunks)):
+        raise ValueError(f"layout code {code:#x} names no path, or a chunk "
+                         f"off the columns path")
+    fwd, bwd = (_EDGE_PATHS[p] for p in paths)
     return EdgeLayout(fwd, bwd, code >> 4 & 7, code >> 7 & 0x1F,
                       code >> 12 & 0xF, code >> 16 & 0xF, code >> 20 & 0xF,
-                      code >> 24 & 0xF)
+                      code >> 24 & 0xF, *chunks, bool(code >> 34 & 1),
+                      bool(code >> 35 & 1))
 
 
 def ell_edge_layout(h: int, de: int, act, dtype) -> Optional[EdgeLayout]:
@@ -666,7 +679,7 @@ def ell_edge_src_bwd_plain(eq, g, ek, e_basis, w_e, slot_dst, slot_edge,
 
 
 def _check_fused(node_tbl, e_basis, w_e, slot_idx, slot_edge, scale, row_key,
-                 row_ptr, backward):
+                 row_ptr):
     device = node_tbl.device
     _check("e_basis", e_basis, _F32, 2, device)
     _check("w_e", w_e, _F32, 2, device)
@@ -679,10 +692,6 @@ def _check_fused(node_tbl, e_basis, w_e, slot_idx, slot_edge, scale, row_key,
         raise ValueError(f"slot_edge {tuple(slot_edge.shape)} and the slot "
                          f"array {tuple(slot_idx.shape)} differ")
     _check_plan(slot_idx, scale, row_key, row_ptr, device)
-    copies = 1 + (EDGE_BWD_WARPS if backward else 0)
-    if copies * de * h * 4 > EDGE_SMEM_BYTES:
-        raise ValueError(f"De = {de}, H = {h}: {copies} [De, H] f32 tables "
-                         f"do not fit in a block's shared memory")
     return device, row_key.shape[0], h, de
 
 
@@ -691,17 +700,18 @@ def ell_edge_act_reduce2(eq, ek, e_basis, w_e, slot_src, slot_edge, scale,
     """With z = eq[row_key[r]] + (ek[slot_src[s]] + e_basis[slot_edge[s]]
     @ w_e), rows[r] = sum_s scale[s] * act(z) and srows[r] = sum_s
     scale[s] * act'(z), both f32 [R, H]. eq [N, H] f32, ek [N, H] f32 or
-    bf16, e_basis [E_pad, De] f32, w_e [De, H] f32. Zero-scale slots are
-    skipped.
+    bf16, e_basis [E_pad, De] f32, w_e [De, H] f32, any De and H. Zero-scale
+    slots are skipped.
 
     Replaces ``bucket_edge_act_reduce2`` (sir_gcn_tpu/ops/pallas/
     kernels.py), one launch for all buckets; ``ell_edge_layout`` tells its
-    path. Bound: operations at the arxiv width, 2 De + 9 flops per valid
-    slot and feature."""
+    path (W_E past a block's shared memory: the columns path). Bound:
+    operations at the arxiv width, 2 De + 9 flops per valid slot and
+    feature."""
     device = _check_fwd("ell_edge_act_reduce2", eq, ek, slot_src, scale,
                         row_key, row_ptr, act)
     _, r, h, de = _check_fused(eq, e_basis, w_e, slot_src, slot_edge, scale,
-                               row_key, row_ptr, backward=False)
+                               row_key, row_ptr)
     if not on_cuda(device):
         return ell_edge_act_reduce2_plain(eq, ek, e_basis, w_e, slot_src,
                                           slot_edge, scale, row_key,
@@ -723,17 +733,19 @@ def ell_edge_src_bwd(eq, g, ek, e_basis, w_e, slot_dst, slot_edge, scale,
     g_z = act'(z) * scale[s] * g[slot_dst[s]], returns rows [R, H] f32 =
     sum over row r's slots of g_z, and g_we [De, H] f32 = sum over all slots
     of e_basis[slot_edge[s]]^T g_z[s]. eq and g [N, H] share one dtype (f32
-    or bf16); ek [N, H] f32. Zero-scale slots contribute exactly 0.
+    or bf16); ek [N, H] f32; any De and H. Zero-scale slots contribute
+    exactly 0.
 
     Replaces ``bucket_edge_src_bwd`` (sir_gcn_tpu/ops/pallas/kernels.py).
     Bound: operations at the arxiv width, 4 De + 7 flops per valid slot and
-    feature. g_we is summed per warp, block and then over blocks in a fixed
-    order, so it is the same from run to run; ``ell_edge_layout`` tells
-    the path."""
+    feature. g_we is summed per warp, block and then over blocks (on the
+    columns path with the partials in device memory, per warp and then
+    over warps) in a fixed order, so it is the same from run to run;
+    ``ell_edge_layout`` tells the path."""
     device, r, h = _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr)
     _need_diagonal("ell_edge_src_bwd", act)
     _, _, _, de = _check_fused(ek, e_basis, w_e, slot_dst, slot_edge, scale,
-                               row_key, row_ptr, backward=True)
+                               row_key, row_ptr)
     if not on_cuda(device):
         return ell_edge_src_bwd_plain(eq, g, ek, e_basis, w_e, slot_dst,
                                       slot_edge, scale, row_key, row_ptr,
@@ -745,16 +757,17 @@ def ell_edge_src_bwd(eq, g, ek, e_basis, w_e, slot_dst, slot_edge, scale,
             _EDGE_BWD_BLOCKS[key] = _library(
                 "ell_edge_kernels").ell_edge_src_bwd_blocks(
                     r, h, de, act.kernel_id, bf16)
-    blocks = _EDGE_BWD_BLOCKS[key]
-    if blocks <= 0:
-        raise ValueError(f"ell_edge_src_bwd cannot take H = {h}, De = {de}")
+    parts = _EDGE_BWD_BLOCKS[key]  # the [De, H] partials it writes
+    if parts <= 0:
+        raise ValueError(f"ell_edge_src_bwd refuses R = {r}, H = {h}, De = "
+                         f"{de}")
     out = torch.empty((r, h), dtype=torch.float32, device=device)
-    part = torch.empty((blocks, de * h), dtype=torch.float32, device=device)
+    part = torch.empty((parts, de * h), dtype=torch.float32, device=device)
     g_we = torch.empty((de, h), dtype=torch.float32, device=device)
     _launch("ell_edge_src_bwd", device, _ptr(eq), _ptr(g), bf16, _ptr(ek),
             _ptr(e_basis), _ptr(w_e), _ptr(slot_dst), _ptr(slot_edge),
             _ptr(scale), _ptr(row_key), _ptr(row_ptr), r, h, de,
-            act.kernel_id, float(act.param), blocks, _ptr(out), _ptr(part),
+            act.kernel_id, float(act.param), parts, _ptr(out), _ptr(part),
             _ptr(g_we))
     return out, g_we
 

@@ -1114,10 +1114,11 @@ def ell_sir_aggregate_fused_edge(fg: FastGraph, eq: torch.Tensor,
     :func:`ell_sir_aggregate`): the ``ell_sir_aggregate`` of ``e = e_basis
     @ w_e``, with the projection formed inside the kernels, so no [E_pad,
     H] edge table or cotangent exists. e_basis [E_pad, De] f32 in sorted
-    edge order (no gradient), w_e [De, H] f32 in the JAX layout. The port
-    of ``make_ell_sir_aggregate_pallas_fused_edge``, without its TPU
-    padding (``pad_basis``, the 128-lane wrapper). The fused kernels take
-    an elementwise sigma of the registry; for any other ``sir_aggregate``
+    edge order (no gradient), w_e [De, H] f32 in the JAX layout, at any De
+    and H (past a block's shared memory the kernels take their columns
+    path). The port of ``make_ell_sir_aggregate_pallas_fused_edge``,
+    without its TPU padding (``pad_basis``, the 128-lane wrapper). The
+    fused kernels take an elementwise sigma of the registry; for any other ``sir_aggregate``
     forms e itself and takes :func:`ell_sir_aggregate` (or the pure route),
     as JAX's does, and this raises."""
     if agg_type not in fg.dst_slot_scales:

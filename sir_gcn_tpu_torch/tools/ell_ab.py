@@ -9,7 +9,7 @@ example) against the package's own.
     git show <rev>:sir_gcn_tpu_torch/csrc/ell_max_kernels.cu > other.cu
     python -m sir_gcn_tpu_torch.tools.ell_ab --max other.cu
     git show <rev>:sir_gcn_tpu_torch/csrc/ell_edge_kernels.cu > other.cu
-    python -m sir_gcn_tpu_torch.tools.ell_ab --edge other.cu
+    python -m sir_gcn_tpu_torch.tools.ell_ab --edge other.cu [--hidden H --de De]
     git show <rev>:sir_gcn_tpu_torch/csrc/ell_general_kernels.cu > other.cu
     python -m sir_gcn_tpu_torch.tools.ell_ab --general other.cu
 
@@ -56,7 +56,8 @@ geq_rows, g_z and g_W.
 
 The edge mode (``--edge``, ``csrc/ell_edge_kernels.cu``) runs #7
 ``ell_edge_act_reduce2`` and #8 ``ell_edge_src_bwd`` from both libraries
-at the ogbn-arxiv plan, H = 96, De = 16, with bf16 and with f32 edges,
+at the ogbn-arxiv plan, H = 96, De = 16 (or ``--hidden H --de De``, e.g.
+``--hidden 512`` for the columns path), with bf16 and with f32 edges,
 leaky_relu(0.2), tanh and erf-GELU, the basis and W_E from seed 0 made
 on the card (as chip_smoke.py's ``edge_tables``): ms per launch over 20
 warm launches in eight turns (other, this, this, other, ...), the median
@@ -104,6 +105,7 @@ from ..ops.cuda import build
 from ..ops.cuda.kernels import (
     _ARGTYPES,
     _QUERIES,
+    _RESTYPE,
     _library,
     ell_edge_layout,
     ell_general_layout,
@@ -184,21 +186,22 @@ def build_other(source: Path, name: str = "ell_kernels") -> ctypes.CDLL:
             continue
         fn = getattr(other, entry)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPE.get(entry, ctypes.c_int)
     return other
 
 
-def arxiv_inputs(device) -> dict:
-    """The plan and random node and edge tables, from seed 0."""
+def arxiv_inputs(device, h: int = H) -> dict:
+    """The plan and random node and edge tables of width ``h``, from seed
+    0."""
     data = synthetic_node_classification(
         ARXIV["nodes"], ARXIV["edges"], feat_dim=128, num_classes=40,
         seed=ARXIV["seed"])
     fg = build_arxiv_graph(
         data, get_args(["--add-reverse-edge", "--add-self-loop"]), device)
     gen = torch.Generator(device=device).manual_seed(0)
-    eq, ek, g = (torch.randn((fg.n_pad, H), generator=gen, device=device)
+    eq, ek, g = (torch.randn((fg.n_pad, h), generator=gen, device=device)
                  for _ in range(3))
-    e = torch.randn((fg.e_pad, H), generator=gen, device=device)
+    e = torch.randn((fg.e_pad, h), generator=gen, device=device)
     return dict(fg=fg, eq=eq, ek=ek, g=g, e=e)
 
 
@@ -520,19 +523,20 @@ def edge_launches(lib, inp: dict, eb, we, act, dtype) -> tuple:
     plan, splan = fg.dst_plan, fg.src_plan
     eq, ek, g = inp["eq"], inp["ek"], inp["g"]
     ekt, eqt, gt = (t.to(dtype) for t in (ek, eq, g))
+    h, de = we.shape[1], we.shape[0]
     r, rs = plan.row_key.numel(), splan.row_key.numel()
     p = torch.Tensor.data_ptr
     f32 = dict(dtype=torch.float32, device=eq.device)
     a, sl, bf = act.kernel_id, float(act.param), int(dtype == torch.bfloat16)
     stream = torch.cuda.current_stream().cuda_stream
-    blocks = lib.ell_edge_src_bwd_blocks(rs, H, EDGE_DE, a, bf)
+    blocks = lib.ell_edge_src_bwd_blocks(rs, h, de, a, bf)
     if blocks <= 0:
-        raise RuntimeError(f"ell_edge_src_bwd cannot take H = {H}, De = "
-                           f"{EDGE_DE}")
-    rows, srows = torch.empty((r, H), **f32), torch.empty((r, H), **f32)
-    out = torch.empty((rs, H), **f32)
-    part = torch.empty((blocks, EDGE_DE * H), **f32)
-    gwe = torch.empty((EDGE_DE, H), **f32)
+        raise RuntimeError(f"ell_edge_src_bwd cannot take H = {h}, De = "
+                           f"{de}")
+    rows, srows = torch.empty((r, h), **f32), torch.empty((r, h), **f32)
+    out = torch.empty((rs, h), **f32)
+    part = torch.empty((blocks, de * h), **f32)
+    gwe = torch.empty((de, h), **f32)
 
     def check(code, entry):
         if code:
@@ -542,14 +546,14 @@ def edge_launches(lib, inp: dict, eb, we, act, dtype) -> tuple:
         check(lib.ell_edge_act_reduce2(
             p(eq), p(ekt), bf, p(eb), p(we), p(fg.dst_slot_srcnode),
             p(plan.slot_edge), p(fg.dst_slot_scales["sym"]),
-            p(plan.row_key), p(plan.row_ptr), r, H, EDGE_DE, a, sl, p(rows),
+            p(plan.row_key), p(plan.row_ptr), r, h, de, a, sl, p(rows),
             p(srows), stream), "ell_edge_act_reduce2")
 
     def bwd():
         check(lib.ell_edge_src_bwd(
             p(eqt), p(gt), bf, p(ek), p(eb), p(we), p(fg.src_slot_dstnode),
             p(splan.slot_edge), p(fg.src_slot_scales["sym"]),
-            p(splan.row_key), p(splan.row_ptr), rs, H, EDGE_DE, a, sl,
+            p(splan.row_key), p(splan.row_ptr), rs, h, de, a, sl,
             blocks, p(out), p(part), p(gwe), stream), "ell_edge_src_bwd")
 
     fwd()
@@ -560,21 +564,21 @@ def edge_launches(lib, inp: dict, eb, we, act, dtype) -> tuple:
     return dict(fwd=fwd, bwd=bwd), outs
 
 
-def run_edge(device, other: Path) -> dict:
-    """Every A/B line of #7 and #8; returns label -> record."""
+def run_edge(device, other: Path, h: int = H, de: int = EDGE_DE) -> dict:
+    """Every A/B line of #7 and #8 at width ``h`` and basis width ``de``;
+    returns label -> record."""
     libs = {"other": build_other(other, "ell_edge_kernels"),
             "this": _library("ell_edge_kernels")}
-    inp = arxiv_inputs(device)
+    inp = arxiv_inputs(device, h)
     gen = torch.Generator(device=device).manual_seed(0)
-    eb = torch.randn((inp["fg"].e_pad, EDGE_DE), generator=gen,
-                     device=device)
-    we = 0.3 * torch.randn((EDGE_DE, H), generator=gen, device=device)
+    eb = torch.randn((inp["fg"].e_pad, de), generator=gen, device=device)
+    we = 0.3 * torch.randn((de, h), generator=gen, device=device)
     recs = {}
     for dtype in (torch.bfloat16, torch.float32):
         dt = "bf16" if dtype == torch.bfloat16 else "f32"
         for act in (leaky_relu(0.2), tanh, gelu()):
-            print(f"layout at H = {H}, De = {EDGE_DE} ({act.name}, {dt}): "
-                  f"{ell_edge_layout(H, EDGE_DE, act, dtype)}", flush=True)
+            print(f"layout at H = {h}, De = {de} ({act.name}, {dt}): "
+                  f"{ell_edge_layout(h, de, act, dtype)}", flush=True)
             runs = {k: edge_launches(lib, inp, eb, we, act, dtype)
                     for k, lib in libs.items()}
             o, t = runs["other"][1], runs["this"][1]
@@ -757,10 +761,16 @@ def main(argv=None) -> dict:
     p.add_argument("--probes", action="store_true",
                    help="also time #2 and #4 with their gathers folded "
                         "into a smaller table")
+    p.add_argument("--hidden", type=int, default=H,
+                   help="with --edge: the width H of the node rows")
+    p.add_argument("--de", type=int, default=EDGE_DE,
+                   help="with --edge: the width De of the edge basis")
     args = p.parse_args(argv)
     if (args.lab or args.max or args.edge or args.general) and args.probes:
         p.error("--probes is for the ELL kernels, not --lab, --max, --edge "
                 "or --general")
+    if not args.edge and (args.hidden, args.de) != (H, EDGE_DE):
+        p.error("--hidden and --de are for --edge")
     device = resolve_device(False)
     name = ("lab_kernels" if args.lab else
             "ell_max_kernels" if args.max else
@@ -773,7 +783,7 @@ def main(argv=None) -> dict:
     if args.max:
         return run_max(device, args.other)
     if args.edge:
-        return run_edge(device, args.other)
+        return run_edge(device, args.other, args.hidden, args.de)
     if args.general:
         return run_general(device, args.other)
     return run(device, args.other, args.probes)

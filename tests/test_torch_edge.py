@@ -16,7 +16,10 @@
 * ``SIREConv`` on both routes, with ``linear_edge`` and with an ``Embed``
   edge encoder, against the JAX ``SIREConv`` through the weight bridge;
 * which kernels each route reaches, and what still raises;
-* the decode of ``ell_edge_layout``'s codes (the paths of #7 and #8).
+* the decode of ``ell_edge_layout``'s codes (the paths of #7 and #8);
+* shapes past a block's shared memory (De = 500 in #7, De = 60 in #8 at
+  H = 128), which the kernels take on their columns path, against the
+  Pallas kernels.
 
 Tolerances are the JAX suite's: forward atol 2e-4 / rtol 1e-4, gradients
 atol 3e-4 / rtol 1e-3. g_WE, a sum over every slot, is held at GW_TOL:
@@ -88,7 +91,8 @@ def jax_side(dt: str, act: str = "leaky_relu"):
     from sir_gcn_tpu.ops import pallas
 
     jact = {"leaky_relu": lambda x: jax.nn.leaky_relu(x, 0.2),
-            "gelu": lambda x: jax.nn.gelu(x, approximate=False)}[act]
+            "gelu": lambda x: jax.nn.gelu(x, approximate=False),
+            "tanh": jnp.tanh}[act]
     return jell, pallas, jact, {"f32": None, "bf16": jnp.bfloat16}[dt]
 
 
@@ -261,22 +265,22 @@ def test_edge_term_plains_match_pallas(graph, dt, act):
     np.testing.assert_allclose(g_e.numpy(), np.asarray(want_ge), **BWD_TOL)
 
 
-@pytest.mark.parametrize("graph,de,dt,act", _cases(
-    ("random", 5, "f32", "leaky_relu"), ("hub", 16, "bf16", "leaky_relu"),
-    ("isolated", 16, "f32", "leaky_relu"), ("random", 5, "f32", "gelu"),
-    ("hub", 16, "bf16", "gelu")))
-def test_fused_edge_plains_match_pallas(graph, de, dt, act):
+def check_fused_plains(c, dt: str, act: str, tact=None) -> None:
+    """#7 and #8 (the plain versions on the CPU) against
+    ``bucket_edge_act_reduce2`` and ``bucket_edge_src_bwd`` in interpret
+    mode, bucket by bucket, on case ``c`` with edges of ``dt`` and the
+    sigma ``act`` (the port's ``tact``, ACTS[act] by default)."""
     import jax.numpy as jnp
 
     jell, pallas, jact, jdt = jax_side(dt, act)
-    c = make_case(graph, de=de, seed=2)
+    tact = tact or ACTS[act]
     fg, tdt = c.tfg, DTYPES[dt]
     plan, splan = fg.dst_plan, fg.src_plan
     sd, ss = c.scales["dst"], c.scales["src"]
 
     rows, srows = ell_edge_act_reduce2(
         _t(c.eq), _t(c.ek, tdt), _t(c.eb), _t(c.we), fg.dst_slot_srcnode,
-        plan.slot_edge, _t(sd), plan.row_key, plan.row_ptr, ACTS[act])
+        plan.slot_edge, _t(sd), plan.row_key, plan.row_ptr, tact)
     ekg = jnp.take(_cast(_jnp(c.ek), jdt), _jnp(fg.dst_slot_srcnode), axis=0)
     egr = jnp.take(_jnp(c.eb), _jnp(plan.slot_edge), axis=0)
     eq_rows = jnp.take(_jnp(c.eq), _jnp(plan.row_key), axis=0)
@@ -295,7 +299,7 @@ def test_fused_edge_plains_match_pallas(graph, de, dt, act):
     rows, g_we = ell_edge_src_bwd(
         _t(c.eq, tdt), _t(c.g, tdt), _t(c.ek), _t(c.eb), _t(c.we),
         fg.src_slot_dstnode, splan.slot_edge, _t(ss), splan.row_key,
-        splan.row_ptr, ACTS[act])
+        splan.row_ptr, tact)
     idx = _jnp(fg.src_slot_dstnode)
     eqg = jnp.take(_cast(_jnp(c.eq), jdt), idx, axis=0)
     gg = jnp.take(_cast(_jnp(c.g), jdt), idx, axis=0)
@@ -312,6 +316,14 @@ def test_fused_edge_plains_match_pallas(graph, de, dt, act):
     np.testing.assert_allclose(rows.numpy(), np.concatenate(want), **BWD_TOL)
     want_gwe = sum(gwes)
     np.testing.assert_allclose(g_we.numpy(), want_gwe, **gw_tol(want_gwe))
+
+
+@pytest.mark.parametrize("graph,de,dt,act", _cases(
+    ("random", 5, "f32", "leaky_relu"), ("hub", 16, "bf16", "leaky_relu"),
+    ("isolated", 16, "f32", "leaky_relu"), ("random", 5, "f32", "gelu"),
+    ("hub", 16, "bf16", "gelu")))
+def test_fused_edge_plains_match_pallas(graph, de, dt, act):
+    check_fused_plains(make_case(graph, de=de, seed=2), dt, act)
 
 
 # ----------------------------------------------------------------------
@@ -559,20 +571,13 @@ def test_edge_wrappers_check_inputs_and_count_no_cpu_launch():
                          fg.edge2src_slot[:-1], fg.edge_mask)
     with pytest.raises(ValueError, match="w_e"):
         ell_edge_act_reduce2(*fused[:3], _t(c.we.T.copy()), *fused[4:])
-    # W_E [De, H] f32 must fit in shared memory, the backward's g_WE
-    # partials of its 8 warps besides: De = 500 does not at H = 128, nor
-    # De = 60 in the backward
-    wide = _t(np.zeros((fg.n_pad, 128)))
-    with pytest.raises(ValueError, match="shared memory"):
-        ell_edge_act_reduce2(wide, wide, _t(np.zeros((fg.e_pad, 500))),
-                             _t(np.zeros((500, 128))), *fused[4:])
-    ell_edge_act_reduce2(wide, wide, _t(np.zeros((fg.e_pad, 60))),
-                         _t(np.zeros((60, 128))), *fused[4:])
-    with pytest.raises(ValueError, match="shared memory"):
-        ell_edge_src_bwd(wide, wide, wide, _t(np.zeros((fg.e_pad, 60))),
-                         _t(np.zeros((60, 128))), fg.src_slot_dstnode,
-                         splan.slot_edge, _t(c.scales["src"]), splan.row_key,
-                         splan.row_ptr, ACT)
+    # any De and H: at H = 128, De = 500 passes a block's shared memory in
+    # the forward and De = 60 in the backward (the columns path on the
+    # card); they compute, held to the Pallas kernels, and launch nothing
+    for de in (500, 60):
+        check_fused_plains(make_case("random", de=de, h=128, seed=de), "f32",
+                           "leaky_relu")
+    assert all(v == 0 for v in LAUNCHES.values())
 
 
 def test_edge_layout_python_side():
@@ -590,13 +595,24 @@ def test_edge_layout_python_side():
         | 8 << 24
     assert decode_edge_layout(mixed) == EdgeLayout(
         "registers", "shared", 4, 16, 4, 1, 4, 8)
-    # De = 60 at H = 128: the forward's loop, no backward
-    wide = 1 | 4 << 4 | 1 << 12 | 1 << 16 | 8 << 20 | 8 << 24
+    # De = 60 at H = 128: the forward's loop, the backward on the columns
+    # path in two chunks of 64 columns (its nine [60, 128] tables exceed a
+    # block's shared memory)
+    wide = 1 | 3 << 2 | 4 << 4 | 1 << 12 | 1 << 16 | 8 << 20 | 8 << 24 \
+        | 2 << 31
     assert decode_edge_layout(wide) == EdgeLayout(
-        "shared", None, 4, 0, 1, 1, 8, 8)
+        "shared", "columns", 4, 0, 1, 1, 8, 8, 0, 64, False, False)
+    # De = 600 at H = 100: both on the columns path, the backward's W_E and
+    # partials in device memory
+    large = 3 | 3 << 2 | 4 << 4 | 1 << 12 | 1 << 16 | 8 << 20 | 8 << 24 \
+        | 2 << 28 | 4 << 31 | 1 << 35
+    assert decode_edge_layout(large) == EdgeLayout(
+        "columns", "columns", 4, 0, 1, 1, 8, 8, 64, 128, False, True)
     assert decode_edge_layout(-1) is None
     with pytest.raises(ValueError, match="no path"):
-        decode_edge_layout(arxiv | 3)
+        decode_edge_layout(arxiv & ~3)
+    with pytest.raises(ValueError, match="chunk"):
+        decode_edge_layout(arxiv | 3)  # the columns path without a chunk
 
 
 def test_ell_ab_edge_needs_a_card(tmp_path):
