@@ -411,11 +411,13 @@ MAX_EDGE = {"ell_max_fwd_edge": "ell_max_fwd",
             "ell_max_wincount_edge": "ell_max_wincount",
             "ell_max_bwd_edge": "ell_max_bwd"}
 EDGE_FORMS = {**GENERAL_EDGE, **MAX_EDGE}
-# the max kernels' row-wise forms, rows "<name>[<form>]": centered_relu
-# at the arxiv width ("rowwise", the max_rowwise phase's 96-wide runs), at
-# the heterophilous width ("rowwise,wide", its 512-wide run) and with the
-# edge term ("edge,rowwise", the sireconv_max phase's centered_relu run)
-MAX_FORMS = ("rowwise", "rowwise,wide", "edge,rowwise")
+# the max kernels' forms, rows "<name>[<form>]": centered_relu at the
+# arxiv width ("rowwise", the max_rowwise phase's 96-wide runs), at the
+# heterophilous width ("rowwise,wide", its 512-wide run, the wide path)
+# and with the edge term ("edge,rowwise", the sireconv_max phase's
+# centered_relu run); erf-GELU at 512 on roman-empire's plan ("wide", the
+# fullgraph phase's (b): the wide path)
+MAX_FORMS = ("rowwise", "rowwise,wide", "edge,rowwise", "wide")
 # the general route's kernels with an erf-GELU form and a wide form (a
 # row-wise sigma past H = 256), each a row of its own, "<name>[gelu]" and
 # "<name>[wide]", its launches the general_wide phase's
@@ -426,7 +428,9 @@ LAB = tuple(k for k in KERNELS if k.startswith("lab_"))
 EDGE_DIM = 16  # the edge basis width of the SIREConv configuration
 # the kernels with an erf-GELU form (sigma id 4): each is a row of its own
 # in the kernels line, "<name>[gelu]", timed at the arxiv plan beside the
-# leaky_relu form, its launches those of the fullgraph phase's runs
+# leaky_relu form, its launches those of the fullgraph phase's (a) (#1,
+# #2, #4), of the sireconv gelu run (the edge kernels) and of the
+# max_rowwise phase's (d) (#9-#11 at the arxiv width)
 GELU = LINEAR + EDGE + MAX[:3]
 # the heterophilous plan of the kernels phase: minesweeper's size
 # (10,000 nodes, 39,402 undirected edges: Platonov et al. 2023, Table 1),
@@ -628,17 +632,19 @@ def log_layout(label, name, args, outs, extra=(), require_vector=False):
         raise AssertionError(f"{label} {name} took the scalar path")
 
 
-def log_max_layout(label, h, o, require_tensor=False):
+def log_max_layout(label, h, o, require=None):
     """Log the path #9-#11 take for W [h, o] (ell_max_layout: the
-    tensor-core product and the launch shapes). With ``require_tensor``
-    any other path raises: the redesign must not be bypassed."""
+    tensor-core product on the first design or on the wide path, and the
+    launch shapes). With ``require`` ("first" or "wide") any other path
+    raises: a design must not be bypassed."""
     from sir_gcn_tpu_torch.ops import cuda as K
 
     lay = K.ell_max_layout(h, o)
     log(f"  {label} #9-#11 path (H {h}, O {o}): {lay}")
-    if require_tensor and (lay is None or lay.path != "tensor"):
-        raise AssertionError(f"{label}: #9-#11 do not take the tensor-core "
-                             f"path ({lay})")
+    took = None if lay is None else "wide" if lay.wide else "first"
+    if require is not None and (took != require or lay.path != "tensor"):
+        raise AssertionError(f"{label}: #9-#11 take {lay}, not the "
+                             f"{require} design's tensor-core path")
 
 
 def log_edge_layout(label, h, de, act, dtype, require=None):
@@ -926,11 +932,12 @@ def near_ties(fg, args, act, e=None):
 
 
 def check_max_kernels(label, fg, eq, ek, w, g, scale, act, dtype, errs,
-                      timing=None, mask_near_ties=False, e=None, tag=""):
+                      timing=None, mask_near_ties=False, e=None, tag="",
+                      path=None):
     """The four max kernels against their plain versions, each side's
     win counts and backward against its own forward's maxima, after the
-    path of #9-#11 is logged (with ``timing``, the arxiv plan, it must be
-    the tensor-core product). With ``mask_near_ties`` the cotangent is
+    path of #9-#11 is logged (with ``path``, "first" or "wide", it must be
+    that design's). With ``mask_near_ties`` the cotangent is
     zeroed at near-tie (key, o), where the two may pick different winners,
     and win counts are compared elsewhere; without it every count must
     agree. With an edge table ``e`` [E_pad, H] the edge forms #9e-#11e
@@ -938,14 +945,14 @@ def check_max_kernels(label, fg, eq, ek, w, g, scale, act, dtype, errs,
     (slot, feature) are left out of the g_z and g_eq comparisons and
     counted (the relu may take the other side there). Errors and times go
     under the kernel's name (the edge form's with ``e``) or, with ``tag``
-    ("[rowwise]", "[rowwise,wide]", "[edge,rowwise]"), the base name plus
-    the tag; #12 is checked and timed in the base form only."""
+    ("[rowwise]", "[rowwise,wide]", "[edge,rowwise]", "[wide]"), the base
+    name plus the tag; #12 is checked and timed in the base form only."""
     import torch
 
     from sir_gcn_tpu_torch.ops import cuda as K
     from sir_gcn_tpu_torch.ops.cuda.kernels import add_cast
 
-    log_max_layout(label, *w.shape, require_tensor=timing is not None)
+    log_max_layout(label, *w.shape, require=path)
     plan, splan = fg.dst_plan, fg.src_plan
     bd, bs = plan.buckets1, splan.buckets1
     edge = e is not None
@@ -1314,9 +1321,11 @@ def phase_kernels(device):
                 check_edge_kernels(f"random H={h} De={de} {act.name} "
                                    f"{dtype}", *case, *tables, act, dtype,
                                    errs_for(act), edge_paths=paths)
+    # (200, 200) and the last three on the wide path
     for graph, h, o in (("hub", 24, 40), ("random", 96, 96),
                         ("random", 200, 200), ("ties", 32, 24),
-                        ("random", 36, 100)):
+                        ("random", 36, 100), ("hub", 512, 512),
+                        ("ties", 264, 600), ("random", 512, 200)):
         case = max_case(graph, h, o, device)
         for act in acts:
             for dtype in dtypes:
@@ -1333,13 +1342,12 @@ def phase_kernels(device):
         wide = ",wide" if h > 256 else ""
         for dtype in dtypes:
             label = f"{graph} H={h} O={o}"
-            if not wide:
-                for act in (leaky_relu(0.2), gelu()):
-                    check_max_kernels(f"{label} {act.name} {dtype} edge",
-                                      *case, act, dtype, errs, e=e)
-                check_max_kernels(f"{label} centered_relu {dtype} edge",
-                                  *case, centered_relu(0.5), dtype, errs,
-                                  e=e, tag="[edge,rowwise]")
+            for act in (leaky_relu(0.2), gelu()):
+                check_max_kernels(f"{label} {act.name} {dtype} edge",
+                                  *case, act, dtype, errs, e=e)
+            check_max_kernels(f"{label} centered_relu {dtype} edge",
+                              *case, centered_relu(0.5), dtype, errs, e=e,
+                              tag="[edge,rowwise]")
             for act in (centered_relu(0.5), softmax):
                 check_max_kernels(f"{label} {act.name} {dtype}", *case, act,
                                   dtype, errs, tag=f"[rowwise{wide}]")
@@ -1394,7 +1402,8 @@ def phase_kernels(device):
                            require_vector=True)
         check_max_kernels(f"arxiv {dtype}", fg, eq, ek, w, g,
                           fg.dst_slot_scales["sum"], leaky_relu(0.2), dtype,
-                          errs, timing=keep, mask_near_ties=True)
+                          errs, timing=keep, mask_near_ties=True,
+                          path="first")
         # the max kernels' new forms (timed in bf16): the edge form with
         # the sireconv_max phase's sigma and edge table, the row-wise form
         # with centered_relu (softmax beside it), and both at once
@@ -1493,6 +1502,7 @@ def phase_kernels(device):
                 f"ms, {100 * t['bound'][0] / t['ms']:.1f}% of bound")
     del eq, ek, g, w, tables
     hetero_kernels(device, errs, gelu_errs, timing)
+    roman_kernels(device, errs, timing)
     wide_kernels(device, fg, errs, timing)
     wide_edge_kernels(device, fg, errs, timing)
     timing.update({f"{k}[gelu]": v for k, v in gelu_timing.items()
@@ -1599,7 +1609,7 @@ def hetero_kernels(device, errs, gelu_errs, timing):
         f"{fg.e_pad}, S_dst {fg.dst_plan.num_slots}, S_src "
         f"{fg.src_plan.num_slots}, R1 {fg.dst_plan.num_rows}, H {h}, O {h}, "
         f"De {EDGE_DIM}, stage 2 {fg.dst_plan.s2_gather is not None}")
-    log_max_layout("heterophilous", h, h)
+    log_max_layout("heterophilous", h, h, require="wide")
     times = {}
     for act in (gelu(), leaky_relu(0.2)):
         tag = act.name
@@ -1615,7 +1625,7 @@ def hetero_kernels(device, errs, gelu_errs, timing):
                                edge_paths=WIDE_EDGE_PATHS)
             check_max_kernels(label, fg, eq, ek, w, g,
                               fg.dst_slot_scales["sum"], act, dtype, e,
-                              timing=keep, mask_near_ties=True)
+                              timing=keep, mask_near_ties=True, path="wide")
     for name in GELU:
         t, lr = times["gelu"][name], times["leaky_relu"][name]
         log(f"  {name} at H={h} (bf16): gelu {t['ms']:.4f} ms against "
@@ -1628,7 +1638,7 @@ def hetero_kernels(device, errs, gelu_errs, timing):
         check_max_kernels(f"H={h} {dtype} {act.name}", fg, eq, ek, w, g,
                           fg.dst_slot_scales["sum"], act, dtype, errs,
                           timing=keep, mask_near_ties=True,
-                          tag="[rowwise,wide]")
+                          tag="[rowwise,wide]", path="wide")
     for name in MAX[:3]:
         t, lr = timing[f"{name}[rowwise,wide]"], times["leaky_relu"][name]
         log(f"  {name} at H={h} (bf16): centered_relu {t['ms']:.4f} ms "
@@ -1637,6 +1647,43 @@ def hetero_kernels(device, errs, gelu_errs, timing):
             f"{t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} ms, "
             f"{100 * t['bound'][0] / t['ms']:.1f}% of bound")
     del eq, ek, g, w, tables
+
+
+def roman_kernels(device, errs, timing):
+    """#9-#11 on the wide path (required) at H = O = 512 on a plan of
+    roman-empire's size (the fullgraph phase's (b): 22,662 nodes, 65,854
+    edges) with erf-GELU, its sigma, against their plain versions, near
+    ties masked: bf16 timed into ``timing`` as "<name>[wide]", f32
+    beside."""
+    import torch
+
+    from sir_gcn_tpu_torch.experiments.heterophilous import train as het
+    from sir_gcn_tpu_torch.ops.ell import gelu
+
+    h = HETERO_H
+    args = het._parser().parse_args(["--dataset", "roman-empire",
+                                     *ROMAN_EMPIRE])
+    fg = het.prepare(args, 0, 0, device)["graph"]
+    gen = torch.Generator(device=device).manual_seed(6)
+    eq, ek, g = (torch.randn((fg.n_pad, h), generator=gen, device=device)
+                 for _ in range(3))
+    w = (torch.rand((h, h), generator=gen, device=device) * 2 - 1) / h**0.5
+    log(f"  roman-empire's plan: N {fg.n_pad}, S_dst "
+        f"{fg.dst_plan.num_slots}, R1 {fg.dst_plan.num_rows}, valid slots "
+        f"{int((fg.dst_slot_scales['sum'] > 0).sum())}, H {h}, O {h}")
+    for dtype in (torch.bfloat16, torch.float32):
+        check_max_kernels(f"roman-empire H={h} {dtype} gelu", fg, eq, ek, w,
+                          g, fg.dst_slot_scales["sum"], gelu(), dtype, errs,
+                          timing=timing if dtype == torch.bfloat16 else None,
+                          mask_near_ties=True, tag="[wide]", path="wide")
+    for name in MAX[:3]:
+        t = timing[f"{name}[wide]"]
+        log(f"  {name} at H={h} on roman-empire's plan (bf16, gelu, wide "
+            f"path): {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound'][0]:.4f} ms, "
+            f"{100 * t['bound'][0] / t['ms']:.1f}% of bound")
+    del eq, ek, g, w, fg
+    torch.cuda.empty_cache()
 
 
 def expected_launches(agg: str, steps: int) -> dict:
@@ -1668,7 +1715,7 @@ def phase_train(agg: str, extra=(), label: str = ""):
     log(f"== {label or 'train'}: " + " ".join(flags))
     if agg == "max":  # W_R of each layer is [nhidden, nhidden]
         h = int(flags[flags.index("--nhidden") + 1])
-        log_max_layout("train max", h, h, require_tensor=True)
+        log_max_layout("train max", h, h, require="first")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -2168,7 +2215,7 @@ def phase_max_rowwise(device, fg, steps: int = 5, wide_steps: int = 3):
     stand-in), ``wide_steps`` steps, one more profiled;
     (d) erf-GELU declared non-elementwise at 96 on the arxiv plan,
     ``wide_steps`` steps, on the max kernels' erf-GELU forms. Returns the
-    launches of (a) and (b) together and of (c)."""
+    launches of (a) and (b) together, of (c) and of (d)."""
     import torch
 
     from sir_gcn_tpu_torch.experiments.heterophilous import train as het
@@ -2186,15 +2233,16 @@ def phase_max_rowwise(device, fg, steps: int = 5, wide_steps: int = 3):
     roman = het.prepare(hargs, 0, 0, device)["graph"]
     log(f"  roman-empire's size: N {roman.n_pad}, E_pad {roman.e_pad}, "
         f"S_dst {roman.dst_plan.num_slots}")
-    log_max_layout("max_rowwise (c)", 512, 512, require_tensor=True)
+    log_max_layout("max_rowwise (c)", 512, 512, require="wide")
     rowwise = dict.fromkeys(MAX, 0)
     wide = dict.fromkeys(MAX, 0)
+    forced_gelu = dict.fromkeys(MAX, 0)
     for setting, act, graph, h, n, into in (
             ("a", centered_relu(0.5), fg, 96, steps, rowwise),
             ("b", softmax, fg, 96, steps, rowwise),
             ("c", centered_relu(0.5), roman, 512, wide_steps, wide),
             ("d", Activation("gelu", sir_elementwise=False), fg, 96,
-             wide_steps, None)):
+             wide_steps, forced_gelu)):
         gen = torch.Generator(device=device).manual_seed(7)
         x = torch.randn((graph.n_pad, h), generator=gen, device=device)
         w = torch.randn((graph.n_pad, h), generator=gen, device=device)
@@ -2211,15 +2259,14 @@ def phase_max_rowwise(device, fg, steps: int = 5, wide_steps: int = 3):
         if launches != want:
             raise AssertionError(f"{label}: launch counts {launches}, "
                                  f"expected {want}")
-        if into is not None:
-            for k, v in launches.items():
-                into[k] += v
+        for k, v in launches.items():
+            into[k] += v
         if setting == "c":
             log("== profile max_rowwise (c): 1 warm training step")
             profile_steps(step, 1)
         del conv, opt, step, x, w
     set_edge_dtype(None)
-    return rowwise, wide
+    return rowwise, wide, forced_gelu
 
 
 def make_general_conv():
@@ -3960,16 +4007,19 @@ def fullgraph_run(label, name, flags, per_epoch) -> dict:
     return launches
 
 
-def fullgraph_profile(device):
-    """One profiled warm train step of (a)'s model (hidden 512, 5 layers,
-    --use-amp) on its graph: device time by kernel, the idle share."""
+def fullgraph_profile(device, label: str):
+    """One profiled warm train step of (``label``)'s model of
+    FULLGRAPH_RUNS (heterophilous: (a) minesweeper, --use-amp, hidden 512,
+    5 layers; (b) roman-empire, --agg-type max, the max kernels' wide
+    path) on its graph: device time by kernel, the idle share."""
     import torch
 
     from sir_gcn_tpu_torch.experiments import fullgraph_harness as fh
     from sir_gcn_tpu_torch.train import make_adamw
 
     het = fullgraph_module("heterophilous")
-    args = het._parser().parse_args(FULLGRAPH_RUNS[1][2] + FULLGRAPH_FLAGS)
+    flags = next(f for lab, _, f, _ in FULLGRAPH_RUNS if lab == label)
+    args = het._parser().parse_args(flags + FULLGRAPH_FLAGS)
     run = het.prepare(args, 0, 0, device)
     model = het.build_model(args, run["feats"].shape[1], run["num_classes"],
                             torch.Generator().manual_seed(0)).to(device)
@@ -3977,15 +4027,15 @@ def fullgraph_profile(device):
     feats = torch.from_numpy(run["feats"]).to(device)
     labels = torch.from_numpy(run["labels"]).to(device)
     w = torch.from_numpy(run["masks"][0]).to(device)
+    loss = fh.masked_bce_logits if run["num_classes"] == 1 else fh.masked_ce
 
     def step():
         model.train()
         opt.zero_grad(set_to_none=True)
-        fh.masked_bce_logits(model(run["graph"], feats), labels,
-                             w).backward()
+        loss(model(run["graph"], feats), labels, w).backward()
         opt.step()
 
-    log("== profile fullgraph (a): 3 warm train steps")
+    log(f"== profile fullgraph ({label}): 3 warm train steps")
     profile_steps(step, 3)
 
 
@@ -4082,20 +4132,24 @@ def fullgraph_card_against_cpu(device):
 
 def phase_fullgraph(device) -> dict:
     """The full-graph workloads on the card: (b), (a) and (c) through
-    their entry points with exact launch counts, a profiled step of (a),
+    their entry points with exact launch counts, profiled steps of (a) and
+    (b),
     and (d) four models one step card against CPU. Returns the erf-GELU
-    forms' launches of (a) (#1, #2, #4) and (b) (#9-#11)."""
+    forms' launches of (a) (#1, #2, #4) and those of (b), #9-#11 on their
+    wide path (required)."""
     import torch
 
+    log_max_layout("fullgraph (b)", HETERO_H, HETERO_H, require="wide")
     t0 = time.perf_counter()
     runs = {label: fullgraph_run(label, name, flags, per_epoch)
             for label, name, flags, per_epoch in FULLGRAPH_RUNS}
-    fullgraph_profile(device)
+    for label in ("a", "b"):
+        fullgraph_profile(device, label)
     torch.cuda.empty_cache()
     fullgraph_card_against_cpu(device)
     log(f"== fullgraph ok in {time.perf_counter() - t0:.1f} s")
-    return {**{k: runs["a"].get(k, 0) for k in LINEAR},
-            **{k: runs["b"].get(k, 0) for k in MAX[:3]}}
+    return ({k: runs["a"].get(k, 0) for k in LINEAR},
+            {k: runs["b"].get(k, 0) for k in MAX[:3]})
 
 
 # the bot phase: the reference's best arxiv pipeline on the train phase's
@@ -5045,8 +5099,8 @@ def main() -> int:
     max_edge, max_both = run("sireconv_max", phase_sireconv_max, device,
                              arxiv_fg)
     launches.update({k: v for k, v in max_edge.items() if k in MAX_EDGE})
-    max_rowwise, max_wide = run("max_rowwise", phase_max_rowwise, device,
-                                arxiv_fg)
+    max_rowwise, max_wide, max_gelu = run("max_rowwise", phase_max_rowwise,
+                                          device, arxiv_fg)
     max_forms = {"rowwise": max_rowwise, "rowwise,wide": max_wide,
                  "edge,rowwise": {MAX_EDGE[k]: v for k, v in max_both.items()
                                   if k in MAX_EDGE}}
@@ -5069,7 +5123,10 @@ def main() -> int:
         against=sym_profile)
     run("profile sireconv", phase_profile_sireconv, device, arxiv_fg)
     run("profile general", phase_profile_general, device, arxiv_fg)
-    gelu_launches = run("fullgraph", phase_fullgraph, device)
+    gelu_launches, max_forms["wide"] = run("fullgraph", phase_fullgraph,
+                                           device)
+    # the max kernels' erf-GELU forms at 96: the max_rowwise phase's (d)
+    gelu_launches.update({k: max_gelu[k] for k in MAX[:3]})
     # the edge kernels' erf-GELU forms: no workload runs a SIREConv with
     # erf-GELU; this one does, at the arxiv plan, 2 steps and evals a route
     gelu_launches.update({

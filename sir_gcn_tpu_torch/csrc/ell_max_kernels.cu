@@ -77,9 +77,12 @@
 //   fragment loads of m (rows h, column o) and of g_a (W^T, column pairs)
 //   free of bank conflicts. The forward keeps W split (hi and lo arrays,
 //   chunks of at most 96 columns per block in grid.y); the backward keeps
-//   W in f32 and splits as it loads, to leave room for its tiles, or reads
-//   it from device memory when it is too large (the same values, so the
-//   same bits).
+//   W in f32 and splits as it loads, to leave room for its tiles.
+// - Where the backward's W and four warps' buffers pass a block's shared
+//   memory (H = O = 200 and wider), all three take the wide path (its own
+//   section below): a block of sixteen warps owns a tile of up to 32 slots,
+//   staged once, and streams W through shared memory by column slabs, one
+//   slab a warp; #11 leaves g_W to a split-K product over the slots.
 // - #9 and #10: the tile's m goes to shared memory; lanes over o take the
 //   max, or count m == key_max, over each row's valid slots in order.
 // - #11: m, then g_m = win * gsc in shared memory, g_a = g_m W^T on the
@@ -141,8 +144,8 @@ template <int ACT>
 constexpr bool kRowwise = ACT == ACT_ROWWISE;
 enum { MODE_MAX = 0, MODE_COUNT = 1 };
 // where slot_products reads W: split in shared memory, f32 in shared
-// memory, f32 in device memory
-enum { W_SPLIT = 0, W_SMEM = 1, W_GLOBAL = 2 };
+// memory
+enum { W_SPLIT = 0, W_SMEM = 1 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -485,17 +488,18 @@ __device__ __forceinline__ void rowwise_act(float* a_s, int lda,
 }
 
 // g_z = vjp(act, z)(g_a) of a row-wise sigma for the slots of a tile, in
-// place of g_a in g_s, from a = act(z) in a_s, with rowwise_act's lanes
+// place of g_a in g_s (rows at stride ldg), from a = act(z) in a_s (at
+// stride lda), with rowwise_act's lanes
 // and order. An invalid slot has a = 0 and g_a = 0, and gets g_z = 0.
 //   centered_relu: d = g_a where a > 0 (relu'(0) = 0), g_z = d - alpha *
 //                  (sum of d / H)
 //   softmax:       g_z = a * (g_a - sum of a * g_a)
-__device__ __forceinline__ void rowwise_vjp(const float* a_s, float* g_s,
-                                            int lda, int H, int act,
-                                            float param, int lane) {
+__device__ __forceinline__ void rowwise_vjp(const float* a_s, int lda,
+                                            float* g_s, int ldg, int H,
+                                            int act, float param, int lane) {
   const int half = lane & 1;
   const float* a = a_s + (lane >> 1) * lda;
-  float* g = g_s + (lane >> 1) * lda;
+  float* g = g_s + (lane >> 1) * ldg;
   float s = 0.f;
   const bool relu = act == ACT_CENTERED_RELU;  // else ACT_SOFTMAX
   for (int h = half; h < H; h += 2)
@@ -512,14 +516,68 @@ __device__ __forceinline__ void rowwise_vjp(const float* a_s, float* g_s,
   }
 }
 
+// z[x] = eq[key][ch E + x] + ek[src][ch E + x] for the E features of chunk
+// ch of one slot's row, with EDGE the key side add_cast(ek[src], e[edge]):
+// 16-byte loads with VEC (E = 16 / sizeof(TK)), else one feature (E = 1).
+template <typename TK, bool VEC, bool EDGE>
+__device__ __forceinline__ void gather_z(
+    const float* __restrict__ eq, const TK* __restrict__ ek,
+    const TK* __restrict__ e, int src, int key, int edge, int ch, int H,
+    float (&z)[VEC ? 16 / (int)sizeof(TK) : 1]) {
+  constexpr int E = VEC ? 16 / (int)sizeof(TK) : 1;
+  const TK* kp = ek + (int64_t)src * H + ch * E;
+  const TK* ep = EDGE ? e + (int64_t)edge * H + ch * E : nullptr;
+  const float* qp = eq + (int64_t)key * H + ch * E;
+  if (VEC) {
+    float kf[E];
+    if (sizeof(TK) == 2) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(kp);
+      const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+      for (int x = 0; x < E; ++x) kf[x] = to_f32(b[x]);
+      if (EDGE) {
+        const uint4 eraw = *reinterpret_cast<const uint4*>(ep);
+        const __nv_bfloat16* eb =
+            reinterpret_cast<const __nv_bfloat16*>(&eraw);
+#pragma unroll
+        for (int x = 0; x < E; ++x) kf[x] = add_cast<TK>(kf[x], to_f32(eb[x]));
+      }
+    } else {
+      const float4 raw = *reinterpret_cast<const float4*>(kp);
+      kf[0] = raw.x;
+      kf[1 % E] = raw.y;
+      kf[2 % E] = raw.z;
+      kf[3 % E] = raw.w;
+      if (EDGE) {
+        const float4 er = *reinterpret_cast<const float4*>(ep);
+        kf[0] = add_cast<TK>(kf[0], er.x);
+        kf[1 % E] = add_cast<TK>(kf[1 % E], er.y);
+        kf[2 % E] = add_cast<TK>(kf[2 % E], er.z);
+        kf[3 % E] = add_cast<TK>(kf[3 % E], er.w);
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < E; x += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(qp + x);
+      z[x] = kf[x] + q.x;
+      z[(x + 1) % E] = kf[(x + 1) % E] + q.y;
+      z[(x + 2) % E] = kf[(x + 2) % E] + q.z;
+      z[(x + 3) % E] = kf[(x + 3) % E] + q.w;
+    }
+  } else {
+    float kf = to_f32(kp[0]);
+    if (EDGE) kf = add_cast<TK>(kf, to_f32(ep[0]));
+    z[0] = kf + qp[0];
+  }
+}
+
 // Stage a tile's activations: a_s[i * lda + h] = act(z) (and d_s = act'(z)
 // with WITH_D, an elementwise sigma only) for slots i < 16 and h < Hp, 0
-// for padding, invalid slots and h >= H; z = eq[key] + ek[src], with EDGE
-// z = eq[key] + add_cast(ek[src], e[edge]). VEC gathers 16 bytes a lane
-// (H a multiple of 8 for bf16 or 4 for f32, 16-byte aligned tables); else
-// one feature a lane. Each lane issues U gathers before it uses one. A
-// row-wise sigma (ACT_ROWWISE, act its id) stages z and then applies
-// rowwise_act.
+// for padding, invalid slots and h >= H; z from gather_z. VEC gathers 16
+// bytes a lane (H a multiple of 8 for bf16 or 4 for f32, 16-byte aligned
+// tables); else one feature a lane. Each lane issues U gathers before it
+// uses one. A row-wise sigma (ACT_ROWWISE, act its id) stages z and then
+// applies rowwise_act.
 template <int ACT, typename TK, bool VEC, bool WITH_D, bool EDGE>
 __device__ __forceinline__ void stage_tile(const float* __restrict__ eq,
                                            const TK* __restrict__ ek,
@@ -545,52 +603,7 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ eq,
       const int edge = EDGE ? __shfl_sync(kFull, t.sedge, i & 15) : 0;
       ok[u] = c < total && slot_valid(t, i & 15);
       if (ok[u]) {
-        const TK* kp = ek + (int64_t)src * H + ch * E;
-        const TK* ep = EDGE ? e + (int64_t)edge * H + ch * E : nullptr;
-        const float* qp = eq + (int64_t)key * H + ch * E;
-        if (VEC) {
-          float kf[E];
-          if (sizeof(TK) == 2) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(kp);
-            const __nv_bfloat16* b =
-                reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-            for (int x = 0; x < E; ++x) kf[x] = to_f32(b[x]);
-            if (EDGE) {
-              const uint4 eraw = *reinterpret_cast<const uint4*>(ep);
-              const __nv_bfloat16* eb =
-                  reinterpret_cast<const __nv_bfloat16*>(&eraw);
-#pragma unroll
-              for (int x = 0; x < E; ++x)
-                kf[x] = add_cast<TK>(kf[x], to_f32(eb[x]));
-            }
-          } else {
-            const float4 raw = *reinterpret_cast<const float4*>(kp);
-            kf[0] = raw.x;
-            kf[1 % E] = raw.y;
-            kf[2 % E] = raw.z;
-            kf[3 % E] = raw.w;
-            if (EDGE) {
-              const float4 er = *reinterpret_cast<const float4*>(ep);
-              kf[0] = add_cast<TK>(kf[0], er.x);
-              kf[1 % E] = add_cast<TK>(kf[1 % E], er.y);
-              kf[2 % E] = add_cast<TK>(kf[2 % E], er.z);
-              kf[3 % E] = add_cast<TK>(kf[3 % E], er.w);
-            }
-          }
-#pragma unroll
-          for (int x = 0; x < E; x += 4) {
-            const float4 q = *reinterpret_cast<const float4*>(qp + x);
-            z[u][x] = kf[x] + q.x;
-            z[u][(x + 1) % E] = kf[(x + 1) % E] + q.y;
-            z[u][(x + 2) % E] = kf[(x + 2) % E] + q.z;
-            z[u][(x + 3) % E] = kf[(x + 3) % E] + q.w;
-          }
-        } else {
-          float kf = to_f32(kp[0]);
-          if (EDGE) kf = add_cast<TK>(kf, to_f32(ep[0]));
-          z[u][0] = kf + qp[0];
-        }
+        gather_z<TK, VEC, EDGE>(eq, ek, e, src, key, edge, ch, H, z[u]);
       } else {
 #pragma unroll
         for (int x = 0; x < E; ++x) z[u][x] = 0.f;
@@ -650,20 +663,17 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ eq,
 // ----------------------------------------------------------------------
 
 // One W value as its TF32 split, from where WS says: W_SPLIT reads the hi
-// and lo arrays (stride ldw), W_SMEM and W_GLOBAL read W and split it
-// (W_GLOBAL: W [H, O] in device memory, 0 outside it). Every source gives
-// the same pair for the same W value.
+// and lo arrays (stride ldw), W_SMEM reads W and splits it. Both give the
+// same pair for the same W value.
 template <int WS>
 __device__ __forceinline__ void load_w(const float* wh, const float* wl,
-                                       int ldw, int h, int o, int H, int O,
-                                       uint32_t& hi, uint32_t& lo) {
+                                       int ldw, int h, int o, uint32_t& hi,
+                                       uint32_t& lo) {
   if (WS == W_SPLIT) {
     hi = __float_as_uint(wh[h * ldw + o]);
     lo = __float_as_uint(wl[h * ldw + o]);
-  } else if (WS == W_SMEM) {
-    split(wh[h * ldw + o], hi, lo);
   } else {
-    split(h < H && o < O ? __ldg(wh + (int64_t)h * O + o) : 0.f, hi, lo);
+    split(wh[h * ldw + o], hi, lo);
   }
 }
 
@@ -676,9 +686,8 @@ template <int WS>
 __device__ __forceinline__ void slot_products(const float* a_s, int lda,
                                               const float* wh,
                                               const float* wl, int ldw,
-                                              int H, int O, int Hp, int nt0,
-                                              int nt, float acc[kNT][4],
-                                              int lane) {
+                                              int Hp, int nt0, int nt,
+                                              float acc[kNT][4], int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < kNT; ++j)
@@ -697,8 +706,8 @@ __device__ __forceinline__ void slot_products(const float* a_s, int lda,
       for (int q = 0; q < kGroup; ++q) {
         if (j0 + q < nt) {
           const int o = (nt0 + j0 + q) * 8 + g;
-          load_w<WS>(wh, wl, ldw, k0 + t, o, H, O, bh[q][0], bl[q][0]);
-          load_w<WS>(wh, wl, ldw, k0 + t + 4, o, H, O, bh[q][1], bl[q][1]);
+          load_w<WS>(wh, wl, ldw, k0 + t, o, bh[q][0], bl[q][0]);
+          load_w<WS>(wh, wl, ldw, k0 + t + 4, o, bh[q][1], bl[q][1]);
         }
       }
       add_step(acc + j0, ah, al, bh, bl, nt - j0);
@@ -728,10 +737,9 @@ __device__ __forceinline__ void store_frags(const float acc[kNT][4], int nt0,
 // over o < Op in steps of 8. Each step's k order is permuted to pairs
 // (o = 2t, 2t + 1 for the fragment's t, t + 4), so that the A fragment is
 // one float2 of g_m's row and the B fragment one float2 of W's row h.
-template <bool WSMEM>
 __device__ __forceinline__ void grad_products(const float* gm_s, int ldg,
-                                              const float* w, int ldw, int H,
-                                              int O, int Op, int nt0, int nt,
+                                              const float* w, int ldw, int Op,
+                                              int nt0, int nt,
                                               float acc[kNT][4], int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -755,15 +763,7 @@ __device__ __forceinline__ void grad_products(const float* gm_s, int ldg,
       for (int q = 0; q < kGroup; ++q) {
         if (j0 + q < nt) {
           const int h = (nt0 + j0 + q) * 8 + g;
-          float2 wv;
-          if (WSMEM) {
-            wv = *reinterpret_cast<const float2*>(w + h * ldw + o);
-          } else {
-            const bool hin = h < H;
-            const float* wr = w + (int64_t)h * O;
-            wv.x = hin && o < O ? __ldg(wr + o) : 0.f;
-            wv.y = hin && o + 1 < O ? __ldg(wr + o + 1) : 0.f;
-          }
+          const float2 wv = *reinterpret_cast<const float2*>(w + h * ldw + o);
           split(wv.x, bh[q][0], bl[q][0]);
           split(wv.y, bh[q][1], bl[q][1]);
         }
@@ -810,13 +810,14 @@ bool fwd_config(int H, int O, FwdCfg& c) {
 // The backward's: H padded to Hp, O to Op (a multiple of 16, the g_W^T
 // tiles' rows); per warp a_s and d_s [16][lda], gm_s [16][ldg], a carry
 // of Hp floats and kPre prefetched rows of key_max and of gsc; W f32 in
-// shared memory at stride ldw (w_smem) or read from device memory. g_W^T's
+// shared memory at stride ldw, where it fits beside four warps' buffers
+// (else these widths take the wide path). g_W^T's
 // Mt x Nt tiles of 16 x 8 over a wm x wn grid of warps, each warp at most
 // im x jn of them, kept in registers for the walk when im, jn <= kGW
 // (resident).
 struct BwdCfg {
-  int Hp, Op, lda, ldg, ldw, per_warp, warps, w_smem, Mt, Nt, wm, wn, im,
-      jn, resident;
+  int Hp, Op, lda, ldg, ldw, per_warp, warps, Mt, Nt, wm, wn, im, jn,
+      resident;
   int act;  // the activation id (ACT_ROWWISE's kernels read it)
   size_t smem;
 };
@@ -831,11 +832,9 @@ bool bwd_config(int H, int O, BwdCfg& c) {
                2 * kPre * round4(c.Op);
   const size_t pw = sizeof(float) * (size_t)c.per_warp;
   const size_t wbytes = sizeof(float) * (size_t)c.Hp * c.ldw;
-  c.w_smem = wbytes + 4 * pw <= (size_t)kMaxSmem;
-  const size_t room = (size_t)kMaxSmem - (c.w_smem ? wbytes : 0);
-  c.warps = (int)std::min((size_t)kBwdWarps, room / pw);
-  if (c.warps < 1) return false;
-  c.smem = (c.w_smem ? wbytes : 0) + pw * c.warps;
+  if (wbytes + 4 * pw > (size_t)kMaxSmem) return false;
+  c.warps = (int)std::min((size_t)kBwdWarps, ((size_t)kMaxSmem - wbytes) / pw);
+  c.smem = wbytes + pw * c.warps;
   c.Mt = c.Op / 16;
   c.Nt = c.Hp / 8;
   // the fewest tiles a warp, a grid whose share stays in registers first
@@ -911,8 +910,7 @@ max_fwd_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
                                           slope, buf, c.lda, nullptr, lane);
     __syncwarp();
     float acc[kNT][4];
-    slot_products<W_SPLIT>(buf, c.lda, wh, wl, c.ldw, H, O, c.Hp, 0, nt, acc,
-                           lane);
+    slot_products<W_SPLIT>(buf, c.lda, wh, wl, c.ldw, c.Hp, 0, nt, acc, lane);
     __syncwarp();  // a is read; m takes its place
     store_frags(acc, 0, nt, buf, c.ldm, lane);
     if (MODE == MODE_COUNT) prefetch_wait();
@@ -1048,7 +1046,7 @@ __device__ __forceinline__ void gw_io(float acc[kGW][kGW][4], const BwdCfg& c,
 // The backward (see the header). Persistent blocks; each warp walks the
 // tiles of its share of the rows, all warps of a block in step, and after
 // each step the block adds g_m^T a of its tiles to its g_W partial.
-template <int ACT, bool VEC, bool WSMEM, bool EDGE, typename TK>
+template <int ACT, bool VEC, bool EDGE, typename TK>
 __global__ void __launch_bounds__(kBwdWarps * 32)
 max_bwd_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
                const TK* __restrict__ e, const int* __restrict__ slot_src,
@@ -1064,18 +1062,12 @@ max_bwd_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
   __shared__ int tile_n[kBwdWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
-  const float* wp = w;
-  int ldw = O;
-  float* base = smem;
-  if (WSMEM) {
-    for (int e = threadIdx.x; e < c.Hp * c.ldw; e += blockDim.x) {
-      const int h = e / c.ldw, o = e - (e / c.ldw) * c.ldw;
-      smem[e] = h < H && o < O ? w[(int64_t)h * O + o] : 0.f;
-    }
-    wp = smem;
-    ldw = c.ldw;
-    base = smem + c.Hp * c.ldw;
+  for (int e = threadIdx.x; e < c.Hp * c.ldw; e += blockDim.x) {
+    const int h = e / c.ldw, o = e - (e / c.ldw) * c.ldw;
+    smem[e] = h < H && o < O ? w[(int64_t)h * O + o] : 0.f;
   }
+  const float* wp = smem;
+  float* base = smem + c.Hp * c.ldw;
   float* a_s = base + warp * c.per_warp;
   float* d_s = a_s + 16 * c.lda;
   float* gm_s = d_s + 16 * c.lda;
@@ -1122,9 +1114,8 @@ max_bwd_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
       for (int nt0 = 0; nt0 < c.Op / 8; nt0 += kNT) {
         float acc[kNT][4];
         const int nt = min(kNT, c.Op / 8 - nt0);
-        slot_products<WSMEM ? W_SMEM : W_GLOBAL>(a_s, c.lda, wp, nullptr, ldw,
-                                                 H, O, c.Hp, nt0, nt, acc,
-                                                 lane);
+        slot_products<W_SMEM>(a_s, c.lda, wp, nullptr, c.ldw, c.Hp, nt0, nt,
+                              acc, lane);
         store_frags(acc, nt0, nt, gm_s, c.ldg, lane);
       }
       prefetch_wait();
@@ -1158,8 +1149,7 @@ max_bwd_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
         for (int nt0 = 0; nt0 < c.Hp / 8; nt0 += kNT) {
           float acc[kNT][4];
           const int nt = min(kNT, c.Hp / 8 - nt0);
-          grad_products<WSMEM>(gm_s, c.ldg, wp, ldw, H, O, c.Op, nt0, nt, acc,
-                               lane);
+          grad_products(gm_s, c.ldg, wp, c.ldw, c.Op, nt0, nt, acc, lane);
 #pragma unroll
           for (int j = 0; j < kNT; ++j) {
             if (j < nt) {
@@ -1180,7 +1170,7 @@ max_bwd_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
       }
       __syncwarp();
       if constexpr (kRowwise<ACT>) {
-        rowwise_vjp(a_s, d_s, c.lda, H, c.act, slope, lane);
+        rowwise_vjp(a_s, c.lda, d_s, c.lda, H, c.act, slope, lane);
         __syncwarp();
       }
       // g_z out; per row, the sum over its slots in order
@@ -1218,6 +1208,697 @@ max_bwd_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
   if (c.resident) gw_io<false>(gacc, c, slice, H, O, wm, wn, 0, 0, lane);
 }
 
+// ----------------------------------------------------------------------
+// The wide path: #9-#11 where W passes a block's shared memory
+// ----------------------------------------------------------------------
+//
+// At H = O = 512 the first design keeps one or two warps an SM: each warp
+// owns a 16-slot tile of 33 KB, the forward stages W by chunks of 40
+// columns in grid.y (13 chunks, each of which gathers the tile and applies
+// sigma again) and the backward reads its 1 MiB W by scalar loads and
+// streams its g_W partial in and out every step. The wide path instead:
+//
+// - A block of up to kWide warps owns a tile of up to kMT subtiles of 16
+//   slots.
+//   Every warp walks the block's share of the rows alike (next_tile, one
+//   subtile after another), so each holds the tile's rows and slots in its
+//   lanes; a row cut by a subtile's edge carries its max, count or row sum
+//   in shared memory, as the first design's tiles do.
+// - The tile's a [16 mt, Hp] is staged once a tile (each thread of the
+//   block takes 16-byte gathers in turn; a row-wise sigma then by the
+//   first design's rowwise_act, one warp a subtile) and stays in shared
+//   memory while the warps take W's columns: each warp a slab of at most
+//   kWNT column tiles of 8, streamed through its own ring of kStages
+//   chunks of 8 rows by cp.async (16 bytes where W's rows allow),
+//   kStages - 1 chunks ahead.
+// - m of all the tile's subtiles for a slab: A fragments split once a k
+//   step, k steps of 8 in increasing h, three passes summed from zero and
+//   added in f32 (add_step_z): slot_products' arithmetic, so a slot's m
+//   has the first design's bits, in #9, #10 and #11 alike.
+// - #9, #10: m into a second buffer, then the block's threads take the
+//   columns and reduce each row's valid slots in order.
+// - #11: g_m = win * gsc formed in the accumulators (key_max and gsc read
+//   by each slot's key), into the second buffer; g_a = g_m W^T with W
+//   streamed by rows (the k order permuted to pairs, as grad_products) into
+//   the first; the tile staged again for act'(z) (a row-wise sigma: a)
+//   into the second; g_z in place; g_z stored per slot and summed per row
+//   in slot order. g_W leaves the walk: a and g_m go to a scratch row
+//   [Hp + Op] a slot, and max_gw_kernel forms g_W = a^T g_m from it.
+//
+// At H = O = 512: two subtiles (32 slots), 192 KiB of shared memory, one
+// block of sixteen warps an SM (at most 128 registers a thread), slabs of
+// 32 columns; W crosses the L2 once a tile (twice in #11). Where H and O
+// lie far apart the tile takes one subtile (64 x 1600) and the block
+// fewer warps (1400 x 64: 8; 1700 x 8: 1): every width the first design's
+// device-memory fallback took (one warp of its backward in a block's
+// shared memory) fits one of these.
+
+constexpr int kWide = 16;   // most warps of a wide block
+constexpr int kMT = 2;      // most subtiles of 16 slots a wide tile
+constexpr int kWNT = 4;     // most column tiles of 8 a warp's slab
+constexpr int kStages = 3;  // chunks in a warp's ring of W
+// a chunk of the ring: 8 rows of a slab of W at stride kRingLd (8 mod 32,
+// the m fragments' rows t and t + 4 on other banks), or kWNT * 8 rows of
+// 8 columns (W's rows for g_a)
+constexpr int kSlab = kWNT * 8;
+constexpr int kRingLd = kSlab + 8;
+constexpr int kRingStage = 8 * kRingLd;
+static_assert(kRingStage >= kSlab * 8, "a ring chunk holds a slab's rows");
+static_assert(kSlab % 32 == 0, "a slab's copies divide evenly over lanes");
+
+// The wide path's launch configuration, one for #9, #10 and #11: widths
+// padded to 8; the tile buffers' row strides (8 mod 32): lda of the first
+// (a, g_a: Hp), ldb of the second (m, g_m: Op; #11's act'(z): Hp); subtiles
+// a tile, warps a block; the shared memory.
+struct WideCfg {
+  int Hp, Op, lda, ldb, mt, warps;
+  int act;  // the activation id (ACT_ROWWISE's kernels read it)
+  int vec;  // 16-byte gathers of the node and edge tables (vec_ok)
+  int w16;  // 16-byte copies of W's rows (O % 4 == 0, W on 16 bytes)
+  size_t smem;
+};
+
+// The most warps first, then the most subtiles (at least a warp a
+// subtile: a row-wise sigma takes one a subtile).
+bool wide_config(int H, int O, WideCfg& c) {
+  c.Hp = round8(H);
+  c.Op = round8(O);
+  c.lda = stride_mod32(c.Hp, 8);
+  c.ldb = stride_mod32(std::max(c.Hp, c.Op), 8);
+  for (c.warps = kWide; c.warps >= 1; c.warps /= 2)
+    for (c.mt = std::min(kMT, c.warps); c.mt >= 1; --c.mt) {
+      c.smem = sizeof(float) * ((size_t)16 * c.mt * (c.lda + c.ldb) +
+                                round4(std::max(c.Hp, c.Op)) +
+                                (size_t)c.warps * kStages * kRingStage);
+      if (c.smem <= (size_t)kMaxSmem) return true;
+    }
+  return false;
+}
+
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d = a b + 0 for one m16n8k8 TF32 tile: the first pass of a step onto a
+// zero accumulator, as mma onto a zeroed one.
+__device__ __forceinline__ void mma_z(float d[4], const uint32_t a[4],
+                                      const uint32_t b[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+// add_step without the zeroing: the same three passes in the same order
+// from +0, the same f32 add.
+__device__ __forceinline__ void add_step_z(float (*acc)[4],
+                                           const uint32_t ah[4],
+                                           const uint32_t al[4],
+                                           const uint32_t (*bh)[2],
+                                           const uint32_t (*bl)[2], int n) {
+  float part[kGroup][4];
+#pragma unroll
+  for (int q = 0; q < kGroup; ++q)
+    if (q < n) mma_z(part[q], al, bh[q]);
+#pragma unroll
+  for (int q = 0; q < kGroup; ++q)
+    if (q < n) mma(part[q], ah, bl[q]);
+#pragma unroll
+  for (int q = 0; q < kGroup; ++q)
+    if (q < n) mma(part[q], ah, bh[q]);
+#pragma unroll
+  for (int q = 0; q < kGroup; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (q < n) acc[q][e] = __fadd_rn(acc[q][e], part[q][e]);
+}
+
+// A subtile with no slot (the block's rows ended before it).
+__device__ __forceinline__ void empty_tile(Tile& t, int r, int s) {
+  t.s0 = s;
+  t.n = 0;
+  t.r0 = r;
+  t.nrows = 0;
+  t.carry_in = false;
+  t.last = true;
+  t.vmask = 0;
+  t.rlo = t.rhi = t.rkey = 0;
+  t.ssrc = t.sedge = t.skey = 0;
+}
+
+// The block's next tile: up to mt subtiles from the walk at (r, s), the
+// rest empty; false when the block's rows are done. meta holds the next
+// subtile's plan entries (load_meta), in flight during the tile's work.
+__device__ __forceinline__ bool next_wide_tile(
+    Meta& meta, const int* __restrict__ row_ptr,
+    const int* __restrict__ row_key, const int* __restrict__ slot_src,
+    const int* __restrict__ slot_edge, const float* __restrict__ scale,
+    int& r, int& s, int r_end, int s_end, int mt, Tile (&t)[kMT],
+    int lane) {
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < kMT; ++q) {
+    if (q < mt && next_tile(meta, r, s, r_end, s_end, t[q], lane)) {
+      any = true;
+      meta = load_meta(row_ptr, row_key, slot_src, slot_edge, scale, r, s,
+                       r_end, s_end, lane);
+    } else {
+      empty_tile(t[q], r, s);
+    }
+  }
+  return any;
+}
+
+// Slot i (< 16 kMT) of a wide tile: its source node, key, edge and
+// validity, from lane i & 15 of subtile i >> 4. Every lane calls it.
+struct SlotRef {
+  int src, key, edge;
+  bool valid;
+};
+template <bool EDGE>
+__device__ __forceinline__ SlotRef slot_ref(const Tile (&t)[kMT], int i) {
+  SlotRef v{0, 0, 0, false};
+  const int li = i & 15, st = i >> 4;
+#pragma unroll
+  for (int q = 0; q < kMT; ++q) {
+    const int src = __shfl_sync(kFull, t[q].ssrc, li);
+    const int key = __shfl_sync(kFull, t[q].skey, li);
+    const int edge = EDGE ? __shfl_sync(kFull, t[q].sedge, li) : 0;
+    if (q == st) {
+      v.src = src;
+      v.key = key;
+      v.edge = edge;
+      v.valid = slot_valid(t[q], li);
+    }
+  }
+  return v;
+}
+
+// What stage_wide writes: a = act(z) (z for a row-wise sigma, which
+// rowwise_act then takes), or d = act'(z) of an elementwise one.
+enum { STAGE_A = 0, STAGE_D = 1 };
+
+// Stage a wide tile: dst[i * ld + h] for slots i < 16 mt and h < Hp, as
+// stage_tile computes each value (gather_z, act_both), 0 for padding,
+// invalid slots, empty subtiles and h >= H. The block's threads take the
+// E-feature chunks in turn, each issuing U gathers before it uses one.
+template <int ACT, typename TK, bool VEC, int WHAT, bool EDGE>
+__device__ __forceinline__ void stage_wide_chunks(
+    const float* __restrict__ eq, const TK* __restrict__ ek,
+    const TK* __restrict__ e, const Tile (&t)[kMT], int mt, int H, int Hp,
+    float slope, float* dst, int ld) {
+  static_assert(!(WHAT == STAGE_D && kRowwise<ACT>),
+                "a row-wise sigma has no elementwise derivative");
+  constexpr int E = VEC ? 16 / (int)sizeof(TK) : 1;
+  constexpr int U = 4;
+  const int NT = blockDim.x;
+  const int tid = threadIdx.x;
+  const int nch = H / E;
+  const int total = 16 * mt * nch;
+  for (int base = 0; base < total; base += NT * U) {
+    float z[U][E];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = base + u * NT + tid;
+      const int i = c < total ? c / nch : 0;
+      const SlotRef sr = slot_ref<EDGE>(t, i);
+      ok[u] = c < total && sr.valid;
+      if (ok[u]) {
+        gather_z<TK, VEC, EDGE>(eq, ek, e, sr.src, sr.key, sr.edge,
+                                c - i * nch, H, z[u]);
+      } else {
+#pragma unroll
+        for (int x = 0; x < E; ++x) z[u][x] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = base + u * NT + tid;
+      if (c < total) {
+        const int i = c / nch, ch = c - (c / nch) * nch;
+        float v[E];
+#pragma unroll
+        for (int x = 0; x < E; ++x) {
+          float a = 0.f, d = 0.f;
+          if constexpr (kRowwise<ACT>) {
+            a = z[u][x];  // 0 for an invalid slot; sigma comes after
+          } else {
+            if (ok[u]) act_both<ACT, WHAT == STAGE_D>(z[u][x], slope, a, d);
+          }
+          v[x] = WHAT == STAGE_D ? d : a;
+        }
+        float* p = dst + i * ld + ch * E;
+        if (VEC) {
+#pragma unroll
+          for (int x = 0; x < E; x += 4)
+            *reinterpret_cast<float4*>(p + x) = make_float4(
+                v[x], v[(x + 1) % E], v[(x + 2) % E], v[(x + 3) % E]);
+        } else {
+          p[0] = v[0];
+        }
+      }
+    }
+  }
+  const int pad = Hp - H;
+  for (int c = tid; c < 16 * mt * pad; c += NT) {
+    const int i = c / pad, h = H + c - (c / pad) * pad;
+    dst[i * ld + h] = 0.f;
+  }
+}
+
+// stage_wide_chunks with the gathers the tables allow (c.vec) into dst at
+// stride ld, then, for a row-wise sigma staging a, rowwise_act on each
+// subtile (its warp). Ends with the block in step: dst is ready.
+template <int ACT, typename TK, int WHAT, bool EDGE>
+__device__ __forceinline__ void stage_wide(const float* __restrict__ eq,
+                                           const TK* __restrict__ ek,
+                                           const TK* __restrict__ e,
+                                           const Tile (&t)[kMT],
+                                           const WideCfg& c, int H,
+                                           float slope, float* dst, int ld) {
+  if (c.vec)
+    stage_wide_chunks<ACT, TK, true, WHAT, EDGE>(eq, ek, e, t, c.mt, H, c.Hp,
+                                                 slope, dst, ld);
+  else
+    stage_wide_chunks<ACT, TK, false, WHAT, EDGE>(eq, ek, e, t, c.mt, H,
+                                                  c.Hp, slope, dst, ld);
+  __syncthreads();
+  if constexpr (kRowwise<ACT>) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+    for (int q = 0; q < kMT; ++q)
+      if (q == warp && q < c.mt)
+        rowwise_act(dst + 16 * q * ld, ld, t[q], H, c.act, slope, lane);
+    __syncthreads();
+  }
+}
+
+// Rows k0 .. k0 + 7 of W [H, O], columns o0 .. o0 + kSlab - 1 (a whole
+// slab: a warp with fewer column tiles leaves the rest unread), into a
+// ring chunk [8][kRingLd]; 0 outside H x O.
+__device__ __forceinline__ void ring_rows(float* buf,
+                                          const float* __restrict__ w, int H,
+                                          int O, bool w16, int k0, int o0,
+                                          int lane) {
+  if (w16) {
+#pragma unroll
+    for (int c = lane; c < 8 * kSlab / 4; c += 32) {
+      const int r = c / (kSlab / 4), x = (c % (kSlab / 4)) * 4;
+      const bool in = k0 + r < H && o0 + x < O;
+      cp16(buf + r * kRingLd + x, in ? w + (int64_t)(k0 + r) * O + o0 + x : w,
+           in);
+    }
+  } else {
+#pragma unroll
+    for (int c = lane; c < 8 * kSlab; c += 32) {
+      const int r = c / kSlab, x = c % kSlab;
+      const bool in = k0 + r < H && o0 + x < O;
+      cp4(buf + r * kRingLd + x, in ? w + (int64_t)(k0 + r) * O + o0 + x : w,
+          in);
+    }
+  }
+}
+
+// Rows h0 .. h0 + kSlab - 1 of W, columns k0 .. k0 + 7, into a ring chunk
+// [kSlab][8]; 0 outside H x O.
+__device__ __forceinline__ void ring_cols(float* buf,
+                                          const float* __restrict__ w, int H,
+                                          int O, bool w16, int k0, int h0,
+                                          int lane) {
+  if (w16) {
+#pragma unroll
+    for (int c = lane; c < 2 * kSlab; c += 32) {
+      const int r = c >> 1, x = (c & 1) * 4;
+      const bool in = h0 + r < H && k0 + x < O;
+      cp16(buf + r * 8 + x, in ? w + (int64_t)(h0 + r) * O + k0 + x : w, in);
+    }
+  } else {
+#pragma unroll
+    for (int c = lane; c < 8 * kSlab; c += 32) {
+      const int r = c >> 3, x = c & 7;
+      const bool in = h0 + r < H && k0 + x < O;
+      cp4(buf + r * 8 + x, in ? w + (int64_t)(h0 + r) * O + k0 + x : w, in);
+    }
+  }
+}
+
+// One warp's product over a wide tile: acc[s][j] += subtile s's m16n8
+// fragment of column tile n0 + j (j < nt <= kWNT), over k steps of 8 to
+// kp, W streamed through the warp's ring kStages - 1 chunks ahead.
+// GRAD false: m = a W, a_s the tile's a (A fragments at rows g, g + 8 and
+// columns k0 + t, k0 + t + 4: slot_products' own). GRAD true: g_a = g_m
+// W^T, a_s the tile's g_m, k over o with each step's k order permuted to
+// pairs (grad_products' own).
+template <bool GRAD>
+__device__ __forceinline__ void wide_products(
+    const float* a_s, int ld, int mt, const float* __restrict__ w, int H,
+    int O, int kp, bool w16, int n0, int nt, float* ring,
+    float acc[kMT][kWNT][4], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int s = 0; s < kMT; ++s)
+#pragma unroll
+    for (int j = 0; j < kWNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[s][j][e] = 0.f;
+  const int steps = kp / 8;
+  auto fill = [&](int k) {
+    float* buf = ring + (k % kStages) * kRingStage;
+    if (GRAD)
+      ring_cols(buf, w, H, O, w16, 8 * k, 8 * n0, lane);
+    else
+      ring_rows(buf, w, H, O, w16, 8 * k, 8 * n0, lane);
+  };
+#pragma unroll
+  for (int q = 0; q < kStages - 1; ++q) {
+    if (q < steps) fill(q);
+    cp_commit();
+  }
+  for (int k = 0; k < steps; ++k) {
+    cp_wait<kStages - 2>();
+    __syncwarp();
+    const float* ch = ring + (k % kStages) * kRingStage;
+    const int k0 = 8 * k;
+    uint32_t ah[kMT][4], al[kMT][4];
+#pragma unroll
+    for (int s = 0; s < kMT; ++s) {
+      if (s < mt) {
+        const float* as = a_s + 16 * s * ld;
+        if (GRAD) {
+          const float2 top =
+              *reinterpret_cast<const float2*>(as + g * ld + k0 + 2 * t);
+          const float2 bot =
+              *reinterpret_cast<const float2*>(as + (g + 8) * ld + k0 + 2 * t);
+          split(top.x, ah[s][0], al[s][0]);
+          split(bot.x, ah[s][1], al[s][1]);
+          split(top.y, ah[s][2], al[s][2]);
+          split(bot.y, ah[s][3], al[s][3]);
+        } else {
+          split(as[g * ld + k0 + t], ah[s][0], al[s][0]);
+          split(as[(g + 8) * ld + k0 + t], ah[s][1], al[s][1]);
+          split(as[g * ld + k0 + t + 4], ah[s][2], al[s][2]);
+          split(as[(g + 8) * ld + k0 + t + 4], ah[s][3], al[s][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j0 = 0; j0 < kWNT; j0 += kGroup) {
+      if (j0 < nt) {
+        uint32_t bh[kGroup][2], bl[kGroup][2];
+#pragma unroll
+        for (int q = 0; q < kGroup; ++q) {
+          if (j0 + q < nt) {
+            const int n = (j0 + q) * 8 + g;
+            if (GRAD) {
+              const float2 wv =
+                  *reinterpret_cast<const float2*>(ch + n * 8 + 2 * t);
+              split(wv.x, bh[q][0], bl[q][0]);
+              split(wv.y, bh[q][1], bl[q][1]);
+            } else {
+              split(ch[t * kRingLd + n], bh[q][0], bl[q][0]);
+              split(ch[(t + 4) * kRingLd + n], bh[q][1], bl[q][1]);
+            }
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < kMT; ++s)
+          if (s < mt) add_step_z(acc[s] + j0, ah[s], al[s], bh, bl, nt - j0);
+      }
+    }
+    __syncwarp();  // the chunk is read; the ring takes the next
+    if (k + kStages - 1 < steps) fill(k + kStages - 1);
+    cp_commit();
+  }
+  cp_wait<0>();
+}
+
+// This warp's slab of the pass from column tile p0 of nt8: the pass's
+// tiles (at most warps kWNT) split evenly over the block's warps. Sets n0
+// and nt (0: the warp has none in this pass).
+__host__ __device__ __forceinline__ void wide_slab(int nt8, int p0, int warp,
+                                                   int warps, int& n0,
+                                                   int& nt) {
+  const int cnt = nt8 - p0 < warps * kWNT ? nt8 - p0 : warps * kWNT;
+  const int per = (cnt + warps - 1) / warps;
+  n0 = p0 + warp * per;
+  nt = p0 + cnt - n0 < per ? p0 + cnt - n0 : per;
+  if (nt < 0) nt = 0;
+}
+
+// Accumulator fragments of subtiles s < mt, column tiles n0 .. n0 + nt - 1,
+// as rows of dst [16 mt][ld].
+__device__ __forceinline__ void store_wide(const float acc[kMT][kWNT][4],
+                                           int mt, int n0, int nt,
+                                           float* dst, int ld, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int s = 0; s < kMT; ++s)
+#pragma unroll
+    for (int j = 0; j < kWNT; ++j)
+      if (s < mt && j < nt) {
+        float* p = dst + 16 * s * ld + (n0 + j) * 8 + 2 * t;
+        *reinterpret_cast<float2*>(p + g * ld) =
+            make_float2(acc[s][j][0], acc[s][j][1]);
+        *reinterpret_cast<float2*>(p + (g + 8) * ld) =
+            make_float2(acc[s][j][2], acc[s][j][3]);
+      }
+}
+
+// #9 (MODE_MAX) and #10 (MODE_COUNT) on the wide path: as max_fwd_kernel,
+// a block a tile.
+template <int ACT, int MODE, bool EDGE, typename TK>
+__global__ void __launch_bounds__(kWide * 32, 1)
+max_fwd_wide_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
+                    const TK* __restrict__ e,
+                    const int* __restrict__ slot_src,
+                    const int* __restrict__ slot_edge,
+                    const float* __restrict__ scale,
+                    const int* __restrict__ row_key,
+                    const int* __restrict__ row_ptr,
+                    const float* __restrict__ w,
+                    const float* __restrict__ key_max, int R, int H, int O,
+                    float slope, float* __restrict__ out, WideCfg c) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* a_s = smem;
+  float* m_s = a_s + 16 * c.mt * c.lda;
+  float* carry = m_s + 16 * c.mt * c.ldb;
+  float* ring = carry + round4(max(c.Hp, c.Op)) +
+                warp * kStages * kRingStage;
+  const int* sedge = EDGE ? slot_edge : nullptr;
+  int r, r_end, s, s_end;
+  warp_rows(row_ptr, R, blockIdx.x, gridDim.x, lane, r, r_end, s, s_end);
+  Meta meta = load_meta(row_ptr, row_key, slot_src, sedge, scale, r, s,
+                        r_end, s_end, lane);
+  Tile t[kMT];
+  while (next_wide_tile(meta, row_ptr, row_key, slot_src, sedge, scale, r, s,
+                        r_end, s_end, c.mt, t, lane)) {
+    stage_wide<ACT, TK, STAGE_A, EDGE>(eq, ek, e, t, c, H, slope, a_s,
+                                       c.lda);
+    for (int p0 = 0; p0 < c.Op / 8; p0 += c.warps * kWNT) {
+      int n0, nt;
+      wide_slab(c.Op / 8, p0, warp, c.warps, n0, nt);
+      if (nt > 0) {
+        float acc[kMT][kWNT][4];
+        wide_products<false>(a_s, c.lda, c.mt, w, H, O, c.Hp, c.w16, n0, nt,
+                             ring, acc, lane);
+        store_wide(acc, c.mt, n0, nt, m_s, c.ldb, lane);
+      }
+    }
+    __syncthreads();  // m is whole
+#pragma unroll
+    for (int q = 0; q < kMT; ++q) {
+      for (int j = 0; j < t[q].nrows; ++j) {
+        const int lo = __shfl_sync(kFull, t[q].rlo, j);
+        const int hi = __shfl_sync(kFull, t[q].rhi, j);
+        const int key = __shfl_sync(kFull, t[q].rkey, j);
+        const float* mq = m_s + 16 * q * c.ldb;
+        for (int o = threadIdx.x; o < O; o += blockDim.x) {
+          float v;
+          if (MODE == MODE_MAX) {
+            v = row_carried(t[q], j) ? carry[o] : -FLT_MAX;
+            for (int i = lo; i < hi; ++i) {
+              const float m = mq[i * c.ldb + o];
+              if (slot_valid(t[q], i) && m > v) v = m;
+            }
+          } else {
+            const float ref = __ldg(key_max + (int64_t)key * O + o);
+            v = row_carried(t[q], j) ? carry[o] : 0.f;
+            for (int i = lo; i < hi; ++i)
+              if (slot_valid(t[q], i) && mq[i * c.ldb + o] == ref) v += 1.f;
+          }
+          if (row_ends(t[q], j))
+            out[(int64_t)(t[q].r0 + j) * O + o] = v;
+          else
+            carry[o] = v;
+        }
+      }
+    }
+    __syncthreads();  // a_s and m_s are rewritten by the next tile
+  }
+}
+
+// #11 on the wide path: geq_rows and g_z as max_bwd_kernel, and a and g_m
+// of every slot into rows [S][Hp + Op] (max_gw_kernel's input).
+template <int ACT, bool EDGE, typename TK>
+__global__ void __launch_bounds__(kWide * 32, 1)
+max_bwd_wide_kernel(const float* __restrict__ eq, const TK* __restrict__ ek,
+                    const TK* __restrict__ e,
+                    const int* __restrict__ slot_src,
+                    const int* __restrict__ slot_edge,
+                    const float* __restrict__ scale,
+                    const int* __restrict__ row_key,
+                    const int* __restrict__ row_ptr,
+                    const float* __restrict__ w,
+                    const float* __restrict__ key_max,
+                    const float* __restrict__ gsc, int R, int H, int O,
+                    float slope, float* __restrict__ geq_rows,
+                    TK* __restrict__ gz, float* __restrict__ rows,
+                    WideCfg c) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int ldr = c.Hp + c.Op;
+  float* a_s = smem;                       // a, then g_a and g_z
+  float* b_s = a_s + 16 * c.mt * c.lda;    // g_m, then act'(z) (row-wise: a)
+  float* carry = b_s + 16 * c.mt * c.ldb;
+  float* ring = carry + round4(max(c.Hp, c.Op)) +
+                warp * kStages * kRingStage;
+  const int* sedge = EDGE ? slot_edge : nullptr;
+  int r, r_end, s, s_end;
+  warp_rows(row_ptr, R, blockIdx.x, gridDim.x, lane, r, r_end, s, s_end);
+  Meta meta = load_meta(row_ptr, row_key, slot_src, sedge, scale, r, s,
+                        r_end, s_end, lane);
+  Tile t[kMT];
+  while (next_wide_tile(meta, row_ptr, row_key, slot_src, sedge, scale, r, s,
+                        r_end, s_end, c.mt, t, lane)) {
+    stage_wide<ACT, TK, STAGE_A, EDGE>(eq, ek, e, t, c, H, slope, a_s,
+                                       c.lda);
+    // a of the tile's slots into their scratch rows
+    for (int x = threadIdx.x; x < 16 * c.mt * (c.Hp / 4); x += blockDim.x) {
+      const int i = x / (c.Hp / 4), h = (x - i * (c.Hp / 4)) * 4;
+#pragma unroll
+      for (int q = 0; q < kMT; ++q)
+        if (q == i >> 4 && (i & 15) < t[q].n)
+          *reinterpret_cast<float4*>(rows + (int64_t)(t[q].s0 + (i & 15)) *
+                                                ldr + h) =
+              *reinterpret_cast<const float4*>(a_s + i * c.lda + h);
+    }
+    // m, and g_m = win * gsc in its place: into b_s and the scratch rows
+    for (int p0 = 0; p0 < c.Op / 8; p0 += c.warps * kWNT) {
+      int n0, nt;
+      wide_slab(c.Op / 8, p0, warp, c.warps, n0, nt);
+      if (nt == 0) continue;
+      float acc[kMT][kWNT][4];
+      wide_products<false>(a_s, c.lda, c.mt, w, H, O, c.Hp, c.w16, n0, nt,
+                           ring, acc, lane);
+#pragma unroll
+      for (int q = 0; q < kMT; ++q) {
+        if (q >= c.mt) continue;
+        const int key0 = __shfl_sync(kFull, t[q].skey, g);
+        const int key1 = __shfl_sync(kFull, t[q].skey, g + 8);
+        const bool ok0 = slot_valid(t[q], g), ok1 = slot_valid(t[q], g + 8);
+#pragma unroll
+        for (int j = 0; j < kWNT; ++j) {
+          if (j >= nt) continue;
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int o = (n0 + j) * 8 + 2 * tq + (x & 1);
+            const bool ok = (x < 2 ? ok0 : ok1) && o < O;
+            const int64_t at = (int64_t)(x < 2 ? key0 : key1) * O + o;
+            const float ref = ok ? __ldg(key_max + at) : 0.f;
+            const float gv = ok ? __ldg(gsc + at) : 0.f;
+            acc[q][j][x] = ok && acc[q][j][x] == ref ? gv : 0.f;
+          }
+          const int o = (n0 + j) * 8 + 2 * tq;
+          if (g < t[q].n)
+            *reinterpret_cast<float2*>(rows + (int64_t)(t[q].s0 + g) * ldr +
+                                       c.Hp + o) =
+                make_float2(acc[q][j][0], acc[q][j][1]);
+          if (g + 8 < t[q].n)
+            *reinterpret_cast<float2*>(rows + (int64_t)(t[q].s0 + g + 8) *
+                                                  ldr + c.Hp + o) =
+                make_float2(acc[q][j][2], acc[q][j][3]);
+        }
+      }
+      store_wide(acc, c.mt, n0, nt, b_s, c.ldb, lane);
+    }
+    __syncthreads();  // g_m is whole; a is read
+    // g_a = g_m W^T into a_s
+    for (int p0 = 0; p0 < c.Hp / 8; p0 += c.warps * kWNT) {
+      int n0, nt;
+      wide_slab(c.Hp / 8, p0, warp, c.warps, n0, nt);
+      if (nt == 0) continue;
+      float acc[kMT][kWNT][4];
+      wide_products<true>(b_s, c.ldb, c.mt, w, H, O, c.Op, c.w16, n0, nt,
+                          ring, acc, lane);
+      store_wide(acc, c.mt, n0, nt, a_s, c.lda, lane);
+    }
+    __syncthreads();  // g_a is whole; g_m is read
+    // g_z = vjp(act, z)(g_a) in place of g_a: act'(z) staged again (a
+    // row-wise sigma: a, for rowwise_vjp)
+    if constexpr (kRowwise<ACT>) {
+      stage_wide<ACT, TK, STAGE_A, EDGE>(eq, ek, e, t, c, H, slope, b_s,
+                                         c.ldb);
+#pragma unroll
+      for (int q = 0; q < kMT; ++q)
+        if (q == warp && q < c.mt)
+          rowwise_vjp(b_s + 16 * q * c.ldb, c.ldb, a_s + 16 * q * c.lda,
+                      c.lda, H, c.act, slope, lane);
+    } else {
+      stage_wide<ACT, TK, STAGE_D, EDGE>(eq, ek, e, t, c, H, slope, b_s,
+                                         c.ldb);
+      for (int x = threadIdx.x; x < 16 * c.mt * c.Hp; x += blockDim.x) {
+        const int i = x / c.Hp, h = x - i * c.Hp;
+        a_s[i * c.lda + h] =
+            __fmul_rn(b_s[i * c.ldb + h], a_s[i * c.lda + h]);
+      }
+    }
+    __syncthreads();  // g_z is whole
+    // g_z out; per row, the sum over its slots in order
+#pragma unroll
+    for (int q = 0; q < kMT; ++q) {
+      for (int j = 0; j < t[q].nrows; ++j) {
+        const int lo = __shfl_sync(kFull, t[q].rlo, j);
+        const int hi = __shfl_sync(kFull, t[q].rhi, j);
+        const float* gq = a_s + 16 * q * c.lda;
+        for (int h = threadIdx.x; h < H; h += blockDim.x) {
+          float sum = row_carried(t[q], j) ? carry[h] : 0.f;
+          for (int i = lo; i < hi; ++i) {
+            const float v = gq[i * c.lda + h];
+            store(gz + (int64_t)(t[q].s0 + i) * H + h, v);
+            sum += v;
+          }
+          if (row_ends(t[q], j))
+            geq_rows[(int64_t)(t[q].r0 + j) * H + h] = sum;
+          else
+            carry[h] = sum;
+        }
+      }
+    }
+    __syncthreads();  // the buffers are rewritten by the next tile
+  }
+}
+
 // out[i] = sum over p in order of part[p, i].
 __global__ void sum_partials_kernel(const float* __restrict__ part, int P,
                                     int n, float* __restrict__ out) {
@@ -1226,6 +1907,108 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, int P,
   float s = 0.f;
   for (int p = 0; p < P; ++p) s += part[(int64_t)p * n + i];
   out[i] = s;
+}
+
+// g_W = sum over the slots of a^T g_m, from the wide path's scratch rows
+// [S][Hp + Op] (a, then g_m): a block takes a kGwTile x kGwTile tile of
+// g_W and the slots of its share (blockIdx.y of gridDim.y, contiguous,
+// whole chunks of kGwK) and writes its partial [H, O] for
+// sum_partials_kernel, which adds the partials in order: no atomics, the
+// same bits on every run. Both operands stream through shared memory in
+// chunks of kGwK slots (cp.async, kGwStages - 1 ahead); eight warps of 64
+// h x 32 o; each k step of 8 slots summed from zero and added in f32
+// (add_step_z), as every product here.
+constexpr int kGwWarps = 8;
+constexpr int kGwTile = 128;
+constexpr int kGwK = 32;
+constexpr int kGwStages = 3;
+constexpr int kGwLd = kGwTile + 8;  // 8 mod 32: fragment rows t, t + 4 apart
+constexpr int kGwSmem = kGwStages * 2 * kGwK * kGwLd * (int)sizeof(float);
+
+__global__ void __launch_bounds__(kGwWarps * 32, 2)
+max_gw_kernel(const float* __restrict__ rows, const int* __restrict__ row_ptr,
+              int R, int H, int O, int Hp, int Op,
+              float* __restrict__ part) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles_o = (Op + kGwTile - 1) / kGwTile;
+  const int h0 = (blockIdx.x / tiles_o) * kGwTile;
+  const int o0 = (blockIdx.x % tiles_o) * kGwTile;
+  const int S = row_ptr[R];
+  const int share =
+      ((S + gridDim.y - 1) / gridDim.y + kGwK - 1) / kGwK * kGwK;
+  const int kb = min(S, (int)blockIdx.y * share), ke = min(S, kb + share);
+  const int chunks = (ke - kb + kGwK - 1) / kGwK;
+  const int ldr = Hp + Op;
+  const int wh = (warp & 1) * 64, wo = (warp >> 1) * 32;
+  auto fill = [&](int k) {
+    float* as = smem + (k % kGwStages) * 2 * kGwK * kGwLd;
+    for (int x = threadIdx.x; x < 2 * kGwK * (kGwTile / 4);
+         x += blockDim.x) {
+      const int gm = x >= kGwK * (kGwTile / 4);
+      const int y = x - gm * kGwK * (kGwTile / 4);
+      const int r = y / (kGwTile / 4), q = (y - r * (kGwTile / 4)) * 4;
+      const int sl = kb + k * kGwK + r;
+      const int col = (gm ? o0 : h0) + q;
+      const bool in = sl < ke && col < (gm ? Op : Hp);
+      cp16(as + gm * kGwK * kGwLd + r * kGwLd + q,
+           in ? rows + (int64_t)sl * ldr + (gm ? Hp : 0) + col : rows, in);
+    }
+  };
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll
+  for (int q = 0; q < kGwStages - 1; ++q) {
+    if (q < chunks) fill(q);
+    cp_commit();
+  }
+  for (int k = 0; k < chunks; ++k) {
+    cp_wait<kGwStages - 2>();
+    __syncthreads();
+    const float* as = smem + (k % kGwStages) * 2 * kGwK * kGwLd;
+    const float* bs = as + kGwK * kGwLd;
+#pragma unroll
+    for (int k0 = 0; k0 < kGwK; k0 += 8) {
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int o = wo + 8 * j + g;
+        split(bs[(k0 + t) * kGwLd + o], bh[j][0], bl[j][0]);
+        split(bs[(k0 + t + 4) * kGwLd + o], bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = wh + 16 * i + g;
+        uint32_t ah[4], al[4];
+        split(as[(k0 + t) * kGwLd + h], ah[0], al[0]);
+        split(as[(k0 + t) * kGwLd + h + 8], ah[1], al[1]);
+        split(as[(k0 + t + 4) * kGwLd + h], ah[2], al[2]);
+        split(as[(k0 + t + 4) * kGwLd + h + 8], ah[3], al[3]);
+        add_step_z(acc[i], ah, al, bh, bl, 4);
+      }
+    }
+    __syncthreads();  // the chunk is read; the ring takes the next
+    if (k + kGwStages - 1 < chunks) fill(k + kGwStages - 1);
+    cp_commit();
+  }
+  cp_wait<0>();
+  float* out = part + (int64_t)blockIdx.y * H * O;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = h0 + wh + 16 * i + g + (e >> 1) * 8;
+        const int o = o0 + wo + 8 * j + 2 * t + (e & 1);
+        if (h < H && o < O) out[(int64_t)h * O + o] = acc[i][j][e];
+      }
 }
 
 // out[r] = sum over row r's slots of scale[s] * values[slot_idx[s]], f32.
@@ -1305,6 +2088,51 @@ struct FwdArgs {
   void* out;
 };
 
+// The path of widths H and O: 0 the first design (the backward's W fits a
+// block's shared memory beside four warps' buffers), 1 the wide path, -1
+// neither (too wide for one subtile and one warp's ring). Built with -DELL_MAX_WIDE_ONLY, the wide path wherever it fits:
+// the two designs' A/B at one width (tools/ell_ab.py --max --define).
+int max_path(int H, int O) {
+  FwdCfg f;
+  BwdCfg b;
+  WideCfg w;
+  if (H <= 0 || O <= 0) return -1;
+#ifndef ELL_MAX_WIDE_ONLY
+  if (bwd_config(H, O, b) && fwd_config(H, O, f)) return 0;
+#endif
+  if (wide_config(H, O, w)) return 1;
+  return bwd_config(H, O, b) && fwd_config(H, O, f) ? 0 : -1;
+}
+
+// The wide path's configuration for a launch: the widths' and the
+// tables' (16-byte gathers, 16-byte copies of W's rows).
+WideCfg wide_launch_config(int H, int O, int act, const void* eq,
+                           const void* ek, const void* e, int ek_bf16,
+                           const void* w) {
+  WideCfg c;
+  wide_config(H, O, c);
+  c.act = act;
+  c.vec = vec_ok(eq, ek, e, ek_bf16, H);
+  c.w16 = O % 4 == 0 && (uintptr_t)w % 16 == 0;
+  return c;
+}
+
+// Blocks of a wide kernel: as many as the card holds at once, and no more
+// than rows.
+int wide_grid(const void* kernel, const WideCfg& c, int R, int& blocks) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    c.warps * 32, c.smem);
+  if (e != cudaSuccess) return (int)e;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  blocks = std::min(R, sms * std::max(per_sm, 1));
+  return 0;
+}
+
 template <int ACT, int MODE, bool VEC, bool EDGE, typename TK>
 int fwd_launch(const FwdArgs& a, cudaStream_t st, const FwdCfg& c) {
   auto kernel = max_fwd_kernel<ACT, MODE, VEC, EDGE, TK>;
@@ -1330,9 +2158,28 @@ int fwd_launch(const FwdArgs& a, cudaStream_t st, const FwdCfg& c) {
 }
 
 template <int ACT, int MODE, bool EDGE, typename TK>
+int fwd_wide_launch(const FwdArgs& a, cudaStream_t st) {
+  const WideCfg c = wide_launch_config(a.H, a.O, a.act, a.eq, a.ek, a.e,
+                                       sizeof(TK) == 2, a.w);
+  auto kernel = max_fwd_wide_kernel<ACT, MODE, EDGE, TK>;
+  int blocks = 0;
+  const int err = wide_grid((const void*)kernel, c, a.R, blocks);
+  if (err) return err;
+  kernel<<<blocks, c.warps * 32, c.smem, st>>>(
+      (const float*)a.eq, (const TK*)a.ek, (const TK*)a.e,
+      (const int*)a.slot_src, (const int*)a.slot_edge, (const float*)a.scale,
+      (const int*)a.row_key, (const int*)a.row_ptr, (const float*)a.w,
+      (const float*)a.key_max, a.R, a.H, a.O, a.slope, (float*)a.out, c);
+  return (int)cudaGetLastError();
+}
+
+template <int ACT, int MODE, bool EDGE, typename TK>
 int fwd_entry(const FwdArgs& a, cudaStream_t st) {
+  const int path = max_path(a.H, a.O);
+  if (path < 0) return (int)cudaErrorInvalidValue;
+  if (path == 1) return fwd_wide_launch<ACT, MODE, EDGE, TK>(a, st);
   FwdCfg c;
-  if (!fwd_config(a.H, a.O, c)) return (int)cudaErrorInvalidValue;
+  fwd_config(a.H, a.O, c);
   c.act = a.act;
   if (vec_ok(a.eq, a.ek, a.e, sizeof(TK) == 2, a.H))
     return fwd_launch<ACT, MODE, true, EDGE, TK>(a, st, c);
@@ -1365,53 +2212,86 @@ int fwd_dispatch(const FwdArgs& a, int ek_bf16, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+// The backward kernel of a sigma (ACT_ROWWISE for both row-wise ids), the
+// edge term's presence and ek's type: the first design's (vec: 16-byte
+// gathers) or, with wide, the wide path's.
 template <int ACT, bool EDGE, typename TK>
-const void* bwd_pick(bool vec, bool wsmem) {
-  if (vec)
-    return wsmem ? (const void*)max_bwd_kernel<ACT, true, true, EDGE, TK>
-                 : (const void*)max_bwd_kernel<ACT, true, false, EDGE, TK>;
-  return wsmem ? (const void*)max_bwd_kernel<ACT, false, true, EDGE, TK>
-               : (const void*)max_bwd_kernel<ACT, false, false, EDGE, TK>;
+const void* bwd_pick(bool wide, bool vec) {
+  if (wide) return (const void*)max_bwd_wide_kernel<ACT, EDGE, TK>;
+  return vec ? (const void*)max_bwd_kernel<ACT, true, EDGE, TK>
+             : (const void*)max_bwd_kernel<ACT, false, EDGE, TK>;
 }
 
 template <int ACT>
-const void* bwd_act(int bf16, bool edge, bool vec, bool wsmem) {
+const void* bwd_act(int bf16, bool edge, bool wide, bool vec) {
   if (bf16)
-    return edge ? bwd_pick<ACT, true, __nv_bfloat16>(vec, wsmem)
-                : bwd_pick<ACT, false, __nv_bfloat16>(vec, wsmem);
-  return edge ? bwd_pick<ACT, true, float>(vec, wsmem)
-              : bwd_pick<ACT, false, float>(vec, wsmem);
+    return edge ? bwd_pick<ACT, true, __nv_bfloat16>(wide, vec)
+                : bwd_pick<ACT, false, __nv_bfloat16>(wide, vec);
+  return edge ? bwd_pick<ACT, true, float>(wide, vec)
+              : bwd_pick<ACT, false, float>(wide, vec);
 }
 
-const void* bwd_kernel(int act, int bf16, bool edge, bool vec, bool wsmem) {
+const void* bwd_kernel(int act, int bf16, bool edge, bool wide, bool vec) {
   switch (act) {
     case ACT_LEAKY_RELU:
-      return bwd_act<ACT_LEAKY_RELU>(bf16, edge, vec, wsmem);
-    case ACT_TANH: return bwd_act<ACT_TANH>(bf16, edge, vec, wsmem);
+      return bwd_act<ACT_LEAKY_RELU>(bf16, edge, wide, vec);
+    case ACT_TANH: return bwd_act<ACT_TANH>(bf16, edge, wide, vec);
     case ACT_CENTERED_RELU:
-    case ACT_SOFTMAX: return bwd_act<ACT_ROWWISE>(bf16, edge, vec, wsmem);
-    case ACT_GELU: return bwd_act<ACT_GELU>(bf16, edge, vec, wsmem);
+    case ACT_SOFTMAX: return bwd_act<ACT_ROWWISE>(bf16, edge, wide, vec);
+    case ACT_GELU: return bwd_act<ACT_GELU>(bf16, edge, wide, vec);
   }
   return nullptr;
 }
 
+// g_W's tiles of kGwTile x kGwTile on the wide path.
+int gw_tiles(int H, int O) {
+  return ((round8(H) + kGwTile - 1) / kGwTile) *
+         ((round8(O) + kGwTile - 1) / kGwTile);
+}
+
+// The first design: its grid (one g_W partial a block); the wide path:
+// max_gw_kernel's split of the slots (one partial a share), as many shares
+// as fill the card's blocks of it twice over the tiles, at most 64.
 int bwd_blocks(int R, int H, int O, int act, int ek_bf16, bool edge) {
+  const int path = R > 0 ? max_path(H, O) : -1;
+  if (path < 0) return -1;
+  const int sms = sm_count();
+  if (sms <= 0) return -1;
+  if (path == 1) {
+    int per_sm = 0;
+    if (cudaFuncSetAttribute(max_gw_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kGwSmem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, max_gw_kernel, kGwWarps * 32, kGwSmem) != cudaSuccess)
+      return -1;
+    const int shares = sms * std::max(per_sm, 1) / gw_tiles(H, O);
+    return std::min(64, std::max(1, shares));
+  }
   BwdCfg c;
-  if (R <= 0 || H <= 0 || O <= 0 || !bwd_config(H, O, c)) return -1;
-  const void* k = bwd_kernel(act, ek_bf16, edge, true, c.w_smem);
+  bwd_config(H, O, c);
+  const void* k = bwd_kernel(act, ek_bf16, edge, false, true);
   if (k == nullptr) return -1;
   if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)c.smem) != cudaSuccess)
     return -1;
   int per_sm = 0;
-  const int sms = sm_count();
-  if (sms <= 0 ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, c.warps * 32,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, c.warps * 32,
                                                     c.smem) != cudaSuccess)
     return -1;
   const int need = (R + c.warps - 1) / c.warps;
   const int blocks = sms * (per_sm > 0 ? per_sm : 1);
   return need < blocks ? need : blocks;
+}
+
+// Floats of the backward's scratch: the g_W partials [blocks][H * O] and,
+// on the wide path, past them (on 16 bytes) a row [Hp + Op] a slot.
+long long bwd_scratch(int S, int blocks, int H, int O) {
+  const int path = max_path(H, O);
+  if (path < 0 || S < 0 || blocks <= 0) return -1;
+  const long long part = (long long)blocks * H * O;
+  if (path == 0) return part;
+  return (part + 3) / 4 * 4 + (long long)S * (round8(H) + round8(O));
 }
 
 int bwd_launch(const void* eq, const void* ek, const void* e, int ek_bf16,
@@ -1421,27 +2301,56 @@ int bwd_launch(const void* eq, const void* ek, const void* e, int ek_bf16,
                int H, int O, int act, float slope, int blocks,
                void* geq_rows, void* gz, void* gw_part, void* gw,
                void* stream) {
-  BwdCfg c;
-  if (R <= 0 || H <= 0 || O <= 0 || blocks <= 0 || !bwd_config(H, O, c) ||
-      (e == nullptr) != (slot_edge == nullptr))
+  const int path = R > 0 ? max_path(H, O) : -1;
+  if (path < 0 || blocks <= 0 || (e == nullptr) != (slot_edge == nullptr))
     return (int)cudaErrorInvalidValue;
-  c.act = act;
   cudaStream_t st = (cudaStream_t)stream;
-  const void* k = bwd_kernel(act, ek_bf16, e != nullptr,
-                             vec_ok(eq, ek, e, ek_bf16, H), c.w_smem);
+  const bool vec = vec_ok(eq, ek, e, ek_bf16, H);
+  const void* k = bwd_kernel(act, ek_bf16, e != nullptr, path == 1, vec);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {(void*)&eq,       (void*)&ek,       (void*)&e,
-                  (void*)&slot_src, (void*)&slot_edge, (void*)&scale,
-                  (void*)&row_key,  (void*)&row_ptr,  (void*)&w,
-                  (void*)&key_max,  (void*)&gsc,      (void*)&R,
-                  (void*)&H,        (void*)&O,        (void*)&slope,
-                  (void*)&geq_rows, (void*)&gz,       (void*)&gw_part,
-                  (void*)&c};
-  err = cudaLaunchKernel(k, dim3(blocks), dim3(c.warps * 32), args, c.smem,
-                         st);
+  cudaError_t err;
+  if (path == 1) {
+    const WideCfg c =
+        wide_launch_config(H, O, act, eq, ek, e, ek_bf16, w);
+    int grid = 0;
+    const int code = wide_grid(k, c, R, grid);
+    if (code) return code;
+    // the slots' rows of a and g_m, past the partials
+    float* rows = (float*)gw_part + ((long long)blocks * H * O + 3) / 4 * 4;
+    void* args[] = {(void*)&eq,       (void*)&ek,       (void*)&e,
+                    (void*)&slot_src, (void*)&slot_edge, (void*)&scale,
+                    (void*)&row_key,  (void*)&row_ptr,  (void*)&w,
+                    (void*)&key_max,  (void*)&gsc,      (void*)&R,
+                    (void*)&H,        (void*)&O,        (void*)&slope,
+                    (void*)&geq_rows, (void*)&gz,       (void*)&rows,
+                    (void*)&c};
+    err = cudaLaunchKernel(k, dim3(grid), dim3(c.warps * 32), args, c.smem,
+                           st);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(max_gw_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kGwSmem);
+    if (err != cudaSuccess) return (int)err;
+    max_gw_kernel<<<dim3(gw_tiles(H, O), blocks), kGwWarps * 32, kGwSmem,
+                    st>>>(
+        rows, (const int*)row_ptr, R, H, O, c.Hp, c.Op, (float*)gw_part);
+  } else {
+    BwdCfg c;
+    bwd_config(H, O, c);
+    c.act = act;
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)c.smem);
+    if (err != cudaSuccess) return (int)err;
+    void* args[] = {(void*)&eq,       (void*)&ek,       (void*)&e,
+                    (void*)&slot_src, (void*)&slot_edge, (void*)&scale,
+                    (void*)&row_key,  (void*)&row_ptr,  (void*)&w,
+                    (void*)&key_max,  (void*)&gsc,      (void*)&R,
+                    (void*)&H,        (void*)&O,        (void*)&slope,
+                    (void*)&geq_rows, (void*)&gz,       (void*)&gw_part,
+                    (void*)&c};
+    err = cudaLaunchKernel(k, dim3(blocks), dim3(c.warps * 32), args, c.smem,
+                           st);
+  }
   if (err != cudaSuccess) return (int)err;
   const int n = H * O;
   sum_partials_kernel<<<(n + 255) / 256, 256, 0, st>>>(
@@ -1506,27 +2415,45 @@ int ell_max_wincount_edge(const void* eq, const void* ek, const void* e,
 
 // The path the three max kernels take for widths H and O, or -1 if they
 // cannot take them: bit 0 the tensor-core product (the only one), bits
-// 1-5 the forward's warps a block, bits 6-13 its W columns a block, bits
-// 14-17 the backward's warps a block, bit 18 W in its shared memory, bit
-// 19 its g_W partial in registers. Every sigma and the edge forms take
+// 1-5 the forward's warps a block, bits 6-13 its W columns a block (the
+// wide path: a warp's slab), bits 14-18 the backward's warps a block,
+// bit 19 its g_W partial in registers, bit 20 the wide path, bits 21-22
+// its subtiles of 16 slots a tile. Every sigma and the edge forms take
 // the same path.
 int ell_max_layout(int H, int O) {
+  const int path = max_path(H, O);
+  if (path < 0) return -1;
+  if (path == 1) {
+    WideCfg w;
+    wide_config(H, O, w);
+    int n0, nt;
+    wide_slab(w.Op / 8, 0, 0, w.warps, n0, nt);
+    return 1 | w.warps << 1 | 8 * nt << 6 | w.warps << 14 | 1 << 20 |
+           w.mt << 21;
+  }
   FwdCfg f;
   BwdCfg b;
-  if (H <= 0 || O <= 0 || !fwd_config(H, O, f) || !bwd_config(H, O, b))
-    return -1;
-  return 1 | f.warps << 1 | f.oc << 6 | b.warps << 14 | b.w_smem << 18 |
-         b.resident << 19;
+  fwd_config(H, O, f);
+  bwd_config(H, O, b);
+  return 1 | f.warps << 1 | f.oc << 6 | b.warps << 14 | b.resident << 19;
 }
 
-// The number of blocks ell_max_bwd (edge != 0: ell_max_bwd_edge) launches
-// (its g_W scratch holds one [H, O] partial per block), or -1 for widths
-// it cannot take.
+// The number of g_W partials of ell_max_bwd (edge != 0: ell_max_bwd_edge):
+// on the first design its blocks, on the wide path max_gw_kernel's shares
+// of the slots; -1 for widths it cannot take.
 int ell_max_bwd_blocks(int R, int H, int O, int act, int ek_bf16, int edge) {
   return bwd_blocks(R, H, O, act, ek_bf16, edge != 0);
 }
 
-// gw_part holds `blocks` (from ell_max_bwd_blocks) partials of [H, O].
+// Floats of the scratch gw_part of ell_max_bwd for S slots and `blocks`
+// partials (ell_max_bwd_blocks): the partials [blocks][H * O] and, on the
+// wide path, on the next 16 bytes a row [round8(H) + round8(O)] a slot (a
+// and g_m); -1 for widths the kernels cannot take.
+long long ell_max_bwd_scratch(int S, int blocks, int H, int O) {
+  return bwd_scratch(S, blocks, H, O);
+}
+
+// gw_part holds ell_max_bwd_scratch(S, blocks, H, O) floats.
 int ell_max_bwd(const void* eq, const void* ek, int ek_bf16,
                 const void* slot_src, const void* scale, const void* row_key,
                 const void* row_ptr, const void* w, const void* key_max,

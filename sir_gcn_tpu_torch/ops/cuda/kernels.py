@@ -131,6 +131,7 @@ _ARGTYPES = {
 # _RESTYPE says so)
 _QUERIES = {"ell_kernels": {"ell_layout": [_I] * 3 + [_VP] * 6},
             "ell_max_kernels": {"ell_max_bwd_blocks": [_I] * 6,
+                                "ell_max_bwd_scratch": [_I] * 4,
                                 "ell_max_layout": [_I] * 2},
             "ell_edge_kernels": {"ell_edge_src_bwd_blocks": [_I] * 5,
                                  "ell_edge_layout": [_I] * 4},
@@ -138,7 +139,7 @@ _QUERIES = {"ell_kernels": {"ell_layout": [_I] * 3 + [_VP] * 6},
                 "ell_general_layout": [_I] * 4 + [_VP] * 5,
                 "ell_general_edge_layout": [_I] * 4 + [_VP] * 6},
             "lab_kernels": {"lab_gather_warps": [_I] * 3}}
-_RESTYPE = {"ell_edge_layout": _LL}
+_RESTYPE = {"ell_edge_layout": _LL, "ell_max_bwd_scratch": _LL}
 _ERROR_STRING = {"ell_kernels": "ell_error_string",
                  "ell_max_kernels": "ell_max_error_string",
                  "ell_edge_kernels": "ell_edge_error_string",
@@ -151,7 +152,7 @@ _LIBRARY_OF = {entry: lib for lib, entries in _ARGTYPES.items()
 _GENERAL = tuple(_ARGTYPES["ell_general_kernels"])
 
 _LIBS: dict = {}
-# the grid size of ell_max_bwd per (device, R, H, O, act, bf16, edge) and
+# the g_W partials of ell_max_bwd per (device, R, H, O, act, bf16, edge) and
 # the g_WE partials of ell_edge_src_bwd per (device, R, H, De, act, bf16):
 # fixed for a model and its plan, so the occupancy query runs once
 _BWD_BLOCKS: dict = {}
@@ -789,31 +790,40 @@ class MaxLayout(NamedTuple):
     """How ``csrc/ell_max_kernels.cu`` runs #9-#11 for widths (H, O):
     ``path`` "tensor" (the three-pass TF32 product on the tensor cores, the
     same for all three kernels); the forward's warps a block and W columns
-    a block (more columns take more blocks in grid.y); the backward's warps
-    a block, whether W sits in its shared memory (else it is read from
-    device memory) and whether each warp keeps its g_W tiles in registers
-    for the whole walk (else in the block's slice of the scratch)."""
+    a block (more columns take more blocks in grid.y; on the wide path a
+    warp's slab of W); the backward's warps a block and whether each warp
+    keeps its g_W tiles in registers for the whole walk (else in the
+    block's slice of the scratch; the wide path forms g_W apart, from a
+    row of a and g_m a slot). ``wide``: the wide path, taken where the
+    first design's backward cannot hold W beside four warps' tiles (H = O
+    = 200 and wider): a block of up to sixteen warps (the same in both
+    kernels) a tile of ``tile_slots`` slots, staged once, W streamed
+    through shared memory by column slabs (16 slots a warp's tile on the
+    first design, whose W sits in shared memory)."""
 
     path: str
     fwd_warps: int
     fwd_columns: int
     bwd_warps: int
-    w_in_smem: bool
     gw_in_registers: bool
+    wide: bool = False
+    tile_slots: int = 16
 
 
 def decode_max_layout(code: int) -> Optional[MaxLayout]:
     """The ``MaxLayout`` of a code from the library's ``ell_max_layout``
     (bit 0 the tensor-core path, bits 1-5 forward warps, 6-13 forward
-    columns, 14-17 backward warps, 18 W in shared memory, 19 g_W in
-    registers); None for -1, widths the kernels cannot take."""
+    columns, 14-18 backward warps, 19 g_W in registers, 20 the wide path,
+    21-22 its subtiles of 16 slots a tile);
+    None for -1, widths the kernels cannot take."""
     if code < 0:
         return None
     if not code & 1:
         raise ValueError(f"layout code {code:#x} names no product path")
+    wide = bool(code >> 20 & 1)
     return MaxLayout("tensor", (code >> 1) & 0x1F, (code >> 6) & 0xFF,
-                     (code >> 14) & 0xF, bool(code >> 18 & 1),
-                     bool(code >> 19 & 1))
+                     (code >> 14) & 0x1F, bool(code >> 19 & 1), wide,
+                     16 * ((code >> 21) & 3) if wide else 16)
 
 
 def ell_max_layout(h: int, o: int) -> Optional[MaxLayout]:
@@ -1064,7 +1074,9 @@ def _max_bwd(name, eq, ek, slot_src, scale, row_key, row_ptr, w, key_max,
         raise ValueError(f"{name} cannot take H = {h}, O = {o}")
     geq = torch.empty((r, h), dtype=torch.float32, device=device)
     gz = torch.empty((slot_src.shape[0], h), dtype=ek.dtype, device=device)
-    part = torch.empty((blocks, h * o), dtype=torch.float32, device=device)
+    # the g_W partials and, on the wide path, a and g_m of every slot
+    part = torch.empty(_library("ell_max_kernels").ell_max_bwd_scratch(
+        slot_src.shape[0], blocks, h, o), dtype=torch.float32, device=device)
     gw = torch.empty((h, o), dtype=torch.float32, device=device)
     edge_tbl, edge_slots = _edge_ptrs(e, slot_edge)
     _launch(name, device, _ptr(eq), _ptr(ek), *edge_tbl, bf16,
@@ -1088,7 +1100,15 @@ def ell_max_bwd(eq, ek, slot_src, scale, row_key, row_ptr, w, key_max, gsc,
     ``bucket_max_gemm_bwd``. Bound: tensor-core operations, 6 H O flops
     per slot three times over (m, g_a and g_W, each split in three TF32
     passes). g_w is summed per block and then over blocks in a fixed
-    order, so it is the same from run to run."""
+    order, so it is the same from run to run. On the wide path
+    (``ell_max_layout``) the scratch also holds a and g_m of every slot,
+    from which a split-K kernel forms g_w: S (round8(H) + round8(O))
+    floats, which grow with the slots (at H = O = 512, 327 MB at
+    roman-empire's plan of 79,952 slots, 10.9 GB at the ogbn-arxiv plan's
+    2,654,864), where the first design's scratch is the partials alone,
+    blocks H O floats. A graph whose 4 S (round8(H) + round8(O)) bytes do
+    not fit on the card beside the model cannot take the wide path's
+    backward."""
     return _max_bwd("ell_max_bwd", eq, ek, slot_src, scale, row_key,
                     row_ptr, w, key_max, gsc, act)
 

@@ -7,15 +7,20 @@ example) against the package's own.
     git show <rev>:sir_gcn_tpu_torch/csrc/lab_kernels.cu > other.cu
     python -m sir_gcn_tpu_torch.tools.ell_ab --lab other.cu
     git show <rev>:sir_gcn_tpu_torch/csrc/ell_max_kernels.cu > other.cu
-    python -m sir_gcn_tpu_torch.tools.ell_ab --max other.cu
+    python -m sir_gcn_tpu_torch.tools.ell_ab --max other.cu [--hidden 512]
+    python -m sir_gcn_tpu_torch.tools.ell_ab --max \
+        --define ELL_MAX_WIDE_ONLY sir_gcn_tpu_torch/csrc/ell_max_kernels.cu
     git show <rev>:sir_gcn_tpu_torch/csrc/ell_edge_kernels.cu > other.cu
     python -m sir_gcn_tpu_torch.tools.ell_ab --edge other.cu [--hidden H --de De]
     git show <rev>:sir_gcn_tpu_torch/csrc/ell_general_kernels.cu > other.cu
     python -m sir_gcn_tpu_torch.tools.ell_ab --general other.cu
 
 The other source is built with the package's nvcc flags for its source
-into a library of its own (``build/kernels/ab-<hash>/``), which the
-package never loads.
+(and ``-D`` of each ``--define``) into a library of its own
+(``build/kernels/ab-<hash>/``), which the package never loads. The
+package's own max source built with ``--define ELL_MAX_WIDE_ONLY`` takes
+the wide path wherever it fits: at H = 96 the A/B of the wide path (the
+other) against the first design (this).
 
 The ELL mode (``csrc/ell_kernels.cu``) runs each of #1, #2, #4 and their
 edge-term forms (leaky_relu(0.2) and erf-GELU; #2 and #4 also with tanh)
@@ -44,15 +49,19 @@ outputs, which must be 0 for the passthroughs.
 
 The max mode (``--max``, ``csrc/ell_max_kernels.cu``) runs #9
 ``ell_max_fwd``, #10 ``ell_max_wincount`` and #11 ``ell_max_bwd`` from
-both libraries at the ogbn-arxiv plan with bf16 edges, H = O = 96,
-leaky_relu(0.2) (#11 also with tanh), W ~ U(-1, 1)/sqrt(H) and a
-cotangent from seed 0 made on the card: ms per launch over 10 warm
-launches in eight turns (other, this, this, other, ...), the median and
-the spread of each. Each library's counts and backward are taken against
-its own forward's maxima, as the aggregate uses them; the tool prints the
-largest difference of the maxima, the (row, o) whose counts differ (near
-ties that the two products round apart) and the largest difference of
-geq_rows, g_z and g_W.
+both libraries with bf16 edges, W ~ U(-1, 1)/sqrt(H) and a cotangent from
+seed 0 made on the card: at the ogbn-arxiv plan, H = O = 96,
+leaky_relu(0.2) (#11 also with tanh); with ``--hidden H`` (H = O, e.g.
+512, the wide path) on a graph of roman-empire's size (22,662 nodes,
+65,854 edges, the heterophilous trainer's stand-in) with erf-GELU and
+leaky_relu(0.2). ms per launch over 10 warm launches in eight turns
+(other, this, this, other, ...), the median and the spread of each. Each
+library's counts and backward are taken against its own forward's
+maxima, as the aggregate uses them; the tool prints the largest
+difference of the maxima, the (row, o) whose counts differ (near ties
+that the two products round apart), the largest difference of geq_rows,
+g_z and g_W, g_W against GW_TOL, and which outputs are the other
+build's bits.
 
 The edge mode (``--edge``, ``csrc/ell_edge_kernels.cu``) runs #7
 ``ell_edge_act_reduce2`` and #8 ``ell_edge_src_bwd`` from both libraries
@@ -107,6 +116,7 @@ from ..ops.cuda.kernels import (
     _QUERIES,
     _RESTYPE,
     _library,
+    decode_max_layout,
     ell_edge_layout,
     ell_general_layout,
     ell_max_layout,
@@ -123,8 +133,10 @@ from . import (
 )
 
 ARXIV = dict(nodes=169_343, edges=1_166_243, seed=0)
+# the heterophilous roman-empire's size (Platonov et al. 2023, Table 1:
+# 22,662 nodes, 32,927 undirected edges), the max mode's graph past H
+ROMAN = dict(nodes=22_662, edges=65_854)
 H = 96
-O_MAX = 96  # W_R's width in the max mode
 ITERS = 50
 FOLDS = (2, 4, 8)
 FOLD_ROWS = 16_384
@@ -159,15 +171,16 @@ GENERAL_HELD = {"rows": None, "geq": None, "out": None, "fused": None,
                 "gz": "step", "geq6": BWD_TOL}
 
 
-def build_other(source: Path, name: str = "ell_kernels") -> ctypes.CDLL:
+def build_other(source: Path, name: str = "ell_kernels",
+                defines=()) -> ctypes.CDLL:
     """``source`` built as the package builds its source ``name`` (a key of
-    ``build.SOURCES``), with the package's argument types of ``name`` on
-    its entries; an entry the other source does not have (one added since)
-    is left unbound."""
+    ``build.SOURCES``), with ``-D`` of each of ``defines``, and the
+    package's argument types of ``name`` on its entries; an entry the other
+    source does not have (one added since) is left unbound."""
     if name not in build.SOURCES:
         raise ValueError(f"no source {name!r}; the sources are "
                          f"{sorted(build.SOURCES)}")
-    flags = build._flags(name)
+    flags = build._flags(name) + [f"-D{d}" for d in defines]
     text = source.read_bytes()
     tag = hashlib.sha256(text + " ".join(flags).encode())
     lib = build.BUILD_DIR / f"ab-{tag.hexdigest()[:16]}" / "libab.so"
@@ -416,48 +429,68 @@ def max_tiles(row_ptr, valid, warps: int) -> dict:
                 valid_share=int(np.count_nonzero(valid)) / rows)
 
 
-def max_launches(lib, inp: dict, w, gsc, act) -> dict:
-    """#9, #10 and #11 of one library on ``inp`` (bf16 edges): name ->
-    a call that launches it; and the outputs, #10 and #11 against the
-    library's own forward's maxima."""
+def roman_inputs(device, h: int) -> dict:
+    """A graph of roman-empire's size (the heterophilous trainer's synthetic
+    stand-in, ``ROMAN``) and random node and edge tables of width ``h``,
+    from seed 0, as ``arxiv_inputs``."""
+    from ..experiments.heterophilous import train as het
+
+    args = het._parser().parse_args([
+        "--dataset", "roman-empire", "--synthetic-nodes",
+        str(ROMAN["nodes"]), "--synthetic-edges", str(ROMAN["edges"])])
+    fg = het.prepare(args, 0, 0, device)["graph"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    eq, ek, g = (torch.randn((fg.n_pad, h), generator=gen, device=device)
+                 for _ in range(3))
+    e = torch.randn((fg.e_pad, h), generator=gen, device=device)
+    return dict(fg=fg, eq=eq, ek=ek, g=g, e=e)
+
+
+def max_launches(lib, inp: dict, w, gsc, act, part) -> dict:
+    """#9, #10 and #11 of one library on ``inp`` (edges of ``inp["dtype"]``,
+    bf16 by default; the dst scales ``inp["scale"]``, by default the plan's
+    sum scales): name -> a call that launches it; and the outputs, #10 and
+    #11 against the library's own forward's maxima. ``part``: #11's
+    scratch, large enough for either library."""
     fg = inp["fg"]
     plan = fg.dst_plan
-    eq, ekb = inp["eq"], inp["ek"].to(torch.bfloat16)
+    h, o = w.shape
+    dtype = inp.get("dtype", torch.bfloat16)
+    bf = int(dtype == torch.bfloat16)
+    eq, ekb = inp["eq"], inp["ek"].to(dtype)
+    scale = inp.get("scale", fg.dst_slot_scales["sum"])
     r, s = plan.row_key.numel(), plan.slot_edge.numel()
     p = torch.Tensor.data_ptr
     f32 = dict(dtype=torch.float32, device=eq.device)
     a, sl = act.kernel_id, float(act.param)
     stream = torch.cuda.current_stream().cuda_stream
-    base = (p(eq), p(ekb), 1, p(fg.dst_slot_srcnode),
-            p(fg.dst_slot_scales["sum"]), p(plan.row_key), p(plan.row_ptr),
-            p(w))
-    rows, counts = torch.empty((r, O_MAX), **f32), torch.empty((r, O_MAX),
-                                                                 **f32)
-    blocks = lib.ell_max_bwd_blocks(r, H, O_MAX, a, 1, 0)  # no edge term
+    base = (p(eq), p(ekb), bf, p(fg.dst_slot_srcnode), p(scale),
+            p(plan.row_key), p(plan.row_ptr), p(w))
+    rows, counts = torch.empty((r, o), **f32), torch.empty((r, o), **f32)
+    blocks = lib.ell_max_bwd_blocks(r, h, o, a, bf, 0)  # no edge term
     if blocks <= 0:
-        raise RuntimeError(f"ell_max_bwd cannot take H = O = {H}")
-    geq = torch.empty((r, H), **f32)
-    gz = torch.empty((s, H), dtype=torch.bfloat16, device=eq.device)
-    part = torch.empty((blocks, H * O_MAX), **f32)
-    gw = torch.empty((H, O_MAX), **f32)
+        raise RuntimeError(f"ell_max_bwd cannot take H = {h}, O = {o}")
+    geq = torch.empty((r, h), **f32)
+    gz = torch.empty((s, h), dtype=dtype, device=eq.device)
+    gw = torch.empty((h, o), **f32)
 
     def check(code, entry):
         if code:
             raise RuntimeError(f"{entry}: CUDA error {code}")
 
     def fwd():
-        check(lib.ell_max_fwd(*base, r, H, O_MAX, a, sl, p(rows), stream),
+        check(lib.ell_max_fwd(*base, r, h, o, a, sl, p(rows), stream),
               "ell_max_fwd")
 
     fwd()
     key_max = plan.finalize_rows_max(rows).contiguous()
 
     def count():
-        check(lib.ell_max_wincount(*base, p(key_max), r, H, O_MAX, a, sl,
+        check(lib.ell_max_wincount(*base, p(key_max), r, h, o, a, sl,
                                    p(counts), stream), "ell_max_wincount")
 
     def bwd():
-        check(lib.ell_max_bwd(*base, p(key_max), p(gsc), r, H, O_MAX, a, sl,
+        check(lib.ell_max_bwd(*base, p(key_max), p(gsc), r, h, o, a, sl,
                               blocks, p(geq), p(gz), p(part), p(gw), stream),
               "ell_max_bwd")
 
@@ -465,54 +498,100 @@ def max_launches(lib, inp: dict, w, gsc, act) -> dict:
     bwd()
     torch.cuda.synchronize()
     outs = dict(rows=rows.clone(), counts=counts.clone(), geq=geq.clone(),
-                gz=gz.float(), gw=gw.clone(), keep=(ekb, key_max, part))
+                gz=gz.float(), gw=gw.clone(), key_max=key_max.clone(),
+                keep=(ekb, key_max, scale))
     return dict(fwd=fwd, count=count, bwd=bwd), outs
 
 
-def run_max(device, other: Path) -> dict:
-    """Every A/B line of #9-#11; returns label -> record."""
-    libs = {"other": build_other(other, "ell_max_kernels"),
-            "this": _library("ell_max_kernels")}
-    inp = arxiv_inputs(device)
-    gen = torch.Generator(device=device).manual_seed(1)
-    w = ((torch.rand((H, O_MAX), generator=gen, device=device) * 2 - 1)
-         / H ** 0.5)
-    gsc = torch.randn((inp["fg"].n_pad, O_MAX), generator=gen, device=device)
+def max_scratch(libs: dict, inp: dict, h: int, o: int, act) -> torch.Tensor:
+    """#11's scratch for every library: the most floats any needs, each
+    library's g_W partials ([blocks][H * O]) and, on this library's wide
+    path, its slots' rows (``ell_max_bwd_scratch``; a library without that
+    entry needs its partials only)."""
     plan = inp["fg"].dst_plan
-    lay = ell_max_layout(H, O_MAX)
+    r, s = plan.row_key.numel(), plan.slot_edge.numel()
+    bf = int(inp.get("dtype", torch.bfloat16) == torch.bfloat16)
+    need = 0
+    for lib in libs.values():
+        blocks = lib.ell_max_bwd_blocks(r, h, o, act.kernel_id, bf, 0)
+        if blocks <= 0:
+            raise RuntimeError(f"ell_max_bwd cannot take H = {h}, O = {o}")
+        floats = (lib.ell_max_bwd_scratch(s, blocks, h, o)
+                  if hasattr(lib, "ell_max_bwd_scratch") else blocks * h * o)
+        need = max(need, floats)
+    return torch.empty(need, dtype=torch.float32, device=inp["eq"].device)
+
+
+def run_max(device, other: Path, h: int = H, defines=()) -> dict:
+    """Every A/B line of #9-#11 at W [h, h]; returns label -> record."""
+    libs = {"other": build_other(other, "ell_max_kernels", defines),
+            "this": _library("ell_max_kernels")}
+    # the arxiv plan at its width; the heterophilous width on a graph of
+    # roman-empire's size (#11 at the arxiv plan's 2.6M slots would take
+    # seconds a launch there on the first design)
+    inp = arxiv_inputs(device, h) if h == H else roman_inputs(device, h)
+    gen = torch.Generator(device=device).manual_seed(1)
+    w = ((torch.rand((h, h), generator=gen, device=device) * 2 - 1)
+         / h ** 0.5)
+    gsc = torch.randn((inp["fg"].n_pad, h), generator=gen, device=device)
+    plan = inp["fg"].dst_plan
+    lay = ell_max_layout(h, h)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    # the wide path walks a block's share of the rows, the first design a
+    # warp's, in subtiles of 16 slots either way
     st = max_tiles(plan.host["row_ptr"], plan.host["slot_valid"],
-                   sms * lay.fwd_warps)
-    print(f"layout at H = O = {H}: {lay}", flush=True)
-    print(f"tiles of the plan: {st['tiles']} of 16 slots; slots fill "
-          f"{100 * st['slot_share']:.1f}% of their rows, valid slots "
-          f"{100 * st['valid_share']:.1f}%", flush=True)
+                   sms * (1 if lay.wide else lay.fwd_warps))
+    print(f"layout at H = O = {h}: {lay}", flush=True)
+    if defines:  # the other build is this source: its codes decode alike
+        print(f"the other build's layout: "
+              f"{decode_max_layout(libs['other'].ell_max_layout(h, h))}",
+              flush=True)
+    print(f"plan: S {plan.num_slots}, R {plan.num_rows}, valid slots "
+          f"{int(plan.host['slot_valid'].sum())}; tiles: {st['tiles']} of "
+          f"16 slots; slots fill {100 * st['slot_share']:.1f}% of their "
+          f"rows, valid slots {100 * st['valid_share']:.1f}%", flush=True)
     recs = {"tiles": st}
-    for act in (leaky_relu(0.2), tanh):
-        runs = {k: max_launches(lib, inp, w, gsc, act)
+    # the arxiv width times leaky_relu (and #11 with tanh); the wide
+    # width erf-GELU, the heterophilous sigma, and leaky_relu
+    acts = (leaky_relu(0.2), tanh) if h == H else (gelu(), leaky_relu(0.2))
+    for act in acts:
+        part = max_scratch(libs, inp, h, h, act)
+        runs = {k: max_launches(lib, inp, w, gsc, act, part)
                 for k, lib in libs.items()}
         o, t = runs["other"][1], runs["this"][1]
         differ = int((o["counts"] != t["counts"]).sum())
         diffs = {k: float((o[k] - t[k]).abs().max())
                  for k in ("rows", "geq", "gz", "gw")}
+        same = {k: torch.equal(o[k], t[k])
+                for k in ("rows", "counts", "geq", "gz", "gw")}
+        ref = o["gw"].abs()
+        gw_ok = bool(((o["gw"] - t["gw"]).abs()
+                      <= GW_TOL["atol"] + GW_TOL["rtol"] * ref
+                      + GW_TOL["amax"] * float(ref.max())).all())
         print(f"{act.name}: max |diff| of the maxima {diffs['rows']:.3e}; "
               f"counts differ at {differ} of {t['counts'].numel()} (row, o); "
               f"max |diff| geq_rows {diffs['geq']:.3e}, g_z {diffs['gz']:.3e},"
-              f" g_W {diffs['gw']:.3e}", flush=True)
+              f" g_W {diffs['gw']:.3e} ({'within' if gw_ok else 'BEYOND'} "
+              f"GW_TOL)", flush=True)
+        print(f"{act.name}: the other build's bits: " + ", ".join(
+            f"{k} {'same' if v else 'differ'}" for k, v in same.items()),
+            flush=True)
         names = {"fwd": "#9 ell_max_fwd", "count": "#10 ell_max_wincount",
                  "bwd": "#11 ell_max_bwd"}
         for key, label in names.items():
-            if act.name != "leaky_relu" and key != "bwd":
+            if h == H and act.name != "leaky_relu" and key != "bwd":
                 continue
             ms = alternating_ms({k: r[0][key] for k, r in runs.items()},
                                 MAX_ITERS, MAX_ROUNDS)
             line = ", ".join(f"{k} {_fmt(v)}" for k, v in ms.items())
             gain = statistics.median(ms["other"]) / statistics.median(
                 ms["this"])
-            print(f"{label} ({act.name}, bf16): {line}, this/other "
-                  f"{gain:.2f}x faster", flush=True)
-            recs[f"{label} ({act.name})"] = dict(ms=ms, counts_differ=differ,
-                                                 **diffs)
+            print(f"{label} ({act.name}, bf16, H = O = {h}): {line}, "
+                  f"this/other {gain:.2f}x faster", flush=True)
+            recs[f"{label} ({act.name}, {h})"] = dict(
+                ms=ms, counts_differ=differ, same_bits=same, gw_within=gw_ok,
+                **diffs)
+        del runs, part
     return recs
 
 
@@ -762,26 +841,38 @@ def main(argv=None) -> dict:
                    help="also time #2 and #4 with their gathers folded "
                         "into a smaller table")
     p.add_argument("--hidden", type=int, default=H,
-                   help="with --edge: the width H of the node rows")
+                   help="with --edge: the width H of the node rows; with "
+                        "--max: H = O, past 96 on a graph of roman-empire's "
+                        "size")
     p.add_argument("--de", type=int, default=EDGE_DE,
                    help="with --edge: the width De of the edge basis")
+    p.add_argument("--define", action="append", default=[],
+                   metavar="NAME",
+                   help="with --max: build the other source with -DNAME "
+                        "(ELL_MAX_WIDE_ONLY: the wide path wherever it fits)")
     args = p.parse_args(argv)
     if (args.lab or args.max or args.edge or args.general) and args.probes:
         p.error("--probes is for the ELL kernels, not --lab, --max, --edge "
                 "or --general")
-    if not args.edge and (args.hidden, args.de) != (H, EDGE_DE):
-        p.error("--hidden and --de are for --edge")
+    if not args.edge and args.de != EDGE_DE:
+        p.error("--de is for --edge")
+    if not (args.edge or args.max) and args.hidden != H:
+        p.error("--hidden is for --edge and --max")
+    if args.define and not args.max:
+        p.error("--define is for --max")
     device = resolve_device(False)
     name = ("lab_kernels" if args.lab else
             "ell_max_kernels" if args.max else
             "ell_edge_kernels" if args.edge else
             "ell_general_kernels" if args.general else "ell_kernels")
     print(card_line(), flush=True)
-    print(f"other: {args.other}; this: {build.SOURCES[name]}", flush=True)
+    print(f"other: {args.other}"
+          + "".join(f" -D{d}" for d in args.define)
+          + f"; this: {build.SOURCES[name]}", flush=True)
     if args.lab:
         return run_lab(device, args.other)
     if args.max:
-        return run_max(device, args.other)
+        return run_max(device, args.other, args.hidden, args.define)
     if args.edge:
         return run_edge(device, args.other, args.hidden, args.de)
     if args.general:

@@ -25,10 +25,11 @@ and is held within the forward tolerance of ``slot_products`` and a tenth
 of chip_smoke.py's NEAR_TIE of the exact product.
 
 The ``cuda`` tests compare each kernel with its plain version on the card
-(any H, O; rows longer than a tile; W beyond shared memory), hold each
-slot's product to the same bits in any tiling and #10's counts to cover
-every key's max, ask #11 for equal bits twice, and skip where there is
-no card. JAX is imported inside the tests that use
+(any H, O; rows longer than a tile; W beyond shared memory, where the
+kernels take their wide path: H = O = 200, 512 and 520, 512 x 200, 264 x
+600), hold each slot's product to the same bits in any tiling and #10's
+counts to cover every key's max (at 512 too), ask #11 for equal bits
+twice, and skip where there is no card. JAX is imported inside the tests that use
 it, so that the card's tests run where JAX is not installed
 (``pytest -m cuda --noconftest tests/test_torch_max.py``).
 """
@@ -56,7 +57,12 @@ from sir_gcn_tpu_torch.ops.cuda import (
     ell_scaled_reduce_plain,
     reset_launch_counts,
 )
-from sir_gcn_tpu_torch.ops.cuda.kernels import decode_max_layout, slot_products
+from sir_gcn_tpu_torch.ops.cuda.kernels import (
+    NEG,
+    bucket_products,
+    decode_max_layout,
+    slot_products,
+)
 
 FWD_TOL = dict(atol=2e-4, rtol=1e-4)
 BWD_TOL = dict(atol=3e-4, rtol=1e-3)
@@ -176,10 +182,16 @@ def _pallas_rows(c, pallas, jact, jdt):
             np.concatenate(gz), gw)
 
 
-@pytest.mark.parametrize("dt", sorted(DTYPES))
-@pytest.mark.parametrize("act", sorted(ACTS))
-@pytest.mark.parametrize("graph,h,o", [("random", 24, 40), ("hub", 16, 16),
-                                       ("ties", 32, 24)])
+# the small shapes with every sigma and type, and roman-empire's width
+# (the kernels' wide path on the card) with erf-GELU, its sigma
+PLAIN_CASES = [(graph, h, o, act, dt)
+               for graph, h, o in (("random", 24, 40), ("hub", 16, 16),
+                                   ("ties", 32, 24))
+               for act in sorted(ACTS) for dt in sorted(DTYPES)] + [
+    ("random", 512, 512, "gelu", dt) for dt in sorted(DTYPES)]
+
+
+@pytest.mark.parametrize("graph,h,o,act,dt", PLAIN_CASES)
 def test_max_plains_match_pallas(graph, h, o, act, dt):
     c = make_case(graph, h, o)
     pallas, jact, jdt = jax_side(act, dt)
@@ -516,7 +528,7 @@ def test_tf32_rna_rounds_to_nearest_ties_away():
 
 
 @pytest.mark.parametrize("act", sorted(ACTS))
-@pytest.mark.parametrize("h,o", [(96, 96), (24, 40), (200, 200)])
+@pytest.mark.parametrize("h,o", [(96, 96), (24, 40), (200, 200), (512, 512)])
 def test_three_pass_tf32_product_is_f32_accurate(h, o, act):
     """The split product of the max kernels stays within the forward
     tolerance of ``slot_products`` (the plain versions' yardstick) and
@@ -543,14 +555,41 @@ def test_max_layout_python_side():
     for h, o in ((0, 96), (96, 0), (-1, 8)):
         with pytest.raises(ValueError, match="positive"):
             ell_max_layout(h, o)
-    code = 1 | 16 << 1 | 96 << 6 | 8 << 14 | 1 << 18 | 1 << 19
-    assert decode_max_layout(code) == MaxLayout("tensor", 16, 96, 8, True,
-                                                True)
+    code = 1 | 16 << 1 | 96 << 6 | 8 << 14 | 1 << 19
+    assert decode_max_layout(code) == MaxLayout("tensor", 16, 96, 8, True)
     assert decode_max_layout(1 | 4 << 1 | 8 << 6 | 5 << 14) == MaxLayout(
-        "tensor", 4, 8, 5, False, False)
+        "tensor", 4, 8, 5, False)
+    # the wide path (H = O = 512): sixteen warps in both kernels, slabs of
+    # 32 columns, g_W formed apart, tiles of 32 slots
+    wide = 1 | 16 << 1 | 32 << 6 | 16 << 14 | 1 << 20 | 2 << 21
+    assert decode_max_layout(wide) == MaxLayout("tensor", 16, 32, 16, False,
+                                                True, 32)
+    # where H and O lie far apart (1700 x 8): one warp, one subtile
+    narrow = 1 | 1 << 1 | 8 << 6 | 1 << 14 | 1 << 20 | 1 << 21
+    assert decode_max_layout(narrow) == MaxLayout("tensor", 1, 8, 1, False,
+                                                  True, 16)
+    assert not decode_max_layout(code).wide
     assert decode_max_layout(-1) is None
     with pytest.raises(ValueError, match="no product path"):
         decode_max_layout(code & ~1)
+
+
+def test_max_ab_takes_the_width(tmp_path):
+    """``ell_ab --max --hidden H`` (the wide path's A/B at H = O = 512)
+    parses and then needs the card; --hidden is for --max and --edge only,
+    --de for --edge only, --define for --max only."""
+    from sir_gcn_tpu_torch.tools import ell_ab
+
+    other = str(tmp_path / "other.cu")
+    for argv in (["--lab", "--hidden", "512", other],
+                 ["--max", "--de", "8", other],
+                 ["--edge", "--define", "ELL_MAX_WIDE_ONLY", other]):
+        with pytest.raises(SystemExit):
+            ell_ab.main(argv)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ell_ab.main(["--max", "--hidden", "512", other])
 
 
 # ----------------------------------------------------------------------
@@ -750,24 +789,47 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dt", sorted(DTYPES))
-@pytest.mark.parametrize("act", sorted(ACTS))
-@pytest.mark.parametrize("graph,h,o", [("hub", 24, 40), ("random", 96, 96),
-                                       ("random", 200, 200),
-                                       ("ties", 32, 24), ("random", 36, 100),
-                                       ("hub256", 24, 40)])
-def test_max_kernels_match_plain_on_card(cuda_device, graph, h, o, act, dt):
-    """Every shape on the tensor-core path: H and O off multiples of 8
-    (36 x 100), rows longer than a 16-slot tile (hub: budget 64; hub256:
-    chunk rows of 256), W too large for one block's shared memory (200 x
-    200), exact ties."""
-    c = make_case(graph, h, o, device=cuda_device)
-    d, tact = cuda_device, ACTS[act]
-    args = _port_args(c, DTYPES[dt], d)
+def near_ties(c, args, tact):
+    """[N, O] True at the (key, o) whose two largest valid slot products
+    lie apart by at most NEAR_TIE of 1 + |max| but not 0 (an exact tie,
+    from duplicated edges, is the same product on both sides): the card's
+    three-pass TF32 product and the plain version's f32 sum may pick
+    different winners there (chip_smoke.py's ``near_ties``)."""
+    plan = c.fg.dst_plan
+    eq, ek, slot_src, scale, row_key, _, w = args
+    t1, t2 = [], []
+    for _, _, _, _, m, valid in bucket_products(
+            eq, ek, slot_src, scale, row_key, w, tact, plan.buckets1):
+        mv = torch.where(valid, m, NEG)
+        if mv.shape[1] >= 2:
+            top = mv.topk(2, dim=1).values
+            t1.append(top[:, 0])
+            t2.append(top[:, 1])
+        else:
+            t1.append(mv[:, 0])
+            t2.append(torch.full_like(mv[:, 0], NEG))
+    t1, t2 = torch.cat(t1), torch.cat(t2)
+    k1 = plan.finalize_rows_max(t1)
+    k1_rows = k1.index_select(0, plan.row_key)
+    k2 = torch.maximum(plan.finalize_rows_max(t2), plan.finalize_rows_max(
+        torch.where(t1 < k1_rows, t1, NEG)))
+    shared = plan.finalize_rows_sum((t1 == k1_rows).float()) >= 2
+    k2 = torch.where(shared, k1, k2)
+    gap = k1 - k2
+    return (k2 > NEG / 2) & (gap > 0) & (gap <= NEAR_TIE * (1 + k1.abs()))
+
+
+def _kernels_match_plain(c, dt, tact, device, mask_near_ties=False):
+    """#9-#12 on the card against their plain versions on case ``c``, each
+    side's counts and backward against its own forward's maxima; one
+    launch of each. With ``mask_near_ties`` the cotangent is 0 at the
+    near ties, where the two may take different winners (their counts
+    agree there all the same: one winner each)."""
+    args = _port_args(c, DTYPES[dt], device)
     plan, splan = c.fg.dst_plan, c.fg.src_plan
-    gsc = _t(c.g, device=d)
-    assert ell_max_layout(h, o).path == "tensor"
+    gsc = _t(c.g, device=device)
+    if mask_near_ties:
+        gsc = torch.where(near_ties(c, args, tact), 0.0, gsc).contiguous()
     reset_launch_counts()
     rows = ell_max_fwd(*args, tact)
     key_max = plan.finalize_rows_max(rows)
@@ -780,7 +842,6 @@ def test_max_kernels_match_plain_on_card(cuda_device, graph, h, o, act, dt):
         "ell_max_fwd": 1, "ell_max_wincount": 1, "ell_max_bwd": 1,
         "ell_scaled_reduce": 1}
 
-    # each side against its own forward's maxima
     rows_p = ell_max_fwd_plain(*args, tact)
     key_max_p = plan.finalize_rows_max(rows_p)
     torch.testing.assert_close(rows, rows_p, **FWD_TOL)
@@ -796,12 +857,117 @@ def test_max_kernels_match_plain_on_card(cuda_device, graph, h, o, act, dt):
         red, ell_scaled_reduce_plain(gz, c.fg.src_slot_from_dst_slot,
                                      splan.slot_valid, splan.row_ptr),
         **BWD_TOL)
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("act", sorted(ACTS))
+@pytest.mark.parametrize("graph,h,o", [("hub", 24, 40), ("random", 96, 96),
+                                       ("random", 200, 200),
+                                       ("ties", 32, 24), ("random", 36, 100),
+                                       ("hub256", 24, 40)])
+def test_max_kernels_match_plain_on_card(cuda_device, graph, h, o, act, dt):
+    """Every shape on the tensor-core path: H and O off multiples of 8
+    (36 x 100), rows longer than a 16-slot tile (hub: budget 64; hub256:
+    chunk rows of 256), W too large for one block's shared memory (200 x
+    200, the wide path), exact ties."""
+    c = make_case(graph, h, o, device=cuda_device)
+    assert ell_max_layout(h, o).path == "tensor"
+    counts = _kernels_match_plain(c, dt, ACTS[act], cuda_device)
     if graph == "ties":
         assert counts.max() >= 2
 
 
+# the wide path's shapes: roman-empire's width, 520 (a pass of 65 column
+# tiles: two slabs' passes), O != H either way past shared memory, O off
+# a multiple of 4 (W's rows copied 4 bytes at a time) with H = 300 (bf16
+# rows gathered a feature a lane); rows cut by tiles (hub256), exact ties,
+# a graph with isolated nodes; widths far apart, where the tile takes one
+# subtile (64 x 1600) and the block eight warps (1400 x 64) or one (1700 x
+# 8)
+WIDE_CASES = [("random", 512, 512), ("random", 520, 520), ("random", 512, 200),
+              ("random", 264, 600), ("random", 300, 203),
+              ("hub256", 512, 512), ("ties", 512, 512), ("isolated", 512, 512),
+              ("random", 64, 1600), ("random", 1400, 64), ("random", 1700, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("act", ["leaky_relu", "gelu"])
+@pytest.mark.parametrize("graph,h,o", WIDE_CASES)
+def test_max_wide_kernels_match_plain_on_card(cuda_device, graph, h, o, act,
+                                              dt):
+    """The wide path (a block a tile of 16 or 32 slots, W streamed through
+    shared memory, g_W by a split-K product) against the plain versions:
+    zero-scale slots and a row with none valid, every block's partial last
+    tile, counts exact on ties; the cotangent masked at near ties, as
+    chip_smoke.py masks it (at 520 x 520 with erf-GELU in f32 two slots'
+    products lie 6.8e-8 apart). The (200, 200) case of
+    ``test_max_kernels_match_plain_on_card`` runs the wide path unmasked."""
+    c = make_case(graph, h, o, device=cuda_device)
+    lay = ell_max_layout(h, o)
+    assert lay.wide
+    assert lay.tile_slots == (32 if max(h, o) <= 600 else 16)
+    counts = _kernels_match_plain(c, dt, ACTS[act], cuda_device,
+                                  mask_near_ties=True)
+    if graph == "ties":
+        assert counts.max() >= 2
+
+
+def _fallback_took(h, o):
+    """Whether #9-#11 took widths (h, o) before the wide path: the first
+    design's forward, in W column chunks, and its backward, with one warp's
+    buffers in a block's shared memory and W read from device memory
+    where it did not fit beside them (the rule of ``fwd_config`` and
+    ``bwd_config`` in ``csrc/ell_max_kernels.cu`` as the device-memory
+    fallback had them)."""
+    room, pre = 232448 - 1024, 2
+
+    def r(x, m):
+        return (x + m - 1) // m * m
+
+    def stride(x, res):
+        return x + ((res - x % 32) + 32) % 32
+
+    hp = r(h, 8)
+    fwd = False
+    for oc in range(min(96, r(o, 8)), 7, -8):
+        per_warp = (16 * max(stride(hp, 4), stride(oc, 8))
+                    + (1 + pre) * r(oc, 4))
+        if 8 * hp * stride(oc, 8) + 4 * per_warp <= room:
+            fwd = True
+            break
+    op = r(o, 16)
+    per_warp = 4 * (32 * stride(hp, 8) + 16 * stride(op, 8) + r(hp, 4)
+                    + 2 * pre * r(op, 4))
+    return fwd and per_warp <= room
+
+
+@pytest.mark.cuda
+def test_max_layout_takes_every_width_the_fallback_took(cuda_device):
+    """The wide path took the place of the first design's device-memory
+    fallback for W: every width that fallback took (H up to 1704, O up to
+    2843) still has a path, and the widest of them (H and O far apart)
+    take the wide path with fewer subtiles or warps."""
+    hs = sorted({*range(8, 1760, 24), 1, 1700, 1704, 1705})
+    os_ = sorted({*range(8, 2900, 40), 1, 1600, 2843, 2848})
+    took = 0
+    for h in hs:
+        for o in os_:
+            if _fallback_took(h, o):
+                took += 1
+                assert ell_max_layout(h, o) is not None, (h, o)
+    assert took > len(hs) * len(os_) // 4
+    assert ell_max_layout(64, 1600).tile_slots == 16
+    assert ell_max_layout(1400, 64).bwd_warps == 8
+    assert ell_max_layout(1700, 8).fwd_warps == 1
+    assert ell_max_layout(512, 512) == MaxLayout("tensor", 16, 32, 16, False,
+                                                 True, 32)
+
+
 TILINGS = [("random", 96, 96), ("hub256", 24, 40), ("random", 36, 100),
-           ("random", 200, 200)]
+           ("random", 200, 200), ("random", 512, 512)]
 
 
 def _one_slot_products(c, args, tact):
@@ -870,7 +1036,8 @@ def test_win_counts_cover_every_key_max_on_card(cuda_device, graph, h, o):
 @pytest.mark.cuda
 @pytest.mark.parametrize("graph,h,o", [("random", 96, 96),
                                        ("random", 200, 200),
-                                       ("hub256", 24, 40)])
+                                       ("hub256", 24, 40),
+                                       ("hub256", 512, 512)])
 def test_max_bwd_is_bitwise_repeatable_on_card(cuda_device, graph, h, o):
     """Two launches of #11 on the same inputs give the same bits: g_W's
     partials are summed in block order, with no atomics."""

@@ -523,8 +523,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (200, 200) and (512, 512) take the wide path
 CARD_CASES = [("hub", 24, 40), ("random", 96, 96), ("random", 200, 200),
-              ("ties", 32, 24), ("random", 36, 100), ("hub256", 24, 40)]
+              ("ties", 32, 24), ("random", 36, 100), ("hub256", 24, 40),
+              ("random", 512, 512)]
 
 
 @pytest.mark.cuda

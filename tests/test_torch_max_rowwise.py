@@ -328,12 +328,14 @@ def cuda_device():
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("act", ["centered_relu", "softmax"])
 @pytest.mark.parametrize("graph,h,o", base.CARD_CASES + [
-    ("hub", 300, 24), ("random", 520, 520), ("isolated", 513, 40)])
+    ("hub", 300, 24), ("random", 520, 520), ("isolated", 513, 40),
+    ("random", 1700, 8)])
 def test_max_rowwise_kernels_match_plain_on_card(cuda_device, graph, h, o,
                                                  act, dt):
     """Every shape on the tensor-core path, with the statistic over H:
     rows longer than a tile, W beyond shared memory (200 x 200, 520 x
-    520), H and O off multiples of 8 (36 x 100, 513 x 40)."""
+    520; 1700 x 8, where the wide path's block has one warp), H and O
+    off multiples of 8 (36 x 100, 513 x 40)."""
     c = base.make_case(graph, h, o, device=cuda_device)
     d, tact = cuda_device, ACTS[act]
     args = _args(c, DTYPES[dt], d)
