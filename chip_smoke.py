@@ -38,10 +38,12 @@ one line before the kernels line); any failure exits non-zero:
            (H = 20 to 200) and at the arxiv plan (centered_relu timed in
            bf16, the lane-group path required), erf-GELU declared
            non-elementwise on all five (timed at the arxiv plan in bf16),
-           and the wide path (a row-wise sigma past H = 256, required) of
-           all five and of the edge forms at H = 300, 512 and 520 on the
-           small plans and at H = 512 on the arxiv plan (centered_relu
-           timed, near gates masked, then softmax); erf-GELU (the
+           and a row-wise sigma past H = 256 in all five and the edge
+           forms at H = 300, 512 and 520 on the small plans and at H =
+           512 on the arxiv plan (centered_relu timed, near gates masked,
+           then softmax): #1r and #4r (and their edge forms) on full-warp
+           lane groups up to 512 on whole 16-byte chunks, the others on
+           the wide path, each required; erf-GELU (the
            registry's gelu(), sigma id 4) on the
            small plans, at the arxiv plan in f32 and bf16 (bf16 timed
            beside leaky_relu) and at H = O = 512 on a plan of the
@@ -101,8 +103,10 @@ one line before the kernels line); any failure exits non-zero:
            every gradient (W_E's too)
   general_wide one SIRConv at the heterophilous width (512 in, hidden and
            out) on the arxiv plan, bf16 edges, 3 steps and evals each
-           with exact launch counts: (a) softmax, mean and (b)
-           centered_relu(0.5), sym on the wide path ((b) profiled), (c)
+           with exact launch counts, after the layout rule at 512 and
+           520 in bf16 and f32 (required): (a) softmax, mean and (b)
+           centered_relu(0.5), sym, #1r and #4r on full-warp lane groups,
+           #3 on the wide path ((b) profiled), (c)
            erf-GELU declared non-elementwise, sym; then one aggregate
            each with its exact launches: (d) erf-GELU at H = 96 with
            fuse_bwd_take (#2, #5), (e) centered_relu at H = 512 with
@@ -306,11 +310,6 @@ GW_TOL = dict(atol=3e-4, rtol=1e-3, amax=1e-5)
 # may pick another winner on the card than in the plain version: the two
 # sum H products in another order
 NEAR_TIE = 1e-5
-# (slot, feature) whose centered_relu gate m = z - alpha * mean(z) lies
-# within this of 0 (relative to 1 + |alpha * mean|) may take the other side
-# of the relu on the card: the two sum the mean in another order, which
-# moves m by about 1e-8
-NEAR_GATE = 1e-5
 # the lab's gather and tile sums add 4096 or 8192 rows in f32, in another
 # order in the kernel than in the plain version; each sum's error is at most
 # (chain - 1) * 2^-24 * (sum of the terms' magnitudes) for its longest chain
@@ -424,6 +423,11 @@ MAX_FORMS = ("rowwise", "rowwise,wide", "edge,rowwise", "wide")
 GENERAL_FORMS = GENERAL + BWD
 # the general_wide phase's width: the heterophilous default
 WIDE_H = 512
+# #1r and #4r and their edge forms: past H = 256 on lane groups of the
+# whole warp, up to 512 on whole 16-byte chunks; the other general kernels
+# take the first design's wide path past 256
+FULL_WARP = ("ell_act_reduce_rowwise", "ell_src_bwd_rowwise",
+             "ell_act_reduce_rowwise_edge", "ell_src_bwd_rowwise_edge")
 LAB = tuple(k for k in KERNELS if k.startswith("lab_"))
 EDGE_DIM = 16  # the edge basis width of the SIREConv configuration
 # the kernels with an erf-GELU form (sigma id 4): each is a row of its own
@@ -553,18 +557,10 @@ def phase_build():
     log(f"  built {sorted(logs) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f}s")
     for name in build.SOURCES:
-        regs, spills, n, fn = [], [], 0, None
-        for line in build.build_log(name).splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                fn, n = m.group(1), n + 1
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                regs.append(int(m.group(1)))
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m and int(m.group(1)) and fn:
-                spills.append(f"{short_name(fn)} {m.group(1)} B")
-        log(f"  ptxas {name}: {n} kernels, registers "
+        entries = build.ptxas_entries(build.build_log(name))
+        regs = [r for _, r, _ in entries]
+        spills = [f"{short_name(fn)} {b} B" for fn, _, b in entries if b]
+        log(f"  ptxas {name}: {len(entries)} kernels, registers "
             f"{min(regs, default=0)}-{max(regs, default=0)}, "
             f"{len(spills)} with spill stores")
         for line in spills:
@@ -1114,25 +1110,21 @@ def general_case(graph: str, h: int, device):
 
 def near_gates(plan, z, scale, act):
     """(slot flags [S], row flags [R], pairs): the valid slots of ``plan``
-    with a feature whose centered_relu gate lies within NEAR_GATE of 0, at
-    the slot values z [S, H] f32 (the plain version's), the rows holding
-    such a slot, and the number of such (slot, feature)."""
-    import torch
+    with a feature whose centered_relu gate lies within ``NEAR_GATE`` of 0
+    (``ops/cuda/checks.py``: the relu may take the other side on the card,
+    which sums the mean in another order), at the slot values z [S, H] f32
+    (the plain version's), the rows holding such a slot, and the number of
+    such (slot, feature)."""
+    from sir_gcn_tpu_torch.ops.cuda.checks import near_gate, slot_rows
 
-    c = act.param * (z.sum(-1, keepdim=True) / z.shape[1])
-    near = ((z - c).abs() <= NEAR_GATE * (1 + c.abs())) & (scale != 0)[:, None]
+    near = near_gate(z, scale, act)
     slots = near.any(1)
-    ptr = plan.row_ptr.long()
-    rows = torch.zeros(ptr.numel() - 1, dtype=torch.bool, device=z.device)
-    slot_row = torch.repeat_interleave(
-        torch.arange(rows.numel(), device=z.device), ptr.diff())
-    rows[slot_row[slots]] = True
-    return slots, rows, int(near.sum())
+    return slots, slot_rows(plan, slots), int(near.sum())
 
 
 def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
                           timing=None, mask_gates=False, require_group=(),
-                          names=None, e=None, tag="", require_wide=False):
+                          names=None, e=None, tag="", require_wide=()):
     """The general route's kernels (#1r, #3, #6 on the dst plan; #4r and
     #5 on the src plan; only ``names`` where given) against their plain
     versions; with an edge table ``e`` [E_pad, H] instead the edge forms
@@ -1142,9 +1134,10 @@ def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
     (slot, feature) are left out of the backward comparisons and counted:
     the relu may take the other side there. Each kernel's path is logged;
     those named in ``require_group`` (True: all) must take the lane-group
-    path, and with ``require_wide`` all the wide path. Where #3 and #6 both
-    take the lane-group path, #6's rows must be #3's bits. Errors and times
-    go under the kernel's name plus ``tag`` ("[gelu]", "[wide]")."""
+    path, and those named in ``require_wide`` (True: all) the wide path.
+    Where #3 and #6 both take the lane-group path, #6's rows must be #3's
+    bits. Errors and times go under the kernel's name plus ``tag``
+    ("[gelu]", "[wide]")."""
     import torch
 
     from sir_gcn_tpu_torch.ops import cuda as K
@@ -1239,7 +1232,7 @@ def check_general_kernels(label, fg, eq, ek, g, sd, ss, act, dtype, errs,
         lays[name] = log_general_layout(
             label, name, runs[name][0], got,
             require_group=require_group is True or name in require_group,
-            require_wide=require_wide)
+            require_wide=require_wide is True or name in require_wide)
     if (isinstance(lays.get("ell_geq_reduce"), K.GeneralLayout)
             and isinstance(lays.get("ell_act_reduce_bwd"), K.GeneralLayout)):
         if not torch.equal(outs["ell_act_reduce_bwd"][1],
@@ -1362,8 +1355,10 @@ def phase_kernels(device):
                                       tag=gelu_tag(act))
                 check_general_kernels(f"{label} edge", *case, act, dtype,
                                       errs, e=e)
-    # the wide path: a row-wise sigma past H = 256, rows whole 16-byte
-    # chunks (512, 520) or not (300); the edge forms beside
+    # a row-wise sigma past H = 256, rows whole 16-byte chunks (512, 520;
+    # 300 in f32) or not (300 in bf16): #1r and #4r (and their edge forms)
+    # on full-warp lane groups up to 512 on whole chunks, the rest on the
+    # wide path; the edge forms beside
     for graph, h in (("hub", 300), ("random", 512), ("isolated", 520)):
         case = general_case(graph, h, device)
         e = edge_tables(case[0], h, 1, seed=h)[0]
@@ -1371,9 +1366,9 @@ def phase_kernels(device):
             for dtype in dtypes:
                 label = f"{graph} H={h} {act.name} {dtype}"
                 check_general_kernels(label, *case, act, dtype, errs,
-                                      tag="[wide]", require_wide=True)
+                                      tag="[wide]", **wide_paths(h, dtype))
                 check_general_kernels(f"{label} edge", *case, act, dtype,
-                                      errs, e=e, require_wide=True)
+                                      errs, e=e, **wide_paths(h, dtype))
 
     args = get_args(TRAIN_FLAGS)
     data = synthetic_node_classification(
@@ -1511,11 +1506,21 @@ def phase_kernels(device):
     return errs, timing, fg
 
 
+def wide_paths(h: int, dtype) -> dict:
+    """``check_general_kernels``' path requirements past H = 256: #1r and
+    #4r (and their edge forms) on the lane-group path up to 512 on whole
+    16-byte chunks, every other kernel on the wide path."""
+    group = FULL_WARP if h <= 512 and h * dtype.itemsize % 16 == 0 else ()
+    return dict(require_group=group, require_wide=tuple(
+        k for k in GENERAL + BWD + tuple(GENERAL_EDGE) if k not in group))
+
+
 def wide_kernels(device, fg, errs, timing):
-    """The general route's five kernels on their wide path at the arxiv
-    plan, H = WIDE_H (the general_wide phase's), bf16 edges, each against
-    its plain version: centered_relu(0.5), near gates masked, timed; then
-    softmax. The times go under "<name>[wide]"."""
+    """The general route's five kernels at the arxiv plan, H = WIDE_H (the
+    general_wide phase's), bf16 edges, each against its plain version
+    (#1r and #4r on full-warp lane groups, #3, #5 and #6 on the wide path):
+    centered_relu(0.5), near gates masked, timed; then softmax. The times
+    go under "<name>[wide]"."""
     import torch
 
     from sir_gcn_tpu_torch.ops.ell import centered_relu, softmax
@@ -1525,19 +1530,22 @@ def wide_kernels(device, fg, errs, timing):
     eq, ek, g = (torch.randn((fg.n_pad, h), generator=gen, device=device)
                  for _ in range(3))
     sd, ss = fg.dst_slot_scales["sym"], fg.src_slot_scales["sym"]
-    log(f"  arxiv plan at H {h}: the wide path")
+    log(f"  arxiv plan at H {h}: full-warp lane groups and the wide path")
+    paths = wide_paths(h, torch.bfloat16)
     check_general_kernels(f"arxiv H={h} bf16 centered_relu", fg, eq, ek, g,
                           sd, ss, centered_relu(0.5), torch.bfloat16, errs,
                           timing=timing, mask_gates=True, tag="[wide]",
-                          require_wide=True)
+                          **paths)
     check_general_kernels(f"arxiv H={h} bf16 softmax", fg, eq, ek, g, sd, ss,
                           softmax, torch.bfloat16, errs, tag="[wide]",
-                          require_wide=True)
+                          **paths)
     for name in GENERAL_FORMS:
         t = timing[f"{name}[wide]"]
-        log(f"  {name} at H={h} (bf16, wide path): {t['ms']:.4f} ms, plain "
+        path = "lane groups" if name in FULL_WARP else "wide path"
+        log(f"  {name} at H={h} (bf16, {path}): {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} ms by "
-            f"{t['bound'][1]}, {100 * t['bound'][0] / t['ms']:.1f}% of bound")
+            f"{t['bound'][1]} ({t['bound'][2] / 1e6:.1f} MB), "
+            f"{100 * t['bound'][0] / t['ms']:.1f}% of bound")
     del eq, ek, g
     torch.cuda.empty_cache()
 
@@ -2450,10 +2458,50 @@ def phase_general_edge(device, fg, steps: int = 5):
     return launches
 
 
+def require_wide_layouts(device, act):
+    """The path ``ell_general_layout`` reports for each general kernel and
+    edge form at WIDE_H and past it, on aligned tables: at WIDE_H (512) #1r
+    and #4r and their edge forms on lane groups of the whole warp,
+    GeneralLayout(64, 32, 1, 2, 1) in bf16 and (128, 32, 1, 4, 1) in f32;
+    #3, #5 and #6 (and #3's edge form) on the first design's wide path,
+    WideLayout(16, 1); at 520 every kernel on the wide path's passes,
+    WideLayout(8, 3). Raises on any other path."""
+    import torch
+
+    from sir_gcn_tpu_torch.ops import cuda as K
+
+    for h in (WIDE_H, 520):
+        for dtype in (torch.bfloat16, torch.float32):
+            f32 = torch.zeros((4, h), device=device)
+            gath = torch.zeros((4, h), dtype=dtype, device=device)
+            both = torch.zeros((4, 2 * h), dtype=dtype, device=device)
+            chunks = h * dtype.itemsize // 16
+            got = {}
+            for name in GENERAL + BWD + tuple(GENERAL_EDGE):
+                ts = ((both, f32, f32) if name == "ell_src_bwd_fused" else
+                      (f32, gath, f32, gath, f32)
+                      if name == "ell_act_reduce_bwd" else
+                      (f32, gath, gath, f32))
+                got[name] = K.ell_general_layout(name, h, dtype, act, *ts)
+                want = (K.GeneralLayout(chunks, 32, 1, chunks // 32, 1)
+                        if h <= 512 and name in FULL_WARP else
+                        K.WideLayout(16, 1) if h <= 512 else
+                        K.WideLayout(8, -(-h // 256)))
+                if got[name] != want:
+                    raise AssertionError(f"H={h} {dtype} {act.name} {name}: "
+                                         f"{got[name]}, expected {want}")
+            log(f"  layouts at H={h} ({dtype}, {act.name}): " + ", ".join(
+                f"{k} {v}" for k, v in got.items()))
+
+
 def phase_general_wide(device, fg, steps: int = 3):
-    """One SIRConv at the heterophilous width (WIDE_H in, hidden and out)
+    """First the paths the general kernels take at WIDE_H and past it, in
+    bf16 and f32 (``require_wide_layouts``: #1r and #4r on full-warp lane
+    groups at 512, the rest on the wide path). Then one SIRConv at the
+    heterophilous width (WIDE_H in, hidden and out)
     on the arxiv plan, bf16 edges, three times: (a) softmax with mean, (b)
-    centered_relu(0.5) with sym, both on the wide path, (c) erf-GELU
+    centered_relu(0.5) with sym, both with #1r and #4r on full-warp lane
+    groups and #3 on the wide path, (c) erf-GELU
     declared non-elementwise (``Activation("gelu", sir_elementwise=
     False)``) with sym, on the general route's first design; each
     ``steps`` AdamW steps, each followed by a no-grad eval, with exact
@@ -2461,10 +2509,10 @@ def phase_general_wide(device, fg, steps: int = 3):
     and (b) profiled over 3 warm steps. Then single aggregates with a
     gradient, each launching exactly what it names: (d) erf-GELU at H = 96
     with fuse_bwd_take (#2, #5); (e) centered_relu at H = WIDE_H with
-    fuse_bwd_take (#1r, #3, #5, the wide path); the dst-major composition
-    (#1r, #6, #12) with (f) centered_relu at H = WIDE_H and (g) erf-GELU
-    declared non-elementwise at H = 96. Returns the launches of the wide
-    forms and of the erf-GELU forms by kernel."""
+    fuse_bwd_take (#1r, #3, #5; #3 and #5 the wide path); the dst-major
+    composition (#1r, #6, #12) with (f) centered_relu at H = WIDE_H and (g)
+    erf-GELU declared non-elementwise at H = 96. Returns the launches of
+    the wide forms and of the erf-GELU forms by kernel."""
     import torch
 
     from sir_gcn_tpu_torch.models import SIRConv
@@ -2482,6 +2530,8 @@ def phase_general_wide(device, fg, steps: int = 3):
     h = WIDE_H
     log(f"== general_wide: one SIRConv ({h} -> {h} -> {h}, bf16 edges) on "
         f"the arxiv plan, {steps} steps and evals each")
+    for act in (softmax, centered_relu(0.5)):
+        require_wide_layouts(device, act)
     set_edge_dtype(torch.bfloat16)
     gen = torch.Generator(device=device).manual_seed(6)
     x = torch.randn((fg.n_pad, h), generator=gen, device=device)

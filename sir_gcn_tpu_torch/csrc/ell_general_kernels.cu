@@ -46,9 +46,10 @@
 // ell_act_reduce_bwd) and some ten flops per feature.
 //
 // The first design (where the lane-group path below cannot go: H past
-// 256, rows that are not whole 16-byte chunks, a table off 16-byte
-// alignment, an elementwise sigma but in #5, #6's g_slots in another type
-// than ek): one warp per row, 8 rows per block; the lanes load 32 slot
+// 256 in #3, #5 and #6 and past 512 in #1r and #4r, rows that are not
+// whole 16-byte chunks, a table off 16-byte alignment, an elementwise sigma
+// but in #5, #6's g_slots in another type than ek): one warp per row, 8
+// rows per block; the lanes load 32 slot
 // indices (and edge ids) and scales at a time and pass them round with
 // warp shuffles. A row-wise sigma needs a slot's whole row at once: up to
 // H = 512 each lane keeps NF = 1, 2, 3, 4, 8 or 16 features (NF * 32 >= H)
@@ -56,19 +57,22 @@
 // the centered relu's mean (two in its vjp) and two for softmax's max and
 // sum (three in its vjp). An elementwise sigma walks the features in
 // chunks of up to 128, so any H is taken. Past H = 256 a row-wise sigma
-// takes the wide path: up to 512 the row in registers as above (16
-// features a lane), and past 512 the features are walked in chunks of 256
-// (8 a lane), and for each chunk a slot's statistics (the mean; the max
-// and the sum; the vjps' second sum or dot) come from passes over its
-// whole row, lane j taking features j, j + 32, ..., each value read again
-// from memory (the L1 or the L2 holds the rows just read) and recomputed
-// as the chunk computes it; then the chunk's values are formed from them.
-// It has no ceiling in H: a row costs ceil(H / 256) times (one to three
-// passes plus one) reads of the slot's rows. (At H = 512 in bf16 on an
-// H100 the passes took 27.4 ms for #4r at the arxiv plan, PERF.md.) A slot with scale 0 is skipped whole (the test is
-// warp-uniform): it contributes exactly 0, and ell_act_reduce_bwd writes its
-// g_slots row as 0. All sums are f32. The slots of a row are walked one at a
-// time, each an exposed gather latency and a chain of dependent shuffles.
+// the lane-group path does not take goes to the wide path: up to 512 the
+// row in registers as above (16 features a lane; #3, #5 and #6, and #1r and
+// #4r on rows that are not whole 16-byte chunks), and past 512 the
+// features are walked in chunks of 256 (8 a lane), and for each chunk a
+// slot's statistics (the mean; the max and the sum; the vjps' second sum
+// or dot) come from passes over its whole row, lane j taking features j,
+// j + 32, ..., each value read again from memory (the L1 or the L2 holds
+// the rows just read) and recomputed as the chunk computes it; then the
+// chunk's values are formed from them. It has no ceiling in H: a row costs
+// ceil(H / 256) times (one to three passes plus one) reads of the slot's
+// rows. (At H = 512 in bf16 on an H100 the passes took 27.4 ms for #4r at
+// the arxiv plan, PERF.md.) A slot with scale 0 is skipped whole (the test
+// is warp-uniform): it contributes exactly 0, and ell_act_reduce_bwd writes
+// its g_slots row as 0. All sums are f32. The slots of a row are walked one
+// at a time, each an exposed gather latency and a chain of dependent
+// shuffles.
 //
 // The lane-group path (group_kernel), one template for five kernels, each a
 // compile-time mode: ell_act_reduce_rowwise (#1r, the forward, a row-wise
@@ -81,46 +85,57 @@
 // walk plus a g_slots row stored a slot) for a row-wise sigma. It takes
 // rows whose H *
 // sizeof(T) is a multiple of 16 (so #5's second half starts 16-byte
-// aligned too) with every table 16-byte aligned (T the gathered type): a
+// aligned too) with every table 16-byte aligned (T the gathered type), up
+// to H = 256, and in #1r and #4r (and their edge forms) up to H = 512: a
 // gathered row is C = H * sizeof(T) / 16 chunks of 16 bytes (12 at H = 96
-// in bf16, 24 in f32). A group of GW lanes (a power of two) holds one
-// slot's whole row, lane j of a group chunks j, j + GW, ..., so a warp
-// works on G = 32 / GW slots at once, each group on its own. GW is the
-// narrowest power of two that leaves a lane at most 4 chunks and
+// in bf16, 24 in f32; 64 and 128 at 512). A group of GW lanes (a power of
+// two) holds one slot's whole row, lane j of a group chunks j, j + GW, ...,
+// so a warp works on G = 32 / GW slots at once, each group on its own. GW
+// is the narrowest power of two that leaves a lane at most 4 chunks and
 // group_max_values values of a row: 16 in the vjps (at H = 96 groups of 8
 // lanes, 2 chunks a lane in bf16 with 4 of 16 chunk places idle, 3 in f32
 // with every lane busy) and in the forward's edge form, which gathers a
 // second row a slot, 24 in the forward, which holds no cotangent row
-// (in bf16 groups of 4 lanes, 3 chunks each, every lane busy). The
+// (in bf16 groups of 4 lanes, 3 chunks each, every lane busy). Past H =
+// 256 the group is the whole warp (G = 1; in #1r's bf16 form from 392):
+// at 512 in bf16 2 chunks and 16 values a lane, at 512 in f32 4 chunks and
+// 16 values, the footprints of H = 96 in bf16 and of H = 256 in f32; the
+// shapes whose rows in flight spill under the register cap below run
+// uncapped on 8 warps an SM (group_min_blocks); the key rows take 4 KB of
+// shared memory a warp at 512. The
 // row-wise reductions are a pairwise tree over the lane's values followed
 // by an xor butterfly over the group (lanes past the row hold values that
 // add 0 to a sum and -inf to a max; every lane of a group ends with the
 // same bits). Every lane runs every slot of its group: a zero-scale slot,
 // or a group past the row's last slot, runs with scale 0 and adds exactly
 // 0 (for finite inputs), so no shuffle sits under a branch that some
-// groups skip. The scale multiplies each slot's vjp, which is linear in
-// its cotangent, or its act(z) in the forward; the centered relu's mean
+// groups skip; at G = 1 a zero-scale slot issues no gather (its values are
+// then 0 and the key row's, which keeps every sum finite), so a padding
+// slot costs no row read, as in the first design. The scale
+// multiplies each slot's vjp, which is linear in its cotangent, or its
+// act(z) in the forward; the centered relu's mean
 // is a sum times 1 / H, softmax takes __expf (a few ulp) and one
 // reciprocal a slot, tanh' one __expf and one fast division, and erf-GELU'
 // the elementwise kernels' form (see group_act_grad).
 //
-// The kernels are persistent (warp w of W takes rows w, w + W, ...) and
-// walk a warp's slots as a stream of batches of one slot a group (two need
-// registers that spill under the cap of 128 a thread that keeps 16 warps an
-// SM, or, uncapped, halve the warps): the gathers of the next batch, of
-// this row or the next, are issued before the current batch is worked, the
-// group width is a template parameter (its butterflies unrolled; only the
-// widths and chunk counts group_layout gives are built), the next row's
-// slot range, key and first 32 slot indices and scales are loaded a row
-// ahead, and its f32 key rows (eq for #1r; eq and g for #3; ek for #4r and
-// #5) are copied into the warp's shared memory by cp.async when its first
-// batch is issued; #6 stores each slot's g_z row from the group's chunks
-// by 16-byte evict-first stores (st.global.cs). Each group sums its slots in
-// slot order in f32; at the end of the row the groups' sums are added by
-// an xor butterfly over the groups in reduce-scatter form (RowEnd), a
-// fixed order, and each lane
-// stores the part of the row it ends with. No atomics: two launches give
-// the same bits; #6's rows are #3's bits (the same walk and row end).
+// The kernels are persistent (warp w of W takes rows w, w + W, ...) and walk a
+// warp's slots as a stream of batches of one slot a group (two need registers
+// that spill under the cap of 128 a thread that keeps 16 warps an SM, or,
+// uncapped, halve the warps; at G = 1 one batch is one slot, the next slot's
+// rows in flight while one is worked): the gathers of the next batch, of this
+// row or the next, are issued before the current batch is worked, the group
+// width is a template parameter (its butterflies unrolled; only the widths and
+// chunk counts group_layout gives are built), the next row's slot range, key
+// and first 32 slot indices and scales are loaded a row ahead, and its f32 key
+// rows (eq for #1r; eq and g for #3; ek for #4r and #5) are copied into the
+// warp's shared memory by cp.async when its first batch is issued; #6 stores
+// each slot's g_z row from the group's chunks by 16-byte evict-first stores
+// (st.global.cs). Each group sums its slots in slot order in f32; at the end of
+// the row the groups' sums are added by an xor butterfly over the groups in
+// reduce-scatter form (RowEnd), a fixed order (with one group no butterfly),
+// and each lane stores the part of the row it ends with. No atomics: two
+// launches give the same bits; #6's rows are #3's bits (the same walk and row
+// end).
 // ell_general_layout reports the path a launch takes.
 //
 // What bounds each at the arxiv plan (H = 96, bf16): #4r gathers two bf16
@@ -135,7 +150,12 @@
 // the stream adds its own time to the walk's rather than hide under it
 // (0.30 ms without the stores, 0.35 with stores the L2 absorbs, 0.46 with
 // the real ones; L2 policies and one bulk copy a batch did not help,
-// PERF.md).
+// PERF.md). At H = 512 every node table passes the L2 (173 MB in bf16), so
+// #1r and #4r read each valid slot's rows from device memory: their floor
+// is those rows, the key rows and the output once at HBM's rate (about
+// 0.98 and 1.74 ms in bf16 at the arxiv plan), and with one slot a warp
+// in flight, 16 warps an SM (8 for the shapes that run uncapped), they
+// take 1.09-1.24 times it in bf16 on an H100 (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -168,8 +188,11 @@ struct Rowwise {
   static constexpr bool value = ACT == ACT_CENTERED_RELU || ACT == ACT_SOFTMAX;
 };
 
-// A row-wise act past this width takes the wide path of the first design:
-// the row in a warp's registers up to kRowRegMax, passes over it past.
+// The lane-group path takes rows up to kRowMax, and in #1r and #4r (and
+// their edge forms) up to kRowRegMax on groups of up to 32 lanes; a
+// row-wise act past what the lane-group path takes goes to the wide path of
+// the first design: the row in a warp's registers up to kRowRegMax, passes
+// over it past.
 constexpr int kRowMax = 256;
 constexpr int kRowRegMax = 512;
 
@@ -871,6 +894,25 @@ constexpr int group_max_values(int mode, bool edge) {
   return mode == MODE_FWD && !edge ? kMaxValuesPerLaneFwd : kMaxValuesPerLane;
 }
 
+// The widest row the lane-group path takes in a mode: kRowRegMax in #1r and
+// #4r (full-warp groups, G = 1, past kRowMax), kRowMax in the others (#3
+// and #6 hold two f32 key rows a row, #5 a [N, 2H] table).
+constexpr int group_row_max(int mode) {
+  return mode == MODE_FWD || mode == MODE_SRC ? kRowRegMax : kRowMax;
+}
+
+// The blocks an SM a lane-group kernel asks room for (__launch_bounds__):
+// kGroupMinBlocks, 16 warps under a cap of 128 registers a thread, or 1
+// (8 warps, no cap) for a full-warp shape whose two batches of gathered
+// rows take 48 registers a lane or more (#4r·e; #4r and #1r·e with K = 3
+// or 4 f32 chunks): under the cap those spill 116-572 bytes, and at H =
+// 512 on an H100 they ran 1.1-1.9x faster uncapped, where the others
+// tied or lost up to 1.2x (PERF.md).
+constexpr int group_min_blocks(int gw, int k, int mode, bool edge) {
+  const int rows = 1 + (mode == MODE_SRC || mode == MODE_FUSED) + edge;
+  return gw == 32 && 2 * k * 4 * rows >= 48 ? 1 : kGroupMinBlocks;
+}
+
 // Whether the lane-group path takes `act` in `mode`: a row-wise act in
 // every mode; an elementwise one (its vjp, act'(z) * g_m, needs no
 // reduction) in #5 only (#6's lane path ran within 1.3% of its first
@@ -990,7 +1032,8 @@ struct RowEnd {
 // are copied into the warp's shared memory by cp.async when its first batch
 // is issued: a warp always has a batch of gathers in flight.
 template <int ACT, typename T, int GW, int K, int MODE, bool EDGE>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32, kGroupMinBlocks)
+__global__ void __launch_bounds__(kWarpsPerBlock * 32,
+                                  group_min_blocks(GW, K, MODE, EDGE))
 group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
              const float* __restrict__ ka, const float* __restrict__ kg,
              const T* __restrict__ e, const int* __restrict__ slot_idx,
@@ -1084,9 +1127,11 @@ group_kernel(const T* __restrict__ a, const T* __restrict__ ga,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int k = lk0 + u * G + grp;  // the group's slot, within the run
-      const bool live = k < n;
       const int node = __shfl_sync(kFull, lmine.node, k & 31);
       const float sc = __shfl_sync(kFull, lmine.sc, k & 31);
+      // a zero-scale slot adds exactly 0 whatever its rows hold: at G = 1
+      // it gathers nothing (a warp-uniform skip of a whole row's read)
+      const bool live = k < n && (G > 1 || sc != 0.f);
       b.w[u] = live ? sc : 0.f;
       const int64_t at = (int64_t)node * stride;
       int64_t eat = 0;
@@ -1322,25 +1367,36 @@ int wide_code(int H) {
 // << 8 | U; 0 where the launch takes the first design: an act group_takes
 // does not take in the mode, H * bytes not a multiple of 16 (so also #5's
 // second half off 16 bytes from the first), a table off 16-byte alignment,
-// or H past kRowMax. GW is the narrowest power of two that leaves a lane
-// at most 4 chunks and group_max_values(kernel, edge) values of a row.
+// or H past group_row_max(kernel). GW is the narrowest power of two that
+// leaves a lane at most 4 chunks and group_max_values(kernel, edge) values
+// of a row: up to 16 lanes to H = 256, 32 (one slot a warp) past it, in #1r
+// and #4r only (C <= 128 chunks, K <= 4).
 int group_layout(int kernel, int act_id, int H, int bytes, bool edge,
                  const void* const* ptrs, int n) {
   if (kernel < MODE_GEQ || kernel > MODE_EMIT) return 0;
   if (!group_takes(kernel, act_id)) return 0;
-  if (H <= 0 || H > kRowMax || (H * bytes) % 16) return 0;
+  if (H <= 0 || H > group_row_max(kernel) || (H * bytes) % 16) return 0;
   for (int i = 0; i < n; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15) return 0;
   const int C = H * bytes / 16, per_chunk = 16 / bytes;
   const int most = group_max_values(kernel, edge);
-  auto fits = [&](int gw) {  // launch_group takes K <= 4, GW <= 16
+  auto fits = [&](int gw) {  // launch_group takes K <= 4, GW <= 32
     const int K = (C + gw - 1) / gw;
     return K * per_chunk <= most && K <= 4;
   };
   int gw = 1;
   while (gw < 32 && !fits(gw)) gw <<= 1;
-  if (!fits(gw) || gw > 16) return 0;
+  if (!fits(gw)) return 0;
   return C << 16 | gw << 8 | kGroupInflight;
+}
+
+// The path of a launch: the lane-group layout, else the wide path's code for
+// a row-wise act past kRowMax, else 0 (the first design).
+int general_layout(int kernel, int act_id, int H, int bytes, bool edge,
+                   const void* const* ptrs, int n) {
+  const int layout = group_layout(kernel, act_id, H, bytes, edge, ptrs, n);
+  if (layout) return layout;
+  return wide_path(act_id, H) ? wide_code(H) : 0;
 }
 
 // A persistent kernel's grid: as many blocks as are resident on the card at
@@ -1383,7 +1439,8 @@ int launch_group_k(const Args& x) {
       2 * (MODE == MODE_GEQ || MODE == MODE_EMIT ? 2 : 1) * sizeof(float);
   const size_t smem = kWarpsPerBlock * row_bytes * x.H;
   static int per_sm = -1;
-  kernel<<<persistent_grid(kernel, x.R, kWarpsPerBlock * row_bytes * kRowMax,
+  kernel<<<persistent_grid(kernel, x.R,
+                           kWarpsPerBlock * row_bytes * group_row_max(MODE),
                            per_sm),
            kWarpsPerBlock * 32, smem, x.st>>>(
       (const T*)x.a, (const T*)x.ga, (const float*)x.ka, (const float*)x.kg,
@@ -1395,13 +1452,15 @@ int launch_group_k(const Args& x) {
 
 // The K chunks a lane that group_layout can give a group of GW lanes in
 // MODE (EDGE: its edge form): at most 4 chunks and group_max_values(MODE,
-// EDGE) values a lane, and for GW > 1 more than the half-width group takes
-// (a row of GW K chunks needs 2K chunks a lane there). Only these are built.
+// EDGE) values a lane, for GW > 1 more than the half-width group takes (a
+// row of GW K chunks needs 2K chunks a lane there), and a row of more than
+// GW (K - 1) chunks within group_row_max(MODE). Only these are built.
 template <typename T, int GW, int K, int MODE, bool EDGE>
 constexpr bool group_shape() {
   constexpr int per_chunk = Vec<T>::N, most = group_max_values(MODE, EDGE);
   return K * per_chunk <= most && K <= 4 &&
-         (GW == 1 || 2 * K * per_chunk > most || 2 * K > 4);
+         (GW == 1 || 2 * K * per_chunk > most || 2 * K > 4) &&
+         GW * (K - 1) * per_chunk < group_row_max(MODE);
 }
 
 template <int ACT, typename T, int GW, int MODE, bool EDGE>
@@ -1432,8 +1491,12 @@ int launch_group_t(int layout, const Args& x) {
     case 4: return launch_group_gw<ACT, T, 4, MODE, EDGE>(K, x);
     case 8: return launch_group_gw<ACT, T, 8, MODE, EDGE>(K, x);
     case 16: return launch_group_gw<ACT, T, 16, MODE, EDGE>(K, x);
-    default: return (int)cudaErrorInvalidValue;
+    case 32:  // one slot a warp: #1r and #4r past kRowMax
+      if constexpr (group_row_max(MODE) > kRowMax)
+        return launch_group_gw<ACT, T, 32, MODE, EDGE>(K, x);
+      break;
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 // The lane-group kernel of MODE (EDGE: its edge form) for the act id and
@@ -1718,11 +1781,10 @@ int ell_src_bwd_fused(const void* both, int bf16, const void* ek,
 int ell_general_layout(int kernel, int H, int bf16, int act, const void* p0,
                        const void* p1, const void* p2, const void* p3,
                        const void* p4) {
-  if (wide_path(act, H)) return wide_code(H);
   const int bytes = bf16 ? 2 : 4;
   const void* ptrs[] = {p0, p1, p2, p3, p4, second_half(p0, H, bytes)};
-  return group_layout(kernel, act, H, bytes, false, ptrs,
-                      kernel == MODE_FUSED ? 6 : 5);
+  return general_layout(kernel, act, H, bytes, false, ptrs,
+                        kernel == MODE_FUSED ? 6 : 5);
 }
 
 // ell_general_layout for the edge forms (0 ell_geq_reduce_edge, 1
@@ -1734,9 +1796,8 @@ int ell_general_edge_layout(int kernel, int H, int bf16, int act,
                             const void* p3, const void* p4, const void* p5) {
   if (kernel != MODE_GEQ && kernel != MODE_SRC && kernel != MODE_FWD)
     return -1;
-  if (wide_path(act, H)) return wide_code(H);
   const void* ptrs[] = {p0, p1, p2, p3, p4, p5};
-  return group_layout(kernel, act, H, bf16 ? 2 : 4, true, ptrs, 6);
+  return general_layout(kernel, act, H, bf16 ? 2 : 4, true, ptrs, 6);
 }
 
 const char* ell_general_error_string(int code) {

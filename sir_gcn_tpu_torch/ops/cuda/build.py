@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
@@ -97,6 +98,26 @@ def build_log(name: str) -> str:
         return _LOGS[name]
     log = _target(name).parent / "build.log"
     return log.read_text() if log.exists() else ""
+
+
+def ptxas_entries(log: str) -> list:
+    """(entry function, registers, spill-store bytes) of each kernel in a
+    build's compiler output (``-Xptxas -v``), in the order ptxas reports
+    them."""
+    entries, fn, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            entries.append((fn, int(m.group(1)), spill))
+            fn = None
+    return entries
 
 
 def load(name: str) -> ctypes.CDLL:

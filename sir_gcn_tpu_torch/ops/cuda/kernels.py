@@ -1175,7 +1175,8 @@ def ell_scaled_reduce(values, slot_idx, scale, row_ptr):
 # cotangent, the arithmetic of #4. #1r, #3 and #4r, and their edge-term
 # forms (``*_edge``), take a lane-group path for a row-wise sigma, #5 for
 # any sigma, #6 for a row-wise sigma where its g_slots has ek's type
-# (``ell_general_layout``).
+# (``ell_general_layout``): up to H = 256, and #1r and #4r (and their edge
+# forms) up to H = 512 on groups of the whole warp.
 
 # the kernels of csrc/ell_general_kernels.cu with a lane-group path, by the
 # id ell_general_layout takes (the source's MODE), and the edge forms' by
@@ -1186,7 +1187,9 @@ _GENERAL_LAYOUT_KERNEL = {"ell_geq_reduce": 0, "ell_src_bwd_rowwise": 1,
 _GENERAL_EDGE_LAYOUT_KERNEL = {"ell_geq_reduce_edge": 0,
                                "ell_src_bwd_rowwise_edge": 1,
                                "ell_act_reduce_rowwise_edge": 2}
-# the row width past which a row-wise sigma takes the wide path
+# the row width past which a row-wise sigma takes the wide path in #3, #5
+# and #6 (in #1r and #4r past 512, or past 256 where the lane-group path
+# does not go)
 ROW_MAX = 256
 
 
@@ -1199,7 +1202,11 @@ class GeneralLayout(NamedTuple):
     group of ``group_width`` lanes (a power of two), ``chunks_per_lane``
     chunks a lane; a warp's ``groups`` groups each work on their own slot,
     ``inflight`` slots a group to a batch of gathers, the next batch in
-    flight while one is worked."""
+    flight while one is worked. Up to H = ``ROW_MAX`` groups of 1 to 16
+    lanes; #1r and #4r (and their edge forms) take H up to 512 on groups
+    of 32 lanes, one slot a warp: at 512
+    ``GeneralLayout(64, 32, 1, 2, 1)`` in bf16 and ``(128, 32, 1, 4, 1)``
+    in f32."""
 
     chunks: int
     group_width: int
@@ -1210,7 +1217,10 @@ class GeneralLayout(NamedTuple):
 
 class WideLayout(NamedTuple):
     """The wide path of the first design, for a row-wise sigma past H =
-    ``ROW_MAX``, one warp a row, ``features_per_lane`` features of a slot's
+    ``ROW_MAX`` where the lane-group path does not go (#3, #5 and #6; #1r
+    and #4r past 512 or on rows that are not whole 16-byte chunks or
+    tables off 16-byte alignment), one warp a row,
+    ``features_per_lane`` features of a slot's
     row in each lane's registers at once: up to H = 512 the whole row (16 a
     lane, ``chunks`` 1); past it 8 a lane, the features walked in
     ``chunks`` chunks of 256, and for each chunk every slot's
@@ -1239,7 +1249,7 @@ def decode_general_layout(code: int):
     return GeneralLayout(c, gw, 32 // gw, -(-c // gw), u)
 
 
-def ell_general_layout(name: str, h: int, dtype, act, *tensors):
+def ell_general_layout(name: str, h: int, dtype, act, *tensors, lib=None):
     """The path a launch of ``name`` (a kernel of
     ``csrc/ell_general_kernels.cu``) takes for rows of width ``h``, the
     gathered table in ``dtype`` (f32 or bf16: ek for
@@ -1250,14 +1260,17 @@ def ell_general_layout(name: str, h: int, dtype, act, *tensors):
     (at most five: its node tables and its outputs, in the order the
     wrapper takes and returns them; for ``ell_src_bwd_fused`` the [N, 2H]
     table first; for an edge form at most six, its e and g_e among them): a
-    ``GeneralLayout`` for the lane-group path, a ``WideLayout`` for the wide
-    path (a row-wise sigma past H = ``ROW_MAX``: the row in registers, or
-    past H = 512 passes over it), None for the first design
+    ``GeneralLayout`` for the lane-group path (up to H = ``ROW_MAX``, in
+    #1r and #4r and their edge forms up to 512), a
+    ``WideLayout`` for the wide path (a row-wise sigma past H = ``ROW_MAX``
+    that the lane-group path does not take: the row in registers, or past
+    H = 512 passes over it), None for the first design
     (an elementwise sigma but in ``ell_src_bwd_fused``, rows that are not
     whole 16-byte chunks, a table off 16-byte alignment, or an
     ``ell_act_reduce_bwd`` whose g_slots, its fourth tensor, is not in
     ``dtype``). The entry decides from the same H, types and pointers.
-    Needs a card: it asks the built library."""
+    Needs a card: it asks the built library, or ``lib``, another build of
+    the same source (``tools/ell_ab.py``)."""
     if name not in _GENERAL:
         raise ValueError(f"{name!r} is not a kernel of the general route "
                          f"({', '.join(_GENERAL)})")
@@ -1273,7 +1286,8 @@ def ell_general_layout(name: str, h: int, dtype, act, *tensors):
             and tensors[3].dtype != dtype and not wide):
         return None  # g_slots in another type than ek: the first design
     ptrs = [_ptr(t) for t in tensors] + [None] * (most - len(tensors))
-    lib = _library("ell_general_kernels")
+    if lib is None:
+        lib = _library("ell_general_kernels")
     query = lib.ell_general_edge_layout if edge else lib.ell_general_layout
     kernels = _GENERAL_EDGE_LAYOUT_KERNEL if edge else _GENERAL_LAYOUT_KERNEL
     code = query(kernels[name], h, int(dtype == torch.bfloat16),

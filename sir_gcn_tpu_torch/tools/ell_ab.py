@@ -13,7 +13,7 @@ example) against the package's own.
     git show <rev>:sir_gcn_tpu_torch/csrc/ell_edge_kernels.cu > other.cu
     python -m sir_gcn_tpu_torch.tools.ell_ab --edge other.cu [--hidden H --de De]
     git show <rev>:sir_gcn_tpu_torch/csrc/ell_general_kernels.cu > other.cu
-    python -m sir_gcn_tpu_torch.tools.ell_ab --general other.cu
+    python -m sir_gcn_tpu_torch.tools.ell_ab --general other.cu [--hidden 512]
 
 The other source is built with the package's nvcc flags for its source
 (and ``-D`` of each ``--define``) into a library of its own
@@ -77,20 +77,26 @@ paths this library's ``ell_edge_layout`` reports.
 The general mode (``--general``, ``csrc/ell_general_kernels.cu``) runs
 #1r ``ell_act_reduce_rowwise``, #3 ``ell_geq_reduce``, #4r
 ``ell_src_bwd_rowwise``, #5 ``ell_src_bwd_fused`` and #6
-``ell_act_reduce_bwd`` (g_z in the gathered type) from both libraries at
-the ogbn-arxiv plan, H = 96, with the gathered tables in bf16 and in f32,
-the node tables and cotangent from seed 0 made on the card, for
-centered_relu(0.5), softmax, leaky_relu(0.2) and tanh. The kernels of
-``GENERAL_AB`` (all five for a row-wise sigma, #5 for an elementwise
-one) are timed: ms per launch over 20 warm launches in eight
-turns (other, this, this, other, ...), the median and the spread of each.
-Every output is held to the other library's as ``GENERAL_HELD`` says:
-#1r's, #3's, #4r's and #5's rows to its bits, #6's g_z and rows to a
-tolerance (with how many entries lie beyond it: centered_relu's gate may
-take the other side of the relu where the two sum a row's mean in another
-order); and where #3 and #6 take the lane-group path, #6's rows to #3's
-bits. The layout this library's ``ell_general_layout`` reports is printed
-for each kernel. Needs a CUDA card.
+``ell_act_reduce_bwd`` (g_z in the gathered type), and for a row-wise
+sigma the edge forms #1r·e and #4r·e, from both libraries at the
+ogbn-arxiv plan, H = 96 (or ``--hidden H``, e.g. 512), with the gathered
+tables in bf16 and in f32, the node and edge tables and the cotangent
+from seed 0 made on the card, for centered_relu(0.5), softmax,
+leaky_relu(0.2) and tanh. The kernels of ``GENERAL_AB`` (all seven for a
+row-wise sigma, #5 for an elementwise one) are timed: ms per launch over
+20 warm launches in eight turns (other, this, this, other, ...), the
+median and the spread of each, and where one gathered node table holds
+more than twice the L2 (as at H = 512) each kernel's no-L2-reuse
+estimate (each valid slot's gathered rows, its key rows, its outputs and
+its slot arrays once at 3.35 TB/s; not a floor: what the L2 still holds
+costs less). Every output is held to the other library's as
+``GENERAL_HELD`` says: to its bits where the two libraries'
+``ell_general_layout`` report the same path for the kernel, else within
+a tolerance, with how many entries lie beyond it (centered_relu's gate
+may take the other side of the relu where the two sum a row's mean in
+another order); and where #3 and #6 take the lane-group path, #6's rows
+to #3's bits. Both libraries' layouts are printed for each kernel. Needs
+a CUDA card.
 
 The lab mode runs #23 ``lab_gather`` from gather_dma's 43.5 MB table and
 from one of ``gather_dma.BIG_N`` rows (174 MB, beyond the L2), with
@@ -102,8 +108,10 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import re
 import statistics
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -111,11 +119,14 @@ import torch
 from ..data import synthetic_node_classification
 from ..experiments.ogbn_arxiv.train import build_arxiv_graph, get_args
 from ..ops.cuda import build
+from ..ops.cuda.checks import near_gate, slot_rows
 from ..ops.cuda.kernels import (
     _ARGTYPES,
     _QUERIES,
     _RESTYPE,
+    GeneralLayout,
     _library,
+    add_cast,
     decode_max_layout,
     ell_edge_layout,
     ell_general_layout,
@@ -156,19 +167,60 @@ BWD_TOL = dict(atol=3e-4, rtol=1e-3)
 BF16_STEP = dict(atol=3e-4, rtol=2.0 ** -7)
 # the general kernels: tag -> label, and the output each is timed by
 GENERAL_KERNELS = {"#1r": ("#1r ell_act_reduce_rowwise", "rows"),
+                   "#1r·e": ("#1r·e ell_act_reduce_rowwise_edge", "rows_e"),
                    "#3": ("#3 ell_geq_reduce", "geq"),
                    "#4r": ("#4r ell_src_bwd_rowwise", "out"),
+                   "#4r·e": ("#4r·e ell_src_bwd_rowwise_edge", "out_e"),
                    "#5": ("#5 ell_src_bwd_fused", "fused"),
                    "#6": ("#6 ell_act_reduce_bwd", "gz")}
-# the kernels timed, by sigma kind (the others run once in each setting)
-GENERAL_AB = {"rowwise": ("#1r", "#3", "#4r", "#5", "#6"),
+# the kernels timed, by sigma kind (the others run once in each setting;
+# the edge forms only for a row-wise sigma)
+GENERAL_AB = {"rowwise": ("#1r", "#1r·e", "#3", "#4r", "#4r·e", "#5", "#6"),
               "elementwise": ("#5",)}
-# general_launches' outputs (#1r, #3, #4r, #5 rows, #6's g_z and rows)
-# against the other build's: None its bits; else a tolerance, "step" for
-# g_z (one bf16 step in bf16, BWD_TOL in f32): #6's lane-group path sums
-# in another order than its first design
-GENERAL_HELD = {"rows": None, "geq": None, "out": None, "fused": None,
-                "gz": "step", "geq6": BWD_TOL}
+# general_launches' outputs against the other build's: the kernel that
+# writes each, and its tolerance where the two builds' paths differ (else
+# its bits), "step" for a value rounded to the gathered type (one bf16 step
+# in bf16, BWD_TOL in f32)
+GENERAL_HELD = {"rows": ("#1r", FWD_TOL), "rows_e": ("#1r·e", FWD_TOL),
+                "geq": ("#3", BWD_TOL), "out": ("#4r", BWD_TOL),
+                "out_e": ("#4r·e", BWD_TOL), "g_e": ("#4r·e", "step"),
+                "fused": ("#5", BWD_TOL), "gz": ("#6", "step"),
+                "geq6": ("#6", BWD_TOL)}
+# the src-major outputs whose rows holding a near centered_relu gate
+# (``checks.near_gate``: the two builds sum a slot's mean in another order)
+# are left out of the tolerance and counted: (row mask, the g_e mask)
+GATE_ROWS = {"out": ("rows", False), "out_e": ("rows", True),
+             "g_e": ("edges", True)}
+# the entries #1r and #4r take past H = 256 for a row-wise sigma (ids 2,
+# 3): the first design's register form (NF = 16, rows to 512) and the
+# lane groups of the whole warp (GW = 32; MODE 1 #4r, 2 #1r; EDGE);
+# ``wide_build_report`` raises where a build's report names none of them
+WIDE_ENTRIES = re.compile(
+    r"(?P<first>act_reduce_rw_kernelILi[23]ELi16ELb0E(?:13__nv_bfloat16|f)E"
+    r"|src_bwd_rw_kernelILi[23]ELi16ELb0E(?:13__nv_bfloat16|f)Lb0E)"
+    r"|(?P<group>group_kernelILi[23]E(?:13__nv_bfloat16|f)Li32ELi\dELi[12]E"
+    r"Lb[01]E)")
+# the node rows each kernel gathers a valid slot (and for #3 and #6 the
+# f32 key rows a row, two), for its no-L2-reuse estimate
+GENERAL_ROWS = {"#1r": 1, "#1r·e": 2, "#3": 1, "#4r": 2, "#4r·e": 3,
+                "#5": 2, "#6": 1}
+
+# the H100's L2 (bytes); the no-L2-reuse estimate is printed where one
+# gathered node table holds more than twice this
+L2_BYTES = 50 * 2 ** 20
+
+
+def other_target(source: Path, name: str = "ell_kernels",
+                 defines=()) -> tuple:
+    """(the library ``build_other`` builds ``source`` into, with the
+    compiler's output in ``build.log`` beside it; its nvcc flags)."""
+    if name not in build.SOURCES:
+        raise ValueError(f"no source {name!r}; the sources are "
+                         f"{sorted(build.SOURCES)}")
+    flags = build._flags(name) + [f"-D{d}" for d in defines]
+    tag = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
+    return build.BUILD_DIR / f"ab-{tag.hexdigest()[:16]}" / "libab.so", flags
+
 
 
 def build_other(source: Path, name: str = "ell_kernels",
@@ -176,22 +228,22 @@ def build_other(source: Path, name: str = "ell_kernels",
     """``source`` built as the package builds its source ``name`` (a key of
     ``build.SOURCES``), with ``-D`` of each of ``defines``, and the
     package's argument types of ``name`` on its entries; an entry the other
-    source does not have (one added since) is left unbound."""
-    if name not in build.SOURCES:
-        raise ValueError(f"no source {name!r}; the sources are "
-                         f"{sorted(build.SOURCES)}")
-    flags = build._flags(name) + [f"-D{d}" for d in defines]
-    text = source.read_bytes()
-    tag = hashlib.sha256(text + " ".join(flags).encode())
-    lib = build.BUILD_DIR / f"ab-{tag.hexdigest()[:16]}" / "libab.so"
+    source does not have (one added since) is left unbound. Prints the
+    seconds nvcc took, where it built the library (nothing else builds
+    meanwhile)."""
+    lib, flags = other_target(source, name, defines)
     if not lib.exists():
         lib.parent.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
         out = subprocess.run(
             [build._nvcc(), *flags, "-o", str(lib), str(source)],
             capture_output=True, text=True)
         if out.returncode:
             raise RuntimeError(f"nvcc failed for {source}:\n{out.stdout}"
                                f"{out.stderr}")
+        print(f"built {source} alone in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        (lib.parent / "build.log").write_text(out.stdout + out.stderr)
     other = ctypes.CDLL(str(lib))
     entries = {**_ARGTYPES[name], **_QUERIES.get(name, {})}
     for entry, argtypes in entries.items():
@@ -691,31 +743,38 @@ def run_edge(device, other: Path, h: int = H, de: int = EDGE_DE) -> dict:
 
 
 def general_launches(lib, inp: dict, act, dtype) -> tuple:
-    """#1r, #3, #4r, #5 and #6 of one library on ``inp`` with the gathered
-    tables in ``dtype`` (ek for the dst-major kernels, eq and g for the
-    src-major ones): name -> a call that launches it; and the outputs
-    after one launch each."""
+    """#1r, #3, #4r, #5 and #6, and for a row-wise sigma #1r·e and #4r·e,
+    of one library on ``inp`` with the gathered tables in ``dtype`` (ek
+    and e for the dst-major kernels, eq, g and e for the src-major ones):
+    name -> a call that launches it; and the outputs after one launch
+    each, with the layout this library reports for each kernel."""
     fg = inp["fg"]
     plan, splan = fg.dst_plan, fg.src_plan
     eq, ek, g = inp["eq"], inp["ek"], inp["g"]
+    h = eq.shape[1]
     ekt, eqt, gt = (t.to(dtype) for t in (ek, eq, g))
     both = torch.cat([eqt, gt], 1)
+    edge = not act.diagonal
+    et = inp["e"].to(dtype) if edge else None
     r, rs = plan.row_key.numel(), splan.row_key.numel()
     p = torch.Tensor.data_ptr
     f32 = dict(dtype=torch.float32, device=eq.device)
     a, prm, bf = act.kernel_id, float(act.param), int(dtype == torch.bfloat16)
     stream = torch.cuda.current_stream().cuda_stream
-    outs = dict(rows=torch.empty((r, H), **f32),
-                geq=torch.empty((r, H), **f32),
-                out=torch.empty((rs, H), **f32),
-                fused=torch.empty((rs, H), **f32),
-                gz=torch.empty((plan.num_slots, H), dtype=dtype,
+    outs = dict(rows=torch.empty((r, h), **f32),
+                geq=torch.empty((r, h), **f32),
+                out=torch.empty((rs, h), **f32),
+                fused=torch.empty((rs, h), **f32),
+                gz=torch.empty((plan.num_slots, h), dtype=dtype,
                                device=eq.device),
-                geq6=torch.empty((r, H), **f32))
-    dst = (p(fg.dst_slot_srcnode), p(fg.dst_slot_scales["sym"]),
-           p(plan.row_key), p(plan.row_ptr), r, H, a, prm)
-    src = (p(fg.src_slot_dstnode), p(fg.src_slot_scales["sym"]),
-           p(splan.row_key), p(splan.row_ptr), rs, H, a, prm)
+                geq6=torch.empty((r, h), **f32))
+    if edge:
+        outs.update(rows_e=torch.empty((r, h), **f32),
+                    out_e=torch.empty((rs, h), **f32),
+                    g_e=torch.zeros((fg.e_pad, h), **f32))
+    sd, ss = fg.dst_slot_scales["sym"], fg.src_slot_scales["sym"]
+    dst = (p(sd), p(plan.row_key), p(plan.row_ptr), r, h, a, prm)
+    src = (p(ss), p(splan.row_key), p(splan.row_ptr), rs, h, a, prm)
 
     def call(entry, *args):
         def run():
@@ -725,45 +784,147 @@ def general_launches(lib, inp: dict, act, dtype) -> tuple:
         return run
 
     calls = {
-        "#1r": call("ell_act_reduce_rowwise", p(eq), p(ekt), bf, *dst,
-                    p(outs["rows"])),
-        "#3": call("ell_geq_reduce", p(eq), p(ekt), bf, p(g), *dst,
-                   p(outs["geq"])),
-        "#4r": call("ell_src_bwd_rowwise", p(eqt), p(gt), bf, p(ek), *src,
-                    p(outs["out"])),
-        "#5": call("ell_src_bwd_fused", p(both), bf, p(ek), *src,
-                   p(outs["fused"])),
-        "#6": call("ell_act_reduce_bwd", p(eq), p(ekt), bf, p(g), *dst, bf,
-                   p(outs["geq6"]), p(outs["gz"])),
+        "#1r": call("ell_act_reduce_rowwise", p(eq), p(ekt), bf,
+                    p(fg.dst_slot_srcnode), *dst, p(outs["rows"])),
+        "#3": call("ell_geq_reduce", p(eq), p(ekt), bf, p(g),
+                   p(fg.dst_slot_srcnode), *dst, p(outs["geq"])),
+        "#4r": call("ell_src_bwd_rowwise", p(eqt), p(gt), bf, p(ek),
+                    p(fg.src_slot_dstnode), *src, p(outs["out"])),
+        "#5": call("ell_src_bwd_fused", p(both), bf, p(ek),
+                   p(fg.src_slot_dstnode), *src, p(outs["fused"])),
+        "#6": call("ell_act_reduce_bwd", p(eq), p(ekt), bf, p(g),
+                   p(fg.dst_slot_srcnode), *dst, bf, p(outs["geq6"]),
+                   p(outs["gz"])),
     }
+    tables = {"#1r": ("ell_act_reduce_rowwise", eq, ekt, outs["rows"]),
+              "#3": ("ell_geq_reduce", eq, ekt, g, outs["geq"]),
+              "#4r": ("ell_src_bwd_rowwise", eqt, gt, ek, outs["out"]),
+              "#5": ("ell_src_bwd_fused", both, ek, outs["fused"]),
+              "#6": ("ell_act_reduce_bwd", eq, ekt, g, outs["gz"],
+                     outs["geq6"])}
+    if edge:
+        calls["#1r·e"] = call(
+            "ell_act_reduce_rowwise_edge", p(eq), p(ekt), p(et), bf,
+            p(fg.dst_slot_srcnode), p(plan.slot_edge), *dst,
+            p(outs["rows_e"]))
+        calls["#4r·e"] = call(
+            "ell_src_bwd_rowwise_edge", p(eqt), p(gt), p(et), bf, p(ek),
+            p(fg.src_slot_dstnode), p(splan.slot_edge), *src,
+            p(outs["out_e"]), p(outs["g_e"]))
+        tables["#1r·e"] = ("ell_act_reduce_rowwise_edge", eq, ekt, et,
+                           outs["rows_e"])
+        tables["#4r·e"] = ("ell_src_bwd_rowwise_edge", eqt, gt, et, ek,
+                           outs["out_e"], outs["g_e"])
     for run in calls.values():
         run()
     torch.cuda.synchronize()
-    layouts = {"#1r": ell_general_layout("ell_act_reduce_rowwise", H, dtype,
-                                         act, eq, ekt, outs["rows"]),
-               "#3": ell_general_layout("ell_geq_reduce", H, dtype, act, eq,
-                                        ekt, g, outs["geq"]),
-               "#4r": ell_general_layout("ell_src_bwd_rowwise", H, dtype,
-                                         act, eqt, gt, ek, outs["out"]),
-               "#5": ell_general_layout("ell_src_bwd_fused", H, dtype, act,
-                                        both, ek, outs["fused"]),
-               "#6": ell_general_layout("ell_act_reduce_bwd", H, dtype, act,
-                                        eq, ekt, g, outs["gz"],
-                                        outs["geq6"])}
-    # the calls hold raw pointers: keep what they point into alive
-    return calls, dict(**{k: v.clone() for k, v in outs.items()},
-                       layouts=layouts, keep=(ekt, eqt, gt, both, outs))
+    layouts = {tag: ell_general_layout(name, h, dtype, act, *ts, lib=lib)
+               for tag, (name, *ts) in tables.items()}
+    # the calls hold raw pointers: keep what they point into alive; a
+    # launch writes the same outputs again, so the timed launches leave
+    # them as they are
+    return calls, dict(**outs, layouts=layouts, keep=(ekt, eqt, gt, both, et))
 
 
-def run_general(device, other: Path) -> dict:
-    """Every A/B line of ``GENERAL_AB``, each output held to the other
-    build's as ``GENERAL_HELD`` says, and #6's rows to #3's bits where both
-    take the lane-group path; returns label -> record. Raises at the end
-    if an output held to the other build's bits, or #6's rows to #3's,
-    differ."""
+def wide_build_report(log: str, h: int, what: str) -> list:
+    """Lines of ``-Xptxas -v``'s registers and spill stores for each entry
+    of ``WIDE_ENTRIES`` in the compiler output ``log`` of the build
+    ``what``, with the warps an SM holds at H = ``h`` (8-warp blocks; the
+    lane groups' key rows in 2 H floats of shared memory a warp), reckoned
+    from the registers and shared memory, not measured. Raises if the
+    report names none of them."""
+    lines = []
+    for fn, regs, spill in build.ptxas_entries(log):
+        k = WIDE_ENTRIES.search(fn)
+        if k:
+            smem = 8 * 2 * h * 4 if k.group("group") else 0
+            per_warp = -(-regs * 32 // 256) * 256
+            blocks = min(65536 // (8 * per_warp), 8,
+                         233472 // (smem + 1024))
+            lines.append(f"{k.group(0)}: {regs} registers, {spill} B spill "
+                         f"stores, {8 * blocks} warps an SM")
+    if not lines:
+        raise RuntimeError(f"the compiler output of {what} names no entry "
+                           f"of WIDE_ENTRIES ({len(log)} characters)")
+    return lines
+
+
+def gate_rows(inp: dict, act, dtype, edge: bool,
+              chunk: int = 1 << 18) -> dict:
+    """Under centered_relu: bool masks of the src plan's rows ("rows") and
+    of the per-edge cotangent's rows ("edges") that hold a valid slot with
+    a near gate (``checks.near_gate``) at the src-major kernels' z (eq,
+    with the edge row added when ``edge``, gathered in ``dtype``, plus the
+    f32 key row), taken ``chunk`` slots at a time; empty for another
+    sigma."""
+    if act.name != "centered_relu":
+        return {}
+    fg = inp["fg"]
+    splan = fg.src_plan
+    eqt = inp["eq"].to(dtype)
+    et = inp["e"].to(dtype) if edge else None
+    sc = fg.src_slot_scales["sym"]
+    near = torch.zeros(splan.num_slots, dtype=torch.bool,
+                       device=eqt.device)
+    for s0 in range(0, splan.num_slots, chunk):
+        s = slice(s0, min(s0 + chunk, splan.num_slots))
+        z = eqt.index_select(0, fg.src_slot_dstnode[s])
+        if edge:
+            z = add_cast(z, et.index_select(0, splan.slot_edge[s]))
+        z = z.float() + inp["ek"].index_select(0, splan.slot_key[s])
+        near[s] = near_gate(z, sc[s], act).any(1)
+    edges = torch.zeros(fg.e_pad, dtype=torch.bool, device=near.device)
+    edges[splan.slot_edge[near].long()] = True
+    return dict(rows=slot_rows(splan, near), edges=edges)
+
+
+def no_reuse_estimate(tag: str, inp: dict, dtype) -> tuple:
+    """(ms, GB) of ``tag``'s no-L2-reuse estimate at 3.35 TB/s: each valid
+    slot (scale not 0) reads its gathered rows (``GENERAL_ROWS``) from
+    device memory, each row its f32 key rows and writes its f32 output
+    row, and every slot's index, scale (and edge id) is read once; #6 also
+    writes every slot's g_z row, #4r·e each valid slot's f32 g_e row. Not
+    a floor: a row the L2 still holds costs less (at H = 96 kernels beat
+    it by up to 6%), so it is printed only where one gathered node table
+    holds more than twice the L2 (``L2_BYTES``), as at H = 512."""
+    fg = inp["fg"]
+    h = inp["eq"].shape[1]
+    src = tag.startswith(("#4r", "#5"))
+    plan = fg.src_plan if src else fg.dst_plan
+    sc = (fg.src_slot_scales if src else fg.dst_slot_scales)["sym"]
+    valid, rows, slots = int((sc != 0).sum()), plan.row_key.numel(), \
+        plan.num_slots
+    row = h * torch.tensor([], dtype=dtype).element_size()
+    keys = 2 if tag in ("#3", "#6") else 1
+    nbytes = (valid * GENERAL_ROWS[tag] * row + rows * h * 4 * (keys + 1)
+              + slots * (12 if tag.endswith("·e") else 8) + rows * 8)
+    if tag == "#6":
+        nbytes += slots * row
+    if tag == "#4r·e":
+        nbytes += valid * h * 4
+    return nbytes / 3.35e12 * 1e3, nbytes / 1e9
+
+
+def run_general(device, other: Path, h: int = H) -> dict:
+    """Every A/B line of ``GENERAL_AB`` at width ``h``, each output held to
+    the other build's as ``GENERAL_HELD`` says, and #6's rows to #3's bits
+    where both take the lane-group path; returns label -> record. Raises
+    at the end if an output held to the other build's bits differs, or
+    lies beyond its tolerance, or #6's rows differ from #3's."""
     libs = {"other": build_other(other, "ell_general_kernels"),
             "this": _library("ell_general_kernels")}
-    inp = arxiv_inputs(device)
+    other_log = other_target(other, "ell_general_kernels")[0].with_name(
+        "build.log")
+    logs = {"other": other_log.read_text() if other_log.exists() else "",
+            "this": build.build_log("ell_general_kernels")}
+    for k, text in logs.items():
+        for line in wide_build_report(text, h, f"the {k} build"):
+            print(f"build {k}: {line}", flush=True)
+    inp = arxiv_inputs(device, h)
+    # one gathered node table past twice the L2: print the estimate
+    past_l2 = {dtype: inp["eq"].shape[0] * h * torch.tensor(
+        [], dtype=dtype).element_size() > 2 * L2_BYTES
+        for dtype in (torch.bfloat16, torch.float32)}
     recs, faults = {}, []
     for dtype in (torch.bfloat16, torch.float32):
         dt = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -773,12 +934,15 @@ def run_general(device, other: Path) -> dict:
                     for k, lib in libs.items()}
             o, t = runs["other"][1], runs["this"][1]
             setting = f"{act.name}, {dt}"
-            print(f"layout at H = {H} ({setting}): " + ", ".join(
-                f"{k} {v}" for k, v in t["layouts"].items()), flush=True)
-            held = {}
-            for key, tol in GENERAL_HELD.items():
-                diff = (o[key].float() - t[key].float()).abs()
-                if tol is None:
+            for k in ("other", "this"):
+                print(f"layout at H = {h} ({setting}), {k}: " + ", ".join(
+                    f"{tag} {v}" for tag, v in runs[k][1]["layouts"].items()),
+                    flush=True)
+            held, gates = {}, {}
+            for key, (tag, tol) in GENERAL_HELD.items():
+                if key not in t:
+                    continue
+                if o["layouts"][tag] == t["layouts"][tag]:
                     same = torch.equal(o[key], t[key])
                     held[key] = "same bits" if same else "DIFFERENT bits"
                     if not same:
@@ -786,14 +950,33 @@ def run_general(device, other: Path) -> dict:
                     continue
                 if tol == "step":
                     tol = BF16_STEP if dtype == torch.bfloat16 else BWD_TOL
-                beyond = int((diff > tol["atol"] + tol["rtol"]
-                              * o[key].float().abs()).sum())
-                name = "BF16_STEP" if tol is BF16_STEP else "BWD_TOL"
-                held[key] = (f"max |diff| {float(diff.max()):.3e}, {beyond} "
-                             f"of {diff.numel()} beyond {name}")
+                diff = (o[key].float() - t[key].float()).abs()
+                over = (diff > tol["atol"] + tol["rtol"]
+                        * o[key].float().abs()).any(1)
+                note = ""
+                if key in GATE_ROWS and act.name == "centered_relu":
+                    which, edge = GATE_ROWS[key]
+                    if edge not in gates:
+                        gates[edge] = gate_rows(inp, act, dtype, edge)
+                    mask = gates[edge][which]
+                    note = (f" ({int((over & mask).sum())} more in the "
+                            f"{int(mask.sum())} rows with a near gate, "
+                            f"left out)")
+                    over &= ~mask
+                beyond = int(over.sum())
+                name = ("BF16_STEP" if tol is BF16_STEP else
+                        "FWD_TOL" if tol is FWD_TOL else "BWD_TOL")
+                held[key] = (f"path changed: max |diff| "
+                             f"{float(diff.max()):.3e}, {beyond} of "
+                             f"{over.numel()} rows beyond {name}{note}")
+                del diff, over
+                if beyond:
+                    faults.append(f"{setting}: {key} beyond {name}")
+            del gates
             print(f"{setting} against the other build: " + "; ".join(
                 f"{k} {v}" for k, v in held.items()), flush=True)
-            if t["layouts"]["#3"] is not None and t["layouts"]["#6"]:
+            if (isinstance(t["layouts"]["#3"], GeneralLayout)
+                    and isinstance(t["layouts"]["#6"], GeneralLayout)):
                 same = torch.equal(t["geq6"], t["geq"])
                 print(f"{setting}: #6's rows {'are' if same else 'are NOT'} "
                       f"#3's bits", flush=True)
@@ -804,12 +987,18 @@ def run_general(device, other: Path) -> dict:
                 ms = alternating_ms({k: r[0][tag] for k, r in runs.items()},
                                     GENERAL_ITERS, GENERAL_ROUNDS)
                 line = ", ".join(f"{k} {_fmt(v)}" for k, v in ms.items())
-                gain = statistics.median(ms["other"]) / statistics.median(
-                    ms["this"])
+                this = statistics.median(ms["this"])
+                gain = statistics.median(ms["other"]) / this
+                est, note = None, ""
+                if past_l2[dtype]:
+                    est, gb = no_reuse_estimate(tag, inp, dtype)
+                    note = (f"; no-L2-reuse estimate {est:.4f} ms ({gb:.3f} "
+                            f"GB), this at {100 * est / this:.1f}% of it")
                 print(f"{label} ({setting}): {line}, this/other {gain:.2f}x "
-                      f"faster; {held[key]}", flush=True)
-                recs[f"{label} ({setting})"] = dict(ms=ms, held=held[key])
-            del runs
+                      f"faster{note}; {held[key]}", flush=True)
+                recs[f"{label} ({setting})"] = dict(
+                    ms=ms, held=held[key], no_reuse_ms=est)
+            del runs, o, t
     if faults:
         raise AssertionError("; ".join(faults))
     return recs
@@ -841,9 +1030,9 @@ def main(argv=None) -> dict:
                    help="also time #2 and #4 with their gathers folded "
                         "into a smaller table")
     p.add_argument("--hidden", type=int, default=H,
-                   help="with --edge: the width H of the node rows; with "
-                        "--max: H = O, past 96 on a graph of roman-empire's "
-                        "size")
+                   help="with --edge or --general: the width H of the node "
+                        "rows; with --max: H = O, past 96 on a graph of "
+                        "roman-empire's size")
     p.add_argument("--de", type=int, default=EDGE_DE,
                    help="with --edge: the width De of the edge basis")
     p.add_argument("--define", action="append", default=[],
@@ -856,8 +1045,10 @@ def main(argv=None) -> dict:
                 "or --general")
     if not args.edge and args.de != EDGE_DE:
         p.error("--de is for --edge")
-    if not (args.edge or args.max) and args.hidden != H:
-        p.error("--hidden is for --edge and --max")
+    if not (args.edge or args.max or args.general) and args.hidden != H:
+        p.error("--hidden is for --edge, --max and --general")
+    if args.hidden < 1:
+        p.error("--hidden must be positive")
     if args.define and not args.max:
         p.error("--define is for --max")
     device = resolve_device(False)
@@ -876,7 +1067,7 @@ def main(argv=None) -> dict:
     if args.edge:
         return run_edge(device, args.other, args.hidden, args.de)
     if args.general:
-        return run_general(device, args.other)
+        return run_general(device, args.other, args.hidden)
     return run(device, args.other, args.probes)
 
 

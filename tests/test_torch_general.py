@@ -51,6 +51,7 @@ from sir_gcn_tpu_torch import build_graph
 from sir_gcn_tpu_torch.ops.cuda import (
     LAUNCHES,
     GeneralLayout,
+    WideLayout,
     decode_general_layout,
     ell_act_reduce,
     ell_act_reduce_bwd,
@@ -643,11 +644,78 @@ def test_general_layout_python_side(monkeypatch):
         64, 16, 2, 4, 2)
     assert decode_general_layout(1 << 16 | 1 << 8 | 4) == GeneralLayout(
         1, 1, 32, 1, 4)
+    # past H = 256 #1r and #4r take groups of the whole warp, one slot a
+    # warp: at 512 64 chunks of bf16 (2 a lane) or 128 of f32 (4 a lane);
+    # at 264 in f32 66 chunks, 3 a lane
+    assert decode_general_layout(64 << 16 | 32 << 8 | 1) == GeneralLayout(
+        64, 32, 1, 2, 1)
+    assert decode_general_layout(128 << 16 | 32 << 8 | 1) == GeneralLayout(
+        128, 32, 1, 4, 1)
+    assert decode_general_layout(66 << 16 | 32 << 8 | 1) == GeneralLayout(
+        66, 32, 1, 3, 1)
     assert decode_general_layout(0) is None
     for bad in (12 << 16 | 3 << 8 | 2, 12 << 16 | 64 << 8 | 2,
                 4 << 8 | 2, 12 << 16 | 4 << 8, -1, 1 << 24 | 4 << 8 | 2):
         with pytest.raises(ValueError, match="no lane-group path"):
             decode_general_layout(bad)
+
+
+def test_general_layout_asks_the_given_library(monkeypatch):
+    """With ``lib`` (another build of the source, as the A/B tool passes
+    it) ``ell_general_layout`` asks that library and not the package's:
+    the A/B holds an output to the other build's bits only where both
+    builds report the same path."""
+    act = ACTS["softmax"]
+
+    def refuse(name):
+        raise AssertionError("the package's library was asked")
+
+    class Other:
+        def __init__(self):
+            self.asked = []
+
+        def ell_general_layout(self, *args):
+            self.asked.append(args)
+            return 1 << 30 | 16 << 16 | 1  # the parent's wide path at 512
+
+        def ell_general_edge_layout(self, *args):
+            self.asked.append(args)
+            return 64 << 16 | 32 << 8 | 1
+
+    monkeypatch.setattr(tkernels, "_library", refuse)
+    other = Other()
+    eq, g = torch.zeros((4, 512), dtype=torch.bfloat16), \
+        torch.zeros((4, 512), dtype=torch.bfloat16)
+    ek, out = torch.zeros((4, 512)), torch.zeros((4, 512))
+    assert ell_general_layout("ell_src_bwd_rowwise", 512, torch.bfloat16,
+                              act, eq, g, ek, out, lib=other) == \
+        tkernels.WideLayout(16, 1)
+    assert other.asked[-1][:4] == (1, 512, 1, act.kernel_id)
+    assert ell_general_layout("ell_src_bwd_rowwise_edge", 512,
+                              torch.bfloat16, act, eq, g, eq, ek, out,
+                              lib=other) == GeneralLayout(64, 32, 1, 2, 1)
+    assert other.asked[-1][:4] == (1, 512, 1, act.kernel_id)
+    assert len(other.asked) == 2
+
+
+def test_ell_ab_general_takes_hidden(tmp_path):
+    """``--hidden`` is for ``--general`` too (H = 512 on the arxiv plan,
+    the wide widths), positive only, and still refused without a mode that
+    takes it (``--define`` stays the max mode's); with it the general mode
+    still needs a card."""
+    from sir_gcn_tpu_torch.tools import ell_ab
+
+    other = str(tmp_path / "other.cu")
+    for argv in (["--hidden", "512", other],
+                 ["--lab", "--hidden", "512", other],
+                 ["--general", "--hidden", "0", other],
+                 ["--general", "--define", "X", other]):
+        with pytest.raises(SystemExit):
+            ell_ab.main(argv)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ell_ab.main(["--general", "--hidden", "512", other])
 
 
 def test_ell_ab_general_needs_a_card(tmp_path):
@@ -663,6 +731,82 @@ def test_ell_ab_general_needs_a_card(tmp_path):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ell_ab.main(["--general", str(tmp_path / "other.cu")])
+
+
+# a full-warp #4r entry's ptxas report, as nvcc -Xptxas -v prints it
+PTXAS_GROUP = (
+    "_ZN55_GLOBAL__N__21ceaac0_22_ell_general_kernels_cu_b0490e7b12group_"
+    "kernelILi3E13__nv_bfloat16Li32ELi2ELi1ELb0EEEvPKT0_S4_PKfS6_S4_PKiS8_"
+    "S6_S8_S8_iifPfPS2_S9_")
+PTXAS_LOG = f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z4copyPf' for 'sm_90a'
+ptxas info    : Function properties for _Z4copyPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 8 registers, 360 bytes cmem[0]
+ptxas info    : Compiling entry function '{PTXAS_GROUP}' for 'sm_90a'
+ptxas info    : Function properties for {PTXAS_GROUP}
+    24 bytes stack frame, 28 bytes spill stores, 32 bytes spill loads
+ptxas info    : Used 128 registers, used 0 barriers, 24 bytes cumulative
+ptxas info    : Compile time = 9.542 ms
+"""
+
+
+def test_ptxas_entries_pairs_each_entry_with_its_report():
+    """``build.ptxas_entries`` gives each entry function of a ``-Xptxas
+    -v`` report its registers and spill stores, in order, and nothing for
+    an empty report."""
+    from sir_gcn_tpu_torch.ops.cuda import build
+
+    assert build.ptxas_entries(PTXAS_LOG) == [("_Z4copyPf", 8, 0),
+                                              (PTXAS_GROUP, 128, 28)]
+    assert build.ptxas_entries("") == []
+
+
+def test_ell_ab_wide_build_report_raises_on_no_entry():
+    """``ell_ab.wide_build_report`` reports the full-warp entries of a
+    build (registers, spills, warps an SM at 4 KB of key rows a warp) and
+    raises where the report names none of ``WIDE_ENTRIES``."""
+    from sir_gcn_tpu_torch.tools import ell_ab
+
+    assert ell_ab.wide_build_report(PTXAS_LOG, 512, "this build") == [
+        "group_kernelILi3E13__nv_bfloat16Li32ELi2ELi1ELb0E: 128 registers, "
+        "28 B spill stores, 16 warps an SM"]
+    for log in ("", PTXAS_LOG.replace(PTXAS_GROUP, "_Z5otherPf")):
+        with pytest.raises(RuntimeError, match="names no entry"):
+            ell_ab.wide_build_report(log, 512, "the other build")
+
+
+def test_near_gate_flags_valid_slots_and_their_rows():
+    """``checks.near_gate`` flags the (slot, feature) of a valid slot whose
+    centered_relu gate z - alpha * mean(z) lies within NEAR_GATE of 0
+    (relative to 1 + |alpha * mean|), and ``slot_rows`` the rows of a plan
+    holding a flagged slot; chip_smoke's ``near_gates`` gives both and the
+    count."""
+    from chip_smoke import near_gates
+    from sir_gcn_tpu_torch.ops.cuda.checks import (NEAR_GATE, near_gate,
+                                                   slot_rows)
+
+    act = tell.centered_relu(0.5)
+    # slot 0: mean 1, gate z - 0.5 at feature 0 just inside the band;
+    # slot 1 the same but at scale 0; slot 2 just outside; slot 3 far
+    z = torch.tensor([[0.5 + 0.5 * NEAR_GATE, 1.0, 1.5, 1.0],
+                      [0.5 + 0.5 * NEAR_GATE, 1.0, 1.5, 1.0],
+                      [0.5 + 3.0 * NEAR_GATE, 1.0, 1.5, 1.0],
+                      [2.0, 0.0, 0.0, 2.0]])
+    z[:, 2] = 4.0 - z[:, 0] - z[:, 1] - z[:, 3]  # mean exactly 1
+    scale = torch.tensor([1.0, 0.0, 1.0, 1.0])
+    near = near_gate(z, scale, act)
+    assert near.tolist() == [[True, False, False, False],
+                             [False] * 4, [False] * 4, [False] * 4]
+    plan = SimpleNamespace(row_ptr=torch.tensor([0, 1, 3, 3, 4],
+                                                dtype=torch.int32))
+    slots = near.any(1)
+    assert slot_rows(plan, slots).tolist() == [True, False, False, False]
+    assert slot_rows(plan, torch.tensor([False, False, True, True])
+                     ).tolist() == [False, True, False, True]
+    got = near_gates(plan, z, scale, act)
+    assert got[0].tolist() == slots.tolist()
+    assert got[1].tolist() == [True, False, False, False] and got[2] == 1
 
 
 # ----------------------------------------------------------------------
@@ -776,23 +920,14 @@ def _offset(t, aligned):
     return view
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("h,dt,aligned", [
-    (96, "bf16", True), (96, "f32", True), (96, "bf16", False),
-    (96, "f32", False), (24, "bf16", True), (128, "f32", True),
-    (200, "bf16", True), (256, "bf16", True), (256, "f32", True)])
-def test_general_kernels_on_awkward_plans_on_card(cuda_device, h, dt,
-                                                  aligned):
-    """#1r, #3, #4r and #5 (and #6 beside them) against their plain
-    versions on plans with odd row counts on both sides (a part-full last
-    run of rows), rows of 40 to 256 slots (several 32-slot runs), budgets
-    off multiples of 8 (10, 12, 28), a fifth of the scales zeroed and one
-    multi-slot row with every scale 0, for centered_relu, softmax, tanh
-    sent down the general route and leaky_relu; with ``aligned`` False
-    every node table, the [N, 2H] one too, starts one element past a
-    16-byte boundary (the first design)."""
+def awkward_plan(d):
+    """Plans with odd row counts on both sides (a part-full last run of
+    rows), rows of 40 to 256 slots (several 32-slot runs), budgets off
+    multiples of 8 (10, 12, 28), a fifth of the scales zeroed and one
+    multi-slot row with every scale 0: the FastGraph, its (dst, src) sym
+    scales so zeroed, and the generator, to draw the tables from."""
     rng = np.random.default_rng(0)
-    n, d, tdt = 70, cuda_device, DTYPES[dt]
+    n = 70
     dst = np.concatenate([np.repeat([0, 1, 2, 3], [250, 40, 27, 45]),
                           rng.integers(4, n, 260)])
     src = rng.integers(0, n, dst.size)
@@ -811,6 +946,23 @@ def test_general_kernels_on_awkward_plans_on_card(cuda_device, h, dt,
         r = int(np.argmax(budgets >= 40))  # a row of 40 or more slots
         sc[int(ptr[r]):int(ptr[r + 1])] = 0.0
         scales.append(sc)
+    return fg, scales, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,dt,aligned", [
+    (96, "bf16", True), (96, "f32", True), (96, "bf16", False),
+    (96, "f32", False), (24, "bf16", True), (128, "f32", True),
+    (200, "bf16", True), (256, "bf16", True), (256, "f32", True)])
+def test_general_kernels_on_awkward_plans_on_card(cuda_device, h, dt,
+                                                  aligned):
+    """#1r, #3, #4r and #5 (and #6 beside them) against their plain
+    versions on the awkward plans (``awkward_plan``), for centered_relu,
+    softmax, tanh sent down the general route and leaky_relu; with
+    ``aligned`` False every node table, the [N, 2H] one too, starts one
+    element past a 16-byte boundary (the first design)."""
+    d, tdt = cuda_device, DTYPES[dt]
+    fg, scales, rng = awkward_plan(d)
     eq, ek, g = (rng.normal(size=(fg.n_pad, h)).astype(np.float32)
                  for _ in range(3))
     eqd, gd = (_offset(_t(x, device=d), aligned) for x in (eq, g))
@@ -919,3 +1071,125 @@ def test_act_reduce_bwd_rows_are_geq_bits_on_card(cuda_device, act, dt):
     torch.testing.assert_close(geq2, want[1], **BWD_TOL)
     assert (gz2[zero].view(torch.int32 if dt == "bf16" else torch.int16)
             == 0).all()
+
+
+# past H = 256, on whole 16-byte chunks: #1r and #4r on lane groups of the
+# whole warp (#1r's bf16 form on groups of 16 to H = 384, where its lane
+# still holds at most 24 values), (H, gathered dtype)
+FULL_WARP_CASES = [(264, "bf16"), (264, "f32"), (384, "bf16"), (384, "f32"),
+                   (512, "bf16"), (512, "f32"), (300, "f32")]
+
+
+def full_warp_layout(name, h, dt):
+    """The ``GeneralLayout`` the source gives ``name`` (#1r, #4r or an edge
+    form) at H in (256, 512] on whole chunks: the narrowest group that
+    leaves a lane at most 4 chunks and 16 values (24 in #1r without an
+    edge term)."""
+    c = h * (2 if dt == "bf16" else 4) // 16
+    per, most = (8 if dt == "bf16" else 4), (
+        24 if name == "ell_act_reduce_rowwise" else 16)
+    gw = 16 if -(-c // 16) * per <= most and -(-c // 16) <= 4 else 32
+    return GeneralLayout(c, gw, 32 // gw, -(-c // gw), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["centered_relu", "softmax"])
+@pytest.mark.parametrize("h,dt", FULL_WARP_CASES)
+def test_full_warp_groups_match_plain_on_card(cuda_device, h, dt, act):
+    """#1r and #4r past H = 256 on the awkward plans (a part-full last run
+    of rows, zero-scale slots and a multi-slot row all zero, budgets off
+    multiples of 8, rows longer than 32 slots) against their plain
+    versions at FWD_TOL and BWD_TOL, one launch each, on the lane-group
+    layout ``full_warp_layout`` names (G = 1 at 512)."""
+    d, tdt, tact = cuda_device, DTYPES[dt], ACTS[act]
+    fg, scales, rng = awkward_plan(d)
+    eq, ek, g = (rng.normal(size=(fg.n_pad, h)).astype(np.float32)
+                 for _ in range(3))
+    plan, splan = fg.dst_plan, fg.src_plan
+    fwd = (_t(eq, device=d), _t(ek, tdt, d), fg.dst_slot_srcnode, scales[0],
+           plan.row_key, plan.row_ptr, tact)
+    bwd = (_t(eq, tdt, d), _t(g, tdt, d), _t(ek, device=d),
+           fg.src_slot_dstnode, scales[1], splan.row_key, splan.row_ptr,
+           tact)
+    reset_launch_counts()
+    rows, out = ell_act_reduce_rowwise(*fwd), ell_src_bwd_rowwise(*bwd)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.items() if v} == {
+        "ell_act_reduce_rowwise": 1, "ell_src_bwd_rowwise": 1}
+    torch.testing.assert_close(rows, ell_act_reduce_plain(*fwd), **FWD_TOL)
+    torch.testing.assert_close(out, ell_src_bwd_plain(*bwd), **BWD_TOL)
+    for name, ts in (("ell_act_reduce_rowwise", (fwd[0], fwd[1], rows)),
+                     ("ell_src_bwd_rowwise", (*bwd[:3], out))):
+        lay = ell_general_layout(name, h, tdt, tact, *ts)
+        assert lay == full_warp_layout(name, h, dt), (name, h, dt, lay)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("act", ["centered_relu", "softmax"])
+def test_full_warp_groups_are_bitwise_repeatable_on_card(cuda_device, act,
+                                                         dt):
+    """Two launches of #1r and #4r at H = 512 (one slot a warp, the row
+    stored straight from each lane, no atomics) on a graph of 4,000 nodes
+    and 40,000 edges (rows of up to 64 slots) give the same bits."""
+    rng = np.random.default_rng(9)
+    n, e, d, h = 4000, 40000, cuda_device, 512
+    fg = tell.build_fast_graph(
+        build_graph(rng.integers(0, n, e), rng.integers(0, n, e), n,
+                    device=d), max_budget=64)
+    tact, tdt = ACTS[act], DTYPES[dt]
+    eq, ek, g = (_t(rng.normal(size=(fg.n_pad, h)), device=d)
+                 for _ in range(3))
+    plan, splan = fg.dst_plan, fg.src_plan
+    fwd = (eq, ek.to(tdt), fg.dst_slot_srcnode, fg.dst_slot_scales["sym"],
+           plan.row_key, plan.row_ptr, tact)
+    bwd = (eq.to(tdt), g.to(tdt), ek, fg.src_slot_dstnode,
+           fg.src_slot_scales["sym"], splan.row_key, splan.row_ptr, tact)
+    first, second = [(ell_act_reduce_rowwise(*fwd), ell_src_bwd_rowwise(*bwd))
+                     for _ in range(2)]
+    torch.cuda.synchronize()
+    assert ell_general_layout("ell_act_reduce_rowwise", h, tdt, tact,
+                              fwd[0], fwd[1], first[0]) == full_warp_layout(
+                                  "ell_act_reduce_rowwise", h, dt)
+    assert ell_general_layout("ell_src_bwd_rowwise", h, tdt, tact, *bwd[:3],
+                              first[1]) == full_warp_layout(
+                                  "ell_src_bwd_rowwise", h, dt)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["centered_relu", "softmax"])
+def test_general_layouts_past_256_on_card(cuda_device, act):
+    """The path of each general kernel past H = 256 (``ell_general_layout``
+    on aligned tables): at 512 #1r and #4r and their edge forms on groups
+    of the whole warp, GeneralLayout(64, 32, 1, 2, 1) in bf16 and (128,
+    32, 1, 4, 1) in f32; #3, #5 and #6 (and #3's edge form) on the first
+    design's wide path, WideLayout(16, 1); past 512 every kernel on the
+    wide path's passes, WideLayout(8, n); and H = 300 in bf16 (rows that
+    are not whole 16-byte chunks) the first design's wide path for all."""
+    tact, d = ACTS[act], cuda_device
+    group = {"ell_act_reduce_rowwise", "ell_src_bwd_rowwise",
+             "ell_act_reduce_rowwise_edge", "ell_src_bwd_rowwise_edge"}
+    names = sorted(group | {"ell_geq_reduce", "ell_src_bwd_fused",
+                            "ell_act_reduce_bwd", "ell_geq_reduce_edge"})
+    for h, dt in ((512, "bf16"), (512, "f32"), (520, "bf16"), (520, "f32"),
+                  (1024, "f32"), (300, "bf16")):
+        tdt = DTYPES[dt]
+        f32 = torch.zeros((4, h), device=d)
+        gath = torch.zeros((4, h), dtype=tdt, device=d)
+        both = torch.zeros((4, 2 * h), dtype=tdt, device=d)
+        for name in names:
+            ts = ((both, f32, f32) if name == "ell_src_bwd_fused" else
+                  (f32, gath, f32, gath, f32) if name == "ell_act_reduce_bwd"
+                  else (f32, gath, gath, f32))
+            lay = ell_general_layout(name, h, tdt, tact, *ts)
+            if h <= 512 and h * tdt.itemsize % 16 == 0 and name in group:
+                want = GeneralLayout(h * tdt.itemsize // 16, 32, 1,
+                                     h * tdt.itemsize // 512, 1)
+            elif h <= 512:
+                want = WideLayout(16, 1)
+            else:
+                want = WideLayout(8, -(-h // 256))
+            assert lay == want, (name, h, dt, lay)
+

@@ -340,11 +340,18 @@ def test_general_edge_route_matches_jax(act, agg, dt, via, dropedge,
                                           (300, "softmax", None, "f32"),
                                           (520, "softmax", "e", "f32"),
                                           (520, "centered_relu", None,
-                                           "bf16")])
+                                           "bf16"),
+                                          (512, "centered_relu", None,
+                                           "bf16"),
+                                          (512, "centered_relu", "e",
+                                           "bf16"),
+                                          (512, "softmax", None, "f32"),
+                                          (512, "softmax", "e", "f32")])
 def test_wide_rowwise_matches_jax(h, act, via, dt, jax_pallas, edge_dtype):
-    """A row-wise sigma past H = 256 (the kernels' wide path), with and
-    without an edge term, sym scales: out and every gradient against the
-    JAX package's general route."""
+    """A row-wise sigma past H = 256 (on the card #1r and #4r take
+    full-warp lane groups up to 512 on whole 16-byte chunks, the rest the
+    wide path), with and without an edge term, sym scales: out and every
+    gradient against the JAX package's general route."""
     edge_dtype(dt)
     c = make_case(h, seed=3, n=24, edges=90)
     w = c.rng.normal(size=c.eq.shape).astype(np.float32)
@@ -664,17 +671,30 @@ def general_runs(c, act):
     }
 
 
+# #1r and #4r and their edge forms: the kernels whose lane groups widen to
+# the whole warp past H = 256, up to 512
+FULL_WARP = ("ell_act_reduce_rowwise", "ell_act_reduce_rowwise_edge",
+             "ell_src_bwd_rowwise", "ell_src_bwd_rowwise_edge")
+
+
 def _want_path(name, act, h, dt, aligned):
-    """The path the entries choose: "wide" for a row-wise sigma past 256,
-    "group" for the lane-group path, None for the first design."""
-    if not act.diagonal and h > 256:
-        return "wide"
+    """The path the entries choose: "group" for the lane-group path (a
+    row-wise sigma, or any in #5, on whole, aligned 16-byte chunks up to H
+    = 256, and up to 512 in #1r and #4r and their edge forms), "wide" for
+    a row-wise sigma past 256 that it does not take, None for the first
+    design."""
     group = not act.diagonal or name == "ell_src_bwd_fused"
     whole = h * (2 if dt == "bf16" else 4) % 16 == 0
-    return "group" if group and aligned and whole and h <= 256 else None
+    most = 512 if name in FULL_WARP else 256
+    if group and aligned and whole and h <= most:
+        return "group"
+    return "wide" if not act.diagonal and h > 256 else None
 
 
 def _run_and_compare(runs, act, h, dt, aligned):
+    """Each of ``runs`` launched once against its plain version, on the
+    path ``_want_path`` names; returns name -> its layout."""
+    lays = {}
     for name, (kernel, plain, tols, tables) in runs.items():
         reset_launch_counts()
         got = kernel()
@@ -695,6 +715,8 @@ def _run_and_compare(runs, act, h, dt, aligned):
         if path == "wide":
             assert lay == (WideLayout(16, 1) if h <= 512 else
                            WideLayout(8, -(-h // 256))), (name, h, lay)
+        lays[name] = lay
+    return lays
 
 
 @pytest.mark.cuda
@@ -726,8 +748,32 @@ def test_general_new_forms_match_plain_on_card(cuda_device, h, dt, aligned):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("act", ["centered_relu", "softmax"])
+@pytest.mark.parametrize("h,dt", [(264, "bf16"), (264, "f32"), (384, "bf16"),
+                                  (384, "f32"), (512, "bf16"), (512, "f32"),
+                                  (300, "f32")])
+def test_full_warp_edge_forms_match_plain_on_card(cuda_device, h, dt, act):
+    """#1r·e and #4r·e past H = 256 on whole 16-byte chunks against their
+    plain versions on the awkward plans (a part-full last run of rows,
+    zero-scale slots and a multi-slot row all zero, budgets off multiples
+    of 8, rows longer than 32 slots; #4r·e's g_e at one bf16 step in
+    bf16), one launch each, on lane groups of the whole warp: an edge
+    form's lane holds at most 16 values, so past 256 one slot a warp."""
+    c = awkward_case(h, dt, True, cuda_device)
+    runs = {k: v for k, v in edge_runs(c, ACTS[act]).items()
+            if k in FULL_WARP}
+    lays = _run_and_compare(runs, ACTS[act], h, dt, True)
+    chunks = h * c.tdt.itemsize // 16
+    assert set(lays) == {"ell_act_reduce_rowwise_edge",
+                         "ell_src_bwd_rowwise_edge"}
+    for name, lay in lays.items():
+        assert lay == GeneralLayout(chunks, 32, 1, -(-chunks // 32), 1), (
+            name, h, dt, lay)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("h,dt", [(96, "bf16"), (96, "f32"), (512, "bf16"),
-                                  (300, "f32"), (520, "bf16")])
+                                  (512, "f32"), (300, "f32"), (520, "bf16")])
 @pytest.mark.parametrize("act", ["centered_relu", "softmax", "gelu"])
 def test_general_new_forms_are_bitwise_repeatable_on_card(cuda_device, h, dt,
                                                           act):

@@ -576,8 +576,8 @@ def test_max_layout_python_side():
 
 def test_max_ab_takes_the_width(tmp_path):
     """``ell_ab --max --hidden H`` (the wide path's A/B at H = O = 512)
-    parses and then needs the card; --hidden is for --max and --edge only,
-    --de for --edge only, --define for --max only."""
+    parses and then needs the card; --hidden is for --max, --edge and
+    --general only, --de for --edge only, --define for --max only."""
     from sir_gcn_tpu_torch.tools import ell_ab
 
     other = str(tmp_path / "other.cu")

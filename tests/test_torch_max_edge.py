@@ -142,9 +142,10 @@ def _t(x, dtype=torch.float32, device="cpu"):
 def near_gate_keep(fg, args, act, edge=()):
     """(rows, slots) bool of the dst plan to compare a centered_relu
     backward at: those without a valid slot whose gate lies within
-    chip_smoke.py's NEAR_GATE of 0 at some feature (the plain version's
-    z), where the kernel's mean, summed in another order, may put the relu
-    on the other side; (None, None) for any other sigma."""
+    NEAR_GATE (``ops/cuda/checks.py``, through chip_smoke.py's
+    ``near_gates``) of 0 at some feature (the plain version's z), where
+    the kernel's mean, summed in another order, may put the relu on the
+    other side; (None, None) for any other sigma."""
     from chip_smoke import near_gates
 
     if act.name != "centered_relu":
