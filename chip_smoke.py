@@ -62,9 +62,10 @@ one line before the kernels line); any failure exits non-zero:
            past a block's shared memory (the columns path, required): on
            the small plans at (H, De) = (100, 600), (40, 1024) and (40,
            2000) (W_E and #8's partials in device memory for the last
-           two), at the heterophilous plan with De = 16 and at H = 512, De
-           = 16 on the arxiv plan in bf16 (timed, "[wide]"); every check
-           of #7 and #8 launches each twice for the same bits
+           two), and #8 with De = 16 on its tiles path (required) at the
+           heterophilous plan and at H = 512 on the arxiv plan in bf16
+           (timed, "[wide]"); every check of #7 and #8 launches each twice
+           for the same bits
   train    the arxiv trainer's entry point at full width (169,343 nodes,
            H = 96, 3 layers, bn, residual, bf16 edges), once with sym and
            once with max aggregation, 5 steps and evals each, with the
@@ -115,7 +116,7 @@ one line before the kernels line); any failure exits non-zero:
            erf-GELU declared non-elementwise at H = 96
   sireconv_wide the SIREConv of the heterophilous default width (512 ->
            512, De = 16, sym, leaky_relu(0.2), dropout 0) on the fused
-           edge route, #8 on its columns path: (a) one step on the
+           edge route, #8 on its tiles path: (a) one step on the
            heterophilous plan, card against CPU, f32 edges, dyadic inputs,
            out and every gradient (W_E's too); (b) 3 AdamW steps and evals
            on the arxiv plan, bf16 edges, exactly #7 once a step and once
@@ -423,11 +424,16 @@ MAX_FORMS = ("rowwise", "rowwise,wide", "edge,rowwise", "wide")
 GENERAL_FORMS = GENERAL + BWD
 # the general_wide phase's width: the heterophilous default
 WIDE_H = 512
-# #1r and #4r and their edge forms: past H = 256 on lane groups of the
-# whole warp, up to 512 on whole 16-byte chunks; the other general kernels
-# take the first design's wide path past 256
-FULL_WARP = ("ell_act_reduce_rowwise", "ell_src_bwd_rowwise",
-             "ell_act_reduce_rowwise_edge", "ell_src_bwd_rowwise_edge")
+# #1r, #3 and #4r and their edge forms: past H = 256 on lane groups of the
+# whole warp, up to 512 on whole 16-byte chunks; #5 and #6 take the first
+# design's wide path past 256
+FULL_WARP = ("ell_act_reduce_rowwise", "ell_geq_reduce", "ell_src_bwd_rowwise",
+             "ell_act_reduce_rowwise_edge", "ell_geq_reduce_edge",
+             "ell_src_bwd_rowwise_edge")
+# the general kernels the general_wide phase's softmax SIRConv (a) runs,
+# timed at WIDE_H under softmax too, each a row "<name>[wide,softmax]"
+WIDE_SOFTMAX = ("ell_act_reduce_rowwise", "ell_geq_reduce",
+                "ell_src_bwd_rowwise")
 LAB = tuple(k for k in KERNELS if k.startswith("lab_"))
 EDGE_DIM = 16  # the edge basis width of the SIREConv configuration
 # the kernels with an erf-GELU form (sigma id 4): each is a row of its own
@@ -442,8 +448,9 @@ GELU = LINEAR + EDGE + MAX[:3]
 HETERO_NODES, HETERO_EDGES, HETERO_H = 10_000, 78_804, 512
 # #7 and #8 at H = 512, De = EDGE_DIM (the sireconv_wide phase's): the
 # forward's W_E fits a block's shared memory, the backward's nine tables
-# (288 KiB) do not and take the columns path
-WIDE_EDGE_PATHS = ("shared", "columns")
+# (288 KiB) do not: with De <= 16 it takes the tiles path (W_E's columns in
+# registers, g_WE on tensor-core tiles of 16 slots)
+WIDE_EDGE_PATHS = ("shared", "tiles")
 # (H, De, the paths of #7 and #8) past a block's shared memory, checked on
 # the small plans: #7's W_E too (100, 600); #8's partials in device memory
 # (40, 1024); #7's W_E in device memory too (40, 2000)
@@ -646,8 +653,9 @@ def log_max_layout(label, h, o, require=None):
 def log_edge_layout(label, h, de, act, dtype, require=None):
     """Log the paths #7 and #8 take for rows of width h and a basis of
     width de (ell_edge_layout: registers, the shared-memory loop or its
-    columns path with the chunks). With ``require`` (the forward's and the
-    backward's path) any other raises: a path must not be bypassed."""
+    columns path with the chunks, or #8's tiles path). With ``require``
+    (the forward's and the backward's path) any other raises: a path must
+    not be bypassed."""
     from sir_gcn_tpu_torch.ops import cuda as K
 
     lay = K.ell_edge_layout(h, de, act, dtype)
@@ -853,11 +861,28 @@ def check_edge_kernels(label, fg, eq, ek, g, sd, ss, e, eb, we, act, dtype,
         "ell_edge_src_bwd": (fbwd, valid_s * h * (4 * de + KERNELS[
             "ell_edge_src_bwd"][2])),
     }
+    tiles = K.ell_edge_layout(h, de, act, dtype).bwd == "tiles"
     for name, (kernel, plain, _) in runs.items():
         args, flops = needs[name]
         timing[name + tag] = dict(ms=cuda_ms(kernel, 20),
                                   plain_ms=cuda_ms(plain, 3, warmup=1),
                                   bound=bound(args, outs[name], flops))
+        if name == "ell_edge_src_bwd" and tiles:
+            # the tiles path runs g_WE's 2 De flops a slot and feature as
+            # three-pass TF32 on the tensor cores, beside the rest on the
+            # f32 pipe: the slower of the two bounds it
+            tc = valid_s * h * 2 * de
+            simt = bound(args, outs[name], flops - tc)
+            mma = bound(args, outs[name], TF32_PASSES * tc, PEAK_TF32_FLOPS)
+            f32 = timing[name + tag]["bound"][0]
+            timing[name + tag]["bound"] = max(simt, mma)
+            log(f"  {name}{tag}: bound {max(simt, mma)[0]:.4f} ms; its "
+                f"f32 flops {(flops - tc) / PEAK_F32_FLOPS * 1e3:.4f} ms at "
+                f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, g_WE's "
+                f"{TF32_PASSES * tc / PEAK_TF32_FLOPS * 1e3:.4f} ms as "
+                f"{TF32_PASSES} x TF32 at {PEAK_TF32_FLOPS / 1e12:.0f} "
+                f"TFLOP/s, its bytes {simt[2] / PEAK_BYTES_PER_S * 1e3:.4f} "
+                f"ms; all at f32 {f32:.4f} ms")
 
 
 def max_case(graph: str, h: int, o: int, device):
@@ -1507,9 +1532,9 @@ def phase_kernels(device):
 
 
 def wide_paths(h: int, dtype) -> dict:
-    """``check_general_kernels``' path requirements past H = 256: #1r and
-    #4r (and their edge forms) on the lane-group path up to 512 on whole
-    16-byte chunks, every other kernel on the wide path."""
+    """``check_general_kernels``' path requirements past H = 256: #1r, #3
+    and #4r (and their edge forms) on the lane-group path up to 512 on
+    whole 16-byte chunks, every other kernel on the wide path."""
     group = FULL_WARP if h <= 512 and h * dtype.itemsize % 16 == 0 else ()
     return dict(require_group=group, require_wide=tuple(
         k for k in GENERAL + BWD + tuple(GENERAL_EDGE) if k not in group))
@@ -1518,9 +1543,10 @@ def wide_paths(h: int, dtype) -> dict:
 def wide_kernels(device, fg, errs, timing):
     """The general route's five kernels at the arxiv plan, H = WIDE_H (the
     general_wide phase's), bf16 edges, each against its plain version
-    (#1r and #4r on full-warp lane groups, #3, #5 and #6 on the wide path):
-    centered_relu(0.5), near gates masked, timed; then softmax. The times
-    go under "<name>[wide]"."""
+    (#1r, #3 and #4r on full-warp lane groups, #5 and #6 on the wide path):
+    centered_relu(0.5), near gates masked, timed under "<name>[wide]"; then
+    softmax, #1r, #3 and #4r (``WIDE_SOFTMAX``) timed under
+    "<name>[wide,softmax]"."""
     import torch
 
     from sir_gcn_tpu_torch.ops.ell import centered_relu, softmax
@@ -1536,15 +1562,27 @@ def wide_kernels(device, fg, errs, timing):
                           sd, ss, centered_relu(0.5), torch.bfloat16, errs,
                           timing=timing, mask_gates=True, tag="[wide]",
                           **paths)
+    soft_errs, soft_timing = {}, {}
     check_general_kernels(f"arxiv H={h} bf16 softmax", fg, eq, ek, g, sd, ss,
-                          softmax, torch.bfloat16, errs, tag="[wide]",
-                          **paths)
+                          softmax, torch.bfloat16, soft_errs,
+                          timing=soft_timing, tag="[wide,softmax]", **paths)
+    for name in GENERAL_FORMS:  # every kernel held, WIDE_SOFTMAX's rows kept
+        errs[f"{name}[wide]"] = max(errs[f"{name}[wide]"],
+                                    soft_errs[f"{name}[wide,softmax]"])
+    for name in WIDE_SOFTMAX:
+        key = f"{name}[wide,softmax]"
+        errs[key], timing[key] = soft_errs[key], soft_timing[key]
     for name in GENERAL_FORMS:
         t = timing[f"{name}[wide]"]
         path = "lane groups" if name in FULL_WARP else "wide path"
         log(f"  {name} at H={h} (bf16, {path}): {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} ms by "
             f"{t['bound'][1]} ({t['bound'][2] / 1e6:.1f} MB), "
+            f"{100 * t['bound'][0] / t['ms']:.1f}% of bound")
+    for name in WIDE_SOFTMAX:
+        t = timing[f"{name}[wide,softmax]"]
+        log(f"  {name} at H={h} (bf16, softmax, lane groups): "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
             f"{100 * t['bound'][0] / t['ms']:.1f}% of bound")
     del eq, ek, g
     torch.cuda.empty_cache()
@@ -1585,7 +1623,7 @@ def hetero_kernels(device, errs, gelu_errs, timing):
     """The kernels with an erf-GELU form at H = O = 512 on a plan of the
     heterophilous minesweeper's size (its synthetic stand-in, no self
     loops): #1, #2 and #4 and their edge forms, #7 and #8 (De = EDGE_DIM:
-    #7 on the shared-memory loop, #8 on its columns path, required), #9-#12
+    #7 on the shared-memory loop, #8 on its tiles path, required), #9-#12
     with near ties masked as at the arxiv plan, in f32 and bf16; erf-GELU against its plain versions,
     and leaky_relu(0.2) beside it, each timed (bf16) and logged with its
     path. Then #9-#11's row-wise forms there: centered_relu in bf16 (near
@@ -2011,7 +2049,7 @@ def phase_sireconv(device, fg, steps: int = 5, act=None):
 def phase_sireconv_wide(device, fg, steps: int = 3):
     """The SIREConv of the heterophilous default width, 512 -> 512, De =
     EDGE_DIM, sym, leaky_relu(0.2), dropout 0: the fused edge route with
-    #8 on its columns path. (a) One training step on the heterophilous
+    #8 on its tiles path. (a) One training step on the heterophilous
     plan (minesweeper's size), f32 edges, on the card against the CPU
     (plain versions) from the same weights, on dyadic inputs (x and the
     edge features on multiples of 1/8, the weights on multiples of 1/128,
@@ -2460,12 +2498,11 @@ def phase_general_edge(device, fg, steps: int = 5):
 
 def require_wide_layouts(device, act):
     """The path ``ell_general_layout`` reports for each general kernel and
-    edge form at WIDE_H and past it, on aligned tables: at WIDE_H (512) #1r
-    and #4r and their edge forms on lane groups of the whole warp,
+    edge form at WIDE_H and past it, on aligned tables: at WIDE_H (512)
+    #1r, #3 and #4r and their edge forms on lane groups of the whole warp,
     GeneralLayout(64, 32, 1, 2, 1) in bf16 and (128, 32, 1, 4, 1) in f32;
-    #3, #5 and #6 (and #3's edge form) on the first design's wide path,
-    WideLayout(16, 1); at 520 every kernel on the wide path's passes,
-    WideLayout(8, 3). Raises on any other path."""
+    #5 and #6 on the first design's wide path, WideLayout(16, 1); at 520
+    every kernel on the wide path's passes, WideLayout(8, 3). Raises on any other path."""
     import torch
 
     from sir_gcn_tpu_torch.ops import cuda as K
@@ -2496,12 +2533,12 @@ def require_wide_layouts(device, act):
 
 def phase_general_wide(device, fg, steps: int = 3):
     """First the paths the general kernels take at WIDE_H and past it, in
-    bf16 and f32 (``require_wide_layouts``: #1r and #4r on full-warp lane
-    groups at 512, the rest on the wide path). Then one SIRConv at the
+    bf16 and f32 (``require_wide_layouts``: #1r, #3 and #4r on full-warp
+    lane groups at 512, the rest on the wide path). Then one SIRConv at the
     heterophilous width (WIDE_H in, hidden and out)
     on the arxiv plan, bf16 edges, three times: (a) softmax with mean, (b)
-    centered_relu(0.5) with sym, both with #1r and #4r on full-warp lane
-    groups and #3 on the wide path, (c) erf-GELU
+    centered_relu(0.5) with sym, both with #1r, #3 and #4r on full-warp
+    lane groups, (c) erf-GELU
     declared non-elementwise (``Activation("gelu", sir_elementwise=
     False)``) with sym, on the general route's first design; each
     ``steps`` AdamW steps, each followed by a no-grad eval, with exact
@@ -2509,10 +2546,11 @@ def phase_general_wide(device, fg, steps: int = 3):
     and (b) profiled over 3 warm steps. Then single aggregates with a
     gradient, each launching exactly what it names: (d) erf-GELU at H = 96
     with fuse_bwd_take (#2, #5); (e) centered_relu at H = WIDE_H with
-    fuse_bwd_take (#1r, #3, #5; #3 and #5 the wide path); the dst-major
+    fuse_bwd_take (#1r, #3, #5; #5 the wide path); the dst-major
     composition (#1r, #6, #12) with (f) centered_relu at H = WIDE_H and (g)
     erf-GELU declared non-elementwise at H = 96. Returns the launches of
-    the wide forms and of the erf-GELU forms by kernel."""
+    the wide forms, of the erf-GELU forms and of (a)'s softmax forms
+    (``WIDE_SOFTMAX``) by kernel."""
     import torch
 
     from sir_gcn_tpu_torch.models import SIRConv
@@ -2539,6 +2577,7 @@ def phase_general_wide(device, fg, steps: int = 3):
     forced_gelu = Activation("gelu", sir_elementwise=False)
     wide = dict.fromkeys(GENERAL_FORMS, 0)
     gelu_launches = dict.fromkeys(GENERAL_FORMS, 0)
+    wide_softmax = dict.fromkeys(WIDE_SOFTMAX, 0)  # (a)'s, of ``wide``
     per_run = {"ell_act_reduce_rowwise": 2 * steps,
                "ell_geq_reduce": steps, "ell_src_bwd_rowwise": steps}
     for setting, act, agg, into in (("a", softmax, "mean", wide),
@@ -2557,6 +2596,8 @@ def phase_general_wide(device, fg, steps: int = 3):
                                  f"expected {per_run}")
         for k, v in launches.items():
             into[k] += v
+            if setting == "a" and k in WIDE_SOFTMAX:
+                wide_softmax[k] += v
         if setting == "b":
             log(f"== profile general_wide (b): 3 warm training steps")
             profile_steps(lambda: conv_step(conv, fg, x, w, opt), 3)
@@ -2614,8 +2655,8 @@ def phase_general_wide(device, fg, steps: int = 3):
     set_edge_dtype(None)
     torch.cuda.empty_cache()
     log(f"  launches of the wide forms {wide}, of the erf-GELU forms "
-        f"{gelu_launches}")
-    return wide, gelu_launches
+        f"{gelu_launches}; (a) softmax's {wide_softmax}")
+    return wide, gelu_launches, wide_softmax
 
 
 def phase_bwd(device, fg, iters: int = 10):
@@ -5142,8 +5183,8 @@ def main() -> int:
     launches.update({k: v for k, v in run(
         "general_edge", phase_general_edge, device, arxiv_fg).items()
         if k in GENERAL_EDGE})
-    general_wide, general_gelu = run("general_wide", phase_general_wide,
-                                     device, arxiv_fg)
+    general_wide, general_gelu, wide_softmax = run(
+        "general_wide", phase_general_wide, device, arxiv_fg)
     sireconv_wide = run("sireconv_wide", phase_sireconv_wide, device,
                         arxiv_fg)
     max_edge, max_both = run("sireconv_max", phase_sireconv_max, device,
@@ -5229,6 +5270,15 @@ def main() -> int:
                 launches=counts[name], max_abs_err=errs[key], ms=t["ms"],
                 plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
                 bound_by=t["bound"][1], library_ms=None))
+    for name in WIDE_SOFTMAX:  # (a)'s softmax forms at H = WIDE_H
+        source, replaces, _ = KERNELS[name]
+        key = f"{name}[wide,softmax]"
+        t = timing[key]
+        rows.append(dict(
+            name=key, route="cuda", source=source, replaces=replaces,
+            launches=wide_softmax[name], max_abs_err=errs[key], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+            bound_by=t["bound"][1], library_ms=None))
     for name in EDGE[3:]:  # #7 and #8 at H = WIDE_H, sireconv_wide's
         source, replaces, _ = KERNELS[name]
         key = f"{name}[wide]"

@@ -20,7 +20,7 @@
 //
 // Bound: operations at the arxiv width (H = 96, De = 16): the projection
 // costs 2 * De flops per slot and feature (twice that in the backward, for
-// g_WE), against 2-4 bytes per feature read. The three paths below walk a
+// g_WE), against 2-4 bytes per feature read. The four paths below walk a
 // row's slots in order, skip a slot with scale 0 (padding) whole, so that it
 // reads nothing and contributes exactly 0, and form e_h for a lane's feature
 // f as fmaf(b_d, W_E[d, f], e_h) in increasing d from 0. Each row's sums are
@@ -90,8 +90,37 @@
 // in a fixed order, the same from launch to launch. A slot costs each
 // chunk De shuffles and De * NF shared reads for e_h, and as many
 // shuffles, reads and writes again for g_WE: the shared-memory pipe bounds
-// these kernels, not bytes or flops (#8 at H = 512, De = 16 runs at about
-// an eighth of its operations bound on an H100).
+// these kernels, not bytes or flops (#8 at H = 512, De = 16 ran at about
+// an eighth of its operations bound on an H100, some 768 shared-memory
+// warp instructions a slot), so #8 takes them only where De > 16.
+//
+// The tiles path (#8 on the columns path's shapes with De <= 16, as at H =
+// 512, De = 16) takes both products off the shared-memory pipe. A block
+// takes 128 columns of its rows (grid.y over the chunks), lane l the four
+// consecutive features 4 l .. 4 l + 3 and their W_E columns, De padded to
+// 8 or 16 times 4 values in registers: e_h is formed in registers by the
+// same fmaf chain in d as on the columns path, so the g_ek rows are that
+// path's bits. A warp walks its rows' slots as a stream of batches (8
+// slots in bf16, 4 in f32): the next batch's live slots' eq and g chunks
+// and basis rows are copied by cp.async into the warp's other stage in
+// shared memory (4 KB of rows), and a row's f32 ek values loaded, across
+// row ends, before the current batch is worked. Each live slot's g_z
+// values go into the next row of the warp's g_z tile of 16 slots in
+// shared memory (one 16-byte store a lane); a full tile (its slots from
+// any rows: g_WE does not care about rows) adds egr^T g_z to the warp's
+// g_WE sums, [16, 128] as m16n8k8 accumulators in shared memory, on the
+// tensor cores: each product the three-pass TF32 split of
+// ell_max_kernels.cu (f32 accuracy), summed from zero a k step and added
+// in f32. A slot then costs some twenty shared-memory wavefronts a chunk,
+// not some 190. The block sums its warps' g_WE in warp order and
+// sum_partials_kernel the blocks' in block order, as on the columns path;
+// g_WE moves within f32 rounding of the columns path's. What bounds it now
+// is latency at 8 warps an SM (some 185 registers a thread, W_E's columns
+// 64 of them, and 217 KiB of shared memory a block): at the arxiv plan in
+// bf16 it takes about four times its no-L2-reuse estimate on an H100,
+// spent in the walk (e_h's 64 fmaf a slot and chunk) and the tile products
+// (PERF.md). Deeper pipelines (four stages of 4 slots), two slots worked
+// at once and the g_WE sums in registers measured slower.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -870,6 +899,500 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, int P,
 }
 
 // ---------------------------------------------------------------------
+// The tiles path: #8 on the columns path's shapes with De <= 16
+// ---------------------------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, as
+// an integer add and a mask (ell_max_kernels.cu's tf32_rna).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo as two TF32 values, each rounded to nearest (ties away).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));  // x - hi is exact
+}
+
+// d += a b for one m16n8k8 TF32 tile (f32 accumulators).
+__device__ __forceinline__ void mma(float d[4], const uint32_t a[4],
+                                    const uint32_t b[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The tiles path: the valid slots a g_WE tile (the products' K); the g_z
+// tile's row stride in floats (a multiple of 4, 8 mod 32: its fragment
+// reads hit 32 banks); the most slots a batch; a stage of a batch in
+// floats: its live slots' gathered rows, 4 KB (the eq and g chunks of 8
+// slots of bf16 or 4 of f32), then their basis rows [8, 16] (0 past De)
+// and scales [8]; and the slots a batch, by the gathered type.
+constexpr int kTileSlots = 16;
+constexpr int kTileLdz = kMaxChunk + 8;
+constexpr int kStageSlots = 8;
+constexpr int kStageRowFloats = 1024;
+constexpr int kStageBasis = kStageRowFloats;
+constexpr int kStageScales = kStageBasis + kStageSlots * 16;
+constexpr int kStageFloats = kStageScales + kStageSlots;
+
+template <typename T>
+__host__ __device__ constexpr int tile_inflight() {
+  return kStageRowFloats * (int)sizeof(float) /
+         (2 * kMaxChunk * (int)sizeof(T));
+}
+
+// The g_z tile's basis rows' stride in floats for DB basis values a slot
+// (rows 16-byte aligned, its fragment reads on 32 banks).
+__host__ __device__ constexpr int tile_ldb(int db) { return db == 16 ? 24 : 8; }
+
+// Floats of the warp's g_WE sums [MT][NT][32] float4 (MT = kMaxChunk / 16
+// feature tiles, NT = DB / 8 basis tiles).
+__host__ __device__ constexpr int tile_acc_floats(int db) {
+  return kMaxChunk / 16 * (db / 8) * 32 * 4;
+}
+
+// Floats of a warp's shared memory: two stages, its g_z tile [16,
+// kTileLdz], the tile's basis rows [16, tile_ldb(DB)] and its g_WE sums
+// (27,712 bytes at DB = 16: eight warps take 221,696 of a block's 227 KiB).
+__host__ __device__ constexpr int tile_warp_floats(int db) {
+  return 2 * kStageFloats + kTileSlots * kTileLdz + kTileSlots * tile_ldb(db) +
+         tile_acc_floats(db);
+}
+
+// Four consecutive f32 values of a row (ek), as loaded (VEC: one 16-byte
+// load, the four values all in or all past the row; else four loads, each
+// masked) and widened where they are used, so that the load stays in
+// flight until its batch is worked.
+template <bool VEC>
+struct Raw4;
+template <>
+struct Raw4<true> {
+  uint4 u;
+  __device__ __forceinline__ void load(const float* p, const bool (&ok)[4]) {
+    u = ok[0] ? __ldg(reinterpret_cast<const uint4*>(p))
+              : make_uint4(0, 0, 0, 0);
+  }
+  __device__ __forceinline__ void widen(float (&f)[4]) const {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+template <>
+struct Raw4<false> {
+  float v[4];
+  __device__ __forceinline__ void load(const float* p, const bool (&ok)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = ok[i] ? p[i] : 0.f;
+  }
+  __device__ __forceinline__ void widen(float (&f)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = v[i];
+  }
+};
+
+// Four consecutive values of a staged row in shared memory (8 or 16 bytes
+// at p), widened to f32; a bf16 value is the top half of its f32 value.
+__device__ __forceinline__ void staged4(const __nv_bfloat16* p,
+                                        float (&f)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  f[0] = __uint_as_float(u.x << 16);
+  f[1] = __uint_as_float(u.x & 0xffff0000u);
+  f[2] = __uint_as_float(u.y << 16);
+  f[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+__device__ __forceinline__ void staged4(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+
+// acc += the tile's g_WE^T: for the chunk's features f (M, kMaxChunk / 16
+// tiles of 16) and basis values d (N, DB / 8 tiles of 8), sum over the
+// tile's 16 slots s (K, two steps of 8) of g_z[s, f] * egr[s, d]. zt is the
+// warp's g_z tile [16, kTileLdz], eb the tile's 16 basis rows (tile_ldb(DB)
+// apart, 0 past De), acc the warp's sums in shared memory as m16n8k8
+// accumulators, a float4 a lane a (m, n) tile ([MT][NT][32] float4). Each
+// product is the three-pass TF32 split (a_lo b_hi, a_hi b_lo, a_hi b_hi)
+// of ell_max_kernels.cu, summed from zero a k step and added to acc in
+// f32: the tensor core's own adder rounds with a bias, so no accumulator
+// of it takes more than one step.
+template <int DB>
+__device__ __forceinline__ void tile_products(const float* zt,
+                                              const float* eb, int lane,
+                                              float4* acc) {
+  constexpr int NT = DB / 8, LDB = tile_ldb(DB);
+  const int gi = lane >> 2, ti = lane & 3;
+  uint32_t bh[2][NT][2], bl[2][NT][2];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float* b = eb + (ks * 8 + ti) * LDB + n * 8 + gi;
+      split(b[0], bh[ks][n][0], bl[ks][n][0]);
+      split(b[4 * LDB], bh[ks][n][1], bl[ks][n][1]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kMaxChunk / 16; ++m) {
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      // A = g_z^T [f, s]: (gi, ti), (gi + 8, ti), (gi, ti + 4), (gi + 8,
+      // ti + 4)
+      const float* a = zt + (ks * 8 + ti) * kTileLdz + m * 16 + gi;
+      uint32_t ah[4], al[4];
+      split(a[0], ah[0], al[0]);
+      split(a[8], ah[1], al[1]);
+      split(a[4 * kTileLdz], ah[2], al[2]);
+      split(a[4 * kTileLdz + 8], ah[3], al[3]);
+      float part[NT][4] = {};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mma(part[n], al, bh[ks][n]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mma(part[n], ah, bl[ks][n]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mma(part[n], ah, bh[ks][n]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float4& c = acc[(m * NT + n) * 32 + lane];
+        c.x = __fadd_rn(c.x, part[n][0]);
+        c.y = __fadd_rn(c.y, part[n][1]);
+        c.z = __fadd_rn(c.z, part[n][2]);
+        c.w = __fadd_rn(c.w, part[n][3]);
+      }
+    }
+  }
+}
+
+// A row's slot range and key, and one lane's slot of a run of 32: what a
+// warp loads ahead of the row it works on (ell_general_kernels.cu's).
+struct Head {
+  int s0, s1, key;
+};
+
+__device__ __forceinline__ Head load_head(const int* __restrict__ row_ptr,
+                                          const int* __restrict__ row_key,
+                                          int r, int R) {
+  Head h{0, 0, 0};
+  if (r < R) {
+    h.s0 = __ldg(row_ptr + r);
+    h.s1 = __ldg(row_ptr + r + 1);
+    h.key = __ldg(row_key + r);
+  }
+  return h;
+}
+
+__device__ __forceinline__ Slots load_slot(const int* __restrict__ slot_node,
+                                           const int* __restrict__ slot_edge,
+                                           const float* __restrict__ scale,
+                                           int base, int s1, int lane) {
+  Slots d{0, 0, 0.f};
+  const int mine = base + lane;
+  if (mine < s1) {
+    d.node = __ldg(slot_node + mine);
+    d.edge = __ldg(slot_edge + mine);
+    d.sc = __ldg(scale + mine);
+  }
+  return d;
+}
+
+// #8 on the tiles path. A block (x, y) takes the columns c0 = y * 128 ..
+// c0 + 127 (kMaxChunk; fewer in the last chunk) of rows x * 8 + warp, then
+// + 8 * gridDim.x: lane l owns the chunk's features 4 l .. 4 l + 3 and
+// their W_E columns, DB x 4 values in registers (0 past De and H). A warp
+// walks its rows' slots as a stream of batches of up to U slots of one run
+// of 32 of a row (a row has at least one, an empty row one with no live
+// slot). The next batch is issued, across row ends, before the current one
+// is worked: its live slots' eq and g chunks copied into the warp's other
+// stage in shared memory by cp.async (VEC: rows of whole 16-byte chunks,
+// the tables 16-byte aligned; else by plain loads and stores) with their
+// basis rows and scales, packed into the stage's first places, and on a
+// row's first batch the row's ek values into registers (4 KB of rows a
+// warp in flight). A slot with scale 0 gathers nothing and adds
+// nothing. A live slot forms e_h = sum_d b_d W_E[d, f] by fmaf in
+// increasing d, its z and g_z as the columns path does (so the g_ek rows
+// are that path's bits), adds g_z to the row's sums and stores it, with
+// its basis row, as the next row of the warp's g_z tile; a full tile of 16
+// live slots (of any rows) goes into the warp's g_WE sums (in shared
+// memory: in registers they spilled) on the tensor cores (tile_products),
+// and the last, part-full one with its other rows 0. At the end the block
+// sums its warps' g_WE in warp order into its row x of gwe_part
+// [gridDim.x, De, H], which sum_partials_kernel sums in block order: no
+// atomics, the same bits from launch to launch.
+template <int ACT, int DB, bool VEC, typename T>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+edge_src_bwd_tiles_kernel(const T* __restrict__ eq, const T* __restrict__ g,
+                          const float* __restrict__ ek,
+                          const float* __restrict__ e_basis,
+                          const float* __restrict__ w_e,
+                          const int* __restrict__ slot_dst,
+                          const int* __restrict__ slot_edge,
+                          const float* __restrict__ scale,
+                          const int* __restrict__ row_key,
+                          const int* __restrict__ row_ptr, int R, int H,
+                          int De, float slope, int bvec,
+                          float* __restrict__ out,
+                          float* __restrict__ gwe_part) {
+  constexpr int U = tile_inflight<T>(), LDB = tile_ldb(DB);
+  constexpr int MT = kMaxChunk / 16, NT = DB / 8;
+  constexpr int EPC = 16 / (int)sizeof(T);  // values a 16-byte chunk
+  constexpr int CPR = kMaxChunk / EPC;      // chunks a staged row
+  extern __shared__ __align__(16) float tile_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c0 = blockIdx.y * kMaxChunk;
+  const int nf = min(kMaxChunk, H - c0);  // the block's columns
+  const int f0 = 4 * lane;                // the lane's first of them
+  bool ok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) ok[i] = f0 + i < nf;
+  // [2][kStageFloats]: a stage's rows [U][2][kMaxChunk] (T; eq, then g),
+  // basis rows and scales; then the g_z tile, its basis rows and the
+  // warp's g_WE sums
+  float* stages = tile_smem + warp * tile_warp_floats(DB);
+  float* zt = stages + 2 * kStageFloats;  // [16, kTileLdz]
+  float* et = zt + kTileSlots * kTileLdz;  // [16, LDB]
+  float4* accs = reinterpret_cast<float4*>(et + kTileSlots * LDB);
+  for (int i = lane; i < kStageSlots * 16; i += 32) {
+    stages[kStageBasis + i] = 0.f;  // the basis values past De stay 0
+    stages[kStageFloats + kStageBasis + i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < MT * NT; ++i)
+    accs[i * 32 + lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncwarp();  // the zeros land before any lane's copy into a stage
+  float w[DB][4];
+#pragma unroll
+  for (int d = 0; d < DB; ++d) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[d][i] = d < De && ok[i] ? w_e[(int64_t)d * H + c0 + f0 + i] : 0.f;
+  }
+  const int W = gridDim.x * kWarps;
+  const int r0 = blockIdx.x * kWarps + warp;
+  // no early return: every warp reaches the block's barriers
+  if (r0 < R) {
+    // The load cursor: row lr with head lh, the run of 32 slots at lbase
+    // (the lane's slot of it in lmine), the batch at lk0 of the run; and
+    // the next row's head and first run, loaded a row ahead. worked counts
+    // the live slots worked: a live slot's row of the g_z tile is its
+    // count mod 16.
+    int lr = r0;
+    Head lh = load_head(row_ptr, row_key, lr, R);
+    int lbase = lh.s0, lk0 = 0;
+    Slots lmine = load_slot(slot_dst, slot_edge, scale, lbase, lh.s1, lane);
+    Head hn = load_head(row_ptr, row_key, lr + W, R);
+    Slots first_n = load_slot(slot_dst, slot_edge, scale, hn.s0, hn.s1, lane);
+    int worked = 0;
+
+    struct Batch {
+      float* stage;     // its live slots' rows and scales in shared memory
+      Raw4<VEC> kr;     // a row's first batch: its ek values
+      int row, live;    // live: its live slots, in the stage's first places
+      bool first, last;
+    };
+    auto issue = [&](Batch& b) {
+      const int n = min(32, lh.s1 - lbase);
+      b.row = lr;
+      b.first = lbase == lh.s0 && lk0 == 0;
+      b.last = lk0 + U >= n && lbase + 32 >= lh.s1;
+      if (b.first) b.kr.load(ek + (int64_t)lh.key * H + c0 + f0, ok);
+      T* rows = reinterpret_cast<T*>(b.stage);
+      __syncwarp();  // every lane is done with the stage's last batch
+      b.live = 0;
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        const int k = lk0 + j;  // within the run
+        const int node = __shfl_sync(kFull, lmine.node, k & 31);
+        const int edge = __shfl_sync(kFull, lmine.edge, k & 31);
+        const float sc = __shfl_sync(kFull, lmine.sc, k & 31);
+        if (k >= n || sc == 0.f) continue;  // warp-uniform: not live
+        const int u = b.live++;  // its place in the stage
+        if (lane == 0) b.stage[kStageScales + u] = sc;
+        float* dst = b.stage + kStageBasis + u * 16;
+        const float* src = e_basis + (int64_t)edge * De;
+        if (bvec) {
+          if (4 * lane < De) cp_async16(dst + 4 * lane, src + 4 * lane);
+        } else {
+          if (lane < De) cp_async4(dst + lane, src + lane);
+        }
+        const int64_t at = (int64_t)node * H + c0;
+        T* row = rows + u * 2 * kMaxChunk;
+        if constexpr (VEC) {
+          // 16-byte chunks of eq's and g's chunk of the row, 2 CPR of them
+#pragma unroll
+          for (int c = lane; c < 2 * CPR; c += 32) {
+            const int t = c / CPR, ch = c - t * CPR;
+            if (ch * EPC < nf)
+              cp_async16(reinterpret_cast<float*>(row + t * kMaxChunk +
+                                                  ch * EPC),
+                         reinterpret_cast<const float*>((t ? g : eq) + at +
+                                                        ch * EPC));
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (ok[i]) {
+              row[f0 + i] = eq[at + f0 + i];
+              row[kMaxChunk + f0 + i] = g[at + f0 + i];
+            }
+          }
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    // move the cursor to the next batch; false past the warp's last row
+    auto advance = [&]() -> bool {
+      lk0 += U;
+      if (lk0 < min(32, lh.s1 - lbase)) return true;
+      lk0 = 0;
+      lbase += 32;
+      if (lbase < lh.s1) {
+        lmine = load_slot(slot_dst, slot_edge, scale, lbase, lh.s1, lane);
+        return true;
+      }
+      lr += W;
+      if (lr >= R) return false;
+      lh = hn;
+      lbase = lh.s0;
+      lmine = first_n;
+      hn = load_head(row_ptr, row_key, lr + W, R);
+      first_n = load_slot(slot_dst, slot_edge, scale, hn.s0, hn.s1, lane);
+      return true;
+    };
+
+    float kv[4], oacc[4];
+    bool more;
+    // work batch cur with nxt's gathers in flight; false after the last
+    auto step = [&](Batch& cur, Batch& nxt) -> bool {
+      const bool issued_nxt = more;
+      if (more) {
+        issue(nxt);
+        more = advance();
+      }
+      // cur's rows and basis rows have landed (nxt's may be in flight)
+      if (issued_nxt)
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      else
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncwarp();
+      if (cur.first) {
+        cur.kr.widen(kv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) oacc[i] = 0.f;
+      }
+      const T* rows = reinterpret_cast<const T*>(cur.stage);
+#pragma unroll 1
+      for (int u = 0; u < cur.live; ++u) {
+        const float sc = cur.stage[kStageScales + u];
+        const int p = worked & (kTileSlots - 1);  // its row of the tile
+        ++worked;
+        const float4* brow =
+            reinterpret_cast<const float4*>(cur.stage + kStageBasis + u * 16);
+        float b[DB];
+#pragma unroll
+        for (int i = 0; i < DB / 4; ++i) {
+          const float4 v = brow[i];
+          b[4 * i] = v.x;
+          b[4 * i + 1] = v.y;
+          b[4 * i + 2] = v.z;
+          b[4 * i + 3] = v.w;
+        }
+        float eh[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int d = 0; d < DB; ++d) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) eh[i] = fmaf(b[d], w[d][i], eh[i]);
+        }
+        float qv[4], gv[4], gz[4];
+        staged4(rows + u * 2 * kMaxChunk + f0, qv);
+        staged4(rows + u * 2 * kMaxChunk + kMaxChunk + f0, gv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          gz[i] = 0.f;
+          if (ok[i]) {
+            const float z = (qv[i] + eh[i]) + kv[i];
+            gz[i] = act_grad<ACT>(z, slope) * (gv[i] * sc);
+            oacc[i] += gz[i];
+          }
+        }
+        *reinterpret_cast<float4*>(zt + p * kTileLdz + f0) =
+            make_float4(gz[0], gz[1], gz[2], gz[3]);
+        if (lane < DB / 4)
+          *reinterpret_cast<float4*>(et + p * LDB + 4 * lane) = brow[lane];
+        if (p == kTileSlots - 1) {  // a full tile
+          __syncwarp();
+          tile_products<DB>(zt, et, lane, accs);
+          __syncwarp();  // every lane has read the tile and its basis rows
+        }
+      }
+      if (cur.last) {
+        float* o = out + (int64_t)cur.row * H + c0 + f0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (ok[i]) o[i] = oacc[i];
+      }
+      return issued_nxt;
+    };
+
+    Batch A, B;
+    A.stage = stages;
+    B.stage = stages + kStageFloats;
+    issue(A);
+    more = advance();
+    while (step(A, B) && step(B, A)) {
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    const int p0 = worked & (kTileSlots - 1);
+    if (p0 != 0) {  // the part-full last tile, its other rows 0
+      __syncwarp();
+      for (int i = lane; i < (kTileSlots - p0) * kTileLdz; i += 32)
+        zt[p0 * kTileLdz + i] = 0.f;
+      for (int i = lane; i < (kTileSlots - p0) * LDB; i += 32)
+        et[p0 * LDB + i] = 0.f;
+      __syncwarp();
+      tile_products<DB>(zt, et, lane, accs);
+    }
+  }
+  float4 acc[MT * NT];  // the lane's sums, before the block's memory is reused
+#pragma unroll
+  for (int i = 0; i < MT * NT; ++i) acc[i] = accs[i * 32 + lane];
+  // the warps' sums [kWarps, De, kMaxChunk] in the warps' memory, added in
+  // warp order
+  __syncthreads();
+  float* part_s = tile_smem;
+  const int gi = lane >> 2, ti = lane & 3;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int f = m * 16 + gi + (e >= 2 ? 8 : 0);
+        const int d = n * 8 + 2 * ti + (e & 1);
+        const float4 c = acc[m * NT + n];
+        const float v = e == 0 ? c.x : e == 1 ? c.y : e == 2 ? c.z : c.w;
+        if (d < De) part_s[(warp * De + d) * kMaxChunk + f] = v;
+      }
+  __syncthreads();
+  float* dst = gwe_part + (int64_t)blockIdx.x * De * H + c0;
+  for (int i = threadIdx.x; i < De * kMaxChunk; i += blockDim.x) {
+    const int d = i / kMaxChunk, f = i - d * kMaxChunk;
+    if (f >= nf) continue;
+    float s = 0.f;
+    for (int v = 0; v < kWarps; ++v)
+      s += part_s[(v * De + d) * kMaxChunk + f];
+    dst[(int64_t)d * H + f] = s;
+  }
+}
+
+// ---------------------------------------------------------------------
 // Host side: a launch's path, kernel instance and grid
 // ---------------------------------------------------------------------
 
@@ -893,7 +1416,7 @@ bool bwd_on_registers(int H, int De) {
 }
 
 // Path codes of ell_edge_layout.
-enum { PATH_SHARED = 1, PATH_REGISTERS = 2, PATH_COLUMNS = 3 };
+enum { PATH_SHARED = 1, PATH_REGISTERS = 2, PATH_COLUMNS = 3, PATH_TILES = 4 };
 
 // How a kernel of the shared-memory loop runs a width: its path (shared
 // or columns), the columns a block takes (H on the shared path), where its
@@ -928,7 +1451,23 @@ size_t fwd_smem(int H, int De) {
   return fwd_loop(H, De).smem;
 }
 
+// #8 on the tiles path: the backward's shapes past a block's shared memory
+// (the columns path) with a basis of at most kRegMaxDe values.
+bool bwd_on_tiles(int H, int De) {
+  return !bwd_on_registers(H, De) && De <= kRegMaxDe &&
+         bwd_loop(H, De).path == PATH_COLUMNS;
+}
+
+// A tiles-path block's shared memory: its warps' g_z tiles and basis rings,
+// which at the end hold the warps' [De, kMaxChunk] g_WE sums.
+size_t tiles_smem(int De) {
+  const size_t walk = (size_t)kWarps * tile_warp_floats(basis_width(De));
+  const size_t sums = (size_t)kWarps * De * kMaxChunk;
+  return sizeof(float) * (walk > sums ? walk : sums);
+}
+
 size_t bwd_smem(int H, int De) {
+  if (bwd_on_tiles(H, De)) return tiles_smem(De);
   if (bwd_on_registers(H, De)) {
     const size_t ring = (size_t)kRegWarps * 32 * basis_width(De);
     const size_t parts = (size_t)kRegWarps * De * H;
@@ -942,6 +1481,7 @@ int fwd_path(int H, int De) {
 }
 
 int bwd_path(int H, int De) {
+  if (bwd_on_tiles(H, De)) return PATH_TILES;
   return bwd_on_registers(H, De) ? PATH_REGISTERS : bwd_loop(H, De).path;
 }
 
@@ -996,9 +1536,23 @@ const void* pick_fwd(int H, int De) {
   return fwd_loop_kernel<ACT, T>(fwd_loop(H, De));
 }
 
+// The tiles kernel for a basis width and whether the rows take 8- or
+// 16-byte loads (vec: H a multiple of 4, eq, g and ek 16-byte aligned).
 template <int ACT, typename T>
-const void* pick_bwd(int H, int De) {
+const void* pick_tiles(int De, bool vec) {
+  if (basis_width(De) == 8)
+    return vec ? (const void*)edge_src_bwd_tiles_kernel<ACT, 8, true, T>
+               : (const void*)edge_src_bwd_tiles_kernel<ACT, 8, false, T>;
+  return vec ? (const void*)edge_src_bwd_tiles_kernel<ACT, 16, true, T>
+             : (const void*)edge_src_bwd_tiles_kernel<ACT, 16, false, T>;
+}
+
+// The backward's kernel instance; on the tiles path the one that loads
+// rows 16 (or 8) bytes at a time where vec.
+template <int ACT, typename T>
+const void* pick_bwd(int H, int De, bool vec) {
   const int nf = feat_per_lane(H), db = basis_width(De);
+  if (bwd_on_tiles(H, De)) return pick_tiles<ACT, T>(De, vec);
   if (bwd_on_registers(H, De)) {
     EDGE_REG_CASE(edge_src_bwd_reg_kernel, 1, 8)
     EDGE_REG_CASE(edge_src_bwd_reg_kernel, 2, 8)
@@ -1028,16 +1582,16 @@ const void* fwd_kernel(int act, int bf16, int H, int De) {
   return nullptr;
 }
 
-const void* bwd_kernel(int act, int bf16, int H, int De) {
+const void* bwd_kernel(int act, int bf16, int H, int De, bool vec = true) {
   if (act == ACT_LEAKY_RELU)
-    return bf16 ? pick_bwd<ACT_LEAKY_RELU, __nv_bfloat16>(H, De)
-                : pick_bwd<ACT_LEAKY_RELU, float>(H, De);
+    return bf16 ? pick_bwd<ACT_LEAKY_RELU, __nv_bfloat16>(H, De, vec)
+                : pick_bwd<ACT_LEAKY_RELU, float>(H, De, vec);
   if (act == ACT_TANH)
-    return bf16 ? pick_bwd<ACT_TANH, __nv_bfloat16>(H, De)
-                : pick_bwd<ACT_TANH, float>(H, De);
+    return bf16 ? pick_bwd<ACT_TANH, __nv_bfloat16>(H, De, vec)
+                : pick_bwd<ACT_TANH, float>(H, De, vec);
   if (act == ACT_GELU)
-    return bf16 ? pick_bwd<ACT_GELU, __nv_bfloat16>(H, De)
-                : pick_bwd<ACT_GELU, float>(H, De);
+    return bf16 ? pick_bwd<ACT_GELU, __nv_bfloat16>(H, De, vec)
+                : pick_bwd<ACT_GELU, float>(H, De, vec);
   return nullptr;
 }
 
@@ -1087,19 +1641,22 @@ int persistent_blocks(const void* k, int threads, size_t smem, int tiles) {
 }
 
 // The g_WE partials #8 writes on the shared-memory loop (one a block, or
-// with the partials in device memory one a warp): a persistent grid of
-// row walks, its resident blocks shared among the chunks of columns, and
-// with the partials in device memory at most kDeviceScratch of them; -1 on
-// an error.
+// with the partials in device memory one a warp) and on the tiles path
+// (one a block): a persistent grid of row walks, its resident blocks
+// shared among the chunks of columns, and with the partials in device
+// memory at most kDeviceScratch of them; -1 on an error.
 int bwd_loop_parts(const void* k, int R, int H, int De) {
+  const bool on_tiles = bwd_on_tiles(H, De);
   const Loop s = bwd_loop(H, De);
-  const int chunks = (H + s.chunk - 1) / s.chunk;
-  const int full = persistent_blocks(k, kWarps * 32, s.smem, 1 << 30);
+  const int chunk = on_tiles ? kMaxChunk : s.chunk;
+  const int chunks = (H + chunk - 1) / chunk;
+  const int full = persistent_blocks(k, kWarps * 32, bwd_smem(H, De),
+                                     1 << 30);
   if (full <= 0) return -1;
   int64_t gx = full / chunks > 1 ? full / chunks : 1;
   const int64_t tiles = (R + kWarps - 1) / kWarps;
   gx = gx < tiles ? gx : tiles;
-  if (!s.device()) return (int)gx;
+  if (on_tiles || !s.device()) return (int)gx;
   const int64_t fit =
       (int64_t)(kDeviceScratch / (sizeof(float) * kWarps * (size_t)De * H));
   gx = gx < fit ? gx : (fit > 1 ? fit : 1);
@@ -1117,6 +1674,15 @@ int launch(const void* k, dim3 grid, int threads, size_t smem, void** args,
 // 16-byte basis copies: each row starts on a 16-byte boundary.
 int basis_vec(const void* e_basis, int De) {
   return De % 4 == 0 && ((uintptr_t)e_basis & 15) == 0;
+}
+
+// The tiles path's 16-byte copies and loads: every row of eq and g is
+// whole 16-byte chunks and every row of them and of ek starts on a
+// 16-byte boundary.
+bool rows_vec(const void* eq, const void* g, const void* ek, int H,
+              int bf16) {
+  return H % (bf16 ? 8 : 4) == 0 &&
+         (((uintptr_t)eq | (uintptr_t)g | (uintptr_t)ek) & 15) == 0;
 }
 
 }  // namespace
@@ -1174,6 +1740,8 @@ int ell_edge_src_bwd_blocks(int R, int H, int De, int act, int bf16) {
   if (bwd_on_registers(H, De))
     return persistent_blocks(k, kRegWarps * 32, bwd_smem(H, De),
                              (R + kRegWarps - 1) / kRegWarps);
+  // on the tiles path the grid of the instance with 16-byte loads, which
+  // the other (rows off 16 bytes) runs on as well
   return bwd_loop_parts(k, R, H, De);
 }
 
@@ -1189,10 +1757,20 @@ int ell_edge_src_bwd(const void* eq, const void* g, int bf16, const void* ek,
   if (R <= 0 || H <= 0 || De <= 0 || parts <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const void* k = bwd_kernel(act, bf16, H, De);
+  const void* k = bwd_kernel(act, bf16, H, De, rows_vec(eq, g, ek, H, bf16));
   const size_t smem = bwd_smem(H, De);
   int code;
-  if (bwd_on_registers(H, De)) {
+  if (bwd_on_tiles(H, De)) {
+    const int bvec = basis_vec(e_basis, De);
+    void* args[] = {(void*)&eq,        (void*)&g,         (void*)&ek,
+                    (void*)&e_basis,   (void*)&w_e,       (void*)&slot_dst,
+                    (void*)&slot_edge, (void*)&scale,     (void*)&row_key,
+                    (void*)&row_ptr,   (void*)&R,         (void*)&H,
+                    (void*)&De,        (void*)&slope,     (void*)&bvec,
+                    (void*)&out,       (void*)&gwe_part};
+    code = launch(k, dim3(parts, (H + kMaxChunk - 1) / kMaxChunk),
+                  kWarps * 32, smem, args, st);
+  } else if (bwd_on_registers(H, De)) {
     const int vec = basis_vec(e_basis, De);
     void* args[] = {(void*)&eq,        (void*)&g,         (void*)&ek,
                     (void*)&e_basis,   (void*)&w_e,       (void*)&slot_dst,
@@ -1224,32 +1802,42 @@ int ell_edge_src_bwd(const void* eq, const void* g, int bf16, const void* ek,
 }
 
 // How the two kernels run rows of width H with a basis of width De, as the
-// entries above decide: bits 0-1 the forward's path and 2-3 the
-// backward's (1 the shared-memory loop, 2 registers, 3 columns),
-// 4-6 the features a lane of the row (a pass's on the shared path; the
-// columns path's are its chunk / 32), 7-11 the basis values a register-path kernel holds
-// a slot (0 when neither takes that path), 12-15 and 16-19 the slots whose
-// node rows are in flight (forward, backward; 1 on the shared and columns
-// paths, and in the backward with tanh or erf-GELU), 20-23 and 24-27 the
-// warps a block, 28-30 and 31-33 the columns a block takes / 32 on the
-// columns path (forward, backward; 0 on the others), 34 and 35 whether the
-// columns path keeps W_E (and #8's partials) in device memory (forward,
-// backward). -1 for a width that is not positive or an unknown activation.
+// entries above decide: bits 0-1 the forward's path and 2-3 with 36 the
+// backward's (1 the shared-memory loop, 2 registers, 3 columns, 4 tiles:
+// bits 2-3 hold its low two bits, bit 36 its third), 4-6 the features a
+// lane of the row (a pass's on the shared path; the columns path's are its
+// chunk / 32, the tiles path's 4), 7-11 the basis values a register-path or
+// tiles-path kernel holds a slot (0 when none takes either path), 12-15
+// and 16-19 the slots whose node rows are in flight (forward, backward; 1
+// on the shared and columns paths, and on the register path in the
+// backward with tanh or erf-GELU; the tiles path's batch), 20-23 and 24-27
+// the warps a block, 28-30 and 31-33 the columns a block takes / 32 on the
+// columns and tiles paths (forward, backward; 0 on the others), 34 and 35
+// whether the columns path keeps W_E (and #8's partials) in device memory
+// (forward, backward). -1 for a width that is not positive or an unknown
+// activation.
 long long ell_edge_layout(int H, int De, int act, int bf16) {
   if (H <= 0 || De <= 0 || fwd_kernel(act, bf16 != 0, 1, 1) == nullptr)
     return -1;
   const int fp = fwd_path(H, De), bp = bwd_path(H, De);
   const bool fr = fp == PATH_REGISTERS, br = bp == PATH_REGISTERS;
   const bool fc = fp == PATH_COLUMNS, bc = bp == PATH_COLUMNS;
+  const bool bt = bp == PATH_TILES;
   const Loop fl = fwd_loop(H, De), bl = bwd_loop(H, De);
-  const int db = fr || br ? basis_width(De) : 0;
-  const int uf = fr ? kRegInflightFwd : 1, ub = br ? inflight_bwd(act) : 1;
+  const int db = fr || br || bt ? basis_width(De) : 0;
+  const int uf = fr ? kRegInflightFwd : 1;
+  const int ub = br   ? inflight_bwd(act)
+                 : bt ? (bf16 ? tile_inflight<__nv_bfloat16>()
+                              : tile_inflight<float>())
+                      : 1;
+  const int bchunk = bc ? bl.chunk : bt ? kMaxChunk : 0;
   const long long code =
-      fp | bp << 2 | feat_per_lane(H) << 4 | db << 7 | uf << 12 | ub << 16 |
-      (fr ? kRegWarps : kWarps) << 20 | (br ? kRegWarps : kWarps) << 24;
+      fp | (bp & 3) << 2 | feat_per_lane(H) << 4 | db << 7 | uf << 12 |
+      ub << 16 | (fr ? kRegWarps : kWarps) << 20 |
+      (br ? kRegWarps : kWarps) << 24;
   return code | (long long)(fc ? fl.chunk / 32 : 0) << 28 |
-         (long long)(bc ? bl.chunk / 32 : 0) << 31 |
-         (long long)fl.device() << 34 | (long long)bl.device() << 35;
+         (long long)(bchunk / 32) << 31 | (long long)fl.device() << 34 |
+         (long long)(bc && bl.device()) << 35 | (long long)(bp >> 2) << 36;
 }
 
 const char* ell_edge_error_string(int code) {

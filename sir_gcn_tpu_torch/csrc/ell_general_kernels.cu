@@ -46,7 +46,7 @@
 // ell_act_reduce_bwd) and some ten flops per feature.
 //
 // The first design (where the lane-group path below cannot go: H past
-// 256 in #3, #5 and #6 and past 512 in #1r and #4r, rows that are not
+// 256 in #5 and #6 and past 512 in #1r, #3 and #4r, rows that are not
 // whole 16-byte chunks, a table off 16-byte alignment, an elementwise sigma
 // but in #5, #6's g_slots in another type than ek): one warp per row, 8
 // rows per block; the lanes load 32 slot
@@ -58,8 +58,8 @@
 // sum (three in its vjp). An elementwise sigma walks the features in
 // chunks of up to 128, so any H is taken. Past H = 256 a row-wise sigma
 // the lane-group path does not take goes to the wide path: up to 512 the
-// row in registers as above (16 features a lane; #3, #5 and #6, and #1r and
-// #4r on rows that are not whole 16-byte chunks), and past 512 the
+// row in registers as above (16 features a lane; #5 and #6, and #1r, #3
+// and #4r on rows that are not whole 16-byte chunks), and past 512 the
 // features are walked in chunks of 256 (8 a lane), and for each chunk a
 // slot's statistics (the mean; the max and the sum; the vjps' second sum
 // or dot) come from passes over its whole row, lane j taking features j,
@@ -86,7 +86,7 @@
 // rows whose H *
 // sizeof(T) is a multiple of 16 (so #5's second half starts 16-byte
 // aligned too) with every table 16-byte aligned (T the gathered type), up
-// to H = 256, and in #1r and #4r (and their edge forms) up to H = 512: a
+// to H = 256, and in #1r, #3 and #4r (and their edge forms) up to H = 512: a
 // gathered row is C = H * sizeof(T) / 16 chunks of 16 bytes (12 at H = 96
 // in bf16, 24 in f32; 64 and 128 at 512). A group of GW lanes (a power of
 // two) holds one slot's whole row, lane j of a group chunks j, j + GW, ...,
@@ -100,9 +100,11 @@
 // 256 the group is the whole warp (G = 1; in #1r's bf16 form from 392):
 // at 512 in bf16 2 chunks and 16 values a lane, at 512 in f32 4 chunks and
 // 16 values, the footprints of H = 96 in bf16 and of H = 256 in f32; the
-// shapes whose rows in flight spill under the register cap below run
-// uncapped on 8 warps an SM (group_min_blocks); the key rows take 4 KB of
-// shared memory a warp at 512. The
+// shapes with the most rows in flight run uncapped on 8 warps an SM
+// (group_min_blocks); the key rows take 4 KB of
+// shared memory a warp at 512, #3's two 8 KB (64 KB a block, past the 48
+// KB a launch has unless the kernel's limit is raised, which
+// launch_group_k does before its occupancy query and launch). The
 // row-wise reductions are a pairwise tree over the lane's values followed
 // by an xor butterfly over the group (lanes past the row hold values that
 // add 0 to a sum and -inf to a max; every lane of a group ends with the
@@ -153,13 +155,24 @@
 // PERF.md). At H = 512 every node table passes the L2 (173 MB in bf16), so
 // #1r and #4r read each valid slot's rows from device memory: their floor
 // is those rows, the key rows and the output once at HBM's rate (about
-// 0.98 and 1.74 ms in bf16 at the arxiv plan), and with one slot a warp
-// in flight, 16 warps an SM (8 for the shapes that run uncapped), they
-// take 1.09-1.24 times it in bf16 on an H100 (PERF.md).
+// 0.98 and 1.74 ms in bf16 at the arxiv plan, 1.08 for #3), and with one
+// slot a warp in flight, 16 warps an SM (8 for the shapes that run
+// uncapped), they take 1.09-1.24 times it in bf16 on an H100 (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// The build compiles this file in five parts at once (ops/cuda/build.py),
+// part k with -DSIR_GENERAL_PART=k keeping only its C entries and so only
+// the kernels they launch: 0 #1r and its edge form, 1 #3 and its edge
+// form, 2 #6, 3 #4r and its edge form, 4 #5 and the layout queries. Built
+// as one file (without the macro), it keeps every entry.
+#ifdef SIR_GENERAL_PART
+#define SIR_IN_PART(k) (SIR_GENERAL_PART == (k))
+#else
+#define SIR_IN_PART(k) 1
+#endif
 
 namespace {
 
@@ -188,7 +201,7 @@ struct Rowwise {
   static constexpr bool value = ACT == ACT_CENTERED_RELU || ACT == ACT_SOFTMAX;
 };
 
-// The lane-group path takes rows up to kRowMax, and in #1r and #4r (and
+// The lane-group path takes rows up to kRowMax, and in #1r, #3 and #4r (and
 // their edge forms) up to kRowRegMax on groups of up to 32 lanes; a
 // row-wise act past what the lane-group path takes goes to the wide path of
 // the first design: the row in a warp's registers up to kRowRegMax, passes
@@ -894,20 +907,26 @@ constexpr int group_max_values(int mode, bool edge) {
   return mode == MODE_FWD && !edge ? kMaxValuesPerLaneFwd : kMaxValuesPerLane;
 }
 
-// The widest row the lane-group path takes in a mode: kRowRegMax in #1r and
-// #4r (full-warp groups, G = 1, past kRowMax), kRowMax in the others (#3
-// and #6 hold two f32 key rows a row, #5 a [N, 2H] table).
+// The widest row the lane-group path takes in a mode: kRowRegMax in #1r,
+// #3 and #4r (full-warp groups, G = 1, past kRowMax; #3's two f32 key rows
+// take 64 KB of a block's dynamic shared memory at 512, set by
+// launch_group_k), kRowMax in the others (#6 also stores a g_slots row a
+// slot, #5 gathers a [N, 2H] table).
 constexpr int group_row_max(int mode) {
-  return mode == MODE_FWD || mode == MODE_SRC ? kRowRegMax : kRowMax;
+  return mode == MODE_FWD || mode == MODE_SRC || mode == MODE_GEQ
+             ? kRowRegMax
+             : kRowMax;
 }
 
 // The blocks an SM a lane-group kernel asks room for (__launch_bounds__):
 // kGroupMinBlocks, 16 warps under a cap of 128 registers a thread, or 1
 // (8 warps, no cap) for a full-warp shape whose two batches of gathered
-// rows take 48 registers a lane or more (#4r·e; #4r and #1r·e with K = 3
-// or 4 f32 chunks): under the cap those spill 116-572 bytes, and at H =
-// 512 on an H100 they ran 1.1-1.9x faster uncapped, where the others
-// tied or lost up to 1.2x (PERF.md).
+// rows take 48 registers a lane or more (#4r·e; #4r, #1r·e and #3·e with
+// K = 3 or 4 f32 chunks): under the cap #1r's and #4r's spill 116-572
+// bytes, and at H = 512 on an H100 they ran 1.1-1.9x faster
+// uncapped, where the others tied or lost up to 1.2x. #3 with K = 4 f32
+// chunks and #3·e in bf16 spill 36 and 68-96 bytes under the cap and still
+// ran 1.14-1.21x faster there than uncapped (PERF.md).
 constexpr int group_min_blocks(int gw, int k, int mode, bool edge) {
   const int rows = 1 + (mode == MODE_SRC || mode == MODE_FUSED) + edge;
   return gw == 32 && 2 * k * 4 * rows >= 48 ? 1 : kGroupMinBlocks;
@@ -1346,6 +1365,7 @@ dim3 grid_for(int R) { return dim3((R + kWarpsPerBlock - 1) / kWarpsPerBlock); }
     default: return (int)cudaErrorInvalidValue;                    \
   }
 
+#if SIR_IN_PART(4)
 // Whether a launch under the act act_id at width H takes the wide path.
 bool wide_path(int act_id, int H) {
   return (act_id == ACT_CENTERED_RELU || act_id == ACT_SOFTMAX) &&
@@ -1360,6 +1380,7 @@ int wide_code(int H) {
   if (H <= kRowRegMax) return 1 << 30 | 16 << 16 | 1;
   return 1 << 30 | 8 << 16 | (H + 32 * 8 - 1) / (32 * 8);
 }
+#endif
 
 // The lane-group path's layout for a launch of `kernel` (a MODE; `edge`: its
 // edge form) under the act act_id, rows of H values of `bytes` bytes, with
@@ -1369,8 +1390,9 @@ int wide_code(int H) {
 // second half off 16 bytes from the first), a table off 16-byte alignment,
 // or H past group_row_max(kernel). GW is the narrowest power of two that
 // leaves a lane at most 4 chunks and group_max_values(kernel, edge) values
-// of a row: up to 16 lanes to H = 256, 32 (one slot a warp) past it, in #1r
-// and #4r only (C <= 128 chunks, K <= 4).
+// of a row: up to 16 lanes to H = 256, 32 (one slot a warp) past it, in #1r,
+// #3 and #4r only (C <= 128 chunks, K <= 4). #3's two f32 key rows then take
+// 64 KB of a block's dynamic shared memory, which launch_group_k allows.
 int group_layout(int kernel, int act_id, int H, int bytes, bool edge,
                  const void* const* ptrs, int n) {
   if (kernel < MODE_GEQ || kernel > MODE_EMIT) return 0;
@@ -1390,6 +1412,7 @@ int group_layout(int kernel, int act_id, int H, int bytes, bool edge,
   return C << 16 | gw << 8 | kGroupInflight;
 }
 
+#if SIR_IN_PART(4)
 // The path of a launch: the lane-group layout, else the wide path's code for
 // a row-wise act past kRowMax, else 0 (the first design).
 int general_layout(int kernel, int act_id, int H, int bytes, bool edge,
@@ -1398,6 +1421,7 @@ int general_layout(int kernel, int act_id, int H, int bytes, bool edge,
   if (layout) return layout;
   return wide_path(act_id, H) ? wide_code(H) : 0;
 }
+#endif
 
 // A persistent kernel's grid: as many blocks as are resident on the card at
 // once, at most one warp a row. per_sm caches the kernel's resident blocks
@@ -1432,16 +1456,30 @@ struct Args {
   cudaStream_t st;
 };
 
+// A block's dynamic shared memory without cudaFuncSetAttribute.
+constexpr size_t kDefaultSmem = 48 * 1024;
+
 template <int ACT, typename T, int GW, int K, int MODE, bool EDGE>
 int launch_group_k(const Args& x) {
   const auto kernel = group_kernel<ACT, T, GW, K, MODE, EDGE>;
   constexpr size_t row_bytes =
       2 * (MODE == MODE_GEQ || MODE == MODE_EMIT ? 2 : 1) * sizeof(float);
+  // the widest row of the instance's mode (#3's groups narrower than the
+  // warp take rows up to kRowMax only)
+  constexpr int row_max =
+      MODE == MODE_GEQ && GW < 32 ? kRowMax : group_row_max(MODE);
+  constexpr size_t smem_max = kWarpsPerBlock * row_bytes * row_max;
   const size_t smem = kWarpsPerBlock * row_bytes * x.H;
+  // past 48 KB (#3 on full-warp groups) the launch and the occupancy query
+  // need the kernel's limit raised first: else the query reports no block
+  // and the launch is refused
+  if (smem_max > kDefaultSmem) {
+    const cudaError_t code = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_max);
+    if (code != cudaSuccess) return (int)code;
+  }
   static int per_sm = -1;
-  kernel<<<persistent_grid(kernel, x.R,
-                           kWarpsPerBlock * row_bytes * group_row_max(MODE),
-                           per_sm),
+  kernel<<<persistent_grid(kernel, x.R, smem_max, per_sm),
            kWarpsPerBlock * 32, smem, x.st>>>(
       (const T*)x.a, (const T*)x.ga, (const float*)x.ka, (const float*)x.kg,
       (const T*)x.e, (const int*)x.slot_idx, (const int*)x.slot_edge,
@@ -1491,7 +1529,7 @@ int launch_group_t(int layout, const Args& x) {
     case 4: return launch_group_gw<ACT, T, 4, MODE, EDGE>(K, x);
     case 8: return launch_group_gw<ACT, T, 8, MODE, EDGE>(K, x);
     case 16: return launch_group_gw<ACT, T, 16, MODE, EDGE>(K, x);
-    case 32:  // one slot a warp: #1r and #4r past kRowMax
+    case 32:  // one slot a warp: #1r, #3 and #4r past kRowMax
       if constexpr (group_row_max(MODE) > kRowMax)
         return launch_group_gw<ACT, T, 32, MODE, EDGE>(K, x);
       break;
@@ -1569,13 +1607,16 @@ int launch_src_bwd(const Args& x) {
   return (int)cudaGetLastError();
 }
 
+#if SIR_IN_PART(4)
 // The second half of a row of the [N, 2H] table at `both`: H values of
 // `bytes` bytes in.
 const void* second_half(const void* both, int H, int bytes) {
   return reinterpret_cast<const void*>(reinterpret_cast<uintptr_t>(both) +
                                        (uintptr_t)H * bytes);
 }
+#endif
 
+#if SIR_IN_PART(0)
 // #1r and its edge form (x.e not null); ek (x.a) and e are f32, or bf16
 // when bf16 != 0.
 int act_reduce_entry(const Args& x, int bf16, int act) {
@@ -1594,6 +1635,9 @@ int act_reduce_entry(const Args& x, int bf16, int act) {
 #undef SIR_CALL
 }
 
+#endif
+
+#if SIR_IN_PART(1)
 // #3 and its edge form; as act_reduce_entry, with g (x.kg) f32.
 int geq_entry(const Args& x, int bf16, int act) {
   if (x.R <= 0 || x.H <= 0) return (int)cudaErrorInvalidValue;
@@ -1611,6 +1655,9 @@ int geq_entry(const Args& x, int bf16, int act) {
 #undef SIR_CALL
 }
 
+#endif
+
+#if SIR_IN_PART(3)
 // #4r and its edge form; eq (x.a), g (x.ga) and e share one type (f32, or
 // bf16 when bf16 != 0); ek (x.ka) and g_e are f32, g_e zeroed.
 int src_bwd_entry(const Args& x, int bf16, int act) {
@@ -1629,6 +1676,8 @@ int src_bwd_entry(const Args& x, int bf16, int act) {
 #undef SIR_CALL
 }
 
+#endif
+
 }  // namespace
 
 extern "C" {
@@ -1640,6 +1689,7 @@ extern "C" {
 // parameter (leaky_relu's slope, the centered relu's alpha). The edge forms
 // take e [E_pad, H] in the gathered table's type and slot_edge [S] int32.
 
+#if SIR_IN_PART(0)
 // ek is f32, or bf16 when ek_bf16 != 0.
 int ell_act_reduce_rowwise(const void* eq, const void* ek, int ek_bf16,
                            const void* slot_src, const void* scale,
@@ -1666,6 +1716,9 @@ int ell_act_reduce_rowwise_edge(const void* eq, const void* ek,
       ek_bf16, act);
 }
 
+#endif
+
+#if SIR_IN_PART(1)
 // ek is f32, or bf16 when ek_bf16 != 0; g [N, H] f32.
 int ell_geq_reduce(const void* eq, const void* ek, int ek_bf16,
                    const void* g, const void* slot_src, const void* scale,
@@ -1692,6 +1745,9 @@ int ell_geq_reduce_edge(const void* eq, const void* ek, const void* e,
       ek_bf16, act);
 }
 
+#endif
+
+#if SIR_IN_PART(2)
 // ell_geq_reduce plus g_slots [S, H], f32, or bf16 when gz_bf16 != 0; the
 // lane-group path only where g_slots has ek's type.
 int ell_act_reduce_bwd(const void* eq, const void* ek, int ek_bf16,
@@ -1719,6 +1775,9 @@ int ell_act_reduce_bwd(const void* eq, const void* ek, int ek_bf16,
 #undef SIR_CALL
 }
 
+#endif
+
+#if SIR_IN_PART(3)
 // eq and g share one type (f32, or bf16 when bf16 != 0); ek is f32.
 int ell_src_bwd_rowwise(const void* eq, const void* g, int bf16,
                         const void* ek, const void* slot_dst,
@@ -1746,6 +1805,9 @@ int ell_src_bwd_rowwise_edge(const void* eq, const void* g, const void* e,
       bf16, act);
 }
 
+#endif
+
+#if SIR_IN_PART(4)
 // both [N, 2H] (eq | g) is f32, or bf16 when bf16 != 0; ek [N, H] f32.
 int ell_src_bwd_fused(const void* both, int bf16, const void* ek,
                       const void* slot_dst, const void* scale,
@@ -1803,5 +1865,6 @@ int ell_general_edge_layout(int kernel, int H, int bf16, int act,
 const char* ell_general_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+#endif
 
 }  // extern "C"

@@ -4,8 +4,10 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` into its own library with
 a plain C interface, under ``build/kernels/<name>-<hash>/`` at the root of
 the checkout (a directory git ignores). The hash covers the source and the
 flags, so an edit rebuilds and an unchanged source is loaded as built. All
-sources that need a build are compiled together, one ``nvcc`` each. The
-build uses only the sources in the checkout.
+sources that need a build are compiled together, one ``nvcc`` each, but a
+source of ``PARTS`` in parts, one ``nvcc -c`` a part, linked into its
+library when they are done. The build uses only the sources in the
+checkout.
 """
 
 from __future__ import annotations
@@ -35,6 +37,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # compilation), so neither build is the one all the others wait for.
 EXTRA_FLAGS = {"ell_max_kernels": ["--fmad=false", "--split-compile=0"],
                "ell_general_kernels": ["--split-compile=0"]}
+# Sources compiled in parts: (the macro a part is selected by, the number
+# of parts). The general source's 700 kernels in one nvcc took 190-400 s,
+# most of it on one core (on one 8-core H100 host 318.9 s whole, 85.6 s in
+# five parts: `_main`); each part keeps the C entries of its number.
+PARTS = {"ell_general_kernels": ("SIR_GENERAL_PART", 5)}
 
 _LIBS: dict = {}
 _LOGS: dict = {}
@@ -58,7 +65,27 @@ def _flags(name: str) -> list:
 def _target(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
     h.update(" ".join(_flags(name)).encode())
+    h.update(repr(PARTS.get(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
+
+
+def _commands(name: str, tmp: Path, src: Path = None,
+              whole: bool = False) -> tuple:
+    """(the nvcc commands that compile source ``name``, all run at once;
+    the link command after them, or None) for a library written to
+    ``tmp``: from ``src`` if given, else the checkout's file, in the parts
+    ``PARTS`` gives it unless ``whole``."""
+    src = str(src or SOURCES[name])
+    if whole or name not in PARTS:
+        return [[_nvcc(), *_flags(name), "-o", str(tmp), src]], None
+    macro, n = PARTS[name]
+    flags = [f for f in _flags(name) if f != "-shared"]
+    objs = [tmp.with_name(f"{tmp.name}.part{k}.o") for k in range(n)]
+    compiles = [[_nvcc(), *flags, "-c", f"-D{macro}={k}", "-o", str(obj),
+                 src] for k, obj in enumerate(objs)]
+    link = [_nvcc(), "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+            *map(str, objs)]
+    return compiles, link
 
 
 def build_all() -> dict:
@@ -71,19 +98,30 @@ def build_all() -> dict:
         if not lib.exists():
             lib.parent.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
-                   str(SOURCES[name])]
-            pending[name] = (subprocess.Popen(
+            compiles, link = _commands(name, tmp)
+            procs = [subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, lib)
+                text=True) for cmd in compiles]
+            pending[name] = (procs, link, tmp, lib)
     # wait for every nvcc before raising, so that none is left running
-    outs = {name: proc.communicate()[0]
-            for name, (proc, _, _) in pending.items()}
-    failed = [n for n, (proc, _, _) in pending.items() if proc.returncode]
+    outs = {name: "".join(proc.communicate()[0] for proc in procs)
+            for name, (procs, _, _, _) in pending.items()}
+    failed = {n for n, (procs, _, _, _) in pending.items()
+              if any(proc.returncode for proc in procs)}
+    for name, (procs, link, _, _) in pending.items():
+        if link is not None and name not in failed:
+            done = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            outs[name] += done.stdout
+            if done.returncode:
+                failed.add(name)
     if failed:
         raise RuntimeError("\n".join(
-            f"nvcc failed for {SOURCES[n]}:\n{outs[n]}" for n in failed))
-    for name, (_, tmp, lib) in pending.items():
+            f"nvcc failed for {SOURCES[n]}:\n{outs[n]}"
+            for n in sorted(failed)))
+    for name, (_, _, tmp, lib) in pending.items():
+        for obj in tmp.parent.glob(f"{tmp.name}.part*.o"):
+            obj.unlink()  # a parted source's objects, linked
         # atomic: a concurrent builder sees all of the library or nothing
         os.replace(tmp, lib)
         (lib.parent / "build.log").write_text(outs[name])
@@ -128,3 +166,47 @@ def load(name: str) -> ctypes.CDLL:
             build_all()
         lib = _LIBS[name] = ctypes.CDLL(str(_target(name)))
     return lib
+
+
+def _main(argv=None) -> None:
+    """Time one source's build into a fresh directory: ``python -m
+    sir_gcn_tpu_torch.ops.cuda.build NAME [SOURCE] [--whole]`` compiles
+    SOURCE (by default the checkout's file of NAME) with NAME's flags, in
+    its ``PARTS`` unless ``--whole``, and prints the seconds to the
+    library. Nothing else should build meanwhile."""
+    import argparse
+    import shutil
+    import tempfile
+    import time
+
+    ap = argparse.ArgumentParser(description=_main.__doc__)
+    ap.add_argument("name", choices=sorted(SOURCES))
+    ap.add_argument("source", nargs="?", type=Path)
+    ap.add_argument("--whole", action="store_true")
+    args = ap.parse_args(argv)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="timed-", dir=BUILD_DIR))
+    compiles, link = _commands(args.name, out / f"lib{args.name}.so",
+                               args.source, args.whole)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    logs = [proc.communicate()[0] for proc in procs]
+    if link is not None and not any(p.returncode for p in procs):
+        logs.append(subprocess.run(link, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT,
+                                   text=True).stdout)
+    seconds = time.perf_counter() - t0
+    built = (out / f"lib{args.name}.so").exists()
+    shutil.rmtree(out)
+    if not built:
+        raise SystemExit("nvcc failed:\n" + "".join(logs))
+    how = "whole" if len(compiles) == 1 else f"in {len(compiles)} parts"
+    print(f"built {args.source or SOURCES[args.name]} {how} in "
+          f"{seconds:.1f} s, {len(ptxas_entries(''.join(logs)))} kernels",
+          flush=True)
+
+
+if __name__ == "__main__":
+    _main()

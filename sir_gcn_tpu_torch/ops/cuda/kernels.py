@@ -562,9 +562,10 @@ def _src_bwd_edge(name, eq, g, ek, slot_dst, scale, row_key, row_ptr, act,
 # the lanes' registers; on the shared path in a block's shared memory; on
 # the columns path (tables larger than a block's shared memory) a block
 # takes a chunk of W_E's columns, or reads W_E and keeps the partials in
-# device memory.
+# device memory; the backward's columns-path shapes with De <= 16 take the
+# tiles path (W_E's columns in registers, g_WE on tensor-core tiles).
 
-_EDGE_PATHS = {1: "shared", 2: "registers", 3: "columns"}
+_EDGE_PATHS = {1: "shared", 2: "registers", 3: "columns", 4: "tiles"}
 
 
 class EdgeLayout(NamedTuple):
@@ -573,14 +574,21 @@ class EdgeLayout(NamedTuple):
     path, "registers" (W_E and #8's g_WE partial in the lanes' registers,
     the slots' basis rows copied into shared memory by cp.async, several
     slots' node rows in flight), "shared" (the first design: W_E and the
-    partials in shared memory) or "columns" (the first design on chunks of
-    columns, for tables larger than a block's shared memory); the features
+    partials in shared memory), "columns" (the first design on chunks of
+    columns, for tables larger than a block's shared memory) or, #8 only,
+    "tiles" (the columns path's shapes with De <= 16: a block takes 128
+    columns, a lane 4 of them and their W_E columns in registers, each
+    slot's g_z row goes into the warp's tile of 16 slots, whose g_WE
+    products run on the tensor cores in three TF32 passes, the next
+    batch's rows copied into shared memory across rows); the features
     a lane of the row (a pass's on the shared path); the basis values a
-    register-path kernel holds a slot (De padded to 8 or 16; 0 when
-    neither takes that path); the slots whose node rows are in flight in
-    each kernel (in the backward one with tanh, two with leaky_relu); each
-    kernel's warps a block; on the columns path each kernel's chunk (the
-    columns a block takes, 0 on the other paths) and whether it keeps W_E
+    register-path or tiles-path kernel holds a slot (De padded to 8 or
+    16; 0 when none takes either path); the slots whose node rows are in
+    flight in each kernel (on the register path in the backward one with
+    tanh, two with leaky_relu; on the tiles path a batch, 8 slots in bf16,
+    4 in f32); each kernel's warps a block; on the columns and tiles paths
+    each kernel's chunk (the columns a block takes, 0 on the other paths)
+    and whether it keeps W_E
     (and #8 its partials) in device memory, where not even 32 columns'
     tables fit in shared memory."""
 
@@ -600,18 +608,20 @@ class EdgeLayout(NamedTuple):
 
 def decode_edge_layout(code: int) -> Optional[EdgeLayout]:
     """The ``EdgeLayout`` of a code from the library's ``ell_edge_layout``
-    (bits 0-1 the forward's path and 2-3 the backward's, 1 shared, 2
-    registers, 3 columns; 4-6 features a lane, 7-11 the basis width held,
-    12-15 and 16-19 the slots in flight, 20-23 and 24-27 the warps a
-    block, 28-30 and 31-33 the chunks / 32, 34 and 35 the tables in device
-    memory); None for -1, arguments the library refuses."""
+    (bits 0-1 the forward's path and 2-3 the backward's low two bits, bit
+    36 its third, 1 shared, 2 registers, 3 columns, 4 tiles; 4-6 features
+    a lane, 7-11 the basis width held, 12-15 and 16-19 the slots in
+    flight, 20-23 and 24-27 the warps a block, 28-30 and 31-33 the chunks
+    / 32, 34 and 35 the tables in device memory); None for -1, arguments
+    the library refuses."""
     if code < 0:
         return None
-    paths = code & 3, code >> 2 & 3
+    paths = code & 3, (code >> 2 & 3) | (code >> 36 & 1) << 2
     chunks = 32 * (code >> 28 & 7), 32 * (code >> 31 & 7)
-    if 0 in paths or any((p == 3) != (c > 0) for p, c in zip(paths, chunks)):
+    if (any(p not in _EDGE_PATHS for p in paths)
+            or any((p in (3, 4)) != (c > 0) for p, c in zip(paths, chunks))):
         raise ValueError(f"layout code {code:#x} names no path, or a chunk "
-                         f"off the columns path")
+                         f"off the columns and tiles paths")
     fwd, bwd = (_EDGE_PATHS[p] for p in paths)
     return EdgeLayout(fwd, bwd, code >> 4 & 7, code >> 7 & 0x1F,
                       code >> 12 & 0xF, code >> 16 & 0xF, code >> 20 & 0xF,
@@ -741,7 +751,9 @@ def ell_edge_src_bwd(eq, g, ek, e_basis, w_e, slot_dst, slot_edge, scale,
     Bound: operations at the arxiv width, 4 De + 7 flops per valid slot and
     feature. g_we is summed per warp, block and then over blocks (on the
     columns path with the partials in device memory, per warp and then
-    over warps) in a fixed order, so it is the same from run to run;
+    over warps; on the tiles path, past a block's shared memory with De <=
+    16, a warp's sums are three-pass TF32 tensor-core products of tiles of
+    16 slots) in a fixed order, so it is the same from run to run;
     ``ell_edge_layout`` tells the path."""
     device, r, h = _check_bwd(eq, g, ek, slot_dst, scale, row_key, row_ptr)
     _need_diagonal("ell_edge_src_bwd", act)

@@ -78,11 +78,11 @@ The general mode (``--general``, ``csrc/ell_general_kernels.cu``) runs
 #1r ``ell_act_reduce_rowwise``, #3 ``ell_geq_reduce``, #4r
 ``ell_src_bwd_rowwise``, #5 ``ell_src_bwd_fused`` and #6
 ``ell_act_reduce_bwd`` (g_z in the gathered type), and for a row-wise
-sigma the edge forms #1r·e and #4r·e, from both libraries at the
+sigma the edge forms #1r·e, #3·e and #4r·e, from both libraries at the
 ogbn-arxiv plan, H = 96 (or ``--hidden H``, e.g. 512), with the gathered
 tables in bf16 and in f32, the node and edge tables and the cotangent
 from seed 0 made on the card, for centered_relu(0.5), softmax,
-leaky_relu(0.2) and tanh. The kernels of ``GENERAL_AB`` (all seven for a
+leaky_relu(0.2) and tanh. The kernels of ``GENERAL_AB`` (all eight for a
 row-wise sigma, #5 for an elementwise one) are timed: ms per launch over
 20 warm launches in eight turns (other, this, this, other, ...), the
 median and the spread of each, and where one gathered node table holds
@@ -169,41 +169,51 @@ BF16_STEP = dict(atol=3e-4, rtol=2.0 ** -7)
 GENERAL_KERNELS = {"#1r": ("#1r ell_act_reduce_rowwise", "rows"),
                    "#1r·e": ("#1r·e ell_act_reduce_rowwise_edge", "rows_e"),
                    "#3": ("#3 ell_geq_reduce", "geq"),
+                   "#3·e": ("#3·e ell_geq_reduce_edge", "geq_e"),
                    "#4r": ("#4r ell_src_bwd_rowwise", "out"),
                    "#4r·e": ("#4r·e ell_src_bwd_rowwise_edge", "out_e"),
                    "#5": ("#5 ell_src_bwd_fused", "fused"),
                    "#6": ("#6 ell_act_reduce_bwd", "gz")}
 # the kernels timed, by sigma kind (the others run once in each setting;
 # the edge forms only for a row-wise sigma)
-GENERAL_AB = {"rowwise": ("#1r", "#1r·e", "#3", "#4r", "#4r·e", "#5", "#6"),
+GENERAL_AB = {"rowwise": ("#1r", "#1r·e", "#3", "#3·e", "#4r", "#4r·e", "#5",
+                          "#6"),
               "elementwise": ("#5",)}
 # general_launches' outputs against the other build's: the kernel that
 # writes each, and its tolerance where the two builds' paths differ (else
 # its bits), "step" for a value rounded to the gathered type (one bf16 step
 # in bf16, BWD_TOL in f32)
 GENERAL_HELD = {"rows": ("#1r", FWD_TOL), "rows_e": ("#1r·e", FWD_TOL),
-                "geq": ("#3", BWD_TOL), "out": ("#4r", BWD_TOL),
+                "geq": ("#3", BWD_TOL), "geq_e": ("#3·e", BWD_TOL),
+                "out": ("#4r", BWD_TOL),
                 "out_e": ("#4r·e", BWD_TOL), "g_e": ("#4r·e", "step"),
                 "fused": ("#5", BWD_TOL), "gz": ("#6", "step"),
                 "geq6": ("#6", BWD_TOL)}
-# the src-major outputs whose rows holding a near centered_relu gate
+# the outputs whose rows holding a near centered_relu gate
 # (``checks.near_gate``: the two builds sum a slot's mean in another order)
-# are left out of the tolerance and counted: (row mask, the g_e mask)
+# are left out of the tolerance and counted: (row mask, the edge form's)
 GATE_ROWS = {"out": ("rows", False), "out_e": ("rows", True),
-             "g_e": ("edges", True)}
-# the entries #1r and #4r take past H = 256 for a row-wise sigma (ids 2,
-# 3): the first design's register form (NF = 16, rows to 512) and the
-# lane groups of the whole warp (GW = 32; MODE 1 #4r, 2 #1r; EDGE);
-# ``wide_build_report`` raises where a build's report names none of them
+             "g_e": ("edges", True), "geq": ("dst_rows", False),
+             "geq_e": ("dst_rows", True)}
+# the entries #1r, #3 and #4r take past H = 256 for a row-wise sigma (ids
+# 2, 3): the first design's register form (NF = 16, rows to 512; #3's
+# without EMIT) and the lane groups of the whole warp (GW = 32; MODE 0 #3,
+# 1 #4r, 2 #1r; EDGE); ``wide_build_report`` raises where a build's report
+# names none of them
 WIDE_ENTRIES = re.compile(
     r"(?P<first>act_reduce_rw_kernelILi[23]ELi16ELb0E(?:13__nv_bfloat16|f)E"
-    r"|src_bwd_rw_kernelILi[23]ELi16ELb0E(?:13__nv_bfloat16|f)Lb0E)"
-    r"|(?P<group>group_kernelILi[23]E(?:13__nv_bfloat16|f)Li32ELi\dELi[12]E"
-    r"Lb[01]E)")
+    r"|src_bwd_rw_kernelILi[23]ELi16ELb0E(?:13__nv_bfloat16|f)Lb0E"
+    r"|geq_kernelILi[23]ELi16ELb0E(?:13__nv_bfloat16|f)fLb0E)"
+    r"|(?P<group>group_kernelILi[23]E(?:13__nv_bfloat16|f)Li32ELi\dELi(?P<mode>"
+    r"[012])ELb[01]E)")
+# the tiles path's entries of csrc/ell_edge_kernels.cu (#8 past a block's
+# shared memory with De <= 16)
+TILES_ENTRIES = re.compile(r"edge_src_bwd_tiles_kernelILi\dELi\d+ELb[01]E"
+                           r"(?:13__nv_bfloat16|f)E")
 # the node rows each kernel gathers a valid slot (and for #3 and #6 the
 # f32 key rows a row, two), for its no-L2-reuse estimate
-GENERAL_ROWS = {"#1r": 1, "#1r·e": 2, "#3": 1, "#4r": 2, "#4r·e": 3,
-                "#5": 2, "#6": 1}
+GENERAL_ROWS = {"#1r": 1, "#1r·e": 2, "#3": 1, "#3·e": 2, "#4r": 2,
+                "#4r·e": 3, "#5": 2, "#6": 1}
 
 # the H100's L2 (bytes); the no-L2-reuse estimate is printed where one
 # gathered node table holds more than twice this
@@ -225,8 +235,10 @@ def other_target(source: Path, name: str = "ell_kernels",
 
 def build_other(source: Path, name: str = "ell_kernels",
                 defines=()) -> ctypes.CDLL:
-    """``source`` built as the package builds its source ``name`` (a key of
-    ``build.SOURCES``), with ``-D`` of each of ``defines``, and the
+    """``source`` built whole (one ``nvcc``, with no part macro, so a
+    source in ``build.PARTS`` must build as one file) with the package's
+    flags of its source ``name`` (a key of ``build.SOURCES``), with ``-D``
+    of each of ``defines``, and the
     package's argument types of ``name`` on its entries; an entry the other
     source does not have (one added since) is left unbound. Prints the
     seconds nvcc took, where it built the library (nothing else builds
@@ -695,11 +707,35 @@ def edge_launches(lib, inp: dict, eb, we, act, dtype) -> tuple:
     return dict(fwd=fwd, bwd=bwd), outs
 
 
+def edge_no_reuse_estimate(inp: dict, de: int, dtype) -> tuple:
+    """(ms, GB) of #8's no-L2-reuse estimate at 3.35 TB/s: each valid src
+    slot (scale not 0) reads its eq and g rows (``dtype``) and its f32
+    basis row from device memory, each row its f32 ek row and writes its
+    f32 output row, every slot's index, edge id and scale and each row's
+    range and key are read once. Not a floor: a row the L2 still holds
+    costs less; printed where one gathered table holds more than twice the
+    L2 (``L2_BYTES``)."""
+    fg = inp["fg"]
+    splan = fg.src_plan
+    h = inp["eq"].shape[1]
+    valid = int((fg.src_slot_scales["sym"] != 0).sum())
+    rows, row = splan.row_key.numel(), h * torch.tensor(
+        [], dtype=dtype).element_size()
+    nbytes = (valid * (2 * row + 4 * de) + rows * h * 4 * 2
+              + splan.num_slots * 12 + rows * 8)
+    return nbytes / 3.35e12 * 1e3, nbytes / 1e9
+
+
 def run_edge(device, other: Path, h: int = H, de: int = EDGE_DE) -> dict:
     """Every A/B line of #7 and #8 at width ``h`` and basis width ``de``;
     returns label -> record."""
     libs = {"other": build_other(other, "ell_edge_kernels"),
             "this": _library("ell_edge_kernels")}
+    for fn, regs, spill in build.ptxas_entries(
+            build.build_log("ell_edge_kernels")):
+        if TILES_ENTRIES.search(fn):
+            print(f"build this: {TILES_ENTRIES.search(fn).group(0)}: {regs} "
+                  f"registers, {spill} B spill stores", flush=True)
     inp = arxiv_inputs(device, h)
     gen = torch.Generator(device=device).manual_seed(0)
     eb = torch.randn((inp["fg"].e_pad, de), generator=gen, device=device)
@@ -733,18 +769,25 @@ def run_edge(device, other: Path, h: int = H, de: int = EDGE_DE) -> dict:
                 ms = alternating_ms({k: r[0][key] for k, r in runs.items()},
                                     EDGE_ITERS, EDGE_ROUNDS)
                 line = ", ".join(f"{k} {_fmt(v)}" for k, v in ms.items())
-                gain = statistics.median(ms["other"]) / statistics.median(
-                    ms["this"])
+                this = statistics.median(ms["this"])
+                gain = statistics.median(ms["other"]) / this
+                est, note = None, ""
+                if key == "bwd" and inp["eq"].shape[0] * h * torch.tensor(
+                        [], dtype=dtype).element_size() > 2 * L2_BYTES:
+                    est, gb = edge_no_reuse_estimate(inp, de, dtype)
+                    note = (f"; no-L2-reuse estimate {est:.4f} ms ({gb:.3f} "
+                            f"GB), this at {100 * est / this:.1f}% of it")
                 print(f"{label} ({act.name}, {dt}): {line}, this/other "
-                      f"{gain:.2f}x faster", flush=True)
+                      f"{gain:.2f}x faster{note}", flush=True)
                 recs[f"{label} ({act.name}, {dt})"] = dict(
-                    ms=ms, equal=equal, gw_within_tol=gw_ok, **diffs)
+                    ms=ms, equal=equal, gw_within_tol=gw_ok,
+                    no_reuse_ms=est, **diffs)
     return recs
 
 
 def general_launches(lib, inp: dict, act, dtype) -> tuple:
-    """#1r, #3, #4r, #5 and #6, and for a row-wise sigma #1r·e and #4r·e,
-    of one library on ``inp`` with the gathered tables in ``dtype`` (ek
+    """#1r, #3, #4r, #5 and #6, and for a row-wise sigma #1r·e, #3·e and
+    #4r·e, of one library on ``inp`` with the gathered tables in ``dtype`` (ek
     and e for the dst-major kernels, eq, g and e for the src-major ones):
     name -> a call that launches it; and the outputs after one launch
     each, with the layout this library reports for each kernel."""
@@ -770,6 +813,7 @@ def general_launches(lib, inp: dict, act, dtype) -> tuple:
                 geq6=torch.empty((r, h), **f32))
     if edge:
         outs.update(rows_e=torch.empty((r, h), **f32),
+                    geq_e=torch.empty((r, h), **f32),
                     out_e=torch.empty((rs, h), **f32),
                     g_e=torch.zeros((fg.e_pad, h), **f32))
     sd, ss = fg.dst_slot_scales["sym"], fg.src_slot_scales["sym"]
@@ -807,12 +851,18 @@ def general_launches(lib, inp: dict, act, dtype) -> tuple:
             "ell_act_reduce_rowwise_edge", p(eq), p(ekt), p(et), bf,
             p(fg.dst_slot_srcnode), p(plan.slot_edge), *dst,
             p(outs["rows_e"]))
+        calls["#3·e"] = call(
+            "ell_geq_reduce_edge", p(eq), p(ekt), p(et), bf, p(g),
+            p(fg.dst_slot_srcnode), p(plan.slot_edge), *dst,
+            p(outs["geq_e"]))
         calls["#4r·e"] = call(
             "ell_src_bwd_rowwise_edge", p(eqt), p(gt), p(et), bf, p(ek),
             p(fg.src_slot_dstnode), p(splan.slot_edge), *src,
             p(outs["out_e"]), p(outs["g_e"]))
         tables["#1r·e"] = ("ell_act_reduce_rowwise_edge", eq, ekt, et,
                            outs["rows_e"])
+        tables["#3·e"] = ("ell_geq_reduce_edge", eq, ekt, et, g,
+                          outs["geq_e"])
         tables["#4r·e"] = ("ell_src_bwd_rowwise_edge", eqt, gt, et, ek,
                            outs["out_e"], outs["g_e"])
     for run in calls.values():
@@ -837,7 +887,9 @@ def wide_build_report(log: str, h: int, what: str) -> list:
     for fn, regs, spill in build.ptxas_entries(log):
         k = WIDE_ENTRIES.search(fn)
         if k:
-            smem = 8 * 2 * h * 4 if k.group("group") else 0
+            # a lane-group warp's f32 key rows, two buffers (#3: eq and g)
+            keys = 2 if k.group("mode") == "0" else 1
+            smem = 8 * 2 * keys * h * 4 if k.group("group") else 0
             per_warp = -(-regs * 32 // 256) * 256
             blocks = min(65536 // (8 * per_warp), 8,
                          233472 // (smem + 1024))
@@ -855,11 +907,27 @@ def gate_rows(inp: dict, act, dtype, edge: bool,
     of the per-edge cotangent's rows ("edges") that hold a valid slot with
     a near gate (``checks.near_gate``) at the src-major kernels' z (eq,
     with the edge row added when ``edge``, gathered in ``dtype``, plus the
-    f32 key row), taken ``chunk`` slots at a time; empty for another
+    f32 key row), and of the dst plan's rows ("dst_rows") at #3's z (ek,
+    with the edge row added when ``edge``, gathered in ``dtype``, plus the
+    f32 eq row), taken ``chunk`` slots at a time; empty for another
     sigma."""
     if act.name != "centered_relu":
         return {}
     fg = inp["fg"]
+    plan = fg.dst_plan
+    ekt = inp["ek"].to(dtype)
+    et = inp["e"].to(dtype) if edge else None
+    dnear = torch.zeros(plan.num_slots, dtype=torch.bool,
+                        device=ekt.device)
+    sd = fg.dst_slot_scales["sym"]
+    for s0 in range(0, plan.num_slots, chunk):
+        s = slice(s0, min(s0 + chunk, plan.num_slots))
+        kv = ekt.index_select(0, fg.dst_slot_srcnode[s])
+        if edge:
+            kv = add_cast(kv, et.index_select(0, plan.slot_edge[s]))
+        z = kv.float() + inp["eq"].index_select(0, plan.slot_key[s])
+        dnear[s] = near_gate(z, sd[s], act).any(1)
+    del ekt, et
     splan = fg.src_plan
     eqt = inp["eq"].to(dtype)
     et = inp["e"].to(dtype) if edge else None
@@ -875,7 +943,8 @@ def gate_rows(inp: dict, act, dtype, edge: bool,
         near[s] = near_gate(z, sc[s], act).any(1)
     edges = torch.zeros(fg.e_pad, dtype=torch.bool, device=near.device)
     edges[splan.slot_edge[near].long()] = True
-    return dict(rows=slot_rows(splan, near), edges=edges)
+    return dict(rows=slot_rows(splan, near), edges=edges,
+                dst_rows=slot_rows(plan, dnear))
 
 
 def no_reuse_estimate(tag: str, inp: dict, dtype) -> tuple:
@@ -895,7 +964,7 @@ def no_reuse_estimate(tag: str, inp: dict, dtype) -> tuple:
     valid, rows, slots = int((sc != 0).sum()), plan.row_key.numel(), \
         plan.num_slots
     row = h * torch.tensor([], dtype=dtype).element_size()
-    keys = 2 if tag in ("#3", "#6") else 1
+    keys = 2 if tag in ("#3", "#3·e", "#6") else 1
     nbytes = (valid * GENERAL_ROWS[tag] * row + rows * h * 4 * (keys + 1)
               + slots * (12 if tag.endswith("·e") else 8) + rows * 8)
     if tag == "#6":

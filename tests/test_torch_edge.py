@@ -615,6 +615,24 @@ def test_edge_layout_python_side():
         decode_edge_layout(arxiv | 3)  # the columns path without a chunk
 
 
+def test_edge_layout_decodes_the_tiles_path():
+    """#8's fourth path, tiles, takes a third bit of its path code (bit
+    36): at H = 512, De = 16 in bf16 the forward on the shared-memory loop,
+    the backward on tiles with chunks of 128 columns, 16 basis values a
+    slot and 8 slots a batch (4 in f32); a code naming a fifth path, or
+    tiles without a chunk, is refused."""
+    tiles = 1 | 4 << 4 | 16 << 7 | 1 << 12 | 8 << 16 | 8 << 20 | 8 << 24 \
+        | 4 << 31 | 1 << 36
+    assert decode_edge_layout(tiles) == EdgeLayout(
+        "shared", "tiles", 4, 16, 1, 8, 8, 8, 0, 128, False, False)
+    f32 = tiles & ~(0xF << 16) | 4 << 16
+    assert decode_edge_layout(f32).bwd_inflight == 4
+    with pytest.raises(ValueError, match="no path"):
+        decode_edge_layout(tiles | 1 << 2)  # path 5
+    with pytest.raises(ValueError, match="chunk"):
+        decode_edge_layout(tiles & ~(7 << 31))
+
+
 def test_ell_ab_edge_needs_a_card(tmp_path):
     """The A/B tool's edge mode (two ell_edge_kernels.cu builds) runs on
     the card only, and --probes is not one of its options."""

@@ -299,6 +299,14 @@ def shared_paths(h: int, de: int) -> tuple:
     return fwd, bwd
 
 
+def wide_paths(h: int, de: int) -> tuple:
+    """The paths the entries take: ``shared_paths`` where those ran, else
+    the columns path, but #8 with De <= 16 the tiles path."""
+    fwd, bwd = shared_paths(h, de)
+    return (fwd or "columns",
+            bwd or ("tiles" if de <= 16 else "columns"))
+
+
 def check_chunk(h: int, de: int, tables: int, chunk: int,
                 device: bool) -> None:
     """A columns-path chunk: a multiple of 32 of at most 128, spread over
@@ -359,7 +367,6 @@ def test_columns_path_matches_plain_on_card(cuda_device, h, de, dt):
         rng.random(getattr(fg, f"{side}_plan").num_slots) > 0.2, device=d)
         for side in ("dst", "src"))
     assert bool((sd == 0).any()) and bool((ss == 0).any())
-    old = shared_paths(h, de)
     for act in ACTS.values():
         fwd, bwd = fused_args(fg, eq, ek, g, eb, we, sd, ss, act, DTYPES[dt])
         reset_launch_counts()
@@ -373,8 +380,8 @@ def test_columns_path_matches_plain_on_card(cuda_device, h, de, dt):
         torch.testing.assert_close(got[3], want[3],
                                    **gw_tol(want[3].cpu().numpy()))
         lay = ell_edge_layout(h, de, act, DTYPES[dt])
-        assert (lay.fwd, lay.bwd) == tuple(p or "columns" for p in old), lay
-        assert lay.bwd == "columns", lay
+        assert (lay.fwd, lay.bwd) == wide_paths(h, de), lay
+        assert lay.bwd == ("tiles" if de <= 16 else "columns"), lay
 
 
 @pytest.mark.cuda
@@ -404,7 +411,8 @@ def test_columns_path_is_bitwise_repeatable_on_card(cuda_device, h, de, dt,
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
-    assert ell_edge_layout(h, de, ACTS[act], DTYPES[dt]).bwd == "columns"
+    assert ell_edge_layout(h, de, ACTS[act], DTYPES[dt]).bwd == wide_paths(
+        h, de)[1]
 
 
 @pytest.mark.cuda
@@ -413,20 +421,83 @@ def test_layout_takes_columns_where_shared_memory_ends_on_card(cuda_device,
                                                                act):
     """Over widths on both sides of each limit, for both edge types: the
     register and shared paths exactly where they were chosen before, the
-    columns path exactly where the kernels raised, with its chunk."""
+    columns path exactly where the kernels raised, with its chunk, but #8
+    with De <= 16 on the tiles path (chunks of 128 columns, its basis
+    padded to 8 or 16, 8 slots a batch in bf16 and 4 in f32)."""
     del cuda_device
     for dt in DTYPES.values():
         for h in (1, 20, 96, 128, 129, 200, 256, 512, 1000, 4096):
             for de in (1, 5, 16, 17, 48, 60, 200, 201, 500, 1024, 1808,
                        1809, 4000):
                 lay = ell_edge_layout(h, de, ACTS[act], dt)
-                old = shared_paths(h, de)
-                assert (lay.fwd, lay.bwd) == tuple(
-                    p or "columns" for p in old), (h, de, lay)
+                assert (lay.fwd, lay.bwd) == wide_paths(h, de), (h, de, lay)
                 for side, tables in (("fwd", 1), ("bwd", 1 + WARPS)):
                     chunk = getattr(lay, f"{side}_chunk")
                     device = getattr(lay, f"{side}_device")
                     if getattr(lay, side) == "columns":
                         check_chunk(h, de, tables, chunk, device)
+                    elif getattr(lay, side) == "tiles":
+                        assert (chunk, device) == (CHUNK, False), lay
+                        assert lay.basis_width == (8 if de <= 8 else 16)
+                        assert lay.bwd_inflight == (
+                            8 if dt == torch.bfloat16 else 4), lay
                     else:
                         assert (chunk, device) == (0, False), (h, de, lay)
+
+
+# The tiles path (#8 past a block's shared memory with De <= 16), (H, De):
+# four chunks of 128 columns (512, 16); a last chunk of 8 columns (520,
+# 16); De padded to 8 (1000, 8); an odd De, whose basis rows are copied 4
+# bytes at a time, and a last chunk of 92 columns (1500, 5); H not a
+# multiple of 4, whose rows take single-value loads, and a last chunk of 90
+# columns (602, 12)
+TILES_SHAPES = [(512, 16), (520, 16), (1000, 8), (1500, 5), (602, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("h,de", TILES_SHAPES)
+def test_tiles_path_matches_plain_on_card(cuda_device, h, de, dt):
+    """#8 on the tiles path against its plain version on the awkward plans
+    (a part-full last row tile, rows of several 32-slot runs, budgets off
+    multiples of 8), with a fifth of the scales zeroed and a multi-slot row
+    with no valid slot, all three sigmas, the basis 4 bytes past a 16-byte
+    boundary, and at 512 eq, g and ek too (the single-value loads): g_ek
+    rows at BWD_TOL, g_WE at atol 3e-4 plus 1e-5 of its largest entry; two
+    launches give the same bits; the layout names the tiles path."""
+    d = cuda_device
+    fg = awkward_graph(d)
+    rng = np.random.default_rng(h + de)
+    splan = fg.src_plan
+    eq, ek, g = (_t(rng.normal(size=(fg.n_pad, h)), device=d)
+                 for _ in range(3))
+    eb = torch.empty(fg.e_pad * de + 1, device=d)[1:].view(fg.e_pad, de)
+    eb.copy_(_t(rng.normal(size=(fg.e_pad, de)), device=d))
+    we = _t(rng.normal(size=(de, h)) * de ** -0.5, device=d)
+    ss = fg.src_slot_scales["sym"] * _t(
+        rng.random(splan.num_slots) > 0.2, device=d)
+    ptr = splan.row_ptr.cpu().numpy()
+    r = int(np.argmax(np.diff(ptr) >= 8))  # a row of 8 or more slots
+    ss[int(ptr[r]):int(ptr[r + 1])] = 0.0
+    tables = [(eq, g, ek)]
+    if h == 512:  # each row 4 bytes past a 16-byte boundary
+        tables.append(tuple(
+            torch.empty(t.numel() + 1, device=d)[1:].view(t.shape).copy_(t)
+            for t in (eq, g, ek)))
+    for eq_, g_, ek_ in tables:
+        for act in ACTS.values():
+            _, bwd = fused_args(fg, eq_, ek_, g_, eb, we,
+                                fg.dst_slot_scales["sym"], ss, act,
+                                DTYPES[dt])
+            reset_launch_counts()
+            first, second = ell_edge_src_bwd(*bwd), ell_edge_src_bwd(*bwd)
+            torch.cuda.synchronize()
+            assert LAUNCHES["ell_edge_src_bwd"] == 2
+            want = ell_edge_src_bwd_plain(*bwd)
+            torch.testing.assert_close(first[0], want[0], **BWD_TOL)
+            torch.testing.assert_close(first[1], want[1],
+                                       **gw_tol(want[1].cpu().numpy()))
+            for a, b in zip(first, second):
+                assert torch.equal(a, b)
+            lay = ell_edge_layout(h, de, act, DTYPES[dt])
+            assert lay.bwd == "tiles" and lay.bwd_chunk == CHUNK, lay

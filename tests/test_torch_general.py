@@ -69,6 +69,7 @@ from sir_gcn_tpu_torch.ops.cuda import (
     ell_src_bwd_rowwise,
     reset_launch_counts,
 )
+from sir_gcn_tpu_torch.ops.cuda.checks import near_gate, slot_rows
 
 FWD_TOL = dict(atol=2e-4, rtol=1e-4)
 BWD_TOL = dict(atol=3e-4, rtol=1e-3)
@@ -198,7 +199,8 @@ def _dst_inputs(c, jdt):
 @pytest.mark.parametrize("act", sorted(ACTS))
 @pytest.mark.parametrize("graph,h,dt", [("random", 24, "f32"),
                                         ("hub", 40, "bf16"),
-                                        ("isolated", 128, "bf16")])
+                                        ("isolated", 128, "bf16"),
+                                        ("random", 512, "bf16")])
 def test_general_plains_match_pallas(graph, h, dt, act):
     import jax.numpy as jnp
     import sir_gcn_tpu.ops.ell as jell
@@ -644,15 +646,18 @@ def test_general_layout_python_side(monkeypatch):
         64, 16, 2, 4, 2)
     assert decode_general_layout(1 << 16 | 1 << 8 | 4) == GeneralLayout(
         1, 1, 32, 1, 4)
-    # past H = 256 #1r and #4r take groups of the whole warp, one slot a
-    # warp: at 512 64 chunks of bf16 (2 a lane) or 128 of f32 (4 a lane);
-    # at 264 in f32 66 chunks, 3 a lane
+    # past H = 256 #1r, #3 and #4r take groups of the whole warp, one slot
+    # a warp: at 512 64 chunks of bf16 (2 a lane) or 128 of f32 (4 a lane);
+    # at 264 in f32 66 chunks, 3 a lane; #3 at 384 in f32 96 chunks, 3 a
+    # lane
     assert decode_general_layout(64 << 16 | 32 << 8 | 1) == GeneralLayout(
         64, 32, 1, 2, 1)
     assert decode_general_layout(128 << 16 | 32 << 8 | 1) == GeneralLayout(
         128, 32, 1, 4, 1)
     assert decode_general_layout(66 << 16 | 32 << 8 | 1) == GeneralLayout(
         66, 32, 1, 3, 1)
+    assert decode_general_layout(96 << 16 | 32 << 8 | 1) == GeneralLayout(
+        96, 32, 1, 3, 1)
     assert decode_general_layout(0) is None
     for bad in (12 << 16 | 3 << 8 | 2, 12 << 16 | 64 << 8 | 2,
                 4 << 8 | 2, 12 << 16 | 4 << 8, -1, 1 << 24 | 4 << 8 | 2):
@@ -761,6 +766,70 @@ def test_ptxas_entries_pairs_each_entry_with_its_report():
                                               (PTXAS_GROUP, 128, 28)]
     assert build.ptxas_entries("") == []
 
+
+def test_general_source_builds_in_parts(monkeypatch, tmp_path):
+    """The general source compiles as ``build.PARTS`` says: one ``nvcc -c``
+    a part, each selecting its part by the macro the source reads, none
+    with ``-shared``, then one link of the parts into the library; another
+    source is one ``nvcc`` into its library, with no link."""
+    from sir_gcn_tpu_torch.ops.cuda import build
+
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    macro, n = build.PARTS["ell_general_kernels"]
+    assert f"#ifdef {macro}" in build.SOURCES[
+        "ell_general_kernels"].read_text()
+    tmp = tmp_path / "lib.so.tmp"
+    compiles, link = build._commands("ell_general_kernels", tmp)
+    assert len(compiles) == n and n > 1
+    objs = []
+    for k, cmd in enumerate(compiles):
+        assert cmd[0] == "nvcc" and "-c" in cmd and "-shared" not in cmd
+        assert f"-D{macro}={k}" in cmd
+        objs.append(cmd[cmd.index("-o") + 1])
+    assert len(set(objs)) == n
+    assert link[:2] == ["nvcc", "-shared"] and link[-n:] == objs
+    assert link[link.index("-o") + 1] == str(tmp)
+    single, none = build._commands("ell_edge_kernels", tmp)
+    assert none is None and len(single) == 1 and "-shared" in single[0]
+    assert single[0][-3:] == ["-o", str(tmp),
+                              str(build.SOURCES["ell_edge_kernels"])]
+
+
+
+def test_build_main_times_a_source_whole_or_in_parts(monkeypatch, tmp_path,
+                                                     capsys):
+    """``python -m sir_gcn_tpu_torch.ops.cuda.build NAME [SOURCE]
+    [--whole]`` compiles NAME in its parts (one ``nvcc -c`` a part, then a
+    link) or with ``--whole`` in one ``nvcc``, from SOURCE where given,
+    prints how and in how many seconds, and leaves no directory behind."""
+    import sys
+
+    from sir_gcn_tpu_torch.ops.cuda import build
+
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "args = sys.argv[1:]\n"
+        "open(args[args.index('-o') + 1], 'w').write(' '.join(args))\n"
+        "if '-shared' not in args or '-Xptxas' in args:\n"
+        "    print(\"ptxas info : Compiling entry function '_Z1kv'\")\n"
+        "    print('ptxas info : Used 8 registers')\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    n = build.PARTS["ell_general_kernels"][1]
+    build._main(["ell_general_kernels"])
+    out = capsys.readouterr().out
+    assert f"ell_general_kernels.cu in {n} parts in " in out
+    assert out.rstrip().endswith(f" s, {n} kernels")
+    other = tmp_path / "old.cu"
+    other.write_text("")
+    build._main(["ell_general_kernels", str(other), "--whole"])
+    out = capsys.readouterr().out
+    assert out.startswith(f"built {other} whole in ")
+    assert out.rstrip().endswith(" s, 1 kernels")
+    assert list((tmp_path / "kernels").iterdir()) == []
 
 def test_ell_ab_wide_build_report_raises_on_no_entry():
     """``ell_ab.wide_build_report`` reports the full-warp entries of a
@@ -1162,17 +1231,17 @@ def test_full_warp_groups_are_bitwise_repeatable_on_card(cuda_device, act,
 @pytest.mark.parametrize("act", ["centered_relu", "softmax"])
 def test_general_layouts_past_256_on_card(cuda_device, act):
     """The path of each general kernel past H = 256 (``ell_general_layout``
-    on aligned tables): at 512 #1r and #4r and their edge forms on groups
-    of the whole warp, GeneralLayout(64, 32, 1, 2, 1) in bf16 and (128,
-    32, 1, 4, 1) in f32; #3, #5 and #6 (and #3's edge form) on the first
-    design's wide path, WideLayout(16, 1); past 512 every kernel on the
+    on aligned tables): at 512 #1r, #3 and #4r and their edge forms on
+    groups of the whole warp, GeneralLayout(64, 32, 1, 2, 1) in bf16 and
+    (128, 32, 1, 4, 1) in f32; #5 and #6 on the first design's wide path,
+    WideLayout(16, 1); past 512 every kernel on the
     wide path's passes, WideLayout(8, n); and H = 300 in bf16 (rows that
     are not whole 16-byte chunks) the first design's wide path for all."""
     tact, d = ACTS[act], cuda_device
     group = {"ell_act_reduce_rowwise", "ell_src_bwd_rowwise",
-             "ell_act_reduce_rowwise_edge", "ell_src_bwd_rowwise_edge"}
-    names = sorted(group | {"ell_geq_reduce", "ell_src_bwd_fused",
-                            "ell_act_reduce_bwd", "ell_geq_reduce_edge"})
+             "ell_act_reduce_rowwise_edge", "ell_src_bwd_rowwise_edge",
+             "ell_geq_reduce", "ell_geq_reduce_edge"}
+    names = sorted(group | {"ell_src_bwd_fused", "ell_act_reduce_bwd"})
     for h, dt in ((512, "bf16"), (512, "f32"), (520, "bf16"), (520, "f32"),
                   (1024, "f32"), (300, "bf16")):
         tdt = DTYPES[dt]
@@ -1193,3 +1262,63 @@ def test_general_layouts_past_256_on_card(cuda_device, act):
                 want = WideLayout(8, -(-h // 256))
             assert lay == want, (name, h, dt, lay)
 
+
+
+# #3 past H = 256: lane groups of the whole warp on whole 16-byte chunks up
+# to 512 (G = 1, its two f32 key rows in 64 KB of a block's shared memory
+# at 512), the first design's wide path past it, (H, gathered dtype)
+GEQ_WIDE_CASES = [(264, "f32"), (384, "bf16"), (384, "f32"), (512, "bf16"),
+                  (512, "f32"), (520, "bf16"), (520, "f32")]
+
+
+def geq_gate_rows(plan, src, eq, ekt, scale, act, e=None):
+    """[R] bool: under centered_relu the dst plan's rows holding a valid
+    slot whose gate lies near 0 (``near_gate``) at #3's z = eq[key] +
+    ek[src] (src the slots' gathered nodes; the edge form's add_cast(ek[src],
+    e[edge]), in ek's type), which two orders of the mean's sum may set
+    apart; none for another sigma."""
+    if act.name != "centered_relu":
+        return torch.zeros(plan.num_rows, dtype=torch.bool,
+                           device=eq.device)
+    kv = ekt.index_select(0, src)
+    if e is not None:
+        kv = tkernels.add_cast(kv, e.index_select(0, plan.slot_edge))
+    z = eq.index_select(0, plan.slot_key) + kv.float()
+    return slot_rows(plan, near_gate(z, scale, act).any(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["centered_relu", "softmax"])
+@pytest.mark.parametrize("h,dt", GEQ_WIDE_CASES)
+def test_geq_full_warp_groups_match_plain_on_card(cuda_device, h, dt, act):
+    """#3 past H = 256 on the awkward plans (a part-full last run of rows,
+    zero-scale slots and a multi-slot row with no valid slot, budgets off
+    multiples of 8, rows longer than 32 slots) against its plain version at
+    BWD_TOL, the rows holding a centered_relu near gate left out; two
+    launches give the same bits; the layout is ``full_warp_layout``'s up
+    to 512 and the wide path's passes at 520."""
+    d, tdt, tact = cuda_device, DTYPES[dt], ACTS[act]
+    fg, scales, rng = awkward_plan(d)
+    eq, ek, g = (rng.normal(size=(fg.n_pad, h)).astype(np.float32)
+                 for _ in range(3))
+    plan = fg.dst_plan
+    fwd = (_t(eq, device=d), _t(ek, tdt, d), fg.dst_slot_srcnode, scales[0],
+           plan.row_key, plan.row_ptr, tact)
+    gd = _t(g, device=d)
+    reset_launch_counts()
+    first, second = ell_geq_reduce(*fwd, gd), ell_geq_reduce(*fwd, gd)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.items() if v} == {"ell_geq_reduce": 2}
+    assert torch.equal(first, second)
+    keep = ~geq_gate_rows(plan, fg.dst_slot_srcnode, fwd[0], fwd[1],
+                          scales[0], tact)
+    torch.testing.assert_close(first[keep],
+                               ell_geq_reduce_plain(*fwd, gd)[keep],
+                               **BWD_TOL)
+    lay = ell_general_layout("ell_geq_reduce", h, tdt, tact, fwd[0], fwd[1],
+                             gd, first)
+    want = (full_warp_layout("ell_geq_reduce", h, dt) if h <= 512 else
+            WideLayout(8, -(-h // 256)))
+    assert lay == want, (h, dt, lay)
+    if h <= 512:
+        assert lay.group_width == 32, lay

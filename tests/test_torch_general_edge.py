@@ -67,6 +67,7 @@ from sir_gcn_tpu_torch.ops.cuda import (
     ell_src_bwd_rowwise_edge,
     reset_launch_counts,
 )
+from sir_gcn_tpu_torch.ops.cuda.checks import near_gate, slot_rows
 
 FWD_TOL = dict(atol=2e-4, rtol=1e-4)
 BWD_TOL = dict(atol=3e-4, rtol=1e-3)
@@ -671,16 +672,17 @@ def general_runs(c, act):
     }
 
 
-# #1r and #4r and their edge forms: the kernels whose lane groups widen to
-# the whole warp past H = 256, up to 512
+# #1r, #3 and #4r and their edge forms: the kernels whose lane groups
+# widen to the whole warp past H = 256, up to 512
 FULL_WARP = ("ell_act_reduce_rowwise", "ell_act_reduce_rowwise_edge",
+             "ell_geq_reduce", "ell_geq_reduce_edge",
              "ell_src_bwd_rowwise", "ell_src_bwd_rowwise_edge")
 
 
 def _want_path(name, act, h, dt, aligned):
     """The path the entries choose: "group" for the lane-group path (a
     row-wise sigma, or any in #5, on whole, aligned 16-byte chunks up to H
-    = 256, and up to 512 in #1r and #4r and their edge forms), "wide" for
+    = 256, and up to 512 in #1r, #3 and #4r and their edge forms), "wide" for
     a row-wise sigma past 256 that it does not take, None for the first
     design."""
     group = not act.diagonal or name == "ell_src_bwd_fused"
@@ -761,7 +763,7 @@ def test_full_warp_edge_forms_match_plain_on_card(cuda_device, h, dt, act):
     form's lane holds at most 16 values, so past 256 one slot a warp."""
     c = awkward_case(h, dt, True, cuda_device)
     runs = {k: v for k, v in edge_runs(c, ACTS[act]).items()
-            if k in FULL_WARP}
+            if k in FULL_WARP and k != "ell_geq_reduce_edge"}
     lays = _run_and_compare(runs, ACTS[act], h, dt, True)
     chunks = h * c.tdt.itemsize // 16
     assert set(lays) == {"ell_act_reduce_rowwise_edge",
@@ -804,3 +806,41 @@ def test_general_new_forms_are_bitwise_repeatable_on_card(cuda_device, h, dt,
         second = second if isinstance(second, tuple) else (second,)
         for a, b in zip(first, second):
             assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["centered_relu", "softmax"])
+@pytest.mark.parametrize("h,dt", [(264, "f32"), (384, "bf16"), (384, "f32"),
+                                  (512, "bf16"), (512, "f32"), (520, "bf16"),
+                                  (520, "f32")])
+def test_full_warp_geq_edge_matches_plain_on_card(cuda_device, h, dt, act):
+    """#3·e past H = 256 on the awkward plans (a part-full last run of
+    rows, zero-scale slots and a multi-slot row with no valid slot, budgets
+    off multiples of 8, rows longer than 32 slots) against its plain
+    version at BWD_TOL, the rows holding a centered_relu near gate left out
+    (at z = eq[key] + add_cast(ek[src], e[edge]), two orders of the mean's
+    sum may set such a gate apart); two launches give the same bits; on
+    lane groups of the whole warp up to 512 (one slot a warp), the wide
+    path's passes at 520."""
+    c = awkward_case(h, dt, True, cuda_device)
+    tact, plan = ACTS[act], c.fg.dst_plan
+    kernel, plain, _, tables = edge_runs(c, tact)["ell_geq_reduce_edge"]
+    reset_launch_counts()
+    first, second = kernel(), kernel()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.items() if v} == {
+        "ell_geq_reduce_edge": 2}
+    assert torch.equal(first, second)
+    keep = torch.ones(plan.num_rows, dtype=torch.bool, device=first.device)
+    if act == "centered_relu":
+        kv = tkernels.add_cast(c.ekt.index_select(0, c.fg.dst_slot_srcnode),
+                               c.et.index_select(0, plan.slot_edge))
+        z = c.eqd.index_select(0, plan.slot_key) + kv.float()
+        keep = ~slot_rows(plan, near_gate(z, c.sd, tact).any(1))
+    torch.testing.assert_close(first[keep], plain()[keep], **BWD_TOL)
+    lay = ell_general_layout("ell_geq_reduce_edge", h, c.tdt, tact,
+                             *tables, first)
+    chunks = h * c.tdt.itemsize // 16
+    want = (GeneralLayout(chunks, 32, 1, -(-chunks // 32), 1) if h <= 512
+            else WideLayout(8, -(-h // 256)))
+    assert lay == want, (h, dt, lay)
