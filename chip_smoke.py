@@ -26,7 +26,8 @@ one line before the kernels line); any failure exits non-zero:
            path each launch took (the 16-byte vector path with its layout,
            which the arxiv plan must take, or the scalar loop), for #7
            and #8 theirs (W_E and g_WE in registers, which the arxiv plan
-           must take, or the shared-memory loop), and for #1r, #3, #4r,
+           must take, #7 on blocks of 128 columns past H = 128, or the
+           shared-memory loop), and for #1r, #3, #4r,
            #5 and #6 theirs (the lane-group path, which the arxiv plan
            must take in f32 and bf16 with centered_relu and softmax, and
            #5 also with leaky_relu(0.2) and tanh, timed in bf16 with #6
@@ -106,17 +107,19 @@ one line before the kernels line); any failure exits non-zero:
            out) on the arxiv plan, bf16 edges, 3 steps and evals each
            with exact launch counts, after the layout rule at 512 and
            520 in bf16 and f32 (required): (a) softmax, mean and (b)
-           centered_relu(0.5), sym, #1r and #4r on full-warp lane groups,
-           #3 on the wide path ((b) profiled), (c)
+           centered_relu(0.5), sym, #1r, #3 and #4r on full-warp lane
+           groups ((b) profiled), (c)
            erf-GELU declared non-elementwise, sym; then one aggregate
            each with its exact launches: (d) erf-GELU at H = 96 with
            fuse_bwd_take (#2, #5), (e) centered_relu at H = 512 with
-           fuse_bwd_take (#1r, #3, #5), and the dst-major composition
+           fuse_bwd_take (#1r, #3, #5; #5 on full-warp lane groups), and
+           the dst-major composition
            (#1r, #6, #12) with (f) centered_relu at H = 512 and (g)
            erf-GELU declared non-elementwise at H = 96
   sireconv_wide the SIREConv of the heterophilous default width (512 ->
            512, De = 16, sym, leaky_relu(0.2), dropout 0) on the fused
-           edge route, #8 on its tiles path: (a) one step on the
+           edge route, #7 on the register path's blocks of 128 columns,
+           #8 on its tiles path: (a) one step on the
            heterophilous plan, card against CPU, f32 edges, dyadic inputs,
            out and every gradient (W_E's too); (b) 3 AdamW steps and evals
            on the arxiv plan, bf16 edges, exactly #7 once a step and once
@@ -424,12 +427,12 @@ MAX_FORMS = ("rowwise", "rowwise,wide", "edge,rowwise", "wide")
 GENERAL_FORMS = GENERAL + BWD
 # the general_wide phase's width: the heterophilous default
 WIDE_H = 512
-# #1r, #3 and #4r and their edge forms: past H = 256 on lane groups of the
-# whole warp, up to 512 on whole 16-byte chunks; #5 and #6 take the first
+# #1r, #3 and #4r and their edge forms, and #5: past H = 256 on lane groups
+# of the whole warp, up to 512 on whole 16-byte chunks; #6 takes the first
 # design's wide path past 256
 FULL_WARP = ("ell_act_reduce_rowwise", "ell_geq_reduce", "ell_src_bwd_rowwise",
              "ell_act_reduce_rowwise_edge", "ell_geq_reduce_edge",
-             "ell_src_bwd_rowwise_edge")
+             "ell_src_bwd_rowwise_edge", "ell_src_bwd_fused")
 # the general kernels the general_wide phase's softmax SIRConv (a) runs,
 # timed at WIDE_H under softmax too, each a row "<name>[wide,softmax]"
 WIDE_SOFTMAX = ("ell_act_reduce_rowwise", "ell_geq_reduce",
@@ -446,11 +449,13 @@ GELU = LINEAR + EDGE + MAX[:3]
 # (10,000 nodes, 39,402 undirected edges: Platonov et al. 2023, Table 1),
 # H = O = 512, the heterophilous default width
 HETERO_NODES, HETERO_EDGES, HETERO_H = 10_000, 78_804, 512
-# #7 and #8 at H = 512, De = EDGE_DIM (the sireconv_wide phase's): the
-# forward's W_E fits a block's shared memory, the backward's nine tables
-# (288 KiB) do not: with De <= 16 it takes the tiles path (W_E's columns in
-# registers, g_WE on tensor-core tiles of 16 slots)
-WIDE_EDGE_PATHS = ("shared", "tiles")
+# #7 and #8 at H = 512, De = EDGE_DIM (the sireconv_wide phase's): with De
+# <= 16 the forward takes the register path on blocks of 128 columns (W_E's
+# columns in registers, a slot's basis row broadcast from a ring), the
+# backward, whose nine tables (288 KiB) pass a block's shared memory, the
+# tiles path (W_E's columns in registers, g_WE on tensor-core tiles of 16
+# slots)
+WIDE_EDGE_PATHS = ("registers", "tiles")
 # (H, De, the paths of #7 and #8) past a block's shared memory, checked on
 # the small plans: #7's W_E too (100, 600); #8's partials in device memory
 # (40, 1024); #7's W_E in device memory too (40, 2000)
@@ -652,7 +657,8 @@ def log_max_layout(label, h, o, require=None):
 
 def log_edge_layout(label, h, de, act, dtype, require=None):
     """Log the paths #7 and #8 take for rows of width h and a basis of
-    width de (ell_edge_layout: registers, the shared-memory loop or its
+    width de (ell_edge_layout: registers, on blocks of 128 columns in #7
+    past H = 128, the shared-memory loop or its
     columns path with the chunks, or #8's tiles path). With ``require``
     (the forward's and the backward's path) any other raises: a path must
     not be bypassed."""
@@ -1543,7 +1549,7 @@ def wide_paths(h: int, dtype) -> dict:
 def wide_kernels(device, fg, errs, timing):
     """The general route's five kernels at the arxiv plan, H = WIDE_H (the
     general_wide phase's), bf16 edges, each against its plain version
-    (#1r, #3 and #4r on full-warp lane groups, #5 and #6 on the wide path):
+    (#1r, #3, #4r and #5 on full-warp lane groups, #6 on the wide path):
     centered_relu(0.5), near gates masked, timed under "<name>[wide]"; then
     softmax, #1r, #3 and #4r (``WIDE_SOFTMAX``) timed under
     "<name>[wide,softmax]"."""
@@ -1592,10 +1598,13 @@ def wide_edge_kernels(device, fg, errs, timing):
     """#7 and #8 at the arxiv plan, H = WIDE_H, De = EDGE_DIM (the
     sireconv_wide phase's), bf16 edges, leaky_relu(0.2), against their
     plain versions, on the paths WIDE_EDGE_PATHS, timed under
-    "<name>[wide]"."""
+    "<name>[wide]" and logged beside their bound and their no-L2-reuse
+    estimate (``ell_ab.edge_no_reuse_estimate``: each valid slot's rows
+    from device memory once)."""
     import torch
 
     from sir_gcn_tpu_torch.ops.ell import leaky_relu
+    from sir_gcn_tpu_torch.tools.ell_ab import edge_no_reuse_estimate
 
     h = WIDE_H
     gen = torch.Generator(device=device).manual_seed(7)
@@ -1609,12 +1618,17 @@ def wide_edge_kernels(device, fg, errs, timing):
                        None, eb, we, leaky_relu(0.2), torch.bfloat16, errs,
                        timing=timing, edge_paths=WIDE_EDGE_PATHS,
                        fused_only=True, tag="[wide]")
-    for name in ("ell_edge_act_reduce2", "ell_edge_src_bwd"):
+    for name, side in (("ell_edge_act_reduce2", "fwd"),
+                       ("ell_edge_src_bwd", "bwd")):
         t = timing[f"{name}[wide]"]
+        est, gb = edge_no_reuse_estimate(dict(fg=fg, eq=eq), EDGE_DIM,
+                                         torch.bfloat16, side)
         log(f"  {name} at H={h} (bf16): {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.3f} ms, bound {t['bound'][0]:.4f} ms by "
             f"{t['bound'][1]} ({t['bound'][3] / 1e9:.2f} GFLOP), "
-            f"{100 * t['bound'][0] / t['ms']:.1f}% of bound")
+            f"{100 * t['bound'][0] / t['ms']:.1f}% of bound; no-L2-reuse "
+            f"estimate {est:.4f} ms ({gb:.3f} GB), {100 * est / t['ms']:.1f}"
+            f"% of it")
     del eq, ek, g, eb, we
     torch.cuda.empty_cache()
 
@@ -1623,7 +1637,8 @@ def hetero_kernels(device, errs, gelu_errs, timing):
     """The kernels with an erf-GELU form at H = O = 512 on a plan of the
     heterophilous minesweeper's size (its synthetic stand-in, no self
     loops): #1, #2 and #4 and their edge forms, #7 and #8 (De = EDGE_DIM:
-    #7 on the shared-memory loop, #8 on its tiles path, required), #9-#12
+    #7 on the register path's blocks of columns, #8 on its tiles path,
+    required), #9-#12
     with near ties masked as at the arxiv plan, in f32 and bf16; erf-GELU against its plain versions,
     and leaky_relu(0.2) beside it, each timed (bf16) and logged with its
     path. Then #9-#11's row-wise forms there: centered_relu in bf16 (near
@@ -2499,10 +2514,11 @@ def phase_general_edge(device, fg, steps: int = 5):
 def require_wide_layouts(device, act):
     """The path ``ell_general_layout`` reports for each general kernel and
     edge form at WIDE_H and past it, on aligned tables: at WIDE_H (512)
-    #1r, #3 and #4r and their edge forms on lane groups of the whole warp,
-    GeneralLayout(64, 32, 1, 2, 1) in bf16 and (128, 32, 1, 4, 1) in f32;
-    #5 and #6 on the first design's wide path, WideLayout(16, 1); at 520
-    every kernel on the wide path's passes, WideLayout(8, 3). Raises on any other path."""
+    #1r, #3 and #4r and their edge forms and #5 on lane groups of the
+    whole warp, GeneralLayout(64, 32, 1, 2, 1) in bf16 and (128, 32, 1, 4,
+    1) in f32; #6 on the first design's wide path, WideLayout(16, 1); at
+    520 every kernel on the wide path's passes, WideLayout(8, 3). Raises on
+    any other path."""
     import torch
 
     from sir_gcn_tpu_torch.ops import cuda as K
@@ -2546,7 +2562,7 @@ def phase_general_wide(device, fg, steps: int = 3):
     and (b) profiled over 3 warm steps. Then single aggregates with a
     gradient, each launching exactly what it names: (d) erf-GELU at H = 96
     with fuse_bwd_take (#2, #5); (e) centered_relu at H = WIDE_H with
-    fuse_bwd_take (#1r, #3, #5; #5 the wide path); the dst-major
+    fuse_bwd_take (#1r, #3, #5; #5 on full-warp lane groups); the dst-major
     composition (#1r, #6, #12) with (f) centered_relu at H = WIDE_H and (g)
     erf-GELU declared non-elementwise at H = 96. Returns the launches of
     the wide forms, of the erf-GELU forms and of (a)'s softmax forms

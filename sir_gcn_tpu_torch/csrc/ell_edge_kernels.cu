@@ -59,6 +59,24 @@
 // it costs registers and instructions a slot for latency that these warps
 // already hide.
 //
+// Past kRegMaxH columns (De <= 16 still) #7 keeps the register path on
+// blocks of 128 columns (edge_act_reduce_cols_kernel): the grid's column
+// block is its fastest index, so that the blocks of the same rows run side
+// by side and share the rows' slot ids, scales, basis rows and eq rows in
+// the L2; lane l owns the block's features 4 l .. 4 l + 3 and their W_E
+// columns (DB x 4 registers), so that a slot's ek values are one 8-byte
+// (bf16) or 16-byte (f32) load a lane. The walk, the basis ring and the
+// slots in flight are the register kernel's, and each feature's sums are
+// formed as on every path. On the shared-memory loop (the first design at
+// H = 512, De = 16) a slot cost each pass of 128 columns 16 shuffles and
+// 64 shared loads a lane beside its 64 fmaf: the shared-memory pipe issues
+// a quarter of the FMA pipes' rate, so that loop ran near a quarter of the
+// FMA rate; here a slot costs four 16-byte broadcasts from the ring. What
+// bounds it now is latency at 12-16 warps an SM (W_E's 64 registers a lane
+// beside the slots in flight; cols_inflight): at H = 512, De = 16 on an
+// H100 it took 2.57 ms in bf16, 44% of its no-L2-reuse estimate, and f32
+// rows, twice the bytes, as long (PERF.md).
+//
 // The shared-memory path (the other shapes whose tables fit a block's
 // shared memory: W_E, and in the backward the 8 warps' g_WE partials, De *
 // H f32 each) is the first design: one warp per row, 8 rows per block, as
@@ -92,7 +110,7 @@
 // shuffles, reads and writes again for g_WE: the shared-memory pipe bounds
 // these kernels, not bytes or flops (#8 at H = 512, De = 16 ran at about
 // an eighth of its operations bound on an H100, some 768 shared-memory
-// warp instructions a slot), so #8 takes them only where De > 16.
+// warp instructions a slot), so #7 and #8 take them only where De > 16.
 //
 // The tiles path (#8 on the columns path's shapes with De <= 16, as at H =
 // 512, De = 16) takes both products off the shared-memory pipe. A block
@@ -735,6 +753,204 @@ edge_act_reduce_reg_kernel(const float* __restrict__ eq,
         if (f < H) {
           rows[r * H + f] = acc[j];
           srows[r * H + f] = sacc[j];
+        }
+      }
+    }
+    if (!more) break;
+    c = nc;
+    cur = nxt;
+  }
+}
+
+// Four consecutive values of a gathered ek row, as loaded: one 16-byte
+// (f32) or 8-byte (bf16) load where vec, else four loads, each masked by
+// ok; widened to f32 where the slot is worked, so that the load stays in
+// flight until then. A bf16 value is the top half of its f32 value.
+template <typename T>
+struct Gather4;
+template <>
+struct Gather4<float> {
+  float v[4];
+  __device__ __forceinline__ void load(const float* p, int vec,
+                                       const bool (&ok)[4]) {
+    if (vec) {
+      const float4 t = ok[0] ? __ldg(reinterpret_cast<const float4*>(p))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[0] = t.x;
+      v[1] = t.y;
+      v[2] = t.z;
+      v[3] = t.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = ok[i] ? __ldg(p + i) : 0.f;
+    }
+  }
+  __device__ __forceinline__ void widen(float (&f)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = v[i];
+  }
+};
+template <>
+struct Gather4<__nv_bfloat16> {
+  uint32_t lo, hi;  // values 0, 1 and 2, 3, the first of each in the low half
+  __device__ __forceinline__ void load(const __nv_bfloat16* p, int vec,
+                                       const bool (&ok)[4]) {
+    if (vec) {
+      const uint2 t = ok[0] ? __ldg(reinterpret_cast<const uint2*>(p))
+                            : make_uint2(0u, 0u);
+      lo = t.x;
+      hi = t.y;
+    } else {
+      const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
+      uint32_t u[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) u[i] = ok[i] ? __ldg(s + i) : 0u;
+      lo = u[0] | u[1] << 16;
+      hi = u[2] | u[3] << 16;
+    }
+  }
+  __device__ __forceinline__ void widen(float (&f)[4]) const {
+    f[0] = __uint_as_float(lo << 16);
+    f[1] = __uint_as_float(lo & 0xffff0000u);
+    f[2] = __uint_as_float(hi << 16);
+    f[3] = __uint_as_float(hi & 0xffff0000u);
+  }
+};
+
+// The blocks-of-columns kernel's slots in flight and the blocks an SM it
+// asks room for, by the basis values a slot held (DB) and the bytes of an
+// ek value: with 16 basis values (64 of W_E's registers) in bf16 two slots
+// under the cap of 128 registers (16 warps an SM, no spill), in f32 four
+// slots uncapped (12 warps, 163 registers); else four slots under the cap.
+// At H = 512 on an H100 (PERF.md) four slots in bf16 spilled 44-68 bytes
+// under the cap and ran 1.19x slower (1.12x uncapped), in f32 192 bytes
+// and 1.44x (two slots capped 1.50x); eight slots lost 1.05-1.39x; with
+// DB = 8 the cap ran 1.00-1.13x faster than none.
+__host__ __device__ constexpr int cols_inflight(int db, int bytes) {
+  return db == 16 && bytes == 2 ? 2 : 4;
+}
+
+__host__ __device__ constexpr int cols_min_blocks(int db, int bytes) {
+  return db == 16 && bytes == 4 ? 3 : 4;
+}
+
+// #7 on the register path past kRegMaxH columns. Block x takes the columns
+// c0 = (x mod C) * 128 .. c0 + 127 (kMaxChunk; fewer in the last of the C
+// blocks of a row) of the rows of row walker x / C: its warp w walks rows
+// (x / C) * kRegWarps + w, then + kRegWarps * gridDim.x / C, as the
+// register kernel walks them. Lane l owns the features c0 + 4 l .. c0 + 4 l
+// + 3 (ok: within H) and their W_E columns, DB x 4 values in registers (0
+// past De and H); a slot's ek values are one load (Gather4: 16 or 8 bytes
+// where rvec) with cols_inflight slots in flight, its basis row four (or
+// two) 16-byte broadcasts from the warp's ring, and e_h the register
+// kernel's project: the same fmaf chain in d, z = (ek + e_h) + eq and the
+// row's sums in slot order, so rows and srows are every path's bits.
+template <int ACT, int DB, typename TK>
+__global__ void __launch_bounds__(kRegWarps * 32,
+                                  cols_min_blocks(DB, (int)sizeof(TK)))
+edge_act_reduce_cols_kernel(const float* __restrict__ eq,
+                            const TK* __restrict__ ek,
+                            const float* __restrict__ e_basis,
+                            const float* __restrict__ w_e,
+                            const int* __restrict__ slot_src,
+                            const int* __restrict__ slot_edge,
+                            const float* __restrict__ scale,
+                            const int* __restrict__ row_key,
+                            const int* __restrict__ row_ptr, int R, int H,
+                            int De, float slope, int vec, int rvec,
+                            float* __restrict__ rows,
+                            float* __restrict__ srows) {
+  constexpr int U = cols_inflight(DB, (int)sizeof(TK));
+  extern __shared__ __align__(16) float reg_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int chunks = (H + kMaxChunk - 1) / kMaxChunk;
+  const int f0 = (int)(blockIdx.x % chunks) * kMaxChunk + 4 * lane;
+  const int gw = (int)(blockIdx.x / chunks) * kRegWarps + warp;
+  const int nw = (int)(gridDim.x / chunks) * kRegWarps;
+  if (gw >= R) return;  // the whole warp leaves together
+  bool ok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) ok[i] = f0 + i < H;
+  float* ring = reg_smem + warp * 32 * DB;  // [32, DB], 0 past De
+  for (int i = lane; i < 32 * DB; i += 32) ring[i] = 0.f;
+  float w[DB][4];
+#pragma unroll
+  for (int d = 0; d < DB; ++d) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[d][i] = d < De && ok[i] ? w_e[(int64_t)d * H + f0 + i] : 0.f;
+  }
+  const TK* ek_lane = ek + f0;  // the lane's values of node 0's row
+  RowGroup grp;
+  load_rows(grp, 0, row_ptr, row_key, R, gw, nw, lane);
+  Chunk c = row_chunk(0, grp, row_ptr, row_key, R, gw, nw, lane);
+  Slots cur = load_slots(c, slot_src, slot_edge, scale, lane);
+  float q[4], acc[4], sacc[4];
+  Gather4<TK> buf[U] = {};  // ek values in flight, slot k in buf[k % U]
+  float bsc[U];             // their scales, 0 for a slot that loads nothing
+  for (;;) {
+    Chunk nc = c;
+    const bool more = next_chunk(nc, grp, row_ptr, row_key, R, gw, nw, lane);
+    const Slots nxt = more ? load_slots(nc, slot_src, slot_edge, scale, lane)
+                           : Slots{0, 0, 0.f};
+    const int n = min(32, c.s1 - c.s);
+    if (c.first) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        q[i] = ok[i] ? eq[(int64_t)c.key * H + f0 + i] : 0.f;
+        acc[i] = 0.f;
+        sacc[i] = 0.f;
+      }
+    }
+    __syncwarp();  // every lane is done with the ring's last chunk
+    copy_basis<DB>(e_basis, De, vec, cur, lane < n && cur.sc != 0.f, ring,
+                   lane);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int src = __shfl_sync(kFull, cur.node, u);
+      const float sc = __shfl_sync(kFull, cur.sc, u);
+      bsc[u] = u < n ? sc : 0.f;
+      if (bsc[u] != 0.f) buf[u].load(ek_lane + (int64_t)src * H, rvec, ok);
+    }
+    ring_ready();
+    for (int k0 = 0; k0 < n; k0 += U) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = k0 + u;
+        const float sc = bsc[u];
+        float kv[4];
+        buf[u].widen(kv);
+        // slot k + U's values go in flight before slot k is computed
+        const int kn = k + U;
+        const int src_n = __shfl_sync(kFull, cur.node, kn & 31);
+        const float sc_n = __shfl_sync(kFull, cur.sc, kn & 31);
+        bsc[u] = kn < n ? sc_n : 0.f;
+        if (bsc[u] != 0.f)
+          buf[u].load(ek_lane + (int64_t)src_n * H, rvec, ok);
+        if (sc == 0.f) continue;  // warp-uniform
+        float b[DB], eh[4];
+        ring_row<DB>(ring, k, b);
+        project<4, DB>(b, w, eh);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (ok[i]) {
+            const float z = (kv[i] + eh[i]) + q[i];
+            float a, d;
+            act_both<ACT>(z, slope, a, d);
+            acc[i] += a * sc;
+            sacc[i] += d * sc;
+          }
+        }
+      }
+    }
+    if (c.s + 32 >= c.s1) {  // the row's last chunk
+      const int64_t r = gw + (int64_t)c.k * nw;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (ok[i]) {
+          rows[r * H + f0 + i] = acc[i];
+          srows[r * H + f0 + i] = sacc[i];
         }
       }
     }
@@ -1410,6 +1626,11 @@ bool fwd_on_registers(int H, int De) {
   return H <= kRegMaxH && De <= kRegMaxDe;
 }
 
+// #7 on the register path past kRegMaxH: blocks of kMaxChunk columns.
+bool fwd_on_reg_blocks(int H, int De) {
+  return H > kRegMaxH && De <= kRegMaxDe;
+}
+
 bool bwd_on_registers(int H, int De) {
   return fwd_on_registers(H, De) &&
          feat_per_lane(H) * basis_width(De) <= kRegMaxBwd;
@@ -1446,7 +1667,7 @@ Loop fwd_loop(int H, int De) { return loop_shape(H, De, 1); }
 Loop bwd_loop(int H, int De) { return loop_shape(H, De, 1 + kWarps); }
 
 size_t fwd_smem(int H, int De) {
-  if (fwd_on_registers(H, De))
+  if (fwd_on_registers(H, De) || fwd_on_reg_blocks(H, De))
     return sizeof(float) * kRegWarps * 32 * basis_width(De);
   return fwd_loop(H, De).smem;
 }
@@ -1477,7 +1698,9 @@ size_t bwd_smem(int H, int De) {
 }
 
 int fwd_path(int H, int De) {
-  return fwd_on_registers(H, De) ? PATH_REGISTERS : fwd_loop(H, De).path;
+  return fwd_on_registers(H, De) || fwd_on_reg_blocks(H, De)
+             ? PATH_REGISTERS
+             : fwd_loop(H, De).path;
 }
 
 int bwd_path(int H, int De) {
@@ -1522,6 +1745,9 @@ const void* bwd_loop_kernel(const Loop& s) {
 template <int ACT, typename T>
 const void* pick_fwd(int H, int De) {
   const int nf = feat_per_lane(H), db = basis_width(De);
+  if (fwd_on_reg_blocks(H, De))
+    return db == 8 ? (const void*)edge_act_reduce_cols_kernel<ACT, 8, T>
+                   : (const void*)edge_act_reduce_cols_kernel<ACT, 16, T>;
   if (fwd_on_registers(H, De)) {
     EDGE_REG_CASE(edge_act_reduce_reg_kernel, 1, 8)
     EDGE_REG_CASE(edge_act_reduce_reg_kernel, 2, 8)
@@ -1676,6 +1902,13 @@ int basis_vec(const void* e_basis, int De) {
   return De % 4 == 0 && ((uintptr_t)e_basis & 15) == 0;
 }
 
+// The register path's 16-byte (f32) or 8-byte (bf16) ek loads past
+// kRegMaxH: every row of ek is whole 4-value groups and starts on such a
+// boundary.
+int gather_vec(const void* ek, int H, int bf16) {
+  return H % 4 == 0 && ((uintptr_t)ek & (bf16 ? 7 : 15)) == 0;
+}
+
 // The tiles path's 16-byte copies and loads: every row of eq and g is
 // whole 16-byte chunks and every row of them and of ek starts on a
 // 16-byte boundary.
@@ -1705,6 +1938,25 @@ int ell_edge_act_reduce2(const void* eq, const void* ek, int bf16,
   const cudaStream_t st = (cudaStream_t)stream;
   const void* k = fwd_kernel(act, bf16, H, De);
   const size_t smem = fwd_smem(H, De);
+  if (fwd_on_reg_blocks(H, De)) {
+    // a persistent grid of row walkers, each C blocks of columns side by
+    // side (the column block the fastest index)
+    const int vec = basis_vec(e_basis, De), rvec = gather_vec(ek, H, bf16);
+    const int threads = kRegWarps * 32;
+    const int chunks = (H + kMaxChunk - 1) / kMaxChunk;
+    const int full = persistent_blocks(k, threads, smem, 1 << 30);
+    if (full <= 0) return (int)cudaErrorInvalidValue;
+    const int64_t walks = (R + kRegWarps - 1) / kRegWarps;
+    int64_t gx = full / chunks > 1 ? full / chunks : 1;
+    gx = gx < walks ? gx : walks;
+    void* args[] = {(void*)&eq,       (void*)&ek,        (void*)&e_basis,
+                    (void*)&w_e,      (void*)&slot_src,  (void*)&slot_edge,
+                    (void*)&scale,    (void*)&row_key,   (void*)&row_ptr,
+                    (void*)&R,        (void*)&H,         (void*)&De,
+                    (void*)&slope,    (void*)&vec,       (void*)&rvec,
+                    (void*)&rows,     (void*)&srows};
+    return launch(k, dim3((unsigned)(gx * chunks)), threads, smem, args, st);
+  }
   if (fwd_on_registers(H, De)) {
     const int vec = basis_vec(e_basis, De);
     const int threads = kRegWarps * 32;
@@ -1810,9 +2062,11 @@ int ell_edge_src_bwd(const void* eq, const void* g, int bf16, const void* ek,
 // tiles-path kernel holds a slot (0 when none takes either path), 12-15
 // and 16-19 the slots whose node rows are in flight (forward, backward; 1
 // on the shared and columns paths, and on the register path in the
-// backward with tanh or erf-GELU; the tiles path's batch), 20-23 and 24-27
+// backward with tanh or erf-GELU; the tiles path's batch; #7's
+// cols_inflight past kRegMaxH), 20-23 and 24-27
 // the warps a block, 28-30 and 31-33 the columns a block takes / 32 on the
-// columns and tiles paths (forward, backward; 0 on the others), 34 and 35
+// columns and tiles paths and on #7's register path past kRegMaxH (its
+// blocks of kMaxChunk columns) (forward, backward; 0 on the others), 34 and 35
 // whether the columns path keeps W_E (and #8's partials) in device memory
 // (forward, backward). -1 for a width that is not positive or an unknown
 // activation.
@@ -1825,18 +2079,22 @@ long long ell_edge_layout(int H, int De, int act, int bf16) {
   const bool bt = bp == PATH_TILES;
   const Loop fl = fwd_loop(H, De), bl = bwd_loop(H, De);
   const int db = fr || br || bt ? basis_width(De) : 0;
-  const int uf = fr ? kRegInflightFwd : 1;
+  const int uf = fwd_on_reg_blocks(H, De)
+                     ? cols_inflight(basis_width(De), bf16 ? 2 : 4)
+                 : fr ? kRegInflightFwd
+                      : 1;
   const int ub = br   ? inflight_bwd(act)
                  : bt ? (bf16 ? tile_inflight<__nv_bfloat16>()
                               : tile_inflight<float>())
                       : 1;
+  const int fchunk = fc ? fl.chunk : fwd_on_reg_blocks(H, De) ? kMaxChunk : 0;
   const int bchunk = bc ? bl.chunk : bt ? kMaxChunk : 0;
   const long long code =
       fp | (bp & 3) << 2 | feat_per_lane(H) << 4 | db << 7 | uf << 12 |
       ub << 16 | (fr ? kRegWarps : kWarps) << 20 |
       (br ? kRegWarps : kWarps) << 24;
-  return code | (long long)(fc ? fl.chunk / 32 : 0) << 28 |
-         (long long)(bchunk / 32) << 31 | (long long)fl.device() << 34 |
+  return code | (long long)(fchunk / 32) << 28 |
+         (long long)(bchunk / 32) << 31 | (long long)(fc && fl.device()) << 34 |
          (long long)(bc && bl.device()) << 35 | (long long)(bp >> 2) << 36;
 }
 

@@ -46,7 +46,7 @@
 // ell_act_reduce_bwd) and some ten flops per feature.
 //
 // The first design (where the lane-group path below cannot go: H past
-// 256 in #5 and #6 and past 512 in #1r, #3 and #4r, rows that are not
+// 256 in #6 and past 512 in #1r, #3, #4r and #5, rows that are not
 // whole 16-byte chunks, a table off 16-byte alignment, an elementwise sigma
 // but in #5, #6's g_slots in another type than ek): one warp per row, 8
 // rows per block; the lanes load 32 slot
@@ -58,8 +58,8 @@
 // sum (three in its vjp). An elementwise sigma walks the features in
 // chunks of up to 128, so any H is taken. Past H = 256 a row-wise sigma
 // the lane-group path does not take goes to the wide path: up to 512 the
-// row in registers as above (16 features a lane; #5 and #6, and #1r, #3
-// and #4r on rows that are not whole 16-byte chunks), and past 512 the
+// row in registers as above (16 features a lane; #6, and #1r, #3, #4r
+// and #5 on rows that are not whole 16-byte chunks), and past 512 the
 // features are walked in chunks of 256 (8 a lane), and for each chunk a
 // slot's statistics (the mean; the max and the sum; the vjps' second sum
 // or dot) come from passes over its whole row, lane j taking features j,
@@ -86,7 +86,8 @@
 // rows whose H *
 // sizeof(T) is a multiple of 16 (so #5's second half starts 16-byte
 // aligned too) with every table 16-byte aligned (T the gathered type), up
-// to H = 256, and in #1r, #3 and #4r (and their edge forms) up to H = 512: a
+// to H = 256, and in #1r, #3, #4r (and their edge forms) and #5 up to H =
+// 512: a
 // gathered row is C = H * sizeof(T) / 16 chunks of 16 bytes (12 at H = 96
 // in bf16, 24 in f32; 64 and 128 at 512). A group of GW lanes (a power of
 // two) holds one slot's whole row, lane j of a group chunks j, j + GW, ...,
@@ -201,8 +202,8 @@ struct Rowwise {
   static constexpr bool value = ACT == ACT_CENTERED_RELU || ACT == ACT_SOFTMAX;
 };
 
-// The lane-group path takes rows up to kRowMax, and in #1r, #3 and #4r (and
-// their edge forms) up to kRowRegMax on groups of up to 32 lanes; a
+// The lane-group path takes rows up to kRowMax, and in #1r, #3, #4r (and
+// their edge forms) and #5 up to kRowRegMax on groups of up to 32 lanes; a
 // row-wise act past what the lane-group path takes goes to the wide path of
 // the first design: the row in a warp's registers up to kRowRegMax, passes
 // over it past.
@@ -908,20 +909,19 @@ constexpr int group_max_values(int mode, bool edge) {
 }
 
 // The widest row the lane-group path takes in a mode: kRowRegMax in #1r,
-// #3 and #4r (full-warp groups, G = 1, past kRowMax; #3's two f32 key rows
-// take 64 KB of a block's dynamic shared memory at 512, set by
-// launch_group_k), kRowMax in the others (#6 also stores a g_slots row a
-// slot, #5 gathers a [N, 2H] table).
+// #3, #4r and #5 (full-warp groups, G = 1, past kRowMax; #3's two f32 key
+// rows take 64 KB of a block's dynamic shared memory at 512, set by
+// launch_group_k; #5 gathers #4r's two rows as the halves of one [N, 2H]
+// row, so its instances are #4r's, rows 2H apart), kRowMax in #6 (which
+// also stores a g_slots row a slot).
 constexpr int group_row_max(int mode) {
-  return mode == MODE_FWD || mode == MODE_SRC || mode == MODE_GEQ
-             ? kRowRegMax
-             : kRowMax;
+  return mode == MODE_EMIT ? kRowMax : kRowRegMax;
 }
 
 // The blocks an SM a lane-group kernel asks room for (__launch_bounds__):
 // kGroupMinBlocks, 16 warps under a cap of 128 registers a thread, or 1
 // (8 warps, no cap) for a full-warp shape whose two batches of gathered
-// rows take 48 registers a lane or more (#4r·e; #4r, #1r·e and #3·e with
+// rows take 48 registers a lane or more (#4r·e; #4r, #5, #1r·e and #3·e with
 // K = 3 or 4 f32 chunks): under the cap #1r's and #4r's spill 116-572
 // bytes, and at H = 512 on an H100 they ran 1.1-1.9x faster
 // uncapped, where the others tied or lost up to 1.2x. #3 with K = 4 f32
@@ -940,6 +940,18 @@ constexpr bool group_takes(int mode, int act) {
   return act == ACT_CENTERED_RELU || act == ACT_SOFTMAX ||
          (mode == MODE_FUSED && (act == ACT_LEAKY_RELU || act == ACT_TANH ||
                                  act == ACT_GELU));
+}
+
+// Whether a mode takes `act` past kRowMax, on groups of the whole warp,
+// for gathered values of `bytes` bytes: as group_takes, but #5 in f32
+// under leaky_relu or tanh keeps the first design's passes of 128 columns,
+// which ran 2.4-2.8% faster than the groups at H = 512 on an H100, where
+// in bf16 the groups won 1.11x and under erf-GELU 1.9x in both types
+// (PERF.md).
+constexpr bool group_wide_takes(int mode, int act, int bytes) {
+  return group_takes(mode, act) &&
+         !(mode == MODE_FUSED && bytes == 4 &&
+           (act == ACT_LEAKY_RELU || act == ACT_TANH));
 }
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -1386,18 +1398,20 @@ int wide_code(int H) {
 // edge form) under the act act_id, rows of H values of `bytes` bytes, with
 // the tables and outputs at ptrs (null ones unused), packed as C << 16 | GW
 // << 8 | U; 0 where the launch takes the first design: an act group_takes
-// does not take in the mode, H * bytes not a multiple of 16 (so also #5's
-// second half off 16 bytes from the first), a table off 16-byte alignment,
-// or H past group_row_max(kernel). GW is the narrowest power of two that
-// leaves a lane at most 4 chunks and group_max_values(kernel, edge) values
-// of a row: up to 16 lanes to H = 256, 32 (one slot a warp) past it, in #1r,
-// #3 and #4r only (C <= 128 chunks, K <= 4). #3's two f32 key rows then take
+// does not take in the mode (past kRowMax group_wide_takes), H * bytes not
+// a multiple of 16 (so also #5's second half off 16 bytes from the first),
+// a table off 16-byte alignment, or H past group_row_max(kernel). GW is
+// the narrowest power of two that leaves a lane at most 4 chunks and
+// group_max_values(kernel, edge) values of a row: up to 16 lanes to H =
+// 256, 32 (one slot a warp) past it, in #1r, #3, #4r and #5 only (C <= 128
+// chunks, K <= 4). #3's two f32 key rows take
 // 64 KB of a block's dynamic shared memory, which launch_group_k allows.
 int group_layout(int kernel, int act_id, int H, int bytes, bool edge,
                  const void* const* ptrs, int n) {
   if (kernel < MODE_GEQ || kernel > MODE_EMIT) return 0;
   if (!group_takes(kernel, act_id)) return 0;
   if (H <= 0 || H > group_row_max(kernel) || (H * bytes) % 16) return 0;
+  if (H > kRowMax && !group_wide_takes(kernel, act_id, bytes)) return 0;
   for (int i = 0; i < n; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15) return 0;
   const int C = H * bytes / 16, per_chunk = 16 / bytes;
@@ -1529,8 +1543,9 @@ int launch_group_t(int layout, const Args& x) {
     case 4: return launch_group_gw<ACT, T, 4, MODE, EDGE>(K, x);
     case 8: return launch_group_gw<ACT, T, 8, MODE, EDGE>(K, x);
     case 16: return launch_group_gw<ACT, T, 16, MODE, EDGE>(K, x);
-    case 32:  // one slot a warp: #1r, #3 and #4r past kRowMax
-      if constexpr (group_row_max(MODE) > kRowMax)
+    case 32:  // one slot a warp: #1r, #3, #4r and #5 past kRowMax
+      if constexpr (group_row_max(MODE) > kRowMax &&
+                    group_wide_takes(MODE, ACT, (int)sizeof(T)))
         return launch_group_gw<ACT, T, 32, MODE, EDGE>(K, x);
       break;
   }

@@ -557,9 +557,11 @@ def _src_bwd_edge(name, eq, g, ek, slot_dst, scale, row_key, row_ptr, act,
 # e_basis [E_pad, De] f32 is the edge basis in sorted-edge order and w_e
 # [De, H] f32 the projection, in the JAX layout; a slot's edge term is
 # e_basis[slot_edge[s]] @ w_e, in f32 and never rounded. The kernels take
-# every De and H: on the register path (H <= 128, De <= 16; see
-# ``EdgeLayout``) W_E and, in the backward, the warps' g_WE partials sit in
-# the lanes' registers; on the shared path in a block's shared memory; on
+# every De and H: on the register path (De <= 16, and H <= 128 in the
+# backward; see ``EdgeLayout``) W_E's columns and, in the backward, the
+# warps' g_WE partials sit in the lanes' registers (past H = 128 #7 takes
+# it on blocks of 128 columns); on the shared path in a block's shared
+# memory; on
 # the columns path (tables larger than a block's shared memory) a block
 # takes a chunk of W_E's columns, or reads W_E and keeps the partials in
 # device memory; the backward's columns-path shapes with De <= 16 take the
@@ -573,8 +575,10 @@ class EdgeLayout(NamedTuple):
     (``bwd``) for rows of width H and a basis of width De: each kernel's
     path, "registers" (W_E and #8's g_WE partial in the lanes' registers,
     the slots' basis rows copied into shared memory by cp.async, several
-    slots' node rows in flight), "shared" (the first design: W_E and the
-    partials in shared memory), "columns" (the first design on chunks of
+    slots' node rows in flight; #7 past H = 128 on blocks of 128 columns,
+    its ``fwd_chunk``, a lane 4 of them), "shared" (the first design: W_E
+    and the partials in shared memory), "columns" (the first design on
+    chunks of
     columns, for tables larger than a block's shared memory) or, #8 only,
     "tiles" (the columns path's shapes with De <= 16: a block takes 128
     columns, a lane 4 of them and their W_E columns in registers, each
@@ -587,8 +591,8 @@ class EdgeLayout(NamedTuple):
     flight in each kernel (on the register path in the backward one with
     tanh, two with leaky_relu; on the tiles path a batch, 8 slots in bf16,
     4 in f32); each kernel's warps a block; on the columns and tiles paths
-    each kernel's chunk (the columns a block takes, 0 on the other paths)
-    and whether it keeps W_E
+    and #7's register path past H = 128 each kernel's chunk (the columns
+    a block takes, 0 on the other paths) and whether it keeps W_E
     (and #8 its partials) in device memory, where not even 32 columns'
     tables fit in shared memory."""
 
@@ -613,15 +617,18 @@ def decode_edge_layout(code: int) -> Optional[EdgeLayout]:
     a lane, 7-11 the basis width held, 12-15 and 16-19 the slots in
     flight, 20-23 and 24-27 the warps a block, 28-30 and 31-33 the chunks
     / 32, 34 and 35 the tables in device memory); None for -1, arguments
-    the library refuses."""
+    the library refuses. A chunk is required on the columns and tiles
+    paths, allowed on the register path (#7's blocks of columns) and
+    refused on the shared path."""
     if code < 0:
         return None
     paths = code & 3, (code >> 2 & 3) | (code >> 36 & 1) << 2
     chunks = 32 * (code >> 28 & 7), 32 * (code >> 31 & 7)
     if (any(p not in _EDGE_PATHS for p in paths)
-            or any((p in (3, 4)) != (c > 0) for p, c in zip(paths, chunks))):
+            or any(c == 0 if p in (3, 4) else c > 0 and p != 2
+                   for p, c in zip(paths, chunks))):
         raise ValueError(f"layout code {code:#x} names no path, or a chunk "
-                         f"off the columns and tiles paths")
+                         f"off the columns, tiles and register paths")
     fwd, bwd = (_EDGE_PATHS[p] for p in paths)
     return EdgeLayout(fwd, bwd, code >> 4 & 7, code >> 7 & 0x1F,
                       code >> 12 & 0xF, code >> 16 & 0xF, code >> 20 & 0xF,
@@ -716,7 +723,9 @@ def ell_edge_act_reduce2(eq, ek, e_basis, w_e, slot_src, slot_edge, scale,
 
     Replaces ``bucket_edge_act_reduce2`` (sir_gcn_tpu/ops/pallas/
     kernels.py), one launch for all buckets; ``ell_edge_layout`` tells its
-    path (W_E past a block's shared memory: the columns path). Bound:
+    path (De <= 16: W_E's columns in registers, past H = 128 on blocks of
+    128 columns; else the shared-memory loop, or past a block's shared
+    memory its columns path). Bound:
     operations at the arxiv width, 2 De + 9 flops per valid slot and
     feature."""
     device = _check_fwd("ell_edge_act_reduce2", eq, ek, slot_src, scale,
@@ -1187,8 +1196,8 @@ def ell_scaled_reduce(values, slot_idx, scale, row_ptr):
 # cotangent, the arithmetic of #4. #1r, #3 and #4r, and their edge-term
 # forms (``*_edge``), take a lane-group path for a row-wise sigma, #5 for
 # any sigma, #6 for a row-wise sigma where its g_slots has ek's type
-# (``ell_general_layout``): up to H = 256, and #1r and #4r (and their edge
-# forms) up to H = 512 on groups of the whole warp.
+# (``ell_general_layout``): up to H = 256, and #1r, #3, #4r (and their
+# edge forms) and #5 up to H = 512 on groups of the whole warp.
 
 # the kernels of csrc/ell_general_kernels.cu with a lane-group path, by the
 # id ell_general_layout takes (the source's MODE), and the edge forms' by
@@ -1199,9 +1208,9 @@ _GENERAL_LAYOUT_KERNEL = {"ell_geq_reduce": 0, "ell_src_bwd_rowwise": 1,
 _GENERAL_EDGE_LAYOUT_KERNEL = {"ell_geq_reduce_edge": 0,
                                "ell_src_bwd_rowwise_edge": 1,
                                "ell_act_reduce_rowwise_edge": 2}
-# the row width past which a row-wise sigma takes the wide path in #3, #5
-# and #6 (in #1r and #4r past 512, or past 256 where the lane-group path
-# does not go)
+# the row width past which a row-wise sigma takes the wide path in #6 (in
+# #1r, #3, #4r and #5 past 512, or past 256 where the lane-group path does
+# not go)
 ROW_MAX = 256
 
 
@@ -1215,8 +1224,8 @@ class GeneralLayout(NamedTuple):
     chunks a lane; a warp's ``groups`` groups each work on their own slot,
     ``inflight`` slots a group to a batch of gathers, the next batch in
     flight while one is worked. Up to H = ``ROW_MAX`` groups of 1 to 16
-    lanes; #1r and #4r (and their edge forms) take H up to 512 on groups
-    of 32 lanes, one slot a warp: at 512
+    lanes; #1r, #3, #4r (and their edge forms) and #5 take H up to 512 on
+    groups of 32 lanes, one slot a warp: at 512
     ``GeneralLayout(64, 32, 1, 2, 1)`` in bf16 and ``(128, 32, 1, 4, 1)``
     in f32."""
 
@@ -1229,9 +1238,9 @@ class GeneralLayout(NamedTuple):
 
 class WideLayout(NamedTuple):
     """The wide path of the first design, for a row-wise sigma past H =
-    ``ROW_MAX`` where the lane-group path does not go (#3, #5 and #6; #1r
-    and #4r past 512 or on rows that are not whole 16-byte chunks or
-    tables off 16-byte alignment), one warp a row,
+    ``ROW_MAX`` where the lane-group path does not go (#6; #1r, #3, #4r
+    and #5 past 512 or on rows that are not whole 16-byte chunks or tables
+    off 16-byte alignment), one warp a row,
     ``features_per_lane`` features of a slot's
     row in each lane's registers at once: up to H = 512 the whole row (16 a
     lane, ``chunks`` 1); past it 8 a lane, the features walked in
@@ -1273,7 +1282,7 @@ def ell_general_layout(name: str, h: int, dtype, act, *tensors, lib=None):
     wrapper takes and returns them; for ``ell_src_bwd_fused`` the [N, 2H]
     table first; for an edge form at most six, its e and g_e among them): a
     ``GeneralLayout`` for the lane-group path (up to H = ``ROW_MAX``, in
-    #1r and #4r and their edge forms up to 512), a
+    #1r, #3, #4r, their edge forms and #5 up to 512), a
     ``WideLayout`` for the wide path (a row-wise sigma past H = ``ROW_MAX``
     that the lane-group path does not take: the row in registers, or past
     H = 512 passes over it), None for the first design
@@ -1508,8 +1517,12 @@ def ell_src_bwd_fused(both, ek, slot_dst, scale, row_key, row_ptr, act):
 
     Replaces ``bucket_src_bwd_fused`` (sir_gcn_tpu/ops/pallas/kernels.py),
     the backward under ``fuse_bwd_take=True``; the JAX kernel's H % 128 == 0
-    is a TPU lane layout and is not asked here. Bound: bytes, the table's
-    rows in, one f32 [R, H] out."""
+    is a TPU lane layout and is not asked here. Up to H = 512 on whole,
+    aligned 16-byte chunks it runs #4r's lane-group kernel on the two
+    halves (the same bits as ``ell_src_bwd_rowwise`` on eq and g where
+    that takes the same layout), but past 256 in f32 leaky_relu and tanh
+    take the first design (``ell_general_layout``). Bound: bytes, the
+    table's rows in, one f32 [R, H] out."""
     device = ek.device
     _check("ek", ek, _F32, 2, device)
     _check("both", both, _EDGE, 2, device)

@@ -66,13 +66,17 @@ build's bits.
 The edge mode (``--edge``, ``csrc/ell_edge_kernels.cu``) runs #7
 ``ell_edge_act_reduce2`` and #8 ``ell_edge_src_bwd`` from both libraries
 at the ogbn-arxiv plan, H = 96, De = 16 (or ``--hidden H --de De``, e.g.
-``--hidden 512`` for the columns path), with bf16 and with f32 edges,
-leaky_relu(0.2), tanh and erf-GELU, the basis and W_E from seed 0 made
-on the card (as chip_smoke.py's ``edge_tables``): ms per launch over 20
-warm launches in eight turns (other, this, this, other, ...), the median
-and the spread of each; the largest difference of rows, srows, the g_ek rows and g_WE
-between the two libraries, and whether each is bitwise equal; and the
-paths this library's ``ell_edge_layout`` reports.
+``--hidden 512`` for #7's register path on blocks of columns and #8's
+tiles path), with bf16 and with f32 edges, leaky_relu(0.2), tanh and
+erf-GELU, the basis and W_E from seed 0 made on the card (as
+chip_smoke.py's ``edge_tables``): ms per launch over 20 warm launches in
+eight turns (other, this, this, other, ...), the median and the spread of
+each, and where one gathered node table holds more than twice the L2 (as
+at H = 512) each kernel's no-L2-reuse estimate; the largest difference of
+rows, srows, the g_ek rows and g_WE between the two libraries, and
+whether each is bitwise equal; the paths this library's
+``ell_edge_layout`` reports; and this build's registers and spills of
+the tiles and blocks-of-columns kernels.
 
 The general mode (``--general``, ``csrc/ell_general_kernels.cu``) runs
 #1r ``ell_act_reduce_rowwise``, #3 ``ell_geq_reduce``, #4r
@@ -82,21 +86,23 @@ sigma the edge forms #1r·e, #3·e and #4r·e, from both libraries at the
 ogbn-arxiv plan, H = 96 (or ``--hidden H``, e.g. 512), with the gathered
 tables in bf16 and in f32, the node and edge tables and the cotangent
 from seed 0 made on the card, for centered_relu(0.5), softmax,
-leaky_relu(0.2) and tanh. The kernels of ``GENERAL_AB`` (all eight for a
-row-wise sigma, #5 for an elementwise one) are timed: ms per launch over
-20 warm launches in eight turns (other, this, this, other, ...), the
-median and the spread of each, and where one gathered node table holds
-more than twice the L2 (as at H = 512) each kernel's no-L2-reuse
-estimate (each valid slot's gathered rows, its key rows, its outputs and
-its slot arrays once at 3.35 TB/s; not a floor: what the L2 still holds
-costs less). Every output is held to the other library's as
+leaky_relu(0.2), tanh and erf-GELU. The kernels of ``GENERAL_AB`` (all
+eight for a row-wise sigma, #5 for an elementwise one) are timed: ms per
+launch over 20 warm launches in eight turns (other, this, this, other,
+...), the median and the spread of each, and where one gathered node
+table holds more than twice the L2 (as at H = 512) each kernel's
+no-L2-reuse estimate (each valid slot's gathered rows, its key rows, its
+outputs and its slot arrays once at 3.35 TB/s; not a floor: what the L2
+still holds costs less). Every output is held to the other library's as
 ``GENERAL_HELD`` says: to its bits where the two libraries'
 ``ell_general_layout`` report the same path for the kernel, else within
 a tolerance, with how many entries lie beyond it (centered_relu's gate
 may take the other side of the relu where the two sum a row's mean in
-another order); and where #3 and #6 take the lane-group path, #6's rows
-to #3's bits. Both libraries' layouts are printed for each kernel. Needs
-a CUDA card.
+another order: #3's, #4r's and #5's rows with a near gate are left out
+and counted, ``GATE_ROWS``); and where #3 and #6 take the lane-group path,
+#6's rows to #3's bits. Both libraries' layouts are printed for each
+kernel, and both builds' registers and spills of the entries past H =
+256 (``WIDE_ENTRIES``). Needs a CUDA card.
 
 The lab mode runs #23 ``lab_gather`` from gather_dma's 43.5 MB table and
 from one of ``gather_dma.BIG_N`` rows (174 MB, beyond the L2), with
@@ -193,23 +199,27 @@ GENERAL_HELD = {"rows": ("#1r", FWD_TOL), "rows_e": ("#1r·e", FWD_TOL),
 # (``checks.near_gate``: the two builds sum a slot's mean in another order)
 # are left out of the tolerance and counted: (row mask, the edge form's)
 GATE_ROWS = {"out": ("rows", False), "out_e": ("rows", True),
-             "g_e": ("edges", True), "geq": ("dst_rows", False),
-             "geq_e": ("dst_rows", True)}
-# the entries #1r, #3 and #4r take past H = 256 for a row-wise sigma (ids
-# 2, 3): the first design's register form (NF = 16, rows to 512; #3's
-# without EMIT) and the lane groups of the whole warp (GW = 32; MODE 0 #3,
-# 1 #4r, 2 #1r; EDGE); ``wide_build_report`` raises where a build's report
-# names none of them
+             "fused": ("rows", False), "g_e": ("edges", True),
+             "geq": ("dst_rows", False), "geq_e": ("dst_rows", True)}
+# the entries #1r, #3, #4r and #5 take past H = 256 for a row-wise sigma
+# (ids 2, 3): the first design's register form (NF = 16, rows to 512; #3's
+# without EMIT; #4r's and #5's) and the lane groups of the whole warp (GW =
+# 32; MODE 0 #3, 1 #4r, 2 #1r, 3 #5, #5's also for an elementwise sigma;
+# EDGE); ``wide_build_report`` raises where a build's report names none of
+# them
 WIDE_ENTRIES = re.compile(
     r"(?P<first>act_reduce_rw_kernelILi[23]ELi16ELb0E(?:13__nv_bfloat16|f)E"
-    r"|src_bwd_rw_kernelILi[23]ELi16ELb0E(?:13__nv_bfloat16|f)Lb0E"
+    r"|src_bwd_rw_kernelILi[23]ELi16ELb0E(?:13__nv_bfloat16|f)Lb[01]E"
     r"|geq_kernelILi[23]ELi16ELb0E(?:13__nv_bfloat16|f)fLb0E)"
-    r"|(?P<group>group_kernelILi[23]E(?:13__nv_bfloat16|f)Li32ELi\dELi(?P<mode>"
-    r"[012])ELb[01]E)")
+    r"|(?P<group>group_kernelILi\dE(?:13__nv_bfloat16|f)Li32ELi\dE"
+    r"Li(?P<mode>[0123])ELb[01]E)")
 # the tiles path's entries of csrc/ell_edge_kernels.cu (#8 past a block's
 # shared memory with De <= 16)
 TILES_ENTRIES = re.compile(r"edge_src_bwd_tiles_kernelILi\dELi\d+ELb[01]E"
                            r"(?:13__nv_bfloat16|f)E")
+# #7's register path past H = 128 (blocks of 128 columns, De <= 16)
+COLS_ENTRIES = re.compile(r"edge_act_reduce_cols_kernelILi\dELi\d+E"
+                          r"(?:13__nv_bfloat16|f)E")
 # the node rows each kernel gathers a valid slot (and for #3 and #6 the
 # f32 key rows a row, two), for its no-L2-reuse estimate
 GENERAL_ROWS = {"#1r": 1, "#1r·e": 2, "#3": 1, "#3·e": 2, "#4r": 2,
@@ -707,22 +717,27 @@ def edge_launches(lib, inp: dict, eb, we, act, dtype) -> tuple:
     return dict(fwd=fwd, bwd=bwd), outs
 
 
-def edge_no_reuse_estimate(inp: dict, de: int, dtype) -> tuple:
-    """(ms, GB) of #8's no-L2-reuse estimate at 3.35 TB/s: each valid src
-    slot (scale not 0) reads its eq and g rows (``dtype``) and its f32
-    basis row from device memory, each row its f32 ek row and writes its
-    f32 output row, every slot's index, edge id and scale and each row's
-    range and key are read once. Not a floor: a row the L2 still holds
-    costs less; printed where one gathered table holds more than twice the
-    L2 (``L2_BYTES``)."""
+def edge_no_reuse_estimate(inp: dict, de: int, dtype,
+                           side: str = "bwd") -> tuple:
+    """(ms, GB) of #8's (``side`` "bwd") or #7's ("fwd") no-L2-reuse
+    estimate at 3.35 TB/s: each valid slot (scale not 0) reads its gathered
+    rows (``dtype``; #8 eq and g, #7 ek) and its f32 basis row from device
+    memory, each row its f32 key row (#8 ek, #7 eq) and writes its f32
+    output rows (#8 one, #7 rows and srows), every slot's index, edge id
+    and scale and each row's range and key are read once. Not a floor: a
+    row the L2 still holds costs less; printed where one gathered table
+    holds more than twice the L2 (``L2_BYTES``)."""
     fg = inp["fg"]
-    splan = fg.src_plan
+    bwd = side == "bwd"
+    plan = fg.src_plan if bwd else fg.dst_plan
+    sc = (fg.src_slot_scales if bwd else fg.dst_slot_scales)["sym"]
     h = inp["eq"].shape[1]
-    valid = int((fg.src_slot_scales["sym"] != 0).sum())
-    rows, row = splan.row_key.numel(), h * torch.tensor(
+    valid = int((sc != 0).sum())
+    rows, row = plan.row_key.numel(), h * torch.tensor(
         [], dtype=dtype).element_size()
-    nbytes = (valid * (2 * row + 4 * de) + rows * h * 4 * 2
-              + splan.num_slots * 12 + rows * 8)
+    gathered, outs = (2, 1) if bwd else (1, 2)
+    nbytes = (valid * (gathered * row + 4 * de) + rows * h * 4 * (1 + outs)
+              + plan.num_slots * 12 + rows * 8)
     return nbytes / 3.35e12 * 1e3, nbytes / 1e9
 
 
@@ -733,9 +748,10 @@ def run_edge(device, other: Path, h: int = H, de: int = EDGE_DE) -> dict:
             "this": _library("ell_edge_kernels")}
     for fn, regs, spill in build.ptxas_entries(
             build.build_log("ell_edge_kernels")):
-        if TILES_ENTRIES.search(fn):
-            print(f"build this: {TILES_ENTRIES.search(fn).group(0)}: {regs} "
-                  f"registers, {spill} B spill stores", flush=True)
+        k = TILES_ENTRIES.search(fn) or COLS_ENTRIES.search(fn)
+        if k:
+            print(f"build this: {k.group(0)}: {regs} registers, {spill} B "
+                  f"spill stores", flush=True)
     inp = arxiv_inputs(device, h)
     gen = torch.Generator(device=device).manual_seed(0)
     eb = torch.randn((inp["fg"].e_pad, de), generator=gen, device=device)
@@ -772,9 +788,9 @@ def run_edge(device, other: Path, h: int = H, de: int = EDGE_DE) -> dict:
                 this = statistics.median(ms["this"])
                 gain = statistics.median(ms["other"]) / this
                 est, note = None, ""
-                if key == "bwd" and inp["eq"].shape[0] * h * torch.tensor(
+                if inp["eq"].shape[0] * h * torch.tensor(
                         [], dtype=dtype).element_size() > 2 * L2_BYTES:
-                    est, gb = edge_no_reuse_estimate(inp, de, dtype)
+                    est, gb = edge_no_reuse_estimate(inp, de, dtype, key)
                     note = (f"; no-L2-reuse estimate {est:.4f} ms ({gb:.3f} "
                             f"GB), this at {100 * est / this:.1f}% of it")
                 print(f"{label} ({act.name}, {dt}): {line}, this/other "
@@ -997,7 +1013,8 @@ def run_general(device, other: Path, h: int = H) -> dict:
     recs, faults = {}, []
     for dtype in (torch.bfloat16, torch.float32):
         dt = "bf16" if dtype == torch.bfloat16 else "f32"
-        for act in (centered_relu(0.5), softmax, leaky_relu(0.2), tanh):
+        for act in (centered_relu(0.5), softmax, leaky_relu(0.2), tanh,
+                    gelu()):
             timed = GENERAL_AB["elementwise" if act.diagonal else "rowwise"]
             runs = {k: general_launches(lib, inp, act, dtype)
                     for k, lib in libs.items()}

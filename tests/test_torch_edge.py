@@ -633,6 +633,28 @@ def test_edge_layout_decodes_the_tiles_path():
         decode_edge_layout(tiles & ~(7 << 31))
 
 
+def test_edge_layout_decodes_register_blocks():
+    """#7 past H = 128 with De <= 16 stays on the register path, on blocks
+    of 128 columns (its chunk, bits 28-30): at H = 512, De = 16 in bf16 the
+    forward on registers (16 basis values, 2 slots in flight, 4 warps a
+    block, chunk 128) beside #8 on tiles; at H = 1000, De = 8 in f32 8
+    basis values a slot and 4 slots a batch of #8. The register path
+    without a chunk is the whole row (H <= 128); the shared path with a
+    chunk is refused."""
+    wide = 2 | 4 << 4 | 16 << 7 | 2 << 12 | 8 << 16 | 4 << 20 | 8 << 24 \
+        | 4 << 28 | 4 << 31 | 1 << 36
+    assert decode_edge_layout(wide) == EdgeLayout(
+        "registers", "tiles", 4, 16, 2, 8, 4, 8, 128, 128, False, False)
+    f32 = 2 | 4 << 4 | 8 << 7 | 4 << 12 | 4 << 16 | 4 << 20 | 8 << 24 \
+        | 4 << 28 | 4 << 31 | 1 << 36
+    lay = decode_edge_layout(f32)
+    assert (lay.fwd, lay.fwd_chunk, lay.basis_width, lay.bwd_inflight) == (
+        "registers", 128, 8, 4)
+    assert decode_edge_layout(wide & ~(7 << 28)).fwd_chunk == 0
+    with pytest.raises(ValueError, match="chunk"):
+        decode_edge_layout(wide & ~3 | 1)  # the shared path with a chunk
+
+
 def test_ell_ab_edge_needs_a_card(tmp_path):
     """The A/B tool's edge mode (two ell_edge_kernels.cu builds) runs on
     the card only, and --probes is not one of its options."""
@@ -784,17 +806,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# the paths #7 and #8 take (csrc/ell_edge_kernels.cu): registers for H <=
-# 128 and De <= 16, in the backward only while ceil(H / 32) features a lane
-# times the basis width held (De padded to 8 or 16) stay <= 48
+# the paths #7 and #8 take (csrc/ell_edge_kernels.cu): registers for De <=
+# 16, in #7 at any H (past 128 on blocks of 128 columns), in the backward
+# only for H <= 128 and while ceil(H / 32) features a lane times the basis
+# width held (De padded to 8 or 16) stay <= 48
 EDGE_PATHS = {(24, 5): ("registers", "registers"),
               (20, 5): ("registers", "registers"),
               (40, 12): ("registers", "registers"),
               (96, 16): ("registers", "registers"),
               (128, 8): ("registers", "registers"),
               (128, 16): ("registers", "shared"),
-              (200, 5): ("shared", "shared"),
-              (200, 16): ("shared", "shared")}
+              (200, 5): ("registers", "shared"),
+              (200, 16): ("registers", "shared")}
 
 
 def fused_args(fg, eq, ek, g, eb, we, sd, ss, act, dtype):

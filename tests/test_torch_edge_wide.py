@@ -25,11 +25,12 @@ Tolerances are the JAX suite's: forward atol 2e-4 / rtol 1e-4, gradients
 atol 3e-4 / rtol 1e-3; g_WE, a sum over every slot, at atol 3e-4 plus
 1e-5 of its largest entry. JAX is imported inside the tests.
 
-The ``cuda`` tests hold the columns path against the plain versions on
-awkward plans (a part-full last row tile, zero-scale slots, budgets off
-multiples of 8, a basis off 16-byte alignment, bf16), ask two launches for
-the same bits, and check that the layout names the columns path exactly
-where the shared-memory path ends; they skip where there is no card
+The ``cuda`` tests hold the columns path, #8's tiles path and #7's
+register path on blocks of 128 columns (De <= 16 past H = 128) against the
+plain versions on awkward plans (a part-full last row tile, zero-scale
+slots, budgets off multiples of 8, a basis off 16-byte alignment, bf16),
+ask two launches for the same bits, and check that the layout names each
+path exactly where it is taken; they skip where there is no card
 (``pytest -m cuda --noconftest tests/test_torch_edge_wide.py``).
 """
 
@@ -73,6 +74,13 @@ ACTS = {"leaky_relu": tell.leaky_relu(0.2), "tanh": tell.tanh,
 # a block's dynamic shared memory on an H100 (csrc/ell_edge_kernels.cu's
 # kMaxSmem), the warps of the shared-memory loop, and the widest chunk
 SMEM, WARPS, CHUNK = 232448 - 1024, 8, 128
+
+
+def fwd_inflight(h: int, de: int, dt) -> int:
+    """The slots #7 keeps in flight on the register path: two on its
+    blocks of columns (H > 128) with 16 basis values a slot (De > 8) in
+    bf16, else four."""
+    return 2 if h > 128 and de > 8 and dt == torch.bfloat16 else 4
 
 
 def jax_act(act: str):
@@ -301,9 +309,11 @@ def shared_paths(h: int, de: int) -> tuple:
 
 def wide_paths(h: int, de: int) -> tuple:
     """The paths the entries take: ``shared_paths`` where those ran, else
-    the columns path, but #8 with De <= 16 the tiles path."""
+    the columns path, but #8 with De <= 16 the tiles path, and #7 with De
+    <= 16 the register path at any H (past 128 on blocks of 128
+    columns)."""
     fwd, bwd = shared_paths(h, de)
-    return (fwd or "columns",
+    return ("registers" if de <= 16 else fwd or "columns",
             bwd or ("tiles" if de <= 16 else "columns"))
 
 
@@ -390,10 +400,10 @@ def test_columns_path_matches_plain_on_card(cuda_device, h, de, dt):
     (40, 2000, "bf16", "gelu")])
 def test_columns_path_is_bitwise_repeatable_on_card(cuda_device, h, de, dt,
                                                     act):
-    """Two launches of #7 and #8 on the columns path give bitwise equal
-    rows, srows, g_ek rows and g_WE, with the partials in shared memory
-    (512, 16) and in device memory (the others): each sum's order is fixed
-    by the grid, with no atomics. A graph of 4,000 nodes and 40,000 edges
+    """Two launches of #7 and #8 past a block's shared memory give bitwise
+    equal rows, srows, g_ek rows and g_WE, with #8's partials in shared
+    memory (512, 16) and in device memory (the others): each sum's order
+    is fixed by the grid, with no atomics. A graph of 4,000 nodes and 40,000 edges
     fills many blocks."""
     rng = np.random.default_rng(7)
     n, e, d = 4000, 40000, cuda_device
@@ -423,7 +433,9 @@ def test_layout_takes_columns_where_shared_memory_ends_on_card(cuda_device,
     register and shared paths exactly where they were chosen before, the
     columns path exactly where the kernels raised, with its chunk, but #8
     with De <= 16 on the tiles path (chunks of 128 columns, its basis
-    padded to 8 or 16, 8 slots a batch in bf16 and 4 in f32)."""
+    padded to 8 or 16, 8 slots a batch in bf16 and 4 in f32) and #7 with
+    De <= 16 on the register path at every H (past 128 on blocks of 128
+    columns, 4 warps a block, ``fwd_inflight`` slots in flight)."""
     del cuda_device
     for dt in DTYPES.values():
         for h in (1, 20, 96, 128, 129, 200, 256, 512, 1000, 4096):
@@ -441,6 +453,12 @@ def test_layout_takes_columns_where_shared_memory_ends_on_card(cuda_device,
                         assert lay.basis_width == (8 if de <= 8 else 16)
                         assert lay.bwd_inflight == (
                             8 if dt == torch.bfloat16 else 4), lay
+                    elif side == "fwd" and lay.fwd == "registers":
+                        want = CHUNK if h > 128 else 0
+                        assert (chunk, device) == (want, False), lay
+                        assert lay.basis_width == (8 if de <= 8 else 16)
+                        assert (lay.fwd_inflight, lay.fwd_warps) == (
+                            fwd_inflight(h, de, dt), 4), lay
                     else:
                         assert (chunk, device) == (0, False), (h, de, lay)
 
@@ -501,3 +519,116 @@ def test_tiles_path_matches_plain_on_card(cuda_device, h, de, dt):
                 assert torch.equal(a, b)
             lay = ell_edge_layout(h, de, act, DTYPES[dt])
             assert lay.bwd == "tiles" and lay.bwd_chunk == CHUNK, lay
+
+
+# #7 on the register path past H = 128 (De <= 16), (H, De): four blocks of
+# 128 columns (512, 16); a last block of 8 columns (520, 16); three blocks,
+# the last of 8 columns (264, 16); De padded to 8 (1000, 8); an odd De,
+# whose basis rows are copied 4 bytes at a time, and a last block of 92
+# columns (1500, 5); H not a multiple of 4, whose ek rows take single-value
+# loads, and a last block of 90 columns (602, 12)
+REG_BLOCK_SHAPES = [(512, 16), (520, 16), (264, 16), (1000, 8), (1500, 5),
+                    (602, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("h,de", REG_BLOCK_SHAPES)
+def test_register_blocks_match_plain_on_card(cuda_device, h, de, dt):
+    """#7 on the register path's blocks of 128 columns against its plain
+    version on the awkward plans (a part-full last row tile, rows of
+    several 32-slot chunks, budgets off multiples of 8), with a fifth of
+    the scales zeroed and a multi-slot row with no valid slot, all three
+    sigmas, the basis 4 bytes past a 16-byte boundary, and at 512 eq and ek
+    one value past theirs (ek's single-value loads): rows and srows at
+    FWD_TOL, the all-zero row's 0; the layout
+    names the register path with its chunk of 128 columns."""
+    d = cuda_device
+    fg = awkward_graph(d)
+    rng = np.random.default_rng(h + de)
+    plan = fg.dst_plan
+    eq, ek, g = (_t(rng.normal(size=(fg.n_pad, h)), device=d)
+                 for _ in range(3))
+    eb = torch.empty(fg.e_pad * de + 1, device=d)[1:].view(fg.e_pad, de)
+    eb.copy_(_t(rng.normal(size=(fg.e_pad, de)), device=d))
+    we = _t(rng.normal(size=(de, h)) * de ** -0.5, device=d)
+    sd = fg.dst_slot_scales["sym"] * _t(
+        rng.random(plan.num_slots) > 0.2, device=d)
+    ptr = plan.row_ptr.cpu().numpy()
+    r = int(np.argmax(np.diff(ptr) >= 8))  # a row of 8 or more slots
+    sd[int(ptr[r]):int(ptr[r + 1])] = 0.0
+    for act in ACTS.values():
+        fwd, _ = fused_args(fg, eq, ek, g, eb, we, sd,
+                            fg.src_slot_scales["sym"], act, DTYPES[dt])
+        cases = [fwd]
+        if h == 512:  # eq and ek one value past their aligned starts
+            cases.append(tuple(
+                torch.empty(t.numel() + 1, dtype=t.dtype,
+                            device=d)[1:].view(t.shape).copy_(t)
+                for t in fwd[:2]) + fwd[2:])
+        for fwd in cases:
+            reset_launch_counts()
+            got = ell_edge_act_reduce2(*fwd)
+            torch.cuda.synchronize()
+            assert LAUNCHES["ell_edge_act_reduce2"] == 1
+            want = ell_edge_act_reduce2_plain(*fwd)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, **FWD_TOL)
+            assert not got[0][r].any() and not got[1][r].any()
+            lay = ell_edge_layout(h, de, act, DTYPES[dt])
+            assert (lay.fwd, lay.fwd_chunk) == ("registers", CHUNK), lay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,de,dt,act", [
+    (512, 16, "bf16", "leaky_relu"), (1000, 8, "f32", "tanh"),
+    (602, 12, "bf16", "gelu")])
+def test_register_blocks_are_bitwise_repeatable_on_card(cuda_device, h, de,
+                                                        dt, act):
+    """Two launches of #7 on the register path's blocks of columns give
+    bitwise equal rows and srows on a graph of 4,000 nodes and 40,000
+    edges (rows of up to 64 slots): each feature's sums run in slot order
+    in one lane, with no atomics."""
+    rng = np.random.default_rng(11)
+    n, e, d = 4000, 40000, cuda_device
+    fg = tell.build_fast_graph(
+        build_graph(rng.integers(0, n, e), rng.integers(0, n, e), n,
+                    device=d), max_budget=64)
+    eq, ek, g = (_t(rng.normal(size=(fg.n_pad, h)), device=d)
+                 for _ in range(3))
+    eb = _t(rng.normal(size=(fg.e_pad, de)), device=d)
+    we = _t(rng.normal(size=(de, h)) * de ** -0.5, device=d)
+    fwd, _ = fused_args(fg, eq, ek, g, eb, we, fg.dst_slot_scales["sym"],
+                        fg.src_slot_scales["sym"], ACTS[act], DTYPES[dt])
+    first, second = ell_edge_act_reduce2(*fwd), ell_edge_act_reduce2(*fwd)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert ell_edge_layout(h, de, ACTS[act], DTYPES[dt]).fwd == "registers"
+
+
+@pytest.mark.cuda
+def test_layout_puts_forward_on_register_blocks_on_card(cuda_device):
+    """#7's path by (H, De) on both sides of each limit: the register path
+    for De <= 16 at any H, whole rows up to H = 128 (chunk 0) and blocks of
+    128 columns past it; the shared-memory loop from De = 17 while W_E
+    fits, then its columns path. The basis held is De padded to 8 or 16,
+    4 warps a block on the register path, 4 slots in flight (2 on the
+    blocks of columns with 16 basis values in bf16)."""
+    del cuda_device
+    for dt in DTYPES.values():
+        for act in ACTS.values():
+            for h in (96, 128, 129, 200, 264, 512, 520, 602, 1500, 3616,
+                      3617, 8192):
+                for de in (1, 5, 8, 9, 16, 17):
+                    lay = ell_edge_layout(h, de, act, dt)
+                    if de > 16:
+                        assert lay.fwd == ("shared" if 4 * de * h <= SMEM
+                                           else "columns"), (h, de, lay)
+                        continue
+                    assert lay.fwd == "registers", (h, de, lay)
+                    assert lay.fwd_chunk == (CHUNK if h > 128 else 0), lay
+                    assert not lay.fwd_device, lay
+                    assert lay.basis_width == (8 if de <= 8 else 16), lay
+                    assert (lay.fwd_inflight, lay.fwd_warps) == (
+                        fwd_inflight(h, de, dt), 4), lay

@@ -32,7 +32,8 @@ The ``cuda`` tests compare each kernel with its plain version on the card,
 on the path its entry chooses (``GENERAL_PATHS``), on awkward plans, with
 leaky_relu besides (#5's lane-group path for an elementwise sigma), ask
 two launches of #1r, #3, #4r, #5 and #6 for the same
-bits, and #6's rows for #3's bits; they skip where there is no card. JAX
+bits, #6's rows for #3's bits and #5's for #4r's (past H = 256 on groups
+of the whole warp too); they skip where there is no card. JAX
 is imported inside the tests that use it (``pytest -m cuda --noconftest
 tests/test_torch_general.py`` on the card).
 """
@@ -703,6 +704,43 @@ def test_general_layout_asks_the_given_library(monkeypatch):
     assert len(other.asked) == 2
 
 
+def test_fused_layout_at_512_python_side(monkeypatch):
+    """#5 (``ell_src_bwd_fused``, the source's MODE_FUSED = 3) at H = 512:
+    the query passes its [N, 2H] table, ek and out by that id, for a
+    row-wise and an elementwise sigma, and the codes the source gives it
+    there (#4r's groups of the whole warp, one slot a warp; 0, the first
+    design, for leaky_relu and tanh in f32) decode to GeneralLayout(64,
+    32, 1, 2, 1) in bf16 and (128, 32, 1, 4, 1) in f32, or None; past 512
+    a row-wise sigma's code decodes to the wide path's passes."""
+    asked = []
+    first_design = {tell.leaky_relu(0.2).kernel_id, tell.tanh.kernel_id}
+
+    class Library:
+        def ell_general_layout(self, *args):
+            asked.append(args)
+            if not args[2] and args[3] in first_design:
+                return 0
+            return (512 * (2 if args[2] else 4) // 16) << 16 | 32 << 8 | 1
+
+    monkeypatch.setattr(tkernels, "_library", lambda name: Library())
+    for dt, want in ((torch.bfloat16, GeneralLayout(64, 32, 1, 2, 1)),
+                     (torch.float32, GeneralLayout(128, 32, 1, 4, 1))):
+        both = torch.zeros((4, 1024), dtype=dt)
+        ek, out = torch.zeros((4, 512)), torch.zeros((4, 512))
+        for act in (ACTS["centered_relu"], ACTS["softmax"],
+                    CARD_ACTS["leaky_relu"], tell.tanh, tell.gelu()):
+            first = dt == torch.float32 and act.kernel_id in first_design
+            assert ell_general_layout("ell_src_bwd_fused", 512, dt, act,
+                                      both, ek, out) == (
+                                          None if first else want)
+            call = asked[-1]
+            assert call[:4] == (3, 512, int(dt == torch.bfloat16),
+                                act.kernel_id)
+            assert call[4:] == tuple(t.data_ptr() for t in (both, ek, out)) \
+                + (None, None)
+    assert len(asked) == 10
+    assert decode_general_layout(1 << 30 | 8 << 16 | 3) == WideLayout(8, 3)
+
 def test_ell_ab_general_takes_hidden(tmp_path):
     """``--hidden`` is for ``--general`` too (H = 512 on the arxiv plan,
     the wide widths), positive only, and still refused without a mode that
@@ -1231,17 +1269,17 @@ def test_full_warp_groups_are_bitwise_repeatable_on_card(cuda_device, act,
 @pytest.mark.parametrize("act", ["centered_relu", "softmax"])
 def test_general_layouts_past_256_on_card(cuda_device, act):
     """The path of each general kernel past H = 256 (``ell_general_layout``
-    on aligned tables): at 512 #1r, #3 and #4r and their edge forms on
-    groups of the whole warp, GeneralLayout(64, 32, 1, 2, 1) in bf16 and
-    (128, 32, 1, 4, 1) in f32; #5 and #6 on the first design's wide path,
+    on aligned tables): at 512 #1r, #3 and #4r and their edge forms and
+    #5 on groups of the whole warp, GeneralLayout(64, 32, 1, 2, 1) in bf16
+    and (128, 32, 1, 4, 1) in f32; #6 on the first design's wide path,
     WideLayout(16, 1); past 512 every kernel on the
     wide path's passes, WideLayout(8, n); and H = 300 in bf16 (rows that
     are not whole 16-byte chunks) the first design's wide path for all."""
     tact, d = ACTS[act], cuda_device
     group = {"ell_act_reduce_rowwise", "ell_src_bwd_rowwise",
              "ell_act_reduce_rowwise_edge", "ell_src_bwd_rowwise_edge",
-             "ell_geq_reduce", "ell_geq_reduce_edge"}
-    names = sorted(group | {"ell_src_bwd_fused", "ell_act_reduce_bwd"})
+             "ell_geq_reduce", "ell_geq_reduce_edge", "ell_src_bwd_fused"}
+    names = sorted(group | {"ell_act_reduce_bwd"})
     for h, dt in ((512, "bf16"), (512, "f32"), (520, "bf16"), (520, "f32"),
                   (1024, "f32"), (300, "bf16")):
         tdt = DTYPES[dt]
@@ -1262,6 +1300,85 @@ def test_general_layouts_past_256_on_card(cuda_device, act):
                 want = WideLayout(8, -(-h // 256))
             assert lay == want, (name, h, dt, lay)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["centered_relu", "softmax"])
+@pytest.mark.parametrize("h,dt", FULL_WARP_CASES)
+def test_fused_full_warp_groups_match_plain_on_card(cuda_device, h, dt, act):
+    """#5 past H = 256 on the awkward plans (a part-full last run of rows,
+    zero-scale slots and a multi-slot row all zero, budgets off multiples
+    of 8, rows longer than 32 slots) against its plain version at BWD_TOL,
+    the rows holding a centered_relu near gate left out (two orders of the
+    mean's sum may set such a gate apart), on #4r's full-warp layout; and
+    its rows are #4r's bits on the same eq, g and ek: #5 runs #4r's lane
+    groups on the two halves of its [N, 2H] rows."""
+    d, tdt, tact = cuda_device, DTYPES[dt], ACTS[act]
+    fg, scales, rng = awkward_plan(d)
+    eq, ek, g = (rng.normal(size=(fg.n_pad, h)).astype(np.float32)
+                 for _ in range(3))
+    splan = fg.src_plan
+    eqt, gt, ekd = _t(eq, tdt, d), _t(g, tdt, d), _t(ek, device=d)
+    both = torch.cat([eqt, gt], 1)
+    rest = (ekd, fg.src_slot_dstnode, scales[1], splan.row_key,
+            splan.row_ptr, tact)
+    reset_launch_counts()
+    out = ell_src_bwd_fused(both, *rest)
+    rows4 = ell_src_bwd_rowwise(eqt, gt, *rest)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.items() if v} == {
+        "ell_src_bwd_fused": 1, "ell_src_bwd_rowwise": 1}
+    assert torch.equal(out, rows4)
+    keep = ~geq_gate_rows(splan, fg.src_slot_dstnode, ekd, eqt, scales[1],
+                          tact)
+    torch.testing.assert_close(
+        out[keep], ell_src_bwd_fused_plain(both, *rest)[keep], **BWD_TOL)
+    lay = ell_general_layout("ell_src_bwd_fused", h, tdt, tact, both, ekd,
+                             out)
+    assert lay == full_warp_layout("ell_src_bwd_fused", h, dt), (h, dt, lay)
+    assert lay == ell_general_layout("ell_src_bwd_rowwise", h, tdt, tact,
+                                     eqt, gt, ekd, rows4)
+    assert lay.group_width == 32, lay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("act", ["centered_relu", "leaky_relu", "tanh",
+                                 "gelu"])
+def test_fused_is_rowwise_bits_at_512_on_card(cuda_device, act, dt):
+    """#5 at H = 512 gives #4r's bits on the same eq, g and ek under a
+    row-wise sigma (both on groups of the whole warp), and two launches of
+    #5 give the same bits under every sigma, on a graph of 4,000 nodes and
+    40,000 edges; an elementwise sigma (#4r takes none) takes the groups
+    too, but leaky_relu and tanh in f32 the first design (which ran
+    faster there), within BWD_TOL of its plain version."""
+    rng = np.random.default_rng(13)
+    n, e, d, h = 4000, 40000, cuda_device, 512
+    fg = tell.build_fast_graph(
+        build_graph(rng.integers(0, n, e), rng.integers(0, n, e), n,
+                    device=d), max_budget=64)
+    tact = {"centered_relu": ACTS["centered_relu"], "tanh": tell.tanh,
+            "leaky_relu": CARD_ACTS["leaky_relu"], "gelu": tell.gelu()}[act]
+    tdt, splan = DTYPES[dt], fg.src_plan
+    eqt, gt = (_t(rng.normal(size=(fg.n_pad, h)), tdt, d) for _ in range(2))
+    ekd = _t(rng.normal(size=(fg.n_pad, h)), device=d)
+    both = torch.cat([eqt, gt], 1)
+    rest = (ekd, fg.src_slot_dstnode, fg.src_slot_scales["sym"],
+            splan.row_key, splan.row_ptr, tact)
+    first, second = ell_src_bwd_fused(both, *rest), \
+        ell_src_bwd_fused(both, *rest)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    lay = ell_general_layout("ell_src_bwd_fused", h, tdt, tact, both, ekd,
+                             first)
+    first_design = dt == "f32" and act in ("leaky_relu", "tanh")
+    assert lay == (None if first_design else full_warp_layout(
+        "ell_src_bwd_fused", h, dt)), lay
+    if tact.diagonal:
+        torch.testing.assert_close(
+            first, ell_src_bwd_fused_plain(both, *rest), **BWD_TOL)
+    else:
+        assert torch.equal(first, ell_src_bwd_rowwise(eqt, gt, *rest))
 
 
 # #3 past H = 256: lane groups of the whole warp on whole 16-byte chunks up

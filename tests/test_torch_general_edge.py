@@ -672,22 +672,26 @@ def general_runs(c, act):
     }
 
 
-# #1r, #3 and #4r and their edge forms: the kernels whose lane groups
-# widen to the whole warp past H = 256, up to 512
+# #1r, #3 and #4r and their edge forms, and #5: the kernels whose lane
+# groups widen to the whole warp past H = 256, up to 512
 FULL_WARP = ("ell_act_reduce_rowwise", "ell_act_reduce_rowwise_edge",
              "ell_geq_reduce", "ell_geq_reduce_edge",
-             "ell_src_bwd_rowwise", "ell_src_bwd_rowwise_edge")
+             "ell_src_bwd_rowwise", "ell_src_bwd_rowwise_edge",
+             "ell_src_bwd_fused")
 
 
 def _want_path(name, act, h, dt, aligned):
     """The path the entries choose: "group" for the lane-group path (a
     row-wise sigma, or any in #5, on whole, aligned 16-byte chunks up to H
-    = 256, and up to 512 in #1r, #3 and #4r and their edge forms), "wide" for
-    a row-wise sigma past 256 that it does not take, None for the first
-    design."""
+    = 256, and up to 512 in #1r, #3 and #4r and their edge forms and in #5,
+    but #5 in f32 under leaky_relu or tanh), "wide" for a row-wise sigma
+    past 256 that it does not take, None for the first design."""
     group = not act.diagonal or name == "ell_src_bwd_fused"
     whole = h * (2 if dt == "bf16" else 4) % 16 == 0
     most = 512 if name in FULL_WARP else 256
+    if (name == "ell_src_bwd_fused" and dt == "f32"
+            and act.name in ("leaky_relu", "tanh")):
+        most = 256
     if group and aligned and whole and h <= most:
         return "group"
     return "wide" if not act.diagonal and h > 256 else None
